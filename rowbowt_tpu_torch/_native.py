@@ -1,0 +1,82 @@
+"""Build-on-first-use of the port's shared libraries.
+
+The host library (SA-IS and the FASTQ batch reader, from the repo's
+`native/` sources) is compiled with g++, and the CUDA kernels (from
+`rowbowt_tpu_torch/csrc/`) with nvcc, into `rowbowt_tpu_torch/_build/`,
+which git ignores.  Each library's file name carries a hash of its sources
+and its compile command, so an edited source or flag builds anew and a stale
+library is never loaded.  A compile writes a temporary file and renames it
+into place, so processes that build at the same time (test workers) never
+load a half-written library.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+REPO_DIR = os.path.dirname(PKG_DIR)
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NATIVE_DIR = os.path.join(REPO_DIR, "native")
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+
+
+class BuildError(RuntimeError):
+    """A compiler was missing or refused a source."""
+
+
+def build_shared(name: str, cmd: list[str], sources: list[str],
+                 libs: tuple[str, ...] = ()) -> tuple[str, str]:
+    """Compile `sources` with `cmd` into a shared library; returns (path,
+    compiler output).  The output is "" when the library was already built."""
+    h = hashlib.sha256(" ".join(cmd + list(libs)).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run([*cmd, "-o", tmp, *sources, *libs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise BuildError(f"{cmd[0]} failed building {name} "
+                             f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+def find_tool(name: str, fallback: str | None = None) -> str:
+    path = shutil.which(name)
+    if path is None and fallback is not None and os.path.exists(fallback):
+        path = fallback
+    if path is None:
+        raise BuildError(f"{name} not found on PATH")
+    return path
+
+
+def build_host_library() -> tuple[str, str]:
+    """SA-IS plus, where zlib links, the FASTQ batch reader."""
+    cmd = [find_tool("g++"), "-O3", "-std=c++17", "-fPIC", "-shared"]
+    sais = os.path.join(NATIVE_DIR, "sais.cpp")
+    reader = os.path.join(NATIVE_DIR, "fastq_reader.cpp")
+    try:
+        return build_shared("librbt_host", cmd, [sais, reader], libs=("-lz",))
+    except BuildError:
+        return build_shared("librbt_sais", cmd, [sais])
+
+
+def build_cuda_library() -> tuple[str, str]:
+    """The hand-written Hopper kernels of csrc/, for sm_90a."""
+    nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+    return build_shared("librbt_cuda", cmd, [os.path.join(CSRC_DIR, "lf.cu")])

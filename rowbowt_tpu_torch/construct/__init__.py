@@ -1,0 +1,10 @@
+from rowbowt_tpu_torch.construct.panel import Marker, Panel
+from rowbowt_tpu_torch.construct.sa import suffix_array
+from rowbowt_tpu_torch.construct.build import build_index
+
+__all__ = [
+    "Marker",
+    "Panel",
+    "suffix_array",
+    "build_index",
+]

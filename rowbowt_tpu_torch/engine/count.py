@@ -1,0 +1,30 @@
+"""Batched backward search (count path).
+
+The counterpart of rowbowt_tpu/engine/count.py, itself the batched form of
+RowBowt::find_range (rowbowt.hpp:121-131): B reads start from the ftab
+(search_ftab, rowbowt.hpp:745-758) or the full range, then advance one LF
+step per query char with done-masks.  On a CUDA device the LF loop is the
+hand-written kernel K1 (ops/cuda_lf.py); on the CPU it is the plain torch loop.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.ops import cuda_lf
+
+
+def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
+    """qcodes [B, L] right-aligned int32 (pad = -1), lengths [B], on tx.device.
+
+    Returns (lo [B], hi [B]) with the reference's (1, 0) empty encoding.
+    """
+    lo, hi, startj = cuda_lf.lf_start(tx, qcodes, lengths, use_ftab)
+    return cuda_lf.lf_loop(tx, qcodes, lengths.to(tx.idx_dtype), lo, hi, startj)
+
+
+def counts_from_ranges(lo, hi):
+    """count = hi-lo+1, 0 when empty — matches rb_align's unsigned-wrap print
+    semantics (rb_align.cpp:122) where the (1,0) empty range yields 0."""
+    return torch.where(hi >= lo, hi - lo + 1, torch.zeros_like(lo))

@@ -1,43 +1,61 @@
 #!/usr/bin/env python3
-"""Smoke run of the rowbowt_tpu_torch count path on one NVIDIA GPU.
+"""Smoke run of the rowbowt_tpu_torch rbt_align paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the LF kernel K1 (csrc/lf.cu, nvcc for sm_90a) and the host library
-(SA-IS + FASTQ reader, g++), then:
+Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
+(csrc/gather_probe.cu), both with nvcc for sm_90a, and the host library
+(SA-IS + FASTQ reader, g++), all three side by side, then:
 
   1. device: the card's name and `nvidia-smi` name and power limit;
-  2. build: seconds taken by both builds, and nvcc's register report;
-  3. parity: on the small synthetic panel (1 Mbp reference + 7 haplotypes,
+  2. build: seconds taken by each build, and nvcc's register reports;
+  3. probes: the port's gather probe tool (`python -m
+     rowbowt_tpu_torch.tools.gather_probe`) in this process, with its launch
+     counts read, and once as a subprocess; P1-P3 against their plain twins
+     and the numpy expectations at the tool's shapes, both timed with CUDA
+     events;
+  4. parity: on the small synthetic panel (1 Mbp reference + 7 haplotypes,
      n ~ 8.0 M, ftab k = 10), 65,536 reads (with absent codes, reads shorter
      than k and length-0 lanes) through K1 and through `find_ranges_plain` on
      the card, for the 64B and 96B row layouts with the ftab on and off:
      every (lo, hi) equal; 1,000 of them also equal to a host run-space
      search that never reads the row tables;
-  4. main path: on the chr panel (20 Mbp reference + 7 haplotypes, 60,000
-     variants, n ~ 160 M), the port's `rbt_align` answers 262,144 reads of
-     100 bp in 65,536-read batches; its lines are counted and every range
-     checked against `find_ranges_plain`; the CLI's own load and query
-     seconds and its meter are recorded (reads/s and LF-steps/s over the
-     query seconds alone), its stages are timed one by one, and K1 and the
-     plain loop over the four batches with CUDA events.
+  5. chr: the chr panel (20 Mbp reference + 7 haplotypes, 60,000 variants,
+     n ~ 160 M) built once with SA samples, markers at every site of every
+     document (window 10) and the document list, as bench.py builds it;
+  6. main: the port's `rbt_align` count mode answers 262,144 reads of 100 bp
+     in 65,536-read batches; its lines are counted and every range checked
+     against `find_ranges_plain`; the CLI's own load and query seconds and its
+     meter are recorded, its stages timed one by one, and K1 and the plain
+     loop over the four batches with CUDA events;
+  7. locate: `rbt_align -s` on the first 200,000 of those reads (the last
+     batch is mostly padding); every read's ranges, hit count, distinct
+     positions, text at each position, toehold and document offsets checked
+     on the host; stages timed one by one;
+  8. markers: `rbt_align -m` on the same reads; every read's markers checked
+     against the host CSR without ma_start1; stages timed one by one;
+  9. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
+     steps, against its plain twin and the port's torch phi walk (`locate`).
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
-non-zero and the last line is never printed.  The last two lines are the
-kernel record and {"ok": true, "device": {...}}.  Needs one CUDA card; exits
-non-zero without one.  Uses no network.
+non-zero and the last line is never printed.  The last three lines are the
+kernel record, the card's name and power limit, and {"ok": true, "device":
+{...}}.  Needs one CUDA card; exits non-zero without one.  Uses no network.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -48,10 +66,13 @@ WORK = os.path.join(HERE, ".cache", "chip_smoke")  # gitignored scratch
 SMALL = dict(ref_len=1_000_000, n_haps=7, n_vars=3_000, seed=1234)
 CHR = dict(ref_len=20_000_000, n_haps=7, n_vars=60_000, seed=4321)
 FTAB_K = 10
+MA_WSIZE = 10  # marker window, and the SEP run between documents (bench.py)
 READ_LEN = 100
 N_READS = 262_144
+N_LOCATE = 200_000  # reads of the -s and -m runs: the last batch is 3,392 reads + 62,144 pads
 BATCH = 65_536
 N_HOST = 1_000  # lanes also checked against the host run-space search
+PHI_STEPS = 100
 
 
 def emit(phase: str, **kv) -> None:
@@ -63,25 +84,38 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def panel_text(cfg) -> np.ndarray:
-    """bench.py's synthetic pangenome text (reference + haplotypes carrying
-    random SNPs), each document followed by 10 SEP bytes, one final TERM."""
+def panel(cfg):
+    """bench.py's synthetic pangenome (bench.py:54-94): the reference and its
+    haplotypes carrying random SNPs, each document followed by 10 SEP bytes,
+    one final TERM.  Returns (text, doc_starts, markers): a marker at every
+    variant site of every document, allele 1 where the haplotype carries the
+    drawn alternative base."""
     from rowbowt_tpu_torch.alphabet import SEP_BYTE, TERM_BYTE
+    from rowbowt_tpu_torch.construct.panel import Marker
 
     rng = np.random.default_rng(cfg["seed"])
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     ref = rng.choice(acgt, size=cfg["ref_len"])
     var_pos = np.sort(rng.choice(cfg["ref_len"], size=cfg["n_vars"], replace=False))
     var_alt = rng.choice(acgt, size=cfg["n_vars"])
-    sep = np.full(10, SEP_BYTE, dtype=np.uint8)
-    parts = [ref, sep]
+    sep = np.full(MA_WSIZE, SEP_BYTE, dtype=np.uint8)
+    parts, doc_starts, markers = [], [], []
+
+    def add_doc(seq, alleles):
+        start = sum(len(p) for p in parts)
+        doc_starts.append(start)
+        markers.extend(Marker(text_pos=start + p, seq=0, pos=p, allele=a)
+                       for p, a in zip(var_pos.tolist(), alleles.tolist()))
+        parts.extend([seq, sep])
+
+    add_doc(ref, np.zeros(cfg["n_vars"], dtype=np.int64))
     for _ in range(cfg["n_haps"]):
         hap = ref.copy()
         carry = rng.random(cfg["n_vars"]) < 0.5
         hap[var_pos[carry]] = var_alt[carry]
-        parts += [hap, sep]
+        add_doc(hap, carry.astype(np.int64))
     parts.append(np.array([TERM_BYTE], dtype=np.uint8))
-    return np.concatenate(parts)
+    return np.concatenate(parts), np.array(doc_starts, dtype=np.int64), markers
 
 
 def sample_reads(text: np.ndarray, rng, n_reads: int) -> np.ndarray:
@@ -180,6 +214,24 @@ def cuda_ms(fns, cycles: int) -> float:
     return start.elapsed_time(end) / (cycles * len(fns))
 
 
+def in_turns(plain, kernel, plain_cycles: int, kernel_cycles: int):
+    """(kernel ms, plain ms) per call, timed plain, kernel, kernel, plain."""
+    p = cuda_ms(plain, plain_cycles)
+    k = (cuda_ms(kernel, kernel_cycles) + cuda_ms(kernel, kernel_cycles)) / 2
+    return k, (p + cuda_ms(plain, plain_cycles)) / 2
+
+
+@contextlib.contextmanager
+def timed(stages: dict, name: str):
+    """Host-clock seconds of the block, closed by a device synchronize."""
+    import torch
+
+    t = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    stages[name] = time.perf_counter() - t
+
+
 def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max().item()) if g.numel() else 0
                for g, w in zip(got, want))
@@ -198,17 +250,76 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """The two nvcc builds and the g++ build, started together."""
     from rowbowt_tpu_torch.construct import sa
-    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf
 
-    t0 = time.perf_counter()
-    cuda_lf.build()
-    t1 = time.perf_counter()
-    check(sa._load_native() is not None, f"host library did not build: {sa._NATIVE_ERROR}")
-    t2 = time.perf_counter()
-    regs = [ln.strip() for ln in cuda_lf.BUILD_LOG.splitlines()
-            if "registers" in ln or "spill" in ln]
-    emit("build", nvcc_s=t1 - t0, host_s=t2 - t1, ptxas=regs)
+    def seconds(fn):
+        t = time.perf_counter()
+        return fn(), time.perf_counter() - t
+
+    builds = {"nvcc_lf": cuda_lf.build, "nvcc_gather_probe": cuda_gather.build,
+              "host": sa._load_native}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        futures = {name: ex.submit(seconds, fn) for name, fn in builds.items()}
+        done = {name: f.result() for name, f in futures.items()}
+    check(done["host"][0] is not None, f"host library did not build: {sa._NATIVE_ERROR}")
+    regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+            for name, log in (("lf", cuda_lf.BUILD_LOG), ("gather_probe", cuda_gather.BUILD_LOG))}
+    emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs)
+
+
+def phase_probes(device) -> dict:
+    """The probe tool's path (counts set to 0 just before, read just after),
+    the tool as a subprocess, then P1-P3 against their plain twins."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_gather as G
+    from rowbowt_tpu_torch.tools import gather_probe as gp
+
+    for name in G.LAUNCHES:
+        G.LAUNCHES[name] = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lines = gp.main(["--device", str(device)])
+    launches = dict(G.LAUNCHES)
+    check(len(lines) == 3 and all(": ok=True " in ln for ln in lines),
+          f"the probe tool printed {lines}")
+    check(all(v > 0 for v in launches.values()), f"a probe kernel never launched: {launches}")
+    proc = subprocess.run([sys.executable, "-m", "rowbowt_tpu_torch.tools.gather_probe"],
+                          cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                          capture_output=True, text=True, timeout=300)
+    sub = proc.stdout.splitlines()
+    check(proc.returncode == 0 and len(sub) == 3 and all(": ok=True " in ln for ln in sub),
+          f"python -m rowbowt_tpu_torch.tools.gather_probe exited {proc.returncode}: "
+          f"{proc.stdout}{proc.stderr[-2000:]}")
+
+    tab_np, idx_np, idxB_np = gp.make_inputs()
+    expect = gp.expectations(tab_np, idx_np, idxB_np)
+    tab = torch.from_numpy(tab_np.reshape(gp.T // 128, 128)).to(device)
+    idx = torch.from_numpy(idx_np).to(device)
+    idxB = torch.from_numpy(idxB_np).to(device)
+    cases = {
+        "gather_rows": (lambda: G.gather_rows(tab, idx), lambda: G.gather_rows_plain(tab, idx), 1),
+        "gather_cols": (lambda: G.gather_cols(tab, idxB),
+                        lambda: G.gather_cols_plain(tab, idxB), 1),
+        "gather_chain": (lambda: G.gather_chain(tab, idx, gp.STEPS),
+                         lambda: G.gather_chain_plain(tab, idx, gp.STEPS), gp.STEPS),
+    }
+    res = {}
+    for (name, (kernel, plain, steps)), want_np in zip(cases.items(), expect):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want])
+        check(err == 0, f"{name} != its plain twin: max |err| {err}")
+        check(np.array_equal(got.cpu().numpy(), want_np), f"{name} != the numpy expectation")
+        k_ms, p_ms = in_turns([plain], [kernel], 20 if steps > 1 else 200, 200)
+        per_elem = steps * got.numel()
+        res[name] = dict(launches=launches[name], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         us_per_step=k_ms * 1e3 / steps, plain_us_per_step=p_ms * 1e3 / steps,
+                         ns_per_elem=k_ms * 1e6 / per_elem, plain_ns_per_elem=p_ms * 1e6 / per_elem)
+    emit("probes", tool=lines, subprocess=sub, **res)
+    return res
 
 
 def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
@@ -221,7 +332,7 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
     from rowbowt_tpu_torch.ops import cuda_lf
 
     t0 = time.perf_counter()
-    text = panel_text(cfg)
+    text = panel(cfg)[0]
     idx = build_index(text, with_sa_samples=False, ftab_k=FTAB_K)
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(cfg["seed"] + 1)
@@ -261,84 +372,103 @@ def write_fastq(path: str, reads: np.ndarray) -> None:
             f.write(b"@r%d\n%s\n+\n%s\n" % (i, reads[i].tobytes(), b"I" * READ_LEN))
 
 
-def phase_main(device, card: dict, cfg=CHR) -> dict:
-    """The port's rbt_align on the chr index, then K1 vs plain timings."""
+def build_chr(cfg=CHR) -> dict:
+    """The chr index, built once for count, locate and markers (as bench.py
+    builds it), saved with the reads' FASTQ files."""
+    from rowbowt_tpu_torch.construct.build import build_index
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    t0 = time.perf_counter()
+    text, doc_starts, markers = panel(cfg)
+    idx = build_index(text, markers=markers, doc_starts=doc_starts,
+                      doc_names=["ref"] + [f"hap{h}" for h in range(cfg["n_haps"])],
+                      ma_wsize=MA_WSIZE, ftab_k=FTAB_K)
+    build_s = time.perf_counter() - t0
+    del markers
+    peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
+    paths = {x: os.path.join(WORK, x) for x in ("idx", "reads.fq", "locate.fq", "out.txt")}
+    t1 = time.perf_counter()
+    idx.save(paths["idx"])
+    save_s = time.perf_counter() - t1
+    reads = sample_reads(text, np.random.default_rng(cfg["seed"] + 1), N_READS)
+    write_fastq(paths["reads.fq"], reads)
+    write_fastq(paths["locate.fq"], reads[:N_LOCATE])
+    npz_gb = sum(os.path.getsize(os.path.join(paths["idx"], f))
+                 for f in os.listdir(paths["idx"])) / 1e9
+    emit("chr", n=idx.n, R=idx.R, M=int(idx.ma_val.shape[0]), docs=len(idx.doc_names),
+         ref_len=cfg["ref_len"], build_s=build_s, peak_rss_gb=peak_rss_gb, save_s=save_s,
+         index_gb=npz_gb, setup_s=time.perf_counter() - t0)
+    return dict(idx=idx, text=text, reads=reads, paths=paths, build_s=build_s)
+
+
+def run_cli(argv: list[str], out_path: str):
+    """The port's rbt_align as a user calls it, stdout to out_path.  Returns
+    ({cli_load_s, cli_query_s, cli_meter, cli_wall_s}, its stdout)."""
+    from rowbowt_tpu_torch.cli import rbt_align
+
+    err_buf = io.StringIO()
+    t = time.perf_counter()
+    with open(out_path, "w") as out, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err_buf):
+        rc = rbt_align.main(argv)
+    wall = time.perf_counter() - t
+    sys.stderr.write(err_buf.getvalue())
+    check(rc == 0, f"rbt_align {' '.join(argv)} exited {rc}")
+    # the CLI's own "<load_s> <query_s>" line and its meter line
+    err_lines = err_buf.getvalue().splitlines()
+    load_s, query_s = (float(x) for x in next(ln for ln in err_lines if ln[:1].isdigit()).split())
+    meter = next(ln for ln in err_lines if ln.startswith("meter:"))
+    with open(out_path) as f:
+        return dict(cli_load_s=load_s, cli_query_s=query_s, cli_meter=meter,
+                    cli_wall_s=wall), f.read()
+
+
+def count_lines(names, lo, hi) -> list[str]:
+    return [f"{name} ({s},{e}), count={e - s + 1 if e >= s else 0}\n"
+            for name, s, e in zip(names, lo.tolist(), hi.tolist())]
+
+
+def phase_main(device, card: dict, chr_: dict) -> dict:
+    """The port's rbt_align count mode on the chr index, then K1 vs plain timings."""
     import torch
 
-    from rowbowt_tpu_torch.cli import rbt_align
     from rowbowt_tpu_torch.cli.common import iter_query_batches
-    from rowbowt_tpu_torch.construct.build import build_index
     from rowbowt_tpu_torch.engine.count import find_ranges
     from rowbowt_tpu_torch.engine.device import TorchIndex
     from rowbowt_tpu_torch.index import RbtIndex
     from rowbowt_tpu_torch.ops import cuda_lf
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
-    t0 = time.perf_counter()
-    text = panel_text(cfg)
-    idx = build_index(text, with_sa_samples=False, ftab_k=FTAB_K)
-    build_s = time.perf_counter() - t0
-    idx_dir, fq, out_path = (os.path.join(WORK, x) for x in ("idx", "reads.fq", "out.txt"))
-    idx.save(idx_dir)
-    reads = sample_reads(text, np.random.default_rng(cfg["seed"] + 1), N_READS)
-    write_fastq(fq, reads)
-    del text, reads
-    setup_s = time.perf_counter() - t0
-
+    idx, paths = chr_["idx"], chr_["paths"]
     # the main path: reset the count, run the CLI, read the count
     cuda_lf.LAUNCHES = 0
-    err_buf = io.StringIO()
-    t1 = time.perf_counter()
-    with open(out_path, "w") as out, contextlib.redirect_stdout(out), \
-            contextlib.redirect_stderr(err_buf):
-        rc = rbt_align.main([idx_dir, fq, "-b", str(BATCH), "--device", str(device)])
-    cli_wall_s = time.perf_counter() - t1
+    cli, out_text = run_cli([paths["idx"], paths["reads.fq"], "-b", str(BATCH),
+                             "--device", str(device)], paths["out.txt"])
     launches = cuda_lf.LAUNCHES
-    sys.stderr.write(err_buf.getvalue())
-    check(rc == 0, f"rbt_align exited {rc}")
-    # the CLI's own "<load_s> <query_s>" line and its meter line
-    err_lines = err_buf.getvalue().splitlines()
-    cli_load_s, cli_query_s = (float(x) for x in
-                               next(ln for ln in err_lines if ln[:1].isdigit()).split())
-    cli_meter = next(ln for ln in err_lines if ln.startswith("meter:"))
     check(launches == N_READS // BATCH, f"K1 launched {launches} times in the main path")
-    with open(out_path) as f:
-        lines = f.read().splitlines()
+    lines = out_text.splitlines(keepends=True)
     check(len(lines) == N_READS, f"rbt_align printed {len(lines)} lines")
 
     # the CLI's stages one by one on the same file (host clock; each device
     # stage ends in a synchronize): where the main path's time goes
     stages = {}
-    t = time.perf_counter()
-    loaded = RbtIndex.load(idx_dir, with_sa=False, with_ma=False, with_dl=False,
-                           with_ft=False)
-    tx = TorchIndex.from_index(loaded, device)
-    torch.cuda.synchronize()
-    stages["load_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    batches = list(iter_query_batches(loaded, fq, BATCH))
-    stages["parse_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
-           for _, qc, lens in batches]
-    torch.cuda.synchronize()
-    stages["h2d_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    ranges = [find_ranges(tx, q, ln) for q, ln in dev]
-    torch.cuda.synchronize()
-    stages["lf_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    host = [(lo.cpu().numpy(), hi.cpu().numpy()) for lo, hi in ranges]
-    stages["d2h_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    text_out = "".join(
-        f"{name} ({s},{e}), count={e - s + 1 if e >= s else 0}\n"
-        for (names, _, _), (lo, hi) in zip(batches, host)
-        for name, s, e in zip(names, lo.tolist(), hi.tolist()))
-    stages["format_s"] = time.perf_counter() - t
-    with open(out_path) as f:
-        check(f.read() == text_out, "rbt_align output != the staged run's lines")
+    with timed(stages, "load_s"):
+        loaded = RbtIndex.load(paths["idx"], with_sa=False, with_ma=False, with_dl=False,
+                               with_ft=False)
+        tx = TorchIndex.from_index(loaded, device)
+    with timed(stages, "parse_s"):
+        batches = list(iter_query_batches(loaded, paths["reads.fq"], BATCH))
+    with timed(stages, "h2d_s"):
+        dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
+               for _, qc, lens in batches]
+    with timed(stages, "lf_s"):
+        ranges = [find_ranges(tx, q, ln) for q, ln in dev]
+    with timed(stages, "d2h_s"):
+        host = [(lo.cpu().numpy(), hi.cpu().numpy()) for lo, hi in ranges]
+    with timed(stages, "format_s"):
+        text_out = "".join("".join(count_lines(names, lo, hi))
+                           for (names, _, _), (lo, hi) in zip(batches, host))
+    check(out_text == text_out, "rbt_align output != the staged run's lines")
 
     # every batch: the CLI's ranges == the plain loop on the card
     plain_out = [cuda_lf.find_ranges_plain(tx, q, ln) for q, ln in dev]
@@ -350,21 +480,19 @@ def phase_main(device, card: dict, cfg=CHR) -> dict:
     # K1 vs the plain loop over the four distinct batches (distinct reads, so
     # the L2 holds only what a real run would reuse), in turns: plain, K1, K1, plain
     n_chars = sum(int(lens.sum()) for _, _, lens in batches)
-    k1 = [lambda q=q, ln=ln: find_ranges(tx, q, ln) for q, ln in dev]
-    plain = [lambda q=q, ln=ln: cuda_lf.find_ranges_plain(tx, q, ln) for q, ln in dev]
-    plain_ms = cuda_ms(plain, 1)
-    k1_ms = (cuda_ms(k1, 5) + cuda_ms(k1, 5)) / 2
-    plain_ms = (plain_ms + cuda_ms(plain, 1)) / 2
+    k1_ms, plain_ms = in_turns([lambda q=q, ln=ln: cuda_lf.find_ranges_plain(tx, q, ln)
+                                for q, ln in dev],
+                               [lambda q=q, ln=ln: find_ranges(tx, q, ln) for q, ln in dev], 1, 5)
     tx96 = TorchIndex.from_index(loaded, device, fb64=False)
     k1_fb96_ms = cuda_ms([lambda q=q, ln=ln: find_ranges(tx96, q, ln) for q, ln in dev], 5)
-    txf = TorchIndex.from_index(idx, device)  # with the ftab start
+    txf = TorchIndex.from_index(dataclasses.replace(loaded, ftab=idx.ftab, ftab_k=idx.ftab_k),
+                                device)  # with the ftab start
     k1_ftab_ms = cuda_ms([lambda q=q, ln=ln: find_ranges(txf, q, ln) for q, ln in dev], 5)
     per_batch = n_chars / len(dev)
-    res = dict(n=idx.n, R=idx.R, ref_len=cfg["ref_len"], build_s=build_s, setup_s=setup_s,
-               reads=N_READS, batch=BATCH, cli_load_s=cli_load_s, cli_query_s=cli_query_s,
-               cli_reads_per_s=N_READS / cli_query_s,
-               cli_lf_steps_per_s=n_chars / cli_query_s, cli_meter=cli_meter,
-               cli_wall_s=cli_wall_s, cli_reads_per_s_with_load=N_READS / cli_wall_s,
+    res = dict(n=idx.n, R=idx.R, reads=N_READS, batch=BATCH, **cli,
+               cli_reads_per_s=N_READS / cli["cli_query_s"],
+               cli_lf_steps_per_s=n_chars / cli["cli_query_s"],
+               cli_reads_per_s_with_load=N_READS / cli["cli_wall_s"],
                launches=launches, max_abs_err=err, nonempty=nonempty, stages=stages,
                table_mb=tx.arrays["fblock64"].numel() * 4 / 1e6,
                k1_ms=k1_ms, plain_ms=plain_ms, k1_fb96_ms=k1_fb96_ms, k1_ftab_ms=k1_ftab_ms,
@@ -374,8 +502,224 @@ def phase_main(device, card: dict, cfg=CHR) -> dict:
                plain_lf_steps_per_s=per_batch / (plain_ms / 1e3),
                card=card["nvidia_smi"])
     emit("main", **res)
-    shutil.rmtree(WORK, ignore_errors=True)
+    res["lines"] = lines
+    res["lo"] = np.concatenate([lo for lo, _ in host])
+    res["hi"] = np.concatenate([hi for _, hi in host])
     return res
+
+
+def parse_locs(lines: list[str]):
+    """(hits per line, positions, doc names, offsets in the doc) of `\tlocs: ` lines."""
+    counts, pos, docs, doff = [], [], [], []
+    for ln in lines:
+        check(ln.startswith("\tlocs: "), f"not a locs line: {ln[:80]!r}")
+        toks = ln[7:].split()
+        counts.append(len(toks))
+        for t in toks:
+            p, rest = t.split("/", 1)
+            d, o = rest.rsplit(":", 1)
+            pos.append(int(p))
+            docs.append(d)
+            doff.append(int(o))
+    return (np.array(counts, dtype=np.int64), np.array(pos, dtype=np.int64), docs,
+            np.array(doff, dtype=np.int64))
+
+
+def check_locs(idx, text, reads, lo, hi, counts, pos, docs, doff) -> None:
+    """Every read's printed occurrences against the text, the SA and the
+    document list, on the host."""
+    n = idx.n
+    sizes = np.where(hi >= lo, hi - lo + 1, 0)
+    check(np.array_equal(counts, sizes), "a read's located hits != its count")
+    rid = np.repeat(np.arange(counts.shape[0]), counts)
+    check(np.unique(rid * n + pos).size == pos.size, "a position repeats within a read")
+    check(((pos >= 0) & (pos < n)).all(), "a position lies outside the text")
+    for a in range(0, pos.size, 1 << 20):  # the text at each position is the read
+        p, r = pos[a:a + (1 << 20)], rid[a:a + (1 << 20)]
+        win = text[np.minimum(p[:, None] + np.arange(READ_LEN)[None, :], n - 1)]
+        check((win == reads[r]).all(), "the text at a located position != the read")
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    found = sizes > 0
+    check(np.array_equal(pos[offs[:-1][found]], idx.kval[hi[found]]),
+          "a read's first position != SA[e] (the toehold)")
+    d = np.searchsorted(idx.doc_starts, pos, side="right") - 1
+    name_id = {name: i for i, name in enumerate(idx.doc_names)}
+    check(np.array_equal(np.array([name_id[x] for x in docs]), d),
+          "a printed document != the doc list's")
+    check(np.array_equal(doff, pos - idx.doc_starts[d]), "a printed doc offset is wrong")
+
+
+def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
+    """The port's rbt_align -s on the first N_LOCATE reads, checked on the host."""
+    import torch
+
+    from rowbowt_tpu_torch.cli import rbt_align
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.locate import (
+        find_ranges_w_toehold, locate_ragged, resolve_docs,
+    )
+    from rowbowt_tpu_torch.index import RbtIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    cuda_lf.LAUNCHES = 0
+    cli, out_text = run_cli([paths["idx"], paths["locate.fq"], "-s", "-b", str(BATCH),
+                             "--device", str(device)], paths["out.txt"])
+    launches = cuda_lf.LAUNCHES
+    n_batches = -(-N_LOCATE // BATCH)
+    check(launches == n_batches, f"K1 launched {launches} times in the -s run")
+    lines = out_text.splitlines(keepends=True)
+    check(len(lines) == 2 * N_LOCATE, f"rbt_align -s printed {len(lines)} lines")
+    check(lines[0::2] == count["lines"][:N_LOCATE], "the -s run's ranges != the count run's")
+    counts, pos, docs, doff = parse_locs(lines[1::2])
+    check_locs(idx, chr_["text"], chr_["reads"][:N_LOCATE], count["lo"][:N_LOCATE],
+               count["hi"][:N_LOCATE], counts, pos, docs, doff)
+
+    stages = {}
+    with timed(stages, "load_s"):
+        loaded = RbtIndex.load(paths["idx"], with_sa=True, with_ma=False, with_dl=True,
+                               with_ft=False)
+        tx = TorchIndex.from_index(loaded, device)
+    with timed(stages, "parse_s"):
+        batches = list(iter_query_batches(loaded, paths["locate.fq"], BATCH))
+    with timed(stages, "h2d_s"):
+        dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device), len(names))
+               for names, qc, lens in batches]
+    with timed(stages, "lf_toehold_s"):
+        ranges = [tuple(t[:nr] for t in find_ranges_w_toehold(tx, q, ln)) for q, ln, nr in dev]
+    with timed(stages, "locate_ragged_s"):
+        located = [locate_ragged(tx, lo, hi, k) for lo, hi, k in ranges]
+    with timed(stages, "resolve_docs_s"):
+        resolved = [tuple(t.cpu().numpy() for t in resolve_docs(tx, torch.from_numpy(flat)
+                                                                .to(device)))
+                    for flat, _ in located]
+    with timed(stages, "format_s"):
+        text_out = "".join(
+            "".join(a + b for a, b in zip(
+                count_lines(names, lo.cpu().numpy(), hi.cpu().numpy()),
+                rbt_align.format_locs(loaded.doc_names, flat, offs, d, o)))
+            for (names, _, _), (lo, hi, _), (flat, offs), (d, o)
+            in zip(batches, ranges, located, resolved))
+    check(out_text == text_out, "rbt_align -s output != the staged run's lines")
+    hits = int(counts.sum())
+    res = dict(reads=N_LOCATE, batch=BATCH,
+               pad_lanes=n_batches * BATCH - N_LOCATE, **cli,
+               cli_reads_per_s=N_LOCATE / cli["cli_query_s"],
+               cli_reads_per_s_with_load=N_LOCATE / cli["cli_wall_s"],
+               hits=hits, cli_hits_per_s=hits / cli["cli_query_s"],
+               located_reads=int((counts > 0).sum()), max_hits_per_read=int(counts.max()),
+               launches=launches, stages=stages, card=card["nvidia_smi"])
+    emit("locate", **res)
+    res["tx"], res["k0"] = tx, ranges[0][2]
+    return res
+
+
+def expected_marker_lines(idx, lo, hi) -> list[str]:
+    """Each range's markers from the host CSR alone (no ma_start1): the
+    entries of rows [lo, hi] are ma_val[searchsorted(ma_row, lo) :
+    searchsorted(ma_row, hi + 1)]."""
+    from rowbowt_tpu_torch.cli.rbt_align import NO_MARKERS
+    from rowbowt_tpu_torch.index import marker_allele, marker_pos
+
+    s = np.searchsorted(idx.ma_row, lo, side="left")
+    e = np.maximum(np.searchsorted(idx.ma_row, hi + 1, side="left"), s)
+    out = []
+    for a, b in zip(s.tolist(), e.tolist()):
+        v = idx.ma_val[a:b]
+        out.append("\tmarkers: " + ("".join(f"{p}/{al} " for p, al in
+                                            zip(marker_pos(v).tolist(),
+                                                marker_allele(v).tolist()))
+                                    if b > a else NO_MARKERS) + "\n")
+    return out
+
+
+def phase_markers(device, card: dict, chr_: dict, count: dict) -> dict:
+    """The port's rbt_align -m on the first N_LOCATE reads, checked on the host."""
+    import torch
+
+    from rowbowt_tpu_torch.cli import rbt_align
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.count import find_ranges
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.index import RbtIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    cuda_lf.LAUNCHES = 0
+    cli, out_text = run_cli([paths["idx"], paths["locate.fq"], "-m", "-b", str(BATCH),
+                             "--device", str(device)], paths["out.txt"])
+    launches = cuda_lf.LAUNCHES
+    n_batches = -(-N_LOCATE // BATCH)
+    check(launches == n_batches, f"K1 launched {launches} times in the -m run")
+    lines = out_text.splitlines(keepends=True)
+    check(len(lines) == 2 * N_LOCATE, f"rbt_align -m printed {len(lines)} lines")
+    check(lines[0::2] == count["lines"][:N_LOCATE], "the -m run's ranges != the count run's")
+    want = expected_marker_lines(idx, count["lo"][:N_LOCATE], count["hi"][:N_LOCATE])
+    check(lines[1::2] == want, "a read's printed markers != the host CSR's")
+    n_markers = sum(len(ln.split()) - 1 for ln in want if not ln.endswith(rbt_align.NO_MARKERS + "\n"))
+
+    stages = {}
+    with timed(stages, "load_s"):
+        loaded = RbtIndex.load(paths["idx"], with_sa=False, with_ma=True, with_dl=False,
+                               with_ft=False)
+        tx = TorchIndex.from_index(loaded, device)
+    with timed(stages, "parse_s"):
+        batches = list(iter_query_batches(loaded, paths["locate.fq"], BATCH))
+    with timed(stages, "h2d_s"):
+        dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device), len(names))
+               for names, qc, lens in batches]
+    with timed(stages, "lf_s"):
+        ranges = [tuple(t[:nr] for t in find_ranges(tx, q, ln)) for q, ln, nr in dev]
+    with timed(stages, "probe_s"):
+        probed = [rbt_align.probe_markers(tx, lo, hi) for lo, hi in ranges]
+    with timed(stages, "format_s"):
+        text_out = "".join(
+            "".join(a + b for a, b in zip(count_lines(names, lo.cpu().numpy(), hi.cpu().numpy()),
+                                          rbt_align.format_markers(vals, cnt)))
+            for (names, _, _), (lo, hi), (vals, cnt) in zip(batches, ranges, probed))
+    check(out_text == text_out, "rbt_align -m output != the staged run's lines")
+    res = dict(reads=N_LOCATE, batch=BATCH, **cli,
+               cli_reads_per_s=N_LOCATE / cli["cli_query_s"],
+               cli_reads_per_s_with_load=N_LOCATE / cli["cli_wall_s"],
+               markers=n_markers, cli_markers_per_s=n_markers / cli["cli_query_s"],
+               reads_with_markers=sum(not ln.endswith(rbt_align.NO_MARKERS + "\n")
+                                      for ln in want),
+               reprobe_width=max(v.shape[1] for v, _ in probed),
+               launches=launches, stages=stages, card=card["nvidia_smi"])
+    emit("markers", **res)
+    return res
+
+
+def phase_phi_chain(device, card: dict, loc: dict) -> int:
+    """P3 over the chr phi1 table from one batch's toeholds, against its plain
+    twin and the port's torch phi walk (locate) on the same lanes."""
+    import torch
+
+    from rowbowt_tpu_torch.engine.locate import locate
+    from rowbowt_tpu_torch.ops import cuda_gather as G
+
+    tx, k = loc["tx"], loc["k0"].contiguous()
+    phi1 = tx.arrays["phi1"]
+    G.check_indices(k, phi1.numel())
+    # a full range per lane, so the walk masks nothing
+    lo, hi = torch.zeros_like(k), torch.full_like(k, tx.n - 1)
+    got = G.gather_chain(phi1, k, PHI_STEPS)
+    want = G.gather_chain_plain(phi1, k, PHI_STEPS)
+    walk = locate(tx, lo, hi, k, max_hits=PHI_STEPS + 1)[0][:, PHI_STEPS]
+    torch.cuda.synchronize()
+    err = max_abs_err([got, got], [want, walk])
+    check(err == 0, f"gather_chain over phi1 != plain / phi walk: max |err| {err}")
+    kernel = [lambda: G.gather_chain(phi1, k, PHI_STEPS)]
+    k_ms, p_ms = in_turns([lambda: G.gather_chain_plain(phi1, k, PHI_STEPS)], kernel, 3, 20)
+    k2_ms, walk_ms = in_turns([lambda: locate(tx, lo, hi, k, max_hits=PHI_STEPS + 1)],
+                              kernel, 3, 20)
+    emit("phi_chain", lanes=k.numel(), steps=PHI_STEPS, table_mb=phi1.numel() * 4 / 1e6,
+         max_abs_err=err, kernel_ms=(k_ms + k2_ms) / 2, plain_ms=p_ms, phi_walk_ms=walk_ms,
+         kernel_us_per_step=(k_ms + k2_ms) / 2 * 1e3 / PHI_STEPS,
+         plain_us_per_step=p_ms * 1e3 / PHI_STEPS,
+         phi_walk_us_per_step=walk_ms * 1e3 / PHI_STEPS, card=card["nvidia_smi"])
+    return err
 
 
 def main() -> int:
@@ -392,13 +736,28 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
+    probes = phase_probes(device)
     par_err = phase_parity(device)
-    res = phase_main(device, card)
-    print(json.dumps({"kernels": [{
-        "name": "lf_count", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
-        "replaces": "rowbowt_tpu/ops/pallas_lf.py:49", "launches": res["launches"],
-        "max_abs_err": max(par_err, res["max_abs_err"]), "ms": res["k1_ms"],
-        "plain_ms": res["plain_ms"]}]}))
+    chr_ = build_chr()
+    count = phase_main(device, card, chr_)
+    loc = phase_locate(device, card, chr_, count)
+    phase_markers(device, card, chr_, count)
+    chain_err = phase_phi_chain(device, card, loc)
+    shutil.rmtree(WORK, ignore_errors=True)
+    kernels = [{"name": "lf_count", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
+                "replaces": "rowbowt_tpu/ops/pallas_lf.py:49", "launches": count["launches"],
+                "max_abs_err": max(par_err, count["max_abs_err"]), "ms": count["k1_ms"],
+                "plain_ms": count["plain_ms"]}]
+    for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
+        p = probes[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "rowbowt_tpu_torch/csrc/gather_probe.cu",
+                        "replaces": f"tools/vmem_gather_probe.py:{line}",
+                        "launches": p["launches"],
+                        "max_abs_err": max(p["max_abs_err"],
+                                           chain_err if name == "gather_chain" else 0),
+                        "ms": p["ms"], "plain_ms": p["plain_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(card["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

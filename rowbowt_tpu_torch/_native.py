@@ -74,9 +74,11 @@ def build_host_library() -> tuple[str, str]:
         return build_shared("librbt_sais", cmd, [sais])
 
 
-def build_cuda_library() -> tuple[str, str]:
-    """The hand-written Hopper kernels of csrc/, for sm_90a."""
+def build_cuda_library(stem: str) -> tuple[str, str]:
+    """One hand-written Hopper kernel source, csrc/<stem>.cu, for sm_90a, into
+    its own library: each source builds with its own nvcc, so the builds can
+    run side by side."""
     nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-    return build_shared("librbt_cuda", cmd, [os.path.join(CSRC_DIR, "lf.cu")])
+    return build_shared(f"librbt_{stem}", cmd, [os.path.join(CSRC_DIR, f"{stem}.cu")])

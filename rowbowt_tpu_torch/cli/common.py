@@ -22,8 +22,8 @@ def eprint(*a):
     print(*a, file=sys.stderr)
 
 
-def pow2_at_least(x: int) -> int:
-    p = 32
+def pow2_at_least(x: int, floor: int = 32) -> int:
+    p = floor
     while p < x:
         p <<= 1
     return p
@@ -49,16 +49,16 @@ def _is_big_dir(path: str) -> bool:
         return False
 
 
-def load_index(prefix: str):
-    """The index as count reads it: no SA samples, markers, document list or
-    ftab, as the reference rb_align loads it without -s/-m (LoadRbwtFlag
-    role, rowbowt_io.hpp:146-189)."""
+def load_index(prefix: str, sa=False, ma=False, dl=False):
+    """Flag-gated index load (LoadRbwtFlag role, rowbowt_io.hpp:146-189): the
+    SA samples, markers and document list only when asked for, and never the
+    ftab, as the reference rb_align loads it."""
     if _is_big_dir(prefix):
         raise NotImplementedError(
             f"{prefix} is a two-level big (n >= 2^31) artifact: not yet ported "
             "in rowbowt_tpu_torch (ROADMAP M6)")
     eprint(f"loading: {prefix}")
-    return RbtIndex.load(prefix, with_sa=False, with_ma=False, with_dl=False, with_ft=False)
+    return RbtIndex.load(prefix, with_sa=sa, with_ma=ma, with_dl=dl, with_ft=False)
 
 
 def device_index(idx: RbtIndex, device):

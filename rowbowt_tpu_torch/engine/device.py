@@ -32,6 +32,14 @@ class TorchIndex:
         return self.arrays["F"].dtype
 
     @property
+    def has_sa(self) -> bool:
+        return "samples_last" in self.arrays
+
+    @property
+    def has_ma(self) -> bool:
+        return "ma_val" in self.arrays
+
+    @property
     def has_ftab(self) -> bool:
         return "ftab" in self.arrays
 

@@ -37,7 +37,7 @@ def build():
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    path, BUILD_LOG = _native.build_cuda_library()
+    path, BUILD_LOG = _native.build_cuda_library("lf")
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rbt_lf_count.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, vp, vp]

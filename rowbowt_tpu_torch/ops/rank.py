@@ -1,11 +1,13 @@
 """Batched rank / LF primitives over the fused-block rank rows, in plain torch.
 
-The counterpart of the count-path subset of rowbowt_tpu/ops/rank.py.  A rank
-reads one row `[8 per-char exclusive checkpoints | packed 4-bit BWT symbols]`,
-takes the checkpoint of `c` and adds a SWAR nibble-match popcount of the
-symbols below the in-block offset; an LF step is two ranks.  These are the
-plain versions the CUDA LF kernel (ops/cuda_lf.py) is held against, and the
-path a CPU tensor takes.
+The counterpart of the count, locate and marker subset of
+rowbowt_tpu/ops/rank.py.  A rank reads one row `[8 per-char exclusive
+checkpoints | packed 4-bit BWT symbols]`, takes the checkpoint of `c` and adds
+a SWAR nibble-match popcount of the symbols below the in-block offset; an LF
+step is two ranks.  These are the plain versions the CUDA LF kernel
+(ops/cuda_lf.py) is held against, and the path a CPU tensor takes.  The
+locate and marker primitives (toehold, phi, doc lookup, marker bounds) are
+one or two gathers over the dense full-SA tables (kval, phi1, ma_start1).
 
 All functions take a TorchIndex `tx` and int vectors on `tx.device`; char
 code < 0 means "absent from alphabet" and produces the empty range (1, 0).
@@ -124,6 +126,63 @@ def lf_step_auto(tx: TorchIndex):
         "rowbowt_tpu_torch runs LF over fblock/fblock64 rows only; the "
         "run-space, occ1 and dense backends are ROADMAP M5, the two-level "
         "fb2 rows of n >= 2^31 indexes ROADMAP M6")
+
+
+def phi_step(tx: TorchIndex, i):
+    """Batched ToeholdSA::phi (toehold_sa.hpp:56-72): one gather via the dense
+    phi1 table (phi(SA[j]) = SA[j-1]).  The result has phi1's dtype."""
+    arr = tx.arrays
+    if "phi1" in arr:
+        return arr["phi1"][torch.clamp(i, 0, tx.n - 1).long()]
+    if "phi_rows" in arr or "phi_at" in arr:
+        raise NotImplementedError(
+            "phi over the big-index bitmap or breakpoint tables is ROADMAP M6")
+    raise NotImplementedError(
+        "phi by predecessor search over pred_pos (indexes without phi1) is ROADMAP M5")
+
+
+def markers_bounds(tx: TorchIndex, lo, hi):
+    """(start offset, count) of the markers at BWT rows [lo, hi]: two gathers
+    via the dense ma_start1 table (ma_start1[i] = markers in rows [0, i))."""
+    arr = tx.arrays
+    if "ma_start1" in arr:
+        ms = arr["ma_start1"]
+        s = ms[torch.clamp(lo, 0, tx.n).long()]
+        e = ms[torch.clamp(hi + 1, 0, tx.n).long()]
+        return s, torch.clamp(e - s, min=0)
+    if any(k in arr for k in ("ma_rec", "ma_cnt64", "ma_off")):
+        raise NotImplementedError(
+            "marker bounds over the big-index run-pack, nibble or bucket tables are ROADMAP M6")
+    raise NotImplementedError(
+        "marker bounds by binary search over ma_row (indexes without ma_start1) are ROADMAP M5")
+
+
+def markers_at_range(tx: TorchIndex, lo, hi, max_k: int):
+    """Batched MarkerArray::at_range: up to max_k packed markers per lane.
+
+    Returns (vals [B, max_k] int64, pad -1; count [B]).  Lanes with empty or
+    invalid ranges return count 0; count may exceed max_k (truncation)."""
+    ma_val = tx.arrays["ma_val"]
+    s, cnt = markers_bounds(tx, lo, hi)
+    offs = torch.arange(max_k, dtype=s.dtype, device=s.device)[None, :]
+    pos = torch.clamp(s[:, None] + offs, max=ma_val.shape[0] - 1)
+    vals = torch.where(offs < cnt[:, None], ma_val[pos.long()], -1)
+    return vals, cnt
+
+
+def doc_of(tx: TorchIndex, i):
+    """Batched DocList lookup: doc id containing text position i.  The
+    positions are cast to the table's dtype for the search and the ids back
+    to i's dtype."""
+    ds = tx.arrays["doc_starts"]
+    return torch.searchsorted(ds, i.to(ds.dtype), right=True).to(i.dtype) - 1
+
+
+def toehold_from_range(tx: TorchIndex, lo, hi):
+    """Toehold of a search state via the invariant k == SA[hi]: one kval
+    gather.  Empty ranges return 0 (rowbowt.hpp:177-180).  Returns lo.dtype."""
+    k = tx.arrays["kval"][torch.clamp(hi, 0, tx.n - 1).long()].to(lo.dtype)
+    return torch.where(hi < lo, torch.zeros_like(k), k)
 
 
 def kmer_codes(tx: TorchIndex, codes):

@@ -1,0 +1,164 @@
+"""The port's locate path (rowbowt_tpu_torch.engine.locate and the toehold,
+phi and doc primitives of ops/rank.py, plain torch on the CPU) == the JAX
+package's, buffer for buffer, on conftest.rand_index and one read batch.
+Every output is an integer, so equality is exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rowbowt_tpu.construct.build import build_index as jax_build
+from rowbowt_tpu.engine import locate as JL
+from rowbowt_tpu.engine.batch import encode_batch as jax_encode
+from rowbowt_tpu.engine.device import DeviceIndex
+from rowbowt_tpu.ops import rank as JR
+from rowbowt_tpu_torch.engine import locate as TL
+from rowbowt_tpu_torch.engine.batch import encode_batch
+from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.ops import rank as TR
+
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _reads(text, seed):
+    """Substrings of 1-12 bases (up to hundreds of hits), substrings with a
+    substitution, random strings (empty ranges), then length-0 pad lanes
+    (the whole BWT as their range)."""
+    rng = np.random.default_rng(seed)
+    acgt_pos = np.flatnonzero(np.isin(text, ACGT))
+    out = []
+    for q in range(40):
+        L = int(rng.integers(1, 13))
+        p = int(rng.choice(acgt_pos[acgt_pos < len(text) - L]))
+        r = text[p:p + L].copy()
+        if q % 5 == 3:
+            r[rng.integers(0, L)] = rng.choice(ACGT)
+        elif q % 5 == 4:
+            r = rng.choice(ACGT, size=L)
+        out.append(bytes(r))
+    return out + [b""] * 3
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["fb64", "fb96"])
+def pair(request, rand_index):
+    """(JAX DeviceIndex, port TorchIndex, qcodes, lengths) over rand_index."""
+    jidx, text = rand_index
+    dx = DeviceIndex.from_index(jidx, fb64=request.param)
+    tx = TorchIndex.from_index(jidx, "cpu", fb64=request.param)
+    reads = _reads(text, seed=31)
+    qc, lens = encode_batch(jidx, reads, pad_to=16)
+    jqc, jlens = jax_encode(jidx, reads, pad_to=16)
+    np.testing.assert_array_equal(qc, jqc)
+    np.testing.assert_array_equal(lens, jlens)
+    return dx, tx, qc, lens
+
+
+def _eq(got, want):
+    for g, w in zip(got, want):
+        g = g.numpy() if isinstance(g, torch.Tensor) else g
+        w = np.asarray(w)
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def _toeholds(pair):
+    dx, tx, qc, lens = pair
+    want = JL.find_ranges_w_toehold(dx, jnp.asarray(qc), jnp.asarray(lens))
+    got = TL.find_ranges_w_toehold(tx, torch.from_numpy(qc), torch.from_numpy(lens))
+    return want, got
+
+
+def test_find_ranges_w_toehold_matches_jax(pair):
+    want, got = _toeholds(pair)
+    _eq(got, want)
+    lo, hi, k = (g.numpy() for g in got)
+    n = pair[1].n
+    assert ((hi < lo) & (k == 0)).any()  # empty ranges: toehold 0
+    assert (hi - lo + 1 > 16).any() and (lo == 0).any() & (hi == n - 1).any()
+
+
+@pytest.mark.parametrize("max_hits", [1, 4, 16])
+def test_locate_matches_jax(pair, max_hits):
+    (jlo, jhi, jk), (lo, hi, k) = _toeholds(pair)
+    dx, tx = pair[:2]
+    want = JL.locate(dx, jlo, jhi, jk, max_hits=max_hits)
+    got = TL.locate(tx, lo, hi, k, max_hits=max_hits)
+    _eq(got, want)
+    assert got[0].shape == (lo.shape[0], max_hits)
+
+
+@pytest.mark.parametrize("max_hits", [None, 3])
+def test_locate_ragged_matches_jax(pair, max_hits):
+    """Unbounded (the pad lanes locate every one of the n positions) and capped."""
+    (jlo, jhi, jk), (lo, hi, k) = _toeholds(pair)
+    dx, tx = pair[:2]
+    want = JL.locate_ragged(dx, jlo, jhi, jk, max_hits=max_hits)
+    got = TL.locate_ragged(tx, lo, hi, k, max_hits=max_hits)
+    _eq(got, want)
+    flat, offs = got
+    sizes = np.diff(offs)
+    assert len(np.unique(sizes)) > 3 and (flat >= 0).all()
+    if max_hits is None:
+        assert sizes.max() == tx.n
+        assert np.array_equal(np.sort(flat[offs[-2]:offs[-1]]), np.arange(tx.n))
+    else:
+        assert sizes.max() == max_hits
+
+
+def test_resolve_docs_matches_jax(pair):
+    (jlo, jhi, jk), (lo, hi, k) = _toeholds(pair)
+    dx, tx = pair[:2]
+    flat, _ = TL.locate_ragged(tx, lo, hi, k)
+    want = JL.resolve_docs(dx, jnp.asarray(flat))
+    got = TL.resolve_docs(tx, torch.from_numpy(flat))
+    _eq(got, want)
+    assert set(got[0].tolist()) == {0, 1, 2}
+
+
+def test_toehold_from_range_matches_jax(pair):
+    """Random rows and ranges, including empty ones and hi = n-1."""
+    dx, tx = pair[:2]
+    rng = np.random.default_rng(32)
+    lo = rng.integers(0, tx.n, size=1024).astype(np.int32)
+    hi = rng.integers(0, tx.n, size=1024).astype(np.int32)
+    lo[:8], hi[:8] = 1, 0
+    hi[8:16] = tx.n - 1
+    want = JR.toehold_from_range(dx, jnp.asarray(lo), jnp.asarray(hi))
+    got = TR.toehold_from_range(tx, torch.from_numpy(lo), torch.from_numpy(hi))
+    _eq([got], [want])
+    assert (got.numpy()[:8] == 0).all() and (got.numpy()[hi < lo] == 0).all()
+
+
+def test_phi_step_matches_jax(pair):
+    """Random positions, with 0 and n-1, chained for a few steps."""
+    dx, tx = pair[:2]
+    rng = np.random.default_rng(33)
+    i = rng.integers(0, tx.n, size=1024).astype(np.int32)
+    i[:2] = 0, tx.n - 1
+    ji, ti = jnp.asarray(i), torch.from_numpy(i)
+    for _ in range(4):
+        ji, ti = JR.phi_step(dx, ji), TR.phi_step(tx, ti)
+        _eq([ti], [ji])
+
+
+def test_phi_step_without_phi1_names_roadmap(pair):
+    tx = pair[1]
+    arrays = {k: v for k, v in tx.arrays.items() if k != "phi1"}
+    bare = TorchIndex(arrays, tx.n, tx.R, tx.A, tx.ma_wsize, tx.ftab_k, tx.acgt_codes,
+                      tx.device)
+    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
+        TR.phi_step(bare, torch.zeros(4, dtype=torch.int32))
+    bare.arrays["phi_at"] = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
+        TR.phi_step(bare, torch.zeros(4, dtype=torch.int32))
+
+
+def test_locate_without_sa_samples_raises(rand_index):
+    """An index built without SA samples has no toehold: -s is refused."""
+    text = rand_index[1]
+    tx = TorchIndex.from_index(jax_build(text, with_sa_samples=False), "cpu")
+    assert not tx.has_sa and "kval" not in tx.arrays
+    q = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
+        TL.find_ranges_w_toehold(tx, q, torch.full((2,), 4, dtype=torch.int32))

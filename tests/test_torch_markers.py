@@ -1,0 +1,104 @@
+"""The port's rb_align -m primitives (markers_bounds, markers_at_range,
+markers_for_ranges; plain torch on the CPU) == the JAX package's, buffer for
+buffer, on conftest.rand_index.  Every output is an integer, so equality is
+exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rowbowt_tpu.engine.device import DeviceIndex
+from rowbowt_tpu.engine.markers import markers_for_ranges as jax_markers_for_ranges
+from rowbowt_tpu.ops import rank as JR
+from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.engine.markers import markers_for_ranges
+from rowbowt_tpu_torch.ops import rank as TR
+
+
+@pytest.fixture(scope="module")
+def pair(rand_index):
+    jidx = rand_index[0]
+    return DeviceIndex.from_index(jidx), TorchIndex.from_index(jidx, "cpu")
+
+
+@pytest.fixture(scope="module")
+def ranges(pair):
+    """Random ranges (some wide enough to hold more than 8 markers), empty
+    (1, 0) ranges, the full range, single rows, and ranges ending at n-1."""
+    n = pair[1].n
+    rng = np.random.default_rng(41)
+    a = rng.integers(0, n, size=512)
+    w = rng.integers(0, 200, size=512)
+    lo = a.astype(np.int32)
+    hi = np.minimum(a + w, n - 1).astype(np.int32)
+    lo[:8], hi[:8] = 1, 0
+    lo[8], hi[8] = 0, n - 1
+    hi[9:40] = lo[9:40]
+    hi[40:48] = n - 1
+    return lo, hi
+
+
+def _eq(got, want):
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_markers_bounds_matches_jax(pair, ranges):
+    dx, tx = pair
+    lo, hi = ranges
+    got = TR.markers_bounds(tx, torch.from_numpy(lo), torch.from_numpy(hi))
+    _eq(got, JR.markers_bounds(dx, jnp.asarray(lo), jnp.asarray(hi)))
+    cnt = got[1].numpy()
+    assert (cnt[:8] == 0).all() and cnt[8] == tx.arrays["ma_val"].shape[0]
+
+
+@pytest.mark.parametrize("max_k", [2, 8, 64])
+def test_markers_at_range_matches_jax(pair, ranges, max_k):
+    """max_k 2 and 8 truncate some lanes (count > max_k), 64 truncates only
+    the full range."""
+    dx, tx = pair
+    lo, hi = ranges
+    got = TR.markers_at_range(tx, torch.from_numpy(lo), torch.from_numpy(hi), max_k)
+    _eq(got, JR.markers_at_range(dx, jnp.asarray(lo), jnp.asarray(hi), max_k))
+    vals, cnt = (g.numpy() for g in got)
+    assert vals.shape == (lo.shape[0], max_k)
+    assert (cnt > max_k).any() and ((cnt > 0) & (cnt <= max_k)).any()
+
+
+@pytest.mark.parametrize("max_k", [2, 64])
+def test_markers_for_ranges_matches_jax(pair, ranges, max_k):
+    dx, tx = pair
+    lo, hi = ranges
+    got = markers_for_ranges(tx, torch.from_numpy(lo), torch.from_numpy(hi), max_k=max_k)
+    _eq(got, jax_markers_for_ranges(dx, jnp.asarray(lo), jnp.asarray(hi), max_k=max_k))
+
+
+def test_markers_at_range_matches_host_csr(pair, ranges):
+    """Against the CSR itself, without ma_start1: the entries of rows
+    [lo, hi] are ma_val[searchsorted(ma_row, lo) : searchsorted(ma_row, hi+1)]."""
+    tx = pair[1]
+    lo, hi = ranges
+    ma_row = tx.arrays["ma_row"].numpy()
+    ma_val = tx.arrays["ma_val"].numpy()
+    vals, cnt = TR.markers_at_range(tx, torch.from_numpy(lo), torch.from_numpy(hi), 4096)
+    for b in range(lo.shape[0]):
+        s = np.searchsorted(ma_row, lo[b], "left")
+        e = max(np.searchsorted(ma_row, hi[b] + 1, "left"), s)
+        assert cnt[b] == e - s
+        np.testing.assert_array_equal(vals[b, :e - s].numpy(), ma_val[s:e])
+
+
+def test_markers_bounds_without_ma_start1_names_roadmap(pair):
+    tx = pair[1]
+    arrays = {k: v for k, v in tx.arrays.items() if k != "ma_start1"}
+    bare = TorchIndex(arrays, tx.n, tx.R, tx.A, tx.ma_wsize, tx.ftab_k, tx.acgt_codes,
+                      tx.device)
+    z = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
+        TR.markers_bounds(bare, z, z)
+    bare.arrays["ma_rec"] = z
+    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
+        TR.markers_bounds(bare, z, z)

@@ -12,8 +12,9 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
   3. probes: the port's gather probe tool (`python -m
      rowbowt_tpu_torch.tools.gather_probe`) in this process, with its launch
      counts read, and once as a subprocess; P1-P3 against their plain twins
-     and the numpy expectations at the tool's shapes, both timed with CUDA
-     events;
+     and the numpy expectations at the tool's shapes, both timed per call
+     with CUDA events; then at the edges of the 16-byte path (ragged, tiny,
+     empty and 4-byte-aligned inputs, P2 widths 1, 3, 100, 128);
   4. parity: on the small synthetic panel (1 Mbp reference + 7 haplotypes,
      n ~ 8.0 M, ftab k = 10), 65,536 reads (with absent codes, reads shorter
      than k and length-0 lanes) through K1 and through `find_ranges_plain` on
@@ -35,7 +36,12 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
   8. markers: `rbt_align -m` on the same reads; every read's markers checked
      against the host CSR without ma_start1; stages timed one by one;
   9. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
-     steps, against its plain twin and the port's torch phi walk (`locate`).
+     steps, against its plain twin and the port's torch phi walk (`locate`);
+ 10. trace: `rbt_align -s --profile` on the reads of phase 7: the same lines,
+     a trace that names K1's kernel, and the card's busy seconds in it
+     against the CLI's query seconds.
+Between phases 3 and 4, device_time: P1-P3 and their twins alone on the
+device (torch.profiler) at the tool's shapes.
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and the last line is never printed.  The last three lines are the
@@ -232,6 +238,47 @@ def timed(stages: dict, name: str):
     stages[name] = time.perf_counter() - t
 
 
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device activity in a Chrome trace
+
+
+def device_events(trace_path: str) -> list[tuple[str, float, float]]:
+    """(name, start us, duration us) of every kernel, copy and memset that a
+    torch.profiler Chrome trace recorded on the card."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
+            if e.get("ph") == "X" and e.get("cat") in GPU_CATS]
+
+
+def busy_us(events) -> float:
+    """Microseconds in which the card ran at least one of the events."""
+    total, end = 0.0, float("-inf")
+    for _, ts, dur in sorted(events, key=lambda e: e[1]):
+        total += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    return total
+
+
+def device_us(fn, calls: int) -> float:
+    """Device time alone per call of fn (its kernels, copies and memsets,
+    from a torch.profiler trace of `calls` calls after one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "device_us.pt.trace.json")
+    prof.export_chrome_trace(path)
+    events = device_events(path)
+    os.remove(path)
+    check(bool(events), "the profiler recorded no device activity")
+    return sum(dur for _, _, dur in events) / calls
+
+
 def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max().item()) if g.numel() else 0
                for g, w in zip(got, want))
@@ -269,9 +316,33 @@ def phase_build() -> None:
     emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs)
 
 
+def probe_cases(device):
+    """({name: (kernel, plain, steps)}, numpy expectations, tab) of P1-P3 at
+    the probe tool's shapes and inputs."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_gather as G
+    from rowbowt_tpu_torch.tools import gather_probe as gp
+
+    tab_np, idx_np, idxB_np = gp.make_inputs()
+    expect = gp.expectations(tab_np, idx_np, idxB_np)
+    tab = torch.from_numpy(tab_np.reshape(gp.T // 128, 128)).to(device)
+    idx = torch.from_numpy(idx_np).to(device)
+    idxB = torch.from_numpy(idxB_np).to(device)
+    cases = {
+        "gather_rows": (lambda: G.gather_rows(tab, idx), lambda: G.gather_rows_plain(tab, idx), 1),
+        "gather_cols": (lambda: G.gather_cols(tab, idxB),
+                        lambda: G.gather_cols_plain(tab, idxB), 1),
+        "gather_chain": (lambda: G.gather_chain(tab, idx, gp.STEPS),
+                         lambda: G.gather_chain_plain(tab, idx, gp.STEPS), gp.STEPS),
+    }
+    return cases, expect, tab_np
+
+
 def phase_probes(device) -> dict:
     """The probe tool's path (counts set to 0 just before, read just after),
-    the tool as a subprocess, then P1-P3 against their plain twins."""
+    the tool as a subprocess, then P1-P3 against their plain twins, timed per
+    call, and at the edges of the 16-byte path."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_gather as G
@@ -294,18 +365,7 @@ def phase_probes(device) -> dict:
           f"python -m rowbowt_tpu_torch.tools.gather_probe exited {proc.returncode}: "
           f"{proc.stdout}{proc.stderr[-2000:]}")
 
-    tab_np, idx_np, idxB_np = gp.make_inputs()
-    expect = gp.expectations(tab_np, idx_np, idxB_np)
-    tab = torch.from_numpy(tab_np.reshape(gp.T // 128, 128)).to(device)
-    idx = torch.from_numpy(idx_np).to(device)
-    idxB = torch.from_numpy(idxB_np).to(device)
-    cases = {
-        "gather_rows": (lambda: G.gather_rows(tab, idx), lambda: G.gather_rows_plain(tab, idx), 1),
-        "gather_cols": (lambda: G.gather_cols(tab, idxB),
-                        lambda: G.gather_cols_plain(tab, idxB), 1),
-        "gather_chain": (lambda: G.gather_chain(tab, idx, gp.STEPS),
-                         lambda: G.gather_chain_plain(tab, idx, gp.STEPS), gp.STEPS),
-    }
+    cases, expect, tab_np = probe_cases(device)
     res = {}
     for (name, (kernel, plain, steps)), want_np in zip(cases.items(), expect):
         got, want = kernel(), plain()
@@ -318,8 +378,76 @@ def phase_probes(device) -> dict:
         res[name] = dict(launches=launches[name], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                          us_per_step=k_ms * 1e3 / steps, plain_us_per_step=p_ms * 1e3 / steps,
                          ns_per_elem=k_ms * 1e6 / per_elem, plain_ns_per_elem=p_ms * 1e6 / per_elem)
-    emit("probes", tool=lines, subprocess=sub, **res)
+    edges = probe_edges(device, tab_np)
+    for name, err in edges.pop("max_abs_err").items():
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    emit("probes", tool=lines, subprocess=sub, edges=edges, **res)
     return res
+
+
+def probe_edges(device, tab_np: np.ndarray) -> dict:
+    """P1-P3 at the edges of the 16-byte path, each equal to its plain twin
+    and to numpy: P1 at ragged and tiny sizes and on the 4-byte-aligned view
+    idx[1:]; P2 at widths 1, 3, 100 and 128 with 1 and 256 rows, and on a
+    4-byte-aligned row-offset view; empty inputs.  Each call with outputs
+    launches its kernel once; an empty one launches nothing."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_gather as G
+
+    rng = np.random.default_rng(7)
+    T = tab_np.size
+    flat = torch.from_numpy(tab_np).to(device)
+    cases = []  # (label, wrapper name, kernel, plain, numpy expectation, the idx used)
+    for B in (0, 1, 3, 4, 5, 32_767, 32_768, 32_769):
+        i = rng.integers(0, T, B, dtype=np.int32)
+        idx = torch.from_numpy(i).to(device)
+        cases.append((f"rows B={B}", "gather_rows", lambda idx=idx: G.gather_rows(flat, idx),
+                      lambda idx=idx: G.gather_rows_plain(flat, idx), tab_np[i], idx))
+    i = rng.integers(0, T, 32_769, dtype=np.int32)
+    view = torch.from_numpy(i).to(device)[1:]
+    cases.append(("rows idx[1:]", "gather_rows", lambda: G.gather_rows(flat, view),
+                  lambda: G.gather_rows_plain(flat, view), tab_np[i[1:]], view))
+    for cols in (1, 3, 100, 128):
+        rows = T // cols
+        tab_c = tab_np[:rows * cols].reshape(rows, cols)
+        tab = flat[:rows * cols].view(rows, cols)
+        # the view idx[1:] of a [257, 3] idx starts 12 bytes past an aligned address
+        for K, skip in ((0, 0), (1, 0), (256, 0)) + (((257, 1),) if cols == 3 else ()):
+            i = rng.integers(0, rows, (K, cols), dtype=np.int32)
+            idx = torch.from_numpy(i).to(device)[skip:]
+            cases.append((f"cols C={cols} K={K - skip}" + (" idx[1:]" if skip else ""),
+                          "gather_cols", lambda tab=tab, idx=idx: G.gather_cols(tab, idx),
+                          lambda tab=tab, idx=idx: G.gather_cols_plain(tab, idx),
+                          tab_c[i[skip:], np.arange(cols)[None, :]], idx))
+    for B in (0, 5):
+        i = rng.integers(0, T, B, dtype=np.int32)
+        idx = torch.from_numpy(i).to(device)
+        want = i.copy()
+        for _ in range(3):
+            want = tab_np[want]
+        cases.append((f"chain B={B}", "gather_chain", lambda idx=idx: G.gather_chain(flat, idx, 3),
+                      lambda idx=idx: G.gather_chain_plain(flat, idx, 3), want, idx))
+    errs = {"gather_rows": 0, "gather_cols": 0, "gather_chain": 0}
+    vector = 0
+    for label, name, kernel, plain, want_np, idx in cases:
+        before = G.LAUNCHES[name]
+        got = kernel()
+        launched = G.LAUNCHES[name] - before
+        want = plain()
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want])
+        check(err == 0, f"{label}: kernel != its plain twin, max |err| {err}")
+        check(got.shape == want.shape and np.array_equal(got.cpu().numpy(), want_np),
+              f"{label}: kernel != the numpy expectation")
+        check(launched == (got.numel() > 0), f"{label}: {launched} launches counted")
+        aligned = idx.data_ptr() % 16 == 0
+        check(aligned != ("idx[1:]" in label) or idx.numel() == 0,
+              f"{label}: idx is {'' if aligned else 'not '}16-byte aligned")
+        vector += aligned and name != "gather_chain" and got.numel() >= G.VEC
+        errs[name] = max(errs[name], err)
+    return dict(cases=len(cases), vector_path_cases=vector, labels=[c[0] for c in cases],
+                max_abs_err=errs)
 
 
 def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
@@ -404,7 +532,7 @@ def build_chr(cfg=CHR) -> dict:
 
 def run_cli(argv: list[str], out_path: str):
     """The port's rbt_align as a user calls it, stdout to out_path.  Returns
-    ({cli_load_s, cli_query_s, cli_meter, cli_wall_s}, its stdout)."""
+    ({cli_load_s, cli_query_s, cli_meter, cli_wall_s}, its stdout, its stderr)."""
     from rowbowt_tpu_torch.cli import rbt_align
 
     err_buf = io.StringIO()
@@ -421,7 +549,7 @@ def run_cli(argv: list[str], out_path: str):
     meter = next(ln for ln in err_lines if ln.startswith("meter:"))
     with open(out_path) as f:
         return dict(cli_load_s=load_s, cli_query_s=query_s, cli_meter=meter,
-                    cli_wall_s=wall), f.read()
+                    cli_wall_s=wall), f.read(), err_buf.getvalue()
 
 
 def count_lines(names, lo, hi) -> list[str]:
@@ -442,7 +570,7 @@ def phase_main(device, card: dict, chr_: dict) -> dict:
     idx, paths = chr_["idx"], chr_["paths"]
     # the main path: reset the count, run the CLI, read the count
     cuda_lf.LAUNCHES = 0
-    cli, out_text = run_cli([paths["idx"], paths["reads.fq"], "-b", str(BATCH),
+    cli, out_text, _ = run_cli([paths["idx"], paths["reads.fq"], "-b", str(BATCH),
                              "--device", str(device)], paths["out.txt"])
     launches = cuda_lf.LAUNCHES
     check(launches == N_READS // BATCH, f"K1 launched {launches} times in the main path")
@@ -564,7 +692,7 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
 
     idx, paths = chr_["idx"], chr_["paths"]
     cuda_lf.LAUNCHES = 0
-    cli, out_text = run_cli([paths["idx"], paths["locate.fq"], "-s", "-b", str(BATCH),
+    cli, out_text, _ = run_cli([paths["idx"], paths["locate.fq"], "-s", "-b", str(BATCH),
                              "--device", str(device)], paths["out.txt"])
     launches = cuda_lf.LAUNCHES
     n_batches = -(-N_LOCATE // BATCH)
@@ -611,7 +739,53 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
                located_reads=int((counts > 0).sum()), max_hits_per_read=int(counts.max()),
                launches=launches, stages=stages, card=card["nvidia_smi"])
     emit("locate", **res)
-    res["tx"], res["k0"] = tx, ranges[0][2]
+    res["tx"], res["k0"], res["out_text"] = tx, ranges[0][2], out_text
+    return res
+
+
+def phase_device_time(device, probes: dict) -> None:
+    """P1-P3 and their twins alone on the device, by torch.profiler, at the
+    probe tool's shapes, right after the probes phase."""
+    cases, _, _ = probe_cases(device)
+    for name, (kernel, plain, steps) in cases.items():
+        calls = 20 if steps > 1 else 200
+        probes[name].update(device_us=device_us(kernel, calls),
+                            plain_device_us=device_us(plain, calls))
+    emit("device_time", **{name: {k: probes[name][k] for k in ("device_us", "plain_device_us")}
+                           for name in cases})
+
+
+def phase_trace(device, card: dict, chr_: dict, loc: dict) -> dict:
+    """`rbt_align -s --profile` on the locate reads, after the timed -s run:
+    the same output, a trace that names K1's kernel, and the card's busy
+    seconds (the union of its kernels, copies and memsets) against the
+    CLI's query seconds."""
+    paths = chr_["paths"]
+    trace_dir = os.path.join(WORK, "trace")
+    cli, out_text, err = run_cli([paths["idx"], paths["locate.fq"], "-s", "-b", str(BATCH),
+                                  "--device", str(device), "--profile", trace_dir],
+                                 paths["out.txt"])
+    check(out_text == loc["out_text"], "rbt_align -s --profile output != the -s run's")
+    check(f"profiler trace written to {trace_dir}" in err.splitlines(),
+          "rbt_align --profile did not report its trace")
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    check(len(traces) == 1, f"expected one trace in {trace_dir}, found {traces}")
+    path = os.path.join(trace_dir, traces[0])
+    events = device_events(path)
+    by_name: dict = {}
+    for name, _, dur in events:
+        by_name[name] = by_name.get(name, 0.0) + dur
+    k1 = [name for name in by_name if "lf_count_kernel" in name]
+    check(bool(k1), "the -s trace names no K1 kernel (lf_count_kernel)")
+    busy_s = busy_us(events) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    res = dict(reads=N_LOCATE, **cli, trace_mb=os.path.getsize(path) / 1e6,
+               device_events=len(events), k1_kernel=k1[0],
+               k1_s=sum(by_name[name] for name in k1) / 1e6, device_busy_s=busy_s,
+               busy_share_of_query=busy_s / cli["cli_query_s"],
+               top_device_s={name[:80]: us / 1e6 for name, us in top},
+               card=card["nvidia_smi"])
+    emit("trace", **res)
     return res
 
 
@@ -647,7 +821,7 @@ def phase_markers(device, card: dict, chr_: dict, count: dict) -> dict:
 
     idx, paths = chr_["idx"], chr_["paths"]
     cuda_lf.LAUNCHES = 0
-    cli, out_text = run_cli([paths["idx"], paths["locate.fq"], "-m", "-b", str(BATCH),
+    cli, out_text, _ = run_cli([paths["idx"], paths["locate.fq"], "-m", "-b", str(BATCH),
                              "--device", str(device)], paths["out.txt"])
     launches = cuda_lf.LAUNCHES
     n_batches = -(-N_LOCATE // BATCH)
@@ -737,12 +911,14 @@ def main() -> int:
     card = phase_device()
     phase_build()
     probes = phase_probes(device)
+    phase_device_time(device, probes)
     par_err = phase_parity(device)
     chr_ = build_chr()
     count = phase_main(device, card, chr_)
     loc = phase_locate(device, card, chr_, count)
     phase_markers(device, card, chr_, count)
     chain_err = phase_phi_chain(device, card, loc)
+    phase_trace(device, card, chr_, loc)
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = [{"name": "lf_count", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
                 "replaces": "rowbowt_tpu/ops/pallas_lf.py:49", "launches": count["launches"],
@@ -756,7 +932,8 @@ def main() -> int:
                         "launches": p["launches"],
                         "max_abs_err": max(p["max_abs_err"],
                                            chain_err if name == "gather_chain" else 0),
-                        "ms": p["ms"], "plain_ms": p["plain_ms"]})
+                        "ms": p["ms"], "plain_ms": p["plain_ms"],
+                        "device_us": p["device_us"], "plain_device_us": p["plain_device_us"]})
     print(json.dumps({"kernels": kernels}))
     print(card["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,15 @@ Load time and query time go to stderr as "<load_s> <query_s>"
 
 On a CUDA device the LF loop is the hand-written kernel K1; `--device cpu`
 runs the plain torch loop.  Locate and markers run on the real reads of each
-batch only, never on the length-0 lanes that pad the last batch.
+batch only, never on the length-0 lanes that pad the last batch.  `-o` and
+`-x` are accepted and unused, as in the JAX CLI; `--profile DIR` writes a
+torch.profiler trace of the query loop to DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 import numpy as np
@@ -40,13 +43,22 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="rbt_align", description=__doc__)
     p.add_argument("inpre", help="index prefix (directory)")
     p.add_argument("fastq")
+    p.add_argument("-o", "--output-prefix", dest="outpre", default=None)
     p.add_argument("-s", "--sam", action="store_true",
                    help="also locate (loads toehold SA + doc list)")
     p.add_argument("-m", "--markers", action="store_true",
                    help="also report markers over the final range")
+    p.add_argument("-x", "--fbb", action="store_true",
+                   help="accepted for reference-CLI parity; the index "
+                        "self-describes its backend, so this is a no-op here "
+                        "(rank-only -x indexes simply lack the toehold SA)")
     p.add_argument("-b", "--batch-size", type=int, default=4096)
     p.add_argument("--max-hits", type=int, default=None,
                    help="cap located occurrences (default: unbounded)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the query loop to DIR "
+                        "(a Chrome trace, with the card's kernels and copies on "
+                        "a CUDA device; view with Perfetto or chrome://tracing)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the index and the queries "
                         "(default cuda; an error when CUDA is absent)")
@@ -73,7 +85,12 @@ def main(argv=None):
 
     out = sys.stdout
     t_query = Timer()
-    n_reads, n_chars = _query_loop(args, idx, tx, out)
+    with contextlib.ExitStack() as stack:  # the trace flushes even if the loop raises
+        if args.profile:
+            stack.enter_context(profile_to(args.profile, device))
+        n_reads, n_chars = _query_loop(args, idx, tx, out)
+    if args.profile:
+        eprint(f"profiler trace written to {args.profile}")
     query_s = t_query.lap()
     # the reference's "<load_s> <query_s>" stderr line (rb_align.cpp:164-192),
     # plus the reads/s and LF-steps/s meter
@@ -82,6 +99,17 @@ def main(argv=None):
         eprint(f"meter: {n_reads/query_s:,.0f} reads/s, "
                f"{n_chars/query_s/1e6:,.1f} M LF-steps/s")
     return 0
+
+
+def profile_to(trace_dir: str, device: torch.device):
+    """A torch.profiler context that writes a Chrome trace
+    (<host>_<pid>.<ns>.pt.trace.json) into trace_dir when it exits: host ops,
+    plus the card's kernels and copies on a CUDA device."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=activities, on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
 
 
 def locate_hits(tx, lo, hi, k, max_hits):

@@ -7,13 +7,42 @@
 //   P3 gather_chain <- main.runC / kernelC (:92-107): steps dependent gathers i <- tab[i]
 //
 // On the TPU the probes measured which in-VMEM gather forms Mosaic lowers and
-// at what rate.  Here the table lives in device memory (4 MB at the probe's
-// shape: inside the 50 MB L2), and each probe is one thread per output
-// element.  P1 and P2 are bound by the rate of independent 4-byte random
-// loads; P3 by the latency of a chain of dependent loads, one per step, so
+// at what rate.  Here the table lives in device memory: 4 MB at the probe's
+// shape, inside the 50 MB L2.
+//
+// P1 and P2 (one kernel, gather_vec_kernel).  At the probe's 32,768 outputs a
+// call touches about 1 MB of 32-byte L2 sectors, so bandwidth does not bound
+// it.  What does: the launch itself, then two dependent latencies per output
+// (the index load, then a random 4-byte table load).  On an H100 (80GB HBM3,
+// 700 W; CUPTI kernel times) an empty kernel of the same grid takes about
+// 0.83 us, the index load and store alone 1.06 us, the gather 1.5 us.  From
+// about a million outputs the rate of random L2 sectors bounds it instead
+// (2,097,152 outputs in 18 us).  The design:
+//   - each thread takes kVec = 4 consecutive outputs: one 16-byte index load,
+//     four independent table loads in flight, one 16-byte store.  A warp thus
+//     covers 128 outputs (a whole P2 row at 128 columns), with a quarter of
+//     the index and store instructions of one thread per output;
+//   - table loads take the read-only path without allocating in L1
+//     (ld.global.nc.L1::no_allocate): a random row is not read again, so an
+//     L1 line would only evict another.  __ldg and __ldcs measured the same,
+//     and staging the loads through shared memory with 4-byte cp.async (which
+//     must allocate in L1) 1-3% slower;
+//   - the wrapper picks the block size from the card's SM count
+//     (ops/cuda_gather.launch_plan): the least multiple of 32 with which one
+//     block per SM covers the grid, so a short grid spreads over as many SMs
+//     as it can (64 threads at the probe's shape: 128 blocks), and a long one
+//     runs 256-thread blocks.  Larger blocks at the probe's shape were slower
+//     (256 threads: +16%).
+// The 16-byte path needs idx and out 16-byte aligned.  The wrapper's output
+// always is; a view such as idx[1:] is only 4-byte aligned, and then every
+// element takes one thread (groups = 0), as do the n % 4 elements after the
+// last whole group.  P2's column is each element's flat index modulo `cols`,
+// so a group may cross a row and any width is exact.
+//
+// P3 is bound by the latency of a chain of dependent loads, one per step, so
 // its design keeps the whole step loop inside the thread (as the LF kernel
 // keeps its L loop) and relies on many resident threads to keep loads in
-// flight.  Loads go through the read-only path (__ldg).
+// flight.
 //
 // P1 and P3 keep the TPU kernel's row/column split of the index, row i >> 7
 // of 128 columns and column i & 127: over a contiguous table that is the flat
@@ -31,34 +60,57 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kVec = 4;             // outputs per thread on the 16-byte path
+constexpr int kMaxThreads = 256;    // P1/P2 block size bound (launch_plan's)
+constexpr int kChainThreads = 256;  // P3 block size
+
+__device__ __forceinline__ int32_t load_table(const int32_t* p) {
+  int32_t v;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// The table offset of index i at column l (P2), advancing l along the flat
+// output; P1's offset is i itself.
+template <bool kCols>
+__device__ __forceinline__ int64_t offset(int32_t i, int& l, int cols) {
+  if (!kCols) return i;
+  const int64_t a = (int64_t)i * cols + l;
+  if (++l == cols) l = 0;
+  return a;
+}
+
+// Threads [0, groups) take outputs [4t, 4t + 4) on the 16-byte path; threads
+// [groups, groups + n - 4 * groups) take the remaining outputs one each.
+template <bool kCols>
+__global__ void __launch_bounds__(kMaxThreads)
+gather_vec_kernel(const int32_t* __restrict__ tab,
+                  const int32_t* __restrict__ idx, int32_t* __restrict__ out,
+                  int n, int groups, int cols) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < groups) {
+    const int4 i = __ldg(reinterpret_cast<const int4*>(idx) + t);
+    int l = kCols ? (int)(t * kVec % cols) : 0;
+    int4 v;
+    v.x = load_table(tab + offset<kCols>(i.x, l, cols));
+    v.y = load_table(tab + offset<kCols>(i.y, l, cols));
+    v.z = load_table(tab + offset<kCols>(i.z, l, cols));
+    v.w = load_table(tab + offset<kCols>(i.w, l, cols));
+    reinterpret_cast<int4*>(out)[t] = v;
+    return;
+  }
+  const int64_t e = t + (int64_t)(kVec - 1) * groups;
+  if (e >= n) return;
+  int l = kCols ? (int)(e % cols) : 0;
+  out[e] = load_table(tab + offset<kCols>(idx[e], l, cols));
+}
 
 __device__ __forceinline__ int32_t row_col(const int32_t* __restrict__ tab,
                                            int32_t i) {
   return __ldg(tab + ((size_t)(i >> 7) << 7) + (i & 127));
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const int32_t* __restrict__ tab,
-                   const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-                   int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) out[b] = row_col(tab, idx[b]);
-}
-
-// One thread per (k, l); consecutive threads take consecutive l, so a warp's
-// index loads and output stores are coalesced and only the table loads scatter.
-__global__ void __launch_bounds__(kThreads)
-gather_cols_kernel(const int32_t* __restrict__ tab,
-                   const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-                   int K, int cols) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (size_t)K * cols) return;
-  const int l = (int)(e % cols);
-  out[e] = __ldg(tab + (size_t)idx[e] * cols + l);
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kChainThreads)
 gather_chain_kernel(const int32_t* __restrict__ tab,
                     const int32_t* __restrict__ idx, int32_t* __restrict__ out,
                     int B, int steps) {
@@ -69,8 +121,22 @@ gather_chain_kernel(const int32_t* __restrict__ tab,
   out[b] = i;
 }
 
-unsigned blocks_for(size_t elems) {
-  return (unsigned)((elems + kThreads - 1) / kThreads);
+template <bool kCols>
+int launch_vec(const void* tab, const void* idx, void* out, int64_t n,
+               int groups, int cols, int threads, void* stream) {
+  if (n < 0 || n > INT32_MAX || groups < 0 || groups > n / kVec ||
+      threads < 32 || threads > kMaxThreads || threads % 32 ||
+      (groups && ((uintptr_t)idx | (uintptr_t)out) % 16))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const int64_t items = n - (int64_t)(kVec - 1) * groups;
+  gather_vec_kernel<kCols>
+      <<<(unsigned)((items + threads - 1) / threads), threads, 0,
+         (cudaStream_t)stream>>>(static_cast<const int32_t*>(tab),
+                                 static_cast<const int32_t*>(idx),
+                                 static_cast<int32_t*>(out), (int)n, groups,
+                                 cols);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -78,34 +144,28 @@ unsigned blocks_for(size_t elems) {
 extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() after the
-// launch (0 on success); an empty output launches nothing.
+// launch (0 on success); an empty output launches nothing, and a negative
+// size, or a plan the kernel cannot take, returns cudaErrorInvalidValue.
+// `groups` and `threads` are ops/cuda_gather.launch_plan's.
 
 int rbt_gather_rows(const void* tab, const void* idx, void* out, int B,
-                    void* stream) {
-  if (B < 0) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  gather_rows_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(tab), static_cast<const int32_t*>(idx),
-      static_cast<int32_t*>(out), B);
-  return (int)cudaGetLastError();
+                    int groups, int threads, void* stream) {
+  return launch_vec<false>(tab, idx, out, B, groups, 1, threads, stream);
 }
 
 int rbt_gather_cols(const void* tab, const void* idx, void* out, int K,
-                    int cols, void* stream) {
+                    int cols, int groups, int threads, void* stream) {
   if (K < 0 || cols < 0) return (int)cudaErrorInvalidValue;
-  if ((size_t)K * cols == 0) return 0;
-  gather_cols_kernel<<<blocks_for((size_t)K * cols), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(tab), static_cast<const int32_t*>(idx),
-      static_cast<int32_t*>(out), K, cols);
-  return (int)cudaGetLastError();
+  return launch_vec<true>(tab, idx, out, (int64_t)K * cols, groups, cols,
+                          threads, stream);
 }
 
 int rbt_gather_chain(const void* tab, const void* idx, void* out, int B,
                      int steps, void* stream) {
   if (B < 0 || steps < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  gather_chain_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+  gather_chain_kernel<<<(unsigned)((B + kChainThreads - 1) / kChainThreads),
+                        kChainThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const int32_t*>(tab), static_cast<const int32_t*>(idx),
       static_cast<int32_t*>(out), B, steps);
   return (int)cudaGetLastError();

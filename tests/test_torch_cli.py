@@ -184,6 +184,52 @@ def test_locate_without_doc_list_matches_jax(align_inputs, capsys):
     assert len(want.splitlines()) == 2 * n_reads and "/?:" in want
 
 
+@pytest.mark.parametrize("flags", [["-x"], ["-o", "OUT"], ["-x", "-s", "-m"],
+                                   ["-o", "OUT", "-s", "-m"]],
+                         ids=["x", "o", "x_s_m", "o_s_m"])
+def test_reference_flags_match_jax(align_inputs, capsys, tmp_path, flags):
+    """-x and -o are accepted and unused, as in the JAX CLI."""
+    dirs, fq, n_reads = align_inputs
+    flags = [str(tmp_path / "out") if f == "OUT" else f for f in flags]
+    (jrc, want, _), (rc, got, _) = _both(capsys, [dirs["idx"], fq, *flags])
+    assert jrc == rc == 0
+    assert got == want
+    assert len(want.splitlines()) == n_reads * (3 if "-s" in flags else 1)
+
+
+def _traces(trace_dir):
+    return sorted(trace_dir.glob("*.pt.trace.json"))
+
+
+def test_profile_writes_a_trace_and_keeps_stdout(align_inputs, capsys, tmp_path):
+    dirs, fq, _ = align_inputs
+    argv = [dirs["idx"], fq, "-s", "-m", "--device", "cpu"]
+    assert rbt_align.main(argv) == 0
+    want = capsys.readouterr().out
+    trace_dir = tmp_path / "trace"
+    assert rbt_align.main([*argv, "--profile", str(trace_dir)]) == 0
+    got = capsys.readouterr()
+    assert got.out == want
+    assert f"profiler trace written to {trace_dir}" in got.err.splitlines()
+    (trace,) = _traces(trace_dir)
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_profile_flushes_when_the_loop_raises(align_inputs, tmp_path, monkeypatch):
+    def failing_loop(*args):
+        torch.arange(4).sum()
+        raise RuntimeError("query loop failed")
+
+    monkeypatch.setattr(rbt_align, "_query_loop", failing_loop)
+    dirs, fq, _ = align_inputs
+    trace_dir = tmp_path / "trace"
+    with pytest.raises(RuntimeError, match="query loop failed"):
+        rbt_align.main([dirs["idx"], fq, "--device", "cpu", "--profile", str(trace_dir)])
+    (trace,) = _traces(trace_dir)
+    assert trace.stat().st_size > 0
+
+
 def test_big_artifact_not_ported(tmp_path):
     (tmp_path / "meta.json").write_text(json.dumps({"format": "rowbowt-tpu-bigindex"}))
     with pytest.raises(NotImplementedError, match="ROADMAP M6"):

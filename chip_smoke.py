@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the rowbowt_tpu_torch rbt_align paths on one NVIDIA GPU.
+"""Smoke run of the rowbowt_tpu_torch rbt_align, rbt_markers and rbt_locs
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -37,11 +38,30 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      against the host CSR without ma_start1; stages timed one by one;
   9. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
      steps, against its plain twin and the port's torch phi walk (`locate`);
- 10. trace: `rbt_align -s --profile` on the reads of phase 7: the same lines,
+ 10. greedy: `rbt_markers -f -b 32768` on the first 65,536 reads (both
+     strands: 131,072 lanes in two batches); every line of the first batch
+     equal to the same CLI's with `--device cpu`, the first 1,000 reads'
+     lines equal to the scalar oracle's (engine/naive); reads/s, seeds/s,
+     markers/s and the CLI's own stage seconds;
+ 11. heuristic: `--heuristic --best-strand-only -y 19 --clear-conflicting
+     --clear-identical` on the same reads, with the strand skip and with
+     RBT_NO_STRAND_SKIP=1: the same lines; the share of reads whose second
+     strand was skipped;
+ 12. lmem: `--lmem` on the first 1,000 reads; the first 100 reads' lines equal
+     to the oracle's;
+ 13. locs: `rbt_locs -b 32768` on the first 65,536 reads with the positional
+     marker index that build_chr saved; the first 1,000 lines equal to the
+     oracle's greedy seeds, longest-seed locate (4 hits) and text-span
+     marker lookup;
+ 14. trace: `rbt_align -s --profile` on the reads of phase 7: the same lines,
      a trace that names K1's kernel, and the card's busy seconds in it
-     against the CLI's query seconds.
+     against the CLI's query seconds;
+ 15. greedy_trace: `rbt_markers -f --profile` on the reads of phase 10: the
+     same lines, the card's busy share, kernel launches per batch and the
+     largest device items.
 Between phases 3 and 4, device_time: P1-P3 and their twins alone on the
-device (torch.profiler) at the tool's shapes.
+device (torch.profiler) at the tool's shapes.  Phases 10-13 count K1's
+launches (their paths are torch ops: 0 expected, not required).
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and the last line is never printed.  The last three lines are the
@@ -66,6 +86,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 WORK = os.path.join(HERE, ".cache", "chip_smoke")  # gitignored scratch
 
 # bench.py's synthetic panel configs: same text recipe and seeds
@@ -79,10 +100,15 @@ N_LOCATE = 200_000  # reads of the -s and -m runs: the last batch is 3,392 reads
 BATCH = 65_536
 N_HOST = 1_000  # lanes also checked against the host run-space search
 PHI_STEPS = 100
+N_GREEDY = 65_536  # reads of the rbt_markers and rbt_locs runs
+GREEDY_BATCH = 32_768  # reads a batch: 65,536 lanes with both strands
+N_ORACLE = 1_000  # reads checked against engine/naive
+N_LMEM = 1_000
+N_LMEM_ORACLE = 100
 
 
 def emit(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0, **kv}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -241,13 +267,14 @@ def timed(stages: dict, name: str):
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device activity in a Chrome trace
 
 
-def device_events(trace_path: str) -> list[tuple[str, float, float]]:
-    """(name, start us, duration us) of every kernel, copy and memset that a
-    torch.profiler Chrome trace recorded on the card."""
+def device_events(trace_path: str, cats=GPU_CATS) -> list[tuple[str, float, float]]:
+    """(name, start us, duration us) of every event of the categories `cats`
+    (by default every kernel, copy and memset) that a torch.profiler Chrome
+    trace recorded on the card."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
-            if e.get("ph") == "X" and e.get("cat") in GPU_CATS]
+            if e.get("ph") == "X" and e.get("cat") in cats]
 
 
 def busy_us(events) -> float:
@@ -513,43 +540,91 @@ def build_chr(cfg=CHR) -> dict:
                       doc_names=["ref"] + [f"hap{h}" for h in range(cfg["n_haps"])],
                       ma_wsize=MA_WSIZE, ftab_k=FTAB_K)
     build_s = time.perf_counter() - t0
+    # the positional marker index of rbt_locs, as `rbt_build -m` writes it
+    pm = markers_by_text_pos(markers)
     del markers
     peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
-    paths = {x: os.path.join(WORK, x) for x in ("idx", "reads.fq", "locate.fq", "out.txt")}
+    paths = {x: os.path.join(WORK, x) for x in ("idx", "reads.fq", "locate.fq", "greedy.fq",
+                                                "greedy_cpu.fq", "lmem.fq", "out.txt")}
     t1 = time.perf_counter()
     idx.save(paths["idx"])
+    pm.save(paths["idx"] + ".midx.npz")
     save_s = time.perf_counter() - t1
     reads = sample_reads(text, np.random.default_rng(cfg["seed"] + 1), N_READS)
     write_fastq(paths["reads.fq"], reads)
     write_fastq(paths["locate.fq"], reads[:N_LOCATE])
+    write_fastq(paths["greedy.fq"], reads[:N_GREEDY])
+    write_fastq(paths["greedy_cpu.fq"], reads[:GREEDY_BATCH])
+    write_fastq(paths["lmem.fq"], reads[:N_LMEM])
     npz_gb = sum(os.path.getsize(os.path.join(paths["idx"], f))
                  for f in os.listdir(paths["idx"])) / 1e9
     emit("chr", n=idx.n, R=idx.R, M=int(idx.ma_val.shape[0]), docs=len(idx.doc_names),
          ref_len=cfg["ref_len"], build_s=build_s, peak_rss_gb=peak_rss_gb, save_s=save_s,
          index_gb=npz_gb, setup_s=time.perf_counter() - t0)
-    return dict(idx=idx, text=text, reads=reads, paths=paths, build_s=build_s)
+    return dict(idx=idx, text=text, reads=reads, paths=paths, build_s=build_s, pm=pm)
 
 
-def run_cli(argv: list[str], out_path: str):
-    """The port's rbt_align as a user calls it, stdout to out_path.  Returns
-    ({cli_load_s, cli_query_s, cli_meter, cli_wall_s}, its stdout, its stderr)."""
-    from rowbowt_tpu_torch.cli import rbt_align
+def markers_by_text_pos(markers):
+    """PosMarkers.from_panel over the panel's markers, packed in bulk."""
+    from rowbowt_tpu_torch.midx import PosMarkers
 
+    cols = {k: np.fromiter((getattr(m, k) for m in markers), np.int64, len(markers))
+            for k in ("text_pos", "seq", "pos", "allele")}
+    packed = (cols["seq"] << 48) | (cols["pos"] << 8) | cols["allele"]  # index.pack_marker
+    return PosMarkers.from_pairs(cols["text_pos"], packed)
+
+
+def run_main(tool: str, argv: list[str], out_path: str):
+    """`python -m rowbowt_tpu_torch.cli.<tool> argv` as a user calls it, in
+    this process, stdout to out_path.  Returns (wall seconds, its stdout, its
+    stderr)."""
+    import importlib
+
+    main_fn = importlib.import_module(f"rowbowt_tpu_torch.cli.{tool}").main
     err_buf = io.StringIO()
     t = time.perf_counter()
     with open(out_path, "w") as out, contextlib.redirect_stdout(out), \
             contextlib.redirect_stderr(err_buf):
-        rc = rbt_align.main(argv)
+        rc = main_fn(argv)
     wall = time.perf_counter() - t
     sys.stderr.write(err_buf.getvalue())
-    check(rc == 0, f"rbt_align {' '.join(argv)} exited {rc}")
+    check(rc == 0, f"{tool} {' '.join(argv)} exited {rc}")
+    with open(out_path) as f:
+        return wall, f.read(), err_buf.getvalue()
+
+
+def run_cli(argv: list[str], out_path: str):
+    """The port's rbt_align.  Returns ({cli_load_s, cli_query_s, cli_meter,
+    cli_wall_s}, its stdout, its stderr)."""
+    wall, out, err = run_main("rbt_align", argv, out_path)
     # the CLI's own "<load_s> <query_s>" line and its meter line
-    err_lines = err_buf.getvalue().splitlines()
+    err_lines = err.splitlines()
     load_s, query_s = (float(x) for x in next(ln for ln in err_lines if ln[:1].isdigit()).split())
     meter = next(ln for ln in err_lines if ln.startswith("meter:"))
-    with open(out_path) as f:
-        return dict(cli_load_s=load_s, cli_query_s=query_s, cli_meter=meter,
-                    cli_wall_s=wall), f.read(), err_buf.getvalue()
+    return dict(cli_load_s=load_s, cli_query_s=query_s, cli_meter=meter,
+                cli_wall_s=wall), out, err
+
+
+def run_seeding_cli(tool: str, argv: list[str], out_path: str, env: dict | None = None):
+    """The port's rbt_markers or rbt_locs, with `env` set in os.environ for
+    the call.  Returns ({cli_load_s, cli_query_s, cli_meter, cli_wall_s,
+    cli_stages}, its stdout, its stderr) from the CLI's "... took: <s>
+    seconds", "meter:" and "stages:" lines."""
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        wall, out, err = run_main(tool, argv, out_path)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    took = [float(ln.split("took: ")[1].split()[0]) for ln in err.splitlines() if " took: " in ln]
+    meter = next(ln for ln in err.splitlines() if ln.startswith("meter:"))
+    stages = json.loads(next(ln for ln in err.splitlines() if ln.startswith("stages: "))[8:])
+    return dict(cli_load_s=took[0], cli_query_s=took[1], cli_meter=meter, cli_wall_s=wall,
+                cli_stages=stages), out, err
 
 
 def count_lines(names, lo, hi) -> list[str]:
@@ -896,6 +971,238 @@ def phase_phi_chain(device, card: dict, loc: dict) -> int:
     return err
 
 
+def read_no(line: str) -> int:
+    """The read number of an output line (names are r<i>)."""
+    return int(line.split(" ", 1)[0].rstrip("\n")[1:])
+
+
+def marker_count(lines: list[str]) -> int:
+    """Markers printed on rbt_markers lines (fields after the fifth, "." none)."""
+    return sum(len(ln.split()) - 5 for ln in lines if not ln.endswith(" .\n"))
+
+
+def oracle_seed_lines(idx, reads: np.ndarray, lmem: bool, wsize=MA_WSIZE, max_range=1000,
+                      max_seeds=8, max_k=32) -> list[str]:
+    """rbt_markers' lines (default filters, -f) for `reads` from the scalar
+    oracle engine/naive: each strand's fn() calls, the seed table cut to
+    max_seeds (greedy) and each seed's markers to their first max_k, then
+    MarkerSeed.print_buf, forward strand first."""
+    from rowbowt_tpu_torch.alphabet import revcomp
+    from rowbowt_tpu_torch.engine import naive
+    from rowbowt_tpu_torch.engine.filters import MarkerSeed, _u64
+
+    out = []
+    for i, r in enumerate(reads):
+        for strand, seq in (("+", r), ("-", revcomp(r))):
+            calls = []
+
+            def fn(rn, q, mk):
+                calls.append((rn, q, [int(x) for x in mk]))
+            codes = idx.alpha.encode(seq).astype(np.int64)
+            if lmem:
+                naive.get_markers_lmems(idx, codes, wsize, max_range, fn)
+            else:
+                naive.get_markers_greedy_seeding(idx, codes, wsize, max_range, fn)
+                calls = calls[:max_seeds]
+            for rn, (qs, qe), mk in calls:
+                if rn[1] < rn[0]:
+                    continue
+                out.append(MarkerSeed(f"r{i}", strand, _u64(rn[1] - rn[0] + 1),
+                                      len(seq) - qs - 1 if strand == "-" else qs,
+                                      _u64(qe - qs + 1), sorted(set(mk[:max_k])))
+                           .print_buf() + "\n")
+    return out
+
+
+def phase_greedy(device, card: dict, chr_: dict) -> dict:
+    """The port's rbt_markers -f on the first N_GREEDY reads: against the CPU
+    run of the first batch and the oracle on N_ORACLE reads; the stage
+    seconds are the CLI's own."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    argv = ["-f", "-b", str(GREEDY_BATCH)]
+    cuda_lf.LAUNCHES = 0
+    cli, out_text, _ = run_seeding_cli(
+        "rbt_markers", [paths["idx"], paths["greedy.fq"], *argv, "--device", str(device)],
+        paths["out.txt"])
+    k1 = cuda_lf.LAUNCHES
+    lines = out_text.splitlines(keepends=True)
+    nums = np.array([read_no(ln) for ln in lines])
+    check(len(lines) > 2 * N_GREEDY and np.all(np.diff(nums) >= 0)
+          and nums[-1] == N_GREEDY - 1, "rbt_markers lines are not in read order")
+
+    cpu, cpu_text, _ = run_seeding_cli(
+        "rbt_markers", [paths["idx"], paths["greedy_cpu.fq"], *argv, "--device", "cpu"],
+        paths["out.txt"])
+    n_first = int((nums < GREEDY_BATCH).sum())
+    check(cpu_text.splitlines(keepends=True) == lines[:n_first],
+          "rbt_markers --device cuda != --device cpu on the first batch")
+    t = time.perf_counter()
+    want = oracle_seed_lines(idx, chr_["reads"][:N_ORACLE], lmem=False)
+    oracle_s = time.perf_counter() - t
+    check(lines[:int((nums < N_ORACLE).sum())] == want,
+          f"rbt_markers != the scalar oracle on the first {N_ORACLE} reads")
+
+    n_markers = marker_count(lines)
+    res = dict(reads=N_GREEDY, lanes=2 * N_GREEDY, batch=GREEDY_BATCH, **cli,
+               cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
+               cli_seeds_per_s=len(lines) / cli["cli_query_s"],
+               cli_markers_per_s=n_markers / cli["cli_query_s"],
+               seeds=len(lines), markers=n_markers,
+               seeds_with_markers=sum(not ln.endswith(" .\n") for ln in lines),
+               cpu_first_batch_lines=n_first, cpu_query_s=cpu["cli_query_s"],
+               cpu_stages=cpu["cli_stages"], oracle_reads=N_ORACLE, oracle_lines=len(want),
+               oracle_s=oracle_s, k1_launches=k1, card=card["nvidia_smi"])
+    emit("greedy", **res)
+    res["out_text"] = out_text
+    return res
+
+
+def phase_heuristic(device, card: dict, chr_: dict) -> dict:
+    """rbt_markers --heuristic --best-strand-only with the strand skip and
+    with RBT_NO_STRAND_SKIP=1 on the greedy reads: the same lines."""
+    from rowbowt_tpu_torch.cli import rbt_markers
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    paths = chr_["paths"]
+    argv = [paths["idx"], paths["greedy.fq"], "--heuristic", "--best-strand-only", "-y", "19",
+            "--clear-conflicting", "--clear-identical", "-b", str(GREEDY_BATCH),
+            "--device", str(device)]
+    second = []  # reads of each compacted second-strand batch
+    real_rc_lanes = rbt_markers.rc_lanes
+
+    def counted(idx, qc, lens):
+        second.append(qc.shape[0])
+        return real_rc_lanes(idx, qc, lens)
+
+    rbt_markers.rc_lanes = counted
+    cuda_lf.LAUNCHES = 0
+    try:
+        cli, skip_text, _ = run_seeding_cli("rbt_markers", argv, paths["out.txt"])
+    finally:
+        rbt_markers.rc_lanes = real_rc_lanes
+    k1 = cuda_lf.LAUNCHES
+    both, both_text, _ = run_seeding_cli("rbt_markers", argv, paths["out.txt"],
+                                         env={"RBT_NO_STRAND_SKIP": "1"})
+    check(skip_text == both_text, "--heuristic: the strand skip changed the lines")
+    lines = skip_text.splitlines(keepends=True)
+    check(bool(lines) and all(" + " in ln or " - " in ln for ln in lines),
+          "--heuristic printed no seed lines")
+    res = dict(reads=N_GREEDY, batch=GREEDY_BATCH, **cli,
+               cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
+               seeds=len(lines), markers=marker_count(lines),
+               second_strand_reads=sum(second), second_strand_batches=second,
+               skipped_second_strand_share=1 - sum(second) / N_GREEDY,
+               no_skip_query_s=both["cli_query_s"],
+               no_skip_reads_per_s=N_GREEDY / both["cli_query_s"],
+               no_skip_stages=both["cli_stages"], k1_launches=k1, card=card["nvidia_smi"])
+    emit("heuristic", **res)
+    return res
+
+
+def phase_lmem(device, card: dict, chr_: dict) -> dict:
+    """rbt_markers --lmem on the first N_LMEM reads; the first N_LMEM_ORACLE
+    reads' lines against the oracle."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    cuda_lf.LAUNCHES = 0
+    cli, out_text, _ = run_seeding_cli(
+        "rbt_markers", [paths["idx"], paths["lmem.fq"], "--lmem", "-b", str(N_LMEM),
+                        "--device", str(device)], paths["out.txt"])
+    k1 = cuda_lf.LAUNCHES
+    lines = out_text.splitlines(keepends=True)
+    nums = np.array([read_no(ln) for ln in lines])
+    check(len(lines) > N_LMEM and np.all(np.diff(nums) >= 0), "--lmem lines out of read order")
+    t = time.perf_counter()
+    want = oracle_seed_lines(idx, chr_["reads"][:N_LMEM_ORACLE], lmem=True)
+    oracle_s = time.perf_counter() - t
+    check(lines[:int((nums < N_LMEM_ORACLE).sum())] == want,
+          f"--lmem != the scalar oracle on the first {N_LMEM_ORACLE} reads")
+    res = dict(reads=N_LMEM, lanes=2 * N_LMEM * READ_LEN, **cli,
+               cli_reads_per_s=N_LMEM / cli["cli_query_s"], seeds=len(lines),
+               markers=marker_count(lines), oracle_reads=N_LMEM_ORACLE,
+               oracle_lines=len(want), oracle_s=oracle_s, k1_launches=k1,
+               card=card["nvidia_smi"])
+    emit("lmem", **res)
+    return res
+
+
+def phase_locs(device, card: dict, chr_: dict) -> dict:
+    """rbt_locs on the greedy reads; the first N_ORACLE lines against the
+    oracle: greedy seeds with samples (min length 19), locate from the
+    longest (4 hits), the markers at text positions [l, l+99]."""
+    from rowbowt_tpu_torch.engine import naive
+    from rowbowt_tpu_torch.index import marker_allele, marker_pos, marker_seq
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, paths, pm = chr_["idx"], chr_["paths"], chr_["pm"]
+    cuda_lf.LAUNCHES = 0
+    cli, out_text, _ = run_seeding_cli(
+        "rbt_locs", [paths["idx"], paths["greedy.fq"], "-b", str(GREEDY_BATCH),
+                     "--device", str(device)], paths["out.txt"])
+    k1 = cuda_lf.LAUNCHES
+    lines = out_text.splitlines(keepends=True)
+    check(len(lines) == N_GREEDY and all(read_no(ln) == i for i, ln in enumerate(lines)),
+          f"rbt_locs printed {len(lines)} lines, not one per read in order")
+    t = time.perf_counter()
+    want = []
+    for i, r in enumerate(chr_["reads"][:N_ORACLE]):
+        lfs = naive.get_seeds_greedy_w_sample(idx, idx.alpha.encode(r).astype(np.int64), 19)
+        parts = [f"r{i}"]
+        for loc in naive.locate_from_longest_seed(idx, 4, lfs):
+            v = pm.at_range(loc, loc + READ_LEN - 1)
+            parts += [f" {a}/{b}/{c}" for a, b, c in zip(
+                marker_seq(v).tolist(), marker_pos(v).tolist(), marker_allele(v).tolist())]
+        want.append("".join(parts) + "\n")
+    oracle_s = time.perf_counter() - t
+    check(lines[:N_ORACLE] == want, f"rbt_locs != the scalar oracle on the first {N_ORACLE} reads")
+    res = dict(reads=N_GREEDY, batch=GREEDY_BATCH, **cli,
+               cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
+               reads_with_markers=sum(len(ln.split()) > 1 for ln in lines),
+               markers=sum(len(ln.split()) - 1 for ln in lines), oracle_reads=N_ORACLE,
+               oracle_s=oracle_s, k1_launches=k1, card=card["nvidia_smi"])
+    emit("locs", **res)
+    return res
+
+
+def phase_greedy_trace(device, card: dict, chr_: dict, greedy: dict) -> dict:
+    """rbt_markers -f --profile on the greedy reads, after every timed phase:
+    the same lines, the card's busy seconds against the CLI's query seconds,
+    kernel launches per batch, and the largest device items."""
+    paths = chr_["paths"]
+    trace_dir = os.path.join(WORK, "greedy_trace")
+    cli, out_text, err = run_seeding_cli(
+        "rbt_markers", [paths["idx"], paths["greedy.fq"], "-f", "-b", str(GREEDY_BATCH),
+                        "--device", str(device), "--profile", trace_dir], paths["out.txt"])
+    check(out_text == greedy["out_text"], "rbt_markers --profile output != the greedy run's")
+    check(f"profiler trace written to {trace_dir}" in err.splitlines(),
+          "rbt_markers --profile did not report its trace")
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    check(len(traces) == 1, f"expected one trace in {trace_dir}, found {traces}")
+    path = os.path.join(trace_dir, traces[0])
+    events = device_events(path)
+    kernels = device_events(path, ("kernel",))
+    check(bool(kernels), "the greedy trace holds no kernel")
+    by_name: dict = {}
+    for name, _, dur in events:
+        by_name[name] = by_name.get(name, 0.0) + dur
+    busy_s = busy_us(events) / 1e6
+    n_batches = -(-N_GREEDY // GREEDY_BATCH)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    res = dict(reads=N_GREEDY, batches=n_batches, **cli, trace_mb=os.path.getsize(path) / 1e6,
+               device_events=len(events), kernel_launches=len(kernels),
+               kernel_launches_per_batch=len(kernels) / n_batches,
+               kernel_s=sum(d for _, _, d in kernels) / 1e6,
+               device_busy_s=busy_s, busy_share_of_query=busy_s / cli["cli_query_s"],
+               busy_share_of_greedy_stage=busy_s / cli["cli_stages"]["greedy"],
+               top_device_s={name[:80]: us / 1e6 for name, us in top},
+               card=card["nvidia_smi"])
+    emit("greedy_trace", **res)
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "rowbowt_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -918,7 +1225,12 @@ def main() -> int:
     loc = phase_locate(device, card, chr_, count)
     phase_markers(device, card, chr_, count)
     chain_err = phase_phi_chain(device, card, loc)
+    greedy = phase_greedy(device, card, chr_)
+    phase_heuristic(device, card, chr_)
+    phase_lmem(device, card, chr_)
+    phase_locs(device, card, chr_)
     phase_trace(device, card, chr_, loc)
+    phase_greedy_trace(device, card, chr_, greedy)
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = [{"name": "lf_count", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
                 "replaces": "rowbowt_tpu/ops/pallas_lf.py:49", "launches": count["launches"],

@@ -7,6 +7,8 @@ is one kval gather of the final range.  locate() is the phi walk
 (ToeholdSA::locate_range, toehold_sa.hpp:37-49) across lanes to a fixed
 max_hits, toehold first then the phi chain; locate_ragged buckets lanes by
 range size on the host so one huge range does not widen every lane.
+find_ranges_w_toehold_chkpnts records the search state every wsize chars,
+and find_locs is the whole-read search plus the phi walk.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from rowbowt_tpu_torch.engine.count import find_ranges
 from rowbowt_tpu_torch.engine.device import TorchIndex
 from rowbowt_tpu_torch.ops import rank as R
+from rowbowt_tpu_torch.ops import update as U
 
 
 def find_ranges_w_toehold(tx: TorchIndex, qcodes, lengths):
@@ -104,3 +107,69 @@ def resolve_docs(tx: TorchIndex, locs):
     """Batched DocList resolve: (doc id, offset in the doc) per text position."""
     d = R.doc_of(tx, locs)
     return d, locs - tx.arrays["doc_starts"][torch.clamp(d, min=0).long()]
+
+
+def find_ranges_w_toehold_chkpnts(tx: TorchIndex, qcodes, lengths, wsize: int):
+    """Batched RowBowt::find_range_w_toehold_chkpnts (rowbowt.hpp:575-611):
+    record the (range, toehold) state every wsize characters along the
+    backward search.
+
+    Returns (clo, chi, ck, cqs, cqe) [B, C] and ncp [B] with C = L//wsize + 1.
+    Checkpoint j of lane b covers query span [cqs, cqe) with BWT range
+    (clo, chi) and toehold ck.  A failed full-read search returns ncp=0 (the
+    reference clears the vector, rowbowt.hpp:586-589).  The loop is the plain
+    LF; every checkpoint's toehold is one kval gather afterwards.
+    """
+    from rowbowt_tpu_torch.engine.seeds import _toehold_by_kval
+
+    _toehold_by_kval(tx, "find_ranges_w_toehold_chkpnts")
+    B, L = qcodes.shape
+    C = L // wsize + 1
+    dt = tx.idx_dtype
+    dev = qcodes.device
+    m = lengths.to(dt)
+    lo = torch.zeros(B, dtype=dt, device=dev)
+    hi = torch.full((B,), tx.n - 1, dtype=dt, device=dev)
+    failed = torch.zeros(B, dtype=torch.bool, device=dev)
+    window_ei = m
+    clo = torch.ones((C, B), dtype=dt, device=dev)
+    chi = torch.zeros((C, B), dtype=dt, device=dev)
+    cqs = torch.zeros((C, B), dtype=dt, device=dev)
+    cqe = torch.zeros((C, B), dtype=dt, device=dev)
+    ncp = torch.zeros(B, dtype=dt, device=dev)
+    lf = R.lf_step_auto(tx)
+
+    def put(rec, lo, hi, qs, qe):
+        slot = torch.clamp(ncp, max=C - 1)
+        for arr, v in ((clo, lo), (chi, hi), (cqs, qs), (cqe, qe)):
+            U.tslot_set(arr, slot, rec, v)
+
+    for j in range(L):
+        c = qcodes[:, L - 1 - j].to(dt)
+        active = (~failed) & (j < m)
+        nlo, nhi = lf(tx, lo, hi, c)
+        fail = active & (nlo > nhi)
+        ok = active & ~fail
+        lo = torch.where(ok, nlo, lo)
+        hi = torch.where(ok, nhi, hi)
+        failed = failed | fail
+        # checkpoint trigger (rowbowt.hpp:595-600): window_ei-(m-i) >= wsize
+        trig = ok & (window_ei - (m - j) >= wsize)
+        put(trig & (ncp < C), lo, hi, m - j, window_ei)
+        ncp = ncp + trig.to(dt)
+        window_ei = torch.where(trig, m - j, window_ei)
+    # final push (rowbowt.hpp:604-608)
+    fin = (~failed) & (hi >= lo) & ((m - 1) % wsize != 0) & (m > 0)
+    put(fin & (ncp < C), lo, hi, 0, m)
+    ncp = ncp + fin.to(dt)
+    ncp = torch.where(failed, 0, ncp)
+    clo, chi = clo.t(), chi.t()
+    return clo, chi, R.toehold_from_range(tx, clo, chi), cqs.t(), cqe.t(), ncp
+
+
+def find_locs(tx: TorchIndex, qcodes, lengths, max_hits: int):
+    """Batched RowBowt::find_locs (rowbowt.hpp:627-631): whole-read toehold
+    search (K1 on a CUDA device) and the phi walk in one call."""
+    lo, hi, k = find_ranges_w_toehold(tx, qcodes, lengths)
+    locs, cnt = locate(tx, lo, hi, k, max_hits=max_hits)
+    return lo, hi, locs, cnt

@@ -162,3 +162,46 @@ def test_locate_without_sa_samples_raises(rand_index):
     q = torch.zeros((2, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP M5"):
         TL.find_ranges_w_toehold(tx, q, torch.full((2,), 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("wsize", [3, 5])
+def test_find_ranges_w_toehold_chkpnts_matches_jax_and_naive(pair, rand_index, wsize):
+    from rowbowt_tpu.engine.naive import find_range_w_toehold_chkpnts as jax_naive_chk
+    from rowbowt_tpu_torch.engine import naive
+
+    dx, tx, qc, lens = pair
+    want = JL.find_ranges_w_toehold_chkpnts(dx, jnp.asarray(qc), jnp.asarray(lens), wsize=wsize)
+    got = TL.find_ranges_w_toehold_chkpnts(tx, torch.from_numpy(qc), torch.from_numpy(lens),
+                                           wsize=wsize)
+    _eq(got, want)
+    clo, chi, ck, cqs, cqe, ncp = (g.numpy() for g in got)
+    jidx, text = rand_index
+    C = clo.shape[1]
+    for b in np.flatnonzero(lens):  # the batched version skips length-0 lanes (m > 0)
+        codes = qc[b, qc.shape[1] - lens[b]:].astype(np.int64)
+        lfs = naive.find_range_w_toehold_chkpnts(jidx, codes, wsize)
+        assert [(l.rn, l.qstart, l.qend, l.ssamp) for l in lfs] == \
+            [(l.rn, l.qstart, l.qend, l.ssamp) for l in jax_naive_chk(jidx, codes, wsize)]
+        assert ncp[b] == len(lfs), b
+        for j, lfd in enumerate(lfs[:C]):
+            assert (clo[b, j], chi[b, j], ck[b, j], cqs[b, j], cqe[b, j]) == (
+                *lfd.rn, lfd.ssamp, lfd.qstart, lfd.qend), (b, j)
+    assert (ncp == 0).any() and (ncp > 1).any()
+
+
+@pytest.mark.parametrize("max_hits", [1, 6])
+def test_find_locs_matches_jax(pair, max_hits):
+    dx, tx, qc, lens = pair
+    want = JL.find_locs(dx, jnp.asarray(qc), jnp.asarray(lens), max_hits=max_hits)
+    got = TL.find_locs(tx, torch.from_numpy(qc), torch.from_numpy(lens), max_hits=max_hits)
+    _eq(got, want)
+    assert (got[3].numpy() == max_hits).any()
+
+
+def test_chkpnts_without_kval_names_roadmap(pair):
+    tx = pair[1]
+    bare = TorchIndex({k: v for k, v in tx.arrays.items() if k != "kval"}, tx.n, tx.R, tx.A,
+                      tx.ma_wsize, tx.ftab_k, tx.acgt_codes, tx.device)
+    q = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
+        TL.find_ranges_w_toehold_chkpnts(bare, q, torch.full((2,), 4, dtype=torch.int32), 3)

@@ -102,3 +102,80 @@ def test_markers_bounds_without_ma_start1_names_roadmap(pair):
     bare.arrays["ma_rec"] = z
     with pytest.raises(NotImplementedError, match="ROADMAP M6"):
         TR.markers_bounds(bare, z, z)
+
+
+def _marker_reads(text, seed):
+    """Substrings of 3-40 bases of the text (some shorter than the window),
+    substrings with a substitution (failed searches), and length-0 lanes."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ok = np.flatnonzero(np.isin(text, acgt))
+    out = []
+    for q in range(48):
+        L = int(rng.integers(3, 41))
+        p = int(rng.choice(ok[ok < len(text) - L]))
+        r = text[p:p + L].copy()
+        if q % 4 == 3:
+            r[rng.integers(0, L)] = rng.choice(acgt)
+        out.append(bytes(r))
+    return out + [b""] * 2
+
+
+@pytest.mark.parametrize("wsize,max_range,max_k", [(7, 1 << 62, 32), (5, 40, 4), (3, 1 << 62, 2)])
+def test_find_ranges_w_markers_matches_jax_and_naive(rand_index, pair, wsize, max_range, max_k):
+    """Buffer-equal to JAX; each lane's packed tail equals the oracle's
+    lf.markers where nothing overflowed, and its last max_k entries where
+    something did."""
+    from rowbowt_tpu.engine.batch import encode_batch as jax_encode
+    from rowbowt_tpu.engine.markers import find_ranges_w_markers as jax_fwm
+    from rowbowt_tpu_torch.engine import naive
+    from rowbowt_tpu_torch.engine.markers import find_ranges_w_markers
+
+    jidx, text = rand_index
+    dx, tx = pair
+    reads = _marker_reads(text, seed=42 + wsize)
+    qc, lens = jax_encode(jidx, reads, pad_to=64)
+    kw = dict(wsize=wsize, max_range=max_range, max_k=max_k)
+    want = jax_fwm(dx, jnp.asarray(qc), jnp.asarray(lens), **kw)
+    got = find_ranges_w_markers(tx, torch.from_numpy(qc), torch.from_numpy(lens), **kw)
+    _eq(got, want)
+    lo, hi, buf, used, over = (g.numpy() for g in got)
+    for b, r in enumerate(reads):
+        lfd = naive.find_range_w_markers(jidx, jidx.alpha.encode(np.frombuffer(r, np.uint8))
+                                         .astype(np.int64), wsize, max_range)
+        assert (lo[b], hi[b]) == lfd.rn, b
+        mk = [int(x) for x in lfd.markers]
+        assert used[b] == min(len(mk), max_k) and over[b] == (len(mk) > max_k), b
+        if not over[b]:
+            assert buf[b, max_k - used[b]:].tolist() == mk, b
+    assert (used > 0).any() and (hi < lo).any()
+
+
+@pytest.mark.parametrize("max_k", [1, 8])
+def test_at_ranges_batched_matches_jax(max_k):
+    """Random text spans over sorted positions with ties, empty spans, spans
+    before and after every position, and the empty table."""
+    from rowbowt_tpu.midx import PosMarkers as JaxPosMarkers
+    from rowbowt_tpu.midx import at_ranges_batched as jax_at_ranges
+    from rowbowt_tpu_torch.midx import PosMarkers, at_ranges_batched
+
+    rng = np.random.default_rng(43)
+    pos = rng.integers(0, 5000, size=300)
+    val = rng.integers(0, 1 << 40, size=300)
+    pm, jpm = PosMarkers.from_pairs(pos, val), JaxPosMarkers.from_pairs(pos, val)
+    np.testing.assert_array_equal(pm.pos, jpm.pos)
+    np.testing.assert_array_equal(pm.val, jpm.val)
+    lo = rng.integers(-10, 5100, size=256).astype(np.int32)
+    hi = (lo + rng.integers(-3, 120, size=256)).astype(np.int32)
+    lo[:4], hi[:4] = 0, -1
+    for p in (pm, PosMarkers.from_pairs([], [])):
+        jp = JaxPosMarkers(p.pos, p.val)
+        want = jax_at_ranges(*jp.device(), jnp.asarray(lo), jnp.asarray(hi), max_k)
+        got = at_ranges_batched(*p.device("cpu"), torch.from_numpy(lo), torch.from_numpy(hi),
+                                max_k)
+        _eq(got, want)
+        for b in range(0, 256, 17):
+            m = p.at_range(int(lo[b]), int(hi[b]))
+            assert got[1][b] == len(m)
+            assert got[0][b, :min(len(m), max_k)].tolist() == m[:max_k].tolist()
+    assert (got[1] == 0).all()

@@ -2,7 +2,8 @@
 """Smoke run of the rowbowt_tpu_torch rbt_align, rbt_markers and rbt_locs
 paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, then the kernel record
+    python3 chip_smoke.py k1 parity       # only the named phases, in that order
 
 Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
 (csrc/gather_probe.cu), both with nvcc for sm_90a, and the host library
@@ -14,59 +15,70 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      rowbowt_tpu_torch.tools.gather_probe`) in this process, with its launch
      counts read, and once as a subprocess; P1-P3 against their plain twins
      and the numpy expectations at the tool's shapes, both timed per call
-     with CUDA events; then at the edges of the 16-byte path (ragged, tiny,
-     empty and 4-byte-aligned inputs, P2 widths 1, 3, 100, 128);
+     with CUDA events, beside the one PyTorch call that computes P1 and P2;
+     then at the edges of the 16-byte path (ragged, tiny, empty and
+     4-byte-aligned inputs, P2 widths 1, 3, 100, 128);
   4. parity: on the small synthetic panel (1 Mbp reference + 7 haplotypes,
      n ~ 8.0 M, ftab k = 10), 65,536 reads (with absent codes, reads shorter
      than k and length-0 lanes) through K1 and through `find_ranges_plain` on
      the card, for the 64B and 96B row layouts with the ftab on and off:
      every (lo, hi) equal; 1,000 of them also equal to a host run-space
-     search that never reads the row tables;
+     search that never reads the row tables; then K1 == plain at the edges
+     of its staging and ftab start (widths 1, k - 1, k, 99, 100, two views
+     off a 16-byte boundary, one lane);
   5. chr: the chr panel (20 Mbp reference + 7 haplotypes, 60,000 variants,
      n ~ 160 M) built once with SA samples, markers at every site of every
      document (window 10) and the document list, as bench.py builds it;
   6. main: the port's `rbt_align` count mode answers 262,144 reads of 100 bp
      in 65,536-read batches; its lines are counted and every range checked
      against `find_ranges_plain`; the CLI's own load and query seconds and its
-     meter are recorded, its stages timed one by one, and K1 and the plain
-     loop over the four batches with CUDA events;
-  7. locate: `rbt_align -s` on the first 200,000 of those reads (the last
+     meter are recorded, its stages timed one by one, and the count call
+     (K1 and its wrapper) and the plain loop over the four batches with CUDA
+     events;
+  7. k1_step1 and k1: K1 at chr on the same four batches: the earlier
+     (transposed) design and the current one, each equal to the plain loop,
+     call times in turns and device times alone, with and without the ftab;
+     the current design with one part changed at a time; the work the
+     batches need (a counting replay of the plain loop), P3's dependent-load
+     latency on 32 lanes, the bound and the share of it each design reaches;
+  8. locate: `rbt_align -s` on the first 200,000 of those reads (the last
      batch is mostly padding); every read's ranges, hit count, distinct
      positions, text at each position, toehold and document offsets checked
      on the host; stages timed one by one;
-  8. markers: `rbt_align -m` on the same reads; every read's markers checked
+  9. markers: `rbt_align -m` on the same reads; every read's markers checked
      against the host CSR without ma_start1; stages timed one by one;
-  9. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
+ 10. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
      steps, against its plain twin and the port's torch phi walk (`locate`);
- 10. greedy: `rbt_markers -f -b 32768` on the first 65,536 reads (both
+ 11. greedy: `rbt_markers -f -b 32768` on the first 65,536 reads (both
      strands: 131,072 lanes in two batches); every line of the first batch
      equal to the same CLI's with `--device cpu`, the first 1,000 reads'
      lines equal to the scalar oracle's (engine/naive); reads/s, seeds/s,
      markers/s and the CLI's own stage seconds;
- 11. heuristic: `--heuristic --best-strand-only -y 19 --clear-conflicting
+ 12. heuristic: `--heuristic --best-strand-only -y 19 --clear-conflicting
      --clear-identical` on the same reads, with the strand skip and with
      RBT_NO_STRAND_SKIP=1: the same lines; the share of reads whose second
      strand was skipped;
- 12. lmem: `--lmem` on the first 1,000 reads; the first 100 reads' lines equal
+ 13. lmem: `--lmem` on the first 1,000 reads; the first 100 reads' lines equal
      to the oracle's;
- 13. locs: `rbt_locs -b 32768` on the first 65,536 reads with the positional
+ 14. locs: `rbt_locs -b 32768` on the first 65,536 reads with the positional
      marker index that build_chr saved; the first 1,000 lines equal to the
      oracle's greedy seeds, longest-seed locate (4 hits) and text-span
      marker lookup;
- 14. trace: `rbt_align -s --profile` on the reads of phase 7: the same lines,
+ 15. trace: `rbt_align -s --profile` on the reads of phase 8: the same lines,
      a trace that names K1's kernel, and the card's busy seconds in it
      against the CLI's query seconds;
- 15. greedy_trace: `rbt_markers -f --profile` on the reads of phase 10: the
+ 16. greedy_trace: `rbt_markers -f --profile` on the reads of phase 11: the
      same lines, the card's busy share, kernel launches per batch and the
      largest device items.
 Between phases 3 and 4, device_time: P1-P3 and their twins alone on the
-device (torch.profiler) at the tool's shapes.  Phases 10-13 count K1's
+device (torch.profiler) at the tool's shapes.  Phases 11-14 count K1's
 launches (their paths are torch ops: 0 expected, not required).
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
-non-zero and the last line is never printed.  The last three lines are the
-kernel record, the card's name and power limit, and {"ok": true, "device":
-{...}}.  Needs one CUDA card; exits non-zero without one.  Uses no network.
+non-zero and the last line is never printed.  The last three lines of a
+whole run are the kernel record (with each kernel's bound), the card's name
+and power limit, and {"ok": true, "device": {...}}.  Needs one CUDA card;
+exits non-zero without one.  Uses no network.
 """
 
 from __future__ import annotations
@@ -253,6 +265,68 @@ def in_turns(plain, kernel, plain_cycles: int, kernel_cycles: int):
     return k, (p + cuda_ms(plain, plain_cycles)) / 2
 
 
+SPIN_CYCLES = 200_000  # about 0.1 ms of the card's clock, more than a call's host time
+
+
+def start_event(start) -> None:
+    """Record CUDA event `start` behind a spin of SPIN_CYCLES on the card."""
+    import torch
+
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+
+
+def kernel_event_us(fns, passes: int) -> float:
+    """Mean device microseconds of one kernel of each call, from two CUDA
+    events that each fn(start, end) records just before and just after its
+    kernel's launch, over `passes` passes through the list after a warm-up
+    pass.  Before its start event each call queues a spin of SPIN_CYCLES on
+    the card (start_event), so the host has queued the kernel by the time
+    the card reaches the event, and the events time the kernel, not the
+    host, even where the call is bound by the host; the first timed call
+    is left out."""
+    import torch
+
+    for fn in fns:
+        fn(None, None)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(passes * len(fns) + 1)]
+    torch.cuda.synchronize()
+    for i, (start, end) in enumerate(pairs):
+        fns[i % len(fns)](start, end)
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs[1:]) * 1e3 / (len(pairs) - 1)
+
+
+def profiled_kernel_us(fns, passes: int, kernels: tuple[str, ...]) -> dict:
+    """{kernel: mean µs a launch} from one torch.profiler trace of `passes`
+    passes through fns, each launching one kernel whose name holds one of
+    `kernels`; a kernel whose record count is not one per launch maps to
+    None (the profiler in a long process has been seen to drop and repeat
+    records)."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(passes):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "kernel_us.pt.trace.json")
+    prof.export_chrome_trace(path)
+    events = device_events(path, ("kernel",))
+    os.remove(path)
+    launches = passes * len(fns) // len(kernels)
+    out = {}
+    for name in kernels:
+        durs = [dur for ev_name, _, dur in events if name + "<" in ev_name]
+        out[name] = sum(durs) / len(durs) if len(durs) == launches else None
+    return out
+
+
 @contextlib.contextmanager
 def timed(stages: dict, name: str):
     """Host-clock seconds of the block, closed by a device synchronize."""
@@ -286,24 +360,46 @@ def busy_us(events) -> float:
     return total
 
 
-def device_us(fn, calls: int) -> float:
-    """Device time alone per call of fn (its kernels, copies and memsets,
-    from a torch.profiler trace of `calls` calls after one warm-up call)."""
+PROFILE_RETAKES = 0  # traces taken again because their kernel count was wrong
+PROFILE_FALLBACKS: list = []  # kernels timed by CUDA events after four wrong traces
+
+
+def device_us(fns, calls: int, kernel: str | None = None, all_ops: bool = False) -> float:
+    """Device time alone per call of fns (one callable or a list called in
+    turn), from a torch.profiler trace of `calls` passes after one warm-up
+    pass: of the kernels whose name holds `kernel`, or (all_ops, or no
+    `kernel`) of every kernel, copy and memset.  With `kernel`, each fn
+    launches it once, and a trace that does not hold exactly one record of
+    it per call is taken again: in one long process the profiler has been
+    seen to drop kernel records and to repeat them.  After four wrong traces
+    the calls are timed by CUDA events instead (the whole call, back to
+    back) and the kernel is named in PROFILE_FALLBACKS."""
     import torch
 
-    fn()
+    global PROFILE_RETAKES
+    fns = [fns] if callable(fns) else fns
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    os.makedirs(WORK, exist_ok=True)
-    path = os.path.join(WORK, "device_us.pt.trace.json")
-    prof.export_chrome_trace(path)
-    events = device_events(path)
-    os.remove(path)
-    check(bool(events), "the profiler recorded no device activity")
-    return sum(dur for _, _, dur in events) / calls
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(4):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(calls):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        os.makedirs(WORK, exist_ok=True)
+        path = os.path.join(WORK, "device_us.pt.trace.json")
+        prof.export_chrome_trace(path)
+        events = device_events(path)
+        os.remove(path)
+        named = [e for e in events if kernel and kernel in e[0]]
+        if (len(named) == calls * len(fns)) if kernel else events:
+            return sum(dur for _, _, dur in (events if all_ops or not kernel else named)) / (
+                calls * len(fns))
+        PROFILE_RETAKES += 1
+    PROFILE_FALLBACKS.append(kernel)
+    return cuda_ms(fns, calls) * 1e3
 
 
 def max_abs_err(got, want) -> int:
@@ -338,7 +434,8 @@ def phase_build() -> None:
         futures = {name: ex.submit(seconds, fn) for name, fn in builds.items()}
         done = {name: f.result() for name, f in futures.items()}
     check(done["host"][0] is not None, f"host library did not build: {sa._NATIVE_ERROR}")
-    regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    regs = {name: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             for name, log in (("lf", cuda_lf.BUILD_LOG), ("gather_probe", cuda_gather.BUILD_LOG))}
     emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs)
 
@@ -364,6 +461,48 @@ def probe_cases(device):
                          lambda: G.gather_chain_plain(tab, idx, gp.STEPS), gp.STEPS),
     }
     return cases, expect, tab_np
+
+
+def probe_library_calls(device) -> dict:
+    """The one PyTorch call that computes P1 (`tab.reshape(-1)[idx]`) and P2
+    (`torch.gather`, its index widened to int64 outside the call) at the probe
+    tool's shapes; P3 has no single call."""
+    import torch
+
+    from rowbowt_tpu_torch.tools import gather_probe as gp
+
+    tab_np, idx_np, idxB_np = gp.make_inputs()
+    tab = torch.from_numpy(tab_np.reshape(gp.T // 128, 128)).to(device)
+    idx = torch.from_numpy(idx_np).to(device)
+    idxB = torch.from_numpy(idxB_np).to(device).long()
+    return {"gather_rows": lambda: tab.reshape(-1)[idx],
+            "gather_cols": lambda: torch.gather(tab, 0, idxB)}
+
+
+def probe_bounds(us_per_step: float) -> dict:
+    """{name: {byte_us, latency_us}} of P1-P3 at the probe tool's shapes: the
+    bytes each must move (the index read once, the distinct table elements
+    it reads, the output written once) over the card's memory rate, and the
+    dependent steps (P3's 100, none for P1 and P2) times `us_per_step`, the
+    dependent-load latency of a table that the L2 holds, as the tool's 4 MB
+    table is."""
+    from rowbowt_tpu_torch.tools import gather_probe as gp
+
+    tab_np, idx_np, idxB_np = gp.make_inputs()
+    cols = np.arange(idxB_np.shape[1])[None, :]
+    chain, i = [idx_np], idx_np
+    for _ in range(gp.STEPS - 1):
+        i = tab_np[i]
+        chain.append(i)
+    distinct = {"gather_rows": np.unique(idx_np).size,
+                "gather_cols": np.unique(idxB_np * idxB_np.shape[1] + cols).size,
+                "gather_chain": np.unique(np.concatenate(chain)).size}
+    out = {}
+    for name, d in distinct.items():
+        n = idxB_np.size if name == "gather_cols" else idx_np.size
+        out[name] = dict(byte_us=(2 * n + d) * 4 / HBM_BYTES_PER_S * 1e6,
+                         latency_us=gp.STEPS * us_per_step if name == "gather_chain" else 0.0)
+    return out
 
 
 def phase_probes(device) -> dict:
@@ -393,6 +532,7 @@ def phase_probes(device) -> dict:
           f"{proc.stdout}{proc.stderr[-2000:]}")
 
     cases, expect, tab_np = probe_cases(device)
+    library = probe_library_calls(device)
     res = {}
     for (name, (kernel, plain, steps)), want_np in zip(cases.items(), expect):
         got, want = kernel(), plain()
@@ -401,8 +541,10 @@ def phase_probes(device) -> dict:
         check(err == 0, f"{name} != its plain twin: max |err| {err}")
         check(np.array_equal(got.cpu().numpy(), want_np), f"{name} != the numpy expectation")
         k_ms, p_ms = in_turns([plain], [kernel], 20 if steps > 1 else 200, 200)
+        lib = library.get(name)
         per_elem = steps * got.numel()
         res[name] = dict(launches=launches[name], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         library_ms=cuda_ms([lib], 200) if lib else None,
                          us_per_step=k_ms * 1e3 / steps, plain_us_per_step=p_ms * 1e3 / steps,
                          ns_per_elem=k_ms * 1e6 / per_elem, plain_ns_per_elem=p_ms * 1e6 / per_elem)
     edges = probe_edges(device, tab_np)
@@ -477,8 +619,38 @@ def probe_edges(device, tab_np: np.ndarray) -> dict:
                 max_abs_err=errs)
 
 
+def k1_edges(qc: np.ndarray, lens: np.ndarray, device, lanes: int = 4_099):
+    """[(label, qcodes, lengths)] at the edges of K1's staging and ftab start:
+    widths L of 1, k - 1, k, 99 and 100 (the last L codes of each read,
+    lengths cut to L), a view one row into an L = 99 batch and a view one
+    code into a flat L = 100 buffer (both 4-byte aligned only: the per-code
+    staging path), and a batch of one lane."""
+    import torch
+
+    out = []
+    for L in (1, FTAB_K - 1, FTAB_K, 99, 100):
+        q = np.ascontiguousarray(qc[:lanes, qc.shape[1] - L:])
+        out.append((f"L={L}", torch.from_numpy(q).to(device),
+                    torch.from_numpy(np.minimum(lens[:lanes], L)).to(device)))
+    q = torch.from_numpy(np.ascontiguousarray(qc[:lanes + 1, qc.shape[1] - 99:])).to(device)
+    out.append(("L=99 q[1:]", q[1:],
+                torch.from_numpy(np.minimum(lens[1:lanes + 1], 99)).to(device)))
+    flat = torch.from_numpy(np.concatenate([[-1], qc[:lanes, qc.shape[1] - 100:].ravel()])
+                            .astype(np.int32)).to(device)
+    out.append(("L=100 one code in", flat[1:].view(lanes, 100),
+                torch.from_numpy(np.minimum(lens[:lanes], 100)).to(device)))
+    out.append(("1 lane", torch.from_numpy(qc[:1]).to(device),
+                torch.from_numpy(lens[:1]).to(device)))
+    for label, q, _ in out:
+        unaligned = label in ("L=99 q[1:]", "L=100 one code in")
+        check(q.is_contiguous() and (q.data_ptr() % 16 != 0) == unaligned,
+              f"{label}: qcodes at {q.data_ptr() % 16} bytes past a 16-byte boundary")
+    return out
+
+
 def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
-    """K1 == find_ranges_plain on the card, both layouts, ftab on and off."""
+    """K1 == find_ranges_plain on the card, both layouts, ftab on and off, on
+    the edge-case batch and at the edges of k1_edges."""
     import torch
 
     from rowbowt_tpu_torch.construct.build import build_index
@@ -494,9 +666,11 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
     qc, lens, counts = edge_lanes(idx, sample_reads(text, rng, n_lanes), rng)
     check(all(v > 0 for v in counts.values()), f"edge cases missing: {counts}")
     q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
+    edges = k1_edges(qc, lens, device)
     err = 0
     launches0 = cuda_lf.LAUNCHES
     results = {}
+    edge_nonempty = {}
     for fb64 in (True, False):
         tx = TorchIndex.from_index(idx, device, fb64=fb64)
         for use_ftab in (True, False):
@@ -505,7 +679,7 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
             torch.cuda.synchronize()
             e = max_abs_err(got, want)
             check(e == 0, f"K1 != plain (fb64={fb64}, ftab={use_ftab}): max |err| {e}")
-            # a ragged lane count (not a multiple of the 256-thread block)
+            # a ragged lane count (not a multiple of a block's lanes)
             # against the host run-space search
             sub = find_ranges(tx, q[:N_HOST], ln[:N_HOST], use_ftab=use_ftab)
             hlo, hhi = host_ranges(idx, qc[:N_HOST], lens[:N_HOST], use_ftab)
@@ -513,11 +687,22 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
                   and np.array_equal(sub[1].cpu().numpy(), hhi),
                   f"K1 != host run-space search (fb64={fb64}, ftab={use_ftab})")
             err = max(err, e)
-            results[f"fb64={fb64},ftab={use_ftab}"] = int((got[1] >= got[0]).sum().item())
+            cfg_name = f"fb64={fb64},ftab={use_ftab}"
+            results[cfg_name] = int((got[1] >= got[0]).sum().item())
+            for label, qe, le in edges:
+                got = find_ranges(tx, qe, le, use_ftab=use_ftab)
+                want = cuda_lf.find_ranges_plain(tx, qe, le, use_ftab=use_ftab)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                check(e == 0, f"K1 != plain at {label} ({cfg_name}): max |err| {e}")
+                err = max(err, e)
+                edge_nonempty[f"{cfg_name},{label}"] = int((got[1] >= got[0]).sum().item())
     launches = cuda_lf.LAUNCHES - launches0
-    check(launches == 8, f"expected 8 K1 launches, counted {launches}")
+    check(launches == 4 * (2 + len(edges)), f"expected {4 * (2 + len(edges))} K1 launches, "
+          f"counted {launches}")
     emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
-         nonempty=results, host_checked=N_HOST, launches=launches, max_abs_err=err)
+         nonempty=results, edges=[label for label, _, _ in edges],
+         edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err)
     return err
 
 
@@ -680,8 +865,10 @@ def phase_main(device, card: dict, chr_: dict) -> dict:
     check(err == 0, f"rbt_align ranges != plain loop: max |err| {err}")
     nonempty = sum(int((hi >= lo).sum()) for lo, hi in host)
 
-    # K1 vs the plain loop over the four distinct batches (distinct reads, so
-    # the L2 holds only what a real run would reuse), in turns: plain, K1, K1, plain
+    # the count call (K1 and its wrapper) vs the plain loop over the four
+    # distinct batches (distinct reads, so the L2 holds only what a real run
+    # would reuse), in turns: plain, K1, K1, plain; CUDA events per call.  The
+    # kernel's device time alone is phase k1's.
     n_chars = sum(int(lens.sum()) for _, _, lens in batches)
     k1_ms, plain_ms = in_turns([lambda q=q, ln=ln: cuda_lf.find_ranges_plain(tx, q, ln)
                                 for q, ln in dev],
@@ -698,9 +885,10 @@ def phase_main(device, card: dict, chr_: dict) -> dict:
                cli_reads_per_s_with_load=N_READS / cli["cli_wall_s"],
                launches=launches, max_abs_err=err, nonempty=nonempty, stages=stages,
                table_mb=tx.arrays["fblock64"].numel() * 4 / 1e6,
-               k1_ms=k1_ms, plain_ms=plain_ms, k1_fb96_ms=k1_fb96_ms, k1_ftab_ms=k1_ftab_ms,
-               k1_reads_per_s=BATCH / (k1_ms / 1e3),
-               k1_lf_steps_per_s=per_batch / (k1_ms / 1e3),
+               qcodes_width=int(dev[0][0].shape[1]),
+               k1_call_ms=k1_ms, plain_ms=plain_ms, k1_fb96_call_ms=k1_fb96_ms,
+               k1_ftab_call_ms=k1_ftab_ms, k1_call_reads_per_s=BATCH / (k1_ms / 1e3),
+               k1_call_lf_steps_per_s=per_batch / (k1_ms / 1e3),
                plain_reads_per_s=BATCH / (plain_ms / 1e3),
                plain_lf_steps_per_s=per_batch / (plain_ms / 1e3),
                card=card["nvidia_smi"])
@@ -818,16 +1006,21 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
     return res
 
 
+PROBE_KERNELS = {"gather_rows": "gather_vec_kernel", "gather_cols": "gather_vec_kernel",
+                 "gather_chain": "gather_chain_kernel"}
+
+
 def phase_device_time(device, probes: dict) -> None:
     """P1-P3 and their twins alone on the device, by torch.profiler, at the
     probe tool's shapes, right after the probes phase."""
     cases, _, _ = probe_cases(device)
     for name, (kernel, plain, steps) in cases.items():
         calls = 20 if steps > 1 else 200
-        probes[name].update(device_us=device_us(kernel, calls),
+        probes[name].update(device_us=device_us(kernel, calls, PROBE_KERNELS[name], all_ops=True),
                             plain_device_us=device_us(plain, calls))
     emit("device_time", **{name: {k: probes[name][k] for k in ("device_us", "plain_device_us")}
-                           for name in cases})
+                           for name in cases},
+         profile_retakes=PROFILE_RETAKES, profile_fallbacks=PROFILE_FALLBACKS)
 
 
 def phase_trace(device, card: dict, chr_: dict, loc: dict) -> dict:
@@ -969,6 +1162,239 @@ def phase_phi_chain(device, card: dict, loc: dict) -> int:
          plain_us_per_step=p_ms * 1e3 / PHI_STEPS,
          phi_walk_us_per_step=walk_ms * 1e3 / PHI_STEPS, card=card["nvidia_smi"])
     return err
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+INT_OPS_PER_S = 67e12  # H100 SXM non-tensor fp32 rate (data sheet): no int32 rate is published
+RANK_OPS = 8 * 12 + 8  # int32 operations of one SWAR rank over a 64 B row: 8 words, checkpoint
+
+
+def k1_transposed(tx, q, ln, use_ftab: bool = False, start=None, end=None):
+    """The earlier design of K1 as its wrapper ran it: the ftab start in torch
+    ops (cuda_lf.lf_start), the [L, B] transpose, copies of the starts, then
+    rbt_lf_count_transposed (one thread a lane, 256-thread blocks).  CUDA
+    events `start` and `end`, when given, are recorded around the kernel."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    lo, hi, startj = cuda_lf.lf_start(tx, q, ln, use_ftab)
+    key, syms = ("fblock64", 64) if "fblock64" in tx.arrays else ("fblock", 128)
+    qT = q.t().contiguous()
+    lo, hi = lo.clone(), hi.clone()
+    B, L = q.shape
+    if start is not None:
+        start_event(start)
+    rc = cuda_lf.build().rbt_lf_count_transposed(
+        tx.arrays[key].data_ptr(), syms, tx.arrays["F"].data_ptr(), tx.A, tx.n, qT.data_ptr(),
+        ln.data_ptr(), startj.data_ptr(), B, L, lo.data_ptr(), hi.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if end is not None:
+        end.record()
+    check(rc == 0, f"rbt_lf_count_transposed returned {rc}")
+    return lo, hi
+
+
+def k1_current(tx, q, ln, use_ftab: bool = True, start=None, end=None):
+    """cuda_lf.find_ranges (one launch of K1), with CUDA events `start` and
+    `end`, when given, recorded around the call."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    if start is not None:
+        start_event(start)
+    out = cuda_lf.find_ranges(tx, q, ln, use_ftab)
+    if end is not None:
+        end.record()
+    return out
+
+
+def k1_work(tx, q, ln, use_ftab: bool) -> dict:
+    """What one batch asks of K1, by a counting replay of the plain loop
+    (ops/rank.py, ops/cuda_lf.lf_start): active lane-steps; ranked steps (an
+    absent code ends a lane without a load); steps whose lo and hi + 1 lie in
+    two rows; row loads (one or two a ranked step, none for hi + 1 == n);
+    distinct rows; lanes that read the ftab, ftab hits and distinct entries
+    read; the longest lane's steps."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import rank as R
+
+    B, L = q.shape
+    n, dt = tx.n, tx.idx_dtype
+    shift = 6 if "fblock64" in tx.arrays else 7
+    lo, hi, startj = cuda_lf.lf_start(tx, q, ln, use_ftab)
+    lengths = ln.to(dt)
+    k = tx.ftab_k if use_ftab and tx.has_ftab and L >= tx.ftab_k > 0 else 0
+    ftab = dict(ftab_reads=0, ftab_hits=0, ftab_entries=0)
+    if k:
+        kc = R.kmer_codes(tx, q[:, L - k:])
+        read = (kc >= 0) & (lengths >= k)
+        ftab = dict(ftab_reads=int(read.sum()), ftab_hits=int((startj == k).sum()),
+                    ftab_entries=int(torch.unique(kc[read]).numel()))
+    done = torch.zeros(B, dtype=torch.bool, device=q.device)
+    steps = torch.zeros(B, dtype=torch.int64, device=q.device)
+    ranked = two = torch.zeros((), dtype=torch.int64, device=q.device)
+    rows = []
+    step = R.lf_step_auto(tx)
+    for j in range(L):
+        c = q[:, L - 1 - j].to(dt)
+        active = (~done) & (j >= startj) & (j < lengths)
+        steps += active
+        rk = active & (c >= 0) & (c < tx.A)
+        has1 = rk & (hi + 1 < n)
+        differ = has1 & (((hi + 1) >> shift) != (lo >> shift))
+        ranked = ranked + rk.sum()
+        two = two + differ.sum()
+        rows += [(lo >> shift)[rk], ((hi + 1) >> shift)[differ]]
+        nlo, nhi = step(tx, lo, hi, c)
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+        done = done | (active & (nlo > nhi))
+    return dict(lane_steps=int(steps.sum()), ranked_steps=int(ranked), two_row_steps=int(two),
+                row_loads=int(ranked) + int(two),
+                distinct_rows=int(torch.unique(torch.cat(rows)).numel()),
+                longest_lane_steps=int(steps.max()), **ftab)
+
+
+def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_step: float) -> dict:
+    """K1's bound per batch from the batches' work: bytes (each input byte
+    read once: the [B, L] int32 codes, the lengths, F, the distinct rows, the
+    distinct ftab entries; each output written once: lo, hi) over the card's
+    memory rate; the rank operations over its integer rate; the longest
+    lane's dependent steps times the dependent load latency."""
+    nb = len(work)
+    mean = {key: sum(w[key] for w in work) / nb for key in work[0]}
+    nbytes = (B * L * 4 + B * 4 + (A + 1) * 4 + mean["distinct_rows"] * row_bytes
+              + mean["ftab_entries"] * 8 + B * 8)
+    ops = 2 * RANK_OPS * mean["ranked_steps"]
+    byte_us = nbytes / HBM_BYTES_PER_S * 1e6
+    ops_us = ops / INT_OPS_PER_S * 1e6
+    latency_us = mean["longest_lane_steps"] * us_per_step
+    bound_us = max(byte_us, latency_us)
+    return dict(mean, bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
+                latency_bound_us=latency_us, bound_us=bound_us,
+                bound_by="bytes" if byte_us >= latency_us else "latency",
+                row_load_bytes=mean["row_loads"] * row_bytes,
+                row_load_bound_us=mean["row_loads"] * row_bytes / HBM_BYTES_PER_S * 1e6)
+
+
+K1_PARTS = {  # design parts of K1 changed one at a time
+    "current": {}, "threads_per_lane=1": dict(group=1), "threads_per_lane=4": dict(group=4),
+    "codes_from_global": dict(stage=False), "lanes_per_block=64": dict(lanes=64),
+    "lanes_per_block=128": dict(lanes=128),
+}
+
+
+def phase_k1(device, card: dict, chr_: dict) -> dict:
+    """K1 at chr over the four 65,536-read batches of the main path, in two
+    lines.  k1_step1: the earlier design (one thread a lane over the [L, B]
+    transpose, the start computed in torch), equal to the plain loop, its
+    call time and its kernel's time alone (CUDA events), with and without
+    the ftab; the work the batches need; P3's dependent-load latency on 32
+    lanes over the chr phi1 (640 MB), over a random cycle of the same size
+    and over the probe tool's 4 MB table; the bound and what binds it.  k1:
+    the current design, equal to the plain loop, timed in turns with the
+    earlier design, per call and alone (CUDA events; torch.profiler as a
+    check), with and without the ftab; the current design with one part
+    changed at a time (each equal to the plain loop); the share of the bound
+    each design reaches."""
+    import torch
+
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.ops import cuda_gather as G
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    tx = TorchIndex.from_index(idx, device)  # fblock64, ftab, phi1
+    dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
+           for _, qc, lens in iter_query_batches(idx, paths["reads.fq"], BATCH)]
+    B, L = dev[0][0].shape
+    modes = (("", False), ("ftab_", True))
+    plain = {use_ftab: [cuda_lf.find_ranges_plain(tx, q, ln, use_ftab) for q, ln in dev]
+             for _, use_ftab in modes}
+
+    def held(name, fn, use_ftab, **kw) -> int:
+        """max |err| of fn over the batches against the plain loop (0 or raise)."""
+        e = max(max_abs_err(fn(tx, q, ln, use_ftab, **kw), want)
+                for (q, ln), want in zip(dev, plain[use_ftab]))
+        check(e == 0, f"{name} != plain at chr (ftab={use_ftab}): max |err| {e}")
+        return e
+
+    def calls(fn, use_ftab):
+        return [lambda q=q, ln=ln: fn(tx, q, ln, use_ftab) for q, ln in dev]
+
+    def bracketed(fn, use_ftab):  # calls that record CUDA events around the kernel
+        return [lambda a, b, q=q, ln=ln: fn(tx, q, ln, use_ftab, a, b) for q, ln in dev]
+
+    step1 = dict(batches=len(dev), lanes=B, L=L,
+                 max_abs_err=max(held("transposed K1", k1_transposed, f)
+                                 for _, f in modes))
+    for tag, use_ftab in modes:
+        step1[f"transposed_{tag}call_ms"] = cuda_ms(calls(k1_transposed, use_ftab), 5)
+        step1[f"transposed_{tag}device_us"] = kernel_event_us(
+            bracketed(k1_transposed, use_ftab), 5)
+    # dependent-load latency: P3 on one warp, 10,000 steps a call (CUDA
+    # events), over phi1, over one random cycle through a table of phi1's
+    # size (every step a random 640 MB address) and over the probe tool's
+    # 4 MB table
+    rng = np.random.default_rng(5)
+    n_tab = tx.arrays["phi1"].numel()
+    perm = torch.randperm(n_tab, device=device,
+                          generator=torch.Generator(device=device).manual_seed(5))
+    cycle = torch.empty(n_tab, dtype=torch.int32, device=device)
+    cycle[perm] = perm.roll(-1).to(torch.int32)
+    del perm
+    lat = {}
+    for name, tab in (("phi1", tx.arrays["phi1"]), ("random_cycle", cycle),
+                      ("tool_table", torch.from_numpy(probe_cases(device)[2]).to(device))):
+        start = torch.from_numpy(rng.integers(0, tab.numel(), 32, dtype=np.int32)).to(device)
+        lat[name] = cuda_ms([lambda tab=tab, start=start: G.gather_chain(tab, start, 10_000)],
+                            5) * 1e3 / 10_000
+    del cycle
+    step1["us_per_dependent_step"] = lat
+    for tag, use_ftab in modes:
+        work = [k1_work(tx, q, ln, use_ftab) for q, ln in dev]
+        step1[f"{tag}work"] = work
+        step1[f"{tag}bound"] = k1_bound(work, B, L, tx.A, 64, lat["random_cycle"])
+        step1[f"{tag}bound"]["transposed_share"] = (step1[f"{tag}bound"]["bound_us"]
+                                                    / step1[f"transposed_{tag}device_us"])
+    emit("k1_step1", **step1, card=card["nvidia_smi"])
+
+    res = dict(step1, max_abs_err=max(held(f"K1 with {part}", cuda_lf.launch_k1, f, **kw)
+                                      for part, kw in K1_PARTS.items() for _, f in modes),
+               plan=dict(zip(("threads", "staged"), cuda_lf.launch_plan(
+                   B, L, cuda_lf._sm_count(device.index)))))
+    k1 = {}
+    for tag, use_ftab in modes:
+        # call times in turns (transposed, current, current, transposed), CUDA events
+        k1[f"k1_{tag}call_ms"], k1[f"transposed_{tag}call_ms"] = in_turns(
+            calls(k1_transposed, use_ftab), calls(k1_current, use_ftab), 5, 5)
+        # the kernels alone in turns too: transposed, current, current, transposed
+        old = [kernel_event_us(bracketed(k1_transposed, use_ftab), 5)]
+        new = [kernel_event_us(bracketed(k1_current, use_ftab), 5) for _ in range(2)]
+        old.append(kernel_event_us(bracketed(k1_transposed, use_ftab), 5))
+        k1[f"k1_{tag}device_us"] = sum(new) / 2
+        k1[f"transposed_{tag}device_us"] = sum(old) / 2
+        k1[f"k1_{tag}device_us_each"], k1[f"transposed_{tag}device_us_each"] = new, old
+        # the same kernels in one profiler trace, both designs in turn
+        k1[f"{tag}profiled_us"] = profiled_kernel_us(
+            calls(k1_transposed, use_ftab) + calls(k1_current, use_ftab), 3,
+            ("lf_count_transposed_kernel", "lf_count_kernel"))
+        k1[f"{tag}k1_share"] = res[f"{tag}bound"]["bound_us"] / k1[f"k1_{tag}device_us"]
+    # the parts: ms a call by CUDA events (one kernel a call, which the card
+    # runs back to back), forward through the parts, then back
+    parts = {}
+    for order in (list(K1_PARTS), list(K1_PARTS)[::-1]):
+        for part in order:
+            fns = [lambda q=q, ln=ln, kw=K1_PARTS[part]: cuda_lf.launch_k1(tx, q, ln, False, **kw)
+                   for q, ln in dev]
+            parts.setdefault(part, []).append(cuda_ms(fns, 5))
+    k1["parts_ms"] = parts
+    emit("k1", max_abs_err=res["max_abs_err"], plan=res["plan"], **k1, card=card["nvidia_smi"])
+    res.update(k1)
+    return res
 
 
 def read_no(line: str) -> int:
@@ -1203,10 +1629,19 @@ def phase_greedy_trace(device, card: dict, chr_: dict, greedy: dict) -> dict:
     return res
 
 
-def main() -> int:
+SELECTABLE = ("probes", "parity", "k1")
+
+
+def main(argv: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, "rowbowt_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
         return 1
+    only = set(argv)
+    if only - set(SELECTABLE):
+        print(f"usage: chip_smoke.py [{' '.join(SELECTABLE)}]...: with phase names, only those, "
+              "in that order (after device and build), and no kernel record or last line",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, HERE)
     import torch
 
@@ -1217,11 +1652,22 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
+    if only:
+        for name in dict.fromkeys(argv):  # in the order given
+            if name == "probes":
+                phase_device_time(device, phase_probes(device))
+            elif name == "parity":
+                phase_parity(device)
+            else:
+                phase_k1(device, card, build_chr())
+        shutil.rmtree(WORK, ignore_errors=True)
+        return 0
     probes = phase_probes(device)
     phase_device_time(device, probes)
     par_err = phase_parity(device)
     chr_ = build_chr()
     count = phase_main(device, card, chr_)
+    k1 = phase_k1(device, card, chr_)
     loc = phase_locate(device, card, chr_, count)
     phase_markers(device, card, chr_, count)
     chain_err = phase_phi_chain(device, card, loc)
@@ -1232,21 +1678,7 @@ def main() -> int:
     phase_trace(device, card, chr_, loc)
     phase_greedy_trace(device, card, chr_, greedy)
     shutil.rmtree(WORK, ignore_errors=True)
-    kernels = [{"name": "lf_count", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
-                "replaces": "rowbowt_tpu/ops/pallas_lf.py:49", "launches": count["launches"],
-                "max_abs_err": max(par_err, count["max_abs_err"]), "ms": count["k1_ms"],
-                "plain_ms": count["plain_ms"]}]
-    for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
-        p = probes[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "rowbowt_tpu_torch/csrc/gather_probe.cu",
-                        "replaces": f"tools/vmem_gather_probe.py:{line}",
-                        "launches": p["launches"],
-                        "max_abs_err": max(p["max_abs_err"],
-                                           chain_err if name == "gather_chain" else 0),
-                        "ms": p["ms"], "plain_ms": p["plain_ms"],
-                        "device_us": p["device_us"], "plain_device_us": p["plain_device_us"]})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain_err)}))
     print(card["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1254,5 +1686,40 @@ def main() -> int:
     return 0
 
 
+def kernel_record(count: dict, k1: dict, probes: dict, par_err: int, chain_err: int) -> list:
+    """One entry per kernel of the port: launches on the main path, max |err|
+    against the plain twin, call time (`ms`, CUDA events) beside the plain
+    twin's and the library call's, device time alone (`device_us`), and the
+    bound: `bound_ms` from bytes or operations, whichever is larger, and
+    `bound_us`, the larger of the byte bound and the latency bound."""
+    b = k1["bound"]
+    ops_ms, byte_ms = b["ops_bound_us"] / 1e3, b["byte_bound_us"] / 1e3
+    kernels = [{"name": "lf_count", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
+                "replaces": "rowbowt_tpu/ops/pallas_lf.py:49", "launches": count["launches"],
+                "max_abs_err": max(par_err, count["max_abs_err"], k1["max_abs_err"]),
+                "ms": count["k1_call_ms"], "plain_ms": count["plain_ms"],
+                "bound_ms": max(byte_ms, ops_ms),
+                "bound_by": "bytes" if byte_ms >= ops_ms else "operations",
+                "library_ms": None, "device_us": k1["k1_device_us"],
+                "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]}]
+    bounds = probe_bounds(k1["us_per_dependent_step"]["tool_table"])
+    for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
+        p, pb = probes[name], bounds[name]
+        # the gathers do no arithmetic: bytes bound them, and P3 also its latency
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "rowbowt_tpu_torch/csrc/gather_probe.cu",
+                        "replaces": f"tools/vmem_gather_probe.py:{line}",
+                        "launches": p["launches"],
+                        "max_abs_err": max(p["max_abs_err"],
+                                           chain_err if name == "gather_chain" else 0),
+                        "ms": p["ms"], "plain_ms": p["plain_ms"],
+                        "bound_ms": pb["byte_us"] / 1e3, "bound_by": "bytes",
+                        "library_ms": p["library_ms"], "device_us": p["device_us"],
+                        "plain_device_us": p["plain_device_us"],
+                        "bound_us": max(pb["byte_us"], pb["latency_us"]),
+                        "bound_us_by": "bytes" if pb["byte_us"] >= pb["latency_us"] else "latency"})
+    return kernels
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,19 +1,34 @@
-// K1: batched backward search (the count path's LF loop) over fused-block
-// rank rows, for Hopper (sm_90a).
+// K1: batched backward search (the count path: ftab start and LF loop) over
+// fused-block rank rows, for Hopper (sm_90a).
 //
-// Replaces rowbowt_tpu/ops/pallas_lf.py:_lf_kernel (with its _swar_count),
-// and covers what rowbowt_tpu/engine/count.py:find_ranges runs: both row
-// layouts, any alphabet of at most 8 codes, and a per-lane start (lo, hi,
-// startj) that the wrapper takes from the ftab (ops/cuda_lf.py).
+// Replaces rowbowt_tpu/ops/pallas_lf.py:_lf_kernel (with its _swar_count)
+// and computes what rowbowt_tpu/engine/count.py:find_ranges computes, the
+// ftab start included: both row layouts, any alphabet of at most 8 codes.
 //
-// One thread per lane, with the whole L loop inside the thread: a lane that
-// finishes (empty range, or past its length) stops and costs nothing more.
-// Each step is two ranks, each one dependent random load of one row
-// (64 B = 4 int4 loads for fblock64, 96 B = 6 for fblock) from L2 or HBM by
-// table size, then integer bit work.  The kernel is bound by the latency of
-// those dependent row loads: 2 per lane-step, and the next step's addresses
-// need this step's result.  This first version does nothing about that beyond
-// 16-byte vector loads and enough resident lanes to keep loads in flight.
+// What bounds it on the H100.  A lane's step is two ranks, each over one
+// random row of a table that the 50 MB L2 does not hold (160 MB of fblock64
+// rows at chr), and the next step's rows need this step's result.  A chr
+// batch of 65,536 reads of 100 bp needs about 7.4 M distinct-row fetches
+// (the two ranks of a step share a row in 4 steps of 5) over some 2.3 M
+// distinct rows.  With every lane resident, tens of thousands of rows are in
+// flight, so the pace is set by the rate at which the memory system serves
+// random 64 B rows, not by one load's latency (about 0.49 us a dependent
+// step).  What the design does about it (each part timed on an H100,
+// PERF.md §6):
+//   - G = 2 threads per lane, each loading two 16-byte parts of a row (half
+//     of the checkpoints and half of the symbols), the two shares of a rank
+//     summed with one shuffle: a warp's load instruction covers 16 rows.
+//     One thread a lane needs four loads a row and took 1.07-1.21x the time;
+//     four threads a lane split checkpoints from symbols across threads,
+//     which diverge, and took 1.56-1.58x;
+//   - each block stages its lanes' codes once from the row-major [B, L]
+//     batch into shared memory, one byte a code, with coalesced loads, so no
+//     global load of a code sits on the loop's critical path (1.08x without)
+//     and no [L, B] transpose precedes the launch;
+//   - the ftab start runs here: a lane builds the k-mer code of its last k
+//     codes from the staged bytes and reads its own ftab entry, which skips
+//     k steps at the cost of one load and no torch ops;
+//   - no row is loaded for hi + 1 == n (the code's total count).
 //
 // Row contract (rowbowt_tpu_torch/construct/build.py build_fblock and
 // fblock_to_fb64): int32[8 + SYMS/8] per row = 8 exclusive per-code
@@ -21,10 +36,10 @@
 // at bits [4j, 4j+4).  The words are uint32 stored in int32 lanes: they are
 // reinterpreted as uint32 here, so shifts are logical and __popc counts them.
 //
-// Launch contract: qT is the [L, B] transpose of the right-aligned [B, L]
-// code matrix (-1 pad), so that at step j the threads of a warp read
-// neighbouring words of row L-1-j.  lo/hi hold each lane's start on entry and
-// its range on exit; the empty range is (1, 0).
+// The first kernel of this file (lf_count_transposed_kernel, C entry
+// rbt_lf_count_transposed) is the earlier design, one thread per lane over a
+// transposed [L, B] batch with the start computed outside; it is kept only
+// to be timed beside the current one (chip_smoke.py, phase k1).
 
 #include <cstdint>
 
@@ -33,12 +48,17 @@
 namespace {
 
 constexpr int kCkpt = 8;
+// staged codes per block: under the 48 KB a block may use without opting in,
+// with room for the kernel's static shared memory
+constexpr int kMaxStagedBytes = 47 * 1024;
+constexpr int kAbsent = 0xFF;  // staged byte of code -1 (absent from the index, pad)
+constexpr int kOther = 0xFE;   // staged byte of any other code outside [0, A)
 
 template <int SYMS>
 struct Layout {
   static constexpr int kWords = SYMS / 8;         // packed words per row
   static constexpr int kRow = kCkpt + kWords;     // int32 lanes per row
-  static constexpr int kVec = kRow / 4;           // int4 loads per row
+  static constexpr int kVec = kRow / 4;           // int4 parts per row
   static constexpr int kShift = SYMS == 64 ? 6 : 7;
   static_assert(SYMS == 64 || SYMS == 128, "fblock64 or fblock rows");
   static_assert(kRow % 4 == 0, "rows are whole 16-byte vectors");
@@ -47,6 +67,9 @@ struct Layout {
 __device__ __forceinline__ int lane_of(const int4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
+
+// ---------------------------------------------------------------------------
+// The earlier design (kept for timing only)
 
 // Count of the nibbles equal to c (pat = c in every nibble) among the kn
 // lowest nibbles of one word, kn in [0, 8].
@@ -71,8 +94,6 @@ __device__ __forceinline__ int rank_row(const int4* __restrict__ fb, int i,
 #pragma unroll
   for (int k = 0; k < Lo::kVec; ++k) v[k] = __ldg(row + k);
 
-  // checkpoint of c: lanes 0..7 are v[0] and v[1]; selected without a
-  // dynamically indexed register array (which would go to local memory)
   int occ = 0;
 #pragma unroll
   for (int k = 0; k < kCkpt; ++k) {
@@ -88,13 +109,17 @@ __device__ __forceinline__ int rank_row(const int4* __restrict__ fb, int i,
   return occ;
 }
 
+// qT is the [L, B] transpose of the right-aligned [B, L] codes; lo/hi hold
+// each lane's start on entry and its range on exit.
 template <int SYMS>
 __global__ void __launch_bounds__(256)
-lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
-                int A, int n, const int32_t* __restrict__ qT,
-                const int32_t* __restrict__ lengths,
-                const int32_t* __restrict__ startj, int B, int L,
-                int32_t* __restrict__ lo_io, int32_t* __restrict__ hi_io) {
+lf_count_transposed_kernel(const int4* __restrict__ fb,
+                           const int32_t* __restrict__ F, int A, int n,
+                           const int32_t* __restrict__ qT,
+                           const int32_t* __restrict__ lengths,
+                           const int32_t* __restrict__ startj, int B, int L,
+                           int32_t* __restrict__ lo_io,
+                           int32_t* __restrict__ hi_io) {
   __shared__ int32_t sF[kCkpt + 1];
   if (threadIdx.x <= (unsigned)A) sF[threadIdx.x] = F[threadIdx.x];
   __syncthreads();
@@ -103,15 +128,14 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
   if (b >= B) return;
   int lo = lo_io[b];
   int hi = hi_io[b];
-  const int jend = min(lengths[b], L);  // length-0 pad lanes never step
+  const int jend = min(lengths[b], L);
   for (int j = startj[b]; j < jend; ++j) {
     const int c = qT[(size_t)(L - 1 - j) * B + b];
-    if (c < 0 || c >= A) {  // absent code: empty range, lane done
+    if (c < 0 || c >= A) {
       lo = 1;
       hi = 0;
       break;
     }
-    // rank(n, c) is the code's total count; hi + 1 does reach n
     const int total = sF[c + 1] - sF[c];
     const int cb = lo >= n ? total : rank_row<SYMS>(fb, lo, c);
     const int ce = hi + 1 >= n ? total : rank_row<SYMS>(fb, hi + 1, c);
@@ -128,15 +152,261 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
   hi_io[b] = hi;
 }
 
+// ---------------------------------------------------------------------------
+// The current design
+
+__device__ __forceinline__ int code_byte(int c, int A) {
+  return (unsigned)c < (unsigned)A ? c : c == -1 ? kAbsent : kOther;
+}
+
+// Bytes per lane of the staged codes: L rounded up to whole words, with an
+// odd number of words, so that the lanes of a warp read distinct banks.
+__host__ __device__ __forceinline__ int staged_stride(int L) {
+  return ((L + 3) & ~3) | 4;
+}
+
+// Mask of the kn lowest nibbles of a word, kn in [0, 8] (1u << 32 is
+// undefined in C++, so kn == 8 takes the whole word).
+__device__ __forceinline__ uint32_t below(int kn) {
+  kn = min(max(kn, 0), 8);
+  return kn >= 8 ? 0xFFFFFFFFu : (1u << (4 * kn)) - 1u;
+}
+
+// This thread's share of rank(c) at in-row offset `off`, from the parts of
+// one row it holds: part sub + m * G of the row in v[m].  The shares of the
+// G threads of a lane sum to the checkpoint of c plus the count of c among
+// the row's first `off` symbols.
+template <int SYMS, int G>
+__device__ __forceinline__ int rank_share(const int4 (&v)[(Layout<SYMS>::kVec + G - 1) / G],
+                                          int sub, int c, int off) {
+  using Lo = Layout<SYMS>;
+  constexpr int kPer = (Lo::kVec + G - 1) / G;
+  const uint32_t pat = (uint32_t)c * 0x11111111u;
+  int share = 0;
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int k = sub + m * G;  // part of the row, four int32 lanes
+    if (kPer * G > Lo::kVec && k >= Lo::kVec) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int lane = 4 * k + e;
+      const uint32_t x = (uint32_t)lane_of(v[m], e);
+      if (lane < kCkpt) {
+        share += lane == c ? (int)x : 0;
+      } else {
+        const uint32_t t = (x ^ pat) | ((x ^ pat) >> 1) | ((x ^ pat) >> 2) | ((x ^ pat) >> 3);
+        share += __popc(~t & 0x11111111u & below(off - 8 * (lane - kCkpt)));
+      }
+    }
+  }
+  return share;
+}
+
+// One block: blockDim.x / G lanes, G neighbouring threads a lane.  STAGE
+// reads the codes from shared memory (staged once per block), else from
+// global memory at every step (for batches too wide to stage).
+template <int SYMS, int G, bool STAGE>
+__global__ void __launch_bounds__(1024)
+lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
+                int A, int n, const int32_t* __restrict__ q,
+                const int32_t* __restrict__ lengths, int B, int L,
+                const int32_t* __restrict__ ftab, int k, uint32_t acgt,
+                int32_t* __restrict__ lo_out, int32_t* __restrict__ hi_out) {
+  using Lo = Layout<SYMS>;
+  constexpr int kPer = (Lo::kVec + G - 1) / G;
+  extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when STAGE
+  __shared__ int32_t sF[kCkpt + 1];
+
+  const int lanes = blockDim.x / G;
+  const int b0 = blockIdx.x * lanes;
+  const int nl = min(lanes, B - b0);
+  const int stride = staged_stride(L);
+  if (threadIdx.x <= (unsigned)A) sF[threadIdx.x] = F[threadIdx.x];
+  if (STAGE) {
+    const int32_t* src = q + (size_t)b0 * L;
+    if ((L & 3) == 0 && ((uintptr_t)src & 15) == 0) {
+      // 16-byte loads: four codes in, one word of four bytes out
+      const int4* src4 = reinterpret_cast<const int4*>(src);
+      const int wpl = L / 4;  // words per lane
+      for (int i = threadIdx.x; i < nl * wpl; i += blockDim.x) {
+        const int4 c = src4[i];
+        const int r = i / wpl;
+        *reinterpret_cast<uint32_t*>(s_code + r * stride + 4 * (i - r * wpl)) =
+            (uint32_t)code_byte(c.x, A) | (uint32_t)code_byte(c.y, A) << 8 |
+            (uint32_t)code_byte(c.z, A) << 16 | (uint32_t)code_byte(c.w, A) << 24;
+      }
+    } else {
+      // L not a multiple of 4, or a view that starts off a 16-byte boundary
+      for (int i = threadIdx.x; i < nl * L; i += blockDim.x) {
+        const int r = i / L;
+        s_code[r * stride + i - r * L] = (uint8_t)code_byte(src[i], A);
+      }
+    }
+  }
+  __syncthreads();
+
+  const int ll = threadIdx.x / G;
+  if (ll >= nl) return;
+  const int sub = threadIdx.x % G;
+  const int b = b0 + ll;
+  const uint8_t* mine = s_code + ll * stride;
+  const int32_t* row_q = q + (size_t)b * L;
+  auto code_at = [&](int col) -> int {
+    return STAGE ? (int)mine[col] : code_byte(row_q[col], A);
+  };
+
+  // ftab start (count.py:33-40): k > 0 only with the ftab on and L >= k
+  const int len = lengths[b];
+  int lo = 0, hi = n - 1, j = 0;
+  if (k > 0 && len >= k) {
+    int kc = 0;
+    bool valid = true;
+    for (int col = L - k; col < L; ++col) {
+      const int c = code_at(col);
+      int base = -1;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {  // the last match wins, as in kmer_codes
+        if (c == (int)((acgt >> (8 * t)) & 0xFF)) base = t;
+      }
+      valid = valid && base >= 0;
+      kc = (kc << 2) | (base & 3);
+    }
+    if (valid) {
+      const int flo = ftab[2 * (size_t)kc];
+      if (flo >= 0) {
+        lo = flo;
+        hi = ftab[2 * (size_t)kc + 1];
+        j = k;
+      }
+    }
+  }
+
+  // the G threads of a lane: neighbouring lanes of one warp
+  const unsigned group =
+      G == 1 ? 1u : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(G - 1));
+  const int jend = min(len, L);
+  for (; j < jend; ++j) {
+    const int c = code_at(L - 1 - j);
+    if (c >= A) {  // absent code: empty range, lane done
+      lo = 1;
+      hi = 0;
+      break;
+    }
+    // rank(n, c) is the code's total count; hi + 1 does reach n
+    const int total = sF[c + 1] - sF[c];
+    const int i1 = hi + 1;
+    const bool has0 = lo < n, has1 = i1 < n;
+    // both rows are loaded even when they are one: the second load then
+    // finds the row in L1, and loading it once was measured no faster
+    const int r0 = lo >> Lo::kShift, r1 = i1 >> Lo::kShift;
+    int4 v[kPer], w[kPer];
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int part = sub + m * G;
+      const bool in_row = !(kPer * G > Lo::kVec) || part < Lo::kVec;
+      v[m] = has0 && in_row ? __ldg(fb + (size_t)r0 * Lo::kVec + part) : make_int4(0, 0, 0, 0);
+      w[m] = has1 && in_row ? __ldg(fb + (size_t)r1 * Lo::kVec + part) : v[m];
+    }
+    int p0 = rank_share<SYMS, G>(v, sub, c, lo & (SYMS - 1));
+    int p1 = rank_share<SYMS, G>(w, sub, c, i1 & (SYMS - 1));
+#pragma unroll
+    for (int s = 1; s < G; s <<= 1) {
+      p0 += __shfl_xor_sync(group, p0, s);
+      p1 += __shfl_xor_sync(group, p1, s);
+    }
+    const int cb = has0 ? p0 : total;
+    const int ci = (has1 ? p1 : total) - cb;
+    if (ci <= 0) {
+      lo = 1;
+      hi = 0;
+      break;
+    }
+    lo = sF[c] + cb;
+    hi = lo + ci - 1;
+  }
+  if (sub == 0) {
+    lo_out[b] = lo;
+    hi_out[b] = hi;
+  }
+}
+
+struct Args {
+  const int4* fb;
+  const int32_t* F;
+  int A, n;
+  const int32_t* q;
+  const int32_t* lengths;
+  int B, L;
+  const int32_t* ftab;
+  int k;
+  uint32_t acgt;
+  int32_t* lo;
+  int32_t* hi;
+};
+
+template <int SYMS, int G, bool STAGE>
+int launch(const Args& a, int threads, cudaStream_t s) {
+  const int lanes = threads / G;
+  const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
+  if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
+  lf_count_kernel<SYMS, G, STAGE><<<grid, threads, smem, s>>>(
+      a.fb, a.F, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt, a.lo, a.hi);
+  return (int)cudaGetLastError();
+}
+
+template <int SYMS, int G>
+int launch_staged(const Args& a, int threads, bool stage, cudaStream_t s) {
+  return stage ? launch<SYMS, G, true>(a, threads, s) : launch<SYMS, G, false>(a, threads, s);
+}
+
+template <int SYMS>
+int launch_group(const Args& a, int group, int threads, bool stage, cudaStream_t s) {
+  switch (group) {
+    case 1: return launch_staged<SYMS, 1>(a, threads, stage, s);
+    case 2: return launch_staged<SYMS, 2>(a, threads, stage, s);
+    case 4: return launch_staged<SYMS, 4>(a, threads, stage, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Runs K1 on `stream` over B lanes; returns cudaGetLastError() after the
-// launch (0 on success).  syms_per_row is 64 (fblock64) or 128 (fblock).
+// Runs K1 on `stream` over the B lanes of the row-major [B, L] codes q and
+// writes each lane's range to lo and hi; returns cudaGetLastError() after
+// the launch (0 on success, nothing launched for B == 0).  syms_per_row is 64
+// (fblock64) or 128 (fblock).  ftab is int32 [4^k, 2] and k its k-mer length,
+// or k = 0 for no ftab start; acgt holds the codes of A, C, G, T, one byte
+// each (0xFF for a base absent from the alphabet).  `threads` is the block
+// size, `group` the threads per lane (1, 2 or 4); `stage` reads the codes
+// from shared memory (threads / group * staged stride bytes, at most 47 KB).
 int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
-                 const void* qT, const void* lengths, const void* startj,
-                 int B, int L, void* lo, void* hi, void* stream) {
+                 const void* q, const void* lengths, int B, int L,
+                 const void* ftab, int k, int acgt, void* lo, void* hi,
+                 int threads, int group, int stage, void* stream) {
+  if (A < 1 || A > kCkpt || B < 0 || L < 0 || n < 1 || k < 0 || k > 15 ||
+      (k > 0 && (ftab == nullptr || L < k)) || group < 1 || threads < 32 ||
+      threads > 1024 || threads % 32 != 0 || threads % group != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const Args a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F), A, n,
+               static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
+               B, L, static_cast<const int32_t*>(ftab), k, (uint32_t)acgt,
+               static_cast<int32_t*>(lo), static_cast<int32_t*>(hi)};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (syms_per_row == 64) return launch_group<64>(a, group, threads, stage, s);
+  if (syms_per_row == 128) return launch_group<128>(a, group, threads, stage, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The earlier design over the [L, B] transpose qT, from the starts in lo,
+// hi and startj (updated in place): 256-thread blocks, one thread a lane.
+int rbt_lf_count_transposed(const void* fb, int syms_per_row, const void* F,
+                            int A, int n, const void* qT, const void* lengths,
+                            const void* startj, int B, int L, void* lo, void* hi,
+                            void* stream) {
   if (A < 1 || A > kCkpt || B < 0 || L < 0 || n < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
@@ -151,11 +421,11 @@ int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
   auto* lo32 = static_cast<int32_t*>(lo);
   auto* hi32 = static_cast<int32_t*>(hi);
   if (syms_per_row == 64)
-    lf_count_kernel<64><<<grid, threads, 0, s>>>(fb4, F32, A, n, q, len, sj, B,
-                                                 L, lo32, hi32);
+    lf_count_transposed_kernel<64><<<grid, threads, 0, s>>>(
+        fb4, F32, A, n, q, len, sj, B, L, lo32, hi32);
   else if (syms_per_row == 128)
-    lf_count_kernel<128><<<grid, threads, 0, s>>>(fb4, F32, A, n, q, len, sj,
-                                                  B, L, lo32, hi32);
+    lf_count_transposed_kernel<128><<<grid, threads, 0, s>>>(
+        fb4, F32, A, n, q, len, sj, B, L, lo32, hi32);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

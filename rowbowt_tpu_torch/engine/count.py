@@ -3,8 +3,9 @@
 The counterpart of rowbowt_tpu/engine/count.py, itself the batched form of
 RowBowt::find_range (rowbowt.hpp:121-131): B reads start from the ftab
 (search_ftab, rowbowt.hpp:745-758) or the full range, then advance one LF
-step per query char with done-masks.  On a CUDA device the LF loop is the
-hand-written kernel K1 (ops/cuda_lf.py); on the CPU it is the plain torch loop.
+step per query char with done-masks.  On a CUDA device the whole search,
+ftab start included, is the hand-written kernel K1 (ops/cuda_lf.py); on the
+CPU it is the plain torch path (ops/cuda_lf.lf_start, then lf_loop_plain).
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
 
     Returns (lo [B], hi [B]) with the reference's (1, 0) empty encoding.
     """
-    lo, hi, startj = cuda_lf.lf_start(tx, qcodes, lengths, use_ftab)
-    return cuda_lf.lf_loop(tx, qcodes, lengths.to(tx.idx_dtype), lo, hi, startj)
+    return cuda_lf.find_ranges(tx, qcodes, lengths.to(tx.idx_dtype), use_ftab)
 
 
 def counts_from_ranges(lo, hi):

@@ -1,16 +1,17 @@
-"""K1: the count path's LF loop as one hand-written CUDA kernel.
+"""K1: the count path (ftab start and LF loop) as one hand-written CUDA kernel.
 
-Replaces rowbowt_tpu/ops/pallas_lf.py:find_ranges_pallas.  The kernel
-(csrc/lf.cu, built with nvcc for sm_90a on first use and bound with ctypes)
-runs one thread per read with the whole L loop inside, over either row
-layout (`fblock64`, the default, or the 96B `fblock`).  Around it, in torch:
-the per-lane start from the ftab (`lf_start`), the [L, B] transpose that
-makes the per-step code loads coalesced, and the argument checks.
+Replaces rowbowt_tpu/ops/pallas_lf.py:find_ranges_pallas and computes what
+rowbowt_tpu/engine/count.py:find_ranges computes.  The kernel (csrc/lf.cu,
+built with nvcc for sm_90a on first use and bound with ctypes) reads the
+row-major [B, L] codes as they are, stages each block's codes in shared
+memory, starts each lane from the ftab itself and writes (lo, hi); GROUP
+threads share a lane, each loading its share of a rank row's 16-byte parts.
+Either row layout works (`fblock64`, the default, or the 96 B `fblock`).
 
-`lf_loop` is the wrapper: for CUDA tensors it launches the kernel (and adds
-one to LAUNCHES) or raises; for CPU tensors it runs `lf_loop_plain`, the
-torch version over ops/rank.py.  `find_ranges_plain` is the whole plain count
-path on any device, the reference the kernel is held against on the card.
+`find_ranges` is the wrapper: for CUDA tensors it launches the kernel (and
+adds one to LAUNCHES) or raises; for CPU tensors it runs `find_ranges_plain`,
+the torch version over ops/rank.py (`lf_start`, then `lf_loop_plain`), which
+is also what the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -22,9 +23,14 @@ import torch
 from rowbowt_tpu_torch import _native
 from rowbowt_tpu_torch.engine.device import TorchIndex
 from rowbowt_tpu_torch.ops import rank as R
+from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 
-# kernel launches made by lf_loop since the last reset (a run sets it to 0)
+# kernel launches made by find_ranges since the last reset (a run sets it to 0)
 LAUNCHES = 0
+
+GROUP = 2  # threads per lane (csrc/lf.cu G): two 16-byte parts of a 64 B row each
+LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
+MAX_STAGED_BYTES = 47 * 1024  # csrc/lf.cu kMaxStagedBytes
 
 _LIB = None
 BUILD_LOG = ""  # nvcc's output (-Xptxas -v register/spill report) of the build
@@ -33,19 +39,45 @@ _SYMS_PER_ROW = {"fblock64": 64, "fblock": 128}
 
 
 def build():
-    """Compile csrc/lf.cu (once per process) and bind its C entry points."""
+    """Compile csrc/lf.cu (once per process) and bind its C entry points:
+    rbt_lf_count (K1) and rbt_lf_count_transposed (the earlier design, which
+    only chip_smoke.py launches, to time it beside K1)."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
     path, BUILD_LOG = _native.build_cuda_library("lf")
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rbt_lf_count.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, vp, vp]
-    lib.rbt_lf_count.restype = ci
+    lib.rbt_lf_count.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, ci, vp, vp,
+                                 ci, ci, ci, vp]
+    lib.rbt_lf_count_transposed.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, vp,
+                                            vp]
+    lib.rbt_lf_count.restype = lib.rbt_lf_count_transposed.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib
     return lib
+
+
+def staged_stride(L: int) -> int:
+    """Shared-memory bytes a lane's codes take (csrc/lf.cu staged_stride): L
+    rounded up to whole words, an odd number of them."""
+    return ((L + 3) & ~3) | 4
+
+
+def launch_plan(B: int, L: int, sms: int, group: int = GROUP,
+                lanes: int = LANES_PER_BLOCK) -> tuple[int, bool]:
+    """(threads a block, staged) of a K1 launch over B lanes of width L on a
+    card of `sms` SMs.  A block takes `lanes` lanes, fewer when the batch is
+    too small to give every SM a block, and fewer again when their codes
+    would not fit the staging limit; a block holds whole warps.  `staged` is
+    False only when not even one warp's lanes fit (L over 3,000 at GROUP 2):
+    the kernel then reads each code from global memory."""
+    unit = 32 // group  # lanes of one warp
+    lanes = min(lanes, -(-max(B, 1) // sms))
+    fit = MAX_STAGED_BYTES // staged_stride(L)
+    lanes = max(unit, min(lanes, fit) // unit * unit)
+    return lanes * group, lanes * staged_stride(L) <= MAX_STAGED_BYTES
 
 
 def lf_start(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
@@ -93,17 +125,22 @@ def find_ranges_plain(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     return lf_loop_plain(tx, qcodes, lengths, lo, hi, startj)
 
 
-def lf_loop(tx: TorchIndex, qcodes, lengths, lo, hi, startj):
-    """The LF loop from the given starts: K1 for CUDA tensors, the plain torch
-    loop for CPU tensors, an error for any other device."""
+def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
+    """(lo, hi) of each lane of the right-aligned [B, L] codes: K1 for CUDA
+    tensors, the plain torch path for CPU tensors, an error for any other
+    device."""
     if qcodes.device.type == "cpu":
-        return lf_loop_plain(tx, qcodes, lengths, lo, hi, startj)
+        return find_ranges_plain(tx, qcodes, lengths, use_ftab)
     if qcodes.device.type != "cuda":
         raise ValueError(f"no LF loop for device {qcodes.device}")
-    return _lf_loop_cuda(tx, qcodes, lengths, lo, hi, startj)
+    return launch_k1(tx, qcodes, lengths, use_ftab)
 
 
-def _lf_loop_cuda(tx: TorchIndex, qcodes, lengths, lo, hi, startj):
+def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, *, group: int = GROUP,
+              lanes: int = LANES_PER_BLOCK, stage: bool = True):
+    """Launch K1 on CUDA tensors.  The keywords set the design's parts
+    (threads per lane, lanes per block, staged codes); find_ranges takes the
+    defaults, and chip_smoke.py sets them to time each part."""
     global LAUNCHES
     # the row layout is lf_step_auto's choice (it raises, naming the ROADMAP
     # item, for an index without fused-block rows)
@@ -111,8 +148,10 @@ def _lf_loop_cuda(tx: TorchIndex, qcodes, lengths, lo, hi, startj):
     fb, F = tx.arrays[key], tx.arrays["F"]
     B, L = qcodes.shape
     dev = qcodes.device
-    for name, t in (("table", fb), ("F", F), ("qcodes", qcodes), ("lengths", lengths),
-                    ("lo", lo), ("hi", hi), ("startj", startj)):
+    k = tx.ftab_k if use_ftab and tx.has_ftab and L >= tx.ftab_k > 0 else 0
+    ftab = tx.arrays["ftab"] if k else None
+    named = (("table", fb), ("F", F), ("qcodes", qcodes), ("lengths", lengths))
+    for name, t in named + ((("ftab", ftab),) if k else ()):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, qcodes on {dev}")
         if t.dtype != torch.int32:
@@ -120,26 +159,36 @@ def _lf_loop_cuda(tx: TorchIndex, qcodes, lengths, lo, hi, startj):
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     if fb.dim() != 2 or fb.shape[1] != 8 + _SYMS_PER_ROW[key] // 8:
         raise ValueError(f"{key} rows have shape {tuple(fb.shape)}")
+    if not fb.is_contiguous() or fb.data_ptr() % 16:
+        raise ValueError("row table is not contiguous and 16-byte aligned")
     if not 1 <= tx.A <= 8 or F.numel() < tx.A + 1:
         raise ValueError(f"alphabet of {tx.A} codes; the kernel takes 1..8")
-    if lengths.shape != (B,) or lo.shape != (B,) or hi.shape != (B,) or startj.shape != (B,):
-        raise ValueError("lengths/lo/hi/startj must be [B] for qcodes [B, L]")
-    fb = fb.contiguous()
-    if fb.data_ptr() % 16:
-        raise ValueError("row table is not 16-byte aligned")
-    F = F.contiguous()
-    qT = qcodes.t().contiguous()  # [L, B]: a warp's step-j codes are adjacent
-    lengths = lengths.contiguous()
-    startj = startj.contiguous()
-    lo = lo.clone(memory_format=torch.contiguous_format)  # updated in place
-    hi = hi.clone(memory_format=torch.contiguous_format)
-    lib = build()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rbt_lf_count(fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A,
-                              tx.n, qT.data_ptr(), lengths.data_ptr(), startj.data_ptr(),
-                              B, L, lo.data_ptr(), hi.data_ptr(), stream)
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
+    acgt = 0
+    if k:
+        if k > 15 or ftab.shape != (4 ** k, 2) or not ftab.is_contiguous():
+            raise ValueError(f"ftab of shape {tuple(ftab.shape)} for k = {k}")
+        for i, c in enumerate(tx.acgt_codes):
+            if not -1 <= c < tx.A:
+                raise ValueError(f"ACGT codes {tx.acgt_codes} outside [-1, {tx.A})")
+            acgt |= (c & 0xFF) << (8 * i)  # -1 (base absent) is 0xFF, as staged
+    F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
+    lo = torch.empty(B, dtype=torch.int32, device=dev)
+    hi = torch.empty(B, dtype=torch.int32, device=dev)
+    d = dev.index if dev.index is not None else torch.cuda.current_device()
+    threads, staged = launch_plan(B, L, _sm_count(d), group, lanes)
+    lib = _LIB or build()
+    args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A, tx.n, qcodes.data_ptr(),
+            lengths.data_ptr(), B, L, ftab.data_ptr() if k else None, k, acgt, lo.data_ptr(),
+            hi.data_ptr(), threads, group, int(stage and staged))
+    if d == torch.cuda.current_device():
+        rc = lib.rbt_lf_count(*args, _raw_stream(d))
+    else:
+        with torch.cuda.device(d):
+            rc = lib.rbt_lf_count(*args, _raw_stream(d))
     if rc != 0:
         raise RuntimeError(f"LF kernel launch failed: {lib.rbt_cuda_error_string(rc).decode()}")
-    LAUNCHES += 1
+    if B:
+        LAUNCHES += 1
     return lo, hi

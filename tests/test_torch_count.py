@@ -129,7 +129,7 @@ def test_lf_loop_refuses_other_devices(text700):
     q = torch.zeros((4, 8), dtype=torch.int32, device="meta")
     z = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no LF loop for device meta"):
-        cuda_lf.lf_loop(tx, q, z, z, z, z)
+        cuda_lf.find_ranges(tx, q, z)
 
 
 @pytest.mark.gpu

@@ -15,8 +15,9 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      rowbowt_tpu_torch.tools.gather_probe`) in this process, with its launch
      counts read, and once as a subprocess; P1-P3 against their plain twins
      and the numpy expectations at the tool's shapes, both timed per call
-     with CUDA events, beside the one PyTorch call that computes P1 and P2;
-     then at the edges of the 16-byte path (ragged, tiny, empty and
+     with CUDA events, beside the one PyTorch call that computes P1 and P2,
+     and each kernel alone (CUDA events just around its launch); then at
+     the edges of the 16-byte path (ragged, tiny, empty and
      4-byte-aligned inputs, P2 widths 1, 3, 100, 128);
   4. parity: on the small synthetic panel (1 Mbp reference + 7 haplotypes,
      n ~ 8.0 M, ftab k = 10), 65,536 reads (with absent codes, reads shorter
@@ -25,7 +26,7 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      every (lo, hi) equal; 1,000 of them also equal to a host run-space
      search that never reads the row tables; then K1 == plain at the edges
      of its staging and ftab start (widths 1, k - 1, k, 99, 100, two views
-     off a 16-byte boundary, one lane);
+     off a 16-byte boundary, one lane, and L = 3,072, which is not staged);
   5. chr: the chr panel (20 Mbp reference + 7 haplotypes, 60,000 variants,
      n ~ 160 M) built once with SA samples, markers at every site of every
      document (window 10) and the document list, as bench.py builds it;
@@ -38,7 +39,7 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
   7. k1_step1 and k1: K1 at chr on the same four batches: the earlier
      (transposed) design and the current one, each equal to the plain loop,
      call times in turns and device times alone, with and without the ftab;
-     the current design with one part changed at a time; the work the
+     the work the
      batches need (a counting replay of the plain loop), P3's dependent-load
      latency on 32 lanes, the bound and the share of it each design reaches;
   8. locate: `rbt_align -s` on the first 200,000 of those reads (the last
@@ -70,8 +71,7 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
  16. greedy_trace: `rbt_markers -f --profile` on the reads of phase 11: the
      same lines, the card's busy share, kernel launches per batch and the
      largest device items.
-Between phases 3 and 4, device_time: P1-P3 and their twins alone on the
-device (torch.profiler) at the tool's shapes.  Phases 11-14 count K1's
+Phases 11-14 count K1's
 launches (their paths are torch ops: 0 expected, not required).
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
@@ -298,12 +298,25 @@ def kernel_event_us(fns, passes: int) -> float:
     return sum(start.elapsed_time(end) for start, end in pairs[1:]) * 1e3 / (len(pairs) - 1)
 
 
+def around(fn):
+    """fn() as a call for kernel_event_us: CUDA events start and end, when
+    given, recorded just before (behind the spin) and just after it."""
+    def call(start, end):
+        if start is not None:
+            start_event(start)
+        out = fn()
+        if end is not None:
+            end.record()
+        return out
+    return call
+
+
 def profiled_kernel_us(fns, passes: int, kernels: tuple[str, ...]) -> dict:
     """{kernel: mean µs a launch} from one torch.profiler trace of `passes`
-    passes through fns, each launching one kernel whose name holds one of
-    `kernels`; a kernel whose record count is not one per launch maps to
-    None (the profiler in a long process has been seen to drop and repeat
-    records)."""
+    passes through fns, each launching one kernel named in `kernels` (a
+    template's name or a function's); a kernel whose record count is not
+    one per launch maps to None (the profiler in a long process has been
+    seen to drop and repeat records)."""
     import torch
 
     for fn in fns:
@@ -322,7 +335,8 @@ def profiled_kernel_us(fns, passes: int, kernels: tuple[str, ...]) -> dict:
     launches = passes * len(fns) // len(kernels)
     out = {}
     for name in kernels:
-        durs = [dur for ev_name, _, dur in events if name + "<" in ev_name]
+        durs = [dur for ev_name, _, dur in events
+                if name + "<" in ev_name or name + "(" in ev_name]
         out[name] = sum(durs) / len(durs) if len(durs) == launches else None
     return out
 
@@ -358,48 +372,6 @@ def busy_us(events) -> float:
         total += max(0.0, ts + dur - max(ts, end))
         end = max(end, ts + dur)
     return total
-
-
-PROFILE_RETAKES = 0  # traces taken again because their kernel count was wrong
-PROFILE_FALLBACKS: list = []  # kernels timed by CUDA events after four wrong traces
-
-
-def device_us(fns, calls: int, kernel: str | None = None, all_ops: bool = False) -> float:
-    """Device time alone per call of fns (one callable or a list called in
-    turn), from a torch.profiler trace of `calls` passes after one warm-up
-    pass: of the kernels whose name holds `kernel`, or (all_ops, or no
-    `kernel`) of every kernel, copy and memset.  With `kernel`, each fn
-    launches it once, and a trace that does not hold exactly one record of
-    it per call is taken again: in one long process the profiler has been
-    seen to drop kernel records and to repeat them.  After four wrong traces
-    the calls are timed by CUDA events instead (the whole call, back to
-    back) and the kernel is named in PROFILE_FALLBACKS."""
-    import torch
-
-    global PROFILE_RETAKES
-    fns = [fns] if callable(fns) else fns
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(4):
-        with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(calls):
-                for fn in fns:
-                    fn()
-            torch.cuda.synchronize()
-        os.makedirs(WORK, exist_ok=True)
-        path = os.path.join(WORK, "device_us.pt.trace.json")
-        prof.export_chrome_trace(path)
-        events = device_events(path)
-        os.remove(path)
-        named = [e for e in events if kernel and kernel in e[0]]
-        if (len(named) == calls * len(fns)) if kernel else events:
-            return sum(dur for _, _, dur in (events if all_ops or not kernel else named)) / (
-                calls * len(fns))
-        PROFILE_RETAKES += 1
-    PROFILE_FALLBACKS.append(kernel)
-    return cuda_ms(fns, calls) * 1e3
 
 
 def max_abs_err(got, want) -> int:
@@ -505,10 +477,16 @@ def probe_bounds(us_per_step: float) -> dict:
     return out
 
 
+PROBE_KERNELS = {"gather_rows": "gather_vec_kernel", "gather_cols": "gather_vec_kernel",
+                 "gather_chain": "gather_chain_kernel"}
+
+
 def phase_probes(device) -> dict:
     """The probe tool's path (counts set to 0 just before, read just after),
     the tool as a subprocess, then P1-P3 against their plain twins, timed per
-    call, and at the edges of the 16-byte path."""
+    call and alone (CUDA events just around the launch, and one profiler
+    trace as a check, as K1 in phase k1), and at the edges of the 16-byte
+    path."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_gather as G
@@ -545,6 +523,9 @@ def phase_probes(device) -> dict:
         per_elem = steps * got.numel()
         res[name] = dict(launches=launches[name], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                          library_ms=cuda_ms([lib], 200) if lib else None,
+                         device_us=kernel_event_us([around(kernel)], 20 if steps > 1 else 200),
+                         profiled_us=profiled_kernel_us([kernel], 20 if steps > 1 else 200,
+                                                        (PROBE_KERNELS[name],))[PROBE_KERNELS[name]],
                          us_per_step=k_ms * 1e3 / steps, plain_us_per_step=p_ms * 1e3 / steps,
                          ns_per_elem=k_ms * 1e6 / per_elem, plain_ns_per_elem=p_ms * 1e6 / per_elem)
     edges = probe_edges(device, tab_np)
@@ -624,8 +605,12 @@ def k1_edges(qc: np.ndarray, lens: np.ndarray, device, lanes: int = 4_099):
     widths L of 1, k - 1, k, 99 and 100 (the last L codes of each read,
     lengths cut to L), a view one row into an L = 99 batch and a view one
     code into a flat L = 100 buffer (both 4-byte aligned only: the per-code
-    staging path), and a batch of one lane."""
+    staging path), a batch of one lane, and 512 lanes of L = 3,072 (the reads
+    left-padded with -1), too wide for even one warp's codes to be staged,
+    so that launch_plan has the kernel read them from global memory."""
     import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
 
     out = []
     for L in (1, FTAB_K - 1, FTAB_K, 99, 100):
@@ -641,6 +626,11 @@ def k1_edges(qc: np.ndarray, lens: np.ndarray, device, lanes: int = 4_099):
                 torch.from_numpy(np.minimum(lens[:lanes], 100)).to(device)))
     out.append(("1 lane", torch.from_numpy(qc[:1]).to(device),
                 torch.from_numpy(lens[:1]).to(device)))
+    wide = np.full((512, 3_072), -1, np.int32)
+    wide[:, -qc.shape[1]:] = qc[:512]
+    check(not cuda_lf.launch_plan(*wide.shape, 1)[1], "L = 3,072 would be staged")
+    out.append(("L=3072 unstaged", torch.from_numpy(wide).to(device),
+                torch.from_numpy(lens[:512]).to(device)))
     for label, q, _ in out:
         unaligned = label in ("L=99 q[1:]", "L=100 one code in")
         check(q.is_contiguous() and (q.data_ptr() % 16 != 0) == unaligned,
@@ -1006,23 +996,6 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
     return res
 
 
-PROBE_KERNELS = {"gather_rows": "gather_vec_kernel", "gather_cols": "gather_vec_kernel",
-                 "gather_chain": "gather_chain_kernel"}
-
-
-def phase_device_time(device, probes: dict) -> None:
-    """P1-P3 and their twins alone on the device, by torch.profiler, at the
-    probe tool's shapes, right after the probes phase."""
-    cases, _, _ = probe_cases(device)
-    for name, (kernel, plain, steps) in cases.items():
-        calls = 20 if steps > 1 else 200
-        probes[name].update(device_us=device_us(kernel, calls, PROBE_KERNELS[name], all_ops=True),
-                            plain_device_us=device_us(plain, calls))
-    emit("device_time", **{name: {k: probes[name][k] for k in ("device_us", "plain_device_us")}
-                           for name in cases},
-         profile_retakes=PROFILE_RETAKES, profile_fallbacks=PROFILE_FALLBACKS)
-
-
 def phase_trace(device, card: dict, chr_: dict, loc: dict) -> dict:
     """`rbt_align -s --profile` on the locate reads, after the timed -s run:
     the same output, a trace that names K1's kernel, and the card's busy
@@ -1165,7 +1138,9 @@ def phase_phi_chain(device, card: dict, loc: dict) -> int:
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-INT_OPS_PER_S = 67e12  # H100 SXM non-tensor fp32 rate (data sheet): no int32 rate is published
+# H100 SXM int32 rate: half the data sheet's 67 T/s fp32 rate outside the
+# tensor cores, as an SM has half as many INT32 lanes as FP32 ones
+INT_OPS_PER_S = 33.5e12
 RANK_OPS = 8 * 12 + 8  # int32 operations of one SWAR rank over a 64 B row: 8 words, checkpoint
 
 
@@ -1200,17 +1175,13 @@ def k1_current(tx, q, ln, use_ftab: bool = True, start=None, end=None):
     `end`, when given, recorded around the call."""
     from rowbowt_tpu_torch.ops import cuda_lf
 
-    if start is not None:
-        start_event(start)
-    out = cuda_lf.find_ranges(tx, q, ln, use_ftab)
-    if end is not None:
-        end.record()
-    return out
+    return around(lambda: cuda_lf.find_ranges(tx, q, ln, use_ftab))(start, end)
 
 
 def k1_work(tx, q, ln, use_ftab: bool) -> dict:
     """What one batch asks of K1, by a counting replay of the plain loop
-    (ops/rank.py, ops/cuda_lf.lf_start): active lane-steps; ranked steps (an
+    (ops/rank.py, ops/cuda_lf.lf_start): the codes of the reads (min(length,
+    L) a lane, the pad columns left out); active lane-steps; ranked steps (an
     absent code ends a lane without a load); steps whose lo and hi + 1 lie in
     two rows; row loads (one or two a ranked step, none for hi + 1 == n);
     distinct rows; lanes that read the ftab, ftab hits and distinct entries
@@ -1251,7 +1222,8 @@ def k1_work(tx, q, ln, use_ftab: bool) -> dict:
         lo = torch.where(active, nlo, lo)
         hi = torch.where(active, nhi, hi)
         done = done | (active & (nlo > nhi))
-    return dict(lane_steps=int(steps.sum()), ranked_steps=int(ranked), two_row_steps=int(two),
+    return dict(codes=int(lengths.clamp(max=L).sum()), lane_steps=int(steps.sum()),
+                ranked_steps=int(ranked), two_row_steps=int(two),
                 row_loads=int(ranked) + int(two),
                 distinct_rows=int(torch.unique(torch.cat(rows)).numel()),
                 longest_lane_steps=int(steps.max()), **ftab)
@@ -1259,31 +1231,26 @@ def k1_work(tx, q, ln, use_ftab: bool) -> dict:
 
 def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_step: float) -> dict:
     """K1's bound per batch from the batches' work: bytes (each input byte
-    read once: the [B, L] int32 codes, the lengths, F, the distinct rows, the
+    read once: the reads' int32 codes, the lengths, F, the distinct rows, the
     distinct ftab entries; each output written once: lo, hi) over the card's
-    memory rate; the rank operations over its integer rate; the longest
-    lane's dependent steps times the dependent load latency."""
+    memory rate; the rank operations over its int32 rate; the longest lane's
+    dependent steps times the dependent load latency.  The kernel stages
+    whole padded rows, padded_code_bytes, more than the reads' codes."""
     nb = len(work)
     mean = {key: sum(w[key] for w in work) / nb for key in work[0]}
-    nbytes = (B * L * 4 + B * 4 + (A + 1) * 4 + mean["distinct_rows"] * row_bytes
+    nbytes = (mean["codes"] * 4 + B * 4 + (A + 1) * 4 + mean["distinct_rows"] * row_bytes
               + mean["ftab_entries"] * 8 + B * 8)
     ops = 2 * RANK_OPS * mean["ranked_steps"]
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
     ops_us = ops / INT_OPS_PER_S * 1e6
     latency_us = mean["longest_lane_steps"] * us_per_step
     bound_us = max(byte_us, latency_us)
-    return dict(mean, bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
+    return dict(mean, bytes=nbytes, padded_code_bytes=B * L * 4, byte_bound_us=byte_us,
+                ops=ops, ops_bound_us=ops_us,
                 latency_bound_us=latency_us, bound_us=bound_us,
                 bound_by="bytes" if byte_us >= latency_us else "latency",
                 row_load_bytes=mean["row_loads"] * row_bytes,
                 row_load_bound_us=mean["row_loads"] * row_bytes / HBM_BYTES_PER_S * 1e6)
-
-
-K1_PARTS = {  # design parts of K1 changed one at a time
-    "current": {}, "threads_per_lane=1": dict(group=1), "threads_per_lane=4": dict(group=4),
-    "codes_from_global": dict(stage=False), "lanes_per_block=64": dict(lanes=64),
-    "lanes_per_block=128": dict(lanes=128),
-}
 
 
 def phase_k1(device, card: dict, chr_: dict) -> dict:
@@ -1296,9 +1263,8 @@ def phase_k1(device, card: dict, chr_: dict) -> dict:
     and over the probe tool's 4 MB table; the bound and what binds it.  k1:
     the current design, equal to the plain loop, timed in turns with the
     earlier design, per call and alone (CUDA events; torch.profiler as a
-    check), with and without the ftab; the current design with one part
-    changed at a time (each equal to the plain loop); the share of the bound
-    each design reaches."""
+    check), with and without the ftab; the share of the bound each design
+    reaches."""
     import torch
 
     from rowbowt_tpu_torch.cli.common import iter_query_batches
@@ -1362,8 +1328,7 @@ def phase_k1(device, card: dict, chr_: dict) -> dict:
                                                     / step1[f"transposed_{tag}device_us"])
     emit("k1_step1", **step1, card=card["nvidia_smi"])
 
-    res = dict(step1, max_abs_err=max(held(f"K1 with {part}", cuda_lf.launch_k1, f, **kw)
-                                      for part, kw in K1_PARTS.items() for _, f in modes),
+    res = dict(step1, max_abs_err=max(held("K1", cuda_lf.find_ranges, f) for _, f in modes),
                plan=dict(zip(("threads", "staged"), cuda_lf.launch_plan(
                    B, L, cuda_lf._sm_count(device.index)))))
     k1 = {}
@@ -1383,15 +1348,6 @@ def phase_k1(device, card: dict, chr_: dict) -> dict:
             calls(k1_transposed, use_ftab) + calls(k1_current, use_ftab), 3,
             ("lf_count_transposed_kernel", "lf_count_kernel"))
         k1[f"{tag}k1_share"] = res[f"{tag}bound"]["bound_us"] / k1[f"k1_{tag}device_us"]
-    # the parts: ms a call by CUDA events (one kernel a call, which the card
-    # runs back to back), forward through the parts, then back
-    parts = {}
-    for order in (list(K1_PARTS), list(K1_PARTS)[::-1]):
-        for part in order:
-            fns = [lambda q=q, ln=ln, kw=K1_PARTS[part]: cuda_lf.launch_k1(tx, q, ln, False, **kw)
-                   for q, ln in dev]
-            parts.setdefault(part, []).append(cuda_ms(fns, 5))
-    k1["parts_ms"] = parts
     emit("k1", max_abs_err=res["max_abs_err"], plan=res["plan"], **k1, card=card["nvidia_smi"])
     res.update(k1)
     return res
@@ -1655,7 +1611,7 @@ def main(argv: list[str]) -> int:
     if only:
         for name in dict.fromkeys(argv):  # in the order given
             if name == "probes":
-                phase_device_time(device, phase_probes(device))
+                phase_probes(device)
             elif name == "parity":
                 phase_parity(device)
             else:
@@ -1663,7 +1619,6 @@ def main(argv: list[str]) -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         return 0
     probes = phase_probes(device)
-    phase_device_time(device, probes)
     par_err = phase_parity(device)
     chr_ = build_chr()
     count = phase_main(device, card, chr_)
@@ -1689,7 +1644,9 @@ def main(argv: list[str]) -> int:
 def kernel_record(count: dict, k1: dict, probes: dict, par_err: int, chain_err: int) -> list:
     """One entry per kernel of the port: launches on the main path, max |err|
     against the plain twin, call time (`ms`, CUDA events) beside the plain
-    twin's and the library call's, device time alone (`device_us`), and the
+    twin's and the library call's, device time alone (`device_us`, CUDA
+    events just around the launch; `profiled_us`, one profiler trace, null
+    where its records were wrong), and the
     bound: `bound_ms` from bytes or operations, whichever is larger, and
     `bound_us`, the larger of the byte bound and the latency bound."""
     b = k1["bound"]
@@ -1701,6 +1658,7 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: int, chain_err: 
                 "bound_ms": max(byte_ms, ops_ms),
                 "bound_by": "bytes" if byte_ms >= ops_ms else "operations",
                 "library_ms": None, "device_us": k1["k1_device_us"],
+                "profiled_us": k1["profiled_us"]["lf_count_kernel"],
                 "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]}]
     bounds = probe_bounds(k1["us_per_dependent_step"]["tool_table"])
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
@@ -1715,7 +1673,7 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: int, chain_err: 
                         "ms": p["ms"], "plain_ms": p["plain_ms"],
                         "bound_ms": pb["byte_us"] / 1e3, "bound_by": "bytes",
                         "library_ms": p["library_ms"], "device_us": p["device_us"],
-                        "plain_device_us": p["plain_device_us"],
+                        "profiled_us": p["profiled_us"],
                         "bound_us": max(pb["byte_us"], pb["latency_us"]),
                         "bound_us_by": "bytes" if pb["byte_us"] >= pb["latency_us"] else "latency"})
     return kernels

@@ -15,12 +15,12 @@
 // random 64 B rows, not by one load's latency (about 0.49 us a dependent
 // step).  What the design does about it (each part timed on an H100,
 // PERF.md §6):
-//   - G = 2 threads per lane, each loading two 16-byte parts of a row (half
-//     of the checkpoints and half of the symbols), the two shares of a rank
-//     summed with one shuffle: a warp's load instruction covers 16 rows.
-//     One thread a lane needs four loads a row and took 1.07-1.21x the time;
-//     four threads a lane split checkpoints from symbols across threads,
-//     which diverge, and took 1.56-1.58x;
+//   - two threads per lane (kG), each loading every other 16-byte part of a
+//     row (half of the checkpoints and half of the symbols), the two shares
+//     of a rank summed with one shuffle: a warp's load instruction covers 16
+//     rows.  One thread a lane needs four loads a row and took 1.07-1.21x the
+//     time; four threads a lane split checkpoints from symbols across
+//     threads, which diverge, and took 1.56-1.58x;
 //   - each block stages its lanes' codes once from the row-major [B, L]
 //     batch into shared memory, one byte a code, with coalesced loads, so no
 //     global load of a code sits on the loop's critical path (1.08x without)
@@ -53,6 +53,7 @@ constexpr int kCkpt = 8;
 constexpr int kMaxStagedBytes = 47 * 1024;
 constexpr int kAbsent = 0xFF;  // staged byte of code -1 (absent from the index, pad)
 constexpr int kOther = 0xFE;   // staged byte of any other code outside [0, A)
+constexpr int kG = 2;          // threads per lane, neighbours in a warp
 
 template <int SYMS>
 struct Layout {
@@ -62,6 +63,8 @@ struct Layout {
   static constexpr int kShift = SYMS == 64 ? 6 : 7;
   static_assert(SYMS == 64 || SYMS == 128, "fblock64 or fblock rows");
   static_assert(kRow % 4 == 0, "rows are whole 16-byte vectors");
+  static constexpr int kPer = kVec / kG;          // parts of a row per thread
+  static_assert(kVec % kG == 0, "each thread of a lane holds as many parts");
 };
 
 __device__ __forceinline__ int lane_of(const int4& v, int k) {
@@ -173,23 +176,19 @@ __device__ __forceinline__ uint32_t below(int kn) {
 }
 
 // This thread's share of rank(c) at in-row offset `off`, from the parts of
-// one row it holds: part sub + m * G of the row in v[m].  The shares of the
-// G threads of a lane sum to the checkpoint of c plus the count of c among
+// one row it holds: part sub + m * kG of the row in v[m].  The shares of the
+// kG threads of a lane sum to the checkpoint of c plus the count of c among
 // the row's first `off` symbols.
-template <int SYMS, int G>
-__device__ __forceinline__ int rank_share(const int4 (&v)[(Layout<SYMS>::kVec + G - 1) / G],
-                                          int sub, int c, int off) {
-  using Lo = Layout<SYMS>;
-  constexpr int kPer = (Lo::kVec + G - 1) / G;
+template <int SYMS>
+__device__ __forceinline__ int rank_share(const int4 (&v)[Layout<SYMS>::kPer], int sub,
+                                          int c, int off) {
   const uint32_t pat = (uint32_t)c * 0x11111111u;
   int share = 0;
 #pragma unroll
-  for (int m = 0; m < kPer; ++m) {
-    const int k = sub + m * G;  // part of the row, four int32 lanes
-    if (kPer * G > Lo::kVec && k >= Lo::kVec) break;
+  for (int m = 0; m < Layout<SYMS>::kPer; ++m) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int lane = 4 * k + e;
+      const int lane = 4 * (sub + m * kG) + e;  // int32 lane of the row
       const uint32_t x = (uint32_t)lane_of(v[m], e);
       if (lane < kCkpt) {
         share += lane == c ? (int)x : 0;
@@ -202,10 +201,10 @@ __device__ __forceinline__ int rank_share(const int4 (&v)[(Layout<SYMS>::kVec + 
   return share;
 }
 
-// One block: blockDim.x / G lanes, G neighbouring threads a lane.  STAGE
+// One block: blockDim.x / kG lanes, kG neighbouring threads a lane.  STAGE
 // reads the codes from shared memory (staged once per block), else from
 // global memory at every step (for batches too wide to stage).
-template <int SYMS, int G, bool STAGE>
+template <int SYMS, bool STAGE>
 __global__ void __launch_bounds__(1024)
 lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
                 int A, int n, const int32_t* __restrict__ q,
@@ -213,11 +212,10 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
                 const int32_t* __restrict__ ftab, int k, uint32_t acgt,
                 int32_t* __restrict__ lo_out, int32_t* __restrict__ hi_out) {
   using Lo = Layout<SYMS>;
-  constexpr int kPer = (Lo::kVec + G - 1) / G;
   extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when STAGE
   __shared__ int32_t sF[kCkpt + 1];
 
-  const int lanes = blockDim.x / G;
+  const int lanes = blockDim.x / kG;
   const int b0 = blockIdx.x * lanes;
   const int nl = min(lanes, B - b0);
   const int stride = staged_stride(L);
@@ -245,9 +243,9 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
   }
   __syncthreads();
 
-  const int ll = threadIdx.x / G;
+  const int ll = threadIdx.x / kG;
   if (ll >= nl) return;
-  const int sub = threadIdx.x % G;
+  const int sub = threadIdx.x % kG;
   const int b = b0 + ll;
   const uint8_t* mine = s_code + ll * stride;
   const int32_t* row_q = q + (size_t)b * L;
@@ -281,9 +279,8 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
     }
   }
 
-  // the G threads of a lane: neighbouring lanes of one warp
-  const unsigned group =
-      G == 1 ? 1u : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(G - 1));
+  // the kG threads of a lane: neighbouring lanes of one warp
+  const unsigned pair = ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(kG - 1));
   const int jend = min(len, L);
   for (; j < jend; ++j) {
     const int c = code_at(L - 1 - j);
@@ -299,21 +296,17 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
     // both rows are loaded even when they are one: the second load then
     // finds the row in L1, and loading it once was measured no faster
     const int r0 = lo >> Lo::kShift, r1 = i1 >> Lo::kShift;
-    int4 v[kPer], w[kPer];
+    int4 v[Lo::kPer], w[Lo::kPer];
 #pragma unroll
-    for (int m = 0; m < kPer; ++m) {
-      const int part = sub + m * G;
-      const bool in_row = !(kPer * G > Lo::kVec) || part < Lo::kVec;
-      v[m] = has0 && in_row ? __ldg(fb + (size_t)r0 * Lo::kVec + part) : make_int4(0, 0, 0, 0);
-      w[m] = has1 && in_row ? __ldg(fb + (size_t)r1 * Lo::kVec + part) : v[m];
+    for (int m = 0; m < Lo::kPer; ++m) {
+      const int part = sub + m * kG;
+      v[m] = has0 ? __ldg(fb + (size_t)r0 * Lo::kVec + part) : make_int4(0, 0, 0, 0);
+      w[m] = has1 ? __ldg(fb + (size_t)r1 * Lo::kVec + part) : v[m];
     }
-    int p0 = rank_share<SYMS, G>(v, sub, c, lo & (SYMS - 1));
-    int p1 = rank_share<SYMS, G>(w, sub, c, i1 & (SYMS - 1));
-#pragma unroll
-    for (int s = 1; s < G; s <<= 1) {
-      p0 += __shfl_xor_sync(group, p0, s);
-      p1 += __shfl_xor_sync(group, p1, s);
-    }
+    int p0 = rank_share<SYMS>(v, sub, c, lo & (SYMS - 1));
+    int p1 = rank_share<SYMS>(w, sub, c, i1 & (SYMS - 1));
+    p0 += __shfl_xor_sync(pair, p0, 1);
+    p1 += __shfl_xor_sync(pair, p1, 1);
     const int cb = has0 ? p0 : total;
     const int ci = (has1 ? p1 : total) - cb;
     if (ci <= 0) {
@@ -344,30 +337,20 @@ struct Args {
   int32_t* hi;
 };
 
-template <int SYMS, int G, bool STAGE>
+template <int SYMS, bool STAGE>
 int launch(const Args& a, int threads, cudaStream_t s) {
-  const int lanes = threads / G;
+  const int lanes = threads / kG;
   const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
-  lf_count_kernel<SYMS, G, STAGE><<<grid, threads, smem, s>>>(
+  lf_count_kernel<SYMS, STAGE><<<grid, threads, smem, s>>>(
       a.fb, a.F, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt, a.lo, a.hi);
   return (int)cudaGetLastError();
 }
 
-template <int SYMS, int G>
-int launch_staged(const Args& a, int threads, bool stage, cudaStream_t s) {
-  return stage ? launch<SYMS, G, true>(a, threads, s) : launch<SYMS, G, false>(a, threads, s);
-}
-
 template <int SYMS>
-int launch_group(const Args& a, int group, int threads, bool stage, cudaStream_t s) {
-  switch (group) {
-    case 1: return launch_staged<SYMS, 1>(a, threads, stage, s);
-    case 2: return launch_staged<SYMS, 2>(a, threads, stage, s);
-    case 4: return launch_staged<SYMS, 4>(a, threads, stage, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_staged(const Args& a, int threads, bool stage, cudaStream_t s) {
+  return stage ? launch<SYMS, true>(a, threads, s) : launch<SYMS, false>(a, threads, s);
 }
 
 }  // namespace
@@ -380,15 +363,16 @@ extern "C" {
 // (fblock64) or 128 (fblock).  ftab is int32 [4^k, 2] and k its k-mer length,
 // or k = 0 for no ftab start; acgt holds the codes of A, C, G, T, one byte
 // each (0xFF for a base absent from the alphabet).  `threads` is the block
-// size, `group` the threads per lane (1, 2 or 4); `stage` reads the codes
-// from shared memory (threads / group * staged stride bytes, at most 47 KB).
+// size (two threads a lane); `stage` reads the codes from shared memory
+// (threads / 2 * staged stride bytes, at most 47 KB).  Both come from
+// ops/cuda_lf.py launch_plan.
 int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
                  const void* q, const void* lengths, int B, int L,
                  const void* ftab, int k, int acgt, void* lo, void* hi,
-                 int threads, int group, int stage, void* stream) {
+                 int threads, int stage, void* stream) {
   if (A < 1 || A > kCkpt || B < 0 || L < 0 || n < 1 || k < 0 || k > 15 ||
-      (k > 0 && (ftab == nullptr || L < k)) || group < 1 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0 || threads % group != 0)
+      (k > 0 && (ftab == nullptr || L < k)) || threads < 32 || threads > 1024 ||
+      threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Args a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F), A, n,
@@ -396,8 +380,8 @@ int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
                B, L, static_cast<const int32_t*>(ftab), k, (uint32_t)acgt,
                static_cast<int32_t*>(lo), static_cast<int32_t*>(hi)};
   cudaStream_t s = (cudaStream_t)stream;
-  if (syms_per_row == 64) return launch_group<64>(a, group, threads, stage, s);
-  if (syms_per_row == 128) return launch_group<128>(a, group, threads, stage, s);
+  if (syms_per_row == 64) return launch_staged<64>(a, threads, stage, s);
+  if (syms_per_row == 128) return launch_staged<128>(a, threads, stage, s);
   return (int)cudaErrorInvalidValue;
 }
 

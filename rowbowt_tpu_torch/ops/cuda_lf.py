@@ -4,7 +4,7 @@ Replaces rowbowt_tpu/ops/pallas_lf.py:find_ranges_pallas and computes what
 rowbowt_tpu/engine/count.py:find_ranges computes.  The kernel (csrc/lf.cu,
 built with nvcc for sm_90a on first use and bound with ctypes) reads the
 row-major [B, L] codes as they are, stages each block's codes in shared
-memory, starts each lane from the ftab itself and writes (lo, hi); GROUP
+memory, starts each lane from the ftab itself and writes (lo, hi); two
 threads share a lane, each loading its share of a rank row's 16-byte parts.
 Either row layout works (`fblock64`, the default, or the 96 B `fblock`).
 
@@ -28,7 +28,7 @@ from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 # kernel launches made by find_ranges since the last reset (a run sets it to 0)
 LAUNCHES = 0
 
-GROUP = 2  # threads per lane (csrc/lf.cu G): two 16-byte parts of a 64 B row each
+GROUP = 2  # threads per lane (csrc/lf.cu kG): two 16-byte parts of a 64 B row each
 LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
 MAX_STAGED_BYTES = 47 * 1024  # csrc/lf.cu kMaxStagedBytes
 
@@ -49,7 +49,7 @@ def build():
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rbt_lf_count.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, ci, vp, vp,
-                                 ci, ci, ci, vp]
+                                 ci, ci, vp]
     lib.rbt_lf_count_transposed.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, vp,
                                             vp]
     lib.rbt_lf_count.restype = lib.rbt_lf_count_transposed.restype = ci
@@ -65,19 +65,18 @@ def staged_stride(L: int) -> int:
     return ((L + 3) & ~3) | 4
 
 
-def launch_plan(B: int, L: int, sms: int, group: int = GROUP,
-                lanes: int = LANES_PER_BLOCK) -> tuple[int, bool]:
+def launch_plan(B: int, L: int, sms: int) -> tuple[int, bool]:
     """(threads a block, staged) of a K1 launch over B lanes of width L on a
-    card of `sms` SMs.  A block takes `lanes` lanes, fewer when the batch is
-    too small to give every SM a block, and fewer again when their codes
-    would not fit the staging limit; a block holds whole warps.  `staged` is
-    False only when not even one warp's lanes fit (L over 3,000 at GROUP 2):
-    the kernel then reads each code from global memory."""
-    unit = 32 // group  # lanes of one warp
-    lanes = min(lanes, -(-max(B, 1) // sms))
+    card of `sms` SMs.  A block takes LANES_PER_BLOCK lanes, fewer when the
+    batch is too small to give every SM a block, and fewer again when their
+    codes would not fit the staging limit; a block holds whole warps.
+    `staged` is False only when not even one warp's lanes fit (L over
+    3,000): the kernel then reads each code from global memory."""
+    unit = 32 // GROUP  # lanes of one warp
+    lanes = min(LANES_PER_BLOCK, -(-max(B, 1) // sms))
     fit = MAX_STAGED_BYTES // staged_stride(L)
     lanes = max(unit, min(lanes, fit) // unit * unit)
-    return lanes * group, lanes * staged_stride(L) <= MAX_STAGED_BYTES
+    return lanes * GROUP, lanes * staged_stride(L) <= MAX_STAGED_BYTES
 
 
 def lf_start(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
@@ -136,11 +135,8 @@ def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     return launch_k1(tx, qcodes, lengths, use_ftab)
 
 
-def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, *, group: int = GROUP,
-              lanes: int = LANES_PER_BLOCK, stage: bool = True):
-    """Launch K1 on CUDA tensors.  The keywords set the design's parts
-    (threads per lane, lanes per block, staged codes); find_ranges takes the
-    defaults, and chip_smoke.py sets them to time each part."""
+def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
+    """Launch K1 on CUDA tensors, shaped by launch_plan."""
     global LAUNCHES
     # the row layout is lf_step_auto's choice (it raises, naming the ROADMAP
     # item, for an index without fused-block rows)
@@ -177,11 +173,11 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, *, group: 
     lo = torch.empty(B, dtype=torch.int32, device=dev)
     hi = torch.empty(B, dtype=torch.int32, device=dev)
     d = dev.index if dev.index is not None else torch.cuda.current_device()
-    threads, staged = launch_plan(B, L, _sm_count(d), group, lanes)
+    threads, staged = launch_plan(B, L, _sm_count(d))
     lib = _LIB or build()
     args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A, tx.n, qcodes.data_ptr(),
             lengths.data_ptr(), B, L, ftab.data_ptr() if k else None, k, acgt, lo.data_ptr(),
-            hi.data_ptr(), threads, group, int(stage and staged))
+            hi.data_ptr(), threads, int(staged))
     if d == torch.cuda.current_device():
         rc = lib.rbt_lf_count(*args, _raw_stream(d))
     else:

@@ -99,24 +99,23 @@ def test_find_ranges_edges_match_jax(panel, case, use_ftab):
         assert (startj == 0).all()
 
 
-@pytest.mark.parametrize("lanes", [64, 128, 256])
-@pytest.mark.parametrize("group", [1, 2, 4])
-def test_launch_plan_covers_every_lane(lanes, group):
-    rng = np.random.default_rng(lanes + group)
+@pytest.mark.parametrize("L", [1, 31, 99, 100, 128, 1_000, 3_000, 3_001, 5_000])
+def test_launch_plan_covers_every_lane(L):
+    rng = np.random.default_rng(L)
+    lanes, group = cuda_lf.LANES_PER_BLOCK, cuda_lf.GROUP
     for B in [*range(0, 40), *rng.integers(0, 1 << 20, 60).tolist(), 65_536]:
-        for L in (1, 31, 100, 128, 1_000, 5_000):
-            for sms in (1, 16, 132):
-                threads, staged = cuda_lf.launch_plan(B, L, sms, group, lanes)
-                per_block = threads // group
-                assert threads % 32 == 0 and 32 <= threads <= 1024
-                assert per_block <= max(lanes, 32 // group)
-                assert -(-B // per_block) * per_block >= B  # the grid covers every lane
-                stride, unit = cuda_lf.staged_stride(L), 32 // group
-                assert per_block == unit or per_block <= min(lanes, -(-B // sms))
-                if staged:
-                    assert per_block * stride <= cuda_lf.MAX_STAGED_BYTES
-                else:  # not even one warp's lanes fit
-                    assert per_block == unit and unit * stride > cuda_lf.MAX_STAGED_BYTES
+        for sms in (1, 16, 132):
+            threads, staged = cuda_lf.launch_plan(B, L, sms)
+            per_block = threads // group
+            assert threads % 32 == 0 and 32 <= threads <= 1024
+            assert per_block <= max(lanes, 32 // group)
+            assert -(-B // per_block) * per_block >= B  # the grid covers every lane
+            stride, unit = cuda_lf.staged_stride(L), 32 // group
+            assert per_block == unit or per_block <= min(lanes, -(-B // sms))
+            if staged:
+                assert per_block * stride <= cuda_lf.MAX_STAGED_BYTES
+            else:  # not even one warp's lanes fit
+                assert per_block == unit and unit * stride > cuda_lf.MAX_STAGED_BYTES
 
 
 @pytest.mark.parametrize("B,L,sms,plan", [
@@ -175,7 +174,7 @@ def fake_entry(monkeypatch):
 
 
 ARGS = ("fb", "syms", "F", "A", "n", "q", "lengths", "B", "L", "ftab", "k", "acgt", "lo", "hi",
-        "threads", "group", "stage", "stream")
+        "threads", "stage", "stream")
 
 
 def _call(rec) -> dict:
@@ -204,8 +203,7 @@ def test_launch_passes_codes_untransposed_and_fresh_outputs(panel, fake_entry, f
     for t, name in ((lo, "lo"), (hi, "hi")):
         assert t.dtype == torch.int32 and t.shape == (q.shape[0],) and t.data_ptr() == a[name]
     assert lo.data_ptr() != hi.data_ptr()
-    assert (a["threads"], a["group"], a["stage"]) == (
-        cuda_lf.launch_plan(*q.shape, 132)[0], cuda_lf.GROUP, 1)
+    assert (a["threads"], a["stage"]) == (cuda_lf.launch_plan(*q.shape, 132)[0], 1)
     assert a["stream"] == 1000 and fake_entry["entered"] == []
     assert cuda_lf.LAUNCHES == 1
 

@@ -4,6 +4,7 @@ paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, then the kernel record
     python3 chip_smoke.py k1 parity       # only the named phases, in that order
+                                          # (probes, parity, k1, big_count)
 
 Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
 (csrc/gather_probe.cu), both with nvcc for sm_90a, and the host library
@@ -27,6 +28,16 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      search that never reads the row tables; then K1 == plain at the edges
      of its staging and ftab start (widths 1, k - 1, k, 99, 100, two views
      off a 16-byte boundary, one lane, and L = 3,072, which is not staged);
+     then K1 over the two-level rows of the same BWT (BigIndex.from_codes,
+     n_sup = 4: fb2_64, fb2 and fb2_256) against the plain loop and the
+     single-level rows' ranges, on the batch and at the same edges;
+  4b. big_count: a count-only BigIndex above 2^31 (2,281,713,721 seeded
+     random codes of 6, n_sup = 3; host build seconds and peak RSS), 65,536
+     lanes of 0-100 codes (a quarter 1-16 codes that start with the last
+     code, so their ranges lie near the top) through K1 and the plain loop on
+     the card over fb2_64 and fb2, every (lo, hi) equal as int64, 256 lanes
+     against a host rank over the 96 B rows and base; the final bounds at or
+     above 2^31 are counted;
   5. chr: the chr panel (20 Mbp reference + 7 haplotypes, 60,000 variants,
      n ~ 160 M) built once with SA samples, markers at every site of every
      document (window 10) and the document list, as bench.py builds it;
@@ -65,6 +76,16 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      marker index that build_chr saved; the first 1,000 lines equal to the
      oracle's greedy seeds, longest-seed locate (4 hits) and text-span
      marker lookup;
+ 14b. big_chr: the chr panel's BigIndex view (n_sup = 4, locate tables as
+     bench.py derives them, marker CSR, document list), saved as a big
+     directory with the chr `idx.midx.npz` beside it: rbt_align count, -s
+     and -m on it print the dense index's lines (phases 6, 8, 9), each with
+     its stages timed one by one; rbt_markers -f (no ftab on a big index)
+     the dense index's lines without -f on the first batch and the oracle's
+     on 1,000 reads; rbt_locs the lines of phase 14; then K1 over fb2_64 on
+     the main path's four batches against the plain loop and against K1
+     over fblock64 (no ftab), call and device times, the bound and its
+     share, and K1 over the 96 B fb2 rows against the plain loop;
  15. trace: `rbt_align -s --profile` on the reads of phase 8: the same lines,
      a trace that names K1's kernel, and the card's busy seconds in it
      against the CLI's query seconds;
@@ -72,7 +93,9 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      same lines, the card's busy share, kernel launches per batch and the
      largest device items.
 Phases 11-14 count K1's
-launches (their paths are torch ops: 0 expected, not required).
+launches (their paths are torch ops: 0 expected, not required); big_chr
+counts the two-level K1's (cuda_lf.LAUNCHES_FB2): one a batch of its count
+and -m runs, none in -s, whose toehold loop records each step.
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and the last line is never printed.  The last three lines of a
@@ -117,6 +140,11 @@ GREEDY_BATCH = 32_768  # reads a batch: 65,536 lanes with both strands
 N_ORACLE = 1_000  # reads checked against engine/naive
 N_LMEM = 1_000
 N_LMEM_ORACLE = 100
+N_SUP_CHR = 4  # superblocks of the chr panel's BigIndex view (phase big_chr)
+BIG_COUNT_N = (1 << 31) + (1 << 27) + 12_345  # 2,281,713,721 symbols (phase big_count)
+BIG_COUNT_SEED = 2024
+BIG_COUNT_LANES = 65_536
+N_BIG_HOST = 256  # big_count lanes also checked against the host rank over the 96 B rows
 
 
 def emit(phase: str, **kv) -> None:
@@ -638,11 +666,20 @@ def k1_edges(qc: np.ndarray, lens: np.ndarray, device, lanes: int = 4_099):
     return out
 
 
-def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
+def codes_of(idx) -> np.ndarray:
+    """The BWT codes of an index (uint8), from its run tables."""
+    return np.repeat(np.asarray(idx.run_head).astype(np.uint8), idx.run_lengths())
+
+
+def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     """K1 == find_ranges_plain on the card, both layouts, ftab on and off, on
-    the edge-case batch and at the edges of k1_edges."""
+    the edge-case batch and at the edges of k1_edges; then K1 over the
+    two-level rows of the same BWT (n_sup = 4: fb2_64, fb2 and fb2_256, no
+    ftab) the same way, its ranges also equal to the single-level rows'.
+    Returns {kernel: max |err|}."""
     import torch
 
+    from rowbowt_tpu_torch.bigindex import BigIndex
     from rowbowt_tpu_torch.construct.build import build_index
     from rowbowt_tpu_torch.engine.count import find_ranges
     from rowbowt_tpu_torch.engine.device import TorchIndex
@@ -690,10 +727,33 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> int:
     launches = cuda_lf.LAUNCHES - launches0
     check(launches == 4 * (2 + len(edges)), f"expected {4 * (2 + len(edges))} K1 launches, "
           f"counted {launches}")
+    tx = TorchIndex.from_index(idx, device)
+    single = [find_ranges(tx, qe, le, use_ftab=False) for _, qe, le in [("", q, ln)] + edges]
+    codes = codes_of(idx)
+    err2, launches0, layouts = 0, cuda_lf.LAUNCHES_FB2, []
+    for block, fb64 in ((128, True), (128, False), (256, False)):
+        tx = TorchIndex.from_big(BigIndex.from_codes(codes, idx.alpha, n_sup=4, block=block),
+                                 device, fb64=fb64)
+        layout = cuda_lf.row_layout(tx)
+        layouts.append(layout)
+        for (label, qe, le), one in zip([("batch", q, ln)] + edges, single):
+            got = find_ranges(tx, qe, le)
+            want = cuda_lf.find_ranges_plain(tx, qe, le)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(got, want), max_abs_err(got, one))
+            check(e == 0, f"K1 over {layout} != plain or the single-level rows at {label}: "
+                  f"max |err| {e}")
+            err2 = max(err2, e)
+            edge_nonempty[f"{layout},{label}"] = int((got[1] >= got[0]).sum().item())
+        del tx
+    launches2 = cuda_lf.LAUNCHES_FB2 - launches0
+    check(launches2 == 3 * (1 + len(edges)), f"expected {3 * (1 + len(edges))} two-level K1 "
+          f"launches, counted {launches2}")
     emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
          nonempty=results, edges=[label for label, _, _ in edges],
-         edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err)
-    return err
+         edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err,
+         fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2)
+    return {"lf_count": err, "lf_count_fb2": err2}
 
 
 def write_fastq(path: str, reads: np.ndarray) -> None:
@@ -1103,6 +1163,7 @@ def phase_markers(device, card: dict, chr_: dict, count: dict) -> dict:
                reprobe_width=max(v.shape[1] for v, _ in probed),
                launches=launches, stages=stages, card=card["nvidia_smi"])
     emit("markers", **res)
+    res["out_text"] = out_text
     return res
 
 
@@ -1193,7 +1254,7 @@ def k1_work(tx, q, ln, use_ftab: bool) -> dict:
 
     B, L = q.shape
     n, dt = tx.n, tx.idx_dtype
-    shift = 6 if "fblock64" in tx.arrays else 7
+    shift = cuda_lf._SYMS_PER_ROW[cuda_lf.row_layout(tx)].bit_length() - 1
     lo, hi, startj = cuda_lf.lf_start(tx, q, ln, use_ftab)
     lengths = ln.to(dt)
     k = tx.ftab_k if use_ftab and tx.has_ftab and L >= tx.ftab_k > 0 else 0
@@ -1229,17 +1290,20 @@ def k1_work(tx, q, ln, use_ftab: bool) -> dict:
                 longest_lane_steps=int(steps.max()), **ftab)
 
 
-def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_step: float) -> dict:
+def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_step: float,
+             lane_bytes: int = 4, table_bytes: int = 0) -> dict:
     """K1's bound per batch from the batches' work: bytes (each input byte
     read once: the reads' int32 codes, the lengths, F, the distinct rows, the
-    distinct ftab entries; each output written once: lo, hi) over the card's
-    memory rate; the rank operations over its int32 rate; the longest lane's
-    dependent steps times the dependent load latency.  The kernel stages
-    whole padded rows, padded_code_bytes, more than the reads' codes."""
+    distinct ftab entries, `table_bytes` more (the two-level rows' base
+    table); each output written once: lo, hi, of lane_bytes each) over the
+    card's memory rate; the rank operations over its int32 rate; the longest
+    lane's dependent steps times the dependent load latency.  The kernel
+    stages whole padded rows, padded_code_bytes, more than the reads' codes."""
     nb = len(work)
     mean = {key: sum(w[key] for w in work) / nb for key in work[0]}
-    nbytes = (mean["codes"] * 4 + B * 4 + (A + 1) * 4 + mean["distinct_rows"] * row_bytes
-              + mean["ftab_entries"] * 8 + B * 8)
+    nbytes = (mean["codes"] * 4 + B * 4 + (A + 1) * lane_bytes
+              + mean["distinct_rows"] * row_bytes + mean["ftab_entries"] * 8 + table_bytes
+              + B * 2 * lane_bytes)
     ops = 2 * RANK_OPS * mean["ranked_steps"]
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
     ops_us = ops / INT_OPS_PER_S * 1e6
@@ -1364,11 +1428,12 @@ def marker_count(lines: list[str]) -> int:
 
 
 def oracle_seed_lines(idx, reads: np.ndarray, lmem: bool, wsize=MA_WSIZE, max_range=1000,
-                      max_seeds=8, max_k=32) -> list[str]:
-    """rbt_markers' lines (default filters, -f) for `reads` from the scalar
-    oracle engine/naive: each strand's fn() calls, the seed table cut to
-    max_seeds (greedy) and each seed's markers to their first max_k, then
-    MarkerSeed.print_buf, forward strand first."""
+                      max_seeds=8, max_k=32, use_ftab: bool = True) -> list[str]:
+    """rbt_markers' lines (default filters, -f; use_ftab=False: as on an
+    index without the ftab) for `reads` from the scalar oracle engine/naive:
+    each strand's fn() calls, the seed table cut to max_seeds (greedy) and
+    each seed's markers to their first max_k, then MarkerSeed.print_buf,
+    forward strand first."""
     from rowbowt_tpu_torch.alphabet import revcomp
     from rowbowt_tpu_torch.engine import naive
     from rowbowt_tpu_torch.engine.filters import MarkerSeed, _u64
@@ -1384,7 +1449,8 @@ def oracle_seed_lines(idx, reads: np.ndarray, lmem: bool, wsize=MA_WSIZE, max_ra
             if lmem:
                 naive.get_markers_lmems(idx, codes, wsize, max_range, fn)
             else:
-                naive.get_markers_greedy_seeding(idx, codes, wsize, max_range, fn)
+                naive.get_markers_greedy_seeding(idx, codes, wsize, max_range, fn,
+                                                 use_ftab=use_ftab)
                 calls = calls[:max_seeds]
             for rn, (qs, qe), mk in calls:
                 if rn[1] < rn[0]:
@@ -1546,6 +1612,7 @@ def phase_locs(device, card: dict, chr_: dict) -> dict:
                markers=sum(len(ln.split()) - 1 for ln in lines), oracle_reads=N_ORACLE,
                oracle_s=oracle_s, k1_launches=k1, card=card["nvidia_smi"])
     emit("locs", **res)
+    res["out_text"] = out_text
     return res
 
 
@@ -1584,8 +1651,330 @@ def phase_greedy_trace(device, card: dict, chr_: dict, greedy: dict) -> dict:
     emit("greedy_trace", **res)
     return res
 
+def host_rank_fb2(big, i: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """rank(i, c), i in [0, n], over a BigIndex's 128-symbol rows and base on
+    the host (numpy int64): base of i's superblock + the row's checkpoint +
+    the count of c among the row's symbols below i's offset."""
+    isafe = np.minimum(i, big.n - 1)
+    blk = isafe >> 7
+    rows = np.asarray(big.fb2[blk])  # [m, 24] int32
+    m = np.arange(len(c))
+    words = np.ascontiguousarray(rows[:, 8:]).view(np.uint32)
+    sym = ((words[:, :, None] >> (4 * np.arange(8, dtype=np.uint32))) & 15).reshape(len(c), 128)
+    below = np.arange(128)[None, :] < (isafe & 127)[:, None]
+    v = (big.base[blk // big.per_blk, c] + rows[m, c].astype(np.int64)
+         + ((sym == c[:, None]) & below).sum(axis=1))
+    return np.where(i >= big.n, big.F[c + 1] - big.F[c], v)
 
-SELECTABLE = ("probes", "parity", "k1")
+
+def host_ranges_fb2(big, qc: np.ndarray, lens: np.ndarray):
+    """Batched backward search on the host over the 128-symbol rows and base
+    (never the 64-symbol repack): (lo, hi) int64 with the (1, 0) empty range."""
+    B, L = qc.shape
+    lo = np.zeros(B, np.int64)
+    hi = np.full(B, big.n - 1, np.int64)
+    done = np.zeros(B, bool)
+    for j in range(L):
+        c = qc[:, L - 1 - j].astype(np.int64)
+        active = ~done & (j < lens)
+        valid = (c >= 0) & (c < big.A)
+        cs = np.where(valid, c, 0)
+        cb = host_rank_fb2(big, lo, cs)
+        ci = host_rank_fb2(big, hi + 1, cs) - cb
+        empty = (ci <= 0) | ~valid
+        nlo = np.where(empty, 1, big.F[cs] + cb)
+        nhi = np.where(empty, 0, big.F[cs] + cb + ci - 1)
+        lo = np.where(active, nlo, lo)
+        hi = np.where(active, nhi, hi)
+        done |= active & (nlo > nhi)
+    return lo, hi
+
+
+def phase_big_count(device, card: dict) -> dict:
+    """A count-only BigIndex above 2^31: BIG_COUNT_N seeded random codes of
+    an alphabet of 6, built with BigIndex.from_codes (n_sup = 3; host seconds
+    and the process's peak RSS recorded).  BIG_COUNT_LANES lanes of 0-100
+    random codes, a quarter of them 1-16 codes long and starting with code 5,
+    whose ranges lie at or above F[5] (about 0.83 n), mostly above 2^31, run
+    through K1 and the plain loop on the card over fb2_64 and fb2: every
+    (lo, hi) equal as int64, and the two layouts' equal; the first
+    N_BIG_HOST lanes against the host rank over the 96 B rows and base.
+    Counts the final bounds at or above 2^31 (at least one lo is)."""
+    import torch
+
+    from rowbowt_tpu_torch.alphabet import SEP_BYTE, TERM_BYTE, Alphabet
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.engine.count import find_ranges
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    rng = np.random.default_rng(BIG_COUNT_SEED)
+    t0 = time.perf_counter()
+    codes = rng.integers(0, 6, size=BIG_COUNT_N, dtype=np.uint8)
+    alpha = Alphabet(np.array([TERM_BYTE, SEP_BYTE, *b"ACGT"], dtype=np.uint8))
+    big = BigIndex.from_codes(codes, alpha, n_sup=3)
+    del codes
+    build_s = time.perf_counter() - t0
+    peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
+    B, L = BIG_COUNT_LANES, READ_LEN
+    lens = rng.integers(0, L + 1, size=B)
+    short = rng.random(B) < 0.25
+    lens[short] = rng.integers(1, 17, size=int(short.sum()))
+    qc = np.where(np.arange(L)[None, :] >= L - lens[:, None],
+                  rng.integers(0, 6, size=(B, L)), -1).astype(np.int32)
+    qc[np.flatnonzero(short), (L - lens)[short]] = 5
+    q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens.astype(np.int32)).to(device)
+    res, ranges, err = {}, {}, 0
+    for fb64 in (True, False):
+        t = time.perf_counter()
+        tx = TorchIndex.from_big(big, device, fb64=fb64)
+        torch.cuda.synchronize()
+        layout = cuda_lf.row_layout(tx)
+        res[f"{layout}_load_s"] = time.perf_counter() - t
+        res[f"{layout}_table_gb"] = tx.arrays[layout].numel() * 4 / 1e9
+        cuda_lf.LAUNCHES_FB2 = 0
+        got = find_ranges(tx, q, ln)
+        check(cuda_lf.LAUNCHES_FB2 == 1, f"K1 launched {cuda_lf.LAUNCHES_FB2} times over {layout}")
+        want = cuda_lf.find_ranges_plain(tx, q, ln)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0 and got[0].dtype == torch.int64,
+              f"K1 over {layout} != plain above 2^31: max |err| {e}")
+        err = max(err, e)
+        ranges[layout] = tuple(t.cpu().numpy() for t in got)
+        res[f"{layout}_call_ms"], res[f"{layout}_plain_ms"] = in_turns(
+            [lambda: cuda_lf.find_ranges_plain(tx, q, ln)], [lambda: find_ranges(tx, q, ln)], 1, 5)
+        del tx, got, want
+        torch.cuda.empty_cache()
+    lo, hi = ranges["fb2_64"]
+    check(all(np.array_equal(a, b) for a, b in zip(ranges["fb2_64"], ranges["fb2"])),
+          "fb2_64 and fb2 ranges differ")
+    t = time.perf_counter()
+    hlo, hhi = host_ranges_fb2(big, qc[:N_BIG_HOST], lens[:N_BIG_HOST])
+    host_s = time.perf_counter() - t
+    check(np.array_equal(hlo, lo[:N_BIG_HOST]) and np.array_equal(hhi, hi[:N_BIG_HOST]),
+          "K1 over the two-level rows != the host rank over the 96 B rows")
+    found = hi >= lo
+    top = 1 << 31
+    res.update(n=big.n, n_sup=big.n_sup, per_blk=big.per_blk, F=big.F.tolist(),
+               build_s=build_s, peak_rss_gb=peak_rss_gb, lanes=B, L=L,
+               short_lanes=int(short.sum()), nonempty=int(found.sum()),
+               lo_at_or_above_2_31=int((found & (lo >= top)).sum()),
+               hi_at_or_above_2_31=int((found & (hi >= top)).sum()),
+               max_hi=int(hi[found].max()), host_checked=N_BIG_HOST, host_s=host_s,
+               max_abs_err=err, card=card["nvidia_smi"])
+    check(res["lo_at_or_above_2_31"] > 0, "no final range lies above 2^31")
+    emit("big_count", **res)
+    del big
+    return res
+
+
+def build_big_chr(chr_) -> dict:
+    """The chr panel's BigIndex view (n_sup = N_SUP_CHR), with the locate
+    tables derived from the chr index as bench.py:143-168 derives them (the
+    phi breakpoints from the dense phi1), the marker CSR, window and document
+    list, saved as a big directory with the chr `idx.midx.npz` beside it."""
+    from rowbowt_tpu_torch.bigindex import BigIndex
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    t0 = time.perf_counter()
+    big = BigIndex.from_codes(codes_of(idx), idx.alpha, n_sup=N_SUP_CHR)
+    head = np.asarray(idx.run_head).astype(np.uint8)
+    big.run_start = np.asarray(idx.run_start).astype(np.uint32)
+    big.run_head = head
+    big.samples_last = np.asarray(idx.samples_last).astype(np.uint32)
+    phi1 = np.asarray(idx.phi1).astype(np.int64)
+    bp = np.flatnonzero(np.diff(phi1) != 1) + 1
+    if bp.size == 0 or bp[0] != 0:
+        bp = np.concatenate(([0], bp))
+    big.pred_pos, big.phi_at = bp.astype(np.uint32), phi1[bp].astype(np.uint32)
+    del phi1
+    R = idx.R
+    keys = head.astype(np.int64) * R + np.arange(R, dtype=np.int64)
+    big.cruns_keys = keys[np.argsort(head, kind="stable")].astype(np.int32)
+    big.ma_row, big.ma_val = np.asarray(idx.ma_row).astype(np.uint32), np.asarray(idx.ma_val)
+    big.ma_wsize, big.doc_starts, big.doc_names = idx.ma_wsize, idx.doc_starts, idx.doc_names
+    build_s = time.perf_counter() - t0
+    path = os.path.join(WORK, "big")
+    big.save(path)
+    shutil.copy(paths["idx"] + ".midx.npz", path + ".midx.npz")
+    return dict(path=path, n_sup=big.n_sup, per_blk=big.per_blk, R=big.R,
+                breakpoints=int(bp.size), M=int(big.ma_row.shape[0]), build_s=build_s,
+                dir_gb=sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9)
+
+
+def big_stages(device, path: str, fastq: str, mode: str, out_text: str) -> dict:
+    """rbt_align's stages on the big directory, one by one (host clock; each
+    device stage ends in a synchronize): count (mode ""), -s or -m.  The
+    staged run's lines must equal the CLI's."""
+    import torch
+
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.cli import rbt_align
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.count import find_ranges
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
+
+    stages = {}
+    with timed(stages, "load_s"):
+        big = BigIndex.load(path)
+        tx = TorchIndex.from_big(big, device, with_locate=mode == "-s",
+                                 with_markers=mode == "-m")
+    with timed(stages, "parse_s"):
+        batches = list(iter_query_batches(big, fastq, BATCH))
+    with timed(stages, "h2d_s"):
+        dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device), len(names))
+               for names, qc, lens in batches]
+    with timed(stages, "lf_toehold_s" if mode == "-s" else "lf_s"):
+        search = find_ranges_w_toehold if mode == "-s" else find_ranges
+        ranges = [tuple(t[:nr] for t in search(tx, q, ln)) for q, ln, nr in dev]
+    cols = []
+    if mode == "-s":
+        with timed(stages, "locate_s"):  # the phi walk and the document resolve
+            cols = [rbt_align.format_locs(big.doc_names, *rbt_align.locate_hits(
+                tx, lo, hi, k, None)) for lo, hi, k in ranges]
+    elif mode == "-m":
+        with timed(stages, "probe_s"):
+            cols = [rbt_align.format_markers(*rbt_align.probe_markers(tx, lo, hi))
+                    for lo, hi in ranges]
+    with timed(stages, "format_s"):
+        text = "".join(
+            "".join("".join(parts) for parts in zip(
+                count_lines(names, r[0].cpu().numpy(), r[1].cpu().numpy()),
+                *([cols[b]] if cols else [])))
+            for b, ((names, _, _), r) in enumerate(zip(batches, ranges)))
+    check(text == out_text, f"rbt_align {mode} on the big directory != its staged run")
+    return stages
+
+
+def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: dict,
+                  markers: dict, locs: dict) -> dict:
+    """The chr panel's BigIndex view (build_big_chr) through the port's CLIs:
+    rbt_align count (N_READS reads), -s and -m (N_LOCATE) print the lines of
+    the dense chr index; rbt_markers -f (N_GREEDY; big artifacts carry no
+    ftab, so it runs without) prints the dense index's lines without -f on
+    the first batch and the scalar oracle's (no ftab) on N_ORACLE reads;
+    rbt_locs prints the dense run's lines (held to the oracle in phase
+    locs).  Load and query seconds, reads/s, stages and K1 launches of each.
+    Then K1 over fb2_64 on the main path's four batches against the plain
+    loop and K1 over fblock64 (no ftab: the same work), call times in turns
+    and device times alone (CUDA events; one profiler trace as a check),
+    the bound as phase k1 computes it (int64 F, lo and hi, and the base
+    table), and K1 over the 96 B fb2 rows against the plain loop."""
+    import torch
+
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    view = build_big_chr(chr_)
+    path, dev_s = view["path"], str(device)
+    runs = {}
+
+    def align(tag, fastq, flags, want):
+        cuda_lf.LAUNCHES_FB2 = 0
+        cli, out_text, err = run_cli([path, fastq, *flags, "-b", str(BATCH), "--device", dev_s],
+                                     paths["out.txt"])
+        check(out_text == want, f"rbt_align {tag} on the big directory != the dense index's lines")
+        check(err.startswith(f"loading (big two-level artifact): {path}"),
+              "rbt_align did not load the big directory as one")
+        n = N_READS if tag == "count" else N_LOCATE
+        runs[tag] = dict(cli, cli_reads_per_s=n / cli["cli_query_s"], reads=n,
+                         launches=cuda_lf.LAUNCHES_FB2,
+                         stages=big_stages(device, path, fastq, flags[0] if flags else "",
+                                           out_text))
+
+    align("count", paths["reads.fq"], [], "".join(count["lines"]))
+    align("-s", paths["locate.fq"], ["-s"], loc["out_text"])
+    align("-m", paths["locate.fq"], ["-m"], markers["out_text"])
+    check(runs["count"]["launches"] == N_READS // BATCH and runs["-m"]["launches"] == -(
+        -N_LOCATE // BATCH), f"K1 launches over the big rows: {runs}")
+
+    # rbt_markers -f and rbt_locs on the big directory
+    argv = ["-f", "-b", str(GREEDY_BATCH), "--device", dev_s]
+    cuda_lf.LAUNCHES_FB2 = 0
+    cli, g_text, g_err = run_seeding_cli("rbt_markers", [path, paths["greedy.fq"], *argv],
+                                         paths["out.txt"])
+    check("note: big artifacts carry no ftab; running without it" in g_err.splitlines(),
+          "rbt_markers -f did not note the missing ftab")
+    lines = g_text.splitlines(keepends=True)
+    nums = np.array([read_no(ln) for ln in lines])
+    dense, d_text, _ = run_seeding_cli(
+        "rbt_markers", [paths["idx"], paths["greedy_cpu.fq"], *argv[1:]], paths["out.txt"])
+    n_first = int((nums < GREEDY_BATCH).sum())
+    check(d_text.splitlines(keepends=True) == lines[:n_first],
+          "rbt_markers -f on the big directory != the dense index without -f, first batch")
+    t = time.perf_counter()
+    want = oracle_seed_lines(idx, chr_["reads"][:N_ORACLE], lmem=False, use_ftab=False)
+    oracle_s = time.perf_counter() - t
+    check(lines[:int((nums < N_ORACLE).sum())] == want,
+          f"rbt_markers on the big directory != the scalar oracle on the first {N_ORACLE} reads")
+    runs["markers_f"] = dict(cli, cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
+                             reads=N_GREEDY, seeds=len(lines), launches=cuda_lf.LAUNCHES_FB2,
+                             dense_no_ftab_first_batch_query_s=dense["cli_query_s"],
+                             oracle_reads=N_ORACLE, oracle_s=oracle_s)
+    cuda_lf.LAUNCHES_FB2 = 0
+    cli, l_text, _ = run_seeding_cli(
+        "rbt_locs", [path, paths["greedy.fq"], "-b", str(GREEDY_BATCH), "--device", dev_s],
+        paths["out.txt"])
+    check(l_text == locs["out_text"], "rbt_locs on the big directory != the dense index's lines")
+    runs["locs"] = dict(cli, cli_reads_per_s=N_GREEDY / cli["cli_query_s"], reads=N_GREEDY,
+                        launches=cuda_lf.LAUNCHES_FB2)
+
+    # K1 over the two-level rows on the main path's batches
+    big = BigIndex.load(path)
+    tx = TorchIndex.from_big(big, device, with_locate=False, with_markers=False)  # fb2_64
+    txd = TorchIndex.from_index(idx, device)  # fblock64
+    dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
+           for _, qc, lens in iter_query_batches(big, paths["reads.fq"], BATCH)]
+    B, L = dev[0][0].shape
+    plain = [cuda_lf.find_ranges_plain(tx, q, ln) for q, ln in dev]
+    err = max(max(max_abs_err(k1_current(tx, q, ln), want),
+                  max_abs_err(k1_current(txd, q, ln, False), want))
+              for (q, ln), want in zip(dev, plain))
+    tx96 = TorchIndex.from_big(big, device, fb64=False, with_locate=False, with_markers=False)
+    err = max(err, *(max_abs_err(k1_current(tx96, q, ln), want)
+                     for (q, ln), want in zip(dev, plain)))
+    torch.cuda.synchronize()
+    check(err == 0, f"K1 over the two-level rows != plain at chr: max |err| {err}")
+
+    def calls(t, use_ftab=False):
+        return [lambda q=q, ln=ln: k1_current(t, q, ln, use_ftab) for q, ln in dev]
+
+    def bracketed(t):
+        return [lambda a, b, q=q, ln=ln: k1_current(t, q, ln, False, a, b) for q, ln in dev]
+
+    res = dict(view, launches=runs["count"]["launches"], max_abs_err=err, batches=len(dev),
+               lanes=B, L=L, runs=runs)
+    res["fb2_call_ms"], res["plain_ms"] = in_turns(
+        [lambda q=q, ln=ln: cuda_lf.find_ranges_plain(tx, q, ln) for q, ln in dev],
+        calls(tx), 1, 5)
+    res["fblock64_call_ms"], res["fb2_call_ms_again"] = in_turns(calls(tx), calls(txd), 5, 5)
+    res["fb2_96_call_ms"] = cuda_ms(calls(tx96), 5)
+    # the kernels alone, in turns: fblock64, fb2_64, fb2_64, fblock64
+    old = [kernel_event_us(bracketed(txd), 5)]
+    new = [kernel_event_us(bracketed(tx), 5) for _ in range(2)]
+    old.append(kernel_event_us(bracketed(txd), 5))
+    res["fb2_device_us"], res["fblock64_device_us"] = sum(new) / 2, sum(old) / 2
+    res["fb2_device_us_each"], res["fblock64_device_us_each"] = new, old
+    res["profiled_us"] = profiled_kernel_us(calls(tx), 3, ("lf_count_kernel",))["lf_count_kernel"]
+    work = [k1_work(tx, q, ln, False) for q, ln in dev]
+    res["work"] = work
+    res["bound"] = k1_bound(work, B, L, tx.A, 64, k1["us_per_dependent_step"]["random_cycle"],
+                            lane_bytes=8, table_bytes=tx.arrays["fb2_base"].numel() * 8)
+    res["fb2_share"] = res["bound"]["bound_us"] / res["fb2_device_us"]
+    res["resident_mb"] = {k: v.numel() * v.element_size() / 1e6 for k, v in TorchIndex.from_big(
+        big, device).arrays.items()}
+    emit("big_chr", **res, card=card["nvidia_smi"])
+    del tx, txd, tx96, dev, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+SELECTABLE = ("probes", "parity", "k1", "big_count")
 
 
 def main(argv: list[str]) -> int:
@@ -1614,26 +2003,31 @@ def main(argv: list[str]) -> int:
                 phase_probes(device)
             elif name == "parity":
                 phase_parity(device)
+            elif name == "big_count":
+                phase_big_count(device, card)
             else:
                 phase_k1(device, card, build_chr())
         shutil.rmtree(WORK, ignore_errors=True)
         return 0
     probes = phase_probes(device)
     par_err = phase_parity(device)
+    big_count = phase_big_count(device, card)  # first: its peak RSS is the build's
     chr_ = build_chr()
     count = phase_main(device, card, chr_)
     k1 = phase_k1(device, card, chr_)
     loc = phase_locate(device, card, chr_, count)
-    phase_markers(device, card, chr_, count)
+    markers = phase_markers(device, card, chr_, count)
     chain_err = phase_phi_chain(device, card, loc)
     greedy = phase_greedy(device, card, chr_)
     phase_heuristic(device, card, chr_)
     phase_lmem(device, card, chr_)
-    phase_locs(device, card, chr_)
+    locs = phase_locs(device, card, chr_)
+    big_chr = phase_big_chr(device, card, chr_, count, k1, loc, markers, locs)
     phase_trace(device, card, chr_, loc)
     phase_greedy_trace(device, card, chr_, greedy)
     shutil.rmtree(WORK, ignore_errors=True)
-    print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain_err)}))
+    print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain_err, big_chr,
+                                               big_count)}))
     print(card["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1641,25 +2035,36 @@ def main(argv: list[str]) -> int:
     return 0
 
 
-def kernel_record(count: dict, k1: dict, probes: dict, par_err: int, chain_err: int) -> list:
+def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err: int,
+                  big_chr: dict, big_count: dict) -> list:
     """One entry per kernel of the port: launches on the main path, max |err|
     against the plain twin, call time (`ms`, CUDA events) beside the plain
     twin's and the library call's, device time alone (`device_us`, CUDA
     events just around the launch; `profiled_us`, one profiler trace, null
     where its records were wrong), and the
     bound: `bound_ms` from bytes or operations, whichever is larger, and
-    `bound_us`, the larger of the byte bound and the latency bound."""
-    b = k1["bound"]
-    ops_ms, byte_ms = b["ops_bound_us"] / 1e3, b["byte_bound_us"] / 1e3
-    kernels = [{"name": "lf_count", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
-                "replaces": "rowbowt_tpu/ops/pallas_lf.py:49", "launches": count["launches"],
-                "max_abs_err": max(par_err, count["max_abs_err"], k1["max_abs_err"]),
-                "ms": count["k1_call_ms"], "plain_ms": count["plain_ms"],
-                "bound_ms": max(byte_ms, ops_ms),
-                "bound_by": "bytes" if byte_ms >= ops_ms else "operations",
-                "library_ms": None, "device_us": k1["k1_device_us"],
-                "profiled_us": k1["profiled_us"]["lf_count_kernel"],
-                "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]}]
+    `bound_us`, the larger of the byte bound and the latency bound.  K1 over
+    the two-level rows (lf_count_fb2) has its own entry, from phase big_chr
+    (its main path: rbt_align count on the big directory), its max |err|
+    also over phases parity and big_count."""
+    kernels = []
+    for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
+            ("lf_count", k1["bound"], count,
+             max(par_err["lf_count"], count["max_abs_err"], k1["max_abs_err"]),
+             count["k1_call_ms"], count["plain_ms"], k1["k1_device_us"],
+             k1["profiled_us"]["lf_count_kernel"]),
+            ("lf_count_fb2", big_chr["bound"], big_chr,
+             max(par_err["lf_count_fb2"], big_chr["max_abs_err"], big_count["max_abs_err"]),
+             big_chr["fb2_call_ms"], big_chr["plain_ms"], big_chr["fb2_device_us"],
+             big_chr["profiled_us"])):
+        ops_ms, byte_ms = b["ops_bound_us"] / 1e3, b["byte_bound_us"] / 1e3
+        kernels.append({"name": name, "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
+                        "replaces": "rowbowt_tpu/ops/pallas_lf.py:49", "launches": main["launches"],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": max(byte_ms, ops_ms),
+                        "bound_by": "bytes" if byte_ms >= ops_ms else "operations",
+                        "library_ms": None, "device_us": dev_us, "profiled_us": prof_us,
+                        "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]})
     bounds = probe_bounds(k1["us_per_dependent_step"]["tool_table"])
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
         p, pb = probes[name], bounds[name]

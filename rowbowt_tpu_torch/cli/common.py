@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import os
 import sys
 import time
 
@@ -79,37 +78,38 @@ class StageClock:
         return "stages: " + json.dumps(self.seconds)
 
 
-def _is_big_dir(path: str) -> bool:
-    """True when `path` is a two-level (n >= 2^31) BigIndex directory."""
-    meta = os.path.join(path, "meta.json")
-    if not os.path.isdir(path) or not os.path.exists(meta):
-        return False
-    try:
-        with open(meta) as f:
-            return json.load(f).get("format") == "rowbowt-tpu-bigindex"
-    except (json.JSONDecodeError, OSError):
-        return False
-
-
 def load_index(prefix: str, sa=False, ma=False, dl=False, ft=False):
     """Flag-gated index load (LoadRbwtFlag role, rowbowt_io.hpp:146-189): the
-    SA samples, markers, document list and ftab only when asked for."""
-    if _is_big_dir(prefix):
-        raise NotImplementedError(
-            f"{prefix} is a two-level big (n >= 2^31) artifact: not yet ported "
-            "in rowbowt_tpu_torch (ROADMAP M6)")
+    SA samples, markers, document list and ftab only when asked for.
+
+    A two-level big (n >= 2^31) BigIndex directory, written by either
+    package, is detected and loaded as the port's BigIndex (memory-mapped;
+    its flag gating happens in device_index)."""
+    from rowbowt_tpu_torch.bigindex import BigIndex
+
+    if BigIndex.is_big_dir(prefix):
+        eprint(f"loading (big two-level artifact): {prefix}")
+        if ft:
+            eprint("note: big artifacts carry no ftab; running without it")
+        return BigIndex.load(prefix)
     eprint(f"loading: {prefix}")
     return RbtIndex.load(prefix, with_sa=sa, with_ma=ma, with_dl=dl, with_ft=ft)
 
 
-def device_index(idx: RbtIndex, device):
-    """The index's tensors on `device` (the 64B-row layout)."""
+def device_index(idx, device, sa=False, ma=False):
+    """The index's tensors on `device` (the 64B-row layout).  An RbtIndex was
+    gated at load; a BigIndex puts its locate and marker tables on the
+    device only for the flags that ask for them."""
+    from rowbowt_tpu_torch.bigindex import BigIndex
     from rowbowt_tpu_torch.engine.device import TorchIndex
 
+    if isinstance(idx, BigIndex):
+        return TorchIndex.from_big(idx, device, with_locate=sa and idx.has_locate,
+                                   with_markers=ma and idx.has_markers)
     return TorchIndex.from_index(idx, device)
 
 
-def iter_query_batches(idx: RbtIndex, fastq: str, batch_size: int,
+def iter_query_batches(idx, fastq: str, batch_size: int,
                        normalize: bool = False, with_rc: bool = False,
                        use_native: bool = True, max_read_len: int = 1024):
     """Yield (names, qcodes, lengths) per batch.  normalize maps the reads

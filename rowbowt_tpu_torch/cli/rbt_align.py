@@ -13,7 +13,9 @@ Load time and query time go to stderr as "<load_s> <query_s>"
 (rb_align.cpp:164-192), then the reads/s and LF-steps/s meter.
 
 On a CUDA device the LF loop is the hand-written kernel K1; `--device cpu`
-runs the plain torch loop.  Locate and markers run on the real reads of each
+runs the plain torch loop.  The index may be a two-level BigIndex
+directory (n >= 2^31), where K1 runs over its int64 lanes and `-s` takes
+each toehold from the search's trajectory.  Locate and markers run on the real reads of each
 batch only, never on the length-0 lanes that pad the last batch.  `-o` and
 `-x` are accepted and unused, as in the JAX CLI; `--profile DIR` writes a
 torch.profiler trace of the query loop to DIR.
@@ -80,7 +82,7 @@ def main(argv=None):
         eprint("error: index has no marker array (build with -m); "
                "marker queries are unavailable")
         return 1
-    tx = device_index(idx, device)
+    tx = device_index(idx, device, sa=args.sam, ma=args.markers)
     load_s = t_load.lap()
 
     out = sys.stdout

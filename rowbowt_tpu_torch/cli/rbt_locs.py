@@ -9,7 +9,9 @@ by rbt_midx).  Output per read (rb_markers_tsa.cpp:76-88), byte-identical to
     <name>[ <seq>/<pos>/<allele>]...
 
 The seeding, locate and marker probe run as torch ops on --device (default
-cuda, an error when CUDA is absent; `--device cpu` for the CPU).  The load
+cuda, an error when CUDA is absent; `--device cpu` for the CPU).  The index
+may be a two-level BigIndex directory (n >= 2^31), with `<dir>.midx.npz`
+beside it.  The load
 and query seconds, a reads/s meter and the seconds of each stage of the query
 loop (`stages: {...}`, common.StageClock) go to stderr.
 """
@@ -60,7 +62,7 @@ def main(argv=None):
         eprint("error: index has no toehold SA (build with -s); "
                "rbt_locs needs locate support")
         return 1
-    tx = device_index(idx, device)
+    tx = device_index(idx, device, sa=True)
     mpos, mval = midx.device(device)
     eprint(f"loading the index took: {t_load.lap()} seconds")
 

@@ -16,7 +16,9 @@ with the forward strand.
 
 The greedy loop runs as torch ops on --device (default cuda, an error when
 CUDA is absent; `--device cpu` for the CPU); marker values resolve from the
-loop's entry ids on the host.  `--profile DIR` writes a torch.profiler trace
+loop's entry ids on the host.  The index may be a two-level BigIndex
+directory (n >= 2^31), which carries no ftab: `-f` then runs without it,
+and `--lmem`, which needs it, refuses, as in the JAX CLI.  `--profile DIR` writes a torch.profiler trace
 of the query loop to DIR.  The load and query seconds, a reads/s and seeds/s
 meter, and the seconds of each stage of the query loop (`stages: {...}`,
 common.StageClock) go to stderr.
@@ -95,7 +97,7 @@ def main(argv=None):
     if idx.ma_row is None:
         eprint("error: index has no marker array (build with -m)")
         return 1
-    tx = device_index(idx, device)
+    tx = device_index(idx, device, ma=True)
     eprint(f"loading rowbowt + markers took: {t.lap()} seconds")
 
     t = Timer()

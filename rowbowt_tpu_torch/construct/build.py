@@ -54,31 +54,60 @@ FB_WORDS = DENSE_BLOCK // 8  # 16 packed uint32 words per row
 FB_ROW = FB_CKPT + FB_WORDS  # 24 int32 lanes = 96 bytes per 128 symbols
 
 
-def build_fblock(codes: np.ndarray, A: int) -> np.ndarray:
+def build_fblock(codes: np.ndarray, A: int, block: int = DENSE_BLOCK) -> np.ndarray:
     """Interleaved fused-block rank table: int32[nb, 24] rows of
     [8 per-char exclusive occ checkpoints | 16 packed 4-bit BWT words].
 
     One row gather + VPU SWAR popcount = rank(i, c) — the checkpoint and the
     in-block symbols ride the same HBM transaction (the dense analog of
     rle_string::rank's single cache-line locality, rle_string.hpp:131-161) at
-    0.75 bytes/symbol vs occ1's 4*A bytes/symbol.
+    0.75 bytes/symbol vs occ1's 4*A bytes/symbol.  block = 256 gives the
+    256-symbol/160B rows (int32[nb, 40]) of the giant two-level layout.
     """
     assert A <= FB_CKPT, f"fblock needs A<={FB_CKPT}, got {A}"
     n = codes.shape[0]
     assert n < (1 << 31), "fblock checkpoints are int32; shard first"
-    nb = (n + DENSE_BLOCK - 1) // DENSE_BLOCK
-    padded = np.full(nb * DENSE_BLOCK, 15, dtype=np.uint32)  # pad nibble 15: matches no code
+    nb = (n + block - 1) // block
+    padded = np.full(nb * block, 15, dtype=np.uint32)  # pad nibble 15: matches no code
     padded[:n] = codes.astype(np.uint32)
     grp = padded.reshape(-1, 8)
     shifts = (np.arange(8, dtype=np.uint32) * 4)[None, :]
     words = (grp << shifts).astype(np.uint32).sum(axis=1, dtype=np.uint32)
-    pc = padded.reshape(nb, DENSE_BLOCK)
-    fb = np.zeros((nb, FB_ROW), dtype=np.int32)
+    pc = padded.reshape(nb, block)
+    fb = np.zeros((nb, FB_CKPT + block // 8), dtype=np.int32)
     for c in range(A):
         per_block = (pc == c).sum(axis=1)
         fb[1:, c] = np.cumsum(per_block)[:-1]
-    fb[:, FB_CKPT:] = words.reshape(nb, FB_WORDS).view(np.int32)
+    fb[:, FB_CKPT:] = words.reshape(nb, block // 8).view(np.int32)
     return fb
+
+
+def fb3_from_codes(codes: np.ndarray, A: int, n_idx: int, block: int = DENSE_BLOCK):
+    """(fb3, base, per_blk) straight from BWT codes — the n >= 2^31 path: no
+    global int32 fblock is ever materialized; each superblock's checkpoints
+    are local (int32 by construction) and `base` carries the int64 global
+    offsets.  The copy of ShardedDenseIndex.fb3_from_codes
+    (rowbowt_tpu/parallel/sharded_dense.py:78-102), with the row size as a
+    parameter (block = 256: the 256-symbol rows)."""
+    n = codes.shape[0]
+    nb = (n + block - 1) // block
+    per_blk = (nb + n_idx - 1) // n_idx
+    fb3 = np.zeros((n_idx, per_blk, FB_CKPT + block // 8), dtype=np.int32)
+    fb3[:, :, FB_CKPT:] = -1  # pad nibble 15 matches no code
+    base = np.zeros((n_idx, FB_CKPT), dtype=np.int64)
+    run = np.zeros(FB_CKPT, dtype=np.int64)
+    for s in range(n_idx):
+        base[s] = run
+        p0 = s * per_blk * block
+        p1 = min(p0 + per_blk * block, n)
+        if p1 <= p0:
+            continue
+        chunk = codes[p0:p1]
+        # per-superblock fblock with LOCAL checkpoints (chunk length < 2^31)
+        fb_s = build_fblock(chunk, A, block)
+        fb3[s, : fb_s.shape[0]] = fb_s
+        run = run + np.bincount(chunk, minlength=FB_CKPT)[:FB_CKPT]
+    return fb3, base, per_blk
 
 
 FB64_BLOCK = 64

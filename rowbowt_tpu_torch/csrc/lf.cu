@@ -4,6 +4,12 @@
 // Replaces rowbowt_tpu/ops/pallas_lf.py:_lf_kernel (with its _swar_count)
 // and computes what rowbowt_tpu/engine/count.py:find_ranges computes, the
 // ftab start included: both row layouts, any alphabet of at most 8 codes.
+// A second instance of the same kernel (C entry rbt_lf_count_fb2) runs the
+// search over the two-level rows of a big (n >= 2^31) index, which the JAX
+// package computes with XLA gathers over rowbowt_tpu/ops/rank.py
+// lf_step_fblock2: int64 lanes, superblock-local checkpoints completed by an
+// int64 base per superblock and code, rows of 64, 128 or 256 symbols, and
+// no ftab (big artifacts carry none).
 //
 // What bounds it on the H100.  A lane's step is two ranks, each over one
 // random row of a table that the 50 MB L2 does not hold (160 MB of fblock64
@@ -35,6 +41,11 @@
 // checkpoints, then SYMS 4-bit symbols packed 8 per word, symbol j of a word
 // at bits [4j, 4j+4).  The words are uint32 stored in int32 lanes: they are
 // reinterpreted as uint32 here, so shifts are logical and __popc counts them.
+// On the two-level rows the checkpoints count from the start of the row's
+// superblock (per_blk rows); base[s][c] (int64) is the count of c before
+// superblock s.  A row id stays an int (n < 2^37 for 64-symbol rows), and
+// only the lanes, F and base are 64-bit: one more 8-byte load a rank, from
+// a table of n_sup x 64 bytes that stays in L1 and L2.
 //
 // The first kernel of this file (lf_count_transposed_kernel, C entry
 // rbt_lf_count_transposed) is the earlier design, one thread per lane over a
@@ -60,8 +71,8 @@ struct Layout {
   static constexpr int kWords = SYMS / 8;         // packed words per row
   static constexpr int kRow = kCkpt + kWords;     // int32 lanes per row
   static constexpr int kVec = kRow / 4;           // int4 parts per row
-  static constexpr int kShift = SYMS == 64 ? 6 : 7;
-  static_assert(SYMS == 64 || SYMS == 128, "fblock64 or fblock rows");
+  static constexpr int kShift = SYMS == 64 ? 6 : SYMS == 128 ? 7 : 8;
+  static_assert(SYMS == 64 || SYMS == 128 || SYMS == 256, "64-, 128- or 256-symbol rows");
   static_assert(kRow % 4 == 0, "rows are whole 16-byte vectors");
   static constexpr int kPer = kVec / kG;          // parts of a row per thread
   static_assert(kVec % kG == 0, "each thread of a lane holds as many parts");
@@ -201,19 +212,30 @@ __device__ __forceinline__ int rank_share(const int4 (&v)[Layout<SYMS>::kPer], i
   return share;
 }
 
+// base[row's superblock][c] of the two-level rows, through the read-only path.
+__device__ __forceinline__ int64_t base_of(const int64_t* __restrict__ base, int row,
+                                           int per_blk, int c) {
+  return (int64_t)__ldg(reinterpret_cast<const long long*>(base) +
+                        (size_t)(row / per_blk) * kCkpt + c);
+}
+
 // One block: blockDim.x / kG lanes, kG neighbouring threads a lane.  STAGE
 // reads the codes from shared memory (staged once per block), else from
-// global memory at every step (for batches too wide to stage).
-template <int SYMS, bool STAGE>
+// global memory at every step (for batches too wide to stage).  Lane is
+// int32_t for the single-level rows, with the ftab start; int64_t for the
+// two-level rows, with `base` and `per_blk` and without the ftab (k is 0).
+template <typename Lane, int SYMS, bool STAGE>
 __global__ void __launch_bounds__(1024)
-lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
-                int A, int n, const int32_t* __restrict__ q,
+lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
+                const int64_t* __restrict__ base, int per_blk,
+                int A, Lane n, const int32_t* __restrict__ q,
                 const int32_t* __restrict__ lengths, int B, int L,
                 const int32_t* __restrict__ ftab, int k, uint32_t acgt,
-                int32_t* __restrict__ lo_out, int32_t* __restrict__ hi_out) {
+                Lane* __restrict__ lo_out, Lane* __restrict__ hi_out) {
   using Lo = Layout<SYMS>;
+  constexpr bool kTwoLevel = sizeof(Lane) == 8;
   extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when STAGE
-  __shared__ int32_t sF[kCkpt + 1];
+  __shared__ Lane sF[kCkpt + 1];
 
   const int lanes = blockDim.x / kG;
   const int b0 = blockIdx.x * lanes;
@@ -255,19 +277,20 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
 
   // ftab start (count.py:33-40): k > 0 only with the ftab on and L >= k
   const int len = lengths[b];
-  int lo = 0, hi = n - 1, j = 0;
-  if (k > 0 && len >= k) {
+  Lane lo = 0, hi = n - 1;
+  int j = 0;
+  if (!kTwoLevel && k > 0 && len >= k) {
     int kc = 0;
     bool valid = true;
     for (int col = L - k; col < L; ++col) {
       const int c = code_at(col);
-      int base = -1;
+      int two_bits = -1;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {  // the last match wins, as in kmer_codes
-        if (c == (int)((acgt >> (8 * t)) & 0xFF)) base = t;
+        if (c == (int)((acgt >> (8 * t)) & 0xFF)) two_bits = t;
       }
-      valid = valid && base >= 0;
-      kc = (kc << 2) | (base & 3);
+      valid = valid && two_bits >= 0;
+      kc = (kc << 2) | (two_bits & 3);
     }
     if (valid) {
       const int flo = ftab[2 * (size_t)kc];
@@ -290,12 +313,12 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
       break;
     }
     // rank(n, c) is the code's total count; hi + 1 does reach n
-    const int total = sF[c + 1] - sF[c];
-    const int i1 = hi + 1;
+    const Lane total = sF[c + 1] - sF[c];
+    const Lane i1 = hi + 1;
     const bool has0 = lo < n, has1 = i1 < n;
     // both rows are loaded even when they are one: the second load then
     // finds the row in L1, and loading it once was measured no faster
-    const int r0 = lo >> Lo::kShift, r1 = i1 >> Lo::kShift;
+    const int r0 = (int)(lo >> Lo::kShift), r1 = (int)(i1 >> Lo::kShift);
     int4 v[Lo::kPer], w[Lo::kPer];
 #pragma unroll
     for (int m = 0; m < Lo::kPer; ++m) {
@@ -303,12 +326,20 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
       v[m] = has0 ? __ldg(fb + (size_t)r0 * Lo::kVec + part) : make_int4(0, 0, 0, 0);
       w[m] = has1 ? __ldg(fb + (size_t)r1 * Lo::kVec + part) : v[m];
     }
-    int p0 = rank_share<SYMS>(v, sub, c, lo & (SYMS - 1));
-    int p1 = rank_share<SYMS>(w, sub, c, i1 & (SYMS - 1));
+    int p0 = rank_share<SYMS>(v, sub, c, (int)(lo & (SYMS - 1)));
+    int p1 = rank_share<SYMS>(w, sub, c, (int)(i1 & (SYMS - 1)));
     p0 += __shfl_xor_sync(pair, p0, 1);
     p1 += __shfl_xor_sync(pair, p1, 1);
-    const int cb = has0 ? p0 : total;
-    const int ci = (has1 ? p1 : total) - cb;
+    Lane cb, ce;
+    if constexpr (kTwoLevel) {
+      // the superblock's base completes the local rank
+      cb = has0 ? base_of(base, r0, per_blk, c) + p0 : total;
+      ce = has1 ? base_of(base, r1, per_blk, c) + p1 : total;
+    } else {
+      cb = has0 ? p0 : total;
+      ce = has1 ? p1 : total;
+    }
+    const Lane ci = ce - cb;
     if (ci <= 0) {
       lo = 1;
       hi = 0;
@@ -323,34 +354,45 @@ lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F,
   }
 }
 
+template <typename Lane>
 struct Args {
   const int4* fb;
-  const int32_t* F;
-  int A, n;
+  const Lane* F;
+  const int64_t* base;
+  int per_blk;
+  int A;
+  Lane n;
   const int32_t* q;
   const int32_t* lengths;
   int B, L;
   const int32_t* ftab;
   int k;
   uint32_t acgt;
-  int32_t* lo;
-  int32_t* hi;
+  Lane* lo;
+  Lane* hi;
 };
 
-template <int SYMS, bool STAGE>
-int launch(const Args& a, int threads, cudaStream_t s) {
+template <typename Lane, int SYMS, bool STAGE>
+int launch(const Args<Lane>& a, int threads, cudaStream_t s) {
   const int lanes = threads / kG;
   const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
-  lf_count_kernel<SYMS, STAGE><<<grid, threads, smem, s>>>(
-      a.fb, a.F, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt, a.lo, a.hi);
+  lf_count_kernel<Lane, SYMS, STAGE><<<grid, threads, smem, s>>>(
+      a.fb, a.F, a.base, a.per_blk, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt,
+      a.lo, a.hi);
   return (int)cudaGetLastError();
 }
 
-template <int SYMS>
-int launch_staged(const Args& a, int threads, bool stage, cudaStream_t s) {
-  return stage ? launch<SYMS, true>(a, threads, s) : launch<SYMS, false>(a, threads, s);
+template <typename Lane, int SYMS>
+int launch_staged(const Args<Lane>& a, int threads, bool stage, cudaStream_t s) {
+  return stage ? launch<Lane, SYMS, true>(a, threads, s)
+               : launch<Lane, SYMS, false>(a, threads, s);
+}
+
+bool bad_launch(int A, int B, int L, int threads) {
+  return A < 1 || A > kCkpt || B < 0 || L < 0 || threads < 32 || threads > 1024 ||
+         threads % 32 != 0;
 }
 
 }  // namespace
@@ -370,18 +412,43 @@ int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
                  const void* q, const void* lengths, int B, int L,
                  const void* ftab, int k, int acgt, void* lo, void* hi,
                  int threads, int stage, void* stream) {
-  if (A < 1 || A > kCkpt || B < 0 || L < 0 || n < 1 || k < 0 || k > 15 ||
-      (k > 0 && (ftab == nullptr || L < k)) || threads < 32 || threads > 1024 ||
-      threads % 32 != 0)
+  if (bad_launch(A, B, L, threads) || n < 1 || k < 0 || k > 15 ||
+      (k > 0 && (ftab == nullptr || L < k)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const Args a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F), A, n,
-               static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
-               B, L, static_cast<const int32_t*>(ftab), k, (uint32_t)acgt,
-               static_cast<int32_t*>(lo), static_cast<int32_t*>(hi)};
+  const Args<int32_t> a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F),
+                        nullptr, 0, A, n,
+                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
+                        B, L, static_cast<const int32_t*>(ftab), k, (uint32_t)acgt,
+                        static_cast<int32_t*>(lo), static_cast<int32_t*>(hi)};
   cudaStream_t s = (cudaStream_t)stream;
-  if (syms_per_row == 64) return launch_staged<64>(a, threads, stage, s);
-  if (syms_per_row == 128) return launch_staged<128>(a, threads, stage, s);
+  if (syms_per_row == 64) return launch_staged<int32_t, 64>(a, threads, stage, s);
+  if (syms_per_row == 128) return launch_staged<int32_t, 128>(a, threads, stage, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 over the two-level rows of a big index: int64 F [A + 1], base int64
+// [n_sup, 8] and per_blk rows a superblock (the resident layout's own:
+// twice the artifact's for the 64-symbol repack), n as 64 bits, int64 lo and
+// hi out; syms_per_row is 64 (fb2_64), 128 (fb2) or 256 (fb2_256).  No ftab.
+// The other arguments and the return value are rbt_lf_count's.
+int rbt_lf_count_fb2(const void* fb, int syms_per_row, const void* F, const void* base,
+                     int per_blk, int A, long long n, const void* q, const void* lengths,
+                     int B, int L, void* lo, void* hi, int threads, int stage, void* stream) {
+  const int shift = syms_per_row == 64 ? 6 : syms_per_row == 128 ? 7 : 8;
+  if (bad_launch(A, B, L, threads) || n < 1 || ((n - 1) >> shift) >= INT32_MAX ||
+      per_blk < 1 || base == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const Args<int64_t> a{static_cast<const int4*>(fb), static_cast<const int64_t*>(F),
+                        static_cast<const int64_t*>(base), per_blk, A, (int64_t)n,
+                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
+                        B, L, nullptr, 0, 0u,
+                        static_cast<int64_t*>(lo), static_cast<int64_t*>(hi)};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (syms_per_row == 64) return launch_staged<int64_t, 64>(a, threads, stage, s);
+  if (syms_per_row == 128) return launch_staged<int64_t, 128>(a, threads, stage, s);
+  if (syms_per_row == 256) return launch_staged<int64_t, 256>(a, threads, stage, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,6 +6,8 @@ RowBowt::find_range (rowbowt.hpp:121-131): B reads start from the ftab
 step per query char with done-masks.  On a CUDA device the whole search,
 ftab start included, is the hand-written kernel K1 (ops/cuda_lf.py); on the
 CPU it is the plain torch path (ops/cuda_lf.lf_start, then lf_loop_plain).
+On a big (n >= 2^31) index the lanes are int64 (`idx_dtype` is F's dtype)
+and there is no ftab: big artifacts carry none.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ from rowbowt_tpu_torch.ops import cuda_lf
 def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     """qcodes [B, L] right-aligned int32 (pad = -1), lengths [B], on tx.device.
 
-    Returns (lo [B], hi [B]) with the reference's (1, 0) empty encoding.
+    Returns (lo [B], hi [B]) of tx.idx_dtype with the reference's (1, 0)
+    empty encoding.  The lengths go to the kernel as int32 on every layout.
     """
-    return cuda_lf.find_ranges(tx, qcodes, lengths.to(tx.idx_dtype), use_ftab)
+    return cuda_lf.find_ranges(tx, qcodes, lengths.to(torch.int32), use_ftab)
 
 
 def counts_from_ranges(lo, hi):

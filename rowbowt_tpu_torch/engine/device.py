@@ -1,9 +1,18 @@
-"""TorchIndex: the device-resident view of an RbtIndex.
+"""TorchIndex: the device-resident view of an RbtIndex or a BigIndex.
 
-The counterpart of rowbowt_tpu/engine/device.py:DeviceIndex.  Its tensors are
-the flat sorted tables of `RbtIndex.device_arrays()` (same names, same
-dtypes), all on one explicit `device`; the static metadata (sizes, ftab k,
-window size, the codes of A/C/G/T) rides beside them as plain ints.
+The counterpart of rowbowt_tpu/engine/device.py:DeviceIndex and of
+rowbowt_tpu/bigindex.py:BigIndex.device_index.  Its tensors are the flat
+sorted tables of `RbtIndex.device_arrays()` (same names, same dtypes), or the
+two-level tables a BigIndex puts on the device, all on one explicit
+`device`; the static metadata (sizes, ftab k, window size, the codes of
+A/C/G/T, the bucket parameters of the big layout's searches) rides beside
+them as plain ints.
+
+Torch's uint32 tensors lack searchsorted and most comparisons, so the u32
+tables of the big layout (run starts, samples, breakpoints, bucket
+directories) are widened to int64 at load; every value they hold is below
+2^32, so each search and gather gives what the JAX package's u32 version
+gives.
 """
 
 from __future__ import annotations
@@ -26,6 +35,14 @@ class TorchIndex:
     ftab_k: int
     acgt_codes: tuple  # index codes of A,C,G,T (-1 entries when absent)
     device: torch.device
+    # (shift, iters) of the bucketed lower bounds over the big layout's sorted
+    # tables (ops/rank.bucketed_lower_bound): ma_bs for the marker CSR, pp_bs
+    # for the phi breakpoint table; () where another table serves
+    ma_bs: tuple = ()
+    pp_bs: tuple = ()
+    # (bucket shift, sd16 rows a probe reads) of the marker run-pack rank
+    # (bigindex.marker_run_pack, ops/rank._ms_runs); 0 = no run-pack tables
+    ma_rp: tuple | int = 0
 
     @property
     def idx_dtype(self) -> torch.dtype:
@@ -45,12 +62,19 @@ class TorchIndex:
 
     @staticmethod
     def from_arrays(arrays: dict[str, np.ndarray], *, n: int, R: int, A: int,
-                    ma_wsize: int, ftab_k: int, acgt_codes, device) -> "TorchIndex":
-        """Tensors on `device` from numpy leaves, keeping each leaf's dtype —
-        e.g. a JAX DeviceIndex's `{k: np.asarray(v) for k, v in dx.arrays.items()}`."""
+                    ma_wsize: int, ftab_k: int, acgt_codes, device, ma_bs: tuple = (),
+                    pp_bs: tuple = (), ma_rp: tuple | int = 0) -> "TorchIndex":
+        """Tensors on `device` from numpy leaves, keeping each leaf's dtype
+        except uint32, which widens to int64 — e.g. a JAX DeviceIndex's
+        `{k: np.asarray(v) for k, v in dx.arrays.items()}` with its ma_bs,
+        pp_bs and ma_rp."""
         device = torch.device(device)
-        tensors = {k: torch.from_numpy(np.require(v, requirements=["C", "W"])).to(device)
-                   for k, v in arrays.items()}
+        tensors = {}
+        for k, v in arrays.items():
+            v = np.asarray(v)
+            if v.dtype == np.uint32:
+                v = v.astype(np.int64)
+            tensors[k] = torch.from_numpy(np.require(v, requirements=["C", "W"])).to(device)
         return TorchIndex(
             arrays=tensors,
             n=int(n),
@@ -60,6 +84,9 @@ class TorchIndex:
             ftab_k=int(ftab_k),
             acgt_codes=tuple(int(c) for c in acgt_codes),
             device=device,
+            ma_bs=tuple(int(x) for x in ma_bs),
+            pp_bs=tuple(int(x) for x in pp_bs),
+            ma_rp=tuple(int(x) for x in ma_rp) if ma_rp else 0,
         )
 
     @staticmethod
@@ -84,3 +111,67 @@ class TorchIndex:
             acgt_codes=acgt_np,
             device=device,
         )
+
+    @staticmethod
+    def from_big(big, device, fb64: bool = True, with_locate: bool | None = None,
+                 with_markers: bool | None = None) -> "TorchIndex":
+        """The device view of a BigIndex (bigindex.py), with the tables
+        rowbowt_tpu/bigindex.py BigIndex.device_index chooses: count over
+        ops/rank.lf_step_fblock2.
+
+        fb64=True (default) repacks 128-symbol fb2 rows to the 64-symbol/64B
+        rows (`fb2_64`, disk-cached next to a loaded artifact); fb64=False
+        keeps them (`fb2`); 40-lane rows are the 256-symbol layout
+        (`fb2_256`) and are never repacked.  with_locate / with_markers
+        (default: whatever the artifact carries) add the O(R) toehold and phi
+        tables and the O(M) marker tables: the flag-gated partial load of
+        the reference (rowbowt_io.hpp:146-189)."""
+        from rowbowt_tpu_torch.bigindex import marker_buckets
+
+        if with_locate is None:
+            with_locate = big.has_locate
+        if with_markers is None:
+            with_markers = big.has_markers
+        lanes = int(big.fb2.shape[1])
+        if fb64 and lanes == 24:
+            key, fb = "fb2_64", big._fb2_64()
+        else:
+            key, fb = {24: "fb2", 40: "fb2_256"}[lanes], big.fb2
+        arrs = {key: fb, "fb2_base": big.base, "F": np.asarray(big.F).astype(np.int64)}
+        R = 0
+        pp_bs = ()
+        if with_locate:
+            assert big.has_locate, "artifact stores no locate tables"
+            R = big.R
+            # big_run_start, NOT run_start: the run-space engines (ROADMAP M5)
+            # key off "run_start"; the big engines read big_run_start
+            arrs["big_run_start"] = big.run_start
+            arrs["samples_last"] = big.samples_last
+            arrs["cruns_keys"] = big.cruns_keys
+            pr, pd = big._phi_pack()
+            if pr is not None:
+                # bitmap-rank phi: 2 dependent gathers per hop
+                arrs["phi_rows"] = pr
+                arrs["phi_delta"] = pd
+            else:
+                arrs["pred_pos"] = big.pred_pos
+                arrs["phi_at"] = big.phi_at
+                arrs["pp_off"], pp_bs = marker_buckets(np.asarray(big.pred_pos), big.n)
+        ma_bs = ()
+        ma_rp = 0
+        if with_markers:
+            assert big.has_markers, "artifact stores no marker tables"
+            arrs["ma_val"] = big.ma_val
+            rp = big._ma_runpack()
+            if rp is not None:
+                # run-pack rank: its small tables replace the device ma_row
+                arrs["ma_roff"], arrs["ma_sd16"], arrs["ma_rec"], ma_rp = rp
+            else:  # degenerate run structure: the bucketed bound serves
+                arrs["ma_row"] = big.ma_row
+                arrs["ma_off"], ma_bs = marker_buckets(big.ma_row, big.n)
+        if big.doc_starts is not None:
+            arrs["doc_starts"] = np.asarray(big.doc_starts).astype(np.int64)
+        acgt = big.alpha.encode(np.frombuffer(b"ACGT", dtype=np.uint8))
+        return TorchIndex.from_arrays(arrs, n=big.n, R=R, A=big.A, ma_wsize=big.ma_wsize,
+                                      ftab_k=0, acgt_codes=acgt, device=device,
+                                      ma_bs=ma_bs, pp_bs=pp_bs, ma_rp=ma_rp)

@@ -9,6 +9,10 @@ max_hits, toehold first then the phi chain; locate_ragged buckets lanes by
 range size on the host so one huge range does not widen every lane.
 find_ranges_w_toehold_chkpnts records the search state every wsize chars,
 and find_locs is the whole-read search plus the phi walk.
+
+A big (n >= 2^31) index has no kval: its toehold comes from the trajectory
+of the search (traj_nontrivial, traj_resolve_toehold), a resolve over its
+O(R) run tables after a count loop that records each step's hi.
 """
 
 from __future__ import annotations
@@ -27,16 +31,104 @@ def find_ranges_w_toehold(tx: TorchIndex, qcodes, lengths):
 
     By the invariant k == SA[hi] the toehold is a function of the final range,
     so the loop is the count LF without the ftab start and the toehold is one
-    kval gather at the end (ops/rank.toehold_from_range)."""
+    kval gather at the end (ops/rank.toehold_from_range).  On a big index it
+    is the trajectory resolve (_toehold_trajectory)."""
     arr = tx.arrays
     if "kval" in arr:
         lo, hi = find_ranges(tx, qcodes, lengths, use_ftab=False)
         return lo, hi, R.toehold_from_range(tx, lo, hi)
     if "cruns_keys" in arr:
-        raise NotImplementedError(
-            "the trajectory toehold of big (n >= 2^31) indexes is ROADMAP M6")
+        return _toehold_trajectory(tx, qcodes, lengths)
     raise NotImplementedError(
         "the per-step run-space or occ1 toehold (indexes without kval) is ROADMAP M5")
+
+
+def traj_nontrivial(tx: TorchIndex, hi_rec, csteps, m):
+    """[L, B] mask: step j was a NON-trivial LF_w_loc step (BWT[hi] != c,
+    rowbowt.hpp:559-571), from one packed-word gather per step and lane."""
+    L = hi_rec.shape[0]
+    sym = R.bwt_sym(tx, hi_rec.reshape(-1)).reshape(hi_rec.shape)
+    jidx = torch.arange(L, dtype=m.dtype, device=m.device)[:, None]
+    return (jidx < m[None, :]) & (sym != csteps)
+
+
+def traj_resolve_toehold(tx: TorchIndex, hi_rec, csteps, nontriv, a, b):
+    """Toehold k = SA[hi after step b] for a search SPAN of steps [a, b]
+    (inclusive), restarted from the full range at step a: the O(R)
+    trajectory resolve of whole-read search (a = 0), per-seed greedy spans
+    and checkpoints.
+
+    hi_rec / csteps / nontriv are the [L, B] step records (pre-step hi, the
+    code of each step, non-trivial steps); a, b are [K, B] step indices.
+    The last non-trivial step t* of the span takes its k from samples_last
+    of the last c-run at or before run_of(hi_t*) (two searchsorteds: run_of
+    over big_run_start, the ltk resolve over cruns_keys); every later step
+    is trivial and takes 1 from k mod n (rowbowt.hpp:557-558); a span with no
+    non-trivial step starts from k0 = SA[n-1].  b < a (empty span) resolves
+    to k0.  Returns k [K, B] int64; the caller masks failed lanes."""
+    dt = torch.int64
+    L = hi_rec.shape[0]
+    dev = hi_rec.device
+    jidx = torch.arange(L, dtype=dt, device=dev)[:, None]
+    # prefix max: the last nontrivial step at or before each step
+    lastnt = torch.cummax(torch.where(nontriv, jidx, -1), dim=0).values
+    bc = torch.clamp(b, 0, L - 1)
+    lnt = torch.gather(lastnt, 0, bc)
+    t_star = torch.where((b >= a) & (lnt >= a), lnt, -1)
+
+    sl = tx.arrays["samples_last"]
+    k0 = (sl[tx.R - 1].to(dt) + 1) % tx.n
+    steps_total = torch.clamp(b - a + 1, min=0)
+    k_triv = (k0 - steps_total) % tx.n
+
+    ts = torch.clamp(t_star, 0, L - 1)
+    hi_ts = torch.gather(hi_rec, 0, ts)
+    c_ts = torch.gather(csteps, 0, ts).to(dt)
+    rs = tx.arrays["big_run_start"]
+    r_ts = torch.searchsorted(rs, hi_ts.to(rs.dtype), right=True).to(dt) - 1
+    keys = tx.arrays["cruns_keys"]
+    q = (c_ts * tx.R + r_ts).to(keys.dtype)
+    jc = torch.searchsorted(keys, q, right=True).to(dt) - 1
+    rr = keys[torch.clamp(jc, min=0)].to(dt) - c_ts * tx.R
+    k_at = sl[torch.clamp(rr, 0, tx.R - 1)].to(dt)
+    k_nt = (k_at - (b - t_star)) % tx.n
+    return torch.where(t_star < 0, k_triv, k_nt)
+
+
+def span_toeholds(tx: TorchIndex, qcodes, hi_rec, m, a, b):
+    """traj_resolve_toehold of the spans [a, b] ([K, B]) of the searches of
+    the right-aligned qcodes, whose pre-step hi of every step is hi_rec."""
+    csteps = qcodes.flip(1).t().to(torch.int32)  # [L, B]: the code step j reads
+    return traj_resolve_toehold(tx, hi_rec, csteps, traj_nontrivial(tx, hi_rec, csteps, m), a, b)
+
+
+def _toehold_trajectory(tx: TorchIndex, qcodes, lengths):
+    """Toehold by trajectory postpass, the big-index (n >= 2^31) path: the
+    count LF loop over the two-level rows, which records each step's
+    pre-step hi ([L, B]), then the resolve of traj_resolve_toehold over the
+    whole read.  The loop is the plain torch one on every device: K1's fused
+    search keeps no step record, so lanes whose toehold is wanted cannot
+    take it (a K1 variant that writes the record is later work)."""
+    B, L = qcodes.shape
+    dt = torch.int64
+    dev = qcodes.device
+    m = lengths.to(dt)
+    lo = torch.zeros(B, dtype=dt, device=dev)
+    hi = torch.full((B,), tx.n - 1, dtype=dt, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    hi_rec = torch.zeros((L, B), dtype=dt, device=dev)
+    step = R.lf_step_auto(tx)
+    for j in range(L):
+        c = qcodes[:, L - 1 - j].to(dt)
+        active = (~done) & (j < m)
+        hi_rec[j] = hi
+        nlo, nhi = step(tx, lo, hi, c)
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+        done = done | (active & (nlo > nhi))
+    k = span_toeholds(tx, qcodes, hi_rec, m, torch.zeros((1, B), dtype=dt, device=dev),
+                      (m - 1)[None, :])[0]
+    return lo, hi, torch.where(hi < lo, 0, k)
 
 
 def locate(tx: TorchIndex, lo, hi, k, max_hits: int):
@@ -118,11 +210,12 @@ def find_ranges_w_toehold_chkpnts(tx: TorchIndex, qcodes, lengths, wsize: int):
     Checkpoint j of lane b covers query span [cqs, cqe) with BWT range
     (clo, chi) and toehold ck.  A failed full-read search returns ncp=0 (the
     reference clears the vector, rowbowt.hpp:586-589).  The loop is the plain
-    LF; every checkpoint's toehold is one kval gather afterwards.
+    LF; every checkpoint's toehold is one kval gather afterwards, or on a big
+    index the trajectory resolve of the prefix span [0, its last step].
     """
     from rowbowt_tpu_torch.engine.seeds import _toehold_by_kval
 
-    _toehold_by_kval(tx, "find_ranges_w_toehold_chkpnts")
+    big = _toehold_by_kval(tx, "find_ranges_w_toehold_chkpnts")
     B, L = qcodes.shape
     C = L // wsize + 1
     dt = tx.idx_dtype
@@ -137,16 +230,22 @@ def find_ranges_w_toehold_chkpnts(tx: TorchIndex, qcodes, lengths, wsize: int):
     cqs = torch.zeros((C, B), dtype=dt, device=dev)
     cqe = torch.zeros((C, B), dtype=dt, device=dev)
     ncp = torch.zeros(B, dtype=dt, device=dev)
+    # big index: each checkpoint's last step and the pre-step hi of every step
+    cb = torch.zeros((C, B), dtype=dt, device=dev) if big else None
+    hi_rec = torch.zeros((L, B), dtype=dt, device=dev) if big else None
     lf = R.lf_step_auto(tx)
 
-    def put(rec, lo, hi, qs, qe):
+    def put(rec, lo, hi, qs, qe, last):
         slot = torch.clamp(ncp, max=C - 1)
-        for arr, v in ((clo, lo), (chi, hi), (cqs, qs), (cqe, qe)):
-            U.tslot_set(arr, slot, rec, v)
+        for arr, v in ((clo, lo), (chi, hi), (cqs, qs), (cqe, qe), (cb, last)):
+            if arr is not None:
+                U.tslot_set(arr, slot, rec, v)
 
     for j in range(L):
         c = qcodes[:, L - 1 - j].to(dt)
         active = (~failed) & (j < m)
+        if big:
+            hi_rec[j] = hi
         nlo, nhi = lf(tx, lo, hi, c)
         fail = active & (nlo > nhi)
         ok = active & ~fail
@@ -155,16 +254,23 @@ def find_ranges_w_toehold_chkpnts(tx: TorchIndex, qcodes, lengths, wsize: int):
         failed = failed | fail
         # checkpoint trigger (rowbowt.hpp:595-600): window_ei-(m-i) >= wsize
         trig = ok & (window_ei - (m - j) >= wsize)
-        put(trig & (ncp < C), lo, hi, m - j, window_ei)
+        put(trig & (ncp < C), lo, hi, m - j, window_ei, j)
         ncp = ncp + trig.to(dt)
         window_ei = torch.where(trig, m - j, window_ei)
     # final push (rowbowt.hpp:604-608)
     fin = (~failed) & (hi >= lo) & ((m - 1) % wsize != 0) & (m > 0)
-    put(fin & (ncp < C), lo, hi, 0, m)
+    put(fin & (ncp < C), lo, hi, 0, m, m - 1)
     ncp = ncp + fin.to(dt)
     ncp = torch.where(failed, 0, ncp)
+    if big:
+        # each checkpoint is a prefix of the one search (no restarts): span
+        # [0, its last step], resolved from the step records
+        ck = span_toeholds(tx, qcodes, hi_rec, m, torch.zeros_like(cb), cb)
+        ck = torch.where(chi < clo, 0, ck).t()
     clo, chi = clo.t(), chi.t()
-    return clo, chi, R.toehold_from_range(tx, clo, chi), cqs.t(), cqe.t(), ncp
+    if not big:
+        ck = R.toehold_from_range(tx, clo, chi)
+    return clo, chi, ck, cqs.t(), cqe.t(), ncp
 
 
 def find_locs(tx: TorchIndex, qcodes, lengths, max_hits: int):

@@ -28,15 +28,15 @@ from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops import update as U
 
 
-def _toehold_by_kval(tx: TorchIndex, what: str):
-    """Raise for indexes whose toehold is not one kval gather of the range:
-    the big-index trajectory resolve (M6) and the per-step occ1 / run-space
-    toehold (M5)."""
+def _toehold_by_kval(tx: TorchIndex, what: str) -> bool:
+    """How `what` finds its toeholds: False for one kval gather of each
+    range, True for the trajectory resolve of a big (n >= 2^31) index
+    (engine/locate.traj_resolve_toehold); raises for the per-step occ1 /
+    run-space toehold (M5)."""
     if "kval" in tx.arrays:
-        return
+        return False
     if "cruns_keys" in tx.arrays:
-        raise NotImplementedError(
-            f"{what}: the trajectory toehold of big (n >= 2^31) indexes is ROADMAP M6")
+        return True
     raise NotImplementedError(
         f"{what}: the per-step run-space or occ1 toehold (indexes without kval) "
         "is ROADMAP M5")
@@ -52,9 +52,12 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
     are kept).  The loop is the plain LF; the toehold of every record is one
     kval gather afterwards (SA[shi]).  Degenerate full-range records under
     min_length=0 thus get SA[n-1], where the reference reports the previous
-    seed's stale sample, as in the JAX version.
+    seed's stale sample, as in the JAX version.  On a big index the loop also
+    records each step's pre-step hi, and each seed's toehold is the
+    trajectory resolve of its span of steps (each seed restarts from the
+    full range).
     """
-    _toehold_by_kval(tx, "seeds_greedy_w_sample")
+    big = _toehold_by_kval(tx, "seeds_greedy_w_sample")
     B, L = qcodes.shape
     S = max_seeds
     dt = tx.idx_dtype
@@ -69,6 +72,7 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
     sqs = torch.zeros((S, B), dtype=dt, device=dev)
     sqe = torch.zeros((S, B), dtype=dt, device=dev)
     ns = torch.zeros(B, dtype=dt, device=dev)
+    hi_rec = torch.zeros((L, B), dtype=dt, device=dev) if big else None
     lf = R.lf_step_auto(tx)
 
     def put(slot, rec, plo, phi_, qs, qe):
@@ -80,6 +84,8 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
     for j in range(L):
         c = qcodes[:, L - 1 - j].to(dt)
         active = j < m
+        if big:
+            hi_rec[j] = hi  # pre-step hi
         nlo, nhi = lf(tx, lo, hi, c)
         fail = active & (nlo > nhi)
         ok = active & ~fail
@@ -96,8 +102,17 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
     emit = ei >= min_length
     put(torch.clamp(ns, max=S - 1), emit & (ns < S), plo, phi_, 0, ei)
     ns = ns + emit.to(dt)
+    if big:
+        from rowbowt_tpu_torch.engine.locate import span_toeholds
+
+        # seed [sqs, sqe) restarts from the full range: its steps are
+        # m-sqe .. m-1-sqs, and its toehold is that span's resolve (SA[shi])
+        ssamp = span_toeholds(tx, qcodes, hi_rec, m, m[None, :] - sqe, m[None, :] - 1 - sqs)
+        ssamp = torch.where(shi < slo, 0, ssamp).t()
     slo, shi, sqs, sqe = slo.t(), shi.t(), sqs.t(), sqe.t()
-    return slo, shi, sqs, sqe, R.toehold_from_range(tx, slo, shi), ns
+    if not big:
+        ssamp = R.toehold_from_range(tx, slo, shi)
+    return slo, shi, sqs, sqe, ssamp, ns
 
 
 def locate_from_longest_seed(tx: TorchIndex, slo, shi, sqs, sqe, ssamp, ns,

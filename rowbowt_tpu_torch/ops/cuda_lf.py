@@ -7,9 +7,14 @@ row-major [B, L] codes as they are, stages each block's codes in shared
 memory, starts each lane from the ftab itself and writes (lo, hi); two
 threads share a lane, each loading its share of a rank row's 16-byte parts.
 Either row layout works (`fblock64`, the default, or the 96 B `fblock`).
+On a big (n >= 2^31) index the same kernel runs over the two-level rows
+(`fb2_64`, the default, `fb2` or `fb2_256`) with int64 lanes, F and base and
+no ftab (C entry rbt_lf_count_fb2): the counterpart of
+rowbowt_tpu/engine/count.py:find_ranges over rowbowt_tpu/ops/rank.py
+lf_step_fblock2, which the JAX package runs as XLA gathers.
 
 `find_ranges` is the wrapper: for CUDA tensors it launches the kernel (and
-adds one to LAUNCHES) or raises; for CPU tensors it runs `find_ranges_plain`,
+adds one to LAUNCHES, or to LAUNCHES_FB2 over the two-level rows) or raises; for CPU tensors it runs `find_ranges_plain`,
 the torch version over ops/rank.py (`lf_start`, then `lf_loop_plain`), which
 is also what the kernel is held against on the card.
 """
@@ -25,8 +30,10 @@ from rowbowt_tpu_torch.engine.device import TorchIndex
 from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 
-# kernel launches made by find_ranges since the last reset (a run sets it to 0)
+# kernel launches made by find_ranges since the last reset (a run sets them
+# to 0): over the single-level rows, and over the two-level rows
 LAUNCHES = 0
+LAUNCHES_FB2 = 0
 
 GROUP = 2  # threads per lane (csrc/lf.cu kG): two 16-byte parts of a 64 B row each
 LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
@@ -35,13 +42,14 @@ MAX_STAGED_BYTES = 47 * 1024  # csrc/lf.cu kMaxStagedBytes
 _LIB = None
 BUILD_LOG = ""  # nvcc's output (-Xptxas -v register/spill report) of the build
 
-_SYMS_PER_ROW = {"fblock64": 64, "fblock": 128}
+_SYMS_PER_ROW = {"fblock64": 64, "fblock": 128, "fb2_64": 64, "fb2": 128, "fb2_256": 256}
 
 
 def build():
     """Compile csrc/lf.cu (once per process) and bind its C entry points:
-    rbt_lf_count (K1) and rbt_lf_count_transposed (the earlier design, which
-    only chip_smoke.py launches, to time it beside K1)."""
+    rbt_lf_count (K1), rbt_lf_count_fb2 (K1 over the two-level rows) and
+    rbt_lf_count_transposed (the earlier design, which only chip_smoke.py
+    launches, to time it beside K1)."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
@@ -52,7 +60,10 @@ def build():
                                  ci, ci, vp]
     lib.rbt_lf_count_transposed.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, vp,
                                             vp]
+    lib.rbt_lf_count_fb2.argtypes = [vp, ci, vp, vp, ci, ci, ctypes.c_longlong, vp, vp, ci, ci,
+                                      vp, vp, ci, ci, vp]
     lib.rbt_lf_count.restype = lib.rbt_lf_count_transposed.restype = ci
+    lib.rbt_lf_count_fb2.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -135,24 +146,46 @@ def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     return launch_k1(tx, qcodes, lengths, use_ftab)
 
 
+def row_layout(tx: TorchIndex) -> str:
+    """The key of the rows the LF loop reads, lf_step_auto's choice (it
+    raises, naming the ROADMAP item, for an index without fused-block rows)."""
+    step = R.lf_step_auto(tx)
+    if step is R.lf_step_fblock2:
+        return R._fb2_key(tx)[0]
+    return "fblock64" if step is R.lf_step_fblock64 else "fblock"
+
+
 def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
-    """Launch K1 on CUDA tensors, shaped by launch_plan."""
-    global LAUNCHES
-    # the row layout is lf_step_auto's choice (it raises, naming the ROADMAP
-    # item, for an index without fused-block rows)
-    key = "fblock64" if R.lf_step_auto(tx) is R.lf_step_fblock64 else "fblock"
+    """Launch K1 on CUDA tensors, shaped by launch_plan.  The rows, codes and
+    lengths are int32 on every layout; F (and the ftab) int32 on the
+    single-level rows, F and fb2_base int64 on the two-level ones, whose
+    lanes come out int64."""
+    global LAUNCHES, LAUNCHES_FB2
+    key = row_layout(tx)
+    two_level = key in R.FB2_KEYS
+    lane = torch.int64 if two_level else torch.int32
     fb, F = tx.arrays[key], tx.arrays["F"]
     B, L = qcodes.shape
     dev = qcodes.device
     k = tx.ftab_k if use_ftab and tx.has_ftab and L >= tx.ftab_k > 0 else 0
+    if k and two_level:
+        raise ValueError(f"{key} rows take no ftab start (big artifacts carry none)")
     ftab = tx.arrays["ftab"] if k else None
-    named = (("table", fb), ("F", F), ("qcodes", qcodes), ("lengths", lengths))
-    for name, t in named + ((("ftab", ftab),) if k else ()):
+    base = tx.arrays["fb2_base"] if two_level else None
+    named = (("table", fb, torch.int32), ("F", F, lane), ("qcodes", qcodes, torch.int32),
+             ("lengths", lengths, torch.int32))
+    if k:
+        named += (("ftab", ftab, torch.int32),)
+    if two_level:
+        named += (("fb2_base", base, torch.int64),)
+    for name, t, want in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, qcodes on {dev}")
-        if t.dtype != torch.int32:
-            # int64 lanes are the two-level n >= 2^31 layouts (ROADMAP M6)
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {str(want)[6:]} for {key} rows, got {t.dtype}")
+    if two_level and (base.shape != (base.shape[0], 8) or not base.is_contiguous()
+                      or not 1 <= base.shape[0] <= fb.shape[0]):
+        raise ValueError(f"fb2_base of shape {tuple(base.shape)} for {fb.shape[0]} rows")
     if fb.dim() != 2 or fb.shape[1] != 8 + _SYMS_PER_ROW[key] // 8:
         raise ValueError(f"{key} rows have shape {tuple(fb.shape)}")
     if not fb.is_contiguous() or fb.data_ptr() % 16:
@@ -170,21 +203,31 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
                 raise ValueError(f"ACGT codes {tx.acgt_codes} outside [-1, {tx.A})")
             acgt |= (c & 0xFF) << (8 * i)  # -1 (base absent) is 0xFF, as staged
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
-    lo = torch.empty(B, dtype=torch.int32, device=dev)
-    hi = torch.empty(B, dtype=torch.int32, device=dev)
+    lo = torch.empty(B, dtype=lane, device=dev)
+    hi = torch.empty(B, dtype=lane, device=dev)
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads, staged = launch_plan(B, L, _sm_count(d))
     lib = _LIB or build()
-    args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A, tx.n, qcodes.data_ptr(),
-            lengths.data_ptr(), B, L, ftab.data_ptr() if k else None, k, acgt, lo.data_ptr(),
-            hi.data_ptr(), threads, int(staged))
+    if two_level:
+        # per_blk is the resident layout's own rows a superblock
+        entry = lib.rbt_lf_count_fb2
+        args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), base.data_ptr(),
+                fb.shape[0] // base.shape[0], tx.A, tx.n, qcodes.data_ptr(), lengths.data_ptr(),
+                B, L, lo.data_ptr(), hi.data_ptr(), threads, int(staged))
+    else:
+        entry = lib.rbt_lf_count
+        args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A, tx.n, qcodes.data_ptr(),
+                lengths.data_ptr(), B, L, ftab.data_ptr() if k else None, k, acgt,
+                lo.data_ptr(), hi.data_ptr(), threads, int(staged))
     if d == torch.cuda.current_device():
-        rc = lib.rbt_lf_count(*args, _raw_stream(d))
+        rc = entry(*args, _raw_stream(d))
     else:
         with torch.cuda.device(d):
-            rc = lib.rbt_lf_count(*args, _raw_stream(d))
+            rc = entry(*args, _raw_stream(d))
     if rc != 0:
         raise RuntimeError(f"LF kernel launch failed: {lib.rbt_cuda_error_string(rc).decode()}")
-    if B:
+    if B and two_level:
+        LAUNCHES_FB2 += 1
+    elif B:
         LAUNCHES += 1
     return lo, hi

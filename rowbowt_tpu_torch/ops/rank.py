@@ -4,10 +4,13 @@ The counterpart of the count, locate and marker subset of
 rowbowt_tpu/ops/rank.py.  A rank reads one row `[8 per-char exclusive
 checkpoints | packed 4-bit BWT symbols]`, takes the checkpoint of `c` and adds
 a SWAR nibble-match popcount of the symbols below the in-block offset; an LF
-step is two ranks.  These are the plain versions the CUDA LF kernel
-(ops/cuda_lf.py) is held against, and the path a CPU tensor takes.  The
-locate and marker primitives (toehold, phi, doc lookup, marker bounds) are
-one or two gathers over the dense full-SA tables (kval, phi1, ma_start1).
+step is two ranks.  On the two-level rows of a big (n >= 2^31) index the
+checkpoints are superblock-local and an int64 base per superblock completes
+the rank.  These are the plain versions the CUDA LF kernel (ops/cuda_lf.py)
+is held against, and the path a CPU tensor takes.  The locate and marker
+primitives are one or two gathers over the dense full-SA tables (kval, phi1,
+ma_start1), or on a big index short searches over its O(R) and O(M) tables
+(the phi bitmap or breakpoints, the marker run pack or bucketed CSR).
 
 All functions take a TorchIndex `tx` and int vectors on `tx.device`; char
 code < 0 means "absent from alphabet" and produces the empty range (1, 0).
@@ -27,6 +30,7 @@ from rowbowt_tpu_torch.engine.device import TorchIndex
 _FB_CKPT = 8
 _NIB_LOW = 0x11111111
 _U32 = 0xFFFFFFFF
+_PHI_POS = 480  # positions per 64B phi bitmap row (bigindex.phi_pack_tables)
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -61,8 +65,10 @@ def _fb_rank_from_rows(row, off, c):
     return occ + inblk.to(row.dtype)
 
 
-def _rank_rows(tx: TorchIndex, i, c, key: str, shift: int):
-    """rank(i, c) for i in [0, n] over the rows `key` of 2^shift symbols."""
+def _rank_rows(tx: TorchIndex, i, c, key: str, shift: int, base=None):
+    """rank(i, c) for i in [0, n] over the rows `key` of 2^shift symbols;
+    with `base` (int64 [n_sup, 8]) the rows' checkpoints are superblock-local
+    and the base of i's superblock is added."""
     arr = tx.arrays
     isafe = torch.clamp(i, max=tx.n - 1)
     blk = (isafe >> shift).long()
@@ -70,6 +76,12 @@ def _rank_rows(tx: TorchIndex, i, c, key: str, shift: int):
     row = arr[key][blk]  # [B, 8 + 2^shift/8]
     csafe = torch.clamp(c, min=0)
     v = _fb_rank_from_rows(row, off, csafe).to(i.dtype)
+    if base is not None:
+        # the layout's own rows per superblock: twice the BigIndex's per_blk
+        # for the 64-symbol repack
+        per_blk = arr[key].shape[0] // base.shape[0]
+        sel = torch.arange(_FB_CKPT, dtype=torch.int32, device=c.device)[None, :] == csafe[:, None]
+        v = v + torch.where(sel, base[blk // per_blk], 0).sum(dim=1).to(i.dtype)
     # F[c+1] - F[c]; indices clamped to [0, A] as a jnp gather clamps them
     F = arr["F"]
     total = F[torch.clamp(csafe + 1, max=tx.A).long()] - F[torch.clamp(csafe, max=tx.A).long()]
@@ -115,46 +127,197 @@ def lf_step_fblock(tx: TorchIndex, lo, hi, c):
     return _lf_step(rank_fblock, tx, lo, hi, c)
 
 
+def rank_fblock2(tx: TorchIndex, i, c, key: str = "fb2", shift: int = 7):
+    """Two-level fused-block rank, the n >= 2^31 path: rows `key` whose 8
+    checkpoint lanes are superblock-local (int32 cannot overflow), plus
+    fb2_base int64 [n_sup, 8], the global count before each superblock.
+    Lanes i are int64; rank = base[superblock of i, c] + local checkpoint +
+    in-block popcount.  (key, shift) is ("fb2_64", 6), ("fb2", 7) or
+    ("fb2_256", 8)."""
+    return _rank_rows(tx, i, c, key, shift, base=tx.arrays["fb2_base"])
+
+
+def _fb2_key(tx: TorchIndex):
+    """(key, shift) of the resident two-level layout: the 64-symbol/64B
+    repack, the 256-symbol/160B rows, else the 128-symbol/96B build rows."""
+    if "fb2_64" in tx.arrays:
+        return "fb2_64", 6
+    if "fb2_256" in tx.arrays:
+        return "fb2_256", 8
+    return "fb2", 7
+
+
+def lf_step_fblock2(tx: TorchIndex, lo, hi, c):
+    """Batched LF over the two-level table: int64 range arithmetic."""
+    key, shift = _fb2_key(tx)
+    return _lf_step(lambda tx_, i, c_: rank_fblock2(tx_, i, c_, key, shift), tx, lo, hi, c)
+
+
+FB2_KEYS = ("fb2_64", "fb2", "fb2_256")
+
+
 def lf_step_auto(tx: TorchIndex):
     """The LF step the index's tables support: the 64B rows when resident,
-    else the 96B rows."""
+    else the 96B rows, else the two-level rows of a big index."""
     if "fblock64" in tx.arrays:
         return lf_step_fblock64
     if "fblock" in tx.arrays:
         return lf_step_fblock
+    if any(k in tx.arrays for k in FB2_KEYS):
+        return lf_step_fblock2
     raise NotImplementedError(
-        "rowbowt_tpu_torch runs LF over fblock/fblock64 rows only; the "
-        "run-space, occ1 and dense backends are ROADMAP M5, the two-level "
-        "fb2 rows of n >= 2^31 indexes ROADMAP M6")
+        "rowbowt_tpu_torch runs LF over fused-block rows only; the run-space, "
+        "occ1 and dense backends are ROADMAP M5")
+
+
+def bwt_sym(tx: TorchIndex, i):
+    """BWT code at position i (batched) from the packed fused-block words:
+    one gathered int32 element per lane, no checkpoint read.  Works on every
+    fblock-family layout: the superblock regions of the two-level rows are
+    contiguous multiples of the block size, so the global row id is i >>
+    shift.  Out-of-range i is clamped; callers mask.  Returns int32."""
+    arr = tx.arrays
+    for key, shift in (("fb2_64", 6), ("fblock64", 6),
+                       ("fb2_256", 8), ("fb2", 7), ("fblock", 7)):
+        if key in arr:
+            tab = arr[key]
+            break
+    else:
+        raise ValueError("bwt_sym needs an fblock-family table")
+    isafe = torch.clamp(i, 0, tx.n - 1)
+    blk = (isafe >> shift).long()
+    off = isafe & ((1 << shift) - 1)
+    w = tab[blk, (_FB_CKPT + (off >> 3)).long()].to(torch.int64) & _U32
+    return ((w >> (4 * (off & 7))) & 15).to(torch.int32)
 
 
 def phi_step(tx: TorchIndex, i):
     """Batched ToeholdSA::phi (toehold_sa.hpp:56-72): one gather via the dense
-    phi1 table (phi(SA[j]) = SA[j-1]).  The result has phi1's dtype."""
+    phi1 table (phi(SA[j]) = SA[j-1]; the result has phi1's dtype), or on a
+    big index over its breakpoint tables (i's dtype): phi is piecewise
+    i + const between the SA-adjacency breakpoints (bigindex.py)."""
     arr = tx.arrays
     if "phi1" in arr:
         return arr["phi1"][torch.clamp(i, 0, tx.n - 1).long()]
-    if "phi_rows" in arr or "phi_at" in arr:
-        raise NotImplementedError(
-            "phi over the big-index bitmap or breakpoint tables is ROADMAP M6")
+    if "phi_rows" in arr:
+        # bitmap rank (bigindex.phi_pack_tables): one 64B row gather ([ckpt |
+        # 15 bit words] per 480 positions) + popcount gives the predecessor
+        # rank, one delta gather finishes
+        blk = torch.div(i, _PHI_POS, rounding_mode="floor")
+        off = i - blk * _PHI_POS
+        row = arr["phi_rows"][blk.long()]  # [B, 16] int32
+        words = row[:, 1:].to(torch.int64) & _U32  # [B, 15]
+        # count the bits with local index <= off: kn bits of word jw
+        kn = (off[:, None] + 1
+              - 32 * torch.arange(15, dtype=torch.int64, device=i.device)[None, :]).clamp(0, 32)
+        mask = torch.where(kn >= 32, _U32, (torch.ones_like(kn) << kn) - 1)
+        rk = row[:, 0].to(torch.int64) + _popcount32(words & mask).sum(dim=1) - 1
+        d = arr["phi_delta"][torch.clamp(rk, min=0)].to(i.dtype)
+        return (i + d) % tx.n
+    if "phi_at" in arr:
+        # the breakpoint table itself: pred_pos[0] == 0, so rk >= 0
+        pp = arr["pred_pos"]
+        if "pp_off" in arr:
+            shift, iters = tx.pp_bs
+            rk = bucketed_lower_bound(pp, arr["pp_off"], shift, iters, i + 1) - 1
+        else:
+            rk = torch.searchsorted(pp, i.to(pp.dtype), right=True).to(i.dtype) - 1
+        base = arr["phi_at"][rk].to(i.dtype)
+        return (base + (i - pp[rk].to(i.dtype))) % tx.n
     raise NotImplementedError(
         "phi by predecessor search over pred_pos (indexes without phi1) is ROADMAP M5")
 
 
 def markers_bounds(tx: TorchIndex, lo, hi):
     """(start offset, count) of the markers at BWT rows [lo, hi]: two gathers
-    via the dense ma_start1 table (ma_start1[i] = markers in rows [0, i))."""
+    via the dense ma_start1 table (ma_start1[i] = markers in rows [0, i)), or
+    on a big index two probes of its run-pack or bucketed marker tables."""
     arr = tx.arrays
     if "ma_start1" in arr:
         ms = arr["ma_start1"]
         s = ms[torch.clamp(lo, 0, tx.n).long()]
         e = ms[torch.clamp(hi + 1, 0, tx.n).long()]
-        return s, torch.clamp(e - s, min=0)
-    if any(k in arr for k in ("ma_rec", "ma_cnt64", "ma_off")):
+    elif "ma_rec" in arr:
+        # run-pack rank (bigindex.marker_run_pack): 3 dependent gather levels
+        s = _ms_runs(tx, torch.clamp(lo, 0, tx.n))
+        e = _ms_runs(tx, torch.clamp(hi + 1, 0, tx.n))
+    elif "ma_off" in arr:
+        # bucketed lower bound (bigindex.marker_buckets): 1 bucket gather +
+        # iters binary-search gathers
+        s = _ms_bucketed(tx, torch.clamp(lo, 0, tx.n))
+        e = _ms_bucketed(tx, torch.clamp(hi + 1, 0, tx.n))
+    elif "ma_cnt64" in arr:
         raise NotImplementedError(
-            "marker bounds over the big-index run-pack, nibble or bucket tables are ROADMAP M6")
-    raise NotImplementedError(
-        "marker bounds by binary search over ma_row (indexes without ma_start1) are ROADMAP M5")
+            "the nibble-count marker rows (RBT_MA_NIB) are not ported; "
+            "unset RBT_MA_NIB to get the run-pack or bucketed tables")
+    else:
+        raise NotImplementedError(
+            "marker bounds by binary search over ma_row (indexes without ma_start1) "
+            "are ROADMAP M5")
+    return s, torch.clamp(e - s, min=0)
+
+
+def bucketed_lower_bound(vals, off, shift: int, iters: int, q):
+    """First index i with vals[i] >= q over a sorted value table, via its
+    bucket table (bigindex.marker_buckets): off[b] bounds the search to q's
+    2^shift-wide value bucket, then a STATIC `iters`-step branchless binary
+    search finishes.  Returns q's dtype."""
+    b = torch.clamp(q >> shift, 0, off.shape[0] - 2).long()
+    lo = off[b].to(q.dtype)
+    hi = off[b + 1].to(q.dtype)
+    qv = q.to(vals.dtype)
+    M1 = vals.shape[0] - 1
+    for _ in range(iters):
+        mid = (lo + hi) >> 1
+        v = vals[torch.clamp(mid, 0, M1).long()]
+        take = (v < qv) & (lo < hi)
+        hi = torch.where(take | (lo >= hi), hi, mid)
+        lo = torch.where(take, mid + 1, lo)
+    return lo
+
+
+def _ms_bucketed(tx: TorchIndex, i):
+    """ma_start1[i] (count of CSR entries with row < i) via the bucket table."""
+    shift, iters = tx.ma_bs
+    return bucketed_lower_bound(tx.arrays["ma_row"], tx.arrays["ma_off"], shift, iters, i)
+
+
+def _ms_runs(tx: TorchIndex, i):
+    """ma_start1[i] via the run-pack tables (bigindex.marker_run_pack).
+
+    j = last marker run with start <= i resolves as off[b] + (count of
+    in-bucket run starts <= i) - 1; the count reads a STATIC tx.ma_rp[1]
+    sd16 rows (64B each, 32 u16 start-deltas packed in 16 i32 lanes), then
+    one 16B rec gather yields rank(i) = cum[j] + mult[j] * clip(i - start[j],
+    0, len[j]).  j < 0 means no run precedes i: rank 0."""
+    arr = tx.arrays
+    off, sd, rec = arr["ma_roff"], arr["ma_sd16"], arr["ma_rec"]
+    shift, nrows = tx.ma_rp
+    isafe = torch.clamp(i, 0, tx.n).to(torch.int64)
+    b = torch.clamp(isafe >> shift, max=off.shape[0] - 2).long()
+    s = off[b].to(torch.int64)
+    e = off[b + 1].to(torch.int64)
+    qlo = (isafe & 0xFFFF)[:, None]
+    r0 = s >> 5
+    nr = sd.shape[0]
+    lane2 = 2 * torch.arange(16, dtype=torch.int64, device=i.device)[None, :]
+    cnt = torch.zeros_like(isafe)
+    for j in range(nrows):
+        w = sd[torch.clamp(r0 + j, max=nr - 1)].to(torch.int64)  # [B, 16]: 32 u16 deltas
+        lo16 = w & 0xFFFF
+        hi16 = (w >> 16) & 0xFFFF
+        pos = ((r0 + j) << 5)[:, None] + lane2
+        in_lo = (pos >= s[:, None]) & (pos < e[:, None])
+        in_hi = (pos + 1 >= s[:, None]) & (pos + 1 < e[:, None])
+        cnt = cnt + (in_lo & (lo16 <= qlo)).sum(dim=1) + (in_hi & (hi16 <= qlo)).sum(dim=1)
+    jj = s + cnt - 1
+    r = rec[torch.clamp(jj, 0, rec.shape[0] - 1)]  # [B, 2]
+    start, packed = r[:, 0], r[:, 1]
+    cum = packed & 0xFFFFFFFF
+    ln = (packed >> 32) & 0xFFFFFF
+    mu = (packed >> 56) & 0x7F
+    rank = cum + mu * torch.minimum(torch.clamp(isafe - start, min=0), ln)
+    return torch.where(jj < 0, 0, rank).to(i.dtype)
 
 
 def markers_at_range(tx: TorchIndex, lo, hi, max_k: int):

@@ -230,7 +230,64 @@ def test_profile_flushes_when_the_loop_raises(align_inputs, tmp_path, monkeypatc
     assert trace.stat().st_size > 0
 
 
-def test_big_artifact_not_ported(tmp_path):
-    (tmp_path / "meta.json").write_text(json.dumps({"format": "rowbowt-tpu-bigindex"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        common.load_index(str(tmp_path))
+@pytest.fixture(scope="module")
+def big_dir(align_inputs, tmp_path_factory):
+    """The panel's index as a BigIndex directory written by the JAX package."""
+    from test_torch_seeds import save_jax_big
+
+    return save_jax_big(align_inputs[0]["idx"], str(tmp_path_factory.mktemp("big") / "big"))
+
+
+def test_big_artifact_not_ported(big_dir, capsys):
+    """A BigIndex directory loads as the port's BigIndex, with the JAX CLI's
+    stderr lines (and its note that big artifacts carry no ftab)."""
+    from rowbowt_tpu_torch.bigindex import BigIndex
+
+    big = common.load_index(big_dir, sa=True, ma=True, dl=True, ft=True)
+    assert isinstance(big, BigIndex) and big.has_locate and big.has_markers
+    assert capsys.readouterr().err.splitlines() == [
+        f"loading (big two-level artifact): {big_dir}",
+        "note: big artifacts carry no ftab; running without it"]
+    for sa, ma in ((False, False), (True, False), (False, True)):
+        tx = common.device_index(big, "cpu", sa=sa, ma=ma)
+        assert tx.idx_dtype == torch.int64 and "fb2_64" in tx.arrays
+        assert ("cruns_keys" in tx.arrays) == sa and ("ma_val" in tx.arrays) == ma
+
+
+@pytest.mark.parametrize("flags", [[], ["-s"], ["-m"], ["-s", "-m", "-b", "4"]],
+                         ids=["count", "s", "m", "s_m_b4"])
+def test_rbt_align_on_big_dir_matches_jax(align_inputs, big_dir, capsys, flags):
+    """On a BigIndex directory saved by the JAX package the port prints the
+    JAX CLI's lines, and the lines it prints on the same index saved whole."""
+    dirs, fq, n_reads = align_inputs
+    (jrc, want, _), (rc, got, err) = _both(capsys, [big_dir, fq, *flags])
+    assert jrc == rc == 0 and got == want
+    assert err.startswith(f"loading (big two-level artifact): {big_dir}\n")
+    assert rbt_align.main([dirs["idx"], fq, "--device", "cpu", *flags]) == 0
+    assert capsys.readouterr().out == got
+    assert len(got.splitlines()) == n_reads * (1 + ("-s" in flags) + ("-m" in flags))
+
+
+def test_torch_console_scripts_resolve():
+    """Every `*_torch` console script of pyproject.toml names a callable
+    `main` of the port, one for each port CLI; the JAX package's entries
+    and the dependencies stay as they were."""
+    import importlib
+    import os
+    import tomllib
+
+    with open(os.path.join(os.path.dirname(__file__), "..", "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)["project"]
+    scripts = project["scripts"]
+    torch_scripts = {k: v for k, v in scripts.items() if k.endswith("_torch")}
+    assert set(torch_scripts) == {"rbt_align_torch", "rbt_markers_torch", "rbt_locs_torch",
+                                  "rbt_midx_torch"}
+    for name, target in torch_scripts.items():
+        module, func = target.split(":")
+        assert module == f"rowbowt_tpu_torch.cli.{name[:-len('_torch')]}" and func == "main"
+        assert callable(getattr(importlib.import_module(module), func)), name
+    assert {k: scripts[k] for k in ("rbt_build", "rbt_align", "rbt_markers", "rbt_locs",
+                                    "rbt_midx")} == {
+        k: f"rowbowt_tpu.cli.{k}:main" for k in ("rbt_build", "rbt_align", "rbt_markers",
+                                                 "rbt_locs", "rbt_midx")}
+    assert project["dependencies"] == ["numpy", "jax"]

@@ -253,7 +253,8 @@ def _unaligned(t):
 
 @pytest.mark.parametrize("fault,error,match", [
     ("int64 table", TypeError, "table must be int32"),
-    ("int64 F", TypeError, "F must be int32"),
+    ("int64 F", TypeError, "F must be int32 for fblock64 rows"),
+    ("int32 F on two-level rows", TypeError, "F must be int64 for fb2_64 rows"),
     ("int64 qcodes", TypeError, "qcodes must be int32"),
     ("A > 8", ValueError, "alphabet of 9 codes"),
     ("unaligned rows", ValueError, "row table is not contiguous and 16-byte aligned"),
@@ -269,6 +270,11 @@ def test_launch_refuses(panel, fake_entry, fault, error, match):
         arrays["fblock64"] = arrays["fblock64"].long()
     elif fault == "int64 F":
         arrays["F"] = arrays["F"].long()
+    elif fault == "int32 F on two-level rows":
+        # the same rows as a one-superblock two-level table: F must widen
+        arrays["fb2_64"] = arrays.pop("fblock64")
+        arrays["fb2_base"] = torch.zeros((1, 8), dtype=torch.int64)
+        del arrays["ftab"]
     elif fault == "int64 qcodes":
         q = q.long()
     elif fault == "unaligned rows":

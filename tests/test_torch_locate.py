@@ -149,9 +149,19 @@ def test_phi_step_without_phi1_names_roadmap(pair):
                       tx.device)
     with pytest.raises(NotImplementedError, match="ROADMAP M5"):
         TR.phi_step(bare, torch.zeros(4, dtype=torch.int32))
-    bare.arrays["phi_at"] = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        TR.phi_step(bare, torch.zeros(4, dtype=torch.int32))
+    # a big index's SA-adjacency breakpoint table (bigindex.big_locate_tables)
+    # serves phi without phi1: phi1's values, and the JAX package's
+    phi = tx.arrays["phi1"].numpy().astype(np.int64)
+    bp = np.flatnonzero(np.r_[True, np.diff(phi) != 1])
+    tabs = {"pred_pos": bp.astype(np.uint32), "phi_at": phi[bp].astype(np.uint32)}
+    bare.arrays.update({k: torch.from_numpy(v.astype(np.int64)) for k, v in tabs.items()})
+    dxb = DeviceIndex({**{k: jnp.asarray(v) for k, v in tabs.items()},
+                       "F": jnp.zeros(tx.A + 1, jnp.int64)}, tx.n, tx.R, tx.A, tx.ma_wsize, 0,
+                      tx.acgt_codes)
+    i = np.arange(tx.n, dtype=np.int64)
+    got = TR.phi_step(bare, torch.from_numpy(i))
+    _eq([got], [JR.phi_step(dxb, jnp.asarray(i))])
+    np.testing.assert_array_equal(got.numpy(), phi)
 
 
 def test_locate_without_sa_samples_raises(rand_index):

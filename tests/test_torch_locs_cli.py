@@ -91,3 +91,19 @@ def test_device_cuda_raises_without_cuda(inputs):
     dirs, fq, _, _ = inputs
     with pytest.raises(RuntimeError, match="cuda"):
         rbt_locs.main([dirs["idx"], fq])
+
+
+@pytest.mark.parametrize("flags", [[], ["-b", "8", "-m", "40"]], ids=["default", "b8_m40"])
+def test_rbt_locs_on_big_dir_matches_jax(inputs, capsys, tmp_path, flags):
+    """On a BigIndex directory saved by the JAX package, with
+    `<dir>.midx.npz` beside it, the port prints the JAX CLI's lines and the
+    lines of the same index saved whole."""
+    from test_torch_seeds import save_jax_big
+
+    dirs, fq, n_reads, _ = inputs
+    big_dir = save_jax_big(dirs["idx"], str(tmp_path / "big"), with_markers=False)
+    (jrc, want, _), (rc, got, err) = _both(capsys, [big_dir, fq, *flags])
+    assert jrc == rc == 0 and got == want
+    assert err.startswith(f"loading (big two-level artifact): {big_dir}\n")
+    assert rbt_locs.main([dirs["idx"], fq, "--device", "cpu", *flags]) == 0
+    assert capsys.readouterr().out == got and len(got.splitlines()) == n_reads

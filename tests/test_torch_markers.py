@@ -91,7 +91,7 @@ def test_markers_at_range_matches_host_csr(pair, ranges):
         np.testing.assert_array_equal(vals[b, :e - s].numpy(), ma_val[s:e])
 
 
-def test_markers_bounds_without_ma_start1_names_roadmap(pair):
+def test_markers_bounds_without_ma_start1_names_roadmap(pair, ranges):
     tx = pair[1]
     arrays = {k: v for k, v in tx.arrays.items() if k != "ma_start1"}
     bare = TorchIndex(arrays, tx.n, tx.R, tx.A, tx.ma_wsize, tx.ftab_k, tx.acgt_codes,
@@ -99,9 +99,25 @@ def test_markers_bounds_without_ma_start1_names_roadmap(pair):
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP M5"):
         TR.markers_bounds(bare, z, z)
-    bare.arrays["ma_rec"] = z
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        TR.markers_bounds(bare, z, z)
+    # a big index's run-pack tables (bigindex.marker_run_pack) serve the
+    # bounds without ma_start1: the dense table's values, and the JAX package's
+    from rowbowt_tpu_torch.bigindex import marker_run_pack
+
+    off, sd16, rec, ma_rp = marker_run_pack(tx.arrays["ma_row"].numpy(), tx.n)
+    tabs = {"ma_roff": off, "ma_sd16": sd16, "ma_rec": rec}
+    bare = TorchIndex.from_arrays({**{k: v.numpy() for k, v in arrays.items() if k != "ma_row"},
+                                   **tabs}, n=tx.n, R=tx.R, A=tx.A, ma_wsize=tx.ma_wsize,
+                                  ftab_k=tx.ftab_k, acgt_codes=tx.acgt_codes, device="cpu",
+                                  ma_rp=ma_rp)
+    dxb = DeviceIndex({**{k: jnp.asarray(v) for k, v in tabs.items()},
+                       "F": jnp.zeros(tx.A + 1, jnp.int64)}, tx.n, tx.R, tx.A, tx.ma_wsize, 0,
+                      tx.acgt_codes, ma_rp=ma_rp)
+    lo, hi = ranges
+    got = TR.markers_bounds(bare, torch.from_numpy(lo).long(), torch.from_numpy(hi).long())
+    _eq(got, JR.markers_bounds(dxb, jnp.asarray(lo, jnp.int64), jnp.asarray(hi, jnp.int64)))
+    want = TR.markers_bounds(tx, torch.from_numpy(lo), torch.from_numpy(hi))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 def _marker_reads(text, seed):

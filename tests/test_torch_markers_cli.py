@@ -160,3 +160,40 @@ def test_native_reader_matches_python_reader(inputs, normalize, with_rc):
         for x, y in ((a, b), (a, c)):
             np.testing.assert_array_equal(x[1], y[1])
             np.testing.assert_array_equal(x[2], y[2])
+
+
+@pytest.fixture(scope="module")
+def big_dir(inputs, tmp_path_factory):
+    from test_torch_seeds import save_jax_big
+
+    return save_jax_big(inputs[0]["idx"], str(tmp_path_factory.mktemp("big") / "big"))
+
+
+BIG_FLAGS = {"default": [], "ftab": ["-f"], "heuristic_best_strand": HEURISTIC[2:],
+             "heuristic_clear": FLAGS["heuristic_clear"]}
+
+
+@pytest.mark.parametrize("flags", list(BIG_FLAGS.values()), ids=list(BIG_FLAGS))
+def test_rbt_markers_on_big_dir_matches_jax(inputs, big_dir, capsys, flags):
+    """On a BigIndex directory saved by the JAX package the port prints the
+    JAX CLI's lines; without an ftab (big artifacts carry none) they are the
+    lines of the same index saved whole, run without -f."""
+    dirs, fq, _ = inputs
+    (jrc, want, jerr), (rc, got, err) = _both(capsys, [big_dir, fq, "-b", "32", *flags])
+    assert jrc == rc == 0 and got == want and want
+    note = "note: big artifacts carry no ftab; running without it"
+    assert (note in err.splitlines()) == (note in jerr.splitlines()) == ("-f" in flags)
+    whole = [f for f in flags if f != "-f"]
+    assert rbt_markers.main([dirs["idx"], fq, "-b", "32", "--device", "cpu", *whole]) == 0
+    assert capsys.readouterr().out == got
+
+
+def test_lmem_on_big_dir_refuses_like_jax(inputs, big_dir, capsys):
+    """--lmem needs the ftab (rowbowt.hpp:346-349): both CLIs refuse a big
+    directory with the same error."""
+    from rowbowt_tpu.cli import rbt_markers as jax_rbt_markers
+
+    dirs, fq, _ = inputs
+    for fn, extra in ((jax_rbt_markers.main, []), (rbt_markers.main, ["--device", "cpu"])):
+        with pytest.raises(ValueError, match="ftab must be enabled"):
+            fn([big_dir, fq, "--lmem", *extra])

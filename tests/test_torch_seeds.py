@@ -7,7 +7,8 @@ substitutions, an 'N', very short reads and length-0 pad lanes.  Every
 output is an integer, so every comparison is exact.
 
 build_panel is also the fixture source of the CLI tests
-(test_torch_markers_cli.py, test_torch_locs_cli.py)."""
+(test_torch_markers_cli.py, test_torch_locs_cli.py), and save_jax_big their
+source of a BigIndex directory."""
 
 import os
 
@@ -87,6 +88,29 @@ def build_panel(d, n_reads=36, seed=23):
         for q, r in enumerate(reads):
             f.write(b"@read%d extra\n%s\n+\n%s\n" % (q, r, b"I" * len(r)))
     return dirs, fq, reads
+
+
+def save_jax_big(idx_dir, out_dir, n_sup=3, with_markers=True):
+    """The two-level BigIndex of the index saved at idx_dir, written by the
+    JAX package's BigIndex.save to out_dir (its `<out_dir>.midx.npz` copied
+    beside it when idx_dir has one): the same BWT, its locate tables from
+    the index's full SA, its marker CSR, window and document list."""
+    import shutil
+
+    from rowbowt_tpu.bigindex import BigIndex as JaxBigIndex
+
+    idx = JaxRbtIndex.load(idx_dir)
+    codes = np.repeat(idx.run_head, np.diff(np.append(idx.run_start, idx.n))).astype(np.uint8)
+    big = JaxBigIndex.from_codes(codes, idx.alpha, n_sup=n_sup)
+    big.attach_locate(codes, np.asarray(idx.kval).astype(np.uint32))
+    if with_markers and idx.ma_row is not None:
+        big.ma_row, big.ma_val = idx.ma_row.astype(np.uint32), idx.ma_val.astype(np.int64)
+        big.ma_wsize = idx.ma_wsize
+    big.doc_starts, big.doc_names = idx.doc_starts, idx.doc_names
+    big.save(out_dir)
+    if os.path.exists(idx_dir + ".midx.npz"):
+        shutil.copy(idx_dir + ".midx.npz", out_dir + ".midx.npz")
+    return out_dir
 
 
 @pytest.fixture(scope="module")
@@ -267,7 +291,18 @@ def test_toehold_without_kval_names_roadmap(panel):
                       tx.A, tx.ma_wsize, tx.ftab_k, tx.acgt_codes, tx.device)
     with pytest.raises(NotImplementedError, match="ROADMAP M5"):
         TS.seeds_greedy_w_sample(bare, q, ln, min_length=5)
-    bare.arrays["cruns_keys"] = torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        TS.seeds_greedy_w_sample(bare, q, ln, min_length=5)
+    # a big index (no kval) resolves each seed's toehold from its trajectory
+    # over the O(R) run tables: the same seeds and toeholds as kval gives
+    from rowbowt_tpu_torch.bigindex import BigIndex
+
+    idx = panel[0]
+    codes = np.repeat(idx.run_head, np.diff(np.append(idx.run_start, idx.n))).astype(np.uint8)
+    big = BigIndex.from_codes(codes, idx.alpha, n_sup=3)
+    big.attach_locate(codes, idx.kval.astype(np.uint32))
+    q, ln = _t(qc, lens)
+    got = TS.seeds_greedy_w_sample(TorchIndex.from_big(big, "cpu"), q, ln, min_length=5)
+    want = TS.seeds_greedy_w_sample(tx, q, ln, min_length=5)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 

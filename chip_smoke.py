@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the rowbowt_tpu_torch rbt_align, rbt_markers and rbt_locs
-paths on one NVIDIA GPU.
+"""Smoke run of the rowbowt_tpu_torch rbt_build, rbt_align, rbt_markers and
+rbt_locs paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, then the kernel record
     python3 chip_smoke.py k1 parity       # only the named phases, in that order
-                                          # (probes, parity, k1, big_count)
+                                          # (probes, parity, k1, big_count,
+                                          # build_small)
 
 Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
 (csrc/gather_probe.cu), both with nvcc for sm_90a, and the host library
@@ -38,9 +39,13 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      the card over fb2_64 and fb2, every (lo, hi) equal as int64, 256 lanes
      against a host rank over the 96 B rows and base; the final bounds at or
      above 2^31 are counted;
-  5. chr: the chr panel (20 Mbp reference + 7 haplotypes, 60,000 variants,
-     n ~ 160 M) built once with SA samples, markers at every site of every
-     document (window 10) and the document list, as bench.py builds it;
+  5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
+     variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
+     samples, parsed back to bench.py's text, documents and markers, and
+     built once by `rbt_build_torch --fasta --vcf -s -m -l -f -k 10` in this
+     process (SA samples, markers at every site of every document with
+     window 10, the document list, the ftab, `idx.midx.npz`): build
+     seconds, peak RSS, index GB;
   6. main: the port's `rbt_align` count mode answers 262,144 reads of 100 bp
      in 65,536-read batches; its lines are counted and every range checked
      against `find_ranges_plain`; the CLI's own load and query seconds and its
@@ -59,11 +64,21 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      on the host; stages timed one by one;
   9. markers: `rbt_align -m` on the same reads; every read's markers checked
      against the host CSR without ma_start1; stages timed one by one;
+  9b. raw_chr: the chr index written as raw `.bwt/.ssa/.esa/.docs` and a
+     `.mab` (write_mab), built from the prefix by `rbt_build_torch <prefix>
+     -s -m -l` (fused rows, predecessor-built phi1, no kval; n above
+     OCC1_MAX_N, so no occ1/tk1): rbt_align count, -s and -m print the lines
+     of phases 6, 8 and 9; K1 once a batch of count and -m, none in -s
+     (the per-step toehold over ltk); build seconds, peak RSS, -s stages;
+  9c. nodense_chr: the chr index without fblock, kval, phi1 and ma_start1
+     (what --no-dense writes): count (the run-space torch route, no K1
+     launch), -s (per-step toehold, predecessor phi) and -m (ma_row binary
+     search) print the same lines; reads/s beside the dense index's;
  10. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
      steps, against its plain twin and the port's torch phi walk (`locate`);
- 11. greedy: `rbt_markers -f -b 32768` on the first 65,536 reads (both
-     strands: 131,072 lanes in two batches); every line of the first batch
-     equal to the same CLI's with `--device cpu`, the first 1,000 reads'
+ 11. greedy: `rbt_markers -f -b 32768` on the first 32,768 reads (both
+     strands: 65,536 lanes in one batch); every line of the first 8,192
+     reads equal to the same CLI's with `--device cpu -b 8192`, the first 1,000 reads'
      lines equal to the scalar oracle's (engine/naive); reads/s, seeds/s,
      markers/s and the CLI's own stage seconds;
  12. heuristic: `--heuristic --best-strand-only -y 19 --clear-conflicting
@@ -72,8 +87,8 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      strand was skipped;
  13. lmem: `--lmem` on the first 1,000 reads; the first 100 reads' lines equal
      to the oracle's;
- 14. locs: `rbt_locs -b 32768` on the first 65,536 reads with the positional
-     marker index that build_chr saved; the first 1,000 lines equal to the
+ 14. locs: `rbt_locs -b 32768` on the first 32,768 reads with the positional
+     marker index that build_cli saved; the first 1,000 lines equal to the
      oracle's greedy seeds, longest-seed locate (4 hits) and text-span
      marker lookup;
  14b. big_chr: the chr panel's BigIndex view (n_sup = 4, locate tables as
@@ -81,11 +96,18 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      directory with the chr `idx.midx.npz` beside it: rbt_align count, -s
      and -m on it print the dense index's lines (phases 6, 8, 9), each with
      its stages timed one by one; rbt_markers -f (no ftab on a big index)
-     the dense index's lines without -f on the first batch and the oracle's
-     on 1,000 reads; rbt_locs the lines of phase 14; then K1 over fb2_64 on
-     the main path's four batches against the plain loop and against K1
-     over fblock64 (no ftab), call and device times, the bound and its
-     share, and K1 over the 96 B fb2 rows against the plain loop;
+     the dense index's lines without -f on the first 8,192 reads and the
+     oracle's on 1,000 reads; rbt_locs the lines of phase 14; then K1 over
+     fb2_64 on the main path's four batches against the plain loop and
+     against K1 over fblock64 (no ftab), call and device times, the bound
+     and its share, and K1 over the 96 B fb2 rows against the plain loop;
+ 14c. build_small: the small panel through rbt_build_torch in every mode
+     (native with --emit-ref, -x, --no-dense, the raw prefix with occ1 + tk1,
+     the serialized .rbwt files, --ftab-only, a FASTA with IUPAC codes: 13
+     codes, bwt4/occ_blk), each index's tables held against the dense one's
+     and its rbt_align count, -s and -m lines against the dense index's (the
+     13-code index against its --device cpu run and the scalar oracle);
+     rbt_markers -f and rbt_locs on the raw index; the occ1 route against K1;
  15. trace: `rbt_align -s --profile` on the reads of phase 8: the same lines,
      a trace that names K1's kernel, and the card's busy seconds in it
      against the CLI's query seconds;
@@ -95,7 +117,10 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
 Phases 11-14 count K1's
 launches (their paths are torch ops: 0 expected, not required); big_chr
 counts the two-level K1's (cuda_lf.LAUNCHES_FB2): one a batch of its count
-and -m runs, none in -s, whose toehold loop records each step.
+and -m runs, none in -s, whose toehold loop records each step.  raw_chr,
+nodense_chr and build_small count every route of the count search (K1, K1
+over the two-level rows, and the torch loop of an index without fused
+rows, cuda_lf.LAUNCHES_TORCH), set to 0 before each run, and require each.
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and the last line is never printed.  The last three lines of a
@@ -135,8 +160,9 @@ N_LOCATE = 200_000  # reads of the -s and -m runs: the last batch is 3,392 reads
 BATCH = 65_536
 N_HOST = 1_000  # lanes also checked against the host run-space search
 PHI_STEPS = 100
-N_GREEDY = 65_536  # reads of the rbt_markers and rbt_locs runs
+N_GREEDY = 32_768  # reads of the rbt_markers and rbt_locs runs: one batch
 GREEDY_BATCH = 32_768  # reads a batch: 65,536 lanes with both strands
+N_GREEDY_CPU = 8_192  # reads also run with --device cpu (phase greedy) and without -f (big_chr)
 N_ORACLE = 1_000  # reads checked against engine/naive
 N_LMEM = 1_000
 N_LMEM_ORACLE = 100
@@ -156,6 +182,19 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+def panel_draw(cfg):
+    """The random draws of bench.py's synthetic pangenome (bench.py:54-94), in
+    its order: the reference, the sorted variant sites, the alternative base
+    of each, and for each haplotype which sites carry it ([n_haps, n_vars])."""
+    rng = np.random.default_rng(cfg["seed"])
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = rng.choice(acgt, size=cfg["ref_len"])
+    var_pos = np.sort(rng.choice(cfg["ref_len"], size=cfg["n_vars"], replace=False))
+    var_alt = rng.choice(acgt, size=cfg["n_vars"])
+    carry = np.stack([rng.random(cfg["n_vars"]) < 0.5 for _ in range(cfg["n_haps"])])
+    return ref, var_pos, var_alt, carry
+
+
 def panel(cfg):
     """bench.py's synthetic pangenome (bench.py:54-94): the reference and its
     haplotypes carrying random SNPs, each document followed by 10 SEP bytes,
@@ -165,11 +204,7 @@ def panel(cfg):
     from rowbowt_tpu_torch.alphabet import SEP_BYTE, TERM_BYTE
     from rowbowt_tpu_torch.construct.panel import Marker
 
-    rng = np.random.default_rng(cfg["seed"])
-    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    ref = rng.choice(acgt, size=cfg["ref_len"])
-    var_pos = np.sort(rng.choice(cfg["ref_len"], size=cfg["n_vars"], replace=False))
-    var_alt = rng.choice(acgt, size=cfg["n_vars"])
+    ref, var_pos, var_alt, carry = panel_draw(cfg)
     sep = np.full(MA_WSIZE, SEP_BYTE, dtype=np.uint8)
     parts, doc_starts, markers = [], [], []
 
@@ -181,13 +216,45 @@ def panel(cfg):
         parts.extend([seq, sep])
 
     add_doc(ref, np.zeros(cfg["n_vars"], dtype=np.int64))
-    for _ in range(cfg["n_haps"]):
+    for h in range(cfg["n_haps"]):
         hap = ref.copy()
-        carry = rng.random(cfg["n_vars"]) < 0.5
-        hap[var_pos[carry]] = var_alt[carry]
-        add_doc(hap, carry.astype(np.int64))
+        hap[var_pos[carry[h]]] = var_alt[carry[h]]
+        add_doc(hap, carry[h].astype(np.int64))
     parts.append(np.array([TERM_BYTE], dtype=np.uint8))
     return np.concatenate(parts), np.array(doc_starts, dtype=np.int64), markers
+
+
+def write_panel_files(cfg, d: str, iupac: int = 0) -> tuple[str, str]:
+    """The panel of `cfg` as the files a user builds from: a FASTA of one
+    contig `chr` (the reference) and a gzipped VCF of its SNPs with one
+    haploid sample a haplotype (hap0, hap1, ...; GT 1 where the haplotype
+    carries the site's alternative base).  iupac > 0 puts that many IUPAC
+    codes (N, R, Y, K, M, S, W) into the FASTA at seeded positions away from
+    the sites.  Returns (fasta path, vcf path)."""
+    import gzip
+
+    ref, var_pos, var_alt, carry = panel_draw(cfg)
+    if iupac:
+        rng = np.random.default_rng(cfg["seed"] + 7)
+        free = np.setdiff1d(np.arange(ref.shape[0]), var_pos)
+        ref = ref.copy()
+        ref[rng.choice(free, size=iupac, replace=False)] = rng.choice(
+            np.frombuffer(b"NRYKMSW", dtype=np.uint8), size=iupac)
+    os.makedirs(d, exist_ok=True)
+    fa, vcf = os.path.join(d, "ref.fa"), os.path.join(d, "panel.vcf.gz")
+    with open(fa, "wb") as f:
+        f.write(b">chr synthetic\n")
+        f.write(b"\n".join(ref[i:i + 80].tobytes() for i in range(0, ref.shape[0], 80)) + b"\n")
+    samples = [f"hap{h}" for h in range(carry.shape[0])]
+    gts = np.where(carry, "1", "0").T  # [n_vars, n_haps]
+    with gzip.open(vcf, "wt", compresslevel=1) as f:
+        f.write("##fileformat=VCFv4.2\n##contig=<ID=chr>\n")
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                + "\t".join(samples) + "\n")
+        f.writelines(f"chr\t{p + 1}\t.\t{chr(r)}\t{chr(a)}\t.\tPASS\t.\tGT\t{chr(9).join(g)}\n"
+                     for p, r, a, g in zip(var_pos.tolist(), ref[var_pos].tolist(),
+                                           var_alt.tolist(), gts.tolist()))
+    return fa, vcf
 
 
 def sample_reads(text: np.ndarray, rng, n_reads: int) -> np.ndarray:
@@ -762,40 +829,91 @@ def write_fastq(path: str, reads: np.ndarray) -> None:
             f.write(b"@r%d\n%s\n+\n%s\n" % (i, reads[i].tobytes(), b"I" * READ_LEN))
 
 
-def build_chr(cfg=CHR) -> dict:
-    """The chr index, built once for count, locate and markers (as bench.py
-    builds it), saved with the reads' FASTQ files."""
-    from rowbowt_tpu_torch.construct.build import build_index
+@contextlib.contextmanager
+def peak_rss(out: dict, key: str = "peak_rss_gb"):
+    """out[key]: the peak resident set (GB) of this process while the block
+    runs, sampled from /proc/self/status every 20 ms (ru_maxrss keeps the
+    peak of the whole process, an earlier phase's too)."""
+    import threading
+
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            return next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS:")) * 1024
+
+    stop, peak = threading.Event(), [rss()]
+
+    def sample():
+        while not stop.wait(0.02):
+            peak[0] = max(peak[0], rss())
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        th.join()
+        out[key] = max(peak[0], rss()) / 1e9
+
+
+def dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
+
+
+def build_cli(cfg=CHR) -> dict:
+    """Phase build_cli: the chr panel written as a FASTA and a gzipped VCF,
+    checked to parse back (construct.build_panel) to panel(cfg)'s text,
+    documents and markers, then built by `rbt_build_torch --fasta --vcf -s
+    -m -l -f -k 10` in this process (build seconds, peak RSS, index GB).  The
+    later phases use this index (with its `idx.midx.npz`) and the reads'
+    FASTQ files written here."""
+    from rowbowt_tpu_torch.construct import build_panel
+    from rowbowt_tpu_torch.index import RbtIndex
+    from rowbowt_tpu_torch.midx import PosMarkers
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     t0 = time.perf_counter()
+    fa, vcf = write_panel_files(cfg, os.path.join(WORK, "panel"))
+    write_s = time.perf_counter() - t0
+    t = time.perf_counter()
     text, doc_starts, markers = panel(cfg)
-    idx = build_index(text, markers=markers, doc_starts=doc_starts,
-                      doc_names=["ref"] + [f"hap{h}" for h in range(cfg["n_haps"])],
-                      ma_wsize=MA_WSIZE, ftab_k=FTAB_K)
-    build_s = time.perf_counter() - t0
-    # the positional marker index of rbt_locs, as `rbt_build -m` writes it
+    parsed = build_panel(fa, vcf, wsize=MA_WSIZE)
+    check(np.array_equal(parsed.text, text), "build_panel's text != panel(CHR)'s")
+    check(np.array_equal(parsed.doc_starts, doc_starts), "build_panel's doc_starts differ")
+    check([(m.text_pos, m.seq, m.pos, m.allele) for m in parsed.markers]
+          == [(m.text_pos, m.seq, m.pos, m.allele) for m in markers],
+          "build_panel's markers != panel(CHR)'s")
+    panel_check_s = time.perf_counter() - t
     pm = markers_by_text_pos(markers)
-    del markers
-    peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
+    del parsed, markers
     paths = {x: os.path.join(WORK, x) for x in ("idx", "reads.fq", "locate.fq", "greedy.fq",
                                                 "greedy_cpu.fq", "lmem.fq", "out.txt")}
-    t1 = time.perf_counter()
-    idx.save(paths["idx"])
-    pm.save(paths["idx"] + ".midx.npz")
-    save_s = time.perf_counter() - t1
+    mem: dict = {}
+    with peak_rss(mem):
+        build_s, _, err = run_main("rbt_build", ["--fasta", fa, "--vcf", vcf, "-s", "-m", "-l",
+                                                 "-f", "-k", str(FTAB_K), "-o", paths["idx"]],
+                                   paths["out.txt"])
+    check(err.splitlines()[-1].startswith("built index (n="), f"rbt_build said {err[-200:]!r}")
+    t = time.perf_counter()
+    idx = RbtIndex.load(paths["idx"])
+    load_s = time.perf_counter() - t
+    check(idx.n == text.shape[0] and idx.kval is not None and idx.ftab_k == FTAB_K
+          and idx.fblock is not None and idx.ma_start1 is not None, "rbt_build's index tables")
+    cli_pm = PosMarkers.load(paths["idx"] + ".midx.npz")
+    check(np.array_equal(cli_pm.pos, pm.pos) and np.array_equal(cli_pm.val, pm.val),
+          "rbt_build -m's idx.midx.npz != the panel's positional markers")
     reads = sample_reads(text, np.random.default_rng(cfg["seed"] + 1), N_READS)
     write_fastq(paths["reads.fq"], reads)
     write_fastq(paths["locate.fq"], reads[:N_LOCATE])
     write_fastq(paths["greedy.fq"], reads[:N_GREEDY])
-    write_fastq(paths["greedy_cpu.fq"], reads[:GREEDY_BATCH])
+    write_fastq(paths["greedy_cpu.fq"], reads[:N_GREEDY_CPU])
     write_fastq(paths["lmem.fq"], reads[:N_LMEM])
-    npz_gb = sum(os.path.getsize(os.path.join(paths["idx"], f))
-                 for f in os.listdir(paths["idx"])) / 1e9
-    emit("chr", n=idx.n, R=idx.R, M=int(idx.ma_val.shape[0]), docs=len(idx.doc_names),
-         ref_len=cfg["ref_len"], build_s=build_s, peak_rss_gb=peak_rss_gb, save_s=save_s,
-         index_gb=npz_gb, setup_s=time.perf_counter() - t0)
+    emit("build_cli", n=idx.n, R=idx.R, M=int(idx.ma_val.shape[0]), docs=len(idx.doc_names),
+         ref_len=cfg["ref_len"], files_write_s=write_s, panel_check_s=panel_check_s,
+         build_s=build_s, peak_rss_gb=mem["peak_rss_gb"], load_s=load_s,
+         index_gb=dir_gb(paths["idx"]), ftab_text_mb=os.path.getsize(paths["idx"] + ".ftab") / 1e6,
+         cli_stderr=err.splitlines(), setup_s=time.perf_counter() - t0)
     return dict(idx=idx, text=text, reads=reads, paths=paths, build_s=build_s, pm=pm)
 
 
@@ -1464,7 +1582,7 @@ def oracle_seed_lines(idx, reads: np.ndarray, lmem: bool, wsize=MA_WSIZE, max_ra
 
 def phase_greedy(device, card: dict, chr_: dict) -> dict:
     """The port's rbt_markers -f on the first N_GREEDY reads: against the CPU
-    run of the first batch and the oracle on N_ORACLE reads; the stage
+    run of the first N_GREEDY_CPU and the oracle on N_ORACLE reads; the stage
     seconds are the CLI's own."""
     from rowbowt_tpu_torch.ops import cuda_lf
 
@@ -1481,11 +1599,12 @@ def phase_greedy(device, card: dict, chr_: dict) -> dict:
           and nums[-1] == N_GREEDY - 1, "rbt_markers lines are not in read order")
 
     cpu, cpu_text, _ = run_seeding_cli(
-        "rbt_markers", [paths["idx"], paths["greedy_cpu.fq"], *argv, "--device", "cpu"],
+        "rbt_markers", [paths["idx"], paths["greedy_cpu.fq"], "-f", "-b", str(N_GREEDY_CPU),
+                        "--device", "cpu"],
         paths["out.txt"])
-    n_first = int((nums < GREEDY_BATCH).sum())
+    n_first = int((nums < N_GREEDY_CPU).sum())
     check(cpu_text.splitlines(keepends=True) == lines[:n_first],
-          "rbt_markers --device cuda != --device cpu on the first batch")
+          f"rbt_markers --device cuda != --device cpu on the first {N_GREEDY_CPU} reads")
     t = time.perf_counter()
     want = oracle_seed_lines(idx, chr_["reads"][:N_ORACLE], lmem=False)
     oracle_s = time.perf_counter() - t
@@ -1499,7 +1618,7 @@ def phase_greedy(device, card: dict, chr_: dict) -> dict:
                cli_markers_per_s=n_markers / cli["cli_query_s"],
                seeds=len(lines), markers=n_markers,
                seeds_with_markers=sum(not ln.endswith(" .\n") for ln in lines),
-               cpu_first_batch_lines=n_first, cpu_query_s=cpu["cli_query_s"],
+               cpu_reads=N_GREEDY_CPU, cpu_lines=n_first, cpu_query_s=cpu["cli_query_s"],
                cpu_stages=cpu["cli_stages"], oracle_reads=N_ORACLE, oracle_lines=len(want),
                oracle_s=oracle_s, k1_launches=k1, card=card["nvidia_smi"])
     emit("greedy", **res)
@@ -1803,26 +1922,46 @@ def build_big_chr(chr_) -> dict:
                 dir_gb=sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9)
 
 
-def big_stages(device, path: str, fastq: str, mode: str, out_text: str) -> dict:
-    """rbt_align's stages on the big directory, one by one (host clock; each
-    device stage ends in a synchronize): count (mode ""), -s or -m.  The
-    staged run's lines must equal the CLI's."""
+def load_big(device, path: str, mode: str):
+    """(BigIndex, its TorchIndex) for rbt_align `mode`, as the CLI loads it."""
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+
+    big = BigIndex.load(path)
+    return big, TorchIndex.from_big(big, device, with_locate=mode == "-s",
+                                    with_markers=mode == "-m")
+
+
+def load_dense(device, path: str, mode: str):
+    """(RbtIndex, its TorchIndex) for rbt_align `mode`, as the CLI loads it."""
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.index import RbtIndex
+
+    idx = RbtIndex.load(path, with_sa=mode == "-s", with_ma=mode == "-m", with_dl=mode == "-s",
+                        with_ft=False)
+    return idx, TorchIndex.from_index(idx, device)
+
+
+def align_stages(device, load, fastq: str, mode: str, out_text: str,
+                 resident: dict | None = None) -> dict:
+    """rbt_align's stages one by one (host clock; each device stage ends in a
+    synchronize): count (mode ""), -s or -m, on the index that load(mode)
+    returns as (host index, TorchIndex).  The staged run's lines must equal
+    the CLI's.  `resident` receives the MB of each table on the card."""
     import torch
 
-    from rowbowt_tpu_torch.bigindex import BigIndex
     from rowbowt_tpu_torch.cli import rbt_align
     from rowbowt_tpu_torch.cli.common import iter_query_batches
     from rowbowt_tpu_torch.engine.count import find_ranges
-    from rowbowt_tpu_torch.engine.device import TorchIndex
     from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
 
     stages = {}
     with timed(stages, "load_s"):
-        big = BigIndex.load(path)
-        tx = TorchIndex.from_big(big, device, with_locate=mode == "-s",
-                                 with_markers=mode == "-m")
+        host, tx = load(mode)
+    if resident is not None:
+        resident.update({k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()})
     with timed(stages, "parse_s"):
-        batches = list(iter_query_batches(big, fastq, BATCH))
+        batches = list(iter_query_batches(host, fastq, BATCH))
     with timed(stages, "h2d_s"):
         dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device), len(names))
                for names, qc, lens in batches]
@@ -1832,7 +1971,7 @@ def big_stages(device, path: str, fastq: str, mode: str, out_text: str) -> dict:
     cols = []
     if mode == "-s":
         with timed(stages, "locate_s"):  # the phi walk and the document resolve
-            cols = [rbt_align.format_locs(big.doc_names, *rbt_align.locate_hits(
+            cols = [rbt_align.format_locs(host.doc_names, *rbt_align.locate_hits(
                 tx, lo, hi, k, None)) for lo, hi, k in ranges]
     elif mode == "-m":
         with timed(stages, "probe_s"):
@@ -1844,7 +1983,7 @@ def big_stages(device, path: str, fastq: str, mode: str, out_text: str) -> dict:
                 count_lines(names, r[0].cpu().numpy(), r[1].cpu().numpy()),
                 *([cols[b]] if cols else [])))
             for b, ((names, _, _), r) in enumerate(zip(batches, ranges)))
-    check(text == out_text, f"rbt_align {mode} on the big directory != its staged run")
+    check(text == out_text, f"rbt_align {mode} != its staged run")
     return stages
 
 
@@ -1854,7 +1993,8 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     rbt_align count (N_READS reads), -s and -m (N_LOCATE) print the lines of
     the dense chr index; rbt_markers -f (N_GREEDY; big artifacts carry no
     ftab, so it runs without) prints the dense index's lines without -f on
-    the first batch and the scalar oracle's (no ftab) on N_ORACLE reads;
+    the first N_GREEDY_CPU reads and the scalar oracle's (no ftab) on N_ORACLE
+    reads;
     rbt_locs prints the dense run's lines (held to the oracle in phase
     locs).  Load and query seconds, reads/s, stages and K1 launches of each.
     Then K1 over fb2_64 on the main path's four batches against the plain
@@ -1884,8 +2024,8 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
         n = N_READS if tag == "count" else N_LOCATE
         runs[tag] = dict(cli, cli_reads_per_s=n / cli["cli_query_s"], reads=n,
                          launches=cuda_lf.LAUNCHES_FB2,
-                         stages=big_stages(device, path, fastq, flags[0] if flags else "",
-                                           out_text))
+                         stages=align_stages(device, lambda m: load_big(device, path, m),
+                                             fastq, flags[0] if flags else "", out_text))
 
     align("count", paths["reads.fq"], [], "".join(count["lines"]))
     align("-s", paths["locate.fq"], ["-s"], loc["out_text"])
@@ -1904,9 +2044,9 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     nums = np.array([read_no(ln) for ln in lines])
     dense, d_text, _ = run_seeding_cli(
         "rbt_markers", [paths["idx"], paths["greedy_cpu.fq"], *argv[1:]], paths["out.txt"])
-    n_first = int((nums < GREEDY_BATCH).sum())
+    n_first = int((nums < N_GREEDY_CPU).sum())
     check(d_text.splitlines(keepends=True) == lines[:n_first],
-          "rbt_markers -f on the big directory != the dense index without -f, first batch")
+          "rbt_markers -f on the big directory != the dense index without -f")
     t = time.perf_counter()
     want = oracle_seed_lines(idx, chr_["reads"][:N_ORACLE], lmem=False, use_ftab=False)
     oracle_s = time.perf_counter() - t
@@ -1914,7 +2054,7 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
           f"rbt_markers on the big directory != the scalar oracle on the first {N_ORACLE} reads")
     runs["markers_f"] = dict(cli, cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
                              reads=N_GREEDY, seeds=len(lines), launches=cuda_lf.LAUNCHES_FB2,
-                             dense_no_ftab_first_batch_query_s=dense["cli_query_s"],
+                             dense_no_ftab_query_s=dense["cli_query_s"], dense_no_ftab_reads=N_GREEDY_CPU,
                              oracle_reads=N_ORACLE, oracle_s=oracle_s)
     cuda_lf.LAUNCHES_FB2 = 0
     cli, l_text, _ = run_seeding_cli(
@@ -1974,7 +2114,373 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     return res
 
 
-SELECTABLE = ("probes", "parity", "k1", "big_count")
+def route_counts() -> dict:
+    """The launch counts of the count search's routes since the last reset:
+    K1 over the single-level rows, over the two-level rows, and the torch
+    loop an index without fused-block rows takes on the card."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    return dict(k1=cuda_lf.LAUNCHES, k1_fb2=cuda_lf.LAUNCHES_FB2, torch=cuda_lf.LAUNCHES_TORCH)
+
+
+def reset_counts() -> None:
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    cuda_lf.LAUNCHES = cuda_lf.LAUNCHES_FB2 = cuda_lf.LAUNCHES_TORCH = 0
+
+
+def align_runs(device, path: str, runs: list, out_path: str) -> dict:
+    """rbt_align on the index at `path` for each (tag, fastq, flags, wanted
+    lines, reads): the lines must be the wanted ones.  Per run the CLI's own
+    seconds, its reads/s and the route counts of that run alone."""
+    res = {}
+    for tag, fastq, flags, want, n in runs:
+        reset_counts()
+        cli, out_text, _ = run_cli([path, fastq, *flags, "-b", str(BATCH), "--device",
+                                    str(device)], out_path)
+        check(out_text == want, f"rbt_align {tag} on {path} != the dense index's lines")
+        res[tag] = dict(cli, reads=n, cli_reads_per_s=n / cli["cli_query_s"],
+                        launches=route_counts())
+    return res
+
+
+def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
+                  markers: dict) -> dict:
+    """Phase raw_chr: the chr index written as the reference's raw files
+    (.bwt/.ssa/.esa/.docs, and .mab through write_mab) and built from the
+    prefix by `rbt_build_torch <prefix> -s -m -l`: fused-block rows and the
+    predecessor-built phi1, no kval, and (n > OCC1_MAX_N) no occ1/tk1, so
+    -s carries the toehold step by step over ltk.  rbt_align count, -s and
+    -m print the dense index's lines (phases main, locate, markers); K1
+    launches once a batch of count and -m, never in -s.  Build seconds and
+    peak RSS; each run's load and query seconds and reads/s, the stages of
+    -s."""
+    from rowbowt_tpu_torch.construct.rawio import write_raw
+    from rowbowt_tpu_torch.construct.sdslwrite import write_mab
+    from rowbowt_tpu_torch.index import _ARRS_NAME
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    d = os.path.join(WORK, "raw")
+    os.makedirs(d, exist_ok=True)
+    prefix, out_dir = os.path.join(d, "chr"), os.path.join(WORK, "raw_idx")
+    t = time.perf_counter()
+    write_raw(idx, prefix)
+    write_mab(prefix + ".mab", idx.ma_row, idx.ma_val, idx.ma_wsize, idx.n)
+    write_s = time.perf_counter() - t
+    mem: dict = {}
+    with peak_rss(mem):
+        build_s, _, err = run_main("rbt_build", [prefix, "-s", "-m", "-l", "-o", out_dir],
+                                   paths["out.txt"])
+    check(f"constructing from raw {prefix}.bwt" in err.splitlines(), "not a raw-prefix build")
+    z = np.load(os.path.join(out_dir, _ARRS_NAME))
+    check({"fblock", "phi1", "ltk", "ma_start1", "samples_last"} <= set(z.files)
+          and not {"kval", "occ1", "tk1"} & set(z.files), f"raw build's tables: {z.files}")
+    check(np.array_equal(z["phi1"], idx.phi1), "raw build's phi1 != the full-SA build's")
+    check(np.array_equal(z["ma_start1"], idx.ma_start1), "raw build's ma_start1 differs")
+    del z
+    n_loc = -(-N_LOCATE // BATCH)
+    runs = align_runs(device, out_dir, [
+        ("count", paths["reads.fq"], [], "".join(count["lines"]), N_READS),
+        ("-s", paths["locate.fq"], ["-s"], loc["out_text"], N_LOCATE),
+        ("-m", paths["locate.fq"], ["-m"], markers["out_text"], N_LOCATE)], paths["out.txt"])
+    check(runs["count"]["launches"] == dict(k1=N_READS // BATCH, k1_fb2=0, torch=0)
+          and runs["-m"]["launches"] == dict(k1=n_loc, k1_fb2=0, torch=0)
+          and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, torch=0),
+          f"raw chr routes: {({k: v['launches'] for k, v in runs.items()})}")
+    # the stages of -s, whose toehold loop is this index's own (count and -m
+    # run K1 as on the dense index, phases main and markers)
+    resident: dict = {}
+    runs["-s"]["stages"] = align_stages(device, lambda m: load_dense(device, out_dir, m),
+                                        paths["locate.fq"], "-s", loc["out_text"], resident)
+    res = dict(n=idx.n, raw_files_gb=sum(os.path.getsize(os.path.join(d, f))
+                                         for f in os.listdir(d)) / 1e9,
+               raw_write_s=write_s, build_s=build_s, peak_rss_gb=mem["peak_rss_gb"],
+               index_gb=dir_gb(out_dir), runs=runs, resident_mb_locate=resident,
+               dense_reads_per_s={"count": count["cli_reads_per_s"],
+                                  "-s": loc["cli_reads_per_s"],
+                                  "-m": markers["cli_reads_per_s"]},
+               card=card["nvidia_smi"])
+    emit("raw_chr", **res)
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res
+
+
+def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
+                      markers: dict) -> dict:
+    """Phase nodense_chr: the chr index without fblock, kval, phi1 and
+    ma_start1 (what `rbt_build_torch --no-dense` writes; phase build_small
+    holds the two equal on the small panel).  rbt_align count takes the
+    run-space torch route (no K1 launch: required), -s the per-step toehold
+    and the predecessor phi, -m the ma_row binary search; each prints the
+    dense index's lines.  Reads/s beside the dense index's."""
+    idx, paths = chr_["idx"], chr_["paths"]
+    out_dir = os.path.join(WORK, "nodense_idx")
+    t = time.perf_counter()
+    dataclasses.replace(idx, fblock=None, kval=None, phi1=None, ma_start1=None).save(out_dir)
+    save_s = time.perf_counter() - t
+    n_loc = -(-N_LOCATE // BATCH)
+    runs = align_runs(device, out_dir, [
+        ("count", paths["reads.fq"], [], "".join(count["lines"]), N_READS),
+        ("-s", paths["locate.fq"], ["-s"], loc["out_text"], N_LOCATE),
+        ("-m", paths["locate.fq"], ["-m"], markers["out_text"], N_LOCATE)], paths["out.txt"])
+    check(runs["count"]["launches"] == dict(k1=0, k1_fb2=0, torch=N_READS // BATCH)
+          and runs["-m"]["launches"] == dict(k1=0, k1_fb2=0, torch=n_loc)
+          and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, torch=0),
+          f"no-dense chr routes: {({k: v['launches'] for k, v in runs.items()})}")
+    _, tx = load_dense(device, out_dir, "-s")
+    resident = {k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()}
+    del tx
+    res = dict(n=idx.n, save_s=save_s, index_gb=dir_gb(out_dir), runs=runs,
+               resident_mb_locate=resident,
+               dense_reads_per_s={"count": count["cli_reads_per_s"],
+                                  "-s": loc["cli_reads_per_s"],
+                                  "-m": markers["cli_reads_per_s"]},
+               card=card["nvidia_smi"])
+    emit("nodense_chr", **res)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res
+
+
+N_SMALL_READS = 16_384  # reads of phase build_small's queries: one batch
+N_SMALL_SEEDING = 8_192  # of them through rbt_markers -f and rbt_locs
+N_SMALL_CPU = 2_048  # of them also run with --device cpu on the index of 13 codes
+N_IUPAC = 20_000  # IUPAC codes put into the small reference for that index
+N_IUPAC_READS = 2_000  # reads of that index's batch that hold an IUPAC code
+
+
+def iupac_reads(text: np.ndarray, rng, n: int) -> np.ndarray:
+    """n windows of READ_LEN bytes of `text` that hold an IUPAC code and no
+    separator: exact substrings, each with at least one code beyond ACGT."""
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    at = np.flatnonzero((text >= 65) & ~np.isin(text, acgt))
+    out = []
+    while len(out) < n:
+        s = int(rng.choice(at)) - int(rng.integers(0, READ_LEN))
+        w = text[max(s, 0):max(s, 0) + READ_LEN]
+        if w.shape[0] == READ_LEN and (w >= 65).all():
+            out.append(w)
+    return np.stack(out)
+
+
+def oracle_align_lines(idx, reads: np.ndarray) -> dict:
+    """rbt_align's count, -s and -m lines for `reads` from the scalar oracle
+    (engine/naive): the toehold search, every occurrence by the phi chain
+    with its document, and the markers of the final range."""
+    from rowbowt_tpu_torch.cli.rbt_align import NO_MARKERS
+    from rowbowt_tpu_torch.engine import naive
+    from rowbowt_tpu_torch.index import marker_allele, marker_pos
+
+    out = {"count": [], "-s": [], "-m": []}
+    for i, r in enumerate(reads):
+        (s, e), k = naive.find_range_w_toehold(idx, idx.alpha.encode(r).astype(np.int64))
+        line = f"r{i} ({s},{e}), count={e - s + 1 if e >= s else 0}\n"
+        locs = naive.locate_range(idx, s, e, k, max_hits=idx.n)
+        docs = [naive.resolve_offset(idx, x) for x in locs]
+        v = naive.markers_at_range(idx, s, e) if e >= s else np.empty(0, np.int64)
+        out["count"].append(line)
+        out["-s"].append(line + "\tlocs: " + "".join(f"{x}/{dn}:{o} " for x, (dn, o)
+                                                      in zip(locs, docs)) + "\n")
+        out["-m"].append(line + "\tmarkers: " + ("".join(
+            f"{p}/{a} " for p, a in zip(marker_pos(v).tolist(), marker_allele(v).tolist()))
+            if v.size else NO_MARKERS) + "\n")
+    return {k: "".join(v) for k, v in out.items()}
+
+
+def phase_build_small(device, card: dict) -> dict:
+    """Phase build_small: the small panel (n ~ 8.0 M) through rbt_build_torch
+    in every mode: native with -s -m -l -f and --emit-ref (the dense index),
+    native -x, --no-dense (equal, array for array, to the dense index without
+    fblock, kval, phi1, ma_start1 and the ftab), the raw prefix of the dense
+    index (n <= OCC1_MAX_N: fused rows, occ1 and tk1), the serialized
+    .rbwt/.tsa/.mab/.docs that --emit-ref wrote (the raw build's arrays),
+    --ftab-only, and a FASTA with IUPAC codes (13 codes: bwt4/occ_blk).
+    rbt_align count, -s and -m on each print the dense index's lines (-x:
+    count and -m), the index of 13 codes its --device cpu run's and the
+    scalar oracle's; rbt_markers -f and rbt_locs on the raw index print the
+    dense index's.  The occ1 route (the raw index without its fused rows) is
+    held against K1's ranges.  Builds' seconds, reads/s and routes."""
+    import torch
+
+    from rowbowt_tpu_torch.construct import build_panel
+    from rowbowt_tpu_torch.construct.rawio import write_raw
+    from rowbowt_tpu_torch.construct.sdslwrite import save_reference_format, write_mab
+    from rowbowt_tpu_torch.engine.count import find_ranges
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.index import RbtIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    d = os.path.join(WORK, "small")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    fa, vcf = write_panel_files(SMALL, os.path.join(d, "panel"))
+    fa_iu, _ = write_panel_files(SMALL, os.path.join(d, "iupac"), iupac=N_IUPAC)
+    out_txt = os.path.join(d, "out.txt")
+    p = {x: os.path.join(d, x) for x in ("dense", "x", "nodense", "raw_idx", "ser",
+                                         "ftab_only", "iupac")}
+    native = ["--fasta", fa, "--vcf", vcf]
+    builds = {}
+
+    def build(name, argv):
+        wall, _, err = run_main("rbt_build", argv, out_txt)
+        builds[name] = dict(build_s=wall, index_gb=dir_gb(p[name]))
+        return err
+
+    build("dense", [*native, "-s", "-m", "-l", "-f", "-k", str(FTAB_K), "-o", p["dense"],
+                    "--emit-ref", os.path.join(d, "ref_fmt")])
+    err = build("x", [*native, "-x", "-s", "-m", "-l", "-o", p["x"]])
+    check("Warning: fbb backend does not support the toehold suffix array" in err.splitlines(),
+          "rbt_build -x -s gave no warning")
+    build("nodense", [*native, "--no-dense", "-s", "-m", "-l", "-o", p["nodense"]])
+    dense = RbtIndex.load(p["dense"])
+    prefix = os.path.join(d, "raw")
+    write_raw(dense, prefix)
+    write_mab(prefix + ".mab", dense.ma_row, dense.ma_val, dense.ma_wsize, dense.n)
+    build("raw_idx", [prefix, "-s", "-m", "-l", "-f", "-k", str(FTAB_K), "-o", p["raw_idx"]])
+    build("ser", [os.path.join(d, "ref_fmt"), "-s", "-m", "-l", "-o", p["ser"]])
+    shutil.copytree(p["dense"], p["ftab_only"])
+    build("ftab_only", ["--ftab-only", "-k", "8", "-o", p["ftab_only"]])
+    build("iupac", ["--fasta", fa_iu, "--vcf", vcf, "-s", "-m", "-l", "-o", p["iupac"]])
+    t = time.perf_counter()
+    save_reference_format(dense, os.path.join(d, "ref_again"))
+    sdsl_write_s = time.perf_counter() - t
+
+    # the tables of each mode against the dense index
+    names = ("run_start", "run_head", "occ", "F", "cruns_flat", "cruns_off", "samples_last",
+             "pred_pos", "pred_to_run", "ltk", "ma_row", "ma_val", "ma_start1", "doc_starts",
+             "ftab", "bwt4", "occ_blk", "occ1", "tk1", "kval", "phi1", "fblock")
+
+    def same(a, b, skip=()):
+        for x in names:
+            if x not in skip:
+                u, v = getattr(a, x), getattr(b, x)
+                check((u is None) == (v is None) and (u is None or np.array_equal(u, v)),
+                      f"table {x} differs")
+        check(a.doc_names == b.doc_names and a.n == b.n, "doc names or n differ")
+
+    got = {x: RbtIndex.load(p[x]) for x in ("x", "nodense", "raw_idx", "ser", "ftab_only",
+                                            "iupac")}
+    check(all(getattr(got["nodense"], x) is None for x in ("fblock", "kval", "phi1",
+                                                            "ma_start1", "ftab")),
+          "--no-dense wrote a dense table")
+    same(got["nodense"], dense, skip=("fblock", "kval", "phi1", "ma_start1", "ftab"))
+    check(got["x"].samples_last is None and got["x"].kval is None, "-x kept the toehold SA")
+    same(got["x"], dense, skip=("samples_last", "pred_pos", "pred_to_run", "ltk", "kval",
+                                "phi1", "ftab"))
+    raw = got["raw_idx"]
+    check(raw.kval is None and raw.occ1 is not None and raw.tk1 is not None
+          and np.array_equal(raw.phi1, dense.phi1), "raw build's tables")
+    same(raw, dense, skip=("kval", "occ1", "tk1"))
+    same(got["ser"], raw, skip=("ftab",))
+    check(got["ftab_only"].ftab_k == 8, "--ftab-only kept the old k")
+    same(got["ftab_only"], dense, skip=("ftab",))
+    iu = got["iupac"]
+    check(iu.A == 13 and iu.bwt4 is not None and iu.fblock is None and iu.kval is not None,
+          f"the IUPAC index: A = {iu.A}")
+
+    # reads
+    text = panel(SMALL)[0]
+    reads = sample_reads(text, np.random.default_rng(SMALL["seed"] + 1), N_SMALL_READS)
+    fq = {x: os.path.join(d, x + ".fq") for x in ("reads", "seeding", "iupac", "iupac_cpu")}
+    write_fastq(fq["reads"], reads)
+    write_fastq(fq["seeding"], reads[:N_SMALL_SEEDING])
+    text_iu = build_panel(fa_iu, vcf, wsize=MA_WSIZE).text
+    rng = np.random.default_rng(SMALL["seed"] + 2)
+    reads_iu = sample_reads(text_iu, rng, N_SMALL_READS)
+    reads_iu[:N_IUPAC_READS] = iupac_reads(text_iu, rng, N_IUPAC_READS)
+    write_fastq(fq["iupac"], reads_iu)
+    write_fastq(fq["iupac_cpu"], reads_iu[:N_SMALL_CPU])
+
+    # the dense index's lines, then every other index's
+    modes = (("count", []), ("-s", ["-s"]), ("-m", ["-m"]))
+    dense_runs, want = {}, {}
+    for tag, flags in modes:
+        reset_counts()
+        cli, want[tag], _ = run_cli([p["dense"], fq["reads"], *flags, "-b", str(BATCH),
+                                     "--device", str(device)], out_txt)
+        dense_runs[tag] = dict(cli, reads=N_SMALL_READS,
+                               cli_reads_per_s=N_SMALL_READS / cli["cli_query_s"],
+                               launches=route_counts())
+    runs = {"dense": dense_runs}
+    for x in ("x", "nodense", "raw_idx", "ser", "ftab_only"):
+        runs[x] = align_runs(device, p[x], [(tag, fq["reads"], f, want[tag], N_SMALL_READS)
+                                            for tag, f in modes if not (x == "x" and f == ["-s"])],
+                             out_txt)
+    k1 = dict(k1=1, k1_fb2=0, torch=0)
+    torch_route = dict(k1=0, k1_fb2=0, torch=1)
+    none = dict(k1=0, k1_fb2=0, torch=0)
+    check(all(runs[x]["count"]["launches"] == k1 and runs[x]["-m"]["launches"] == k1
+              for x in ("dense", "x", "raw_idx", "ser", "ftab_only"))
+          and runs["nodense"]["count"]["launches"] == torch_route
+          and runs["nodense"]["-m"]["launches"] == torch_route
+          and all(runs[x]["-s"]["launches"] == none for x in ("nodense", "raw_idx", "ser"))
+          and runs["dense"]["-s"]["launches"] == k1,
+          f"small routes: {({x: {t: v['launches'] for t, v in r.items()} for x, r in runs.items()})}")
+
+    # the index of 13 codes: its lines on the card, on the CPU, and the oracle's
+    iu_runs, iu_lines = {}, {}
+    for tag, flags in modes:
+        reset_counts()
+        cli, iu_lines[tag], _ = run_cli([p["iupac"], fq["iupac"], *flags, "-b", str(BATCH),
+                                         "--device", str(device)], out_txt)
+        iu_runs[tag] = dict(cli, reads=N_SMALL_READS,
+                            cli_reads_per_s=N_SMALL_READS / cli["cli_query_s"],
+                            launches=route_counts())
+        cpu, cpu_lines, _ = run_cli([p["iupac"], fq["iupac_cpu"], *flags, "-b", str(N_SMALL_CPU),
+                                     "--device", "cpu"], out_txt)
+        per_read = 1 if tag == "count" else 2
+        got_lines = iu_lines[tag].splitlines(keepends=True)
+        check(got_lines[:per_read * N_SMALL_CPU] == cpu_lines.splitlines(keepends=True),
+              f"the 13-code index: rbt_align {tag} on the card != --device cpu")
+        iu_runs[tag]["cpu_query_s"] = cpu["cli_query_s"]
+    check(iu_runs["count"]["launches"] == torch_route, "the 13-code count did not take torch")
+    t = time.perf_counter()
+    oracle = oracle_align_lines(iu, reads_iu[:N_ORACLE])
+    oracle_s = time.perf_counter() - t
+    for tag, per_read in (("count", 1), ("-s", 2), ("-m", 2)):
+        check("".join(iu_lines[tag].splitlines(keepends=True)[:per_read * N_ORACLE])
+              == oracle[tag], f"the 13-code index: rbt_align {tag} != the scalar oracle")
+
+    # the occ1 route on the card: the raw index without its fused rows
+    tx = TorchIndex.from_index(raw, device)
+    del tx.arrays["fblock64"]
+    qc = torch.from_numpy(np.stack([raw.alpha.encode(r).astype(np.int32)
+                                    for r in reads[:BATCH]])).to(device)
+    ln = torch.full((qc.shape[0],), READ_LEN, dtype=torch.int32, device=device)
+    reset_counts()
+    occ1_ranges = find_ranges(tx, qc, ln)
+    occ1_counts = route_counts()
+    k1_ranges = find_ranges(TorchIndex.from_index(raw, device), qc, ln)
+    torch.cuda.synchronize()
+    check(occ1_counts == torch_route and max_abs_err(occ1_ranges, k1_ranges) == 0,
+          f"the occ1 route != K1 ({occ1_counts})")
+    del tx
+
+    # rbt_markers -f and rbt_locs on the raw index against the dense index
+    shutil.copy(p["dense"] + ".midx.npz", p["raw_idx"] + ".midx.npz")
+    seeding = {}
+    for tool, argv in (("rbt_markers", ["-f"]), ("rbt_locs", [])):
+        outs = {}
+        for x in ("dense", "raw_idx"):
+            reset_counts()
+            cli, outs[x], _ = run_seeding_cli(tool, [p[x], fq["seeding"], *argv, "-b",
+                                                     str(GREEDY_BATCH), "--device", str(device)],
+                                              out_txt)
+            seeding[f"{tool}_{x}"] = dict(cli, reads=N_SMALL_SEEDING,
+                                          cli_reads_per_s=N_SMALL_SEEDING / cli["cli_query_s"])
+        check(outs["dense"] == outs["raw_idx"] and outs["dense"],
+              f"{tool} on the raw index != the dense index")
+    res = dict(n=dense.n, R=dense.R, A_iupac=iu.A, builds=builds, sdsl_write_s=sdsl_write_s,
+               reads=N_SMALL_READS, runs=runs, iupac_runs=iu_runs, oracle_reads=N_ORACLE,
+               oracle_s=oracle_s, occ1_route=occ1_counts, seeding=seeding,
+               setup_s=time.perf_counter() - t0, card=card["nvidia_smi"])
+    emit("build_small", **res)
+    shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+SELECTABLE = ("probes", "parity", "k1", "big_count", "build_small")
 
 
 def main(argv: list[str]) -> int:
@@ -2005,24 +2511,30 @@ def main(argv: list[str]) -> int:
                 phase_parity(device)
             elif name == "big_count":
                 phase_big_count(device, card)
+            elif name == "build_small":
+                os.makedirs(WORK, exist_ok=True)
+                phase_build_small(device, card)
             else:
-                phase_k1(device, card, build_chr())
+                phase_k1(device, card, build_cli())
         shutil.rmtree(WORK, ignore_errors=True)
         return 0
     probes = phase_probes(device)
     par_err = phase_parity(device)
     big_count = phase_big_count(device, card)  # first: its peak RSS is the build's
-    chr_ = build_chr()
+    chr_ = build_cli()
     count = phase_main(device, card, chr_)
     k1 = phase_k1(device, card, chr_)
     loc = phase_locate(device, card, chr_, count)
     markers = phase_markers(device, card, chr_, count)
+    phase_raw_chr(device, card, chr_, count, loc, markers)
+    phase_nodense_chr(device, card, chr_, count, loc, markers)
     chain_err = phase_phi_chain(device, card, loc)
     greedy = phase_greedy(device, card, chr_)
     phase_heuristic(device, card, chr_)
     phase_lmem(device, card, chr_)
     locs = phase_locs(device, card, chr_)
     big_chr = phase_big_chr(device, card, chr_, count, k1, loc, markers, locs)
+    phase_build_small(device, card)
     phase_trace(device, card, chr_, loc)
     phase_greedy_trace(device, card, chr_, greedy)
     shutil.rmtree(WORK, ignore_errors=True)

@@ -12,11 +12,13 @@ order is toehold first then the phi chain, marker positions are 0-based.
 Load time and query time go to stderr as "<load_s> <query_s>"
 (rb_align.cpp:164-192), then the reads/s and LF-steps/s meter.
 
-On a CUDA device the LF loop is the hand-written kernel K1; `--device cpu`
-runs the plain torch loop.  The index may be a two-level BigIndex
-directory (n >= 2^31), where K1 runs over its int64 lanes and `-s` takes
-each toehold from the search's trajectory.  Locate and markers run on the real reads of each
-batch only, never on the length-0 lanes that pad the last batch.  `-o` and
+On a CUDA device the LF loop is the hand-written kernel K1 (the torch loop
+over the occ1, dense or run-space tables for an index without fused-block
+rows); `--device cpu` runs the plain torch loop.  The index may be a
+two-level BigIndex directory (n >= 2^31), where K1 runs over its int64 lanes
+and `-s` takes each toehold from the search's trajectory; an index without
+kval carries it step by step.  Locate and markers run on the real reads of
+each batch only, never on the length-0 lanes that pad the last batch.  `-o` and
 `-x` are accepted and unused, as in the JAX CLI; `--profile DIR` writes a
 torch.profiler trace of the query loop to DIR.
 """

@@ -23,6 +23,23 @@ def bwt_from_sa(text: np.ndarray, sa: np.ndarray) -> np.ndarray:
 
 DENSE_BLOCK = 128  # symbols per occ checkpoint block (16 uint32 words, 64B)
 
+# full positional occ (occ1): one elem gather per rank, 4(n+1)A bytes.
+# Not built for panel builds (fblock is 37x smaller and kval/phi1 cover the
+# toehold and phi paths); still built for RAW-input indexes below this size,
+# where the per-step toehold path lf_step_w_loc_occ1 needs occ1+tk1 (no full
+# SA -> no kval shortcut).  The same threshold as the JAX package, so both
+# packages write the same artifact.
+OCC1_MAX_N = 128_000_000
+
+
+def build_occ1(codes: np.ndarray, A: int) -> np.ndarray:
+    """occ1[c, i] = count of c in BWT[0:i), i in [0, n] inclusive (no edge case)."""
+    n = codes.shape[0]
+    occ1 = np.zeros((A, n + 1), dtype=np.int32 if n < (1 << 31) else np.int64)
+    for c in range(A):
+        np.cumsum(codes == c, out=occ1[c, 1:])
+    return occ1
+
 
 def build_dense_tables(codes: np.ndarray, A: int):
     """4-bit packed BWT + per-block occ checkpoints (one contiguous 64B block
@@ -191,6 +208,44 @@ def build_toehold_tables(run_head, samples_last, sfirst, A: int):
         last = np.maximum.accumulate(marked)
         ltk[c] = np.where(last >= 0, samples_last[np.maximum(last, 0)], 0)
     return pred_pos, pred_to_run, ltk
+
+
+def build_tk1_from_runs(codes, run_start, samples_last, A: int, dtype):
+    """Dense toehold tk1[c, i] = samples_last of the last c-run ENDING at or
+    before i.  Exactly matches the full-SA tk1 wherever the kernel reads it
+    (lf_step_w_loc_occ1 only consults tk1[c, hi] when BWT[hi] != c, in which
+    case the last c <= hi sits at a c-run end)."""
+    n = codes.shape[0]
+    R = run_start.shape[0]
+    run_end = np.append(run_start[1:], n) - 1
+    run_head = codes[run_start]
+    tk1 = np.zeros((A, n), dtype=dtype)
+    for c in range(A):
+        ends = run_end[run_head == c]
+        vals = samples_last[run_head == c]
+        mark = np.full(n, -1, dtype=np.int64)
+        mark[ends] = np.arange(ends.shape[0])
+        ff = np.maximum.accumulate(mark)
+        tk1[c] = np.where(ff >= 0, vals[np.maximum(ff, 0)], 0)
+    return tk1
+
+
+def build_phi1(pred_pos, pred_to_run, samples_last, n: int, dtype,
+               chunk: int = 1 << 24):
+    """Dense phi table: phi1[i] = ToeholdSA::phi(i) (toehold_sa.hpp:56-72)
+    precomputed for every text position — the phi walk becomes one gather per
+    located occurrence.  Chunked: peak temporaries are O(chunk), not O(n)
+    (5 int64 n-arrays was the biggest RSS spike of a chr-scale build)."""
+    out = np.empty(n, dtype=dtype)
+    for lo in range(0, n, chunk):
+        i = np.arange(lo, min(lo + chunk, n), dtype=np.int64)
+        rk = np.searchsorted(pred_pos, i, side="left")
+        jr = np.where(rk == 0, pred_pos.shape[0] - 1, rk - 1)
+        j = pred_pos[jr]
+        delta = np.where(j < i, i - j, i + 1)
+        prev_sample = samples_last[pred_to_run[jr] - 1]
+        out[lo: lo + i.shape[0]] = (prev_sample + delta) % n
+    return out
 
 
 def build_index(

@@ -12,7 +12,8 @@ Torch's uint32 tensors lack searchsorted and most comparisons, so the u32
 tables of the big layout (run starts, samples, breakpoints, bucket
 directories) are widened to int64 at load; every value they hold is below
 2^32, so each search and gather gives what the JAX package's u32 version
-gives.
+gives.  The dense backend's packed words (`bwt4`, uint32) are kept as int32
+bit patterns instead, as the fused rows' words are: 4 bytes a word, not 8.
 """
 
 from __future__ import annotations
@@ -60,6 +61,10 @@ class TorchIndex:
     def has_ftab(self) -> bool:
         return "ftab" in self.arrays
 
+    @property
+    def has_dense(self) -> bool:
+        return "bwt4" in self.arrays
+
     @staticmethod
     def from_arrays(arrays: dict[str, np.ndarray], *, n: int, R: int, A: int,
                     ma_wsize: int, ftab_k: int, acgt_codes, device, ma_bs: tuple = (),
@@ -67,13 +72,15 @@ class TorchIndex:
         """Tensors on `device` from numpy leaves, keeping each leaf's dtype
         except uint32, which widens to int64 — e.g. a JAX DeviceIndex's
         `{k: np.asarray(v) for k, v in dx.arrays.items()}` with its ma_bs,
-        pp_bs and ma_rp."""
+        pp_bs and ma_rp.  The packed words of `bwt4` are the exception: they
+        stay 4 bytes, as int32 bit patterns like the fused rows' words, and
+        ops/rank.rank_dense masks each nibble after its shift."""
         device = torch.device(device)
         tensors = {}
         for k, v in arrays.items():
             v = np.asarray(v)
             if v.dtype == np.uint32:
-                v = v.astype(np.int64)
+                v = v.view(np.int32) if k == "bwt4" else v.astype(np.int64)
             tensors[k] = torch.from_numpy(np.require(v, requirements=["C", "W"])).to(device)
         return TorchIndex(
             arrays=tensors,
@@ -143,7 +150,7 @@ class TorchIndex:
         if with_locate:
             assert big.has_locate, "artifact stores no locate tables"
             R = big.R
-            # big_run_start, NOT run_start: the run-space engines (ROADMAP M5)
+            # big_run_start, NOT run_start: the run-space engines (ops/rank.rank)
             # key off "run_start"; the big engines read big_run_start
             arrs["big_run_start"] = big.run_start
             arrs["samples_last"] = big.samples_last

@@ -12,7 +12,12 @@ and find_locs is the whole-read search plus the phi walk.
 
 A big (n >= 2^31) index has no kval: its toehold comes from the trajectory
 of the search (traj_nontrivial, traj_resolve_toehold), a resolve over its
-O(R) run tables after a count loop that records each step's hi.
+O(R) run tables after a count loop that records each step's hi.  An index
+built from run samples alone (a raw `.bwt/.ssa/.esa` or `.rbwt` build, or
+`--no-dense`) has no kval either: the toehold rides through the loop step by
+step (RowBowt::LF_w_loc, rowbowt.hpp:553-573), over occ1 + tk1 when they are
+resident, else over the run-space tables and ltk.  That loop is torch on
+every device: K1 keeps no toehold.
 """
 
 from __future__ import annotations
@@ -30,17 +35,39 @@ def find_ranges_w_toehold(tx: TorchIndex, qcodes, lengths):
     """Returns (lo, hi, toehold) per lane; empty -> (1, 0, 0) like the reference.
 
     By the invariant k == SA[hi] the toehold is a function of the final range,
-    so the loop is the count LF without the ftab start and the toehold is one
-    kval gather at the end (ops/rank.toehold_from_range).  On a big index it
-    is the trajectory resolve (_toehold_trajectory)."""
-    arr = tx.arrays
-    if "kval" in arr:
+    so on a full-SA index the loop is the count LF without the ftab start and
+    the toehold is one kval gather at the end (ops/rank.toehold_from_range).
+    On a big index it is the trajectory resolve (_toehold_trajectory); on an
+    index built from run samples alone, the per-step toehold loop."""
+    from rowbowt_tpu_torch.engine.seeds import _toehold_by_kval, _w_loc_step
+
+    mode = _toehold_by_kval(tx, "find_ranges_w_toehold")
+    if mode == "kval":
         lo, hi = find_ranges(tx, qcodes, lengths, use_ftab=False)
         return lo, hi, R.toehold_from_range(tx, lo, hi)
-    if "cruns_keys" in arr:
+    if mode == "trajectory":
         return _toehold_trajectory(tx, qcodes, lengths)
-    raise NotImplementedError(
-        "the per-step run-space or occ1 toehold (indexes without kval) is ROADMAP M5")
+    B, L = qcodes.shape
+    dt = tx.idx_dtype
+    dev = qcodes.device
+    lengths = lengths.to(dt)
+    lo = torch.zeros(B, dtype=dt, device=dev)
+    hi = torch.full((B,), tx.n - 1, dtype=dt, device=dev)
+    # get_last_run_sample (toehold_sa.hpp:97-99)
+    k0 = ((tx.arrays["samples_last"][tx.R - 1] + 1) % tx.n).to(dt)
+    k = k0.expand(B).clone()
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    step = _w_loc_step(tx)
+    for j in range(L):
+        c = qcodes[:, L - 1 - j].to(dt)
+        active = (~done) & (j < lengths)
+        nlo, nhi, nk = step(tx, lo, hi, c, k)
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+        k = torch.where(active, nk, k)
+        done = done | (active & (nlo > nhi))
+    # a failed search clears everything (rowbowt.hpp:177-180)
+    return lo, hi, torch.where(hi < lo, 0, k)
 
 
 def traj_nontrivial(tx: TorchIndex, hi_rec, csteps, m):
@@ -209,13 +236,18 @@ def find_ranges_w_toehold_chkpnts(tx: TorchIndex, qcodes, lengths, wsize: int):
     Returns (clo, chi, ck, cqs, cqe) [B, C] and ncp [B] with C = L//wsize + 1.
     Checkpoint j of lane b covers query span [cqs, cqe) with BWT range
     (clo, chi) and toehold ck.  A failed full-read search returns ncp=0 (the
-    reference clears the vector, rowbowt.hpp:586-589).  The loop is the plain
-    LF; every checkpoint's toehold is one kval gather afterwards, or on a big
-    index the trajectory resolve of the prefix span [0, its last step].
+    reference clears the vector, rowbowt.hpp:586-589).  On a full-SA index
+    the loop is the plain LF and every checkpoint's toehold is one kval
+    gather afterwards; on a big index it is the trajectory resolve of the
+    prefix span [0, its last step]; on an index built from run samples alone
+    the loop carries the toehold (lf_step_w_loc or lf_step_w_loc_occ1) and a
+    checkpoint records it.
     """
-    from rowbowt_tpu_torch.engine.seeds import _toehold_by_kval
+    from rowbowt_tpu_torch.engine.seeds import _toehold_by_kval, _w_loc_step
 
-    big = _toehold_by_kval(tx, "find_ranges_w_toehold_chkpnts")
+    mode = _toehold_by_kval(tx, "find_ranges_w_toehold_chkpnts")
+    big = mode == "trajectory"
+    per_step = mode == "per_step"
     B, L = qcodes.shape
     C = L // wsize + 1
     dt = tx.idx_dtype
@@ -233,11 +265,20 @@ def find_ranges_w_toehold_chkpnts(tx: TorchIndex, qcodes, lengths, wsize: int):
     # big index: each checkpoint's last step and the pre-step hi of every step
     cb = torch.zeros((C, B), dtype=dt, device=dev) if big else None
     hi_rec = torch.zeros((L, B), dtype=dt, device=dev) if big else None
-    lf = R.lf_step_auto(tx)
+    # per-step toehold: the toehold rides in the loop and each checkpoint
+    # records it
+    ck = torch.zeros((C, B), dtype=dt, device=dev) if per_step else None
+    if per_step:
+        k0 = ((tx.arrays["samples_last"][tx.R - 1] + 1) % tx.n).to(dt)
+        k = k0.expand(B).clone()
+        step = _w_loc_step(tx)
+    else:
+        k = None
+        lf = R.lf_step_auto(tx)
 
-    def put(rec, lo, hi, qs, qe, last):
+    def put(rec, lo, hi, qs, qe, last, k):
         slot = torch.clamp(ncp, max=C - 1)
-        for arr, v in ((clo, lo), (chi, hi), (cqs, qs), (cqe, qe), (cb, last)):
+        for arr, v in ((clo, lo), (chi, hi), (cqs, qs), (cqe, qe), (cb, last), (ck, k)):
             if arr is not None:
                 U.tslot_set(arr, slot, rec, v)
 
@@ -246,20 +287,25 @@ def find_ranges_w_toehold_chkpnts(tx: TorchIndex, qcodes, lengths, wsize: int):
         active = (~failed) & (j < m)
         if big:
             hi_rec[j] = hi
-        nlo, nhi = lf(tx, lo, hi, c)
+        if per_step:
+            nlo, nhi, nk = step(tx, lo, hi, c, k)
+        else:
+            nlo, nhi = lf(tx, lo, hi, c)
         fail = active & (nlo > nhi)
         ok = active & ~fail
         lo = torch.where(ok, nlo, lo)
         hi = torch.where(ok, nhi, hi)
+        if per_step:
+            k = torch.where(ok, nk, k)
         failed = failed | fail
         # checkpoint trigger (rowbowt.hpp:595-600): window_ei-(m-i) >= wsize
         trig = ok & (window_ei - (m - j) >= wsize)
-        put(trig & (ncp < C), lo, hi, m - j, window_ei, j)
+        put(trig & (ncp < C), lo, hi, m - j, window_ei, j, k)
         ncp = ncp + trig.to(dt)
         window_ei = torch.where(trig, m - j, window_ei)
     # final push (rowbowt.hpp:604-608)
     fin = (~failed) & (hi >= lo) & ((m - 1) % wsize != 0) & (m > 0)
-    put(fin & (ncp < C), lo, hi, 0, m, m - 1)
+    put(fin & (ncp < C), lo, hi, 0, m, m - 1, k)
     ncp = ncp + fin.to(dt)
     ncp = torch.where(failed, 0, ncp)
     if big:
@@ -267,8 +313,10 @@ def find_ranges_w_toehold_chkpnts(tx: TorchIndex, qcodes, lengths, wsize: int):
         # [0, its last step], resolved from the step records
         ck = span_toeholds(tx, qcodes, hi_rec, m, torch.zeros_like(cb), cb)
         ck = torch.where(chi < clo, 0, ck).t()
+    elif per_step:
+        ck = ck.t()
     clo, chi = clo.t(), chi.t()
-    if not big:
+    if mode == "kval":
         ck = R.toehold_from_range(tx, clo, chi)
     return clo, chi, ck, cqs.t(), cqe.t(), ncp
 

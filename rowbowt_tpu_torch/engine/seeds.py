@@ -28,18 +28,28 @@ from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops import update as U
 
 
-def _toehold_by_kval(tx: TorchIndex, what: str) -> bool:
-    """How `what` finds its toeholds: False for one kval gather of each
-    range, True for the trajectory resolve of a big (n >= 2^31) index
-    (engine/locate.traj_resolve_toehold); raises for the per-step occ1 /
-    run-space toehold (M5)."""
+def _toehold_by_kval(tx: TorchIndex, what: str) -> str:
+    """How `what` finds its toeholds, in the JAX package's order: "kval" for
+    one kval gather of each range (full-SA builds), "trajectory" for the
+    trajectory resolve of a big (n >= 2^31) index
+    (engine/locate.traj_resolve_toehold), "per_step" for the toehold carried
+    through the loop by lf_step_w_loc_occ1 (tk1 resident) or lf_step_w_loc
+    (run-space) on indexes built from run samples alone.  Raises for an
+    index without SA samples."""
     if "kval" in tx.arrays:
-        return False
+        return "kval"
     if "cruns_keys" in tx.arrays:
-        return True
-    raise NotImplementedError(
-        f"{what}: the per-step run-space or occ1 toehold (indexes without kval) "
-        "is ROADMAP M5")
+        return "trajectory"
+    if "samples_last" in tx.arrays:
+        return "per_step"
+    raise ValueError(f"{what}: the index has no toehold SA samples "
+                     "(built with -x or without -s)")
+
+
+def _w_loc_step(tx: TorchIndex):
+    """The per-step toehold LF: over occ1 + tk1 when tk1 is resident, else
+    run-space over ltk."""
+    return R.lf_step_w_loc_occ1 if "tk1_flat" in tx.arrays else R.lf_step_w_loc
 
 
 def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
@@ -49,15 +59,20 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
     Returns (slo, shi, sqs, sqe, ssamp) [B, S] and nseeds [B].  Seed i of
     lane b spans query offsets [sqs, sqe) (qend EXCLUSIVE) with BWT range
     (slo, shi) and toehold ssamp.  nseeds may exceed S (the earliest seeds
-    are kept).  The loop is the plain LF; the toehold of every record is one
-    kval gather afterwards (SA[shi]).  Degenerate full-range records under
-    min_length=0 thus get SA[n-1], where the reference reports the previous
-    seed's stale sample, as in the JAX version.  On a big index the loop also
-    records each step's pre-step hi, and each seed's toehold is the
-    trajectory resolve of its span of steps (each seed restarts from the
-    full range).
+    are kept).  On a full-SA index the loop is the plain LF and the toehold
+    of every record is one kval gather afterwards (SA[shi]).  Degenerate
+    full-range records under min_length=0 thus get SA[n-1], where the
+    reference reports the previous seed's stale sample, as in the JAX
+    version.  On a big index the loop also records each step's pre-step hi,
+    and each seed's toehold is the trajectory resolve of its span of steps
+    (each seed restarts from the full range).  On an index built from run
+    samples alone the loop carries the toehold step by step (lf_step_w_loc,
+    or lf_step_w_loc_occ1 over occ1 + tk1) and a seed records the sample of
+    its last good step, as the reference does.
     """
-    big = _toehold_by_kval(tx, "seeds_greedy_w_sample")
+    mode = _toehold_by_kval(tx, "seeds_greedy_w_sample")
+    big = mode == "trajectory"
+    per_step = mode == "per_step"
     B, L = qcodes.shape
     S = max_seeds
     dt = tx.idx_dtype
@@ -73,23 +88,36 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
     sqe = torch.zeros((S, B), dtype=dt, device=dev)
     ns = torch.zeros(B, dtype=dt, device=dev)
     hi_rec = torch.zeros((L, B), dtype=dt, device=dev) if big else None
-    lf = R.lf_step_auto(tx)
+    if per_step:
+        # get_last_run_sample (toehold_sa.hpp:97-99)
+        first_k = ((tx.arrays["samples_last"][tx.R - 1] + 1) % tx.n).to(dt)
+        k = first_k.expand(B).clone()
+        pk = torch.full((B,), -1, dtype=dt, device=dev)
+        ssamp = torch.zeros((S, B), dtype=dt, device=dev)
+        step = _w_loc_step(tx)
+    else:
+        lf = R.lf_step_auto(tx)
 
     def put(slot, rec, plo, phi_, qs, qe):
         U.tslot_set(slo, slot, rec, plo)
         U.tslot_set(shi, slot, rec, phi_)
         U.tslot_set(sqs, slot, rec, qs)
         U.tslot_set(sqe, slot, rec, qe)
+        if per_step:
+            U.tslot_set(ssamp, slot, rec, pk)
 
     for j in range(L):
         c = qcodes[:, L - 1 - j].to(dt)
         active = j < m
         if big:
             hi_rec[j] = hi  # pre-step hi
-        nlo, nhi = lf(tx, lo, hi, c)
+        if per_step:
+            nlo, nhi, nk = step(tx, lo, hi, c, k)
+        else:
+            nlo, nhi = lf(tx, lo, hi, c)
         fail = active & (nlo > nhi)
         ok = active & ~fail
-        # failure: emit (prev, qstart=m-j, qend=ei) if long enough
+        # failure: emit (prev, qstart=m-j, qend=ei, ssamp=pk) if long enough
         emit = fail & (ei - (m - j) >= min_length)
         put(torch.clamp(ns, max=S - 1), emit & (ns < S), plo, phi_, m - j, ei)
         ns = ns + emit.to(dt)
@@ -97,6 +125,9 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
         hi = torch.where(ok, nhi, torch.where(fail, tx.n - 1, hi))
         plo = torch.where(ok, nlo, torch.where(fail, 0, plo))
         phi_ = torch.where(ok, nhi, torch.where(fail, tx.n - 1, phi_))
+        if per_step:
+            k = torch.where(ok, nk, torch.where(fail, first_k, k))
+            pk = torch.where(ok, nk, pk)
         ei = torch.where(fail, m - j - 1, ei)
     # tail seed (rowbowt.hpp:252-254): qstart=0, qend=ei, from prev state
     emit = ei >= min_length
@@ -108,10 +139,12 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
         # seed [sqs, sqe) restarts from the full range: its steps are
         # m-sqe .. m-1-sqs, and its toehold is that span's resolve (SA[shi])
         ssamp = span_toeholds(tx, qcodes, hi_rec, m, m[None, :] - sqe, m[None, :] - 1 - sqs)
-        ssamp = torch.where(shi < slo, 0, ssamp).t()
+        ssamp = torch.where(shi < slo, 0, ssamp)
     slo, shi, sqs, sqe = slo.t(), shi.t(), sqs.t(), sqe.t()
-    if not big:
+    if mode == "kval":
         ssamp = R.toehold_from_range(tx, slo, shi)
+    else:
+        ssamp = ssamp.t()
     return slo, shi, sqs, sqe, ssamp, ns
 
 

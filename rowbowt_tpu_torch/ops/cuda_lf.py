@@ -14,9 +14,14 @@ rowbowt_tpu/engine/count.py:find_ranges over rowbowt_tpu/ops/rank.py
 lf_step_fblock2, which the JAX package runs as XLA gathers.
 
 `find_ranges` is the wrapper: for CUDA tensors it launches the kernel (and
-adds one to LAUNCHES, or to LAUNCHES_FB2 over the two-level rows) or raises; for CPU tensors it runs `find_ranges_plain`,
-the torch version over ops/rank.py (`lf_start`, then `lf_loop_plain`), which
-is also what the kernel is held against on the card.
+adds one to LAUNCHES, or to LAUNCHES_FB2 over the two-level rows) or raises;
+for CPU tensors it runs `find_ranges_plain`, the torch version over
+ops/rank.py (`lf_start`, then `lf_loop_plain`), which is also what the kernel
+is held against on the card.  An index without fused-block rows (a
+`--no-dense` build, an alphabet of more than 8 codes) has no K1 route: on a
+CUDA device its search is that torch loop over the occ1, dense or run-space
+step (ops/rank.lf_step_auto), chosen from the index's tables before anything
+launches, and each such search adds one to LAUNCHES_TORCH.
 """
 
 from __future__ import annotations
@@ -31,9 +36,11 @@ from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 
 # kernel launches made by find_ranges since the last reset (a run sets them
-# to 0): over the single-level rows, and over the two-level rows
+# to 0): over the single-level rows, and over the two-level rows; and the
+# searches it ran as the torch loop on a CUDA device (no fused-block rows)
 LAUNCHES = 0
 LAUNCHES_FB2 = 0
+LAUNCHES_TORCH = 0
 
 GROUP = 2  # threads per lane (csrc/lf.cu kG): two 16-byte parts of a 64 B row each
 LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
@@ -136,23 +143,31 @@ def find_ranges_plain(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
 
 
 def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
-    """(lo, hi) of each lane of the right-aligned [B, L] codes: K1 for CUDA
-    tensors, the plain torch path for CPU tensors, an error for any other
-    device."""
+    """(lo, hi) of each lane of the right-aligned [B, L] codes: for CUDA
+    tensors K1 when the index has fused-block rows, else the torch loop over
+    its occ1, dense or run-space step; the plain torch path for CPU tensors;
+    an error for any other device."""
+    global LAUNCHES_TORCH
     if qcodes.device.type == "cpu":
         return find_ranges_plain(tx, qcodes, lengths, use_ftab)
     if qcodes.device.type != "cuda":
         raise ValueError(f"no LF loop for device {qcodes.device}")
-    return launch_k1(tx, qcodes, lengths, use_ftab)
+    if row_layout(tx) is not None:
+        return launch_k1(tx, qcodes, lengths, use_ftab)
+    out = find_ranges_plain(tx, qcodes, lengths, use_ftab)
+    if qcodes.shape[0]:
+        LAUNCHES_TORCH += 1
+    return out
 
 
-def row_layout(tx: TorchIndex) -> str:
-    """The key of the rows the LF loop reads, lf_step_auto's choice (it
-    raises, naming the ROADMAP item, for an index without fused-block rows)."""
+def row_layout(tx: TorchIndex) -> str | None:
+    """The key of the fused-block rows the LF loop reads, lf_step_auto's
+    choice, or None for an index without them (the occ1, dense and run-space
+    steps, which K1 does not take)."""
     step = R.lf_step_auto(tx)
     if step is R.lf_step_fblock2:
         return R._fb2_key(tx)[0]
-    return "fblock64" if step is R.lf_step_fblock64 else "fblock"
+    return {R.lf_step_fblock64: "fblock64", R.lf_step_fblock: "fblock"}.get(step)
 
 
 def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
@@ -162,6 +177,9 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     lanes come out int64."""
     global LAUNCHES, LAUNCHES_FB2
     key = row_layout(tx)
+    if key is None:
+        raise ValueError("K1 reads fused-block rows; this index has none "
+                         "(find_ranges takes the torch loop for it)")
     two_level = key in R.FB2_KEYS
     lane = torch.int64 if two_level else torch.int32
     fb, F = tx.arrays[key], tx.arrays["F"]

@@ -1,16 +1,22 @@
-"""Batched rank / LF primitives over the fused-block rank rows, in plain torch.
+"""Batched rank / LF primitives over the device tables, in plain torch.
 
-The counterpart of the count, locate and marker subset of
-rowbowt_tpu/ops/rank.py.  A rank reads one row `[8 per-char exclusive
-checkpoints | packed 4-bit BWT symbols]`, takes the checkpoint of `c` and adds
-a SWAR nibble-match popcount of the symbols below the in-block offset; an LF
-step is two ranks.  On the two-level rows of a big (n >= 2^31) index the
-checkpoints are superblock-local and an int64 base per superblock completes
-the rank.  These are the plain versions the CUDA LF kernel (ops/cuda_lf.py)
-is held against, and the path a CPU tensor takes.  The locate and marker
-primitives are one or two gathers over the dense full-SA tables (kval, phi1,
-ma_start1), or on a big index short searches over its O(R) and O(M) tables
-(the phi bitmap or breakpoints, the marker run pack or bucketed CSR).
+The counterpart of rowbowt_tpu/ops/rank.py.  The fused-block backends read one
+row `[8 per-char exclusive checkpoints | packed 4-bit BWT symbols]` a rank,
+take the checkpoint of `c` and add a SWAR nibble-match popcount of the symbols
+below the in-block offset; an LF step is two ranks.  On the two-level rows of
+a big (n >= 2^31) index the checkpoints are superblock-local and an int64
+base per superblock completes the rank.  These are the plain versions the
+CUDA LF kernel (ops/cuda_lf.py) is held against, and the path a CPU tensor
+takes.  Indexes without fused rows take the other backends of the JAX file:
+occ1 (one element a rank, raw builds below OCC1_MAX_N), dense (`bwt4` +
+`occ_blk`, alphabets of 9-16 codes) and run-space (a searchsorted over the
+run starts and two gathers, `--no-dense` builds), with the per-step toehold
+(`lf_step_w_loc`, `lf_step_w_loc_occ1`) for indexes built without the full SA.
+The locate and marker primitives are one or two gathers over the dense
+full-SA tables (kval, phi1, ma_start1), predecessor and binary searches over
+pred_pos and ma_row without them, or on a big index short searches over its
+O(R) and O(M) tables (the phi bitmap or breakpoints, the marker run pack or
+bucketed CSR).
 
 All functions take a TorchIndex `tx` and int vectors on `tx.device`; char
 code < 0 means "absent from alphabet" and produces the empty range (1, 0).
@@ -31,6 +37,72 @@ _FB_CKPT = 8
 _NIB_LOW = 0x11111111
 _U32 = 0xFFFFFFFF
 _PHI_POS = 480  # positions per 64B phi bitmap row (bigindex.phi_pack_tables)
+
+
+def _ss(a, v, right: bool):
+    """searchsorted of v into the sorted table a (v cast to a's dtype), as
+    v's dtype."""
+    return torch.searchsorted(a, v.to(a.dtype), right=right).to(v.dtype)
+
+
+def _F_of(tx: TorchIndex, c):
+    """F[c] for c clamped to [0, A] (as a jnp gather clamps its index)."""
+    return tx.arrays["F"][torch.clamp(c, 0, tx.A).long()]
+
+
+def _total(tx: TorchIndex, csafe):
+    """rank(n, c) = F[c+1] - F[c]."""
+    return _F_of(tx, csafe + 1) - _F_of(tx, csafe)
+
+
+def run_of(tx: TorchIndex, i):
+    """Run id containing BWT position i (i in [0, n-1])."""
+    return _ss(tx.arrays["run_start"], i, right=True) - 1
+
+
+def rank_at_run(tx: TorchIndex, i, c, r):
+    """rank(i, c) given r = run_of(clamp(i, n-1)) precomputed.  i in [0, n]."""
+    arr = tx.arrays
+    csafe = torch.clamp(c, min=0)
+    occ = arr["occ_flat"][(csafe.long() * tx.R + r.long())].to(i.dtype)
+    head = arr["run_head"][r.long()]
+    v = occ + torch.where(head == c, i - arr["run_start"][r.long()].to(i.dtype), 0)
+    v = torch.where(i >= tx.n, _total(tx, csafe).to(i.dtype), v)
+    return torch.where(c < 0, torch.zeros_like(v), v)
+
+
+def rank(tx: TorchIndex, i, c):
+    """Number of code-c chars in BWT[0:i), batched: the run-space rank, one
+    searchsorted over the run starts and two gathers."""
+    r = run_of(tx, torch.clamp(i, max=tx.n - 1))
+    return rank_at_run(tx, i, c, r)
+
+
+_DB = 128  # dense block: symbols per occ checkpoint (construct.build.DENSE_BLOCK)
+_DW = _DB // 8  # packed words per block
+
+
+def rank_dense(tx: TorchIndex, i, c):
+    """Dense-FM rank: one checkpoint gather + one contiguous 64B block load
+    (`bwt4`, 16 words of 8 nibbles, int32 bit patterns) + a nibble count
+    below the offset.  Any code in [0, 16) works."""
+    arr = tx.arrays
+    dev = i.device
+    csafe = torch.clamp(c, min=0)
+    isafe = torch.clamp(i, max=tx.n - 1).long()
+    blk = isafe >> 7
+    off = isafe & (_DB - 1)
+    nb = arr["bwt4"].shape[0] // _DW
+    occ = arr["occ_blk_flat"][csafe.long() * nb + blk].to(i.dtype)
+    words = arr["bwt4"][blk[:, None] * _DW + torch.arange(_DW, device=dev)[None, :]]
+    # >> on int32 sign-extends: the & 15 after each shift keeps the nibble
+    shifts = (torch.arange(8, dtype=torch.int32, device=dev) * 4)[None, None, :]
+    nib = (words[:, :, None] >> shifts) & 15
+    pos = (torch.arange(_DW, device=dev)[:, None] * 8 + torch.arange(8, device=dev)[None, :])[None]
+    hit = (nib == c[:, None, None]) & (pos < off[:, None, None])
+    v = occ + hit.sum(dim=(1, 2)).to(i.dtype)
+    v = torch.where(i >= tx.n, _total(tx, csafe).to(i.dtype), v)
+    return torch.where(c < 0, torch.zeros_like(v), v)
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -82,10 +154,7 @@ def _rank_rows(tx: TorchIndex, i, c, key: str, shift: int, base=None):
         per_blk = arr[key].shape[0] // base.shape[0]
         sel = torch.arange(_FB_CKPT, dtype=torch.int32, device=c.device)[None, :] == csafe[:, None]
         v = v + torch.where(sel, base[blk // per_blk], 0).sum(dim=1).to(i.dtype)
-    # F[c+1] - F[c]; indices clamped to [0, A] as a jnp gather clamps them
-    F = arr["F"]
-    total = F[torch.clamp(csafe + 1, max=tx.A).long()] - F[torch.clamp(csafe, max=tx.A).long()]
-    v = torch.where(i >= tx.n, total.to(i.dtype), v)
+    v = torch.where(i >= tx.n, _total(tx, csafe).to(i.dtype), v)
     return torch.where(c < 0, torch.zeros_like(v), v)
 
 
@@ -156,18 +225,92 @@ def lf_step_fblock2(tx: TorchIndex, lo, hi, c):
 FB2_KEYS = ("fb2_64", "fb2", "fb2_256")
 
 
+def rank_occ1(tx: TorchIndex, i, c):
+    """Full-positional-occ rank: exactly ONE gathered element."""
+    csafe = torch.clamp(c, min=0).long()
+    v = tx.arrays["occ1_flat"][csafe * (tx.n + 1) + torch.clamp(i, 0, tx.n).long()]
+    return torch.where(c < 0, 0, v.to(i.dtype))
+
+
+def lf_step_occ1(tx: TorchIndex, lo, hi, c):
+    """Batched LF at 2 gathered elements per lane-step."""
+    return _lf_step(rank_occ1, tx, lo, hi, c)
+
+
+def lf_step_dense(tx: TorchIndex, lo, hi, c):
+    """Batched LF over the dense tables (`bwt4` + `occ_blk`)."""
+    return _lf_step(rank_dense, tx, lo, hi, c)
+
+
+def lf_step(tx: TorchIndex, lo, hi, c):
+    """Batched RowBowt::LF(range, c) over the run-space tables: (lo', hi')
+    with empty ranges as (1, 0)."""
+    return _lf_step(rank, tx, lo, hi, c)
+
+
 def lf_step_auto(tx: TorchIndex):
-    """The LF step the index's tables support: the 64B rows when resident,
-    else the 96B rows, else the two-level rows of a big index."""
+    """The LF step the index's tables support, in the JAX package's order:
+    the 64B rows when resident, else the 96B rows, else the two-level rows of
+    a big index, else occ1, else the dense tables, else run-space."""
     if "fblock64" in tx.arrays:
         return lf_step_fblock64
     if "fblock" in tx.arrays:
         return lf_step_fblock
     if any(k in tx.arrays for k in FB2_KEYS):
         return lf_step_fblock2
-    raise NotImplementedError(
-        "rowbowt_tpu_torch runs LF over fused-block rows only; the run-space, "
-        "occ1 and dense backends are ROADMAP M5")
+    if "occ1_flat" in tx.arrays:
+        return lf_step_occ1
+    if tx.has_dense:
+        return lf_step_dense
+    return lf_step
+
+
+def lf_step_w_loc_occ1(tx: TorchIndex, lo, hi, c, k):
+    """Toehold LF at 4 gathered elements per lane-step: occ1 ranks + the dense
+    tk1 table (tk1[c,i] = (SA[j]+n-1)%n for the last j<=i with BWT[j]==c) —
+    exactly the reference's samples_last[run_of(last c before hi+1)]."""
+    arr = tx.arrays
+    n1 = tx.n + 1
+    csafe = torch.clamp(c, min=0).long()
+    occ1 = arr["occ1_flat"]
+    o_lo = occ1[csafe * n1 + torch.clamp(lo, 0, tx.n).long()].to(lo.dtype)
+    o_hi1 = occ1[csafe * n1 + torch.clamp(hi + 1, 0, tx.n).long()].to(lo.dtype)
+    o_hi = occ1[csafe * n1 + torch.clamp(hi, 0, tx.n).long()].to(lo.dtype)
+    c_before = torch.where(c < 0, 0, o_lo)
+    c_inside = torch.where(c < 0, 0, o_hi1 - o_lo)
+    nlo = _f_onehot(tx, c).to(lo.dtype) + c_before
+    nhi = nlo + c_inside - 1
+    empty = (c_inside <= 0) | (c < 0)
+    trivial = (o_hi1 - o_hi) == 1  # BWT[hi] == c
+    nk = torch.where(trivial, torch.where(k == 0, tx.n - 1, k - 1),
+                     arr["tk1_flat"][csafe * tx.n + torch.clamp(hi, 0, tx.n - 1).long()]
+                     .to(lo.dtype))
+    return torch.where(empty, 1, nlo), torch.where(empty, 0, nhi), torch.where(empty, 0, nk)
+
+
+def lf_step_w_loc(tx: TorchIndex, lo, hi, c, k):
+    """Batched RowBowt::LF_w_loc over the run-space tables: LF + toehold
+    maintenance (rowbowt.hpp:553-573).
+
+    Requires the dense `ltk` table: ltk[c*R + r] = samples_last of the last
+    c-run at or before run r (built by construct.build when SA samples are on).
+    """
+    arr = tx.arrays
+    csafe = torch.clamp(c, min=0)
+    n = tx.n
+    r_hi1 = run_of(tx, torch.clamp(hi + 1, max=n - 1))
+    # run containing hi itself (hi+1 may start a new run)
+    r_hi = r_hi1 - ((hi + 1 < n) & (arr["run_start"][r_hi1.long()] == hi + 1)).to(r_hi1.dtype)
+    c_before = rank(tx, lo, c)
+    c_at_hi1 = rank_at_run(tx, hi + 1, c, torch.where(hi + 1 >= n, r_hi, r_hi1))
+    c_inside = c_at_hi1 - c_before
+    nlo = _F_of(tx, csafe).to(lo.dtype) + c_before
+    nhi = nlo + c_inside - 1
+    empty = (c_inside <= 0) | (c < 0)
+    trivial = arr["run_head"][r_hi.long()] == c
+    nk = torch.where(trivial, torch.where(k == 0, n - 1, k - 1),
+                     arr["ltk"][csafe.long() * tx.R + r_hi.long()].to(lo.dtype))
+    return torch.where(empty, 1, nlo), torch.where(empty, 0, nhi), torch.where(empty, 0, nk)
 
 
 def bwt_sym(tx: TorchIndex, i):
@@ -193,9 +336,10 @@ def bwt_sym(tx: TorchIndex, i):
 
 def phi_step(tx: TorchIndex, i):
     """Batched ToeholdSA::phi (toehold_sa.hpp:56-72): one gather via the dense
-    phi1 table (phi(SA[j]) = SA[j-1]; the result has phi1's dtype), or on a
-    big index over its breakpoint tables (i's dtype): phi is piecewise
-    i + const between the SA-adjacency breakpoints (bigindex.py)."""
+    phi1 table (phi(SA[j]) = SA[j-1]; the result has phi1's dtype), on a big
+    index over its breakpoint tables (i's dtype): phi is piecewise i + const
+    between the SA-adjacency breakpoints (bigindex.py), else a predecessor
+    searchsorted over the run-start samples pred_pos (i's dtype)."""
     arr = tx.arrays
     if "phi1" in arr:
         return arr["phi1"][torch.clamp(i, 0, tx.n - 1).long()]
@@ -224,14 +368,23 @@ def phi_step(tx: TorchIndex, i):
             rk = torch.searchsorted(pp, i.to(pp.dtype), right=True).to(i.dtype) - 1
         base = arr["phi_at"][rk].to(i.dtype)
         return (base + (i - pp[rk].to(i.dtype))) % tx.n
-    raise NotImplementedError(
-        "phi by predecessor search over pred_pos (indexes without phi1) is ROADMAP M5")
+    # predecessor search over the run-start samples (toehold_sa.hpp:56-72):
+    # the sample j = pred(i) at or below i, then SA[j's row - 1] + (i - j)
+    pp = arr["pred_pos"]
+    rk = _ss(pp, i, right=False)
+    jr = torch.where(rk == 0, tx.R - 1, rk - 1).long()
+    j = pp[jr].to(i.dtype)
+    delta = torch.where(j < i, i - j, i + 1)
+    # pred_to_run == 0 reads index -1: the last run's sample, as in JAX
+    prev_sample = arr["samples_last"][arr["pred_to_run"][jr].long() - 1].to(i.dtype)
+    return (prev_sample + delta) % tx.n
 
 
 def markers_bounds(tx: TorchIndex, lo, hi):
     """(start offset, count) of the markers at BWT rows [lo, hi]: two gathers
-    via the dense ma_start1 table (ma_start1[i] = markers in rows [0, i)), or
-    on a big index two probes of its run-pack or bucketed marker tables."""
+    via the dense ma_start1 table (ma_start1[i] = markers in rows [0, i)), on
+    a big index two probes of its run-pack or bucketed marker tables, else
+    two binary searches over ma_row."""
     arr = tx.arrays
     if "ma_start1" in arr:
         ms = arr["ma_start1"]
@@ -251,9 +404,10 @@ def markers_bounds(tx: TorchIndex, lo, hi):
             "the nibble-count marker rows (RBT_MA_NIB) are not ported; "
             "unset RBT_MA_NIB to get the run-pack or bucketed tables")
     else:
-        raise NotImplementedError(
-            "marker bounds by binary search over ma_row (indexes without ma_start1) "
-            "are ROADMAP M5")
+        # binary search over the sorted marker rows (indexes without ma_start1)
+        mr = arr["ma_row"]
+        s = _ss(mr, torch.clamp(lo, 0, tx.n), right=False)
+        e = _ss(mr, torch.clamp(hi + 1, 0, tx.n), right=False)
     return s, torch.clamp(e - s, min=0)
 
 

@@ -280,8 +280,8 @@ def test_torch_console_scripts_resolve():
         project = tomllib.load(f)["project"]
     scripts = project["scripts"]
     torch_scripts = {k: v for k, v in scripts.items() if k.endswith("_torch")}
-    assert set(torch_scripts) == {"rbt_align_torch", "rbt_markers_torch", "rbt_locs_torch",
-                                  "rbt_midx_torch"}
+    assert set(torch_scripts) == {"rbt_build_torch", "rbt_align_torch", "rbt_markers_torch",
+                                  "rbt_locs_torch", "rbt_midx_torch"}
     for name, target in torch_scripts.items():
         module, func = target.split(":")
         assert module == f"rowbowt_tpu_torch.cli.{name[:-len('_torch')]}" and func == "main"

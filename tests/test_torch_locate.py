@@ -147,8 +147,15 @@ def test_phi_step_without_phi1_names_roadmap(pair):
     arrays = {k: v for k, v in tx.arrays.items() if k != "phi1"}
     bare = TorchIndex(arrays, tx.n, tx.R, tx.A, tx.ma_wsize, tx.ftab_k, tx.acgt_codes,
                       tx.device)
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
-        TR.phi_step(bare, torch.zeros(4, dtype=torch.int32))
+    # without phi1: the predecessor search over pred_pos, at every position,
+    # equal to phi1 and to the JAX package's predecessor branch
+    dx = pair[0]
+    dxp = DeviceIndex({k: v for k, v in dx.arrays.items() if k != "phi1"}, dx.n, dx.R, dx.A,
+                      dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
+    i = np.arange(tx.n, dtype=np.int32)
+    got = TR.phi_step(bare, torch.from_numpy(i))
+    _eq([got], [JR.phi_step(dxp, jnp.asarray(i))])
+    np.testing.assert_array_equal(got.numpy(), tx.arrays["phi1"].numpy())
     # a big index's SA-adjacency breakpoint table (bigindex.big_locate_tables)
     # serves phi without phi1: phi1's values, and the JAX package's
     phi = tx.arrays["phi1"].numpy().astype(np.int64)
@@ -170,7 +177,7 @@ def test_locate_without_sa_samples_raises(rand_index):
     tx = TorchIndex.from_index(jax_build(text, with_sa_samples=False), "cpu")
     assert not tx.has_sa and "kval" not in tx.arrays
     q = torch.zeros((2, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
+    with pytest.raises(ValueError, match="no toehold SA samples"):
         TL.find_ranges_w_toehold(tx, q, torch.full((2,), 4, dtype=torch.int32))
 
 
@@ -209,9 +216,20 @@ def test_find_locs_matches_jax(pair, max_hits):
 
 
 def test_chkpnts_without_kval_names_roadmap(pair):
-    tx = pair[1]
+    """Without kval the checkpoints carry the per-step run-space toehold:
+    equal to the JAX package's per-step branch and to the kval route."""
+    dx, tx, qc, lens = pair
     bare = TorchIndex({k: v for k, v in tx.arrays.items() if k != "kval"}, tx.n, tx.R, tx.A,
                       tx.ma_wsize, tx.ftab_k, tx.acgt_codes, tx.device)
-    q = torch.zeros((2, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
-        TL.find_ranges_w_toehold_chkpnts(bare, q, torch.full((2,), 4, dtype=torch.int32), 3)
+    dxb = DeviceIndex({k: v for k, v in dx.arrays.items() if k != "kval"}, dx.n, dx.R, dx.A,
+                      dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
+    q, ln = torch.from_numpy(qc), torch.from_numpy(lens)
+    got = TL.find_ranges_w_toehold_chkpnts(bare, q, ln, 3)
+    _eq(got, JL.find_ranges_w_toehold_chkpnts(dxb, jnp.asarray(qc), jnp.asarray(lens), wsize=3))
+    want = TL.find_ranges_w_toehold_chkpnts(tx, q, ln, 3)
+    ncp = want[5].numpy()
+    valid = np.arange(got[0].shape[1])[None, :] < ncp[:, None]
+    for g, w in zip(got, want):
+        g, w = g.numpy(), w.numpy()
+        np.testing.assert_array_equal(g[valid] if g.ndim == 2 else g,
+                                      w[valid] if w.ndim == 2 else w)

@@ -96,9 +96,16 @@ def test_markers_bounds_without_ma_start1_names_roadmap(pair, ranges):
     arrays = {k: v for k, v in tx.arrays.items() if k != "ma_start1"}
     bare = TorchIndex(arrays, tx.n, tx.R, tx.A, tx.ma_wsize, tx.ftab_k, tx.acgt_codes,
                       tx.device)
-    z = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
-        TR.markers_bounds(bare, z, z)
+    # without ma_start1: two binary searches over ma_row, equal to the JAX
+    # package's branch and to the dense table's bounds
+    dx = pair[0]
+    dxs = DeviceIndex({k: v for k, v in dx.arrays.items() if k != "ma_start1"}, dx.n, dx.R,
+                      dx.A, dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
+    lo, hi = ranges
+    got = TR.markers_bounds(bare, torch.from_numpy(lo), torch.from_numpy(hi))
+    _eq(got, JR.markers_bounds(dxs, jnp.asarray(lo), jnp.asarray(hi)))
+    for g, w in zip(got, TR.markers_bounds(tx, torch.from_numpy(lo), torch.from_numpy(hi))):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
     # a big index's run-pack tables (bigindex.marker_run_pack) serve the
     # bounds without ma_start1: the dense table's values, and the JAX package's
     from rowbowt_tpu_torch.bigindex import marker_run_pack

@@ -94,7 +94,22 @@ def test_popcount32_matches_numpy():
 
 
 def test_lf_step_auto_names_roadmap_item(text):
-    _, tx = _pair(text, fb64=True)
-    del tx.arrays["fblock64"]
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
-        TR.lf_step_auto(tx)
+    """Without fused-block rows lf_step_auto takes the run-space step (the
+    JAX order's last backend), whose steps equal the JAX package's and the
+    fused rows' own."""
+    dx, tx = _pair(text, fb64=True)
+    rows = tx.arrays.pop("fblock64")
+    assert TR.lf_step_auto(tx) is TR.lf_step
+    rng = np.random.default_rng(8)
+    a, b = rng.integers(0, tx.n, size=(2, 1024))
+    lo, hi = np.minimum(a, b).astype(np.int32), np.maximum(a, b).astype(np.int32)
+    lo[:16], hi[:16] = 0, tx.n - 1
+    c = rng.integers(-1, tx.A, size=1024, dtype=np.int32)
+    args = [torch.from_numpy(x) for x in (lo, hi, c)]
+    got = TR.lf_step(tx, *args)
+    want = JR.lf_step(dx, *(jnp.asarray(x) for x in (lo, hi, c)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    tx.arrays["fblock64"] = rows
+    for g, w in zip(got, TR.lf_step_fblock64(tx, *args)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())

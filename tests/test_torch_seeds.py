@@ -289,8 +289,16 @@ def test_toehold_without_kval_names_roadmap(panel):
     q, ln = _t(qc[:2], lens[:2])
     bare = TorchIndex({k: v for k, v in tx.arrays.items() if k != "kval"}, tx.n, tx.R,
                       tx.A, tx.ma_wsize, tx.ftab_k, tx.acgt_codes, tx.device)
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
-        TS.seeds_greedy_w_sample(bare, q, ln, min_length=5)
+    # without kval the toehold rides through the loop (run-space LF_w_loc):
+    # the JAX package's per-step branch, and the kval route's toeholds
+    dx = panel[1]
+    dxb = DeviceIndex({k: v for k, v in dx.arrays.items() if k != "kval"}, dx.n, dx.R, dx.A,
+                      dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
+    q, ln = _t(qc, lens)
+    got = TS.seeds_greedy_w_sample(bare, q, ln, min_length=5)
+    _eq(got, JS.seeds_greedy_w_sample(dxb, jnp.asarray(qc), jnp.asarray(lens), min_length=5))
+    for g, w in zip(got, TS.seeds_greedy_w_sample(tx, q, ln, min_length=5)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
     # a big index (no kval) resolves each seed's toehold from its trajectory
     # over the O(R) run tables: the same seeds and toeholds as kval gives
     from rowbowt_tpu_torch.bigindex import BigIndex

@@ -4,12 +4,14 @@ rbt_locs paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, then the kernel record
     python3 chip_smoke.py k1 parity       # only the named phases, in that order
-                                          # (probes, parity, k1, big_count,
+                                          # (probes, parity, k1, pfp_big,
                                           # build_small)
 
 Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
 (csrc/gather_probe.cu), both with nvcc for sm_90a, and the host library
-(SA-IS + FASTQ reader, g++), all three side by side, then:
+(SA-IS, FASTQ reader, BWT merge, PFP and the CPU engine, g++), all three side
+by side, then starts phase pfp_big's host build (a PFP panel above 2^31) in a
+child process beside the phases before it, and runs:
 
   1. device: the card's name and `nvidia-smi` name and power limit;
   2. build: seconds taken by each build, and nvcc's register reports;
@@ -32,13 +34,6 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      then K1 over the two-level rows of the same BWT (BigIndex.from_codes,
      n_sup = 4: fb2_64, fb2 and fb2_256) against the plain loop and the
      single-level rows' ranges, on the batch and at the same edges;
-  4b. big_count: a count-only BigIndex above 2^31 (2,281,713,721 seeded
-     random codes of 6, n_sup = 3; host build seconds and peak RSS), 65,536
-     lanes of 0-100 codes (a quarter 1-16 codes that start with the last
-     code, so their ranges lie near the top) through K1 and the plain loop on
-     the card over fb2_64 and fb2, every (lo, hi) equal as int64, 256 lanes
-     against a host rank over the 96 B rows and base; the final bounds at or
-     above 2^31 are counted;
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
@@ -101,13 +96,30 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
      fb2_64 on the main path's four batches against the plain loop and
      against K1 over fblock64 (no ftab), call and device times, the bound
      and its share, and K1 over the 96 B fb2 rows against the plain loop;
- 14c. build_small: the small panel through rbt_build_torch in every mode
+ 14c. pfp_big: the giant panel's widths (19.5 Mbp reference, 19,500 sites,
+     W = 10, p = 100) with 112 haplotypes, n = 2,203,501,131, built by
+     tools/build_giant_index.build in the child process (256-symbol rows;
+     PFP and assembly seconds, peak RSS, n, R, M, parse stats) and assembled
+     again with 128-symbol rows (fb2, fb2_64); K1 on the build tool's 65,536
+     reads and on 65,536 random-code lanes over fb2_256, fb2_64 and fb2
+     against the plain loop, the layouts' ranges equal, one launch a batch,
+     the host rank over the 96 B rows on 256 lanes, final bounds above 2^31
+     counted; the CPU engine and the analytic counts on the first reads;
+     rbt_align count, -s and -m and rbt_markers -f on the directory against
+     the analytic oracle (counts, occurrence sets, marker multisets) and the
+     CPU engine (locate, markers, greedy seeds); stages, reads/s;
+ 14d. build_small: the small panel through rbt_build_torch in every mode
      (native with --emit-ref, -x, --no-dense, the raw prefix with occ1 + tk1,
      the serialized .rbwt files, --ftab-only, a FASTA with IUPAC codes: 13
      codes, bwt4/occ_blk), each index's tables held against the dense one's
      and its rbt_align count, -s and -m lines against the dense index's (the
      13-code index against its --device cpu run and the scalar oracle);
      rbt_markers -f and rbt_locs on the raw index; the occ1 route against K1;
+     then the pangenome builders' routes: the panel through the merge
+     (merge_construct, from_codes, attach_locate, attach_markers) and through
+     PFP (pfp_construct, assemble_bigindex), each a BigIndex directory whose
+     rbt_align count lines are the dense index's, its -s and -m lines equal
+     as sets (PFP's byte for byte);
  15. trace: `rbt_align -s --profile` on the reads of phase 8: the same lines,
      a trace that names K1's kernel, and the card's busy seconds in it
      against the CLI's query seconds;
@@ -117,7 +129,8 @@ Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
 Phases 11-14 count K1's
 launches (their paths are torch ops: 0 expected, not required); big_chr
 counts the two-level K1's (cuda_lf.LAUNCHES_FB2): one a batch of its count
-and -m runs, none in -s, whose toehold loop records each step.  raw_chr,
+and -m runs, none in -s, whose toehold loop records each step; pfp_big the
+same on its panel.  raw_chr,
 nodense_chr and build_small count every route of the count search (K1, K1
 over the two-level rows, and the torch loop of an index without fused
 rows, cuda_lf.LAUNCHES_TORCH), set to 0 before each run, and require each.
@@ -167,10 +180,14 @@ N_ORACLE = 1_000  # reads checked against engine/naive
 N_LMEM = 1_000
 N_LMEM_ORACLE = 100
 N_SUP_CHR = 4  # superblocks of the chr panel's BigIndex view (phase big_chr)
-BIG_COUNT_N = (1 << 31) + (1 << 27) + 12_345  # 2,281,713,721 symbols (phase big_count)
-BIG_COUNT_SEED = 2024
-BIG_COUNT_LANES = 65_536
-N_BIG_HOST = 256  # big_count lanes also checked against the host rank over the 96 B rows
+# phase pfp_big: the giant panel's widths (tools/build_giant_index.py) with 112 haplotypes
+# of its 512, so n = 113 x 19,500,010 + 1 = 2,203,501,131 > 2^31; 65,536 reads, one batch
+PFP_BIG = dict(ref_len=19_500_000, n_haps=112, n_vars=19_500, seed=424_242, w=MA_WSIZE,
+               pfp_p=100, n_reads=BATCH, read_len=READ_LEN, n_parity=512)
+PFP_BIG_LANE_SEED = 2024  # its random-code lanes
+N_PFP_LOCATE = 16_384  # reads of its rbt_align -s run
+N_PFP_CPU = 2_048  # reads also through the CPU engine (cpu_backend)
+N_BIG_HOST = 256  # lanes also checked against the host rank over the 96 B rows
 
 
 def emit(phase: str, **kv) -> None:
@@ -871,8 +888,6 @@ def build_cli(cfg=CHR) -> dict:
     from rowbowt_tpu_torch.index import RbtIndex
     from rowbowt_tpu_torch.midx import PosMarkers
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
     t0 = time.perf_counter()
     fa, vcf = write_panel_files(cfg, os.path.join(WORK, "panel"))
     write_s = time.perf_counter() - t0
@@ -1809,82 +1824,283 @@ def host_ranges_fb2(big, qc: np.ndarray, lens: np.ndarray):
     return lo, hi
 
 
-def phase_big_count(device, card: dict) -> dict:
-    """A count-only BigIndex above 2^31: BIG_COUNT_N seeded random codes of
-    an alphabet of 6, built with BigIndex.from_codes (n_sup = 3; host seconds
-    and the process's peak RSS recorded).  BIG_COUNT_LANES lanes of 0-100
-    random codes, a quarter of them 1-16 codes long and starting with code 5,
-    whose ranges lie at or above F[5] (about 0.83 n), mostly above 2^31, run
-    through K1 and the plain loop on the card over fb2_64 and fb2: every
-    (lo, hi) equal as int64, and the two layouts' equal; the first
-    N_BIG_HOST lanes against the host rank over the 96 B rows and base.
-    Counts the final bounds at or above 2^31 (at least one lo is)."""
+def random_lanes(rng, B: int, L: int, A: int):
+    """(codes int32 [B, L] right-aligned with -1 pad, lengths) of B lanes of
+    0-L random codes of A, a quarter of them 1-16 codes long and starting
+    with the last code, so that their ranges lie near the top of the BWT."""
+    lens = rng.integers(0, L + 1, size=B)
+    short = rng.random(B) < 0.25
+    lens[short] = rng.integers(1, 17, size=int(short.sum()))
+    qc = np.where(np.arange(L)[None, :] >= L - lens[:, None],
+                  rng.integers(0, A, size=(B, L)), -1).astype(np.int32)
+    qc[np.flatnonzero(short), (L - lens)[short]] = A - 1
+    return qc, lens.astype(np.int32)
+
+
+def pfp_big_build(path: str) -> None:
+    """Phase pfp_big's host build, in a child process of its own (started
+    with the run, so that it overlaps the card's phases and its peak RSS is
+    its own): the PFP_BIG panel through tools/build_giant_index.build into
+    `path` (256-symbol rows), then the same PfpResult assembled with
+    128-symbol rows into path + "_128" with its 64-symbol repack (fb2_64.npy)
+    cached beside it; their seconds and the child's peak RSS in
+    path + "_128/layout.json"."""
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.construct import pfp
+    from rowbowt_tpu_torch.tools import build_giant_index
+
+    _, res = build_giant_index.build(path, **PFP_BIG)
+    alpha = BigIndex.load(path).alpha
+    t = time.perf_counter()
+    big = pfp.assemble_bigindex(res, alpha, block=128)
+    del res
+    assemble_s = time.perf_counter() - t
+    big.save(path + "_128")
+    big.prefix = path + "_128"
+    t = time.perf_counter()
+    big._fb2_64()
+    repack_s = time.perf_counter() - t
+    with open(os.path.join(path + "_128", "layout.json"), "w") as f:
+        json.dump(dict(assemble_128_s=assemble_s, repack_64_s=repack_s,
+                       child_peak_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6),
+                  f)
+
+
+def start_pfp_big_build() -> dict:
+    """pfp_big_build in a spawned child process (no CUDA, no torch state of
+    this process); phase_pfp_big joins it."""
+    import multiprocessing
+
+    path = os.path.join(WORK, "pfp_big")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=pfp_big_build, args=(path,), name="pfp_big_build")
+    proc.start()
+    return dict(proc=proc, path=path, started=time.perf_counter())
+
+
+def stop_child(child: dict | None) -> None:
+    """Ends start_pfp_big_build's child if it still runs (a phase failed)."""
+    if child is None:
+        return
+    if child["proc"].is_alive():
+        child["proc"].terminate()
+    child["proc"].join()
+
+
+def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
+    """A PFP-built panel above 2^31 (PFP_BIG: the giant panel's widths, 113
+    documents, n = 2,203,501,131) through K1 and the port's CLIs.
+
+    Waits for pfp_big_build's child, then K1 on the build tool's 65,536 reads of
+    100 bp over fb2_256 (the saved directory), fb2_64 and fb2 (the second
+    assembly) with int64 lanes, each against the plain loop, the three
+    layouts' ranges equal, one launch a batch; the first N_PFP_CPU reads
+    against cpu_backend.count_ranges_fb2g and the first 512 against the
+    build tool's analytic counts; the first N_BIG_HOST against the host rank
+    over the 96 B rows; at least one final lo at or above 2^31.  The same
+    over 65,536 lanes of random codes (random_lanes: absent patterns, short
+    lanes near the top, length-0 lanes).  K1's call and device times per layout, and its bound over
+    fb2_256 when phase k1's dependent-step latency is given.
+
+    Then rbt_align count (65,536 reads), -s (N_PFP_LOCATE) and -m (65,536),
+    and rbt_markers -f (N_GREEDY), on the saved directory: count lines equal
+    to K1's ranges and the analytic counts; -s every occurrence, as a set
+    equal to doc x doc_len + offset on the analytic reads, the first four
+    (toehold, then the phi chain) equal to cpu_backend.locate_fb2's on
+    N_PFP_CPU reads; -m multisets equal to the analytic ones and to the host
+    CSR over the range, the ranges to cpu_backend.markers_fb2's; rbt_markers
+    -f seeds per read and strand equal to cpu_backend.greedy_fb2's (at most
+    --max-seeds 8).  Each CLI's load and query seconds, reads/s and, for
+    rbt_align, its stages one by one."""
     import torch
 
-    from rowbowt_tpu_torch.alphabet import SEP_BYTE, TERM_BYTE, Alphabet
+    from rowbowt_tpu_torch import cpu_backend
+    from rowbowt_tpu_torch.alphabet import revcomp
     from rowbowt_tpu_torch.bigindex import BigIndex
     from rowbowt_tpu_torch.engine.count import find_ranges
     from rowbowt_tpu_torch.engine.device import TorchIndex
     from rowbowt_tpu_torch.ops import cuda_lf
 
-    rng = np.random.default_rng(BIG_COUNT_SEED)
-    t0 = time.perf_counter()
-    codes = rng.integers(0, 6, size=BIG_COUNT_N, dtype=np.uint8)
-    alpha = Alphabet(np.array([TERM_BYTE, SEP_BYTE, *b"ACGT"], dtype=np.uint8))
-    big = BigIndex.from_codes(codes, alpha, n_sup=3)
-    del codes
-    build_s = time.perf_counter() - t0
-    peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
-    B, L = BIG_COUNT_LANES, READ_LEN
-    lens = rng.integers(0, L + 1, size=B)
-    short = rng.random(B) < 0.25
-    lens[short] = rng.integers(1, 17, size=int(short.sum()))
-    qc = np.where(np.arange(L)[None, :] >= L - lens[:, None],
-                  rng.integers(0, 6, size=(B, L)), -1).astype(np.int32)
-    qc[np.flatnonzero(short), (L - lens)[short]] = 5
-    q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens.astype(np.int32)).to(device)
-    res, ranges, err = {}, {}, 0
-    for fb64 in (True, False):
-        t = time.perf_counter()
-        tx = TorchIndex.from_big(big, device, fb64=fb64)
-        torch.cuda.synchronize()
-        layout = cuda_lf.row_layout(tx)
-        res[f"{layout}_load_s"] = time.perf_counter() - t
-        res[f"{layout}_table_gb"] = tx.arrays[layout].numel() * 4 / 1e9
-        cuda_lf.LAUNCHES_FB2 = 0
-        got = find_ranges(tx, q, ln)
-        check(cuda_lf.LAUNCHES_FB2 == 1, f"K1 launched {cuda_lf.LAUNCHES_FB2} times over {layout}")
-        want = cuda_lf.find_ranges_plain(tx, q, ln)
-        torch.cuda.synchronize()
-        e = max_abs_err(got, want)
-        check(e == 0 and got[0].dtype == torch.int64,
-              f"K1 over {layout} != plain above 2^31: max |err| {e}")
-        err = max(err, e)
-        ranges[layout] = tuple(t.cpu().numpy() for t in got)
-        res[f"{layout}_call_ms"], res[f"{layout}_plain_ms"] = in_turns(
-            [lambda: cuda_lf.find_ranges_plain(tx, q, ln)], [lambda: find_ranges(tx, q, ln)], 1, 5)
-        del tx, got, want
-        torch.cuda.empty_cache()
-    lo, hi = ranges["fb2_64"]
-    check(all(np.array_equal(a, b) for a, b in zip(ranges["fb2_64"], ranges["fb2"])),
-          "fb2_64 and fb2 ranges differ")
     t = time.perf_counter()
-    hlo, hhi = host_ranges_fb2(big, qc[:N_BIG_HOST], lens[:N_BIG_HOST])
-    host_s = time.perf_counter() - t
-    check(np.array_equal(hlo, lo[:N_BIG_HOST]) and np.array_equal(hhi, hi[:N_BIG_HOST]),
-          "K1 over the two-level rows != the host rank over the 96 B rows")
-    found = hi >= lo
-    top = 1 << 31
-    res.update(n=big.n, n_sup=big.n_sup, per_blk=big.per_blk, F=big.F.tolist(),
-               build_s=build_s, peak_rss_gb=peak_rss_gb, lanes=B, L=L,
-               short_lanes=int(short.sum()), nonempty=int(found.sum()),
-               lo_at_or_above_2_31=int((found & (lo >= top)).sum()),
-               hi_at_or_above_2_31=int((found & (hi >= top)).sum()),
-               max_hi=int(hi[found].max()), host_checked=N_BIG_HOST, host_s=host_s,
-               max_abs_err=err, card=card["nvidia_smi"])
-    check(res["lo_at_or_above_2_31"] > 0, "no final range lies above 2^31")
-    emit("big_count", **res)
-    del big
+    child["proc"].join()
+    wait_s = time.perf_counter() - t
+    check(child["proc"].exitcode == 0, f"pfp_big's build exited {child['proc'].exitcode}")
+    path = child["path"]
+    with open(os.path.join(path, "build_stats.json")) as f:
+        stats = json.load(f)
+    with open(os.path.join(path + "_128", "layout.json")) as f:
+        layout = json.load(f)
+    big, b128 = BigIndex.load(path), BigIndex.load(path + "_128")
+    n, top = big.n, 1 << 31
+    check(n == (PFP_BIG["n_haps"] + 1) * (PFP_BIG["ref_len"] + PFP_BIG["w"]) + 1 and n > top,
+          f"pfp_big: n = {n}")
+    check(b128.n == n and b128.fb2.shape[1] == 24 and big.fb2.shape[1] == 40
+          and all(np.array_equal(getattr(big, x), getattr(b128, x))
+                  for x in ("F", "run_start", "run_head", "samples_last", "pred_pos", "phi_at",
+                            "cruns_keys")),
+          "the two assemblies of one PfpResult differ outside their rank rows")
+    qc16 = np.load(os.path.join(path, "qcodes.npy"))
+    qlens = np.load(os.path.join(path, "qlens.npy"))
+    e = {x: np.load(os.path.join(path, f"expect_{x}.npy"))
+         for x in ("lo", "hi", "cnt", "pos_flat", "pos_off", "mval_flat", "mval_off")}
+    n_par = e["cnt"].shape[0]
+    lanes = {"reads": (qc16.astype(np.int32), qlens),
+             "random": random_lanes(np.random.default_rng(PFP_BIG_LANE_SEED), BATCH, READ_LEN,
+                                    big.A)}
+    t = time.perf_counter()
+    txs = {"fb2_256": TorchIndex.from_big(big, device, with_locate=False, with_markers=False),
+           "fb2_64": TorchIndex.from_big(b128, device, with_locate=False, with_markers=False),
+           "fb2": TorchIndex.from_big(b128, device, fb64=False, with_locate=False,
+                                      with_markers=False)}
+    torch.cuda.synchronize()
+    res = dict(load_s=time.perf_counter() - t, wait_s=wait_s, build=stats, layout=layout,
+               table_gb={k: tx.arrays[k].numel() * 4 / 1e9 for k, tx in txs.items()},
+               n=n, R=big.R, M=int(big.ma_row.shape[0]), n_sup=big.n_sup)
+    check(all(cuda_lf.row_layout(tx) == k for k, tx in txs.items()), "pfp_big's row layouts")
+    err, ranges, launches = 0, {}, {}
+    for kind, (qc, lens) in lanes.items():
+        q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
+        for key, tx in txs.items():
+            cuda_lf.LAUNCHES_FB2 = 0
+            got = find_ranges(tx, q, ln)
+            launches[f"{kind}_{key}"] = cuda_lf.LAUNCHES_FB2
+            want = cuda_lf.find_ranges_plain(tx, q, ln)
+            torch.cuda.synchronize()
+            ek = max_abs_err(got, want)
+            check(ek == 0 and got[0].dtype == torch.int64,
+                  f"K1 over {key} != plain above 2^31 on the {kind} lanes: max |err| {ek}")
+            err = max(err, ek)
+            ranges[kind, key] = tuple(x.cpu().numpy() for x in got)
+            if kind == "reads":
+                res[f"{key}_call_ms"], res[f"{key}_plain_ms"] = in_turns(
+                    [lambda tx=tx: cuda_lf.find_ranges_plain(tx, q, ln)],
+                    [lambda tx=tx: find_ranges(tx, q, ln)], 1, 5)
+                res[f"{key}_device_us"] = kernel_event_us(
+                    [lambda a, b, tx=tx: k1_current(tx, q, ln, False, a, b)], 5)
+        lo, hi = ranges[kind, "fb2_256"]
+        check(all(np.array_equal(ranges[kind, key][i], (lo, hi)[i]) for key in txs for i in (0, 1)),
+              f"K1's ranges over fb2_256, fb2_64 and fb2 differ on the {kind} lanes")
+        t = time.perf_counter()
+        hlo, hhi = host_ranges_fb2(b128, qc[:N_BIG_HOST], lens[:N_BIG_HOST])
+        res[f"{kind}_host_s"] = time.perf_counter() - t
+        check(np.array_equal(hlo, lo[:N_BIG_HOST]) and np.array_equal(hhi, hi[:N_BIG_HOST]),
+              f"K1 over the two-level rows != the host rank over the 96 B rows ({kind} lanes)")
+        found = hi >= lo
+        res[kind] = dict(lanes=int(lo.shape[0]), nonempty=int(found.sum()),
+                         lo_at_or_above_2_31=int((found & (lo >= top)).sum()),
+                         hi_at_or_above_2_31=int((found & (hi >= top)).sum()),
+                         max_hi=int(hi[found].max()))
+        check(res[kind]["lo_at_or_above_2_31"] > 0, f"no final range lies above 2^31 ({kind})")
+    check(all(v == 1 for v in launches.values()), f"K1 launches a batch: {launches}")
+    lo, hi = ranges["reads", "fb2_256"]
+    t = time.perf_counter()
+    clo, chi = cpu_backend.count_ranges_fb2g(big, qc16[:N_PFP_CPU], qlens[:N_PFP_CPU])
+    res["cpu_count_reads_per_s"] = N_PFP_CPU / (time.perf_counter() - t)
+    check(np.array_equal(clo, lo[:N_PFP_CPU]) and np.array_equal(chi, hi[:N_PFP_CPU])
+          and np.array_equal(lo[:n_par], e["lo"]) and np.array_equal(hi[:n_par], e["hi"])
+          and np.array_equal(hi[:n_par] - lo[:n_par] + 1, e["cnt"]),
+          "K1 over fb2_256 != the CPU engine or the analytic counts")
+    q, ln = torch.from_numpy(lanes["reads"][0]).to(device), torch.from_numpy(qlens).to(device)
+    if k1 is not None:
+        tx = txs["fb2_256"]
+        work = [k1_work(tx, q, ln, False)]
+        res["work"] = work
+        res["bound"] = k1_bound(work, BATCH, READ_LEN, tx.A, 160,
+                                k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
+                                table_bytes=tx.arrays["fb2_base"].numel() * 8)
+        res["fb2_256_share"] = res["bound"]["bound_us"] / res["fb2_256_device_us"]
+    res.update(launches=launches, max_abs_err=err)
+    del txs, q, ln
+    torch.cuda.empty_cache()
+
+    # the CLIs on the saved directory
+    reads = big.alpha.bytes_[qc16]
+    fq = {x: os.path.join(WORK, f"pfp_{x}.fq") for x in ("reads", "locate", "greedy")}
+    write_fastq(fq["reads"], reads)
+    write_fastq(fq["locate"], reads[:N_PFP_LOCATE])
+    write_fastq(fq["greedy"], reads[:N_GREEDY])
+    out_txt = os.path.join(WORK, "pfp_out.txt")
+    names = [f"r{i}" for i in range(BATCH)]
+    doc_len = PFP_BIG["ref_len"] + PFP_BIG["w"]
+    runs = {}
+    for tag, fastq, flags, nr in (("count", fq["reads"], [], BATCH),
+                                  ("-s", fq["locate"], ["-s"], N_PFP_LOCATE),
+                                  ("-m", fq["reads"], ["-m"], BATCH)):
+        cuda_lf.LAUNCHES_FB2 = 0
+        cli, text, err_text = run_cli([path, fastq, *flags, "-b", str(BATCH), "--device",
+                                       str(device)], out_txt)
+        runs[tag] = dict(cli, reads=nr, cli_reads_per_s=nr / cli["cli_query_s"],
+                         launches=cuda_lf.LAUNCHES_FB2)
+        check(err_text.startswith(f"loading (big two-level artifact): {path}"),
+              "rbt_align did not load the PFP directory as a big one")
+        lines = text.splitlines(keepends=True)
+        per = 1 if tag == "count" else 2
+        check("".join(lines[::per]) == "".join(count_lines(names[:nr], lo[:nr], hi[:nr])),
+              f"rbt_align {tag}'s count lines != K1's ranges on the PFP panel")
+        runs[tag]["stages"] = align_stages(device, lambda m: load_big(device, path, m), fastq,
+                                           flags[0] if flags else "", text)
+        if tag == "-s":
+            counts, pos, docs, doff = parse_locs(lines[1::2])
+            sizes = np.where(hi[:nr] >= lo[:nr], hi[:nr] - lo[:nr] + 1, 0)
+            check(np.array_equal(counts, sizes), "-s: a read's located hits != its count")
+            check(docs == [f"hap{d - 1}" if d else "ref" for d in (pos // doc_len).tolist()]
+                  and np.array_equal(doff, pos % doc_len), "-s: a document or offset is wrong")
+            offs = np.concatenate([[0], np.cumsum(counts)])
+            check(all(sorted(pos[offs[i]:offs[i + 1]].tolist()) == sorted(
+                e["pos_flat"][e["pos_off"][i]:e["pos_off"][i + 1]].tolist())
+                for i in range(n_par)), "-s: an occurrence set != doc x doc_len + offset")
+            t = time.perf_counter()
+            c = cpu_backend.locate_fb2(big, qc16[:N_PFP_CPU], qlens[:N_PFP_CPU], max_hits=4)
+            runs[tag]["cpu_reads_per_s"] = N_PFP_CPU / (time.perf_counter() - t)
+            check(np.array_equal(c[0], lo[:N_PFP_CPU]) and np.array_equal(c[1], hi[:N_PFP_CPU])
+                  and all(pos[offs[i]:offs[i] + c[4][i]].tolist() == c[3][i, :c[4][i]].tolist()
+                          for i in range(N_PFP_CPU)),
+                  "-s: the toehold and phi chain != cpu_backend.locate_fb2's")
+            runs[tag]["hits"] = int(pos.shape[0])
+        elif tag == "-m":
+            mlines = lines[1::2]
+            got = [sorted((int(p) << 8) | int(a) for p, a in (x.split("/") for x in ln.split()[1:]))
+                   if not ln.startswith("\tmarkers: no markers") else [] for ln in mlines]
+            check(all(got[i] == sorted(e["mval_flat"][e["mval_off"][i]:e["mval_off"][i + 1]]
+                                       .tolist()) for i in range(n_par)),
+                  "-m: a marker multiset != the analytic one")
+            s0 = np.searchsorted(big.ma_row, lo[:N_PFP_CPU].astype(big.ma_row.dtype))
+            s1 = np.searchsorted(big.ma_row, (hi[:N_PFP_CPU] + 1).astype(big.ma_row.dtype))
+            check(all(got[i] == (sorted((np.asarray(big.ma_val[s0[i]:s1[i]]) & ((1 << 48) - 1))
+                                        .tolist()) if hi[i] >= lo[i] else [])
+                      for i in range(N_PFP_CPU)), "-m: a marker multiset != the host CSR's")
+            t = time.perf_counter()
+            c = cpu_backend.markers_fb2(big, qc16[:N_PFP_CPU], qlens[:N_PFP_CPU],
+                                        MA_WSIZE, 1000)
+            runs[tag]["cpu_reads_per_s"] = N_PFP_CPU / (time.perf_counter() - t)
+            check(np.array_equal(c[0], lo[:N_PFP_CPU]) and np.array_equal(c[1], hi[:N_PFP_CPU]),
+                  "-m: the ranges != cpu_backend.markers_fb2's")
+            runs[tag]["reads_with_markers"] = int(sum(1 for x in got if x))
+    check(runs["count"]["launches"] == 1 and runs["-m"]["launches"] == 1
+          and runs["-s"]["launches"] == 0, f"K1 launches of the PFP panel's CLIs: {runs}")
+    cuda_lf.LAUNCHES_FB2 = 0
+    cli, g_text, _ = run_seeding_cli("rbt_markers", [path, fq["greedy"], "-f", "-b",
+                                                     str(GREEDY_BATCH), "--device", str(device)],
+                                     out_txt)
+    seeds = {}
+    for ln in g_text.splitlines():
+        key = (read_no(ln), ln.split()[2])
+        seeds[key] = seeds.get(key, 0) + 1
+    enc = big.alpha.encode_table()
+    rc = np.stack([enc[revcomp(r).astype(np.int64)] for r in reads[:N_PFP_CPU]]).astype(np.int16)
+    both = np.stack([qc16[:N_PFP_CPU], rc], axis=1).reshape(2 * N_PFP_CPU, READ_LEN)
+    t = time.perf_counter()
+    ns, _ = cpu_backend.greedy_fb2(big, both, np.repeat(qlens[:N_PFP_CPU], 2), MA_WSIZE, 1000)
+    cpu_s = time.perf_counter() - t
+    got = np.array([seeds.get((i, s), 0) for i in range(N_PFP_CPU) for s in "+-"])
+    check(np.array_equal(got, np.minimum(ns, 8)),
+          "rbt_markers -f seeds per read and strand != cpu_backend.greedy_fb2's")
+    runs["markers_f"] = dict(cli, reads=N_GREEDY, cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
+                             seeds=len(g_text.splitlines()), launches=cuda_lf.LAUNCHES_FB2,
+                             cpu_reads_per_s=N_PFP_CPU / cpu_s)
+    res.update(runs=runs, dir_gb=dir_gb(path), dir_128_gb=dir_gb(path + "_128"),
+               cpu_checked=N_PFP_CPU, analytic_checked=n_par, card=card["nvidia_smi"])
+    emit("pfp_big", **res)
     return res
 
 
@@ -2287,6 +2503,56 @@ def oracle_align_lines(idx, reads: np.ndarray) -> dict:
     return {k: "".join(v) for k, v in out.items()}
 
 
+def same_lines(got: str, want: str, per_read: int) -> bool:
+    """rbt_align's lines of two indexes of one text agree: each read's count
+    line equal, its locs or markers line equal as a multiset (a BigIndex of
+    the merge's generalized order lists a range's rows in another order)."""
+    g, w = got.splitlines(), want.splitlines()
+    return len(g) == len(w) and all(
+        a == b if i % per_read == 0 else sorted(a.split()) == sorted(b.split())
+        for i, (a, b) in enumerate(zip(g, w)))
+
+
+def small_big_dirs(cfg, alpha, doc_names, d: str) -> dict:
+    """The panel of `cfg` as two BigIndex directories under d, built as the
+    pangenome builders build: "merge" (construct/merge.merge_construct with a
+    uint32 SA, then BigIndex.from_codes, attach_locate and attach_markers, as
+    tools/build_big_index.py) and "pfp" (construct/pfp.pfp_construct with the
+    marker windows as probes, then assemble_bigindex and
+    attach_markers_from_probes, as tools/build_giant_index.py), each with the
+    document list.  Returns {route: {path, build_s, n, R, M}}."""
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.construct import pfp
+    from rowbowt_tpu_torch.construct.merge import merge_construct, split_text_docs
+
+    text, doc_starts, markers = panel(cfg)
+    tpos = np.array([m.text_pos for m in markers], dtype=np.int64)
+    packed = np.array([(m.seq << 48) | (m.pos << 8) | m.allele for m in markers], dtype=np.int64)
+    parts = split_text_docs(text, doc_starts)
+    del text
+    out = {}
+    for route in ("merge", "pfp"):
+        t = time.perf_counter()
+        if route == "merge":
+            codes, sa, _ = merge_construct(parts, alpha=alpha, sa_dtype=np.uint32, prefetch=False)
+            big = BigIndex.from_codes(codes, alpha)
+            big.attach_locate(codes, sa)
+            big.attach_markers(sa, tpos, packed, MA_WSIZE)
+            del codes, sa
+        else:
+            res = pfp.pfp_construct(parts, w=MA_WSIZE, p=100,
+                                    probe_pos=pfp.marker_window_positions(tpos, MA_WSIZE))
+            big = pfp.assemble_bigindex(res, alpha, block=128)
+            pfp.attach_markers_from_probes(big, res, tpos, packed, MA_WSIZE)
+            del res
+        big.doc_starts, big.doc_names = doc_starts, doc_names
+        path = os.path.join(d, f"big_{route}")
+        big.save(path)
+        out[route] = dict(path=path, build_s=time.perf_counter() - t, n=big.n, R=big.R,
+                          M=int(big.ma_row.shape[0]))
+    return out
+
+
 def phase_build_small(device, card: dict) -> dict:
     """Phase build_small: the small panel (n ~ 8.0 M) through rbt_build_torch
     in every mode: native with -s -m -l -f and --emit-ref (the dense index),
@@ -2410,6 +2676,32 @@ def phase_build_small(device, card: dict) -> dict:
     k1 = dict(k1=1, k1_fb2=0, torch=0)
     torch_route = dict(k1=0, k1_fb2=0, torch=1)
     none = dict(k1=0, k1_fb2=0, torch=0)
+    # the pangenome builders' routes: the merge's and PFP's BigIndex directories
+    t = time.perf_counter()
+    big_dirs = small_big_dirs(SMALL, dense.alpha, dense.doc_names, d)
+    builders_s = time.perf_counter() - t
+    for route, v in big_dirs.items():
+        check(v["n"] == dense.n and v["M"] == dense.ma_row.shape[0],
+              f"the {route} directory: n {v['n']}, M {v['M']}")
+        builds[f"big_{route}"] = dict(build_s=v["build_s"], index_gb=dir_gb(v["path"]), R=v["R"])
+        runs[f"big_{route}"] = {}
+        for tag, flags in modes:
+            reset_counts()
+            cli, got, _ = run_cli([v["path"], fq["reads"], *flags, "-b", str(BATCH),
+                                   "--device", str(device)], out_txt)
+            check(same_lines(got, want[tag], per_read=1 if tag == "count" else 2),
+                  f"rbt_align {tag} on the {route} directory != the dense index's lines")
+            runs[f"big_{route}"][tag] = dict(
+                cli, reads=N_SMALL_READS, cli_reads_per_s=N_SMALL_READS / cli["cli_query_s"],
+                launches=route_counts(), identical=got == want[tag])
+    k1_fb2 = dict(k1=0, k1_fb2=1, torch=0)
+    routes = {x: {t: v["launches"] for t, v in runs[x].items()} for x in ("big_merge", "big_pfp")}
+    check(all(r[tag] == (none if tag == "-s" else k1_fb2) for r in routes.values() for tag in r),
+          f"the builders' routes: {routes}")
+    check(all(runs["big_pfp"][tag]["identical"] for tag, _ in modes)
+          and runs["big_merge"]["count"]["identical"],
+          "the PFP directory's lines or the merge directory's count lines are not the "
+          "dense index's byte for byte")
     check(all(runs[x]["count"]["launches"] == k1 and runs[x]["-m"]["launches"] == k1
               for x in ("dense", "x", "raw_idx", "ser", "ftab_only"))
           and runs["nodense"]["count"]["launches"] == torch_route
@@ -2471,7 +2763,8 @@ def phase_build_small(device, card: dict) -> dict:
                                           cli_reads_per_s=N_SMALL_SEEDING / cli["cli_query_s"])
         check(outs["dense"] == outs["raw_idx"] and outs["dense"],
               f"{tool} on the raw index != the dense index")
-    res = dict(n=dense.n, R=dense.R, A_iupac=iu.A, builds=builds, sdsl_write_s=sdsl_write_s,
+    res = dict(n=dense.n, R=dense.R, A_iupac=iu.A, builds=builds, builders_s=builders_s,
+               sdsl_write_s=sdsl_write_s,
                reads=N_SMALL_READS, runs=runs, iupac_runs=iu_runs, oracle_reads=N_ORACLE,
                oracle_s=oracle_s, occ1_route=occ1_counts, seeding=seeding,
                setup_s=time.perf_counter() - t0, card=card["nvidia_smi"])
@@ -2480,7 +2773,7 @@ def phase_build_small(device, card: dict) -> dict:
     return res
 
 
-SELECTABLE = ("probes", "parity", "k1", "big_count", "build_small")
+SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small")
 
 
 def main(argv: list[str]) -> int:
@@ -2503,52 +2796,60 @@ def main(argv: list[str]) -> int:
     device = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
-    if only:
-        for name in dict.fromkeys(argv):  # in the order given
-            if name == "probes":
-                phase_probes(device)
-            elif name == "parity":
-                phase_parity(device)
-            elif name == "big_count":
-                phase_big_count(device, card)
-            elif name == "build_small":
-                os.makedirs(WORK, exist_ok=True)
-                phase_build_small(device, card)
-            else:
-                phase_k1(device, card, build_cli())
-        shutil.rmtree(WORK, ignore_errors=True)
-        return 0
-    probes = phase_probes(device)
-    par_err = phase_parity(device)
-    big_count = phase_big_count(device, card)  # first: its peak RSS is the build's
-    chr_ = build_cli()
-    count = phase_main(device, card, chr_)
-    k1 = phase_k1(device, card, chr_)
-    loc = phase_locate(device, card, chr_, count)
-    markers = phase_markers(device, card, chr_, count)
-    phase_raw_chr(device, card, chr_, count, loc, markers)
-    phase_nodense_chr(device, card, chr_, count, loc, markers)
-    chain_err = phase_phi_chain(device, card, loc)
-    greedy = phase_greedy(device, card, chr_)
-    phase_heuristic(device, card, chr_)
-    phase_lmem(device, card, chr_)
-    locs = phase_locs(device, card, chr_)
-    big_chr = phase_big_chr(device, card, chr_, count, k1, loc, markers, locs)
-    phase_build_small(device, card)
-    phase_trace(device, card, chr_, loc)
-    phase_greedy_trace(device, card, chr_, greedy)
     shutil.rmtree(WORK, ignore_errors=True)
-    print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain_err, big_chr,
-                                               big_count)}))
-    print(card["nvidia_smi"])
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    os.makedirs(WORK)
+    child = None
+    try:
+        if only:
+            if "pfp_big" in only:
+                child = start_pfp_big_build()
+            for name in dict.fromkeys(argv):  # in the order given
+                if name == "probes":
+                    phase_probes(device)
+                elif name == "parity":
+                    phase_parity(device)
+                elif name == "pfp_big":
+                    phase_pfp_big(device, card, child, None)
+                elif name == "build_small":
+                    phase_build_small(device, card)
+                else:
+                    phase_k1(device, card, build_cli())
+            return 0
+        # the PFP panel's host build runs beside the phases before pfp_big
+        child = start_pfp_big_build()
+        probes = phase_probes(device)
+        par_err = phase_parity(device)
+        chr_ = build_cli()
+        count = phase_main(device, card, chr_)
+        k1 = phase_k1(device, card, chr_)
+        loc = phase_locate(device, card, chr_, count)
+        markers = phase_markers(device, card, chr_, count)
+        phase_raw_chr(device, card, chr_, count, loc, markers)
+        phase_nodense_chr(device, card, chr_, count, loc, markers)
+        chain_err = phase_phi_chain(device, card, loc)
+        greedy = phase_greedy(device, card, chr_)
+        phase_heuristic(device, card, chr_)
+        phase_lmem(device, card, chr_)
+        locs = phase_locs(device, card, chr_)
+        big_chr = phase_big_chr(device, card, chr_, count, k1, loc, markers, locs)
+        pfp_big = phase_pfp_big(device, card, child, k1)
+        phase_build_small(device, card)
+        phase_trace(device, card, chr_, loc)
+        phase_greedy_trace(device, card, chr_, greedy)
+        print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain_err,
+                                                   big_chr, pfp_big)}))
+        print(card["nvidia_smi"])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    finally:
+        stop_child(child)
+        shutil.rmtree(WORK, ignore_errors=True)
 
 
 def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err: int,
-                  big_chr: dict, big_count: dict) -> list:
+                  big_chr: dict, pfp_big: dict) -> list:
     """One entry per kernel of the port: launches on the main path, max |err|
     against the plain twin, call time (`ms`, CUDA events) beside the plain
     twin's and the library call's, device time alone (`device_us`, CUDA
@@ -2558,7 +2859,7 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err:
     `bound_us`, the larger of the byte bound and the latency bound.  K1 over
     the two-level rows (lf_count_fb2) has its own entry, from phase big_chr
     (its main path: rbt_align count on the big directory), its max |err|
-    also over phases parity and big_count."""
+    also over phases parity and pfp_big."""
     kernels = []
     for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
             ("lf_count", k1["bound"], count,
@@ -2566,7 +2867,7 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err:
              count["k1_call_ms"], count["plain_ms"], k1["k1_device_us"],
              k1["profiled_us"]["lf_count_kernel"]),
             ("lf_count_fb2", big_chr["bound"], big_chr,
-             max(par_err["lf_count_fb2"], big_chr["max_abs_err"], big_count["max_abs_err"]),
+             max(par_err["lf_count_fb2"], big_chr["max_abs_err"], pfp_big["max_abs_err"]),
              big_chr["fb2_call_ms"], big_chr["plain_ms"], big_chr["fb2_device_us"],
              big_chr["profiled_us"])):
         ops_ms, byte_ms = b["ops_bound_us"] / 1e3, b["byte_bound_us"] / 1e3

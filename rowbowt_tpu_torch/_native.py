@@ -1,9 +1,9 @@
 """Build-on-first-use of the port's shared libraries.
 
-The host library (SA-IS and the FASTQ batch reader, from the repo's
-`native/` sources) is compiled with g++, and the CUDA kernels (from
-`rowbowt_tpu_torch/csrc/`) with nvcc, into `rowbowt_tpu_torch/_build/`,
-which git ignores.  Each library's file name carries a hash of its sources
+The host library (SA-IS, the FASTQ batch reader, the BWT merge, PFP and the
+CPU query engine, from the repo's `native/` sources) is compiled with g++,
+and the CUDA kernels (from `rowbowt_tpu_torch/csrc/`) with nvcc, into
+`rowbowt_tpu_torch/_build/`, which git ignores.  Each library's file name carries a hash of its sources
 and its compile command, so an edited source or flag builds anew and a stale
 library is never loaded.  A compile writes a temporary file and renames it
 into place, so processes that build at the same time (test workers) never
@@ -63,15 +63,20 @@ def find_tool(name: str, fallback: str | None = None) -> str:
     return path
 
 
+HOST_SOURCES = ("sais.cpp", "fastq_reader.cpp", "bwt_merge.cpp", "pfp.cpp", "cpu_engine.cpp")
+
+
 def build_host_library() -> tuple[str, str]:
-    """SA-IS plus, where zlib links, the FASTQ batch reader."""
+    """The sources native/Makefile links into librbt_native.so: SA-IS, the
+    FASTQ batch reader, the BWT merge walk, PFP and the CPU query engine.
+    Where zlib does not link, the same library without the FASTQ reader."""
     cmd = [find_tool("g++"), "-O3", "-std=c++17", "-fPIC", "-shared"]
-    sais = os.path.join(NATIVE_DIR, "sais.cpp")
-    reader = os.path.join(NATIVE_DIR, "fastq_reader.cpp")
+    srcs = [os.path.join(NATIVE_DIR, s) for s in HOST_SOURCES]
     try:
-        return build_shared("librbt_host", cmd, [sais, reader], libs=("-lz",))
+        return build_shared("librbt_host", cmd, srcs, libs=("-lz",))
     except BuildError:
-        return build_shared("librbt_sais", cmd, [sais])
+        return build_shared("librbt_host_nozlib", cmd,
+                            [s for s in srcs if not s.endswith("fastq_reader.cpp")])
 
 
 def build_cuda_library(stem: str) -> tuple[str, str]:

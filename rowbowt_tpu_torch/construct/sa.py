@@ -26,8 +26,9 @@ _NATIVE_ERROR: str | None = None
 
 
 def _load_native():
-    """The host library (SA-IS, and the FASTQ reader where zlib links), built
-    on first use; None when no compiler could build it."""
+    """The host library (SA-IS, the merge walk, PFP, the CPU engine, and the
+    FASTQ reader where zlib links), built on first use; None when no compiler
+    could build it."""
     global _NATIVE, _NATIVE_TRIED, _NATIVE_ERROR
     if _NATIVE_TRIED:
         return _NATIVE
@@ -46,6 +47,17 @@ def _load_native():
     lib.rbt_sais_u8.restype = ctypes.c_int
     _NATIVE = lib
     return _NATIVE
+
+
+def require_native(entry: str):
+    """The host library, or RuntimeError when it could not be built or lacks
+    `entry`: a caller that needs a native entry point never runs a slower
+    path in its place."""
+    lib = _load_native()
+    if lib is None or not hasattr(lib, entry):
+        raise RuntimeError(f"host library lacks {entry}: "
+                           f"{_NATIVE_ERROR or 'built without its source'}")
+    return lib
 
 
 def suffix_array_numpy(text: np.ndarray) -> np.ndarray:

@@ -5,7 +5,8 @@ rbt_locs paths on one NVIDIA GPU.
     python3 chip_smoke.py                 # every phase, then the kernel record
     python3 chip_smoke.py k1 parity       # only the named phases, in that order
                                           # (probes, parity, k1, pfp_big,
-                                          # build_small)
+                                          # build_small, parallel_dp,
+                                          # parallel_sharded, parallel_stream)
 
 Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
 (csrc/gather_probe.cu), both with nvcc for sm_90a, and the host library
@@ -125,7 +126,23 @@ child process beside the phases before it, and runs:
      against the CLI's query seconds;
  16. greedy_trace: `rbt_markers -f --profile` on the reads of phase 11: the
      same lines, the card's busy share, kernel launches per batch and the
-     largest device items.
+     largest device items;
+ 17. parallel_dp: main's reads split over 4 ranks (processes on cuda:0 over
+     gloo, rowbowt_tpu_torch/parallel), the chr count tables replicated, K1
+     on every rank: the gathered ranges equal phase main's; then one rank
+     over NCCL gives them too;
+ 18. parallel_sharded: chr R-sharded over 4 ranks and position-sharded at
+     (1, 4) and (2, 2), the big_chr directory over 4 ranks and the pfp_big
+     directory (above 2^31) over 3 through BigIndex.sharded_index: count,
+     toehold, locate, window markers and greedy seeding, every gathered
+     buffer equal to the single-device engine's; then
+     tools/dryrun_multichip on 4 ranks;
+ 19. parallel_stream: tools/sharded_stream as 2 processes (count, -m,
+     --greedy against one process) and as 4 on the big_chr directory, each
+     process printing its own reads' lines.
+Each multi-rank phase records reads/s over the query seconds, the
+all-reduces a step and their microseconds, and each rank's load seconds
+and peak device memory.
 Phases 11-14 count K1's
 launches (their paths are torch ops: 0 expected, not required); big_chr
 counts the two-level K1's (cuda_lf.LAUNCHES_FB2): one a batch of its count
@@ -153,6 +170,7 @@ import resource
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -840,10 +858,11 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     return {"lf_count": err, "lf_count_fb2": err2}
 
 
-def write_fastq(path: str, reads: np.ndarray) -> None:
+def write_fastq(path: str, reads: np.ndarray, first: int = 0) -> None:
+    """reads as a FASTQ file, named r<first>, r<first + 1>, ..."""
     with open(path, "wb") as f:
         for i in range(reads.shape[0]):
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, reads[i].tobytes(), b"I" * READ_LEN))
+            f.write(b"@r%d\n%s\n+\n%s\n" % (first + i, reads[i].tobytes(), b"I" * READ_LEN))
 
 
 @contextlib.contextmanager
@@ -2773,7 +2792,575 @@ def phase_build_small(device, card: dict) -> dict:
     return res
 
 
-SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small")
+# ---------------- the multi-rank phases: the mesh engines on the card ----------------
+
+PAR_RANKS = 4  # ranks of the multi-rank phases: processes on cuda:0 over gloo
+N_PAR_COUNT = 65_536  # reads of the sharded count runs: main's first batch
+N_PAR_LOCATE = 16_384  # reads of the sharded toehold + locate and window-marker runs
+N_PAR_GREEDY = 8_192  # reads of the sharded greedy runs: 16,384 lanes with both strands
+PAR_MAX_HITS = 8
+PAR_MAX_K = 32  # window-marker buffer: sharded_stream's
+PAR_MAX_RANGE = 1000
+PAR_TIMEOUT_S = 600
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def reset_peak(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_gb(device) -> float | None:
+    """Peak device memory since reset_peak; None off the card."""
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
+
+
+def par_run(stats: dict, bufs: dict, tag: str, mesh, steps: int, names, fn) -> None:
+    """fn() on this rank: its seconds (the card synchronized around it), its
+    all-reduces (count, seconds, per step) and its outputs gathered over dp
+    in read order (kept on rank 0)."""
+    from rowbowt_tpu_torch.parallel import multihost as mh
+
+    mesh.reset_counts()
+    sync(mesh.device)
+    t = time.perf_counter()
+    outs = fn()
+    sync(mesh.device)
+    s = time.perf_counter() - t
+    stats[tag] = dict(mesh=[mesh.n_dp, mesh.n_idx], s=s, steps=steps,
+                      us_per_step=s / steps * 1e6, allreduces=mesh.allreduces,
+                      allreduces_per_step=mesh.allreduces / steps, allreduce_s=mesh.allreduce_s,
+                      allreduce_us=mesh.allreduce_s / max(mesh.allreduces, 1) * 1e6)
+    got = {n: mh.gather_to_host0(mesh, o) for n, o in zip(names, outs)}
+    if mesh.rank == 0:
+        bufs[tag] = got
+
+
+def par_rank_stats(mesh, load_s: float, stats: dict, bufs: dict) -> dict:
+    return dict(rank=mesh.rank, load_s=load_s, runs=stats,
+                peak_gb=peak_gb(mesh.device),
+                bufs=bufs if mesh.rank == 0 else None)
+
+
+def parallel_dp_rank(device, idx_path: str, lanes_path: str) -> dict:
+    """A rank of phase parallel_dp: the chr count tables replicated on its
+    device, K1 over its dp rows of each of main's batches."""
+    import torch.distributed as dist
+
+    from rowbowt_tpu_torch.engine.count import find_ranges
+    from rowbowt_tpu_torch.index import RbtIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.parallel import multihost as mh
+    from rowbowt_tpu_torch.parallel.mesh import make_mesh, replicate_index, shard_queries
+
+    t = time.perf_counter()
+    idx = RbtIndex.load(idx_path, with_sa=False, with_ma=False, with_dl=False, with_ft=False)
+    mesh = make_mesh(device)
+    tx = replicate_index(mesh, idx)
+    sync(device)
+    load_s = time.perf_counter() - t
+    with np.load(lanes_path) as z:
+        qc, lens = z["qc"], z["lens"]
+    reset_peak(device)
+    cuda_lf.LAUNCHES = 0
+    sync(device)
+    t = time.perf_counter()
+    ranges = [find_ranges(tx, *shard_queries(mesh, qc[b], lens[b])) for b in range(qc.shape[0])]
+    sync(device)
+    query_s = time.perf_counter() - t
+    launches = cuda_lf.LAUNCHES
+    t = time.perf_counter()
+    lo = np.concatenate([mh.gather_to_host0(mesh, r[0]) for r in ranges])
+    hi = np.concatenate([mh.gather_to_host0(mesh, r[1]) for r in ranges])
+    return dict(rank=mesh.rank, backend=dist.get_backend(), load_s=load_s, query_s=query_s,
+                gather_s=time.perf_counter() - t, launches=launches,
+                reads=int(qc.shape[0] * qc.shape[1] // mesh.n_dp),
+                peak_gb=peak_gb(device),
+                lo=lo if mesh.rank == 0 else None, hi=hi if mesh.rank == 0 else None)
+
+
+def phase_parallel_dp(device, card: dict, chr_: dict, count: dict) -> dict:
+    """The dp path on the card: main's 262,144 reads split over PAR_RANKS
+    ranks on cuda:0 over gloo, the chr count tables replicated on each, K1
+    on every rank (its launches counted in each rank, one a batch
+    required); the ranges gathered in read order equal phase main's.  Then
+    one rank over NCCL (a world of one) gives the same ranges.  Each rank's
+    load and query seconds and peak device memory; reads/s over the slowest
+    rank's query seconds."""
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.parallel import multihost as mh
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    batches = list(iter_query_batches(idx, paths["reads.fq"], BATCH))
+    lanes = os.path.join(WORK, "parallel_dp.npz")
+    np.savez(lanes, qc=np.stack([q for _, q, _ in batches]),
+             lens=np.stack([ln for _, _, ln in batches]))
+    res = {}
+    # on the CPU the world of one runs gloo too: NCCL needs a card
+    for tag, world, backend in (("gloo", PAR_RANKS, "gloo"),
+                                ("nccl", 1, "nccl" if device.type == "cuda" else "gloo")):
+        t = time.perf_counter()
+        ranks = mh.run_local(parallel_dp_rank, world, backend=backend, device=device.type,
+                             args=(paths["idx"], lanes), timeout_s=PAR_TIMEOUT_S)
+        wall_s = time.perf_counter() - t
+        check(np.array_equal(ranks[0]["lo"], count["lo"])
+              and np.array_equal(ranks[0]["hi"], count["hi"]),
+              f"parallel_dp over {backend} ({world} ranks): the ranges != phase main's")
+        check(device.type != "cuda" or all(r["launches"] == len(batches) for r in ranks),
+              f"parallel_dp over {backend}: K1 launches by rank {[r['launches'] for r in ranks]}")
+        query_s = max(r["query_s"] for r in ranks)
+        res[tag] = dict(ranks=world, backend=backend, wall_s=wall_s, reads=N_READS, query_s=query_s,
+                            reads_per_s=N_READS / query_s,
+                            launches=sum(r["launches"] for r in ranks),
+                            per_rank=[{k: v for k, v in r.items() if k not in ("lo", "hi")}
+                                      for r in ranks])
+    res.update(launches=res["gloo"]["launches"], card=card["nvidia_smi"])
+    emit("parallel_dp", **res)
+    return res
+
+
+def with_rc_lanes(alpha, qc: np.ndarray, lens: np.ndarray):
+    """Forward and reverse-complement lanes of right-aligned code reads,
+    interleaved (sharded_stream's --greedy lanes)."""
+    tab = alpha.encode_table()
+    comp = np.full(16, -1, dtype=np.int64)
+    for x, y in zip(b"ACGT", b"TGCA"):
+        comp[int(tab[x])] = int(tab[y])
+    B, L = qc.shape
+    out = np.full((2 * B, L), -1, np.int32)
+    out[0::2] = qc
+    for b in range(B):
+        m = int(lens[b])
+        r = qc[b, L - m:].astype(np.int64)[::-1]
+        out[2 * b + 1, L - m:] = np.where(r < 0, -1, comp[np.maximum(r, 0)])
+    return out, np.repeat(lens, 2).astype(np.int32)
+
+
+PAR_NAMES = {
+    "count": ("lo", "hi"), "toehold": ("tlo", "thi", "k"), "locate": ("locs", "nocc"),
+    "markers": ("mlo", "mhi", "buf", "used", "ovf"),
+    "greedy": ("slo", "shi", "sqs", "sqe", "mvals", "mcnt", "ns"),
+}
+
+
+def par_engines(mesh, lanes: dict, eng) -> tuple[dict, dict]:
+    """The engines of one layout on this rank's dp rows of each lane set:
+    eng maps an engine name to fn(q, ln) (locate to fn(tlo, thi, k))."""
+    from rowbowt_tpu_torch.parallel.mesh import shard_queries
+
+    stats, bufs = {}, {}
+    q = {k: shard_queries(mesh, *v) for k, v in lanes.items()}
+    L = {k: int(v[0].shape[1]) for k, v in lanes.items()}
+    par_run(stats, bufs, "count", mesh, L["count"], PAR_NAMES["count"],
+            lambda: eng["count"](*q["count"]))
+    tl = {}
+    par_run(stats, bufs, "toehold", mesh, L["locate"], PAR_NAMES["toehold"],
+            lambda: tl.setdefault("r", eng["toehold"](*q["locate"])))
+    par_run(stats, bufs, "locate", mesh, PAR_MAX_HITS - 1, PAR_NAMES["locate"],
+            lambda: eng["locate"](*tl["r"]))
+    for name in ("markers", "greedy"):
+        if name in eng:
+            lane = "locate" if name == "markers" else "greedy"
+            par_run(stats, bufs, name, mesh, L[lane], PAR_NAMES[name],
+                    lambda name=name, lane=lane: eng[name](*q[lane]))
+    return stats, bufs
+
+
+def par_lanes(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: (z[f"{k}_qc"], z[f"{k}_lens"]) for k in ("count", "locate", "greedy")}
+
+
+def parallel_chr_rank(device, idx_path: str, lanes_path: str) -> dict:
+    """A rank of phase parallel_sharded over the chr index: the R-sharded
+    run tables at (1, world), then the position-sharded layout at (1, world)
+    and (2, world / 2), each engine on its lane set."""
+    import torch.distributed as dist
+
+    from rowbowt_tpu_torch.index import RbtIndex
+    from rowbowt_tpu_torch.parallel import sharded as S
+    from rowbowt_tpu_torch.parallel import sharded_dense as SD
+    from rowbowt_tpu_torch.parallel.mesh import make_mesh
+
+    world = dist.get_world_size()
+    t = time.perf_counter()
+    idx = RbtIndex.load(idx_path, with_dl=False, with_ft=False)
+    load_s = time.perf_counter() - t
+    lanes = par_lanes(lanes_path)
+    reset_peak(device)
+    stats, bufs, setup = {}, {}, {}
+    mesh = make_mesh(device, n_dp=1, n_idx=world)
+    mesh.sync = True
+    t = time.perf_counter()
+    sidx = S.ShardedIndex.build(idx, world)
+    tb = sidx.device_put(mesh)
+    setup["r_sharded"] = time.perf_counter() - t
+    st, bf = par_engines(mesh, lanes, {
+        "count": lambda q, ln: S.find_ranges_sharded(mesh, sidx, tb, q, ln),
+        "toehold": lambda q, ln: S.find_ranges_w_toehold_sharded(mesh, sidx, tb, q, ln),
+        "locate": lambda lo, hi, k: S.locate_sharded(mesh, sidx, tb, lo, hi, k, PAR_MAX_HITS)})
+    stats["r_sharded"], bufs["r_sharded"] = st, bf
+    del tb
+    for n_dp in (1, 2):
+        n_idx = world // n_dp
+        tag = f"pos_sharded_{n_dp}x{n_idx}"
+        mesh = make_mesh(device, n_dp=n_dp, n_idx=n_idx)
+        mesh.sync = True
+        t = time.perf_counter()
+        sdx = SD.ShardedDenseIndex.build(idx, n_idx)
+        tb = sdx.device_put(mesh)
+        setup[tag] = time.perf_counter() - t
+        stats[tag], bufs[tag] = par_engines(mesh, lanes, sd_engines(mesh, sdx, tb, True))
+        del tb, sdx
+    out = par_rank_stats(mesh, load_s, stats, bufs)
+    out["setup_s"] = setup
+    return out
+
+
+def sd_engines(mesh, sdx, tb, markers: bool) -> dict:
+    from rowbowt_tpu_torch.parallel import sharded_dense as SD
+
+    eng = {
+        "count": lambda q, ln: SD.find_ranges_sharded_dense(mesh, sdx, tb, q, ln),
+        "toehold": lambda q, ln: SD.find_ranges_w_toehold_sharded_dense(mesh, sdx, tb, q, ln),
+        "locate": lambda lo, hi, k: SD.locate_sharded_dense(mesh, sdx, tb, lo, hi, k,
+                                                            PAR_MAX_HITS),
+        "greedy": lambda q, ln: SD.markers_greedy_seeding_sharded_dense(
+            mesh, sdx, tb, q, ln, wsize=MA_WSIZE, max_range=PAR_MAX_RANGE)}
+    if markers:
+        eng["markers"] = lambda q, ln: SD.find_ranges_w_markers_sharded_dense(
+            mesh, sdx, tb, q, ln, wsize=MA_WSIZE, max_k=PAR_MAX_K)
+    return eng
+
+
+def parallel_big_rank(device, path: str, lanes_path: str) -> dict:
+    """A rank of phase parallel_sharded over a BigIndex directory: its
+    superblocks are the shards (n_idx = n_sup = world), the O(R)/O(M)
+    tables replicated; count, toehold, locate and greedy seeding."""
+    import torch.distributed as dist
+
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.parallel.mesh import make_mesh
+
+    t = time.perf_counter()
+    big = BigIndex.load(path)
+    check(big.n_sup == dist.get_world_size(), f"{path}: n_sup {big.n_sup} != world")
+    sdx = big.sharded_index()
+    mesh = make_mesh(device, n_dp=1, n_idx=big.n_sup)
+    mesh.sync = True
+    tb = sdx.device_put(mesh)
+    sync(device)
+    load_s = time.perf_counter() - t
+    reset_peak(device)
+    stats, bufs = par_engines(mesh, par_lanes(lanes_path), sd_engines(mesh, sdx, tb, False))
+    out = par_rank_stats(mesh, load_s, {"big": stats}, {"big": bufs})
+    out["resident_gb"] = sum(v.numel() * v.element_size() for v in tb.values()) / 1e9
+    return out
+
+
+def single_device_refs(tx, lanes: dict, markers: bool) -> dict:
+    """The single-device port engines on the same lanes (numpy)."""
+    import torch
+
+    from rowbowt_tpu_torch.engine.count import find_ranges
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold, locate
+    from rowbowt_tpu_torch.engine.markers import find_ranges_w_markers
+    from rowbowt_tpu_torch.engine.seeds import markers_greedy_seeding
+
+    dev = {k: (torch.from_numpy(q).to(tx.device), torch.from_numpy(ln).to(tx.device))
+           for k, (q, ln) in lanes.items()}
+    out = {"count": find_ranges(tx, *dev["count"]),
+           "toehold": find_ranges_w_toehold(tx, *dev["locate"])}
+    out["locate"] = locate(tx, *out["toehold"], max_hits=PAR_MAX_HITS)
+    if markers:
+        out["markers"] = find_ranges_w_markers(tx, *dev["locate"], wsize=MA_WSIZE,
+                                               max_k=PAR_MAX_K)
+    out["greedy"] = markers_greedy_seeding(tx, *dev["greedy"], wsize=MA_WSIZE,
+                                           max_range=PAR_MAX_RANGE, use_ftab=False)
+    return {k: [t.cpu().numpy() for t in v] for k, v in out.items()}
+
+
+def check_against(tag: str, bufs: dict, refs: dict) -> int:
+    """Every gathered buffer of each engine == the single-device engine's;
+    the number of buffers compared."""
+    n = 0
+    for engine, got in bufs.items():
+        for name, want in zip(PAR_NAMES[engine], refs[engine]):
+            check(got[name].shape == want.shape and np.array_equal(got[name], want),
+                  f"parallel_sharded {tag} {engine}: {name} != the single-device engine's")
+            n += 1
+    return n
+
+
+def write_par_lanes(path: str, alpha, qc: np.ndarray, lens: np.ndarray) -> dict:
+    """The lane sets of the sharded runs from right-aligned reads: count
+    (N_PAR_COUNT), locate (N_PAR_LOCATE) and greedy (N_PAR_GREEDY reads,
+    both strands), saved for the ranks; returns them."""
+    g = with_rc_lanes(alpha, qc[:N_PAR_GREEDY], lens[:N_PAR_GREEDY])
+    lanes = {"count": (qc[:N_PAR_COUNT], lens[:N_PAR_COUNT]),
+             "locate": (qc[:N_PAR_LOCATE], lens[:N_PAR_LOCATE]), "greedy": g}
+    lanes = {k: (np.ascontiguousarray(q, np.int32), np.ascontiguousarray(ln, np.int32))
+             for k, (q, ln) in lanes.items()}
+    np.savez(path, **{f"{k}_{x}": v for k, (q, ln) in lanes.items()
+                      for x, v in (("qc", q), ("lens", ln))})
+    return lanes
+
+
+def summarize_ranks(ranks: list, lanes: dict) -> dict:
+    """Per layout and engine: the slowest rank's seconds, reads/s over them,
+    all-reduces per step and their mean microseconds; per rank its load
+    seconds and peak device memory."""
+    reads = {"count": lanes["count"][0].shape[0], "toehold": lanes["locate"][0].shape[0],
+             "locate": lanes["locate"][0].shape[0], "markers": lanes["locate"][0].shape[0],
+             "greedy": lanes["greedy"][0].shape[0] // 2}
+    out = {}
+    for layout, runs in ranks[0]["runs"].items():
+        out[layout] = {}
+        for engine, r0 in runs.items():
+            s = max(r["runs"][layout][engine]["s"] for r in ranks)
+            out[layout][engine] = dict(
+                mesh=r0["mesh"], s=s, reads=reads[engine], reads_per_s=reads[engine] / s,
+                steps=r0["steps"], us_per_step=s / r0["steps"] * 1e6,
+                allreduces=r0["allreduces"], allreduces_per_step=r0["allreduces_per_step"],
+                allreduce_us=max(r["runs"][layout][engine]["allreduce_us"] for r in ranks))
+    out["per_rank"] = [dict(rank=r["rank"], load_s=r["load_s"], peak_gb=r["peak_gb"],
+                            **{k: r[k] for k in ("setup_s", "resident_gb") if k in r})
+                       for r in ranks]
+    return out
+
+
+def phase_parallel_sharded(device, card: dict, chr_: dict, big_path: str,
+                           pfp_path: str) -> dict:
+    """The sharded engines on the card, PAR_RANKS processes on cuda:0 over
+    gloo (the program, not a scaling: every rank shares one card).
+
+    chr as ShardedIndex (n_idx = PAR_RANKS: count, toehold, locate) and as
+    ShardedDenseIndex at (1, PAR_RANKS) and (2, PAR_RANKS / 2) (count,
+    toehold, locate, window markers, greedy seeding): N_PAR_COUNT reads of
+    count, N_PAR_LOCATE of toehold + locate (PAR_MAX_HITS) and window
+    markers, N_PAR_GREEDY of greedy seeding with both strands; every
+    gathered buffer equal to the single-device port engine's on the same
+    lanes.  Then the big layout through BigIndex.sharded_index: the big_chr
+    directory (n_sup = 4, 4 ranks) and the pfp_big directory (n above 2^31,
+    int64 lanes, 256-symbol rows, n_sup = 3, 3 ranks): count, toehold,
+    locate and greedy against the single-device big engines
+    (TorchIndex.from_big).  Then tools/dryrun_multichip on PAR_RANKS ranks.
+    Per layout and engine: the slowest rank's seconds, reads/s, all-reduces
+    per step and their microseconds; per rank its load seconds and peak
+    device memory."""
+    import torch
+
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.parallel import multihost as mh
+    from rowbowt_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    _, qc, lens = next(iter_query_batches(idx, paths["reads.fq"], N_PAR_COUNT))
+    lp = os.path.join(WORK, "parallel_chr.npz")
+    lanes = write_par_lanes(lp, idx.alpha, qc, lens)
+    refs = single_device_refs(TorchIndex.from_index(idx, device), lanes, True)
+    res = {}
+    t = time.perf_counter()
+    ranks = mh.run_local(parallel_chr_rank, PAR_RANKS, backend="gloo", device=device.type,
+                         args=(paths["idx"], lp), timeout_s=PAR_TIMEOUT_S)
+    compared = sum(check_against(layout, b, refs) for layout, b in ranks[0]["bufs"].items())
+    res["chr"] = dict(summarize_ranks(ranks, lanes), wall_s=time.perf_counter() - t,
+                      ranks=PAR_RANKS, buffers_equal=compared)
+    del refs
+    torch.cuda.empty_cache()
+
+    pfp_qc = np.load(os.path.join(pfp_path, "qcodes.npy")).astype(np.int32)
+    pfp_lens = np.load(os.path.join(pfp_path, "qlens.npy")).astype(np.int32)
+    for name, path, (bqc, blens) in (("big_chr", big_path, (qc, lens)),
+                                     ("pfp_big", pfp_path, (pfp_qc, pfp_lens))):
+        big = BigIndex.load(path)
+        lp = os.path.join(WORK, f"parallel_{name}.npz")
+        blanes = write_par_lanes(lp, big.alpha, bqc, blens)
+        refs = single_device_refs(TorchIndex.from_big(big, device), blanes, False)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ranks = mh.run_local(parallel_big_rank, big.n_sup, backend="gloo", device=device.type,
+                             args=(path, lp), timeout_s=PAR_TIMEOUT_S)
+        compared = check_against(name, ranks[0]["bufs"]["big"], refs)
+        lo = refs["count"][0]
+        res[name] = dict(summarize_ranks(ranks, blanes), wall_s=time.perf_counter() - t,
+                         ranks=big.n_sup, n=big.n, rows=int(big.fb2.shape[1]),
+                         buffers_equal=compared,
+                         lo_at_or_above_2_31=int(((lo >= 1 << 31) & (refs["count"][1] >= lo)).sum()))
+        del refs, big
+        torch.cuda.empty_cache()
+    check(res["pfp_big"]["n"] > 1 << 31 and res["pfp_big"]["lo_at_or_above_2_31"] > 0,
+          "parallel_sharded pfp_big: no lane's range lies above 2^31")
+    t = time.perf_counter()
+    dry = dryrun_multichip(PAR_RANKS, device.type, backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    res["dryrun_multichip"] = dict(wall_s=time.perf_counter() - t, world=dry[0]["world"],
+                                   n_idx=dry[0]["n_idx"], paths=dry[0]["paths"],
+                                   k1_launches=[r["paths"]["dp"]["k1_launches"] for r in dry])
+    res["card"] = card["nvidia_smi"]
+    emit("parallel_sharded", **res)
+    return res
+
+
+def start_stream(device, path: str, fastqs: list, flags: list, n_idx: int, batch: int) -> dict:
+    """Start tools/sharded_stream as one process per FASTQ on cuda:0 (a
+    gloo group over localhost when there are several, none for one), each
+    writing to files of its own (a pipe left unread would stall a process,
+    and its peers with it, at their next collective)."""
+    from rowbowt_tpu_torch.parallel import multihost as mh
+
+    n = len(fastqs)
+    group = (["--coordinator", f"localhost:{mh.free_port()}", "--num-processes", str(n)]
+             if n > 1 else [])
+    env = dict(os.environ, PYTHONPATH=HERE)
+    run = dict(flags=flags, procs=[], files=[], t0=time.perf_counter())
+    for p, fq in enumerate(fastqs):
+        out, err = (tempfile.TemporaryFile("w+", dir=WORK), tempfile.TemporaryFile("w+", dir=WORK))
+        run["files"].append((out, err))
+        run["procs"].append(subprocess.Popen(
+            [sys.executable, "-m", "rowbowt_tpu_torch.tools.sharded_stream", path, fq,
+             "--n-idx", str(n_idx), "-b", str(batch), "--device", device.type,
+             "--backend", "gloo", *flags, *group, *(["--process-id", str(p)] if n > 1 else [])],
+            cwd=HERE, env=env, stdout=out, stderr=err))
+    return run
+
+
+def finish_stream(run: dict) -> tuple:
+    """(wall seconds from the start, each process's stdout, each process's
+    `stream:` meter line from its stderr) of a started stream; raises if a
+    process failed or outlasted PAR_TIMEOUT_S."""
+    try:
+        for p in run["procs"]:
+            p.wait(timeout=PAR_TIMEOUT_S)
+        wall = time.perf_counter() - run["t0"]
+        outs, meters = [], []
+        for p, (out, err) in zip(run["procs"], run["files"]):
+            err.seek(0)
+            text = err.read()
+            check(p.returncode == 0,
+                  f"sharded_stream {run['flags']} exited {p.returncode}: {text[-2000:]}")
+            meters.append(json.loads(next(ln for ln in text.splitlines()
+                                          if ln.startswith("stream: "))[8:]))
+            out.seek(0)
+            outs.append(out.read())
+        return wall, outs, meters
+    finally:
+        for p in run["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in run["files"]:
+            f[0].close()
+            f[1].close()
+
+
+def stream_marker_lines(names, lo, hi, buf, used) -> str:
+    """sharded_stream -m's lines from window-marker buffers."""
+    from rowbowt_tpu_torch.index import marker_allele, marker_pos
+
+    K = buf.shape[1]
+    out = []
+    for b, name in enumerate(names):
+        s, e = int(lo[b]), int(hi[b])
+        v = buf[b, K - int(used[b]):]
+        out.append(f"{name} ({s},{e}), count={e - s + 1 if e >= s else 0}\n\tmarkers: "
+                   + "".join(f"{p}/{a} " for p, a in zip(marker_pos(v).tolist(),
+                                                         marker_allele(v).tolist())) + "\n")
+    return "".join(out)
+
+
+def stream_stats(wall: float, meters: list, n_idx: int) -> dict:
+    """A stream group's wall seconds, reads/s over its slowest process's
+    query seconds, its all-reduces, and each process's meter."""
+    reads = sum(m["reads"] for m in meters)
+    query_s = max(m["query_s"] for m in meters)
+    return dict(processes=len(meters), n_idx=n_idx, reads=reads, wall_s=wall, query_s=query_s,
+                reads_per_s=reads / query_s, allreduces=meters[0]["allreduces"],
+                per_process=meters)
+
+
+def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path: str) -> dict:
+    """python -m rowbowt_tpu_torch.tools.sharded_stream on the card, gloo
+    groups of processes on cuda:0, each with its own FASTQ shard.  Over chr
+    with --n-idx 2: 2 processes with half of N_PAR_COUNT reads each; count
+    mode prints phase main's lines for each process's reads; -m prints them
+    with the window markers of the single-device find_ranges_w_markers
+    (window MA_WSIZE, 32 a read: the JAX script's -m); --greedy, 2
+    processes with half of N_PAR_GREEDY reads each, prints what one process
+    prints over all of them.  These four groups run at once; then 4
+    processes (--n-idx 4) on the big_chr directory, a quarter of the reads
+    each, print phase main's lines.  Each group's wall seconds from its
+    start, process start and index load included (the first four share the
+    card and the host's cores)."""
+    import torch
+
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.markers import find_ranges_w_markers
+
+    idx, paths, reads = chr_["idx"], chr_["paths"], chr_["reads"]
+    main_lines = count["lines"]
+
+    def shards(n: int, total: int, tag: str):
+        per = total // n
+        fqs = [os.path.join(WORK, f"stream_{tag}_{p}.fq") for p in range(n)]
+        for p, fq in enumerate(fqs):
+            write_fastq(fq, reads[p * per:(p + 1) * per], first=p * per)
+        return fqs, per
+
+    names, qc, lens = next(iter_query_batches(idx, paths["reads.fq"], N_PAR_COUNT))
+    tx = TorchIndex.from_index(idx, device)
+    lo, hi, buf, used, _ = (t.cpu().numpy() for t in find_ranges_w_markers(
+        tx, torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device),
+        wsize=MA_WSIZE, max_k=PAR_MAX_K))
+    del tx
+    torch.cuda.empty_cache()
+    fqs, per = shards(2, N_PAR_COUNT, "half")
+    want_m = [stream_marker_lines(names[p * per:(p + 1) * per], lo[p * per:], hi[p * per:],
+                                  buf[p * per:], used[p * per:]) for p in range(2)]
+    gfqs, gper = shards(2, N_PAR_GREEDY, "greedy")
+    one = os.path.join(WORK, "stream_greedy_all.fq")
+    write_fastq(one, reads[:N_PAR_GREEDY])
+    g = ["--greedy", "--wsize", str(MA_WSIZE), "--max-range", str(PAR_MAX_RANGE)]
+    runs = {"count": start_stream(device, paths["idx"], fqs, [], 2, per),
+            "markers": start_stream(device, paths["idx"], fqs, ["-m", "--wsize", str(MA_WSIZE)],
+                                    2, per),
+            "greedy": start_stream(device, paths["idx"], gfqs, g, 2, gper),
+            "greedy_one_process": start_stream(device, paths["idx"], [one], g, 1, N_PAR_GREEDY)}
+    out = {k: finish_stream(r) for k, r in runs.items()}
+    check(all(out["count"][1][p] == "".join(main_lines[p * per:(p + 1) * per]) for p in range(2)),
+          "sharded_stream count (2 processes): lines != phase main's")
+    check(out["markers"][1] == want_m,
+          "sharded_stream -m (2 processes): lines != the window-marker engine's")
+    check("".join(out["greedy"][1]) == out["greedy_one_process"][1][0],
+          "sharded_stream --greedy (2 processes) != 1 process")
+    res = {k: stream_stats(w, m, 2 if len(m) > 1 else 1) for k, (w, _, m) in out.items()}
+    res["concurrent"] = list(runs)
+    res["markers"]["reads_with_markers"] = int((used > 0).sum())
+    res["greedy"]["lines"] = len(out["greedy_one_process"][1][0].splitlines())
+    qfqs, qper = shards(PAR_RANKS, N_PAR_COUNT, "quarter")
+    wall, outs, meters = finish_stream(start_stream(device, big_path, qfqs, [], PAR_RANKS, qper))
+    check(all(outs[p] == "".join(main_lines[p * qper:(p + 1) * qper]) for p in range(PAR_RANKS)),
+          "sharded_stream on big_chr (4 processes): lines != phase main's")
+    res["big_chr_count"] = stream_stats(wall, meters, PAR_RANKS)
+    res["card"] = card["nvidia_smi"]
+    emit("parallel_stream", **res)
+    return res
+
+
+SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small", "parallel_dp",
+              "parallel_sharded", "parallel_stream")
 
 
 def main(argv: list[str]) -> int:
@@ -2801,8 +3388,22 @@ def main(argv: list[str]) -> int:
     child = None
     try:
         if only:
-            if "pfp_big" in only:
+            if only & {"pfp_big", "parallel_sharded"}:
                 child = start_pfp_big_build()
+            made: dict = {}
+
+            def chr_main():
+                """The chr index and phase main's lines, built once."""
+                if not made:
+                    made["chr"] = build_cli()
+                    made["count"] = phase_main(device, card, made["chr"])
+                return made["chr"], made["count"]
+
+            def big_chr_path():
+                if "big" not in made:
+                    made["big"] = build_big_chr(chr_main()[0])["path"]
+                return made["big"]
+
             for name in dict.fromkeys(argv):  # in the order given
                 if name == "probes":
                     phase_probes(device)
@@ -2812,8 +3413,18 @@ def main(argv: list[str]) -> int:
                     phase_pfp_big(device, card, child, None)
                 elif name == "build_small":
                     phase_build_small(device, card)
+                elif name == "parallel_dp":
+                    phase_parallel_dp(device, card, *chr_main())
+                elif name == "parallel_sharded":
+                    big = big_chr_path()
+                    child["proc"].join()
+                    check(child["proc"].exitcode == 0,
+                          f"pfp_big's build exited {child['proc'].exitcode}")
+                    phase_parallel_sharded(device, card, chr_main()[0], big, child["path"])
+                elif name == "parallel_stream":
+                    phase_parallel_stream(device, card, *chr_main(), big_chr_path())
                 else:
-                    phase_k1(device, card, build_cli())
+                    phase_k1(device, card, chr_main()[0])
             return 0
         # the PFP panel's host build runs beside the phases before pfp_big
         child = start_pfp_big_build()
@@ -2836,8 +3447,11 @@ def main(argv: list[str]) -> int:
         phase_build_small(device, card)
         phase_trace(device, card, chr_, loc)
         phase_greedy_trace(device, card, chr_, greedy)
+        par_dp = phase_parallel_dp(device, card, chr_, count)
+        phase_parallel_sharded(device, card, chr_, big_chr["path"], child["path"])
+        phase_parallel_stream(device, card, chr_, count, big_chr["path"])
         print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain_err,
-                                                   big_chr, pfp_big)}))
+                                                   big_chr, pfp_big, par_dp)}))
         print(card["nvidia_smi"])
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2849,7 +3463,7 @@ def main(argv: list[str]) -> int:
 
 
 def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err: int,
-                  big_chr: dict, pfp_big: dict) -> list:
+                  big_chr: dict, pfp_big: dict, par_dp: dict) -> list:
     """One entry per kernel of the port: launches on the main path, max |err|
     against the plain twin, call time (`ms`, CUDA events) beside the plain
     twin's and the library call's, device time alone (`device_us`, CUDA
@@ -2859,7 +3473,9 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err:
     `bound_us`, the larger of the byte bound and the latency bound.  K1 over
     the two-level rows (lf_count_fb2) has its own entry, from phase big_chr
     (its main path: rbt_align count on the big directory), its max |err|
-    also over phases parity and pfp_big."""
+    also over phases parity and pfp_big.  K1's entry also counts its
+    launches on the dp path of phase parallel_dp, over every rank
+    (`parallel_dp_launches`)."""
     kernels = []
     for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
             ("lf_count", k1["bound"], count,
@@ -2878,6 +3494,7 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err:
                         "bound_by": "bytes" if byte_ms >= ops_ms else "operations",
                         "library_ms": None, "device_us": dev_us, "profiled_us": prof_us,
                         "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]})
+    kernels[0]["parallel_dp_launches"] = par_dp["launches"]
     bounds = probe_bounds(k1["us_per_dependent_step"]["tool_table"])
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
         p, pb = probes[name], bounds[name]

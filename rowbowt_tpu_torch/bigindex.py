@@ -2,8 +2,9 @@
 
 The copy of rowbowt_tpu/bigindex.py (numpy only), imports renamed, kept
 line-for-line close.  The device view is engine/device.py
-TorchIndex.from_big; the opt-in nibble-count marker rows (marker_nibble_rank,
-RBT_MA_NIB) and the position-sharded view (sharded_index) are not ported.
+TorchIndex.from_big and the position-sharded view of the mesh engines is
+sharded_index (parallel/sharded_dense.py); the opt-in nibble-count marker
+rows (marker_nibble_rank, RBT_MA_NIB) are not ported.
 
 The reference contract is u64 row indices throughout (toehold_sa.hpp:133-155);
 device gathers want int32 row ids.  The two-level layout splits the
@@ -426,6 +427,41 @@ class BigIndex:
         F = np.cumsum(counts)
         return BigIndex(fb2=fb3.reshape(-1, fb3.shape[-1]), base=base, F=F,
                         n=n, A=A, per_blk=per_blk, alpha=alpha)
+
+    def sharded_index(self):
+        """The position-sharded view (n_idx == n_sup shards) for mesh runs.
+
+        The fb rank tables shard by position; the O(R) toehold/phi tables and
+        the O(M) marker CSR REPLICATE (they are 20-300x smaller than the fb
+        shards) — the sharded engines' `big_*` path (parallel/sharded_dense)."""
+        from rowbowt_tpu_torch.parallel.sharded_dense import ShardedDenseIndex
+
+        bt = None
+        k0 = 0
+        pp_bs = ()
+        if self.has_locate:
+            bt = {"run_start": np.asarray(self.run_start),
+                  "samples_last": np.asarray(self.samples_last),
+                  "pred_pos": np.asarray(self.pred_pos),
+                  "phi_at": np.asarray(self.phi_at),
+                  "cruns_keys": np.asarray(self.cruns_keys)}
+            bt["pp_off"], pp_bs = marker_buckets(np.asarray(self.pred_pos),
+                                                 self.n)
+            k0 = int((int(self.samples_last[-1]) + 1) % self.n)
+        ma_bs = ()
+        if self.has_markers:
+            bt = bt or {}
+            bt["ma_row"] = np.asarray(self.ma_row)
+            bt["ma_val"] = np.asarray(self.ma_val)
+            bt["ma_off"], ma_bs = marker_buckets(self.ma_row, self.n)
+        return ShardedDenseIndex(
+            fb3=np.ascontiguousarray(
+                self.fb2.reshape(self.n_sup, self.per_blk, -1)),
+            base=self.base, F=self.F.astype(np.int64), n=self.n, A=self.A,
+            n_idx=self.n_sup, per_blk=self.per_blk, k0=k0,
+            big_tables=bt, R=self.R, ma_wsize=self.ma_wsize, ma_bs=ma_bs,
+            pp_bs=pp_bs,
+        )
 
     # ---------------- serialization (.npy so mmap load works) ----------------
 

@@ -121,6 +121,9 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'rowbowt_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'rowbowt_tpu_torch.cli.rbt_align' in mods, mods\n"
+        "for m in ('parallel.mesh', 'parallel.multihost', 'parallel.sharded',\n"
+        "          'parallel.sharded_dense', 'tools.sharded_stream', 'tools.dryrun_multichip'):\n"
+        "    assert 'rowbowt_tpu_torch.' + m in mods, m\n"
         "print(len(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

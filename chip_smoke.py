@@ -34,7 +34,9 @@ child process beside the phases before it, and runs:
      off a 16-byte boundary, one lane, and L = 3,072, which is not staged);
      then K1 over the two-level rows of the same BWT (BigIndex.from_codes,
      n_sup = 4: fb2_64, fb2 and fb2_256) against the plain loop and the
-     single-level rows' ranges, on the batch and at the same edges;
+     single-level rows' ranges, on the batch and at the same edges, and its
+     record launch (lo, hi and the [L, B] step record) against the torch
+     loop that records (cuda_lf.find_ranges_record_plain) there too;
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
@@ -97,6 +99,12 @@ child process beside the phases before it, and runs:
      fb2_64 on the main path's four batches against the plain loop and
      against K1 over fblock64 (no ftab), call and device times, the bound
      and its share, and K1 over the 96 B fb2 rows against the plain loop;
+     the record launch (rbt_align -s's route: one a batch, no torch record
+     loop) against its plain twin on those batches and at k1_edges over
+     fb2_64, its call and device times beside K1's, the toehold's
+     resolve and the bound with the record's bytes; the -m lines over the
+     two marker routes of from_big (run pack, bucketed CSR) and the bounds
+     of the nibble-count rows beside them, their seconds and table GB;
  14c. pfp_big: the giant panel's widths (19.5 Mbp reference, 19,500 sites,
      W = 10, p = 100) with 112 haplotypes, n = 2,203,501,131, built by
      tools/build_giant_index.build in the child process (256-symbol rows;
@@ -108,7 +116,10 @@ child process beside the phases before it, and runs:
      counted; the CPU engine and the analytic counts on the first reads;
      rbt_align count, -s and -m and rbt_markers -f on the directory against
      the analytic oracle (counts, occurrence sets, marker multisets) and the
-     CPU engine (locate, markers, greedy seeds); stages, reads/s;
+     CPU engine (locate, markers, greedy seeds); stages, reads/s; the
+     record launch against its plain twin over every layout and lane set,
+     timed over fb2_256 (-s's route: one record launch, no torch record
+     loop); the marker routes and the nibble rows' bounds, as in big_chr;
  14d. build_small: the small panel through rbt_build_torch in every mode
      (native with --emit-ref, -x, --no-dense, the raw prefix with occ1 + tk1,
      the serialized .rbwt files, --ftab-only, a FASTA with IUPAC codes: 13
@@ -146,8 +157,9 @@ and peak device memory.
 Phases 11-14 count K1's
 launches (their paths are torch ops: 0 expected, not required); big_chr
 counts the two-level K1's (cuda_lf.LAUNCHES_FB2): one a batch of its count
-and -m runs, none in -s, whose toehold loop records each step; pfp_big the
-same on its panel.  raw_chr,
+and -m runs, none in -s, whose toehold search is the record launch
+(cuda_lf.LAUNCHES_REC, one a batch, and no run of the torch record loop,
+cuda_lf.RECORDS_PLAIN); pfp_big the same on its panel.  raw_chr,
 nodense_chr and build_small count every route of the count search (K1, K1
 over the two-level rows, and the torch loop of an index without fused
 rows, cuda_lf.LAUNCHES_TORCH), set to 0 before each run, and require each.
@@ -832,7 +844,8 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     tx = TorchIndex.from_index(idx, device)
     single = [find_ranges(tx, qe, le, use_ftab=False) for _, qe, le in [("", q, ln)] + edges]
     codes = codes_of(idx)
-    err2, launches0, layouts = 0, cuda_lf.LAUNCHES_FB2, []
+    err2, err3, layouts = 0, 0, []
+    launches0, rec0 = cuda_lf.LAUNCHES_FB2, cuda_lf.LAUNCHES_REC
     for block, fb64 in ((128, True), (128, False), (256, False)):
         tx = TorchIndex.from_big(BigIndex.from_codes(codes, idx.alpha, n_sup=4, block=block),
                                  device, fb64=fb64)
@@ -847,15 +860,39 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
                   f"max |err| {e}")
             err2 = max(err2, e)
             edge_nonempty[f"{layout},{label}"] = int((got[1] >= got[0]).sum().item())
+            e = held_record(tx, qe, le, got)
+            check(e == 0, f"the record launch over {layout} != its plain twin at {label}: "
+                  f"max |err| {e}")
+            err3 = max(err3, e)
         del tx
     launches2 = cuda_lf.LAUNCHES_FB2 - launches0
     check(launches2 == 3 * (1 + len(edges)), f"expected {3 * (1 + len(edges))} two-level K1 "
           f"launches, counted {launches2}")
+    launches3 = cuda_lf.LAUNCHES_REC - rec0
+    check(launches3 == 3 * (1 + len(edges)), f"expected {3 * (1 + len(edges))} record "
+          f"launches, counted {launches3}")
     emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
          nonempty=results, edges=[label for label, _, _ in edges],
          edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err,
-         fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2)
-    return {"lf_count": err, "lf_count_fb2": err2}
+         fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2,
+         rec_launches=launches3, rec_max_abs_err=err3)
+    return {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3}
+
+
+def held_record(tx, q, ln, ranges=None) -> int:
+    """max |err| of the record launch (cuda_lf.find_ranges_record: lo, hi and
+    the [L, B] step record) against its plain twin on the card, and of its
+    (lo, hi) against `ranges` (K1's without the record) when given."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    got = cuda_lf.find_ranges_record(tx, q, ln)
+    want = cuda_lf.find_ranges_record_plain(tx, q, ln)
+    torch.cuda.synchronize()
+    check(got[2].shape == (q.shape[1], q.shape[0]) and got[2].dtype == torch.int64,
+          f"step record of shape {tuple(got[2].shape)}, {got[2].dtype}")
+    return max(max_abs_err(got, want), max_abs_err(got[:2], ranges) if ranges else 0)
 
 
 def write_fastq(path: str, reads: np.ndarray, first: int = 0) -> None:
@@ -1443,11 +1480,12 @@ def k1_work(tx, q, ln, use_ftab: bool) -> dict:
 
 
 def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_step: float,
-             lane_bytes: int = 4, table_bytes: int = 0) -> dict:
+             lane_bytes: int = 4, table_bytes: int = 0, out_bytes: int = 0) -> dict:
     """K1's bound per batch from the batches' work: bytes (each input byte
     read once: the reads' int32 codes, the lengths, F, the distinct rows, the
     distinct ftab entries, `table_bytes` more (the two-level rows' base
-    table); each output written once: lo, hi, of lane_bytes each) over the
+    table); each output written once: lo, hi, of lane_bytes each, and
+    `out_bytes` more (the record launch's [L, B] int64 step record)) over the
     card's memory rate; the rank operations over its int32 rate; the longest
     lane's dependent steps times the dependent load latency.  The kernel
     stages whole padded rows, padded_code_bytes, more than the reads' codes."""
@@ -1455,7 +1493,7 @@ def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_st
     mean = {key: sum(w[key] for w in work) / nb for key in work[0]}
     nbytes = (mean["codes"] * 4 + B * 4 + (A + 1) * lane_bytes
               + mean["distinct_rows"] * row_bytes + mean["ftab_entries"] * 8 + table_bytes
-              + B * 2 * lane_bytes)
+              + B * 2 * lane_bytes + out_bytes)
     ops = 2 * RANK_OPS * mean["ranked_steps"]
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
     ops_us = ops / INT_OPS_PER_S * 1e6
@@ -1976,7 +2014,7 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
                table_gb={k: tx.arrays[k].numel() * 4 / 1e9 for k, tx in txs.items()},
                n=n, R=big.R, M=int(big.ma_row.shape[0]), n_sup=big.n_sup)
     check(all(cuda_lf.row_layout(tx) == k for k, tx in txs.items()), "pfp_big's row layouts")
-    err, ranges, launches = 0, {}, {}
+    err, rec_err, ranges, launches = 0, 0, {}, {}
     for kind, (qc, lens) in lanes.items():
         q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
         for key, tx in txs.items():
@@ -1989,6 +2027,10 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
             check(ek == 0 and got[0].dtype == torch.int64,
                   f"K1 over {key} != plain above 2^31 on the {kind} lanes: max |err| {ek}")
             err = max(err, ek)
+            er = held_record(tx, q, ln, got)
+            check(er == 0, f"the record launch over {key} != its plain twin above 2^31 on the "
+                  f"{kind} lanes: max |err| {er}")
+            rec_err = max(rec_err, er)
             ranges[kind, key] = tuple(x.cpu().numpy() for x in got)
             if kind == "reads":
                 res[f"{key}_call_ms"], res[f"{key}_plain_ms"] = in_turns(
@@ -2011,6 +2053,8 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
                          max_hi=int(hi[found].max()))
         check(res[kind]["lo_at_or_above_2_31"] > 0, f"no final range lies above 2^31 ({kind})")
     check(all(v == 1 for v in launches.values()), f"K1 launches a batch: {launches}")
+    q, ln = torch.from_numpy(lanes["reads"][0]).to(device), torch.from_numpy(qlens).to(device)
+    res["rec_lanes_checked"] = {k: int(v[0].shape[0]) for k, v in lanes.items()}
     lo, hi = ranges["reads", "fb2_256"]
     t = time.perf_counter()
     clo, chi = cpu_backend.count_ranges_fb2g(big, qc16[:N_PFP_CPU], qlens[:N_PFP_CPU])
@@ -2019,7 +2063,6 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
           and np.array_equal(lo[:n_par], e["lo"]) and np.array_equal(hi[:n_par], e["hi"])
           and np.array_equal(hi[:n_par] - lo[:n_par] + 1, e["cnt"]),
           "K1 over fb2_256 != the CPU engine or the analytic counts")
-    q, ln = torch.from_numpy(lanes["reads"][0]).to(device), torch.from_numpy(qlens).to(device)
     if k1 is not None:
         tx = txs["fb2_256"]
         work = [k1_work(tx, q, ln, False)]
@@ -2028,7 +2071,10 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
                                 k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
                                 table_bytes=tx.arrays["fb2_base"].numel() * 8)
         res["fb2_256_share"] = res["bound"]["bound_us"] / res["fb2_256_device_us"]
-    res.update(launches=launches, max_abs_err=err)
+        # the record launch over the saved directory's rows: rbt_align -s's route
+        res["rec"] = record_times(device, big, tx, [(q, ln)], work, k1, "fb2_256",
+                                  res["fb2_256_call_ms"])
+    res.update(launches=launches, max_abs_err=err, rec_max_abs_err=rec_err)
     del txs, q, ln
     torch.cuda.empty_cache()
 
@@ -2045,11 +2091,12 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
     for tag, fastq, flags, nr in (("count", fq["reads"], [], BATCH),
                                   ("-s", fq["locate"], ["-s"], N_PFP_LOCATE),
                                   ("-m", fq["reads"], ["-m"], BATCH)):
-        cuda_lf.LAUNCHES_FB2 = 0
+        reset_counts()
         cli, text, err_text = run_cli([path, fastq, *flags, "-b", str(BATCH), "--device",
                                        str(device)], out_txt)
         runs[tag] = dict(cli, reads=nr, cli_reads_per_s=nr / cli["cli_query_s"],
-                         launches=cuda_lf.LAUNCHES_FB2)
+                         launches=cuda_lf.LAUNCHES_FB2, rec_launches=cuda_lf.LAUNCHES_REC,
+                         records_plain=cuda_lf.RECORDS_PLAIN)
         check(err_text.startswith(f"loading (big two-level artifact): {path}"),
               "rbt_align did not load the PFP directory as a big one")
         lines = text.splitlines(keepends=True)
@@ -2095,8 +2142,12 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
             check(np.array_equal(c[0], lo[:N_PFP_CPU]) and np.array_equal(c[1], hi[:N_PFP_CPU]),
                   "-m: the ranges != cpu_backend.markers_fb2's")
             runs[tag]["reads_with_markers"] = int(sum(1 for x in got if x))
+            runs["-m_routes"] = marker_routes(device, path, fastq, text)
     check(runs["count"]["launches"] == 1 and runs["-m"]["launches"] == 1
           and runs["-s"]["launches"] == 0, f"K1 launches of the PFP panel's CLIs: {runs}")
+    check([runs[t]["rec_launches"] for t in ("count", "-s", "-m")] == [0, 1, 0]
+          and runs["-s"]["records_plain"] == 0,
+          f"rbt_align -s on the PFP panel: one record launch and no torch record loop: {runs}")
     cuda_lf.LAUNCHES_FB2 = 0
     cli, g_text, _ = run_seeding_cli("rbt_markers", [path, fq["greedy"], "-f", "-b",
                                                      str(GREEDY_BATCH), "--device", str(device)],
@@ -2250,7 +2301,7 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     runs = {}
 
     def align(tag, fastq, flags, want):
-        cuda_lf.LAUNCHES_FB2 = 0
+        reset_counts()
         cli, out_text, err = run_cli([path, fastq, *flags, "-b", str(BATCH), "--device", dev_s],
                                      paths["out.txt"])
         check(out_text == want, f"rbt_align {tag} on the big directory != the dense index's lines")
@@ -2258,7 +2309,8 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
               "rbt_align did not load the big directory as one")
         n = N_READS if tag == "count" else N_LOCATE
         runs[tag] = dict(cli, cli_reads_per_s=n / cli["cli_query_s"], reads=n,
-                         launches=cuda_lf.LAUNCHES_FB2,
+                         launches=cuda_lf.LAUNCHES_FB2, rec_launches=cuda_lf.LAUNCHES_REC,
+                         records_plain=cuda_lf.RECORDS_PLAIN,
                          stages=align_stages(device, lambda m: load_big(device, path, m),
                                              fastq, flags[0] if flags else "", out_text))
 
@@ -2267,6 +2319,12 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     align("-m", paths["locate.fq"], ["-m"], markers["out_text"])
     check(runs["count"]["launches"] == N_READS // BATCH and runs["-m"]["launches"] == -(
         -N_LOCATE // BATCH), f"K1 launches over the big rows: {runs}")
+    # -s: one record launch a batch, no count launch and no torch record loop
+    check((runs["-s"]["rec_launches"], runs["-s"]["launches"], runs["-s"]["records_plain"])
+          == (-(-N_LOCATE // BATCH), 0, 0), f"rbt_align -s routes on the big rows: {runs['-s']}")
+    check(all(runs[t]["rec_launches"] == 0 for t in ("count", "-m")),
+          "a record launch outside -s")
+    runs["-m_routes"] = marker_routes(device, path, paths["locate.fq"], markers["out_text"])
 
     # rbt_markers -f and rbt_locs on the big directory
     argv = ["-f", "-b", str(GREEDY_BATCH), "--device", dev_s]
@@ -2303,8 +2361,9 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     big = BigIndex.load(path)
     tx = TorchIndex.from_big(big, device, with_locate=False, with_markers=False)  # fb2_64
     txd = TorchIndex.from_index(idx, device)  # fblock64
+    host = [(qc, lens) for _, qc, lens in iter_query_batches(big, paths["reads.fq"], BATCH)]
     dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
-           for _, qc, lens in iter_query_batches(big, paths["reads.fq"], BATCH)]
+           for qc, lens in host]
     B, L = dev[0][0].shape
     plain = [cuda_lf.find_ranges_plain(tx, q, ln) for q, ln in dev]
     err = max(max(max_abs_err(k1_current(tx, q, ln), want),
@@ -2315,6 +2374,13 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
                      for (q, ln), want in zip(dev, plain)))
     torch.cuda.synchronize()
     check(err == 0, f"K1 over the two-level rows != plain at chr: max |err| {err}")
+    # the record launch on the same batches and at the edges (fb2_64)
+    t = time.perf_counter()
+    edges = k1_edges(*host[0], device)
+    rec_err = max(held_record(tx, q, ln, want) for (q, ln), want in zip(dev, plain))
+    rec_err = max(rec_err, *(held_record(tx, qe, le) for _, qe, le in edges))
+    check(rec_err == 0, f"the record launch != its plain twin at chr: max |err| {rec_err}")
+    rec_check_s = time.perf_counter() - t
 
     def calls(t, use_ftab=False):
         return [lambda q=q, ln=ln: k1_current(t, q, ln, use_ftab) for q, ln in dev]
@@ -2341,6 +2407,9 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     res["bound"] = k1_bound(work, B, L, tx.A, 64, k1["us_per_dependent_step"]["random_cycle"],
                             lane_bytes=8, table_bytes=tx.arrays["fb2_base"].numel() * 8)
     res["fb2_share"] = res["bound"]["bound_us"] / res["fb2_device_us"]
+    res["rec"] = record_times(device, big, tx, dev, work, k1, "fb2_64", res["fb2_call_ms"])
+    res["rec"].update(max_abs_err=rec_err, edges=[label for label, _, _ in edges],
+                      check_s=rec_check_s)
     res["resident_mb"] = {k: v.numel() * v.element_size() / 1e6 for k, v in TorchIndex.from_big(
         big, device).arrays.items()}
     emit("big_chr", **res, card=card["nvidia_smi"])
@@ -2349,19 +2418,156 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     return res
 
 
-def route_counts() -> dict:
-    """The launch counts of the count search's routes since the last reset:
-    K1 over the single-level rows, over the two-level rows, and the torch
-    loop an index without fused-block rows takes on the card."""
+def record_times(device, big, tx, dev, work: list, k1: dict, key: str, k1_ms: float) -> dict:
+    """The record launch on the batches `dev` over `tx`'s rows: its call ms
+    in turns with its plain twin (the torch loop), K1 without the record and
+    the record launch alone in turns (CUDA events just around the launch:
+    fb2, record, record, fb2), one profiler trace, the toehold's resolve
+    (engine/locate.span_toeholds over the record) and the whole trajectory
+    toehold (find_ranges_w_toehold) on the index with its locate tables, the
+    bound (K1's over `work` and the record's L * B * 8 bytes) and its share.
+    `k1_ms` is K1's call ms without the record."""
+    import torch
+
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold, span_toeholds
     from rowbowt_tpu_torch.ops import cuda_lf
 
-    return dict(k1=cuda_lf.LAUNCHES, k1_fb2=cuda_lf.LAUNCHES_FB2, torch=cuda_lf.LAUNCHES_TORCH)
+    t0 = time.perf_counter()
+    B, L = dev[0][0].shape
+    calls = [lambda q=q, ln=ln: cuda_lf.find_ranges_record(tx, q, ln) for q, ln in dev]
+    out = dict(layout=key, batches=len(dev), lanes=B, L=L, record_mb=L * B * 8 / 1e6)
+    out["call_ms"], out["plain_ms"] = in_turns(
+        [lambda q=q, ln=ln: cuda_lf.find_ranges_record_plain(tx, q, ln) for q, ln in dev],
+        calls, 1, 5)
+    out["k1_call_ms"] = k1_ms
+    rec = [around(c) for c in calls]
+    bare = [lambda a, b, q=q, ln=ln: k1_current(tx, q, ln, False, a, b) for q, ln in dev]
+    old = [kernel_event_us(bare, 5)]
+    new = [kernel_event_us(rec, 5) for _ in range(2)]
+    old.append(kernel_event_us(bare, 5))
+    out["device_us"], out["k1_device_us"] = sum(new) / 2, sum(old) / 2
+    out["device_us_each"], out["k1_device_us_each"] = new, old
+    out["profiled_us"] = profiled_kernel_us(calls, 3, ("lf_count_kernel",))["lf_count_kernel"]
+    txl = TorchIndex.from_big(big, device, fb64=key == "fb2_64", with_locate=True,
+                              with_markers=False)
+    recs = [cuda_lf.find_ranges_record(txl, q, ln) for q, ln in dev]
+    zeros = torch.zeros((1, B), dtype=torch.int64, device=device)
+    out["resolve_ms"] = cuda_ms([lambda q=q, ln=ln, r=r: span_toeholds(
+        txl, q, r[2], ln.long(), zeros, (ln.long() - 1)[None, :]) for (q, ln), r in zip(dev, recs)],
+        3)
+    out["toehold_ms"] = cuda_ms([lambda q=q, ln=ln: find_ranges_w_toehold(txl, q, ln)
+                                 for q, ln in dev], 3)
+    del txl, recs
+    b = k1_bound(work, B, L, tx.A, cuda_lf._SYMS_PER_ROW[key] // 8 * 4 + 32,
+                 k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
+                 table_bytes=tx.arrays["fb2_base"].numel() * 8, out_bytes=L * B * 8)
+    out["bound"] = b
+    out["bound_ms"] = max(b["byte_bound_us"], b["ops_bound_us"]) / 1e3
+    out["bound_by"] = "bytes" if b["byte_bound_us"] >= b["ops_bound_us"] else "operations"
+    out["share"] = b["bound_us"] / out["device_us"]
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def marker_routes(device, path: str, fastq: str, out_text: str) -> dict:
+    """rbt_align -m's lines on the big directory at `path` from each marker
+    bound route of TorchIndex.from_big, in this process: the run pack (the
+    default) and the bucketed CSR (the instance's run pack taken away, as
+    the tests do it).  The lines of each equal `out_text` and
+    markers_bounds is the same on both.  Beside them the nibble-count rows
+    (BigIndex._ma_cnt64, which no route of the port selects), put on the
+    card by hand with the bucketed instance: their bounds (ops/rank.
+    _ms_nibble at lo and hi + 1) equal the run pack's.  Per route its load
+    seconds (BigIndex.load and from_big; for the nibble rows their build or
+    cache read and copy), bounds seconds (every batch's two probes, host
+    clock, synchronized), table GB and, for the two from_big routes, probe
+    seconds (cli/rbt_align.probe_markers and the formatting)."""
+    import torch
+
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.cli import rbt_align
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.count import find_ranges
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.ops import rank as R
+
+    def nibble_bounds(tx, lo, hi):
+        s = R._ms_nibble(tx, torch.clamp(lo, 0, tx.n))
+        e = R._ms_nibble(tx, torch.clamp(hi + 1, 0, tx.n))
+        return s, torch.clamp(e - s, min=0)
+
+    tables = {"run_pack": ("ma_roff", "ma_sd16", "ma_rec"), "bucketed": ("ma_row", "ma_off"),
+              "nibble": ("ma_cnt64",)}
+    res, bounds, t0 = {}, {}, time.perf_counter()
+    for route in ("run_pack", "bucketed"):
+        t = time.perf_counter()
+        big = BigIndex.load(path)
+        if route == "bucketed":
+            big._ma_runpack = lambda: None
+        tx = TorchIndex.from_big(big, device, with_locate=False, with_markers=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        check(all(k in tx.arrays for k in tables[route])
+              and not any(k in tx.arrays for r, ks in tables.items() if r != route
+                          for k in ks if k != "ma_row"),
+              f"the {route} route's marker tables: {sorted(tx.arrays)}")
+        batches = [(names, torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
+                   for names, qc, lens in iter_query_batches(big, fastq, BATCH)]
+        ranges = [tuple(x[:len(names)] for x in find_ranges(tx, q, ln))
+                  for names, q, ln in batches]
+        stages = {}
+        with timed(stages, "probe_s"):
+            cols = [rbt_align.format_markers(*rbt_align.probe_markers(tx, lo, hi))
+                    for lo, hi in ranges]
+        text = "".join("".join(a + b for a, b in zip(
+            count_lines(names, lo.cpu().numpy(), hi.cpu().numpy()), col))
+            for (names, _, _), (lo, hi), col in zip(batches, ranges, cols))
+        check(text == out_text, f"rbt_align -m over the {route} route != its lines")
+        routes = [(route, tx, R.markers_bounds)]
+        if route == "bucketed":
+            t = time.perf_counter()
+            nib = big._ma_cnt64()
+            check(nib is not None, "no nibble-count rows for the panel")
+            ntx = dataclasses.replace(tx, arrays=dict(
+                tx.arrays, ma_cnt64=torch.from_numpy(np.ascontiguousarray(nib)).to(device)))
+            torch.cuda.synchronize()
+            res["nibble"] = dict(load_s=time.perf_counter() - t)
+            routes.append(("nibble", ntx, nibble_bounds))
+        for r, rtx, fn in routes:
+            fn(rtx, *ranges[0])  # warm
+            with timed(stages, r):
+                out = [fn(rtx, lo, hi) for lo, hi in ranges]
+            bounds[r] = [torch.cat(x).cpu() for x in zip(*out)]
+            res.setdefault(r, {}).update(
+                bounds_s=stages[r], table_gb=sum(rtx.arrays[k].numel() * rtx.arrays[k].element_size()
+                                                 for k in tables[r]) / 1e9)
+        res[route].update(load_s=load_s, probe_s=stages["probe_s"])
+        del tx, batches, ranges, routes
+        torch.cuda.empty_cache()
+    check(all(all(torch.equal(a, b) for a, b in zip(bounds["run_pack"], bounds[r]))
+              for r in tables), "markers_bounds differ between the marker routes")
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def route_counts() -> dict:
+    """The launch counts of the count search's routes since the last reset:
+    K1 over the single-level rows, over the two-level rows, its record
+    launch (a big index's toehold search), and the torch loop an index
+    without fused-block rows takes on the card."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    return dict(k1=cuda_lf.LAUNCHES, k1_fb2=cuda_lf.LAUNCHES_FB2, k1_rec=cuda_lf.LAUNCHES_REC,
+                torch=cuda_lf.LAUNCHES_TORCH)
 
 
 def reset_counts() -> None:
+    """Every route count to 0, and the runs of the torch record loop."""
     from rowbowt_tpu_torch.ops import cuda_lf
 
     cuda_lf.LAUNCHES = cuda_lf.LAUNCHES_FB2 = cuda_lf.LAUNCHES_TORCH = 0
+    cuda_lf.LAUNCHES_REC = cuda_lf.RECORDS_PLAIN = 0
 
 
 def align_runs(device, path: str, runs: list, out_path: str) -> dict:
@@ -2418,9 +2624,9 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
         ("count", paths["reads.fq"], [], "".join(count["lines"]), N_READS),
         ("-s", paths["locate.fq"], ["-s"], loc["out_text"], N_LOCATE),
         ("-m", paths["locate.fq"], ["-m"], markers["out_text"], N_LOCATE)], paths["out.txt"])
-    check(runs["count"]["launches"] == dict(k1=N_READS // BATCH, k1_fb2=0, torch=0)
-          and runs["-m"]["launches"] == dict(k1=n_loc, k1_fb2=0, torch=0)
-          and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, torch=0),
+    check(runs["count"]["launches"] == dict(k1=N_READS // BATCH, k1_fb2=0, k1_rec=0, torch=0)
+          and runs["-m"]["launches"] == dict(k1=n_loc, k1_fb2=0, k1_rec=0, torch=0)
+          and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=0),
           f"raw chr routes: {({k: v['launches'] for k, v in runs.items()})}")
     # the stages of -s, whose toehold loop is this index's own (count and -m
     # run K1 as on the dense index, phases main and markers)
@@ -2459,9 +2665,9 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
         ("count", paths["reads.fq"], [], "".join(count["lines"]), N_READS),
         ("-s", paths["locate.fq"], ["-s"], loc["out_text"], N_LOCATE),
         ("-m", paths["locate.fq"], ["-m"], markers["out_text"], N_LOCATE)], paths["out.txt"])
-    check(runs["count"]["launches"] == dict(k1=0, k1_fb2=0, torch=N_READS // BATCH)
-          and runs["-m"]["launches"] == dict(k1=0, k1_fb2=0, torch=n_loc)
-          and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, torch=0),
+    check(runs["count"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=N_READS // BATCH)
+          and runs["-m"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=n_loc)
+          and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=0),
           f"no-dense chr routes: {({k: v['launches'] for k, v in runs.items()})}")
     _, tx = load_dense(device, out_dir, "-s")
     resident = {k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()}
@@ -2692,9 +2898,9 @@ def phase_build_small(device, card: dict) -> dict:
         runs[x] = align_runs(device, p[x], [(tag, fq["reads"], f, want[tag], N_SMALL_READS)
                                             for tag, f in modes if not (x == "x" and f == ["-s"])],
                              out_txt)
-    k1 = dict(k1=1, k1_fb2=0, torch=0)
-    torch_route = dict(k1=0, k1_fb2=0, torch=1)
-    none = dict(k1=0, k1_fb2=0, torch=0)
+    k1 = dict(k1=1, k1_fb2=0, k1_rec=0, torch=0)
+    torch_route = dict(k1=0, k1_fb2=0, k1_rec=0, torch=1)
+    none = dict(k1=0, k1_fb2=0, k1_rec=0, torch=0)
     # the pangenome builders' routes: the merge's and PFP's BigIndex directories
     t = time.perf_counter()
     big_dirs = small_big_dirs(SMALL, dense.alpha, dense.doc_names, d)
@@ -2713,9 +2919,10 @@ def phase_build_small(device, card: dict) -> dict:
             runs[f"big_{route}"][tag] = dict(
                 cli, reads=N_SMALL_READS, cli_reads_per_s=N_SMALL_READS / cli["cli_query_s"],
                 launches=route_counts(), identical=got == want[tag])
-    k1_fb2 = dict(k1=0, k1_fb2=1, torch=0)
+    k1_fb2 = dict(k1=0, k1_fb2=1, k1_rec=0, torch=0)
+    k1_rec = dict(k1=0, k1_fb2=0, k1_rec=1, torch=0)
     routes = {x: {t: v["launches"] for t, v in runs[x].items()} for x in ("big_merge", "big_pfp")}
-    check(all(r[tag] == (none if tag == "-s" else k1_fb2) for r in routes.values() for tag in r),
+    check(all(r[tag] == (k1_rec if tag == "-s" else k1_fb2) for r in routes.values() for tag in r),
           f"the builders' routes: {routes}")
     check(all(runs["big_pfp"][tag]["identical"] for tag, _ in modes)
           and runs["big_merge"]["count"]["identical"],
@@ -3473,9 +3680,10 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err:
     `bound_us`, the larger of the byte bound and the latency bound.  K1 over
     the two-level rows (lf_count_fb2) has its own entry, from phase big_chr
     (its main path: rbt_align count on the big directory), its max |err|
-    also over phases parity and pfp_big.  K1's entry also counts its
-    launches on the dp path of phase parallel_dp, over every rank
-    (`parallel_dp_launches`)."""
+    also over phases parity and pfp_big; so has its record launch
+    (lf_count_fb2_rec, main path rbt_align -s on the big directory).  K1's
+    entry also counts its launches on the dp path of phase parallel_dp, over
+    every rank (`parallel_dp_launches`)."""
     kernels = []
     for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
             ("lf_count", k1["bound"], count,
@@ -3495,6 +3703,18 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err:
                         "library_ms": None, "device_us": dev_us, "profiled_us": prof_us,
                         "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]})
     kernels[0]["parallel_dp_launches"] = par_dp["launches"]
+    # the record launch: its main path is rbt_align -s on the big_chr directory
+    r, b = big_chr["rec"], big_chr["rec"]["bound"]
+    kernels.append({
+        "name": "lf_count_fb2_rec", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
+        "replaces": "rowbowt_tpu/ops/pallas_lf.py:49 and rowbowt_tpu/engine/locate.py:120 "
+                    "(an XLA fori_loop in the JAX package)",
+        "launches": big_chr["runs"]["-s"]["rec_launches"],
+        "max_abs_err": max(par_err["lf_count_fb2_rec"], r["max_abs_err"],
+                           pfp_big["rec_max_abs_err"]),
+        "ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None, "device_us": r["device_us"],
+        "profiled_us": r["profiled_us"], "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]})
     bounds = probe_bounds(k1["us_per_dependent_step"]["tool_table"])
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
         p, pb = probes[name], bounds[name]

@@ -3,8 +3,11 @@
 The copy of rowbowt_tpu/bigindex.py (numpy only), imports renamed, kept
 line-for-line close.  The device view is engine/device.py
 TorchIndex.from_big and the position-sharded view of the mesh engines is
-sharded_index (parallel/sharded_dense.py); the opt-in nibble-count marker
-rows (marker_nibble_rank, RBT_MA_NIB) are not ported.
+sharded_index (parallel/sharded_dense.py).  The nibble-count marker rows
+(marker_nibble_rank, BigIndex._ma_cnt64) are here with the JAX package's
+cache, but no device route takes them: the JAX package's RBT_MA_NIB opt-in
+was not ported, since on an H100 they probed no faster than the bucketed
+bound, at several times its device memory (PERF.md §6).
 
 The reference contract is u64 row indices throughout (toehold_sa.hpp:133-155);
 device gathers want int32 row ids.  The two-level layout splits the
@@ -37,9 +40,9 @@ All row/position values pack into u32 below n = 2^32; lanes stay int64 end
 to end (the reference's u64 contract).
 
 The disk caches next to an artifact (fb2_64.npy, phi_rows.npy with
-phi_delta.npy, ma_runpack.npz) keep the JAX package's names and formats, so
-either package reads the other's; here each is checked against the artifact's
-shapes before use and rebuilt when it does not fit.
+phi_delta.npy, ma_runpack.npz, ma_cnt64.npy) keep the JAX package's names
+and formats, so either package reads the other's; here each is checked
+against the artifact's shapes before use and rebuilt when it does not fit.
 """
 
 from __future__ import annotations
@@ -146,6 +149,43 @@ def big_marker_tables(sa: np.ndarray, marker_tpos: np.ndarray,
     rows = isa[ps].astype(np.int64)
     srt = np.lexsort((vals, rows))
     return rows[srt].astype(pos_dt), vals[srt]
+
+
+def marker_nibble_rank(ma_row: np.ndarray, n: int) -> np.ndarray | None:
+    """ONE-gather ma_start1: int32[n/64 + 1, 16] fused 64-byte rows of
+    [entries-before-block ckpt | 8 packed u32 words of per-row 4-bit entry
+    counts | 7 pad] per 64 BWT rows — the same 64B/16-lane row shape as the
+    fb2_64 rank table (1 B/row, so 2.2 GB at n = 2.2 G), 16 lanes a row
+    as in the JAX package, so the two share the ma_cnt64.npy cache.
+
+    ms_at(i) = ckpt + SWAR nibble-SUM of counts below i's offset
+    (ops.rank._ms_nibble): one row gather a probe, where the bucketed search
+    takes one bucket gather and `iters` binary-search gathers.
+
+    Returns None when any row holds > 15 entries (callers fall back to the
+    bucketed bound) — at wsize=10 that needs 16+ variants within one window,
+    absent from any real panel."""
+    M = int(ma_row.shape[0])
+    if M >= (1 << 31):
+        return None  # int32 checkpoint lanes
+    nb = (n + 63) >> 6
+    rows64 = np.zeros((nb + 1, 16), dtype=np.int32)
+    if M:
+        ur, cnt = np.unique(np.asarray(ma_row), return_counts=True)
+        if int(cnt.max()) > 15:
+            return None
+        words = np.zeros(nb * 8, dtype=np.uint32)
+        np.add.at(words, (ur >> 3).astype(np.int64),
+                  cnt.astype(np.uint32) << ((ur.astype(np.uint32) & 7) * 4))
+        rows64[:nb, 1:9] = words.reshape(nb, 8).view(np.int32)
+        del words
+        # exclusive cumulative entries before each 64-row block
+        bounds = np.minimum(np.arange(nb + 1, dtype=np.int64) << 6, n)
+        ck = np.searchsorted(np.asarray(ma_row),
+                             bounds.astype(ma_row.dtype), side="left")
+        assert int(ck[-1]) == M
+        rows64[:, 0] = ck.astype(np.int32)
+    return rows64
 
 
 _PHI_POS = 480  # positions per 64B phi row: [ckpt i32 | 15 u32 bit words]
@@ -357,6 +397,22 @@ class BigIndex:
         if cache:
             np.save(cache, fb)
         return fb
+
+    def _ma_cnt64(self) -> np.ndarray | None:
+        """The nibble-count marker rank rows (marker_nibble_rank), disk-cached
+        next to the artifact (like the fb2_64 repack); None on >15-entry rows.
+        Unlike the JAX package's, not gated on RBT_MA_NIB: no device route
+        of the port calls it.  A cache that is not [((n + 63) >> 6) + 1, 16]
+        int32 is rebuilt."""
+        cache = self._cache("ma_cnt64.npy")
+        if cache and os.path.exists(cache):
+            nib = np.load(cache, mmap_mode="r")
+            if nib.shape == (((self.n + 63) >> 6) + 1, 16) and nib.dtype == np.int32:
+                return nib
+        nib = marker_nibble_rank(self.ma_row, self.n)
+        if nib is not None and cache:
+            np.save(cache, nib)
+        return nib
 
     def _ma_runpack(self):
         """The run-pack marker-rank tables (marker_run_pack), disk-cached

@@ -10,6 +10,17 @@
 // lf_step_fblock2: int64 lanes, superblock-local checkpoints completed by an
 // int64 base per superblock and code, rows of 64, 128 or 256 symbols, and
 // no ftab (big artifacts carry none).
+// Given a record buffer, that entry's search (its REC instance) also writes
+// each lane's pre-step hi of every step into an int64 [L, B] record:
+// the step record of the trajectory toehold of a big index
+// (rowbowt_tpu_torch/engine/locate.py _toehold_trajectory), which the JAX
+// package runs as an XLA fori_loop (rowbowt_tpu/engine/locate.py:120).  The
+// record is L * B * 8 bytes of coalesced writes (the lanes of a warp are
+// neighbouring columns of one row of it) beside the search's row loads, and
+// it runs to L: after a failure its entries are 0 (the empty range's hi),
+// past the read's length the final hi.  Those writes are the only bytes it
+// adds to the bound; a chr batch took 1.21x the search without the record
+// on an H100 (PERF.md §6).
 //
 // What bounds it on the H100.  A lane's step is two ranks, each over one
 // random row of a table that the 50 MB L2 does not hold (160 MB of fblock64
@@ -224,16 +235,20 @@ __device__ __forceinline__ int64_t base_of(const int64_t* __restrict__ base, int
 // global memory at every step (for batches too wide to stage).  Lane is
 // int32_t for the single-level rows, with the ftab start; int64_t for the
 // two-level rows, with `base` and `per_blk` and without the ftab (k is 0).
-template <typename Lane, int SYMS, bool STAGE>
+// REC (two-level rows only) writes hi_rec[j][b], lane b's hi before step j,
+// for every j in [0, L).
+template <typename Lane, int SYMS, bool STAGE, bool REC>
 __global__ void __launch_bounds__(1024)
 lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
                 const int64_t* __restrict__ base, int per_blk,
                 int A, Lane n, const int32_t* __restrict__ q,
                 const int32_t* __restrict__ lengths, int B, int L,
                 const int32_t* __restrict__ ftab, int k, uint32_t acgt,
-                Lane* __restrict__ lo_out, Lane* __restrict__ hi_out) {
+                Lane* __restrict__ lo_out, Lane* __restrict__ hi_out,
+                Lane* __restrict__ hi_rec) {
   using Lo = Layout<SYMS>;
   constexpr bool kTwoLevel = sizeof(Lane) == 8;
+  static_assert(kTwoLevel || !REC, "the step record is the two-level search's");
   extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when STAGE
   __shared__ Lane sF[kCkpt + 1];
 
@@ -307,9 +322,11 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   const int jend = min(len, L);
   for (; j < jend; ++j) {
     const int c = code_at(L - 1 - j);
+    if (REC && sub == 0) hi_rec[(size_t)j * B + b] = hi;
     if (c >= A) {  // absent code: empty range, lane done
       lo = 1;
       hi = 0;
+      if (REC) ++j;  // step j is recorded
       break;
     }
     // rank(n, c) is the code's total count; hi + 1 does reach n
@@ -343,6 +360,7 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
     if (ci <= 0) {
       lo = 1;
       hi = 0;
+      if (REC) ++j;  // step j is recorded
       break;
     }
     lo = sF[c] + cb;
@@ -351,6 +369,9 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   if (sub == 0) {
     lo_out[b] = lo;
     hi_out[b] = hi;
+    // the steps not taken: 0 after a failure, the final hi past the read
+    if (REC)
+      for (; j < L; ++j) hi_rec[(size_t)j * B + b] = hi;
   }
 }
 
@@ -370,24 +391,32 @@ struct Args {
   uint32_t acgt;
   Lane* lo;
   Lane* hi;
+  Lane* hi_rec;  // [L, B], or null for no step record
 };
 
-template <typename Lane, int SYMS, bool STAGE>
+template <typename Lane, int SYMS, bool STAGE, bool REC>
 int launch(const Args<Lane>& a, int threads, cudaStream_t s) {
   const int lanes = threads / kG;
   const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
-  lf_count_kernel<Lane, SYMS, STAGE><<<grid, threads, smem, s>>>(
+  lf_count_kernel<Lane, SYMS, STAGE, REC><<<grid, threads, smem, s>>>(
       a.fb, a.F, a.base, a.per_blk, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt,
-      a.lo, a.hi);
+      a.lo, a.hi, a.hi_rec);
   return (int)cudaGetLastError();
 }
 
-template <typename Lane, int SYMS>
+template <typename Lane, int SYMS, bool REC = false>
 int launch_staged(const Args<Lane>& a, int threads, bool stage, cudaStream_t s) {
-  return stage ? launch<Lane, SYMS, true>(a, threads, s)
-               : launch<Lane, SYMS, false>(a, threads, s);
+  return stage ? launch<Lane, SYMS, true, REC>(a, threads, s)
+               : launch<Lane, SYMS, false, REC>(a, threads, s);
+}
+
+// The two-level search, with the step record when a.hi_rec is not null.
+template <int SYMS>
+int launch_fb2(const Args<int64_t>& a, int threads, bool stage, cudaStream_t s) {
+  return a.hi_rec ? launch_staged<int64_t, SYMS, true>(a, threads, stage, s)
+                  : launch_staged<int64_t, SYMS>(a, threads, stage, s);
 }
 
 bool bad_launch(int A, int B, int L, int threads) {
@@ -420,7 +449,7 @@ int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
                         nullptr, 0, A, n,
                         static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
                         B, L, static_cast<const int32_t*>(ftab), k, (uint32_t)acgt,
-                        static_cast<int32_t*>(lo), static_cast<int32_t*>(hi)};
+                        static_cast<int32_t*>(lo), static_cast<int32_t*>(hi), nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   if (syms_per_row == 64) return launch_staged<int32_t, 64>(a, threads, stage, s);
   if (syms_per_row == 128) return launch_staged<int32_t, 128>(a, threads, stage, s);
@@ -431,10 +460,14 @@ int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
 // [n_sup, 8] and per_blk rows a superblock (the resident layout's own:
 // twice the artifact's for the 64-symbol repack), n as 64 bits, int64 lo and
 // hi out; syms_per_row is 64 (fb2_64), 128 (fb2) or 256 (fb2_256).  No ftab.
-// The other arguments and the return value are rbt_lf_count's.
+// With hi_rec (int64 [L, B]) it also writes the step record: hi_rec[j][b]
+// is lane b's hi before step j, 0 after the step at which the lane's range
+// became empty, and the final hi for j >= its length; a null hi_rec writes
+// none.  The other arguments and the return value are rbt_lf_count's.
 int rbt_lf_count_fb2(const void* fb, int syms_per_row, const void* F, const void* base,
                      int per_blk, int A, long long n, const void* q, const void* lengths,
-                     int B, int L, void* lo, void* hi, int threads, int stage, void* stream) {
+                     int B, int L, void* lo, void* hi, void* hi_rec, int threads, int stage,
+                     void* stream) {
   const int shift = syms_per_row == 64 ? 6 : syms_per_row == 128 ? 7 : 8;
   if (bad_launch(A, B, L, threads) || n < 1 || ((n - 1) >> shift) >= INT32_MAX ||
       per_blk < 1 || base == nullptr)
@@ -444,11 +477,12 @@ int rbt_lf_count_fb2(const void* fb, int syms_per_row, const void* F, const void
                         static_cast<const int64_t*>(base), per_blk, A, (int64_t)n,
                         static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
                         B, L, nullptr, 0, 0u,
-                        static_cast<int64_t*>(lo), static_cast<int64_t*>(hi)};
+                        static_cast<int64_t*>(lo), static_cast<int64_t*>(hi),
+                        static_cast<int64_t*>(hi_rec)};
   cudaStream_t s = (cudaStream_t)stream;
-  if (syms_per_row == 64) return launch_staged<int64_t, 64>(a, threads, stage, s);
-  if (syms_per_row == 128) return launch_staged<int64_t, 128>(a, threads, stage, s);
-  if (syms_per_row == 256) return launch_staged<int64_t, 256>(a, threads, stage, s);
+  if (syms_per_row == 64) return launch_fb2<64>(a, threads, stage, s);
+  if (syms_per_row == 128) return launch_fb2<128>(a, threads, stage, s);
+  if (syms_per_row == 256) return launch_fb2<256>(a, threads, stage, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -65,6 +65,21 @@ class TorchIndex:
     def has_dense(self) -> bool:
         return "bwt4" in self.arrays
 
+    # run-space tables shadowed by the dense fast paths (the JAX package's
+    # DeviceIndex._LEAN_DROP): occ and ltk are A x R each
+    _LEAN_DROP = ("occ_flat", "cruns_flat", "cruns_off", "ltk",
+                  "pred_pos", "pred_to_run")
+
+    def lean(self) -> "TorchIndex":
+        """A view without the run-space rank and toehold tables
+        (rowbowt_tpu/engine/device.py DeviceIndex.lean).  Valid when a dense
+        LF backend (occ1, fblock, fblock64 or bwt4) plus kval and phi1 cover
+        every engine path; keeps run_start and samples_last (R-sized)."""
+        assert ("occ1_flat" in self.arrays or "fblock" in self.arrays
+                or "fblock64" in self.arrays or "bwt4" in self.arrays)
+        arrs = {k: v for k, v in self.arrays.items() if k not in self._LEAN_DROP}
+        return dataclasses.replace(self, arrays=arrs)
+
     @staticmethod
     def from_arrays(arrays: dict[str, np.ndarray], *, n: int, R: int, A: int,
                     ma_wsize: int, ftab_k: int, acgt_codes, device, ma_bs: tuple = (),
@@ -132,7 +147,8 @@ class TorchIndex:
         (`fb2_256`) and are never repacked.  with_locate / with_markers
         (default: whatever the artifact carries) add the O(R) toehold and phi
         tables and the O(M) marker tables: the flag-gated partial load of
-        the reference (rowbowt_io.hpp:146-189)."""
+        the reference (rowbowt_io.hpp:146-189).  The marker bounds come from
+        the run pack, else from the bucketed CSR."""
         from rowbowt_tpu_torch.bigindex import marker_buckets
 
         if with_locate is None:

@@ -12,8 +12,11 @@ and find_locs is the whole-read search plus the phi walk.
 
 A big (n >= 2^31) index has no kval: its toehold comes from the trajectory
 of the search (traj_nontrivial, traj_resolve_toehold), a resolve over its
-O(R) run tables after a count loop that records each step's hi.  An index
-built from run samples alone (a raw `.bwt/.ssa/.esa` or `.rbwt` build, or
+O(R) run tables after a count search that records each step's hi: on a CUDA
+device K1's record launch over the two-level rows, which raises rather than
+fall back to the torch loop; on the CPU that loop.  The checkpointed search
+(find_ranges_w_toehold_chkpnts) keeps its own torch loop.  An index built
+from run samples alone (a raw `.bwt/.ssa/.esa` or `.rbwt` build, or
 `--no-dense`) has no kval either: the toehold rides through the loop step by
 step (RowBowt::LF_w_loc, rowbowt.hpp:553-573), over occ1 + tk1 when they are
 resident, else over the run-space tables and ltk.  That loop is torch on
@@ -27,6 +30,7 @@ import torch
 
 from rowbowt_tpu_torch.engine.count import find_ranges
 from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.ops import cuda_lf
 from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops import update as U
 
@@ -131,29 +135,15 @@ def span_toeholds(tx: TorchIndex, qcodes, hi_rec, m, a, b):
 
 def _toehold_trajectory(tx: TorchIndex, qcodes, lengths):
     """Toehold by trajectory postpass, the big-index (n >= 2^31) path: the
-    count LF loop over the two-level rows, which records each step's
-    pre-step hi ([L, B]), then the resolve of traj_resolve_toehold over the
-    whole read.  The loop is the plain torch one on every device: K1's fused
-    search keeps no step record, so lanes whose toehold is wanted cannot
-    take it (a K1 variant that writes the record is later work)."""
-    B, L = qcodes.shape
+    count search over the two-level rows, which records each step's
+    pre-step hi ([L, B]; ops/cuda_lf.find_ranges_record: the record launch
+    of K1 on a CUDA device, the plain torch loop on the CPU), then the
+    resolve of traj_resolve_toehold over the whole read."""
+    B = qcodes.shape[0]
     dt = torch.int64
-    dev = qcodes.device
     m = lengths.to(dt)
-    lo = torch.zeros(B, dtype=dt, device=dev)
-    hi = torch.full((B,), tx.n - 1, dtype=dt, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    hi_rec = torch.zeros((L, B), dtype=dt, device=dev)
-    step = R.lf_step_auto(tx)
-    for j in range(L):
-        c = qcodes[:, L - 1 - j].to(dt)
-        active = (~done) & (j < m)
-        hi_rec[j] = hi
-        nlo, nhi = step(tx, lo, hi, c)
-        lo = torch.where(active, nlo, lo)
-        hi = torch.where(active, nhi, hi)
-        done = done | (active & (nlo > nhi))
-    k = span_toeholds(tx, qcodes, hi_rec, m, torch.zeros((1, B), dtype=dt, device=dev),
+    lo, hi, hi_rec = cuda_lf.find_ranges_record(tx, qcodes, lengths)
+    k = span_toeholds(tx, qcodes, hi_rec, m, torch.zeros((1, B), dtype=dt, device=m.device),
                       (m - 1)[None, :])[0]
     return lo, hi, torch.where(hi < lo, 0, k)
 

@@ -1,10 +1,11 @@
 """Reference-exact query algorithms over RbtIndex, in plain numpy/python.
 
-The part of the JAX package's executable spec (rowbowt_tpu/engine/naive.py)
-that the port's paths need, copied line for line: the run-space rank/LF, the
-toehold and phi walk, the marker probes, greedy and L-MEM seeding, the ftab
-and checkpointed search.  These never read the fused-block rows or the dense
-tables, so they are an independent oracle for the batched engine.
+The copy of the JAX package's executable spec (rowbowt_tpu/engine/naive.py),
+line for line with its import renamed: the run-space rank/LF and count, the
+toehold and phi walk, the marker probes, greedy, overlap and L-MEM seeding,
+the ftab and the checkpointed search.  These never read the fused-block rows
+or the dense tables, so they are an independent oracle for the batched
+engine.
 
 All functions take character *codes* (index alphabet); code < 0 == char absent.
 """
@@ -25,6 +26,10 @@ EMPTY = (1, 0)  # reference empty-range encoding (rowbowt.hpp:77)
 def run_of(idx: RbtIndex, i: int) -> int:
     """Run containing BWT position i (rle_string::run_of_position equivalent)."""
     return int(np.searchsorted(idx.run_start, i, side="right")) - 1
+
+
+def bwt_at(idx: RbtIndex, i: int) -> int:
+    return int(idx.run_head[run_of(idx, i)])
 
 
 def rank(idx: RbtIndex, i: int, c: int) -> int:
@@ -54,6 +59,24 @@ def lf_range(idx: RbtIndex, rn, c: int):
         return EMPTY
     lo = int(idx.F[c]) + c_before
     return (lo, lo + c_inside - 1)
+
+
+def find_range(idx: RbtIndex, codes: np.ndarray, use_ftab: bool = True):
+    """RowBowt::find_range (rowbowt.hpp:121-131): backward search, right to left."""
+    rn = full_range(idx)
+    m = len(codes)
+    i = 0
+    if use_ftab and idx.ftab is not None and m >= idx.ftab_k:
+        rn, i = search_ftab(idx, codes[m - idx.ftab_k:])
+    while i < m and rn[1] >= rn[0]:
+        rn = lf_range(idx, rn, int(codes[m - i - 1]))
+        i += 1
+    return rn
+
+
+def count(idx: RbtIndex, codes: np.ndarray) -> int:
+    rn = find_range(idx, codes)
+    return rn[1] - rn[0] + 1 if rn[1] >= rn[0] else 0
 
 
 # ---------------- toehold locate ----------------
@@ -428,3 +451,97 @@ def find_range_w_toehold_chkpnts(idx: RbtIndex, codes: np.ndarray, wsize: int) -
         lfs.append(LFData(rn=rn, qstart=0, qend=m, ssamp=k))
     return lfs
 
+
+def get_markers_greedy_overlap_seeding(idx, codes, wsize, max_range, fn,
+                                       max_steps: int | None = None):
+    """RowBowt::get_markers_greedy_overlap_seeding (rowbowt.hpp:485-551).
+
+    On seed failure the restart kmer OVERLAPS the failed seed (i is rewound by
+    ftab k-1).  NB the reference routine can livelock when the rewound scan
+    cannot reach a kmer probe (e.g. an absent char among the first k-1 query
+    chars) — one reason rb_markers hard-disables it (rb_markers.cpp:121-124).
+    We guard with max_steps (default 4*m + 16) and raise instead of looping.
+    """
+    if idx.ftab is None:
+        raise ValueError("ftab required for this function")
+    k = idx.ftab_k
+    if k - 1 > wsize:
+        raise ValueError("wsize cannot be less than ftab k-1")
+    m = len(codes)
+    prev = full_range(idx)
+    rn = full_range(idx)
+    i = 0
+    if m >= k:
+        rn, i = search_ftab(idx, codes[m - k:])
+        prev = rn
+    window_ei, seed_ei = m, m
+    mbuf: list = []
+    steps = 0
+    budget = max_steps if max_steps is not None else 4 * m + 16
+
+    def update_mbuf(r):
+        nonlocal mbuf
+        if r[1] - r[0] + 1 <= max_range:
+            mbuf = mbuf + list(markers_at_range(idx, r[0], r[1]))
+
+    while i < m:
+        steps += 1
+        if steps > budget:
+            raise RuntimeError(
+                "overlap seeding livelocked (reference-inherited pathology)")
+        rn = lf_range(idx, rn, int(codes[m - i - 1]))
+        if rn[1] < rn[0]:
+            if seed_ei - (m - i) >= wsize:
+                update_mbuf(prev)
+            fn(prev, (m - i, seed_ei - 1), mbuf)
+            mbuf = []
+            prev = full_range(idx)
+            i = i + 1 - k if i + 1 >= k else i  # overlap rewind (rowbowt.hpp:519)
+            seed_ei = m - i - 1
+            window_ei = m - i - 1
+            if m - i - 1 >= k:
+                while m - i - 1 >= k:
+                    seed_ei = m - i - 1
+                    window_ei = m - i - 1
+                    rn, _ = search_ftab(idx, codes[m - i - 1 - k: m - i - 1])
+                    if rn[0] <= rn[1]:
+                        i += k
+                        prev = rn
+                        break
+                    rn = full_range(idx)
+                    i += 1
+            else:
+                rn = full_range(idx)
+        else:
+            if window_ei - (m - i - 1) >= wsize:
+                update_mbuf(rn)
+                window_ei = m - i - 1
+            prev = rn
+        i += 1
+
+    if seed_ei - (m - i) >= wsize:
+        update_mbuf(rn)
+    fn(rn, (m - i, seed_ei - 1), mbuf)
+
+
+def get_seeds_greedy(idx: RbtIndex, codes: np.ndarray, min_length: int) -> list[LFData]:
+    """RowBowt::get_seeds_greedy (rowbowt.hpp:191-215): like the _w_sample
+    variant but without toehold tracking, and the final seed is pushed
+    UNconditionally (no min_length gate on the tail, rowbowt.hpp:212)."""
+    out: list[LFData] = []
+    m = len(codes)
+    rn = full_range(idx)
+    prev = full_range(idx)
+    ei = m
+    for i in range(m):
+        rn = lf_range(idx, rn, int(codes[m - i - 1]))
+        if rn[1] < rn[0]:
+            if ei - (m - i) >= min_length:
+                out.append(LFData(rn=prev, qstart=m - i, qend=ei))
+            rn = full_range(idx)
+            prev = full_range(idx)
+            ei = m - i - 1
+        else:
+            prev = rn
+    out.append(LFData(rn=prev, qstart=0, qend=ei))
+    return out

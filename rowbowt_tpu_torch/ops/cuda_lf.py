@@ -11,7 +11,11 @@ On a big (n >= 2^31) index the same kernel runs over the two-level rows
 (`fb2_64`, the default, `fb2` or `fb2_256`) with int64 lanes, F and base and
 no ftab (C entry rbt_lf_count_fb2): the counterpart of
 rowbowt_tpu/engine/count.py:find_ranges over rowbowt_tpu/ops/rank.py
-lf_step_fblock2, which the JAX package runs as XLA gathers.
+lf_step_fblock2, which the JAX package runs as XLA gathers.  Given a record
+buffer (the entry's `hi_rec`, null otherwise) it also writes each lane's
+pre-step hi of every step, the int64 [L, B] step record of a big index's trajectory
+toehold (engine/locate._toehold_trajectory), which the JAX package runs as
+an XLA fori_loop (rowbowt_tpu/engine/locate.py:120).
 
 `find_ranges` is the wrapper: for CUDA tensors it launches the kernel (and
 adds one to LAUNCHES, or to LAUNCHES_FB2 over the two-level rows) or raises;
@@ -22,6 +26,12 @@ is held against on the card.  An index without fused-block rows (a
 CUDA device its search is that torch loop over the occ1, dense or run-space
 step (ops/rank.lf_step_auto), chosen from the index's tables before anything
 launches, and each such search adds one to LAUNCHES_TORCH.
+
+`find_ranges_record` is the record mode's wrapper: for CUDA tensors the
+record launch (adding one to LAUNCHES_REC) or an error, never the torch
+loop; for CPU tensors `find_ranges_record_plain`, `lf_loop_plain` from
+the full range writing its record, which is also what the kernel is held against on the card (each of
+its runs adds one to RECORDS_PLAIN).
 """
 
 from __future__ import annotations
@@ -41,6 +51,10 @@ from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 LAUNCHES = 0
 LAUNCHES_FB2 = 0
 LAUNCHES_TORCH = 0
+# record launches (the two-level search that writes its step record), and
+# runs of its torch twin on any device
+LAUNCHES_REC = 0
+RECORDS_PLAIN = 0
 
 GROUP = 2  # threads per lane (csrc/lf.cu kG): two 16-byte parts of a 64 B row each
 LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
@@ -54,7 +68,8 @@ _SYMS_PER_ROW = {"fblock64": 64, "fblock": 128, "fb2_64": 64, "fb2": 128, "fb2_2
 
 def build():
     """Compile csrc/lf.cu (once per process) and bind its C entry points:
-    rbt_lf_count (K1), rbt_lf_count_fb2 (K1 over the two-level rows) and
+    rbt_lf_count (K1), rbt_lf_count_fb2 (K1 over the two-level rows, with
+    the step record when its hi_rec is not null) and
     rbt_lf_count_transposed (the earlier design, which only chip_smoke.py
     launches, to time it beside K1)."""
     global _LIB, BUILD_LOG
@@ -68,7 +83,7 @@ def build():
     lib.rbt_lf_count_transposed.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, vp,
                                             vp]
     lib.rbt_lf_count_fb2.argtypes = [vp, ci, vp, vp, ci, ci, ctypes.c_longlong, vp, vp, ci, ci,
-                                      vp, vp, ci, ci, vp]
+                                      vp, vp, vp, ci, ci, vp]
     lib.rbt_lf_count.restype = lib.rbt_lf_count_transposed.restype = ci
     lib.rbt_lf_count_fb2.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
@@ -119,16 +134,21 @@ def lf_start(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     return lo, hi, startj
 
 
-def lf_loop_plain(tx: TorchIndex, qcodes, lengths, lo, hi, startj):
-    """L lockstep LF steps in torch, with done-masks (engine/count.py:42-56)."""
+def lf_loop_plain(tx: TorchIndex, qcodes, lengths, lo, hi, startj, hi_rec=None):
+    """L lockstep LF steps in torch, with done-masks (engine/count.py:42-56),
+    in lo's dtype.  With `hi_rec` ([L, B]) each lane's hi before step j is
+    written into hi_rec[j]: the step record of rowbowt_tpu/engine/locate.py
+    _toehold_trajectory."""
     B, L = qcodes.shape
-    dt = tx.idx_dtype
+    dt = lo.dtype
     lengths = lengths.to(dt)
     done = torch.zeros(B, dtype=torch.bool, device=qcodes.device)
     step = R.lf_step_auto(tx)
     for j in range(L):
         c = qcodes[:, L - 1 - j].to(dt)
         active = (~done) & (j >= startj) & (j < lengths)
+        if hi_rec is not None:
+            hi_rec[j] = hi
         nlo, nhi = step(tx, lo, hi, c)
         lo = torch.where(active, nlo, lo)
         hi = torch.where(active, nhi, hi)
@@ -160,6 +180,33 @@ def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     return out
 
 
+def find_ranges_record_plain(tx: TorchIndex, qcodes, lengths):
+    """(lo, hi, hi_rec) of the right-aligned [B, L] codes in torch, on any
+    device: lf_loop_plain from the full range in int64, recording each
+    lane's hi before every step (hi_rec int64 [L, B]; once a lane's range is
+    empty its hi is 0, past its length the final hi)."""
+    global RECORDS_PLAIN
+    RECORDS_PLAIN += 1
+    B, L = qcodes.shape
+    dev = qcodes.device
+    lo = torch.zeros(B, dtype=torch.int64, device=dev)
+    hi = torch.full((B,), tx.n - 1, dtype=torch.int64, device=dev)
+    hi_rec = torch.zeros((L, B), dtype=torch.int64, device=dev)
+    lo, hi = lf_loop_plain(tx, qcodes, lengths, lo, hi, torch.zeros_like(lo), hi_rec)
+    return lo, hi, hi_rec
+
+
+def find_ranges_record(tx: TorchIndex, qcodes, lengths):
+    """(lo, hi, hi_rec) with the step record of every lane: the record
+    launch for CUDA tensors (two-level rows only; anything else raises), the
+    plain torch loop for CPU tensors, an error for any other device."""
+    if qcodes.device.type == "cpu":
+        return find_ranges_record_plain(tx, qcodes, lengths)
+    if qcodes.device.type != "cuda":
+        raise ValueError(f"no LF loop for device {qcodes.device}")
+    return launch_k1(tx, qcodes, lengths.to(torch.int32), use_ftab=False, record=True)
+
+
 def row_layout(tx: TorchIndex) -> str | None:
     """The key of the fused-block rows the LF loop reads, lf_step_auto's
     choice, or None for an index without them (the occ1, dense and run-space
@@ -170,17 +217,21 @@ def row_layout(tx: TorchIndex) -> str | None:
     return {R.lf_step_fblock64: "fblock64", R.lf_step_fblock: "fblock"}.get(step)
 
 
-def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
-    """Launch K1 on CUDA tensors, shaped by launch_plan.  The rows, codes and
-    lengths are int32 on every layout; F (and the ftab) int32 on the
-    single-level rows, F and fb2_base int64 on the two-level ones, whose
-    lanes come out int64."""
-    global LAUNCHES, LAUNCHES_FB2
+def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bool = False):
+    """Launch K1 on CUDA tensors, shaped by launch_plan: (lo, hi), or with
+    `record` (two-level rows only) (lo, hi, hi_rec) with the int64 [L, B]
+    step record.  The rows, codes and lengths are int32 on every layout; F
+    (and the ftab) int32 on the single-level rows, F and fb2_base int64 on
+    the two-level ones, whose lanes come out int64."""
+    global LAUNCHES, LAUNCHES_FB2, LAUNCHES_REC
     key = row_layout(tx)
     if key is None:
         raise ValueError("K1 reads fused-block rows; this index has none "
                          "(find_ranges takes the torch loop for it)")
     two_level = key in R.FB2_KEYS
+    if record and not two_level:
+        raise ValueError(f"the step record is the two-level search's; {key} rows are "
+                         "single-level")
     lane = torch.int64 if two_level else torch.int32
     fb, F = tx.arrays[key], tx.arrays["F"]
     B, L = qcodes.shape
@@ -223,6 +274,7 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
     lo = torch.empty(B, dtype=lane, device=dev)
     hi = torch.empty(B, dtype=lane, device=dev)
+    hi_rec = torch.empty((L, B), dtype=lane, device=dev) if record else None
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads, staged = launch_plan(B, L, _sm_count(d))
     lib = _LIB or build()
@@ -231,7 +283,8 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
         entry = lib.rbt_lf_count_fb2
         args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), base.data_ptr(),
                 fb.shape[0] // base.shape[0], tx.A, tx.n, qcodes.data_ptr(), lengths.data_ptr(),
-                B, L, lo.data_ptr(), hi.data_ptr(), threads, int(staged))
+                B, L, lo.data_ptr(), hi.data_ptr(), hi_rec.data_ptr() if record else None,
+                threads, int(staged))
     else:
         entry = lib.rbt_lf_count
         args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A, tx.n, qcodes.data_ptr(),
@@ -244,8 +297,10 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
             rc = entry(*args, _raw_stream(d))
     if rc != 0:
         raise RuntimeError(f"LF kernel launch failed: {lib.rbt_cuda_error_string(rc).decode()}")
-    if B and two_level:
+    if B and record:
+        LAUNCHES_REC += 1
+    elif B and two_level:
         LAUNCHES_FB2 += 1
     elif B:
         LAUNCHES += 1
-    return lo, hi
+    return (lo, hi, hi_rec) if record else (lo, hi)

@@ -399,10 +399,6 @@ def markers_bounds(tx: TorchIndex, lo, hi):
         # iters binary-search gathers
         s = _ms_bucketed(tx, torch.clamp(lo, 0, tx.n))
         e = _ms_bucketed(tx, torch.clamp(hi + 1, 0, tx.n))
-    elif "ma_cnt64" in arr:
-        raise NotImplementedError(
-            "the nibble-count marker rows (RBT_MA_NIB) are not ported; "
-            "unset RBT_MA_NIB to get the run-pack or bucketed tables")
     else:
         # binary search over the sorted marker rows (indexes without ma_start1)
         mr = arr["ma_row"]
@@ -472,6 +468,33 @@ def _ms_runs(tx: TorchIndex, i):
     mu = (packed >> 56) & 0x7F
     rank = cum + mu * torch.minimum(torch.clamp(isafe - start, min=0), ln)
     return torch.where(jj < 0, 0, rank).to(i.dtype)
+
+
+def _ms_nibble(tx: TorchIndex, i):
+    """ma_start1[i] via the nibble-count fused rows (bigindex.
+    marker_nibble_rank) in tx.arrays["ma_cnt64"]: one 64 B/16-lane row
+    gather ([ckpt | 8 words of per-row 4-bit entry counts | 7 pad] per 64
+    BWT rows) + a SWAR nibble sum of the counts below i's in-block offset.
+    markers_bounds does not take this route (TorchIndex.from_big puts no
+    ma_cnt64 on the device): it is the JAX package's opt-in RBT_MA_NIB
+    bound, kept with its tests.  The words are int32 bit
+    patterns, widened to int64 and masked to 32 bits (torch has no uint32
+    shifts on the CPU)."""
+    tab = tx.arrays["ma_cnt64"]  # [nb + 1, 16] int32 (64 B rows)
+    nb = tab.shape[0] - 1
+    isafe = torch.clamp(i, 0, tx.n).to(torch.int64)
+    blk = torch.clamp(isafe >> 6, max=nb)
+    off = isafe - (blk << 6)
+    row = tab[blk]
+    ck = row[:, 0].to(torch.int64)
+    words = row[:, 1:9].to(torch.int64) & _U32  # [B, 8]
+    kn = (off[:, None] - 8 * torch.arange(8, dtype=torch.int64, device=i.device)[None, :]
+          ).clamp(0, 8)
+    mask = torch.where(kn >= 8, _U32, (torch.ones_like(kn) << (4 * kn)) - 1)
+    t = words & mask
+    s1 = (t & 0x0F0F0F0F) + ((t >> 4) & 0x0F0F0F0F)
+    per_word = ((s1 * 0x01010101) & _U32) >> 24  # sum of 4 bytes (<= 120)
+    return (ck + per_word.sum(dim=1)).to(i.dtype)
 
 
 def markers_at_range(tx: TorchIndex, lo, hi, max_k: int):

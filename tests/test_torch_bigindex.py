@@ -447,7 +447,7 @@ def test_from_big_gates_the_tables(v2):
 # K1 over the two-level rows: the launch path with its C entry recorded
 
 FB2_ARGS = ("fb", "syms", "F", "base", "per_blk", "A", "n", "q", "lengths", "B", "L", "lo", "hi",
-            "threads", "stage", "stream")
+            "hi_rec", "threads", "stage", "stream")
 
 
 @pytest.fixture
@@ -495,6 +495,7 @@ def test_launch_fb2_passes_int64_n_base_and_the_layouts_per_blk(count_case, fake
     assert (a["q"], a["lengths"], a["B"], a["L"]) == (q.data_ptr(), ln.data_ptr(), *q.shape)
     for t, name in ((lo, "lo"), (hi, "hi")):
         assert t.dtype == torch.int64 and t.shape == (q.shape[0],) and t.data_ptr() == a[name]
+    assert a["hi_rec"] is None  # no step record: the count alone
     assert (a["threads"], a["stage"], a["stream"]) == (cuda_lf.launch_plan(*q.shape, 132)[0], 1,
                                                        1000)
     assert (cuda_lf.LAUNCHES_FB2, cuda_lf.LAUNCHES) == (1, 0)

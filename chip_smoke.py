@@ -9,10 +9,11 @@ rbt_locs paths on one NVIDIA GPU.
                                           # parallel_sharded, parallel_stream)
 
 Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
-(csrc/gather_probe.cu), both with nvcc for sm_90a, and the host library
-(SA-IS, FASTQ reader, BWT merge, PFP and the CPU engine, g++), all three side
-by side, then starts phase pfp_big's host build (a PFP panel above 2^31) in a
-child process beside the phases before it, and runs:
+(csrc/gather_probe.cu) and the phi walk of rbt_align -s (csrc/phi_walk.cu),
+each with nvcc for sm_90a, and the host library (SA-IS, FASTQ reader, BWT
+merge, PFP and the CPU engine, g++), all four side by side, then starts
+phase pfp_big's host build (a PFP panel above 2^31) in a child process
+beside the phases before it, and runs:
 
   1. device: the card's name and `nvidia-smi` name and power limit;
   2. build: seconds taken by each build, and nvcc's register reports;
@@ -21,9 +22,15 @@ child process beside the phases before it, and runs:
      counts read, and once as a subprocess; P1-P3 against their plain twins
      and the numpy expectations at the tool's shapes, both timed per call
      with CUDA events, beside the one PyTorch call that computes P1 and P2,
-     and each kernel alone (CUDA events just around its launch); then at
-     the edges of the 16-byte path (ragged, tiny, empty and
-     4-byte-aligned inputs, P2 widths 1, 3, 100, 128);
+     and each kernel alone (CUDA events just around its launch); P3 in each
+     of its designs (the first design, and 1, 2 and 4 chains a thread), each
+     equal to its plain twin and timed alone in turns, the L2's random-load
+     rate from the same 4 MB table (the faster of P1 over 2^22 random
+     indices and P3 over 2^20 lanes, which fill every SM), the
+     dependent-load latency over that table, and P3's bound, the larger of
+     its chain's latency and its loads over that rate; then at the edges of
+     the 16-byte path (ragged, tiny, empty and 4-byte-aligned inputs, P2
+     widths 1, 3, 100, 128) and every P3 design at ragged lane counts;
   4. parity: on the small synthetic panel (1 Mbp reference + 7 haplotypes,
      n ~ 8.0 M, ftab k = 10), 65,536 reads (with absent codes, reads shorter
      than k and length-0 lanes) through K1 and through `find_ranges_plain` on
@@ -36,7 +43,12 @@ child process beside the phases before it, and runs:
      n_sup = 4: fb2_64, fb2 and fb2_256) against the plain loop and the
      single-level rows' ranges, on the batch and at the same edges, and its
      record launch (lo, hi and the [L, B] step record) against the torch
-     loop that records (cuda_lf.find_ranges_record_plain) there too;
+     loop that records (cuda_lf.find_ranges_record_plain) there too; then
+     the phi walk kernel against its plain twin (the torch walk) on the
+     batch's -s toeholds over the dense index's phi1 and over its BigIndex
+     view's phi rows, capped at 8 hits and uncapped on lanes of at most
+     4,096, and the BigIndex without phi rows walking as torch ops on the
+     card (one torch walk counted) to the same positions;
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
@@ -59,7 +71,9 @@ child process beside the phases before it, and runs:
   8. locate: `rbt_align -s` on the first 200,000 of those reads (the last
      batch is mostly padding); every read's ranges, hit count, distinct
      positions, text at each position, toehold and document offsets checked
-     on the host; stages timed one by one;
+     on the host; one walk kernel launch a batch and no torch walk; stages
+     timed one by one, the phi walk (walk_s), the document resolve (docs_s)
+     and the locs text (text_s) apart;
   9. markers: `rbt_align -m` on the same reads; every read's markers checked
      against the host CSR without ma_start1; stages timed one by one;
   9b. raw_chr: the chr index written as raw `.bwt/.ssa/.esa/.docs` and a
@@ -73,7 +87,10 @@ child process beside the phases before it, and runs:
      launch), -s (per-step toehold, predecessor phi) and -m (ma_row binary
      search) print the same lines; reads/s beside the dense index's;
  10. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
-     steps, against its plain twin and the port's torch phi walk (`locate`);
+     steps, against its plain twin, and the walk kernel (`locate`) on the
+     same lanes against the torch walk; then the walk kernel on the -s
+     batches' real lanes against its plain twin, timed per call and alone,
+     the longest lane's steps, its bound and share;
  11. greedy: `rbt_markers -f -b 32768` on the first 32,768 reads (both
      strands: 65,536 lanes in one batch); every line of the first 8,192
      reads equal to the same CLI's with `--device cpu -b 8192`, the first 1,000 reads'
@@ -105,6 +122,10 @@ child process beside the phases before it, and runs:
      resolve and the bound with the record's bytes; the -m lines over the
      two marker routes of from_big (run pack, bucketed CSR) and the bounds
      of the nibble-count rows beside them, their seconds and table GB;
+     the walk kernel over the phi rows on the -s batches' real lanes
+     against its plain twin, timed per call and alone, with the longest
+     lane's steps, the dependent-load latency of tables of the phi rows'
+     and deltas' sizes, its bound and share;
  14c. pfp_big: the giant panel's widths (19.5 Mbp reference, 19,500 sites,
      W = 10, p = 100) with 112 haplotypes, n = 2,203,501,131, built by
      tools/build_giant_index.build in the child process (256-symbol rows;
@@ -119,7 +140,9 @@ child process beside the phases before it, and runs:
      CPU engine (locate, markers, greedy seeds); stages, reads/s; the
      record launch against its plain twin over every layout and lane set,
      timed over fb2_256 (-s's route: one record launch, no torch record
-     loop); the marker routes and the nibble rows' bounds, as in big_chr;
+     loop, one walk kernel launch, no torch walk); the marker routes and the
+     nibble rows' bounds, and the walk kernel's times and bound, as in
+     big_chr;
  14d. build_small: the small panel through rbt_build_torch in every mode
      (native with --emit-ref, -x, --no-dense, the raw prefix with occ1 + tk1,
      the serialized .rbwt files, --ftab-only, a FASTA with IUPAC codes: 13
@@ -163,6 +186,11 @@ cuda_lf.RECORDS_PLAIN); pfp_big the same on its panel.  raw_chr,
 nodense_chr and build_small count every route of the count search (K1, K1
 over the two-level rows, and the torch loop of an index without fused
 rows, cuda_lf.LAUNCHES_TORCH), set to 0 before each run, and require each.
+The phi walk's routes are counted the same way (cuda_phi.LAUNCHES, the
+walk kernel, and cuda_phi.LAUNCHES_TORCH, the torch walk of an index
+without phi1 or phi rows): rbt_align -s launches the kernel once a batch
+and walks nothing in torch on dense chr, raw_chr, big_chr and pfp_big, and
+walks in torch only on nodense_chr.
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and the last line is never printed.  The last three lines of a
@@ -534,23 +562,24 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    """The two nvcc builds and the g++ build, started together."""
+    """The three nvcc builds and the g++ build, started together."""
     from rowbowt_tpu_torch.construct import sa
-    from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf
+    from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi
 
     def seconds(fn):
         t = time.perf_counter()
         return fn(), time.perf_counter() - t
 
     builds = {"nvcc_lf": cuda_lf.build, "nvcc_gather_probe": cuda_gather.build,
-              "host": sa._load_native}
+              "nvcc_phi_walk": cuda_phi.build, "host": sa._load_native}
     with ThreadPoolExecutor(len(builds)) as ex:
         futures = {name: ex.submit(seconds, fn) for name, fn in builds.items()}
         done = {name: f.result() for name, f in futures.items()}
     check(done["host"][0] is not None, f"host library did not build: {sa._NATIVE_ERROR}")
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-            for name, log in (("lf", cuda_lf.BUILD_LOG), ("gather_probe", cuda_gather.BUILD_LOG))}
+            for name, log in (("lf", cuda_lf.BUILD_LOG), ("gather_probe", cuda_gather.BUILD_LOG),
+                              ("phi_walk", cuda_phi.BUILD_LOG))}
     emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs)
 
 
@@ -593,13 +622,12 @@ def probe_library_calls(device) -> dict:
             "gather_cols": lambda: torch.gather(tab, 0, idxB)}
 
 
-def probe_bounds(us_per_step: float) -> dict:
-    """{name: {byte_us, latency_us}} of P1-P3 at the probe tool's shapes: the
-    bytes each must move (the index read once, the distinct table elements
-    it reads, the output written once) over the card's memory rate, and the
-    dependent steps (P3's 100, none for P1 and P2) times `us_per_step`, the
-    dependent-load latency of a table that the L2 holds, as the tool's 4 MB
-    table is."""
+def probe_byte_us() -> dict:
+    """{name: µs} of P1-P3 at the probe tool's shapes: the bytes each must
+    move (the index read once, the distinct table elements it reads, the
+    output written once) over the card's memory rate.  P3's bound also has
+    its chain's latency and its loads over the L2's random-load rate
+    (chain_designs)."""
     from rowbowt_tpu_torch.tools import gather_probe as gp
 
     tab_np, idx_np, idxB_np = gp.make_inputs()
@@ -614,8 +642,7 @@ def probe_bounds(us_per_step: float) -> dict:
     out = {}
     for name, d in distinct.items():
         n = idxB_np.size if name == "gather_cols" else idx_np.size
-        out[name] = dict(byte_us=(2 * n + d) * 4 / HBM_BYTES_PER_S * 1e6,
-                         latency_us=gp.STEPS * us_per_step if name == "gather_chain" else 0.0)
+        out[name] = (2 * n + d) * 4 / HBM_BYTES_PER_S * 1e6
     return out
 
 
@@ -670,11 +697,104 @@ def phase_probes(device) -> dict:
                                                         (PROBE_KERNELS[name],))[PROBE_KERNELS[name]],
                          us_per_step=k_ms * 1e3 / steps, plain_us_per_step=p_ms * 1e3 / steps,
                          ns_per_elem=k_ms * 1e6 / per_elem, plain_ns_per_elem=p_ms * 1e6 / per_elem)
+    designs = chain_designs(device, tab_np)
+    res["gather_chain"]["max_abs_err"] = max(res["gather_chain"]["max_abs_err"],
+                                             designs.pop("max_abs_err"))
+    res["gather_chain"].update(designs)
     edges = probe_edges(device, tab_np)
     for name, err in edges.pop("max_abs_err").items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
     emit("probes", tool=lines, subprocess=sub, edges=edges, **res)
     return res
+
+
+RATE_LOADS = 1 << 22  # P1's independent loads that measure the L2's random-load rate
+SAT_LANES = 1 << 20  # P3's lanes that fill every SM, for the same rate from its chains
+LATENCY_LANES, LATENCY_STEPS = 32, 10_000  # P3 that measures a dependent load's latency
+
+
+def dependent_latency_us(device, tab) -> float:
+    """Microseconds of one dependent load from the int32 table `tab`: P3 on
+    LATENCY_LANES lanes (one warp), LATENCY_STEPS steps a call, CUDA events
+    over the call.  Every index must lie in the table."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_gather as G
+
+    rng = np.random.default_rng(5)
+    start = torch.from_numpy(rng.integers(0, tab.numel(), LATENCY_LANES,
+                                          dtype=np.int32)).to(device)
+    return cuda_ms([lambda: G.gather_chain(tab, start, LATENCY_STEPS)], 5) * 1e3 / LATENCY_STEPS
+
+
+def random_cycle(device, n: int):
+    """int32 [n]: one random cycle through all n entries, so that a chain
+    from any entry reads a new random address every step."""
+    import torch
+
+    perm = torch.randperm(n, device=device, generator=torch.Generator(device=device)
+                          .manual_seed(5))
+    cycle = torch.empty(n, dtype=torch.int32, device=device)
+    cycle[perm] = perm.roll(-1).to(torch.int32)
+    return cycle
+
+
+def chain_designs(device, tab_np: np.ndarray) -> dict:
+    """P3 at the probe tool's shape in each of its designs (cuda_gather.
+    CHAIN_DESIGNS: the first design and C = 1, 2, 4 chains a thread), each
+    equal to its plain twin, the kernels alone by CUDA events in turns (the
+    designs in order, then backwards) and per call; the rate at which the L2
+    serves random 4-byte loads from the same 4 MB table, the faster of P1
+    over RATE_LOADS random indices and P3 (its wrapper's design) over
+    SAT_LANES lanes, which fill every SM; the dependent-load latency over
+    that table; and P3's bound, the larger of the chain's latency (steps x
+    latency) and its loads over that rate (`bound_us_by` says which)."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_gather as G
+    from rowbowt_tpu_torch.tools import gather_probe as gp
+
+    _, idx_np, _ = gp.make_inputs()
+    tab = torch.from_numpy(tab_np).to(device)
+    idx = torch.from_numpy(idx_np).to(device)
+    want = G.gather_chain_plain(tab, idx, gp.STEPS)
+    designs = list(G.CHAIN_DESIGNS)
+    calls = {d: (lambda d=d: G.gather_chain_as(tab, idx, gp.STEPS, d)) for d in designs}
+    err = 0
+    for d in designs:
+        got = calls[d]()
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([got], [want]))
+    check(err == 0, f"a P3 design != the plain twin: max |err| {err}")
+    each = {d: [] for d in designs}
+    for d in designs + designs[::-1]:
+        each[d].append(kernel_event_us([around(calls[d])], 20))
+    out = {}
+    for d, v in each.items():
+        chains, l1, threads = G.CHAIN_DESIGNS[d]
+        out[d] = dict(chains=chains, l1=l1, device_us=sum(v) / len(v), device_us_each=v,
+                      call_ms=cuda_ms([calls[d]], 200),
+                      threads=threads or G.chain_plan(idx.numel(), chains,
+                                                      G._sm_count(device.index)))
+    rng = np.random.default_rng(6)
+    ridx = torch.from_numpy(rng.integers(0, tab.numel(), RATE_LOADS, dtype=np.int32)).to(device)
+    rate_us = kernel_event_us([around(lambda: G.gather_rows(tab, ridx))], 20)
+    sidx = torch.from_numpy(rng.integers(0, tab.numel(), SAT_LANES, dtype=np.int32)).to(device)
+    sat_us = kernel_event_us([around(lambda: G.gather_chain(tab, sidx, gp.STEPS))], 5)
+    # the faster of the two is the L2's random-load rate: a valid bound
+    rates = {"p1": RATE_LOADS / (rate_us * 1e-6), "p3_full": SAT_LANES * gp.STEPS / (sat_us * 1e-6)}
+    rate_by = max(rates, key=rates.get)
+    lat_us = dependent_latency_us(device, tab)
+    loads = idx.numel() * gp.STEPS
+    latency_bound, rate_bound = gp.STEPS * lat_us, loads / rates[rate_by] * 1e6
+    best = min(out, key=lambda d: out[d]["device_us"])
+    return dict(max_abs_err=err, designs=out, design=G.CHAIN, fastest=best,
+                rate_loads=RATE_LOADS, rate_us=rate_us, full_lanes=SAT_LANES, full_us=sat_us,
+                loads_per_s=rates, l2_rate_by=rate_by,
+                us_per_dependent_step=lat_us, loads=loads, latency_bound_us=latency_bound,
+                rate_bound_us=rate_bound, bound_us=max(latency_bound, rate_bound),
+                bound_us_by="latency" if latency_bound >= rate_bound else "l2_rate",
+                share=max(latency_bound, rate_bound) / out[G.CHAIN]["device_us"])
 
 
 def probe_edges(device, tab_np: np.ndarray) -> dict:
@@ -720,6 +840,17 @@ def probe_edges(device, tab_np: np.ndarray) -> dict:
             want = tab_np[want]
         cases.append((f"chain B={B}", "gather_chain", lambda idx=idx: G.gather_chain(flat, idx, 3),
                       lambda idx=idx: G.gather_chain_plain(flat, idx, 3), want, idx))
+    # every P3 design at lane counts that leave a thread's last chains empty
+    for design in G.CHAIN_DESIGNS:
+        for B in (1, 5, 4_099):
+            i = rng.integers(0, T, B, dtype=np.int32)
+            idx = torch.from_numpy(i).to(device)
+            want = i.copy()
+            for _ in range(3):
+                want = tab_np[want]
+            cases.append((f"chain {design} B={B}", "gather_chain",
+                          lambda idx=idx, d=design: G.gather_chain_as(flat, idx, 3, d),
+                          lambda idx=idx: G.gather_chain_plain(flat, idx, 3), want, idx))
     errs = {"gather_rows": 0, "gather_cols": 0, "gather_chain": 0}
     vector = 0
     for label, name, kernel, plain, want_np, idx in cases:
@@ -801,7 +932,7 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
 
     t0 = time.perf_counter()
     text = panel(cfg)[0]
-    idx = build_index(text, with_sa_samples=False, ftab_k=FTAB_K)
+    idx = build_index(text, ftab_k=FTAB_K)  # with SA samples: kval and phi1 for the walk
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(cfg["seed"] + 1)
     qc, lens, counts = edge_lanes(idx, sample_reads(text, rng, n_lanes), rng)
@@ -871,12 +1002,86 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     launches3 = cuda_lf.LAUNCHES_REC - rec0
     check(launches3 == 3 * (1 + len(edges)), f"expected {3 * (1 + len(edges))} record "
           f"launches, counted {launches3}")
+    walk = walk_parity(device, idx, codes, q, ln)
     emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
          nonempty=results, edges=[label for label, _, _ in edges],
          edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err,
          fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2,
-         rec_launches=launches3, rec_max_abs_err=err3)
-    return {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3}
+         rec_launches=launches3, rec_max_abs_err=err3, walk=walk)
+    return {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3,
+            "phi_walk_phi1": walk["max_abs_err"]["phi1"],
+            "phi_walk_rows": walk["max_abs_err"]["phi_rows"]}
+
+
+WALK_PARITY_MAX = 4_096  # the uncapped walk's lanes: ranges of at most this many hits
+
+
+def walk_parity(device, idx, codes, q, ln) -> dict:
+    """The walk kernel against its plain twin (cuda_phi.phi_walk_plain on the
+    card) on the edge batch's -s toeholds: over the dense index's phi1 and
+    over the phi rows of the same BWT's BigIndex (n_sup = 4, locate tables
+    from kval), with max_hits 8 on every lane and uncapped on the lanes of
+    at most WALK_PARITY_MAX hits; the two indexes' toeholds equal.  The
+    BigIndex with its phi rows taken away (the breakpoint table of 2^31 or
+    more breakpoints) walks as torch ops on the card, one walk counted in
+    LAUNCHES_TORCH and none in LAUNCHES, and gives the kernel's positions."""
+    import torch
+
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
+    from rowbowt_tpu_torch.ops import cuda_phi
+
+    def operands(lo, hi, k, cap):
+        size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
+        if cap is None:
+            keep = size <= WALK_PARITY_MAX
+            k, size = k[keep], size[keep]
+        else:
+            size = size.clamp(max=cap)
+        return k, size, torch.cumsum(size, 0) - size, int(size.sum())
+
+    big = BigIndex.from_codes(codes, idx.alpha, n_sup=4)
+    big.attach_locate(codes, np.asarray(idx.kval).astype(np.uint32))
+    txs = {"phi1": TorchIndex.from_index(idx, device),
+           "phi_rows": TorchIndex.from_big(big, device, with_locate=True, with_markers=False)}
+    ranges = {route: find_ranges_w_toehold(tx, q, ln) for route, tx in txs.items()}
+    e = max_abs_err(ranges["phi1"], ranges["phi_rows"])
+    check(e == 0, f"the -s toeholds of the dense index != its BigIndex's: max |err| {e}")
+    reset_counts()
+    errs, hits, kernel_out = {}, {}, {}
+    for route, tx in txs.items():
+        errs[route] = 0
+        for cap in (8, None):
+            k, size, off, total = operands(*ranges[route], cap)
+            got = cuda_phi.launch_walk(tx, k, size, off, torch.empty(
+                total, dtype=torch.int64, device=device))
+            want = cuda_phi.phi_walk_plain(tx, k, size, off, torch.full(
+                (total,), -1, dtype=torch.int64, device=device))
+            torch.cuda.synchronize()
+            errs[route] = max(errs[route], max_abs_err([got], [want]))
+            hits[f"{route},{cap}"] = total
+            kernel_out[cap] = got
+        check(errs[route] == 0, f"the walk kernel over {route} != its plain twin on the small "
+              f"panel: max |err| {errs[route]}")
+    launches = walk_counts()
+    check(launches == dict(walk=4, walk_torch=0), f"walk launches {launches}, expected 4")
+    big._phi_pack = lambda: (None, None)
+    tx_at = TorchIndex.from_big(big, device, with_locate=True, with_markers=False)
+    check(cuda_phi.walk_route(tx_at) is None and "phi_at" in tx_at.arrays,
+          "the BigIndex without phi rows has no breakpoint table")
+    k, size, off, total = operands(*ranges["phi_rows"], None)
+    out = cuda_phi.phi_walk(tx_at, k, size, off, torch.empty(total, dtype=torch.int64,
+                                                               device=device))
+    torch.cuda.synchronize()
+    e = max_abs_err([out], [kernel_out[None]])
+    check(e == 0, f"the torch walk over phi_at != the walk kernel over phi_rows: max |err| {e}")
+    torch_launches = walk_counts()
+    check(torch_launches == dict(walk=4, walk_torch=1),
+          f"the phi_at walk on the card: {torch_launches}, expected one torch walk")
+    del txs, tx_at
+    return dict(max_abs_err=errs, hits=hits, launches=launches["walk"],
+                phi_at_max_abs_err=e, torch_walks=torch_launches["walk_torch"])
 
 
 def held_record(tx, q, ln, ranges=None) -> int:
@@ -1193,12 +1398,14 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
     from rowbowt_tpu_torch.ops import cuda_lf
 
     idx, paths = chr_["idx"], chr_["paths"]
-    cuda_lf.LAUNCHES = 0
+    reset_counts()
     cli, out_text, _ = run_cli([paths["idx"], paths["locate.fq"], "-s", "-b", str(BATCH),
                              "--device", str(device)], paths["out.txt"])
-    launches = cuda_lf.LAUNCHES
+    launches, walks = cuda_lf.LAUNCHES, walk_counts()
     n_batches = -(-N_LOCATE // BATCH)
     check(launches == n_batches, f"K1 launched {launches} times in the -s run")
+    check(walks == dict(walk=n_batches, walk_torch=0),
+          f"-s walks: {walks} (one walk kernel launch a batch, no torch walk)")
     lines = out_text.splitlines(keepends=True)
     check(len(lines) == 2 * N_LOCATE, f"rbt_align -s printed {len(lines)} lines")
     check(lines[0::2] == count["lines"][:N_LOCATE], "the -s run's ranges != the count run's")
@@ -1218,19 +1425,20 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
                for names, qc, lens in batches]
     with timed(stages, "lf_toehold_s"):
         ranges = [tuple(t[:nr] for t in find_ranges_w_toehold(tx, q, ln)) for q, ln, nr in dev]
-    with timed(stages, "locate_ragged_s"):
+    with timed(stages, "walk_s"):
         located = [locate_ragged(tx, lo, hi, k) for lo, hi, k in ranges]
-    with timed(stages, "resolve_docs_s"):
+    with timed(stages, "docs_s"):
         resolved = [tuple(t.cpu().numpy() for t in resolve_docs(tx, torch.from_numpy(flat)
                                                                 .to(device)))
                     for flat, _ in located]
+    with timed(stages, "text_s"):
+        cols = [rbt_align.format_locs(loaded.doc_names, flat, offs, d, o)
+                for (flat, offs), (d, o) in zip(located, resolved)]
     with timed(stages, "format_s"):
         text_out = "".join(
-            "".join(a + b for a, b in zip(
-                count_lines(names, lo.cpu().numpy(), hi.cpu().numpy()),
-                rbt_align.format_locs(loaded.doc_names, flat, offs, d, o)))
-            for (names, _, _), (lo, hi, _), (flat, offs), (d, o)
-            in zip(batches, ranges, located, resolved))
+            "".join(a + b for a, b in zip(count_lines(names, lo.cpu().numpy(), hi.cpu().numpy()),
+                                          col))
+            for (names, _, _), (lo, hi, _), col in zip(batches, ranges, cols))
     check(out_text == text_out, "rbt_align -s output != the staged run's lines")
     hits = int(counts.sum())
     res = dict(reads=N_LOCATE, batch=BATCH,
@@ -1239,9 +1447,9 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
                cli_reads_per_s_with_load=N_LOCATE / cli["cli_wall_s"],
                hits=hits, cli_hits_per_s=hits / cli["cli_query_s"],
                located_reads=int((counts > 0).sum()), max_hits_per_read=int(counts.max()),
-               launches=launches, stages=stages, card=card["nvidia_smi"])
+               launches=launches, walks=walks, stages=stages, card=card["nvidia_smi"])
     emit("locate", **res)
-    res["tx"], res["k0"], res["out_text"] = tx, ranges[0][2], out_text
+    res["tx"], res["ranges"], res["out_text"] = tx, ranges, out_text
     return res
 
 
@@ -1356,35 +1564,161 @@ def phase_markers(device, card: dict, chr_: dict, count: dict) -> dict:
     return res
 
 
-def phase_phi_chain(device, card: dict, loc: dict) -> int:
-    """P3 over the chr phi1 table from one batch's toeholds, against its plain
-    twin and the port's torch phi walk (locate) on the same lanes."""
+def phase_phi_chain(device, card: dict, loc: dict, k1: dict) -> dict:
+    """P3 over the chr phi1 table from the first -s batch's toeholds, 100
+    steps, against its plain twin, and the walk kernel over the same lanes
+    (engine/locate.locate with each range the whole BWT, so the walk masks
+    nothing) against the torch walk (cuda_phi.phi_walk_plain), its column
+    100 equal to P3's; then the walk kernel on every -s batch's real lanes
+    (walk_times, phi1: one dependent load a step over a 640 MB table)."""
     import torch
 
     from rowbowt_tpu_torch.engine.locate import locate
     from rowbowt_tpu_torch.ops import cuda_gather as G
+    from rowbowt_tpu_torch.ops import cuda_phi
 
-    tx, k = loc["tx"], loc["k0"].contiguous()
+    tx, k = loc["tx"], loc["ranges"][0][2].contiguous()
     phi1 = tx.arrays["phi1"]
     G.check_indices(k, phi1.numel())
-    # a full range per lane, so the walk masks nothing
+    B, width = k.numel(), PHI_STEPS + 1
     lo, hi = torch.zeros_like(k), torch.full_like(k, tx.n - 1)
+    size = torch.full((B,), width, dtype=torch.int64, device=device)
+    off = torch.arange(B, dtype=torch.int64, device=device) * width
+
+    def torch_walk():
+        return cuda_phi.phi_walk_plain(tx, k, size, off, torch.empty(
+            B * width, dtype=torch.int64, device=device)).view(B, width)
+
     got = G.gather_chain(phi1, k, PHI_STEPS)
     want = G.gather_chain_plain(phi1, k, PHI_STEPS)
-    walk = locate(tx, lo, hi, k, max_hits=PHI_STEPS + 1)[0][:, PHI_STEPS]
+    walk = locate(tx, lo, hi, k, max_hits=width)[0]
+    plain_walk = torch_walk()
     torch.cuda.synchronize()
-    err = max_abs_err([got, got], [want, walk])
-    check(err == 0, f"gather_chain over phi1 != plain / phi walk: max |err| {err}")
+    err = max_abs_err([got, got, walk], [want, walk[:, PHI_STEPS], plain_walk])
+    check(err == 0, f"gather_chain over phi1 != plain / the walk kernel != the torch walk: "
+          f"max |err| {err}")
     kernel = [lambda: G.gather_chain(phi1, k, PHI_STEPS)]
     k_ms, p_ms = in_turns([lambda: G.gather_chain_plain(phi1, k, PHI_STEPS)], kernel, 3, 20)
-    k2_ms, walk_ms = in_turns([lambda: locate(tx, lo, hi, k, max_hits=PHI_STEPS + 1)],
-                              kernel, 3, 20)
-    emit("phi_chain", lanes=k.numel(), steps=PHI_STEPS, table_mb=phi1.numel() * 4 / 1e6,
-         max_abs_err=err, kernel_ms=(k_ms + k2_ms) / 2, plain_ms=p_ms, phi_walk_ms=walk_ms,
-         kernel_us_per_step=(k_ms + k2_ms) / 2 * 1e3 / PHI_STEPS,
-         plain_us_per_step=p_ms * 1e3 / PHI_STEPS,
-         phi_walk_us_per_step=walk_ms * 1e3 / PHI_STEPS, card=card["nvidia_smi"])
-    return err
+    w_ms, walk_ms = in_turns([torch_walk], [lambda: locate(tx, lo, hi, k, max_hits=width)], 3, 20)
+    res = dict(lanes=B, steps=PHI_STEPS, table_mb=phi1.numel() * 4 / 1e6, max_abs_err=err,
+               kernel_ms=k_ms, plain_ms=p_ms, walk_kernel_ms=w_ms, phi_walk_ms=walk_ms,
+               kernel_us_per_step=k_ms * 1e3 / PHI_STEPS, plain_us_per_step=p_ms * 1e3 / PHI_STEPS,
+               walk_kernel_us_per_step=w_ms * 1e3 / PHI_STEPS,
+               phi_walk_us_per_step=walk_ms * 1e3 / PHI_STEPS)
+    res["walk"] = walk_times(device, tx, loc["ranges"], "phi1",
+                             k1["us_per_dependent_step"]["random_cycle"])
+    emit("phi_chain", **res, card=card["nvidia_smi"])
+    return res
+
+
+# int32 operations of one phi step, on top of its loads: phi1 clamps and
+# addresses the lane (4); the phi rows split the position (a division by
+# 480 and a product, 4), mask and count 15 words (3 each), add the rank and
+# the delta and take the remainder (4)
+PHI_STEP_OPS = {"phi1": 4, "phi_rows": 4 + 15 * 3 + 4}
+PHI_LOADS = {"phi1": 1, "phi_rows": 2}  # dependent loads a step
+
+
+def big_walk(device, path: str, fastq: str) -> dict:
+    """walk_times over the phi rows of the BigIndex directory at `path`, on
+    the batches of `fastq` as rbt_align -s loads and searches them.  A
+    step's two dependent loads take the sum of the latencies over two random
+    cycles the sizes of phi_rows and phi_delta."""
+    import torch
+
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
+
+    big, tx = load_big(device, path, "-s")
+    ranges = []
+    for names, qc, lens in iter_query_batches(big, fastq, BATCH):
+        q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
+        ranges.append(tuple(t[:len(names)] for t in find_ranges_w_toehold(tx, q, ln)))
+    lat, table_mb = 0.0, {}
+    for key in ("phi_rows", "phi_delta"):
+        t = tx.arrays[key]
+        table_mb[key] = t.numel() * t.element_size() / 1e6
+        cycle = random_cycle(device, t.numel() * t.element_size() // 4)
+        lat += dependent_latency_us(device, cycle)
+        del cycle
+    out = dict(walk_times(device, tx, ranges, "phi_rows", lat), table_mb=table_mb)
+    del tx, ranges
+    torch.cuda.empty_cache()
+    return out
+
+
+def walk_times(device, tx, ranges, route: str, step_us: float) -> dict:
+    """The walk kernel (cuda_phi.launch_walk) over tx's `route` table on the
+    -s batches' real lanes ranges [(lo, hi, k)], with the operands of
+    engine/locate.locate_ragged: equal to its plain twin (cuda_phi.
+    phi_walk_plain, the torch walk, on the card) with max |err| 0, one launch
+    a batch; call ms in turns with the twin; the kernel alone (CUDA events
+    just around the launch, the lanes' order given); the longest lane's
+    steps; the bound of each batch, the larger of the bytes the inputs need
+    once over the memory rate (k, size and off, the distinct table entries
+    the chains read, the positions written) and the longest lane's steps x
+    `step_us`, the latency of a step's dependent loads (PHI_LOADS: each
+    load's latency measured over a table of its table's size, summed); its
+    share.  Times and bounds are means over the batches."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_phi
+    from rowbowt_tpu_torch.ops import rank as R
+
+    check(cuda_phi.walk_route(tx) == route, f"walk route {cuda_phi.walk_route(tx)} != {route}")
+    args, outs = [], []
+    for lo, hi, k in ranges:
+        size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
+        total = int(size.sum())
+        args.append((k.to(torch.int64), size, torch.cumsum(size, 0) - size,
+                     torch.argsort(size, descending=True)))
+        outs.append(torch.empty(total, dtype=torch.int64, device=device))
+    launches0, err = cuda_phi.LAUNCHES, 0
+    for (k, size, off, _), out in zip(args, outs):
+        cuda_phi.launch_walk(tx, k, size, off, out)
+        want = cuda_phi.phi_walk_plain(tx, k, size, off, torch.full_like(out, -1))
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([out], [want]))
+    launches = cuda_phi.LAUNCHES - launches0
+    check(err == 0, f"the walk kernel over {route} != its plain twin: max |err| {err}")
+    check(launches == len(args), f"{launches} walk kernel launches for {len(args)} batches")
+    kernel = [lambda a=a, o=o: cuda_phi.launch_walk(tx, *a[:3], o) for a, o in zip(args, outs)]
+    plain = [lambda a=a, o=o: cuda_phi.phi_walk_plain(tx, *a[:3], o) for a, o in zip(args, outs)]
+    call_ms, plain_ms = in_turns(plain, kernel, 1, 5)
+    alone = [lambda a=a, o=o: cuda_phi.launch_walk(tx, *a[:3], o, a[3]) for a, o in zip(args, outs)]
+    device_us = kernel_event_us([around(fn) for fn in alone], 5)
+    profiled_us = profiled_kernel_us(alone, 3, ("phi_walk_kernel",))["phi_walk_kernel"]
+    batches = []
+    for (k, size, off, _), out in zip(args, outs):
+        steps = max(int(size.max()) - 1, 0) if size.numel() else 0
+        stepped = torch.ones(out.numel(), dtype=torch.bool, device=device)
+        stepped[(off + size - 1)[size > 0]] = False  # a lane's last position is not stepped from
+        pos = out[stepped]
+        if route == "phi1":
+            table_bytes = torch.unique(pos).numel() * tx.arrays["phi1"].element_size()
+        else:
+            table_bytes = (torch.unique(pos // 480).numel() * 64
+                           + torch.unique(R.phi_rows_rank(tx, pos)).numel() * 8)
+        nbytes = k.numel() * (k.element_size() + 16) + out.numel() * 8 + table_bytes
+        byte_us = nbytes / HBM_BYTES_PER_S * 1e6
+        ops_us = pos.numel() * PHI_STEP_OPS[route] / INT_OPS_PER_S * 1e6
+        latency_us = steps * step_us
+        batches.append(dict(lanes=k.numel(), hits=out.numel(), longest_steps=steps,
+                            table_bytes=table_bytes, bytes=nbytes, byte_us=byte_us,
+                            ops_us=ops_us, latency_us=latency_us,
+                            bound_us=max(byte_us, ops_us, latency_us)))
+    mean = {key: sum(b[key] for b in batches) / len(batches)
+            for key in ("byte_us", "ops_us", "latency_us", "bound_us")}
+    bound_by = max(("bytes", "byte_us"), ("operations", "ops_us"), ("latency", "latency_us"),
+                   key=lambda kv: mean[kv[1]])[0]
+    return dict(route=route, batches=batches, launches=launches, max_abs_err=err,
+                call_ms=call_ms, plain_ms=plain_ms, device_us=device_us,
+                profiled_us=profiled_us, step_us=step_us, loads_per_step=PHI_LOADS[route],
+                longest_steps=max(b["longest_steps"] for b in batches),
+                bound_ms=max(mean["byte_us"], mean["ops_us"]) / 1e3,
+                bound_by="bytes" if mean["byte_us"] >= mean["ops_us"] else "operations",
+                bound_us=mean["bound_us"], bound_us_by=bound_by,
+                share=mean["bound_us"] / device_us)
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -1523,7 +1857,6 @@ def phase_k1(device, card: dict, chr_: dict) -> dict:
 
     from rowbowt_tpu_torch.cli.common import iter_query_batches
     from rowbowt_tpu_torch.engine.device import TorchIndex
-    from rowbowt_tpu_torch.ops import cuda_gather as G
     from rowbowt_tpu_torch.ops import cuda_lf
 
     idx, paths = chr_["idx"], chr_["paths"]
@@ -1559,19 +1892,10 @@ def phase_k1(device, card: dict, chr_: dict) -> dict:
     # events), over phi1, over one random cycle through a table of phi1's
     # size (every step a random 640 MB address) and over the probe tool's
     # 4 MB table
-    rng = np.random.default_rng(5)
-    n_tab = tx.arrays["phi1"].numel()
-    perm = torch.randperm(n_tab, device=device,
-                          generator=torch.Generator(device=device).manual_seed(5))
-    cycle = torch.empty(n_tab, dtype=torch.int32, device=device)
-    cycle[perm] = perm.roll(-1).to(torch.int32)
-    del perm
-    lat = {}
-    for name, tab in (("phi1", tx.arrays["phi1"]), ("random_cycle", cycle),
-                      ("tool_table", torch.from_numpy(probe_cases(device)[2]).to(device))):
-        start = torch.from_numpy(rng.integers(0, tab.numel(), 32, dtype=np.int32)).to(device)
-        lat[name] = cuda_ms([lambda tab=tab, start=start: G.gather_chain(tab, start, 10_000)],
-                            5) * 1e3 / 10_000
+    cycle = random_cycle(device, tx.arrays["phi1"].numel())
+    lat = {name: dependent_latency_us(device, tab) for name, tab in (
+        ("phi1", tx.arrays["phi1"]), ("random_cycle", cycle),
+        ("tool_table", torch.from_numpy(probe_cases(device)[2]).to(device)))}
     del cycle
     step1["us_per_dependent_step"] = lat
     for tag, use_ftab in modes:
@@ -2096,7 +2420,7 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
                                        str(device)], out_txt)
         runs[tag] = dict(cli, reads=nr, cli_reads_per_s=nr / cli["cli_query_s"],
                          launches=cuda_lf.LAUNCHES_FB2, rec_launches=cuda_lf.LAUNCHES_REC,
-                         records_plain=cuda_lf.RECORDS_PLAIN)
+                         records_plain=cuda_lf.RECORDS_PLAIN, walks=walk_counts())
         check(err_text.startswith(f"loading (big two-level artifact): {path}"),
               "rbt_align did not load the PFP directory as a big one")
         lines = text.splitlines(keepends=True)
@@ -2148,6 +2472,10 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
     check([runs[t]["rec_launches"] for t in ("count", "-s", "-m")] == [0, 1, 0]
           and runs["-s"]["records_plain"] == 0,
           f"rbt_align -s on the PFP panel: one record launch and no torch record loop: {runs}")
+    check([runs[t]["walks"] for t in ("count", "-s", "-m")]
+          == [dict(walk=0, walk_torch=0), dict(walk=1, walk_torch=0), dict(walk=0, walk_torch=0)],
+          f"rbt_align -s on the PFP panel: one walk kernel launch and no torch walk: {runs}")
+    res["walk"] = big_walk(device, path, fq["locate"])
     cuda_lf.LAUNCHES_FB2 = 0
     cli, g_text, _ = run_seeding_cli("rbt_markers", [path, fq["greedy"], "-f", "-b",
                                                      str(GREEDY_BATCH), "--device", str(device)],
@@ -2239,7 +2567,7 @@ def align_stages(device, load, fastq: str, mode: str, out_text: str,
     from rowbowt_tpu_torch.cli import rbt_align
     from rowbowt_tpu_torch.cli.common import iter_query_batches
     from rowbowt_tpu_torch.engine.count import find_ranges
-    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold, locate_ragged
 
     stages = {}
     with timed(stages, "load_s"):
@@ -2255,10 +2583,14 @@ def align_stages(device, load, fastq: str, mode: str, out_text: str,
         search = find_ranges_w_toehold if mode == "-s" else find_ranges
         ranges = [tuple(t[:nr] for t in search(tx, q, ln)) for q, ln, nr in dev]
     cols = []
-    if mode == "-s":
-        with timed(stages, "locate_s"):  # the phi walk and the document resolve
-            cols = [rbt_align.format_locs(host.doc_names, *rbt_align.locate_hits(
-                tx, lo, hi, k, None)) for lo, hi, k in ranges]
+    if mode == "-s":  # rbt_align.locate_hits, then format_locs, split in three
+        with timed(stages, "walk_s"):
+            located = [locate_ragged(tx, lo, hi, k) for lo, hi, k in ranges]
+        with timed(stages, "docs_s"):
+            docs = [rbt_align.hit_docs(tx, flat) for flat, _ in located]
+        with timed(stages, "text_s"):
+            cols = [rbt_align.format_locs(host.doc_names, *loc, *d)
+                    for loc, d in zip(located, docs)]
     elif mode == "-m":
         with timed(stages, "probe_s"):
             cols = [rbt_align.format_markers(*rbt_align.probe_markers(tx, lo, hi))
@@ -2310,7 +2642,7 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
         n = N_READS if tag == "count" else N_LOCATE
         runs[tag] = dict(cli, cli_reads_per_s=n / cli["cli_query_s"], reads=n,
                          launches=cuda_lf.LAUNCHES_FB2, rec_launches=cuda_lf.LAUNCHES_REC,
-                         records_plain=cuda_lf.RECORDS_PLAIN,
+                         records_plain=cuda_lf.RECORDS_PLAIN, walks=walk_counts(),
                          stages=align_stages(device, lambda m: load_big(device, path, m),
                                              fastq, flags[0] if flags else "", out_text))
 
@@ -2324,6 +2656,9 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
           == (-(-N_LOCATE // BATCH), 0, 0), f"rbt_align -s routes on the big rows: {runs['-s']}")
     check(all(runs[t]["rec_launches"] == 0 for t in ("count", "-m")),
           "a record launch outside -s")
+    # -s: one walk kernel launch a batch over the phi rows, no torch walk
+    check(runs["-s"]["walks"] == dict(walk=-(-N_LOCATE // BATCH), walk_torch=0),
+          f"rbt_align -s walks on the big rows: {runs['-s']['walks']}")
     runs["-m_routes"] = marker_routes(device, path, paths["locate.fq"], markers["out_text"])
 
     # rbt_markers -f and rbt_locs on the big directory
@@ -2412,6 +2747,7 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
                       check_s=rec_check_s)
     res["resident_mb"] = {k: v.numel() * v.element_size() / 1e6 for k, v in TorchIndex.from_big(
         big, device).arrays.items()}
+    res["walk"] = big_walk(device, path, paths["locate.fq"])
     emit("big_chr", **res, card=card["nvidia_smi"])
     del tx, txd, tx96, dev, plain
     torch.cuda.empty_cache()
@@ -2562,12 +2898,22 @@ def route_counts() -> dict:
                 torch=cuda_lf.LAUNCHES_TORCH)
 
 
+def walk_counts() -> dict:
+    """The phi walk's routes since the last reset: walk kernel launches, and
+    the torch walks of an index without phi1 or phi rows on the card."""
+    from rowbowt_tpu_torch.ops import cuda_phi
+
+    return dict(walk=cuda_phi.LAUNCHES, walk_torch=cuda_phi.LAUNCHES_TORCH)
+
+
 def reset_counts() -> None:
-    """Every route count to 0, and the runs of the torch record loop."""
-    from rowbowt_tpu_torch.ops import cuda_lf
+    """Every route count to 0 (the count search's and the phi walk's), and
+    the runs of the torch record loop."""
+    from rowbowt_tpu_torch.ops import cuda_lf, cuda_phi
 
     cuda_lf.LAUNCHES = cuda_lf.LAUNCHES_FB2 = cuda_lf.LAUNCHES_TORCH = 0
     cuda_lf.LAUNCHES_REC = cuda_lf.RECORDS_PLAIN = 0
+    cuda_phi.LAUNCHES = cuda_phi.LAUNCHES_TORCH = 0
 
 
 def align_runs(device, path: str, runs: list, out_path: str) -> dict:
@@ -2581,7 +2927,7 @@ def align_runs(device, path: str, runs: list, out_path: str) -> dict:
                                     str(device)], out_path)
         check(out_text == want, f"rbt_align {tag} on {path} != the dense index's lines")
         res[tag] = dict(cli, reads=n, cli_reads_per_s=n / cli["cli_query_s"],
-                        launches=route_counts())
+                        launches=route_counts(), walks=walk_counts())
     return res
 
 
@@ -2628,6 +2974,9 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
           and runs["-m"]["launches"] == dict(k1=n_loc, k1_fb2=0, k1_rec=0, torch=0)
           and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=0),
           f"raw chr routes: {({k: v['launches'] for k, v in runs.items()})}")
+    # raw chr keeps phi1 (built from the run samples): the walk kernel
+    check(runs["-s"]["walks"] == dict(walk=n_loc, walk_torch=0),
+          f"raw chr -s walks: {runs['-s']['walks']}")
     # the stages of -s, whose toehold loop is this index's own (count and -m
     # run K1 as on the dense index, phases main and markers)
     resident: dict = {}
@@ -2669,6 +3018,9 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
           and runs["-m"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=n_loc)
           and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=0),
           f"no-dense chr routes: {({k: v['launches'] for k, v in runs.items()})}")
+    # no phi1: the predecessor search, which the walk kernel does not take
+    check(runs["-s"]["walks"] == dict(walk=0, walk_torch=n_loc),
+          f"no-dense chr -s walks: {runs['-s']['walks']}")
     _, tx = load_dense(device, out_dir, "-s")
     resident = {k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()}
     del tx
@@ -3644,7 +3996,7 @@ def main(argv: list[str]) -> int:
         markers = phase_markers(device, card, chr_, count)
         phase_raw_chr(device, card, chr_, count, loc, markers)
         phase_nodense_chr(device, card, chr_, count, loc, markers)
-        chain_err = phase_phi_chain(device, card, loc)
+        chain = phase_phi_chain(device, card, loc, k1)
         greedy = phase_greedy(device, card, chr_)
         phase_heuristic(device, card, chr_)
         phase_lmem(device, card, chr_)
@@ -3657,8 +4009,8 @@ def main(argv: list[str]) -> int:
         par_dp = phase_parallel_dp(device, card, chr_, count)
         phase_parallel_sharded(device, card, chr_, big_chr["path"], child["path"])
         phase_parallel_stream(device, card, chr_, count, big_chr["path"])
-        print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain_err,
-                                                   big_chr, pfp_big, par_dp)}))
+        print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain,
+                                                   big_chr, pfp_big, par_dp, loc)}))
         print(card["nvidia_smi"])
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3669,8 +4021,8 @@ def main(argv: list[str]) -> int:
         shutil.rmtree(WORK, ignore_errors=True)
 
 
-def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err: int,
-                  big_chr: dict, pfp_big: dict, par_dp: dict) -> list:
+def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dict,
+                  big_chr: dict, pfp_big: dict, par_dp: dict, loc: dict) -> list:
     """One entry per kernel of the port: launches on the main path, max |err|
     against the plain twin, call time (`ms`, CUDA events) beside the plain
     twin's and the library call's, device time alone (`device_us`, CUDA
@@ -3683,7 +4035,13 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err:
     also over phases parity and pfp_big; so has its record launch
     (lf_count_fb2_rec, main path rbt_align -s on the big directory).  K1's
     entry also counts its launches on the dp path of phase parallel_dp, over
-    every rank (`parallel_dp_launches`)."""
+    every rank (`parallel_dp_launches`).  P3's (gather_chain) names its
+    design and every design's device µs; its bound_us is the larger of the
+    chain's latency and its loads over the L2's random-load rate (phase
+    probes).  The phi walk has an entry a route: phi_walk_phi1 (main path
+    rbt_align -s on dense chr, timed in phase phi_chain) and phi_walk_rows
+    (rbt_align -s on the big_chr directory), their max |err| also over
+    phases parity (and pfp_big for the rows)."""
     kernels = []
     for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
             ("lf_count", k1["bound"], count,
@@ -3715,22 +4073,46 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain_err:
         "ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "device_us": r["device_us"],
         "profiled_us": r["profiled_us"], "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]})
-    bounds = probe_bounds(k1["us_per_dependent_step"]["tool_table"])
+    byte_us = probe_byte_us()
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
-        p, pb = probes[name], bounds[name]
-        # the gathers do no arithmetic: bytes bound them, and P3 also its latency
+        p = probes[name]
+        # the gathers do no arithmetic: bytes bound them, and P3 also its
+        # chain's latency or its loads over the L2's random-load rate
+        bound_us, by = byte_us[name], "bytes"
+        if name == "gather_chain" and p["bound_us"] > bound_us:
+            bound_us, by = p["bound_us"], p["bound_us_by"]
         kernels.append({"name": name, "route": "cuda",
                         "source": "rowbowt_tpu_torch/csrc/gather_probe.cu",
                         "replaces": f"tools/vmem_gather_probe.py:{line}",
                         "launches": p["launches"],
                         "max_abs_err": max(p["max_abs_err"],
-                                           chain_err if name == "gather_chain" else 0),
+                                           chain["max_abs_err"] if name == "gather_chain" else 0),
                         "ms": p["ms"], "plain_ms": p["plain_ms"],
-                        "bound_ms": pb["byte_us"] / 1e3, "bound_by": "bytes",
+                        "bound_ms": byte_us[name] / 1e3, "bound_by": "bytes",
                         "library_ms": p["library_ms"], "device_us": p["device_us"],
-                        "profiled_us": p["profiled_us"],
-                        "bound_us": max(pb["byte_us"], pb["latency_us"]),
-                        "bound_us_by": "bytes" if pb["byte_us"] >= pb["latency_us"] else "latency"})
+                        "profiled_us": p["profiled_us"], "bound_us": bound_us,
+                        "bound_us_by": by})
+    kernels[-1]["design"] = probes["gather_chain"]["design"]
+    kernels[-1]["designs_device_us"] = {d: v["device_us"] for d, v in
+                                        probes["gather_chain"]["designs"].items()}
+    # the phi walk: its main paths are rbt_align -s on dense chr (phi1) and
+    # on the big_chr directory (phi rows)
+    for name, w, launches, err in (
+            ("phi_walk_phi1", chain["walk"], loc["walks"]["walk"],
+             max(par_err["phi_walk_phi1"], chain["max_abs_err"], chain["walk"]["max_abs_err"])),
+            ("phi_walk_rows", big_chr["walk"], big_chr["runs"]["-s"]["walks"]["walk"],
+             max(par_err["phi_walk_rows"], big_chr["walk"]["max_abs_err"],
+                 pfp_big["walk"]["max_abs_err"]))):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "rowbowt_tpu_torch/csrc/phi_walk.cu",
+                        "replaces": "tools/vmem_gather_probe.py:92 (P3's chain, carrying the phi "
+                                    "walk of rowbowt_tpu/engine/locate.py:177, an XLA fori_loop "
+                                    "in the JAX package)",
+                        "launches": launches, "max_abs_err": err, "ms": w["call_ms"],
+                        "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+                        "bound_by": w["bound_by"], "library_ms": None,
+                        "device_us": w["device_us"], "profiled_us": w["profiled_us"],
+                        "bound_us": w["bound_us"], "bound_us_by": w["bound_us_by"]})
     return kernels
 
 

@@ -122,10 +122,16 @@ def locate_hits(tx, lo, hi, k, max_hits):
     numpy arrays.  Without a doc list the doc id is 0 and the offset the raw
     position."""
     flat, offs = locate_ragged(tx, lo, hi, k, max_hits=max_hits)
+    return (flat, offs, *hit_docs(tx, flat))
+
+
+def hit_docs(tx, flat):
+    """(doc ids, offsets in the doc) of the text positions `flat`, numpy
+    arrays: without a doc list, doc 0 and the raw position."""
     if "doc_starts" in tx.arrays and flat.size:
         d, off = resolve_docs(tx, torch.from_numpy(flat).to(tx.device))
-        return flat, offs, d.cpu().numpy(), off.cpu().numpy()
-    return flat, offs, np.zeros_like(flat), flat
+        return d.cpu().numpy(), off.cpu().numpy()
+    return np.zeros_like(flat), flat
 
 
 def format_locs(doc_names, flat, offs, docs, doff):

@@ -39,10 +39,26 @@
 // last whole group.  P2's column is each element's flat index modulo `cols`,
 // so a group may cross a row and any width is exact.
 //
-// P3 is bound by the latency of a chain of dependent loads, one per step, so
-// its design keeps the whole step loop inside the thread (as the LF kernel
-// keeps its L loop) and relies on many resident threads to keep loads in
-// flight.
+// P3 (gather_chain_kernel) runs `steps` dependent loads a lane: 3,276,800 random
+// 4-byte loads into the 4 MB table at the probe's shape.  Its bound is the
+// larger of two times: the chain's latency (100 steps times the dependent-
+// load latency of a table the L2 holds) and the loads over the rate at
+// which the L2 serves random sectors, which P1 over 2^22 indices into the
+// same table measures (chip_smoke.py phase probes; PERF.md §6 says which
+// binds).  The design:
+//   - the step loop stays inside the thread (as the LF kernel keeps its L
+//     loop): no launch between two steps;
+//   - C independent chains a thread (lanes t, t + T, ..., T the thread
+//     count), their loads issued together in each step, so a warp keeps C
+//     loads in flight with a C-th of the threads;
+//   - table loads without allocating in L1, as P1 and P2;
+//   - the block size from the card's SM count, as P1 and P2
+//     (ops/cuda_gather.chain_plan).
+// The first design (one chain a thread, __ldg loads that allocate in L1,
+// 256-thread blocks) is the instance <1, true> at 256 threads; the wrapper's
+// design (ops/cuda_gather.CHAIN) is the variant that ran fastest on an H100.
+// Each thread ends with its chains' values; the phi walk of rbt_align -s
+// (csrc/phi_walk.cu) carries the same loop with a store a step.
 //
 // P1 and P3 keep the TPU kernel's row/column split of the index, row i >> 7
 // of 128 columns and column i & 127: over a contiguous table that is the flat
@@ -61,8 +77,7 @@
 namespace {
 
 constexpr int kVec = 4;             // outputs per thread on the 16-byte path
-constexpr int kMaxThreads = 256;    // P1/P2 block size bound (launch_plan's)
-constexpr int kChainThreads = 256;  // P3 block size
+constexpr int kMaxThreads = 256;    // block size bound (launch_plan's, chain_plan's)
 
 __device__ __forceinline__ int32_t load_table(const int32_t* p) {
   int32_t v;
@@ -105,20 +120,50 @@ gather_vec_kernel(const int32_t* __restrict__ tab,
   out[e] = load_table(tab + offset<kCols>(idx[e], l, cols));
 }
 
-__device__ __forceinline__ int32_t row_col(const int32_t* __restrict__ tab,
-                                           int32_t i) {
-  return __ldg(tab + ((size_t)(i >> 7) << 7) + (i & 127));
+// One step of a chain: the table's element i, through L1 (the first design)
+// or past it.
+template <bool kL1>
+__device__ __forceinline__ int32_t chain_load(const int32_t* p) {
+  return kL1 ? __ldg(p) : load_table(p);
 }
 
-__global__ void __launch_bounds__(kChainThreads)
+// Thread t < items walks lanes t + c * items (c < C, lane < B) from idx; a
+// thread whose c-th lane lies past B walks its first lane's chain again and
+// writes nothing for it.
+template <int C, bool kL1>
+__global__ void __launch_bounds__(kMaxThreads)
 gather_chain_kernel(const int32_t* __restrict__ tab,
                     const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-                    int B, int steps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int32_t i = idx[b];
-  for (int s = 0; s < steps; ++s) i = row_col(tab, i);
-  out[b] = i;
+                    int B, int items, int steps) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= items) return;
+  int32_t i[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int64_t lane = t + (int64_t)c * items;
+    i[c] = idx[lane < B ? lane : t];
+  }
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) i[c] = chain_load<kL1>(tab + i[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int64_t lane = t + (int64_t)c * items;
+    if (lane < B) out[lane] = i[c];
+  }
+}
+
+template <int C, bool kL1>
+int launch_chain(const void* tab, const void* idx, void* out, int B, int steps,
+                 int threads, void* stream) {
+  const int items = (int)(((int64_t)B + C - 1) / C);
+  gather_chain_kernel<C, kL1>
+      <<<(unsigned)((items + threads - 1) / threads), threads, 0,
+         (cudaStream_t)stream>>>(static_cast<const int32_t*>(tab),
+                                 static_cast<const int32_t*>(idx),
+                                 static_cast<int32_t*>(out), B, items, steps);
+  return (int)cudaGetLastError();
 }
 
 template <bool kCols>
@@ -160,15 +205,21 @@ int rbt_gather_cols(const void* tab, const void* idx, void* out, int K,
                           threads, stream);
 }
 
+// P3: `chains` lanes a thread (1, 2 or 4), loads through L1 when `l1` is
+// not 0; `threads` is ops/cuda_gather.chain_plan's (or 256 for the first
+// design).
 int rbt_gather_chain(const void* tab, const void* idx, void* out, int B,
-                     int steps, void* stream) {
-  if (B < 0 || steps < 0) return (int)cudaErrorInvalidValue;
+                     int steps, int chains, int l1, int threads, void* stream) {
+  if (B < 0 || steps < 0 || threads < 32 || threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  gather_chain_kernel<<<(unsigned)((B + kChainThreads - 1) / kChainThreads),
-                        kChainThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(tab), static_cast<const int32_t*>(idx),
-      static_cast<int32_t*>(out), B, steps);
-  return (int)cudaGetLastError();
+  switch (chains * 2 + (l1 != 0)) {
+    case 2: return launch_chain<1, false>(tab, idx, out, B, steps, threads, stream);
+    case 3: return launch_chain<1, true>(tab, idx, out, B, steps, threads, stream);
+    case 4: return launch_chain<2, false>(tab, idx, out, B, steps, threads, stream);
+    case 8: return launch_chain<4, false>(tab, idx, out, B, steps, threads, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* rbt_gather_error_string(int code) {

@@ -1,0 +1,183 @@
+// The phi walk of `rbt_align -s` (ToeholdSA::locate_range, toehold_sa.hpp:
+// 37-49) over a whole batch in one launch, for Hopper (sm_90a).
+//
+// Computes what rowbowt_tpu/engine/locate.py locate and locate_ragged compute
+// with an XLA fori_loop of rowbowt_tpu/ops/rank.py phi_step, one phi step of
+// every lane per iteration (the JAX package has no Pallas kernel for it).
+// It is P3's chained gather (csrc/gather_probe.cu gather_chain_kernel,
+// tools/vmem_gather_probe.py:92 kernelC) carrying the walk: lane b writes
+// out[off[b] + j] for j < size[b], j = 0 the toehold k[b] and each later j
+// the phi of the one before, with the step loop inside the thread.  Two
+// routes, the two that ops/rank.py phi_step takes on the indexes whose
+// `-s` runs on the card:
+//   - phi1 (dense, raw and serialized indexes): i <- phi1[clamp(i, 0, n-1)],
+//     one dependent load a step, int32 or int64 table;
+//   - phi_rows + phi_delta (a BigIndex, bigindex.phi_pack_tables): one 64 B
+//     row [breakpoints before the row | 15 words of breakpoint bits] per 480
+//     positions, the popcount of the row's bits at or below i's offset gives
+//     the rank of i's breakpoint, and i <- (i + phi_delta[rank]) mod n: two
+//     dependent loads a step, int64 lanes (n above 2^31).
+//
+// What bounds it on the H100.  A lane's chain is serial: each step's address
+// is the previous step's result, so the longest lane takes its steps times
+// the dependent-load latency of the table (phi1 at chr is 640 MB, the phi
+// rows of a 2.2 G panel 294 MB: both beyond the 50 MB L2), and the batch is
+// done when that lane is.  The other lanes' loads hide behind it as long as
+// the memory system serves them.  What the design does about it:
+//   - one thread a lane, the step loop inside the thread (as P3), so no
+//     launch or host round trip sits between two steps;
+//   - the wrapper (ops/cuda_phi.py) hands the lanes over in descending size
+//     order (one device sort), so a warp's threads walk chains of about one
+//     length and finish together, and the longest chains start first;
+//   - a grid sized from the SM count (ops/cuda_phi.launch_plan, as P1-P3's):
+//     the least multiple of 32 threads, up to 256, with which one block per
+//     SM covers the lanes;
+//   - the table loads take the read-only path without allocating in L1
+//     (ld.global.nc.L1::no_allocate, as P1-P3): a random row is not read
+//     again by the SM that read it; a phi row is four 16-byte loads issued
+//     together, and its popcount needs no other memory.
+// Every position is written once, in the lane's own contiguous segment.
+//
+// Indices are not checked here: every toehold must lie in [0, n) and the
+// tables must be the index's own.  The wrapper checks shapes, types and
+// devices.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxThreads = 256;  // launch_plan's block size bound
+constexpr int kPhiPos = 480;      // positions a phi row covers (ops/rank.py _PHI_POS)
+
+__device__ __forceinline__ int32_t load_nc(const int32_t* p) {
+  int32_t v;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ int64_t load_nc(const int64_t* p) {
+  int64_t v;
+  asm("ld.global.nc.L1::no_allocate.b64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ int4 load_nc(const int4* p) {
+  int4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// phi over phi1: the table's value at i clamped into [0, n), widened.
+template <typename Tab>
+struct Phi1 {
+  const Tab* phi1;
+  int64_t n;
+  __device__ __forceinline__ int64_t operator()(int64_t i) const {
+    i = i < 0 ? 0 : (i >= n ? n - 1 : i);
+    return (int64_t)load_nc(phi1 + i);
+  }
+};
+
+// phi over the bitmap rows: ops/rank.py phi_step's "phi_rows" branch.
+struct PhiRows {
+  const int4* rows;  // [nb, 4] int4 = [nb, 16] int32
+  const int64_t* delta;
+  int64_t n;
+  __device__ __forceinline__ int64_t operator()(int64_t i) const {
+    const int64_t blk = i / kPhiPos;
+    const int off = (int)(i - blk * kPhiPos);
+    const int4* r = rows + blk * 4;
+    const int4 a = load_nc(r), b = load_nc(r + 1), c = load_nc(r + 2), d = load_nc(r + 3);
+    const uint32_t w[15] = {(uint32_t)a.y, (uint32_t)a.z, (uint32_t)a.w,
+                            (uint32_t)b.x, (uint32_t)b.y, (uint32_t)b.z, (uint32_t)b.w,
+                            (uint32_t)c.x, (uint32_t)c.y, (uint32_t)c.z, (uint32_t)c.w,
+                            (uint32_t)d.x, (uint32_t)d.y, (uint32_t)d.z, (uint32_t)d.w};
+    // bits with local index <= off: whole words before word q, the low
+    // (off & 31) + 1 bits of word q, none after
+    const int q = off >> 5;
+    const uint32_t low = (off & 31) == 31 ? 0xFFFFFFFFu : (2u << (off & 31)) - 1u;
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < 15; ++j)
+      cnt += __popc(w[j] & (j < q ? 0xFFFFFFFFu : (j == q ? low : 0u)));
+    int64_t rk = (int64_t)a.x + cnt - 1;
+    rk = rk < 0 ? 0 : rk;
+    int64_t v = (i + load_nc(delta + rk)) % n;
+    return v < 0 ? v + n : v;
+  }
+};
+
+template <typename Step>
+__global__ void __launch_bounds__(kMaxThreads)
+phi_walk_kernel(Step phi, const int64_t* __restrict__ k, const int64_t* __restrict__ size,
+                const int64_t* __restrict__ off, const int64_t* __restrict__ order,
+                int64_t* __restrict__ out, int B) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= B) return;
+  const int64_t b = order[t];
+  const int64_t s = size[b];
+  if (s <= 0) return;
+  int64_t* o = out + off[b];
+  int64_t i = k[b];
+  o[0] = i;
+  for (int64_t j = 1; j < s; ++j) {
+    i = phi(i);
+    o[j] = i;
+  }
+}
+
+template <typename Step>
+int launch(const Step& phi, const void* k, const void* size, const void* off,
+           const void* order, void* out, int B, int threads, void* stream) {
+  if (B < 0 || threads < 32 || threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  phi_walk_kernel<Step><<<(unsigned)((B + threads - 1) / threads), threads, 0,
+                          (cudaStream_t)stream>>>(
+      phi, static_cast<const int64_t*>(k), static_cast<const int64_t*>(size),
+      static_cast<const int64_t*>(off), static_cast<const int64_t*>(order),
+      static_cast<int64_t*>(out), B);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry walks the B int64 lanes (toehold k, size, off, and `order`, a
+// permutation of [0, B) giving the order threads take the lanes in) on
+// `stream` and returns cudaGetLastError() after the launch (0 on success;
+// nothing is launched for B == 0).  `threads` is ops/cuda_phi.launch_plan's.
+
+// phi1 of `phi1_bytes` (4: int32, 8: int64) a value, n entries.
+int rbt_phi_walk_phi1(const void* phi1, int phi1_bytes, long long n, const void* k,
+                      const void* size, const void* off, const void* order, void* out,
+                      int B, int threads, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (phi1_bytes == 4)
+    return launch(Phi1<int32_t>{static_cast<const int32_t*>(phi1), n}, k, size, off, order,
+                  out, B, threads, stream);
+  if (phi1_bytes == 8)
+    return launch(Phi1<int64_t>{static_cast<const int64_t*>(phi1), n}, k, size, off, order,
+                  out, B, threads, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// phi_rows int32 [n / 480 + 2, 16] (16-byte aligned), phi_delta int64.
+int rbt_phi_walk_rows(const void* rows, const void* delta, long long n, const void* k,
+                      const void* size, const void* off, const void* order, void* out,
+                      int B, int threads, void* stream) {
+  if (n < 1 || (uintptr_t)rows % 16) return (int)cudaErrorInvalidValue;
+  return launch(PhiRows{static_cast<const int4*>(rows), static_cast<const int64_t*>(delta), n},
+                k, size, off, order, out, B, threads, stream);
+}
+
+const char* rbt_phi_walk_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

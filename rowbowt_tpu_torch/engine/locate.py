@@ -5,8 +5,10 @@ RowBowt::find_range_w_toehold (rowbowt.hpp:167-184) on indexes built with the
 full SA: the loop is the plain count LF (K1 on a CUDA device) and the toehold
 is one kval gather of the final range.  locate() is the phi walk
 (ToeholdSA::locate_range, toehold_sa.hpp:37-49) across lanes to a fixed
-max_hits, toehold first then the phi chain; locate_ragged buckets lanes by
-range size on the host so one huge range does not widen every lane.
+max_hits, toehold first then the phi chain; locate_ragged walks each lane
+to its own range size, so one huge range does not widen every lane.  Both
+are one ops/cuda_phi.phi_walk: the walk kernel on a CUDA device over phi1
+or a BigIndex's phi rows, the torch walk otherwise.
 find_ranges_w_toehold_chkpnts records the search state every wsize chars,
 and find_locs is the whole-read search plus the phi walk.
 
@@ -25,12 +27,11 @@ every device: K1 keeps no toehold.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from rowbowt_tpu_torch.engine.count import find_ranges
 from rowbowt_tpu_torch.engine.device import TorchIndex
-from rowbowt_tpu_torch.ops import cuda_lf
+from rowbowt_tpu_torch.ops import cuda_lf, cuda_phi
 from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops import update as U
 
@@ -150,66 +151,34 @@ def _toehold_trajectory(tx: TorchIndex, qcodes, lengths):
 
 def locate(tx: TorchIndex, lo, hi, k, max_hits: int):
     """Phi walk: locs [B, max_hits] (pad -1), count [B] = min(range size,
-    max_hits).  Order matches the reference: toehold first, then the phi chain."""
+    max_hits).  Order matches the reference: toehold first, then the phi
+    chain.  One ops/cuda_phi.phi_walk over lane b's row b * max_hits."""
     B = lo.shape[0]
     n_occ = torch.clamp(hi - lo + 1, 0, max_hits)
-    locs = torch.full((B, max_hits), -1, dtype=lo.dtype, device=lo.device)
-    locs[:, 0] = torch.where(n_occ > 0, k, -1)
-    cur = k
-    for j in range(1, max_hits):
-        cur = R.phi_step(tx, cur)
-        locs[:, j] = torch.where(j < n_occ, cur, -1)
-    return locs, n_occ
-
-
-def _pow2_at_least(x: int, floor: int) -> int:
-    v = floor
-    while v < x:
-        v <<= 1
-    return v
+    out = torch.full((B * max_hits,), -1, dtype=torch.int64, device=lo.device)
+    off = torch.arange(B, dtype=torch.int64, device=lo.device) * max_hits
+    cuda_phi.phi_walk(tx, k, n_occ.to(torch.int64), off, out)
+    return out.view(B, max_hits).to(lo.dtype), n_occ
 
 
 def locate_ragged(tx: TorchIndex, lo, hi, k, max_hits: int | None = None):
     """Ragged phi walk: O(total hits) output, not O(B * max range).
 
-    Lanes are bucketed on the host by range size (pow2 widths of at least 4,
-    pow2-padded lane counts of at least 8) and each bucket is phi-walked on
-    tx.device at its own width.  Returns (flat [total] int64 positions,
-    offsets [B+1]) as numpy arrays: lane b's occurrences, toehold first then
-    the phi chain, are flat[offsets[b]:offsets[b+1]]."""
-    lo_h = lo.cpu().numpy()
-    hi_h = hi.cpu().numpy()
-    k_h = k.cpu().numpy()
-    B = lo_h.shape[0]
-    sizes = np.where(hi_h >= lo_h, hi_h - lo_h + 1, 0).astype(np.int64)
+    Lane b's size is its range size, capped at max_hits; the offsets are the
+    sizes' running sum, and one ops/cuda_phi.phi_walk fills every lane's
+    segment on tx.device.  Returns (flat [total] int64 positions, offsets
+    [B+1]) as numpy arrays: lane b's occurrences, toehold first then the phi
+    chain, are flat[offsets[b]:offsets[b+1]]."""
+    B = lo.shape[0]
+    size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
     if max_hits is not None:
-        sizes = np.minimum(sizes, max_hits)
-    offsets = np.zeros(B + 1, dtype=np.int64)
-    np.cumsum(sizes, out=offsets[1:])
-    flat = np.full(int(offsets[-1]), -1, dtype=np.int64)
-    if offsets[-1] == 0:
-        return flat, offsets
-
-    buckets = np.zeros(B, dtype=np.int64)
-    nz = sizes > 0
-    buckets[nz] = 1 << np.maximum(np.ceil(np.log2(sizes[nz])).astype(np.int64), 2)
-    dt = lo_h.dtype
-    for w in np.unique(buckets[nz]):
-        lanes = np.flatnonzero(buckets == w)
-        P = _pow2_at_least(len(lanes), 8)
-        blo = np.ones(P, dtype=dt)
-        bhi = np.zeros(P, dtype=dt)
-        bk = np.zeros(P, dtype=dt)
-        blo[: len(lanes)] = lo_h[lanes]
-        bhi[: len(lanes)] = hi_h[lanes]
-        bk[: len(lanes)] = k_h[lanes]
-        locs, _ = locate(tx, *(torch.from_numpy(a).to(tx.device) for a in (blo, bhi, bk)),
-                         max_hits=int(w))
-        locs = locs.cpu().numpy()[: len(lanes)]
-        mask = np.arange(int(w), dtype=np.int64)[None, :] < sizes[lanes][:, None]
-        dest = (offsets[lanes][:, None] + np.arange(int(w), dtype=np.int64)[None, :])[mask]
-        flat[dest] = locs[mask]
-    return flat, offsets
+        size = torch.clamp(size, max=max_hits)
+    offsets = torch.zeros(B + 1, dtype=torch.int64, device=lo.device)
+    offsets[1:] = torch.cumsum(size, 0)
+    flat = torch.empty(int(offsets[-1]), dtype=torch.int64, device=lo.device)
+    if flat.numel():
+        cuda_phi.phi_walk(tx, k, size, offsets[:-1], flat)
+    return flat.cpu().numpy(), offsets.cpu().numpy()
 
 
 def resolve_docs(tx: TorchIndex, locs):

@@ -9,7 +9,11 @@ and bound with ctypes):
   gather_chain (P3)  `steps` dependent gathers i <- tab[i] per lane
 
 P1 and P2 give each thread VEC consecutive outputs through 16-byte index
-loads and stores where `launch_plan` allows it; P3 is one thread per lane.
+loads and stores where `launch_plan` allows it; P3 gives each thread the
+CHAIN design's number of lanes, their loads issued together each step, in
+blocks sized by `chain_plan`.  `gather_chain_as` launches any of
+CHAIN_DESIGNS (the first design among them), for chip_smoke.py to time them
+beside each other.
 Each wrapper launches its kernel for CUDA tensors (and adds one to
 LAUNCHES[name] when it launches) or raises; for CPU tensors it runs its
 `*_plain` twin, the torch version the kernel is held against on the card.
@@ -36,6 +40,15 @@ LAUNCHES = {"gather_rows": 0, "gather_cols": 0, "gather_chain": 0}
 
 VEC = 4  # outputs per thread on the 16-byte path (csrc/gather_probe.cu kVec)
 
+# P3's designs: (chains a thread, loads through L1, block size; None: chain_plan's).
+# "l1" is the first design (one chain a thread, loads through L1, 256-thread
+# blocks); CHAIN is the wrapper's, the fastest on an H100
+# (NVIDIA H100 80GB HBM3, 700 W: 29.01 us against 30.77-31.15 for the
+# others at the probe's shape, PERF.md §6)
+CHAIN_DESIGNS = {"l1": (1, True, 256), "c1": (1, False, None), "c2": (2, False, None),
+                 "c4": (4, False, None)}
+CHAIN = "l1"
+
 _ENTRIES: dict = {}  # wrapper name -> its bound C entry, filled once by build()
 _ERROR_STRING = None
 _SMS: dict = {}  # device index -> its SM count
@@ -52,7 +65,7 @@ def build() -> dict:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     signatures = {"gather_rows": [vp, vp, vp, ci, ci, ci, vp],
                   "gather_cols": [vp, vp, vp, ci, ci, ci, ci, vp],
-                  "gather_chain": [vp, vp, vp, ci, ci, vp]}
+                  "gather_chain": [vp, vp, vp, ci, ci, ci, ci, ci, vp]}
     entries = {}
     for name, argtypes in signatures.items():
         fn = getattr(lib, f"rbt_{name}")
@@ -81,6 +94,14 @@ def launch_plan(n: int, idx_ptr: int, out_ptr: int, sms: int) -> tuple[int, int]
     groups = n // VEC if (idx_ptr | out_ptr) % 16 == 0 else 0
     items = n - (VEC - 1) * groups
     return groups, max(32, min(256, -(-items // (32 * sms)) * 32))
+
+
+def chain_plan(n: int, chains: int, sms: int) -> int:
+    """Block size of a P3 launch over n lanes, `chains` a thread: the least
+    multiple of 32 (up to 256) with which one block on each of the card's
+    `sms` SMs covers the ceil(n / chains) threads."""
+    items = -(-n // chains)
+    return max(32, min(256, -(-items // (32 * sms)) * 32))
 
 
 def gather_rows_plain(tab, idx):
@@ -128,14 +149,22 @@ def gather_cols(tab, idx):
 
 def gather_chain(tab, idx, steps: int = 100):
     """P3: `steps` dependent gathers i <- tab.flat[i] from i = idx[b]."""
+    return gather_chain_as(tab, idx, steps, CHAIN)
+
+
+def gather_chain_as(tab, idx, steps: int, design: str):
+    """P3 in the design CHAIN_DESIGNS[design]; the plain twin for CPU
+    tensors."""
     dev = _check(tab, idx, 1)
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
+    chains, l1, threads = CHAIN_DESIGNS[design]
     if dev < 0:
         return gather_chain_plain(tab, idx, steps)
     out = torch.empty_like(idx)
     n = idx.numel()
-    _launch("gather_chain", dev, n, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, steps)
+    _launch("gather_chain", dev, n, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, steps,
+            chains, int(l1), threads or chain_plan(n, chains, _sm_count(dev)))
     return out
 
 

@@ -1,0 +1,190 @@
+"""The phi walk of `rbt_align -s` as one hand-written CUDA kernel a batch.
+
+The kernel (csrc/phi_walk.cu, built with nvcc for sm_90a on first use and
+bound with ctypes) is P3's chained gather (csrc/gather_probe.cu) carrying
+the walk: lane b writes out[off[b] + j] for j < size[b], the toehold k[b]
+first, then each phi of the one before (ToeholdSA::locate_range,
+toehold_sa.hpp:37-49), one thread a lane with the step loop inside it.  It
+takes the two phi routes of ops/rank.phi_step that the card's `-s` runs
+use: the dense `phi1` table, and a BigIndex's bitmap rows (`phi_rows` +
+`phi_delta`).
+
+`phi_walk` is the wrapper: for CUDA tensors it launches the kernel (and adds
+one to LAUNCHES) when the index has one of those tables, and otherwise runs
+the torch walk on the card, chosen from the index's tables before anything
+launches (the breakpoint table `phi_at` of a BigIndex with 2^31 or more
+breakpoints, and the predecessor search of an index without phi1: raw
+builds without it and `--no-dense`), adding one to LAUNCHES_TORCH; for CPU
+tensors it runs `phi_walk_plain`, the torch walk over ops/rank.phi_step,
+which is also what the kernel is held against on the card.
+`launch_walk` launches or raises, never the torch walk.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from rowbowt_tpu_torch import _native
+from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.ops import rank as R
+from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
+
+# walk kernel launches since the last reset (a run sets them to 0), and the
+# walks phi_walk ran as torch ops on a CUDA device (no phi1 or phi rows)
+LAUNCHES = 0
+LAUNCHES_TORCH = 0
+
+_LIB = None
+BUILD_LOG = ""  # nvcc's output (-Xptxas -v register/spill report) of the build
+
+
+def build():
+    """Compile csrc/phi_walk.cu (once per process) and bind its C entries:
+    rbt_phi_walk_phi1 and rbt_phi_walk_rows."""
+    global _LIB, BUILD_LOG
+    if _LIB is not None:
+        return _LIB
+    path, BUILD_LOG = _native.build_cuda_library("phi_walk")
+    lib = ctypes.CDLL(path)
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.rbt_phi_walk_phi1.argtypes = [vp, ci, ll, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.rbt_phi_walk_rows.argtypes = [vp, vp, ll, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.rbt_phi_walk_phi1.restype = lib.rbt_phi_walk_rows.restype = ci
+    lib.rbt_phi_walk_error_string.argtypes = [ci]
+    lib.rbt_phi_walk_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def walk_route(tx: TorchIndex) -> str | None:
+    """The table the walk kernel reads, phi_step's choice: "phi1",
+    "phi_rows", or None where phi_step takes the breakpoint table or the
+    predecessor search, which the kernel does not take."""
+    if "phi1" in tx.arrays:
+        return "phi1"
+    if "phi_rows" in tx.arrays:
+        return "phi_rows"
+    return None
+
+
+def launch_plan(B: int, sms: int) -> int:
+    """Threads a block of a walk over B lanes on a card of `sms` SMs: the
+    least multiple of 32 (up to 256) with which one block on each SM covers
+    the lanes."""
+    return max(32, min(256, -(-B // (32 * sms)) * 32))
+
+
+def phi_walk_plain(tx: TorchIndex, k, size, off, out):
+    """The torch walk: lane b's toehold k[b] and its phi chain, size[b]
+    positions in all, into out[off[b]:off[b] + size[b]], one ops/rank.
+    phi_step of every unfinished lane per step.  The lanes are taken in
+    descending size order, so the unfinished ones are a prefix.  Returns
+    out."""
+    order = torch.argsort(size, descending=True)
+    s = size[order].cpu().numpy()
+    live = int(np.count_nonzero(s > 0))
+    if not live:
+        return out
+    lanes = order[:live]
+    o = off[lanes]
+    cur = k[lanes]
+    out[o] = cur.to(out.dtype)
+    neg = -s[:live]  # ascending: lanes with size > j are the first searchsorted(neg, -j)
+    for j in range(1, int(s[0])):
+        m = int(np.searchsorted(neg, -j, side="left"))
+        cur = R.phi_step(tx, cur[:m])
+        out[o[:m] + j] = cur.to(out.dtype)
+    return out
+
+
+def phi_walk(tx: TorchIndex, k, size, off, out):
+    """Fill out[off[b] + j] for j < size[b] with lane b's toehold and phi
+    chain: the walk kernel for CUDA tensors over phi1 or the phi rows, the
+    torch walk on the card over the other tables (one more in
+    LAUNCHES_TORCH), the plain walk for CPU tensors, an error for any other
+    device.  Returns out."""
+    global LAUNCHES_TORCH
+    if k.device.type == "cpu":
+        return phi_walk_plain(tx, k, size, off, out)
+    if k.device.type != "cuda":
+        raise ValueError(f"no phi walk for device {k.device}")
+    if walk_route(tx) is not None:
+        return launch_walk(tx, k, size, off, out)
+    phi_walk_plain(tx, k, size, off, out)
+    if k.shape[0]:
+        LAUNCHES_TORCH += 1
+    return out
+
+
+def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
+    """Launch the walk kernel on CUDA tensors: k int32 or int64 [B] (widened
+    to int64), size and off int64 [B], out int64; the lanes in descending
+    size order, `order` (int64 [B]) where the caller has it (chip_smoke.py,
+    to time the kernel alone), else from one device sort.  Every k[b] with
+    size[b] > 0 must lie in [0, n) and out must hold every off[b] +
+    size[b]."""
+    global LAUNCHES
+    route = walk_route(tx)
+    if route is None:
+        raise ValueError("the walk kernel reads phi1 or the phi bitmap rows; this index has "
+                         "neither (phi_walk takes the torch walk for it)")
+    tabs = ((("phi1", tx.arrays["phi1"], (torch.int32, torch.int64)),) if route == "phi1" else
+            (("phi_rows", tx.arrays["phi_rows"], (torch.int32,)),
+             ("phi_delta", tx.arrays["phi_delta"], (torch.int64,))))
+    named = (("k", k, (torch.int32, torch.int64)), ("size", size, (torch.int64,)),
+             ("off", off, (torch.int64,)), ("out", out, (torch.int64,))) + tabs
+    dev = k.device
+    for name, t, want in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, k on {dev}")
+        if t.dtype not in want:
+            raise TypeError(f"{name} must be {' or '.join(str(w)[6:] for w in want)}, "
+                            f"got {t.dtype}")
+    B = k.shape[0]
+    if k.dim() != 1 or size.shape != (B,) or off.shape != (B,) or out.dim() != 1:
+        raise ValueError(f"k, size and off must be [B] and out flat: k {tuple(k.shape)}, "
+                         f"size {tuple(size.shape)}, off {tuple(off.shape)}, "
+                         f"out {tuple(out.shape)}")
+    if B >= 1 << 31:
+        raise ValueError("2^31 or more lanes are not supported")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    for name, t, _ in tabs:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if route == "phi_rows":
+        rows = tx.arrays["phi_rows"]
+        if rows.dim() != 2 or rows.shape[1] != 16 or rows.data_ptr() % 16:
+            raise ValueError(f"phi_rows of shape {tuple(rows.shape)}: need [nb, 16], "
+                             "16-byte aligned")
+    k = k.to(torch.int64).contiguous()
+    size, off = size.contiguous(), off.contiguous()
+    if order is None:
+        order = torch.argsort(size, descending=True)
+    elif order.shape != (B,) or order.dtype != torch.int64 or order.device != dev:
+        raise ValueError(f"order must be int64 [B] on {dev}")
+    d = dev.index if dev.index is not None else torch.cuda.current_device()
+    threads = launch_plan(B, _sm_count(d))
+    lib = _LIB or build()
+    lanes = (k.data_ptr(), size.data_ptr(), off.data_ptr(), order.data_ptr(), out.data_ptr(),
+             B, threads)
+    if route == "phi1":
+        phi1 = tx.arrays["phi1"]
+        entry, args = lib.rbt_phi_walk_phi1, (phi1.data_ptr(), phi1.element_size(), tx.n)
+    else:
+        entry = lib.rbt_phi_walk_rows
+        args = (tx.arrays["phi_rows"].data_ptr(), tx.arrays["phi_delta"].data_ptr(), tx.n)
+    if d == torch.cuda.current_device():
+        rc = entry(*args, *lanes, _raw_stream(d))
+    else:
+        with torch.cuda.device(d):
+            rc = entry(*args, *lanes, _raw_stream(d))
+    if rc != 0:
+        raise RuntimeError(f"phi walk kernel launch failed: "
+                           f"{lib.rbt_phi_walk_error_string(rc).decode()}")
+    if B:
+        LAUNCHES += 1
+    return out

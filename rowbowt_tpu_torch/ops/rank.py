@@ -334,6 +334,22 @@ def bwt_sym(tx: TorchIndex, i):
     return ((w >> (4 * (off & 7))) & 15).to(torch.int32)
 
 
+def phi_rows_rank(tx: TorchIndex, i):
+    """The phi_delta entry of each position i on a big index's bitmap rows
+    (bigindex.phi_pack_tables): one 64B row gather ([ckpt | 15 bit words]
+    per 480 positions) + popcount gives the predecessor rank.  int64."""
+    blk = torch.div(i, _PHI_POS, rounding_mode="floor")
+    off = i - blk * _PHI_POS
+    row = tx.arrays["phi_rows"][blk.long()]  # [B, 16] int32
+    words = row[:, 1:].to(torch.int64) & _U32  # [B, 15]
+    # count the bits with local index <= off: kn bits of word jw
+    kn = (off[:, None] + 1
+          - 32 * torch.arange(15, dtype=torch.int64, device=i.device)[None, :]).clamp(0, 32)
+    mask = torch.where(kn >= 32, _U32, (torch.ones_like(kn) << kn) - 1)
+    rk = row[:, 0].to(torch.int64) + _popcount32(words & mask).sum(dim=1) - 1
+    return torch.clamp(rk, min=0)
+
+
 def phi_step(tx: TorchIndex, i):
     """Batched ToeholdSA::phi (toehold_sa.hpp:56-72): one gather via the dense
     phi1 table (phi(SA[j]) = SA[j-1]; the result has phi1's dtype), on a big
@@ -344,19 +360,8 @@ def phi_step(tx: TorchIndex, i):
     if "phi1" in arr:
         return arr["phi1"][torch.clamp(i, 0, tx.n - 1).long()]
     if "phi_rows" in arr:
-        # bitmap rank (bigindex.phi_pack_tables): one 64B row gather ([ckpt |
-        # 15 bit words] per 480 positions) + popcount gives the predecessor
-        # rank, one delta gather finishes
-        blk = torch.div(i, _PHI_POS, rounding_mode="floor")
-        off = i - blk * _PHI_POS
-        row = arr["phi_rows"][blk.long()]  # [B, 16] int32
-        words = row[:, 1:].to(torch.int64) & _U32  # [B, 15]
-        # count the bits with local index <= off: kn bits of word jw
-        kn = (off[:, None] + 1
-              - 32 * torch.arange(15, dtype=torch.int64, device=i.device)[None, :]).clamp(0, 32)
-        mask = torch.where(kn >= 32, _U32, (torch.ones_like(kn) << kn) - 1)
-        rk = row[:, 0].to(torch.int64) + _popcount32(words & mask).sum(dim=1) - 1
-        d = arr["phi_delta"][torch.clamp(rk, min=0)].to(i.dtype)
+        # one delta gather after the bitmap rank
+        d = arr["phi_delta"][phi_rows_rank(tx, i)].to(i.dtype)
         return (i + d) % tx.n
     if "phi_at" in arr:
         # the breakpoint table itself: pred_pos[0] == 0, so rk >= 0

@@ -151,6 +151,40 @@ def test_launch_plan(n, idx_ptr, out_ptr, sms, plan):
     assert cuda_gather.launch_plan(n, idx_ptr, out_ptr, sms) == plan
 
 
+@pytest.mark.parametrize("n,chains,sms,threads", [
+    (32_768, 1, 132, 256),   # the probe's shape: 128 blocks of 256
+    (32_768, 2, 132, 128),   # 16,384 threads: 128 blocks of 128
+    (32_768, 4, 132, 64),
+    (33_793, 4, 132, 96),    # 8,449 threads: one more than 64 a block on 132 SMs cover
+    (33_792, 1, 132, 256),
+    (5, 4, 132, 32), (1, 2, 132, 32), (0, 1, 132, 32),
+    (1 << 22, 1, 132, 256),  # a long grid: full blocks
+    (32_768, 1, 16, 256),    # a card with fewer SMs
+])
+def test_chain_plan(n, chains, sms, threads):
+    assert cuda_gather.chain_plan(n, chains, sms) == threads
+    items = -(-n // chains)
+    assert threads == 256 or -(-items // threads) <= sms
+    assert threads == 32 or -(-items // (threads - 32)) > sms
+
+
+def test_chain_designs_launch_their_plan(fake_entries, monkeypatch):
+    """gather_chain launches the CHAIN design with chain_plan's block size;
+    gather_chain_as any design, the first one at its fixed 256 threads.  The
+    C entry sees (tab, idx, out, n, steps, chains, l1, threads, stream)."""
+    monkeypatch.setattr(cuda_gather, "_check", lambda tab, idx, d: 0)
+    monkeypatch.setattr(cuda_gather, "_sm_count", lambda dev: 132)
+    tab, idx = torch.zeros(128, dtype=torch.int32), torch.zeros(32_768, dtype=torch.int32)
+    cuda_gather.gather_chain(tab, idx, 7)
+    for design in cuda_gather.CHAIN_DESIGNS:
+        cuda_gather.gather_chain_as(tab, idx, 7, design)
+    got = [a[5:8] for _, a in fake_entries["calls"]]
+    chains, l1, _ = cuda_gather.CHAIN_DESIGNS[cuda_gather.CHAIN]
+    assert got == [(chains, int(l1), cuda_gather.chain_plan(32_768, chains, 132)),
+                   (1, 1, 256), (1, 0, 256), (2, 0, 128), (4, 0, 64)]
+    assert cuda_gather.LAUNCHES["gather_chain"] == 5
+
+
 def test_launch_plan_covers_every_output_one_block_per_sm():
     rng = np.random.default_rng(3)
     for n in [*range(0, 70), *rng.integers(0, 1 << 26, 200).tolist()]:

@@ -1,0 +1,271 @@
+"""The phi walk of `rbt_align -s` (ops/cuda_phi.py): its plain twin, in the
+ragged (engine/locate.locate_ragged) and dense (engine/locate.locate) forms
+the CPU runs, == the JAX package's locate_ragged and locate on the dense
+pairs of tests/test_torch_locate.py and the BigIndex pairs of
+tests/test_torch_bigindex.py (phi_rows at n_sup 4, phi_at at n_sup 3), with
+max_hits None, 1 and a cap below the widest range, empty and size-1 ranges,
+every lane empty, a permuted lane order, int32 and int64 lanes.  Then the
+wrapper: its route choice and launch counts, its refusals, and its launch
+path with the C entries replaced by a numpy model of the kernel (a refused
+launch raises and counts nothing).  Every output is an integer, so every
+check is exact."""
+
+import ctypes
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rowbowt_tpu.engine import locate as JL
+from rowbowt_tpu_torch.engine import locate as TL
+from rowbowt_tpu_torch.ops import cuda_phi
+from test_bigindex import _reads_of
+from test_torch_bigindex import _batch, marker_panel, phi_case  # noqa: F401 (fixtures)
+from test_torch_locate import _eq, _toeholds, pair  # noqa: F401 (fixture)
+
+
+def _lanes(got, dtype):
+    return tuple(t.to(dtype) for t in got)
+
+
+def _cases(lo, hi):
+    """{name: lane index array}: all lanes, a permutation of them, the empty
+    ranges alone, the size-1 ranges with a few others."""
+    size = np.where(hi >= lo, hi - lo + 1, 0)
+    rng = np.random.default_rng(11)
+    empty, one = np.flatnonzero(size == 0), np.flatnonzero(size == 1)
+    assert empty.size and one.size and (size > 3).any()
+    return {"all": np.arange(lo.shape[0]), "permuted": rng.permutation(lo.shape[0]),
+            "every_lane_empty": empty,
+            "size_1": np.concatenate([one, np.flatnonzero(size > 1)[:3]])}
+
+
+def _held(dx, runs, want, caps, eq):
+    """The ragged and dense forms of the port's walk on each lane case ==
+    the JAX package's, at max_hits None (ragged only), 1 and each cap, for
+    every (tx, port lanes) of `runs`; the JAX package runs each case once."""
+    wlo, whi, _ = (np.asarray(t) for t in want)
+    for name, sel in _cases(wlo, whi).items():
+        w = tuple(jnp.asarray(np.asarray(t)[sel]) for t in want)
+        for max_hits in (None, 1, *caps):
+            wr = JL.locate_ragged(dx, *w, max_hits=max_hits)
+            if name == "every_lane_empty":
+                assert wr[0].size == 0 and not wr[1].any()
+            wd = JL.locate(dx, *w, max_hits=max_hits) if max_hits is not None else None
+            for tx, got in runs:
+                g = tuple(t[torch.from_numpy(sel)] for t in got)
+                eq(TL.locate_ragged(tx, *g, max_hits=max_hits), wr, f"ragged {name} {max_hits}")
+                if wd is not None:
+                    eq(TL.locate(tx, *g, max_hits=max_hits), wd, f"dense {name} {max_hits}")
+
+
+def test_twin_matches_jax_dense(pair):
+    """int32 and int64 lanes.  The JAX package walks a dense index's int32
+    lanes only (its loop carry is phi1's int32): the port's int64 lanes give
+    the same values, the dense form in int64."""
+    dx, tx = pair[:2]
+    want, got = _toeholds(pair)
+    assert got[0].dtype == torch.int32
+    size = (got[1] - got[0] + 1).clamp(min=0)
+    widest = int(size.max())
+    assert widest == tx.n  # the pad lanes: the whole BWT
+    launches = (cuda_phi.LAUNCHES, cuda_phi.LAUNCHES_TORCH)
+
+    def eq(g, w, what):
+        wide = isinstance(g[0], torch.Tensor) and g[0].dtype == torch.int64
+        _eq(g, [np.asarray(x).astype(np.int64) if wide and np.asarray(x).dtype == np.int32
+                else x for x in w])
+
+    _held(dx, [(tx, got), (tx, _lanes(got, torch.int64))], want, (3, widest), eq)
+    assert (cuda_phi.LAUNCHES, cuda_phi.LAUNCHES_TORCH) == launches  # CPU: the twin
+
+
+def test_twin_matches_jax_big(phi_case):
+    from test_torch_bigindex import _eq as eq
+
+    idx, dx, txs, text = phi_case
+    qc, lens, q, ln = _batch(idx, _reads_of(text, np.random.default_rng(7)) + [b"", b"AC"])
+    want = JL.find_ranges_w_toehold(dx, jnp.asarray(qc), jnp.asarray(lens))
+    runs = [(tx, TL.find_ranges_w_toehold(tx, q, ln)) for tx in txs]
+    for tx, got in runs:
+        assert got[0].dtype == torch.int64
+        assert int((got[1] - got[0] + 1).clamp(min=0).max()) == tx.n
+    _held(dx, runs, want, (2, 40), eq)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+
+def _walk_model(tx, lib_calls, rc):
+    """A numpy model of the kernel behind fake C entries: each entry reads
+    its operands from the addresses the wrapper passes, checks that `order`
+    is a permutation of the lanes in descending size order, walks every lane
+    as csrc/phi_walk.cu does and writes out; returns rc."""
+    def ints(ptr, count, dtype):
+        ct = ctypes.c_int64 if dtype == np.int64 else ctypes.c_int32
+        return np.ctypeslib.as_array((ct * count).from_address(ptr)) if count else \
+            np.zeros(0, dtype)
+
+    def walk(step, n, k, size, off, order, out, B, threads):
+        k, size, off, order = (ints(p, B, np.int64) for p in (k, size, off, order))
+        assert np.array_equal(np.sort(order), np.arange(B))
+        assert (np.diff(size[order]) <= 0).all()
+        flat = ints(out, int((off + size).max(initial=0)), np.int64)
+        for b in order.tolist():
+            i = int(k[b])
+            for j in range(int(size[b])):
+                if j:
+                    i = step(i)
+                flat[off[b] + j] = i
+        return rc
+
+    def phi1(tab, nbytes, n, *lanes):
+        lib_calls.append(("phi1", nbytes, n, lanes[-3:-1]))
+        t = ints(tab, n, np.int32 if nbytes == 4 else np.int64)
+        return walk(lambda i: int(t[min(max(i, 0), n - 1)]), n, *lanes[:-1])
+
+    def rows(rows_ptr, delta_ptr, n, *lanes):
+        lib_calls.append(("phi_rows", 16, n, lanes[-3:-1]))
+        r = ints(rows_ptr, tx.arrays["phi_rows"].numel(), np.int32).reshape(-1, 16)
+        d = ints(delta_ptr, tx.arrays["phi_delta"].numel(), np.int64)
+
+        def step(i):
+            blk, off = divmod(i, 480)
+            q, low = off >> 5, (1 << ((off & 31) + 1)) - 1
+            w = r[blk, 1:].view(np.uint32).astype(np.int64)
+            cnt = sum(bin(int(w[j]) & (0xFFFFFFFF if j < q else low if j == q else 0))
+                      .count("1") for j in range(15))
+            return (i + int(d[max(int(r[blk, 0]) + cnt - 1, 0)])) % n
+
+        return walk(step, n, *lanes[:-1])
+
+    return SimpleNamespace(rbt_phi_walk_phi1=phi1, rbt_phi_walk_rows=rows,
+                           rbt_phi_walk_error_string=lambda code: b"invalid argument")
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """The launch path with its C library, stream, SM count and current
+    device replaced: CPU tensors reach the (modelled) kernel as a CUDA call's
+    would."""
+    rec = {"calls": [], "rc": 0}
+
+    def install(tx):
+        monkeypatch.setattr(cuda_phi, "_LIB", _walk_model(tx, rec["calls"], rec["rc"]))
+
+    monkeypatch.setattr(cuda_phi, "_raw_stream", lambda dev: 1000 + dev)
+    monkeypatch.setattr(cuda_phi, "_sm_count", lambda dev: 2)
+    monkeypatch.setattr(cuda_phi.torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(cuda_phi, "LAUNCHES", 0)
+    monkeypatch.setattr(cuda_phi, "LAUNCHES_TORCH", 0)
+    rec["install"] = install
+    return rec
+
+
+def _walk_args(tx, lo, hi, k, max_hits=None):
+    size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
+    if max_hits is not None:
+        size = size.clamp(max=max_hits)
+    off = torch.cumsum(size, 0) - size
+    return k, size, off, torch.full((int(size.sum()),), -7, dtype=torch.int64)
+
+
+def test_launch_path_walks_like_the_twin_dense(pair, fake_lib):
+    tx = pair[1]
+    _, got = _toeholds(pair)
+    fake_lib["install"](tx)
+    for lanes, max_hits in ((torch.int32, None), (torch.int64, 5)):
+        k, size, off, out = _walk_args(tx, *_lanes(got, lanes), max_hits)
+        want = cuda_phi.phi_walk_plain(tx, k, size, off, out.clone())
+        assert cuda_phi.launch_walk(tx, k, size, off, out) is out
+        assert torch.equal(out, want) and (out >= 0).all()
+    B = got[0].shape[0]
+    assert [c[:3] for c in fake_lib["calls"]] == [("phi1", 4, tx.n)] * 2
+    assert all(c[3] == (B, cuda_phi.launch_plan(B, 2)) for c in fake_lib["calls"])
+    assert cuda_phi.LAUNCHES == 2 and cuda_phi.LAUNCHES_TORCH == 0
+
+
+def test_launch_path_walks_like_the_twin_big(phi_case, fake_lib):
+    idx, dx, txs, text = phi_case
+    _, _, q, ln = _batch(idx, _reads_of(text, np.random.default_rng(7)) + [b""])
+    tx = txs[1]
+    got = TL.find_ranges_w_toehold(tx, q, ln)
+    args = _walk_args(tx, *got)
+    if cuda_phi.walk_route(tx) is None:  # phi_at: the kernel does not take it
+        with pytest.raises(ValueError, match="reads phi1 or the phi bitmap rows"):
+            cuda_phi.launch_walk(tx, *args)
+        return
+    fake_lib["install"](tx)
+    want = cuda_phi.phi_walk_plain(tx, *args[:3], args[3].clone())
+    cuda_phi.launch_walk(tx, *args)
+    assert torch.equal(args[3], want)
+    assert [c[:3] for c in fake_lib["calls"]] == [("phi_rows", 16, tx.n)]
+    assert cuda_phi.LAUNCHES == 1
+
+
+def test_refused_launch_raises_and_counts_nothing(pair, fake_lib):
+    tx = pair[1]
+    fake_lib["rc"] = 1
+    fake_lib["install"](tx)
+    _, got = _toeholds(pair)
+    with pytest.raises(RuntimeError, match="phi walk kernel launch failed: invalid argument"):
+        cuda_phi.launch_walk(tx, *_walk_args(tx, *got, 2))
+    assert cuda_phi.LAUNCHES == 0 and len(fake_lib["calls"]) == 1
+    # no lanes: the entry launches nothing, and nothing is counted
+    fake_lib["rc"] = 0
+    fake_lib["install"](tx)
+    empty = torch.zeros(0, dtype=torch.int64)
+    cuda_phi.launch_walk(tx, empty, empty, empty, empty)
+    assert cuda_phi.LAUNCHES == 0
+
+
+def test_wrapper_refuses_mixed_devices_and_wrong_dtypes(pair):
+    tx = pair[1]
+    k, size, off, out = _walk_args(tx, *_toeholds(pair)[1], 2)
+    meta = torch.empty(out.shape, dtype=torch.int64, device="meta")
+    for args, error, match in (
+            ((k, size, off, meta), ValueError, "out is on meta"),
+            ((k.float(), size, off, out), TypeError, "k must be int32 or int64"),
+            ((k, size.int(), off, out), TypeError, "size must be int64"),
+            ((k, size, off, out.int()), TypeError, "out must be int64"),
+            ((k, size, off[:-1], out), ValueError, "must be \\[B\\]"),
+            ((k, size, off, out.view(-1, 1)), ValueError, "out flat")):
+        with pytest.raises(error, match=match):
+            cuda_phi.launch_walk(tx, *args)
+    bad = dict(tx.arrays, phi1=tx.arrays["phi1"].float())
+    with pytest.raises(TypeError, match="phi1 must be int32 or int64"):
+        cuda_phi.launch_walk(SimpleNamespace(arrays=bad, n=tx.n), k, size, off, out)
+
+
+@pytest.mark.parametrize("route", ["phi1", "phi_rows", "phi_at", "pred"])
+def test_route_is_chosen_by_the_tables(monkeypatch, route):
+    """On a CUDA tensor phi_walk launches the kernel exactly when the index
+    has phi1 or the phi rows, and otherwise runs the torch walk and counts it
+    in LAUNCHES_TORCH; the choice is made before any launch."""
+    tables = {"phi1": ("phi1",), "phi_rows": ("phi_rows", "phi_delta"),
+              "phi_at": ("pred_pos", "phi_at", "pp_off"), "pred": ("pred_pos", "pred_to_run")}
+    tx = SimpleNamespace(arrays=dict.fromkeys(tables[route]))
+    calls = []
+    monkeypatch.setattr(cuda_phi, "launch_walk", lambda *a: calls.append("kernel"))
+    monkeypatch.setattr(cuda_phi, "phi_walk_plain", lambda *a: calls.append("torch"))
+    monkeypatch.setattr(cuda_phi, "LAUNCHES_TORCH", 0)
+    k = SimpleNamespace(device=SimpleNamespace(type="cuda"), shape=(4,))
+    cuda_phi.phi_walk(tx, k, None, None, None)
+    kernel = route in ("phi1", "phi_rows")
+    assert calls == ["kernel" if kernel else "torch"]
+    assert cuda_phi.LAUNCHES_TORCH == (0 if kernel else 1)
+    assert (cuda_phi.walk_route(tx) == route) == kernel
+    with pytest.raises(ValueError, match="no phi walk for device"):
+        cuda_phi.phi_walk(tx, SimpleNamespace(device=SimpleNamespace(type="mps")),
+                          None, None, None)
+
+
+@pytest.mark.parametrize("B,sms,threads", [
+    (65_536, 132, 256), (16_384, 132, 128), (3_392, 132, 32), (1, 132, 32), (0, 132, 32),
+    (33_792, 132, 256), (33_791, 132, 256), (8_448, 132, 64), (8_449, 132, 96),
+])
+def test_launch_plan(B, sms, threads):
+    assert cuda_phi.launch_plan(B, sms) == threads
+    assert threads == 256 or -(-B // threads) <= sms

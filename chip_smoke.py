@@ -45,10 +45,14 @@ beside the phases before it, and runs:
      record launch (lo, hi and the [L, B] step record) against the torch
      loop that records (cuda_lf.find_ranges_record_plain) there too; then
      the phi walk kernel against its plain twin (the torch walk) on the
-     batch's -s toeholds over the dense index's phi1 and over its BigIndex
-     view's phi rows, capped at 8 hits and uncapped on lanes of at most
-     4,096, and the BigIndex without phi rows walking as torch ops on the
-     card (one torch walk counted) to the same positions;
+     batch's -s toeholds over the dense index's phi1, over its BigIndex
+     view's phi rows and over the predecessor search of the index without
+     phi1, capped at 8 hits and uncapped on lanes of at most 4,096, and the
+     BigIndex without phi rows walking as torch ops on the card (one torch
+     walk counted) to the same positions; then K1's toehold launch against
+     its plain twin (the torch loop of the per-step toehold) and the full-SA
+     index's toeholds on the raw tables of the same BWT (no kval), over
+     tk1 and over ltk, on the batch and at the edges of k1_edges;
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
@@ -80,12 +84,18 @@ beside the phases before it, and runs:
      `.mab` (write_mab), built from the prefix by `rbt_build_torch <prefix>
      -s -m -l` (fused rows, predecessor-built phi1, no kval; n above
      OCC1_MAX_N, so no occ1/tk1): rbt_align count, -s and -m print the lines
-     of phases 6, 8 and 9; K1 once a batch of count and -m, none in -s
-     (the per-step toehold over ltk); build seconds, peak RSS, -s stages;
+     of phases 6, 8 and 9; K1 once a batch of count and -m, its toehold
+     launch (the per-step toehold over ltk) once a batch of -s; build
+     seconds, peak RSS, -s stages; the toehold launch against its plain
+     twin and dense chr's toeholds on every -s batch, the search + toehold
+     stage with the torch loop and with the kernel in turns, and on one
+     batch its call ms beside the twin's, its time alone, work and bound;
   9c. nodense_chr: the chr index without fblock, kval, phi1 and ma_start1
      (what --no-dense writes): count (the run-space torch route, no K1
-     launch), -s (per-step toehold, predecessor phi) and -m (ma_row binary
-     search) print the same lines; reads/s beside the dense index's;
+     launch), -s (the per-step toehold as a torch loop, the walk kernel
+     over the predecessor search) and -m (ma_row binary search) print the
+     same lines; reads/s beside the dense index's; -s stages; the walk
+     kernel on the -s batches' lanes against the torch walk (walk_times);
  10. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
      steps, against its plain twin, and the walk kernel (`locate`) on the
      same lanes against the torch walk; then the walk kernel on the -s
@@ -183,14 +193,17 @@ counts the two-level K1's (cuda_lf.LAUNCHES_FB2): one a batch of its count
 and -m runs, none in -s, whose toehold search is the record launch
 (cuda_lf.LAUNCHES_REC, one a batch, and no run of the torch record loop,
 cuda_lf.RECORDS_PLAIN); pfp_big the same on its panel.  raw_chr,
-nodense_chr and build_small count every route of the count search (K1, K1
-over the two-level rows, and the torch loop of an index without fused
-rows, cuda_lf.LAUNCHES_TORCH), set to 0 before each run, and require each.
-The phi walk's routes are counted the same way (cuda_phi.LAUNCHES, the
-walk kernel, and cuda_phi.LAUNCHES_TORCH, the torch walk of an index
-without phi1 or phi rows): rbt_align -s launches the kernel once a batch
-and walks nothing in torch on dense chr, raw_chr, big_chr and pfp_big, and
-walks in torch only on nodense_chr.
+nodense_chr and build_small count every route of the search (K1, K1 over
+the two-level rows, the record launch, the toehold launch
+(cuda_lf.LAUNCHES_TOE: rbt_align -s on an index without kval but with
+fused rows, raw_chr and the small raw and serialized indexes), and the
+torch loop of an index without fused rows, cuda_lf.LAUNCHES_TORCH: count,
+-m and the -s search of nodense_chr), set to 0 before each run, and
+require each.  The phi walk's routes are counted the same way
+(cuda_phi.LAUNCHES, the walk kernel, and cuda_phi.LAUNCHES_TORCH, the torch
+walk over a BigIndex's breakpoint table phi_at): rbt_align -s launches the
+kernel once a batch and walks nothing in torch on every index the whole
+run queries, nodense_chr's predecessor search included.
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and the last line is never printed.  The last three lines of a
@@ -205,6 +218,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import resource
 import shutil
@@ -1003,14 +1017,78 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     check(launches3 == 3 * (1 + len(edges)), f"expected {3 * (1 + len(edges))} record "
           f"launches, counted {launches3}")
     walk = walk_parity(device, idx, codes, q, ln)
+    toe = toehold_parity(device, idx, codes, q, ln, edges)
     emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
          nonempty=results, edges=[label for label, _, _ in edges],
          edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err,
          fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2,
-         rec_launches=launches3, rec_max_abs_err=err3, walk=walk)
+         rec_launches=launches3, rec_max_abs_err=err3, walk=walk, toehold=toe)
     return {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3,
+            "lf_toehold": toe["max_abs_err"],
             "phi_walk_phi1": walk["max_abs_err"]["phi1"],
-            "phi_walk_rows": walk["max_abs_err"]["phi_rows"]}
+            "phi_walk_rows": walk["max_abs_err"]["phi_rows"],
+            "phi_walk_pred": walk["max_abs_err"]["pred"]}
+
+
+def raw_tables(idx, codes, route: str):
+    """idx (built with the full SA) with the tables a raw build of its BWT
+    and run samples has (phase build_small holds the two equal): no kval,
+    and occ1 + tk1 for route "tk1", neither for route "ltk" (a raw build
+    above OCC1_MAX_N)."""
+    from rowbowt_tpu_torch.construct.build import build_occ1, build_tk1_from_runs
+
+    if route == "ltk":
+        return dataclasses.replace(idx, kval=None, occ1=None, tk1=None)
+    c = codes.astype(np.int64)
+    occ1 = build_occ1(c, idx.A)
+    tk1 = build_tk1_from_runs(c, idx.run_start, idx.samples_last, idx.A, occ1.dtype)
+    return dataclasses.replace(idx, kval=None, occ1=occ1, tk1=tk1)
+
+
+def toehold_parity(device, idx, codes, q, ln, edges) -> dict:
+    """K1's toehold launch (cuda_lf.find_ranges_toehold) against its plain
+    twin (the torch loop of lf_step_w_loc_occ1 or lf_step_w_loc on the card)
+    on the small panel's raw tables (raw_tables), over tk1 and over ltk, on
+    the edge batch and at every k1_edges edge (64-symbol rows), and on the
+    batch over the 96 B rows: lo, hi and k equal, and equal to the full-SA
+    index's toeholds (kval).  One launch a call; no torch loop counted."""
+    import torch
+
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    t0 = time.perf_counter()
+    dense = TorchIndex.from_index(idx, device)
+    cases = [("batch", q, ln)] + edges
+    kval = [find_ranges_w_toehold(dense, qe, le) for _, qe, le in cases]
+    del dense
+    errs, calls, nonempty = {}, 0, {}
+    reset_counts()
+    for route in ("tk1", "ltk"):
+        raw = raw_tables(idx, codes, route)
+        for fb64 in (True, False):
+            tx = TorchIndex.from_index(raw, device, fb64=fb64)
+            check(cuda_lf.toehold_route(tx) == route and "kval" not in tx.arrays,
+                  f"the raw tables' toehold route: {cuda_lf.toehold_route(tx)}")
+            name = f"{route},{'fblock64' if fb64 else 'fblock'}"
+            errs[name] = 0
+            for (label, qe, le), want_k in zip(cases if fb64 else cases[:1], kval):
+                got = cuda_lf.find_ranges_toehold(tx, qe, le)
+                want = cuda_lf.find_ranges_toehold_plain(tx, qe, le)
+                torch.cuda.synchronize()
+                e = max(max_abs_err(got, want), max_abs_err(got, want_k))
+                check(e == 0, f"the toehold launch ({name}) != its plain twin or the kval "
+                      f"toeholds at {label}: max |err| {e}")
+                errs[name] = max(errs[name], e)
+                nonempty[f"{name},{label}"] = int((got[1] >= got[0]).sum().item())
+                calls += 1
+            del tx
+    counts = route_counts()
+    check(counts == launch_counts(toe=calls),
+          f"toehold parity routes: {counts} for {calls} calls")
+    return dict(max_abs_err=max(errs.values()), errs=errs, launches=counts["toe"],
+                nonempty=nonempty, wall_s=time.perf_counter() - t0)
 
 
 WALK_PARITY_MAX = 4_096  # the uncapped walk's lanes: ranges of at most this many hits
@@ -1018,10 +1096,12 @@ WALK_PARITY_MAX = 4_096  # the uncapped walk's lanes: ranges of at most this man
 
 def walk_parity(device, idx, codes, q, ln) -> dict:
     """The walk kernel against its plain twin (cuda_phi.phi_walk_plain on the
-    card) on the edge batch's -s toeholds: over the dense index's phi1 and
-    over the phi rows of the same BWT's BigIndex (n_sup = 4, locate tables
-    from kval), with max_hits 8 on every lane and uncapped on the lanes of
-    at most WALK_PARITY_MAX hits; the two indexes' toeholds equal.  The
+    card) on the edge batch's -s toeholds: over the dense index's phi1, over
+    the phi rows of the same BWT's BigIndex (n_sup = 4, locate tables from
+    kval) and over the predecessor search of the dense index without phi1
+    (what --no-dense keeps), with max_hits 8 on every lane and uncapped on
+    the lanes of at most WALK_PARITY_MAX hits; the indexes' toeholds equal,
+    and every route's positions the phi1 route's.  The
     BigIndex with its phi rows taken away (the breakpoint table of 2^31 or
     more breakpoints) walks as torch ops on the card, one walk counted in
     LAUNCHES_TORCH and none in LAUNCHES, and gives the kernel's positions."""
@@ -1043,11 +1123,17 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
 
     big = BigIndex.from_codes(codes, idx.alpha, n_sup=4)
     big.attach_locate(codes, np.asarray(idx.kval).astype(np.uint32))
+    pred = TorchIndex.from_index(idx, device)
+    del pred.arrays["phi1"]
     txs = {"phi1": TorchIndex.from_index(idx, device),
-           "phi_rows": TorchIndex.from_big(big, device, with_locate=True, with_markers=False)}
+           "phi_rows": TorchIndex.from_big(big, device, with_locate=True, with_markers=False),
+           "pred": pred}
+    check(all(cuda_phi.walk_route(tx) == route for route, tx in txs.items()),
+          f"walk routes {[cuda_phi.walk_route(tx) for tx in txs.values()]}")
     ranges = {route: find_ranges_w_toehold(tx, q, ln) for route, tx in txs.items()}
-    e = max_abs_err(ranges["phi1"], ranges["phi_rows"])
-    check(e == 0, f"the -s toeholds of the dense index != its BigIndex's: max |err| {e}")
+    e = max(max_abs_err(ranges["phi1"], ranges[r]) for r in ("phi_rows", "pred"))
+    check(e == 0, f"the -s toeholds of the dense index != its BigIndex's or its own without "
+          f"phi1: max |err| {e}")
     reset_counts()
     errs, hits, kernel_out = {}, {}, {}
     for route, tx in txs.items():
@@ -1060,12 +1146,14 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
                 (total,), -1, dtype=torch.int64, device=device))
             torch.cuda.synchronize()
             errs[route] = max(errs[route], max_abs_err([got], [want]))
+            if route != "phi1":
+                errs[route] = max(errs[route], max_abs_err([got], [kernel_out[cap]]))
             hits[f"{route},{cap}"] = total
-            kernel_out[cap] = got
-        check(errs[route] == 0, f"the walk kernel over {route} != its plain twin on the small "
-              f"panel: max |err| {errs[route]}")
+            kernel_out.setdefault(cap, got)
+        check(errs[route] == 0, f"the walk kernel over {route} != its plain twin or the phi1 "
+              f"route on the small panel: max |err| {errs[route]}")
     launches = walk_counts()
-    check(launches == dict(walk=4, walk_torch=0), f"walk launches {launches}, expected 4")
+    check(launches == dict(walk=6, walk_torch=0), f"walk launches {launches}, expected 6")
     big._phi_pack = lambda: (None, None)
     tx_at = TorchIndex.from_big(big, device, with_locate=True, with_markers=False)
     check(cuda_phi.walk_route(tx_at) is None and "phi_at" in tx_at.arrays,
@@ -1077,9 +1165,9 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
     e = max_abs_err([out], [kernel_out[None]])
     check(e == 0, f"the torch walk over phi_at != the walk kernel over phi_rows: max |err| {e}")
     torch_launches = walk_counts()
-    check(torch_launches == dict(walk=4, walk_torch=1),
+    check(torch_launches == dict(walk=6, walk_torch=1),
           f"the phi_at walk on the card: {torch_launches}, expected one torch walk")
-    del txs, tx_at
+    del txs, tx_at, pred
     return dict(max_abs_err=errs, hits=hits, launches=launches["walk"],
                 phi_at_max_abs_err=e, torch_walks=torch_launches["walk_torch"])
 
@@ -1614,9 +1702,18 @@ def phase_phi_chain(device, card: dict, loc: dict, k1: dict) -> dict:
 # int32 operations of one phi step, on top of its loads: phi1 clamps and
 # addresses the lane (4); the phi rows split the position (a division by
 # 480 and a product, 4), mask and count 15 words (3 each), add the rank and
-# the delta and take the remainder (4)
+# the delta and take the remainder (4); the predecessor search takes 4 a
+# level of its binary search and 10 for the step (phi_step_ops)
 PHI_STEP_OPS = {"phi1": 4, "phi_rows": 4 + 15 * 3 + 4}
-PHI_LOADS = {"phi1": 1, "phi_rows": 2}  # dependent loads a step
+PHI_LOADS = {"phi1": 1, "phi_rows": 2}  # dependent loads a step (phi_loads)
+
+
+def phi_step_ops(tx, route: str) -> int:
+    return PHI_STEP_OPS[route] if route != "pred" else 4 * search_levels(tx.R) + 10
+
+
+def phi_loads(tx, route: str) -> int:
+    return PHI_LOADS[route] if route != "pred" else search_levels(tx.R) + 2
 
 
 def big_walk(device, path: str, fastq: str) -> dict:
@@ -1696,12 +1793,20 @@ def walk_times(device, tx, ranges, route: str, step_us: float) -> dict:
         pos = out[stepped]
         if route == "phi1":
             table_bytes = torch.unique(pos).numel() * tx.arrays["phi1"].element_size()
-        else:
+        elif route == "phi_rows":
             table_bytes = (torch.unique(pos // 480).numel() * 64
                            + torch.unique(R.phi_rows_rank(tx, pos)).numel() * 8)
+        else:
+            # the predecessor entry of each position (pred_pos and
+            # pred_to_run) and the sample it reads
+            pp, ptr, sl = (tx.arrays[name] for name in cuda_phi.PRED_TABLES)
+            rk = torch.searchsorted(pp, pos.to(pp.dtype)).long()
+            jr = torch.where(rk == 0, tx.R - 1, rk - 1)
+            table_bytes = (torch.unique(jr).numel() * (pp.element_size() + ptr.element_size())
+                           + torch.unique(ptr[jr].long() - 1).numel() * sl.element_size())
         nbytes = k.numel() * (k.element_size() + 16) + out.numel() * 8 + table_bytes
         byte_us = nbytes / HBM_BYTES_PER_S * 1e6
-        ops_us = pos.numel() * PHI_STEP_OPS[route] / INT_OPS_PER_S * 1e6
+        ops_us = pos.numel() * phi_step_ops(tx, route) / INT_OPS_PER_S * 1e6
         latency_us = steps * step_us
         batches.append(dict(lanes=k.numel(), hits=out.numel(), longest_steps=steps,
                             table_bytes=table_bytes, bytes=nbytes, byte_us=byte_us,
@@ -1713,7 +1818,7 @@ def walk_times(device, tx, ranges, route: str, step_us: float) -> dict:
                    key=lambda kv: mean[kv[1]])[0]
     return dict(route=route, batches=batches, launches=launches, max_abs_err=err,
                 call_ms=call_ms, plain_ms=plain_ms, device_us=device_us,
-                profiled_us=profiled_us, step_us=step_us, loads_per_step=PHI_LOADS[route],
+                profiled_us=profiled_us, step_us=step_us, loads_per_step=phi_loads(tx, route),
                 longest_steps=max(b["longest_steps"] for b in batches),
                 bound_ms=max(mean["byte_us"], mean["ops_us"]) / 1e3,
                 bound_by="bytes" if mean["byte_us"] >= mean["ops_us"] else "operations",
@@ -2890,17 +2995,18 @@ def marker_routes(device, path: str, fastq: str, out_text: str) -> dict:
 def route_counts() -> dict:
     """The launch counts of the count search's routes since the last reset:
     K1 over the single-level rows, over the two-level rows, its record
-    launch (a big index's toehold search), and the torch loop an index
-    without fused-block rows takes on the card."""
+    launch (a big index's toehold search), its toehold launch (the per-step
+    toehold of an index without kval), and the torch loop an index without
+    fused-block rows takes on the card (count, -m and the -s search)."""
     from rowbowt_tpu_torch.ops import cuda_lf
 
     return dict(k1=cuda_lf.LAUNCHES, k1_fb2=cuda_lf.LAUNCHES_FB2, k1_rec=cuda_lf.LAUNCHES_REC,
-                torch=cuda_lf.LAUNCHES_TORCH)
+                toe=cuda_lf.LAUNCHES_TOE, torch=cuda_lf.LAUNCHES_TORCH)
 
 
 def walk_counts() -> dict:
     """The phi walk's routes since the last reset: walk kernel launches, and
-    the torch walks of an index without phi1 or phi rows on the card."""
+    the torch walks of the phi_at route on the card."""
     from rowbowt_tpu_torch.ops import cuda_phi
 
     return dict(walk=cuda_phi.LAUNCHES, walk_torch=cuda_phi.LAUNCHES_TORCH)
@@ -2912,7 +3018,7 @@ def reset_counts() -> None:
     from rowbowt_tpu_torch.ops import cuda_lf, cuda_phi
 
     cuda_lf.LAUNCHES = cuda_lf.LAUNCHES_FB2 = cuda_lf.LAUNCHES_TORCH = 0
-    cuda_lf.LAUNCHES_REC = cuda_lf.RECORDS_PLAIN = 0
+    cuda_lf.LAUNCHES_REC = cuda_lf.RECORDS_PLAIN = cuda_lf.LAUNCHES_TOE = 0
     cuda_phi.LAUNCHES = cuda_phi.LAUNCHES_TORCH = 0
 
 
@@ -2931,17 +3037,175 @@ def align_runs(device, path: str, runs: list, out_path: str) -> dict:
     return res
 
 
+def launch_counts(**kw) -> dict:
+    """route_counts()'s dict with the given counts and every other 0."""
+    return dict(dict(k1=0, k1_fb2=0, k1_rec=0, toe=0, torch=0), **kw)
+
+
+L1_LEVELS = 16  # binary-search levels counted free in a bound: 2^16 int32 entries, in L1
+TOE_STEP_OPS = 4  # int32 operations of the trivial test a step: a shift, a mask, a compare
+
+
+def search_levels(R: int) -> int:
+    """Dependent loads of a binary search over R sorted entries."""
+    return math.ceil(math.log2(R + 1))
+
+
+def pred_step_us(R: int, lat: dict) -> float:
+    """A lower bound on the latency of one step of the predecessor walk:
+    its search's levels below the first L1_LEVELS at the L2's dependent-load
+    latency (P3 over the probe tool's 4 MB table), then the pred_to_run and
+    samples_last loads at a random cycle's latency over a table of phi1's
+    size."""
+    return (max(search_levels(R) - L1_LEVELS, 0) * lat["tool_table"]
+            + 2 * lat["random_cycle"])
+
+
+def toehold_work(tx, q, ln) -> dict:
+    """What one batch asks of the toehold launch beyond K1's search
+    (k1_work without the ftab), by a replay of the plain loop: the lanes
+    whose search ends with a non-trivial step (BWT[hi] != c), the distinct
+    entries their resolve reads (tk1, or ltk and the run starts that bracket
+    the run of each pre-step hi), and their bytes."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import rank as R
+
+    B, L = q.shape
+    dt = tx.idx_dtype
+    lo = torch.zeros(B, dtype=dt, device=q.device)
+    hi = torch.full((B,), tx.n - 1, dtype=dt, device=q.device)
+    tc = torch.full((B,), -1, dtype=torch.int64, device=q.device)
+    thi = torch.zeros(B, dtype=torch.int64, device=q.device)
+    done = torch.zeros(B, dtype=torch.bool, device=q.device)
+    lengths = ln.to(dt)
+    step = R.lf_step_auto(tx)
+    for j in range(L):
+        c = q[:, L - 1 - j].to(dt)
+        active = ~done & (j < lengths)
+        nlo, nhi = step(tx, lo, hi, c)
+        nontrivial = active & (nlo <= nhi) & (R.bwt_sym(tx, hi) != c)
+        tc = torch.where(nontrivial, c.long(), tc)
+        thi = torch.where(nontrivial, hi.long(), thi)
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+        done = done | (active & (nlo > nhi))
+    res = (hi >= lo) & (tc >= 0)
+    tc, thi = tc[res], thi[res]
+    if cuda_lf.toehold_route(tx) == "tk1":
+        tab = tx.arrays["tk1_flat"]
+        entries = torch.unique(tc * tx.n + thi).numel()
+        nbytes = entries * tab.element_size()
+    else:
+        rs, tab = tx.arrays["run_start"], tx.arrays["ltk"]
+        r = torch.searchsorted(rs, thi.to(rs.dtype), right=True).long() - 1
+        entries = torch.unique(tc * tx.R + r).numel()
+        nbytes = entries * tab.element_size() + torch.unique(r).numel() * 2 * rs.element_size()
+    return dict(resolved_lanes=int(res.sum()), resolve_entries=entries, resolve_bytes=nbytes)
+
+
+def toehold_bound(work: dict, tw: dict, B: int, L: int, tx, lat: dict) -> dict:
+    """The toehold launch's bound on one batch: K1's (k1_bound, 64 B rows,
+    no ftab) with the resolve's entries as table bytes and k as one more
+    int32 output; its operations add the trivial test a ranked step and a
+    binary search of search_levels(R) steps (4 operations each) and the
+    remainder a resolved lane; its latency the search (its levels below
+    L1_LEVELS at the L2's latency) and the table load (a random cycle's)."""
+    b = k1_bound([work], B, L, tx.A, 64, lat["random_cycle"],
+                 table_bytes=tw["resolve_bytes"], out_bytes=B * 4)
+    ops = (b["ops"] + TOE_STEP_OPS * work["ranked_steps"]
+           + tw["resolved_lanes"] * (4 * search_levels(tx.R) + 4))
+    latency = (b["latency_bound_us"] + lat["random_cycle"]
+               + max(search_levels(tx.R) - L1_LEVELS, 0) * lat["tool_table"])
+    b.update(ops=ops, ops_bound_us=ops / INT_OPS_PER_S * 1e6, latency_bound_us=latency,
+             bound_us=max(b["byte_bound_us"], latency),
+             bound_by="bytes" if b["byte_bound_us"] >= latency else "latency", **tw)
+    return b
+
+
+def stage_turns(before, after) -> tuple[float, float]:
+    """(before s, after s): host-clock seconds of each call, closed by a
+    synchronize, in turns (before, after, after, before), means of two."""
+    import torch
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    b, a = [run(before)], [run(after), run(after)]
+    b.append(run(before))
+    return sum(b) / 2, sum(a) / 2
+
+
+def toehold_times(device, path: str, fastq: str, loc: dict, k1: dict) -> dict:
+    """K1's toehold launch on the raw index at `path` (ltk) over rbt_align
+    -s's batches of `fastq`: equal to its plain twin (the torch loop of
+    lf_step_w_loc) and, on each batch's real lanes, to dense chr's toeholds
+    (phase locate), one launch a batch; the search + toehold stage over all
+    batches with the torch loop (the parent's stage) and with the kernel, in
+    turns; then on the first batch the call ms in turns with the twin, the
+    launch alone (CUDA events just around it), one profiler trace, the work,
+    the bound and its share."""
+    import torch
+
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    t0 = time.perf_counter()
+    host, tx = load_dense(device, path, "-s")
+    check(cuda_lf.toehold_route(tx) == "ltk", f"raw chr's route {cuda_lf.toehold_route(tx)}")
+    dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device), len(names))
+           for names, qc, lens in iter_query_batches(host, fastq, BATCH)]
+    reset_counts()
+    err = 0
+    for (q, ln, nr), want in zip(dev, loc["ranges"]):
+        got = cuda_lf.find_ranges_toehold(tx, q, ln)
+        plain = cuda_lf.find_ranges_toehold_plain(tx, q, ln)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, plain), max_abs_err([t[:nr] for t in got], want))
+    check(err == 0, f"the toehold launch at raw chr != its twin or dense chr: max |err| {err}")
+    check(route_counts() == launch_counts(toe=len(dev)), f"routes {route_counts()}")
+    before_s, after_s = stage_turns(
+        lambda: [cuda_lf.find_ranges_toehold_plain(tx, q, ln) for q, ln, _ in dev],
+        lambda: [cuda_lf.find_ranges_toehold(tx, q, ln) for q, ln, _ in dev])
+    q, ln, _ = dev[0]
+    ln = ln.to(torch.int32)
+    B, L = q.shape
+    call_ms, plain_ms = in_turns([lambda: cuda_lf.find_ranges_toehold_plain(tx, q, ln)],
+                                 [lambda: cuda_lf.find_ranges_toehold(tx, q, ln)], 2, 20)
+    device_us = kernel_event_us([around(lambda: cuda_lf.launch_toehold(tx, q, ln))], 20)
+    profiled_us = profiled_kernel_us([lambda: cuda_lf.launch_toehold(tx, q, ln)], 5,
+                                     ("lf_count_kernel",))["lf_count_kernel"]
+    work = k1_work(tx, q, ln, use_ftab=False)
+    b = toehold_bound(work, toehold_work(tx, q, ln), B, L, tx, k1["us_per_dependent_step"])
+    out = dict(batches=len(dev), lanes=B, L=L, route="ltk", max_abs_err=err,
+               launches=len(dev), stage_before_s=before_s, stage_after_s=after_s,
+               call_ms=call_ms, plain_ms=plain_ms, device_us=device_us,
+               profiled_us=profiled_us, bound=b,
+               bound_ms=max(b["byte_bound_us"], b["ops_bound_us"]) / 1e3,
+               bound_by="bytes" if b["byte_bound_us"] >= b["ops_bound_us"] else "operations",
+               share=b["bound_us"] / device_us, wall_s=time.perf_counter() - t0)
+    del tx, dev
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
-                  markers: dict) -> dict:
+                  markers: dict, k1: dict) -> dict:
     """Phase raw_chr: the chr index written as the reference's raw files
     (.bwt/.ssa/.esa/.docs, and .mab through write_mab) and built from the
     prefix by `rbt_build_torch <prefix> -s -m -l`: fused-block rows and the
     predecessor-built phi1, no kval, and (n > OCC1_MAX_N) no occ1/tk1, so
     -s carries the toehold step by step over ltk.  rbt_align count, -s and
     -m print the dense index's lines (phases main, locate, markers); K1
-    launches once a batch of count and -m, never in -s.  Build seconds and
-    peak RSS; each run's load and query seconds and reads/s, the stages of
-    -s."""
+    launches once a batch of count and -m, its toehold launch once a batch
+    of -s, and nothing runs the torch loop.  Build seconds and peak RSS;
+    each run's load and query seconds and reads/s, the stages of -s, and
+    the toehold launch against the torch loop (toehold_times)."""
     from rowbowt_tpu_torch.construct.rawio import write_raw
     from rowbowt_tpu_torch.construct.sdslwrite import write_mab
     from rowbowt_tpu_torch.index import _ARRS_NAME
@@ -2970,22 +3234,24 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
         ("count", paths["reads.fq"], [], "".join(count["lines"]), N_READS),
         ("-s", paths["locate.fq"], ["-s"], loc["out_text"], N_LOCATE),
         ("-m", paths["locate.fq"], ["-m"], markers["out_text"], N_LOCATE)], paths["out.txt"])
-    check(runs["count"]["launches"] == dict(k1=N_READS // BATCH, k1_fb2=0, k1_rec=0, torch=0)
-          and runs["-m"]["launches"] == dict(k1=n_loc, k1_fb2=0, k1_rec=0, torch=0)
-          and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=0),
+    check(runs["count"]["launches"] == launch_counts(k1=N_READS // BATCH)
+          and runs["-m"]["launches"] == launch_counts(k1=n_loc)
+          and runs["-s"]["launches"] == launch_counts(toe=n_loc),
           f"raw chr routes: {({k: v['launches'] for k, v in runs.items()})}")
     # raw chr keeps phi1 (built from the run samples): the walk kernel
     check(runs["-s"]["walks"] == dict(walk=n_loc, walk_torch=0),
           f"raw chr -s walks: {runs['-s']['walks']}")
-    # the stages of -s, whose toehold loop is this index's own (count and -m
-    # run K1 as on the dense index, phases main and markers)
+    # the stages of -s, whose toehold search is this index's own (count and
+    # -m run K1 as on the dense index, phases main and markers)
     resident: dict = {}
     runs["-s"]["stages"] = align_stages(device, lambda m: load_dense(device, out_dir, m),
                                         paths["locate.fq"], "-s", loc["out_text"], resident)
+    toehold = toehold_times(device, out_dir, paths["locate.fq"], loc, k1)
     res = dict(n=idx.n, raw_files_gb=sum(os.path.getsize(os.path.join(d, f))
                                          for f in os.listdir(d)) / 1e9,
                raw_write_s=write_s, build_s=build_s, peak_rss_gb=mem["peak_rss_gb"],
                index_gb=dir_gb(out_dir), runs=runs, resident_mb_locate=resident,
+               toehold=toehold,
                dense_reads_per_s={"count": count["cli_reads_per_s"],
                                   "-s": loc["cli_reads_per_s"],
                                   "-m": markers["cli_reads_per_s"]},
@@ -2997,13 +3263,18 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
 
 
 def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
-                      markers: dict) -> dict:
+                      markers: dict, k1: dict) -> dict:
     """Phase nodense_chr: the chr index without fblock, kval, phi1 and
     ma_start1 (what `rbt_build_torch --no-dense` writes; phase build_small
     holds the two equal on the small panel).  rbt_align count takes the
     run-space torch route (no K1 launch: required), -s the per-step toehold
-    and the predecessor phi, -m the ma_row binary search; each prints the
-    dense index's lines.  Reads/s beside the dense index's."""
+    as the same torch loop and the walk kernel over the predecessor search
+    (one launch a batch, no torch walk: required), -m the ma_row binary
+    search; each prints the dense index's lines.  Reads/s beside the dense
+    index's; the stages of -s; the walk kernel over the predecessor search
+    on the -s batches' lanes against the torch walk (walk_times)."""
+    import torch
+
     idx, paths = chr_["idx"], chr_["paths"]
     out_dir = os.path.join(WORK, "nodense_idx")
     t = time.perf_counter()
@@ -3014,18 +3285,23 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
         ("count", paths["reads.fq"], [], "".join(count["lines"]), N_READS),
         ("-s", paths["locate.fq"], ["-s"], loc["out_text"], N_LOCATE),
         ("-m", paths["locate.fq"], ["-m"], markers["out_text"], N_LOCATE)], paths["out.txt"])
-    check(runs["count"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=N_READS // BATCH)
-          and runs["-m"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=n_loc)
-          and runs["-s"]["launches"] == dict(k1=0, k1_fb2=0, k1_rec=0, torch=0),
+    check(runs["count"]["launches"] == launch_counts(torch=N_READS // BATCH)
+          and runs["-m"]["launches"] == launch_counts(torch=n_loc)
+          and runs["-s"]["launches"] == launch_counts(torch=n_loc),
           f"no-dense chr routes: {({k: v['launches'] for k, v in runs.items()})}")
-    # no phi1: the predecessor search, which the walk kernel does not take
-    check(runs["-s"]["walks"] == dict(walk=0, walk_torch=n_loc),
+    # no phi1: the walk kernel over the predecessor search
+    check(runs["-s"]["walks"] == dict(walk=n_loc, walk_torch=0),
           f"no-dense chr -s walks: {runs['-s']['walks']}")
+    runs["-s"]["stages"] = align_stages(device, lambda m: load_dense(device, out_dir, m),
+                                        paths["locate.fq"], "-s", loc["out_text"])
     _, tx = load_dense(device, out_dir, "-s")
     resident = {k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()}
+    lat = k1["us_per_dependent_step"]
+    walk = walk_times(device, tx, loc["ranges"], "pred", pred_step_us(tx.R, lat))
     del tx
+    torch.cuda.empty_cache()
     res = dict(n=idx.n, save_s=save_s, index_gb=dir_gb(out_dir), runs=runs,
-               resident_mb_locate=resident,
+               resident_mb_locate=resident, walk=walk,
                dense_reads_per_s={"count": count["cli_reads_per_s"],
                                   "-s": loc["cli_reads_per_s"],
                                   "-m": markers["cli_reads_per_s"]},
@@ -3250,9 +3526,9 @@ def phase_build_small(device, card: dict) -> dict:
         runs[x] = align_runs(device, p[x], [(tag, fq["reads"], f, want[tag], N_SMALL_READS)
                                             for tag, f in modes if not (x == "x" and f == ["-s"])],
                              out_txt)
-    k1 = dict(k1=1, k1_fb2=0, k1_rec=0, torch=0)
-    torch_route = dict(k1=0, k1_fb2=0, k1_rec=0, torch=1)
-    none = dict(k1=0, k1_fb2=0, k1_rec=0, torch=0)
+    k1 = launch_counts(k1=1)
+    torch_route = launch_counts(torch=1)
+    toe = launch_counts(toe=1)
     # the pangenome builders' routes: the merge's and PFP's BigIndex directories
     t = time.perf_counter()
     big_dirs = small_big_dirs(SMALL, dense.alpha, dense.doc_names, d)
@@ -3271,8 +3547,8 @@ def phase_build_small(device, card: dict) -> dict:
             runs[f"big_{route}"][tag] = dict(
                 cli, reads=N_SMALL_READS, cli_reads_per_s=N_SMALL_READS / cli["cli_query_s"],
                 launches=route_counts(), identical=got == want[tag])
-    k1_fb2 = dict(k1=0, k1_fb2=1, k1_rec=0, torch=0)
-    k1_rec = dict(k1=0, k1_fb2=0, k1_rec=1, torch=0)
+    k1_fb2 = launch_counts(k1_fb2=1)
+    k1_rec = launch_counts(k1_rec=1)
     routes = {x: {t: v["launches"] for t, v in runs[x].items()} for x in ("big_merge", "big_pfp")}
     check(all(r[tag] == (k1_rec if tag == "-s" else k1_fb2) for r in routes.values() for tag in r),
           f"the builders' routes: {routes}")
@@ -3282,11 +3558,14 @@ def phase_build_small(device, card: dict) -> dict:
           "dense index's byte for byte")
     check(all(runs[x]["count"]["launches"] == k1 and runs[x]["-m"]["launches"] == k1
               for x in ("dense", "x", "raw_idx", "ser", "ftab_only"))
-          and runs["nodense"]["count"]["launches"] == torch_route
-          and runs["nodense"]["-m"]["launches"] == torch_route
-          and all(runs[x]["-s"]["launches"] == none for x in ("nodense", "raw_idx", "ser"))
+          and all(runs["nodense"][t]["launches"] == torch_route for t in ("count", "-m", "-s"))
+          and all(runs[x]["-s"]["launches"] == toe for x in ("raw_idx", "ser"))
           and runs["dense"]["-s"]["launches"] == k1,
           f"small routes: {({x: {t: v['launches'] for t, v in r.items()} for x, r in runs.items()})}")
+    # every -s walks in the kernel: phi1, and the predecessor search without it
+    check(all(runs[x]["-s"]["walks"] == dict(walk=1, walk_torch=0)
+              for x in ("nodense", "raw_idx", "ser")),
+          f"small -s walks: {({x: runs[x]['-s']['walks'] for x in ('nodense', 'raw_idx', 'ser')})}")
 
     # the index of 13 codes: its lines on the card, on the CPU, and the oracle's
     iu_runs, iu_lines = {}, {}
@@ -3994,8 +4273,8 @@ def main(argv: list[str]) -> int:
         k1 = phase_k1(device, card, chr_)
         loc = phase_locate(device, card, chr_, count)
         markers = phase_markers(device, card, chr_, count)
-        phase_raw_chr(device, card, chr_, count, loc, markers)
-        phase_nodense_chr(device, card, chr_, count, loc, markers)
+        raw = phase_raw_chr(device, card, chr_, count, loc, markers, k1)
+        nodense = phase_nodense_chr(device, card, chr_, count, loc, markers, k1)
         chain = phase_phi_chain(device, card, loc, k1)
         greedy = phase_greedy(device, card, chr_)
         phase_heuristic(device, card, chr_)
@@ -4010,7 +4289,8 @@ def main(argv: list[str]) -> int:
         phase_parallel_sharded(device, card, chr_, big_chr["path"], child["path"])
         phase_parallel_stream(device, card, chr_, count, big_chr["path"])
         print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain,
-                                                   big_chr, pfp_big, par_dp, loc)}))
+                                                   big_chr, pfp_big, par_dp, loc, raw,
+                                                   nodense)}))
         print(card["nvidia_smi"])
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4022,7 +4302,8 @@ def main(argv: list[str]) -> int:
 
 
 def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dict,
-                  big_chr: dict, pfp_big: dict, par_dp: dict, loc: dict) -> list:
+                  big_chr: dict, pfp_big: dict, par_dp: dict, loc: dict, raw: dict,
+                  nodense: dict) -> list:
     """One entry per kernel of the port: launches on the main path, max |err|
     against the plain twin, call time (`ms`, CUDA events) beside the plain
     twin's and the library call's, device time alone (`device_us`, CUDA
@@ -4041,7 +4322,10 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     probes).  The phi walk has an entry a route: phi_walk_phi1 (main path
     rbt_align -s on dense chr, timed in phase phi_chain) and phi_walk_rows
     (rbt_align -s on the big_chr directory), their max |err| also over
-    phases parity (and pfp_big for the rows)."""
+    phases parity (and pfp_big for the rows), and phi_walk_pred (main path
+    rbt_align -s on nodense_chr).  K1's toehold launch (lf_toehold: main
+    path rbt_align -s on raw_chr, timed on one of its batches) has its own
+    entry, its max |err| also over phase parity."""
     kernels = []
     for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
             ("lf_count", k1["bound"], count,
@@ -4073,6 +4357,18 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
         "ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "device_us": r["device_us"],
         "profiled_us": r["profiled_us"], "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]})
+    # the toehold launch: its main path is rbt_align -s on raw_chr
+    t = raw["toehold"]
+    kernels.append({
+        "name": "lf_toehold", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
+        "replaces": "rowbowt_tpu/ops/pallas_lf.py:49 and rowbowt_tpu/engine/locate.py:50 "
+                    "(an XLA fori_loop of ops/rank.py lf_step_w_loc in the JAX package)",
+        "launches": raw["runs"]["-s"]["launches"]["toe"],
+        "max_abs_err": max(par_err["lf_toehold"], t["max_abs_err"]),
+        "ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "device_us": t["device_us"],
+        "profiled_us": t["profiled_us"], "bound_us": t["bound"]["bound_us"],
+        "bound_us_by": t["bound"]["bound_by"]})
     byte_us = probe_byte_us()
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
         p = probes[name]
@@ -4095,14 +4391,17 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     kernels[-1]["design"] = probes["gather_chain"]["design"]
     kernels[-1]["designs_device_us"] = {d: v["device_us"] for d, v in
                                         probes["gather_chain"]["designs"].items()}
-    # the phi walk: its main paths are rbt_align -s on dense chr (phi1) and
-    # on the big_chr directory (phi rows)
+    # the phi walk: its main paths are rbt_align -s on dense chr (phi1), on
+    # the big_chr directory (phi rows) and on nodense_chr (the predecessor
+    # search)
     for name, w, launches, err in (
             ("phi_walk_phi1", chain["walk"], loc["walks"]["walk"],
              max(par_err["phi_walk_phi1"], chain["max_abs_err"], chain["walk"]["max_abs_err"])),
             ("phi_walk_rows", big_chr["walk"], big_chr["runs"]["-s"]["walks"]["walk"],
              max(par_err["phi_walk_rows"], big_chr["walk"]["max_abs_err"],
-                 pfp_big["walk"]["max_abs_err"]))):
+                 pfp_big["walk"]["max_abs_err"])),
+            ("phi_walk_pred", nodense["walk"], nodense["runs"]["-s"]["walks"]["walk"],
+             max(par_err["phi_walk_pred"], nodense["walk"]["max_abs_err"]))):
         kernels.append({"name": name, "route": "cuda",
                         "source": "rowbowt_tpu_torch/csrc/phi_walk.cu",
                         "replaces": "tools/vmem_gather_probe.py:92 (P3's chain, carrying the phi "

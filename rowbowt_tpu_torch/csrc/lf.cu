@@ -58,6 +58,25 @@
 // only the lanes, F and base are 64-bit: one more 8-byte load a rank, from
 // a table of n_sup x 64 bytes that stays in L1 and L2.
 //
+// A third instance (TOE, C entry rbt_lf_toehold) is the search of
+// `rbt_align -s` on an index built from run samples alone (raw, serialized,
+// no kval): RowBowt::LF_w_loc (rowbowt.hpp:553-573), which the JAX package
+// runs as an XLA fori_loop of rowbowt_tpu/ops/rank.py lf_step_w_loc or
+// lf_step_w_loc_occ1 (rowbowt_tpu/engine/locate.py:50-67).  The toehold k
+// of a step is 0 when the range empties, (k - 1) mod n when BWT[hi] == c
+// (a trivial step) and a table value of (c, pre-step hi) otherwise: tk1[c *
+// n + hi] where tk1 is resident, else ltk[c * R + run of hi].  So the final
+// k of a lane is that value of its last non-trivial step less the trivial
+// steps after it, mod n (from k0 = (samples_last[R - 1] + 1) mod n where
+// there is none), and the loop carries only that step's c and hi and a
+// count; one resolve a lane after the loop reads the table (and, for ltk,
+// searches run_start).  The trivial test needs BWT[hi]: the symbol before
+// hi + 1 in the row already loaded for hi + 1, or one 4-byte word load
+// where hi + 1 starts a row or equals n.  Its bound is K1's plus the
+// resolve: a binary search over R run starts and one table load a lane
+// (under 1 MB a chr batch).  A raw chr batch took 1.14x K1's count search
+// on an H100 (PERF.md §6), against 0.16 s for the torch loop.
+//
 // The first kernel of this file (lf_count_transposed_kernel, C entry
 // rbt_lf_count_transposed) is the earlier design, one thread per lane over a
 // transposed [L, B] batch with the start computed outside; it is kept only
@@ -230,14 +249,85 @@ __device__ __forceinline__ int64_t base_of(const int64_t* __restrict__ base, int
                         (size_t)(row / per_blk) * kCkpt + c);
 }
 
+// The per-step toehold's tables (TOE instances), each int32 or int64 as the
+// index holds it on the card (*_bytes): tk1 [A * n] where it is resident,
+// else ltk [A * R] with run_start [R]; samples_last [R] for k0; and k, the
+// int32 toehold out.
+struct Toe {
+  const void* tk1;
+  const void* ltk;
+  const void* run_start;
+  const void* samples_last;
+  int tk1_bytes, ltk_bytes, rs_bytes, sl_bytes;
+  int R;
+  int32_t* k;
+};
+
+__device__ __forceinline__ int64_t load_at(const void* p, int bytes, int64_t i) {
+  return bytes == 8 ? (int64_t)__ldg(static_cast<const long long*>(p) + i)
+                    : (int64_t)__ldg(static_cast<const int32_t*>(p) + i);
+}
+
+// The symbol at in-row offset `off` from this thread's parts of the row
+// (part sub + m * kG in v[m]), or 0 where another thread of the lane holds
+// its word: the kG shares sum to the symbol.
+template <int SYMS>
+__device__ __forceinline__ int sym_share(const int4 (&v)[Layout<SYMS>::kPer], int sub,
+                                         int off) {
+  int s = 0;
+#pragma unroll
+  for (int m = 0; m < Layout<SYMS>::kPer; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int lane = 4 * (sub + m * kG) + e;
+      if (lane == kCkpt + (off >> 3))
+        s = (int)(((uint32_t)lane_of(v[m], e) >> (4 * (off & 7))) & 15u);
+    }
+  }
+  return s;
+}
+
+// k of a lane whose search did not fail: the table value of its last
+// non-trivial step (code tc >= 0, pre-step hi thi), or k0 where it had none
+// (tc < 0), less its `triv` trivial steps since, mod n.  The ltk route finds
+// the run of thi as ops/rank.py lf_step_w_loc does: the run of min(thi + 1,
+// n - 1) by an upper bound over run_start, one less where thi + 1 < n
+// starts that run.
+__device__ int32_t resolve_toehold(const Toe& t, int32_t n, int tc, int32_t thi, int triv) {
+  int64_t base;
+  if (tc < 0) {
+    base = (load_at(t.samples_last, t.sl_bytes, t.R - 1) + 1) % n;
+  } else if (t.tk1 != nullptr) {
+    base = load_at(t.tk1, t.tk1_bytes, (int64_t)tc * n + thi);
+  } else {
+    const int64_t x = (int64_t)thi + 1 < n ? (int64_t)thi + 1 : (int64_t)n - 1;
+    int first = 0, count = t.R;  // upper bound of x
+    while (count > 0) {
+      const int half = count >> 1;
+      if (load_at(t.run_start, t.rs_bytes, first + half) <= x) {
+        first += half + 1;
+        count -= half + 1;
+      } else {
+        count = half;
+      }
+    }
+    int r = first - 1;
+    if ((int64_t)thi + 1 < n && load_at(t.run_start, t.rs_bytes, r) == (int64_t)thi + 1) --r;
+    base = load_at(t.ltk, t.ltk_bytes, (int64_t)tc * t.R + r);
+  }
+  const int64_t k = (base - triv) % n;
+  return (int32_t)(k < 0 ? k + n : k);
+}
+
 // One block: blockDim.x / kG lanes, kG neighbouring threads a lane.  STAGE
 // reads the codes from shared memory (staged once per block), else from
 // global memory at every step (for batches too wide to stage).  Lane is
 // int32_t for the single-level rows, with the ftab start; int64_t for the
 // two-level rows, with `base` and `per_blk` and without the ftab (k is 0).
 // REC (two-level rows only) writes hi_rec[j][b], lane b's hi before step j,
-// for every j in [0, L).
-template <typename Lane, int SYMS, bool STAGE, bool REC>
+// for every j in [0, L).  TOE (single-level rows, no ftab start) also writes
+// each lane's toehold into toe.k[b], 0 for a failed search.
+template <typename Lane, int SYMS, bool STAGE, bool REC, bool TOE>
 __global__ void __launch_bounds__(1024)
 lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
                 const int64_t* __restrict__ base, int per_blk,
@@ -245,10 +335,11 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
                 const int32_t* __restrict__ lengths, int B, int L,
                 const int32_t* __restrict__ ftab, int k, uint32_t acgt,
                 Lane* __restrict__ lo_out, Lane* __restrict__ hi_out,
-                Lane* __restrict__ hi_rec) {
+                Lane* __restrict__ hi_rec, Toe toe) {
   using Lo = Layout<SYMS>;
   constexpr bool kTwoLevel = sizeof(Lane) == 8;
   static_assert(kTwoLevel || !REC, "the step record is the two-level search's");
+  static_assert(!kTwoLevel || !TOE, "the per-step toehold is the single-level search's");
   extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when STAGE
   __shared__ Lane sF[kCkpt + 1];
 
@@ -320,6 +411,10 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   // the kG threads of a lane: neighbouring lanes of one warp
   const unsigned pair = ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(kG - 1));
   const int jend = min(len, L);
+  // TOE: the code and pre-step hi of the last non-trivial step (tc < 0:
+  // none yet), and the trivial steps since it (since the start while none)
+  int tc = -1, triv = 0;
+  Lane thi = 0;
   for (; j < jend; ++j) {
     const int c = code_at(L - 1 - j);
     if (REC && sub == 0) hi_rec[(size_t)j * B + b] = hi;
@@ -347,6 +442,21 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
     int p1 = rank_share<SYMS>(w, sub, c, (int)(i1 & (SYMS - 1)));
     p0 += __shfl_xor_sync(pair, p0, 1);
     p1 += __shfl_xor_sync(pair, p1, 1);
+    bool trivial = false;  // BWT[hi] == c
+    if constexpr (TOE) {
+      // BWT[hi] is the symbol before hi + 1 in hi + 1's row, unless hi + 1
+      // starts a row or equals n: then one word of hi's own row
+      const int o1 = (int)(i1 & (SYMS - 1));
+      int s = sym_share<SYMS>(w, sub, max(o1 - 1, 0));
+      s += __shfl_xor_sync(pair, s, 1);
+      if (!has1 || o1 == 0) {
+        const uint32_t word = (uint32_t)__ldg(
+            reinterpret_cast<const int32_t*>(fb) + (size_t)(hi >> Lo::kShift) * Lo::kRow +
+            kCkpt + (int)((hi & (SYMS - 1)) >> 3));
+        s = (int)((word >> (4 * (int)(hi & 7))) & 15u);
+      }
+      trivial = s == c;
+    }
     Lane cb, ce;
     if constexpr (kTwoLevel) {
       // the superblock's base completes the local rank
@@ -363,12 +473,22 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
       if (REC) ++j;  // step j is recorded
       break;
     }
+    if constexpr (TOE) {
+      if (trivial) {
+        ++triv;
+      } else {
+        tc = c;
+        thi = hi;
+        triv = 0;
+      }
+    }
     lo = sF[c] + cb;
     hi = lo + ci - 1;
   }
   if (sub == 0) {
     lo_out[b] = lo;
     hi_out[b] = hi;
+    if constexpr (TOE) toe.k[b] = hi < lo ? 0 : resolve_toehold(toe, n, tc, thi, triv);
     // the steps not taken: 0 after a failure, the final hi past the read
     if (REC)
       for (; j < L; ++j) hi_rec[(size_t)j * B + b] = hi;
@@ -392,24 +512,25 @@ struct Args {
   Lane* lo;
   Lane* hi;
   Lane* hi_rec;  // [L, B], or null for no step record
+  Toe toe;       // the toehold's tables (TOE instances), else zeros
 };
 
-template <typename Lane, int SYMS, bool STAGE, bool REC>
+template <typename Lane, int SYMS, bool STAGE, bool REC, bool TOE>
 int launch(const Args<Lane>& a, int threads, cudaStream_t s) {
   const int lanes = threads / kG;
   const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
-  lf_count_kernel<Lane, SYMS, STAGE, REC><<<grid, threads, smem, s>>>(
+  lf_count_kernel<Lane, SYMS, STAGE, REC, TOE><<<grid, threads, smem, s>>>(
       a.fb, a.F, a.base, a.per_blk, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt,
-      a.lo, a.hi, a.hi_rec);
+      a.lo, a.hi, a.hi_rec, a.toe);
   return (int)cudaGetLastError();
 }
 
-template <typename Lane, int SYMS, bool REC = false>
+template <typename Lane, int SYMS, bool REC = false, bool TOE = false>
 int launch_staged(const Args<Lane>& a, int threads, bool stage, cudaStream_t s) {
-  return stage ? launch<Lane, SYMS, true, REC>(a, threads, s)
-               : launch<Lane, SYMS, false, REC>(a, threads, s);
+  return stage ? launch<Lane, SYMS, true, REC, TOE>(a, threads, s)
+               : launch<Lane, SYMS, false, REC, TOE>(a, threads, s);
 }
 
 // The two-level search, with the step record when a.hi_rec is not null.
@@ -449,7 +570,7 @@ int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
                         nullptr, 0, A, n,
                         static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
                         B, L, static_cast<const int32_t*>(ftab), k, (uint32_t)acgt,
-                        static_cast<int32_t*>(lo), static_cast<int32_t*>(hi), nullptr};
+                        static_cast<int32_t*>(lo), static_cast<int32_t*>(hi), nullptr, {}};
   cudaStream_t s = (cudaStream_t)stream;
   if (syms_per_row == 64) return launch_staged<int32_t, 64>(a, threads, stage, s);
   if (syms_per_row == 128) return launch_staged<int32_t, 128>(a, threads, stage, s);
@@ -478,11 +599,44 @@ int rbt_lf_count_fb2(const void* fb, int syms_per_row, const void* F, const void
                         static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
                         B, L, nullptr, 0, 0u,
                         static_cast<int64_t*>(lo), static_cast<int64_t*>(hi),
-                        static_cast<int64_t*>(hi_rec)};
+                        static_cast<int64_t*>(hi_rec), {}};
   cudaStream_t s = (cudaStream_t)stream;
   if (syms_per_row == 64) return launch_fb2<64>(a, threads, stage, s);
   if (syms_per_row == 128) return launch_fb2<128>(a, threads, stage, s);
   if (syms_per_row == 256) return launch_fb2<256>(a, threads, stage, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The per-step toehold search (TOE) over the single-level rows: from the
+// full range (no ftab start), lo, hi and k (int32 [B]) out, k the toehold
+// of rbt_align -s on an index without kval and 0 for a failed search.  The
+// toehold's tables are each int32 or int64 (*_bytes 4 or 8): tk1 [A * n]
+// where resident (ltk and run_start are then not read and may be null),
+// else ltk [A * R] and run_start [R]; samples_last [R] always.  The other
+// arguments and the return value are rbt_lf_count's.
+int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n,
+                   const void* q, const void* lengths, int B, int L, const void* tk1,
+                   int tk1_bytes, const void* ltk, int ltk_bytes, const void* run_start,
+                   int rs_bytes, const void* samples_last, int sl_bytes, int R, void* lo,
+                   void* hi, void* k, int threads, int stage, void* stream) {
+  auto width = [](int bytes) { return bytes == 4 || bytes == 8; };
+  const bool tables = tk1 != nullptr ? width(tk1_bytes)
+                                     : ltk != nullptr && run_start != nullptr &&
+                                           width(ltk_bytes) && width(rs_bytes);
+  if (bad_launch(A, B, L, threads) || n < 1 || R < 1 || samples_last == nullptr ||
+      !width(sl_bytes) || !tables || k == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes,
+                R, static_cast<int32_t*>(k)};
+  const Args<int32_t> a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F),
+                        nullptr, 0, A, n,
+                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
+                        B, L, nullptr, 0, 0u,
+                        static_cast<int32_t*>(lo), static_cast<int32_t*>(hi), nullptr, toe};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (syms_per_row == 64) return launch_staged<int32_t, 64, false, true>(a, threads, stage, s);
+  if (syms_per_row == 128) return launch_staged<int32_t, 128, false, true>(a, threads, stage, s);
   return (int)cudaErrorInvalidValue;
 }
 

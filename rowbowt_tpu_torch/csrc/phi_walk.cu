@@ -7,16 +7,27 @@
 // It is P3's chained gather (csrc/gather_probe.cu gather_chain_kernel,
 // tools/vmem_gather_probe.py:92 kernelC) carrying the walk: lane b writes
 // out[off[b] + j] for j < size[b], j = 0 the toehold k[b] and each later j
-// the phi of the one before, with the step loop inside the thread.  Two
-// routes, the two that ops/rank.py phi_step takes on the indexes whose
-// `-s` runs on the card:
+// the phi of the one before, with the step loop inside the thread.  Three
+// routes, three of the four that ops/rank.py phi_step takes (the fourth, the
+// breakpoint table phi_at of a BigIndex with 2^31 or more breakpoints, stays
+// the torch walk):
 //   - phi1 (dense, raw and serialized indexes): i <- phi1[clamp(i, 0, n-1)],
 //     one dependent load a step, int32 or int64 table;
 //   - phi_rows + phi_delta (a BigIndex, bigindex.phi_pack_tables): one 64 B
 //     row [breakpoints before the row | 15 words of breakpoint bits] per 480
 //     positions, the popcount of the row's bits at or below i's offset gives
 //     the rank of i's breakpoint, and i <- (i + phi_delta[rank]) mod n: two
-//     dependent loads a step, int64 lanes (n above 2^31).
+//     dependent loads a step, int64 lanes (n above 2^31);
+//   - the predecessor search over the run-start samples (an index with
+//     neither table: `--no-dense`, ToeholdSA::phi, toehold_sa.hpp:56-72): rk
+//     the lower bound of i in pred_pos, jr = rk - 1 (R - 1 for rk == 0), j =
+//     pred_pos[jr], and i <- (samples_last[pred_to_run[jr] - 1] + (j < i ? i
+//     - j : i + 1)) mod n, index -1 reading the last sample as the JAX
+//     package's gather does: a binary search over R entries and two more
+//     dependent loads a step, about log2(R) + 2 (26 at chr).  The search's
+//     first levels are shared by every lane, so its loads go through L1
+//     (a chr batch of at most 7 steps a lane: 57.5 us on an H100, PERF.md
+//     §6).
 //
 // What bounds it on the H100.  A lane's chain is serial: each step's address
 // is the previous step's result, so the longest lane takes its steps times
@@ -111,6 +122,36 @@ struct PhiRows {
   }
 };
 
+// phi by the predecessor search: ops/rank.py phi_step's last branch, over
+// pred_pos, pred_to_run and samples_last of one type T (int32 or int64),
+// summed in int64.
+template <typename T>
+struct Pred {
+  const T* pred_pos;
+  const T* pred_to_run;
+  const T* samples_last;
+  int64_t R, n;
+  __device__ __forceinline__ int64_t operator()(int64_t i) const {
+    int64_t first = 0, count = R;  // lower bound of i
+    while (count > 0) {
+      const int64_t half = count >> 1;
+      if ((int64_t)__ldg(pred_pos + first + half) < i) {
+        first += half + 1;
+        count -= half + 1;
+      } else {
+        count = half;
+      }
+    }
+    const int64_t jr = first == 0 ? R - 1 : first - 1;
+    const int64_t j = (int64_t)__ldg(pred_pos + jr);
+    const int64_t delta = j < i ? i - j : i + 1;
+    int64_t r = (int64_t)__ldg(pred_to_run + jr) - 1;
+    r = r < 0 ? r + R : r;
+    int64_t v = ((int64_t)__ldg(samples_last + r) + delta) % n;
+    return v < 0 ? v + n : v;
+  }
+};
+
 template <typename Step>
 __global__ void __launch_bounds__(kMaxThreads)
 phi_walk_kernel(Step phi, const int64_t* __restrict__ k, const int64_t* __restrict__ size,
@@ -174,6 +215,26 @@ int rbt_phi_walk_rows(const void* rows, const void* delta, long long n, const vo
   if (n < 1 || (uintptr_t)rows % 16) return (int)cudaErrorInvalidValue;
   return launch(PhiRows{static_cast<const int4*>(rows), static_cast<const int64_t*>(delta), n},
                 k, size, off, order, out, B, threads, stream);
+}
+
+// The predecessor search over pred_pos, pred_to_run and samples_last, R
+// entries each, all `bytes` (4: int32, 8: int64) a value.
+int rbt_phi_walk_pred(const void* pred_pos, const void* pred_to_run, const void* samples_last,
+                      int bytes, long long R, long long n, const void* k, const void* size,
+                      const void* off, const void* order, void* out, int B, int threads,
+                      void* stream) {
+  if (n < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  if (bytes == 4)
+    return launch(Pred<int32_t>{static_cast<const int32_t*>(pred_pos),
+                                static_cast<const int32_t*>(pred_to_run),
+                                static_cast<const int32_t*>(samples_last), R, n},
+                  k, size, off, order, out, B, threads, stream);
+  if (bytes == 8)
+    return launch(Pred<long long>{static_cast<const long long*>(pred_pos),
+                                  static_cast<const long long*>(pred_to_run),
+                                  static_cast<const long long*>(samples_last), R, n},
+                  k, size, off, order, out, B, threads, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* rbt_phi_walk_error_string(int code) {

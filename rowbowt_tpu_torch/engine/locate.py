@@ -7,8 +7,9 @@ is one kval gather of the final range.  locate() is the phi walk
 (ToeholdSA::locate_range, toehold_sa.hpp:37-49) across lanes to a fixed
 max_hits, toehold first then the phi chain; locate_ragged walks each lane
 to its own range size, so one huge range does not widen every lane.  Both
-are one ops/cuda_phi.phi_walk: the walk kernel on a CUDA device over phi1
-or a BigIndex's phi rows, the torch walk otherwise.
+are one ops/cuda_phi.phi_walk: the walk kernel on a CUDA device over phi1,
+a BigIndex's phi rows or the predecessor search over the run-start samples,
+the torch walk over a BigIndex's breakpoint table phi_at.
 find_ranges_w_toehold_chkpnts records the search state every wsize chars,
 and find_locs is the whole-read search plus the phi walk.
 
@@ -16,13 +17,17 @@ A big (n >= 2^31) index has no kval: its toehold comes from the trajectory
 of the search (traj_nontrivial, traj_resolve_toehold), a resolve over its
 O(R) run tables after a count search that records each step's hi: on a CUDA
 device K1's record launch over the two-level rows, which raises rather than
-fall back to the torch loop; on the CPU that loop.  The checkpointed search
-(find_ranges_w_toehold_chkpnts) keeps its own torch loop.  An index built
-from run samples alone (a raw `.bwt/.ssa/.esa` or `.rbwt` build, or
-`--no-dense`) has no kval either: the toehold rides through the loop step by
-step (RowBowt::LF_w_loc, rowbowt.hpp:553-573), over occ1 + tk1 when they are
-resident, else over the run-space tables and ltk.  That loop is torch on
-every device: K1 keeps no toehold.
+fall back to the torch loop; on the CPU that loop.  An index built from run
+samples alone (a raw `.bwt/.ssa/.esa` or `.rbwt` build, or `--no-dense`) has
+no kval either: the toehold rides through the search step by step
+(RowBowt::LF_w_loc, rowbowt.hpp:553-573), from tk1 when it is resident, else
+from ltk.  On a CUDA device over fused rows that search is K1's toehold
+launch (ops/cuda_lf.find_ranges_toehold), which raises rather than fall
+back; over an index without fused rows (`--no-dense`, more than 8 codes)
+and on the CPU it is the torch loop of lf_step_w_loc_occ1 or lf_step_w_loc
+(cuda_lf.find_ranges_toehold_plain).  The loops still torch on every device
+are the checkpointed search (find_ranges_w_toehold_chkpnts) and the
+sampled seeding (engine/seeds.seeds_greedy_w_sample).
 """
 
 from __future__ import annotations
@@ -43,8 +48,10 @@ def find_ranges_w_toehold(tx: TorchIndex, qcodes, lengths):
     so on a full-SA index the loop is the count LF without the ftab start and
     the toehold is one kval gather at the end (ops/rank.toehold_from_range).
     On a big index it is the trajectory resolve (_toehold_trajectory); on an
-    index built from run samples alone, the per-step toehold loop."""
-    from rowbowt_tpu_torch.engine.seeds import _toehold_by_kval, _w_loc_step
+    index built from run samples alone, the per-step toehold search
+    (ops/cuda_lf.find_ranges_toehold: K1's toehold launch on the card over
+    fused rows, else the torch loop)."""
+    from rowbowt_tpu_torch.engine.seeds import _toehold_by_kval
 
     mode = _toehold_by_kval(tx, "find_ranges_w_toehold")
     if mode == "kval":
@@ -52,27 +59,7 @@ def find_ranges_w_toehold(tx: TorchIndex, qcodes, lengths):
         return lo, hi, R.toehold_from_range(tx, lo, hi)
     if mode == "trajectory":
         return _toehold_trajectory(tx, qcodes, lengths)
-    B, L = qcodes.shape
-    dt = tx.idx_dtype
-    dev = qcodes.device
-    lengths = lengths.to(dt)
-    lo = torch.zeros(B, dtype=dt, device=dev)
-    hi = torch.full((B,), tx.n - 1, dtype=dt, device=dev)
-    # get_last_run_sample (toehold_sa.hpp:97-99)
-    k0 = ((tx.arrays["samples_last"][tx.R - 1] + 1) % tx.n).to(dt)
-    k = k0.expand(B).clone()
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    step = _w_loc_step(tx)
-    for j in range(L):
-        c = qcodes[:, L - 1 - j].to(dt)
-        active = (~done) & (j < lengths)
-        nlo, nhi, nk = step(tx, lo, hi, c, k)
-        lo = torch.where(active, nlo, lo)
-        hi = torch.where(active, nhi, hi)
-        k = torch.where(active, nk, k)
-        done = done | (active & (nlo > nhi))
-    # a failed search clears everything (rowbowt.hpp:177-180)
-    return lo, hi, torch.where(hi < lo, 0, k)
+    return cuda_lf.find_ranges_toehold(tx, qcodes, lengths)
 
 
 def traj_nontrivial(tx: TorchIndex, hi_rec, csteps, m):

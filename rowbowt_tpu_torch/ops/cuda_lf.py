@@ -32,6 +32,20 @@ record launch (adding one to LAUNCHES_REC) or an error, never the torch
 loop; for CPU tensors `find_ranges_record_plain`, `lf_loop_plain` from
 the full range writing its record, which is also what the kernel is held against on the card (each of
 its runs adds one to RECORDS_PLAIN).
+
+`find_ranges_toehold` is the wrapper of the toehold launch (C entry
+rbt_lf_toehold), the search of `rbt_align -s` on an index built from run
+samples alone (no kval: raw, serialized): RowBowt::LF_w_loc, which the JAX
+package runs as an XLA fori_loop of ops/rank.py lf_step_w_loc or
+lf_step_w_loc_occ1 (rowbowt_tpu/engine/locate.py:50-67).  One launch of K1
+from the full range carries each lane's last non-trivial step and the
+trivial steps after it, and resolves the toehold from tk1 (where resident)
+or ltk after the loop.  For CUDA tensors over fused rows it launches (adding
+one to LAUNCHES_TOE) or raises; over an index without fused rows
+(`--no-dense`, an alphabet of more than 8 codes) it runs
+`find_ranges_toehold_plain`, the torch loop of that step, on the card
+(adding one to LAUNCHES_TORCH); for CPU tensors that loop, which is also
+what the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -55,6 +69,8 @@ LAUNCHES_TORCH = 0
 # runs of its torch twin on any device
 LAUNCHES_REC = 0
 RECORDS_PLAIN = 0
+# toehold launches (the per-step toehold search of an index without kval)
+LAUNCHES_TOE = 0
 
 GROUP = 2  # threads per lane (csrc/lf.cu kG): two 16-byte parts of a 64 B row each
 LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
@@ -69,9 +85,9 @@ _SYMS_PER_ROW = {"fblock64": 64, "fblock": 128, "fb2_64": 64, "fb2": 128, "fb2_2
 def build():
     """Compile csrc/lf.cu (once per process) and bind its C entry points:
     rbt_lf_count (K1), rbt_lf_count_fb2 (K1 over the two-level rows, with
-    the step record when its hi_rec is not null) and
-    rbt_lf_count_transposed (the earlier design, which only chip_smoke.py
-    launches, to time it beside K1)."""
+    the step record when its hi_rec is not null), rbt_lf_toehold (K1 with
+    the per-step toehold) and rbt_lf_count_transposed (the earlier design,
+    which only chip_smoke.py launches, to time it beside K1)."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
@@ -84,8 +100,10 @@ def build():
                                             vp]
     lib.rbt_lf_count_fb2.argtypes = [vp, ci, vp, vp, ci, ci, ctypes.c_longlong, vp, vp, ci, ci,
                                       vp, vp, vp, ci, ci, vp]
+    lib.rbt_lf_toehold.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, ci, vp, ci,
+                                   vp, ci, ci, vp, vp, vp, ci, ci, vp]
     lib.rbt_lf_count.restype = lib.rbt_lf_count_transposed.restype = ci
-    lib.rbt_lf_count_fb2.restype = ci
+    lib.rbt_lf_count_fb2.restype = lib.rbt_lf_toehold.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -217,6 +235,32 @@ def row_layout(tx: TorchIndex) -> str | None:
     return {R.lf_step_fblock64: "fblock64", R.lf_step_fblock: "fblock"}.get(step)
 
 
+def _check_operands(tx: TorchIndex, key: str, qcodes, lengths, named, lane) -> None:
+    """Refuse what a K1 launch over tx's `key` rows does not take: an
+    operand of `named` ((name, tensor, dtypes)), the rows, F (of dtype
+    `lane`), the codes or the lengths on another device than the codes or
+    of another dtype; rows that are not whole, contiguous and 16-byte
+    aligned; an alphabet outside 1..8; lengths that are not [B]."""
+    fb, F = tx.arrays[key], tx.arrays["F"]
+    dev = qcodes.device
+    named = (("table", fb, (torch.int32,)), ("F", F, (lane,)),
+             ("qcodes", qcodes, (torch.int32,)), ("lengths", lengths, (torch.int32,))) + named
+    for name, t, want in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, qcodes on {dev}")
+        if t.dtype not in want:
+            raise TypeError(f"{name} must be {' or '.join(str(w)[6:] for w in want)} for "
+                            f"{key} rows, got {t.dtype}")
+    if fb.dim() != 2 or fb.shape[1] != 8 + _SYMS_PER_ROW[key] // 8:
+        raise ValueError(f"{key} rows have shape {tuple(fb.shape)}")
+    if not fb.is_contiguous() or fb.data_ptr() % 16:
+        raise ValueError("row table is not contiguous and 16-byte aligned")
+    if not 1 <= tx.A <= 8 or F.numel() < tx.A + 1:
+        raise ValueError(f"alphabet of {tx.A} codes; the kernel takes 1..8")
+    if lengths.shape != (qcodes.shape[0],):
+        raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
+
+
 def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bool = False):
     """Launch K1 on CUDA tensors, shaped by launch_plan: (lo, hi), or with
     `record` (two-level rows only) (lo, hi, hi_rec) with the int64 [L, B]
@@ -241,28 +285,13 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bo
         raise ValueError(f"{key} rows take no ftab start (big artifacts carry none)")
     ftab = tx.arrays["ftab"] if k else None
     base = tx.arrays["fb2_base"] if two_level else None
-    named = (("table", fb, torch.int32), ("F", F, lane), ("qcodes", qcodes, torch.int32),
-             ("lengths", lengths, torch.int32))
-    if k:
-        named += (("ftab", ftab, torch.int32),)
+    named = (("ftab", ftab, (torch.int32,)),) if k else ()
     if two_level:
-        named += (("fb2_base", base, torch.int64),)
-    for name, t, want in named:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, qcodes on {dev}")
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {str(want)[6:]} for {key} rows, got {t.dtype}")
+        named += (("fb2_base", base, (torch.int64,)),)
+    _check_operands(tx, key, qcodes, lengths, named, lane)
     if two_level and (base.shape != (base.shape[0], 8) or not base.is_contiguous()
                       or not 1 <= base.shape[0] <= fb.shape[0]):
         raise ValueError(f"fb2_base of shape {tuple(base.shape)} for {fb.shape[0]} rows")
-    if fb.dim() != 2 or fb.shape[1] != 8 + _SYMS_PER_ROW[key] // 8:
-        raise ValueError(f"{key} rows have shape {tuple(fb.shape)}")
-    if not fb.is_contiguous() or fb.data_ptr() % 16:
-        raise ValueError("row table is not contiguous and 16-byte aligned")
-    if not 1 <= tx.A <= 8 or F.numel() < tx.A + 1:
-        raise ValueError(f"alphabet of {tx.A} codes; the kernel takes 1..8")
-    if lengths.shape != (B,):
-        raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
     acgt = 0
     if k:
         if k > 15 or ftab.shape != (4 ** k, 2) or not ftab.is_contiguous():
@@ -304,3 +333,114 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bo
     elif B:
         LAUNCHES += 1
     return (lo, hi, hi_rec) if record else (lo, hi)
+
+
+def find_ranges_toehold_plain(tx: TorchIndex, qcodes, lengths):
+    """(lo, hi, k) of the right-aligned [B, L] codes on an index without
+    kval, in torch on any device: the full range and k0 =
+    (samples_last[R - 1] + 1) mod n (get_last_run_sample,
+    toehold_sa.hpp:97-99), then L lockstep steps of lf_step_w_loc_occ1 (tk1
+    resident) or lf_step_w_loc (ltk), the toehold riding along; a failed
+    search gives (1, 0, 0) (rowbowt.hpp:177-180).  In the index's lane
+    type."""
+    step = R.lf_step_w_loc_occ1 if toehold_route(tx) == "tk1" else R.lf_step_w_loc
+    B, L = qcodes.shape
+    dt = tx.idx_dtype
+    dev = qcodes.device
+    lengths = lengths.to(dt)
+    lo = torch.zeros(B, dtype=dt, device=dev)
+    hi = torch.full((B,), tx.n - 1, dtype=dt, device=dev)
+    k0 = ((tx.arrays["samples_last"][tx.R - 1] + 1) % tx.n).to(dt)
+    k = k0.expand(B).clone()
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    for j in range(L):
+        c = qcodes[:, L - 1 - j].to(dt)
+        active = (~done) & (j < lengths)
+        nlo, nhi, nk = step(tx, lo, hi, c, k)
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+        k = torch.where(active, nk, k)
+        done = done | (active & (nlo > nhi))
+    return lo, hi, torch.where(hi < lo, 0, k)
+
+
+def find_ranges_toehold(tx: TorchIndex, qcodes, lengths):
+    """(lo, hi, k) with the per-step toehold of an index without kval: the
+    toehold launch for CUDA tensors over fused rows, the torch loop on the
+    card over an index without them (one more in LAUNCHES_TORCH), the plain
+    loop for CPU tensors, an error for any other device."""
+    global LAUNCHES_TORCH
+    if qcodes.device.type == "cpu":
+        return find_ranges_toehold_plain(tx, qcodes, lengths)
+    if qcodes.device.type != "cuda":
+        raise ValueError(f"no LF loop for device {qcodes.device}")
+    if row_layout(tx) is not None:
+        return launch_toehold(tx, qcodes, lengths.to(torch.int32))
+    out = find_ranges_toehold_plain(tx, qcodes, lengths)
+    if qcodes.shape[0]:
+        LAUNCHES_TORCH += 1
+    return out
+
+
+def toehold_route(tx: TorchIndex) -> str:
+    """The table the toehold's resolve reads: "tk1" where tk1 is resident
+    (lf_step_w_loc_occ1's), else "ltk" (lf_step_w_loc's)."""
+    return "tk1" if "tk1_flat" in tx.arrays else "ltk"
+
+
+def launch_toehold(tx: TorchIndex, qcodes, lengths):
+    """Launch K1's toehold instance on CUDA tensors, shaped by launch_plan:
+    (lo, hi, k), int32 [B] each, over the single-level fused rows from the
+    full range (no ftab start).  The rows, F, codes and lengths are int32;
+    the toehold's tables (tk1, or ltk and run_start, and samples_last) int32
+    or int64 as the index holds them."""
+    global LAUNCHES_TOE
+    key = row_layout(tx)
+    if key is None:
+        raise ValueError("K1 reads fused-block rows; this index has none "
+                         "(find_ranges_toehold takes the torch loop for it)")
+    if key in R.FB2_KEYS:
+        raise ValueError(f"the per-step toehold is the single-level search's; {key} rows are "
+                         "two-level (a big index's toehold is the trajectory resolve)")
+    route = toehold_route(tx)
+    fb, F = tx.arrays[key], tx.arrays["F"]
+    B, L = qcodes.shape
+    dev = qcodes.device
+    tabs = (("tk1_flat",) if route == "tk1" else ("ltk", "run_start")) + ("samples_last",)
+    for name in tabs:
+        if name not in tx.arrays:
+            raise ValueError(f"the toehold needs {name}; the index has none")
+    _check_operands(tx, key, qcodes, lengths,
+                    tuple((name, tx.arrays[name], (torch.int32, torch.int64)) for name in tabs),
+                    torch.int32)
+    sizes = {"tk1_flat": tx.A * tx.n, "ltk": tx.A * tx.R, "run_start": tx.R,
+             "samples_last": tx.R}
+    for name in tabs:
+        t = tx.arrays[name]
+        if t.dim() != 1 or t.numel() != sizes[name] or not t.is_contiguous():
+            raise ValueError(f"{name} of shape {tuple(t.shape)}: need [{sizes[name]}], "
+                             "contiguous")
+    F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
+    lo, hi, k = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
+
+    def ptr(name):
+        t = tx.arrays.get(name) if name in tabs else None
+        return (t.data_ptr(), t.element_size()) if t is not None else (None, 0)
+
+    d = dev.index if dev.index is not None else torch.cuda.current_device()
+    threads, staged = launch_plan(B, L, _sm_count(d))
+    lib = _LIB or build()
+    args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A, tx.n, qcodes.data_ptr(),
+            lengths.data_ptr(), B, L, *ptr("tk1_flat"), *ptr("ltk"), *ptr("run_start"),
+            *ptr("samples_last"), tx.R, lo.data_ptr(), hi.data_ptr(), k.data_ptr(), threads,
+            int(staged))
+    if d == torch.cuda.current_device():
+        rc = lib.rbt_lf_toehold(*args, _raw_stream(d))
+    else:
+        with torch.cuda.device(d):
+            rc = lib.rbt_lf_toehold(*args, _raw_stream(d))
+    if rc != 0:
+        raise RuntimeError(f"LF kernel launch failed: {lib.rbt_cuda_error_string(rc).decode()}")
+    if B:
+        LAUNCHES_TOE += 1
+    return lo, hi, k

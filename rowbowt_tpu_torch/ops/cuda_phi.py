@@ -5,19 +5,18 @@ bound with ctypes) is P3's chained gather (csrc/gather_probe.cu) carrying
 the walk: lane b writes out[off[b] + j] for j < size[b], the toehold k[b]
 first, then each phi of the one before (ToeholdSA::locate_range,
 toehold_sa.hpp:37-49), one thread a lane with the step loop inside it.  It
-takes the two phi routes of ops/rank.phi_step that the card's `-s` runs
-use: the dense `phi1` table, and a BigIndex's bitmap rows (`phi_rows` +
-`phi_delta`).
+takes three of the four phi routes of ops/rank.phi_step, in its order: the
+dense `phi1` table, a BigIndex's bitmap rows (`phi_rows` + `phi_delta`),
+and the predecessor search over the run-start samples (`pred_pos`,
+`pred_to_run`, `samples_last`) of an index with neither (`--no-dense`).
 
 `phi_walk` is the wrapper: for CUDA tensors it launches the kernel (and adds
-one to LAUNCHES) when the index has one of those tables, and otherwise runs
-the torch walk on the card, chosen from the index's tables before anything
-launches (the breakpoint table `phi_at` of a BigIndex with 2^31 or more
-breakpoints, and the predecessor search of an index without phi1: raw
-builds without it and `--no-dense`), adding one to LAUNCHES_TORCH; for CPU
-tensors it runs `phi_walk_plain`, the torch walk over ops/rank.phi_step,
-which is also what the kernel is held against on the card.
-`launch_walk` launches or raises, never the torch walk.
+one to LAUNCHES) on those routes, and runs the torch walk on the card over
+the breakpoint table `phi_at` of a BigIndex with 2^31 or more breakpoints,
+chosen from the index's tables before anything launches, adding one to
+LAUNCHES_TORCH; for CPU tensors it runs `phi_walk_plain`, the torch walk
+over ops/rank.phi_step, which is also what the kernel is held against on
+the card.  `launch_walk` launches or raises, never the torch walk.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 
 # walk kernel launches since the last reset (a run sets them to 0), and the
-# walks phi_walk ran as torch ops on a CUDA device (no phi1 or phi rows)
+# walks phi_walk ran as torch ops on a CUDA device (the phi_at route)
 LAUNCHES = 0
 LAUNCHES_TORCH = 0
 
@@ -43,7 +42,7 @@ BUILD_LOG = ""  # nvcc's output (-Xptxas -v register/spill report) of the build
 
 def build():
     """Compile csrc/phi_walk.cu (once per process) and bind its C entries:
-    rbt_phi_walk_phi1 and rbt_phi_walk_rows."""
+    rbt_phi_walk_phi1, rbt_phi_walk_rows and rbt_phi_walk_pred."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
@@ -52,22 +51,29 @@ def build():
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rbt_phi_walk_phi1.argtypes = [vp, ci, ll, vp, vp, vp, vp, vp, ci, ci, vp]
     lib.rbt_phi_walk_rows.argtypes = [vp, vp, ll, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.rbt_phi_walk_pred.argtypes = [vp, vp, vp, ci, ll, ll, vp, vp, vp, vp, vp, ci, ci, vp]
     lib.rbt_phi_walk_phi1.restype = lib.rbt_phi_walk_rows.restype = ci
+    lib.rbt_phi_walk_pred.restype = ci
     lib.rbt_phi_walk_error_string.argtypes = [ci]
     lib.rbt_phi_walk_error_string.restype = ctypes.c_char_p
     _LIB = lib
     return lib
 
 
+PRED_TABLES = ("pred_pos", "pred_to_run", "samples_last")
+
+
 def walk_route(tx: TorchIndex) -> str | None:
-    """The table the walk kernel reads, phi_step's choice: "phi1",
-    "phi_rows", or None where phi_step takes the breakpoint table or the
-    predecessor search, which the kernel does not take."""
+    """The tables the walk kernel reads, phi_step's choice: "phi1",
+    "phi_rows", "pred" (the predecessor search), or None where phi_step
+    takes the breakpoint table phi_at, which the kernel does not take."""
     if "phi1" in tx.arrays:
         return "phi1"
     if "phi_rows" in tx.arrays:
         return "phi_rows"
-    return None
+    if "phi_at" in tx.arrays:
+        return None
+    return "pred"
 
 
 def launch_plan(B: int, sms: int) -> int:
@@ -102,8 +108,8 @@ def phi_walk_plain(tx: TorchIndex, k, size, off, out):
 
 def phi_walk(tx: TorchIndex, k, size, off, out):
     """Fill out[off[b] + j] for j < size[b] with lane b's toehold and phi
-    chain: the walk kernel for CUDA tensors over phi1 or the phi rows, the
-    torch walk on the card over the other tables (one more in
+    chain: the walk kernel for CUDA tensors over phi1, the phi rows or the
+    run-start samples, the torch walk on the card over phi_at (one more in
     LAUNCHES_TORCH), the plain walk for CPU tensors, an error for any other
     device.  Returns out."""
     global LAUNCHES_TORCH
@@ -129,11 +135,20 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
     global LAUNCHES
     route = walk_route(tx)
     if route is None:
-        raise ValueError("the walk kernel reads phi1 or the phi bitmap rows; this index has "
-                         "neither (phi_walk takes the torch walk for it)")
-    tabs = ((("phi1", tx.arrays["phi1"], (torch.int32, torch.int64)),) if route == "phi1" else
-            (("phi_rows", tx.arrays["phi_rows"], (torch.int32,)),
-             ("phi_delta", tx.arrays["phi_delta"], (torch.int64,))))
+        raise ValueError("the walk kernel reads phi1 or the phi bitmap rows or the run-start "
+                         "samples, not the breakpoint table phi_at (phi_walk takes the torch "
+                         "walk for it)")
+    ints = (torch.int32, torch.int64)
+    if route == "phi1":
+        tabs = (("phi1", tx.arrays["phi1"], ints),)
+    elif route == "phi_rows":
+        tabs = (("phi_rows", tx.arrays["phi_rows"], (torch.int32,)),
+                ("phi_delta", tx.arrays["phi_delta"], (torch.int64,)))
+    else:
+        for name in PRED_TABLES:
+            if name not in tx.arrays:
+                raise ValueError(f"the predecessor walk needs {name}; the index has none")
+        tabs = tuple((name, tx.arrays[name], ints) for name in PRED_TABLES)
     named = (("k", k, (torch.int32, torch.int64)), ("size", size, (torch.int64,)),
              ("off", off, (torch.int64,)), ("out", out, (torch.int64,))) + tabs
     dev = k.device
@@ -155,6 +170,12 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
     for name, t, _ in tabs:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if route == "pred":
+        if len({t.dtype for _, t, _ in tabs}) != 1:
+            raise TypeError("pred_pos, pred_to_run and samples_last must share a dtype, got "
+                            + ", ".join(str(t.dtype)[6:] for _, t, _ in tabs))
+        if any(t.shape != (tx.R,) for _, t, _ in tabs):
+            raise ValueError(f"pred_pos, pred_to_run and samples_last must be [R = {tx.R}]")
     if route == "phi_rows":
         rows = tx.arrays["phi_rows"]
         if rows.dim() != 2 or rows.shape[1] != 16 or rows.data_ptr() % 16:
@@ -174,9 +195,12 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
     if route == "phi1":
         phi1 = tx.arrays["phi1"]
         entry, args = lib.rbt_phi_walk_phi1, (phi1.data_ptr(), phi1.element_size(), tx.n)
-    else:
+    elif route == "phi_rows":
         entry = lib.rbt_phi_walk_rows
         args = (tx.arrays["phi_rows"].data_ptr(), tx.arrays["phi_delta"].data_ptr(), tx.n)
+    else:
+        entry = lib.rbt_phi_walk_pred
+        args = (*(t.data_ptr() for _, t, _ in tabs), tabs[0][1].element_size(), tx.R, tx.n)
     if d == torch.cuda.current_device():
         rc = entry(*args, *lanes, _raw_stream(d))
     else:

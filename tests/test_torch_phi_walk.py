@@ -242,8 +242,9 @@ def test_wrapper_refuses_mixed_devices_and_wrong_dtypes(pair):
 @pytest.mark.parametrize("route", ["phi1", "phi_rows", "phi_at", "pred"])
 def test_route_is_chosen_by_the_tables(monkeypatch, route):
     """On a CUDA tensor phi_walk launches the kernel exactly when the index
-    has phi1 or the phi rows, and otherwise runs the torch walk and counts it
-    in LAUNCHES_TORCH; the choice is made before any launch."""
+    has phi1, the phi rows or only the run-start samples (the predecessor
+    search), and runs the torch walk over phi_at, counted in LAUNCHES_TORCH;
+    the choice is made before any launch."""
     tables = {"phi1": ("phi1",), "phi_rows": ("phi_rows", "phi_delta"),
               "phi_at": ("pred_pos", "phi_at", "pp_off"), "pred": ("pred_pos", "pred_to_run")}
     tx = SimpleNamespace(arrays=dict.fromkeys(tables[route]))
@@ -253,7 +254,7 @@ def test_route_is_chosen_by_the_tables(monkeypatch, route):
     monkeypatch.setattr(cuda_phi, "LAUNCHES_TORCH", 0)
     k = SimpleNamespace(device=SimpleNamespace(type="cuda"), shape=(4,))
     cuda_phi.phi_walk(tx, k, None, None, None)
-    kernel = route in ("phi1", "phi_rows")
+    kernel = route in ("phi1", "phi_rows", "pred")
     assert calls == ["kernel" if kernel else "torch"]
     assert cuda_phi.LAUNCHES_TORCH == (0 if kernel else 1)
     assert (cuda_phi.walk_route(tx) == route) == kernel

@@ -5,10 +5,12 @@ rbt_locs paths on one NVIDIA GPU.
     python3 chip_smoke.py                 # every phase, then the kernel record
     python3 chip_smoke.py k1 parity       # only the named phases, in that order
                                           # (probes, parity, k1, pfp_big,
-                                          # build_small, parallel_dp,
-                                          # parallel_sharded, parallel_stream)
+                                          # build_small, nodense_chr,
+                                          # parallel_dp, parallel_sharded,
+                                          # parallel_stream)
 
-Builds the LF kernel K1 (csrc/lf.cu), the gather probes P1-P3
+Builds the LF kernels (csrc/lf.cu: K1 and the tables kernel of an index
+without fused rows), the gather probes P1-P3
 (csrc/gather_probe.cu) and the phi walk of rbt_align -s (csrc/phi_walk.cu),
 each with nvcc for sm_90a, and the host library (SA-IS, FASTQ reader, BWT
 merge, PFP and the CPU engine, g++), all four side by side, then starts
@@ -52,7 +54,12 @@ beside the phases before it, and runs:
      walk counted) to the same positions; then K1's toehold launch against
      its plain twin (the torch loop of the per-step toehold) and the full-SA
      index's toeholds on the raw tables of the same BWT (no kval), over
-     tk1 and over ltk, on the batch and at the edges of k1_edges;
+     tk1 and over ltk, on the batch and at the edges of k1_edges; then the
+     tables kernel over the same BWT's tables without fused rows in each
+     rank policy (run-space with ltk, dense bwt4/occ_blk with ltk, occ1
+     with tk1): its count search, with the ftab and without, against its
+     plain twin and K1's ranges, and its toehold search against its plain
+     twin and the full-SA toeholds, on the batch and at every edge;
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
@@ -91,11 +98,16 @@ beside the phases before it, and runs:
      stage with the torch loop and with the kernel in turns, and on one
      batch its call ms beside the twin's, its time alone, work and bound;
   9c. nodense_chr: the chr index without fblock, kval, phi1 and ma_start1
-     (what --no-dense writes): count (the run-space torch route, no K1
-     launch), -s (the per-step toehold as a torch loop, the walk kernel
-     over the predecessor search) and -m (ma_row binary search) print the
-     same lines; reads/s beside the dense index's; -s stages; the walk
-     kernel on the -s batches' lanes against the torch walk (walk_times);
+     (what --no-dense writes): count and -m (the tables kernel's run-space
+     count search once a batch; -m then the ma_row binary search) and -s
+     (its toehold search once a batch, the walk kernel over the
+     predecessor search) print the same lines; reads/s beside the dense
+     index's; -s stages; the count search on the count batches and the
+     toehold search on the -s batches against their plain twins (the torch
+     loops the parent ran on the card), the stage before and after in
+     turns, one batch timed per call and alone, its work, bound and share
+     (tables_times); the walk kernel on the -s batches' lanes against the
+     torch walk (walk_times);
  10. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
      steps, against its plain twin, and the walk kernel (`locate`) on the
      same lanes against the torch walk; then the walk kernel on the -s
@@ -159,7 +171,10 @@ beside the phases before it, and runs:
      codes, bwt4/occ_blk), each index's tables held against the dense one's
      and its rbt_align count, -s and -m lines against the dense index's (the
      13-code index against its --device cpu run and the scalar oracle);
-     rbt_markers -f and rbt_locs on the raw index; the occ1 route against K1;
+     rbt_markers -f and rbt_locs on the raw index; the routes of the tables
+     kernel (--no-dense: run-space, the 13-code index: dense, the raw index
+     without its fused rows: occ1, count and toehold against K1's); the
+     dense and occ1 searches timed against their twins on one batch;
      then the pangenome builders' routes: the panel through the merge
      (merge_construct, from_codes, attach_locate, attach_markers) and through
      PFP (pfp_construct, assemble_bigindex), each a BigIndex directory whose
@@ -197,9 +212,11 @@ nodense_chr and build_small count every route of the search (K1, K1 over
 the two-level rows, the record launch, the toehold launch
 (cuda_lf.LAUNCHES_TOE: rbt_align -s on an index without kval but with
 fused rows, raw_chr and the small raw and serialized indexes), and the
-torch loop of an index without fused rows, cuda_lf.LAUNCHES_TORCH: count,
--m and the -s search of nodense_chr), set to 0 before each run, and
-require each.  The phi walk's routes are counted the same way
+tables kernel over an index without fused rows by rank policy and
+instance (cuda_lf.LAUNCHES_TAB and LAUNCHES_TAB_TOE: count, -m and the -s
+search of nodense_chr and of the small --no-dense, 13-code and
+raw-without-rows indexes; no wrapper runs a torch search on the card), set
+to 0 before each run, and require each.  The phi walk's routes are counted the same way
 (cuda_phi.LAUNCHES, the walk kernel, and cuda_phi.LAUNCHES_TORCH, the torch
 walk over a BigIndex's breakpoint table phi_at): rbt_align -s launches the
 kernel once a batch and walks nothing in torch on every index the whole
@@ -942,6 +959,7 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     from rowbowt_tpu_torch.construct.build import build_index
     from rowbowt_tpu_torch.engine.count import find_ranges
     from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
     from rowbowt_tpu_torch.ops import cuda_lf
 
     t0 = time.perf_counter()
@@ -1017,14 +1035,23 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     check(launches3 == 3 * (1 + len(edges)), f"expected {3 * (1 + len(edges))} record "
           f"launches, counted {launches3}")
     walk = walk_parity(device, idx, codes, q, ln)
-    toe = toehold_parity(device, idx, codes, q, ln, edges)
+    # the full-SA index's toeholds and the raw tables, shared by the toehold
+    # launch's and the tables kernel's checks
+    cases = [("batch", q, ln)] + edges
+    tx = TorchIndex.from_index(idx, device)
+    kval = [find_ranges_w_toehold(tx, qe, le) for _, qe, le in cases]
+    del tx
+    raw = {route: raw_tables(idx, codes, route) for route in ("tk1", "ltk")}
+    toe = toehold_parity(device, raw, cases, kval)
+    tab = tables_parity(device, idx, codes, raw["tk1"], cases, single, kval)
     emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
          nonempty=results, edges=[label for label, _, _ in edges],
          edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err,
          fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2,
-         rec_launches=launches3, rec_max_abs_err=err3, walk=walk, toehold=toe)
+         rec_launches=launches3, rec_max_abs_err=err3, walk=walk, toehold=toe, tables=tab)
     return {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3,
             "lf_toehold": toe["max_abs_err"],
+            **{f"lf_tables_{name}": e for name, e in tab["errs"].items()},
             "phi_walk_phi1": walk["max_abs_err"]["phi1"],
             "phi_walk_rows": walk["max_abs_err"]["phi_rows"],
             "phi_walk_pred": walk["max_abs_err"]["pred"]}
@@ -1045,30 +1072,25 @@ def raw_tables(idx, codes, route: str):
     return dataclasses.replace(idx, kval=None, occ1=occ1, tk1=tk1)
 
 
-def toehold_parity(device, idx, codes, q, ln, edges) -> dict:
+def toehold_parity(device, raw: dict, cases: list, kval: list) -> dict:
     """K1's toehold launch (cuda_lf.find_ranges_toehold) against its plain
     twin (the torch loop of lf_step_w_loc_occ1 or lf_step_w_loc on the card)
-    on the small panel's raw tables (raw_tables), over tk1 and over ltk, on
-    the edge batch and at every k1_edges edge (64-symbol rows), and on the
-    batch over the 96 B rows: lo, hi and k equal, and equal to the full-SA
-    index's toeholds (kval).  One launch a call; no torch loop counted."""
+    on the small panel's raw tables ({route: raw_tables}), over tk1 and over
+    ltk, on the edge batch and at every k1_edges edge (`cases`, 64-symbol
+    rows), and on the batch over the 96 B rows: lo, hi and k equal, and
+    equal to the full-SA index's toeholds (`kval`, per case).  One launch a
+    call."""
     import torch
 
     from rowbowt_tpu_torch.engine.device import TorchIndex
-    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
     from rowbowt_tpu_torch.ops import cuda_lf
 
     t0 = time.perf_counter()
-    dense = TorchIndex.from_index(idx, device)
-    cases = [("batch", q, ln)] + edges
-    kval = [find_ranges_w_toehold(dense, qe, le) for _, qe, le in cases]
-    del dense
     errs, calls, nonempty = {}, 0, {}
     reset_counts()
     for route in ("tk1", "ltk"):
-        raw = raw_tables(idx, codes, route)
         for fb64 in (True, False):
-            tx = TorchIndex.from_index(raw, device, fb64=fb64)
+            tx = TorchIndex.from_index(raw[route], device, fb64=fb64)
             check(cuda_lf.toehold_route(tx) == route and "kval" not in tx.arrays,
                   f"the raw tables' toehold route: {cuda_lf.toehold_route(tx)}")
             name = f"{route},{'fblock64' if fb64 else 'fblock'}"
@@ -1089,6 +1111,74 @@ def toehold_parity(device, idx, codes, q, ln, edges) -> dict:
           f"toehold parity routes: {counts} for {calls} calls")
     return dict(max_abs_err=max(errs.values()), errs=errs, launches=counts["toe"],
                 nonempty=nonempty, wall_s=time.perf_counter() - t0)
+
+
+def table_indexes(idx, codes, raw_tk1) -> dict:
+    """{policy: idx with the tables of an index without fused rows}: "runs"
+    (a --no-dense build: run-space tables and ltk), "dense" (bwt4 and
+    occ_blk, which an alphabet of 9-16 codes takes; ltk) and "occ1" (a raw
+    build's occ1 and tk1, `raw_tk1` (raw_tables), without its fused rows);
+    none with kval or phi1."""
+    from rowbowt_tpu_torch.construct.build import build_dense_tables
+
+    bare = dict(fblock=None, kval=None, phi1=None)
+    bwt4, occ_blk = build_dense_tables(codes.astype(np.int64), idx.A)
+    return {"runs": dataclasses.replace(idx, occ1=None, tk1=None, **bare),
+            "dense": dataclasses.replace(idx, occ1=None, tk1=None, bwt4=bwt4, occ_blk=occ_blk,
+                                         **bare),
+            "occ1": dataclasses.replace(raw_tk1, **bare)}
+
+
+def tables_parity(device, idx, codes, raw_tk1, cases, single, kval) -> dict:
+    """The tables kernel (cuda_lf.launch_tables, through find_ranges and
+    find_ranges_toehold) on the small panel's tables of each rank policy
+    (table_indexes), count with the ftab and without and toehold, on the
+    edge batch and at every k1_edges edge: equal to its plain twin, the
+    count to K1's ranges on the fused rows (`single`, per case) and the
+    toehold to the full-SA index's (`kval`, per case).  The unstaged edge
+    (L = 3,072), whose code path no policy changes, runs on the run-space
+    tables only.  One launch a call, counted in its policy's instance; no
+    other route.  Returns max |err| per instance ("<policy>" the count,
+    "<policy>_toehold")."""
+    import torch
+
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    t0 = time.perf_counter()
+    errs, nonempty, calls = {}, {}, {}
+    reset_counts()
+    for policy, tab in table_indexes(idx, codes, raw_tk1).items():
+        tx = TorchIndex.from_index(tab, device)
+        check(cuda_lf.table_policy(tx) == policy and tx.has_ftab and "kval" not in tx.arrays,
+              f"the {policy} tables: policy {cuda_lf.table_policy(tx)}")
+        errs[policy] = errs[f"{policy}_toehold"] = 0
+        ran = [(c, one, k) for c, one, k in zip(cases, single, kval)
+               if policy == "runs" or c[0] != "L=3072 unstaged"]
+        for (label, qe, le), one, want_k in ran:
+            for use_ftab in (True, False):
+                got = cuda_lf.find_ranges(tx, qe, le, use_ftab=use_ftab)
+                want = cuda_lf.find_ranges_plain(tx, qe, le, use_ftab=use_ftab)
+                torch.cuda.synchronize()
+                e = max(max_abs_err(got, want), max_abs_err(got, one))
+                check(e == 0, f"the {policy} tables kernel != its plain twin or K1 at {label} "
+                      f"(ftab={use_ftab}): max |err| {e}")
+                errs[policy] = max(errs[policy], e)
+            got = cuda_lf.find_ranges_toehold(tx, qe, le)
+            want = cuda_lf.find_ranges_toehold_plain(tx, qe, le)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(got, want), max_abs_err(got, want_k))
+            check(e == 0, f"the {policy} tables kernel's toehold != its plain twin or the kval "
+                  f"toeholds at {label}: max |err| {e}")
+            errs[f"{policy}_toehold"] = max(errs[f"{policy}_toehold"], e)
+            nonempty[f"{policy},{label}"] = int((got[1] >= got[0]).sum().item())
+        calls[f"tab_{policy}"] = 2 * len(ran)
+        calls[f"tab_toe_{policy}"] = len(ran)
+        del tx
+    check(route_counts() == launch_counts(**calls),
+          f"tables parity routes: {route_counts()} for {calls}")
+    return dict(max_abs_err=max(errs.values()), errs=errs, launches=calls, nonempty=nonempty,
+                wall_s=time.perf_counter() - t0)
 
 
 WALK_PARITY_MAX = 4_096  # the uncapped walk's lanes: ranges of at most this many hits
@@ -2996,12 +3086,15 @@ def route_counts() -> dict:
     """The launch counts of the count search's routes since the last reset:
     K1 over the single-level rows, over the two-level rows, its record
     launch (a big index's toehold search), its toehold launch (the per-step
-    toehold of an index without kval), and the torch loop an index without
-    fused-block rows takes on the card (count, -m and the -s search)."""
+    toehold of an index without kval), and the tables kernel of an index
+    without fused-block rows by rank policy, its count search (tab_<policy>:
+    count and -m) and its toehold search (tab_toe_<policy>: -s)."""
     from rowbowt_tpu_torch.ops import cuda_lf
 
     return dict(k1=cuda_lf.LAUNCHES, k1_fb2=cuda_lf.LAUNCHES_FB2, k1_rec=cuda_lf.LAUNCHES_REC,
-                toe=cuda_lf.LAUNCHES_TOE, torch=cuda_lf.LAUNCHES_TORCH)
+                toe=cuda_lf.LAUNCHES_TOE,
+                **{f"tab_{p}": v for p, v in cuda_lf.LAUNCHES_TAB.items()},
+                **{f"tab_toe_{p}": v for p, v in cuda_lf.LAUNCHES_TAB_TOE.items()})
 
 
 def walk_counts() -> dict:
@@ -3017,8 +3110,10 @@ def reset_counts() -> None:
     the runs of the torch record loop."""
     from rowbowt_tpu_torch.ops import cuda_lf, cuda_phi
 
-    cuda_lf.LAUNCHES = cuda_lf.LAUNCHES_FB2 = cuda_lf.LAUNCHES_TORCH = 0
+    cuda_lf.LAUNCHES = cuda_lf.LAUNCHES_FB2 = 0
     cuda_lf.LAUNCHES_REC = cuda_lf.RECORDS_PLAIN = cuda_lf.LAUNCHES_TOE = 0
+    for counts in (cuda_lf.LAUNCHES_TAB, cuda_lf.LAUNCHES_TAB_TOE):
+        counts.update(dict.fromkeys(counts, 0))
     cuda_phi.LAUNCHES = cuda_phi.LAUNCHES_TORCH = 0
 
 
@@ -3039,7 +3134,7 @@ def align_runs(device, path: str, runs: list, out_path: str) -> dict:
 
 def launch_counts(**kw) -> dict:
     """route_counts()'s dict with the given counts and every other 0."""
-    return dict(dict(k1=0, k1_fb2=0, k1_rec=0, toe=0, torch=0), **kw)
+    return dict(dict.fromkeys(route_counts(), 0), **kw)
 
 
 L1_LEVELS = 16  # binary-search levels counted free in a bound: 2^16 int32 entries, in L1
@@ -3262,46 +3357,261 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     return res
 
 
+def tables_step_us(tx, policy: str, lat: dict) -> float:
+    """A lower bound on the latency of one step of the tables kernel: for
+    the run-space policy its search's levels below the first L1_LEVELS at
+    the L2's dependent-load latency (P3 over the probe tool's 4 MB table),
+    then the occ_flat and run_head loads at a random cycle's latency (those
+    tables are R-sized, beyond the L2 at chr); for the dense and occ1
+    policies one load at the L2's latency."""
+    if policy == "runs":
+        return (max(search_levels(tx.R) - L1_LEVELS, 0) * lat["tool_table"]
+                + lat["random_cycle"])
+    return lat["tool_table"]
+
+
+def tables_work(tx, q, ln, use_ftab: bool, toehold: bool) -> dict:
+    """What one batch asks of the tables kernel, by a replay of the plain
+    loop (ops/cuda_lf.lf_start, then the steps of ops/rank.py): the codes
+    (min(length, L) a lane), active and ranked lane-steps, the longest
+    lane's steps, the ftab entries read, and the distinct table entries the
+    ranks need and their bytes: run_start and run_head at the run of lo and
+    of hi + 1 (and, for the toehold, of hi) and occ_flat at (c, run) for the
+    run-space policy; occ_blk_flat at (c, block) and the 64 B blocks of
+    bwt4 for the dense one; occ1 at (c, lo), (c, hi + 1) (and (c, hi)) for
+    occ1.  For the toehold also the lanes that resolve from a table and
+    the entries they read (toehold_work's count, over run_head)."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import rank as R
+
+    B, L = q.shape
+    n, dt = tx.n, tx.idx_dtype
+    policy = cuda_lf.table_policy(tx)
+    arr = tx.arrays
+    if toehold:
+        lo = torch.zeros(B, dtype=dt, device=q.device)
+        hi = torch.full((B,), n - 1, dtype=dt, device=q.device)
+        startj = torch.zeros_like(lo)
+    else:
+        lo, hi, startj = cuda_lf.lf_start(tx, q, ln, use_ftab)
+    k = tx.ftab_k if use_ftab and not toehold and tx.has_ftab and L >= tx.ftab_k > 0 else 0
+    ftab_entries = 0
+    if k:
+        kc = R.kmer_codes(tx, q[:, L - k:])
+        ftab_entries = int(torch.unique(kc[(kc >= 0) & (ln >= k)]).numel())
+    lengths = ln.to(dt)
+    done = torch.zeros(B, dtype=torch.bool, device=q.device)
+    steps = torch.zeros(B, dtype=torch.int64, device=q.device)
+    tc = torch.full((B,), -1, dtype=torch.int64, device=q.device)
+    thi = torch.zeros(B, dtype=torch.int64, device=q.device)
+    ranked = 0
+    rows, occ = [], []
+    step = R.lf_step_auto(tx)
+    for j in range(L):
+        c = q[:, L - 1 - j].to(dt)
+        active = (~done) & (j >= startj) & (j < lengths)
+        steps += active
+        rk = active & (c >= 0) & (c < tx.A)
+        ranked += int(rk.sum())
+        c64 = c.long()
+        at = [lo.long(), (hi + 1).long()] + ([hi.long()] if toehold else [])
+        for i in at:
+            use = rk & (i < n) if policy != "occ1" else rk
+            if policy == "runs":
+                r = R.run_of(tx, i[use].to(dt)).long()
+                rows.append(r)
+                occ.append(c64[use] * tx.R + r)
+            elif policy == "dense":
+                rows.append(i[use] >> 7)
+                occ.append(c64[use] * (arr["bwt4"].numel() // 16) + (i[use] >> 7))
+            else:
+                occ.append(c64[use] * (n + 1) + i[use])
+        nlo, nhi = step(tx, lo, hi, c)
+        if toehold:
+            # BWT[hi] == c, from the policy's own tables
+            if policy == "runs":
+                trivial = arr["run_head"][R.run_of(tx, hi).long()] == c
+            elif policy == "dense":
+                w = arr["bwt4"][(hi >> 3).long()].long() & 0xFFFFFFFF
+                trivial = ((w >> (4 * (hi & 7).long())) & 15) == c64
+            else:
+                row = c64.clamp(min=0) * (n + 1) + hi.long()
+                trivial = arr["occ1_flat"][row + 1] - arr["occ1_flat"][row] == 1
+            nontrivial = active & (nlo <= nhi) & ~trivial
+            tc = torch.where(nontrivial, c64, tc)
+            thi = torch.where(nontrivial, hi.long(), thi)
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+        done = done | (active & (nlo > nhi))
+    occ_tab = arr[{"runs": "occ_flat", "dense": "occ_blk_flat", "occ1": "occ1_flat"}[policy]]
+    distinct_occ = int(torch.unique(torch.cat(occ)).numel()) if occ else 0
+    distinct_rows = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    row_bytes = (arr["run_start"].element_size() + arr["run_head"].element_size()
+                 if policy == "runs" else 64)
+    table_bytes = distinct_occ * occ_tab.element_size() + distinct_rows * row_bytes
+    out = dict(policy=policy, codes=int(lengths.clamp(max=L).sum()),
+               lane_steps=int(steps.sum()), ranked_steps=ranked,
+               longest_lane_steps=int(steps.max()) if B else 0, ftab_entries=ftab_entries,
+               distinct_occ=distinct_occ, distinct_rows=distinct_rows, table_bytes=table_bytes)
+    if toehold:
+        res = (hi >= lo) & (tc >= 0)
+        tcr, thr = tc[res], thi[res]
+        if cuda_lf.toehold_route(tx) == "tk1":
+            entries = torch.unique(tcr * n + thr).numel()
+            nbytes = entries * arr["tk1_flat"].element_size()
+        else:
+            rs = arr["run_start"]
+            r = torch.searchsorted(rs, thr.to(rs.dtype), right=True).long() - 1
+            entries = torch.unique(tcr * tx.R + r).numel()
+            nbytes = (entries * arr["ltk"].element_size()
+                      + torch.unique(r).numel() * rs.element_size())
+        out.update(resolved_lanes=int(res.sum()), resolve_entries=int(entries),
+                   resolve_bytes=int(nbytes))
+    return out
+
+
+def tables_bound(work: dict, B: int, tx, toehold: bool, lat: dict | None) -> dict:
+    """The tables kernel's bound on one batch from its work: bytes (each
+    input byte read once: the reads' int32 codes, the lengths, F, the
+    distinct ftab entries and table entries, the resolve's entries; each
+    output written once: lo, hi and for the toehold k) over the card's
+    memory rate; operations (a search of search_levels(R) levels, 4
+    operations each, for each run-space rank and resolve; the dense
+    policy's 16-word nibble count, RANK_OPS; 8 for a step's own
+    arithmetic) over its int32 rate; with `lat` (phase k1's latencies) the
+    longest lane's steps times tables_step_us, plus the resolve's search and
+    load for the toehold.  bound_ms is the larger of the byte and operation
+    times; bound_us the larger of the byte and latency times."""
+    lane = tx.arrays["F"].element_size()
+    outs = 3 if toehold else 2
+    nbytes = (work["codes"] * 4 + B * 4 + (tx.A + 1) * lane + work["ftab_entries"] * 2 * lane
+              + work["table_bytes"] + work.get("resolve_bytes", 0) + outs * B * lane)
+    levels = search_levels(tx.R)
+    per_rank = {"runs": 4 * levels + 4, "dense": RANK_OPS, "occ1": 1}[work["policy"]]
+    ops = (2 + toehold) * per_rank * work["ranked_steps"] + 8 * work["lane_steps"]
+    if toehold:
+        ops += work["resolved_lanes"] * (4 * levels + 4)
+    byte_us = nbytes / HBM_BYTES_PER_S * 1e6
+    ops_us = ops / INT_OPS_PER_S * 1e6
+    b = dict(bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
+             bound_ms=max(byte_us, ops_us) / 1e3,
+             bound_by="bytes" if byte_us >= ops_us else "operations")
+    if lat is not None:
+        step_us = tables_step_us(tx, work["policy"], lat)
+        latency = work["longest_lane_steps"] * step_us
+        if toehold:
+            latency += lat["random_cycle"] + max(levels - L1_LEVELS, 0) * lat["tool_table"]
+        b.update(step_us=step_us, latency_bound_us=latency, bound_us=max(byte_us, latency),
+                 bound_us_by="bytes" if byte_us >= latency else "latency")
+    return b
+
+
+def tables_times(device, tx, batches: list, toehold: bool, lat: dict | None,
+                 stage: bool = True) -> dict:
+    """The tables kernel over tx's policy on the batches [(q, ln)] (count
+    without the ftab start, as rbt_align loads an index, or the toehold):
+    equal to its plain twin on every batch (max |err| 0), one launch a
+    batch; with `stage`, the search over all batches with the plain twin
+    (the torch loop the parent ran on the card) and with the kernel, in
+    turns; on the first batch the call ms in turns with the twin, the
+    launch alone (CUDA events just around it), one profiler trace, the
+    work (tables_work), the bound (tables_bound) and its share."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    policy = cuda_lf.table_policy(tx)
+    if toehold:
+        kern = lambda q, ln: cuda_lf.find_ranges_toehold(tx, q, ln)  # noqa: E731
+        plain = lambda q, ln: cuda_lf.find_ranges_toehold_plain(tx, q, ln)  # noqa: E731
+    else:
+        kern = lambda q, ln: cuda_lf.find_ranges(tx, q, ln, use_ftab=False)  # noqa: E731
+        plain = lambda q, ln: cuda_lf.find_ranges_plain(tx, q, ln, use_ftab=False)  # noqa: E731
+    counts = cuda_lf.LAUNCHES_TAB_TOE if toehold else cuda_lf.LAUNCHES_TAB
+    launches0, err = counts[policy], 0
+    for q, ln in batches:
+        got, want = kern(q, ln), plain(q, ln)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+    launches = counts[policy] - launches0
+    check(err == 0, f"the {policy} tables kernel (toehold={toehold}) != its plain twin: "
+          f"max |err| {err}")
+    check(launches == len(batches), f"{launches} {policy} launches for {len(batches)} batches")
+    out = dict(policy=policy, toehold=toehold, batches=len(batches), max_abs_err=err,
+               launches=launches)
+    if stage:
+        out["stage_before_s"], out["stage_after_s"] = stage_turns(
+            lambda: [plain(q, ln) for q, ln in batches],
+            lambda: [kern(q, ln) for q, ln in batches])
+    q, ln = batches[0]
+    ln = ln.to(torch.int32)
+    B, L = q.shape
+    out["call_ms"], out["plain_ms"] = in_turns([lambda: plain(q, ln)], [lambda: kern(q, ln)],
+                                               2, 20)
+    launch = lambda: cuda_lf.launch_tables(tx, q, ln, use_ftab=False, toehold=toehold)  # noqa
+    out["device_us"] = kernel_event_us([around(launch)], 20)
+    out["profiled_us"] = profiled_kernel_us([launch], 5, ("lf_tables_kernel",))[
+        "lf_tables_kernel"]
+    out["work"] = tables_work(tx, q, ln, use_ftab=False, toehold=toehold)
+    b = tables_bound(out["work"], B, tx, toehold, lat)
+    out.update(lanes=B, L=L, bound=b, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+               share=b["bound_us"] / out["device_us"] if "bound_us" in b else None)
+    return out
+
+
 def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
                       markers: dict, k1: dict) -> dict:
     """Phase nodense_chr: the chr index without fblock, kval, phi1 and
     ma_start1 (what `rbt_build_torch --no-dense` writes; phase build_small
-    holds the two equal on the small panel).  rbt_align count takes the
-    run-space torch route (no K1 launch: required), -s the per-step toehold
-    as the same torch loop and the walk kernel over the predecessor search
-    (one launch a batch, no torch walk: required), -m the ma_row binary
-    search; each prints the dense index's lines.  Reads/s beside the dense
-    index's; the stages of -s; the walk kernel over the predecessor search
-    on the -s batches' lanes against the torch walk (walk_times)."""
+    holds the two equal on the small panel).  rbt_align count and -m launch
+    the tables kernel's run-space count search once a batch, -s its toehold
+    search once a batch and the walk kernel over the predecessor search
+    once a batch (no other route: required); each prints the dense index's
+    lines.  Reads/s beside the dense index's; the stages of -s; the tables
+    kernel's count search on the count batches and its toehold search on
+    the -s batches against their plain twins (the torch loops of lf_step
+    and lf_step_w_loc that the parent ran on the card), each stage before
+    and after in turns and its first batch timed and bounded
+    (tables_times); the walk kernel over the predecessor search on the -s
+    batches' lanes against the torch walk (walk_times)."""
     import torch
+
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
 
     idx, paths = chr_["idx"], chr_["paths"]
     out_dir = os.path.join(WORK, "nodense_idx")
     t = time.perf_counter()
     dataclasses.replace(idx, fblock=None, kval=None, phi1=None, ma_start1=None).save(out_dir)
     save_s = time.perf_counter() - t
-    n_loc = -(-N_LOCATE // BATCH)
+    n_count, n_loc = N_READS // BATCH, -(-N_LOCATE // BATCH)
     runs = align_runs(device, out_dir, [
         ("count", paths["reads.fq"], [], "".join(count["lines"]), N_READS),
         ("-s", paths["locate.fq"], ["-s"], loc["out_text"], N_LOCATE),
         ("-m", paths["locate.fq"], ["-m"], markers["out_text"], N_LOCATE)], paths["out.txt"])
-    check(runs["count"]["launches"] == launch_counts(torch=N_READS // BATCH)
-          and runs["-m"]["launches"] == launch_counts(torch=n_loc)
-          and runs["-s"]["launches"] == launch_counts(torch=n_loc),
+    check(runs["count"]["launches"] == launch_counts(tab_runs=n_count)
+          and runs["-m"]["launches"] == launch_counts(tab_runs=n_loc)
+          and runs["-s"]["launches"] == launch_counts(tab_toe_runs=n_loc),
           f"no-dense chr routes: {({k: v['launches'] for k, v in runs.items()})}")
     # no phi1: the walk kernel over the predecessor search
     check(runs["-s"]["walks"] == dict(walk=n_loc, walk_torch=0),
           f"no-dense chr -s walks: {runs['-s']['walks']}")
     runs["-s"]["stages"] = align_stages(device, lambda m: load_dense(device, out_dir, m),
                                         paths["locate.fq"], "-s", loc["out_text"])
-    _, tx = load_dense(device, out_dir, "-s")
-    resident = {k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()}
     lat = k1["us_per_dependent_step"]
+    tables = {}
+    host, tx = load_dense(device, out_dir, "-s")  # the run-space tables and the toehold's
+    for name, fastq in (("count", paths["reads.fq"]), ("toehold", paths["locate.fq"])):
+        batches = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
+                   for _, qc, lens in iter_query_batches(host, fastq, BATCH)]
+        tables[name] = tables_times(device, tx, batches, name == "toehold", lat)
+    resident = {k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()}
     walk = walk_times(device, tx, loc["ranges"], "pred", pred_step_us(tx.R, lat))
-    del tx
+    del tx, batches
     torch.cuda.empty_cache()
-    res = dict(n=idx.n, save_s=save_s, index_gb=dir_gb(out_dir), runs=runs,
-               resident_mb_locate=resident, walk=walk,
+    res = dict(n=idx.n, R=idx.R, save_s=save_s, index_gb=dir_gb(out_dir), runs=runs,
+               resident_mb_locate=resident, tables=tables, walk=walk,
                dense_reads_per_s={"count": count["cli_reads_per_s"],
                                   "-s": loc["cli_reads_per_s"],
                                   "-m": markers["cli_reads_per_s"]},
@@ -3406,7 +3716,7 @@ def small_big_dirs(cfg, alpha, doc_names, d: str) -> dict:
     return out
 
 
-def phase_build_small(device, card: dict) -> dict:
+def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
     """Phase build_small: the small panel (n ~ 8.0 M) through rbt_build_torch
     in every mode: native with -s -m -l -f and --emit-ref (the dense index),
     native -x, --no-dense (equal, array for array, to the dense index without
@@ -3417,10 +3727,18 @@ def phase_build_small(device, card: dict) -> dict:
     rbt_align count, -s and -m on each print the dense index's lines (-x:
     count and -m), the index of 13 codes its --device cpu run's and the
     scalar oracle's; rbt_markers -f and rbt_locs on the raw index print the
-    dense index's.  The occ1 route (the raw index without its fused rows) is
-    held against K1's ranges.  Builds' seconds, reads/s and routes."""
+    dense index's.  Without fused rows the search is the tables kernel:
+    --no-dense launches its run-space count search once for count and -m
+    and its toehold search once for -s, the index of 13 codes its dense
+    count search once for each, and the raw index without its fused rows
+    its occ1 count and toehold searches, held against K1's count and
+    toehold launches on the same index with them.  The dense and occ1
+    searches are timed against their plain twins on their batch
+    (tables_times; their latency bound with `lat`, phase k1's latencies,
+    where given).  Builds' seconds, reads/s and routes."""
     import torch
 
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
     from rowbowt_tpu_torch.construct import build_panel
     from rowbowt_tpu_torch.construct.rawio import write_raw
     from rowbowt_tpu_torch.construct.sdslwrite import save_reference_format, write_mab
@@ -3527,8 +3845,8 @@ def phase_build_small(device, card: dict) -> dict:
                                             for tag, f in modes if not (x == "x" and f == ["-s"])],
                              out_txt)
     k1 = launch_counts(k1=1)
-    torch_route = launch_counts(torch=1)
     toe = launch_counts(toe=1)
+    tab_runs, tab_toe_runs = launch_counts(tab_runs=1), launch_counts(tab_toe_runs=1)
     # the pangenome builders' routes: the merge's and PFP's BigIndex directories
     t = time.perf_counter()
     big_dirs = small_big_dirs(SMALL, dense.alpha, dense.doc_names, d)
@@ -3558,7 +3876,9 @@ def phase_build_small(device, card: dict) -> dict:
           "dense index's byte for byte")
     check(all(runs[x]["count"]["launches"] == k1 and runs[x]["-m"]["launches"] == k1
               for x in ("dense", "x", "raw_idx", "ser", "ftab_only"))
-          and all(runs["nodense"][t]["launches"] == torch_route for t in ("count", "-m", "-s"))
+          and runs["nodense"]["count"]["launches"] == tab_runs
+          and runs["nodense"]["-m"]["launches"] == tab_runs
+          and runs["nodense"]["-s"]["launches"] == tab_toe_runs
           and all(runs[x]["-s"]["launches"] == toe for x in ("raw_idx", "ser"))
           and runs["dense"]["-s"]["launches"] == k1,
           f"small routes: {({x: {t: v['launches'] for t, v in r.items()} for x, r in runs.items()})}")
@@ -3583,7 +3903,8 @@ def phase_build_small(device, card: dict) -> dict:
         check(got_lines[:per_read * N_SMALL_CPU] == cpu_lines.splitlines(keepends=True),
               f"the 13-code index: rbt_align {tag} on the card != --device cpu")
         iu_runs[tag]["cpu_query_s"] = cpu["cli_query_s"]
-    check(iu_runs["count"]["launches"] == torch_route, "the 13-code count did not take torch")
+    check(all(iu_runs[tag]["launches"] == launch_counts(tab_dense=1) for tag, _ in modes),
+          f"the 13-code index's routes: {({t: v['launches'] for t, v in iu_runs.items()})}")
     t = time.perf_counter()
     oracle = oracle_align_lines(iu, reads_iu[:N_ORACLE])
     oracle_s = time.perf_counter() - t
@@ -3591,7 +3912,8 @@ def phase_build_small(device, card: dict) -> dict:
         check("".join(iu_lines[tag].splitlines(keepends=True)[:per_read * N_ORACLE])
               == oracle[tag], f"the 13-code index: rbt_align {tag} != the scalar oracle")
 
-    # the occ1 route on the card: the raw index without its fused rows
+    # the occ1 route on the card: the raw index without its fused rows,
+    # count (from its ftab) and toehold against K1's on the same index
     tx = TorchIndex.from_index(raw, device)
     del tx.arrays["fblock64"]
     qc = torch.from_numpy(np.stack([raw.alpha.encode(r).astype(np.int32)
@@ -3599,12 +3921,24 @@ def phase_build_small(device, card: dict) -> dict:
     ln = torch.full((qc.shape[0],), READ_LEN, dtype=torch.int32, device=device)
     reset_counts()
     occ1_ranges = find_ranges(tx, qc, ln)
+    occ1_toe = cuda_lf.find_ranges_toehold(tx, qc, ln)
     occ1_counts = route_counts()
-    k1_ranges = find_ranges(TorchIndex.from_index(raw, device), qc, ln)
+    with_rows = TorchIndex.from_index(raw, device)
+    k1_ranges, k1_toe = find_ranges(with_rows, qc, ln), cuda_lf.find_ranges_toehold(with_rows,
+                                                                                    qc, ln)
     torch.cuda.synchronize()
-    check(occ1_counts == torch_route and max_abs_err(occ1_ranges, k1_ranges) == 0,
+    check(occ1_counts == launch_counts(tab_occ1=1, tab_toe_occ1=1)
+          and max_abs_err(occ1_ranges, k1_ranges) == 0 and max_abs_err(occ1_toe, k1_toe) == 0,
           f"the occ1 route != K1 ({occ1_counts})")
-    del tx
+    del with_rows
+    # the dense and occ1 searches timed against their twins on one batch
+    host_iu, tx_iu = load_dense(device, p["iupac"], "")
+    iu_batch = [(torch.from_numpy(qc_).to(device), torch.from_numpy(lens).to(device))
+                for _, qc_, lens in iter_query_batches(host_iu, fq["iupac"], BATCH)]
+    tables = {"dense": tables_times(device, tx_iu, iu_batch, False, lat, stage=False),
+              "occ1": tables_times(device, tx, [(qc, ln)], False, lat, stage=False),
+              "occ1_toehold": tables_times(device, tx, [(qc, ln)], True, lat, stage=False)}
+    del tx, tx_iu, iu_batch
 
     # rbt_markers -f and rbt_locs on the raw index against the dense index
     shutil.copy(p["dense"] + ".midx.npz", p["raw_idx"] + ".midx.npz")
@@ -3623,7 +3957,7 @@ def phase_build_small(device, card: dict) -> dict:
     res = dict(n=dense.n, R=dense.R, A_iupac=iu.A, builds=builds, builders_s=builders_s,
                sdsl_write_s=sdsl_write_s,
                reads=N_SMALL_READS, runs=runs, iupac_runs=iu_runs, oracle_reads=N_ORACLE,
-               oracle_s=oracle_s, occ1_route=occ1_counts, seeding=seeding,
+               oracle_s=oracle_s, occ1_route=occ1_counts, tables=tables, seeding=seeding,
                setup_s=time.perf_counter() - t0, card=card["nvidia_smi"])
     emit("build_small", **res)
     shutil.rmtree(d, ignore_errors=True)
@@ -3633,9 +3967,9 @@ def phase_build_small(device, card: dict) -> dict:
 # ---------------- the multi-rank phases: the mesh engines on the card ----------------
 
 PAR_RANKS = 4  # ranks of the multi-rank phases: processes on cuda:0 over gloo
-N_PAR_COUNT = 65_536  # reads of the sharded count runs: main's first batch
-N_PAR_LOCATE = 16_384  # reads of the sharded toehold + locate and window-marker runs
-N_PAR_GREEDY = 8_192  # reads of the sharded greedy runs: 16,384 lanes with both strands
+N_PAR_COUNT = 16_384  # reads of the sharded count runs: the first of main's first batch
+N_PAR_LOCATE = 4_096  # reads of the sharded toehold + locate and window-marker runs
+N_PAR_GREEDY = 2_048  # reads of the sharded greedy runs: 4,096 lanes with both strands
 PAR_MAX_HITS = 8
 PAR_MAX_K = 32  # window-marker buffer: sharded_stream's
 PAR_MAX_RANGE = 1000
@@ -4197,7 +4531,7 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     return res
 
 
-SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small", "parallel_dp",
+SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small", "nodense_chr", "parallel_dp",
               "parallel_sharded", "parallel_stream")
 
 
@@ -4242,6 +4576,12 @@ def main(argv: list[str]) -> int:
                     made["big"] = build_big_chr(chr_main()[0])["path"]
                 return made["big"]
 
+            def k1_phase():
+                """Phase k1 (with its dependent-load latencies), run once."""
+                if "k1" not in made:
+                    made["k1"] = phase_k1(device, card, chr_main()[0])
+                return made["k1"]
+
             for name in dict.fromkeys(argv):  # in the order given
                 if name == "probes":
                     phase_probes(device)
@@ -4250,7 +4590,14 @@ def main(argv: list[str]) -> int:
                 elif name == "pfp_big":
                     phase_pfp_big(device, card, child, None)
                 elif name == "build_small":
-                    phase_build_small(device, card)
+                    lat = made["k1"]["us_per_dependent_step"] if "k1" in made else None
+                    phase_build_small(device, card, lat)
+                elif name == "nodense_chr":
+                    chr_, count = chr_main()
+                    k1 = k1_phase()
+                    phase_nodense_chr(device, card, chr_, count,
+                                      phase_locate(device, card, chr_, count),
+                                      phase_markers(device, card, chr_, count), k1)
                 elif name == "parallel_dp":
                     phase_parallel_dp(device, card, *chr_main())
                 elif name == "parallel_sharded":
@@ -4262,7 +4609,7 @@ def main(argv: list[str]) -> int:
                 elif name == "parallel_stream":
                     phase_parallel_stream(device, card, *chr_main(), big_chr_path())
                 else:
-                    phase_k1(device, card, chr_main()[0])
+                    k1_phase()
             return 0
         # the PFP panel's host build runs beside the phases before pfp_big
         child = start_pfp_big_build()
@@ -4282,7 +4629,7 @@ def main(argv: list[str]) -> int:
         locs = phase_locs(device, card, chr_)
         big_chr = phase_big_chr(device, card, chr_, count, k1, loc, markers, locs)
         pfp_big = phase_pfp_big(device, card, child, k1)
-        phase_build_small(device, card)
+        small = phase_build_small(device, card, k1["us_per_dependent_step"])
         phase_trace(device, card, chr_, loc)
         phase_greedy_trace(device, card, chr_, greedy)
         par_dp = phase_parallel_dp(device, card, chr_, count)
@@ -4290,7 +4637,7 @@ def main(argv: list[str]) -> int:
         phase_parallel_stream(device, card, chr_, count, big_chr["path"])
         print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain,
                                                    big_chr, pfp_big, par_dp, loc, raw,
-                                                   nodense)}))
+                                                   nodense, small)}))
         print(card["nvidia_smi"])
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4303,7 +4650,7 @@ def main(argv: list[str]) -> int:
 
 def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dict,
                   big_chr: dict, pfp_big: dict, par_dp: dict, loc: dict, raw: dict,
-                  nodense: dict) -> list:
+                  nodense: dict, small: dict) -> list:
     """One entry per kernel of the port: launches on the main path, max |err|
     against the plain twin, call time (`ms`, CUDA events) beside the plain
     twin's and the library call's, device time alone (`device_us`, CUDA
@@ -4325,7 +4672,13 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     phases parity (and pfp_big for the rows), and phi_walk_pred (main path
     rbt_align -s on nodense_chr).  K1's toehold launch (lf_toehold: main
     path rbt_align -s on raw_chr, timed on one of its batches) has its own
-    entry, its max |err| also over phase parity."""
+    entry, its max |err| also over phase parity.  The tables kernel has an
+    entry a rank policy and instance: lf_tables_runs and
+    lf_tables_runs_toehold (main paths rbt_align count and -s on
+    nodense_chr, timed on one batch of each), lf_tables_dense (rbt_align
+    count on build_small's index of 13 codes) and lf_tables_occ1 and
+    lf_tables_occ1_toehold (build_small's raw index without its fused rows),
+    their max |err| also over phase parity."""
     kernels = []
     for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
             ("lf_count", k1["bound"], count,
@@ -4369,6 +4722,33 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
         "bound_by": t["bound_by"], "library_ms": None, "device_us": t["device_us"],
         "profiled_us": t["profiled_us"], "bound_us": t["bound"]["bound_us"],
         "bound_us_by": t["bound"]["bound_by"]})
+    # the tables kernel: the count and toehold searches of an index without
+    # fused rows, by rank policy
+    steps = {"runs": "ops/rank.py:302 lf_step (the run-space rank, :31-57)",
+             "dense": "ops/rank.py:258 lf_step_dense", "occ1": "ops/rank.py:246 lf_step_occ1"}
+    toe_steps = {"runs": "ops/rank.py:346 lf_step_w_loc", "occ1": "ops/rank.py:316 "
+                 "lf_step_w_loc_occ1"}
+    for name, t, launches in (
+            ("runs", nodense["tables"]["count"], nodense["runs"]["count"]["launches"]["tab_runs"]),
+            ("runs_toehold", nodense["tables"]["toehold"],
+             nodense["runs"]["-s"]["launches"]["tab_toe_runs"]),
+            ("dense", small["tables"]["dense"],
+             small["iupac_runs"]["count"]["launches"]["tab_dense"]),
+            ("occ1", small["tables"]["occ1"], small["occ1_route"]["tab_occ1"]),
+            ("occ1_toehold", small["tables"]["occ1_toehold"], small["occ1_route"]["tab_toe_occ1"])):
+        policy = name.split("_")[0]
+        loop = toe_steps[policy] if t["toehold"] else steps[policy]
+        kernels.append({
+            "name": f"lf_tables_{name}", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/lf.cu",
+            "replaces": f"rowbowt_tpu/ops/pallas_lf.py:49 and rowbowt_tpu/engine/"
+                        f"{'locate.py:64' if t['toehold'] else 'count.py:55'} (an XLA fori_loop "
+                        f"of rowbowt_tpu/{loop} in the JAX package)",
+            "launches": launches,
+            "max_abs_err": max(par_err[f"lf_tables_{name}"], t["max_abs_err"]),
+            "ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "device_us": t["device_us"],
+            "profiled_us": t["profiled_us"], "bound_us": t["bound"]["bound_us"],
+            "bound_us_by": t["bound"]["bound_us_by"]})
     byte_us = probe_byte_us()
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
         p = probes[name]

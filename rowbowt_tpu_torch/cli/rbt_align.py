@@ -12,9 +12,9 @@ order is toehold first then the phi chain, marker positions are 0-based.
 Load time and query time go to stderr as "<load_s> <query_s>"
 (rb_align.cpp:164-192), then the reads/s and LF-steps/s meter.
 
-On a CUDA device the LF loop is the hand-written kernel K1 (the torch loop
-over the occ1, dense or run-space tables for an index without fused-block
-rows); `--device cpu` runs the plain torch loop.  The index may be a
+On a CUDA device the LF loop is the hand-written kernel K1 (the tables
+kernel over the occ1, dense or run-space tables for an index without
+fused-block rows); `--device cpu` runs the plain torch loop.  The index may be a
 two-level BigIndex directory (n >= 2^31), where K1 runs over its int64 lanes
 and `-s` takes each toehold from the search's trajectory; an index without
 kval carries it step by step.  Locate and markers run on the real reads of

@@ -77,6 +77,37 @@
 // (under 1 MB a chr batch).  A raw chr batch took 1.14x K1's count search
 // on an H100 (PERF.md §6), against 0.16 s for the torch loop.
 //
+// A second kernel, lf_tables_kernel (C entry rbt_lf_tables), runs the same
+// search, count or toehold, over the rank tables of an index without fused
+// rows (a `--no-dense` build; an alphabet of 9-16 codes, whose dense tables
+// are bwt4 and occ_blk): what the JAX package computes as XLA loops of
+// rowbowt_tpu/ops/rank.py lf_step (the run-space rank, :31-57), lf_step_dense
+// (:59-89), lf_step_occ1 (:237-244) and, carrying the toehold,
+// lf_step_w_loc (:346-381) or lf_step_w_loc_occ1 (:316-344) beside
+// pallas_lf.py:49.  One thread a lane (the ranks are single loads or
+// searches, not rows to share), codes staged as K1 stages them, the ftab
+// start read in the kernel, the toehold carried and resolved once a lane as
+// the TOE instance does.  Three rank policies, chosen by the wrapper in
+// lf_step_auto's order:
+//   - runs: a binary search over run_start for the run of i, then occ_flat
+//     and run_head of that run.  lo's run takes the full search (24 levels
+//     at R = 15.6 M, the top ones in L1 and L2); hi + 1's run lies at most
+//     hi + 1 - run_start[lo's run] runs after lo's, so its search covers that
+//     window only, a few levels once a range is narrow.  The trivial test is
+//     the code of hi's run: hi + 1's, or the one before where hi + 1 starts
+//     it;
+//   - dense: the checkpoint of c at block i >> 7 and the nibbles equal to c
+//     among the block's first i & 127 symbols (64 B, four 16-byte loads);
+//     the trivial test one word of bwt4;
+//   - occ1: one load a rank; the trivial test one more (occ1 at hi).
+// What bounds it: each step's loads depend on the step before, and the runs
+// policy's search adds some 30 loads a step, so no byte count comes near it;
+// its bound is the latency of the levels that miss L1 (129 us a chr batch).
+// A chr batch took 2.39 ms on an H100, 11x K1's count search and 1/63 of
+// the torch loop (PERF.md §6): the loads of the search, not their latency
+// alone, set the pace, and a bucket directory over run_start (a load for
+// the top levels) is the lever left for a later change.
+//
 // The first kernel of this file (lf_count_transposed_kernel, C entry
 // rbt_lf_count_transposed) is the earlier design, one thread per lane over a
 // transposed [L, B] batch with the start computed outside; it is kept only
@@ -216,6 +247,58 @@ __device__ __forceinline__ uint32_t below(int kn) {
   return kn >= 8 ? 0xFFFFFFFFu : (1u << (4 * kn)) - 1u;
 }
 
+// Count of the nibbles equal to c (pat = c in every nibble) among the kn
+// lowest nibbles of the word x.
+__device__ __forceinline__ int nibbles_below(uint32_t x, uint32_t pat, int kn) {
+  x ^= pat;
+  const uint32_t t = x | (x >> 1) | (x >> 2) | (x >> 3);
+  return __popc(~t & 0x11111111u & below(kn));
+}
+
+// Stages the codes of a block's nl lanes, the rows of the [B, L] batch from
+// src on, into shared memory: one byte a code (code_byte), `stride` bytes a
+// lane, with 16-byte loads where the rows allow them.
+__device__ __forceinline__ void stage_codes(uint8_t* s_code, const int32_t* __restrict__ src,
+                                            int nl, int L, int A, int stride) {
+  if ((L & 3) == 0 && ((uintptr_t)src & 15) == 0) {
+    // 16-byte loads: four codes in, one word of four bytes out
+    const int4* src4 = reinterpret_cast<const int4*>(src);
+    const int wpl = L / 4;  // words per lane
+    for (int i = threadIdx.x; i < nl * wpl; i += blockDim.x) {
+      const int4 c = src4[i];
+      const int r = i / wpl;
+      *reinterpret_cast<uint32_t*>(s_code + r * stride + 4 * (i - r * wpl)) =
+          (uint32_t)code_byte(c.x, A) | (uint32_t)code_byte(c.y, A) << 8 |
+          (uint32_t)code_byte(c.z, A) << 16 | (uint32_t)code_byte(c.w, A) << 24;
+    }
+  } else {
+    // L not a multiple of 4, or a view that starts off a 16-byte boundary
+    for (int i = threadIdx.x; i < nl * L; i += blockDim.x) {
+      const int r = i / L;
+      s_code[r * stride + i - r * L] = (uint8_t)code_byte(src[i], A);
+    }
+  }
+}
+
+// The ftab k-mer code of a lane's last k codes (two bits a base, the first
+// code highest; the last match in acgt wins, as in ops/rank.py kmer_codes),
+// or -1 where one of them is not A, C, G or T.
+template <typename CodeAt>
+__device__ __forceinline__ int kmer_code(const CodeAt& code_at, int L, int k, uint32_t acgt) {
+  int kc = 0;
+  for (int col = L - k; col < L; ++col) {
+    const int c = code_at(col);
+    int two_bits = -1;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (c == (int)((acgt >> (8 * t)) & 0xFF)) two_bits = t;
+    }
+    if (two_bits < 0) return -1;
+    kc = (kc << 2) | two_bits;
+  }
+  return kc;
+}
+
 // This thread's share of rank(c) at in-row offset `off`, from the parts of
 // one row it holds: part sub + m * kG of the row in v[m].  The shares of the
 // kG threads of a lane sum to the checkpoint of c plus the count of c among
@@ -234,8 +317,7 @@ __device__ __forceinline__ int rank_share(const int4 (&v)[Layout<SYMS>::kPer], i
       if (lane < kCkpt) {
         share += lane == c ? (int)x : 0;
       } else {
-        const uint32_t t = (x ^ pat) | ((x ^ pat) >> 1) | ((x ^ pat) >> 2) | ((x ^ pat) >> 3);
-        share += __popc(~t & 0x11111111u & below(off - 8 * (lane - kCkpt)));
+        share += nibbles_below(x, pat, off - 8 * (lane - kCkpt));
       }
     }
   }
@@ -252,7 +334,7 @@ __device__ __forceinline__ int64_t base_of(const int64_t* __restrict__ base, int
 // The per-step toehold's tables (TOE instances), each int32 or int64 as the
 // index holds it on the card (*_bytes): tk1 [A * n] where it is resident,
 // else ltk [A * R] with run_start [R]; samples_last [R] for k0; and k, the
-// int32 toehold out.
+// toehold out, in the lane type.
 struct Toe {
   const void* tk1;
   const void* ltk;
@@ -260,7 +342,7 @@ struct Toe {
   const void* samples_last;
   int tk1_bytes, ltk_bytes, rs_bytes, sl_bytes;
   int R;
-  int32_t* k;
+  void* k;
 };
 
 __device__ __forceinline__ int64_t load_at(const void* p, int bytes, int64_t i) {
@@ -293,14 +375,14 @@ __device__ __forceinline__ int sym_share(const int4 (&v)[Layout<SYMS>::kPer], in
 // the run of thi as ops/rank.py lf_step_w_loc does: the run of min(thi + 1,
 // n - 1) by an upper bound over run_start, one less where thi + 1 < n
 // starts that run.
-__device__ int32_t resolve_toehold(const Toe& t, int32_t n, int tc, int32_t thi, int triv) {
+__device__ int64_t resolve_toehold(const Toe& t, int64_t n, int tc, int64_t thi, int triv) {
   int64_t base;
   if (tc < 0) {
     base = (load_at(t.samples_last, t.sl_bytes, t.R - 1) + 1) % n;
   } else if (t.tk1 != nullptr) {
     base = load_at(t.tk1, t.tk1_bytes, (int64_t)tc * n + thi);
   } else {
-    const int64_t x = (int64_t)thi + 1 < n ? (int64_t)thi + 1 : (int64_t)n - 1;
+    const int64_t x = thi + 1 < n ? thi + 1 : n - 1;
     int first = 0, count = t.R;  // upper bound of x
     while (count > 0) {
       const int half = count >> 1;
@@ -312,11 +394,11 @@ __device__ int32_t resolve_toehold(const Toe& t, int32_t n, int tc, int32_t thi,
       }
     }
     int r = first - 1;
-    if ((int64_t)thi + 1 < n && load_at(t.run_start, t.rs_bytes, r) == (int64_t)thi + 1) --r;
+    if (thi + 1 < n && load_at(t.run_start, t.rs_bytes, r) == thi + 1) --r;
     base = load_at(t.ltk, t.ltk_bytes, (int64_t)tc * t.R + r);
   }
   const int64_t k = (base - triv) % n;
-  return (int32_t)(k < 0 ? k + n : k);
+  return k < 0 ? k + n : k;
 }
 
 // One block: blockDim.x / kG lanes, kG neighbouring threads a lane.  STAGE
@@ -348,27 +430,7 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   const int nl = min(lanes, B - b0);
   const int stride = staged_stride(L);
   if (threadIdx.x <= (unsigned)A) sF[threadIdx.x] = F[threadIdx.x];
-  if (STAGE) {
-    const int32_t* src = q + (size_t)b0 * L;
-    if ((L & 3) == 0 && ((uintptr_t)src & 15) == 0) {
-      // 16-byte loads: four codes in, one word of four bytes out
-      const int4* src4 = reinterpret_cast<const int4*>(src);
-      const int wpl = L / 4;  // words per lane
-      for (int i = threadIdx.x; i < nl * wpl; i += blockDim.x) {
-        const int4 c = src4[i];
-        const int r = i / wpl;
-        *reinterpret_cast<uint32_t*>(s_code + r * stride + 4 * (i - r * wpl)) =
-            (uint32_t)code_byte(c.x, A) | (uint32_t)code_byte(c.y, A) << 8 |
-            (uint32_t)code_byte(c.z, A) << 16 | (uint32_t)code_byte(c.w, A) << 24;
-      }
-    } else {
-      // L not a multiple of 4, or a view that starts off a 16-byte boundary
-      for (int i = threadIdx.x; i < nl * L; i += blockDim.x) {
-        const int r = i / L;
-        s_code[r * stride + i - r * L] = (uint8_t)code_byte(src[i], A);
-      }
-    }
-  }
+  if (STAGE) stage_codes(s_code, q + (size_t)b0 * L, nl, L, A, stride);
   __syncthreads();
 
   const int ll = threadIdx.x / kG;
@@ -386,19 +448,8 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   Lane lo = 0, hi = n - 1;
   int j = 0;
   if (!kTwoLevel && k > 0 && len >= k) {
-    int kc = 0;
-    bool valid = true;
-    for (int col = L - k; col < L; ++col) {
-      const int c = code_at(col);
-      int two_bits = -1;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {  // the last match wins, as in kmer_codes
-        if (c == (int)((acgt >> (8 * t)) & 0xFF)) two_bits = t;
-      }
-      valid = valid && two_bits >= 0;
-      kc = (kc << 2) | (two_bits & 3);
-    }
-    if (valid) {
+    const int kc = kmer_code(code_at, L, k, acgt);
+    if (kc >= 0) {
       const int flo = ftab[2 * (size_t)kc];
       if (flo >= 0) {
         lo = flo;
@@ -488,7 +539,8 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   if (sub == 0) {
     lo_out[b] = lo;
     hi_out[b] = hi;
-    if constexpr (TOE) toe.k[b] = hi < lo ? 0 : resolve_toehold(toe, n, tc, thi, triv);
+    if constexpr (TOE)
+      static_cast<Lane*>(toe.k)[b] = hi < lo ? 0 : (Lane)resolve_toehold(toe, n, tc, thi, triv);
     // the steps not taken: 0 after a failure, the final hi past the read
     if (REC)
       for (; j < L; ++j) hi_rec[(size_t)j * B + b] = hi;
@@ -543,6 +595,248 @@ int launch_fb2(const Args<int64_t>& a, int threads, bool stage, cudaStream_t s) 
 bool bad_launch(int A, int B, int L, int threads) {
   return A < 1 || A > kCkpt || B < 0 || L < 0 || threads < 32 || threads > 1024 ||
          threads % 32 != 0;
+}
+
+// ---------------------------------------------------------------------------
+// The search over the rank tables of an index without fused rows
+
+// The rank policy (ops/cuda_lf.py TABLE_POLICIES), lf_step_auto's choice
+// among an index's tables: the run-space tables, the dense blocks, or occ1.
+enum Policy : int { kRuns = 0, kDense = 1, kOcc1 = 2 };
+constexpr int kDenseVec = 4;  // int4 parts of a dense block: 16 words, 128 symbols
+
+// The rank tables, each int32 or int64 as the index holds it (*_bytes): occ
+// is occ_flat [A * R] (runs), occ_blk_flat [A * nb] (dense) or occ1_flat
+// [A * (n + 1)] (occ1); run_start and run_head [R] (runs); bwt4 [nb * 16],
+// the dense blocks' words of 8 nibbles (dense).
+struct Tabs {
+  const void* occ;
+  const void* run_start;
+  const void* run_head;
+  const int4* bwt4;
+  int occ_bytes, rs_bytes, rh_bytes;
+  int R;
+  long long nb;
+};
+
+// The run of position x, the last r' in [r, last] with run_start[r'] <= x,
+// given start == run_start[r] <= x: a binary search, which leaves start at
+// that run's start.
+__device__ __forceinline__ int run_search(const Tabs& t, int64_t x, int r, int last,
+                                          int64_t& start) {
+  int end = last + 1;  // run_start[end] > x, or end == R
+  while (end - r > 1) {
+    const int mid = r + ((end - r) >> 1);
+    const int64_t v = load_at(t.run_start, t.rs_bytes, mid);
+    if (v <= x) {
+      r = mid;
+      start = v;
+    } else {
+      end = mid;
+    }
+  }
+  return r;
+}
+
+// rank(i, c) in run r starting at `start` (ops/rank.py rank_at_run, i < n):
+// the count of c before the run, plus i - start where the run is of c.  head
+// receives the run's code.
+__device__ __forceinline__ int64_t rank_in_run(const Tabs& t, int64_t i, int c, int r,
+                                               int64_t start, int& head) {
+  head = (int)load_at(t.run_head, t.rh_bytes, r);
+  const int64_t occ = load_at(t.occ, t.occ_bytes, (int64_t)c * t.R + r);
+  return occ + (head == c ? i - start : 0);
+}
+
+// rank(i, c) over the dense blocks (ops/rank.py rank_dense, i < n): the
+// checkpoint of c at block i >> 7, plus the nibbles equal to c among the
+// block's first i & 127 symbols (one 64 B block, four 16-byte loads).
+__device__ __forceinline__ int64_t rank_dense(const Tabs& t, int64_t i, int c) {
+  const int64_t blk = i >> 7;
+  const int off = (int)(i & 127);
+  const int64_t occ = load_at(t.occ, t.occ_bytes, (int64_t)c * t.nb + blk);
+  const uint32_t pat = (uint32_t)c * 0x11111111u;
+  int in_blk = 0;
+#pragma unroll
+  for (int m = 0; m < kDenseVec; ++m) {
+    const int4 v = __ldg(t.bwt4 + blk * kDenseVec + m);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      in_blk += nibbles_below((uint32_t)lane_of(v, e), pat, off - 8 * (4 * m + e));
+  }
+  return occ + in_blk;
+}
+
+// One thread a lane, blockDim.x lanes a block.  The count search of
+// rowbowt_tpu_torch/ops/cuda_lf.py lf_loop_plain over the POLICY tables, from
+// the ftab start where k > 0 (ftab int32 or int64, ftab_bytes); TOE (no
+// ftab) also carries the per-step toehold as lf_count_kernel's TOE instance
+// does and writes it into toe.k.  The codes come from shared memory when
+// `stage` (staged once per block), else from global memory at every step.
+template <typename Lane, int POLICY, bool TOE>
+__global__ void __launch_bounds__(1024)
+lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
+                 const int32_t* __restrict__ q, const int32_t* __restrict__ lengths, int B,
+                 int L, bool stage, const void* ftab, int ftab_bytes, int k, uint32_t acgt,
+                 Lane* __restrict__ lo_out, Lane* __restrict__ hi_out, Toe toe) {
+  extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when stage
+  const int b0 = blockIdx.x * blockDim.x;
+  const int nl = min((int)blockDim.x, B - b0);
+  const int stride = staged_stride(L);
+  if (stage) stage_codes(s_code, q + (size_t)b0 * L, nl, L, A, stride);
+  __syncthreads();
+  if ((int)threadIdx.x >= nl) return;
+  const int b = b0 + threadIdx.x;
+  const uint8_t* mine = s_code + threadIdx.x * stride;
+  const int32_t* row_q = q + (size_t)b * L;
+  auto code_at = [&](int col) -> int {
+    return stage ? (int)mine[col] : code_byte(row_q[col], A);
+  };
+
+  const int len = lengths[b];
+  Lane lo = 0, hi = n - 1;
+  int j = 0;
+  if (k > 0 && len >= k) {
+    const int kc = kmer_code(code_at, L, k, acgt);
+    if (kc >= 0) {
+      const int64_t flo = load_at(ftab, ftab_bytes, 2 * (int64_t)kc);
+      if (flo >= 0) {
+        lo = (Lane)flo;
+        hi = (Lane)load_at(ftab, ftab_bytes, 2 * (int64_t)kc + 1);
+        j = k;
+      }
+    }
+  }
+  const int64_t rs0 = POLICY == kRuns ? load_at(t.run_start, t.rs_bytes, 0) : 0;
+  const int jend = min(len, L);
+  // TOE: the code and pre-step hi of the last non-trivial step (tc < 0:
+  // none yet), and the trivial steps since it (since the start while none)
+  int tc = -1, triv = 0;
+  Lane thi = 0;
+  for (; j < jend; ++j) {
+    const int c = code_at(L - 1 - j);
+    if (c >= A) {  // absent code: empty range, lane done
+      lo = 1;
+      hi = 0;
+      break;
+    }
+    const Lane fc = (Lane)load_at(F, sizeof(Lane), c);
+    const Lane i1 = hi + 1;
+    Lane cb, ce;
+    bool trivial = false;  // BWT[hi] == c
+    if constexpr (POLICY == kOcc1) {
+      // one load a rank: row c of occ1 has n + 1 entries
+      const int64_t row = (int64_t)c * ((int64_t)n + 1);
+      cb = (Lane)load_at(t.occ, t.occ_bytes, row + lo);
+      ce = (Lane)load_at(t.occ, t.occ_bytes, row + i1);
+      if constexpr (TOE) trivial = ce - (Lane)load_at(t.occ, t.occ_bytes, row + hi) == 1;
+    } else if constexpr (POLICY == kDense) {
+      // rank(n, c) is the code's total count
+      const Lane total = (Lane)load_at(F, sizeof(Lane), c + 1) - fc;
+      cb = lo < n ? (Lane)rank_dense(t, lo, c) : total;
+      ce = i1 < n ? (Lane)rank_dense(t, i1, c) : total;
+      if constexpr (TOE) {
+        const uint32_t w = (uint32_t)__ldg(reinterpret_cast<const int32_t*>(t.bwt4) + (hi >> 3));
+        trivial = (int)((w >> (4 * (int)(hi & 7))) & 15u) == c;
+      }
+    } else {
+      const Lane total = (Lane)load_at(F, sizeof(Lane), c + 1) - fc;
+      int r0 = 0, head = -1;
+      int64_t s0 = rs0;
+      if (lo < n) {
+        r0 = run_search(t, lo, 0, t.R - 1, s0);
+        cb = (Lane)rank_in_run(t, lo, c, r0, s0, head);
+      } else {
+        cb = total;
+      }
+      if (i1 < n) {
+        // hi + 1's run is lo's or a later one, and no more than i1 - s0
+        // runs later: a run holds at least one position
+        int r1 = 0, last = t.R - 1;
+        int64_t s1 = rs0;
+        if (lo < n && lo <= i1) {
+          r1 = r0;
+          s1 = s0;
+          const int64_t far = (int64_t)r0 + (i1 - s0);
+          last = far < t.R - 1 ? (int)far : t.R - 1;
+        }
+        r1 = run_search(t, i1, r1, last, s1);
+        ce = (Lane)rank_in_run(t, i1, c, r1, s1, head);
+        if constexpr (TOE) {
+          // hi's run: hi + 1's, or the one before where hi + 1 starts it
+          if (s1 == i1) head = (int)load_at(t.run_head, t.rh_bytes, r1 - 1);
+        }
+      } else {
+        ce = total;
+        if constexpr (TOE) head = (int)load_at(t.run_head, t.rh_bytes, t.R - 1);
+      }
+      if constexpr (TOE) trivial = head == c;
+    }
+    const Lane ci = ce - cb;
+    if (ci <= 0) {
+      lo = 1;
+      hi = 0;
+      break;
+    }
+    if constexpr (TOE) {
+      if (trivial) {
+        ++triv;
+      } else {
+        tc = c;
+        thi = hi;
+        triv = 0;
+      }
+    }
+    lo = fc + cb;
+    hi = lo + ci - 1;
+  }
+  lo_out[b] = lo;
+  hi_out[b] = hi;
+  if constexpr (TOE)
+    static_cast<Lane*>(toe.k)[b] = hi < lo ? 0 : (Lane)resolve_toehold(toe, n, tc, thi, triv);
+}
+
+template <typename Lane>
+struct TabArgs {
+  Tabs t;
+  const Lane* F;
+  int A;
+  Lane n;
+  const int32_t* q;
+  const int32_t* lengths;
+  int B, L;
+  const void* ftab;
+  int ftab_bytes, k;
+  uint32_t acgt;
+  Lane* lo;
+  Lane* hi;
+  Toe toe;  // the toehold's tables and k (TOE instances), else zeros
+};
+
+template <typename Lane, int POLICY, bool TOE>
+int launch_tables(const TabArgs<Lane>& a, int threads, bool stage, cudaStream_t s) {
+  const size_t smem = stage ? (size_t)threads * staged_stride(a.L) : 0;
+  if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((a.B + threads - 1) / threads));
+  lf_tables_kernel<Lane, POLICY, TOE><<<grid, threads, smem, s>>>(
+      a.t, a.F, a.A, a.n, a.q, a.lengths, a.B, a.L, stage, a.ftab, a.ftab_bytes, a.k, a.acgt,
+      a.lo, a.hi, a.toe);
+  return (int)cudaGetLastError();
+}
+
+template <typename Lane, bool TOE>
+int launch_policy(int policy, const TabArgs<Lane>& a, int threads, bool stage,
+                  cudaStream_t s) {
+  if (policy == kRuns) return launch_tables<Lane, kRuns, TOE>(a, threads, stage, s);
+  if (policy == kDense) return launch_tables<Lane, kDense, TOE>(a, threads, stage, s);
+  return launch_tables<Lane, kOcc1, TOE>(a, threads, stage, s);
+}
+
+template <typename Lane>
+int launch_lanes(int policy, const TabArgs<Lane>& a, int threads, bool stage,
+                 cudaStream_t s) {
+  return a.toe.k != nullptr ? launch_policy<Lane, true>(policy, a, threads, stage, s)
+                            : launch_policy<Lane, false>(policy, a, threads, stage, s);
 }
 
 }  // namespace
@@ -628,7 +922,7 @@ int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes,
-                R, static_cast<int32_t*>(k)};
+                R, k};
   const Args<int32_t> a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F),
                         nullptr, 0, A, n,
                         static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
@@ -638,6 +932,64 @@ int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n
   if (syms_per_row == 64) return launch_staged<int32_t, 64, false, true>(a, threads, stage, s);
   if (syms_per_row == 128) return launch_staged<int32_t, 128, false, true>(a, threads, stage, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The search over the rank tables of an index without fused rows, one
+// thread a lane: `policy` 0 (runs: occ = occ_flat, run_start, run_head, R),
+// 1 (dense: occ = occ_blk_flat, bwt4 int32 [nb * 16] 16-byte aligned, A at
+// most 16) or 2 (occ1: occ = occ1_flat); each table int32 or int64
+// (*_bytes), run_head too.  Lanes, F [A + 1], lo and hi are int32 or int64
+// (lane_bytes), the codes and lengths int32.  With k_out null it is the
+// count search, from the ftab start where kf > 0 (ftab int32 or int64 [4^kf,
+// 2], acgt as rbt_lf_count's); with k_out, the toehold search (kf 0) over
+// tk1 [A * n] where given, else ltk [A * R] with run_start, and samples_last
+// [R], each int32 or int64, k_out in the lane type.  `threads` lanes a
+// block; `stage` reads the codes from shared memory (threads * staged
+// stride bytes, at most 47 KB); both from ops/cuda_lf.py launch_plan with
+// one thread a lane.  Returns cudaGetLastError() after the launch (0 on
+// success, nothing launched for B == 0).
+int rbt_lf_tables(int policy, const void* occ, int occ_bytes, const void* run_start,
+                  int rs_bytes, const void* run_head, int rh_bytes, const void* bwt4,
+                  long long nb, int R, const void* F, int lane_bytes, int A, long long n,
+                  const void* q, const void* lengths, int B, int L, const void* ftab,
+                  int ftab_bytes, int kf, int acgt, const void* tk1, int tk1_bytes,
+                  const void* ltk, int ltk_bytes, const void* samples_last, int sl_bytes,
+                  void* lo, void* hi, void* k_out, int threads, int stage, void* stream) {
+  auto width = [](int bytes) { return bytes == 4 || bytes == 8; };
+  const bool runs = policy == kRuns && run_start != nullptr && run_head != nullptr &&
+                    width(rs_bytes) && width(rh_bytes) && R >= 1;
+  const bool dense = policy == kDense && bwt4 != nullptr && A <= 16 &&
+                     ((uintptr_t)bwt4 & 15) == 0 && nb >= (n + 127) / 128;
+  const bool tables = occ != nullptr && width(occ_bytes) && (runs || dense || policy == kOcc1);
+  const bool toe = k_out != nullptr;
+  const bool toe_tables =
+      !toe || (kf == 0 && samples_last != nullptr && width(sl_bytes) && R >= 1 &&
+               (tk1 != nullptr ? width(tk1_bytes)
+                               : ltk != nullptr && run_start != nullptr && width(ltk_bytes) &&
+                                     width(rs_bytes)));
+  if (!tables || !toe_tables || A < 1 || A > 254 || B < 0 || L < 0 || threads < 32 ||
+      threads > 1024 || threads % 32 != 0 || n < 1 || kf < 0 || kf > 15 ||
+      (kf > 0 && (ftab == nullptr || !width(ftab_bytes) || L < kf)) ||
+      (lane_bytes == 4 ? n >= INT32_MAX : lane_bytes != 8))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const Tabs t{occ, run_start, run_head, static_cast<const int4*>(bwt4), occ_bytes, rs_bytes,
+               rh_bytes, R, nb};
+  const Toe te{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
+               k_out};
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto* q32 = static_cast<const int32_t*>(q);
+  const auto* len = static_cast<const int32_t*>(lengths);
+  if (lane_bytes == 4) {
+    const TabArgs<int32_t> a{t, static_cast<const int32_t*>(F), A, (int32_t)n, q32, len, B, L,
+                             ftab, ftab_bytes, kf, (uint32_t)acgt, static_cast<int32_t*>(lo),
+                             static_cast<int32_t*>(hi), te};
+    return launch_lanes(policy, a, threads, stage != 0, s);
+  }
+  const TabArgs<int64_t> a{t, static_cast<const int64_t*>(F), A, (int64_t)n, q32, len, B, L,
+                           ftab, ftab_bytes, kf, (uint32_t)acgt, static_cast<int64_t*>(lo),
+                           static_cast<int64_t*>(hi), te};
+  return launch_lanes(policy, a, threads, stage != 0, s);
 }
 
 // The earlier design over the [L, B] transpose qT, from the starts in lo,

@@ -4,10 +4,10 @@ The counterpart of rowbowt_tpu/engine/count.py, itself the batched form of
 RowBowt::find_range (rowbowt.hpp:121-131): B reads start from the ftab
 (search_ftab, rowbowt.hpp:745-758) or the full range, then advance one LF
 step per query char with done-masks.  On a CUDA device the whole search,
-ftab start included, is the hand-written kernel K1 (ops/cuda_lf.py) when the
-index has fused-block rows, else the torch loop over its occ1, dense or
-run-space step; on the CPU it is the plain torch path (ops/cuda_lf.lf_start,
-then lf_loop_plain).
+ftab start included, is one launch of a hand-written kernel (ops/cuda_lf.py):
+K1 when the index has fused-block rows, else the tables kernel over its
+occ1, dense or run-space tables; on the CPU it is the plain torch path
+(ops/cuda_lf.lf_start, then lf_loop_plain).
 On a big (n >= 2^31) index the lanes are int64 (`idx_dtype` is F's dtype)
 and there is no ftab: big artifacts carry none.
 """

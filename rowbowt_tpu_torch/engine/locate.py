@@ -22,9 +22,10 @@ samples alone (a raw `.bwt/.ssa/.esa` or `.rbwt` build, or `--no-dense`) has
 no kval either: the toehold rides through the search step by step
 (RowBowt::LF_w_loc, rowbowt.hpp:553-573), from tk1 when it is resident, else
 from ltk.  On a CUDA device over fused rows that search is K1's toehold
-launch (ops/cuda_lf.find_ranges_toehold), which raises rather than fall
-back; over an index without fused rows (`--no-dense`, more than 8 codes)
-and on the CPU it is the torch loop of lf_step_w_loc_occ1 or lf_step_w_loc
+launch (ops/cuda_lf.find_ranges_toehold), over an index without fused
+rows (`--no-dense`, more than 8 codes) the tables kernel's toehold
+instance; each raises rather than fall back.  On the CPU it is the torch
+loop of lf_step_w_loc_occ1 or lf_step_w_loc
 (cuda_lf.find_ranges_toehold_plain).  The loops still torch on every device
 are the checkpointed search (find_ranges_w_toehold_chkpnts) and the
 sampled seeding (engine/seeds.seeds_greedy_w_sample).
@@ -50,7 +51,7 @@ def find_ranges_w_toehold(tx: TorchIndex, qcodes, lengths):
     On a big index it is the trajectory resolve (_toehold_trajectory); on an
     index built from run samples alone, the per-step toehold search
     (ops/cuda_lf.find_ranges_toehold: K1's toehold launch on the card over
-    fused rows, else the torch loop)."""
+    fused rows, else the tables kernel's; the torch loop on the CPU)."""
     from rowbowt_tpu_torch.engine.seeds import _toehold_by_kval
 
     mode = _toehold_by_kval(tx, "find_ranges_w_toehold")

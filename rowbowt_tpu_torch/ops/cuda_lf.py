@@ -22,10 +22,13 @@ adds one to LAUNCHES, or to LAUNCHES_FB2 over the two-level rows) or raises;
 for CPU tensors it runs `find_ranges_plain`, the torch version over
 ops/rank.py (`lf_start`, then `lf_loop_plain`), which is also what the kernel
 is held against on the card.  An index without fused-block rows (a
-`--no-dense` build, an alphabet of more than 8 codes) has no K1 route: on a
-CUDA device its search is that torch loop over the occ1, dense or run-space
-step (ops/rank.lf_step_auto), chosen from the index's tables before anything
-launches, and each such search adds one to LAUNCHES_TORCH.
+`--no-dense` build, an alphabet of more than 8 codes) takes the tables
+kernel instead (csrc/lf.cu lf_tables_kernel, C entry rbt_lf_tables, one
+thread a lane, the ftab start in the kernel): the same search over the rank
+tables of the occ1, dense or run-space step (ops/rank.lf_step_auto's
+choice, TABLE_POLICIES), one launch a batch, counted per policy in
+LAUNCHES_TAB.  The JAX package runs those searches as XLA loops of
+rowbowt_tpu/ops/rank.py lf_step_occ1, lf_step_dense and lf_step.
 
 `find_ranges_record` is the record mode's wrapper: for CUDA tensors the
 record launch (adding one to LAUNCHES_REC) or an error, never the torch
@@ -42,10 +45,11 @@ from the full range carries each lane's last non-trivial step and the
 trivial steps after it, and resolves the toehold from tk1 (where resident)
 or ltk after the loop.  For CUDA tensors over fused rows it launches (adding
 one to LAUNCHES_TOE) or raises; over an index without fused rows
-(`--no-dense`, an alphabet of more than 8 codes) it runs
-`find_ranges_toehold_plain`, the torch loop of that step, on the card
-(adding one to LAUNCHES_TORCH); for CPU tensors that loop, which is also
-what the kernel is held against on the card.
+(`--no-dense`, an alphabet of more than 8 codes) it launches the tables
+kernel's toehold instance (adding one to LAUNCHES_TAB_TOE[policy]) or
+raises; for CPU tensors it runs `find_ranges_toehold_plain`, the torch loop
+of lf_step_w_loc_occ1 or lf_step_w_loc, which is also what both kernels
+are held against on the card.  No wrapper runs a torch loop on the card.
 """
 
 from __future__ import annotations
@@ -60,17 +64,24 @@ from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 
 # kernel launches made by find_ranges since the last reset (a run sets them
-# to 0): over the single-level rows, and over the two-level rows; and the
-# searches it ran as the torch loop on a CUDA device (no fused-block rows)
+# to 0): over the single-level rows, and over the two-level rows
 LAUNCHES = 0
 LAUNCHES_FB2 = 0
-LAUNCHES_TORCH = 0
 # record launches (the two-level search that writes its step record), and
 # runs of its torch twin on any device
 LAUNCHES_REC = 0
 RECORDS_PLAIN = 0
 # toehold launches (the per-step toehold search of an index without kval)
 LAUNCHES_TOE = 0
+# launches of the tables kernel (an index without fused rows) by rank
+# policy: the count search (find_ranges), and the toehold search
+# (find_ranges_toehold)
+LAUNCHES_TAB = {"runs": 0, "dense": 0, "occ1": 0}
+LAUNCHES_TAB_TOE = {"runs": 0, "dense": 0, "occ1": 0}
+# the tables kernel's rank policy of each step lf_step_auto may choose
+# without fused rows, and its code in csrc/lf.cu (enum Policy)
+TABLE_POLICIES = {R.lf_step: "runs", R.lf_step_dense: "dense", R.lf_step_occ1: "occ1"}
+_POLICY_CODE = {"runs": 0, "dense": 1, "occ1": 2}
 
 GROUP = 2  # threads per lane (csrc/lf.cu kG): two 16-byte parts of a 64 B row each
 LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
@@ -86,8 +97,10 @@ def build():
     """Compile csrc/lf.cu (once per process) and bind its C entry points:
     rbt_lf_count (K1), rbt_lf_count_fb2 (K1 over the two-level rows, with
     the step record when its hi_rec is not null), rbt_lf_toehold (K1 with
-    the per-step toehold) and rbt_lf_count_transposed (the earlier design,
-    which only chip_smoke.py launches, to time it beside K1)."""
+    the per-step toehold), rbt_lf_tables (the search over the rank tables of
+    an index without fused rows, count or toehold) and
+    rbt_lf_count_transposed (the earlier design, which only chip_smoke.py
+    launches, to time it beside K1)."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
@@ -102,8 +115,12 @@ def build():
                                       vp, vp, vp, ci, ci, vp]
     lib.rbt_lf_toehold.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, ci, vp, ci,
                                    vp, ci, ci, vp, vp, vp, ci, ci, vp]
+    ll = ctypes.c_longlong
+    lib.rbt_lf_tables.argtypes = [ci, vp, ci, vp, ci, vp, ci, vp, ll, ci, vp, ci, ci, ll, vp, vp,
+                                  ci, ci, vp, ci, ci, ci, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci,
+                                  ci, vp]
     lib.rbt_lf_count.restype = lib.rbt_lf_count_transposed.restype = ci
-    lib.rbt_lf_count_fb2.restype = lib.rbt_lf_toehold.restype = ci
+    lib.rbt_lf_count_fb2.restype = lib.rbt_lf_toehold.restype = lib.rbt_lf_tables.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -116,18 +133,19 @@ def staged_stride(L: int) -> int:
     return ((L + 3) & ~3) | 4
 
 
-def launch_plan(B: int, L: int, sms: int) -> tuple[int, bool]:
+def launch_plan(B: int, L: int, sms: int, group: int = GROUP) -> tuple[int, bool]:
     """(threads a block, staged) of a K1 launch over B lanes of width L on a
-    card of `sms` SMs.  A block takes LANES_PER_BLOCK lanes, fewer when the
-    batch is too small to give every SM a block, and fewer again when their
-    codes would not fit the staging limit; a block holds whole warps.
-    `staged` is False only when not even one warp's lanes fit (L over
-    3,000): the kernel then reads each code from global memory."""
-    unit = 32 // GROUP  # lanes of one warp
+    card of `sms` SMs, `group` threads a lane (1 for the tables kernel).  A
+    block takes LANES_PER_BLOCK lanes, fewer when the batch is too small to
+    give every SM a block, and fewer again when their codes would not fit
+    the staging limit; a block holds whole warps.  `staged` is False only
+    when not even one warp's lanes fit (L over 1,500 at one thread a lane,
+    3,000 at two): the kernel then reads each code from global memory."""
+    unit = 32 // group  # lanes of one warp
     lanes = min(LANES_PER_BLOCK, -(-max(B, 1) // sms))
     fit = MAX_STAGED_BYTES // staged_stride(L)
     lanes = max(unit, min(lanes, fit) // unit * unit)
-    return lanes * GROUP, lanes * staged_stride(L) <= MAX_STAGED_BYTES
+    return lanes * group, lanes * staged_stride(L) <= MAX_STAGED_BYTES
 
 
 def lf_start(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
@@ -182,20 +200,16 @@ def find_ranges_plain(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
 
 def find_ranges(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True):
     """(lo, hi) of each lane of the right-aligned [B, L] codes: for CUDA
-    tensors K1 when the index has fused-block rows, else the torch loop over
-    its occ1, dense or run-space step; the plain torch path for CPU tensors;
-    an error for any other device."""
-    global LAUNCHES_TORCH
+    tensors K1 when the index has fused-block rows, else the tables kernel
+    over its occ1, dense or run-space tables; the plain torch path for CPU
+    tensors; an error for any other device."""
     if qcodes.device.type == "cpu":
         return find_ranges_plain(tx, qcodes, lengths, use_ftab)
     if qcodes.device.type != "cuda":
         raise ValueError(f"no LF loop for device {qcodes.device}")
     if row_layout(tx) is not None:
         return launch_k1(tx, qcodes, lengths, use_ftab)
-    out = find_ranges_plain(tx, qcodes, lengths, use_ftab)
-    if qcodes.shape[0]:
-        LAUNCHES_TORCH += 1
-    return out
+    return launch_tables(tx, qcodes, lengths, use_ftab)
 
 
 def find_ranges_record_plain(tx: TorchIndex, qcodes, lengths):
@@ -228,11 +242,37 @@ def find_ranges_record(tx: TorchIndex, qcodes, lengths):
 def row_layout(tx: TorchIndex) -> str | None:
     """The key of the fused-block rows the LF loop reads, lf_step_auto's
     choice, or None for an index without them (the occ1, dense and run-space
-    steps, which K1 does not take)."""
+    steps, which the tables kernel takes)."""
     step = R.lf_step_auto(tx)
     if step is R.lf_step_fblock2:
         return R._fb2_key(tx)[0]
     return {R.lf_step_fblock64: "fblock64", R.lf_step_fblock: "fblock"}.get(step)
+
+
+def _check_types(named, dev, what: str) -> None:
+    """Refuse an operand of `named` ((name, tensor, dtypes)) that is not on
+    `dev`, the codes' device, or not of one of its dtypes (for `what`)."""
+    for name, t, want in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, qcodes on {dev}")
+        if t.dtype not in want:
+            raise TypeError(f"{name} must be {' or '.join(str(w)[6:] for w in want)} for "
+                            f"{what}, got {t.dtype}")
+
+
+def _packed_acgt(tx: TorchIndex, k: int, ftab) -> int:
+    """The codes of A, C, G and T one byte each for an ftab start of k-mers
+    (0xFF for a base absent from the alphabet, as the kernels stage -1);
+    refuses an ftab that is not [4^k, 2] and contiguous, and codes outside
+    [-1, A)."""
+    if k > 15 or ftab.shape != (4 ** k, 2) or not ftab.is_contiguous():
+        raise ValueError(f"ftab of shape {tuple(ftab.shape)} for k = {k}")
+    acgt = 0
+    for i, c in enumerate(tx.acgt_codes):
+        if not -1 <= c < tx.A:
+            raise ValueError(f"ACGT codes {tx.acgt_codes} outside [-1, {tx.A})")
+        acgt |= (c & 0xFF) << (8 * i)
+    return acgt
 
 
 def _check_operands(tx: TorchIndex, key: str, qcodes, lengths, named, lane) -> None:
@@ -242,15 +282,9 @@ def _check_operands(tx: TorchIndex, key: str, qcodes, lengths, named, lane) -> N
     of another dtype; rows that are not whole, contiguous and 16-byte
     aligned; an alphabet outside 1..8; lengths that are not [B]."""
     fb, F = tx.arrays[key], tx.arrays["F"]
-    dev = qcodes.device
-    named = (("table", fb, (torch.int32,)), ("F", F, (lane,)),
-             ("qcodes", qcodes, (torch.int32,)), ("lengths", lengths, (torch.int32,))) + named
-    for name, t, want in named:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, qcodes on {dev}")
-        if t.dtype not in want:
-            raise TypeError(f"{name} must be {' or '.join(str(w)[6:] for w in want)} for "
-                            f"{key} rows, got {t.dtype}")
+    _check_types((("table", fb, (torch.int32,)), ("F", F, (lane,)),
+                  ("qcodes", qcodes, (torch.int32,)), ("lengths", lengths, (torch.int32,)))
+                 + named, qcodes.device, f"{key} rows")
     if fb.dim() != 2 or fb.shape[1] != 8 + _SYMS_PER_ROW[key] // 8:
         raise ValueError(f"{key} rows have shape {tuple(fb.shape)}")
     if not fb.is_contiguous() or fb.data_ptr() % 16:
@@ -271,7 +305,7 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bo
     key = row_layout(tx)
     if key is None:
         raise ValueError("K1 reads fused-block rows; this index has none "
-                         "(find_ranges takes the torch loop for it)")
+                         "(find_ranges takes the tables kernel for it)")
     two_level = key in R.FB2_KEYS
     if record and not two_level:
         raise ValueError(f"the step record is the two-level search's; {key} rows are "
@@ -292,14 +326,7 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bo
     if two_level and (base.shape != (base.shape[0], 8) or not base.is_contiguous()
                       or not 1 <= base.shape[0] <= fb.shape[0]):
         raise ValueError(f"fb2_base of shape {tuple(base.shape)} for {fb.shape[0]} rows")
-    acgt = 0
-    if k:
-        if k > 15 or ftab.shape != (4 ** k, 2) or not ftab.is_contiguous():
-            raise ValueError(f"ftab of shape {tuple(ftab.shape)} for k = {k}")
-        for i, c in enumerate(tx.acgt_codes):
-            if not -1 <= c < tx.A:
-                raise ValueError(f"ACGT codes {tx.acgt_codes} outside [-1, {tx.A})")
-            acgt |= (c & 0xFF) << (8 * i)  # -1 (base absent) is 0xFF, as staged
+    acgt = _packed_acgt(tx, k, ftab) if k else 0
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
     lo = torch.empty(B, dtype=lane, device=dev)
     hi = torch.empty(B, dtype=lane, device=dev)
@@ -365,21 +392,17 @@ def find_ranges_toehold_plain(tx: TorchIndex, qcodes, lengths):
 
 
 def find_ranges_toehold(tx: TorchIndex, qcodes, lengths):
-    """(lo, hi, k) with the per-step toehold of an index without kval: the
-    toehold launch for CUDA tensors over fused rows, the torch loop on the
-    card over an index without them (one more in LAUNCHES_TORCH), the plain
-    loop for CPU tensors, an error for any other device."""
-    global LAUNCHES_TORCH
+    """(lo, hi, k) with the per-step toehold of an index without kval: for
+    CUDA tensors the toehold launch over fused rows, else the tables
+    kernel's toehold instance; the plain loop for CPU tensors; an error for
+    any other device."""
     if qcodes.device.type == "cpu":
         return find_ranges_toehold_plain(tx, qcodes, lengths)
     if qcodes.device.type != "cuda":
         raise ValueError(f"no LF loop for device {qcodes.device}")
     if row_layout(tx) is not None:
         return launch_toehold(tx, qcodes, lengths.to(torch.int32))
-    out = find_ranges_toehold_plain(tx, qcodes, lengths)
-    if qcodes.shape[0]:
-        LAUNCHES_TORCH += 1
-    return out
+    return launch_tables(tx, qcodes, lengths.to(torch.int32), use_ftab=False, toehold=True)
 
 
 def toehold_route(tx: TorchIndex) -> str:
@@ -398,7 +421,7 @@ def launch_toehold(tx: TorchIndex, qcodes, lengths):
     key = row_layout(tx)
     if key is None:
         raise ValueError("K1 reads fused-block rows; this index has none "
-                         "(find_ranges_toehold takes the torch loop for it)")
+                         "(find_ranges_toehold takes the tables kernel for it)")
     if key in R.FB2_KEYS:
         raise ValueError(f"the per-step toehold is the single-level search's; {key} rows are "
                          "two-level (a big index's toehold is the trajectory resolve)")
@@ -444,3 +467,105 @@ def launch_toehold(tx: TorchIndex, qcodes, lengths):
     if B:
         LAUNCHES_TOE += 1
     return lo, hi, k
+
+
+def table_policy(tx: TorchIndex) -> str | None:
+    """The rank policy of the tables kernel: "occ1", "dense" or "runs" as
+    lf_step_auto chooses among those steps, or None over fused rows."""
+    return TABLE_POLICIES.get(R.lf_step_auto(tx))
+
+
+def _table_operands(tx: TorchIndex, policy: str, toehold: bool) -> dict:
+    """{argument: (table name, tensor)} of a tables launch: the rank tables
+    of `policy` and, for the toehold, tk1 (where resident) or ltk and
+    run_start, and samples_last."""
+    n, A, R_ = tx.n, tx.A, tx.R
+    arr = tx.arrays
+    if policy == "runs":
+        ops = {"occ": ("occ_flat", A * R_), "run_start": ("run_start", R_),
+               "run_head": ("run_head", R_)}
+    elif policy == "dense":
+        nb = arr["bwt4"].numel() // 16 if "bwt4" in arr else 0
+        ops = {"occ": ("occ_blk_flat", A * nb), "bwt4": ("bwt4", 16 * nb)}
+    else:
+        ops = {"occ": ("occ1_flat", A * (n + 1))}
+    if toehold:
+        if toehold_route(tx) == "tk1":
+            ops["tk1"] = ("tk1_flat", A * n)
+        else:
+            ops.update(ltk=("ltk", A * R_), run_start=("run_start", R_))
+        ops["samples_last"] = ("samples_last", R_)
+    for name, size in ops.values():
+        if name not in arr:
+            raise ValueError(f"the {policy} tables kernel needs {name}; the index has none")
+        t = arr[name]
+        if t.dim() != 1 or t.numel() != size or not t.is_contiguous():
+            raise ValueError(f"{name} of shape {tuple(t.shape)}: need [{size}], contiguous")
+    return {key: (name, arr[name]) for key, (name, _) in ops.items()}
+
+
+def launch_tables(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True,
+                  toehold: bool = False):
+    """Launch the tables kernel (csrc/lf.cu lf_tables_kernel) on CUDA tensors
+    over an index without fused rows, shaped by launch_plan at one thread a
+    lane: (lo, hi), the count search from the ftab start where the index has
+    an ftab and `use_ftab`; or with `toehold` (lo, hi, k), the per-step
+    toehold search from the full range.  Lanes, F and the outputs are in the
+    index's lane type (F's dtype, int32 or int64); the codes and lengths
+    int32; each table int32 or int64 as the index holds it (`bwt4` int32
+    bit patterns, 16-byte aligned)."""
+    policy = table_policy(tx)
+    if policy is None:
+        raise ValueError("the tables kernel is for an index without fused rows; this one has "
+                         f"{row_layout(tx)} rows (K1 takes it)")
+    F = tx.arrays["F"]
+    amax = 16 if policy == "dense" else 254
+    if not 1 <= tx.A <= amax or F.numel() < tx.A + 1:
+        raise ValueError(f"alphabet of {tx.A} codes; the {policy} tables kernel takes 1..{amax}")
+    ops = _table_operands(tx, policy, toehold)
+    B, L = qcodes.shape
+    dev = qcodes.device
+    lane = F.dtype
+    k = tx.ftab_k if use_ftab and not toehold and tx.has_ftab and L >= tx.ftab_k > 0 else 0
+    ftab = tx.arrays["ftab"] if k else None
+    named = [("F", F, (torch.int32, torch.int64)), ("qcodes", qcodes, (torch.int32,)),
+             ("lengths", lengths, (torch.int32,))]
+    named += [(name, t, (torch.int32,) if key == "bwt4" else (torch.int32, torch.int64))
+              for key, (name, t) in ops.items()]
+    if k:
+        named.append(("ftab", ftab, (torch.int32, torch.int64)))
+    _check_types(named, dev, "the tables kernel")
+    if lane == torch.int32 and tx.n >= (1 << 31) - 1:
+        raise ValueError(f"int32 lanes for n = {tx.n}")
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
+    bwt4 = ops["bwt4"][1] if policy == "dense" else None
+    if bwt4 is not None and (bwt4.data_ptr() % 16 or bwt4.numel() < 16 * -(-tx.n // 128)):
+        raise ValueError("bwt4 is not 16-byte aligned or holds fewer blocks than n needs")
+    acgt = _packed_acgt(tx, k, ftab) if k else 0
+    F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
+    outs = [torch.empty(B, dtype=lane, device=dev) for _ in range(3 if toehold else 2)]
+
+    def ptr(key):
+        t = ftab if key == "ftab" else ops[key][1] if key in ops else None
+        return (t.data_ptr(), t.element_size()) if t is not None else (None, 0)
+
+    d = dev.index if dev.index is not None else torch.cuda.current_device()
+    threads, staged = launch_plan(B, L, _sm_count(d), group=1)
+    lib = _LIB or build()
+    args = (_POLICY_CODE[policy], *ptr("occ"), *ptr("run_start"), *ptr("run_head"),
+            bwt4.data_ptr() if bwt4 is not None else None,
+            bwt4.numel() // 16 if bwt4 is not None else 0, tx.R, F.data_ptr(), F.element_size(),
+            tx.A, tx.n, qcodes.data_ptr(), lengths.data_ptr(), B, L, *ptr("ftab"), k, acgt,
+            *ptr("tk1"), *ptr("ltk"), *ptr("samples_last"), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr() if toehold else None, threads, int(staged))
+    if d == torch.cuda.current_device():
+        rc = lib.rbt_lf_tables(*args, _raw_stream(d))
+    else:
+        with torch.cuda.device(d):
+            rc = lib.rbt_lf_tables(*args, _raw_stream(d))
+    if rc != 0:
+        raise RuntimeError(f"LF kernel launch failed: {lib.rbt_cuda_error_string(rc).decode()}")
+    if B:
+        (LAUNCHES_TAB_TOE if toehold else LAUNCHES_TAB)[policy] += 1
+    return tuple(outs)

@@ -246,9 +246,10 @@ def test_marker_seeding_engines_match_jax(indexes, backend):
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_cuda_route_is_chosen_by_the_tables(indexes, monkeypatch, backend):
     """On a CUDA tensor find_ranges launches K1 exactly when the index has
-    fused-block rows, and otherwise runs the torch loop and counts it in
-    LAUNCHES_TORCH; the choice is made before any launch (K1's wrapper is
-    never entered for an index without rows, and refuses one)."""
+    fused-block rows, and otherwise the tables kernel in the backend's rank
+    policy, never the torch loop; the choice is made before any launch
+    (K1's wrapper is never entered for an index without rows, and refuses
+    one)."""
     from types import SimpleNamespace
 
     from rowbowt_tpu_torch.ops import cuda_lf
@@ -256,13 +257,14 @@ def test_cuda_route_is_chosen_by_the_tables(indexes, monkeypatch, backend):
     tx = _pair(indexes, backend)[1]
     calls = []
     monkeypatch.setattr(cuda_lf, "launch_k1", lambda *a, **k: calls.append("k1"))
+    monkeypatch.setattr(cuda_lf, "launch_tables", lambda *a, **k: calls.append("tables"))
     monkeypatch.setattr(cuda_lf, "find_ranges_plain", lambda *a, **k: calls.append("torch"))
-    monkeypatch.setattr(cuda_lf, "LAUNCHES_TORCH", 0)
     q = SimpleNamespace(device=SimpleNamespace(type="cuda"), shape=(4, 8))
     cuda_lf.find_ranges(tx, q, None)
     fused = backend == "fused_ltk"
-    assert calls == ["k1" if fused else "torch"]
-    assert cuda_lf.LAUNCHES_TORCH == (0 if fused else 1)
+    assert calls == ["k1" if fused else "tables"]
+    assert cuda_lf.table_policy(tx) == {"run": "runs", "occ1": "occ1", "fused_ltk": None,
+                                        "dense": "dense"}[backend]
     assert (cuda_lf.row_layout(tx) is None) == (not fused)
     if not fused:
         monkeypatch.undo()

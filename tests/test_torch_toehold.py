@@ -369,8 +369,9 @@ def fake_toe(monkeypatch):
     monkeypatch.setattr(cuda_lf, "_raw_stream", lambda dev: 1000 + dev)
     monkeypatch.setattr(cuda_lf, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(cuda_lf.torch.cuda, "current_device", lambda: 0)
-    for name in ("LAUNCHES", "LAUNCHES_TOE", "LAUNCHES_TORCH"):
+    for name in ("LAUNCHES", "LAUNCHES_TOE"):
         monkeypatch.setattr(cuda_lf, name, 0)
+    monkeypatch.setattr(cuda_lf, "LAUNCHES_TAB_TOE", {"runs": 0, "dense": 0, "occ1": 0})
     rec["install"] = install
     return rec
 
@@ -396,7 +397,8 @@ def test_launch_path_equals_the_twin(raw_cases, fake_toe, route, fb64, L):
         got = cuda_lf.launch_toehold(t, q, ln)
         _eq(got, [w.numpy() for w in want])
     c32, c64 = fake_toe["calls"]
-    assert cuda_lf.LAUNCHES_TOE == 2 and cuda_lf.LAUNCHES == cuda_lf.LAUNCHES_TORCH == 0
+    assert cuda_lf.LAUNCHES_TOE == 2 and cuda_lf.LAUNCHES == 0
+    assert sum(cuda_lf.LAUNCHES_TAB_TOE.values()) == 0
     for c, nbytes in ((c32, 4), (c64, 8)):
         assert (c["syms"], c["A"], c["n"], c["R"]) == (64 if fb64 else 128, tx.A, tx.n, tx.R)
         assert (c["B"], c["L"]) == tuple(qc.shape) and c["q"] == q.data_ptr()
@@ -477,24 +479,27 @@ def test_launch_refuses(raw_cases, fake_toe, fault, error, match):
 
 @pytest.mark.parametrize("tables", ["fused", "none"])
 def test_wrapper_route_follows_the_tables(monkeypatch, tables):
-    """On a CUDA tensor find_ranges_toehold launches the kernel exactly when
-    the index has fused rows, and otherwise runs the torch loop on the card,
-    counted in LAUNCHES_TORCH; CPU tensors take the twin; other devices
-    raise.  find_ranges_w_toehold sends an index without kval there."""
+    """On a CUDA tensor find_ranges_toehold launches K1's toehold instance
+    exactly when the index has fused rows, and otherwise the tables
+    kernel's toehold instance, never the torch loop; CPU tensors take the
+    twin; other devices raise.  find_ranges_w_toehold sends an index
+    without kval there."""
     arrays = {"fblock64": None} if tables == "fused" else {"bwt4": None}
     tx = SimpleNamespace(arrays=dict(arrays, samples_last=None), has_dense=tables == "none")
     calls = []
     monkeypatch.setattr(cuda_lf, "launch_toehold", lambda *a: calls.append("kernel") or "k")
+    monkeypatch.setattr(cuda_lf, "launch_tables",
+                        lambda *a, **kw: calls.append(("tables", kw)) or "tab")
     monkeypatch.setattr(cuda_lf, "find_ranges_toehold_plain",
                         lambda *a: calls.append("torch") or "t")
-    monkeypatch.setattr(cuda_lf, "LAUNCHES_TORCH", 0)
     ln = SimpleNamespace(to=lambda dt: ln)
     q = SimpleNamespace(device=SimpleNamespace(type="cuda"), shape=(4, 8))
-    assert cuda_lf.find_ranges_toehold(tx, q, ln) == ("k" if tables == "fused" else "t")
-    assert calls == ["kernel" if tables == "fused" else "torch"]
-    assert cuda_lf.LAUNCHES_TORCH == (0 if tables == "fused" else 1)
+    assert cuda_lf.find_ranges_toehold(tx, q, ln) == ("k" if tables == "fused" else "tab")
+    assert calls == ["kernel" if tables == "fused" else
+                     ("tables", dict(use_ftab=False, toehold=True))]
+    calls.clear()
     cpu = SimpleNamespace(device=SimpleNamespace(type="cpu"), shape=(4, 8))
-    assert cuda_lf.find_ranges_toehold(tx, cpu, ln) == "t"
+    assert cuda_lf.find_ranges_toehold(tx, cpu, ln) == "t" and calls == ["torch"]
     with pytest.raises(ValueError, match="no LF loop for device"):
         cuda_lf.find_ranges_toehold(tx, SimpleNamespace(device=SimpleNamespace(type="mps")), ln)
     monkeypatch.setattr(cuda_lf, "find_ranges_toehold", lambda *a: "toehold")

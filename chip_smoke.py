@@ -5,15 +5,17 @@ rbt_locs paths on one NVIDIA GPU.
     python3 chip_smoke.py                 # every phase, then the kernel record
     python3 chip_smoke.py k1 parity       # only the named phases, in that order
                                           # (probes, parity, k1, pfp_big,
-                                          # build_small, nodense_chr,
+                                          # build_small, nodense_chr, greedy,
+                                          # heuristic, lmem, locs,
                                           # parallel_dp, parallel_sharded,
                                           # parallel_stream)
 
 Builds the LF kernels (csrc/lf.cu: K1 and the tables kernel of an index
 without fused rows), the gather probes P1-P3
-(csrc/gather_probe.cu) and the phi walk of rbt_align -s (csrc/phi_walk.cu),
-each with nvcc for sm_90a, and the host library (SA-IS, FASTQ reader, BWT
-merge, PFP and the CPU engine, g++), all four side by side, then starts
+(csrc/gather_probe.cu), the phi walk of rbt_align -s (csrc/phi_walk.cu) and
+the seeding machines of rbt_markers and rbt_locs (csrc/seeds.cu), each with
+nvcc for sm_90a, and the host library (SA-IS, FASTQ reader, BWT merge, PFP
+and the CPU engine, g++), all five side by side, then starts
 phase pfp_big's host build (a PFP panel above 2^31) in a child process
 beside the phases before it, and runs:
 
@@ -59,7 +61,14 @@ beside the phases before it, and runs:
      rank policy (run-space with ltk, dense bwt4/occ_blk with ltk, occ1
      with tk1): its count search, with the ftab and without, against its
      plain twin and K1's ranges, and its toehold search against its plain
-     twin and the full-SA toeholds, on the batch and at every edge;
+     twin and the full-SA toeholds, on the batch and at every edge; then
+     the seeding kernel (seeds_parity) against its plain twins, every
+     record table, in each machine (greedy, lmem, sample) over the dense
+     index's fblock64 rows and its BigIndex view's fb2_64 rows (the
+     sampled machine with its step record there), with the ftab start and
+     without, at the engines' capacities and at capacities that overflow
+     (2 seeds, 2-3 records, max_range 20, min_length 0), on the batch,
+     4,096 random-code lanes and the edges of k1_edges;
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
@@ -114,27 +123,34 @@ beside the phases before it, and runs:
      batches' real lanes against its plain twin, timed per call and alone,
      the longest lane's steps, its bound and share;
  11. greedy: `rbt_markers -f -b 32768` on the first 32,768 reads (both
-     strands: 65,536 lanes in one batch); every line of the first 8,192
+     strands: 65,536 lanes in one batch, one launch of the greedy machine);
+     every line of the first 8,192
      reads equal to the same CLI's with `--device cpu -b 8192`, the first 1,000 reads'
      lines equal to the scalar oracle's (engine/naive); reads/s, seeds/s,
-     markers/s and the CLI's own stage seconds;
+     markers/s and the CLI's own stage seconds; then seeds_times: the
+     greedy machine on that batch, lmem on the --lmem run's batch and
+     sample on rbt_locs', each against its plain twin (the torch loop),
+     call ms in turns, device µs alone, work, bound and share;
  12. heuristic: `--heuristic --best-strand-only -y 19 --clear-conflicting
      --clear-identical` on the same reads, with the strand skip and with
      RBT_NO_STRAND_SKIP=1: the same lines; the share of reads whose second
-     strand was skipped;
- 13. lmem: `--lmem` on the first 1,000 reads; the first 100 reads' lines equal
-     to the oracle's;
+     strand was skipped; two greedy launches a batch (the forward strands,
+     the compacted second strands);
+ 13. lmem: `--lmem` on the first 1,000 reads (one lmem launch); the first
+     100 reads' lines equal to the oracle's;
  14. locs: `rbt_locs -b 32768` on the first 32,768 reads with the positional
-     marker index that build_cli saved; the first 1,000 lines equal to the
-     oracle's greedy seeds, longest-seed locate (4 hits) and text-span
-     marker lookup;
+     marker index that build_cli saved (one launch of the sampled
+     machine); the first 1,000 lines equal to the oracle's greedy seeds,
+     longest-seed locate (4 hits) and text-span marker lookup;
  14b. big_chr: the chr panel's BigIndex view (n_sup = 4, locate tables as
      bench.py derives them, marker CSR, document list), saved as a big
      directory with the chr `idx.midx.npz` beside it: rbt_align count, -s
      and -m on it print the dense index's lines (phases 6, 8, 9), each with
-     its stages timed one by one; rbt_markers -f (no ftab on a big index)
-     the dense index's lines without -f on the first 8,192 reads and the
-     oracle's on 1,000 reads; rbt_locs the lines of phase 14; then K1 over
+     its stages timed one by one; rbt_markers -f (no ftab on a big index;
+     one greedy launch) the dense index's lines without -f on the first
+     8,192 reads and the oracle's on 1,000 reads; rbt_locs the lines of
+     phase 14 (one launch of the sampled machine with its step record,
+     timed on that batch against its twin); then K1 over
      fb2_64 on the main path's four batches against the plain loop and
      against K1 over fblock64 (no ftab), call and device times, the bound
      and its share, and K1 over the 96 B fb2 rows against the plain loop;
@@ -157,7 +173,8 @@ beside the phases before it, and runs:
      against the plain loop, the layouts' ranges equal, one launch a batch,
      the host rank over the 96 B rows on 256 lanes, final bounds above 2^31
      counted; the CPU engine and the analytic counts on the first reads;
-     rbt_align count, -s and -m and rbt_markers -f on the directory against
+     rbt_align count, -s and -m and rbt_markers -f (one greedy launch over
+     fb2_256) on the directory against
      the analytic oracle (counts, occurrence sets, marker multisets) and the
      CPU engine (locate, markers, greedy seeds); stages, reads/s; the
      record launch against its plain twin over every layout and lane set,
@@ -171,7 +188,9 @@ beside the phases before it, and runs:
      codes, bwt4/occ_blk), each index's tables held against the dense one's
      and its rbt_align count, -s and -m lines against the dense index's (the
      13-code index against its --device cpu run and the scalar oracle);
-     rbt_markers -f and rbt_locs on the raw index; the routes of the tables
+     rbt_markers -f and rbt_locs on the raw index (one greedy launch; the
+     sampled machine's per-step toehold, the one torch seeding loop the
+     run leaves on the card); the routes of the tables
      kernel (--no-dense: run-space, the 13-code index: dense, the raw index
      without its fused rows: occ1, count and toehold against K1's); the
      dense and occ1 searches timed against their twins on one batch;
@@ -184,8 +203,8 @@ beside the phases before it, and runs:
      a trace that names K1's kernel, and the card's busy seconds in it
      against the CLI's query seconds;
  16. greedy_trace: `rbt_markers -f --profile` on the reads of phase 11: the
-     same lines, the card's busy share, kernel launches per batch and the
-     largest device items;
+     same lines, the card's busy share, kernel launches per batch (below a
+     tenth of the torch loop's 37,404) and the largest device items;
  17. parallel_dp: main's reads split over 4 ranks (processes on cuda:0 over
      gloo, rowbowt_tpu_torch/parallel), the chr count tables replicated, K1
      on every rank: the gathered ranges equal phase main's; then one rank
@@ -203,7 +222,9 @@ Each multi-rank phase records reads/s over the query seconds, the
 all-reduces a step and their microseconds, and each rank's load seconds
 and peak device memory.
 Phases 11-14 count K1's
-launches (their paths are torch ops: 0 expected, not required); big_chr
+launches (0 expected, not required) and require the seeding kernel's
+(cuda_seeds.LAUNCHES_SEED: one a batch, two for --heuristic) with no torch
+seeding loop on the card (cuda_seeds.LAUNCHES_SEED_TORCH); big_chr
 counts the two-level K1's (cuda_lf.LAUNCHES_FB2): one a batch of its count
 and -m runs, none in -s, whose toehold search is the record launch
 (cuda_lf.LAUNCHES_REC, one a batch, and no run of the torch record loop,
@@ -593,16 +614,17 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    """The three nvcc builds and the g++ build, started together."""
+    """The four nvcc builds and the g++ build, started together."""
     from rowbowt_tpu_torch.construct import sa
-    from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi
+    from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi, cuda_seeds
 
     def seconds(fn):
         t = time.perf_counter()
         return fn(), time.perf_counter() - t
 
     builds = {"nvcc_lf": cuda_lf.build, "nvcc_gather_probe": cuda_gather.build,
-              "nvcc_phi_walk": cuda_phi.build, "host": sa._load_native}
+              "nvcc_phi_walk": cuda_phi.build, "nvcc_seeds": cuda_seeds.build,
+              "host": sa._load_native}
     with ThreadPoolExecutor(len(builds)) as ex:
         futures = {name: ex.submit(seconds, fn) for name, fn in builds.items()}
         done = {name: f.result() for name, f in futures.items()}
@@ -610,7 +632,7 @@ def phase_build() -> None:
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             for name, log in (("lf", cuda_lf.BUILD_LOG), ("gather_probe", cuda_gather.BUILD_LOG),
-                              ("phi_walk", cuda_phi.BUILD_LOG))}
+                              ("phi_walk", cuda_phi.BUILD_LOG), ("seeds", cuda_seeds.BUILD_LOG))}
     emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs)
 
 
@@ -1044,13 +1066,15 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     raw = {route: raw_tables(idx, codes, route) for route in ("tk1", "ltk")}
     toe = toehold_parity(device, raw, cases, kval)
     tab = tables_parity(device, idx, codes, raw["tk1"], cases, single, kval)
+    seeds = seeds_parity(device, idx, codes, q, ln, edges)
     emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
          nonempty=results, edges=[label for label, _, _ in edges],
          edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err,
          fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2,
-         rec_launches=launches3, rec_max_abs_err=err3, walk=walk, toehold=toe, tables=tab)
+         rec_launches=launches3, rec_max_abs_err=err3, walk=walk, toehold=toe, tables=tab,
+         seeds_parity=seeds)
     return {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3,
-            "lf_toehold": toe["max_abs_err"],
+            "lf_toehold": toe["max_abs_err"], **seeds["errs"],
             **{f"lf_tables_{name}": e for name, e in tab["errs"].items()},
             "phi_walk_phi1": walk["max_abs_err"]["phi1"],
             "phi_walk_rows": walk["max_abs_err"]["phi_rows"],
@@ -2171,19 +2195,28 @@ def oracle_seed_lines(idx, reads: np.ndarray, lmem: bool, wsize=MA_WSIZE, max_ra
     return out
 
 
-def phase_greedy(device, card: dict, chr_: dict) -> dict:
-    """The port's rbt_markers -f on the first N_GREEDY reads: against the CPU
-    run of the first N_GREEDY_CPU and the oracle on N_ORACLE reads; the stage
-    seconds are the CLI's own."""
+def phase_greedy(device, card: dict, chr_: dict, lat: float | None = None) -> dict:
+    """The port's rbt_markers -f on the first N_GREEDY reads: one launch of
+    the greedy machine a batch and no torch seeding loop; against the CPU run
+    of the first N_GREEDY_CPU and the oracle on N_ORACLE reads; the stage
+    seconds are the CLI's own.  Then seeds_times: the greedy machine on the
+    CLI's 65,536-lane batch, the lmem machine on one batch of the --lmem run
+    (phase lmem's reads) and the sampled machine on rbt_locs' batch (phase
+    locs'), each against its plain twin, with its work and bound (`lat`:
+    phase k1's dependent-load latency over a random cycle)."""
+    from rowbowt_tpu_torch.engine.device import TorchIndex
     from rowbowt_tpu_torch.ops import cuda_lf
 
     idx, paths = chr_["idx"], chr_["paths"]
     argv = ["-f", "-b", str(GREEDY_BATCH)]
-    cuda_lf.LAUNCHES = 0
+    reset_counts()
     cli, out_text, _ = run_seeding_cli(
         "rbt_markers", [paths["idx"], paths["greedy.fq"], *argv, "--device", str(device)],
         paths["out.txt"])
-    k1 = cuda_lf.LAUNCHES
+    k1, seeds = cuda_lf.LAUNCHES, seed_counts()
+    batches = -(-N_GREEDY // GREEDY_BATCH)
+    check(seeds == seed_launches(greedy=batches),
+          f"rbt_markers -f: {seeds}, not one greedy launch a batch and no torch loop")
     lines = out_text.splitlines(keepends=True)
     nums = np.array([read_no(ln) for ln in lines])
     check(len(lines) > 2 * N_GREEDY and np.all(np.diff(nums) >= 0)
@@ -2203,6 +2236,7 @@ def phase_greedy(device, card: dict, chr_: dict) -> dict:
           f"rbt_markers != the scalar oracle on the first {N_ORACLE} reads")
 
     n_markers = marker_count(lines)
+    tx = TorchIndex.from_index(idx, device)
     res = dict(reads=N_GREEDY, lanes=2 * N_GREEDY, batch=GREEDY_BATCH, **cli,
                cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
                cli_seeds_per_s=len(lines) / cli["cli_query_s"],
@@ -2211,10 +2245,42 @@ def phase_greedy(device, card: dict, chr_: dict) -> dict:
                seeds_with_markers=sum(not ln.endswith(" .\n") for ln in lines),
                cpu_reads=N_GREEDY_CPU, cpu_lines=n_first, cpu_query_s=cpu["cli_query_s"],
                cpu_stages=cpu["cli_stages"], oracle_reads=N_ORACLE, oracle_lines=len(want),
-               oracle_s=oracle_s, k1_launches=k1, card=card["nvidia_smi"])
+               oracle_s=oracle_s, k1_launches=k1, seed_launches=seeds,
+               seeds_times=seeds_times(tx, seed_batches(device, idx, tx, paths), lat),
+               card=card["nvidia_smi"])
     emit("greedy", **res)
     res["out_text"] = out_text
     return res
+
+
+def seed_batches(device, idx, tx, paths: dict) -> dict:
+    """{mode: (qcodes, lengths, cfg)} of one batch a machine as the CLIs build
+    it on the card: rbt_markers -f's first batch (both strands of
+    GREEDY_BATCH reads, the ftab start), the --lmem run's (every prefix of
+    both strands of its N_LMEM reads, lmem_expand) and rbt_locs' (GREEDY_BATCH
+    reads, min_length 19)."""
+    import torch
+
+    from rowbowt_tpu_torch.alphabet import normalize_read, revcomp
+    from rowbowt_tpu_torch.cli.common import iter_query_batches, pow2_at_least
+    from rowbowt_tpu_torch.engine.batch import encode_batch
+    from rowbowt_tpu_torch.engine.seeds import lmem_expand
+    from rowbowt_tpu_torch.io.fastq import read_seqs
+
+    def on_card(qc, lens):
+        return torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
+
+    _, qc, lens = next(iter(iter_query_batches(idx, paths["greedy.fq"], GREEDY_BATCH,
+                                               normalize=True, with_rc=True)))
+    greedy = on_card(qc, lens)
+    seqs = [s for _, r, _ in read_seqs(paths["lmem.fq"])
+            for s in (normalize_read(r), revcomp(normalize_read(r)))]
+    lanes = lmem_expand([s.tobytes() for s in seqs])[0]
+    lmem = on_card(*encode_batch(idx, lanes, pad_to=pow2_at_least(max(map(len, lanes)))))
+    _, qc, lens = next(iter(iter_query_batches(idx, paths["greedy.fq"], GREEDY_BATCH)))
+    sample = on_card(qc, lens)
+    return {mode: (q, ln, seed_cfg(tx, mode, q.shape[1]))
+            for mode, (q, ln) in (("greedy", greedy), ("lmem", lmem), ("sample", sample))}
 
 
 def phase_heuristic(device, card: dict, chr_: dict) -> dict:
@@ -2235,12 +2301,16 @@ def phase_heuristic(device, card: dict, chr_: dict) -> dict:
         return real_rc_lanes(idx, qc, lens)
 
     rbt_markers.rc_lanes = counted
-    cuda_lf.LAUNCHES = 0
+    reset_counts()
     try:
         cli, skip_text, _ = run_seeding_cli("rbt_markers", argv, paths["out.txt"])
     finally:
         rbt_markers.rc_lanes = real_rc_lanes
-    k1 = cuda_lf.LAUNCHES
+    k1, seeds = cuda_lf.LAUNCHES, seed_counts()
+    # one launch for each batch's forward strand, one for its compacted
+    # second-strand batch
+    check(seeds == seed_launches(greedy=-(-N_GREEDY // GREEDY_BATCH) + len(second)),
+          f"--heuristic: {seeds} for {len(second)} second-strand batches")
     both, both_text, _ = run_seeding_cli("rbt_markers", argv, paths["out.txt"],
                                          env={"RBT_NO_STRAND_SKIP": "1"})
     check(skip_text == both_text, "--heuristic: the strand skip changed the lines")
@@ -2254,7 +2324,8 @@ def phase_heuristic(device, card: dict, chr_: dict) -> dict:
                skipped_second_strand_share=1 - sum(second) / N_GREEDY,
                no_skip_query_s=both["cli_query_s"],
                no_skip_reads_per_s=N_GREEDY / both["cli_query_s"],
-               no_skip_stages=both["cli_stages"], k1_launches=k1, card=card["nvidia_smi"])
+               no_skip_stages=both["cli_stages"], k1_launches=k1, seed_launches=seeds,
+               card=card["nvidia_smi"])
     emit("heuristic", **res)
     return res
 
@@ -2265,11 +2336,12 @@ def phase_lmem(device, card: dict, chr_: dict) -> dict:
     from rowbowt_tpu_torch.ops import cuda_lf
 
     idx, paths = chr_["idx"], chr_["paths"]
-    cuda_lf.LAUNCHES = 0
+    reset_counts()
     cli, out_text, _ = run_seeding_cli(
         "rbt_markers", [paths["idx"], paths["lmem.fq"], "--lmem", "-b", str(N_LMEM),
                         "--device", str(device)], paths["out.txt"])
-    k1 = cuda_lf.LAUNCHES
+    k1, seeds = cuda_lf.LAUNCHES, seed_counts()
+    check(seeds == seed_launches(lmem=1), f"--lmem: {seeds}, not one lmem launch a batch")
     lines = out_text.splitlines(keepends=True)
     nums = np.array([read_no(ln) for ln in lines])
     check(len(lines) > N_LMEM and np.all(np.diff(nums) >= 0), "--lmem lines out of read order")
@@ -2281,7 +2353,7 @@ def phase_lmem(device, card: dict, chr_: dict) -> dict:
     res = dict(reads=N_LMEM, lanes=2 * N_LMEM * READ_LEN, **cli,
                cli_reads_per_s=N_LMEM / cli["cli_query_s"], seeds=len(lines),
                markers=marker_count(lines), oracle_reads=N_LMEM_ORACLE,
-               oracle_lines=len(want), oracle_s=oracle_s, k1_launches=k1,
+               oracle_lines=len(want), oracle_s=oracle_s, k1_launches=k1, seed_launches=seeds,
                card=card["nvidia_smi"])
     emit("lmem", **res)
     return res
@@ -2296,11 +2368,13 @@ def phase_locs(device, card: dict, chr_: dict) -> dict:
     from rowbowt_tpu_torch.ops import cuda_lf
 
     idx, paths, pm = chr_["idx"], chr_["paths"], chr_["pm"]
-    cuda_lf.LAUNCHES = 0
+    reset_counts()
     cli, out_text, _ = run_seeding_cli(
         "rbt_locs", [paths["idx"], paths["greedy.fq"], "-b", str(GREEDY_BATCH),
                      "--device", str(device)], paths["out.txt"])
-    k1 = cuda_lf.LAUNCHES
+    k1, seeds = cuda_lf.LAUNCHES, seed_counts()
+    check(seeds == seed_launches(sample=-(-N_GREEDY // GREEDY_BATCH)),
+          f"rbt_locs: {seeds}, not one sampled-machine launch a batch")
     lines = out_text.splitlines(keepends=True)
     check(len(lines) == N_GREEDY and all(read_no(ln) == i for i, ln in enumerate(lines)),
           f"rbt_locs printed {len(lines)} lines, not one per read in order")
@@ -2320,10 +2394,301 @@ def phase_locs(device, card: dict, chr_: dict) -> dict:
                cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
                reads_with_markers=sum(len(ln.split()) > 1 for ln in lines),
                markers=sum(len(ln.split()) - 1 for ln in lines), oracle_reads=N_ORACLE,
-               oracle_s=oracle_s, k1_launches=k1, card=card["nvidia_smi"])
+               oracle_s=oracle_s, k1_launches=k1, seed_launches=seeds, card=card["nvidia_smi"])
     emit("locs", **res)
     res["out_text"] = out_text
     return res
+
+
+# ---------------- the seeding machines (csrc/seeds.cu) ----------------
+
+SEED_RANDOM_LANES = 4_096  # random-code lanes beside the parity batch: replays that meet an empty step
+SEED_STEP_OPS = 16  # int32 operations of a machine step beside its ranks: tests, selects, slots
+
+
+def seed_counts() -> dict:
+    """The seeding machines' routes since the last reset: kernel launches by
+    machine (cuda_seeds.LAUNCHES_SEED) and runs of their torch loops on the
+    card (torch_<name>: cuda_seeds.LAUNCHES_SEED_TORCH)."""
+    from rowbowt_tpu_torch.ops import cuda_seeds
+
+    return dict(cuda_seeds.LAUNCHES_SEED,
+                **{f"torch_{k}": v for k, v in cuda_seeds.LAUNCHES_SEED_TORCH.items()})
+
+
+def seed_launches(**kw) -> dict:
+    """seed_counts()'s dict with the given counts and every other 0."""
+    return dict(dict.fromkeys(seed_counts(), 0), **kw)
+
+
+def seed_cfg(tx, mode: str, L: int, small: bool = False, ftab: bool = True) -> dict:
+    """The parameters of machine `mode` as its engine derives them for codes
+    of width L (rbt_markers' window of MA_WSIZE, 8 seeds, the records its
+    engine allots, max_range 2^62 clamped to the lane type; rbt_locs'
+    min_length 19; the ftab start where the index has one and L reaches its
+    k), or with `small` capacities that overflow: 2 seeds, 3 (greedy) or 2
+    (lmem) records, max_range 20, sample's min_length 0."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import rank as R
+
+    mr = min(20 if small else 1 << 62, torch.iinfo(tx.idx_dtype).max)
+    k = tx.ftab_k if ftab and tx.has_ftab and L >= tx.ftab_k > 0 else 0
+    if mode == "greedy":
+        return dict(k=k, wsize=MA_WSIZE, max_range=mr, S=2 if small else 8,
+                    W=3 if small else 2 * (L // MA_WSIZE) + 4)
+    if mode == "lmem":
+        return dict(k=k, wsize=MA_WSIZE, max_range=mr, S=1, W=2 if small else L // MA_WSIZE + 2)
+    return dict(min_length=0 if small else 19, S=2 if small else 8,
+                record=cuda_lf.row_layout(tx) in R.FB2_KEYS)
+
+
+def seed_records(tx, mode: str, q, ln, cfg: dict, plain: bool) -> dict:
+    """Machine `mode`'s record tables over (q, ln) with cfg: the kernel's
+    (cuda_seeds.launch_machine, one launch) or its plain twin's (the
+    engine's *_records_plain torch loop)."""
+    from rowbowt_tpu_torch.engine import seeds as S
+    from rowbowt_tpu_torch.ops import cuda_seeds
+
+    if not plain:
+        return cuda_seeds.launch_machine(tx, mode, q, ln, **cfg)
+    if mode == "greedy":
+        return S.markers_greedy_records_plain(tx, q, ln, cfg["wsize"], cfg["max_range"],
+                                              cfg["S"], cfg["k"], cfg["W"])
+    if mode == "lmem":
+        return S.markers_lmem_records_plain(tx, q, ln, cfg["wsize"], cfg["max_range"], cfg["k"],
+                                            cfg["W"])
+    return S.seeds_sample_records_plain(tx, q, ln, cfg["min_length"], cfg["S"],
+                                        "trajectory" if cfg["record"] else "kval")
+
+
+def records_err(got: dict, want: dict) -> int:
+    """max |err| over every record table (the same tables, or a failed check)."""
+    check(sorted(got) == sorted(want), f"record tables {sorted(got)} != {sorted(want)}")
+    return max_abs_err([got[k] for k in want], [want[k] for k in want])
+
+
+def seeds_parity(device, idx, codes, q, ln, edges) -> dict:
+    """The seeding kernel (cuda_seeds.launch_machine) against its plain twins
+    (the engines' *_records_plain torch loops, run on the card), every record
+    table equal: over the small panel's fblock64 rows (int32 lanes) and its
+    BigIndex view's fb2_64 rows (int64 lanes; the sampled machine with its
+    step record there), the dense index's ftab attached to both; greedy and
+    lmem with the ftab start and without, each at its engine's capacities
+    and at capacities that overflow (seed_cfg small), on the parity batch
+    and SEED_RANDOM_LANES random-code lanes; each machine at its engine's
+    capacities at the edges of k1_edges (the unstaged L = 3,072 for the
+    sampled machine only).  One launch a call.  Returns {"errs": {kernel:
+    max |err|}, "launches", "stats"}."""
+    import dataclasses
+
+    import torch
+
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SMALL["seed"] + 7)
+    rq, rl = random_lanes(rng, SEED_RANDOM_LANES, q.shape[1], idx.A)
+    cases = [("batch", q, ln), ("random", torch.from_numpy(rq).to(device),
+                                torch.from_numpy(rl).to(device))]
+    dense = TorchIndex.from_index(idx, device)
+    big = TorchIndex.from_big(BigIndex.from_codes(codes, idx.alpha, n_sup=4), device)
+    big = dataclasses.replace(big, arrays=dict(big.arrays, ftab=dense.arrays["ftab"]),
+                              ftab_k=dense.ftab_k)
+    errs = dict.fromkeys(("seeds_greedy", "seeds_lmem", "seeds_sample", "seeds_sample_rec"), 0)
+    calls = dict.fromkeys(("greedy", "lmem", "sample", "sample_rec"), 0)
+    stats = {}
+    reset_counts()
+    for layout, tx in (("fblock64", dense), ("fb2_64", big)):
+        check(cuda_lf.row_layout(tx) == layout, f"seeds parity over {cuda_lf.row_layout(tx)}")
+        for mode in ("greedy", "lmem", "sample"):
+            rec = mode == "sample" and layout == "fb2_64"
+            name = "sample_rec" if rec else mode
+            todo = [(label, qe, le, small, ftab) for label, qe, le in cases
+                    for small in (False, True) for ftab in (True, False)
+                    if mode != "sample" or ftab]
+            todo += [(label, qe, le, False, True) for label, qe, le in edges
+                     if label != "L=3072 unstaged" or mode == "sample"]
+            for label, qe, le, small, ftab in todo:
+                cfg = seed_cfg(tx, mode, qe.shape[1], small, ftab)
+                got = seed_records(tx, mode, qe, le, cfg, plain=False)
+                want = seed_records(tx, mode, qe, le, cfg, plain=True)
+                torch.cuda.synchronize()
+                e = records_err(got, want)
+                tag = f"{layout},{mode},{label},{'small' if small else 'engine'}," \
+                      f"{'ftab' if cfg.get('k') else 'full'}"
+                check(e == 0, f"the seeding kernel != its plain twin at {tag}: max |err| {e}")
+                errs[f"seeds_{name}"] = max(errs[f"seeds_{name}"], e)
+                calls[name] += qe.shape[0] > 0
+                if label in ("batch", "random"):
+                    st = {"seeds": int(want["ns"].sum())} if "ns" in want else {}
+                    if "ns" in want:
+                        st["lanes_past_S"] = int((want["ns"] > cfg["S"]).sum())
+                    if "nrec" in want:
+                        st.update(records=int(want["nrec"].sum()),
+                                  lanes_past_W=int((want["nrec"] > cfg["W"]).sum()))
+                    stats[tag] = st
+    launches = seed_counts()
+    check(launches == seed_launches(**calls), f"seeds parity launches {launches} for {calls}")
+    # the reads overflow the small record capacities, the random lanes the
+    # small seed capacity
+    for layout in ("fblock64", "fb2_64"):
+        for mode in ("greedy", "lmem"):
+            reads = stats[f"{layout},{mode},batch,small,ftab"]
+            check(reads["lanes_past_W"] > 0, f"seeds parity: no record overflow at {layout},"
+                  f"{mode}: {reads}")
+        rand = stats[f"{layout},greedy,random,small,ftab"]
+        check(rand["lanes_past_S"] > 0, f"seeds parity: no seed overflow at {layout}: {rand}")
+    return dict(errs=errs, launches=launches, stats=stats, s=time.perf_counter() - t0)
+
+
+def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
+    """What one batch asks of machine `mode`, by a replay of its plain twin
+    with its LF step counted (ops/rank.lf_step_auto wrapped for the call):
+    the codes of the reads; the LF steps the kernel takes (a lane's active
+    steps: to its length, for lmem to its failure, less greedy's replay
+    steps that hold the full range, which load nothing); ranked steps (a
+    code in [0, A)); row loads (one or two a ranked step, none for a
+    position n); distinct rows; distinct ftab entries read; the longest
+    lane's ranked steps; the bytes of the record tables it writes."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import rank as R
+
+    B, L = q.shape
+    n, dt, A = tx.n, tx.idx_dtype, tx.A
+    dev = q.device
+    shift = cuda_lf._SYMS_PER_ROW[cuda_lf.row_layout(tx)].bit_length() - 1
+    steps = []
+    real = R.lf_step_auto
+    step = real(tx)
+
+    def counted(tx_, lo, hi, c):
+        nlo, nhi = step(tx_, lo, hi, c)
+        steps.append((lo, hi, c, nlo <= nhi))
+        return nlo, nhi
+
+    R.lf_step_auto = lambda tx_: counted
+    try:
+        rec = seed_records(tx, mode, q, ln, cfg, plain=True)
+    finally:
+        R.lf_step_auto = real
+    m = ln.to(dt)
+    k = cfg.get("k", 0)
+    i0 = torch.zeros(B, dtype=dt, device=dev)
+    ftab_entries = 0
+    if k:
+        kc = R.kmer_codes(tx, q[:, L - k:])
+        hit = R.ftab_lookup(tx, kc)[2] & (m >= k)
+        read = (kc >= 0) & (m >= k)
+        ftab_entries = int(torch.unique(kc[read]).numel())
+        i0 = torch.where(hit if mode == "greedy" else m >= k, k, 0).to(dt)
+    rp = torch.zeros(B, dtype=dt, device=dev)
+    rpmiss = torch.zeros(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    lane_ranked = torch.zeros(B, dtype=torch.int64, device=dev)
+    lf_steps = ranked = two = 0
+    rows = []
+    for t, (lo, hi, c, ne) in enumerate(steps):
+        if mode == "sample":
+            load = t < m
+        else:
+            active = (t < m - i0) & ~done
+            load = active
+            if mode == "greedy" and k:
+                normal = active & (rp == 0)
+                hit = normal & ~ne & (m - i0 - t - 1 >= k)
+                rstep = active & (rp > 0)
+                load = active & (normal | ~rpmiss)
+                held = rpmiss | (rstep & ~ne)
+                rpmiss = torch.where(hit, False, held)
+                rp = torch.where(hit, k, torch.where(rstep, rp - 1, rp))
+            if mode == "lmem":
+                done = done | (active & ~ne)
+        rk = load & (c >= 0) & (c < A)
+        has0 = rk & (lo < n)
+        has1 = rk & (hi + 1 < n)
+        differ = has1 & (~has0 | (((hi + 1) >> shift) != (lo >> shift)))
+        lf_steps += int(load.sum())
+        ranked += int(rk.sum())
+        two += int(differ.sum())
+        lane_ranked += rk
+        rows += [(lo >> shift)[has0], ((hi + 1) >> shift)[differ]]
+    return dict(codes=int(m.clamp(max=L).sum()), lf_steps=lf_steps, ranked_steps=ranked,
+                row_loads=int(sum(r.numel() for r in rows)), two_row_steps=two,
+                distinct_rows=int(torch.unique(torch.cat(rows)).numel()) if rows else 0,
+                ftab_entries=ftab_entries, longest_lane_ranked_steps=int(lane_ranked.max()),
+                out_bytes=sum(t.numel() * t.element_size() for t in rec.values()))
+
+
+def seed_bound(work: dict, B: int, tx, lat: float | None) -> dict:
+    """The bound of one seeding launch from its work: bytes (each input byte
+    read once: the reads' int32 codes, the lengths, F, the distinct rows,
+    the distinct ftab entries, the two-level rows' base table; each output
+    written once: the record tables) over the card's memory rate;
+    operations (two SWAR ranks a ranked step, RANK_OPS each, and
+    SEED_STEP_OPS a step) over its int32 rate; with `lat` (µs of a dependent
+    load over a random cycle of the chr table's size, phase k1) the longest
+    lane's ranked steps times it.  bound_ms is the larger of the byte and
+    operation times; bound_us the larger of the byte and latency times."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import rank as R
+
+    key = cuda_lf.row_layout(tx)
+    lane = tx.arrays["F"].element_size()
+    base = tx.arrays["fb2_base"].numel() * 8 if key in R.FB2_KEYS else 0
+    nbytes = (work["codes"] * 4 + B * 4 + (tx.A + 1) * lane
+              + work["distinct_rows"] * tx.arrays[key].shape[1] * 4 + work["ftab_entries"] * 8
+              + base + work["out_bytes"])
+    ops = 2 * RANK_OPS * work["ranked_steps"] + SEED_STEP_OPS * work["lf_steps"]
+    byte_us = nbytes / HBM_BYTES_PER_S * 1e6
+    ops_us = ops / INT_OPS_PER_S * 1e6
+    b = dict(bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
+             bound_ms=max(byte_us, ops_us) / 1e3,
+             bound_by="bytes" if byte_us >= ops_us else "operations")
+    if lat is not None:
+        latency = work["longest_lane_ranked_steps"] * lat
+        b.update(latency_bound_us=latency, bound_us=max(byte_us, latency),
+                 bound_us_by="bytes" if byte_us >= latency else "latency")
+    return b
+
+
+def seeds_times(tx, runs: dict, lat: float | None) -> dict:
+    """Each machine of `runs` ({mode: (q, ln, cfg)}, one batch each) on tx:
+    equal to its plain twin (max |err| 0); the call ms in turns with the
+    twin (plain, kernel, kernel, plain); the launch alone (CUDA events just
+    around it) and in one profiler trace; the work (seed_work), the bound
+    (seed_bound) and its share."""
+    import torch
+
+    out = {}
+    for mode, (q, ln, cfg) in runs.items():
+        def kern(mode=mode, q=q, ln=ln, cfg=cfg):
+            return seed_records(tx, mode, q, ln, cfg, plain=False)
+
+        def plain(mode=mode, q=q, ln=ln, cfg=cfg):
+            return seed_records(tx, mode, q, ln, cfg, plain=True)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        e = records_err(got, want)
+        check(e == 0, f"the {mode} machine != its plain twin on the timed batch: max |err| {e}")
+        B, L = q.shape
+        r = dict(lanes=B, L=L, cfg=cfg, max_abs_err=e)
+        r["call_ms"], r["plain_ms"] = in_turns([plain], [kern], 1, 10)
+        r["device_us"] = kernel_event_us([around(kern)], 10)
+        r["profiled_us"] = profiled_kernel_us([kern], 3, ("seed_machine_kernel",))[
+            "seed_machine_kernel"]
+        r["work"] = seed_work(tx, mode, q, ln, cfg)
+        b = seed_bound(r["work"], B, tx, lat)
+        r.update(bound=b, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                 share=b["bound_us"] / r["device_us"] if "bound_us" in b else None)
+        out[mode] = r
+    return out
 
 
 def phase_greedy_trace(device, card: dict, chr_: dict, greedy: dict) -> dict:
@@ -2349,6 +2714,9 @@ def phase_greedy_trace(device, card: dict, chr_: dict, greedy: dict) -> dict:
         by_name[name] = by_name.get(name, 0.0) + dur
     busy_s = busy_us(events) / 1e6
     n_batches = -(-N_GREEDY // GREEDY_BATCH)
+    # 37,404 a batch while the greedy machine was a torch loop
+    check(len(kernels) / n_batches < 3_740,
+          f"rbt_markers -f launched {len(kernels) / n_batches} kernels a batch")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     res = dict(reads=N_GREEDY, batches=n_batches, **cli, trace_mb=os.path.getsize(path) / 1e6,
                device_events=len(events), kernel_launches=len(kernels),
@@ -2671,10 +3039,13 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
           == [dict(walk=0, walk_torch=0), dict(walk=1, walk_torch=0), dict(walk=0, walk_torch=0)],
           f"rbt_align -s on the PFP panel: one walk kernel launch and no torch walk: {runs}")
     res["walk"] = big_walk(device, path, fq["locate"])
-    cuda_lf.LAUNCHES_FB2 = 0
+    reset_counts()
     cli, g_text, _ = run_seeding_cli("rbt_markers", [path, fq["greedy"], "-f", "-b",
                                                      str(GREEDY_BATCH), "--device", str(device)],
                                      out_txt)
+    g_seeds = seed_counts()
+    check(g_seeds == seed_launches(greedy=-(-N_GREEDY // GREEDY_BATCH)),
+          f"rbt_markers -f on the PFP panel: {g_seeds}, not one greedy launch a batch")
     seeds = {}
     for ln in g_text.splitlines():
         key = (read_no(ln), ln.split()[2])
@@ -2690,7 +3061,7 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
           "rbt_markers -f seeds per read and strand != cpu_backend.greedy_fb2's")
     runs["markers_f"] = dict(cli, reads=N_GREEDY, cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
                              seeds=len(g_text.splitlines()), launches=cuda_lf.LAUNCHES_FB2,
-                             cpu_reads_per_s=N_PFP_CPU / cpu_s)
+                             seed_launches=g_seeds, cpu_reads_per_s=N_PFP_CPU / cpu_s)
     res.update(runs=runs, dir_gb=dir_gb(path), dir_128_gb=dir_gb(path + "_128"),
                cpu_checked=N_PFP_CPU, analytic_checked=n_par, card=card["nvidia_smi"])
     emit("pfp_big", **res)
@@ -2858,9 +3229,12 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
 
     # rbt_markers -f and rbt_locs on the big directory
     argv = ["-f", "-b", str(GREEDY_BATCH), "--device", dev_s]
-    cuda_lf.LAUNCHES_FB2 = 0
+    reset_counts()
     cli, g_text, g_err = run_seeding_cli("rbt_markers", [path, paths["greedy.fq"], *argv],
                                          paths["out.txt"])
+    g_seeds = seed_counts()
+    check(g_seeds == seed_launches(greedy=-(-N_GREEDY // GREEDY_BATCH)),
+          f"rbt_markers -f on the big directory: {g_seeds}, not one greedy launch a batch")
     check("note: big artifacts carry no ftab; running without it" in g_err.splitlines(),
           "rbt_markers -f did not note the missing ftab")
     lines = g_text.splitlines(keepends=True)
@@ -2877,15 +3251,20 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
           f"rbt_markers on the big directory != the scalar oracle on the first {N_ORACLE} reads")
     runs["markers_f"] = dict(cli, cli_reads_per_s=N_GREEDY / cli["cli_query_s"],
                              reads=N_GREEDY, seeds=len(lines), launches=cuda_lf.LAUNCHES_FB2,
+                             seed_launches=g_seeds,
                              dense_no_ftab_query_s=dense["cli_query_s"], dense_no_ftab_reads=N_GREEDY_CPU,
                              oracle_reads=N_ORACLE, oracle_s=oracle_s)
-    cuda_lf.LAUNCHES_FB2 = 0
+    reset_counts()
     cli, l_text, _ = run_seeding_cli(
         "rbt_locs", [path, paths["greedy.fq"], "-b", str(GREEDY_BATCH), "--device", dev_s],
         paths["out.txt"])
+    l_seeds = seed_counts()
     check(l_text == locs["out_text"], "rbt_locs on the big directory != the dense index's lines")
+    check(l_seeds == seed_launches(sample_rec=-(-N_GREEDY // GREEDY_BATCH)),
+          f"rbt_locs on the big directory: {l_seeds}, not one record launch of the sampled "
+          "machine a batch")
     runs["locs"] = dict(cli, cli_reads_per_s=N_GREEDY / cli["cli_query_s"], reads=N_GREEDY,
-                        launches=cuda_lf.LAUNCHES_FB2)
+                        launches=cuda_lf.LAUNCHES_FB2, seed_launches=l_seeds)
 
     # K1 over the two-level rows on the main path's batches
     big = BigIndex.load(path)
@@ -2943,6 +3322,12 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     res["resident_mb"] = {k: v.numel() * v.element_size() / 1e6 for k, v in TorchIndex.from_big(
         big, device).arrays.items()}
     res["walk"] = big_walk(device, path, paths["locate.fq"])
+    # the sampled machine with its step record (rbt_locs' route here) on
+    # rbt_locs' first batch over fb2_64
+    _, qc, lens = next(iter(iter_query_batches(big, paths["greedy.fq"], GREEDY_BATCH)))
+    q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
+    res["seeds_rec"] = seeds_times(tx, {"sample": (q, ln, seed_cfg(tx, "sample", q.shape[1]))},
+                                   k1["us_per_dependent_step"]["random_cycle"])["sample"]
     emit("big_chr", **res, card=card["nvidia_smi"])
     del tx, txd, tx96, dev, plain
     torch.cuda.empty_cache()
@@ -3106,13 +3491,14 @@ def walk_counts() -> dict:
 
 
 def reset_counts() -> None:
-    """Every route count to 0 (the count search's and the phi walk's), and
-    the runs of the torch record loop."""
-    from rowbowt_tpu_torch.ops import cuda_lf, cuda_phi
+    """Every route count to 0 (the count search's, the phi walk's and the
+    seeding machines'), and the runs of the torch record loop."""
+    from rowbowt_tpu_torch.ops import cuda_lf, cuda_phi, cuda_seeds
 
     cuda_lf.LAUNCHES = cuda_lf.LAUNCHES_FB2 = 0
     cuda_lf.LAUNCHES_REC = cuda_lf.RECORDS_PLAIN = cuda_lf.LAUNCHES_TOE = 0
-    for counts in (cuda_lf.LAUNCHES_TAB, cuda_lf.LAUNCHES_TAB_TOE):
+    for counts in (cuda_lf.LAUNCHES_TAB, cuda_lf.LAUNCHES_TAB_TOE, cuda_seeds.LAUNCHES_SEED,
+                   cuda_seeds.LAUNCHES_SEED_TORCH):
         counts.update(dict.fromkeys(counts, 0))
     cuda_phi.LAUNCHES = cuda_phi.LAUNCHES_TORCH = 0
 
@@ -3950,8 +4336,16 @@ def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
             cli, outs[x], _ = run_seeding_cli(tool, [p[x], fq["seeding"], *argv, "-b",
                                                      str(GREEDY_BATCH), "--device", str(device)],
                                               out_txt)
+            # the raw index has fused rows but no kval: rbt_locs' sampled
+            # machine carries its toehold step by step, a torch loop
+            want_seeds = (seed_launches(greedy=1) if tool == "rbt_markers" else
+                          seed_launches(sample=1) if x == "dense" else
+                          seed_launches(torch_sample_per_step=1))
+            check(seed_counts() == want_seeds,
+                  f"{tool} on the small {x}: {seed_counts()}, not {want_seeds}")
             seeding[f"{tool}_{x}"] = dict(cli, reads=N_SMALL_SEEDING,
-                                          cli_reads_per_s=N_SMALL_SEEDING / cli["cli_query_s"])
+                                          cli_reads_per_s=N_SMALL_SEEDING / cli["cli_query_s"],
+                                          seed_launches=seed_counts())
         check(outs["dense"] == outs["raw_idx"] and outs["dense"],
               f"{tool} on the raw index != the dense index")
     res = dict(n=dense.n, R=dense.R, A_iupac=iu.A, builds=builds, builders_s=builders_s,
@@ -4531,8 +4925,8 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     return res
 
 
-SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small", "nodense_chr", "parallel_dp",
-              "parallel_sharded", "parallel_stream")
+SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small", "nodense_chr", "greedy",
+              "heuristic", "lmem", "locs", "parallel_dp", "parallel_sharded", "parallel_stream")
 
 
 def main(argv: list[str]) -> int:
@@ -4598,6 +4992,15 @@ def main(argv: list[str]) -> int:
                     phase_nodense_chr(device, card, chr_, count,
                                       phase_locate(device, card, chr_, count),
                                       phase_markers(device, card, chr_, count), k1)
+                elif name == "greedy":
+                    phase_greedy(device, card, chr_main()[0],
+                                 k1_phase()["us_per_dependent_step"]["random_cycle"])
+                elif name == "heuristic":
+                    phase_heuristic(device, card, chr_main()[0])
+                elif name == "lmem":
+                    phase_lmem(device, card, chr_main()[0])
+                elif name == "locs":
+                    phase_locs(device, card, chr_main()[0])
                 elif name == "parallel_dp":
                     phase_parallel_dp(device, card, *chr_main())
                 elif name == "parallel_sharded":
@@ -4623,9 +5026,9 @@ def main(argv: list[str]) -> int:
         raw = phase_raw_chr(device, card, chr_, count, loc, markers, k1)
         nodense = phase_nodense_chr(device, card, chr_, count, loc, markers, k1)
         chain = phase_phi_chain(device, card, loc, k1)
-        greedy = phase_greedy(device, card, chr_)
+        greedy = phase_greedy(device, card, chr_, k1["us_per_dependent_step"]["random_cycle"])
         phase_heuristic(device, card, chr_)
-        phase_lmem(device, card, chr_)
+        lmem = phase_lmem(device, card, chr_)
         locs = phase_locs(device, card, chr_)
         big_chr = phase_big_chr(device, card, chr_, count, k1, loc, markers, locs)
         pfp_big = phase_pfp_big(device, card, child, k1)
@@ -4637,7 +5040,7 @@ def main(argv: list[str]) -> int:
         phase_parallel_stream(device, card, chr_, count, big_chr["path"])
         print(json.dumps({"kernels": kernel_record(count, k1, probes, par_err, chain,
                                                    big_chr, pfp_big, par_dp, loc, raw,
-                                                   nodense, small)}))
+                                                   nodense, small, greedy, lmem, locs)}))
         print(card["nvidia_smi"])
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4650,7 +5053,7 @@ def main(argv: list[str]) -> int:
 
 def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dict,
                   big_chr: dict, pfp_big: dict, par_dp: dict, loc: dict, raw: dict,
-                  nodense: dict, small: dict) -> list:
+                  nodense: dict, small: dict, greedy: dict, lmem: dict, locs: dict) -> list:
     """One entry per kernel of the port: launches on the main path, max |err|
     against the plain twin, call time (`ms`, CUDA events) beside the plain
     twin's and the library call's, device time alone (`device_us`, CUDA
@@ -4678,7 +5081,12 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     nodense_chr, timed on one batch of each), lf_tables_dense (rbt_align
     count on build_small's index of 13 codes) and lf_tables_occ1 and
     lf_tables_occ1_toehold (build_small's raw index without its fused rows),
-    their max |err| also over phase parity."""
+    their max |err| also over phase parity.  The seeding kernel has an entry
+    a machine: seeds_greedy (main path rbt_markers -f on chr), seeds_lmem
+    (rbt_markers --lmem), seeds_sample (rbt_locs), each timed on one batch
+    of its path in phase greedy, and seeds_sample_rec (rbt_locs on the
+    big_chr directory, timed there), their max |err| also over phase
+    parity."""
     kernels = []
     for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
             ("lf_count", k1["bound"], count,
@@ -4749,6 +5157,26 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
             "bound_by": t["bound_by"], "library_ms": None, "device_us": t["device_us"],
             "profiled_us": t["profiled_us"], "bound_us": t["bound"]["bound_us"],
             "bound_us_by": t["bound"]["bound_us_by"]})
+    # the seeding machines: their main paths are rbt_markers -f, --lmem and
+    # rbt_locs on chr, and rbt_locs on the big_chr directory
+    loops = {"greedy": "seeds.py:348", "lmem": "seeds.py:500", "sample": "seeds.py:112-117",
+             "sample_rec": "seeds.py:112-117"}
+    for name, t, launches in (
+            ("greedy", greedy["seeds_times"]["greedy"], greedy["seed_launches"]["greedy"]),
+            ("lmem", greedy["seeds_times"]["lmem"], lmem["seed_launches"]["lmem"]),
+            ("sample", greedy["seeds_times"]["sample"], locs["seed_launches"]["sample"]),
+            ("sample_rec", big_chr["seeds_rec"],
+             big_chr["runs"]["locs"]["seed_launches"]["sample_rec"])):
+        b = t["bound"]
+        kernels.append({
+            "name": f"seeds_{name}", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/seeds.cu",
+            "replaces": f"rowbowt_tpu/ops/pallas_lf.py:49 (K1's rank, each step) and "
+                        f"rowbowt_tpu/engine/{loops[name]} (an XLA fori_loop in the JAX package)",
+            "launches": launches, "max_abs_err": max(par_err[f"seeds_{name}"], t["max_abs_err"]),
+            "ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "device_us": t["device_us"],
+            "profiled_us": t["profiled_us"], "bound_us": b["bound_us"],
+            "bound_us_by": b["bound_us_by"]})
     byte_us = probe_byte_us()
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
         p = probes[name]

@@ -29,11 +29,12 @@ class BuildError(RuntimeError):
 
 
 def build_shared(name: str, cmd: list[str], sources: list[str],
-                 libs: tuple[str, ...] = ()) -> tuple[str, str]:
+                 libs: tuple[str, ...] = (), headers: tuple[str, ...] = ()) -> tuple[str, str]:
     """Compile `sources` with `cmd` into a shared library; returns (path,
-    compiler output).  The output is "" when the library was already built."""
+    compiler output).  The output is "" when the library was already built.
+    `headers`, the files the sources include, are hashed with them."""
     h = hashlib.sha256(" ".join(cmd + list(libs)).encode())
-    for src in sources:
+    for src in list(sources) + list(headers):
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
@@ -82,8 +83,12 @@ def build_host_library() -> tuple[str, str]:
 def build_cuda_library(stem: str) -> tuple[str, str]:
     """One hand-written Hopper kernel source, csrc/<stem>.cu, for sm_90a, into
     its own library: each source builds with its own nvcc, so the builds can
-    run side by side."""
+    run side by side.  The headers of csrc/ (lf_rank.cuh, which lf.cu and
+    seeds.cu include) are part of every library's hash."""
     nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-    return build_shared(f"librbt_{stem}", cmd, [os.path.join(CSRC_DIR, f"{stem}.cu")])
+    headers = tuple(os.path.join(CSRC_DIR, f) for f in sorted(os.listdir(CSRC_DIR))
+                    if f.endswith(".cuh"))
+    return build_shared(f"librbt_{stem}", cmd, [os.path.join(CSRC_DIR, f"{stem}.cu")],
+                        headers=headers)

@@ -1,0 +1,221 @@
+// The LF step of K1 over fused-block rows, shared by the kernels that step
+// on it: lf.cu (K1, lf_count_kernel, and the tables kernel's staging) and
+// seeds.cu (the seeding state machines of rbt_markers and rbt_locs).
+//
+// Row contract (rowbowt_tpu_torch/construct/build.py build_fblock and
+// fblock_to_fb64): int32[8 + SYMS/8] per row = 8 exclusive per-code
+// checkpoints, then SYMS 4-bit symbols packed 8 per word, symbol j of a word
+// at bits [4j, 4j+4).  On the two-level rows of a big index the checkpoints
+// count from the start of the row's superblock (per_blk rows), and base[s][c]
+// (int64) is the count of c before superblock s.  A lane's kG neighbouring
+// threads of one warp share a rank: each loads every other 16-byte part of
+// a row, and one shuffle sums their shares (lf.cu says why).
+//
+// Everything here sits in an anonymous namespace: each .cu file that
+// includes it builds into a library of its own.
+
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kCkpt = 8;
+// staged codes per block: under the 48 KB a block may use without opting in,
+// with room for the kernel's static shared memory
+constexpr int kMaxStagedBytes = 47 * 1024;
+constexpr int kAbsent = 0xFF;  // staged byte of code -1 (absent from the index, pad)
+constexpr int kOther = 0xFE;   // staged byte of any other code outside [0, A)
+constexpr int kG = 2;          // threads per lane, neighbours in a warp
+
+template <int SYMS>
+struct Layout {
+  static constexpr int kWords = SYMS / 8;         // packed words per row
+  static constexpr int kRow = kCkpt + kWords;     // int32 lanes per row
+  static constexpr int kVec = kRow / 4;           // int4 parts per row
+  static constexpr int kShift = SYMS == 64 ? 6 : SYMS == 128 ? 7 : 8;
+  static_assert(SYMS == 64 || SYMS == 128 || SYMS == 256, "64-, 128- or 256-symbol rows");
+  static_assert(kRow % 4 == 0, "rows are whole 16-byte vectors");
+  static constexpr int kPer = kVec / kG;          // parts of a row per thread
+  static_assert(kVec % kG == 0, "each thread of a lane holds as many parts");
+};
+
+__device__ __forceinline__ int lane_of(const int4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int code_byte(int c, int A) {
+  return (unsigned)c < (unsigned)A ? c : c == -1 ? kAbsent : kOther;
+}
+
+// Bytes per lane of the staged codes: L rounded up to whole words, with an
+// odd number of words, so that the lanes of a warp read distinct banks.
+__host__ __device__ __forceinline__ int staged_stride(int L) {
+  return ((L + 3) & ~3) | 4;
+}
+
+// Mask of the kn lowest nibbles of a word, kn in [0, 8] (1u << 32 is
+// undefined in C++, so kn == 8 takes the whole word).
+__device__ __forceinline__ uint32_t below(int kn) {
+  kn = min(max(kn, 0), 8);
+  return kn >= 8 ? 0xFFFFFFFFu : (1u << (4 * kn)) - 1u;
+}
+
+// Count of the nibbles equal to c (pat = c in every nibble) among the kn
+// lowest nibbles of the word x.
+__device__ __forceinline__ int nibbles_below(uint32_t x, uint32_t pat, int kn) {
+  x ^= pat;
+  const uint32_t t = x | (x >> 1) | (x >> 2) | (x >> 3);
+  return __popc(~t & 0x11111111u & below(kn));
+}
+
+// Stages the codes of a block's nl lanes, the rows of the [B, L] batch from
+// src on, into shared memory: one byte a code (code_byte), `stride` bytes a
+// lane, with 16-byte loads where the rows allow them.
+__device__ __forceinline__ void stage_codes(uint8_t* s_code, const int32_t* __restrict__ src,
+                                            int nl, int L, int A, int stride) {
+  if ((L & 3) == 0 && ((uintptr_t)src & 15) == 0) {
+    // 16-byte loads: four codes in, one word of four bytes out
+    const int4* src4 = reinterpret_cast<const int4*>(src);
+    const int wpl = L / 4;  // words per lane
+    for (int i = threadIdx.x; i < nl * wpl; i += blockDim.x) {
+      const int4 c = src4[i];
+      const int r = i / wpl;
+      *reinterpret_cast<uint32_t*>(s_code + r * stride + 4 * (i - r * wpl)) =
+          (uint32_t)code_byte(c.x, A) | (uint32_t)code_byte(c.y, A) << 8 |
+          (uint32_t)code_byte(c.z, A) << 16 | (uint32_t)code_byte(c.w, A) << 24;
+    }
+  } else {
+    // L not a multiple of 4, or a view that starts off a 16-byte boundary
+    for (int i = threadIdx.x; i < nl * L; i += blockDim.x) {
+      const int r = i / L;
+      s_code[r * stride + i - r * L] = (uint8_t)code_byte(src[i], A);
+    }
+  }
+}
+
+// The ftab k-mer code of a lane's last k codes (two bits a base, the first
+// code highest; the last match in acgt wins, as in ops/rank.py kmer_codes),
+// or -1 where one of them is not A, C, G or T.
+template <typename CodeAt>
+__device__ __forceinline__ int kmer_code(const CodeAt& code_at, int L, int k, uint32_t acgt) {
+  int kc = 0;
+  for (int col = L - k; col < L; ++col) {
+    const int c = code_at(col);
+    int two_bits = -1;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (c == (int)((acgt >> (8 * t)) & 0xFF)) two_bits = t;
+    }
+    if (two_bits < 0) return -1;
+    kc = (kc << 2) | two_bits;
+  }
+  return kc;
+}
+
+// This thread's share of rank(c) at in-row offset `off`, from the parts of
+// one row it holds: part sub + m * kG of the row in v[m].  The shares of the
+// kG threads of a lane sum to the checkpoint of c plus the count of c among
+// the row's first `off` symbols.
+template <int SYMS>
+__device__ __forceinline__ int rank_share(const int4 (&v)[Layout<SYMS>::kPer], int sub,
+                                          int c, int off) {
+  const uint32_t pat = (uint32_t)c * 0x11111111u;
+  int share = 0;
+#pragma unroll
+  for (int m = 0; m < Layout<SYMS>::kPer; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int lane = 4 * (sub + m * kG) + e;  // int32 lane of the row
+      const uint32_t x = (uint32_t)lane_of(v[m], e);
+      if (lane < kCkpt) {
+        share += lane == c ? (int)x : 0;
+      } else {
+        share += nibbles_below(x, pat, off - 8 * (lane - kCkpt));
+      }
+    }
+  }
+  return share;
+}
+
+// base[row's superblock][c] of the two-level rows, through the read-only path.
+__device__ __forceinline__ int64_t base_of(const int64_t* __restrict__ base, int row,
+                                           int per_blk, int c) {
+  return (int64_t)__ldg(reinterpret_cast<const long long*>(base) +
+                        (size_t)(row / per_blk) * kCkpt + c);
+}
+
+__device__ __forceinline__ int64_t load_at(const void* p, int bytes, int64_t i) {
+  return bytes == 8 ? (int64_t)__ldg(static_cast<const long long*>(p) + i)
+                    : (int64_t)__ldg(static_cast<const int32_t*>(p) + i);
+}
+
+// rank(lo, c) and rank(hi + 1, c) of one LF step (i1 = hi + 1), summed over
+// the lane's kG threads: cb and ce, each the code's total count `total`
+// where its position is n.  The threads load their parts of lo's row into a
+// register array and of i1's row into w, which the caller may read further
+// (K1's toehold instance takes BWT[hi] from it).  On the two-level rows
+// (Lane int64) the superblock's base completes each local rank.
+template <typename Lane, int SYMS>
+__device__ __forceinline__ void rank_pair(const int4* __restrict__ fb,
+                                          const int64_t* __restrict__ base, int per_blk,
+                                          Lane n, Lane total, Lane lo, Lane i1, int c, int sub,
+                                          unsigned pair, int4 (&w)[Layout<SYMS>::kPer],
+                                          Lane& cb, Lane& ce) {
+  using Lo = Layout<SYMS>;
+  const bool has0 = lo < n, has1 = i1 < n;
+  // both rows are loaded even when they are one: the second load then
+  // finds the row in L1, and loading it once was measured no faster
+  const int r0 = (int)(lo >> Lo::kShift), r1 = (int)(i1 >> Lo::kShift);
+  int4 v[Lo::kPer];
+#pragma unroll
+  for (int m = 0; m < Lo::kPer; ++m) {
+    const int part = sub + m * kG;
+    v[m] = has0 ? __ldg(fb + (size_t)r0 * Lo::kVec + part) : make_int4(0, 0, 0, 0);
+    w[m] = has1 ? __ldg(fb + (size_t)r1 * Lo::kVec + part) : v[m];
+  }
+  int p0 = rank_share<SYMS>(v, sub, c, (int)(lo & (SYMS - 1)));
+  int p1 = rank_share<SYMS>(w, sub, c, (int)(i1 & (SYMS - 1)));
+  p0 += __shfl_xor_sync(pair, p0, 1);
+  p1 += __shfl_xor_sync(pair, p1, 1);
+  if constexpr (sizeof(Lane) == 8) {
+    cb = has0 ? base_of(base, r0, per_blk, c) + p0 : total;
+    ce = has1 ? base_of(base, r1, per_blk, c) + p1 : total;
+  } else {
+    cb = has0 ? p0 : total;
+    ce = has1 ? p1 : total;
+  }
+}
+
+// One LF step of a lane by its kG threads: (lo, hi) becomes LF((lo, hi), c),
+// or the empty range (1, 0) where that is empty or c lies outside [0, A)
+// (a staged absent or other code); returns whether it is non-empty.  sF is
+// F [A + 1] in shared memory.
+template <typename Lane, int SYMS>
+__device__ __forceinline__ bool lf_step_rows(const int4* __restrict__ fb, const Lane* sF,
+                                             const int64_t* __restrict__ base, int per_blk,
+                                             int A, Lane n, int sub, unsigned pair, int c,
+                                             Lane& lo, Lane& hi) {
+  if (c >= A) {
+    lo = 1;
+    hi = 0;
+    return false;
+  }
+  int4 w[Layout<SYMS>::kPer];
+  Lane cb, ce;
+  rank_pair<Lane, SYMS>(fb, base, per_blk, n, sF[c + 1] - sF[c], lo, hi + 1, c, sub, pair, w,
+                        cb, ce);
+  const Lane ci = ce - cb;
+  if (ci <= 0) {
+    lo = 1;
+    hi = 0;
+    return false;
+  }
+  lo = sF[c] + cb;
+  hi = lo + ci - 1;
+  return true;
+}
+
+}  // namespace

@@ -24,7 +24,9 @@ per card; gloo runs several ranks on one card (the engines' all_reduce takes
 CUDA tensors there) and every rank on the CPU.  The host gathers move CPU
 tensors under gloo, which gathers no CUDA tensor.  Nothing falls back: a
 collective that fails or outlasts the process group's timeout raises.
-`run_local` starts a world of ranks on this host, each in a fresh process.
+`run_local` starts a world of ranks on this host, each in a fresh process,
+around a coordinator store that it hosts itself (`host_store`), so that no
+concurrent world can take the store's port between its choice and its use.
 """
 
 from __future__ import annotations
@@ -64,12 +66,14 @@ def rank_device(device, process_id: int) -> torch.device:
 
 def init(coordinator: str | None = None, num_processes: int = 1, process_id: int = 0,
          backend: str | None = None, device="cuda",
-         timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+         timeout_s: float = DEFAULT_TIMEOUT_S, hosted: bool = False) -> torch.device:
     """init_process_group over tcp://coordinator with a finite timeout, so
     that ranks that disagree raise instead of hanging; returns this rank's
     device.  A single process without a coordinator starts no group (the
     engines then run with no collective); with a coordinator, a world of one
-    rank runs a real group of one."""
+    rank runs a real group of one.  Rank 0 hosts the coordinator's store,
+    unless `hosted`: then the store at `coordinator` is the caller's
+    (host_store) and every rank joins it as a client."""
     dev = rank_device(device, process_id)
     if backend is None:
         backend = default_backend(dev)
@@ -79,9 +83,15 @@ def init(coordinator: str | None = None, num_processes: int = 1, process_id: int
         raise ValueError(f"{num_processes} processes need a --coordinator host:port")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if hosted:
+        host, port = coordinator.rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), num_processes, False, timeout=timeout)
+        dist.init_process_group(backend, store=store, world_size=num_processes,
+                                rank=process_id, timeout=timeout)
+    else:
+        dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                                world_size=num_processes, rank=process_id, timeout=timeout)
     return dev
 
 
@@ -189,13 +199,28 @@ def agree_batch(mesh, qcodes: np.ndarray | None, step: int) -> int | None:
 
 
 def free_port() -> int:
+    """A port that was free when this returned.  Another process may take it
+    before a rank binds it (any outgoing connection can); a world that must
+    not race takes its store from host_store instead."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
 
 
+def host_store(host: str = "localhost",
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> dist.TCPStore:
+    """A world's coordinator store, listening on a port that the OS picks as
+    it binds (port 0), so that the port is held from its choice to the
+    world's end: no other process can take it.  The ranks join it with
+    init(f"{host}:{store.port}", ..., hosted=True) while the caller keeps
+    the store."""
+    return dist.TCPStore(host, 0, None, True, timeout=datetime.timedelta(seconds=timeout_s),
+                         wait_for_workers=False)
+
+
 def _rank_main(target, coordinator, world, rank, backend, device, args, out_dir, timeout_s):
-    dev = init(coordinator, world, rank, backend=backend, device=device, timeout_s=timeout_s)
+    dev = init(coordinator, world, rank, backend=backend, device=device, timeout_s=timeout_s,
+               hosted=True)
     try:
         res = target(dev, *args)
     finally:
@@ -212,7 +237,8 @@ def run_local(target, world: int, *, backend: str | None = None, device="cuda", 
     pickled by import path).  A rank that fails stops the others at once,
     and the whole world is stopped and raises after timeout_s."""
     ctx = multiprocessing.get_context("spawn")
-    coordinator = f"localhost:{free_port()}"
+    store = host_store(timeout_s=min(timeout_s, DEFAULT_TIMEOUT_S))
+    coordinator = f"localhost:{store.port}"
     with tempfile.TemporaryDirectory(prefix="rbt_ranks_") as out_dir:
         procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
                              args=(target, coordinator, world, r, backend, device, args,

@@ -9,11 +9,14 @@ one device, so --n-idx must divide the number of processes.
 
     python -m rowbowt_tpu_torch.tools.sharded_stream IDX_PREFIX READS.fq \\
         [--n-idx 2] [--batch-size 4096] [-m | --greedy] \\
-        [--coordinator host0:1234 --num-processes N --process-id i] \\
-        [--device cuda] [--backend nccl|gloo]
+        [--coordinator host0:1234 --num-processes N --process-id i
+         [--hosted-coordinator]] [--device cuda] [--backend nccl|gloo]
 
 A single process without --coordinator runs with no process group (the
-index whole on its device).  --backend defaults to nccl on cuda and gloo on
+index whole on its device).  Process 0 hosts the coordinator's store, unless
+--hosted-coordinator: then the caller that starts the processes hosts it
+(parallel/multihost.host_store, which holds its port from the moment it is
+chosen) and every process joins it.  --backend defaults to nccl on cuda and gloo on
 cpu; several processes on one card need gloo (NCCL refuses two ranks on one
 device).  Processes that stream different numbers of batches, or use
 different batch sizes, raise on every rank with the sizes named.
@@ -46,6 +49,9 @@ def main(argv=None):
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
+    p.add_argument("--hosted-coordinator", action="store_true",
+                   help="the store at --coordinator is hosted by the caller "
+                        "(multihost.host_store): process 0 joins it too")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda: card process_id %% cards; "
                         "an error when CUDA is absent)")
@@ -56,7 +62,7 @@ def main(argv=None):
     from rowbowt_tpu_torch.parallel import multihost as mh
 
     device = mh.init(args.coordinator, args.num_processes, args.process_id,
-                     backend=args.backend, device=args.device)
+                     backend=args.backend, device=args.device, hosted=args.hosted_coordinator)
     try:
         return _stream(args, device)
     finally:

@@ -26,7 +26,7 @@ from rowbowt_tpu.engine.device import DeviceIndex
 from rowbowt_tpu.engine.markers import find_ranges_w_markers as j_markers
 from rowbowt_tpu.engine.seeds import markers_greedy_seeding as j_greedy
 from rowbowt_tpu.index import marker_allele, marker_pos
-from rowbowt_tpu_torch.parallel.multihost import free_port
+from rowbowt_tpu_torch.parallel.multihost import host_store
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACGT = np.frombuffer(b"ACGT", np.uint8)
@@ -46,9 +46,13 @@ def stream(pre, fastqs, *flags, batch=4, n_idx=2, timeout=180):
     """sharded_stream as one process per FASTQ (a process group over
     localhost when there are several): (return codes, stdouts, stderrs).
     Each process writes to files of its own: a pipe left unread would stall
-    it, and its peers with it, at their next collective."""
+    it, and its peers with it, at their next collective.  This process
+    hosts the group's store (host_store), so that no concurrent test can
+    take its port before the processes join it."""
     n = len(fastqs)
-    group = ["--coordinator", f"localhost:{free_port()}", "--num-processes", str(n)] if n > 1 else []
+    store = host_store() if n > 1 else None
+    group = (["--coordinator", f"localhost:{store.port}", "--num-processes", str(n),
+              "--hosted-coordinator"] if n > 1 else [])
     procs, files = [], []
     try:
         for pid, fq in enumerate(fastqs):

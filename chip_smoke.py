@@ -40,20 +40,21 @@ beside the phases before it, and runs:
      than k and length-0 lanes) through K1 and through `find_ranges_plain` on
      the card, for the 64B and 96B row layouts with the ftab on and off:
      every (lo, hi) equal; 1,000 of them also equal to a host run-space
-     search that never reads the row tables; then K1 == plain at the edges
-     of its staging and ftab start (widths 1, k - 1, k, 99, 100, two views
-     off a 16-byte boundary, one lane, and L = 3,072, which is not staged);
-     then K1 over the two-level rows of the same BWT (BigIndex.from_codes,
-     n_sup = 4: fb2_64, fb2 and fb2_256) against the plain loop and the
-     single-level rows' ranges, on the batch and at the same edges, and its
+     search that never reads the row tables; then K1 == plain over the
+     64-symbol rows at the edges of its staging and ftab start (widths 1,
+     k - 1, k, 99, 100, two views off a 16-byte boundary, one lane, and L =
+     3,072, which is not staged); then K1 over the two-level rows of the
+     same BWT (BigIndex.from_codes, n_sup = 4: fb2_64, fb2 and fb2_256)
+     against the plain loop and the single-level rows' ranges, on the batch
+     (and at the same edges over fb2_64), and its
      record launch (lo, hi and the [L, B] step record) against the torch
      loop that records (cuda_lf.find_ranges_record_plain) there too; then
      the phi walk kernel against its plain twin (the torch walk) on the
      batch's -s toeholds over the dense index's phi1, over its BigIndex
      view's phi rows and over the predecessor search of the index without
-     phi1, capped at 8 hits and uncapped on lanes of at most 4,096, and the
-     BigIndex without phi rows walking as torch ops on the card (one torch
-     walk counted) to the same positions; then K1's toehold launch against
+     phi1, capped at 8 hits and uncapped on lanes of at most 4,096, and over
+     the breakpoint table of the BigIndex with its phi rows withheld
+     (phi_at) to the same positions; then K1's toehold launch against
      its plain twin (the torch loop of the per-step toehold) and the full-SA
      index's toeholds on the raw tables of the same BWT (no kval), over
      tk1 and over ltk, on the batch and at the edges of k1_edges; then the
@@ -67,8 +68,12 @@ beside the phases before it, and runs:
      index's fblock64 rows and its BigIndex view's fb2_64 rows (the
      sampled machine with its step record there), with the ftab start and
      without, at the engines' capacities and at capacities that overflow
-     (2 seeds, 2-3 records, max_range 20, min_length 0), on the batch,
-     4,096 random-code lanes and the edges of k1_edges;
+     (2 seeds, 2-3 records, max_range 20, min_length 0), on the batch's
+     first 16,384 lanes, 4,096 random-code lanes and the edges of k1_edges
+     (over fblock64); the sampled
+     machine's per-step toehold over the raw tables' fused rows (tk1, ltk);
+     and every machine over each rank policy's tables (run-space, dense,
+     occ1; the sampled machine with its per-step toehold, and with kval);
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
@@ -96,27 +101,6 @@ beside the phases before it, and runs:
      and the locs text (text_s) apart;
   9. markers: `rbt_align -m` on the same reads; every read's markers checked
      against the host CSR without ma_start1; stages timed one by one;
-  9b. raw_chr: the chr index written as raw `.bwt/.ssa/.esa/.docs` and a
-     `.mab` (write_mab), built from the prefix by `rbt_build_torch <prefix>
-     -s -m -l` (fused rows, predecessor-built phi1, no kval; n above
-     OCC1_MAX_N, so no occ1/tk1): rbt_align count, -s and -m print the lines
-     of phases 6, 8 and 9; K1 once a batch of count and -m, its toehold
-     launch (the per-step toehold over ltk) once a batch of -s; build
-     seconds, peak RSS, -s stages; the toehold launch against its plain
-     twin and dense chr's toeholds on every -s batch, the search + toehold
-     stage with the torch loop and with the kernel in turns, and on one
-     batch its call ms beside the twin's, its time alone, work and bound;
-  9c. nodense_chr: the chr index without fblock, kval, phi1 and ma_start1
-     (what --no-dense writes): count and -m (the tables kernel's run-space
-     count search once a batch; -m then the ma_row binary search) and -s
-     (its toehold search once a batch, the walk kernel over the
-     predecessor search) print the same lines; reads/s beside the dense
-     index's; -s stages; the count search on the count batches and the
-     toehold search on the -s batches against their plain twins (the torch
-     loops the parent ran on the card), the stage before and after in
-     turns, one batch timed per call and alone, its work, bound and share
-     (tables_times); the walk kernel on the -s batches' lanes against the
-     torch walk (walk_times);
  10. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
      steps, against its plain twin, and the walk kernel (`locate`) on the
      same lanes against the torch walk; then the walk kernel on the -s
@@ -142,7 +126,37 @@ beside the phases before it, and runs:
      marker index that build_cli saved (one launch of the sampled
      machine); the first 1,000 lines equal to the oracle's greedy seeds,
      longest-seed locate (4 hits) and text-span marker lookup;
- 14b. big_chr: the chr panel's BigIndex view (n_sup = 4, locate tables as
+ 14a. raw_chr: the chr index written as raw `.bwt/.ssa/.esa/.docs` and a
+     `.mab` (write_mab), built from the prefix by `rbt_build_torch <prefix>
+     -s -m -l` (fused rows, predecessor-built phi1, no kval; n above
+     OCC1_MAX_N, so no occ1/tk1): rbt_align count, -s and -m print the lines
+     of phases 6, 8 and 9; K1 once a batch of count and -m, its toehold
+     launch (the per-step toehold over ltk) once a batch of -s; build
+     seconds, peak RSS; the toehold launch against its plain twin and dense
+     chr's toehold on every -s batch, the search + toehold stage with the
+     torch loop and with the kernel in turns, and on one batch its call ms
+     beside the twin's, its time alone, work and bound; then rbt_locs
+     prints phase 14's lines with the sampled machine's per-step toehold
+     over the fused rows (one launch a batch), timed on one batch
+     (seeds_times);
+ 14b. nodense_chr: the chr index without fblock, kval, phi1 and ma_start1
+     (what --no-dense writes): count and -m (the tables kernel's run-space
+     count search once a batch; -m then the ma_row binary search) and -s
+     (its toehold search once a batch, the walk kernel over the
+     predecessor search) print the same lines; reads/s beside the dense
+     index's; the count search on the count batches and the toehold search
+     on the -s batches against their plain twins (the torch loops that
+     ran on the card before the tables kernel), the stage before and after
+     in turns, one
+     batch timed per call and alone, its work, bound and share
+     (tables_times); the walk kernel on the -s batches' lanes against the
+     torch walk (walk_times); then rbt_markers -f, --heuristic and --lmem
+     and rbt_locs print the lines of phases 11-14 with the seeding kernel
+     over the run-space tables (greedy, L-MEM, and the sampled machine
+     with its per-step toehold over ltk), one launch a batch (two for
+     --heuristic), each machine timed on one batch of its path
+     (seeds_times);
+ 14c. big_chr: the chr panel's BigIndex view (n_sup = 4, locate tables as
      bench.py derives them, marker CSR, document list), saved as a big
      directory with the chr `idx.midx.npz` beside it: rbt_align count, -s
      and -m on it print the dense index's lines (phases 6, 8, 9), each with
@@ -164,7 +178,7 @@ beside the phases before it, and runs:
      against its plain twin, timed per call and alone, with the longest
      lane's steps, the dependent-load latency of tables of the phi rows'
      and deltas' sizes, its bound and share;
- 14c. pfp_big: the giant panel's widths (19.5 Mbp reference, 19,500 sites,
+ 14d. pfp_big: the giant panel's widths (19.5 Mbp reference, 19,500 sites,
      W = 10, p = 100) with 112 haplotypes, n = 2,203,501,131, built by
      tools/build_giant_index.build in the child process (256-symbol rows;
      PFP and assembly seconds, peak RSS, n, R, M, parse stats) and assembled
@@ -182,15 +196,22 @@ beside the phases before it, and runs:
      loop, one walk kernel launch, no torch walk); the marker routes and the
      nibble rows' bounds, and the walk kernel's times and bound, as in
      big_chr;
- 14d. build_small: the small panel through rbt_build_torch in every mode
+ 14e. build_small: the small panel through rbt_build_torch in every mode
      (native with --emit-ref, -x, --no-dense, the raw prefix with occ1 + tk1,
      the serialized .rbwt files, --ftab-only, a FASTA with IUPAC codes: 13
      codes, bwt4/occ_blk), each index's tables held against the dense one's
      and its rbt_align count, -s and -m lines against the dense index's (the
      13-code index against its --device cpu run and the scalar oracle);
-     rbt_markers -f and rbt_locs on the raw index (one greedy launch; the
-     sampled machine's per-step toehold, the one torch seeding loop the
-     run leaves on the card); the routes of the tables
+     rbt_markers -f and rbt_locs on the raw index (one greedy launch; one
+     launch of the sampled machine with its per-step toehold over the rows
+     and tk1); rbt_markers -f and rbt_locs on the 13-code index (one launch
+     each over its dense tables, the first 2,048 reads' lines equal to the
+     --device cpu run's); the seeding engines on the raw index without its
+     rows (greedy and the per-step sampled machine over occ1 and tk1, equal
+     to the same index with its rows); those four instances timed on one
+     batch (seeds_times); rbt_align -s over the PFP directory's breakpoint
+     table (its phi rows withheld: one walk kernel launch over phi_at, the
+     dense index's lines), the walk timed (walk_times); the routes of the tables
      kernel (--no-dense: run-space, the 13-code index: dense, the raw index
      without its fused rows: occ1, count and toehold against K1's); the
      dense and occ1 searches timed against their twins on one batch;
@@ -216,15 +237,16 @@ beside the phases before it, and runs:
      buffer equal to the single-device engine's; then
      tools/dryrun_multichip on 4 ranks;
  19. parallel_stream: tools/sharded_stream as 2 processes (count, -m,
-     --greedy against one process) and as 4 on the big_chr directory, each
-     process printing its own reads' lines.
+     --greedy against one process) and as 4 on the big_chr directory, all
+     at once, each process printing its own reads' lines.
 Each multi-rank phase records reads/s over the query seconds, the
 all-reduces a step and their microseconds, and each rank's load seconds
 and peak device memory.
 Phases 11-14 count K1's
 launches (0 expected, not required) and require the seeding kernel's
-(cuda_seeds.LAUNCHES_SEED: one a batch, two for --heuristic) with no torch
-seeding loop on the card (cuda_seeds.LAUNCHES_SEED_TORCH); big_chr
+(cuda_seeds.LAUNCHES_SEED, by route: one a batch, two for --heuristic;
+raw_chr, nodense_chr and build_small the same over their indexes; no
+seeding loop runs in torch on the card); big_chr
 counts the two-level K1's (cuda_lf.LAUNCHES_FB2): one a batch of its count
 and -m runs, none in -s, whose toehold search is the record launch
 (cuda_lf.LAUNCHES_REC, one a batch, and no run of the torch record loop,
@@ -237,11 +259,11 @@ tables kernel over an index without fused rows by rank policy and
 instance (cuda_lf.LAUNCHES_TAB and LAUNCHES_TAB_TOE: count, -m and the -s
 search of nodense_chr and of the small --no-dense, 13-code and
 raw-without-rows indexes; no wrapper runs a torch search on the card), set
-to 0 before each run, and require each.  The phi walk's routes are counted the same way
-(cuda_phi.LAUNCHES, the walk kernel, and cuda_phi.LAUNCHES_TORCH, the torch
-walk over a BigIndex's breakpoint table phi_at): rbt_align -s launches the
-kernel once a batch and walks nothing in torch on every index the whole
-run queries, nodense_chr's predecessor search included.
+to 0 before each run, and require each.  The phi walk's launches are
+counted the same way (cuda_phi.LAUNCHES, the walk kernel on every route):
+rbt_align -s launches it once a batch on every index the whole run
+queries, nodense_chr's predecessor search and build_small's breakpoint
+table included.
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and the last line is never printed.  The last three lines of a
@@ -971,9 +993,10 @@ def codes_of(idx) -> np.ndarray:
 
 def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     """K1 == find_ranges_plain on the card, both layouts, ftab on and off, on
-    the edge-case batch and at the edges of k1_edges; then K1 over the
-    two-level rows of the same BWT (n_sup = 4: fb2_64, fb2 and fb2_256, no
-    ftab) the same way, its ranges also equal to the single-level rows'.
+    the edge-case batch, and at the edges of k1_edges over the 64-symbol
+    rows; then K1 over the two-level rows of the same BWT (n_sup = 4: fb2_64,
+    fb2 and fb2_256, no ftab) on the batch, and at the edges over fb2_64,
+    its ranges also equal to the single-level rows'.
     Returns {kernel: max |err|}."""
     import torch
 
@@ -1015,7 +1038,9 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
             err = max(err, e)
             cfg_name = f"fb64={fb64},ftab={use_ftab}"
             results[cfg_name] = int((got[1] >= got[0]).sum().item())
-            for label, qe, le in edges:
+            # the edges of the staging and the ftab start over the 64-symbol
+            # rows; the 96 B rows share that code and take the batch
+            for label, qe, le in edges if fb64 else ():
                 got = find_ranges(tx, qe, le, use_ftab=use_ftab)
                 want = cuda_lf.find_ranges_plain(tx, qe, le, use_ftab=use_ftab)
                 torch.cuda.synchronize()
@@ -1024,8 +1049,8 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
                 err = max(err, e)
                 edge_nonempty[f"{cfg_name},{label}"] = int((got[1] >= got[0]).sum().item())
     launches = cuda_lf.LAUNCHES - launches0
-    check(launches == 4 * (2 + len(edges)), f"expected {4 * (2 + len(edges))} K1 launches, "
-          f"counted {launches}")
+    want_k1 = 2 * (2 + len(edges)) + 2 * 2
+    check(launches == want_k1, f"expected {want_k1} K1 launches, counted {launches}")
     tx = TorchIndex.from_index(idx, device)
     single = [find_ranges(tx, qe, le, use_ftab=False) for _, qe, le in [("", q, ln)] + edges]
     codes = codes_of(idx)
@@ -1036,7 +1061,10 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
                                  device, fb64=fb64)
         layout = cuda_lf.row_layout(tx)
         layouts.append(layout)
-        for (label, qe, le), one in zip([("batch", q, ln)] + edges, single):
+        # the edges over fb2_64; fb2 and fb2_256 share their code and take
+        # the batch
+        cases2 = [("batch", q, ln)] + (edges if layout == "fb2_64" else [])
+        for (label, qe, le), one in zip(cases2, single):
             got = find_ranges(tx, qe, le)
             want = cuda_lf.find_ranges_plain(tx, qe, le)
             torch.cuda.synchronize()
@@ -1050,12 +1078,12 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
                   f"max |err| {e}")
             err3 = max(err3, e)
         del tx
+    want_fb2 = (1 + len(edges)) + 2
     launches2 = cuda_lf.LAUNCHES_FB2 - launches0
-    check(launches2 == 3 * (1 + len(edges)), f"expected {3 * (1 + len(edges))} two-level K1 "
-          f"launches, counted {launches2}")
+    check(launches2 == want_fb2, f"expected {want_fb2} two-level K1 launches, counted "
+          f"{launches2}")
     launches3 = cuda_lf.LAUNCHES_REC - rec0
-    check(launches3 == 3 * (1 + len(edges)), f"expected {3 * (1 + len(edges))} record "
-          f"launches, counted {launches3}")
+    check(launches3 == want_fb2, f"expected {want_fb2} record launches, counted {launches3}")
     walk = walk_parity(device, idx, codes, q, ln)
     # the full-SA index's toeholds and the raw tables, shared by the toehold
     # launch's and the tables kernel's checks
@@ -1066,7 +1094,7 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     raw = {route: raw_tables(idx, codes, route) for route in ("tk1", "ltk")}
     toe = toehold_parity(device, raw, cases, kval)
     tab = tables_parity(device, idx, codes, raw["tk1"], cases, single, kval)
-    seeds = seeds_parity(device, idx, codes, q, ln, edges)
+    seeds = seeds_parity(device, idx, codes, q, ln, edges, raw)
     emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
          nonempty=results, edges=[label for label, _, _ in edges],
          edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err,
@@ -1078,7 +1106,8 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
             **{f"lf_tables_{name}": e for name, e in tab["errs"].items()},
             "phi_walk_phi1": walk["max_abs_err"]["phi1"],
             "phi_walk_rows": walk["max_abs_err"]["phi_rows"],
-            "phi_walk_pred": walk["max_abs_err"]["pred"]}
+            "phi_walk_pred": walk["max_abs_err"]["pred"],
+            "walk_phi_at": walk["max_abs_err"]["phi_at"]}
 
 
 def raw_tables(idx, codes, route: str):
@@ -1215,10 +1244,11 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
     kval) and over the predecessor search of the dense index without phi1
     (what --no-dense keeps), with max_hits 8 on every lane and uncapped on
     the lanes of at most WALK_PARITY_MAX hits; the indexes' toeholds equal,
-    and every route's positions the phi1 route's.  The
-    BigIndex with its phi rows taken away (the breakpoint table of 2^31 or
-    more breakpoints) walks as torch ops on the card, one walk counted in
-    LAUNCHES_TORCH and none in LAUNCHES, and gives the kernel's positions."""
+    and every route's positions the phi1 route's.  The BigIndex with its
+    phi rows withheld (the breakpoint table phi_at of 2^31 or more
+    breakpoints, searched through its bucket table pp_off) walks in the
+    kernel's phi_at route, one launch a call through phi_walk, against its
+    plain twin and the phi1 route's positions the same way."""
     import torch
 
     from rowbowt_tpu_torch.bigindex import BigIndex
@@ -1267,23 +1297,29 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
         check(errs[route] == 0, f"the walk kernel over {route} != its plain twin or the phi1 "
               f"route on the small panel: max |err| {errs[route]}")
     launches = walk_counts()
-    check(launches == dict(walk=6, walk_torch=0), f"walk launches {launches}, expected 6")
+    check(launches == dict(walk=6), f"walk launches {launches}, expected 6")
     big._phi_pack = lambda: (None, None)
     tx_at = TorchIndex.from_big(big, device, with_locate=True, with_markers=False)
-    check(cuda_phi.walk_route(tx_at) is None and "phi_at" in tx_at.arrays,
+    check(cuda_phi.walk_route(tx_at) == "phi_at" and "pp_off" in tx_at.arrays,
           "the BigIndex without phi rows has no breakpoint table")
-    k, size, off, total = operands(*ranges["phi_rows"], None)
-    out = cuda_phi.phi_walk(tx_at, k, size, off, torch.empty(total, dtype=torch.int64,
-                                                               device=device))
-    torch.cuda.synchronize()
-    e = max_abs_err([out], [kernel_out[None]])
-    check(e == 0, f"the torch walk over phi_at != the walk kernel over phi_rows: max |err| {e}")
-    torch_launches = walk_counts()
-    check(torch_launches == dict(walk=6, walk_torch=1),
-          f"the phi_at walk on the card: {torch_launches}, expected one torch walk")
+    errs["phi_at"] = 0
+    for cap in (8, None):
+        k, size, off, total = operands(*ranges["phi_rows"], cap)
+        got = cuda_phi.phi_walk(tx_at, k, size, off, torch.empty(total, dtype=torch.int64,
+                                                                   device=device))
+        want = cuda_phi.phi_walk_plain(tx_at, k, size, off, torch.full(
+            (total,), -1, dtype=torch.int64, device=device))
+        torch.cuda.synchronize()
+        errs["phi_at"] = max(errs["phi_at"], max_abs_err([got], [want]),
+                             max_abs_err([got], [kernel_out[cap]]))
+    check(errs["phi_at"] == 0, f"the walk kernel over phi_at != its plain twin or the phi1 "
+          f"route: max |err| {errs['phi_at']}")
+    at_launches = walk_counts()["walk"] - launches["walk"]
+    check(at_launches == 2, f"the phi_at walk on the card: {at_launches} launches, expected 2")
+    pp_bs = list(tx_at.pp_bs)
     del txs, tx_at, pred
     return dict(max_abs_err=errs, hits=hits, launches=launches["walk"],
-                phi_at_max_abs_err=e, torch_walks=torch_launches["walk_torch"])
+                phi_at_launches=at_launches, pp_bs=pp_bs)
 
 
 def held_record(tx, q, ln, ranges=None) -> int:
@@ -1606,7 +1642,7 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
     launches, walks = cuda_lf.LAUNCHES, walk_counts()
     n_batches = -(-N_LOCATE // BATCH)
     check(launches == n_batches, f"K1 launched {launches} times in the -s run")
-    check(walks == dict(walk=n_batches, walk_torch=0),
+    check(walks == dict(walk=n_batches),
           f"-s walks: {walks} (one walk kernel launch a batch, no torch walk)")
     lines = out_text.splitlines(keepends=True)
     check(len(lines) == 2 * N_LOCATE, f"rbt_align -s printed {len(lines)} lines")
@@ -1818,15 +1854,23 @@ def phase_phi_chain(device, card: dict, loc: dict, k1: dict) -> dict:
 # 480 and a product, 4), mask and count 15 words (3 each), add the rank and
 # the delta and take the remainder (4); the predecessor search takes 4 a
 # level of its binary search and 10 for the step (phi_step_ops)
+# the breakpoint table's step: its bucket (a shift and a clamp, 4), 5 a
+# halving of its fixed search (a mean, a clamp, a compare, two selects), and
+# the remainder (6); loads: the bucket's bounds, each halving's entry, then
+# phi_at and pred_pos at the rank together (phi_step_ops, phi_loads)
 PHI_STEP_OPS = {"phi1": 4, "phi_rows": 4 + 15 * 3 + 4}
 PHI_LOADS = {"phi1": 1, "phi_rows": 2}  # dependent loads a step (phi_loads)
 
 
 def phi_step_ops(tx, route: str) -> int:
+    if route == "phi_at":
+        return 10 + 5 * tx.pp_bs[1]
     return PHI_STEP_OPS[route] if route != "pred" else 4 * search_levels(tx.R) + 10
 
 
 def phi_loads(tx, route: str) -> int:
+    if route == "phi_at":
+        return tx.pp_bs[1] + 2
     return PHI_LOADS[route] if route != "pred" else search_levels(tx.R) + 2
 
 
@@ -1910,6 +1954,15 @@ def walk_times(device, tx, ranges, route: str, step_us: float) -> dict:
         elif route == "phi_rows":
             table_bytes = (torch.unique(pos // 480).numel() * 64
                            + torch.unique(R.phi_rows_rank(tx, pos)).numel() * 8)
+        elif route == "phi_at":
+            # the bucket bounds of each position's bucket, and pred_pos and
+            # phi_at at its rank (the search's other probes not counted)
+            pp, at, off = (tx.arrays[name] for name in cuda_phi.PHI_AT_TABLES)
+            shift = tx.pp_bs[0]
+            b = torch.clamp((pos + 1) >> shift, 0, off.numel() - 2)
+            rk = torch.searchsorted(pp, pos.to(pp.dtype), right=True) - 1
+            table_bytes = (torch.unique(b).numel() * 2 * off.element_size()
+                           + torch.unique(rk).numel() * (pp.element_size() + at.element_size()))
         else:
             # the predecessor entry of each position (pred_pos and
             # pred_to_run) and the sample it reads
@@ -2253,12 +2306,13 @@ def phase_greedy(device, card: dict, chr_: dict, lat: float | None = None) -> di
     return res
 
 
-def seed_batches(device, idx, tx, paths: dict) -> dict:
-    """{mode: (qcodes, lengths, cfg)} of one batch a machine as the CLIs build
-    it on the card: rbt_markers -f's first batch (both strands of
-    GREEDY_BATCH reads, the ftab start), the --lmem run's (every prefix of
-    both strands of its N_LMEM reads, lmem_expand) and rbt_locs' (GREEDY_BATCH
-    reads, min_length 19)."""
+def seed_batches(device, idx, tx, paths: dict,
+                 modes=("greedy", "lmem", "sample")) -> dict:
+    """{mode: (qcodes, lengths, cfg)} of one batch a machine of `modes` as
+    the CLIs build it on the card: rbt_markers -f's first batch (both
+    strands of GREEDY_BATCH reads, the ftab start), the --lmem run's (every
+    prefix of both strands of its N_LMEM reads, lmem_expand) and rbt_locs'
+    (GREEDY_BATCH reads, min_length 19)."""
     import torch
 
     from rowbowt_tpu_torch.alphabet import normalize_read, revcomp
@@ -2270,30 +2324,33 @@ def seed_batches(device, idx, tx, paths: dict) -> dict:
     def on_card(qc, lens):
         return torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
 
-    _, qc, lens = next(iter(iter_query_batches(idx, paths["greedy.fq"], GREEDY_BATCH,
-                                               normalize=True, with_rc=True)))
-    greedy = on_card(qc, lens)
-    seqs = [s for _, r, _ in read_seqs(paths["lmem.fq"])
-            for s in (normalize_read(r), revcomp(normalize_read(r)))]
-    lanes = lmem_expand([s.tobytes() for s in seqs])[0]
-    lmem = on_card(*encode_batch(idx, lanes, pad_to=pow2_at_least(max(map(len, lanes)))))
-    _, qc, lens = next(iter(iter_query_batches(idx, paths["greedy.fq"], GREEDY_BATCH)))
-    sample = on_card(qc, lens)
-    return {mode: (q, ln, seed_cfg(tx, mode, q.shape[1]))
-            for mode, (q, ln) in (("greedy", greedy), ("lmem", lmem), ("sample", sample))}
+    out = {}
+    if "greedy" in modes:
+        _, qc, lens = next(iter(iter_query_batches(idx, paths["greedy.fq"], GREEDY_BATCH,
+                                                   normalize=True, with_rc=True)))
+        out["greedy"] = on_card(qc, lens)
+    if "lmem" in modes:
+        seqs = [s for _, r, _ in read_seqs(paths["lmem.fq"])
+                for s in (normalize_read(r), revcomp(normalize_read(r)))]
+        lanes = lmem_expand([s.tobytes() for s in seqs])[0]
+        out["lmem"] = on_card(*encode_batch(idx, lanes,
+                                            pad_to=pow2_at_least(max(map(len, lanes)))))
+    if "sample" in modes:
+        _, qc, lens = next(iter(iter_query_batches(idx, paths["greedy.fq"], GREEDY_BATCH)))
+        out["sample"] = on_card(qc, lens)
+    return {mode: (q, ln, seed_cfg(tx, mode, q.shape[1])) for mode, (q, ln) in out.items()}
 
 
-def phase_heuristic(device, card: dict, chr_: dict) -> dict:
-    """rbt_markers --heuristic --best-strand-only with the strand skip and
-    with RBT_NO_STRAND_SKIP=1 on the greedy reads: the same lines."""
+HEURISTIC = ["--heuristic", "--best-strand-only", "-y", "19", "--clear-conflicting",
+             "--clear-identical"]
+
+
+def heuristic_run(argv: list[str], out_path: str):
+    """rbt_markers `argv` (with --heuristic) and the reads of each compacted
+    second-strand batch it seeded: (run_seeding_cli's result, [reads])."""
     from rowbowt_tpu_torch.cli import rbt_markers
-    from rowbowt_tpu_torch.ops import cuda_lf
 
-    paths = chr_["paths"]
-    argv = [paths["idx"], paths["greedy.fq"], "--heuristic", "--best-strand-only", "-y", "19",
-            "--clear-conflicting", "--clear-identical", "-b", str(GREEDY_BATCH),
-            "--device", str(device)]
-    second = []  # reads of each compacted second-strand batch
+    second = []
     real_rc_lanes = rbt_markers.rc_lanes
 
     def counted(idx, qc, lens):
@@ -2301,11 +2358,22 @@ def phase_heuristic(device, card: dict, chr_: dict) -> dict:
         return real_rc_lanes(idx, qc, lens)
 
     rbt_markers.rc_lanes = counted
-    reset_counts()
     try:
-        cli, skip_text, _ = run_seeding_cli("rbt_markers", argv, paths["out.txt"])
+        return run_seeding_cli("rbt_markers", argv, out_path), second
     finally:
         rbt_markers.rc_lanes = real_rc_lanes
+
+
+def phase_heuristic(device, card: dict, chr_: dict) -> dict:
+    """rbt_markers --heuristic --best-strand-only with the strand skip and
+    with RBT_NO_STRAND_SKIP=1 on the greedy reads: the same lines."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    paths = chr_["paths"]
+    argv = [paths["idx"], paths["greedy.fq"], *HEURISTIC, "-b", str(GREEDY_BATCH),
+            "--device", str(device)]
+    reset_counts()
+    (cli, skip_text, _), second = heuristic_run(argv, paths["out.txt"])
     k1, seeds = cuda_lf.LAUNCHES, seed_counts()
     # one launch for each batch's forward strand, one for its compacted
     # second-strand batch
@@ -2327,6 +2395,7 @@ def phase_heuristic(device, card: dict, chr_: dict) -> dict:
                no_skip_stages=both["cli_stages"], k1_launches=k1, seed_launches=seeds,
                card=card["nvidia_smi"])
     emit("heuristic", **res)
+    res["out_text"] = skip_text
     return res
 
 
@@ -2356,6 +2425,7 @@ def phase_lmem(device, card: dict, chr_: dict) -> dict:
                oracle_lines=len(want), oracle_s=oracle_s, k1_launches=k1, seed_launches=seeds,
                card=card["nvidia_smi"])
     emit("lmem", **res)
+    res["out_text"] = out_text
     return res
 
 
@@ -2403,17 +2473,17 @@ def phase_locs(device, card: dict, chr_: dict) -> dict:
 # ---------------- the seeding machines (csrc/seeds.cu) ----------------
 
 SEED_RANDOM_LANES = 4_096  # random-code lanes beside the parity batch: replays that meet an empty step
+SEED_PARITY_LANES = 16_384  # lanes of the parity batch the seeding machines take (its edge cases are mixed in)
 SEED_STEP_OPS = 16  # int32 operations of a machine step beside its ranks: tests, selects, slots
 
 
 def seed_counts() -> dict:
-    """The seeding machines' routes since the last reset: kernel launches by
-    machine (cuda_seeds.LAUNCHES_SEED) and runs of their torch loops on the
-    card (torch_<name>: cuda_seeds.LAUNCHES_SEED_TORCH)."""
+    """The seeding machines' kernel launches since the last reset, by route
+    (cuda_seeds.LAUNCHES_SEED: the machine over fused rows, with its step
+    record or per-step toehold, or over the tables of a rank policy)."""
     from rowbowt_tpu_torch.ops import cuda_seeds
 
-    return dict(cuda_seeds.LAUNCHES_SEED,
-                **{f"torch_{k}": v for k, v in cuda_seeds.LAUNCHES_SEED_TORCH.items()})
+    return dict(cuda_seeds.LAUNCHES_SEED)
 
 
 def seed_launches(**kw) -> dict:
@@ -2425,9 +2495,11 @@ def seed_cfg(tx, mode: str, L: int, small: bool = False, ftab: bool = True) -> d
     """The parameters of machine `mode` as its engine derives them for codes
     of width L (rbt_markers' window of MA_WSIZE, 8 seeds, the records its
     engine allots, max_range 2^62 clamped to the lane type; rbt_locs'
-    min_length 19; the ftab start where the index has one and L reaches its
-    k), or with `small` capacities that overflow: 2 seeds, 3 (greedy) or 2
-    (lmem) records, max_range 20, sample's min_length 0."""
+    min_length 19, with the step record on two-level rows and the per-step
+    toehold on an index without kval; the ftab start where the index has
+    one and L reaches its k), or with `small` capacities that overflow: 2
+    seeds, 3 (greedy) or 2 (lmem) records, max_range 20, sample's
+    min_length 0."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_lf
@@ -2440,8 +2512,19 @@ def seed_cfg(tx, mode: str, L: int, small: bool = False, ftab: bool = True) -> d
                     W=3 if small else 2 * (L // MA_WSIZE) + 4)
     if mode == "lmem":
         return dict(k=k, wsize=MA_WSIZE, max_range=mr, S=1, W=2 if small else L // MA_WSIZE + 2)
-    return dict(min_length=0 if small else 19, S=2 if small else 8,
-                record=cuda_lf.row_layout(tx) in R.FB2_KEYS)
+    two_level = cuda_lf.row_layout(tx) in R.FB2_KEYS
+    return dict(min_length=0 if small else 19, S=2 if small else 8, record=two_level,
+                toehold=not two_level and "kval" not in tx.arrays)
+
+
+def seed_route(tx, mode: str, cfg: dict) -> str:
+    """The cuda_seeds.LAUNCHES_SEED key of machine `mode` with cfg on tx."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    name = ("sample_rec" if cfg.get("record") else "sample_toe" if cfg.get("toehold")
+            else mode)
+    policy = cuda_lf.table_policy(tx) if cuda_lf.row_layout(tx) is None else None
+    return f"{name}_{policy}" if policy else name
 
 
 def seed_records(tx, mode: str, q, ln, cfg: dict, plain: bool) -> dict:
@@ -2459,8 +2542,9 @@ def seed_records(tx, mode: str, q, ln, cfg: dict, plain: bool) -> dict:
     if mode == "lmem":
         return S.markers_lmem_records_plain(tx, q, ln, cfg["wsize"], cfg["max_range"], cfg["k"],
                                             cfg["W"])
-    return S.seeds_sample_records_plain(tx, q, ln, cfg["min_length"], cfg["S"],
-                                        "trajectory" if cfg["record"] else "kval")
+    return S.seeds_sample_records_plain(
+        tx, q, ln, cfg["min_length"], cfg["S"],
+        "trajectory" if cfg["record"] else "per_step" if cfg["toehold"] else "kval")
 
 
 def records_err(got: dict, want: dict) -> int:
@@ -2469,18 +2553,29 @@ def records_err(got: dict, want: dict) -> int:
     return max_abs_err([got[k] for k in want], [want[k] for k in want])
 
 
-def seeds_parity(device, idx, codes, q, ln, edges) -> dict:
+def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
     """The seeding kernel (cuda_seeds.launch_machine) against its plain twins
     (the engines' *_records_plain torch loops, run on the card), every record
-    table equal: over the small panel's fblock64 rows (int32 lanes) and its
-    BigIndex view's fb2_64 rows (int64 lanes; the sampled machine with its
-    step record there), the dense index's ftab attached to both; greedy and
-    lmem with the ftab start and without, each at its engine's capacities
-    and at capacities that overflow (seed_cfg small), on the parity batch
-    and SEED_RANDOM_LANES random-code lanes; each machine at its engine's
-    capacities at the edges of k1_edges (the unstaged L = 3,072 for the
-    sampled machine only).  One launch a call.  Returns {"errs": {kernel:
-    max |err|}, "launches", "stats"}."""
+    table equal, one launch a call on its route:
+      - over the small panel's fblock64 rows (int32 lanes) and its BigIndex
+        view's fb2_64 rows (int64 lanes; the sampled machine with its step
+        record there), the dense index's ftab attached to both: greedy and
+        lmem with the ftab start and without, each at its engine's
+        capacities and at capacities that overflow (seed_cfg small), on the
+        parity batch's first SEED_PARITY_LANES lanes and SEED_RANDOM_LANES
+        random-code lanes; each machine at
+        its engine's capacities at the edges of k1_edges over fblock64 (the
+        unstaged L = 3,072 for the sampled machine only);
+      - the sampled machine's per-step toehold over the raw tables' fused
+        rows ({route: raw_tables}: tk1 and ltk), at both capacities on the
+        batch and the random lanes, and at the k1_edges edges over tk1;
+      - over each rank policy's tables (table_indexes: runs, dense, occ1, the
+        dense index's ftab kept): greedy as over the rows, lmem so with the
+        ftab start (and without it over the run-space tables), the sampled
+        machine with its per-step toehold at both capacities and with kval
+        (the index's own attached) at the engine's; the k1_edges edges
+        (unstaged included) for every machine over the run-space tables.
+    Returns {"errs": {kernel: max |err|}, "launches", "stats"}."""
     import dataclasses
 
     import torch
@@ -2492,68 +2587,108 @@ def seeds_parity(device, idx, codes, q, ln, edges) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(SMALL["seed"] + 7)
     rq, rl = random_lanes(rng, SEED_RANDOM_LANES, q.shape[1], idx.A)
-    cases = [("batch", q, ln), ("random", torch.from_numpy(rq).to(device),
-                                torch.from_numpy(rl).to(device))]
+    cases = [("batch", q[:SEED_PARITY_LANES], ln[:SEED_PARITY_LANES]),
+             ("random", torch.from_numpy(rq).to(device), torch.from_numpy(rl).to(device))]
     dense = TorchIndex.from_index(idx, device)
     big = TorchIndex.from_big(BigIndex.from_codes(codes, idx.alpha, n_sup=4), device)
     big = dataclasses.replace(big, arrays=dict(big.arrays, ftab=dense.arrays["ftab"]),
                               ftab_k=dense.ftab_k)
-    errs = dict.fromkeys(("seeds_greedy", "seeds_lmem", "seeds_sample", "seeds_sample_rec"), 0)
-    calls = dict.fromkeys(("greedy", "lmem", "sample", "sample_rec"), 0)
-    stats = {}
+    errs, stats = {}, {}
+    calls = dict.fromkeys(seed_counts(), 0)
     reset_counts()
+
+    def held(tx, layout, mode, todo):
+        for label, qe, le, small, ftab in todo:
+            cfg = seed_cfg(tx, mode, qe.shape[1], small, ftab)
+            route = seed_route(tx, mode, cfg)
+            got = seed_records(tx, mode, qe, le, cfg, plain=False)
+            want = seed_records(tx, mode, qe, le, cfg, plain=True)
+            torch.cuda.synchronize()
+            e = records_err(got, want)
+            tag = f"{layout},{route},{label},{'small' if small else 'engine'}," \
+                  f"{'ftab' if cfg.get('k') else 'full'}"
+            check(e == 0, f"the seeding kernel != its plain twin at {tag}: max |err| {e}")
+            errs[f"seeds_{route}"] = max(errs.get(f"seeds_{route}", 0), e)
+            calls[route] += qe.shape[0] > 0
+            if label in ("batch", "random"):
+                st = {}
+                if "ns" in want:
+                    st.update(seeds=int(want["ns"].sum()),
+                              lanes_past_S=int((want["ns"] > cfg["S"]).sum()))
+                if "nrec" in want:
+                    st.update(records=int(want["nrec"].sum()),
+                              lanes_past_W=int((want["nrec"] > cfg["W"]).sum()))
+                if "ssamp" in want:
+                    st.update(no_sample=int((want["ssamp"] < 0).sum()))
+                stats[tag] = st
+
+    def plan(mode, edge_labels, kval_only=False, ftab_only=False):
+        todo = [(label, qe, le, small, ftab) for label, qe, le in cases
+                for small in (False, True) for ftab in (True, False)
+                if (mode not in ("sample", "lmem" if ftab_only else "") or ftab)
+                and not (kval_only and small)]
+        return todo + [(label, qe, le, False, True) for label, qe, le in edges
+                       if label in edge_labels]
+
+    every = {label for label, _, _ in edges}
+    staged = every - {"L=3072 unstaged"}
     for layout, tx in (("fblock64", dense), ("fb2_64", big)):
         check(cuda_lf.row_layout(tx) == layout, f"seeds parity over {cuda_lf.row_layout(tx)}")
         for mode in ("greedy", "lmem", "sample"):
-            rec = mode == "sample" and layout == "fb2_64"
-            name = "sample_rec" if rec else mode
-            todo = [(label, qe, le, small, ftab) for label, qe, le in cases
-                    for small in (False, True) for ftab in (True, False)
-                    if mode != "sample" or ftab]
-            todo += [(label, qe, le, False, True) for label, qe, le in edges
-                     if label != "L=3072 unstaged" or mode == "sample"]
-            for label, qe, le, small, ftab in todo:
-                cfg = seed_cfg(tx, mode, qe.shape[1], small, ftab)
-                got = seed_records(tx, mode, qe, le, cfg, plain=False)
-                want = seed_records(tx, mode, qe, le, cfg, plain=True)
-                torch.cuda.synchronize()
-                e = records_err(got, want)
-                tag = f"{layout},{mode},{label},{'small' if small else 'engine'}," \
-                      f"{'ftab' if cfg.get('k') else 'full'}"
-                check(e == 0, f"the seeding kernel != its plain twin at {tag}: max |err| {e}")
-                errs[f"seeds_{name}"] = max(errs[f"seeds_{name}"], e)
-                calls[name] += qe.shape[0] > 0
-                if label in ("batch", "random"):
-                    st = {"seeds": int(want["ns"].sum())} if "ns" in want else {}
-                    if "ns" in want:
-                        st["lanes_past_S"] = int((want["ns"] > cfg["S"]).sum())
-                    if "nrec" in want:
-                        st.update(records=int(want["nrec"].sum()),
-                                  lanes_past_W=int((want["nrec"] > cfg["W"]).sum()))
-                    stats[tag] = st
+            # the edges over the single-level rows: the staging and the ftab
+            # start are the same code over the two-level rows
+            edge_labels = (every if mode == "sample" else staged) if layout == "fblock64" else ()
+            held(tx, layout, mode, plan(mode, edge_labels))
+    # the per-step toehold over fused rows (no kval): tk1 and ltk
+    for route in ("tk1", "ltk"):
+        tx = TorchIndex.from_index(raw[route], device)
+        check(cuda_lf.row_layout(tx) == "fblock64" and cuda_lf.toehold_route(tx) == route,
+              f"the raw tables over {cuda_lf.row_layout(tx)}, {cuda_lf.toehold_route(tx)}")
+        held(tx, f"fblock64,{route}", "sample", plan("sample", every if route == "tk1" else ()))
+        del tx
+    # each rank policy's tables, with and without kval
+    for policy, tab in table_indexes(idx, codes, raw["tk1"]).items():
+        tx = TorchIndex.from_index(tab, device)
+        check(cuda_lf.table_policy(tx) == policy and tx.has_ftab and "kval" not in tx.arrays,
+              f"the {policy} tables: policy {cuda_lf.table_policy(tx)}")
+        runs = policy == "runs"
+        for mode in ("greedy", "lmem", "sample"):
+            held(tx, policy, mode, plan(mode, every if runs else (), ftab_only=not runs))
+        kv = TorchIndex.from_index(dataclasses.replace(tab, kval=idx.kval), device)
+        held(kv, f"{policy},kval", "sample", plan("sample", (), kval_only=True))
+        del tx, kv
     launches = seed_counts()
-    check(launches == seed_launches(**calls), f"seeds parity launches {launches} for {calls}")
+    check(launches == calls, f"seeds parity launches {launches} for {calls}")
     # the reads overflow the small record capacities, the random lanes the
-    # small seed capacity
-    for layout in ("fblock64", "fb2_64"):
+    # small seed capacity; some per-step seeds precede any good step
+    for layout in ("fblock64", "fb2_64", "runs", "dense", "occ1"):
         for mode in ("greedy", "lmem"):
-            reads = stats[f"{layout},{mode},batch,small,ftab"]
+            route = f"{mode}_{layout}" if layout in ("runs", "dense", "occ1") else mode
+            reads = stats[f"{layout},{route},batch,small,ftab"]
             check(reads["lanes_past_W"] > 0, f"seeds parity: no record overflow at {layout},"
                   f"{mode}: {reads}")
-        rand = stats[f"{layout},greedy,random,small,ftab"]
+        route = f"greedy_{layout}" if layout in ("runs", "dense", "occ1") else "greedy"
+        rand = stats[f"{layout},{route},random,small,ftab"]
         check(rand["lanes_past_S"] > 0, f"seeds parity: no seed overflow at {layout}: {rand}")
+    no_sample = sum(v.get("no_sample", 0) for v in stats.values())
+    check(no_sample > 0, "seeds parity: no per-step seed without a toehold (-1)")
     return dict(errs=errs, launches=launches, stats=stats, s=time.perf_counter() - t0)
 
 
 def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
     """What one batch asks of machine `mode`, by a replay of its plain twin
-    with its LF step counted (ops/rank.lf_step_auto wrapped for the call):
+    with its LF step counted (ops/rank.lf_step_auto, and the per-step
+    toehold's lf_step_w_loc and lf_step_w_loc_occ1, wrapped for the call):
     the codes of the reads; the LF steps the kernel takes (a lane's active
     steps: to its length, for lmem to its failure, less greedy's replay
     steps that hold the full range, which load nothing); ranked steps (a
-    code in [0, A)); row loads (one or two a ranked step, none for a
-    position n); distinct rows; distinct ftab entries read; the longest
-    lane's ranked steps; the bytes of the record tables it writes."""
+    code in [0, A)); the longest lane's ranked steps; distinct ftab entries
+    read; the bytes of the record tables it writes.  Over fused rows: row
+    loads (one or two a ranked step, none for a position n) and distinct
+    rows; over the tables (tables_entries): the distinct table entries the
+    ranks need (and BWT[hi]'s for the per-step toehold) and their bytes.
+    For the per-step toehold also the seeds that resolve a toehold and the
+    distinct toeholds they resolve (as many table entries, at most)."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_lf
@@ -2562,23 +2697,36 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
     B, L = q.shape
     n, dt, A = tx.n, tx.idx_dtype, tx.A
     dev = q.device
-    shift = cuda_lf._SYMS_PER_ROW[cuda_lf.row_layout(tx)].bit_length() - 1
+    key = cuda_lf.row_layout(tx)
+    policy = cuda_lf.table_policy(tx) if key is None else None
     steps = []
-    real = R.lf_step_auto
-    step = real(tx)
+    names = ("lf_step_auto", "lf_step_w_loc", "lf_step_w_loc_occ1")
+    real = {name: getattr(R, name) for name in names}
+    step = real["lf_step_auto"](tx)
 
     def counted(tx_, lo, hi, c):
         nlo, nhi = step(tx_, lo, hi, c)
         steps.append((lo, hi, c, nlo <= nhi))
         return nlo, nhi
 
+    def counted_loc(fn):
+        def run(tx_, lo, hi, c, k):
+            nlo, nhi, nk = fn(tx_, lo, hi, c, k)
+            steps.append((lo, hi, c, nlo <= nhi))
+            return nlo, nhi, nk
+        return run
+
     R.lf_step_auto = lambda tx_: counted
+    R.lf_step_w_loc = counted_loc(real["lf_step_w_loc"])
+    R.lf_step_w_loc_occ1 = counted_loc(real["lf_step_w_loc_occ1"])
     try:
         rec = seed_records(tx, mode, q, ln, cfg, plain=True)
     finally:
-        R.lf_step_auto = real
+        for name, fn in real.items():
+            setattr(R, name, fn)
     m = ln.to(dt)
     k = cfg.get("k", 0)
+    toe = bool(cfg.get("toehold"))
     i0 = torch.zeros(B, dtype=dt, device=dev)
     ftab_entries = 0
     if k:
@@ -2592,7 +2740,8 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     lane_ranked = torch.zeros(B, dtype=torch.int64, device=dev)
     lf_steps = ranked = two = 0
-    rows = []
+    rows, ranks = [], []
+    shift = cuda_lf._SYMS_PER_ROW[key].bit_length() - 1 if key else 0
     for t, (lo, hi, c, ne) in enumerate(steps):
         if mode == "sample":
             load = t < m
@@ -2610,63 +2759,147 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
             if mode == "lmem":
                 done = done | (active & ~ne)
         rk = load & (c >= 0) & (c < A)
-        has0 = rk & (lo < n)
-        has1 = rk & (hi + 1 < n)
-        differ = has1 & (~has0 | (((hi + 1) >> shift) != (lo >> shift)))
         lf_steps += int(load.sum())
         ranked += int(rk.sum())
-        two += int(differ.sum())
         lane_ranked += rk
-        rows += [(lo >> shift)[has0], ((hi + 1) >> shift)[differ]]
-    return dict(codes=int(m.clamp(max=L).sum()), lf_steps=lf_steps, ranked_steps=ranked,
-                row_loads=int(sum(r.numel() for r in rows)), two_row_steps=two,
-                distinct_rows=int(torch.unique(torch.cat(rows)).numel()) if rows else 0,
-                ftab_entries=ftab_entries, longest_lane_ranked_steps=int(lane_ranked.max()),
-                out_bytes=sum(t.numel() * t.element_size() for t in rec.values()))
+        if key:
+            has0 = rk & (lo < n)
+            has1 = rk & (hi + 1 < n)
+            differ = has1 & (~has0 | (((hi + 1) >> shift) != (lo >> shift)))
+            two += int(differ.sum())
+            rows += [(lo >> shift)[has0], ((hi + 1) >> shift)[differ]]
+        else:
+            ranks.append((c.long()[rk], lo.long()[rk], (hi + 1).long()[rk],
+                          hi.long()[rk] if toe else None))
+    out = dict(codes=int(m.clamp(max=L).sum()), lf_steps=lf_steps, ranked_steps=ranked,
+               ftab_entries=ftab_entries, longest_lane_ranked_steps=int(lane_ranked.max()),
+               out_bytes=sum(t.numel() * t.element_size() for t in rec.values()))
+    if key:
+        out.update(row_loads=int(sum(r.numel() for r in rows)), two_row_steps=two,
+                   distinct_rows=int(torch.unique(torch.cat(rows)).numel()) if rows else 0)
+    else:
+        out.update(policy=policy, **tables_entries(tx, policy, ranks))
+    if toe:
+        written = torch.arange(cfg["S"], device=dev)[:, None] < rec["ns"][None, :].clamp(
+            max=cfg["S"])
+        s = rec["ssamp"][written]
+        out.update(resolves=int((s >= 0).sum()), resolve_entries=int(torch.unique(s[s >= 0])
+                                                                      .numel()))
+    return out
 
 
-def seed_bound(work: dict, B: int, tx, lat: float | None) -> dict:
+def tables_entries(tx, policy: str, ranks: list) -> dict:
+    """The distinct table entries of the ranks [(c, lo, hi + 1, hi or None)]
+    over the `policy` tables and their bytes: run_start and run_head at each
+    position's run and occ_flat at (c, run) (runs); occ_blk_flat at (c,
+    block) and the 64 B blocks of bwt4 (dense); occ1 at (c, position)
+    (occ1).  Positions at n read nothing but F (runs, dense)."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import rank as R
+
+    n, arr = tx.n, tx.arrays
+    occ, rows = [], []
+    for c, *pos in ranks:
+        for i in pos:
+            if i is None:
+                continue
+            use = i < n if policy != "occ1" else torch.ones_like(i, dtype=torch.bool)
+            if policy == "runs":
+                r = R.run_of(tx, i[use].to(tx.idx_dtype)).long()
+                rows.append(r)
+                occ.append(c[use] * tx.R + r)
+            elif policy == "dense":
+                rows.append(i[use] >> 7)
+                occ.append(c[use] * (arr["bwt4"].numel() // 16) + (i[use] >> 7))
+            else:
+                occ.append(c * (n + 1) + i)
+    occ_tab = arr[{"runs": "occ_flat", "dense": "occ_blk_flat", "occ1": "occ1_flat"}[policy]]
+    distinct_occ = int(torch.unique(torch.cat(occ)).numel()) if occ else 0
+    distinct_rows = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    row_bytes = (arr["run_start"].element_size() + arr["run_head"].element_size()
+                 if policy == "runs" else 64)
+    return dict(distinct_occ=distinct_occ, distinct_rows=distinct_rows,
+                table_bytes=distinct_occ * occ_tab.element_size() + distinct_rows * row_bytes)
+
+
+def seed_bound(work: dict, B: int, tx, lat) -> dict:
     """The bound of one seeding launch from its work: bytes (each input byte
-    read once: the reads' int32 codes, the lengths, F, the distinct rows,
-    the distinct ftab entries, the two-level rows' base table; each output
-    written once: the record tables) over the card's memory rate;
-    operations (two SWAR ranks a ranked step, RANK_OPS each, and
-    SEED_STEP_OPS a step) over its int32 rate; with `lat` (µs of a dependent
-    load over a random cycle of the chr table's size, phase k1) the longest
-    lane's ranked steps times it.  bound_ms is the larger of the byte and
-    operation times; bound_us the larger of the byte and latency times."""
+    read once: the reads' int32 codes, the lengths, F, the distinct rows or
+    table entries, the distinct ftab entries, the two-level rows' base
+    table, the per-step toehold's resolved entries; each output written
+    once: the record tables) over the card's memory rate; operations (two
+    ranks a ranked step: a SWAR rank over a row, RANK_OPS, or the tables
+    policy's as tables_bound counts them, three with BWT[hi]'s for the
+    per-step toehold; SEED_STEP_OPS a step; a resolve's search) over its
+    int32 rate; with `lat` (phase k1's latencies, or the float µs of a
+    dependent load over a random cycle of the chr table's size) the longest
+    lane's ranked steps times a step's latency (a random cycle over rows,
+    tables_step_us over the tables), plus one resolve for the toehold.
+    bound_ms is the larger of the byte and operation times; bound_us the
+    larger of the byte and latency times."""
     from rowbowt_tpu_torch.ops import cuda_lf
     from rowbowt_tpu_torch.ops import rank as R
 
     key = cuda_lf.row_layout(tx)
     lane = tx.arrays["F"].element_size()
     base = tx.arrays["fb2_base"].numel() * 8 if key in R.FB2_KEYS else 0
-    nbytes = (work["codes"] * 4 + B * 4 + (tx.A + 1) * lane
-              + work["distinct_rows"] * tx.arrays[key].shape[1] * 4 + work["ftab_entries"] * 8
-              + base + work["out_bytes"])
-    ops = 2 * RANK_OPS * work["ranked_steps"] + SEED_STEP_OPS * work["lf_steps"]
+    toe = "resolves" in work
+    ltk = toe and cuda_lf.toehold_route(tx) == "ltk"
+    levels = search_levels(tx.R) if tx.R else 0
+    resolve_bytes = 0
+    if toe:
+        tab = tx.arrays["ltk" if ltk else "tk1_flat"]
+        resolve_bytes = work["resolve_entries"] * (tab.element_size() + (
+            2 * tx.arrays["run_start"].element_size() if ltk else 0))
+    if key:
+        table_bytes = work["distinct_rows"] * tx.arrays[key].shape[1] * 4
+        per_rank = RANK_OPS
+    else:
+        table_bytes = work["table_bytes"]
+        per_rank = {"runs": 4 * levels + 4, "dense": RANK_OPS, "occ1": 1}[work["policy"]]
+    nbytes = (work["codes"] * 4 + B * 4 + (tx.A + 1) * lane + table_bytes
+              + work["ftab_entries"] * 8 + base + resolve_bytes + work["out_bytes"])
+    ops = ((2 if key or not toe else 3) * per_rank * work["ranked_steps"]
+           + SEED_STEP_OPS * work["lf_steps"])
+    if toe:
+        ops += (TOE_STEP_OPS * work["ranked_steps"] if key else 0) + work["resolves"] * (
+            4 * levels + 4 if ltk else 1)
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
     ops_us = ops / INT_OPS_PER_S * 1e6
     b = dict(bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
              bound_ms=max(byte_us, ops_us) / 1e3,
              bound_by="bytes" if byte_us >= ops_us else "operations")
     if lat is not None:
-        latency = work["longest_lane_ranked_steps"] * lat
-        b.update(latency_bound_us=latency, bound_us=max(byte_us, latency),
+        cycle = lat if isinstance(lat, float) else lat["random_cycle"]
+        step_us = cycle if key else tables_step_us(tx, work["policy"], lat)
+        latency = work["longest_lane_ranked_steps"] * step_us
+        if toe:
+            latency += cycle + (max(levels - L1_LEVELS, 0) * lat["tool_table"]
+                                if ltk and not isinstance(lat, float) else 0)
+        b.update(step_us=step_us, latency_bound_us=latency, bound_us=max(byte_us, latency),
                  bound_us_by="bytes" if byte_us >= latency else "latency")
     return b
 
 
-def seeds_times(tx, runs: dict, lat: float | None) -> dict:
-    """Each machine of `runs` ({mode: (q, ln, cfg)}, one batch each) on tx:
-    equal to its plain twin (max |err| 0); the call ms in turns with the
-    twin (plain, kernel, kernel, plain); the launch alone (CUDA events just
-    around it) and in one profiler trace; the work (seed_work), the bound
-    (seed_bound) and its share."""
+SEED_KERNELS = ("seed_machine_kernel", "seed_tables_kernel")
+
+
+def seeds_times(tx, runs: dict, lat) -> dict:
+    """Each machine of `runs` ({name: (q, ln, cfg)}, one batch each; the
+    name's first word is the mode) on tx: equal to its plain twin (max |err|
+    0); the call ms in turns with the twin (plain, kernel, kernel, plain);
+    the launch alone (CUDA events just around it) and in one profiler
+    trace; the work (seed_work), the bound (seed_bound) and its share."""
     import torch
 
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    kname = SEED_KERNELS[cuda_lf.row_layout(tx) is None]
     out = {}
-    for mode, (q, ln, cfg) in runs.items():
+    for name, (q, ln, cfg) in runs.items():
+        mode = name.split("_")[0]
+
         def kern(mode=mode, q=q, ln=ln, cfg=cfg):
             return seed_records(tx, mode, q, ln, cfg, plain=False)
 
@@ -2676,18 +2909,17 @@ def seeds_times(tx, runs: dict, lat: float | None) -> dict:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         e = records_err(got, want)
-        check(e == 0, f"the {mode} machine != its plain twin on the timed batch: max |err| {e}")
+        check(e == 0, f"the {name} machine != its plain twin on the timed batch: max |err| {e}")
         B, L = q.shape
-        r = dict(lanes=B, L=L, cfg=cfg, max_abs_err=e)
+        r = dict(lanes=B, L=L, cfg=cfg, route=seed_route(tx, mode, cfg), max_abs_err=e)
         r["call_ms"], r["plain_ms"] = in_turns([plain], [kern], 1, 10)
         r["device_us"] = kernel_event_us([around(kern)], 10)
-        r["profiled_us"] = profiled_kernel_us([kern], 3, ("seed_machine_kernel",))[
-            "seed_machine_kernel"]
+        r["profiled_us"] = profiled_kernel_us([kern], 3, (kname,))[kname]
         r["work"] = seed_work(tx, mode, q, ln, cfg)
         b = seed_bound(r["work"], B, tx, lat)
         r.update(bound=b, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                  share=b["bound_us"] / r["device_us"] if "bound_us" in b else None)
-        out[mode] = r
+        out[name] = r
     return out
 
 
@@ -3036,7 +3268,7 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
           and runs["-s"]["records_plain"] == 0,
           f"rbt_align -s on the PFP panel: one record launch and no torch record loop: {runs}")
     check([runs[t]["walks"] for t in ("count", "-s", "-m")]
-          == [dict(walk=0, walk_torch=0), dict(walk=1, walk_torch=0), dict(walk=0, walk_torch=0)],
+          == [dict(walk=0), dict(walk=1), dict(walk=0)],
           f"rbt_align -s on the PFP panel: one walk kernel launch and no torch walk: {runs}")
     res["walk"] = big_walk(device, path, fq["locate"])
     reset_counts()
@@ -3223,7 +3455,7 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     check(all(runs[t]["rec_launches"] == 0 for t in ("count", "-m")),
           "a record launch outside -s")
     # -s: one walk kernel launch a batch over the phi rows, no torch walk
-    check(runs["-s"]["walks"] == dict(walk=-(-N_LOCATE // BATCH), walk_torch=0),
+    check(runs["-s"]["walks"] == dict(walk=-(-N_LOCATE // BATCH)),
           f"rbt_align -s walks on the big rows: {runs['-s']['walks']}")
     runs["-m_routes"] = marker_routes(device, path, paths["locate.fq"], markers["out_text"])
 
@@ -3483,11 +3715,11 @@ def route_counts() -> dict:
 
 
 def walk_counts() -> dict:
-    """The phi walk's routes since the last reset: walk kernel launches, and
-    the torch walks of the phi_at route on the card."""
+    """The phi walk's launches since the last reset (every route: phi1, the
+    phi rows, phi_at, the predecessor search)."""
     from rowbowt_tpu_torch.ops import cuda_phi
 
-    return dict(walk=cuda_phi.LAUNCHES, walk_torch=cuda_phi.LAUNCHES_TORCH)
+    return dict(walk=cuda_phi.LAUNCHES)
 
 
 def reset_counts() -> None:
@@ -3497,10 +3729,9 @@ def reset_counts() -> None:
 
     cuda_lf.LAUNCHES = cuda_lf.LAUNCHES_FB2 = 0
     cuda_lf.LAUNCHES_REC = cuda_lf.RECORDS_PLAIN = cuda_lf.LAUNCHES_TOE = 0
-    for counts in (cuda_lf.LAUNCHES_TAB, cuda_lf.LAUNCHES_TAB_TOE, cuda_seeds.LAUNCHES_SEED,
-                   cuda_seeds.LAUNCHES_SEED_TORCH):
+    for counts in (cuda_lf.LAUNCHES_TAB, cuda_lf.LAUNCHES_TAB_TOE, cuda_seeds.LAUNCHES_SEED):
         counts.update(dict.fromkeys(counts, 0))
-    cuda_phi.LAUNCHES = cuda_phi.LAUNCHES_TORCH = 0
+    cuda_phi.LAUNCHES = 0
 
 
 def align_runs(device, path: str, runs: list, out_path: str) -> dict:
@@ -3675,8 +3906,53 @@ def toehold_times(device, path: str, fastq: str, loc: dict, k1: dict) -> dict:
     return out
 
 
+def seeding_runs(device, path: str, chr_: dict, dense: dict, routes: dict) -> dict:
+    """The seeding CLIs of phases greedy to locs on the index at `path`, with
+    their reads and flags: rbt_markers -f, --heuristic (the strand skip on)
+    and --lmem, and rbt_locs (`path`.midx.npz beside it), those of `routes`
+    ({tag: LAUNCHES_SEED key}).  Each prints the dense index's lines (`dense`:
+    {tag: text}) and launches the seeding kernel on its route once a batch
+    (--heuristic also once a compacted second-strand batch), nothing else:
+    required.  Per run the CLI's own seconds and stages, reads/s and the
+    launches."""
+    paths = chr_["paths"]
+    n_batches = -(-N_GREEDY // GREEDY_BATCH)
+    flags = {"-f": ("rbt_markers", paths["greedy.fq"], ["-f", "-b", str(GREEDY_BATCH)], N_GREEDY),
+             "--heuristic": ("rbt_markers", paths["greedy.fq"],
+                             [*HEURISTIC, "-b", str(GREEDY_BATCH)], N_GREEDY),
+             "--lmem": ("rbt_markers", paths["lmem.fq"], ["--lmem", "-b", str(N_LMEM)], N_LMEM),
+             "locs": ("rbt_locs", paths["greedy.fq"], ["-b", str(GREEDY_BATCH)], N_GREEDY)}
+    res = {}
+    for tag, route in routes.items():
+        tool, fastq, argv, n = flags[tag]
+        argv = [path, fastq, *argv, "--device", str(device)]
+        reset_counts()
+        if tag == "--heuristic":
+            (cli, out_text, _), second = heuristic_run(argv, paths["out.txt"])
+        else:
+            (cli, out_text, _), second = run_seeding_cli(tool, argv, paths["out.txt"]), []
+        launches = seed_counts()
+        want = seed_launches(**{route: 1 if tag == "--lmem" else n_batches + len(second)})
+        check(launches == want, f"{tool} {tag} on {path}: {launches}, not {want}")
+        check(out_text == dense[tag], f"{tool} {tag} on {path} != the dense index's lines")
+        res[tag] = dict(cli, reads=n, cli_reads_per_s=n / cli["cli_query_s"],
+                        seed_launches=launches, second_strand_batches=second)
+    return res
+
+
+def seeding_tx(device, path: str):
+    """(RbtIndex, TorchIndex) of the index at `path` as rbt_markers and
+    rbt_locs load it (SA samples and the ftab; the markers stay on the
+    host, which the machines do not read)."""
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.index import RbtIndex
+
+    idx = RbtIndex.load(path, with_sa=True, with_ma=False, with_dl=False, with_ft=True)
+    return idx, TorchIndex.from_index(idx, device)
+
+
 def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
-                  markers: dict, k1: dict) -> dict:
+                  markers: dict, k1: dict, seeding: dict) -> dict:
     """Phase raw_chr: the chr index written as the reference's raw files
     (.bwt/.ssa/.esa/.docs, and .mab through write_mab) and built from the
     prefix by `rbt_build_torch <prefix> -s -m -l`: fused-block rows and the
@@ -3685,8 +3961,12 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     -m print the dense index's lines (phases main, locate, markers); K1
     launches once a batch of count and -m, its toehold launch once a batch
     of -s, and nothing runs the torch loop.  Build seconds and peak RSS;
-    each run's load and query seconds and reads/s, the stages of -s, and
-    the toehold launch against the torch loop (toehold_times)."""
+    each run's load and query seconds and reads/s, and the toehold launch
+    against the torch loop (toehold_times).  Then
+    rbt_locs (`seeding`: phase locs' lines) prints the dense index's lines
+    with the sampled machine's per-step toehold over the fused rows and ltk
+    launched once a batch (seeding_runs), and that machine is timed on one
+    batch against its plain twin (seeds_times)."""
     from rowbowt_tpu_torch.construct.rawio import write_raw
     from rowbowt_tpu_torch.construct.sdslwrite import write_mab
     from rowbowt_tpu_torch.index import _ARRS_NAME
@@ -3720,19 +4000,19 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
           and runs["-s"]["launches"] == launch_counts(toe=n_loc),
           f"raw chr routes: {({k: v['launches'] for k, v in runs.items()})}")
     # raw chr keeps phi1 (built from the run samples): the walk kernel
-    check(runs["-s"]["walks"] == dict(walk=n_loc, walk_torch=0),
+    check(runs["-s"]["walks"] == dict(walk=n_loc),
           f"raw chr -s walks: {runs['-s']['walks']}")
-    # the stages of -s, whose toehold search is this index's own (count and
-    # -m run K1 as on the dense index, phases main and markers)
-    resident: dict = {}
-    runs["-s"]["stages"] = align_stages(device, lambda m: load_dense(device, out_dir, m),
-                                        paths["locate.fq"], "-s", loc["out_text"], resident)
     toehold = toehold_times(device, out_dir, paths["locate.fq"], loc, k1)
+    shutil.copy(paths["idx"] + ".midx.npz", out_dir + ".midx.npz")
+    runs.update(seeding_runs(device, out_dir, chr_, seeding, {"locs": "sample_toe"}))
+    host, tx = seeding_tx(device, out_dir)
+    seeds = seeds_times(tx, seed_batches(device, host, tx, paths, ("sample",)),
+                        k1["us_per_dependent_step"])
+    del host, tx
     res = dict(n=idx.n, raw_files_gb=sum(os.path.getsize(os.path.join(d, f))
                                          for f in os.listdir(d)) / 1e9,
                raw_write_s=write_s, build_s=build_s, peak_rss_gb=mem["peak_rss_gb"],
-               index_gb=dir_gb(out_dir), runs=runs, resident_mb_locate=resident,
-               toehold=toehold,
+               index_gb=dir_gb(out_dir), runs=runs, toehold=toehold, seeds_times=seeds,
                dense_reads_per_s={"count": count["cli_reads_per_s"],
                                   "-s": loc["cli_reads_per_s"],
                                   "-m": markers["cli_reads_per_s"]},
@@ -3740,6 +4020,7 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     emit("raw_chr", **res)
     shutil.rmtree(d, ignore_errors=True)
     shutil.rmtree(out_dir, ignore_errors=True)
+    os.remove(out_dir + ".midx.npz")
     return res
 
 
@@ -3793,7 +4074,7 @@ def tables_work(tx, q, ln, use_ftab: bool, toehold: bool) -> dict:
     tc = torch.full((B,), -1, dtype=torch.int64, device=q.device)
     thi = torch.zeros(B, dtype=torch.int64, device=q.device)
     ranked = 0
-    rows, occ = [], []
+    ranks = []
     step = R.lf_step_auto(tx)
     for j in range(L):
         c = q[:, L - 1 - j].to(dt)
@@ -3802,18 +4083,8 @@ def tables_work(tx, q, ln, use_ftab: bool, toehold: bool) -> dict:
         rk = active & (c >= 0) & (c < tx.A)
         ranked += int(rk.sum())
         c64 = c.long()
-        at = [lo.long(), (hi + 1).long()] + ([hi.long()] if toehold else [])
-        for i in at:
-            use = rk & (i < n) if policy != "occ1" else rk
-            if policy == "runs":
-                r = R.run_of(tx, i[use].to(dt)).long()
-                rows.append(r)
-                occ.append(c64[use] * tx.R + r)
-            elif policy == "dense":
-                rows.append(i[use] >> 7)
-                occ.append(c64[use] * (arr["bwt4"].numel() // 16) + (i[use] >> 7))
-            else:
-                occ.append(c64[use] * (n + 1) + i[use])
+        ranks.append((c64[rk], lo.long()[rk], (hi + 1).long()[rk],
+                      hi.long()[rk] if toehold else None))
         nlo, nhi = step(tx, lo, hi, c)
         if toehold:
             # BWT[hi] == c, from the policy's own tables
@@ -3831,16 +4102,10 @@ def tables_work(tx, q, ln, use_ftab: bool, toehold: bool) -> dict:
         lo = torch.where(active, nlo, lo)
         hi = torch.where(active, nhi, hi)
         done = done | (active & (nlo > nhi))
-    occ_tab = arr[{"runs": "occ_flat", "dense": "occ_blk_flat", "occ1": "occ1_flat"}[policy]]
-    distinct_occ = int(torch.unique(torch.cat(occ)).numel()) if occ else 0
-    distinct_rows = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
-    row_bytes = (arr["run_start"].element_size() + arr["run_head"].element_size()
-                 if policy == "runs" else 64)
-    table_bytes = distinct_occ * occ_tab.element_size() + distinct_rows * row_bytes
     out = dict(policy=policy, codes=int(lengths.clamp(max=L).sum()),
                lane_steps=int(steps.sum()), ranked_steps=ranked,
                longest_lane_steps=int(steps.max()) if B else 0, ftab_entries=ftab_entries,
-               distinct_occ=distinct_occ, distinct_rows=distinct_rows, table_bytes=table_bytes)
+               **tables_entries(tx, policy, ranks))
     if toehold:
         res = (hi >= lo) & (tc >= 0)
         tcr, thr = tc[res], thi[res]
@@ -3948,20 +4213,26 @@ def tables_times(device, tx, batches: list, toehold: bool, lat: dict | None,
 
 
 def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
-                      markers: dict, k1: dict) -> dict:
+                      markers: dict, k1: dict, seeding: dict) -> dict:
     """Phase nodense_chr: the chr index without fblock, kval, phi1 and
     ma_start1 (what `rbt_build_torch --no-dense` writes; phase build_small
     holds the two equal on the small panel).  rbt_align count and -m launch
     the tables kernel's run-space count search once a batch, -s its toehold
     search once a batch and the walk kernel over the predecessor search
     once a batch (no other route: required); each prints the dense index's
-    lines.  Reads/s beside the dense index's; the stages of -s; the tables
+    lines.  Reads/s beside the dense index's; the tables
     kernel's count search on the count batches and its toehold search on
     the -s batches against their plain twins (the torch loops of lf_step
     and lf_step_w_loc that the parent ran on the card), each stage before
     and after in turns and its first batch timed and bounded
     (tables_times); the walk kernel over the predecessor search on the -s
-    batches' lanes against the torch walk (walk_times)."""
+    batches' lanes against the torch walk (walk_times).  Then the seeding
+    CLIs of phases greedy to locs (`seeding`: their lines): rbt_markers -f,
+    --heuristic and --lmem launch the seeding kernel's greedy and L-MEM
+    machines over the run-space tables, and rbt_locs its sampled machine
+    with the per-step toehold over them and ltk, once a batch (required),
+    each printing the dense index's lines (seeding_runs); each machine timed
+    on one batch of its CLI's path against its plain twin (seeds_times)."""
     import torch
 
     from rowbowt_tpu_torch.cli.common import iter_query_batches
@@ -3981,10 +4252,8 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
           and runs["-s"]["launches"] == launch_counts(tab_toe_runs=n_loc),
           f"no-dense chr routes: {({k: v['launches'] for k, v in runs.items()})}")
     # no phi1: the walk kernel over the predecessor search
-    check(runs["-s"]["walks"] == dict(walk=n_loc, walk_torch=0),
+    check(runs["-s"]["walks"] == dict(walk=n_loc),
           f"no-dense chr -s walks: {runs['-s']['walks']}")
-    runs["-s"]["stages"] = align_stages(device, lambda m: load_dense(device, out_dir, m),
-                                        paths["locate.fq"], "-s", loc["out_text"])
     lat = k1["us_per_dependent_step"]
     tables = {}
     host, tx = load_dense(device, out_dir, "-s")  # the run-space tables and the toehold's
@@ -3994,16 +4263,25 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
         tables[name] = tables_times(device, tx, batches, name == "toehold", lat)
     resident = {k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()}
     walk = walk_times(device, tx, loc["ranges"], "pred", pred_step_us(tx.R, lat))
-    del tx, batches
+    del host, tx, batches
+    torch.cuda.empty_cache()
+    shutil.copy(paths["idx"] + ".midx.npz", out_dir + ".midx.npz")
+    runs.update(seeding_runs(device, out_dir, chr_, seeding, {
+        "-f": "greedy_runs", "--heuristic": "greedy_runs", "--lmem": "lmem_runs",
+        "locs": "sample_toe_runs"}))
+    host, tx = seeding_tx(device, out_dir)
+    seeds = seeds_times(tx, seed_batches(device, host, tx, paths), lat)
+    del host, tx
     torch.cuda.empty_cache()
     res = dict(n=idx.n, R=idx.R, save_s=save_s, index_gb=dir_gb(out_dir), runs=runs,
-               resident_mb_locate=resident, tables=tables, walk=walk,
+               resident_mb_locate=resident, tables=tables, walk=walk, seeds_times=seeds,
                dense_reads_per_s={"count": count["cli_reads_per_s"],
                                   "-s": loc["cli_reads_per_s"],
                                   "-m": markers["cli_reads_per_s"]},
                card=card["nvidia_smi"])
     emit("nodense_chr", **res)
     shutil.rmtree(out_dir, ignore_errors=True)
+    os.remove(out_dir + ".midx.npz")
     return res
 
 
@@ -4099,6 +4377,145 @@ def small_big_dirs(cfg, alpha, doc_names, d: str) -> dict:
         big.save(path)
         out[route] = dict(path=path, build_s=time.perf_counter() - t, n=big.n, R=big.R,
                           M=int(big.ma_row.shape[0]))
+    return out
+
+
+def phi_at_route(device, path: str, fastq: str, want: str, out_path: str,
+                 lat: dict | None) -> dict:
+    """rbt_align -s on the BigIndex directory at `path` with its phi rows
+    withheld (BigIndex._phi_pack yields none, as above 2^31 breakpoints): the
+    walk runs over the breakpoint table, one launch of the walk kernel's
+    phi_at route a batch (required), and prints `want`, the dense index's
+    lines.  Then the route timed on those batches against its plain twin
+    (walk_times; a step's latency, with `lat`, the search's 2 + iters loads
+    at the L2's latency: the small panel's tables fit the L2)."""
+    import torch
+
+    from rowbowt_tpu_torch.bigindex import BigIndex
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
+    from rowbowt_tpu_torch.ops import cuda_phi
+
+    real_pack, real_launch = BigIndex._phi_pack, cuda_phi.launch_walk
+    routes = []
+
+    def spy(tx, *a, **kw):
+        routes.append(cuda_phi.walk_route(tx))
+        return real_launch(tx, *a, **kw)
+
+    BigIndex._phi_pack = lambda self: (None, None)
+    cuda_phi.launch_walk = spy
+    try:
+        reset_counts()
+        cli, got, _ = run_cli([path, fastq, "-s", "-b", str(BATCH), "--device", str(device)],
+                              out_path)
+        walks = walk_counts()
+        big, tx = load_big(device, path, "-s")
+    finally:
+        BigIndex._phi_pack, cuda_phi.launch_walk = real_pack, real_launch
+    check(got == want, "rbt_align -s over the breakpoint table != the dense index's lines")
+    check(walks == dict(walk=1) and routes == ["phi_at"],
+          f"rbt_align -s over the breakpoint table: {walks}, routes {routes}")
+    ranges = []
+    for names, qc, lens in iter_query_batches(big, fastq, BATCH):
+        q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
+        ranges.append(tuple(t[:len(names)] for t in find_ranges_w_toehold(tx, q, ln)))
+    step_us = phi_loads(tx, "phi_at") * lat["tool_table"] if lat else 0.0
+    out = dict(walk_times(device, tx, ranges, "phi_at", step_us), cli=cli, launches=walks["walk"],
+               pp_bs=list(tx.pp_bs), breakpoints=int(tx.arrays["pred_pos"].numel()))
+    del big, tx, ranges
+    torch.cuda.empty_cache()
+    return out
+
+
+def iupac_seeding(device, path: str, fq: dict, out_path: str) -> dict:
+    """rbt_markers -f and rbt_locs on the index of 13 codes (its dense tables
+    and kval): one launch a batch of the greedy and the sampled machine over
+    the dense tables (required), the lines of the first N_SMALL_CPU reads
+    equal to the --device cpu run's."""
+    res = {}
+    for tool, argv, route in (("rbt_markers", ["-f"], "greedy_dense"),
+                              ("rbt_locs", [], "sample_dense")):
+        reset_counts()
+        cli, got, _ = run_seeding_cli(tool, [path, fq["iupac"], *argv, "-b", str(GREEDY_BATCH),
+                                             "--device", str(device)], out_path)
+        launches = seed_counts()
+        check(launches == seed_launches(**{route: 1}),
+              f"{tool} on the 13-code index: {launches}, not one {route} launch")
+        _, cpu, _ = run_seeding_cli(tool, [path, fq["iupac_cpu"], *argv, "-b",
+                                           str(N_SMALL_CPU), "--device", "cpu"], out_path)
+        first = [ln for ln in got.splitlines(keepends=True) if read_no(ln) < N_SMALL_CPU]
+        check(bool(first) and first == cpu.splitlines(keepends=True),
+              f"{tool} on the 13-code index: the card's lines != --device cpu's")
+        res[f"{tool}_iupac"] = dict(cli, reads=N_SMALL_READS,
+                                    cli_reads_per_s=N_SMALL_READS / cli["cli_query_s"],
+                                    seed_launches=launches)
+    return res
+
+
+def occ1_seeding_route(device, raw, reads: np.ndarray) -> dict:
+    """The seeding engines on the raw index without its fused rows (occ1 +
+    tk1, no kval): markers_greedy_seeding and seeds_greedy_w_sample launch
+    the greedy machine and the sampled machine with its per-step toehold
+    over the occ1 tables once each (required), and give what they give on
+    the same index with its rows (the rows' greedy and TOE launches)."""
+    import torch
+
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.seeds import markers_greedy_seeding, seeds_greedy_w_sample
+
+    qc = torch.from_numpy(np.stack([raw.alpha.encode(r).astype(np.int32)
+                                    for r in reads[:GREEDY_BATCH]])).to(device)
+    ln = torch.full((qc.shape[0],), READ_LEN, dtype=torch.int32, device=device)
+    out, counts = {}, {}
+    for name, drop in (("occ1", True), ("rows", False)):
+        tx = TorchIndex.from_index(raw, device)
+        if drop:
+            del tx.arrays["fblock64"]
+        reset_counts()
+        out[name] = (markers_greedy_seeding(tx, qc, ln, wsize=MA_WSIZE, max_range=1000),
+                     seeds_greedy_w_sample(tx, qc, ln, min_length=19))
+        torch.cuda.synchronize()
+        counts[name] = seed_counts()
+        del tx
+    check(counts["occ1"] == seed_launches(greedy_occ1=1, sample_toe_occ1=1)
+          and counts["rows"] == seed_launches(greedy=1, sample_toe=1),
+          f"the occ1 seeding route: {counts}")
+    e = max(max_abs_err(a, b) for a, b in zip(out["occ1"], out["rows"]))
+    check(e == 0, f"the seeding engines over occ1 != over the rows: max |err| {e}")
+    return dict(launches=counts, max_abs_err=e)
+
+
+def seeding_small_times(device, iupac_path: str, raw, fq: dict, reads: np.ndarray,
+                        lat: dict | None) -> dict:
+    """The dense and occ1 seeding instances timed (seeds_times) on one batch
+    of their paths: the greedy and sampled machines over the 13-code index's
+    dense tables (rbt_markers -f's and rbt_locs' batches of its reads), and
+    over the raw index's occ1 without its rows (the greedy machine from the
+    ftab, the sampled machine with its per-step toehold over tk1)."""
+    import torch
+
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+
+    host, tx = seeding_tx(device, iupac_path)
+    runs = {}
+    for mode, rc in (("greedy", True), ("sample", False)):
+        _, qc, lens = next(iter(iter_query_batches(host, fq["iupac"], GREEDY_BATCH,
+                                                   normalize=rc, with_rc=rc)))
+        q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
+        runs[mode] = (q, ln, seed_cfg(tx, mode, q.shape[1]))
+    out = {f"dense_{k}": v for k, v in seeds_times(tx, runs, lat).items()}
+    del host, tx, runs
+    tx = TorchIndex.from_index(raw, device)
+    del tx.arrays["fblock64"]
+    qc = torch.from_numpy(np.stack([raw.alpha.encode(r).astype(np.int32)
+                                    for r in reads[:GREEDY_BATCH]])).to(device)
+    ln = torch.full((qc.shape[0],), READ_LEN, dtype=torch.int32, device=device)
+    runs = {mode: (qc, ln, seed_cfg(tx, mode, READ_LEN)) for mode in ("greedy", "sample")}
+    out.update({f"occ1_{k}": v for k, v in seeds_times(tx, runs, lat).items()})
+    del tx, runs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4260,6 +4677,8 @@ def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
           and runs["big_merge"]["count"]["identical"],
           "the PFP directory's lines or the merge directory's count lines are not the "
           "dense index's byte for byte")
+    phi_at = phi_at_route(device, big_dirs["pfp"]["path"], fq["reads"], want["-s"], out_txt,
+                          lat)
     check(all(runs[x]["count"]["launches"] == k1 and runs[x]["-m"]["launches"] == k1
               for x in ("dense", "x", "raw_idx", "ser", "ftab_only"))
           and runs["nodense"]["count"]["launches"] == tab_runs
@@ -4269,7 +4688,7 @@ def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
           and runs["dense"]["-s"]["launches"] == k1,
           f"small routes: {({x: {t: v['launches'] for t, v in r.items()} for x, r in runs.items()})}")
     # every -s walks in the kernel: phi1, and the predecessor search without it
-    check(all(runs[x]["-s"]["walks"] == dict(walk=1, walk_torch=0)
+    check(all(runs[x]["-s"]["walks"] == dict(walk=1)
               for x in ("nodense", "raw_idx", "ser")),
           f"small -s walks: {({x: runs[x]['-s']['walks'] for x in ('nodense', 'raw_idx', 'ser')})}")
 
@@ -4337,10 +4756,10 @@ def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
                                                      str(GREEDY_BATCH), "--device", str(device)],
                                               out_txt)
             # the raw index has fused rows but no kval: rbt_locs' sampled
-            # machine carries its toehold step by step, a torch loop
+            # machine carries its toehold step by step (its TOE instance)
             want_seeds = (seed_launches(greedy=1) if tool == "rbt_markers" else
                           seed_launches(sample=1) if x == "dense" else
-                          seed_launches(torch_sample_per_step=1))
+                          seed_launches(sample_toe=1))
             check(seed_counts() == want_seeds,
                   f"{tool} on the small {x}: {seed_counts()}, not {want_seeds}")
             seeding[f"{tool}_{x}"] = dict(cli, reads=N_SMALL_SEEDING,
@@ -4348,10 +4767,14 @@ def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
                                           seed_launches=seed_counts())
         check(outs["dense"] == outs["raw_idx"] and outs["dense"],
               f"{tool} on the raw index != the dense index")
+    seeding.update(iupac_seeding(device, p["iupac"], fq, out_txt))
+    occ1_seeding = occ1_seeding_route(device, raw, reads)
+    seed_tables = seeding_small_times(device, p["iupac"], raw, fq, reads, lat)
     res = dict(n=dense.n, R=dense.R, A_iupac=iu.A, builds=builds, builders_s=builders_s,
                sdsl_write_s=sdsl_write_s,
                reads=N_SMALL_READS, runs=runs, iupac_runs=iu_runs, oracle_reads=N_ORACLE,
                oracle_s=oracle_s, occ1_route=occ1_counts, tables=tables, seeding=seeding,
+               occ1_seeding=occ1_seeding, seeds_times=seed_tables, phi_at=phi_at,
                setup_s=time.perf_counter() - t0, card=card["nvidia_smi"])
     emit("build_small", **res)
     shutil.rmtree(d, ignore_errors=True)
@@ -4361,9 +4784,9 @@ def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
 # ---------------- the multi-rank phases: the mesh engines on the card ----------------
 
 PAR_RANKS = 4  # ranks of the multi-rank phases: processes on cuda:0 over gloo
-N_PAR_COUNT = 16_384  # reads of the sharded count runs: the first of main's first batch
-N_PAR_LOCATE = 4_096  # reads of the sharded toehold + locate and window-marker runs
-N_PAR_GREEDY = 2_048  # reads of the sharded greedy runs: 4,096 lanes with both strands
+N_PAR_COUNT = 8_192  # reads of the sharded count runs: the first of main's first batch
+N_PAR_LOCATE = 2_048  # reads of the sharded toehold + locate and window-marker runs
+N_PAR_GREEDY = 1_024  # reads of the sharded greedy runs: 2,048 lanes with both strands
 PAR_MAX_HITS = 8
 PAR_MAX_K = 32  # window-marker buffer: sharded_stream's
 PAR_MAX_RANGE = 1000
@@ -4864,11 +5287,11 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     with the window markers of the single-device find_ranges_w_markers
     (window MA_WSIZE, 32 a read: the JAX script's -m); --greedy, 2
     processes with half of N_PAR_GREEDY reads each, prints what one process
-    prints over all of them.  These four groups run at once; then 4
-    processes (--n-idx 4) on the big_chr directory, a quarter of the reads
-    each, print phase main's lines.  Each group's wall seconds from its
-    start, process start and index load included (the first four share the
-    card and the host's cores)."""
+    prints over all of them; 4 processes (--n-idx 4) on the big_chr
+    directory, a quarter of the reads each, print phase main's lines.  The
+    five groups run at once.  Each group's wall seconds from its start,
+    process start and index load included (they share the card and the
+    host's cores)."""
     import torch
 
     from rowbowt_tpu_torch.cli.common import iter_query_batches
@@ -4899,11 +5322,13 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     one = os.path.join(WORK, "stream_greedy_all.fq")
     write_fastq(one, reads[:N_PAR_GREEDY])
     g = ["--greedy", "--wsize", str(MA_WSIZE), "--max-range", str(PAR_MAX_RANGE)]
+    qfqs, qper = shards(PAR_RANKS, N_PAR_COUNT, "quarter")
     runs = {"count": start_stream(device, paths["idx"], fqs, [], 2, per),
             "markers": start_stream(device, paths["idx"], fqs, ["-m", "--wsize", str(MA_WSIZE)],
                                     2, per),
             "greedy": start_stream(device, paths["idx"], gfqs, g, 2, gper),
-            "greedy_one_process": start_stream(device, paths["idx"], [one], g, 1, N_PAR_GREEDY)}
+            "greedy_one_process": start_stream(device, paths["idx"], [one], g, 1, N_PAR_GREEDY),
+            "big_chr_count": start_stream(device, big_path, qfqs, [], PAR_RANKS, qper)}
     out = {k: finish_stream(r) for k, r in runs.items()}
     check(all(out["count"][1][p] == "".join(main_lines[p * per:(p + 1) * per]) for p in range(2)),
           "sharded_stream count (2 processes): lines != phase main's")
@@ -4911,15 +5336,14 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
           "sharded_stream -m (2 processes): lines != the window-marker engine's")
     check("".join(out["greedy"][1]) == out["greedy_one_process"][1][0],
           "sharded_stream --greedy (2 processes) != 1 process")
-    res = {k: stream_stats(w, m, 2 if len(m) > 1 else 1) for k, (w, _, m) in out.items()}
+    outs = out["big_chr_count"][1]
+    check(all(outs[p] == "".join(main_lines[p * qper:(p + 1) * qper]) for p in range(PAR_RANKS)),
+          "sharded_stream on big_chr (4 processes): lines != phase main's")
+    res = {k: stream_stats(w, m, PAR_RANKS if k == "big_chr_count" else 2 if len(m) > 1 else 1)
+           for k, (w, _, m) in out.items()}
     res["concurrent"] = list(runs)
     res["markers"]["reads_with_markers"] = int((used > 0).sum())
     res["greedy"]["lines"] = len(out["greedy_one_process"][1][0].splitlines())
-    qfqs, qper = shards(PAR_RANKS, N_PAR_COUNT, "quarter")
-    wall, outs, meters = finish_stream(start_stream(device, big_path, qfqs, [], PAR_RANKS, qper))
-    check(all(outs[p] == "".join(main_lines[p * qper:(p + 1) * qper]) for p in range(PAR_RANKS)),
-          "sharded_stream on big_chr (4 processes): lines != phase main's")
-    res["big_chr_count"] = stream_stats(wall, meters, PAR_RANKS)
     res["card"] = card["nvidia_smi"]
     emit("parallel_stream", **res)
     return res
@@ -4976,6 +5400,19 @@ def main(argv: list[str]) -> int:
                     made["k1"] = phase_k1(device, card, chr_main()[0])
                 return made["k1"]
 
+            def seeding(tag):
+                """The dense chr index's lines of a seeding phase (-f: greedy,
+                --heuristic, --lmem, locs), the phase run once."""
+                if tag not in made:
+                    chr_ = chr_main()[0]
+                    made[tag] = (
+                        phase_greedy(device, card, chr_,
+                                     k1_phase()["us_per_dependent_step"]["random_cycle"])
+                        if tag == "-f" else phase_heuristic(device, card, chr_)
+                        if tag == "--heuristic" else phase_lmem(device, card, chr_)
+                        if tag == "--lmem" else phase_locs(device, card, chr_))["out_text"]
+                return made[tag]
+
             for name in dict.fromkeys(argv):  # in the order given
                 if name == "probes":
                     phase_probes(device)
@@ -4989,18 +5426,14 @@ def main(argv: list[str]) -> int:
                 elif name == "nodense_chr":
                     chr_, count = chr_main()
                     k1 = k1_phase()
+                    dense = {tag: seeding(tag) for tag in ("-f", "--heuristic", "--lmem",
+                                                           "locs")}
                     phase_nodense_chr(device, card, chr_, count,
                                       phase_locate(device, card, chr_, count),
-                                      phase_markers(device, card, chr_, count), k1)
-                elif name == "greedy":
-                    phase_greedy(device, card, chr_main()[0],
-                                 k1_phase()["us_per_dependent_step"]["random_cycle"])
-                elif name == "heuristic":
-                    phase_heuristic(device, card, chr_main()[0])
-                elif name == "lmem":
-                    phase_lmem(device, card, chr_main()[0])
-                elif name == "locs":
-                    phase_locs(device, card, chr_main()[0])
+                                      phase_markers(device, card, chr_, count), k1, dense)
+                elif name in ("greedy", "heuristic", "lmem", "locs"):
+                    seeding({"greedy": "-f", "heuristic": "--heuristic", "lmem": "--lmem",
+                             "locs": "locs"}[name])
                 elif name == "parallel_dp":
                     phase_parallel_dp(device, card, *chr_main())
                 elif name == "parallel_sharded":
@@ -5023,13 +5456,17 @@ def main(argv: list[str]) -> int:
         k1 = phase_k1(device, card, chr_)
         loc = phase_locate(device, card, chr_, count)
         markers = phase_markers(device, card, chr_, count)
-        raw = phase_raw_chr(device, card, chr_, count, loc, markers, k1)
-        nodense = phase_nodense_chr(device, card, chr_, count, loc, markers, k1)
         chain = phase_phi_chain(device, card, loc, k1)
         greedy = phase_greedy(device, card, chr_, k1["us_per_dependent_step"]["random_cycle"])
-        phase_heuristic(device, card, chr_)
+        heuristic = phase_heuristic(device, card, chr_)
         lmem = phase_lmem(device, card, chr_)
         locs = phase_locs(device, card, chr_)
+        # the same index without kval (raw) and without fused rows: the
+        # dense index's lines of every phase above
+        seeding = {"-f": greedy["out_text"], "--heuristic": heuristic["out_text"],
+                   "--lmem": lmem["out_text"], "locs": locs["out_text"]}
+        raw = phase_raw_chr(device, card, chr_, count, loc, markers, k1, seeding)
+        nodense = phase_nodense_chr(device, card, chr_, count, loc, markers, k1, seeding)
         big_chr = phase_big_chr(device, card, chr_, count, k1, loc, markers, locs)
         pfp_big = phase_pfp_big(device, card, child, k1)
         small = phase_build_small(device, card, k1["us_per_dependent_step"])
@@ -5085,8 +5522,16 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     a machine: seeds_greedy (main path rbt_markers -f on chr), seeds_lmem
     (rbt_markers --lmem), seeds_sample (rbt_locs), each timed on one batch
     of its path in phase greedy, and seeds_sample_rec (rbt_locs on the
-    big_chr directory, timed there), their max |err| also over phase
-    parity."""
+    big_chr directory, timed there), seeds_sample_toe (the per-step toehold
+    over fused rows: rbt_locs on raw_chr), seeds_greedy_runs, seeds_lmem_runs
+    and seeds_sample_toe_runs (rbt_markers -f, --lmem and rbt_locs on
+    nodense_chr), seeds_greedy_dense and seeds_sample_dense (rbt_markers -f
+    and rbt_locs on build_small's 13-code index) and seeds_greedy_occ1 and
+    seeds_sample_toe_occ1 (the engines on build_small's raw index without
+    its rows), each timed on one batch of its path, their max |err| also
+    over phase parity.  The walk kernel's breakpoint-table route
+    (walk_phi_at: rbt_align -s on build_small's PFP directory with its phi
+    rows withheld) has its entry too."""
     kernels = []
     for name, b, main, err, ms, plain_ms, dev_us, prof_us in (
             ("lf_count", k1["bound"], count,
@@ -5158,20 +5603,45 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
             "profiled_us": t["profiled_us"], "bound_us": t["bound"]["bound_us"],
             "bound_us_by": t["bound"]["bound_us_by"]})
     # the seeding machines: their main paths are rbt_markers -f, --lmem and
-    # rbt_locs on chr, and rbt_locs on the big_chr directory
+    # rbt_locs on chr, rbt_locs on the big_chr directory; over the tables,
+    # rbt_markers -f, --heuristic, --lmem and rbt_locs on nodense_chr, -f and
+    # rbt_locs on build_small's 13-code index (dense) and the engines on its
+    # raw index without rows (occ1); with the per-step toehold over rows,
+    # rbt_locs on raw_chr
     loops = {"greedy": "seeds.py:348", "lmem": "seeds.py:500", "sample": "seeds.py:112-117",
-             "sample_rec": "seeds.py:112-117"}
+             "sample_rec": "seeds.py:112-117",
+             "sample_toe": "seeds.py:66-75 (the per-step toehold's step) and :112-117"}
+    nd, sm = nodense["runs"], small["seeding"]
+    occ1 = small["occ1_seeding"]["launches"]["occ1"]
     for name, t, launches in (
             ("greedy", greedy["seeds_times"]["greedy"], greedy["seed_launches"]["greedy"]),
             ("lmem", greedy["seeds_times"]["lmem"], lmem["seed_launches"]["lmem"]),
             ("sample", greedy["seeds_times"]["sample"], locs["seed_launches"]["sample"]),
             ("sample_rec", big_chr["seeds_rec"],
-             big_chr["runs"]["locs"]["seed_launches"]["sample_rec"])):
+             big_chr["runs"]["locs"]["seed_launches"]["sample_rec"]),
+            ("sample_toe", raw["seeds_times"]["sample"],
+             raw["runs"]["locs"]["seed_launches"]["sample_toe"]),
+            ("greedy_runs", nodense["seeds_times"]["greedy"],
+             nd["-f"]["seed_launches"]["greedy_runs"]),
+            ("lmem_runs", nodense["seeds_times"]["lmem"],
+             nd["--lmem"]["seed_launches"]["lmem_runs"]),
+            ("sample_toe_runs", nodense["seeds_times"]["sample"],
+             nd["locs"]["seed_launches"]["sample_toe_runs"]),
+            ("greedy_dense", small["seeds_times"]["dense_greedy"],
+             sm["rbt_markers_iupac"]["seed_launches"]["greedy_dense"]),
+            ("sample_dense", small["seeds_times"]["dense_sample"],
+             sm["rbt_locs_iupac"]["seed_launches"]["sample_dense"]),
+            ("greedy_occ1", small["seeds_times"]["occ1_greedy"], occ1["greedy_occ1"]),
+            ("sample_toe_occ1", small["seeds_times"]["occ1_sample"], occ1["sample_toe_occ1"])):
         b = t["bound"]
+        machine = name if name in loops else name.rsplit("_", 1)[0]
+        step = ("K1's rank, each step" if name in loops else
+                f"K1's rank, each step; here the {name.rsplit('_', 1)[1]} tables' step")
         kernels.append({
             "name": f"seeds_{name}", "route": "cuda", "source": "rowbowt_tpu_torch/csrc/seeds.cu",
-            "replaces": f"rowbowt_tpu/ops/pallas_lf.py:49 (K1's rank, each step) and "
-                        f"rowbowt_tpu/engine/{loops[name]} (an XLA fori_loop in the JAX package)",
+            "replaces": f"rowbowt_tpu/ops/pallas_lf.py:49 ({step}) and "
+                        f"rowbowt_tpu/engine/{loops[machine]} (an XLA fori_loop in the JAX "
+                        f"package)",
             "launches": launches, "max_abs_err": max(par_err[f"seeds_{name}"], t["max_abs_err"]),
             "ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "device_us": t["device_us"],
@@ -5209,7 +5679,9 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
              max(par_err["phi_walk_rows"], big_chr["walk"]["max_abs_err"],
                  pfp_big["walk"]["max_abs_err"])),
             ("phi_walk_pred", nodense["walk"], nodense["runs"]["-s"]["walks"]["walk"],
-             max(par_err["phi_walk_pred"], nodense["walk"]["max_abs_err"]))):
+             max(par_err["phi_walk_pred"], nodense["walk"]["max_abs_err"])),
+            ("walk_phi_at", small["phi_at"], small["phi_at"]["launches"],
+             max(par_err["walk_phi_at"], small["phi_at"]["max_abs_err"]))):
         kernels.append({"name": name, "route": "cuda",
                         "source": "rowbowt_tpu_torch/csrc/phi_walk.cu",
                         "replaces": "tools/vmem_gather_probe.py:92 (P3's chain, carrying the phi "

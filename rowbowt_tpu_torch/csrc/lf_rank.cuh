@@ -1,6 +1,8 @@
 // The LF step of K1 over fused-block rows, shared by the kernels that step
 // on it: lf.cu (K1, lf_count_kernel, and the tables kernel's staging) and
-// seeds.cu (the seeding state machines of rbt_markers and rbt_locs).
+// seeds.cu (the seeding state machines of rbt_markers and rbt_locs), with
+// the per-step toehold's trivial test (BWT[hi] == c) from the rows already
+// loaded.
 //
 // Row contract (rowbowt_tpu_torch/construct/build.py build_fblock and
 // fblock_to_fb64): int32[8 + SYMS/8] per row = 8 exclusive per-code
@@ -189,15 +191,57 @@ __device__ __forceinline__ void rank_pair(const int4* __restrict__ fb,
   }
 }
 
+// The symbol at in-row offset `off` from this thread's parts of the row
+// (part sub + m * kG in v[m]), or 0 where another thread of the lane holds
+// its word: the kG shares sum to the symbol.
+template <int SYMS>
+__device__ __forceinline__ int sym_share(const int4 (&v)[Layout<SYMS>::kPer], int sub,
+                                         int off) {
+  int s = 0;
+#pragma unroll
+  for (int m = 0; m < Layout<SYMS>::kPer; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int lane = 4 * (sub + m * kG) + e;
+      if (lane == kCkpt + (off >> 3))
+        s = (int)(((uint32_t)lane_of(v[m], e) >> (4 * (off & 7))) & 15u);
+    }
+  }
+  return s;
+}
+
+// BWT[hi] over the single-level rows, summed over the lane's kG threads: the
+// symbol before i1 = hi + 1 in i1's row (w, as rank_pair loaded it), unless
+// i1 starts a row or equals n: then one word of hi's own row.
+template <typename Lane, int SYMS>
+__device__ __forceinline__ int bwt_at_hi(const int4* __restrict__ fb,
+                                         const int4 (&w)[Layout<SYMS>::kPer], int sub,
+                                         unsigned pair, Lane n, Lane hi) {
+  using Lo = Layout<SYMS>;
+  const Lane i1 = hi + 1;
+  const int o1 = (int)(i1 & (SYMS - 1));
+  int s = sym_share<SYMS>(w, sub, max(o1 - 1, 0));
+  s += __shfl_xor_sync(pair, s, 1);
+  if (i1 >= n || o1 == 0) {
+    const uint32_t word = (uint32_t)__ldg(reinterpret_cast<const int32_t*>(fb) +
+                                          (size_t)(hi >> Lo::kShift) * Lo::kRow + kCkpt +
+                                          (int)((hi & (SYMS - 1)) >> 3));
+    s = (int)((word >> (4 * (int)(hi & 7))) & 15u);
+  }
+  return s;
+}
+
 // One LF step of a lane by its kG threads: (lo, hi) becomes LF((lo, hi), c),
 // or the empty range (1, 0) where that is empty or c lies outside [0, A)
 // (a staged absent or other code); returns whether it is non-empty.  sF is
-// F [A + 1] in shared memory.
-template <typename Lane, int SYMS>
+// F [A + 1] in shared memory.  TOE (single-level rows) also sets `trivial`
+// to BWT[hi] == c for the pre-step hi.
+template <typename Lane, int SYMS, bool TOE = false>
 __device__ __forceinline__ bool lf_step_rows(const int4* __restrict__ fb, const Lane* sF,
                                              const int64_t* __restrict__ base, int per_blk,
                                              int A, Lane n, int sub, unsigned pair, int c,
-                                             Lane& lo, Lane& hi) {
+                                             Lane& lo, Lane& hi, bool& trivial) {
+  static_assert(!TOE || sizeof(Lane) == 4, "the per-step toehold is the single-level rows'");
   if (c >= A) {
     lo = 1;
     hi = 0;
@@ -207,6 +251,7 @@ __device__ __forceinline__ bool lf_step_rows(const int4* __restrict__ fb, const 
   Lane cb, ce;
   rank_pair<Lane, SYMS>(fb, base, per_blk, n, sF[c + 1] - sF[c], lo, hi + 1, c, sub, pair, w,
                         cb, ce);
+  if constexpr (TOE) trivial = bwt_at_hi<Lane, SYMS>(fb, w, sub, pair, n, hi) == c;
   const Lane ci = ce - cb;
   if (ci <= 0) {
     lo = 1;

@@ -7,10 +7,8 @@
 // It is P3's chained gather (csrc/gather_probe.cu gather_chain_kernel,
 // tools/vmem_gather_probe.py:92 kernelC) carrying the walk: lane b writes
 // out[off[b] + j] for j < size[b], j = 0 the toehold k[b] and each later j
-// the phi of the one before, with the step loop inside the thread.  Three
-// routes, three of the four that ops/rank.py phi_step takes (the fourth, the
-// breakpoint table phi_at of a BigIndex with 2^31 or more breakpoints, stays
-// the torch walk):
+// the phi of the one before, with the step loop inside the thread.  Four
+// routes, the four that ops/rank.py phi_step takes:
 //   - phi1 (dense, raw and serialized indexes): i <- phi1[clamp(i, 0, n-1)],
 //     one dependent load a step, int32 or int64 table;
 //   - phi_rows + phi_delta (a BigIndex, bigindex.phi_pack_tables): one 64 B
@@ -18,6 +16,14 @@
 //     positions, the popcount of the row's bits at or below i's offset gives
 //     the rank of i's breakpoint, and i <- (i + phi_delta[rank]) mod n: two
 //     dependent loads a step, int64 lanes (n above 2^31);
+//   - the breakpoint table phi_at (a BigIndex with 2^31 or more
+//     breakpoints, whose bitmap rows would overflow their int32
+//     checkpoints; bigindex.big_locate_tables): rk = lower_bound(pred_pos,
+//     i + 1) - 1 by the bucketed search of ops/rank.py
+//     bucketed_lower_bound (pp_off bounds the search to i + 1's bucket of
+//     2^shift positions, then `iters` fixed halvings), and i <- (phi_at[rk]
+//     + i - pred_pos[rk]) mod n: 2 + iters dependent loads a step, int64
+//     lanes (rowbowt_tpu/ops/rank.py:414-426);
 //   - the predecessor search over the run-start samples (an index with
 //     neither table: `--no-dense`, ToeholdSA::phi, toehold_sa.hpp:56-72): rk
 //     the lower bound of i in pred_pos, jr = rk - 1 (R - 1 for rk == 0), j =
@@ -118,6 +124,44 @@ struct PhiRows {
     int64_t rk = (int64_t)a.x + cnt - 1;
     rk = rk < 0 ? 0 : rk;
     int64_t v = (i + load_nc(delta + rk)) % n;
+    return v < 0 ? v + n : v;
+  }
+};
+
+// One entry of an int32 or int64 table (bytes 4 or 8), widened.
+__device__ __forceinline__ int64_t entry(const void* t, int bytes, int64_t i) {
+  return bytes == 8 ? (int64_t)__ldg(static_cast<const long long*>(t) + i)
+                    : (int64_t)__ldg(static_cast<const int32_t*>(t) + i);
+}
+
+// phi over the breakpoint table: ops/rank.py phi_step's "phi_at" branch with
+// its bucket table pp_off [n_off] (each table int32 or int64, *_bytes).
+struct PhiAt {
+  const void* pred_pos;
+  const void* phi_at;
+  const void* pp_off;
+  int pp_bytes, at_bytes, off_bytes;
+  int64_t M;      // breakpoints (pred_pos and phi_at entries)
+  int64_t n_off;  // pp_off entries
+  int shift, iters;
+  int64_t n;
+  __device__ __forceinline__ int64_t operator()(int64_t i) const {
+    // bucketed_lower_bound(pred_pos, pp_off, shift, iters, q = i + 1)
+    const int64_t q = i + 1;
+    int64_t b = q >> shift;
+    b = b < 0 ? 0 : (b > n_off - 2 ? n_off - 2 : b);
+    int64_t lo = entry(pp_off, off_bytes, b), hi = entry(pp_off, off_bytes, b + 1);
+    for (int it = 0; it < iters; ++it) {
+      const int64_t mid = (lo + hi) >> 1;
+      const int64_t at = mid < 0 ? 0 : (mid > M - 1 ? M - 1 : mid);
+      const bool take = entry(pred_pos, pp_bytes, at) < q && lo < hi;
+      hi = take || lo >= hi ? hi : mid;
+      lo = take ? mid + 1 : lo;
+    }
+    // pred_pos[0] == 0, so rk >= 0; a torch gather reads index -1 as M - 1
+    int64_t rk = lo - 1;
+    rk = rk < 0 ? rk + M : rk;
+    int64_t v = (entry(phi_at, at_bytes, rk) + (i - entry(pred_pos, pp_bytes, rk))) % n;
     return v < 0 ? v + n : v;
   }
 };
@@ -235,6 +279,24 @@ int rbt_phi_walk_pred(const void* pred_pos, const void* pred_to_run, const void*
                                   static_cast<const long long*>(samples_last), R, n},
                   k, size, off, order, out, B, threads, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The breakpoint table: pred_pos and phi_at (M entries, pp_bytes and
+// at_bytes a value), its bucket table pp_off (n_off >= 2 entries, off_bytes)
+// and (shift, iters), the index's pp_bs.
+int rbt_phi_walk_phi_at(const void* pred_pos, int pp_bytes, const void* phi_at, int at_bytes,
+                        long long M, const void* pp_off, int off_bytes, long long n_off,
+                        int shift, int iters, long long n, const void* k, const void* size,
+                        const void* off, const void* order, void* out, int B, int threads,
+                        void* stream) {
+  auto width = [](int bytes) { return bytes == 4 || bytes == 8; };
+  if (n < 1 || M < 1 || n_off < 2 || shift < 0 || shift > 62 || iters < 0 || iters > 64 ||
+      !width(pp_bytes) || !width(at_bytes) || !width(off_bytes) || pred_pos == nullptr ||
+      phi_at == nullptr || pp_off == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch(PhiAt{pred_pos, phi_at, pp_off, pp_bytes, at_bytes, off_bytes, M, n_off, shift,
+                      iters, n},
+                k, size, off, order, out, B, threads, stream);
 }
 
 const char* rbt_phi_walk_error_string(int code) {

@@ -1,16 +1,23 @@
 // The seeding state machines of rbt_markers and rbt_locs, one launch a
 // batch, for Hopper (sm_90a).
 //
-// Each lane runs its read's whole seeding loop inside the kernel, stepping
-// on K1's LF step (lf_rank.cuh: two ranks over a fused-block row by the
-// lane's two threads) with real per-lane control flow where the torch loops
-// of rowbowt_tpu_torch/engine/seeds.py select with masks over [B] tensors,
-// L steps of tens of kernel launches each.  The JAX package runs the same
+// Each lane runs its read's whole seeding loop inside the kernel, with real
+// per-lane control flow where the torch loops of
+// rowbowt_tpu_torch/engine/seeds.py select with masks over [B] tensors, L
+// steps of tens of kernel launches each.  The JAX package runs the same
 // loops as XLA fori_loops: rowbowt_tpu/engine/seeds.py:348
 // (markers_greedy_seeding), :500 (markers_lmem_lanes) and :112-117
-// (seeds_greedy_w_sample).  MODE selects the machine, each transcribed from
-// the port's torch loop (its *_records_plain twin, which the kernel is held
-// against):
+// (seeds_greedy_w_sample).  The machine body is written once (machine()),
+// templated on its LF step, the step policy:
+//   - Rows: K1's LF step (lf_rank.cuh: two ranks over a fused-block row by
+//     the lane's two threads), over the single-level rows with int32 lanes
+//     (fblock64, fblock) and the two-level rows of a big index with int64
+//     lanes (fb2_64, fb2, fb2_256);
+//   - Tables: the tables kernel's step (lf_tables.cuh: the run-space, dense
+//     or occ1 ranks, one thread a lane), over an index without fused rows
+//     (a --no-dense build, 9-16 codes, a raw build's occ1), int32 lanes.
+// MODE selects the machine, each transcribed from the port's torch loop
+// (its *_records_plain twin, which the kernel is held against):
 //   - GREEDY, RowBowt::get_markers_greedy_seeding (rowbowt.hpp:406-482):
 //     the ftab start, then per step the window probe on success and the
 //     seed-final probe and the seed on failure, and after a failure the
@@ -28,7 +35,16 @@
 //     seed at each failure of at least min_length codes, the search
 //     restarting from the full range, and the tail seed; with hi_rec it
 //     also writes each lane's pre-step hi of every step into an [L, B]
-//     record, the step record of a big index's trajectory toehold.
+//     record, the step record of a big index's trajectory toehold.  Its TOE
+//     instance (an index without kval: RowBowt::LF_w_loc, rowbowt.hpp:
+//     553-573) also writes each seed's toehold into ssamp [S, B], as K1's
+//     toehold launch carries it: the code and pre-step hi of the run's last
+//     non-trivial step and the trivial steps since (the run restarting at
+//     each failure from k0), copied after every successful step; a seed
+//     takes the copy's toehold, resolved once from tk1 or ltk, or -1 where
+//     the lane had no successful step yet.  The copy survives a failure, so
+//     a degenerate seed under min_length 0 takes the stale toehold of the
+//     run before, as the reference does.
 // A probe's marker count is a pure function of its range, so the probes run
 // as one bulk markers_bounds after the launch (ops/cuda_seeds.py), not in
 // the machine.  A record slot is min(count, capacity - 1), so an overflow
@@ -39,16 +55,17 @@
 // Every [W, B], [S, B] and [L, B] table is written column b by lane b, so
 // the lanes of a warp write neighbouring words.
 //
-// What bounds it: K1's row loads, one step after another, and for GREEDY a
-// replay of k steps after each failure; the record writes are a few words a
-// lane.  Lanes are int32 over the single-level rows (fblock64, fblock) and
-// int64 over the two-level rows of a big index (fb2_64, fb2, fb2_256).
+// What bounds it: the step's loads, one step after another (K1's row loads;
+// over the run-space tables a binary search of about 30 dependent loads a
+// step), and for GREEDY a replay of k steps after each failure; the record
+// writes are a few words a lane.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "lf_rank.cuh"
+#include "lf_tables.cuh"
 
 namespace {
 
@@ -67,15 +84,17 @@ struct Out {
   Lane* sqe;    // GREEDY, SAMPLE
   Lane* ns;     // [B] seeds counted (GREEDY, SAMPLE)
   Lane* hi_rec;  // [L, B] pre-step hi (SAMPLE, optional)
+  Lane* ssamp;   // [S, B] each seed's toehold (SAMPLE's TOE instance)
   int W, S;
 };
 
 template <typename Lane>
 struct Params {
-  const int4* fb;
+  const int4* fb;  // the fused rows (Rows)
   const Lane* F;
   const int64_t* base;
   int per_blk;
+  Tabs t;  // the rank tables (Tables)
   int A;
   Lane n;
   const int32_t* q;
@@ -88,41 +107,59 @@ struct Params {
   int wsize;
   long long max_range;
   int min_length;
+  Toe toe;  // the per-step toehold's tables (TOE), its k unused
   Out<Lane> out;
 };
 
-// One block: blockDim.x / kG lanes, kG neighbouring threads a lane, both
-// running the lane's machine (their ranks are summed by shuffle, so they
-// take the same branches); the first of them writes.
-template <typename Lane, int SYMS, int MODE>
-__global__ void __launch_bounds__(1024) seed_machine_kernel(const Params<Lane> p) {
-  extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when staged
-  __shared__ Lane sF[kCkpt + 1];
+// K1's step over fused rows, by the lane's kG threads (their ranks are
+// summed by shuffle, so both take the same branches); sF is F in shared
+// memory.
+template <typename LaneT, int SYMS>
+struct Rows {
+  using Lane = LaneT;
+  static constexpr int kGroup = kG;
+  const int4* fb;
+  const Lane* sF;
+  const int64_t* base;
+  int per_blk, A;
+  Lane n;
+  int sub;
+  unsigned pair;
+  template <bool TOE>
+  __device__ __forceinline__ bool step(int c, Lane& lo, Lane& hi, bool& trivial) const {
+    return lf_step_rows<Lane, SYMS, TOE>(fb, sF, base, per_blk, A, n, sub, pair, c, lo, hi,
+                                         trivial);
+  }
+};
 
-  const int lanes = blockDim.x / kG;
-  const int b0 = blockIdx.x * lanes;
-  const int nl = min(lanes, p.B - b0);
+// The tables kernel's step over the POLICY tables, one thread a lane.
+template <typename LaneT, int POLICY>
+struct Tables {
+  using Lane = LaneT;
+  static constexpr int kGroup = 1;
+  Tabs t;
+  const Lane* F;
+  int A;
+  Lane n;
+  int64_t rs0;  // run_start[0] (runs)
+  template <bool TOE>
+  __device__ __forceinline__ bool step(int c, Lane& lo, Lane& hi, bool& trivial) const {
+    return lf_step_tables<Lane, POLICY, TOE>(t, F, A, n, rs0, c, lo, hi, trivial);
+  }
+};
+
+// The machine MODE of lane b on the step policy `st`; code_at(col) is the
+// lane's code at column col.  Only the `writer` thread of a lane writes.
+template <int MODE, bool TOE, typename Step, typename CodeAt>
+__device__ __forceinline__ void machine(const Params<typename Step::Lane>& p, const Step& st,
+                                        const CodeAt& code_at, int b, bool writer) {
+  using Lane = typename Step::Lane;
+  static_assert(!TOE || MODE == kSample, "the per-step toehold is the sampled machine's");
   const int L = p.L;
-  const int stride = staged_stride(L);
-  if (threadIdx.x <= (unsigned)p.A) sF[threadIdx.x] = p.F[threadIdx.x];
-  if (p.stage) stage_codes(s_code, p.q + (size_t)b0 * L, nl, L, p.A, stride);
-  __syncthreads();
-
-  const int ll = threadIdx.x / kG;
-  if (ll >= nl) return;
-  const int sub = threadIdx.x % kG;
-  const bool writer = sub == 0;
-  const int b = b0 + ll;
   const int B = p.B;
-  const uint8_t* mine = s_code + ll * stride;
-  const int32_t* row_q = p.q + (size_t)b * L;
-  auto code_at = [&](int col) -> int {
-    return p.stage ? (int)mine[col] : code_byte(row_q[col], p.A);
-  };
-  const unsigned pair = ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(kG - 1));
+  bool trivial = false;
   auto step = [&](int c, Lane& lo, Lane& hi) -> bool {
-    return lf_step_rows<Lane, SYMS>(p.fb, sF, p.base, p.per_blk, p.A, p.n, sub, pair, c, lo,
-                                    hi);
+    return st.template step<TOE>(c, lo, hi, trivial);
   };
   // the ftab range of the lane's last k codes: false on a miss (a k-mer
   // with a code other than A, C, G, T, or none in the text)
@@ -149,12 +186,13 @@ __global__ void __launch_bounds__(1024) seed_machine_kernel(const Params<Lane> p
     if (MODE == kGreedy) o.rseed[at] = owner;
   };
   auto put = [&](int slot, Lane lo, Lane hi, Lane qs, Lane qe) {
-    if (!writer || slot >= o.S) return;
+    if (!writer || slot >= o.S) return false;
     const size_t at = (size_t)slot * B + b;
     o.slo[at] = lo;
     o.shi[at] = hi;
     o.sqs[at] = qs;
     o.sqe[at] = qe;
+    return true;
   };
   auto in_range = [&](Lane lo, Lane hi) { return (long long)hi - lo + 1 <= p.max_range; };
 
@@ -174,7 +212,7 @@ __global__ void __launch_bounds__(1024) seed_machine_kernel(const Params<Lane> p
       const int c = code_at(col_of(i));
       const bool normal = rp == 0;
       Lane nlo = lo, nhi = hi;
-      // a held replay step ignores its LF step: no row is loaded for it
+      // a held replay step ignores its LF step: no table is loaded for it
       const bool ne = normal || !rpmiss ? step(c, nlo, nhi) : false;
       const bool ok = normal && ne, fail = normal && !ne;
       const Lane mi = m - i;
@@ -278,6 +316,19 @@ __global__ void __launch_bounds__(1024) seed_machine_kernel(const Params<Lane> p
     }
   } else {
     Lane lo = 0, hi = n1, plo = 0, phi = n1, ei = m;
+    // TOE: the current run's last non-trivial step (code tc, pre-step hi
+    // thi; tc < 0: none since the restart) and its trivial steps since,
+    // and their copy after the last successful step (pc == kNone: none)
+    constexpr int kNone = -2;
+    int tc = -1, triv = 0, pc = kNone, ptriv = 0;
+    Lane thi = 0, pthi = 0;
+    // a seed and, for TOE, its toehold from the copy
+    auto seed = [&](int slot, Lane qs, Lane qe) {
+      if (!put(slot, plo, phi, qs, qe)) return;
+      if constexpr (TOE)
+        o.ssamp[(size_t)slot * B + b] =
+            pc == kNone ? (Lane)-1 : (Lane)resolve_toehold(p.toe, p.n, pc, pthi, ptriv);
+    };
     const int jend = m < L ? (int)m : L;
     int j = 0;
     for (; j < jend; ++j) {
@@ -285,21 +336,35 @@ __global__ void __launch_bounds__(1024) seed_machine_kernel(const Params<Lane> p
       if (o.hi_rec != nullptr && writer) o.hi_rec[(size_t)j * B + b] = hi;  // pre-step hi
       Lane nlo = lo, nhi = hi;
       if (step(c, nlo, nhi)) {
+        if constexpr (TOE) {
+          if (trivial) {
+            ++triv;
+          } else {
+            tc = c;
+            thi = hi;
+            triv = 0;
+          }
+          pc = tc;
+          pthi = thi;
+          ptriv = triv;
+        }
         lo = plo = nlo;
         hi = phi = nhi;
       } else {
         // the seed (prev, [m - j, ei)) if long enough, then a restart from
         // the full range
-        if (ei - (m - j) >= p.min_length) put(ns++, plo, phi, m - j, ei);
+        if (ei - (m - j) >= p.min_length) seed(ns++, m - j, ei);
         lo = plo = 0;
         hi = phi = n1;
         ei = m - j - 1;
+        tc = -1;
+        triv = 0;
       }
     }
     if (o.hi_rec != nullptr && writer)
       for (; j < L; ++j) o.hi_rec[(size_t)j * B + b] = hi;
     // the tail seed (rowbowt.hpp:252-254)
-    if (ei >= p.min_length) put(ns++, plo, phi, 0, ei);
+    if (ei >= p.min_length) seed(ns++, 0, ei);
   }
 
   if (!writer) return;
@@ -319,25 +384,129 @@ __global__ void __launch_bounds__(1024) seed_machine_kernel(const Params<Lane> p
       o.shi[at] = 0;
       o.sqs[at] = 0;
       o.sqe[at] = 0;
+      if constexpr (TOE) o.ssamp[at] = 0;
     }
   }
 }
 
-template <typename Lane, int SYMS, int MODE>
-int launch(const Params<Lane>& p, int threads, cudaStream_t s) {
-  const int lanes = threads / kG;
+// Over fused rows: blockDim.x / kG lanes a block, kG neighbouring threads a
+// lane, both running the lane's machine; the first of them writes.
+template <typename Lane, int SYMS, int MODE, bool TOE>
+__global__ void __launch_bounds__(1024) seed_machine_kernel(const Params<Lane> p) {
+  extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when staged
+  __shared__ Lane sF[kCkpt + 1];
+
+  const int lanes = blockDim.x / kG;
+  const int b0 = blockIdx.x * lanes;
+  const int nl = min(lanes, p.B - b0);
+  const int L = p.L;
+  const int stride = staged_stride(L);
+  if (threadIdx.x <= (unsigned)p.A) sF[threadIdx.x] = p.F[threadIdx.x];
+  if (p.stage) stage_codes(s_code, p.q + (size_t)b0 * L, nl, L, p.A, stride);
+  __syncthreads();
+
+  const int ll = threadIdx.x / kG;
+  if (ll >= nl) return;
+  const int sub = threadIdx.x % kG;
+  const uint8_t* mine = s_code + ll * stride;
+  const int32_t* row_q = p.q + (size_t)(b0 + ll) * L;
+  auto code_at = [&](int col) -> int {
+    return p.stage ? (int)mine[col] : code_byte(row_q[col], p.A);
+  };
+  const unsigned pair = ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(kG - 1));
+  const Rows<Lane, SYMS> st{p.fb, sF, p.base, p.per_blk, p.A, p.n, sub, pair};
+  machine<MODE, TOE>(p, st, code_at, b0 + ll, sub == 0);
+}
+
+// Over the POLICY tables of an index without fused rows: one thread a lane,
+// blockDim.x lanes a block, as the tables kernel runs.
+template <typename Lane, int POLICY, int MODE, bool TOE>
+__global__ void __launch_bounds__(1024) seed_tables_kernel(const Params<Lane> p) {
+  extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when staged
+  const int b0 = blockIdx.x * blockDim.x;
+  const int nl = min((int)blockDim.x, p.B - b0);
+  const int L = p.L;
+  const int stride = staged_stride(L);
+  if (p.stage) stage_codes(s_code, p.q + (size_t)b0 * L, nl, L, p.A, stride);
+  __syncthreads();
+  if ((int)threadIdx.x >= nl) return;
+  const int b = b0 + threadIdx.x;
+  const uint8_t* mine = s_code + threadIdx.x * stride;
+  const int32_t* row_q = p.q + (size_t)b * L;
+  auto code_at = [&](int col) -> int {
+    return p.stage ? (int)mine[col] : code_byte(row_q[col], p.A);
+  };
+  const int64_t rs0 = POLICY == kRuns ? load_at(p.t.run_start, p.t.rs_bytes, 0) : 0;
+  const Tables<Lane, POLICY> st{p.t, p.F, p.A, p.n, rs0};
+  machine<MODE, TOE>(p, st, code_at, b, true);
+}
+
+// Launches `kernel` over B lanes, `group` threads a lane.
+template <typename Lane, typename Kernel>
+int launch(Kernel kernel, const Params<Lane>& p, int threads, int group, cudaStream_t s) {
+  const int lanes = threads / group;
   const size_t smem = p.stage ? (size_t)lanes * staged_stride(p.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((p.B + lanes - 1) / lanes));
-  seed_machine_kernel<Lane, SYMS, MODE><<<grid, threads, smem, s>>>(p);
+  kernel<<<grid, threads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <typename Lane, int SYMS>
-int launch_mode(int mode, const Params<Lane>& p, int threads, cudaStream_t s) {
-  if (mode == kGreedy) return launch<Lane, SYMS, kGreedy>(p, threads, s);
-  if (mode == kLmem) return launch<Lane, SYMS, kLmem>(p, threads, s);
-  return launch<Lane, SYMS, kSample>(p, threads, s);
+int launch_rows(int mode, bool toe, const Params<Lane>& p, int threads, cudaStream_t s) {
+  if (mode == kGreedy)
+    return launch(seed_machine_kernel<Lane, SYMS, kGreedy, false>, p, threads, kG, s);
+  if (mode == kLmem)
+    return launch(seed_machine_kernel<Lane, SYMS, kLmem, false>, p, threads, kG, s);
+  if constexpr (sizeof(Lane) == 4) {
+    if (toe) return launch(seed_machine_kernel<Lane, SYMS, kSample, true>, p, threads, kG, s);
+  }
+  return launch(seed_machine_kernel<Lane, SYMS, kSample, false>, p, threads, kG, s);
+}
+
+template <int POLICY>
+int launch_tables(int mode, bool toe, const Params<int32_t>& p, int threads, cudaStream_t s) {
+  if (mode == kGreedy)
+    return launch(seed_tables_kernel<int32_t, POLICY, kGreedy, false>, p, threads, 1, s);
+  if (mode == kLmem)
+    return launch(seed_tables_kernel<int32_t, POLICY, kLmem, false>, p, threads, 1, s);
+  if (toe) return launch(seed_tables_kernel<int32_t, POLICY, kSample, true>, p, threads, 1, s);
+  return launch(seed_tables_kernel<int32_t, POLICY, kSample, false>, p, threads, 1, s);
+}
+
+bool width(int bytes) { return bytes == 4 || bytes == 8; }
+
+// Whether the outputs fit the mode (see rbt_seed_machine), and the ftab and
+// the per-step toehold's tables (ssamp given: SAMPLE only, tk1 where given,
+// else ltk with run_start; samples_last always).
+bool valid_outputs(int mode, int k, int W, int S, const void* rlo, const void* rhi,
+                   const void* rseed, const void* nrec, const void* slo, const void* shi,
+                   const void* sqs, const void* sqe, const void* ns, const void* hi_rec,
+                   const void* ssamp, const Toe& toe) {
+  const bool seeds = slo != nullptr && shi != nullptr && sqs != nullptr;
+  const bool outs =
+      mode == kGreedy
+          ? W >= 1 && S >= 1 && rlo && rhi && rseed && nrec && seeds && sqe && ns && !hi_rec
+      : mode == kLmem
+          ? W >= 1 && S == 1 && rlo && rhi && !rseed && nrec && seeds && !sqe && !ns && !hi_rec
+      : mode == kSample
+          ? k == 0 && W == 0 && S >= 1 && !rlo && !rhi && !rseed && !nrec && seeds && sqe && ns
+          : false;
+  const bool toe_ok =
+      ssamp == nullptr ||
+      (mode == kSample && hi_rec == nullptr && toe.samples_last != nullptr &&
+       width(toe.sl_bytes) && toe.R >= 1 &&
+       (toe.tk1 != nullptr ? width(toe.tk1_bytes)
+                           : toe.ltk != nullptr && toe.run_start != nullptr &&
+                                 width(toe.ltk_bytes) && width(toe.rs_bytes)));
+  return outs && toe_ok;
+}
+
+bool bad_common(int A, int amax, int B, int L, long long n, int threads, int k,
+                const void* ftab, int ftab_bytes) {
+  return A < 1 || A > amax || B < 0 || L < 0 || n < 1 || threads < 32 || threads > 1024 ||
+         threads % 32 != 0 || k < 0 || k > 15 ||
+         (k > 0 && (ftab == nullptr || !width(ftab_bytes) || L < k));
 }
 
 }  // namespace
@@ -357,64 +526,115 @@ extern "C" {
 // sqs, sqe [S, B], ns; LMEM rlo, rhi [W, B], nrec, and its seed's elo, ehi
 // and eqs [B] in slo, shi and sqs with S = 1 (rseed, sqe, ns null); SAMPLE
 // slo, shi, sqs, sqe [S, B] and ns (W = 0, no records), and with hi_rec
-// ([L, B]) the step record.  wsize, max_range (the probes' range cap) and
-// min_length (SAMPLE's) are the machines' parameters.  `threads` is the
-// block size (two threads a lane), `stage` reads the codes from shared
-// memory (threads / 2 * staged stride bytes, at most 47 KB); both from
-// ops/cuda_lf.py launch_plan.  Returns cudaGetLastError() after the launch
-// (0 on success, nothing launched for B == 0), cudaErrorInvalidValue for
-// arguments the mode does not take.
+// ([L, B]) the step record, or with ssamp ([S, B], single-level rows only)
+// each seed's per-step toehold over tk1 (tk1_bytes) where given, else ltk
+// with run_start, and samples_last, each int32 or int64 (*_bytes), R runs.
+// wsize, max_range (the probes' range cap) and min_length (SAMPLE's) are
+// the machines' parameters.  `threads` is the block size (two threads a
+// lane), `stage` reads the codes from shared memory (threads / 2 * staged
+// stride bytes, at most 47 KB); both from ops/cuda_lf.py launch_plan.
+// Returns cudaGetLastError() after the launch (0 on success, nothing
+// launched for B == 0), cudaErrorInvalidValue for arguments the mode does
+// not take.
 int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, const void* base,
                      int per_blk, int A, long long n, int lane_bytes, const void* q,
                      const void* lengths, int B, int L, const void* ftab, int ftab_bytes, int k,
                      int acgt, int wsize, long long max_range, int min_length, int W, void* rlo,
                      void* rhi, void* rseed, void* nrec, int S, void* slo, void* shi, void* sqs,
-                     void* sqe, void* ns, void* hi_rec, int threads, int stage, void* stream) {
-  const bool greedy = mode == kGreedy, lmem = mode == kLmem, sample = mode == kSample;
-  const bool seeds = slo != nullptr && shi != nullptr && sqs != nullptr;
-  const bool outs =
-      greedy ? W >= 1 && S >= 1 && rlo && rhi && rseed && nrec && seeds && sqe && ns && !hi_rec
-      : lmem ? W >= 1 && S == 1 && rlo && rhi && !rseed && nrec && seeds && !sqe &&
-                   !ns && !hi_rec
-      : sample ? k == 0 && W == 0 && S >= 1 && !rlo && !rhi && !rseed && !nrec && seeds && sqe &&
-                     ns
-               : false;
+                     void* sqe, void* ns, void* hi_rec, const void* tk1, int tk1_bytes,
+                     const void* ltk, int ltk_bytes, const void* run_start, int rs_bytes,
+                     const void* samples_last, int sl_bytes, int R, void* ssamp, int threads,
+                     int stage, void* stream) {
+  const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
+                nullptr};
   const int shift = syms_per_row == 64 ? 6 : syms_per_row == 128 ? 7 : 8;
   const bool rows = lane_bytes == 4 ? (syms_per_row == 64 || syms_per_row == 128) &&
                                           n < INT32_MAX && base == nullptr
                   : lane_bytes == 8 ? (syms_per_row == 64 || syms_per_row == 128 ||
                                        syms_per_row == 256) &&
                                           ((n - 1) >> shift) < INT32_MAX && base != nullptr &&
-                                          per_blk >= 1
+                                          per_blk >= 1 && ssamp == nullptr
                                     : false;
-  if (!outs || !rows || fb == nullptr || F == nullptr || A < 1 || A > kCkpt || B < 0 || L < 0 ||
-      n < 1 || threads < 32 || threads > 1024 || threads % 32 != 0 || k < 0 || k > 15 ||
-      (k > 0 && (ftab == nullptr || (ftab_bytes != 4 && ftab_bytes != 8) || L < k)))
+  if (!valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, hi_rec, ssamp,
+                     toe) ||
+      !rows || fb == nullptr || F == nullptr ||
+      bad_common(A, kCkpt, B, L, n, threads, k, ftab, ftab_bytes))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const bool te = ssamp != nullptr;
   if (lane_bytes == 4) {
     using Lane = int32_t;
     const Out<Lane> o{(Lane*)rlo, (Lane*)rhi, (Lane*)rseed, (Lane*)nrec, (Lane*)slo,
-                      (Lane*)shi, (Lane*)sqs, (Lane*)sqe, (Lane*)ns, (Lane*)hi_rec, W, S};
-    const Params<Lane> p{static_cast<const int4*>(fb), static_cast<const Lane*>(F), nullptr, 0, A,
-                         (Lane)n, static_cast<const int32_t*>(q),
+                      (Lane*)shi, (Lane*)sqs, (Lane*)sqe, (Lane*)ns, (Lane*)hi_rec,
+                      (Lane*)ssamp, W, S};
+    const Params<Lane> p{static_cast<const int4*>(fb), static_cast<const Lane*>(F), nullptr, 0,
+                         {}, A, (Lane)n, static_cast<const int32_t*>(q),
                          static_cast<const int32_t*>(lengths), B, L, stage != 0, ftab,
-                         ftab_bytes, k, (uint32_t)acgt, wsize, max_range, min_length, o};
-    return syms_per_row == 64 ? launch_mode<Lane, 64>(mode, p, threads, s)
-                              : launch_mode<Lane, 128>(mode, p, threads, s);
+                         ftab_bytes, k, (uint32_t)acgt, wsize, max_range, min_length, toe, o};
+    return syms_per_row == 64 ? launch_rows<Lane, 64>(mode, te, p, threads, s)
+                              : launch_rows<Lane, 128>(mode, te, p, threads, s);
   }
   using Lane = int64_t;
   const Out<Lane> o{(Lane*)rlo, (Lane*)rhi, (Lane*)rseed, (Lane*)nrec, (Lane*)slo,
-                    (Lane*)shi, (Lane*)sqs, (Lane*)sqe, (Lane*)ns, (Lane*)hi_rec, W, S};
+                    (Lane*)shi, (Lane*)sqs, (Lane*)sqe, (Lane*)ns, (Lane*)hi_rec, nullptr, W, S};
   const Params<Lane> p{static_cast<const int4*>(fb), static_cast<const Lane*>(F),
-                       static_cast<const int64_t*>(base), per_blk, A, (Lane)n,
+                       static_cast<const int64_t*>(base), per_blk, {}, A, (Lane)n,
                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B,
                        L, stage != 0, ftab, ftab_bytes, k, (uint32_t)acgt, wsize, max_range,
-                       min_length, o};
-  if (syms_per_row == 64) return launch_mode<Lane, 64>(mode, p, threads, s);
-  if (syms_per_row == 128) return launch_mode<Lane, 128>(mode, p, threads, s);
-  return launch_mode<Lane, 256>(mode, p, threads, s);
+                       min_length, toe, o};
+  if (syms_per_row == 64) return launch_rows<Lane, 64>(mode, false, p, threads, s);
+  if (syms_per_row == 128) return launch_rows<Lane, 128>(mode, false, p, threads, s);
+  return launch_rows<Lane, 256>(mode, false, p, threads, s);
+}
+
+// The same machines over the rank tables of an index without fused rows,
+// one thread a lane, int32 lanes (n below 2^31 - 1): `policy` and its
+// tables as rbt_lf_tables takes them (0 runs: occ = occ_flat, run_start,
+// run_head, R; 1 dense: occ = occ_blk_flat, bwt4 int32 [nb * 16] 16-byte
+// aligned, A at most 16; 2 occ1: occ = occ1_flat), each int32 or int64
+// (*_bytes); int32 F [A + 1].  The ftab, the outputs and the per-step
+// toehold (ssamp, over tk1, or ltk with run_start, and samples_last) are
+// rbt_seed_machine's; `threads` lanes a block and `stage` from ops/cuda_lf.py
+// launch_plan with one thread a lane (threads * staged stride bytes, at
+// most 47 KB).  Returns as rbt_seed_machine does.
+int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes,
+                            const void* run_start, int rs_bytes, const void* run_head,
+                            int rh_bytes, const void* bwt4, long long nb, int R, const void* F,
+                            int A, long long n, const void* q, const void* lengths, int B, int L,
+                            const void* ftab, int ftab_bytes, int k, int acgt, int wsize,
+                            long long max_range, int min_length, int W, void* rlo, void* rhi,
+                            void* rseed, void* nrec, int S, void* slo, void* shi, void* sqs,
+                            void* sqe, void* ns, const void* tk1, int tk1_bytes,
+                            const void* ltk, int ltk_bytes, const void* samples_last,
+                            int sl_bytes, void* ssamp, int threads, int stage, void* stream) {
+  const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
+                nullptr};
+  const bool runs = policy == kRuns && run_start != nullptr && run_head != nullptr &&
+                    width(rs_bytes) && width(rh_bytes) && R >= 1;
+  const bool dense = policy == kDense && bwt4 != nullptr && A <= 16 &&
+                     ((uintptr_t)bwt4 & 15) == 0 && nb >= (n + 127) / 128;
+  const bool tables = occ != nullptr && width(occ_bytes) && (runs || dense || policy == kOcc1);
+  if (!tables || F == nullptr || n >= INT32_MAX ||
+      !valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, nullptr,
+                     ssamp, toe) ||
+      bad_common(A, 254, B, L, n, threads, k, ftab, ftab_bytes))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  using Lane = int32_t;
+  const Tabs t{occ, run_start, run_head, static_cast<const int4*>(bwt4), occ_bytes, rs_bytes,
+               rh_bytes, R, nb};
+  const Out<Lane> o{(Lane*)rlo, (Lane*)rhi, (Lane*)rseed, (Lane*)nrec, (Lane*)slo, (Lane*)shi,
+                    (Lane*)sqs, (Lane*)sqe, (Lane*)ns, nullptr, (Lane*)ssamp, W, S};
+  const Params<Lane> p{nullptr, static_cast<const Lane*>(F), nullptr, 0, t, A, (Lane)n,
+                       static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B, L,
+                       stage != 0, ftab, ftab_bytes, k, (uint32_t)acgt, wsize, max_range,
+                       min_length, toe, o};
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool te = ssamp != nullptr;
+  if (policy == kRuns) return launch_tables<kRuns>(mode, te, p, threads, s);
+  if (policy == kDense) return launch_tables<kDense>(mode, te, p, threads, s);
+  return launch_tables<kOcc1>(mode, te, p, threads, s);
 }
 
 const char* rbt_cuda_error_string(int code) {

@@ -425,36 +425,25 @@ def launch_toehold(tx: TorchIndex, qcodes, lengths):
     if key in R.FB2_KEYS:
         raise ValueError(f"the per-step toehold is the single-level search's; {key} rows are "
                          "two-level (a big index's toehold is the trajectory resolve)")
-    route = toehold_route(tx)
     fb, F = tx.arrays[key], tx.arrays["F"]
     B, L = qcodes.shape
     dev = qcodes.device
-    tabs = (("tk1_flat",) if route == "tk1" else ("ltk", "run_start")) + ("samples_last",)
-    for name in tabs:
-        if name not in tx.arrays:
-            raise ValueError(f"the toehold needs {name}; the index has none")
+    ops = _table_operands(tx, None, toehold=True)
     _check_operands(tx, key, qcodes, lengths,
-                    tuple((name, tx.arrays[name], (torch.int32, torch.int64)) for name in tabs),
+                    tuple((name, t, (torch.int32, torch.int64)) for name, t in ops.values()),
                     torch.int32)
-    sizes = {"tk1_flat": tx.A * tx.n, "ltk": tx.A * tx.R, "run_start": tx.R,
-             "samples_last": tx.R}
-    for name in tabs:
-        t = tx.arrays[name]
-        if t.dim() != 1 or t.numel() != sizes[name] or not t.is_contiguous():
-            raise ValueError(f"{name} of shape {tuple(t.shape)}: need [{sizes[name]}], "
-                             "contiguous")
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
     lo, hi, k = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
 
-    def ptr(name):
-        t = tx.arrays.get(name) if name in tabs else None
+    def ptr(arg):
+        t = ops[arg][1] if arg in ops else None
         return (t.data_ptr(), t.element_size()) if t is not None else (None, 0)
 
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads, staged = launch_plan(B, L, _sm_count(d))
     lib = _LIB or build()
     args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A, tx.n, qcodes.data_ptr(),
-            lengths.data_ptr(), B, L, *ptr("tk1_flat"), *ptr("ltk"), *ptr("run_start"),
+            lengths.data_ptr(), B, L, *ptr("tk1"), *ptr("ltk"), *ptr("run_start"),
             *ptr("samples_last"), tx.R, lo.data_ptr(), hi.data_ptr(), k.data_ptr(), threads,
             int(staged))
     if d == torch.cuda.current_device():
@@ -475,13 +464,15 @@ def table_policy(tx: TorchIndex) -> str | None:
     return TABLE_POLICIES.get(R.lf_step_auto(tx))
 
 
-def _table_operands(tx: TorchIndex, policy: str, toehold: bool) -> dict:
+def _table_operands(tx: TorchIndex, policy: str | None, toehold: bool) -> dict:
     """{argument: (table name, tensor)} of a tables launch: the rank tables
-    of `policy` and, for the toehold, tk1 (where resident) or ltk and
-    run_start, and samples_last."""
+    of `policy` (none for None: a launch over fused rows) and, for the
+    toehold, tk1 (where resident) or ltk and run_start, and samples_last."""
     n, A, R_ = tx.n, tx.A, tx.R
     arr = tx.arrays
-    if policy == "runs":
+    if policy is None:
+        ops = {}
+    elif policy == "runs":
         ops = {"occ": ("occ_flat", A * R_), "run_start": ("run_start", R_),
                "run_head": ("run_head", R_)}
     elif policy == "dense":
@@ -497,7 +488,8 @@ def _table_operands(tx: TorchIndex, policy: str, toehold: bool) -> dict:
         ops["samples_last"] = ("samples_last", R_)
     for name, size in ops.values():
         if name not in arr:
-            raise ValueError(f"the {policy} tables kernel needs {name}; the index has none")
+            what = f"the {policy} tables kernel" if policy else "the toehold"
+            raise ValueError(f"{what} needs {name}; the index has none")
         t = arr[name]
         if t.dim() != 1 or t.numel() != size or not t.is_contiguous():
             raise ValueError(f"{name} of shape {tuple(t.shape)}: need [{size}], contiguous")

@@ -5,18 +5,17 @@ bound with ctypes) is P3's chained gather (csrc/gather_probe.cu) carrying
 the walk: lane b writes out[off[b] + j] for j < size[b], the toehold k[b]
 first, then each phi of the one before (ToeholdSA::locate_range,
 toehold_sa.hpp:37-49), one thread a lane with the step loop inside it.  It
-takes three of the four phi routes of ops/rank.phi_step, in its order: the
-dense `phi1` table, a BigIndex's bitmap rows (`phi_rows` + `phi_delta`),
-and the predecessor search over the run-start samples (`pred_pos`,
-`pred_to_run`, `samples_last`) of an index with neither (`--no-dense`).
+takes the four phi routes of ops/rank.phi_step, in its order: the dense
+`phi1` table, a BigIndex's bitmap rows (`phi_rows` + `phi_delta`), the
+breakpoint table of a BigIndex with 2^31 or more breakpoints (`pred_pos`,
+`phi_at`, searched through its bucket table `pp_off`), and the predecessor
+search over the run-start samples (`pred_pos`, `pred_to_run`,
+`samples_last`) of an index with none of those (`--no-dense`).
 
 `phi_walk` is the wrapper: for CUDA tensors it launches the kernel (and adds
-one to LAUNCHES) on those routes, and runs the torch walk on the card over
-the breakpoint table `phi_at` of a BigIndex with 2^31 or more breakpoints,
-chosen from the index's tables before anything launches, adding one to
-LAUNCHES_TORCH; for CPU tensors it runs `phi_walk_plain`, the torch walk
-over ops/rank.phi_step, which is also what the kernel is held against on
-the card.  `launch_walk` launches or raises, never the torch walk.
+one to LAUNCHES) or raises, never a torch walk; for CPU tensors it runs
+`phi_walk_plain`, the torch walk over ops/rank.phi_step, which is also what
+the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -31,10 +30,8 @@ from rowbowt_tpu_torch.engine.device import TorchIndex
 from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 
-# walk kernel launches since the last reset (a run sets them to 0), and the
-# walks phi_walk ran as torch ops on a CUDA device (the phi_at route)
+# walk kernel launches since the last reset (a run sets them to 0)
 LAUNCHES = 0
-LAUNCHES_TORCH = 0
 
 _LIB = None
 BUILD_LOG = ""  # nvcc's output (-Xptxas -v register/spill report) of the build
@@ -42,7 +39,8 @@ BUILD_LOG = ""  # nvcc's output (-Xptxas -v register/spill report) of the build
 
 def build():
     """Compile csrc/phi_walk.cu (once per process) and bind its C entries:
-    rbt_phi_walk_phi1, rbt_phi_walk_rows and rbt_phi_walk_pred."""
+    rbt_phi_walk_phi1, rbt_phi_walk_rows, rbt_phi_walk_phi_at and
+    rbt_phi_walk_pred."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
@@ -52,8 +50,10 @@ def build():
     lib.rbt_phi_walk_phi1.argtypes = [vp, ci, ll, vp, vp, vp, vp, vp, ci, ci, vp]
     lib.rbt_phi_walk_rows.argtypes = [vp, vp, ll, vp, vp, vp, vp, vp, ci, ci, vp]
     lib.rbt_phi_walk_pred.argtypes = [vp, vp, vp, ci, ll, ll, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.rbt_phi_walk_phi_at.argtypes = [vp, ci, vp, ci, ll, vp, ci, ll, ci, ci, ll, vp, vp, vp,
+                                        vp, vp, ci, ci, vp]
     lib.rbt_phi_walk_phi1.restype = lib.rbt_phi_walk_rows.restype = ci
-    lib.rbt_phi_walk_pred.restype = ci
+    lib.rbt_phi_walk_pred.restype = lib.rbt_phi_walk_phi_at.restype = ci
     lib.rbt_phi_walk_error_string.argtypes = [ci]
     lib.rbt_phi_walk_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -61,18 +61,19 @@ def build():
 
 
 PRED_TABLES = ("pred_pos", "pred_to_run", "samples_last")
+PHI_AT_TABLES = ("pred_pos", "phi_at", "pp_off")
 
 
-def walk_route(tx: TorchIndex) -> str | None:
+def walk_route(tx: TorchIndex) -> str:
     """The tables the walk kernel reads, phi_step's choice: "phi1",
-    "phi_rows", "pred" (the predecessor search), or None where phi_step
-    takes the breakpoint table phi_at, which the kernel does not take."""
+    "phi_rows", "phi_at" (the breakpoint table) or "pred" (the predecessor
+    search)."""
     if "phi1" in tx.arrays:
         return "phi1"
     if "phi_rows" in tx.arrays:
         return "phi_rows"
     if "phi_at" in tx.arrays:
-        return None
+        return "phi_at"
     return "pred"
 
 
@@ -108,21 +109,13 @@ def phi_walk_plain(tx: TorchIndex, k, size, off, out):
 
 def phi_walk(tx: TorchIndex, k, size, off, out):
     """Fill out[off[b] + j] for j < size[b] with lane b's toehold and phi
-    chain: the walk kernel for CUDA tensors over phi1, the phi rows or the
-    run-start samples, the torch walk on the card over phi_at (one more in
-    LAUNCHES_TORCH), the plain walk for CPU tensors, an error for any other
-    device.  Returns out."""
-    global LAUNCHES_TORCH
+    chain: the walk kernel for CUDA tensors (walk_route's tables), the plain
+    walk for CPU tensors, an error for any other device.  Returns out."""
     if k.device.type == "cpu":
         return phi_walk_plain(tx, k, size, off, out)
     if k.device.type != "cuda":
         raise ValueError(f"no phi walk for device {k.device}")
-    if walk_route(tx) is not None:
-        return launch_walk(tx, k, size, off, out)
-    phi_walk_plain(tx, k, size, off, out)
-    if k.shape[0]:
-        LAUNCHES_TORCH += 1
-    return out
+    return launch_walk(tx, k, size, off, out)
 
 
 def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
@@ -134,10 +127,6 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
     size[b]."""
     global LAUNCHES
     route = walk_route(tx)
-    if route is None:
-        raise ValueError("the walk kernel reads phi1 or the phi bitmap rows or the run-start "
-                         "samples, not the breakpoint table phi_at (phi_walk takes the torch "
-                         "walk for it)")
     ints = (torch.int32, torch.int64)
     if route == "phi1":
         tabs = (("phi1", tx.arrays["phi1"], ints),)
@@ -145,10 +134,12 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
         tabs = (("phi_rows", tx.arrays["phi_rows"], (torch.int32,)),
                 ("phi_delta", tx.arrays["phi_delta"], (torch.int64,)))
     else:
-        for name in PRED_TABLES:
+        names = PHI_AT_TABLES if route == "phi_at" else PRED_TABLES
+        what = "breakpoint" if route == "phi_at" else "predecessor"
+        for name in names:
             if name not in tx.arrays:
-                raise ValueError(f"the predecessor walk needs {name}; the index has none")
-        tabs = tuple((name, tx.arrays[name], ints) for name in PRED_TABLES)
+                raise ValueError(f"the {what} walk needs {name}; the index has none")
+        tabs = tuple((name, tx.arrays[name], ints) for name in names)
     named = (("k", k, (torch.int32, torch.int64)), ("size", size, (torch.int64,)),
              ("off", off, (torch.int64,)), ("out", out, (torch.int64,))) + tabs
     dev = k.device
@@ -176,6 +167,13 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
                             + ", ".join(str(t.dtype)[6:] for _, t, _ in tabs))
         if any(t.shape != (tx.R,) for _, t, _ in tabs):
             raise ValueError(f"pred_pos, pred_to_run and samples_last must be [R = {tx.R}]")
+    if route == "phi_at":
+        pp, at, pp_off = (t for _, t, _ in tabs)
+        if (pp.dim() != 1 or at.shape != pp.shape or pp_off.dim() != 1 or pp_off.shape[0] < 2
+                or len(tx.pp_bs) != 2):
+            raise ValueError(f"pred_pos {tuple(pp.shape)}, phi_at {tuple(at.shape)}, pp_off "
+                             f"{tuple(pp_off.shape)} and pp_bs {tx.pp_bs}: need [M], [M], "
+                             "[>= 2] and (shift, iters)")
     if route == "phi_rows":
         rows = tx.arrays["phi_rows"]
         if rows.dim() != 2 or rows.shape[1] != 16 or rows.data_ptr() % 16:
@@ -198,6 +196,11 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
     elif route == "phi_rows":
         entry = lib.rbt_phi_walk_rows
         args = (tx.arrays["phi_rows"].data_ptr(), tx.arrays["phi_delta"].data_ptr(), tx.n)
+    elif route == "phi_at":
+        entry = lib.rbt_phi_walk_phi_at
+        args = (pp.data_ptr(), pp.element_size(), at.data_ptr(), at.element_size(),
+                pp.shape[0], pp_off.data_ptr(), pp_off.element_size(), pp_off.shape[0],
+                *tx.pp_bs, tx.n)
     else:
         entry = lib.rbt_phi_walk_pred
         args = (*(t.data_ptr() for _, t, _ in tabs), tabs[0][1].element_size(), tx.R, tx.n)

@@ -7,8 +7,9 @@ max_hits None, 1 and a cap below the widest range, empty and size-1 ranges,
 every lane empty, a permuted lane order, int32 and int64 lanes.  Then the
 wrapper: its route choice and launch counts, its refusals, and its launch
 path with the C entries replaced by a numpy model of the kernel (a refused
-launch raises and counts nothing).  Every output is an integer, so every
-check is exact."""
+launch raises and counts nothing); over the breakpoint table (phi_at, a
+BigIndex with its phi rows withheld) the model's walk equals the JAX
+package's locate.  Every output is an integer, so every check is exact."""
 
 import ctypes
 from types import SimpleNamespace
@@ -71,7 +72,7 @@ def test_twin_matches_jax_dense(pair):
     size = (got[1] - got[0] + 1).clamp(min=0)
     widest = int(size.max())
     assert widest == tx.n  # the pad lanes: the whole BWT
-    launches = (cuda_phi.LAUNCHES, cuda_phi.LAUNCHES_TORCH)
+    launches = cuda_phi.LAUNCHES
 
     def eq(g, w, what):
         wide = isinstance(g[0], torch.Tensor) and g[0].dtype == torch.int64
@@ -79,7 +80,7 @@ def test_twin_matches_jax_dense(pair):
                 else x for x in w])
 
     _held(dx, [(tx, got), (tx, _lanes(got, torch.int64))], want, (3, widest), eq)
-    assert (cuda_phi.LAUNCHES, cuda_phi.LAUNCHES_TORCH) == launches  # CPU: the twin
+    assert cuda_phi.LAUNCHES == launches  # CPU: the twin
 
 
 def test_twin_matches_jax_big(phi_case):
@@ -141,7 +142,29 @@ def _walk_model(tx, lib_calls, rc):
 
         return walk(step, n, *lanes[:-1])
 
+    def phi_at(pp_ptr, pp_b, at_ptr, at_b, M, off_ptr, off_b, n_off, shift, iters, n, *lanes):
+        lib_calls.append(("phi_at", (pp_b, at_b, off_b, shift, iters), n, lanes[-3:-1]))
+        width = {4: np.int32, 8: np.int64}
+        pp, at = ints(pp_ptr, M, width[pp_b]), ints(at_ptr, M, width[at_b])
+        off = ints(off_ptr, n_off, width[off_b])
+
+        def step(i):
+            # csrc/phi_walk.cu PhiAt: the bucketed lower bound of i + 1
+            q = i + 1
+            b = min(max(q >> shift, 0), n_off - 2)
+            lo, hi = int(off[b]), int(off[b + 1])
+            for _ in range(iters):
+                mid = (lo + hi) >> 1
+                take = int(pp[min(max(mid, 0), M - 1)]) < q and lo < hi
+                hi = hi if take or lo >= hi else mid
+                lo = mid + 1 if take else lo
+            rk = lo - 1 if lo >= 1 else lo - 1 + M
+            return (int(at[rk]) + i - int(pp[rk])) % n
+
+        return walk(step, n, *lanes[:-1])
+
     return SimpleNamespace(rbt_phi_walk_phi1=phi1, rbt_phi_walk_rows=rows,
+                           rbt_phi_walk_phi_at=phi_at,
                            rbt_phi_walk_error_string=lambda code: b"invalid argument")
 
 
@@ -159,7 +182,6 @@ def fake_lib(monkeypatch):
     monkeypatch.setattr(cuda_phi, "_sm_count", lambda dev: 2)
     monkeypatch.setattr(cuda_phi.torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(cuda_phi, "LAUNCHES", 0)
-    monkeypatch.setattr(cuda_phi, "LAUNCHES_TORCH", 0)
     rec["install"] = install
     return rec
 
@@ -184,25 +206,51 @@ def test_launch_path_walks_like_the_twin_dense(pair, fake_lib):
     B = got[0].shape[0]
     assert [c[:3] for c in fake_lib["calls"]] == [("phi1", 4, tx.n)] * 2
     assert all(c[3] == (B, cuda_phi.launch_plan(B, 2)) for c in fake_lib["calls"])
-    assert cuda_phi.LAUNCHES == 2 and cuda_phi.LAUNCHES_TORCH == 0
+    assert cuda_phi.LAUNCHES == 2
 
 
 def test_launch_path_walks_like_the_twin_big(phi_case, fake_lib):
+    """Over the phi rows and over the breakpoint table (its tables' widths
+    and pp_bs passed as they are) the modelled launch == the twin."""
     idx, dx, txs, text = phi_case
     _, _, q, ln = _batch(idx, _reads_of(text, np.random.default_rng(7)) + [b""])
     tx = txs[1]
     got = TL.find_ranges_w_toehold(tx, q, ln)
     args = _walk_args(tx, *got)
-    if cuda_phi.walk_route(tx) is None:  # phi_at: the kernel does not take it
-        with pytest.raises(ValueError, match="reads phi1 or the phi bitmap rows"):
-            cuda_phi.launch_walk(tx, *args)
-        return
     fake_lib["install"](tx)
     want = cuda_phi.phi_walk_plain(tx, *args[:3], args[3].clone())
     cuda_phi.launch_walk(tx, *args)
     assert torch.equal(args[3], want)
-    assert [c[:3] for c in fake_lib["calls"]] == [("phi_rows", 16, tx.n)]
+    route = cuda_phi.walk_route(tx)
+    widths = (16 if route == "phi_rows" else
+              (8, 8, 8, *tx.pp_bs))  # u32 tables widen to int64 on the device
+    assert [c[:3] for c in fake_lib["calls"]] == [(route, widths, tx.n)]
     assert cuda_phi.LAUNCHES == 1
+
+
+def test_phi_at_model_matches_jax(phi_case, fake_lib):
+    """The modelled kernel's walk (through phi_walk on a CUDA-like call,
+    locate_ragged and locate) == the JAX package's locate_ragged and locate,
+    on the BigIndex with its phi rows withheld (the breakpoint table of a
+    panel above 2^31 breakpoints) and with them, at max_hits None and 6."""
+    from test_torch_bigindex import _eq as eq
+
+    idx, dx, txs, text = phi_case
+    qc, lens, q, ln = _batch(idx, _reads_of(text, np.random.default_rng(9)) + [b"", b"AC"])
+    want = JL.find_ranges_w_toehold(dx, jnp.asarray(qc), jnp.asarray(lens))
+    tx = txs[1]
+    got = TL.find_ranges_w_toehold(tx, q, ln)
+    fake_lib["install"](tx)
+    real = cuda_phi.phi_walk
+    cuda_phi.phi_walk = lambda tx_, k, size, off, out: cuda_phi.launch_walk(tx_, k, size, off,
+                                                                            out)
+    try:
+        eq(TL.locate_ragged(tx, *got), JL.locate_ragged(dx, *want), "ragged")
+        eq(TL.locate(tx, *got, max_hits=6), JL.locate(dx, *want, max_hits=6), "dense")
+    finally:
+        cuda_phi.phi_walk = real
+    assert cuda_phi.LAUNCHES == 2
+    assert {c[0] for c in fake_lib["calls"]} == {cuda_phi.walk_route(tx)}
 
 
 def test_refused_launch_raises_and_counts_nothing(pair, fake_lib):
@@ -241,23 +289,20 @@ def test_wrapper_refuses_mixed_devices_and_wrong_dtypes(pair):
 
 @pytest.mark.parametrize("route", ["phi1", "phi_rows", "phi_at", "pred"])
 def test_route_is_chosen_by_the_tables(monkeypatch, route):
-    """On a CUDA tensor phi_walk launches the kernel exactly when the index
-    has phi1, the phi rows or only the run-start samples (the predecessor
-    search), and runs the torch walk over phi_at, counted in LAUNCHES_TORCH;
-    the choice is made before any launch."""
+    """On a CUDA tensor phi_walk launches the kernel on every route: phi1,
+    the phi rows, the breakpoint table phi_at and the run-start samples
+    alone (the predecessor search); no torch walk runs on the card."""
     tables = {"phi1": ("phi1",), "phi_rows": ("phi_rows", "phi_delta"),
               "phi_at": ("pred_pos", "phi_at", "pp_off"), "pred": ("pred_pos", "pred_to_run")}
     tx = SimpleNamespace(arrays=dict.fromkeys(tables[route]))
     calls = []
     monkeypatch.setattr(cuda_phi, "launch_walk", lambda *a: calls.append("kernel"))
     monkeypatch.setattr(cuda_phi, "phi_walk_plain", lambda *a: calls.append("torch"))
-    monkeypatch.setattr(cuda_phi, "LAUNCHES_TORCH", 0)
     k = SimpleNamespace(device=SimpleNamespace(type="cuda"), shape=(4,))
     cuda_phi.phi_walk(tx, k, None, None, None)
-    kernel = route in ("phi1", "phi_rows", "pred")
-    assert calls == ["kernel" if kernel else "torch"]
-    assert cuda_phi.LAUNCHES_TORCH == (0 if kernel else 1)
-    assert (cuda_phi.walk_route(tx) == route) == kernel
+    assert calls == ["kernel"]
+    assert cuda_phi.walk_route(tx) == route
+    assert not hasattr(cuda_phi, "LAUNCHES_TORCH")
     with pytest.raises(ValueError, match="no phi walk for device"):
         cuda_phi.phi_walk(tx, SimpleNamespace(device=SimpleNamespace(type="mps")),
                           None, None, None)

@@ -46,8 +46,7 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 WIDTHS = (1, 31, 100)
 WSIZE = 10
 MODES = ("greedy", "lmem", "sample")
-ZERO = {"greedy": 0, "lmem": 0, "sample": 0, "sample_rec": 0}
-ZERO_TORCH = {"greedy": 0, "lmem": 0, "sample": 0, "sample_per_step": 0}
+ZERO = dict.fromkeys(cuda_seeds.LAUNCHES_SEED, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -334,15 +333,18 @@ def _model_lib(tx, calls, rc, events=None):
 
     def rbt_seed_machine(mode, fb, syms, F, base, per_blk, A, n, lane_b, q, lengths, B, L,
                          ftab, ftab_b, k, acgt, wsize, max_range, min_length, W, rlo, rhi,
-                         rseed, nrec, S, slo, shi, sqs, sqe, ns, hi_rec, threads, stage,
+                         rseed, nrec, S, slo, shi, sqs, sqe, ns, hi_rec, tk1, tk1_b, ltk, ltk_b,
+                         run_start, rs_b, samples_last, sl_b, R_, ssamp, threads, stage,
                          stream):
         name = {0: "greedy", 1: "lmem", 2: "sample"}[mode]
         c = dict(mode=name, syms=syms, per_blk=per_blk, A=A, n=n, lane=lane_b, q=q, B=B, L=L,
                  ftab=(ftab, ftab_b), k=k, acgt=acgt, wsize=wsize, max_range=max_range,
                  min_length=min_length, W=W, S=S, base=base, hi_rec=hi_rec,
                  outs=(rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns),
+                 toe=(tk1, ltk, run_start, samples_last, ssamp),
                  threads=threads, stage=stage, stream=stream)
         calls.append(c)
+        assert ssamp is None, "the per-step toehold's model is test_torch_seed_tables.py's"
         if rc or B == 0:
             return rc
         fbn = _ints(fb, rows[0] * rows[1], 4).reshape(rows)
@@ -378,14 +380,13 @@ def fake(monkeypatch):
         monkeypatch.setattr(cuda_seeds, "_LIB", _model_lib(tx, rec["calls"], rec["rc"], events))
 
     def kernel():
-        monkeypatch.setattr(TS, "_machine", lambda name, tx, q, ln, plain, launch, torch_route:
+        monkeypatch.setattr(TS, "_machine", lambda q, ln, plain, launch:
                             launch(q.to(torch.int32), ln.to(torch.int32)))
 
     monkeypatch.setattr(cuda_seeds, "_raw_stream", lambda dev: 1000 + dev)
     monkeypatch.setattr(cuda_seeds, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(cuda_seeds.torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(cuda_seeds, "LAUNCHES_SEED", dict(ZERO))
-    monkeypatch.setattr(cuda_seeds, "LAUNCHES_SEED_TORCH", dict(ZERO_TORCH))
     rec["install"], rec["kernel"] = install, kernel
     return rec
 
@@ -448,9 +449,9 @@ def test_dense_model_and_twins_match_jax(panel, fake, case, L):
     fake["install"](tx)
     fake["kernel"]()
     _eq(_run(mode, False, tx, qc, lens, opt), want, "model")
-    mode_key = "sample" if mode == "sample" else mode
-    assert cuda_seeds.LAUNCHES_SEED == dict(ZERO, **{mode_key: 1})
-    assert cuda_seeds.LAUNCHES_SEED_TORCH == ZERO_TORCH
+    assert cuda_seeds.LAUNCHES_SEED == dict(ZERO, **{mode: 1})
+    (c,) = fake["calls"]
+    assert c["toe"] == (None,) * 5  # kval: no per-step toehold
 
 
 @pytest.mark.parametrize("L", WIDTHS)
@@ -672,8 +673,8 @@ def test_launch_refuses(panel, fake, fault, error, match):
     arrays = dict(tx.arrays)
     mode, kw = "greedy", dict(k=tx.ftab_k, wsize=WSIZE, max_range=100, W=10, S=4)
     if fault == "no rows":
-        arrays.pop("fblock64")
-        arrays.pop("fblock", None)
+        for name in ("fblock64", "fblock", "occ1_flat", "bwt4", "run_start"):
+            arrays.pop(name, None)
     elif fault == "unknown mode":
         mode = "tables"
     elif fault == "record over single-level rows":
@@ -700,8 +701,8 @@ def test_launch_refuses(panel, fake, fault, error, match):
 
 
 def test_build_failure_raises_and_runs_no_torch_loop(panel, monkeypatch):
-    """With the kernel library missing, a CUDA-tensor call over fused rows
-    raises; it never gives way to the torch loop."""
+    """With the kernel library missing, a CUDA-tensor call raises; it never
+    gives way to the torch loop."""
     from rowbowt_tpu_torch import _native
 
     def refuse(stem):
@@ -711,21 +712,19 @@ def test_build_failure_raises_and_runs_no_torch_loop(panel, monkeypatch):
     monkeypatch.setattr(cuda_seeds, "_LIB", None)
     monkeypatch.setattr(cuda_seeds, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(cuda_seeds.torch.cuda, "current_device", lambda: 0)
-    monkeypatch.setattr(cuda_seeds, "LAUNCHES_SEED_TORCH", dict(ZERO_TORCH))
+    monkeypatch.setattr(cuda_seeds, "LAUNCHES_SEED", dict(ZERO))
     plain = []
     monkeypatch.setattr(TS, "markers_greedy_records_plain", lambda *a, **k: plain.append(1))
     tx, idx = panel["dense"][1:]
     qc, lens = _lanes(idx, panel["reads"], 31)
     q, ln = torch.from_numpy(qc), torch.from_numpy(lens)
     with pytest.raises(_native.BuildError, match="nvcc not found"):
-        TS._machine("greedy", tx, SimpleNamespace(device=SimpleNamespace(type="cuda"),
-                                                  to=lambda dt: q), ln,
+        TS._machine(SimpleNamespace(device=SimpleNamespace(type="cuda"), to=lambda dt: q), ln,
                     lambda *a: TS.markers_greedy_records_plain(),
                     lambda qq, ll: cuda_seeds.launch_machine(tx, "greedy", qq, ll, k=0,
                                                              wsize=WSIZE, max_range=100,
-                                                             W=10, S=4),
-                    torch_route=False)
-    assert plain == [] and cuda_seeds.LAUNCHES_SEED_TORCH == ZERO_TORCH
+                                                             W=10, S=4))
+    assert plain == [] and cuda_seeds.LAUNCHES_SEED == ZERO
 
 
 # ---------------------------------------------------------------------------
@@ -735,45 +734,39 @@ def _fake_tensor(kind):
     return SimpleNamespace(device=SimpleNamespace(type=kind), to=lambda dt: (kind, dt))
 
 
-@pytest.mark.parametrize("tables,torch_route,want", [
-    ({"fblock64": None}, False, "kernel"), ({"fb2_64": None}, False, "kernel"),
-    ({"run_start": None}, False, "torch"), ({"occ1_flat": None}, False, "torch"),
-    ({"fblock64": None}, True, "torch")])
-def test_machine_route_follows_the_tables(monkeypatch, tables, torch_route, want):
-    """CPU tensors take the plain twin uncounted; CUDA tensors the kernel
-    (int32 codes and lengths) over fused rows, else the torch loop counted
-    under the machine's name (an index without fused rows, or a route the
-    slice leaves to torch); other devices raise."""
-    monkeypatch.setattr(cuda_seeds, "LAUNCHES_SEED_TORCH", dict(ZERO_TORCH))
-    tx = SimpleNamespace(arrays=tables, has_dense=False)
+@pytest.mark.parametrize("tables", [
+    {"fblock64": None}, {"fb2_64": None}, {"run_start": None}, {"occ1_flat": None},
+    {"fblock64": None, "samples_last": None}])
+def test_machine_route_follows_the_tables(monkeypatch, tables):
+    """CPU tensors take the plain twin; CUDA tensors the kernel (int32
+    codes and lengths) over every index's tables, fused rows or not, with
+    or without kval; other devices raise.  No torch loop runs on the card."""
     plain = lambda q, ln: ("plain", q.device.type)  # noqa: E731
     launch = lambda q, ln: ("kernel", q, ln)  # noqa: E731
     cpu, cuda = _fake_tensor("cpu"), _fake_tensor("cuda")
-    assert TS._machine("sample_per_step", tx, cpu, cpu, plain, launch, torch_route) == \
-        ("plain", "cpu")
-    assert cuda_seeds.LAUNCHES_SEED_TORCH == ZERO_TORCH
-    got = TS._machine("sample_per_step", tx, cuda, cuda, plain, launch, torch_route)
-    if want == "kernel":
-        assert got == ("kernel", ("cuda", torch.int32), ("cuda", torch.int32))
-        assert cuda_seeds.LAUNCHES_SEED_TORCH == ZERO_TORCH
-    else:
-        assert got == ("plain", "cuda")
-        assert cuda_seeds.LAUNCHES_SEED_TORCH == dict(ZERO_TORCH, sample_per_step=1)
+    assert TS._machine(cpu, cpu, plain, launch) == ("plain", "cpu")
+    got = TS._machine(cuda, cuda, plain, launch)
+    assert got == ("kernel", ("cuda", torch.int32), ("cuda", torch.int32))
+    assert not hasattr(cuda_seeds, "LAUNCHES_SEED_TORCH")
     with pytest.raises(ValueError, match="no seeding loop for device"):
-        TS._machine("greedy", tx, _fake_tensor("mps"), cpu, plain, launch, torch_route)
+        TS._machine(_fake_tensor("mps"), cpu, plain, launch)
 
 
-def test_engines_name_their_routes(panel, monkeypatch):
-    """Each engine names its machine's counter and leaves to torch only
-    the sampled machine's per-step toehold (an index without kval)."""
+def test_engines_name_their_routes(panel, fake, monkeypatch):
+    """Each engine hands its kernel launch the machine and its options: the
+    sampled machine the per-step toehold on an index without kval and the
+    step record on a big index; nothing is left to torch on the card."""
     seen = []
-    real = TS._machine
 
-    def spy(name, tx, q, ln, plain, launch, torch_route):
-        seen.append((name, torch_route))
-        return real(name, tx, q, ln, plain, launch, torch_route)
+    def spy(q, ln, plain, launch):
+        seen.append(launch)
+        return plain(q, ln)
 
+    calls = []
     monkeypatch.setattr(TS, "_machine", spy)
+    monkeypatch.setattr(cuda_seeds, "launch_machine",
+                        lambda tx, mode, q, ln, **kw: calls.append((mode, kw.get("record", False),
+                                                                   kw.get("toehold", False))))
     dx, tx, idx = panel["dense"]
     qc, lens = _lanes(idx, panel["reads"][:6], 31)
     q, ln = torch.from_numpy(qc), torch.from_numpy(lens)
@@ -783,8 +776,10 @@ def test_engines_name_their_routes(panel, monkeypatch):
     bare = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k != "kval"})
     TS.seeds_greedy_w_sample(bare, q, ln, min_length=19)
     TS.seeds_greedy_w_sample(panel["big"][1], q, ln, min_length=19)
-    assert seen == [("greedy", False), ("lmem", False), ("sample", False),
-                    ("sample_per_step", True), ("sample", False)]
+    for launch in seen:
+        launch(q, ln)
+    assert calls == [("greedy", False, False), ("lmem", False, False), ("sample", False, False),
+                     ("sample", False, True), ("sample", True, False)]
 
 
 # ---------------------------------------------------------------------------

@@ -585,7 +585,6 @@ def fake_walk(monkeypatch):
     monkeypatch.setattr(cuda_phi, "_sm_count", lambda dev: 2)
     monkeypatch.setattr(cuda_phi.torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(cuda_phi, "LAUNCHES", 0)
-    monkeypatch.setattr(cuda_phi, "LAUNCHES_TORCH", 0)
     rec["install"] = install
     return rec
 
@@ -616,7 +615,7 @@ def test_pred_launch_path_walks_like_the_twin(nodense, fake_walk, wide):
         [(8 if wide else 4, tx.R, tx.n, B)] * 2
     assert all(c["threads"] == cuda_phi.launch_plan(B, 2) and c["stream"] == 1000
                for c in calls)
-    assert cuda_phi.LAUNCHES == 2 and cuda_phi.LAUNCHES_TORCH == 0
+    assert cuda_phi.LAUNCHES == 2
 
 
 def test_pred_launch_refuses_and_counts_nothing(nodense, fake_walk):

@@ -17,7 +17,8 @@ the seeding machines of rbt_markers and rbt_locs (csrc/seeds.cu), each with
 nvcc for sm_90a, and the host library (SA-IS, FASTQ reader, BWT merge, PFP
 and the CPU engine, g++), all five side by side, then starts
 phase pfp_big's host build (a PFP panel above 2^31) in a child process
-beside the phases before it, and runs:
+beside the phases before it (phase build_small's builds the same, and
+phase raw_chr's after build_cli), and runs:
 
   1. device: the card's name and `nvidia-smi` name and power limit;
   2. build: seconds taken by each build, and nvcc's register reports;
@@ -40,14 +41,13 @@ beside the phases before it, and runs:
      than k and length-0 lanes) through K1 and through `find_ranges_plain` on
      the card, for the 64B and 96B row layouts with the ftab on and off:
      every (lo, hi) equal; 1,000 of them also equal to a host run-space
-     search that never reads the row tables; then K1 == plain over the
-     64-symbol rows at the edges of its staging and ftab start (widths 1,
-     k - 1, k, 99, 100, two views off a 16-byte boundary, one lane, and L =
-     3,072, which is not staged); then K1 over the two-level rows of the
-     same BWT (BigIndex.from_codes, n_sup = 4: fb2_64, fb2 and fb2_256)
-     against the plain loop and the single-level rows' ranges, on the batch
-     (and at the same edges over fb2_64), and its
-     record launch (lo, hi and the [L, B] step record) against the torch
+     search that never reads the row tables; then K1 == plain in each
+     layout at the edges of its staging and ftab start (widths 1, k - 1, k,
+     99, 100, two views off a 16-byte boundary, one lane, and L = 3,072,
+     which is not staged); then K1 over the two-level rows of the same BWT
+     (BigIndex.from_codes, n_sup = 4: fb2_64, fb2 and fb2_256) against the
+     plain loop and the single-level rows' ranges, on the batch and at the
+     same edges, and its record launch (lo, hi and the [L, B] step record) against the torch
      loop that records (cuda_lf.find_ranges_record_plain) there too; then
      the phi walk kernel against its plain twin (the torch walk) on the
      batch's -s toeholds over the dense index's phi1, over its BigIndex
@@ -68,9 +68,8 @@ beside the phases before it, and runs:
      index's fblock64 rows and its BigIndex view's fb2_64 rows (the
      sampled machine with its step record there), with the ftab start and
      without, at the engines' capacities and at capacities that overflow
-     (2 seeds, 2-3 records, max_range 20, min_length 0), on the batch's
-     first 16,384 lanes, 4,096 random-code lanes and the edges of k1_edges
-     (over fblock64); the sampled
+     (2 seeds, 2-3 records, max_range 20, min_length 0), on the batch,
+     4,096 random-code lanes and the edges of k1_edges; the sampled
      machine's per-step toehold over the raw tables' fused rows (tk1, ltk);
      and every machine over each rank policy's tables (run-space, dense,
      occ1; the sampled machine with its per-step toehold, and with kval);
@@ -127,8 +126,9 @@ beside the phases before it, and runs:
      machine); the first 1,000 lines equal to the oracle's greedy seeds,
      longest-seed locate (4 hits) and text-span marker lookup;
  14a. raw_chr: the chr index written as raw `.bwt/.ssa/.esa/.docs` and a
-     `.mab` (write_mab), built from the prefix by `rbt_build_torch <prefix>
-     -s -m -l` (fused rows, predecessor-built phi1, no kval; n above
+     `.mab` (write_mab) after phase 5, built from the prefix by
+     `rbt_build_torch <prefix> -s -m -l` in a child process beside phases
+     6-14 (fused rows, predecessor-built phi1, no kval; n above
      OCC1_MAX_N, so no occ1/tk1): rbt_align count, -s and -m print the lines
      of phases 6, 8 and 9; K1 once a batch of count and -m, its toehold
      launch (the per-step toehold over ltk) once a batch of -s; build
@@ -237,8 +237,8 @@ beside the phases before it, and runs:
      buffer equal to the single-device engine's; then
      tools/dryrun_multichip on 4 ranks;
  19. parallel_stream: tools/sharded_stream as 2 processes (count, -m,
-     --greedy against one process) and as 4 on the big_chr directory, all
-     at once, each process printing its own reads' lines.
+     --greedy against the single-device engine) and as 4 on the big_chr
+     directory, all at once, each process printing its own reads' lines.
 Each multi-rank phase records reads/s over the query seconds, the
 all-reduces a step and their microseconds, and each rank's load seconds
 and peak device memory.
@@ -991,31 +991,84 @@ def codes_of(idx) -> np.ndarray:
     return np.repeat(np.asarray(idx.run_head).astype(np.uint8), idx.run_lengths())
 
 
+def parity_inputs(device, cfg=SMALL, n_lanes=BATCH) -> dict:
+    """What phase parity checks its kernels on: the small panel's index
+    (with SA samples: kval and phi1 for the walk), its BWT codes, the
+    edge-case batch of n_lanes reads (host qc, lens and on the card q, ln;
+    every edge case present) and k1_edges' cases.  The same seed gives the
+    same inputs in every process."""
+    import torch
+
+    from rowbowt_tpu_torch.construct.build import build_index
+
+    t0 = time.perf_counter()
+    text = panel(cfg)[0]
+    idx = build_index(text, ftab_k=FTAB_K)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(cfg["seed"] + 1)
+    qc, lens, counts = edge_lanes(idx, sample_reads(text, rng, n_lanes), rng)
+    check(all(v > 0 for v in counts.values()), f"edge cases missing: {counts}")
+    return dict(idx=idx, codes=codes_of(idx), build_s=build_s, qc=qc, lens=lens, counts=counts,
+                q=torch.from_numpy(qc).to(device), ln=torch.from_numpy(lens).to(device),
+                edges=k1_edges(qc, lens, device))
+
+
+def seeds_parity_child(out_path: str) -> None:
+    """seeds_parity in a child process of its own on cuda:0 (started by
+    phase parity, beside its other checks: the plain twins are host-bound
+    torch loops, one core each), over parity_inputs' inputs and raw_tables;
+    its result pickled into out_path."""
+    import pickle
+
+    import torch
+
+    device = torch.device("cuda", 0)
+    inp = parity_inputs(device)
+    idx, codes = inp["idx"], inp["codes"]
+    raw = {route: raw_tables(idx, codes, route) for route in ("tk1", "ltk")}
+    res = seeds_parity(device, idx, codes, inp["q"], inp["ln"], inp["edges"], raw)
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
 def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     """K1 == find_ranges_plain on the card, both layouts, ftab on and off, on
-    the edge-case batch, and at the edges of k1_edges over the 64-symbol
-    rows; then K1 over the two-level rows of the same BWT (n_sup = 4: fb2_64,
-    fb2 and fb2_256, no ftab) on the batch, and at the edges over fb2_64,
-    its ranges also equal to the single-level rows'.
-    Returns {kernel: max |err|}."""
+    the edge-case batch and at the edges of k1_edges; then K1 over the
+    two-level rows of the same BWT (n_sup = 4: fb2_64, fb2 and fb2_256, no
+    ftab) on the batch and at the same edges, its ranges also equal to the
+    single-level rows', and the record launch over each against its twin;
+    the walk, toehold and tables kernels against their twins; and, in a
+    child process started first (seeds_parity_child), the seeding kernel
+    against its twins on the same inputs.  Returns {kernel: max |err|}."""
+    import pickle
+
+    seeds_path = os.path.join(WORK, "seeds_parity.pkl")
+    child = spawn_child(seeds_parity_child, seeds_path)
+    try:
+        out = parity_checks(device, parity_inputs(device, cfg, n_lanes), n_lanes)
+        child.join()
+    finally:
+        stop_child(dict(proc=child))
+    check(child.exitcode == 0, f"seeds_parity's child exited {child.exitcode}")
+    with open(seeds_path, "rb") as f:
+        seeds = pickle.load(f)
+    emit("parity", **out["emit"], seeds_parity=seeds)
+    return {**out["errs"], **seeds["errs"]}
+
+
+def parity_checks(device, inp: dict, n_lanes: int) -> dict:
+    """Phase parity's checks but the seeding kernel's, on parity_inputs'
+    `inp`: {"errs": {kernel: max |err|}, "emit": the phase line's fields}."""
     import torch
 
     from rowbowt_tpu_torch.bigindex import BigIndex
-    from rowbowt_tpu_torch.construct.build import build_index
     from rowbowt_tpu_torch.engine.count import find_ranges
     from rowbowt_tpu_torch.engine.device import TorchIndex
     from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
     from rowbowt_tpu_torch.ops import cuda_lf
 
-    t0 = time.perf_counter()
-    text = panel(cfg)[0]
-    idx = build_index(text, ftab_k=FTAB_K)  # with SA samples: kval and phi1 for the walk
-    build_s = time.perf_counter() - t0
-    rng = np.random.default_rng(cfg["seed"] + 1)
-    qc, lens, counts = edge_lanes(idx, sample_reads(text, rng, n_lanes), rng)
-    check(all(v > 0 for v in counts.values()), f"edge cases missing: {counts}")
-    q, ln = torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device)
-    edges = k1_edges(qc, lens, device)
+    idx, codes, qc, lens, q, ln, edges = (inp[k] for k in ("idx", "codes", "qc", "lens", "q",
+                                                            "ln", "edges"))
     err = 0
     launches0 = cuda_lf.LAUNCHES
     results = {}
@@ -1038,9 +1091,7 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
             err = max(err, e)
             cfg_name = f"fb64={fb64},ftab={use_ftab}"
             results[cfg_name] = int((got[1] >= got[0]).sum().item())
-            # the edges of the staging and the ftab start over the 64-symbol
-            # rows; the 96 B rows share that code and take the batch
-            for label, qe, le in edges if fb64 else ():
+            for label, qe, le in edges:
                 got = find_ranges(tx, qe, le, use_ftab=use_ftab)
                 want = cuda_lf.find_ranges_plain(tx, qe, le, use_ftab=use_ftab)
                 torch.cuda.synchronize()
@@ -1049,11 +1100,10 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
                 err = max(err, e)
                 edge_nonempty[f"{cfg_name},{label}"] = int((got[1] >= got[0]).sum().item())
     launches = cuda_lf.LAUNCHES - launches0
-    want_k1 = 2 * (2 + len(edges)) + 2 * 2
+    want_k1 = 4 * (2 + len(edges))
     check(launches == want_k1, f"expected {want_k1} K1 launches, counted {launches}")
     tx = TorchIndex.from_index(idx, device)
     single = [find_ranges(tx, qe, le, use_ftab=False) for _, qe, le in [("", q, ln)] + edges]
-    codes = codes_of(idx)
     err2, err3, layouts = 0, 0, []
     launches0, rec0 = cuda_lf.LAUNCHES_FB2, cuda_lf.LAUNCHES_REC
     for block, fb64 in ((128, True), (128, False), (256, False)):
@@ -1061,10 +1111,7 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
                                  device, fb64=fb64)
         layout = cuda_lf.row_layout(tx)
         layouts.append(layout)
-        # the edges over fb2_64; fb2 and fb2_256 share their code and take
-        # the batch
-        cases2 = [("batch", q, ln)] + (edges if layout == "fb2_64" else [])
-        for (label, qe, le), one in zip(cases2, single):
+        for (label, qe, le), one in zip([("batch", q, ln)] + edges, single):
             got = find_ranges(tx, qe, le)
             want = cuda_lf.find_ranges_plain(tx, qe, le)
             torch.cuda.synchronize()
@@ -1078,7 +1125,7 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
                   f"max |err| {e}")
             err3 = max(err3, e)
         del tx
-    want_fb2 = (1 + len(edges)) + 2
+    want_fb2 = 3 * (1 + len(edges))
     launches2 = cuda_lf.LAUNCHES_FB2 - launches0
     check(launches2 == want_fb2, f"expected {want_fb2} two-level K1 launches, counted "
           f"{launches2}")
@@ -1094,20 +1141,20 @@ def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
     raw = {route: raw_tables(idx, codes, route) for route in ("tk1", "ltk")}
     toe = toehold_parity(device, raw, cases, kval)
     tab = tables_parity(device, idx, codes, raw["tk1"], cases, single, kval)
-    seeds = seeds_parity(device, idx, codes, q, ln, edges, raw)
-    emit("parity", n=idx.n, R=idx.R, build_s=build_s, lanes=n_lanes, edge_cases=counts,
-         nonempty=results, edges=[label for label, _, _ in edges],
-         edge_nonempty=edge_nonempty, host_checked=N_HOST, launches=launches, max_abs_err=err,
-         fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2,
-         rec_launches=launches3, rec_max_abs_err=err3, walk=walk, toehold=toe, tables=tab,
-         seeds_parity=seeds)
-    return {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3,
-            "lf_toehold": toe["max_abs_err"], **seeds["errs"],
+    fields = dict(n=idx.n, R=idx.R, build_s=inp["build_s"], lanes=n_lanes,
+                  edge_cases=inp["counts"], nonempty=results,
+                  edges=[label for label, _, _ in edges], edge_nonempty=edge_nonempty,
+                  host_checked=N_HOST, launches=launches, max_abs_err=err, fb2_layouts=layouts,
+                  fb2_launches=launches2, fb2_max_abs_err=err2, rec_launches=launches3,
+                  rec_max_abs_err=err3, walk=walk, toehold=toe, tables=tab)
+    errs = {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3,
+            "lf_toehold": toe["max_abs_err"],
             **{f"lf_tables_{name}": e for name, e in tab["errs"].items()},
             "phi_walk_phi1": walk["max_abs_err"]["phi1"],
             "phi_walk_rows": walk["max_abs_err"]["phi_rows"],
             "phi_walk_pred": walk["max_abs_err"]["pred"],
             "walk_phi_at": walk["max_abs_err"]["phi_at"]}
+    return dict(errs=errs, emit=fields)
 
 
 def raw_tables(idx, codes, route: str):
@@ -2473,7 +2520,6 @@ def phase_locs(device, card: dict, chr_: dict) -> dict:
 # ---------------- the seeding machines (csrc/seeds.cu) ----------------
 
 SEED_RANDOM_LANES = 4_096  # random-code lanes beside the parity batch: replays that meet an empty step
-SEED_PARITY_LANES = 16_384  # lanes of the parity batch the seeding machines take (its edge cases are mixed in)
 SEED_STEP_OPS = 16  # int32 operations of a machine step beside its ranks: tests, selects, slots
 
 
@@ -2495,11 +2541,11 @@ def seed_cfg(tx, mode: str, L: int, small: bool = False, ftab: bool = True) -> d
     """The parameters of machine `mode` as its engine derives them for codes
     of width L (rbt_markers' window of MA_WSIZE, 8 seeds, the records its
     engine allots, max_range 2^62 clamped to the lane type; rbt_locs'
-    min_length 19, with the step record on two-level rows and the per-step
-    toehold on an index without kval; the ftab start where the index has
-    one and L reaches its k), or with `small` capacities that overflow: 2
-    seeds, 3 (greedy) or 2 (lmem) records, max_range 20, sample's
-    min_length 0."""
+    min_length 19, with the step record on two-level rows; the ftab start
+    where the index has one and L reaches its k), or with `small`
+    capacities that overflow: 2 seeds, 3 (greedy) or 2 (lmem) records,
+    max_range 20, sample's min_length 0.  The sampled machine carries the
+    per-step toehold where cuda_seeds.carries_toehold says so."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_lf
@@ -2512,17 +2558,16 @@ def seed_cfg(tx, mode: str, L: int, small: bool = False, ftab: bool = True) -> d
                     W=3 if small else 2 * (L // MA_WSIZE) + 4)
     if mode == "lmem":
         return dict(k=k, wsize=MA_WSIZE, max_range=mr, S=1, W=2 if small else L // MA_WSIZE + 2)
-    two_level = cuda_lf.row_layout(tx) in R.FB2_KEYS
-    return dict(min_length=0 if small else 19, S=2 if small else 8, record=two_level,
-                toehold=not two_level and "kval" not in tx.arrays)
+    return dict(min_length=0 if small else 19, S=2 if small else 8,
+                record=cuda_lf.row_layout(tx) in R.FB2_KEYS)
 
 
 def seed_route(tx, mode: str, cfg: dict) -> str:
     """The cuda_seeds.LAUNCHES_SEED key of machine `mode` with cfg on tx."""
-    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 
-    name = ("sample_rec" if cfg.get("record") else "sample_toe" if cfg.get("toehold")
-            else mode)
+    name = ("sample_rec" if cfg.get("record")
+            else "sample_toe" if cuda_seeds.carries_toehold(tx, mode) else mode)
     policy = cuda_lf.table_policy(tx) if cuda_lf.row_layout(tx) is None else None
     return f"{name}_{policy}" if policy else name
 
@@ -2544,7 +2589,8 @@ def seed_records(tx, mode: str, q, ln, cfg: dict, plain: bool) -> dict:
                                             cfg["W"])
     return S.seeds_sample_records_plain(
         tx, q, ln, cfg["min_length"], cfg["S"],
-        "trajectory" if cfg["record"] else "per_step" if cfg["toehold"] else "kval")
+        "trajectory" if cfg["record"]
+        else "per_step" if cuda_seeds.carries_toehold(tx, mode) else "kval")
 
 
 def records_err(got: dict, want: dict) -> int:
@@ -2562,9 +2608,8 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
         record there), the dense index's ftab attached to both: greedy and
         lmem with the ftab start and without, each at its engine's
         capacities and at capacities that overflow (seed_cfg small), on the
-        parity batch's first SEED_PARITY_LANES lanes and SEED_RANDOM_LANES
-        random-code lanes; each machine at
-        its engine's capacities at the edges of k1_edges over fblock64 (the
+        parity batch and SEED_RANDOM_LANES random-code lanes; each machine
+        at its engine's capacities at the edges of k1_edges over both (the
         unstaged L = 3,072 for the sampled machine only);
       - the sampled machine's per-step toehold over the raw tables' fused
         rows ({route: raw_tables}: tk1 and ltk), at both capacities on the
@@ -2587,7 +2632,7 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(SMALL["seed"] + 7)
     rq, rl = random_lanes(rng, SEED_RANDOM_LANES, q.shape[1], idx.A)
-    cases = [("batch", q[:SEED_PARITY_LANES], ln[:SEED_PARITY_LANES]),
+    cases = [("batch", q, ln),
              ("random", torch.from_numpy(rq).to(device), torch.from_numpy(rl).to(device))]
     dense = TorchIndex.from_index(idx, device)
     big = TorchIndex.from_big(BigIndex.from_codes(codes, idx.alpha, n_sup=4), device)
@@ -2635,10 +2680,7 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
     for layout, tx in (("fblock64", dense), ("fb2_64", big)):
         check(cuda_lf.row_layout(tx) == layout, f"seeds parity over {cuda_lf.row_layout(tx)}")
         for mode in ("greedy", "lmem", "sample"):
-            # the edges over the single-level rows: the staging and the ftab
-            # start are the same code over the two-level rows
-            edge_labels = (every if mode == "sample" else staged) if layout == "fblock64" else ()
-            held(tx, layout, mode, plan(mode, edge_labels))
+            held(tx, layout, mode, plan(mode, every if mode == "sample" else staged))
     # the per-step toehold over fused rows (no kval): tk1 and ltk
     for route in ("tk1", "ltk"):
         tx = TorchIndex.from_index(raw[route], device)
@@ -2691,7 +2733,7 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
     distinct toeholds they resolve (as many table entries, at most)."""
     import torch
 
-    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
     from rowbowt_tpu_torch.ops import rank as R
 
     B, L = q.shape
@@ -2726,7 +2768,7 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
             setattr(R, name, fn)
     m = ln.to(dt)
     k = cfg.get("k", 0)
-    toe = bool(cfg.get("toehold"))
+    toe = cuda_seeds.carries_toehold(tx, mode)
     i0 = torch.zeros(B, dtype=dt, device=dev)
     ftab_entries = 0
     if k:
@@ -3045,17 +3087,24 @@ def pfp_big_build(path: str) -> None:
 def start_pfp_big_build() -> dict:
     """pfp_big_build in a spawned child process (no CUDA, no torch state of
     this process); phase_pfp_big joins it."""
+    path = os.path.join(WORK, "pfp_big")
+    return dict(proc=spawn_child(pfp_big_build, path), path=path, started=time.perf_counter())
+
+
+def spawn_child(target, *args):
+    """target(*args) started in a spawned child process (a fresh
+    interpreter: no CUDA or torch state of this process), named after it."""
     import multiprocessing
 
-    path = os.path.join(WORK, "pfp_big")
-    proc = multiprocessing.get_context("spawn").Process(
-        target=pfp_big_build, args=(path,), name="pfp_big_build")
+    proc = multiprocessing.get_context("spawn").Process(target=target, args=args,
+                                                        name=target.__name__)
     proc.start()
-    return dict(proc=proc, path=path, started=time.perf_counter())
+    return proc
 
 
 def stop_child(child: dict | None) -> None:
-    """Ends start_pfp_big_build's child if it still runs (a phase failed)."""
+    """Ends a host build's child (start_pfp_big_build, start_raw_chr_build,
+    start_small_builds) if it still runs (a phase failed)."""
     if child is None:
         return
     if child["proc"].is_alive():
@@ -3951,11 +4000,43 @@ def seeding_tx(device, path: str):
     return idx, TorchIndex.from_index(idx, device)
 
 
+def raw_chr_build(prefix: str, out_dir: str, log: str) -> None:
+    """Phase raw_chr's host build, in a child process of its own (started
+    after build_cli, so that it overlaps the card's phases and its peak RSS
+    is its own): `rbt_build_torch <prefix> -s -m -l -o out_dir`; its seconds,
+    stderr and the child's peak RSS in out_dir + ".json"."""
+    build_s, _, err = run_main("rbt_build", [prefix, "-s", "-m", "-l", "-o", out_dir], log)
+    with open(out_dir + ".json", "w") as f:
+        json.dump(dict(build_s=build_s, stderr=err,
+                       peak_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6), f)
+
+
+def start_raw_chr_build(chr_: dict) -> dict:
+    """The chr index written as the reference's raw files (.bwt/.ssa/.esa/
+    .docs, and .mab through write_mab) in this process, then raw_chr_build
+    in a spawned child process; phase_raw_chr joins it."""
+    from rowbowt_tpu_torch.construct.rawio import write_raw
+    from rowbowt_tpu_torch.construct.sdslwrite import write_mab
+
+    idx = chr_["idx"]
+    d = os.path.join(WORK, "raw")
+    os.makedirs(d, exist_ok=True)
+    prefix, out_dir = os.path.join(d, "chr"), os.path.join(WORK, "raw_idx")
+    t = time.perf_counter()
+    write_raw(idx, prefix)
+    write_mab(prefix + ".mab", idx.ma_row, idx.ma_val, idx.ma_wsize, idx.n)
+    write_s = time.perf_counter() - t
+    proc = spawn_child(raw_chr_build, prefix, out_dir, os.path.join(WORK, "raw_build.txt"))
+    return dict(proc=proc, dir=d, prefix=prefix, out_dir=out_dir, write_s=write_s,
+                raw_files_gb=sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e9)
+
+
 def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
-                  markers: dict, k1: dict, seeding: dict) -> dict:
+                  markers: dict, k1: dict, seeding: dict, child: dict) -> dict:
     """Phase raw_chr: the chr index written as the reference's raw files
     (.bwt/.ssa/.esa/.docs, and .mab through write_mab) and built from the
-    prefix by `rbt_build_torch <prefix> -s -m -l`: fused-block rows and the
+    prefix by `rbt_build_torch <prefix> -s -m -l` (start_raw_chr_build's
+    child, joined here): fused-block rows and the
     predecessor-built phi1, no kval, and (n > OCC1_MAX_N) no occ1/tk1, so
     -s carries the toehold step by step over ltk.  rbt_align count, -s and
     -m print the dense index's lines (phases main, locate, markers); K1
@@ -3967,22 +4048,17 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     with the sampled machine's per-step toehold over the fused rows and ltk
     launched once a batch (seeding_runs), and that machine is timed on one
     batch against its plain twin (seeds_times)."""
-    from rowbowt_tpu_torch.construct.rawio import write_raw
-    from rowbowt_tpu_torch.construct.sdslwrite import write_mab
     from rowbowt_tpu_torch.index import _ARRS_NAME
 
     idx, paths = chr_["idx"], chr_["paths"]
-    d = os.path.join(WORK, "raw")
-    os.makedirs(d, exist_ok=True)
-    prefix, out_dir = os.path.join(d, "chr"), os.path.join(WORK, "raw_idx")
+    d, prefix, out_dir = child["dir"], child["prefix"], child["out_dir"]
     t = time.perf_counter()
-    write_raw(idx, prefix)
-    write_mab(prefix + ".mab", idx.ma_row, idx.ma_val, idx.ma_wsize, idx.n)
-    write_s = time.perf_counter() - t
-    mem: dict = {}
-    with peak_rss(mem):
-        build_s, _, err = run_main("rbt_build", [prefix, "-s", "-m", "-l", "-o", out_dir],
-                                   paths["out.txt"])
+    child["proc"].join()
+    wait_s = time.perf_counter() - t
+    check(child["proc"].exitcode == 0, f"raw_chr's build exited {child['proc'].exitcode}")
+    with open(out_dir + ".json") as f:
+        built = json.load(f)
+    build_s, err = built["build_s"], built["stderr"]
     check(f"constructing from raw {prefix}.bwt" in err.splitlines(), "not a raw-prefix build")
     z = np.load(os.path.join(out_dir, _ARRS_NAME))
     check({"fblock", "phi1", "ltk", "ma_start1", "samples_last"} <= set(z.files)
@@ -4009,9 +4085,8 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     seeds = seeds_times(tx, seed_batches(device, host, tx, paths, ("sample",)),
                         k1["us_per_dependent_step"])
     del host, tx
-    res = dict(n=idx.n, raw_files_gb=sum(os.path.getsize(os.path.join(d, f))
-                                         for f in os.listdir(d)) / 1e9,
-               raw_write_s=write_s, build_s=build_s, peak_rss_gb=mem["peak_rss_gb"],
+    res = dict(n=idx.n, raw_files_gb=child["raw_files_gb"], raw_write_s=child["write_s"],
+               build_s=build_s, build_wait_s=wait_s, peak_rss_gb=built["peak_rss_gb"],
                index_gb=dir_gb(out_dir), runs=runs, toehold=toehold, seeds_times=seeds,
                dense_reads_per_s={"count": count["cli_reads_per_s"],
                                   "-s": loc["cli_reads_per_s"],
@@ -4519,7 +4594,61 @@ def seeding_small_times(device, iupac_path: str, raw, fq: dict, reads: np.ndarra
     return out
 
 
-def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
+def small_builds(d: str) -> None:
+    """Phase build_small's host builds, in a child process of its own
+    (started with the run, so that they overlap the card's phases before
+    build_small): the small panel's FASTA and VCF (and its IUPAC FASTA)
+    through rbt_build_torch in every mode (build_small's docstring), then
+    save_reference_format of the dense index; each build's seconds and
+    index GB, -x's stderr, the paths and the writer's seconds in
+    d/builds.json."""
+    from rowbowt_tpu_torch.construct.rawio import write_raw
+    from rowbowt_tpu_torch.construct.sdslwrite import save_reference_format, write_mab
+    from rowbowt_tpu_torch.index import RbtIndex
+
+    fa, vcf = write_panel_files(SMALL, os.path.join(d, "panel"))
+    fa_iu, _ = write_panel_files(SMALL, os.path.join(d, "iupac"), iupac=N_IUPAC)
+    out_txt = os.path.join(d, "build.txt")
+    p = {x: os.path.join(d, x) for x in ("dense", "x", "nodense", "raw_idx", "ser",
+                                         "ftab_only", "iupac")}
+    native = ["--fasta", fa, "--vcf", vcf]
+    builds = {}
+
+    def build(name, argv):
+        wall, _, err = run_main("rbt_build", argv, out_txt)
+        builds[name] = dict(build_s=wall, index_gb=dir_gb(p[name]))
+        return err
+
+    build("dense", [*native, "-s", "-m", "-l", "-f", "-k", str(FTAB_K), "-o", p["dense"],
+                    "--emit-ref", os.path.join(d, "ref_fmt")])
+    x_err = build("x", [*native, "-x", "-s", "-m", "-l", "-o", p["x"]])
+    build("nodense", [*native, "--no-dense", "-s", "-m", "-l", "-o", p["nodense"]])
+    dense = RbtIndex.load(p["dense"])
+    prefix = os.path.join(d, "raw")
+    write_raw(dense, prefix)
+    write_mab(prefix + ".mab", dense.ma_row, dense.ma_val, dense.ma_wsize, dense.n)
+    build("raw_idx", [prefix, "-s", "-m", "-l", "-f", "-k", str(FTAB_K), "-o", p["raw_idx"]])
+    build("ser", [os.path.join(d, "ref_fmt"), "-s", "-m", "-l", "-o", p["ser"]])
+    shutil.copytree(p["dense"], p["ftab_only"])
+    build("ftab_only", ["--ftab-only", "-k", "8", "-o", p["ftab_only"]])
+    build("iupac", ["--fasta", fa_iu, "--vcf", vcf, "-s", "-m", "-l", "-o", p["iupac"]])
+    t = time.perf_counter()
+    save_reference_format(dense, os.path.join(d, "ref_again"))
+    with open(os.path.join(d, "builds.json"), "w") as f:
+        json.dump(dict(builds=builds, x_stderr=x_err, paths=p, fa_iu=fa_iu, vcf=vcf,
+                       sdsl_write_s=time.perf_counter() - t), f)
+
+
+def start_small_builds() -> dict:
+    """small_builds in a spawned child process (no CUDA, no torch state of
+    this process); phase_build_small joins it."""
+    d = os.path.join(WORK, "small")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return dict(proc=spawn_child(small_builds, d), dir=d)
+
+
+def phase_build_small(device, card: dict, child: dict, lat: dict | None = None) -> dict:
     """Phase build_small: the small panel (n ~ 8.0 M) through rbt_build_torch
     in every mode: native with -s -m -l -f and --emit-ref (the dense index),
     native -x, --no-dense (equal, array for array, to the dense index without
@@ -4538,53 +4667,29 @@ def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
     toehold launches on the same index with them.  The dense and occ1
     searches are timed against their plain twins on their batch
     (tables_times; their latency bound with `lat`, phase k1's latencies,
-    where given).  Builds' seconds, reads/s and routes."""
+    where given).  The builds ran in start_small_builds' child (small_builds),
+    joined here.  Builds' seconds, reads/s and routes."""
     import torch
 
     from rowbowt_tpu_torch.cli.common import iter_query_batches
     from rowbowt_tpu_torch.construct import build_panel
-    from rowbowt_tpu_torch.construct.rawio import write_raw
-    from rowbowt_tpu_torch.construct.sdslwrite import save_reference_format, write_mab
     from rowbowt_tpu_torch.engine.count import find_ranges
     from rowbowt_tpu_torch.engine.device import TorchIndex
     from rowbowt_tpu_torch.index import RbtIndex
     from rowbowt_tpu_torch.ops import cuda_lf
 
-    d = os.path.join(WORK, "small")
-    shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
     t0 = time.perf_counter()
-    fa, vcf = write_panel_files(SMALL, os.path.join(d, "panel"))
-    fa_iu, _ = write_panel_files(SMALL, os.path.join(d, "iupac"), iupac=N_IUPAC)
+    d = child["dir"]
+    child["proc"].join()
+    wait_s = time.perf_counter() - t0
+    check(child["proc"].exitcode == 0, f"build_small's builds exited {child['proc'].exitcode}")
+    with open(os.path.join(d, "builds.json")) as f:
+        built = json.load(f)
+    builds, p, fa_iu, vcf = (built[k] for k in ("builds", "paths", "fa_iu", "vcf"))
+    check("Warning: fbb backend does not support the toehold suffix array"
+          in built["x_stderr"].splitlines(), "rbt_build -x -s gave no warning")
     out_txt = os.path.join(d, "out.txt")
-    p = {x: os.path.join(d, x) for x in ("dense", "x", "nodense", "raw_idx", "ser",
-                                         "ftab_only", "iupac")}
-    native = ["--fasta", fa, "--vcf", vcf]
-    builds = {}
-
-    def build(name, argv):
-        wall, _, err = run_main("rbt_build", argv, out_txt)
-        builds[name] = dict(build_s=wall, index_gb=dir_gb(p[name]))
-        return err
-
-    build("dense", [*native, "-s", "-m", "-l", "-f", "-k", str(FTAB_K), "-o", p["dense"],
-                    "--emit-ref", os.path.join(d, "ref_fmt")])
-    err = build("x", [*native, "-x", "-s", "-m", "-l", "-o", p["x"]])
-    check("Warning: fbb backend does not support the toehold suffix array" in err.splitlines(),
-          "rbt_build -x -s gave no warning")
-    build("nodense", [*native, "--no-dense", "-s", "-m", "-l", "-o", p["nodense"]])
     dense = RbtIndex.load(p["dense"])
-    prefix = os.path.join(d, "raw")
-    write_raw(dense, prefix)
-    write_mab(prefix + ".mab", dense.ma_row, dense.ma_val, dense.ma_wsize, dense.n)
-    build("raw_idx", [prefix, "-s", "-m", "-l", "-f", "-k", str(FTAB_K), "-o", p["raw_idx"]])
-    build("ser", [os.path.join(d, "ref_fmt"), "-s", "-m", "-l", "-o", p["ser"]])
-    shutil.copytree(p["dense"], p["ftab_only"])
-    build("ftab_only", ["--ftab-only", "-k", "8", "-o", p["ftab_only"]])
-    build("iupac", ["--fasta", fa_iu, "--vcf", vcf, "-s", "-m", "-l", "-o", p["iupac"]])
-    t = time.perf_counter()
-    save_reference_format(dense, os.path.join(d, "ref_again"))
-    sdsl_write_s = time.perf_counter() - t
 
     # the tables of each mode against the dense index
     names = ("run_start", "run_head", "occ", "F", "cruns_flat", "cruns_off", "samples_last",
@@ -4771,7 +4876,7 @@ def phase_build_small(device, card: dict, lat: dict | None = None) -> dict:
     occ1_seeding = occ1_seeding_route(device, raw, reads)
     seed_tables = seeding_small_times(device, p["iupac"], raw, fq, reads, lat)
     res = dict(n=dense.n, R=dense.R, A_iupac=iu.A, builds=builds, builders_s=builders_s,
-               sdsl_write_s=sdsl_write_s,
+               sdsl_write_s=built["sdsl_write_s"], build_wait_s=wait_s,
                reads=N_SMALL_READS, runs=runs, iupac_runs=iu_runs, oracle_reads=N_ORACLE,
                oracle_s=oracle_s, occ1_route=occ1_counts, tables=tables, seeding=seeding,
                occ1_seeding=occ1_seeding, seeds_times=seed_tables, phi_at=phi_at,
@@ -5065,6 +5170,7 @@ def single_device_refs(tx, lanes: dict, markers: bool) -> dict:
     from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold, locate
     from rowbowt_tpu_torch.engine.markers import find_ranges_w_markers
     from rowbowt_tpu_torch.engine.seeds import markers_greedy_seeding
+    from rowbowt_tpu_torch.engine.seeds import markers_greedy_seeding
 
     dev = {k: (torch.from_numpy(q).to(tx.device), torch.from_numpy(ln).to(tx.device))
            for k, (q, ln) in lanes.items()}
@@ -5269,6 +5375,23 @@ def stream_marker_lines(names, lo, hi, buf, used) -> str:
     return "".join(out)
 
 
+def stream_greedy_lines(names, mvals, mcnt, ns) -> str:
+    """sharded_stream --greedy's lines from the greedy engine's outputs over
+    interleaved forward and reverse-complement lanes (with_rc_lanes)."""
+    from rowbowt_tpu_torch.index import marker_allele, marker_pos
+
+    out = []
+    for b, name in enumerate(names):
+        for strand, lane in (("+", 2 * b), ("-", 2 * b + 1)):
+            v = np.concatenate([mvals[lane, s, :min(int(mcnt[lane, s]), mvals.shape[2])]
+                                for s in range(mvals.shape[1])]).astype(np.int64)
+            v = v[v >= 0]
+            out.append(f"{name} {strand} seeds={int(ns[lane])} markers: "
+                       + "".join(f"{p}/{a} " for p, a in zip(marker_pos(v).tolist(),
+                                                             marker_allele(v).tolist())) + "\n")
+    return "".join(out)
+
+
 def stream_stats(wall: float, meters: list, n_idx: int) -> dict:
     """A stream group's wall seconds, reads/s over its slowest process's
     query seconds, its all-reduces, and each process's meter."""
@@ -5286,10 +5409,10 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     mode prints phase main's lines for each process's reads; -m prints them
     with the window markers of the single-device find_ranges_w_markers
     (window MA_WSIZE, 32 a read: the JAX script's -m); --greedy, 2
-    processes with half of N_PAR_GREEDY reads each, prints what one process
-    prints over all of them; 4 processes (--n-idx 4) on the big_chr
+    processes with half of N_PAR_GREEDY reads each, print the single-device
+    greedy engine's lines over all of them (stream_greedy_lines); 4 processes (--n-idx 4) on the big_chr
     directory, a quarter of the reads each, print phase main's lines.  The
-    five groups run at once.  Each group's wall seconds from its start,
+    four groups run at once.  Each group's wall seconds from its start,
     process start and index load included (they share the card and the
     host's cores)."""
     import torch
@@ -5297,6 +5420,7 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     from rowbowt_tpu_torch.cli.common import iter_query_batches
     from rowbowt_tpu_torch.engine.device import TorchIndex
     from rowbowt_tpu_torch.engine.markers import find_ranges_w_markers
+    from rowbowt_tpu_torch.engine.seeds import markers_greedy_seeding
 
     idx, paths, reads = chr_["idx"], chr_["paths"], chr_["reads"]
     main_lines = count["lines"]
@@ -5313,29 +5437,34 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     lo, hi, buf, used, _ = (t.cpu().numpy() for t in find_ranges_w_markers(
         tx, torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device),
         wsize=MA_WSIZE, max_k=PAR_MAX_K))
+    one = os.path.join(WORK, "stream_greedy_all.fq")
+    write_fastq(one, reads[:N_PAR_GREEDY])
+    gnames, gqc, glens = next(iter_query_batches(idx, one, N_PAR_GREEDY))
+    gq, gl = (torch.from_numpy(a).to(device) for a in with_rc_lanes(idx.alpha, gqc, glens))
+    # the stream's index is loaded without its ftab
+    _, _, _, _, mvals, mcnt, ns = (t.cpu().numpy() for t in markers_greedy_seeding(
+        tx, gq, gl, wsize=MA_WSIZE, max_range=PAR_MAX_RANGE, use_ftab=False))
+    want_g = stream_greedy_lines(gnames, mvals, mcnt, ns)
     del tx
     torch.cuda.empty_cache()
     fqs, per = shards(2, N_PAR_COUNT, "half")
     want_m = [stream_marker_lines(names[p * per:(p + 1) * per], lo[p * per:], hi[p * per:],
                                   buf[p * per:], used[p * per:]) for p in range(2)]
     gfqs, gper = shards(2, N_PAR_GREEDY, "greedy")
-    one = os.path.join(WORK, "stream_greedy_all.fq")
-    write_fastq(one, reads[:N_PAR_GREEDY])
     g = ["--greedy", "--wsize", str(MA_WSIZE), "--max-range", str(PAR_MAX_RANGE)]
     qfqs, qper = shards(PAR_RANKS, N_PAR_COUNT, "quarter")
     runs = {"count": start_stream(device, paths["idx"], fqs, [], 2, per),
             "markers": start_stream(device, paths["idx"], fqs, ["-m", "--wsize", str(MA_WSIZE)],
                                     2, per),
             "greedy": start_stream(device, paths["idx"], gfqs, g, 2, gper),
-            "greedy_one_process": start_stream(device, paths["idx"], [one], g, 1, N_PAR_GREEDY),
             "big_chr_count": start_stream(device, big_path, qfqs, [], PAR_RANKS, qper)}
     out = {k: finish_stream(r) for k, r in runs.items()}
     check(all(out["count"][1][p] == "".join(main_lines[p * per:(p + 1) * per]) for p in range(2)),
           "sharded_stream count (2 processes): lines != phase main's")
     check(out["markers"][1] == want_m,
           "sharded_stream -m (2 processes): lines != the window-marker engine's")
-    check("".join(out["greedy"][1]) == out["greedy_one_process"][1][0],
-          "sharded_stream --greedy (2 processes) != 1 process")
+    check("".join(out["greedy"][1]) == want_g,
+          "sharded_stream --greedy (2 processes) != the single-device greedy engine's lines")
     outs = out["big_chr_count"][1]
     check(all(outs[p] == "".join(main_lines[p * qper:(p + 1) * qper]) for p in range(PAR_RANKS)),
           "sharded_stream on big_chr (4 processes): lines != phase main's")
@@ -5343,7 +5472,7 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
            for k, (w, _, m) in out.items()}
     res["concurrent"] = list(runs)
     res["markers"]["reads_with_markers"] = int((used > 0).sum())
-    res["greedy"]["lines"] = len(out["greedy_one_process"][1][0].splitlines())
+    res["greedy"]["lines"] = len(want_g.splitlines())
     res["card"] = card["nvidia_smi"]
     emit("parallel_stream", **res)
     return res
@@ -5375,11 +5504,13 @@ def main(argv: list[str]) -> int:
     phase_build()
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    child = None
+    child = raw_child = small_child = None
     try:
         if only:
             if only & {"pfp_big", "parallel_sharded"}:
                 child = start_pfp_big_build()
+            if "build_small" in only:
+                small_child = start_small_builds()
             made: dict = {}
 
             def chr_main():
@@ -5422,7 +5553,7 @@ def main(argv: list[str]) -> int:
                     phase_pfp_big(device, card, child, None)
                 elif name == "build_small":
                     lat = made["k1"]["us_per_dependent_step"] if "k1" in made else None
-                    phase_build_small(device, card, lat)
+                    phase_build_small(device, card, small_child, lat)
                 elif name == "nodense_chr":
                     chr_, count = chr_main()
                     k1 = k1_phase()
@@ -5447,11 +5578,15 @@ def main(argv: list[str]) -> int:
                 else:
                     k1_phase()
             return 0
-        # the PFP panel's host build runs beside the phases before pfp_big
+        # the PFP panel's host build runs beside the phases before pfp_big,
+        # and the small panel's builds beside those before build_small
         child = start_pfp_big_build()
+        small_child = start_small_builds()
         probes = phase_probes(device)
         par_err = phase_parity(device)
         chr_ = build_cli()
+        # the raw index's host build runs beside the phases before raw_chr
+        raw_child = start_raw_chr_build(chr_)
         count = phase_main(device, card, chr_)
         k1 = phase_k1(device, card, chr_)
         loc = phase_locate(device, card, chr_, count)
@@ -5465,11 +5600,11 @@ def main(argv: list[str]) -> int:
         # dense index's lines of every phase above
         seeding = {"-f": greedy["out_text"], "--heuristic": heuristic["out_text"],
                    "--lmem": lmem["out_text"], "locs": locs["out_text"]}
-        raw = phase_raw_chr(device, card, chr_, count, loc, markers, k1, seeding)
+        raw = phase_raw_chr(device, card, chr_, count, loc, markers, k1, seeding, raw_child)
         nodense = phase_nodense_chr(device, card, chr_, count, loc, markers, k1, seeding)
         big_chr = phase_big_chr(device, card, chr_, count, k1, loc, markers, locs)
         pfp_big = phase_pfp_big(device, card, child, k1)
-        small = phase_build_small(device, card, k1["us_per_dependent_step"])
+        small = phase_build_small(device, card, small_child, k1["us_per_dependent_step"])
         phase_trace(device, card, chr_, loc)
         phase_greedy_trace(device, card, chr_, greedy)
         par_dp = phase_parallel_dp(device, card, chr_, count)
@@ -5484,7 +5619,8 @@ def main(argv: list[str]) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     finally:
-        stop_child(child)
+        for c in (child, raw_child, small_child):
+            stop_child(c)
         shutil.rmtree(WORK, ignore_errors=True)
 
 

@@ -174,8 +174,7 @@ def seeds_greedy_w_sample(tx: TorchIndex, qcodes, lengths, min_length: int,
         qcodes, lengths,
         lambda q, ln: seeds_sample_records_plain(tx, q, ln, min_length, max_seeds, mode),
         lambda q, ln: cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=min_length,
-                                                S=max_seeds, record=big,
-                                                toehold=mode == "per_step"))
+                                                S=max_seeds, record=big))
     slo, shi, sqs, sqe, ns = (rec[k] for k in ("slo", "shi", "sqs", "sqe", "ns"))
     if big:
         from rowbowt_tpu_torch.engine.locate import span_toeholds

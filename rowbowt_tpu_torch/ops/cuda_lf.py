@@ -496,6 +496,35 @@ def _table_operands(tx: TorchIndex, policy: str | None, toehold: bool) -> dict:
     return {key: (name, arr[name]) for key, (name, _) in ops.items()}
 
 
+def _check_tables(tx: TorchIndex, policy: str, toehold: bool, qcodes, lengths, named,
+                  lanes: tuple, what: str) -> dict:
+    """Refuse what a launch of `what` over tx's `policy` tables (and, with
+    `toehold`, the toehold's) does not take: an alphabet outside 1..16
+    (dense) or 1..254; a table missing or misshapen (_table_operands); F not
+    of a dtype of `lanes`, the codes or lengths not int32, or they, a table
+    or an operand of `named` ((name, tensor, dtypes)) on another device than
+    the codes; int32 lanes for n >= 2^31 - 1; lengths that are not [B]; a
+    bwt4 that is not 16-byte aligned or holds too few blocks.  Returns the
+    operands, {argument: (table name, tensor)}."""
+    F = tx.arrays["F"]
+    amax = 16 if policy == "dense" else 254
+    if not 1 <= tx.A <= amax or F.numel() < tx.A + 1:
+        raise ValueError(f"alphabet of {tx.A} codes; the {policy} tables take 1..{amax}")
+    ops = _table_operands(tx, policy, toehold)
+    _check_types((("F", F, lanes), ("qcodes", qcodes, (torch.int32,)),
+                  ("lengths", lengths, (torch.int32,)), *named,
+                  *((name, t, (torch.int32,) if key == "bwt4" else (torch.int32, torch.int64))
+                    for key, (name, t) in ops.items())), qcodes.device, what)
+    if F.dtype == torch.int32 and tx.n >= (1 << 31) - 1:
+        raise ValueError(f"int32 lanes for n = {tx.n}")
+    if lengths.shape != (qcodes.shape[0],):
+        raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
+    bwt4 = ops["bwt4"][1] if policy == "dense" else None
+    if bwt4 is not None and (bwt4.data_ptr() % 16 or bwt4.numel() < 16 * -(-tx.n // 128)):
+        raise ValueError("bwt4 is not 16-byte aligned or holds fewer blocks than n needs")
+    return ops
+
+
 def launch_tables(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True,
                   toehold: bool = False):
     """Launch the tables kernel (csrc/lf.cu lf_tables_kernel) on CUDA tensors
@@ -510,30 +539,16 @@ def launch_tables(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True,
     if policy is None:
         raise ValueError("the tables kernel is for an index without fused rows; this one has "
                          f"{row_layout(tx)} rows (K1 takes it)")
-    F = tx.arrays["F"]
-    amax = 16 if policy == "dense" else 254
-    if not 1 <= tx.A <= amax or F.numel() < tx.A + 1:
-        raise ValueError(f"alphabet of {tx.A} codes; the {policy} tables kernel takes 1..{amax}")
-    ops = _table_operands(tx, policy, toehold)
     B, L = qcodes.shape
     dev = qcodes.device
+    F = tx.arrays["F"]
     lane = F.dtype
     k = tx.ftab_k if use_ftab and not toehold and tx.has_ftab and L >= tx.ftab_k > 0 else 0
     ftab = tx.arrays["ftab"] if k else None
-    named = [("F", F, (torch.int32, torch.int64)), ("qcodes", qcodes, (torch.int32,)),
-             ("lengths", lengths, (torch.int32,))]
-    named += [(name, t, (torch.int32,) if key == "bwt4" else (torch.int32, torch.int64))
-              for key, (name, t) in ops.items()]
-    if k:
-        named.append(("ftab", ftab, (torch.int32, torch.int64)))
-    _check_types(named, dev, "the tables kernel")
-    if lane == torch.int32 and tx.n >= (1 << 31) - 1:
-        raise ValueError(f"int32 lanes for n = {tx.n}")
-    if lengths.shape != (B,):
-        raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
+    ops = _check_tables(tx, policy, toehold, qcodes, lengths,
+                        (("ftab", ftab, (torch.int32, torch.int64)),) if k else (),
+                        (torch.int32, torch.int64), "the tables kernel")
     bwt4 = ops["bwt4"][1] if policy == "dense" else None
-    if bwt4 is not None and (bwt4.data_ptr() % 16 or bwt4.numel() < 16 * -(-tx.n // 128)):
-        raise ValueError("bwt4 is not 16-byte aligned or holds fewer blocks than n needs")
     acgt = _packed_acgt(tx, k, ftab) if k else 0
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
     outs = [torch.empty(B, dtype=lane, device=dev) for _ in range(3 if toehold else 2)]

@@ -78,9 +78,17 @@ def build():
     return lib
 
 
+def carries_toehold(tx: TorchIndex, mode: str) -> bool:
+    """Whether the `mode` machine carries the per-step toehold on tx: the
+    sampled machine on an index without kval whose rows are not two-level
+    (those take the step record and its trajectory resolve)."""
+    return (mode == "sample" and "kval" not in tx.arrays
+            and cuda_lf.row_layout(tx) not in R.FB2_KEYS)
+
+
 def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, wsize: int = 0,
                    max_range: int = 0, min_length: int = 0, W: int = 0, S: int = 0,
-                   record: bool = False, toehold: bool = False) -> dict:
+                   record: bool = False) -> dict:
     """Launch the `mode` machine ("greedy", "lmem" or "sample") on CUDA
     tensors, shaped by cuda_lf.launch_plan: over fused rows (two threads a
     lane), else over the tables of cuda_lf.table_policy (one thread a lane).
@@ -90,22 +98,20 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
     rows and the tables, int64 over two-level rows): greedy {wlo, whi, wseed
     [W, B], nrec [B], slo, shi, sqs, sqe [S, B], ns [B]}; lmem {wlo, whi [W,
     B], nrec, elo, ehi, eqs [B]}; sample {slo, shi, sqs, sqe [S, B], ns},
-    with `record` (two-level rows only) hi_rec [L, B], with `toehold` (not
-    over two-level rows) ssamp [S, B], each seed's per-step toehold (-1
-    before a lane's first successful step).  The rows, codes and lengths are
-    int32; F (and fb2_base) in the lane type; the ftab and the other tables
-    int32 or int64."""
+    with `record` (two-level rows only) hi_rec [L, B], and where it carries
+    the per-step toehold (carries_toehold) ssamp [S, B], each seed's toehold
+    (-1 before a lane's first successful step).  The rows, codes and lengths
+    are int32; F (and fb2_base) in the lane type; the ftab and the other
+    tables int32 or int64."""
     if mode not in MODES:
         raise ValueError(f"no seeding machine {mode!r}; the kernel runs {sorted(MODES)}")
     key = cuda_lf.row_layout(tx)
     policy = cuda_lf.table_policy(tx) if key is None else None
     two_level = key in R.FB2_KEYS
+    toehold = carries_toehold(tx, mode)
     if record and (mode != "sample" or not two_level):
         raise ValueError(f"the step record is the sampled machine's over two-level rows; "
                          f"asked of {mode} over {key or policy} {'rows' if key else 'tables'}")
-    if toehold and (mode != "sample" or two_level):
-        raise ValueError(f"the per-step toehold is the sampled machine's over single-level rows "
-                         f"or tables; asked of {mode} over {key or policy}")
     if mode == "sample" and k:
         raise ValueError("the sampled machine takes no ftab start")
     if (mode == "sample") != (W == 0) or W < 0 or S < 1 or (mode == "lmem" and S != 1):
@@ -118,40 +124,28 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
         raise ValueError(f"an ftab start of k = {k} over codes of width {L} (ftab k = "
                          f"{tx.ftab_k if tx.has_ftab else None})")
     ftab = tx.arrays["ftab"] if k else None
-    amax = 16 if policy == "dense" else 254
-    if key is None and (not 1 <= tx.A <= amax or F.numel() < tx.A + 1):
-        raise ValueError(f"alphabet of {tx.A} codes; the {policy} tables take 1..{amax}")
+    named = (("ftab", ftab, (torch.int32, torch.int64)),) if k else ()
     try:
-        ops = cuda_lf._table_operands(tx, policy, toehold) if policy or toehold else {}
+        if key is None:
+            ops = cuda_lf._check_tables(tx, policy, toehold, qcodes, lengths, named, (lane,),
+                                        f"the seeding machine over the {policy} tables")
+        else:
+            ops = cuda_lf._table_operands(tx, None, toehold) if toehold else {}
     except ValueError as e:
         where = f"{key} rows" if key else f"the {policy} tables"
         raise ValueError(f"the seeding kernel reads fused-block rows or the occ1, dense or "
                          f"run-space tables, and the toehold's tables where it carries one; "
                          f"over {where}: {e}") from None
-    named = (("ftab", ftab, (torch.int32, torch.int64)),) if k else ()
-    named += tuple((name, t, (torch.int32,) if key_ == "bwt4" else (torch.int32, torch.int64))
-                   for key_, (name, t) in ops.items())
     if key is not None:
         fb = tx.arrays[key]
         base = tx.arrays["fb2_base"] if two_level else None
+        named += tuple((name, t, (torch.int32, torch.int64)) for name, t in ops.values())
         if two_level:
             named += (("fb2_base", base, (torch.int64,)),)
         cuda_lf._check_operands(tx, key, qcodes, lengths, named, lane)
         if two_level and (base.shape != (base.shape[0], 8) or not base.is_contiguous()
                           or not 1 <= base.shape[0] <= fb.shape[0]):
             raise ValueError(f"fb2_base of shape {tuple(base.shape)} for {fb.shape[0]} rows")
-    else:
-        cuda_lf._check_types((("F", F, (lane,)), ("qcodes", qcodes, (torch.int32,)),
-                              ("lengths", lengths, (torch.int32,))) + named, dev,
-                             f"the seeding machine over the {policy} tables")
-        if lengths.shape != (B,):
-            raise ValueError(f"lengths must be [B] for qcodes [B, L], got "
-                             f"{tuple(lengths.shape)}")
-        if tx.n >= (1 << 31) - 1:
-            raise ValueError(f"int32 lanes for n = {tx.n}")
-        bwt4 = ops["bwt4"][1] if policy == "dense" else None
-        if bwt4 is not None and (bwt4.data_ptr() % 16 or bwt4.numel() < 16 * -(-tx.n // 128)):
-            raise ValueError("bwt4 is not 16-byte aligned or holds fewer blocks than n needs")
     acgt = cuda_lf._packed_acgt(tx, k, ftab) if k else 0
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
 

@@ -765,8 +765,8 @@ def test_engines_name_their_routes(panel, fake, monkeypatch):
     calls = []
     monkeypatch.setattr(TS, "_machine", spy)
     monkeypatch.setattr(cuda_seeds, "launch_machine",
-                        lambda tx, mode, q, ln, **kw: calls.append((mode, kw.get("record", False),
-                                                                   kw.get("toehold", False))))
+                        lambda tx, mode, q, ln, **kw: calls.append(
+                            (mode, kw.get("record", False), cuda_seeds.carries_toehold(tx, mode))))
     dx, tx, idx = panel["dense"]
     qc, lens = _lanes(idx, panel["reads"][:6], 31)
     q, ln = torch.from_numpy(qc), torch.from_numpy(lens)

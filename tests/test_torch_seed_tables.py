@@ -475,7 +475,7 @@ def _records(tx, mode, qc, lens, opt):
         want = TS.seeds_sample_records_plain(tx, q, ln, opt["min_length"], opt["S"],
                                              "per_step" if toe else "kval")
         got = cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=opt["min_length"],
-                                        S=opt["S"], toehold=toe)
+                                        S=opt["S"])
     return want, got
 
 
@@ -566,7 +566,7 @@ def test_launch_passes_the_tables_and_the_toehold(built, fake, case):
         assert (c["threads"], bool(c["stage"])) == cuda_lf.launch_plan(*qc.shape, 132, group=1)
         assert c["toe"] == (None, None, None, None) and c["stream"] == 1000
         assert all(t.dtype == torch.int32 for t in out.values())
-    out = cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=19, S=8, toehold=toe)
+    out = cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=19, S=8)
     c = fake["calls"][-1]
     assert c["entry"] == ("rows" if rows else "tables")
     assert ("ssamp" in out) == toe
@@ -588,10 +588,9 @@ def test_launch_on_a_view_and_no_lanes(built, fake):
     qc, lens = _lanes(idx, text, reads, 31)
     q, ln = torch.from_numpy(qc)[1:], torch.from_numpy(lens)[1:]
     fake["install"](tx)
-    got = cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=0, S=3, toehold=True)
+    got = cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=0, S=3)
     _same_records(TS.seeds_sample_records_plain(tx, q, ln, 0, 3, "per_step"), got)
-    out = cuda_seeds.launch_machine(tx, "sample", q[:0], ln[:0], min_length=0, S=3,
-                                    toehold=True)
+    out = cuda_seeds.launch_machine(tx, "sample", q[:0], ln[:0], min_length=0, S=3)
     assert out["ssamp"].shape == (3, 0)
     assert cuda_seeds.LAUNCHES_SEED == dict(ZERO, sample_toe_runs=1) and len(fake["calls"]) == 2
 
@@ -603,13 +602,11 @@ def test_refused_launch_raises_and_counts_nothing(built, fake):
     qc, lens = _lanes(idx, text, reads, 31)
     with pytest.raises(RuntimeError, match="seeding kernel launch failed: invalid argument"):
         cuda_seeds.launch_machine(tx, "sample", torch.from_numpy(qc), torch.from_numpy(lens),
-                                  min_length=19, S=8, toehold=True)
+                                  min_length=19, S=8)
     assert cuda_seeds.LAUNCHES_SEED == ZERO and len(fake["calls"]) == 1
 
 
 @pytest.mark.parametrize("fault,error,match", [
-    ("toehold for greedy", ValueError, "the per-step toehold is the sampled machine's"),
-    ("toehold over two-level rows", ValueError, "the per-step toehold is the sampled machine's"),
     ("no samples_last", ValueError, "needs samples_last"),
     ("no run_head", ValueError, "needs run_head"),
     ("int64 lanes", TypeError, "F must be int32"),
@@ -618,23 +615,15 @@ def test_refused_launch_raises_and_counts_nothing(built, fake):
     ("other device", ValueError, "is on meta"),
 ])
 def test_launch_refuses(built, fake, fault, error, match):
-    case = {"no run_head": "nodense", "alphabet": "iupac", "toehold over two-level rows": "raw6"}
+    case = {"no run_head": "nodense", "alphabet": "iupac"}
     _, tx, idx, text, reads = _pair(built, case.get(fault, "raw13"))
     fake["install"](tx)
     qc, lens = _lanes(idx, text, reads, 31)
     q, ln = torch.from_numpy(qc), torch.from_numpy(lens)
     arrays = dict(tx.arrays)
-    mode, kw = "sample", dict(min_length=19, S=4, toehold="kval" not in tx.arrays)
+    mode, kw = "sample", dict(min_length=19, S=4)
     t = tx
-    if fault == "toehold for greedy":
-        mode, kw = "greedy", dict(k=0, wsize=WSIZE, max_range=100, W=10, S=4, toehold=True)
-    elif fault == "toehold over two-level rows":
-        kw["toehold"] = True
-        with pytest.raises(error, match=match):
-            _with_layout(tx, "fb2_64", lambda: cuda_seeds.launch_machine(tx, mode, q, ln, **kw))
-        assert fake["calls"] == [] and cuda_seeds.LAUNCHES_SEED == ZERO
-        return
-    elif fault == "no samples_last":
+    if fault == "no samples_last":
         arrays.pop("samples_last")
     elif fault == "no run_head":
         arrays.pop("run_head")
@@ -651,6 +640,36 @@ def test_launch_refuses(built, fake, fault, error, match):
     with pytest.raises(error, match=match):
         cuda_seeds.launch_machine(t, mode, q, ln, **kw)
     assert fake["calls"] == [] and cuda_seeds.LAUNCHES_SEED == ZERO
+
+
+# (case, mode, row layout shown to the wrapper or None, the toehold carried)
+TOEHOLD_CASES = {"greedy without kval": ("raw13", "greedy", None, False),
+                 "sample without kval": ("raw13", "sample", None, True),
+                 "sample over rows without kval": ("raw6", "sample", None, True),
+                 "sample with kval": ("iupac", "sample", None, False),
+                 "sample over two-level rows": ("raw6", "sample", "fb2_64", False)}
+
+
+@pytest.mark.parametrize("name", list(TOEHOLD_CASES))
+def test_launch_carries_the_toehold_where_the_index_has_no_kval(built, fake, name):
+    """The wrapper gives the sampled machine the per-step toehold (the
+    toehold's tables and ssamp handed to the entry, ssamp returned) exactly
+    on an index without kval whose rows are not two-level; greedy and lmem
+    never carry it."""
+    case, mode, layout, want = TOEHOLD_CASES[name]
+    _, tx, idx, text, reads = _pair(built, case)
+    if layout is not None:
+        assert "kval" not in tx.arrays
+        assert _with_layout(tx, layout, lambda: cuda_seeds.carries_toehold(tx, mode)) is want
+        return
+    assert cuda_seeds.carries_toehold(tx, mode) is want
+    fake["install"](tx)
+    qc, lens = _lanes(idx, text, reads, 31)
+    kw = (dict(k=0, wsize=WSIZE, max_range=100, W=10, S=4) if mode == "greedy"
+          else dict(min_length=19, S=4))
+    out = cuda_seeds.launch_machine(tx, mode, torch.from_numpy(qc), torch.from_numpy(lens), **kw)
+    assert ("ssamp" in out) is want
+    assert (fake["calls"][-1]["toe"][-1] is not None) is want
 
 
 def _with_layout(tx, key, fn):

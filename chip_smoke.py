@@ -62,7 +62,9 @@ phase raw_chr's after build_cli), and runs:
      rank policy (run-space with ltk, dense bwt4/occ_blk with ltk, occ1
      with tk1): its count search, with the ftab and without, against its
      plain twin and K1's ranges, and its toehold search against its plain
-     twin and the full-SA toeholds, on the batch and at every edge; then
+     twin and the full-SA toeholds, on the batch and at every edge (over
+     the run-space tables with the run records and without, and over a
+     bucket directory of one bucket, the largest iters); then
      the seeding kernel (seeds_parity) against its plain twins, every
      record table, in each machine (greedy, lmem, sample) over the dense
      index's fblock64 rows and its BigIndex view's fb2_64 rows (the
@@ -72,7 +74,9 @@ phase raw_chr's after build_cli), and runs:
      4,096 random-code lanes and the edges of k1_edges; the sampled
      machine's per-step toehold over the raw tables' fused rows (tk1, ltk);
      and every machine over each rank policy's tables (run-space, dense,
-     occ1; the sampled machine with its per-step toehold, and with kval);
+     occ1; the sampled machine with its per-step toehold, and with kval;
+     over the run-space tables with the run records and without, and over
+     the one-bucket directory);
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
@@ -155,7 +159,10 @@ phase raw_chr's after build_cli), and runs:
      over the run-space tables (greedy, L-MEM, and the sampled machine
      with its per-step toehold over ltk), one launch a batch (two for
      --heuristic), each machine timed on one batch of its path
-     (seeds_times);
+     (seeds_times); every CLI's load reports the run-space tables it
+     built (required); last, the directory's spans side by side on one
+     batch of each of those five paths, each equal to the default span's
+     (run_span_times);
  14c. big_chr: the chr panel's BigIndex view (n_sup = 4, locate tables as
      bench.py derives them, marker CSR, document list), saved as a big
      directory with the chr `idx.midx.npz` beside it: rbt_align count, -s
@@ -1235,7 +1242,9 @@ def tables_parity(device, idx, codes, raw_tk1, cases, single, kval) -> dict:
     (table_indexes), count with the ftab and without and toehold, on the
     edge batch and at every k1_edges edge: equal to its plain twin, the
     count to K1's ranges on the fused rows (`single`, per case) and the
-    toehold to the full-SA index's (`kval`, per case).  The unstaged edge
+    toehold to the full-SA index's (`kval`, per case); over the run-space
+    tables so with the run records and without, and over a directory of one
+    bucket (run_variants).  The unstaged edge
     (L = 3,072), whose code path no policy changes, runs on the run-space
     tables only.  One launch a call, counted in its policy's instance; no
     other route.  Returns max |err| per instance ("<policy>" the count,
@@ -1248,6 +1257,7 @@ def tables_parity(device, idx, codes, raw_tk1, cases, single, kval) -> dict:
     t0 = time.perf_counter()
     errs, nonempty, calls = {}, {}, {}
     reset_counts()
+
     for policy, tab in table_indexes(idx, codes, raw_tk1).items():
         tx = TorchIndex.from_index(tab, device)
         check(cuda_lf.table_policy(tx) == policy and tx.has_ftab and "kval" not in tx.arrays,
@@ -1255,26 +1265,33 @@ def tables_parity(device, idx, codes, raw_tk1, cases, single, kval) -> dict:
         errs[policy] = errs[f"{policy}_toehold"] = 0
         ran = [(c, one, k) for c, one, k in zip(cases, single, kval)
                if policy == "runs" or c[0] != "L=3072 unstaged"]
+        # over the run-space tables without the records too, and a directory
+        # of one bucket
+        views = run_variants(tx) if policy == "runs" else [(policy, tx)]
         for (label, qe, le), one, want_k in ran:
             for use_ftab in (True, False):
-                got = cuda_lf.find_ranges(tx, qe, le, use_ftab=use_ftab)
                 want = cuda_lf.find_ranges_plain(tx, qe, le, use_ftab=use_ftab)
-                torch.cuda.synchronize()
-                e = max(max_abs_err(got, want), max_abs_err(got, one))
-                check(e == 0, f"the {policy} tables kernel != its plain twin or K1 at {label} "
-                      f"(ftab={use_ftab}): max |err| {e}")
-                errs[policy] = max(errs[policy], e)
-            got = cuda_lf.find_ranges_toehold(tx, qe, le)
+                for tag, view in views:
+                    got = cuda_lf.find_ranges(view, qe, le, use_ftab=use_ftab)
+                    torch.cuda.synchronize()
+                    e = max(max_abs_err(got, want), max_abs_err(got, one))
+                    check(e == 0, f"the {policy} tables kernel ({tag}) != its plain twin or K1 "
+                          f"at {label} (ftab={use_ftab}): max |err| {e}")
+                    errs[policy] = max(errs[policy], e)
             want = cuda_lf.find_ranges_toehold_plain(tx, qe, le)
-            torch.cuda.synchronize()
-            e = max(max_abs_err(got, want), max_abs_err(got, want_k))
-            check(e == 0, f"the {policy} tables kernel's toehold != its plain twin or the kval "
-                  f"toeholds at {label}: max |err| {e}")
-            errs[f"{policy}_toehold"] = max(errs[f"{policy}_toehold"], e)
+            for tag, view in views:
+                got = cuda_lf.find_ranges_toehold(view, qe, le)
+                torch.cuda.synchronize()
+                e = max(max_abs_err(got, want), max_abs_err(got, want_k))
+                check(e == 0, f"the {policy} tables kernel's toehold ({tag}) != its plain twin "
+                      f"or the kval toeholds at {label}: max |err| {e}")
+                errs[f"{policy}_toehold"] = max(errs[f"{policy}_toehold"], e)
             nonempty[f"{policy},{label}"] = int((got[1] >= got[0]).sum().item())
-        calls[f"tab_{policy}"] = 2 * len(ran)
-        calls[f"tab_toe_{policy}"] = len(ran)
-        del tx
+        calls[f"tab_{policy}"] = 2 * len(ran) * len(views)
+        calls[f"tab_toe_{policy}"] = len(ran) * len(views)
+        if policy == "runs":
+            nonempty["runs_variants"] = [tag for tag, _ in views]
+        del tx, views
     check(route_counts() == launch_counts(**calls),
           f"tables parity routes: {route_counts()} for {calls}")
     return dict(max_abs_err=max(errs.values()), errs=errs, launches=calls, nonempty=nonempty,
@@ -1507,23 +1524,30 @@ def run_main(tool: str, argv: list[str], out_path: str):
         return wall, f.read(), err_buf.getvalue()
 
 
+def run_tables_line(err: str) -> dict | None:
+    """The `run tables: {...}` line of a CLI's load (cli/common.
+    device_index: the run-space tables' bytes and seconds), or None."""
+    line = next((ln for ln in err.splitlines() if ln.startswith("run tables: ")), None)
+    return json.loads(line[len("run tables: "):]) if line else None
+
+
 def run_cli(argv: list[str], out_path: str):
     """The port's rbt_align.  Returns ({cli_load_s, cli_query_s, cli_meter,
-    cli_wall_s}, its stdout, its stderr)."""
+    cli_wall_s, cli_run_tables}, its stdout, its stderr)."""
     wall, out, err = run_main("rbt_align", argv, out_path)
     # the CLI's own "<load_s> <query_s>" line and its meter line
     err_lines = err.splitlines()
     load_s, query_s = (float(x) for x in next(ln for ln in err_lines if ln[:1].isdigit()).split())
     meter = next(ln for ln in err_lines if ln.startswith("meter:"))
     return dict(cli_load_s=load_s, cli_query_s=query_s, cli_meter=meter,
-                cli_wall_s=wall), out, err
+                cli_wall_s=wall, cli_run_tables=run_tables_line(err)), out, err
 
 
 def run_seeding_cli(tool: str, argv: list[str], out_path: str, env: dict | None = None):
     """The port's rbt_markers or rbt_locs, with `env` set in os.environ for
     the call.  Returns ({cli_load_s, cli_query_s, cli_meter, cli_wall_s,
-    cli_stages}, its stdout, its stderr) from the CLI's "... took: <s>
-    seconds", "meter:" and "stages:" lines."""
+    cli_stages, cli_run_tables}, its stdout, its stderr) from the CLI's "...
+    took: <s> seconds", "meter:", "stages:" and "run tables:" lines."""
     saved = {k: os.environ.get(k) for k in env or {}}
     os.environ.update(env or {})
     try:
@@ -1538,7 +1562,7 @@ def run_seeding_cli(tool: str, argv: list[str], out_path: str, env: dict | None 
     meter = next(ln for ln in err.splitlines() if ln.startswith("meter:"))
     stages = json.loads(next(ln for ln in err.splitlines() if ln.startswith("stages: "))[8:])
     return dict(cli_load_s=took[0], cli_query_s=took[1], cli_meter=meter, cli_wall_s=wall,
-                cli_stages=stages), out, err
+                cli_stages=stages, cli_run_tables=run_tables_line(err)), out, err
 
 
 def count_lines(names, lo, hi) -> list[str]:
@@ -2619,7 +2643,9 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
         ftab start (and without it over the run-space tables), the sampled
         machine with its per-step toehold at both capacities and with kval
         (the index's own attached) at the engine's; the k1_edges edges
-        (unstaged included) for every machine over the run-space tables.
+        (unstaged included) for every machine over the run-space tables,
+        there with the run records and without, and over a directory of one
+        bucket (run_variants).
     Returns {"errs": {kernel: max |err|}, "launches", "stats"}."""
     import dataclasses
 
@@ -2642,19 +2668,22 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
     calls = dict.fromkeys(seed_counts(), 0)
     reset_counts()
 
-    def held(tx, layout, mode, todo):
+    def held(tx, layout, mode, todo, views=None):
+        # views: [(tag, view)] held to one plain twin (run_variants)
         for label, qe, le, small, ftab in todo:
             cfg = seed_cfg(tx, mode, qe.shape[1], small, ftab)
             route = seed_route(tx, mode, cfg)
-            got = seed_records(tx, mode, qe, le, cfg, plain=False)
             want = seed_records(tx, mode, qe, le, cfg, plain=True)
-            torch.cuda.synchronize()
-            e = records_err(got, want)
             tag = f"{layout},{route},{label},{'small' if small else 'engine'}," \
                   f"{'ftab' if cfg.get('k') else 'full'}"
-            check(e == 0, f"the seeding kernel != its plain twin at {tag}: max |err| {e}")
-            errs[f"seeds_{route}"] = max(errs.get(f"seeds_{route}", 0), e)
-            calls[route] += qe.shape[0] > 0
+            for vtag, view in views or [("", tx)]:
+                got = seed_records(view, mode, qe, le, cfg, plain=False)
+                torch.cuda.synchronize()
+                e = records_err(got, want)
+                check(e == 0, f"the seeding kernel != its plain twin at {tag} {vtag}: "
+                      f"max |err| {e}")
+                errs[f"seeds_{route}"] = max(errs.get(f"seeds_{route}", 0), e)
+                calls[route] += qe.shape[0] > 0
             if label in ("batch", "random"):
                 st = {}
                 if "ns" in want:
@@ -2694,8 +2723,9 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
         check(cuda_lf.table_policy(tx) == policy and tx.has_ftab and "kval" not in tx.arrays,
               f"the {policy} tables: policy {cuda_lf.table_policy(tx)}")
         runs = policy == "runs"
+        views = run_variants(tx) if runs else None
         for mode in ("greedy", "lmem", "sample"):
-            held(tx, policy, mode, plan(mode, every if runs else (), ftab_only=not runs))
+            held(tx, policy, mode, plan(mode, every if runs else (), ftab_only=not runs), views)
         kv = TorchIndex.from_index(dataclasses.replace(tab, kval=idx.kval), device)
         held(kv, f"{policy},kval", "sample", plan("sample", (), kval_only=True))
         del tx, kv
@@ -2835,15 +2865,19 @@ def tables_entries(tx, policy: str, ranks: list) -> dict:
     over the `policy` tables and their bytes: run_start and run_head at each
     position's run and occ_flat at (c, run) (runs); occ_blk_flat at (c,
     block) and the 64 B blocks of bwt4 (dense); occ1 at (c, position)
-    (occ1).  Positions at n read nothing but F (runs, dense)."""
+    (occ1).  Positions at n read nothing but F (runs, dense).  For the
+    run-space policy also `search_ops`, the operations of the directory
+    searches of lo and hi + 1 (4 a halving of the position's bucket, as many
+    as its starts need, and 4 for the bucket and the rank)."""
     import torch
 
     from rowbowt_tpu_torch.ops import rank as R
 
     n, arr = tx.n, tx.arrays
     occ, rows = [], []
+    search_ops = 0
     for c, *pos in ranks:
-        for i in pos:
+        for j, i in enumerate(pos):
             if i is None:
                 continue
             use = i < n if policy != "occ1" else torch.ones_like(i, dtype=torch.bool)
@@ -2851,6 +2885,11 @@ def tables_entries(tx, policy: str, ranks: list) -> dict:
                 r = R.run_of(tx, i[use].to(tx.idx_dtype)).long()
                 rows.append(r)
                 occ.append(c[use] * tx.R + r)
+                if j < 2:  # lo and hi + 1: BWT[hi] comes with hi + 1's run
+                    off = arr["rs_off"].long()
+                    b = ((i[use] + 1) >> tx.rs_bs[0]).clamp(max=off.numel() - 2)
+                    seg = (off[b + 1] - off[b]).double()
+                    search_ops += int((4 * torch.ceil(torch.log2(seg + 1)) + 4).sum())
             elif policy == "dense":
                 rows.append(i[use] >> 7)
                 occ.append(c[use] * (arr["bwt4"].numel() // 16) + (i[use] >> 7))
@@ -2862,7 +2901,8 @@ def tables_entries(tx, policy: str, ranks: list) -> dict:
     row_bytes = (arr["run_start"].element_size() + arr["run_head"].element_size()
                  if policy == "runs" else 64)
     return dict(distinct_occ=distinct_occ, distinct_rows=distinct_rows,
-                table_bytes=distinct_occ * occ_tab.element_size() + distinct_rows * row_bytes)
+                table_bytes=distinct_occ * occ_tab.element_size() + distinct_rows * row_bytes,
+                search_ops=search_ops)
 
 
 def seed_bound(work: dict, B: int, tx, lat) -> dict:
@@ -2899,11 +2939,11 @@ def seed_bound(work: dict, B: int, tx, lat) -> dict:
         per_rank = RANK_OPS
     else:
         table_bytes = work["table_bytes"]
-        per_rank = {"runs": 4 * levels + 4, "dense": RANK_OPS, "occ1": 1}[work["policy"]]
+        per_rank = {"runs": 0, "dense": RANK_OPS, "occ1": 1}[work["policy"]]
     nbytes = (work["codes"] * 4 + B * 4 + (tx.A + 1) * lane + table_bytes
               + work["ftab_entries"] * 8 + base + resolve_bytes + work["out_bytes"])
     ops = ((2 if key or not toe else 3) * per_rank * work["ranked_steps"]
-           + SEED_STEP_OPS * work["lf_steps"])
+           + work.get("search_ops", 0) + SEED_STEP_OPS * work["lf_steps"])
     if toe:
         ops += (TOE_STEP_OPS * work["ranked_steps"] if key else 0) + work["resolves"] * (
             4 * levels + 4 if ltk else 1)
@@ -2914,13 +2954,18 @@ def seed_bound(work: dict, B: int, tx, lat) -> dict:
              bound_by="bytes" if byte_us >= ops_us else "operations")
     if lat is not None:
         cycle = lat if isinstance(lat, float) else lat["random_cycle"]
-        step_us = cycle if key else tables_step_us(tx, work["policy"], lat)
-        latency = work["longest_lane_ranked_steps"] * step_us
+        resolve = 0.0
         if toe:
-            latency += cycle + (max(levels - L1_LEVELS, 0) * lat["tool_table"]
-                                if ltk and not isinstance(lat, float) else 0)
-        b.update(step_us=step_us, latency_bound_us=latency, bound_us=max(byte_us, latency),
-                 bound_us_by="bytes" if byte_us >= latency else "latency")
+            resolve = cycle + (max(levels - L1_LEVELS, 0) * lat["tool_table"]
+                               if ltk and not isinstance(lat, float) else 0)
+        for tag, old in (("", False), ("_old", True)):
+            if old and (key or work["policy"] != "runs"):
+                break
+            step_us = cycle if key else tables_step_us(tx, work["policy"], lat, old)
+            latency = work["longest_lane_ranked_steps"] * step_us + resolve
+            b.update({f"step_us{tag}": step_us, f"latency_bound_us{tag}": latency,
+                      f"bound_us{tag}": max(byte_us, latency),
+                      f"bound_us_by{tag}": "bytes" if byte_us >= latency else "latency"})
     return b
 
 
@@ -4099,16 +4144,21 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     return res
 
 
-def tables_step_us(tx, policy: str, lat: dict) -> float:
+def tables_step_us(tx, policy: str, lat: dict, old: bool = False) -> float:
     """A lower bound on the latency of one step of the tables kernel: for
-    the run-space policy its search's levels below the first L1_LEVELS at
-    the L2's dependent-load latency (P3 over the probe tool's 4 MB table),
-    then the occ_flat and run_head loads at a random cycle's latency (those
-    tables are R-sized, beyond the L2 at chr); for the dense and occ1
-    policies one load at the L2's latency."""
+    the run-space policy the shortest chain a step needs: the bucket
+    directory's entry and one run_start probe at the L2's dependent-load
+    latency (P3 over the probe tool's 4 MB table; the directory is a few MB)
+    and then the occ_flat (or run record) load at a random cycle's latency
+    (R-sized tables, beyond the L2 at chr), or where shorter (R below
+    2^(L1_LEVELS + 1)) the old bound; with `old`, the bound of the binary
+    search over every run_start that the directory replaced: its levels
+    below the first L1_LEVELS at the L2's latency, then the occ_flat load.
+    For the dense and occ1 policies one load at the L2's latency."""
     if policy == "runs":
-        return (max(search_levels(tx.R) - L1_LEVELS, 0) * lat["tool_table"]
-                + lat["random_cycle"])
+        search = (max(search_levels(tx.R) - L1_LEVELS, 0) * lat["tool_table"]
+                  + lat["random_cycle"])
+        return search if old else min(search, 2 * lat["tool_table"] + lat["random_cycle"])
     return lat["tool_table"]
 
 
@@ -4203,20 +4253,24 @@ def tables_bound(work: dict, B: int, tx, toehold: bool, lat: dict | None) -> dic
     input byte read once: the reads' int32 codes, the lengths, F, the
     distinct ftab entries and table entries, the resolve's entries; each
     output written once: lo, hi and for the toehold k) over the card's
-    memory rate; operations (a search of search_levels(R) levels, 4
-    operations each, for each run-space rank and resolve; the dense
-    policy's 16-word nibble count, RANK_OPS; 8 for a step's own
-    arithmetic) over its int32 rate; with `lat` (phase k1's latencies) the
-    longest lane's steps times tables_step_us, plus the resolve's search and
-    load for the toehold.  bound_ms is the larger of the byte and operation
-    times; bound_us the larger of the byte and latency times."""
+    memory rate; operations (the run-space ranks' directory searches,
+    tables_entries' search_ops, and a search of search_levels(R) levels, 4
+    operations each, for each resolve; the dense policy's 16-word nibble
+    count, RANK_OPS; 8 for a step's own arithmetic) over its int32 rate;
+    with `lat` (phase k1's latencies) the longest lane's steps times
+    tables_step_us, plus the resolve's search and load for the toehold, and
+    for the run-space policy the same with the bound of the search the
+    directory replaced (the *_old keys).  bound_ms is the larger of the byte
+    and operation times; bound_us the larger of the byte and latency
+    times."""
     lane = tx.arrays["F"].element_size()
     outs = 3 if toehold else 2
     nbytes = (work["codes"] * 4 + B * 4 + (tx.A + 1) * lane + work["ftab_entries"] * 2 * lane
               + work["table_bytes"] + work.get("resolve_bytes", 0) + outs * B * lane)
     levels = search_levels(tx.R)
-    per_rank = {"runs": 4 * levels + 4, "dense": RANK_OPS, "occ1": 1}[work["policy"]]
-    ops = (2 + toehold) * per_rank * work["ranked_steps"] + 8 * work["lane_steps"]
+    per_rank = {"runs": 0, "dense": RANK_OPS, "occ1": 1}[work["policy"]]
+    ops = ((2 + toehold) * per_rank * work["ranked_steps"] + work["search_ops"]
+           + 8 * work["lane_steps"])
     if toehold:
         ops += work["resolved_lanes"] * (4 * levels + 4)
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
@@ -4225,12 +4279,16 @@ def tables_bound(work: dict, B: int, tx, toehold: bool, lat: dict | None) -> dic
              bound_ms=max(byte_us, ops_us) / 1e3,
              bound_by="bytes" if byte_us >= ops_us else "operations")
     if lat is not None:
-        step_us = tables_step_us(tx, work["policy"], lat)
-        latency = work["longest_lane_steps"] * step_us
-        if toehold:
-            latency += lat["random_cycle"] + max(levels - L1_LEVELS, 0) * lat["tool_table"]
-        b.update(step_us=step_us, latency_bound_us=latency, bound_us=max(byte_us, latency),
-                 bound_us_by="bytes" if byte_us >= latency else "latency")
+        resolve = (lat["random_cycle"] + max(levels - L1_LEVELS, 0) * lat["tool_table"]
+                   if toehold else 0.0)
+        for tag, old in (("", False), ("_old", True)):
+            if old and work["policy"] != "runs":
+                break
+            step_us = tables_step_us(tx, work["policy"], lat, old)
+            latency = work["longest_lane_steps"] * step_us + resolve
+            b.update({f"step_us{tag}": step_us, f"latency_bound_us{tag}": latency,
+                      f"bound_us{tag}": max(byte_us, latency),
+                      f"bound_us_by{tag}": "bytes" if byte_us >= latency else "latency"})
     return b
 
 
@@ -4287,6 +4345,104 @@ def tables_times(device, tx, batches: list, toehold: bool, lat: dict | None,
     return out
 
 
+RUN_SPANS = (6, 7, 8)  # directory spans (log2 positions a bucket) timed at chr
+
+
+def run_variants(tx) -> list:
+    """[(tag, view)] that parity holds to one plain twin over the run-space
+    tables: tx as loaded (with the run records where it has them), tx
+    without the records (the step of an index of more than 6 codes or int64
+    lanes), and tx over a directory of one bucket (shift 62: every run in
+    it, the largest iters)."""
+    import dataclasses
+
+    rec = "run_rec" in tx.arrays
+    out = [("records" if rec else "no records", tx)]
+    if rec:
+        out.append(("no records", dataclasses.replace(
+            tx, arrays={k: v for k, v in tx.arrays.items() if k != "run_rec"})))
+    one = tx.with_run_tables(62)
+    out.append((f"shift=62,iters={one.rs_bs[1]}", one))
+    return out
+
+
+def step_paths(tx, batches: dict) -> dict:
+    """{path: fn()} of the run-space tables kernels on one batch of each
+    path of batches ({"count" and "toehold": (q, ln); "greedy", "lmem",
+    "sample": (q, ln, cfg)}): the count search without the ftab start (as
+    rbt_align loads an index), the toehold search, and the machines; fn()
+    launches the path once and returns its outputs."""
+    from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
+
+    out = {}
+    for path, b in batches.items():
+        if path in ("count", "toehold"):
+            q, ln = b
+            out[path] = (lambda q=q, ln=ln, t=path == "toehold":
+                         cuda_lf.launch_tables(tx, q, ln, use_ftab=False, toehold=t))
+        else:
+            q, ln, cfg = b
+            out[path] = (lambda q=q, ln=ln, cfg=cfg, m=path:
+                         cuda_seeds.launch_machine(tx, m, q, ln, **cfg))
+    return out
+
+
+def outputs_digest(out) -> str:
+    """sha256 of a launch's outputs (a tuple of tensors or a dict of them,
+    in key order): what two launches of a kernel compare."""
+    import hashlib
+
+    ts = [out[k] for k in sorted(out)] if isinstance(out, dict) else list(out)
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_batches(device, host, paths: dict, seeds: dict) -> dict:
+    """One batch of each run-space path at chr (step_paths): the first
+    count batch of rbt_align, the first -s batch, and the machines' of
+    `seeds` (seed_batches)."""
+    import torch
+
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+
+    out = {}
+    for path, fastq in (("count", paths["reads.fq"]), ("toehold", paths["locate.fq"])):
+        _, qc, lens = next(iter(iter_query_batches(host, fastq, BATCH)))
+        out[path] = (torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
+    for mode, (q, ln, cfg) in seeds.items():
+        out[mode] = (q, ln, {k: v for k, v in cfg.items() if k != "record"})
+    return out
+
+
+def run_span_times(device, host, tx, paths: dict, seeds: dict) -> dict:
+    """The run-space tables as rbt_markers and rbt_locs load them at
+    nodense_chr (tx, from seeding_tx): what the load built (TorchIndex.
+    with_run_tables: seconds, bytes, the directory's entries, shift and
+    iters, whether the run records were built); then the tables kernel and
+    the seeding machines over directories of each span of RUN_SPANS, on one
+    batch of each path (step_batches: count, toehold, and the machines'
+    batches `seeds`), each equal to the loaded span's outputs, each path's
+    device µs alone (CUDA events just around the launch, 10 passes)."""
+    res = dict(tables=dict(build_s=tx.run_tables_s, bytes=tx.run_tables_bytes,
+                           entries=int(tx.arrays["rs_off"].numel()), shift=tx.rs_bs[0],
+                           iters=tx.rs_bs[1], records="run_rec" in tx.arrays))
+    batches = step_batches(device, host, paths, seeds)
+    want = {path: outputs_digest(fn()) for path, fn in step_paths(tx, batches).items()}
+    res["spans_us"] = {}
+    for shift in RUN_SPANS:
+        view = tx.with_run_tables(shift)
+        tag = f"shift={shift},iters={view.rs_bs[1]}"
+        res["spans_us"][tag] = {}
+        for path, fn in step_paths(view, batches).items():
+            check(outputs_digest(fn()) == want[path], f"the {path} outputs at {tag} != the "
+                  f"loaded directory's")
+            res["spans_us"][tag][path] = kernel_event_us([around(fn)], 10)
+        del view
+    return res
+
+
 def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
                       markers: dict, k1: dict, seeding: dict) -> dict:
     """Phase nodense_chr: the chr index without fblock, kval, phi1 and
@@ -4307,7 +4463,10 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     machines over the run-space tables, and rbt_locs its sampled machine
     with the per-step toehold over them and ltk, once a batch (required),
     each printing the dense index's lines (seeding_runs); each machine timed
-    on one batch of its CLI's path against its plain twin (seeds_times)."""
+    on one batch of its CLI's path against its plain twin (seeds_times).
+    Each CLI's load reports the run-space tables it built (required).
+    Last, the directory's spans side by side on one batch of each of those
+    paths (run_span_times)."""
     import torch
 
     from rowbowt_tpu_torch.cli.common import iter_query_batches
@@ -4344,12 +4503,18 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     runs.update(seeding_runs(device, out_dir, chr_, seeding, {
         "-f": "greedy_runs", "--heuristic": "greedy_runs", "--lmem": "lmem_runs",
         "locs": "sample_toe_runs"}))
+    check(all(r["cli_run_tables"] for r in runs.values()),
+          f"a no-dense chr load reported no run tables: "
+          f"{({k: r['cli_run_tables'] for k, r in runs.items()})}")
     host, tx = seeding_tx(device, out_dir)
-    seeds = seeds_times(tx, seed_batches(device, host, tx, paths), lat)
-    del host, tx
+    batches = seed_batches(device, host, tx, paths)
+    seeds = seeds_times(tx, batches, lat)
+    spans = run_span_times(device, host, tx, paths, batches)
+    del host, tx, batches
     torch.cuda.empty_cache()
     res = dict(n=idx.n, R=idx.R, save_s=save_s, index_gb=dir_gb(out_dir), runs=runs,
                resident_mb_locate=resident, tables=tables, walk=walk, seeds_times=seeds,
+               run_spans=spans,
                dense_reads_per_s={"count": count["cli_reads_per_s"],
                                   "-s": loc["cli_reads_per_s"],
                                   "-m": markers["cli_reads_per_s"]},
@@ -5665,7 +5830,11 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     and rbt_locs on build_small's 13-code index) and seeds_greedy_occ1 and
     seeds_sample_toe_occ1 (the engines on build_small's raw index without
     its rows), each timed on one batch of its path, their max |err| also
-    over phase parity.  The walk kernel's breakpoint-table route
+    over phase parity.  The five entries over nodense_chr's run-space
+    tables (lf_tables_runs, lf_tables_runs_toehold, seeds_greedy_runs,
+    seeds_lmem_runs, seeds_sample_toe_runs) also carry every directory
+    span's device µs (run_span_times).  The walk kernel's breakpoint-table
+    route
     (walk_phi_at: rbt_align -s on build_small's PFP directory with its phi
     rows withheld) has its entry too."""
     kernels = []
@@ -5783,6 +5952,14 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
             "bound_by": t["bound_by"], "library_ms": None, "device_us": t["device_us"],
             "profiled_us": t["profiled_us"], "bound_us": b["bound_us"],
             "bound_us_by": b["bound_us_by"]})
+    # the run-space step over the directory's spans, side by side at nodense_chr
+    spans = nodense["run_spans"]["spans_us"]
+    for k in kernels:
+        path = {"lf_tables_runs": "count", "lf_tables_runs_toehold": "toehold",
+                "seeds_greedy_runs": "greedy", "seeds_lmem_runs": "lmem",
+                "seeds_sample_toe_runs": "sample"}.get(k["name"])
+        if path:
+            k["spans_device_us"] = {t: v[path] for t, v in spans.items()}
     byte_us = probe_byte_us()
     for name, line in (("gather_rows", 51), ("gather_cols", 76), ("gather_chain", 92)):
         p = probes[name]

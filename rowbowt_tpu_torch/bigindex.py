@@ -47,6 +47,7 @@ against the artifact's shapes before use and rebuilt when it does not fit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -382,14 +383,29 @@ class BigIndex:
     def _cache(self, name: str) -> str | None:
         return os.path.join(self.prefix, name) if self.prefix else None
 
+    def _fresh(self, cache: str | None, *sources: str) -> bool:
+        """Whether the disk cache at `cache` exists and is no older than
+        each artifact file of `sources` (names of the .npy files it derives
+        from): a cache older than its sources was derived from another
+        artifact and is rebuilt, whatever its shape."""
+        if not cache or not os.path.exists(cache):
+            return False
+        t = os.stat(cache).st_mtime_ns
+        for name in sources:
+            src = os.path.join(self.prefix, f"{name}.npy")
+            if os.path.exists(src) and os.stat(src).st_mtime_ns > t:
+                return False
+        return True
+
     def _fb2_64(self) -> np.ndarray:
         """The 64-symbol/64B repack of the 128-symbol fb2 rows
         (construct.build.fblock_to_fb64), disk-cached next to the artifact;
-        a cache whose row count is not twice fb2's is rebuilt."""
+        a cache older than fb2.npy, or whose row count is not twice fb2's, is
+        rebuilt."""
         from rowbowt_tpu_torch.construct.build import fblock_to_fb64
 
         cache = self._cache("fb2_64.npy")
-        if cache and os.path.exists(cache):
+        if self._fresh(cache, "fb2"):
             fb = np.load(cache, mmap_mode="r")
             if fb.shape == (2 * self.fb2.shape[0], 16) and fb.dtype == np.int32:
                 return fb
@@ -402,10 +418,10 @@ class BigIndex:
         """The nibble-count marker rank rows (marker_nibble_rank), disk-cached
         next to the artifact (like the fb2_64 repack); None on >15-entry rows.
         Unlike the JAX package's, not gated on RBT_MA_NIB: no device route
-        of the port calls it.  A cache that is not [((n + 63) >> 6) + 1, 16]
-        int32 is rebuilt."""
+        of the port calls it.  A cache older than ma_row.npy, or not [((n +
+        63) >> 6) + 1, 16] int32, is rebuilt."""
         cache = self._cache("ma_cnt64.npy")
-        if cache and os.path.exists(cache):
+        if self._fresh(cache, "ma_row"):
             nib = np.load(cache, mmap_mode="r")
             if nib.shape == (((self.n + 63) >> 6) + 1, 16) and nib.dtype == np.int32:
                 return nib
@@ -417,10 +433,11 @@ class BigIndex:
     def _ma_runpack(self):
         """The run-pack marker-rank tables (marker_run_pack), disk-cached
         next to the artifact; None when the run structure doesn't fit.  A
-        cache that does not account for this CSR's entries is rebuilt, and a
-        cached "does not fit" is recomputed (it carries nothing to check)."""
+        cache older than ma_row.npy, or that does not account for this CSR's
+        entries, is rebuilt, and a cached "does not fit" is recomputed (it
+        carries nothing to check)."""
         cache = self._cache("ma_runpack.npz")
-        if cache and os.path.exists(cache):
+        if self._fresh(cache, "ma_row"):
             z = np.load(cache)
             if "shift" in z.files and z["nrows"].item() != 0:
                 rp = (z["off"], z["sd16"], z["rec"],
@@ -440,12 +457,13 @@ class BigIndex:
     def _phi_pack(self):
         """The bitmap-rank phi tables (phi_pack_tables), disk-cached next to
         the artifact; (None, None) when the breakpoint count exceeds int32
-        checkpoints.  A cache with n // 480 + 2 rows and one delta per
-        breakpoint is used, any other rebuilt."""
+        checkpoints.  A cache no older than pred_pos.npy and phi_at.npy, with
+        n // 480 + 2 rows and one delta per breakpoint, is used, any other
+        rebuilt."""
         if int(self.pred_pos.shape[0]) >= (1 << 31):
             return None, None
         rc, dc = self._cache("phi_rows.npy"), self._cache("phi_delta.npy")
-        if rc and os.path.exists(rc) and os.path.exists(dc):
+        if self._fresh(rc, "pred_pos", "phi_at") and self._fresh(dc, "pred_pos", "phi_at"):
             pr, pd = np.load(rc, mmap_mode="r"), np.load(dc, mmap_mode="r")
             if (pr.shape == (self.n // _PHI_POS + 2, 16)
                     and pd.shape == self.pred_pos.shape):
@@ -524,8 +542,17 @@ class BigIndex:
     _OPT = ("run_start", "run_head", "samples_last", "pred_pos",
             "phi_at", "cruns_keys", "ma_row", "ma_val", "doc_starts")
 
+    # the caches the loaders derive from the artifact's files, next to them
+    _CACHES = ("fb2_64.npy", "ma_cnt64.npy", "ma_runpack.npz", "phi_rows.npy",
+               "phi_delta.npy")
+
     def save(self, prefix: str) -> None:
+        """The artifact's .npy files and meta.json into `prefix`, after
+        removing the derived caches an artifact saved there before left."""
         os.makedirs(prefix, exist_ok=True)
+        for name in self._CACHES:
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(os.path.join(prefix, name))
         np.save(os.path.join(prefix, "fb2.npy"), self.fb2)
         np.save(os.path.join(prefix, "base.npy"), self.base)
         np.save(os.path.join(prefix, "F.npy"), self.F)

@@ -99,14 +99,22 @@ def load_index(prefix: str, sa=False, ma=False, dl=False, ft=False):
 def device_index(idx, device, sa=False, ma=False):
     """The index's tensors on `device` (the 64B-row layout).  An RbtIndex was
     gated at load; a BigIndex puts its locate and marker tables on the
-    device only for the flags that ask for them."""
+    device only for the flags that ask for them.  Where the load built the
+    tables kernels' run-space tables (TorchIndex.with_run_tables), their
+    bytes and seconds go to stderr as a `run tables: {...}` line (JSON)."""
     from rowbowt_tpu_torch.bigindex import BigIndex
     from rowbowt_tpu_torch.engine.device import TorchIndex
 
     if isinstance(idx, BigIndex):
-        return TorchIndex.from_big(idx, device, with_locate=sa and idx.has_locate,
-                                   with_markers=ma and idx.has_markers)
-    return TorchIndex.from_index(idx, device)
+        tx = TorchIndex.from_big(idx, device, with_locate=sa and idx.has_locate,
+                                 with_markers=ma and idx.has_markers)
+    else:
+        tx = TorchIndex.from_index(idx, device)
+    if tx.rs_bs:
+        eprint("run tables: " + json.dumps(dict(bytes=tx.run_tables_bytes,
+                                                seconds=tx.run_tables_s,
+                                                records="run_rec" in tx.arrays)))
+    return tx
 
 
 def iter_query_batches(idx, fastq: str, batch_size: int,

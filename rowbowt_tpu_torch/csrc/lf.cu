@@ -87,29 +87,39 @@
 // rowbowt_tpu/ops/rank.py lf_step (the run-space rank, :31-57), lf_step_dense
 // (:59-89), lf_step_occ1 (:237-244) and, carrying the toehold,
 // lf_step_w_loc (:346-381) or lf_step_w_loc_occ1 (:316-344) beside
-// pallas_lf.py:49.  One thread a lane (the ranks are single loads or
-// searches, not rows to share), codes staged as K1 stages them, the ftab
-// start read in the kernel, the toehold carried and resolved once a lane as
-// the TOE instance does.  Three rank policies, chosen by the wrapper in
+// pallas_lf.py:49.  Codes staged as K1 stages them, the ftab start read in
+// the kernel, the toehold carried and resolved once a lane as the TOE
+// instance does.  Three rank policies, chosen by the wrapper in
 // lf_step_auto's order:
-//   - runs: a binary search over run_start for the run of i, then occ_flat
-//     and run_head of that run.  lo's run takes the full search (24 levels
-//     at R = 15.6 M, the top ones in L1 and L2); hi + 1's run lies at most
-//     hi + 1 - run_start[lo's run] runs after lo's, so its search covers that
-//     window only, a few levels once a range is narrow.  The trivial test is
-//     the code of hi's run: hi + 1's, or the one before where hi + 1 starts
-//     it;
+//   - runs: the run of i through a bucket directory over run_start (rs_off,
+//     engine/device.run_directory: rs_off[b] is the first run starting at or
+//     after b << shift, 2^7 positions a bucket at chr, 1.25 M entries, in
+//     the L2), then a binary search of the few starts in i + 1's bucket
+//     (one or two 128 B lines, L1 after the first probe), then occ_flat and
+//     run_head of that run.  lo's run and hi + 1's are found independently.
+//     The trivial test is the code of hi's run: hi + 1's, or the one before
+//     where hi + 1 starts it.  Two threads a lane (lf_tables.cuh
+//     lane_threads): lo's rank on one, hi + 1's on the other, joined by a
+//     shuffle.  Where the index has the run records (at most 6 codes, int32
+//     lanes: engine/device.run_records) a run's start, head and counts come
+//     from its 32-byte record (the REC instance), else from run_start,
+//     run_head and occ_flat;
 //   - dense: the checkpoint of c at block i >> 7 and the nibbles equal to c
 //     among the block's first i & 127 symbols (64 B, four 16-byte loads);
 //     the trivial test one word of bwt4;
 //   - occ1: one load a rank; the trivial test one more (occ1 at hi).
-// What bounds it: each step's loads depend on the step before, and the runs
-// policy's search adds some 30 loads a step, so no byte count comes near it;
-// its bound is the latency of the levels that miss L1 (129 us a chr batch).
-// A chr batch took 2.39 ms on an H100, 11x K1's count search and 1/63 of
-// the torch loop (PERF.md §6): the loads of the search, not their latency
-// alone, set the pace, and a bucket directory over run_start (a load for
-// the top levels) is the lever left for a later change.
+// What bounds it: each step's loads depend on the step before, so no byte
+// count comes near it; its bound is the shortest dependent chain any design
+// of a step needs (the directory's entry and one run_start probe at the
+// L2's latency, then one load beyond the L2) times the longest lane's
+// steps.  The step it replaced, a binary search over all R starts (24 levels
+// at R = 15.6 M) with hi + 1's confined to a window after lo's run, took
+// 2.39 ms a chr batch on an H100: some 30 dependent loads a step, their
+// number and not their latency alone setting the pace.  The directory
+// leaves a step an entry of a 5 MB table, a search of one bucket's few
+// starts and the run's record: 0.61 ms a chr batch.  One thread a lane, and
+// the step without the records, were timed beside it and lost on every
+// path (PERF.md §6).
 //
 // The first kernel of this file (lf_count_transposed_kernel, C entry
 // rbt_lf_count_transposed) is the earlier design, one thread per lane over a
@@ -377,27 +387,34 @@ bool bad_launch(int A, int B, int L, int threads) {
 // ---------------------------------------------------------------------------
 // The search over the rank tables of an index without fused rows
 
-// One thread a lane, blockDim.x lanes a block.  The count search of
-// rowbowt_tpu_torch/ops/cuda_lf.py lf_loop_plain over the POLICY tables, from
-// the ftab start where k > 0 (ftab int32 or int64, ftab_bytes); TOE (no
-// ftab) also carries the per-step toehold as lf_count_kernel's TOE instance
-// does and writes it into toe.k.  The codes come from shared memory when
-// `stage` (staged once per block), else from global memory at every step.
-template <typename Lane, int POLICY, bool TOE>
+// blockDim.x / G lanes a block, G = lane_threads(POLICY) neighbouring
+// threads a lane, the first of them writing.  The count search of
+// rowbowt_tpu_torch/ops/cuda_lf.py lf_loop_plain over the POLICY tables
+// (REC: the run-space tables through the run records), from the ftab start where k > 0
+// (ftab int32 or int64, ftab_bytes); TOE (no ftab) also carries the
+// per-step toehold as lf_count_kernel's TOE instance does and writes it
+// into toe.k.  The codes come from shared memory when `stage` (staged once
+// per block), else from global memory at every step.
+template <typename Lane, int POLICY, bool TOE, bool REC>
 __global__ void __launch_bounds__(1024)
 lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
                  const int32_t* __restrict__ q, const int32_t* __restrict__ lengths, int B,
                  int L, bool stage, const void* ftab, int ftab_bytes, int k, uint32_t acgt,
                  Lane* __restrict__ lo_out, Lane* __restrict__ hi_out, Toe toe) {
+  constexpr int G = lane_threads(POLICY);
   extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when stage
-  const int b0 = blockIdx.x * blockDim.x;
-  const int nl = min((int)blockDim.x, B - b0);
+  const int lanes = blockDim.x / G;
+  const int b0 = blockIdx.x * lanes;
+  const int nl = min(lanes, B - b0);
   const int stride = staged_stride(L);
   if (stage) stage_codes(s_code, q + (size_t)b0 * L, nl, L, A, stride);
   __syncthreads();
-  if ((int)threadIdx.x >= nl) return;
-  const int b = b0 + threadIdx.x;
-  const uint8_t* mine = s_code + threadIdx.x * stride;
+  const int ll = threadIdx.x / G;
+  if (ll >= nl) return;
+  const int sub = threadIdx.x % G;
+  const unsigned pair = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(G - 1));
+  const int b = b0 + ll;
+  const uint8_t* mine = s_code + ll * stride;
   const int32_t* row_q = q + (size_t)b * L;
   auto code_at = [&](int col) -> int {
     return stage ? (int)mine[col] : code_byte(row_q[col], A);
@@ -417,7 +434,6 @@ lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
       }
     }
   }
-  const int64_t rs0 = POLICY == kRuns ? load_at(t.run_start, t.rs_bytes, 0) : 0;
   const int jend = min(len, L);
   // TOE: the code and pre-step hi of the last non-trivial step (tc < 0:
   // none yet), and the trivial steps since it (since the start while none)
@@ -427,7 +443,8 @@ lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
     const int c = code_at(L - 1 - j);
     const Lane h0 = hi;
     bool trivial = false;  // BWT[hi] == c
-    if (!lf_step_tables<Lane, POLICY, TOE>(t, F, A, n, rs0, c, lo, hi, trivial)) break;
+    if (!lf_step_tables<Lane, POLICY, TOE, REC>(t, F, A, n, sub, pair, c, lo, hi, trivial))
+      break;
     if constexpr (TOE) {
       if (trivial) {
         ++triv;
@@ -438,6 +455,7 @@ lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
       }
     }
   }
+  if (sub != 0) return;
   lo_out[b] = lo;
   hi_out[b] = hi;
   if constexpr (TOE)
@@ -461,28 +479,32 @@ struct TabArgs {
   Toe toe;  // the toehold's tables and k (TOE instances), else zeros
 };
 
-template <typename Lane, int POLICY, bool TOE>
+template <typename Lane, int POLICY, bool TOE, bool REC = false>
 int launch_tables(const TabArgs<Lane>& a, int threads, bool stage, cudaStream_t s) {
-  const size_t smem = stage ? (size_t)threads * staged_stride(a.L) : 0;
+  const int lanes = threads / lane_threads(POLICY);
+  const size_t smem = stage ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((a.B + threads - 1) / threads));
-  lf_tables_kernel<Lane, POLICY, TOE><<<grid, threads, smem, s>>>(
+  const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
+  lf_tables_kernel<Lane, POLICY, TOE, REC><<<grid, threads, smem, s>>>(
       a.t, a.F, a.A, a.n, a.q, a.lengths, a.B, a.L, stage, a.ftab, a.ftab_bytes, a.k, a.acgt,
       a.lo, a.hi, a.toe);
   return (int)cudaGetLastError();
 }
 
 template <typename Lane, bool TOE>
-int launch_policy(int policy, const TabArgs<Lane>& a, int threads, bool stage,
-                  cudaStream_t s) {
-  if (policy == kRuns) return launch_tables<Lane, kRuns, TOE>(a, threads, stage, s);
+int launch_policy(int policy, const TabArgs<Lane>& a, int threads, bool stage, cudaStream_t s) {
+  if (policy == kRuns) {
+    if constexpr (sizeof(Lane) == 4) {  // the run records are int32
+      if (a.t.rec != nullptr) return launch_tables<Lane, kRuns, TOE, true>(a, threads, stage, s);
+    }
+    return launch_tables<Lane, kRuns, TOE>(a, threads, stage, s);
+  }
   if (policy == kDense) return launch_tables<Lane, kDense, TOE>(a, threads, stage, s);
   return launch_tables<Lane, kOcc1, TOE>(a, threads, stage, s);
 }
 
 template <typename Lane>
-int launch_lanes(int policy, const TabArgs<Lane>& a, int threads, bool stage,
-                 cudaStream_t s) {
+int launch_lanes(int policy, const TabArgs<Lane>& a, int threads, bool stage, cudaStream_t s) {
   return a.toe.k != nullptr ? launch_policy<Lane, true>(policy, a, threads, stage, s)
                             : launch_policy<Lane, false>(policy, a, threads, stage, s);
 }
@@ -582,33 +604,44 @@ int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n
   return (int)cudaErrorInvalidValue;
 }
 
-// The search over the rank tables of an index without fused rows, one
-// thread a lane: `policy` 0 (runs: occ = occ_flat, run_start, run_head, R),
-// 1 (dense: occ = occ_blk_flat, bwt4 int32 [nb * 16] 16-byte aligned, A at
-// most 16) or 2 (occ1: occ = occ1_flat); each table int32 or int64
-// (*_bytes), run_head too.  Lanes, F [A + 1], lo and hi are int32 or int64
-// (lane_bytes), the codes and lengths int32.  With k_out null it is the
-// count search, from the ftab start where kf > 0 (ftab int32 or int64 [4^kf,
-// 2], acgt as rbt_lf_count's); with k_out, the toehold search (kf 0) over
-// tk1 [A * n] where given, else ltk [A * R] with run_start, and samples_last
-// [R], each int32 or int64, k_out in the lane type.  `threads` lanes a
-// block; `stage` reads the codes from shared memory (threads * staged
-// stride bytes, at most 47 KB); both from ops/cuda_lf.py launch_plan with
-// one thread a lane.  Returns cudaGetLastError() after the launch (0 on
-// success, nothing launched for B == 0).
+// The search over the rank tables of an index without fused rows: `policy`
+// 0 (runs: occ = occ_flat, run_start, run_head, R, and the bucket directory
+// rs_off [n_off] over run_start, n_off == (n >> shift) + 2, searched in at
+// most `iters` halvings a bucket), 1 (dense: occ = occ_blk_flat, bwt4 int32
+// [nb * 16] 16-byte aligned, A at most 16) or 2 (occ1: occ = occ1_flat);
+// each table int32 or int64 (*_bytes), run_head and rs_off too.  `rec`
+// (runs only, else null) is null or the run records (int32 [R * 8], 32-byte
+// aligned; A at most 6, int32 lanes), which the step then reads instead of
+// run_start, run_head and occ_flat.  Lanes, F [A + 1], lo and hi
+// are int32 or int64 (lane_bytes), the codes and lengths int32.  With k_out
+// null it is the count search, from the ftab start where kf > 0 (ftab int32
+// or int64 [4^kf, 2], acgt as rbt_lf_count's); with k_out, the toehold
+// search (kf 0) over tk1 [A * n] where given, else ltk [A * R] with
+// run_start, and samples_last [R], each int32 or int64, k_out in the lane
+// type.  `threads` is the block size (two threads a lane over the
+// run-space tables, else one); `stage`
+// reads the codes from shared memory (lanes a block * staged stride bytes,
+// at most 47 KB); both from ops/cuda_lf.py launch_plan.  Returns
+// cudaGetLastError() after the launch (0 on success, nothing launched for B
+// == 0).
 int rbt_lf_tables(int policy, const void* occ, int occ_bytes, const void* run_start,
-                  int rs_bytes, const void* run_head, int rh_bytes, const void* bwt4,
-                  long long nb, int R, const void* F, int lane_bytes, int A, long long n,
-                  const void* q, const void* lengths, int B, int L, const void* ftab,
-                  int ftab_bytes, int kf, int acgt, const void* tk1, int tk1_bytes,
-                  const void* ltk, int ltk_bytes, const void* samples_last, int sl_bytes,
-                  void* lo, void* hi, void* k_out, int threads, int stage, void* stream) {
+                  int rs_bytes, const void* run_head, int rh_bytes, const void* rs_off,
+                  int off_bytes, long long n_off, int shift, int iters, const void* rec,
+                  const void* bwt4, long long nb, int R, const void* F, int lane_bytes, int A,
+                  long long n, const void* q, const void* lengths, int B, int L,
+                  const void* ftab, int ftab_bytes, int kf, int acgt, const void* tk1,
+                  int tk1_bytes, const void* ltk, int ltk_bytes, const void* samples_last,
+                  int sl_bytes, void* lo, void* hi, void* k_out, int threads, int stage,
+                  void* stream) {
   auto width = [](int bytes) { return bytes == 4 || bytes == 8; };
   const bool runs = policy == kRuns && run_start != nullptr && run_head != nullptr &&
-                    width(rs_bytes) && width(rh_bytes) && R >= 1;
-  const bool dense = policy == kDense && bwt4 != nullptr && A <= 16 &&
+                    width(rs_bytes) && width(rh_bytes) && R >= 1 &&
+                    valid_directory(rs_off, off_bytes, n_off, shift, iters, n) &&
+                    (rec == nullptr || valid_records(rec, A, lane_bytes));
+  const bool dense = policy == kDense && rec == nullptr && bwt4 != nullptr && A <= 16 &&
                      ((uintptr_t)bwt4 & 15) == 0 && nb >= (n + 127) / 128;
-  const bool tables = occ != nullptr && width(occ_bytes) && (runs || dense || policy == kOcc1);
+  const bool tables = occ != nullptr && width(occ_bytes) &&
+                      (runs || dense || (policy == kOcc1 && rec == nullptr));
   const bool toe = k_out != nullptr;
   const bool toe_tables =
       !toe || (kf == 0 && samples_last != nullptr && width(sl_bytes) && R >= 1 &&
@@ -621,8 +654,9 @@ int rbt_lf_tables(int policy, const void* occ, int occ_bytes, const void* run_st
       (lane_bytes == 4 ? n >= INT32_MAX : lane_bytes != 8))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const Tabs t{occ, run_start, run_head, static_cast<const int4*>(bwt4), occ_bytes, rs_bytes,
-               rh_bytes, R, nb};
+  const Tabs t{occ, run_start, run_head, static_cast<const int4*>(bwt4), rs_off,
+               static_cast<const int4*>(rec), occ_bytes, rs_bytes, rh_bytes, off_bytes, R, nb,
+               n_off, shift, iters};
   const Toe te{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
                k_out};
   cudaStream_t s = (cudaStream_t)stream;

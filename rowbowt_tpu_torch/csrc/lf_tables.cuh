@@ -22,19 +22,50 @@ namespace {
 enum Policy : int { kRuns = 0, kDense = 1, kOcc1 = 2 };
 constexpr int kDenseVec = 4;  // int4 parts of a dense block: 16 words, 128 symbols
 
+// Threads a lane of the POLICY step: the run-space step ranks lo on the
+// first of two neighbouring threads and hi + 1 on the second, joined by a
+// shuffle (65,536 lanes fill under a quarter of an H100's thread slots, so
+// both searches' loads are in flight at once); the others take both ranks
+// on one thread.
+__host__ __device__ constexpr int lane_threads(int policy) { return policy == kRuns ? 2 : 1; }
+
 // The rank tables, each int32 or int64 as the index holds it (*_bytes): occ
 // is occ_flat [A * R] (runs), occ_blk_flat [A * nb] (dense) or occ1_flat
-// [A * (n + 1)] (occ1); run_start and run_head [R] (runs); bwt4 [nb * 16],
-// the dense blocks' words of 8 nibbles (dense).
+// [A * (n + 1)] (occ1); run_start and run_head [R], and the bucket
+// directory rs_off [n_off] over run_start with its (shift, iters) (runs);
+// rec [R * 8], 32-byte aligned, or null: the run records (int32 run_start,
+// run_head, occ[0..6) a run; A <= 6, int32 lanes), which the REC instances
+// read instead of run_start, run_head and occ_flat; bwt4 [nb * 16], the
+// dense blocks' words of 8 nibbles (dense).
 struct Tabs {
   const void* occ;
   const void* run_start;
   const void* run_head;
   const int4* bwt4;
-  int occ_bytes, rs_bytes, rh_bytes;
+  const void* rs_off;
+  const int4* rec;
+  int occ_bytes, rs_bytes, rh_bytes, off_bytes;
   int R;
   long long nb;
+  long long n_off;
+  int shift, iters;
 };
+
+// Whether rs_off is a bucket directory the run-space step can search: int32
+// or int64, n_off == (n >> shift) + 2 entries (ops/cuda_lf.py checks that
+// they are run_directory's over this run_start), at most iters halvings a
+// bucket.
+inline bool valid_directory(const void* rs_off, int off_bytes, long long n_off, int shift,
+                            int iters, long long n) {
+  return rs_off != nullptr && (off_bytes == 4 || off_bytes == 8) && shift >= 0 && shift < 63 &&
+         iters >= 1 && iters <= 32 && n_off == (n >> shift) + 2;
+}
+
+// Whether rec can hold the run records: 32-byte aligned, an alphabet of at
+// most 6 codes, int32 lanes.
+inline bool valid_records(const void* rec, int A, int lane_bytes) {
+  return rec != nullptr && ((uintptr_t)rec & 31) == 0 && A >= 1 && A <= 6 && lane_bytes == 4;
+}
 
 // The per-step toehold's tables (TOE instances), each int32 or int64 as the
 // index holds it on the card (*_bytes): tk1 [A * n] where it is resident,
@@ -82,32 +113,65 @@ __device__ int64_t resolve_toehold(const Toe& t, int64_t n, int tc, int64_t thi,
   return k < 0 ? k + n : k;
 }
 
-// The run of position x, the last r' in [r, last] with run_start[r'] <= x,
-// given start == run_start[r] <= x: a binary search, which leaves start at
-// that run's start.
-__device__ __forceinline__ int run_search(const Tabs& t, int64_t x, int r, int last,
-                                          int64_t& start) {
-  int end = last + 1;  // run_start[end] > x, or end == R
-  while (end - r > 1) {
-    const int mid = r + ((end - r) >> 1);
+// The run of position x (0 <= x < n): ops/rank.py bucketed_lower_bound(
+// run_start, rs_off, shift, iters, x + 1) - 1.  rs_off[b] is the first run
+// starting at or after b << shift, so the runs starting in x + 1's bucket
+// are the only ones left to search: at most `iters` halvings of a segment
+// of a few starts, one or two 128 B lines that the first probe brings into
+// L1.  With START, `start` receives the run's start: the last probe below x
+// + 1 where there was one, else one more load.
+template <bool START>
+__device__ __forceinline__ int run_of(const Tabs& t, int64_t x, int64_t& start) {
+  const int64_t q = x + 1;
+  const int64_t last = t.n_off - 2;  // the last bucket takes q == n
+  const int64_t b = (q >> t.shift) < last ? (q >> t.shift) : last;
+  int lo = (int)load_at(t.rs_off, t.off_bytes, b);
+  int hi = (int)load_at(t.rs_off, t.off_bytes, b + 1);
+  bool known = false;
+  for (int it = 0; it < t.iters && lo < hi; ++it) {
+    const int mid = (lo + hi) >> 1;
     const int64_t v = load_at(t.run_start, t.rs_bytes, mid);
-    if (v <= x) {
-      r = mid;
+    if (v < q) {
+      lo = mid + 1;
       start = v;
+      known = true;
     } else {
-      end = mid;
+      hi = mid;
     }
   }
-  return r;
+  if (START && !known) start = load_at(t.run_start, t.rs_bytes, lo - 1);
+  return lo - 1;
 }
 
-// rank(i, c) in run r starting at `start` (ops/rank.py rank_at_run, i < n):
-// the count of c before the run, plus i - start where the run is of c.  head
-// receives the run's code.
-__device__ __forceinline__ int64_t rank_in_run(const Tabs& t, int64_t i, int c, int r,
-                                               int64_t start, int& head) {
-  head = (int)load_at(t.run_head, t.rh_bytes, r);
-  const int64_t occ = load_at(t.occ, t.occ_bytes, (int64_t)c * t.R + r);
+// The code of run r: from its record (REC) or run_head.
+template <bool REC>
+__device__ __forceinline__ int head_of(const Tabs& t, int r) {
+  if constexpr (REC) return __ldg(t.rec + 2 * (size_t)r).y;
+  return (int)load_at(t.run_head, t.rh_bytes, r);
+}
+
+// rank(i, c) over the run-space tables (ops/rank.py rank_at_run, i < n):
+// the count of c before i's run, plus i - start where the run is of c.
+// `head` receives the run's code, `start` its start.  REC reads all three
+// from the run's record, one 32-byte sector (occ[c] in its first half for c
+// < 2, else its second); else run_start (where the search left no start),
+// run_head and occ_flat, independent loads.
+template <bool REC>
+__device__ __forceinline__ int64_t rank_runs(const Tabs& t, int64_t i, int c, int& r,
+                                             int64_t& start, int& head) {
+  int64_t occ;
+  if constexpr (REC) {
+    r = run_of<false>(t, i, start);
+    const int4* p = t.rec + 2 * (size_t)r;
+    const int4 a = __ldg(p);
+    start = a.x;
+    head = a.y;
+    occ = c < 2 ? lane_of(a, 2 + c) : lane_of(__ldg(p + 1), c - 2);
+  } else {
+    r = run_of<true>(t, i, start);
+    head = (int)load_at(t.run_head, t.rh_bytes, r);
+    occ = load_at(t.occ, t.occ_bytes, (int64_t)c * t.R + r);
+  }
   return occ + (head == c ? i - start : 0);
 }
 
@@ -130,16 +194,38 @@ __device__ __forceinline__ int64_t rank_dense(const Tabs& t, int64_t i, int c) {
   return occ + in_blk;
 }
 
-// One LF step of a lane (one thread) over the POLICY tables: (lo, hi)
-// becomes LF((lo, hi), c), or the empty range (1, 0) where that is empty or
-// c lies outside [0, A); returns whether it is non-empty.  F [A + 1] is read
-// from global memory.  rs0 is run_start[0] (runs).  The run-space search of
-// hi + 1 is confined to its window after lo's run.  TOE also sets `trivial`
-// to BWT[hi] == c for the pre-step hi, from the policy's own tables.
-template <typename Lane, int POLICY, bool TOE>
+// rank(x, c) of one thread over the run-space tables, the code's total
+// where x == n; with HEAD, `head` receives the code at x - 1 (BWT[hi] for x
+// = hi + 1): x's run's, or the run's before where x starts its run, or the
+// last run's where x == n.
+template <bool REC, bool HEAD, typename Lane>
+__device__ __forceinline__ Lane rank_or_total(const Tabs& t, Lane n, Lane total, Lane x, int c,
+                                              int& head) {
+  if (x >= n) {
+    if constexpr (HEAD) head = head_of<REC>(t, t.R - 1);
+    return total;
+  }
+  int r, h;
+  int64_t s;
+  const Lane rk = (Lane)rank_runs<REC>(t, x, c, r, s, h);
+  if constexpr (HEAD) head = s == x ? head_of<REC>(t, r - 1) : h;
+  return rk;
+}
+
+// One LF step of a lane over the POLICY tables: (lo, hi) becomes LF((lo,
+// hi), c), or the empty range (1, 0) where that is empty or c lies outside
+// [0, A); returns whether it is non-empty.  F [A + 1] is read from global
+// memory.  The dense and occ1 steps run on one thread a lane; the run-space
+// step on the lane's two neighbouring threads (sub 0 and 1 of the warp's
+// `pair` mask, lane_threads), which take the same branches: each ranks one
+// end of the range and a shuffle gives both the pair.  TOE also sets
+// `trivial` to BWT[hi] == c for the pre-step hi, from the policy's own
+// tables.  REC (run-space, int32 lanes) reads the run records.
+template <typename Lane, int POLICY, bool TOE, bool REC = false>
 __device__ __forceinline__ bool lf_step_tables(const Tabs& t, const Lane* __restrict__ F, int A,
-                                               Lane n, int64_t rs0, int c, Lane& lo, Lane& hi,
-                                               bool& trivial) {
+                                               Lane n, int sub, unsigned pair, int c, Lane& lo,
+                                               Lane& hi, bool& trivial) {
+  static_assert(POLICY == kRuns || !REC, "the run records are the run-space step's");
   if (c >= A) {  // absent code: empty range
     lo = 1;
     hi = 0;
@@ -164,37 +250,15 @@ __device__ __forceinline__ bool lf_step_tables(const Tabs& t, const Lane* __rest
       trivial = (int)((w >> (4 * (int)(hi & 7))) & 15u) == c;
     }
   } else {
+    // lo's rank on sub 0, hi + 1's (and BWT[hi]) on sub 1
     const Lane total = (Lane)load_at(F, sizeof(Lane), c + 1) - fc;
-    int r0 = 0, head = -1;
-    int64_t s0 = rs0;
-    if (lo < n) {
-      r0 = run_search(t, lo, 0, t.R - 1, s0);
-      cb = (Lane)rank_in_run(t, lo, c, r0, s0, head);
-    } else {
-      cb = total;
-    }
-    if (i1 < n) {
-      // hi + 1's run is lo's or a later one, and no more than i1 - s0
-      // runs later: a run holds at least one position
-      int r1 = 0, last = t.R - 1;
-      int64_t s1 = rs0;
-      if (lo < n && lo <= i1) {
-        r1 = r0;
-        s1 = s0;
-        const int64_t far = (int64_t)r0 + (i1 - s0);
-        last = far < t.R - 1 ? (int)far : t.R - 1;
-      }
-      r1 = run_search(t, i1, r1, last, s1);
-      ce = (Lane)rank_in_run(t, i1, c, r1, s1, head);
-      if constexpr (TOE) {
-        // hi's run: hi + 1's, or the one before where hi + 1 starts it
-        if (s1 == i1) head = (int)load_at(t.run_head, t.rh_bytes, r1 - 1);
-      }
-    } else {
-      ce = total;
-      if constexpr (TOE) head = (int)load_at(t.run_head, t.rh_bytes, t.R - 1);
-    }
-    if constexpr (TOE) trivial = head == c;
+    int head = -1;
+    const Lane mine = sub ? rank_or_total<REC, TOE>(t, n, total, i1, c, head)
+                          : rank_or_total<REC, false>(t, n, total, lo, c, head);
+    const Lane other = __shfl_xor_sync(pair, mine, 1);
+    cb = sub ? other : mine;
+    ce = sub ? mine : other;
+    if constexpr (TOE) trivial = __shfl_sync(pair, head, (int)(threadIdx.x & 31) | 1) == c;
   }
   const Lane ci = ce - cb;
   if (ci <= 0) {

@@ -14,8 +14,9 @@
 //     (fblock64, fblock) and the two-level rows of a big index with int64
 //     lanes (fb2_64, fb2, fb2_256);
 //   - Tables: the tables kernel's step (lf_tables.cuh: the run-space, dense
-//     or occ1 ranks, one thread a lane), over an index without fused rows
-//     (a --no-dense build, 9-16 codes, a raw build's occ1), int32 lanes.
+//     or occ1 ranks; two threads a lane over the run-space tables, else
+//     one), over an index without fused rows (a --no-dense build, 9-16
+//     codes, a raw build's occ1), int32 lanes.
 // MODE selects the machine, each transcribed from the port's torch loop
 // (its *_records_plain twin, which the kernel is held against):
 //   - GREEDY, RowBowt::get_markers_greedy_seeding (rowbowt.hpp:406-482):
@@ -56,9 +57,11 @@
 // the lanes of a warp write neighbouring words.
 //
 // What bounds it: the step's loads, one step after another (K1's row loads;
-// over the run-space tables a binary search of about 30 dependent loads a
-// step), and for GREEDY a replay of k steps after each failure; the record
-// writes are a few words a lane.
+// over the run-space tables a bucket directory's entry, a search of the few
+// run starts in one bucket and the run's count, on two threads a lane with
+// the machine body run by both, as over rows), and for GREEDY a replay of k
+// steps after each
+// failure; the record writes are a few words a lane.
 
 #include <cstdint>
 
@@ -132,19 +135,23 @@ struct Rows {
   }
 };
 
-// The tables kernel's step over the POLICY tables, one thread a lane.
-template <typename LaneT, int POLICY>
+// The tables kernel's step over the POLICY tables (REC: the run-space
+// tables through the run records): one thread a lane, or the lane's two
+// threads over the run-space tables (both take the same branches; sub and
+// pair as Rows's).
+template <typename LaneT, int POLICY, bool REC>
 struct Tables {
   using Lane = LaneT;
-  static constexpr int kGroup = 1;
+  static constexpr int kGroup = lane_threads(POLICY);
   Tabs t;
   const Lane* F;
   int A;
   Lane n;
-  int64_t rs0;  // run_start[0] (runs)
+  int sub;
+  unsigned pair;
   template <bool TOE>
   __device__ __forceinline__ bool step(int c, Lane& lo, Lane& hi, bool& trivial) const {
-    return lf_step_tables<Lane, POLICY, TOE>(t, F, A, n, rs0, c, lo, hi, trivial);
+    return lf_step_tables<Lane, POLICY, TOE, REC>(t, F, A, n, sub, pair, c, lo, hi, trivial);
   }
 };
 
@@ -418,27 +425,32 @@ __global__ void __launch_bounds__(1024) seed_machine_kernel(const Params<Lane> p
   machine<MODE, TOE>(p, st, code_at, b0 + ll, sub == 0);
 }
 
-// Over the POLICY tables of an index without fused rows: one thread a lane,
-// blockDim.x lanes a block, as the tables kernel runs.
-template <typename Lane, int POLICY, int MODE, bool TOE>
+// Over the POLICY tables of an index without fused rows (REC: through the
+// run records): blockDim.x / G lanes a block, G neighbouring threads a lane
+// (G = Tables::kGroup), as the tables kernel runs; the first writes.
+template <typename Lane, int POLICY, int MODE, bool TOE, bool REC>
 __global__ void __launch_bounds__(1024) seed_tables_kernel(const Params<Lane> p) {
+  using Step = Tables<Lane, POLICY, REC>;
+  constexpr int G = Step::kGroup;
   extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when staged
-  const int b0 = blockIdx.x * blockDim.x;
-  const int nl = min((int)blockDim.x, p.B - b0);
+  const int lanes = blockDim.x / G;
+  const int b0 = blockIdx.x * lanes;
+  const int nl = min(lanes, p.B - b0);
   const int L = p.L;
   const int stride = staged_stride(L);
   if (p.stage) stage_codes(s_code, p.q + (size_t)b0 * L, nl, L, p.A, stride);
   __syncthreads();
-  if ((int)threadIdx.x >= nl) return;
-  const int b = b0 + threadIdx.x;
-  const uint8_t* mine = s_code + threadIdx.x * stride;
-  const int32_t* row_q = p.q + (size_t)b * L;
+  const int ll = threadIdx.x / G;
+  if (ll >= nl) return;
+  const int sub = threadIdx.x % G;
+  const uint8_t* mine = s_code + ll * stride;
+  const int32_t* row_q = p.q + (size_t)(b0 + ll) * L;
   auto code_at = [&](int col) -> int {
     return p.stage ? (int)mine[col] : code_byte(row_q[col], p.A);
   };
-  const int64_t rs0 = POLICY == kRuns ? load_at(p.t.run_start, p.t.rs_bytes, 0) : 0;
-  const Tables<Lane, POLICY> st{p.t, p.F, p.A, p.n, rs0};
-  machine<MODE, TOE>(p, st, code_at, b, true);
+  const unsigned pair = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(G - 1));
+  const Step st{p.t, p.F, p.A, p.n, sub, pair};
+  machine<MODE, TOE>(p, st, code_at, b0 + ll, sub == 0);
 }
 
 // Launches `kernel` over B lanes, `group` threads a lane.
@@ -464,14 +476,15 @@ int launch_rows(int mode, bool toe, const Params<Lane>& p, int threads, cudaStre
   return launch(seed_machine_kernel<Lane, SYMS, kSample, false>, p, threads, kG, s);
 }
 
-template <int POLICY>
+template <int POLICY, bool REC = false>
 int launch_tables(int mode, bool toe, const Params<int32_t>& p, int threads, cudaStream_t s) {
+  constexpr int G = lane_threads(POLICY);
   if (mode == kGreedy)
-    return launch(seed_tables_kernel<int32_t, POLICY, kGreedy, false>, p, threads, 1, s);
+    return launch(seed_tables_kernel<int32_t, POLICY, kGreedy, false, REC>, p, threads, G, s);
   if (mode == kLmem)
-    return launch(seed_tables_kernel<int32_t, POLICY, kLmem, false>, p, threads, 1, s);
-  if (toe) return launch(seed_tables_kernel<int32_t, POLICY, kSample, true>, p, threads, 1, s);
-  return launch(seed_tables_kernel<int32_t, POLICY, kSample, false>, p, threads, 1, s);
+    return launch(seed_tables_kernel<int32_t, POLICY, kLmem, false, REC>, p, threads, G, s);
+  if (toe) return launch(seed_tables_kernel<int32_t, POLICY, kSample, true, REC>, p, threads, G, s);
+  return launch(seed_tables_kernel<int32_t, POLICY, kSample, false, REC>, p, threads, G, s);
 }
 
 bool width(int bytes) { return bytes == 4 || bytes == 8; }
@@ -589,32 +602,39 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
 }
 
 // The same machines over the rank tables of an index without fused rows,
-// one thread a lane, int32 lanes (n below 2^31 - 1): `policy` and its
-// tables as rbt_lf_tables takes them (0 runs: occ = occ_flat, run_start,
-// run_head, R; 1 dense: occ = occ_blk_flat, bwt4 int32 [nb * 16] 16-byte
-// aligned, A at most 16; 2 occ1: occ = occ1_flat), each int32 or int64
-// (*_bytes); int32 F [A + 1].  The ftab, the outputs and the per-step
-// toehold (ssamp, over tk1, or ltk with run_start, and samples_last) are
-// rbt_seed_machine's; `threads` lanes a block and `stage` from ops/cuda_lf.py
-// launch_plan with one thread a lane (threads * staged stride bytes, at
-// most 47 KB).  Returns as rbt_seed_machine does.
+// int32 lanes (n below 2^31 - 1): `policy` and its tables as rbt_lf_tables
+// takes them (0 runs: occ = occ_flat, run_start, run_head, R and the bucket
+// directory rs_off [n_off] with (shift, iters), and the run records rec or
+// null; 1 dense: occ = occ_blk_flat, bwt4 int32 [nb * 16] 16-byte aligned,
+// A at most 16; 2 occ1: occ = occ1_flat), each int32 or int64 (*_bytes);
+// int32 F [A + 1].  The ftab, the outputs and the per-step toehold (ssamp,
+// over tk1, or ltk with run_start, and samples_last) are rbt_seed_machine's;
+// `threads` (two threads a lane over the run-space tables, else one) and
+// `stage` from ops/cuda_lf.py
+// launch_plan (lanes a block * staged stride bytes, at most 47 KB).
+// Returns as rbt_seed_machine does.
 int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes,
                             const void* run_start, int rs_bytes, const void* run_head,
-                            int rh_bytes, const void* bwt4, long long nb, int R, const void* F,
-                            int A, long long n, const void* q, const void* lengths, int B, int L,
-                            const void* ftab, int ftab_bytes, int k, int acgt, int wsize,
-                            long long max_range, int min_length, int W, void* rlo, void* rhi,
-                            void* rseed, void* nrec, int S, void* slo, void* shi, void* sqs,
-                            void* sqe, void* ns, const void* tk1, int tk1_bytes,
-                            const void* ltk, int ltk_bytes, const void* samples_last,
-                            int sl_bytes, void* ssamp, int threads, int stage, void* stream) {
+                            int rh_bytes, const void* rs_off, int off_bytes, long long n_off,
+                            int shift, int iters, const void* rec, const void* bwt4,
+                            long long nb, int R, const void* F, int A, long long n,
+                            const void* q, const void* lengths, int B, int L, const void* ftab,
+                            int ftab_bytes, int k, int acgt, int wsize, long long max_range,
+                            int min_length, int W, void* rlo, void* rhi, void* rseed, void* nrec,
+                            int S, void* slo, void* shi, void* sqs, void* sqe, void* ns,
+                            const void* tk1, int tk1_bytes, const void* ltk, int ltk_bytes,
+                            const void* samples_last, int sl_bytes, void* ssamp, int threads,
+                            int stage, void* stream) {
   const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
                 nullptr};
   const bool runs = policy == kRuns && run_start != nullptr && run_head != nullptr &&
-                    width(rs_bytes) && width(rh_bytes) && R >= 1;
-  const bool dense = policy == kDense && bwt4 != nullptr && A <= 16 &&
+                    width(rs_bytes) && width(rh_bytes) && R >= 1 &&
+                    valid_directory(rs_off, off_bytes, n_off, shift, iters, n) &&
+                    (rec == nullptr || valid_records(rec, A, 4));
+  const bool dense = policy == kDense && rec == nullptr && bwt4 != nullptr && A <= 16 &&
                      ((uintptr_t)bwt4 & 15) == 0 && nb >= (n + 127) / 128;
-  const bool tables = occ != nullptr && width(occ_bytes) && (runs || dense || policy == kOcc1);
+  const bool tables = occ != nullptr && width(occ_bytes) &&
+                      (runs || dense || (policy == kOcc1 && rec == nullptr));
   if (!tables || F == nullptr || n >= INT32_MAX ||
       !valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, nullptr,
                      ssamp, toe) ||
@@ -622,8 +642,9 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   using Lane = int32_t;
-  const Tabs t{occ, run_start, run_head, static_cast<const int4*>(bwt4), occ_bytes, rs_bytes,
-               rh_bytes, R, nb};
+  const Tabs t{occ, run_start, run_head, static_cast<const int4*>(bwt4), rs_off,
+               static_cast<const int4*>(rec), occ_bytes, rs_bytes, rh_bytes, off_bytes, R, nb,
+               n_off, shift, iters};
   const Out<Lane> o{(Lane*)rlo, (Lane*)rhi, (Lane*)rseed, (Lane*)nrec, (Lane*)slo, (Lane*)shi,
                     (Lane*)sqs, (Lane*)sqe, (Lane*)ns, nullptr, (Lane*)ssamp, W, S};
   const Params<Lane> p{nullptr, static_cast<const Lane*>(F), nullptr, 0, t, A, (Lane)n,
@@ -632,7 +653,9 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
                        min_length, toe, o};
   cudaStream_t s = (cudaStream_t)stream;
   const bool te = ssamp != nullptr;
-  if (policy == kRuns) return launch_tables<kRuns>(mode, te, p, threads, s);
+  if (policy == kRuns)
+    return rec != nullptr ? launch_tables<kRuns, true>(mode, te, p, threads, s)
+                          : launch_tables<kRuns>(mode, te, p, threads, s);
   if (policy == kDense) return launch_tables<kDense>(mode, te, p, threads, s);
   return launch_tables<kOcc1>(mode, te, p, threads, s);
 }

@@ -19,11 +19,68 @@ bit patterns instead, as the fused rows' words are: 4 bytes a word, not 8.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from rowbowt_tpu_torch.index import RbtIndex
+
+
+# run starts a bucket of the run-space directory aims at: a bucket of 2^shift
+# positions, shift = round(log2(n / R * RUN_SEG)) (bigindex.marker_buckets)
+RUN_SEG = 16
+
+
+def run_directory(run_start: np.ndarray, n: int, shift: int | None = None):
+    """(rs_off, (shift, iters)): the bucket directory over the sorted
+    run_start that ops/rank.bucketed_lower_bound searches, rs_off[b] the
+    first run starting at or after b << shift, n_off = (n >> shift) + 2
+    entries (int32 below 2^31 runs, else int64), iters the halvings that
+    the fullest bucket needs.  The run of x is bucketed_lower_bound(
+    run_start, rs_off, shift, iters, x + 1) - 1.  By default it is
+    bigindex.marker_buckets(run_start, n, RUN_SEG); `shift` forces the
+    bucket span (62 and above: one bucket, a binary search over every
+    run)."""
+    from rowbowt_tpu_torch.bigindex import marker_buckets
+
+    rs = np.asarray(run_start)
+    R = int(rs.shape[0])
+    if shift is None:
+        off, (shift, iters) = marker_buckets(rs, n, RUN_SEG)
+    else:
+        bounds = np.arange((n >> shift) + 2, dtype=np.int64) << shift
+        off = np.searchsorted(rs, np.minimum(bounds, np.iinfo(rs.dtype).max).astype(rs.dtype),
+                              side="left")
+        iters = max(1, int(np.ceil(np.log2(int(np.diff(off).max()) + 1))))
+    return np.asarray(off).astype(np.int32 if R < (1 << 31) else np.int64), (shift, iters)
+
+
+# codes a run record holds: run_start, run_head and occ[0..6) fill its 8
+# int32 words
+RUN_RECORD_CODES = 6
+
+
+def takes_run_records(A: int, lane_dtype: torch.dtype) -> bool:
+    """Whether the run-space step over an index of A codes with lanes of
+    lane_dtype reads the run records (run_records): at most
+    RUN_RECORD_CODES codes, and int32 lanes, as a record's words are."""
+    return 1 <= A <= RUN_RECORD_CODES and lane_dtype == torch.int32
+
+
+def run_records(run_start: np.ndarray, run_head: np.ndarray, occ_flat: np.ndarray, A: int):
+    """The run records the tables kernels read over the run-space tables of
+    an alphabet of at most RUN_RECORD_CODES codes: int32 [R * 8], run r's 8
+    words [run_start, run_head, occ[0..A)] zero-padded, so that a run's
+    start, code and count of c share one 32-byte sector."""
+    R = int(run_start.shape[0])
+    if not 1 <= A <= RUN_RECORD_CODES:
+        raise ValueError(f"run records hold at most {RUN_RECORD_CODES} codes, not {A}")
+    rec = np.zeros((R, 8), np.int32)
+    rec[:, 0] = run_start
+    rec[:, 1] = run_head
+    rec[:, 2:2 + A] = np.asarray(occ_flat).reshape(A, R).T
+    return rec.reshape(-1)
 
 
 @dataclasses.dataclass
@@ -44,6 +101,13 @@ class TorchIndex:
     # (bucket shift, sd16 rows a probe reads) of the marker run-pack rank
     # (bigindex.marker_run_pack, ops/rank._ms_runs); 0 = no run-pack tables
     ma_rp: tuple | int = 0
+    # (shift, iters) of rs_off, the bucket directory over run_start that the
+    # run-space step of the tables kernels searches (run_directory); () where
+    # no directory was built (with_run_tables)
+    rs_bs: tuple = ()
+    # host seconds with_run_tables took to build rs_off and run_rec and put
+    # them on the device
+    run_tables_s: float = 0.0
 
     @property
     def idx_dtype(self) -> torch.dtype:
@@ -80,6 +144,37 @@ class TorchIndex:
         arrs = {k: v for k, v in self.arrays.items() if k not in self._LEAN_DROP}
         return dataclasses.replace(self, arrays=arrs)
 
+    def with_run_tables(self, shift: int | None = None, host: dict | None = None
+                        ) -> "TorchIndex":
+        """This view with the tables of the tables kernels' run-space step:
+        the bucket directory rs_off and rs_bs over run_start (run_directory;
+        `shift` forces the bucket span) and, where takes_run_records, the
+        run records `run_rec` (kept where the view has them).  `host` holds
+        numpy run_start, run_head and occ_flat where the caller has them;
+        else they are read back from the device.  run_tables_s is the
+        seconds it took."""
+        t = time.perf_counter()
+
+        def table(k):
+            return np.asarray(host[k]) if host is not None else self.arrays[k].cpu().numpy()
+
+        off, bs = run_directory(table("run_start"), self.n, shift)
+        arrs = dict(self.arrays, rs_off=torch.from_numpy(off).to(self.device))
+        if "run_rec" not in arrs and takes_run_records(self.A, self.idx_dtype):
+            rec = run_records(table("run_start"), table("run_head"), table("occ_flat"), self.A)
+            # torch's own allocation: the kernels read a record as two
+            # 16-byte vectors of one 32-byte sector
+            arrs["run_rec"] = torch.empty(rec.shape, dtype=torch.int32, device=self.device)
+            arrs["run_rec"].copy_(torch.from_numpy(rec))
+        return dataclasses.replace(self, arrays=arrs, rs_bs=bs,
+                                   run_tables_s=time.perf_counter() - t)
+
+    @property
+    def run_tables_bytes(self) -> int:
+        """Bytes of rs_off and run_rec on the device (0 where not built)."""
+        return sum(self.arrays[k].numel() * self.arrays[k].element_size()
+                   for k in ("rs_off", "run_rec") if k in self.arrays)
+
     @staticmethod
     def from_arrays(arrays: dict[str, np.ndarray], *, n: int, R: int, A: int,
                     ma_wsize: int, ftab_k: int, acgt_codes, device, ma_bs: tuple = (),
@@ -89,15 +184,23 @@ class TorchIndex:
         `{k: np.asarray(v) for k, v in dx.arrays.items()}` with its ma_bs,
         pp_bs and ma_rp.  The packed words of `bwt4` are the exception: they
         stay 4 bytes, as int32 bit patterns like the fused rows' words, and
-        ops/rank.rank_dense masks each nibble after its shift."""
+        ops/rank.rank_dense masks each nibble after its shift.  On a CUDA
+        device, where the LF step is the run-space one
+        (ops/rank.lf_step_auto), the tables kernels' run-space tables are
+        built here, beside the other tables (with_run_tables); any rs_off or
+        run_rec among the leaves is dropped."""
+        from rowbowt_tpu_torch.ops import rank as R_
+
         device = torch.device(device)
         tensors = {}
         for k, v in arrays.items():
+            if k in ("rs_off", "run_rec"):
+                continue
             v = np.asarray(v)
             if v.dtype == np.uint32:
                 v = v.view(np.int32) if k == "bwt4" else v.astype(np.int64)
             tensors[k] = torch.from_numpy(np.require(v, requirements=["C", "W"])).to(device)
-        return TorchIndex(
+        tx = TorchIndex(
             arrays=tensors,
             n=int(n),
             R=int(R),
@@ -110,6 +213,10 @@ class TorchIndex:
             pp_bs=tuple(int(x) for x in pp_bs),
             ma_rp=tuple(int(x) for x in ma_rp) if ma_rp else 0,
         )
+        if (device.type == "cuda" and "run_start" in tensors
+                and R_.lf_step_auto(tx) is R_.lf_step):
+            tx = tx.with_run_tables(host=arrays)
+        return tx
 
     @staticmethod
     def from_index(idx: RbtIndex, device, fb64: bool | None = None) -> "TorchIndex":

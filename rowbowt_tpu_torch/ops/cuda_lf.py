@@ -23,12 +23,16 @@ for CPU tensors it runs `find_ranges_plain`, the torch version over
 ops/rank.py (`lf_start`, then `lf_loop_plain`), which is also what the kernel
 is held against on the card.  An index without fused-block rows (a
 `--no-dense` build, an alphabet of more than 8 codes) takes the tables
-kernel instead (csrc/lf.cu lf_tables_kernel, C entry rbt_lf_tables, one
-thread a lane, the ftab start in the kernel): the same search over the rank
-tables of the occ1, dense or run-space step (ops/rank.lf_step_auto's
-choice, TABLE_POLICIES), one launch a batch, counted per policy in
-LAUNCHES_TAB.  The JAX package runs those searches as XLA loops of
-rowbowt_tpu/ops/rank.py lf_step_occ1, lf_step_dense and lf_step.
+kernel instead (csrc/lf.cu lf_tables_kernel, C entry rbt_lf_tables, the
+ftab start in the kernel): the same search over the rank tables of the
+occ1, dense or run-space step (ops/rank.lf_step_auto's choice,
+TABLE_POLICIES), one launch a batch, counted per policy in LAUNCHES_TAB.
+The run-space step finds a run through the bucket directory rs_off over
+run_start, on two threads a lane, and reads the run records run_rec where
+the index has them (engine/device.TorchIndex.with_run_tables, built where
+the index is put on a CUDA device); a launch over an index without the
+directory raises.  The JAX package runs those searches as XLA
+loops of rowbowt_tpu/ops/rank.py lf_step_occ1, lf_step_dense and lf_step.
 
 `find_ranges_record` is the record mode's wrapper: for CUDA tensors the
 record launch (adding one to LAUNCHES_REC) or an error, never the torch
@@ -59,7 +63,7 @@ import ctypes
 import torch
 
 from rowbowt_tpu_torch import _native
-from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.engine.device import TorchIndex, takes_run_records
 from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 
@@ -82,6 +86,13 @@ LAUNCHES_TAB_TOE = {"runs": 0, "dense": 0, "occ1": 0}
 # without fused rows, and its code in csrc/lf.cu (enum Policy)
 TABLE_POLICIES = {R.lf_step: "runs", R.lf_step_dense: "dense", R.lf_step_occ1: "occ1"}
 _POLICY_CODE = {"runs": 0, "dense": 1, "occ1": 2}
+
+
+def lane_threads(policy: str) -> int:
+    """Threads a lane of the tables kernels over the `policy` tables
+    (csrc/lf_tables.cuh lane_threads): two for the run-space step, whose
+    ranks of lo and hi + 1 take one thread each, else one."""
+    return 2 if policy == "runs" else 1
 
 GROUP = 2  # threads per lane (csrc/lf.cu kG): two 16-byte parts of a 64 B row each
 LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
@@ -116,9 +127,9 @@ def build():
     lib.rbt_lf_toehold.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, ci, vp, ci,
                                    vp, ci, ci, vp, vp, vp, ci, ci, vp]
     ll = ctypes.c_longlong
-    lib.rbt_lf_tables.argtypes = [ci, vp, ci, vp, ci, vp, ci, vp, ll, ci, vp, ci, ci, ll, vp, vp,
-                                  ci, ci, vp, ci, ci, ci, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci,
-                                  ci, vp]
+    lib.rbt_lf_tables.argtypes = [ci, vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, vp, ll,
+                                  ci, vp, ci, ci, ll, vp, vp, ci, ci, vp, ci, ci, ci, vp, ci, vp,
+                                  ci, vp, ci, vp, vp, vp, ci, ci, vp]
     lib.rbt_lf_count.restype = lib.rbt_lf_count_transposed.restype = ci
     lib.rbt_lf_count_fb2.restype = lib.rbt_lf_toehold.restype = lib.rbt_lf_tables.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
@@ -466,15 +477,22 @@ def table_policy(tx: TorchIndex) -> str | None:
 
 def _table_operands(tx: TorchIndex, policy: str | None, toehold: bool) -> dict:
     """{argument: (table name, tensor)} of a tables launch: the rank tables
-    of `policy` (none for None: a launch over fused rows) and, for the
-    toehold, tk1 (where resident) or ltk and run_start, and samples_last."""
+    of `policy` (none for None: a launch over fused rows; for "runs" the
+    bucket directory rs_off, and the run records `run_rec` where the index
+    has them) and, for the toehold, tk1 (where resident) or ltk and
+    run_start, and samples_last."""
     n, A, R_ = tx.n, tx.A, tx.R
     arr = tx.arrays
     if policy is None:
         ops = {}
     elif policy == "runs":
+        if len(tx.rs_bs) != 2:
+            raise ValueError("the runs tables kernel needs rs_off's (shift, iters); the index "
+                             "has none (TorchIndex.with_run_tables builds them)")
         ops = {"occ": ("occ_flat", A * R_), "run_start": ("run_start", R_),
-               "run_head": ("run_head", R_)}
+               "run_head": ("run_head", R_), "rs_off": ("rs_off", (n >> tx.rs_bs[0]) + 2)}
+        if "run_rec" in arr:
+            ops["rec"] = ("run_rec", 8 * R_)
     elif policy == "dense":
         nb = arr["bwt4"].numel() // 16 if "bwt4" in arr else 0
         ops = {"occ": ("occ_blk_flat", A * nb), "bwt4": ("bwt4", 16 * nb)}
@@ -500,23 +518,29 @@ def _check_tables(tx: TorchIndex, policy: str, toehold: bool, qcodes, lengths, n
                   lanes: tuple, what: str) -> dict:
     """Refuse what a launch of `what` over tx's `policy` tables (and, with
     `toehold`, the toehold's) does not take: an alphabet outside 1..16
-    (dense) or 1..254; a table missing or misshapen (_table_operands); F not
-    of a dtype of `lanes`, the codes or lengths not int32, or they, a table
-    or an operand of `named` ((name, tensor, dtypes)) on another device than
-    the codes; int32 lanes for n >= 2^31 - 1; lengths that are not [B]; a
-    bwt4 that is not 16-byte aligned or holds too few blocks.  Returns the
+    (dense) or 1..254; a table missing or misshapen (_table_operands); F
+    not of a dtype of `lanes`, the codes, lengths or run records not int32,
+    or they, a table or an operand of `named` ((name, tensor, dtypes)) on
+    another device than the codes; int32 lanes for n >= 2^31 - 1; lengths
+    that are not [B]; a bwt4 that is not 16-byte aligned or holds too few
+    blocks; run records over an index that does not take them
+    (engine/device.takes_run_records) or not 32-byte aligned.  Returns the
     operands, {argument: (table name, tensor)}."""
     F = tx.arrays["F"]
     amax = 16 if policy == "dense" else 254
     if not 1 <= tx.A <= amax or F.numel() < tx.A + 1:
         raise ValueError(f"alphabet of {tx.A} codes; the {policy} tables take 1..{amax}")
+    if F.dtype == torch.int32 and tx.n >= (1 << 31) - 1:
+        raise ValueError(f"int32 lanes for n = {tx.n}")
     ops = _table_operands(tx, policy, toehold)
     _check_types((("F", F, lanes), ("qcodes", qcodes, (torch.int32,)),
                   ("lengths", lengths, (torch.int32,)), *named,
-                  *((name, t, (torch.int32,) if key == "bwt4" else (torch.int32, torch.int64))
+                  *((name, t, (torch.int32,) if key in ("bwt4", "rec") else
+                     (torch.int32, torch.int64))
                     for key, (name, t) in ops.items())), qcodes.device, what)
-    if F.dtype == torch.int32 and tx.n >= (1 << 31) - 1:
-        raise ValueError(f"int32 lanes for n = {tx.n}")
+    if "rec" in ops and (not takes_run_records(tx.A, F.dtype) or ops["rec"][1].data_ptr() % 32):
+        raise ValueError(f"run records over {tx.A} codes with {F.dtype} lanes, or not 32-byte "
+                         "aligned")
     if lengths.shape != (qcodes.shape[0],):
         raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
     bwt4 = ops["bwt4"][1] if policy == "dense" else None
@@ -525,16 +549,38 @@ def _check_tables(tx: TorchIndex, policy: str, toehold: bool, qcodes, lengths, n
     return ops
 
 
+def table_args(tx: TorchIndex, policy: str, ops: dict) -> tuple:
+    """The tables' arguments of rbt_lf_tables and rbt_seed_machine_tables,
+    from `policy` to R: the policy's code, occ, run_start, run_head and
+    rs_off (each a pointer and its width), rs_off's entries and (shift,
+    iters), the run records, bwt4 and its blocks, R."""
+    def ptr(key):
+        t = ops[key][1] if key in ops else None
+        return (t.data_ptr(), t.element_size()) if t is not None else (None, 0)
+
+    off = ops.get("rs_off", (None, None))[1]
+    rec = ops.get("rec", (None, None))[1]
+    bwt4 = ops.get("bwt4", (None, None))[1]
+    return (_POLICY_CODE[policy], *ptr("occ"),
+            *ptr("run_start"), *ptr("run_head"), *ptr("rs_off"),
+            off.numel() if off is not None else 0, *(tx.rs_bs if off is not None else (0, 0)),
+            rec.data_ptr() if rec is not None else None,
+            bwt4.data_ptr() if bwt4 is not None else None,
+            bwt4.numel() // 16 if bwt4 is not None else 0, tx.R)
+
+
 def launch_tables(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True,
                   toehold: bool = False):
     """Launch the tables kernel (csrc/lf.cu lf_tables_kernel) on CUDA tensors
     over an index without fused rows, shaped by launch_plan at one thread a
-    lane: (lo, hi), the count search from the ftab start where the index has
-    an ftab and `use_ftab`; or with `toehold` (lo, hi, k), the per-step
-    toehold search from the full range.  Lanes, F and the outputs are in the
-    index's lane type (F's dtype, int32 or int64); the codes and lengths
-    int32; each table int32 or int64 as the index holds it (`bwt4` int32
-    bit patterns, 16-byte aligned)."""
+    lane (two over the run-space tables, through the bucket directory
+    rs_off and the run records where the index has them): (lo, hi), the
+    count search from the ftab start where the index has an ftab and
+    `use_ftab`; or with `toehold` (lo, hi, k), the per-step toehold search
+    from the full range.  Lanes, F and the outputs are in the index's lane
+    type (F's dtype, int32 or int64); the codes and lengths int32; each
+    table int32 or int64 as the index holds it (`bwt4` int32 bit patterns,
+    16-byte aligned; the run records int32, 32-byte aligned)."""
     policy = table_policy(tx)
     if policy is None:
         raise ValueError("the tables kernel is for an index without fused rows; this one has "
@@ -548,7 +594,6 @@ def launch_tables(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True,
     ops = _check_tables(tx, policy, toehold, qcodes, lengths,
                         (("ftab", ftab, (torch.int32, torch.int64)),) if k else (),
                         (torch.int32, torch.int64), "the tables kernel")
-    bwt4 = ops["bwt4"][1] if policy == "dense" else None
     acgt = _packed_acgt(tx, k, ftab) if k else 0
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
     outs = [torch.empty(B, dtype=lane, device=dev) for _ in range(3 if toehold else 2)]
@@ -558,14 +603,12 @@ def launch_tables(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True,
         return (t.data_ptr(), t.element_size()) if t is not None else (None, 0)
 
     d = dev.index if dev.index is not None else torch.cuda.current_device()
-    threads, staged = launch_plan(B, L, _sm_count(d), group=1)
+    threads, staged = launch_plan(B, L, _sm_count(d), group=lane_threads(policy))
     lib = _LIB or build()
-    args = (_POLICY_CODE[policy], *ptr("occ"), *ptr("run_start"), *ptr("run_head"),
-            bwt4.data_ptr() if bwt4 is not None else None,
-            bwt4.numel() // 16 if bwt4 is not None else 0, tx.R, F.data_ptr(), F.element_size(),
-            tx.A, tx.n, qcodes.data_ptr(), lengths.data_ptr(), B, L, *ptr("ftab"), k, acgt,
-            *ptr("tk1"), *ptr("ltk"), *ptr("samples_last"), outs[0].data_ptr(),
-            outs[1].data_ptr(), outs[2].data_ptr() if toehold else None, threads, int(staged))
+    args = (*table_args(tx, policy, ops), F.data_ptr(), F.element_size(), tx.A, tx.n,
+            qcodes.data_ptr(), lengths.data_ptr(), B, L, *ptr("ftab"), k, acgt, *ptr("tk1"),
+            *ptr("ltk"), *ptr("samples_last"), outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr() if toehold else None, threads, int(staged))
     if d == torch.cuda.current_device():
         rc = lib.rbt_lf_tables(*args, _raw_stream(d))
     else:

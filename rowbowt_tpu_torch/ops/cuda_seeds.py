@@ -12,8 +12,10 @@ package runs as XLA fori_loops (rowbowt_tpu/engine/seeds.py:348, :500,
 K1's LF step over fused rows (C entry rbt_seed_machine: single-level rows
 with int32 lanes, a big index's two-level rows with int64 lanes), or on the
 tables kernel's step over the occ1, dense or run-space tables of an index
-without fused rows (C entry rbt_seed_machine_tables, int32 lanes).  On an
-index without kval the sampled machine also carries the per-step toehold
+without fused rows (C entry rbt_seed_machine_tables, int32 lanes; the
+run-space step through the bucket directory rs_off, on two threads a
+lane, over the run records where the index has them).  On an index
+without kval the sampled machine also carries the per-step toehold
 (RowBowt::LF_w_loc) and writes each seed's toehold.  The kernel writes the
 machines' records; the bulk marker probe, the expansion and the kval or
 trajectory toeholds stay torch code (engine/seeds.py).
@@ -68,9 +70,9 @@ def build():
                                       ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp,
                                       vp, vp] + toe + [ci, ci, vp])
     lib.rbt_seed_machine_tables.argtypes = [
-        ci, ci, vp, ci, vp, ci, vp, ci, vp, ll, ci, vp, ci, ll, vp, vp, ci, ci, vp, ci, ci, ci,
-        ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp, ci, vp, ci,
-        ci, vp]
+        ci, ci, vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, vp, ll, ci, vp, ci, ll, vp, vp,
+        ci, ci, vp, ci, ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp,
+        ci, vp, ci, vp, ci, ci, vp]
     lib.rbt_seed_machine.restype = lib.rbt_seed_machine_tables.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p
@@ -91,7 +93,8 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
                    record: bool = False) -> dict:
     """Launch the `mode` machine ("greedy", "lmem" or "sample") on CUDA
     tensors, shaped by cuda_lf.launch_plan: over fused rows (two threads a
-    lane), else over the tables of cuda_lf.table_policy (one thread a lane).
+    lane), else over the tables of cuda_lf.table_policy (cuda_lf.lane_threads
+    threads a lane: two over the run-space tables).
     k is the ftab start's k-mer length (0 for none; the caller decides as
     the torch loop does), W and S the record and seed capacities.  Returns
     the machine's tables in the index's lane type (int32 over single-level
@@ -176,7 +179,8 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
         return (t.data_ptr(), t.element_size()) if t is not None else (None, 0)
 
     d = dev.index if dev.index is not None else torch.cuda.current_device()
-    threads, staged = cuda_lf.launch_plan(B, L, _sm_count(d), group=2 if key else 1)
+    threads, staged = cuda_lf.launch_plan(B, L, _sm_count(d),
+                                          group=2 if key else cuda_lf.lane_threads(policy))
     lib = _LIB or build()
     lmem = mode == "lmem"
     lanes = (qcodes.data_ptr(), lengths.data_ptr(), B, L, *tab("ftab"), k, acgt, wsize,
@@ -193,12 +197,9 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
                 int(staged))
     else:
         entry = lib.rbt_seed_machine_tables
-        bwt4 = ops.get("bwt4", (None, None))[1]
-        args = (MODES[mode], cuda_lf._POLICY_CODE[policy], *tab("occ"), *tab("run_start"),
-                *tab("run_head"), bwt4.data_ptr() if bwt4 is not None else None,
-                bwt4.numel() // 16 if bwt4 is not None else 0, tx.R, F.data_ptr(), tx.A, tx.n,
-                *lanes, *tab("tk1"), *tab("ltk"), *tab("samples_last"), ptr("ssamp"), threads,
-                int(staged))
+        args = (MODES[mode], *cuda_lf.table_args(tx, policy, ops), F.data_ptr(), tx.A,
+                tx.n, *lanes, *tab("tk1"), *tab("ltk"), *tab("samples_last"), ptr("ssamp"),
+                threads, int(staged))
     if d == torch.cuda.current_device():
         rc = entry(*args, _raw_stream(d))
     else:

@@ -211,6 +211,96 @@ def test_a_stale_cache_is_rebuilt(marker_panel, tmp_path, cache):
     _eq(want(TB.BigIndex.load(p)), want(tb))  # ... and the rebuilt one is used
 
 
+@pytest.fixture(scope="module")
+def other_panel(marker_panel):
+    """(codes, sa) of the marker panel's text with 40 of its bases changed:
+    another BWT of the same n, the same documents and marker positions."""
+    from rowbowt_tpu.construct.build import build_index
+
+    idx, text, markers, _, _ = marker_panel
+    rng = np.random.default_rng(5)
+    text2 = np.array(text)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    at = rng.choice(np.flatnonzero(np.isin(text2, acgt)), 40, replace=False)
+    text2[at] = acgt[(np.searchsorted(acgt, text2[at]) + 1) % 4]
+    idx2 = build_index(text2, markers=markers, doc_starts=np.asarray(idx.doc_starts),
+                       doc_names=list(idx.doc_names), ma_wsize=idx.ma_wsize)
+    assert idx2.n == idx.n
+    return _codes_of(idx2), np.asarray(idx2.kval).astype(np.uint32)
+
+
+def _big_answers(tx, reads, jidx):
+    """(count ranges, toehold ranges, -m bounds of those, the phi walk of
+    those) of tx on the reads: what rbt_align count, -m and -s read."""
+    qc, lens, q, ln = _batch(jidx, reads)
+    lo, hi, k = TL.find_ranges_w_toehold(tx, q, ln)
+    return [*find_ranges(tx, q, ln), lo, hi, k, *TR.markers_bounds(tx, lo, hi),
+            *TL.locate(tx, lo, hi, k, max_hits=6)]
+
+
+def test_a_second_index_saved_over_the_first_answers_as_itself(marker_panel, other_panel,
+                                                                tmp_path):
+    """Two BigIndex of one n and other codes saved to one directory, each
+    loaded after its save (which writes every derived cache): the second's
+    view answers the count, toehold, -m and phi-walk queries as a fresh view
+    of it does, and as the first's does not; its save left no cache of the
+    first behind."""
+    idx, text, markers, codes, sa = marker_panel
+    codes2, sa2 = other_panel
+    p = str(tmp_path / "big")
+    reads = _reads_of(text, np.random.default_rng(13)) + [b""]
+    views = []
+    for c, s in ((codes, sa), (codes2, sa2)):
+        _, tb = _twins(c, idx, 4, sa=s, markers=markers, w=idx.ma_wsize)
+        tb.save(p)
+        assert not set(TB.BigIndex._CACHES) & set(os.listdir(p))
+        back = TB.BigIndex.load(p)
+        views.append((TorchIndex.from_big(back, "cpu"), TorchIndex.from_big(tb, "cpu")))
+        back._ma_cnt64()  # the one cache no device route writes
+        assert set(TB.BigIndex._CACHES) <= set(os.listdir(p))
+    (first, _), (loaded, fresh) = views
+    want = _big_answers(fresh, reads, idx)
+    _eq(_big_answers(loaded, reads, idx), want, "the second index")
+    assert any(not np.array_equal(g.numpy(), w.numpy())
+               for g, w in zip(_big_answers(first, reads, idx), want))
+    for name in ("fb2_64", "phi_rows", "phi_delta"):
+        np.testing.assert_array_equal(loaded.arrays[name].numpy(), fresh.arrays[name].numpy())
+
+
+@pytest.mark.parametrize("cache", ["fb2_64", "ma_cnt64", "run_pack", "phi"])
+def test_a_cache_older_than_its_source_is_rebuilt(marker_panel, other_panel, tmp_path, cache):
+    """A cache of another index's tables, of the right shape, written after
+    the artifact and then outdated by a newer source .npy (touched after the
+    cache was written), is rebuilt from the artifact, not used."""
+    idx, text, markers, codes, sa = marker_panel
+    codes2, sa2 = other_panel
+    dirs = {}
+    for tag, c, s in (("other", codes, sa), ("this", codes2, sa2)):
+        _, tb = _twins(c, idx, 4, sa=s, markers=markers, w=idx.ma_wsize)
+        dirs[tag] = (str(tmp_path / tag), tb)
+        tb.save(dirs[tag][0])
+    files, sources, read = {
+        "fb2_64": (["fb2_64.npy"], ["fb2"], lambda b: (b._fb2_64(),)),
+        "ma_cnt64": (["ma_cnt64.npy"], ["ma_row"], lambda b: (b._ma_cnt64(),)),
+        "run_pack": (["ma_runpack.npz"], ["ma_row"], lambda b: b._ma_runpack()[:3]),
+        "phi": (["phi_rows.npy", "phi_delta.npy"], ["pred_pos", "phi_at"],
+                lambda b: b._phi_pack())}[cache]
+    (other, _), (p, tb) = dirs["other"], dirs["this"]
+    read(TB.BigIndex.load(other))  # the other index's cache, next to its artifact
+    t = min(os.stat(os.path.join(p, f"{name}.npy")).st_mtime_ns for name in sources)
+    for f in files:
+        with open(os.path.join(other, f), "rb") as src, open(os.path.join(p, f), "wb") as dst:
+            dst.write(src.read())  # a copy, newer than this artifact: used as it stands
+        os.utime(os.path.join(p, f), ns=(t - 10**10, t - 10**10))  # as if written before ...
+    for name in sources:
+        os.utime(os.path.join(p, f"{name}.npy"))  # ... the source was touched
+    assert not TB.BigIndex.load(p)._fresh(os.path.join(p, files[0]), *sources)
+    want = read(tb)
+    _eq(read(TB.BigIndex.load(p)), want)  # rebuilt from this artifact ...
+    assert TB.BigIndex.load(p)._fresh(os.path.join(p, files[0]), *sources)
+    _eq(read(TB.BigIndex.load(p)), want)  # ... and the rebuilt cache is used
+
+
 # ---------------------------------------------------------------------------
 # the count path
 

@@ -34,9 +34,12 @@ from rowbowt_tpu_torch.construct import panel as TP
 from rowbowt_tpu_torch.construct import rawio as TRAW
 from rowbowt_tpu_torch.engine import count as TC
 from rowbowt_tpu_torch.engine import locate as TL
-from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.bigindex import marker_buckets
+from rowbowt_tpu_torch.engine.device import (RUN_SEG, TorchIndex, run_directory, run_records,
+                                             takes_run_records)
 from rowbowt_tpu_torch.io.fastq import read_seqs
 from rowbowt_tpu_torch.ops import cuda_lf
+from rowbowt_tpu_torch.ops.rank import bucketed_lower_bound
 from test_torch_build import write_inputs
 from test_torch_toehold import ACGT, _eq, _ints, _jax, _lanes, _text_reads
 
@@ -49,8 +52,8 @@ COUNT_CASES = {"nodense": ("nodense", (), "runs"), "iupac": ("iupac", (), "dense
 TOE_CASES = {"nodense": ("nodense", (), "runs", "ltk"), "random": ("random", (), "runs", "ltk"),
              "raw13": ("raw13", (), "occ1", "tk1"),
              "raw13_dense": ("raw13", ("occ1_flat", "tk1_flat"), "dense", "ltk")}
-TABLE_KEYS = ("occ_flat", "run_start", "run_head", "occ_blk_flat", "occ1_flat", "tk1_flat",
-              "ltk", "samples_last", "ftab")
+TABLE_KEYS = ("occ_flat", "run_start", "run_head", "rs_off", "occ_blk_flat", "occ1_flat",
+              "tk1_flat", "ltk", "samples_last", "ftab")
 
 
 @pytest.fixture(scope="module")
@@ -83,13 +86,17 @@ def cases(tmp_path_factory):
 
 def _pair(cases, name, drop=()):
     """(JAX DeviceIndex, port TorchIndex on the CPU, RbtIndex, text, reads)
-    of case `name` with the tables `drop` taken from both."""
+    of case `name` with the tables `drop` taken from both; over the
+    run-space tables the TorchIndex also holds the tables a load on the
+    card builds for the kernels (with_run_tables)."""
     idx, text, reads = cases[name]
     dx = DeviceIndex.from_index(idx)
     dx = DeviceIndex({k: v for k, v in dx.arrays.items() if k not in drop}, dx.n, dx.R, dx.A,
                      dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
     tx = TorchIndex.from_index(idx, "cpu")
     tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k not in drop})
+    if cuda_lf.table_policy(tx) == "runs":
+        tx = tx.with_run_tables()
     return dx, tx, idx, text, reads
 
 
@@ -116,14 +123,46 @@ def _nibbles(bwt4):
     return ((words[:, None] >> (4 * np.arange(8))) & 15).reshape(-1, 128)
 
 
+def run_of(t, x, bump=lambda key: None):
+    """(run of position x, its start) as lf_tables.cuh run_of finds them: x
+    + 1's bucket of the directory t["rs_off"] (shift t["shift"]), then at
+    most t["iters"] halvings of the run starts in it, the start from the
+    last probe below x + 1 or, where none was, one more load.  `bump` counts
+    the edges: an empty bucket, the last bucket, a search that takes every
+    halving, a start loaded after the search."""
+    rs, off = t["run_start"], t["rs_off"]
+    q = x + 1
+    b = min(q >> t["shift"], off.shape[0] - 2)
+    lo, hi = int(off[b]), int(off[b + 1])
+    if lo == hi:
+        bump("empty_bucket")
+    if b == off.shape[0] - 2:
+        bump("last_bucket")
+    start, it = None, 0
+    while it < t["iters"] and lo < hi:
+        mid = (lo + hi) >> 1
+        if rs[mid] < q:
+            lo, start = mid + 1, int(rs[mid])
+        else:
+            hi = mid
+        it += 1
+    if it == t["iters"]:
+        bump("iters_reached")
+    if start is None:
+        bump("start_loaded")
+        start = int(rs[lo - 1])
+    return lo - 1, start
+
+
 def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehold=False,
                  events=None):
     """(lo, hi) or with `toehold` (lo, hi, k) [B] as lf_tables_kernel
     computes them over the `policy` tables `t` (numpy: occ, and run_start
-    and run_head (runs), bwt4 (dense); tk1 or ltk with run_start, and
-    samples_last for the toehold).  `events`, a dict, counts the edges the
-    lanes reached.  A per-step toehold (the JAX step's recurrence) rides
-    beside the carried one and must agree."""
+    and run_head with the directory rs_off and its shift and iters, and
+    where the index has them the run records rec (runs); bwt4 (dense); tk1
+    or ltk with run_start, and samples_last for the toehold).  `events`, a
+    dict, counts the edges the lanes reached.  A per-step toehold (the JAX
+    step's recurrence) rides beside the carried one and must agree."""
     ev = events if events is not None else {}
     F = np.asarray(F).astype(np.int64)
     sym = _nibbles(t["bwt4"]) if policy == "dense" else None
@@ -131,16 +170,21 @@ def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehol
     def bump(key):
         ev[key] = ev.get(key, 0) + 1
 
-    def run_search(x, r, last, start):
-        end = last + 1
-        while end - r > 1:
-            mid = r + ((end - r) >> 1)
-            v = int(t["run_start"][mid])
-            if v <= x:
-                r, start = mid, v
-            else:
-                end = mid
-        return r, start
+    def run_rank(x, c):
+        """(rank(x, c), x's run, its start) as the run-space step reads
+        them: the run through the directory (run_of), then the run's head
+        and count of c from run_head and occ_flat, or from its record."""
+        r, start = run_of(t, x, bump)
+        if "rec" in t:
+            rec = t["rec"].reshape(-1, 8)[r]
+            assert rec[0] == start
+            start, head, occ = int(rec[0]), int(rec[1]), int(rec[2 + c])
+        else:
+            head, occ = int(t["run_head"][r]), int(t["occ"][c * R + r])
+        return occ + (x - start if head == c else 0), r, start
+
+    def head_of(r):
+        return int(t["rec"].reshape(-1, 8)[r, 1] if "rec" in t else t["run_head"][r])
 
     def rank(i, c):
         if policy == "occ1":
@@ -192,20 +236,16 @@ def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehol
             if i1 == n:
                 bump("hi1_is_n")
             if policy == "runs":
-                r0, s0 = run_search(lo, 0, R - 1, int(t["run_start"][0]))
-                cb = int(t["occ"][c * R + r0]) + (lo - s0 if t["run_head"][r0] == c else 0)
+                # lo's run and hi + 1's, each through the directory
+                cb = run_rank(lo, c)[0] if lo < n else int(F[c + 1] - F[c])
                 if i1 < n:
-                    last = min(R - 1, r0 + (i1 - s0))
-                    if last < R - 1:
-                        bump("window_search")
-                    r1, s1 = run_search(i1, r0, last, s0)
-                    ce = int(t["occ"][c * R + r1]) + (i1 - s1 if t["run_head"][r1] == c else 0)
+                    ce, r1, s1 = run_rank(i1, c)
                     if s1 == i1:
                         bump("hi1_starts_run")
-                    s = int(t["run_head"][r1 - 1 if s1 == i1 else r1])
+                    s = head_of(r1 - 1 if s1 == i1 else r1)
                 else:
                     ce = int(F[c + 1] - F[c])
-                    s = int(t["run_head"][R - 1])
+                    s = head_of(R - 1)
             else:
                 cb, ce = rank(lo, c), rank(i1, c)
                 if policy == "occ1":
@@ -243,12 +283,16 @@ def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehol
 
 def _tables_of(tx, toehold):
     """The model's tables: numpy views of tx's tensors, by the kernel's
-    operand names."""
+    operand names (the run records where tx has them, as the kernel reads
+    them then)."""
     policy = cuda_lf.table_policy(tx)
     t = {key: tx.arrays[name].numpy()
          for key, name in (("run_start", "run_start"), ("run_head", "run_head"),
-                           ("samples_last", "samples_last"), ("ltk", "ltk"))
+                           ("samples_last", "samples_last"), ("ltk", "ltk"),
+                           ("rs_off", "rs_off"), ("rec", "run_rec"))
          if name in tx.arrays}
+    if policy == "runs":
+        t["shift"], t["iters"] = tx.rs_bs
     t["occ"] = tx.arrays[{"runs": "occ_flat", "dense": "occ_blk_flat",
                           "occ1": "occ1_flat"}[policy]].numpy()
     if policy == "dense":
@@ -301,38 +345,120 @@ def test_toehold_model_and_port_match_jax(cases, case, L):
 
 def test_model_reaches_every_edge(cases):
     """Over every case at L = 100 the lanes reach every edge the model
-    counts (hi + 1 == n, hi + 1 starting a run, a run search in its window,
-    absent codes, a failure at the first step and later, length-0 lanes,
-    lanes started from the ftab, trivial and non-trivial steps, k == 0
-    wrapping to n - 1, lanes without a non-trivial step) and still equal
-    JAX."""
+    counts (hi + 1 == n, hi + 1 starting a run, absent codes, a failure at
+    the first step and later, length-0 lanes, lanes started from the ftab,
+    trivial and non-trivial steps, k == 0 wrapping to n - 1, lanes without a
+    non-trivial step; in the run-space directory an empty bucket, the last
+    bucket, a search taking every halving and a start loaded after it) and
+    still equal JAX."""
     events = {}
     for src, drop, _ in COUNT_CASES.values():
         dx, tx, idx, text, reads = _pair(cases, src, drop)
         qc, lens = _lanes(idx, text, reads, 100)
         _eq(_model_on(tx, qc, lens, events=events), _jax_count(dx, qc, lens, True))
+    # the run-space directory at a span of 4 positions (empty buckets under
+    # long runs) and of one bucket (a binary search over every run)
+    dx, tx, idx, text, reads = _pair(cases, "nodense")
+    qc, lens = _lanes(idx, text, reads, 100)
+    for shift in (2, 62):
+        _eq(_model_on(tx.with_run_tables(shift), qc, lens, events=events),
+            _jax_count(dx, qc, lens, True))
     for src, drop, _, _ in TOE_CASES.values():
         dx, tx, idx, text, reads = _pair(cases, src, drop + ("kval",))
         qc, lens = _lanes(idx, text, reads, 100)
         _eq(_model_on(tx, qc, lens, toehold=True, events=events), _jax(dx, qc, lens))
-    want = ("hi1_is_n", "hi1_starts_run", "window_search", "absent_code", "fail_first_step",
-            "fail_later", "length_0", "ftab_start", "trivial", "nontrivial", "k_wraps",
-            "no_nontrivial_step")
+    want = ("hi1_is_n", "hi1_starts_run", "absent_code", "fail_first_step", "fail_later",
+            "length_0", "ftab_start", "trivial", "nontrivial", "k_wraps", "no_nontrivial_step",
+            "empty_bucket", "last_bucket", "iters_reached", "start_loaded")
     assert all(events.get(e, 0) > 0 for e in want), [e for e in want if e not in events]
 
 
-def test_runs_window_holds_hi1s_run(cases):
-    """The window of hi + 1's run search, [lo's run, lo's run + hi + 1 -
-    run_start[lo's run]], holds hi + 1's run for every lo <= hi + 1 < n of
-    the --no-dense panel: a run holds at least one position."""
-    idx = cases["nodense"][0]
-    rs = np.asarray(idx.run_start).astype(np.int64)
+def _directory_cases():
+    """{name: (run_start, n, shift)}: run starts whose directory reaches
+    each edge of the search."""
     rng = np.random.default_rng(2)
-    lo = rng.integers(0, idx.n - 1, 20_000)
-    i1 = np.minimum(lo + rng.integers(0, 64, lo.shape[0]), idx.n - 1)
-    r0 = np.searchsorted(rs, lo, side="right") - 1
-    r1 = np.searchsorted(rs, i1, side="right") - 1
-    assert ((r1 >= r0) & (r1 <= np.minimum(r0 + (i1 - rs[r0]), idx.R - 1))).all()
+    spread = np.sort(rng.choice(np.arange(1, 50_000), 4_000, replace=False))
+    dense = np.concatenate([np.arange(0, 64), np.arange(64, 4_096, 37)])  # 64 runs of 1 first
+    gaps = np.array([0, 5, 6, 900, 901, 902, 3_000])  # empty buckets between
+    return {"one run": (np.array([0]), 1_000, None),
+            "one run, n = 1": (np.array([0]), 1, None),
+            "empty buckets": (gaps, 3_001, 4),
+            "a full bucket of runs of length 1": (dense, 4_096, 6),
+            "the default span": (np.concatenate([[0], spread]), 50_000, None),
+            "one bucket": (np.concatenate([[0], spread]), 50_000, 62),
+            "the last bucket": (np.concatenate([[0], spread, [49_999]]), 50_000, 3)}
+
+
+@pytest.mark.parametrize("width", [np.int32, np.int64])
+@pytest.mark.parametrize("name", list(_directory_cases()))
+def test_directory_finds_every_run(name, width):
+    """The run found through rs_off (run_directory; the kernel's search,
+    run_of, and ops/rank.bucketed_lower_bound) is searchsorted(run_start, x,
+    "right") - 1 for every x in [0, n), its start run_start of that run;
+    the directory is bigindex.marker_buckets' at the default span and, at
+    a bucket of 2^shift runs of length 1, its search takes every halving."""
+    rs, n, shift = _directory_cases()[name]
+    rs = rs.astype(width)
+    off, (sh, iters) = run_directory(rs, n, shift)
+    assert off.shape == ((n >> sh) + 2,) and off.dtype == np.int32
+    if shift is None:
+        want_off, want_bs = marker_buckets(rs, n, RUN_SEG)
+        np.testing.assert_array_equal(off, want_off)
+        assert (sh, iters) == want_bs
+    x = np.arange(n)
+    want = np.searchsorted(rs, x, side="right") - 1
+    got = bucketed_lower_bound(torch.from_numpy(rs), torch.from_numpy(off), sh, iters,
+                               torch.from_numpy(x + 1)).numpy() - 1
+    np.testing.assert_array_equal(got, want)
+    events = {}
+    t = {"run_start": rs, "rs_off": off, "shift": sh, "iters": iters}
+    found = [run_of(t, int(i), lambda k: events.__setitem__(k, events.get(k, 0) + 1))
+             for i in x]
+    np.testing.assert_array_equal([r for r, _ in found], want)
+    np.testing.assert_array_equal([s for _, s in found], rs[want])
+    if name == "a full bucket of runs of length 1":
+        assert iters == 7 and events.get("iters_reached")  # 64 starts: 7 halvings
+    if name == "empty buckets":
+        assert (np.diff(off) == 0).any() and events.get("empty_bucket")
+    if name == "one bucket":
+        assert off.shape == (2,) and iters == int(np.ceil(np.log2(rs.shape[0] + 1)))
+    assert events.get("last_bucket")
+
+
+def test_run_records_hold_the_run_tables(cases):
+    """The tables of the kernels' run-space step: built where the index
+    goes to a CUDA device (none on the CPU, and stale leaves dropped), by
+    with_run_tables: the directory, and where takes_run_records (at most 6
+    codes, int32 lanes) the run records, run r's [run_start, run_head,
+    occ[0..A)] zero-padded to 8 words; their bytes and seconds; records
+    refused above 6 codes."""
+    _, tx, idx, _, _ = _pair(cases, "nodense")
+    cpu = TorchIndex.from_index(idx, "cpu")
+    assert "rs_off" not in cpu.arrays and "run_rec" not in cpu.arrays and cpu.rs_bs == ()
+    assert cpu.run_tables_bytes == 0 and cpu.run_tables_s == 0
+    rec = tx.arrays["run_rec"].numpy().reshape(-1, 8)
+    assert rec.shape == (tx.R, 8) and rec.dtype == np.int32
+    np.testing.assert_array_equal(rec[:, 0], idx.run_start)
+    np.testing.assert_array_equal(rec[:, 1], idx.run_head)
+    np.testing.assert_array_equal(rec[:, 2:2 + tx.A].T.reshape(-1), tx.arrays["occ_flat"].numpy())
+    assert not rec[:, 2 + tx.A:].any()
+    assert tx.run_tables_bytes == 4 * (tx.arrays["rs_off"].numel() + 8 * tx.R)
+    assert tx.run_tables_s > 0
+    assert "run_rec" not in _widened(cpu, True).with_run_tables().arrays  # int64 lanes
+    stale = {k: v.numpy() for k, v in tx.arrays.items()}
+    again = TorchIndex.from_arrays(stale, n=tx.n, R=tx.R, A=tx.A, ma_wsize=0, ftab_k=tx.ftab_k,
+                                   acgt_codes=tx.acgt_codes, device="cpu")
+    assert "rs_off" not in again.arrays and "run_rec" not in again.arrays
+    with pytest.raises(ValueError, match="run records hold at most 6 codes"):
+        run_records(idx.run_start, idx.run_head, np.zeros(13 * tx.R), 13)
+
+
+@pytest.mark.parametrize("A,lane,want", [(1, torch.int32, True), (6, torch.int32, True),
+                                         (7, torch.int32, False), (13, torch.int32, False),
+                                         (6, torch.int64, False), (0, torch.int32, False)])
+def test_takes_run_records(A, lane, want):
+    """The run records serve an alphabet of 1 to 6 codes with int32 lanes."""
+    assert takes_run_records(A, lane) is want
 
 
 # ---------------------------------------------------------------------------
@@ -343,10 +469,11 @@ def _tables_lib(calls, rc):
     widths the wrapper passes; returns rc, writing nothing when rc != 0."""
     policies = {0: "runs", 1: "dense", 2: "occ1"}
 
-    def rbt_lf_tables(policy, occ, occ_b, rs, rs_b, rh, rh_b, bwt4, nb, R, F, lane_b, A, n, q,
-                      lengths, B, L, ftab, ftab_b, kf, acgt, tk1, tk1_b, ltk, ltk_b, sl, sl_b,
-                      lo, hi, k_out, threads, stage, stream):
-        c = dict(policy=policies[policy], occ=(occ, occ_b), rs=(rs, rs_b), rh=(rh, rh_b),
+    def rbt_lf_tables(policy, occ, occ_b, rs, rs_b, rh, rh_b, off, off_b, n_off, shift, iters,
+                      rec, bwt4, nb, R, F, lane_b, A, n, q, lengths, B, L, ftab, ftab_b, kf, acgt,
+                      tk1, tk1_b, ltk, ltk_b, sl, sl_b, lo, hi, k_out, threads, stage, stream):
+        c = dict(policy=policies[policy], occ=(occ, occ_b),
+                 rs=(rs, rs_b), rh=(rh, rh_b), off=(off, off_b, n_off, shift, iters), rec=rec,
                  bwt4=bwt4, nb=nb, R=R, lane=lane_b, A=A, n=n, q=q, B=B, L=L,
                  ftab=(ftab, ftab_b), kf=kf, acgt=acgt, tk1=(tk1, tk1_b), ltk=(ltk, ltk_b),
                  sl=(sl, sl_b), out=(lo, hi, k_out), threads=threads, stage=stage, stream=stream)
@@ -360,6 +487,11 @@ def _tables_lib(calls, rc):
             t["run_start"] = _ints(rs, R, rs_b)
         if pol == "runs":
             t["run_head"] = _ints(rh, R, rh_b)
+            t["rs_off"], t["shift"], t["iters"] = _ints(off, n_off, off_b), shift, iters
+            if rec:
+                t["rec"] = _ints(rec, 8 * R, 4)
+        else:
+            assert off is None and rec is None
         if pol == "dense":
             t["bwt4"] = _ints(bwt4, 16 * nb, 4)
         if k_out:
@@ -403,29 +535,46 @@ def fake_tables(monkeypatch):
 def _widened(tx, lanes):
     """tx with its tables int64 (as TorchIndex.from_arrays widens u32
     tables), the bwt4 words kept int32; with `lanes` F too, so that the
-    lanes are int64."""
+    lanes are int64, and no run records (a load at int64 lanes builds
+    none)."""
     keep = () if lanes else ("F",)
     return dataclasses.replace(tx, arrays={
         k: v.long() if k in TABLE_KEYS + ("F",) and k not in keep else v
-        for k, v in tx.arrays.items()})
+        for k, v in tx.arrays.items() if not (lanes and k == "run_rec")})
 
 
 def _all_cases():
     return ([(c, False) for c in COUNT_CASES] + [(c, True) for c in TOE_CASES])
 
 
-@pytest.mark.parametrize("width", ["int32", "int64_tables", "int64_lanes"])
-@pytest.mark.parametrize("case,toehold", _all_cases(),
-                         ids=[f"{c}-{'toehold' if t else 'count'}" for c, t in _all_cases()])
-def test_launch_path_equals_the_twin(cases, fake_tables, case, toehold, width):
+def _launch_cases():
+    """(case, toehold, width, records): every case at each width as loaded
+    ("default": over the run-space tables with the run records at int32
+    lanes, without at int64), and the run-space cases at int32 lanes
+    without the records (the step of an index of more than 6 codes)."""
+    out = [(c, t, w, "default") for c, t in _all_cases()
+           for w in ("int32", "int64_tables", "int64_lanes")]
+    runs = [(c, t) for c, t in _all_cases()
+            if (TOE_CASES if t else COUNT_CASES)[c][2] == "runs"]
+    return out + [(c, t, w, "no_records") for c, t in runs for w in ("int32", "int64_tables")]
+
+
+@pytest.mark.parametrize("case,toehold,width,records", _launch_cases(),
+                         ids=[f"{c}-{'toehold' if t else 'count'}-{w}-{r}"
+                              for c, t, w, r in _launch_cases()])
+def test_launch_path_equals_the_twin(cases, fake_tables, case, toehold, width, records):
     """launch_tables with the model behind its C entry == the plain twin,
-    at each width of the tables and the lanes; the operands are the
-    policy's tables at their own widths, the launch plan one thread a lane,
-    the ftab passed for the count search only."""
+    at each width of the tables and the lanes, over the run-space tables
+    with the run records and without; the operands are the policy's tables
+    at their own widths (the directory, and the run records where the
+    index has them), the launch plan lane_threads threads a lane (two over
+    the run-space tables), the ftab passed for the count search only."""
     src, drop = (TOE_CASES if toehold else COUNT_CASES)[case][:2]
     _, tx, idx, text, reads = _pair(cases, src, drop + (("kval",) if toehold else ()))
     if width != "int32":
         tx = _widened(tx, width == "int64_lanes")
+    if records == "no_records":
+        tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k != "run_rec"})
     qc, lens = _lanes(idx, text, reads, 100)
     q, ln = torch.from_numpy(qc), torch.from_numpy(lens)
     if toehold:
@@ -444,10 +593,17 @@ def test_launch_path_equals_the_twin(cases, fake_tables, case, toehold, width):
     assert (c["policy"], c["A"], c["n"], c["R"]) == (policy, tx.A, tx.n, tx.R)
     assert c["lane"] == (8 if width == "int64_lanes" else 4)
     assert c["occ"][1] == wide and c["q"] == q.data_ptr() and (c["B"], c["L"]) == qc.shape
-    assert (c["threads"], bool(c["stage"])) == cuda_lf.launch_plan(*qc.shape, 132, group=1)
+    group = cuda_lf.lane_threads(policy)
+    assert (c["threads"], bool(c["stage"])) == cuda_lf.launch_plan(*qc.shape, 132, group=group)
     assert c["threads"] % 32 == 0 and c["stream"] == 1000
     if policy == "runs":
         assert c["rs"][1] == c["rh"][1] == wide and c["bwt4"] is None
+        off, off_b, n_off, shift, iters = c["off"]
+        assert off == tx.arrays["rs_off"].data_ptr() and (shift, iters) == tx.rs_bs
+        assert n_off == (tx.n >> shift) + 2 and off_b == tx.arrays["rs_off"].element_size()
+        assert (c["rec"] is not None) == (records == "default" and width != "int64_lanes")
+        if c["rec"] is not None:
+            assert c["rec"] == tx.arrays["run_rec"].data_ptr()
     if policy == "dense":
         assert c["bwt4"] is not None and c["nb"] == tx.arrays["bwt4"].numel() // 16
     if toehold:
@@ -499,6 +655,13 @@ def test_refused_launch_raises_and_counts_nothing(cases, fake_tables):
     ("int32 lanes above 2^31", ValueError, "int32 lanes for n"),
     ("ftab shape", ValueError, "ftab of shape"),
     ("other device", ValueError, "is on meta"),
+    ("no rs_off", ValueError, "the runs tables kernel needs rs_off; the index has none"),
+    ("no rs_bs", ValueError, "needs rs_off's \\(shift, iters\\)"),
+    ("short rs_off", ValueError, "rs_off of shape"),
+    ("float rs_off", TypeError, "rs_off must be int32 or int64"),
+    ("int64 run records", TypeError, "run_rec must be int32"),
+    ("misaligned run records", ValueError, "or not 32-byte aligned"),
+    ("run records with int64 lanes", ValueError, "run records over 6 codes with torch.int64"),
 ])
 def test_launch_refuses(cases, fake_tables, fault, error, match):
     name = "iupac" if fault in ("int64 bwt4", "misaligned bwt4", "17 codes") else "nodense"
@@ -536,6 +699,20 @@ def test_launch_refuses(cases, fake_tables, fault, error, match):
         arrays["ftab"] = arrays["ftab"][:-1]
     elif fault == "other device":
         arrays["run_start"] = arrays["run_start"].to("meta")
+    elif fault == "no rs_off":
+        del arrays["rs_off"]
+    elif fault == "no rs_bs":
+        kw["rs_bs"] = ()
+    elif fault == "short rs_off":
+        arrays["rs_off"] = arrays["rs_off"][:-1]
+    elif fault == "float rs_off":
+        arrays["rs_off"] = arrays["rs_off"].float()
+    elif fault == "int64 run records":
+        arrays["run_rec"] = arrays["run_rec"].long()
+    elif fault == "misaligned run records":
+        arrays["run_rec"] = torch.cat([arrays["run_rec"][:1], arrays["run_rec"]])[1:]
+    elif fault == "run records with int64 lanes":
+        arrays["F"] = arrays["F"].long()
     with pytest.raises(error, match=match):
         cuda_lf.launch_tables(dataclasses.replace(tx, arrays=arrays, **kw), q, ln,
                               toehold=toehold)

@@ -112,7 +112,9 @@ def built(tmp_path_factory):
 
 def _pair(built, case):
     """(JAX DeviceIndex, port TorchIndex on the CPU, RbtIndex, text, reads)
-    of `case` with its tables dropped from both."""
+    of `case` with its tables dropped from both; over the run-space tables
+    the TorchIndex also holds the tables a load on the card builds for the
+    kernels (with_run_tables)."""
     src, drop, _, _ = EDGE_CASES[case]
     idx, text, reads = built[src]
     dx = DeviceIndex.from_index(idx)
@@ -120,6 +122,8 @@ def _pair(built, case):
                      dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
     tx = TorchIndex.from_index(idx, "cpu")
     tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k not in drop})
+    if cuda_lf.row_layout(tx) is None and cuda_lf.table_policy(tx) == "runs":
+        tx = tx.with_run_tables()
     return dx, tx, idx, text, reads
 
 
@@ -144,10 +148,31 @@ def _lanes_of(idx, text, reads, mode, L):
 # ---------------------------------------------------------------------------
 # the numpy model of the kernel
 
+def directory_runs(t, x):
+    """The run of each position of x as the run-space step finds it: x +
+    1's bucket of the directory t["rs_off"] (shift t["shift"]), then at most
+    t["iters"] halvings of the run starts in it (lf_tables.cuh run_of, lane
+    by lane in test_torch_lf_tables.run_of)."""
+    rs, off = np.asarray(t["run_start"], np.int64), np.asarray(t["rs_off"], np.int64)
+    q = x + 1
+    b = np.minimum(q >> t["shift"], off.shape[0] - 2)
+    lo, hi = off[b], off[b + 1]
+    for _ in range(t["iters"]):
+        live = lo < hi
+        mid = (lo + hi) >> 1
+        below = live & (rs[np.minimum(mid, rs.shape[0] - 1)] < q)
+        lo = np.where(below, mid + 1, lo)
+        hi = np.where(live & ~below, mid, hi)
+    assert (lo == hi).all()
+    return lo - 1
+
+
 def table_ranks(policy, t, F, A, n, R):
     """([n + 1, A] rank(i, c), [n] BWT symbols) as the tables kernel's step
     reads them from the `policy` tables t (numpy: occ; run_start and
-    run_head (runs); bwt4 (dense)); at i = n the code's total count."""
+    run_head with the directory rs_off and its shift and iters, or the run
+    records rec where the index has them (runs); bwt4 (dense)); at i = n
+    the code's total count."""
     F = np.asarray(F, np.int64)
     i = np.arange(n)
     total = (F[1:A + 1] - F[:A])[None]
@@ -163,11 +188,15 @@ def table_ranks(policy, t, F, A, n, R):
         rk = (np.asarray(t["occ"], np.int64).reshape(A, nb)[:, blk].T + pre[i]
               - pre[blk << 7])
         return np.vstack([rk, total]), sym
-    rs = np.asarray(t["run_start"], np.int64)
-    r = np.searchsorted(rs, i, side="right") - 1
-    head = np.asarray(t["run_head"], np.int64)[r]
-    occ = np.asarray(t["occ"], np.int64).reshape(A, R)[:, r].T
-    rk = occ + (head[:, None] == np.arange(A)) * (i - rs[r])[:, None]
+    r = directory_runs(t, i)
+    if "rec" in t:
+        rec = np.asarray(t["rec"], np.int64).reshape(R, 8)[r]
+        rs, head, occ = rec[:, 0], rec[:, 1], rec[:, 2:2 + A]
+    else:
+        rs = np.asarray(t["run_start"], np.int64)[r]
+        head = np.asarray(t["run_head"], np.int64)[r]
+        occ = np.asarray(t["occ"], np.int64).reshape(A, R)[:, r].T
+    rk = occ + (head[:, None] == np.arange(A)) * (i - rs)[:, None]
     return np.vstack([rk, total]), head
 
 
@@ -293,23 +322,31 @@ def _model_libs(tx, calls, rc, events=None):
     model; each returns rc, writing nothing when rc != 0."""
     rows_lib = _model_lib(tx, calls, rc, events) if cuda_lf.row_layout(tx) else None
 
-    def tables(mode, policy, occ, occ_b, rs, rs_b, rh, rh_b, bwt4, nb, R, F, A, n, q, lengths, B,
-               L, ftab, ftab_b, k, acgt, wsize, max_range, min_length, W, rlo, rhi, rseed, nrec,
-               S, slo, shi, sqs, sqe, ns, tk1, tk1_b, ltk, ltk_b, sl, sl_b, ssamp, threads,
-               stage, stream):
+    def tables(mode, policy, occ, occ_b, rs, rs_b, rh, rh_b, off, off_b, n_off, shift,
+               iters, rec, bwt4, nb, R, F, A, n, q, lengths, B, L, ftab, ftab_b, k, acgt, wsize,
+               max_range, min_length, W, rlo, rhi, rseed, nrec, S, slo, shi, sqs, sqe, ns, tk1,
+               tk1_b, ltk, ltk_b, sl, sl_b, ssamp, threads, stage, stream):
         name = {0: "greedy", 1: "lmem", 2: "sample"}[mode]
         pol = {0: "runs", 1: "dense", 2: "occ1"}[policy]
-        calls.append(dict(entry="tables", mode=name, policy=pol, A=A, n=n, R=R, B=B, L=L, k=k,
-                          ftab=(ftab, ftab_b), widths=(occ_b, rs_b, rh_b, tk1_b, ltk_b, sl_b),
-                          tables=(occ, rs, rh, bwt4, nb), toe=(tk1, ltk, sl, ssamp),
-                          wsize=wsize, max_range=max_range, min_length=min_length, W=W, S=S,
-                          threads=threads, stage=stage, stream=stream))
+        calls.append(dict(entry="tables", mode=name, policy=pol, A=A,
+                          n=n, R=R, B=B, L=L, k=k, ftab=(ftab, ftab_b),
+                          widths=(occ_b, rs_b, rh_b, tk1_b, ltk_b, sl_b),
+                          tables=(occ, rs, rh, bwt4, nb), directory=(off, off_b, n_off, shift,
+                                                                      iters), rec=rec,
+                          toe=(tk1, ltk, sl, ssamp), wsize=wsize, max_range=max_range,
+                          min_length=min_length, W=W, S=S, threads=threads, stage=stage,
+                          stream=stream))
         if rc or B == 0:
             return rc
         size = {"runs": A * R, "dense": A * nb, "occ1": A * (n + 1)}[pol]
         t = {"occ": _ints(occ, size, occ_b)}
         if pol == "runs":
             t["run_start"], t["run_head"] = _ints(rs, R, rs_b), _ints(rh, R, rh_b)
+            t["rs_off"], t["shift"], t["iters"] = _ints(off, n_off, off_b), shift, iters
+            if rec:
+                t["rec"] = _ints(rec, 8 * R, 4)
+        else:
+            assert off is None and rec is None
         if pol == "dense":
             t["bwt4"] = _ints(bwt4, 16 * nb, 4)
         Fn = _ints(F, A + 1, 4)
@@ -543,8 +580,9 @@ def test_model_reaches_every_edge(built, fake):
 def test_launch_passes_the_tables_and_the_toehold(built, fake, case):
     """What the wrapper hands the C entries: the tables entry with the
     case's policy, its tables at their widths, int32 F and lanes, the
-    ftab for greedy, one thread a lane (launch_plan with group 1); the
-    rows entry with the toehold's tables (tk1, or ltk with run_start, and
+    ftab for greedy, cuda_lf.lane_threads threads a lane (two over the
+    run-space tables, with the directory and the run records); the rows
+    entry with the toehold's tables (tk1, or ltk with run_start, and
     samples_last) and ssamp for the per-step toehold, two threads a lane."""
     _, tx, idx, text, reads = _pair(built, case)
     qc, lens = _lanes(idx, text, reads, 100)
@@ -563,8 +601,18 @@ def test_launch_passes_the_tables_and_the_toehold(built, fake, case):
         assert c["tables"][0] == tx.arrays[occ].data_ptr()
         assert c["widths"][0] == tx.arrays[occ].element_size()
         assert (c["tables"][3] is not None) == (policy == "dense")
-        assert (c["threads"], bool(c["stage"])) == cuda_lf.launch_plan(*qc.shape, 132, group=1)
+        group = cuda_lf.lane_threads(policy)
+        assert (c["threads"], bool(c["stage"])) == cuda_lf.launch_plan(*qc.shape, 132,
+                                                                        group=group)
         assert c["toe"] == (None, None, None, None) and c["stream"] == 1000
+        assert (c["rec"] is not None) == (policy == "runs")
+        if policy == "runs":
+            assert c["rec"] == tx.arrays["run_rec"].data_ptr()
+        if policy == "runs":
+            assert c["directory"][0] == tx.arrays["rs_off"].data_ptr()
+            assert c["directory"][2:] == ((tx.n >> tx.rs_bs[0]) + 2, *tx.rs_bs)
+        else:
+            assert c["directory"] == (None, 0, 0, 0, 0)
         assert all(t.dtype == torch.int32 for t in out.values())
     out = cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=19, S=8)
     c = fake["calls"][-1]
@@ -579,6 +627,30 @@ def test_launch_passes_the_tables_and_the_toehold(built, fake, case):
     want = TS.seeds_sample_records_plain(tx, q, ln, 19, 8, "per_step" if toe else "kval")
     _same_records(want, out)
     assert sum(cuda_seeds.LAUNCHES_SEED.values()) == (1 if rows else 2)
+
+
+@pytest.mark.parametrize("records", [True, False], ids=["records", "no_records"])
+def test_run_designs_write_the_twins_records(built, fake, records):
+    """Every machine over the run-space tables, through the run records and
+    without them (the step of an index of more than 6 codes), writes the
+    twins' records, at capacities that overflow; two threads a lane."""
+    _, tx, idx, text, reads = _pair(built, "nodense")
+    assert "run_rec" in tx.arrays
+    if not records:
+        tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k != "run_rec"})
+    qc, lens = _lanes(idx, text, reads, 100)
+    q, ln = torch.from_numpy(qc), torch.from_numpy(lens)
+    fake["install"](tx)
+    for mode, opt in RECORD_CASES.values():
+        opt = dict(opt, k=tx.ftab_k if opt.get("k") == "ftab" else opt.get("k", 0))
+        want = _records(tx, mode, qc, lens, opt)[0]
+        kw = (dict(min_length=opt["min_length"], S=opt["S"]) if mode == "sample" else
+              dict(k=opt["k"], wsize=WSIZE, W=opt["W"], S=1 if mode == "lmem" else opt["S"],
+                   max_range=min(opt.get("max_range", 1 << 62), (1 << 31) - 1)))
+        _same_records(want, cuda_seeds.launch_machine(tx, mode, q, ln, **kw))
+        c = fake["calls"][-1]
+        assert (c["rec"] is not None) == records
+        assert c["threads"] == cuda_lf.launch_plan(*qc.shape, 132, group=2)[0]
 
 
 def test_launch_on_a_view_and_no_lanes(built, fake):
@@ -613,9 +685,13 @@ def test_refused_launch_raises_and_counts_nothing(built, fake):
     ("int64 qcodes", TypeError, "qcodes must be int32"),
     ("alphabet", ValueError, "the dense tables take 1..16"),
     ("other device", ValueError, "is on meta"),
+    ("no rs_off", ValueError, "needs rs_off"),
+    ("int64 run records", TypeError, "run_rec must be int32"),
+    ("misaligned run records", ValueError, "or not 32-byte aligned"),
 ])
 def test_launch_refuses(built, fake, fault, error, match):
-    case = {"no run_head": "nodense", "alphabet": "iupac"}
+    case = {"no run_head": "nodense", "alphabet": "iupac", "no rs_off": "nodense",
+            "int64 run records": "nodense", "misaligned run records": "nodense"}
     _, tx, idx, text, reads = _pair(built, case.get(fault, "raw13"))
     fake["install"](tx)
     qc, lens = _lanes(idx, text, reads, 31)
@@ -635,6 +711,12 @@ def test_launch_refuses(built, fake, fault, error, match):
         t = dataclasses.replace(tx, A=17)
     elif fault == "other device":
         arrays["samples_last"] = arrays["samples_last"].to("meta")
+    elif fault == "no rs_off":
+        arrays.pop("rs_off")
+    elif fault == "int64 run records":
+        arrays["run_rec"] = arrays["run_rec"].long()
+    elif fault == "misaligned run records":
+        arrays["run_rec"] = torch.cat([arrays["run_rec"][:1], arrays["run_rec"]])[1:]
     if t is tx:
         t = dataclasses.replace(tx, arrays=arrays)
     with pytest.raises(error, match=match):

@@ -168,10 +168,10 @@ __device__ __forceinline__ void machine(const Params<typename Step::Lane>& p, co
   auto step = [&](int c, Lane& lo, Lane& hi) -> bool {
     return st.template step<TOE>(c, lo, hi, trivial);
   };
-  // the ftab range of the lane's last k codes: false on a miss (a k-mer
-  // with a code other than A, C, G, T, or none in the text)
-  auto ftab_range = [&](Lane& lo, Lane& hi) -> bool {
-    const int kc = kmer_code(code_at, L, p.k, p.acgt);
+  // the ftab range of k-mer code kc into (lo, hi): false, and (lo, hi)
+  // left as they are, on a miss (kc < 0: a k-mer with a code other than A,
+  // C, G, T; or none in the text)
+  auto ftab_range = [&](int kc, Lane& lo, Lane& hi) -> bool {
     if (kc < 0) return false;
     const int64_t flo = load_at(p.ftab, p.ftab_bytes, 2 * (int64_t)kc);
     if (flo < 0) return false;
@@ -211,11 +211,13 @@ __device__ __forceinline__ void machine(const Params<typename Step::Lane>& p, co
   if constexpr (MODE == kGreedy) {
     Lane lo = 0, hi = n1, i = 0;
     const int k = p.k;  // the ftab's k-mer length, 0 without the ftab start
-    if (k > 0 && m >= k && ftab_range(lo, hi)) i = k;
+    if (k > 0 && m >= k && ftab_range(kmer_code(code_at, L, k, p.acgt), lo, hi)) i = k;
+    // the torch loop's L steps from the start, each one position
+    const Lane iend = m < i + (Lane)L ? m : i + (Lane)L;
     Lane plo = lo, phi = hi, seed_ei = m, window_ei = m;
     int rp = 0;           // chars of an ftab restart left to replay (0: a normal step)
     bool rpmiss = false;  // the replay met an empty range: it holds the full range
-    for (int t = 0; t < L && i < m; ++t) {
+    while (i < iend) {
       const int c = code_at(col_of(i));
       const bool normal = rp == 0;
       Lane nlo = lo, nhi = hi;
@@ -242,8 +244,9 @@ __device__ __forceinline__ void machine(const Params<typename Step::Lane>& p, co
         window_ei = mi - 1;
       }
       if (k > 0) {
-        // the restart (rowbowt.hpp:454-464) as a k-step replay from the
-        // full range (the torch loop's rp/rpmiss)
+        // the restart (rowbowt.hpp:454-464): the torch loop replays the next
+        // k codes from the full range (rp/rpmiss), an empty step holding the
+        // full range for the rest of the replay
         const bool hit = fail && mi - 1 >= k;
         const bool rstep = rp > 0;
         const bool held = rpmiss || (rstep && !ne);
@@ -259,6 +262,22 @@ __device__ __forceinline__ void machine(const Params<typename Step::Lane>& p, co
         }
         rpmiss = hit ? false : held;
         rp = hit ? k : rstep ? rp - 1 : rp;
+        // where those k codes (positions i + 1 .. i + k, columns L - 1 - i -
+        // k .. L - 2 - i in text order) are all A, C, G or T, the replay's
+        // range is their ftab entry, or the full range where the k-mer is
+        // absent (the replay's empty step): one lookup, no replay.  A window
+        // with any other code replays: an index whose text holds that code
+        // can give it a non-empty range.
+        if (hit && i + k < iend && i + k < L) {
+          const int kc = kmer_code(code_at, L - 1 - (int)i, k, p.acgt);
+          if (kc >= 0) {
+            ftab_range(kc, lo, hi);
+            plo = lo;
+            phi = hi;
+            rp = 0;
+            i += k;
+          }
+        }
       } else if (ok) {
         lo = plo = nlo;
         hi = phi = nhi;
@@ -278,7 +297,7 @@ __device__ __forceinline__ void machine(const Params<typename Step::Lane>& p, co
     // every lane of at least k codes jumps k, its range the full one on
     // a miss (rowbowt.hpp:369-377); k is 0 where L < k (no lane jumps)
     if (k > 0 && m >= k) {
-      ftab_range(lo, hi);
+      ftab_range(kmer_code(code_at, L, k, p.acgt), lo, hi);
       i = k;
     }
     Lane window_ei = m;

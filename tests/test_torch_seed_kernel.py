@@ -72,11 +72,15 @@ def panel(tmp_path_factory):
 
 def _edge_reads(reads, rng):
     """Reads the panel's do not reach often: random ones (a failure every
-    few codes: restarts, replays that meet an empty step, seeds past S),
-    an N as the last code (a failure at the first step, an ftab miss), an N
-    inside (a replay over it), a repeat of one read (long seeds, few
+    few codes: restarts, their k-mers looked up in the ftab or absent from
+    it, seeds past S), random ones with an N in every few codes (restart
+    windows holding a code other than A, C, G, T: replays that meet an
+    empty step), an N as the last code (a failure at the first step, an
+    ftab miss), an N inside, a repeat of one read (long seeds, few
     failures), and the empty read."""
     out = [rng.choice(ACGT, size=int(m)).tobytes() for m in (100, 64, 40, 17, 8)]
+    acgtn = np.frombuffer(b"ACGTACGTACGTN", np.uint8)
+    out += [rng.choice(acgtn, size=int(m)).tobytes() for m in (100, 77)]
     long = reads[0] + reads[1]
     out += [long[:99] + b"N", b"N" + reads[2], reads[3][:20] + b"N" + reads[3][21:],
             (reads[4] * 4)[:100], long[:100], b"A", b""]
@@ -121,13 +125,54 @@ def rank_table(fb, syms, F, A, n, base=None, per_blk=1):
     return np.vstack([tab, (F[1:A + 1] - F[:A])[None]])
 
 
+def kmer_of(q, b, end, k, acgt):
+    """The ftab k-mer code of lane b's k codes before column `end` (csrc/
+    lf_rank.cuh kmer_code), or None where one of them is not A, C, G or T."""
+    kc = 0
+    for col in range(end - k, end):
+        two = [x for x in range(4) if acgt[x] == q[b, col]]
+        if not two:
+            return None
+        kc = (kc << 2) | two[-1]
+    return kc
+
+
+def run_lanes(lane, B, groups, order=None, events=None):
+    """The persistent launch's schedule (csrc/seeds.cu run_lanes): `groups`
+    thread groups, group g starting on lane order[g] (the kernel's order is
+    0 .. B - 1); each round runs one iteration of every group's lane (a
+    generator, lane(b), yielding once an iteration), and a group whose lane
+    has ended (its tail written) takes the next lane of `order` from the
+    counter, until none is left.  Returns the lanes in the order taken."""
+    order = list(range(B)) if order is None else [int(b) for b in order]
+    assert sorted(order) == list(range(B))
+    ev = events if events is not None else {}
+    queue = iter(order[groups:])
+    held = [lane(b) for b in order[:groups]]
+    taken = order[:groups]
+    while held:
+        going = []
+        for gen in held:
+            if next(gen, 0):
+                going.append(gen)
+                continue
+            b = next(queue, None)
+            if b is not None:
+                ev["taken_late"] = ev.get("taken_late", 0) + 1
+                taken.append(b)
+                going.append(lane(b))
+        held = going
+    return taken
+
+
 def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=0,
                   max_range=0, min_length=0, W=0, S=0, record=False, lane_bytes=4,
-                  events=None):
+                  events=None, groups=None, order=None):
     """The tables seed_machine_kernel<MODE> writes, as numpy [rows, B] and
-    [B] arrays of lane_bytes integers (keys as launch_machine's), lane by
-    lane; rk is rank_table's.  `events`, a dict, counts the edges the lanes
-    reached."""
+    [B] arrays of lane_bytes integers (keys as launch_machine's), its lanes
+    run by run_lanes over `groups` thread groups (all B by default) taken in
+    `order`; rk is rank_table's.  `events`, a dict, counts the edges the
+    lanes reached."""
     ev = events if events is not None else {}
     F = [int(x) for x in F]
     B, L = q.shape
@@ -146,14 +191,9 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
             return 1, 0
         return F[c] + cb, F[c] + ce - 1
 
-    def ftab_range(b):
-        kc = 0
-        for col in range(L - k, L):
-            two = [x for x in range(4) if acgt[x] == q[b, col]]
-            if not two:
-                return None
-            kc = (kc << 2) | two[-1]
-        if ftab[kc, 0] < 0:
+    def ftab_range(kc):
+        """The ftab entry of k-mer code kc, None on a miss."""
+        if kc is None or ftab[kc, 0] < 0:
             return None
         return int(ftab[kc, 0]), int(ftab[kc, 1])
 
@@ -171,7 +211,9 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         out["hi_rec"] = np.zeros((L, B))
     out = {key: v.astype(object) for key, v in out.items()}
 
-    for b in range(B):
+    def lane(b):
+        """Lane b's machine, one yield an iteration of the kernel's loop;
+        its tail (the final emission, nrec and ns) when it ends."""
         m = int(lens[b])
         nrec = ns = 0
         if m == 0:
@@ -204,14 +246,16 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         if mode == "greedy":
             lo, hi, i = 0, n1, 0
             if k and m >= k:
-                got = ftab_range(b)
+                got = ftab_range(kmer_of(q, b, L, k, acgt))
                 bump("ftab_start" if got else "ftab_miss")
                 if got:
                     (lo, hi), i = got, k
+            iend = min(m, i + L)  # the torch loop's L steps from the start
             plo, phi, seed_ei, window_ei = lo, hi, m, m
             rp, rpmiss = 0, False
-            t = 0
-            while t < L and i < m:
+            first = True
+            while i < iend:
+                yield 1
                 c = int(q[b, min(max(L - 1 - i, 0), L - 1)])
                 normal = rp == 0
                 if normal or not rpmiss:
@@ -220,8 +264,9 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                 else:
                     nlo, nhi, ne = lo, hi, False
                 ok, fail = normal and ne, normal and not ne
-                if fail and t == 0:
+                if fail and first:
                     bump("fail_first_step")
+                first = False
                 mi = m - i
                 w_trigger = ok and window_ei - (mi - 1) >= wsize
                 f_probe = fail and seed_ei - mi >= wsize
@@ -242,19 +287,33 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                     if ok:
                         lo, hi, plo, phi = nlo, nhi, nlo, nhi
                     elif fail:
-                        bump("restart_replay" if hit else "restart_to_full")
+                        if not hit:
+                            bump("restart_to_full")
                         lo, hi = 0, n1
                     elif rstep:
                         lo, hi = (0, n1) if held else (nlo, nhi)
                         plo, phi = lo, hi
+                        if rp == 1 and not held:
+                            bump("replay_nonempty")
                     rpmiss = False if hit else held
                     rp = k if hit else rp - 1 if rstep else rp
+                    # the next k codes as one ftab lookup where all are
+                    # A, C, G or T; else the replay above
+                    kc = kmer_of(q, b, L - 1 - i, k, acgt) if hit and i + k < min(iend, L) \
+                        else None
+                    if kc is not None:
+                        got = ftab_range(kc)
+                        bump("restart_lookup" if got else "restart_lookup_miss")
+                        lo, hi = got or (0, n1)
+                        plo, phi, rp = lo, hi, 0
+                        i += k
+                    elif hit:
+                        bump("restart_replay")
                 elif ok:
                     lo, hi, plo, phi = nlo, nhi, nlo, nhi
                 elif fail:
                     lo, hi = 0, n1
                 i += 1
-                t += 1
             if hi >= lo and seed_ei - (m - i) >= wsize:
                 bump("final_probe")
                 rec(lo, hi, ns)
@@ -263,15 +322,17 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         elif mode == "lmem":
             lo, hi, i = 0, n1, 0
             if k and m >= k:
-                got = ftab_range(b)
+                got = ftab_range(kmer_of(q, b, L, k, acgt))
                 bump("ftab_start" if got else "ftab_miss")
                 if got:
                     lo, hi = got
                 i = k
+            iend = min(m, i + L)
             window_ei, done = m, False
             elo, ehi, eqs = 1, 0, 0
-            t = 0
-            while t < L and i < m:
+            first = True
+            while i < iend:
+                yield 1
                 c = int(q[b, min(max(L - 1 - i, 0), L - 1)])
                 nlo, nhi = step(lo, hi, c)
                 ok = nlo <= nhi
@@ -283,12 +344,12 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                 if w_trigger:
                     window_ei = mi - 1
                 if not ok:
-                    bump("fail_first_step" if t == 0 else "lmem_fail")
+                    bump("fail_first_step" if first else "lmem_fail")
                     elo, ehi, eqs, done = lo, hi, mi, True
                     break
+                first = False
                 lo, hi = nlo, nhi
                 i += 1
-                t += 1
             if not done:
                 bump("lmem_complete")
                 if hi >= lo and i >= wsize and m > 0:
@@ -298,11 +359,10 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         else:
             lo, hi, plo, phi, ei = 0, n1, 0, n1, m
             jend = min(m, L)
-            for j in range(L):
+            for j in range(jend):
+                yield 1
                 if record:
                     out["hi_rec"][j, b] = hi
-                if j >= jend:
-                    continue
                 nlo, nhi = step(lo, hi, int(q[b, L - 1 - j]))
                 if nlo <= nhi:
                     lo, hi, plo, phi = nlo, nhi, nlo, nhi
@@ -314,12 +374,16 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                             bump("sample_degenerate")
                         put(plo, phi, m - j, ei)
                     lo, hi, plo, phi, ei = 0, n1, 0, n1, m - j - 1
+            if record:
+                out["hi_rec"][jend:, b] = hi
             if ei >= min_length:
                 put(plo, phi, 0, ei)
         if "nrec" in out:
             out["nrec"][b] = nrec
         if "ns" in out:
             out["ns"][b] = ns
+
+    run_lanes(lane, B, groups or B, order, ev)
     dt = np.int64 if lane_bytes == 8 else np.int32
     return {key: v.astype(np.int64).astype(dt) for key, v in out.items()}
 
@@ -575,8 +639,9 @@ def test_model_reaches_every_edge(panel, fake):
         _same_records(*_records(tx, "lmem", lq, ll, dict(k=6, W=L // WSIZE + 2)))
     want = ("hi1_is_n", "length_0", "ftab_start", "ftab_miss", "fail_first_step",
             "window_probe", "seed_final_probe", "final_probe", "max_range_cut",
-            "restart_replay", "restart_to_full", "replay_held", "w_overflow", "s_overflow",
-            "owner_past_s", "lmem_fail", "lmem_complete", "sample_degenerate")
+            "restart_lookup", "restart_lookup_miss", "restart_replay", "restart_to_full",
+            "replay_held", "w_overflow", "s_overflow", "owner_past_s", "lmem_fail",
+            "lmem_complete", "sample_degenerate")
     assert all(events.get(e, 0) > 0 for e in want), [e for e in want if e not in events]
 
 

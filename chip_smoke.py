@@ -5,10 +5,10 @@ rbt_locs paths on one NVIDIA GPU.
     python3 chip_smoke.py                 # every phase, then the kernel record
     python3 chip_smoke.py k1 parity       # only the named phases, in that order
                                           # (probes, parity, k1, pfp_big,
-                                          # build_small, nodense_chr, greedy,
-                                          # heuristic, lmem, locs,
-                                          # parallel_dp, parallel_sharded,
-                                          # parallel_stream)
+                                          # build_small, nodense_chr, raw_chr,
+                                          # big_chr, greedy, heuristic, lmem,
+                                          # locs, parallel_dp,
+                                          # parallel_sharded, parallel_stream)
 
 Builds the LF kernels (csrc/lf.cu: K1 and the tables kernel of an index
 without fused rows), the gather probes P1-P3
@@ -287,6 +287,7 @@ import io
 import json
 import math
 import os
+import re
 import resource
 import shutil
 import subprocess
@@ -662,7 +663,34 @@ def phase_build() -> None:
                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             for name, log in (("lf", cuda_lf.BUILD_LOG), ("gather_probe", cuda_gather.BUILD_LOG),
                               ("phi_walk", cuda_phi.BUILD_LOG), ("seeds", cuda_seeds.BUILD_LOG))}
-    emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs)
+    seeds = ptxas_instances(cuda_seeds.BUILD_LOG)
+    emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs,
+         seeds_instances=seeds,
+         seeds_spilling=[name for name, v in seeds.items() if v["spill_stores"] or v["spill_loads"]])
+
+
+def ptxas_instances(log: str) -> dict:
+    """{kernel instance: registers, stack frame and spill bytes} from nvcc's
+    -Xptxas -v report, the names demangled where c++filt is on PATH."""
+    out, name, props = {}, None, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {}
+        elif "Function properties for" in ln:
+            props = ln.split("Function properties for")[1].strip()
+        elif name and props == name and "bytes stack frame" in ln:
+            stack, stores, loads = (int(w) for w in re.findall(r"(\d+) bytes", ln)[:3])
+            out[name].update(stack=stack, spill_stores=stores, spill_loads=loads)
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(out), capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        out = {pretty.replace("(anonymous namespace)::", ""): v
+               for pretty, v in zip(names, out.values())}
+    return out
 
 
 def probe_cases(device):
@@ -2753,11 +2781,15 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
     toehold's lf_step_w_loc and lf_step_w_loc_occ1, wrapped for the call):
     the codes of the reads; the LF steps the kernel takes (a lane's active
     steps: to its length, for lmem to its failure, less greedy's replay
-    steps that hold the full range, which load nothing); ranked steps (a
+    steps that hold the full range and the k steps of each restart the
+    kernel takes as one ftab lookup, which load nothing); ranked steps (a
     code in [0, A)); the longest lane's ranked steps; distinct ftab entries
-    read; the bytes of the record tables it writes.  Over fused rows: row
-    loads (one or two a ranked step, none for a position n) and distinct
-    rows; over the tables (tables_entries): the distinct table entries the
+    read (the starts' and the lookups'); the bytes of the record tables it
+    writes; for greedy from the ftab its restarts: looked up (and of those,
+    k-mers absent from the ftab), replayed (a window holding another code
+    than A, C, G, T) and to the full range (fewer than k codes left).  Over
+    fused rows: row loads (one or two a ranked step, none for a position n)
+    and distinct rows; over the tables (tables_entries): the distinct table entries the
     ranks need (and BWT[hi]'s for the per-step toehold) and their bytes.
     For the per-step toehold also the seeds that resolve a toehold and the
     distinct toeholds they resolve (as many table entries, at most)."""
@@ -2800,15 +2832,16 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
     k = cfg.get("k", 0)
     toe = cuda_seeds.carries_toehold(tx, mode)
     i0 = torch.zeros(B, dtype=dt, device=dev)
-    ftab_entries = 0
+    ftab_codes = []
     if k:
         kc = R.kmer_codes(tx, q[:, L - k:])
         hit = R.ftab_lookup(tx, kc)[2] & (m >= k)
-        read = (kc >= 0) & (m >= k)
-        ftab_entries = int(torch.unique(kc[read]).numel())
+        ftab_codes.append(kc[(kc >= 0) & (m >= k)])
         i0 = torch.where(hit if mode == "greedy" else m >= k, k, 0).to(dt)
     rp = torch.zeros(B, dtype=dt, device=dev)
     rpmiss = torch.zeros(B, dtype=torch.bool, device=dev)
+    look = torch.zeros(B, dtype=torch.bool, device=dev)  # in a looked-up restart's window
+    restarts = dict.fromkeys(("lookup", "lookup_absent", "replay", "to_full"), 0)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     lane_ranked = torch.zeros(B, dtype=torch.int64, device=dev)
     lf_steps = ranked = two = 0
@@ -2821,13 +2854,26 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
             active = (t < m - i0) & ~done
             load = active
             if mode == "greedy" and k:
+                i = i0 + t
                 normal = active & (rp == 0)
-                hit = normal & ~ne & (m - i0 - t - 1 >= k)
+                hit = normal & ~ne & (m - i - 1 >= k)
                 rstep = active & (rp > 0)
-                load = active & (normal | ~rpmiss)
+                # the twin replays a restart's k codes; the kernel reads one
+                # ftab entry for them where all are A, C, G or T, and no row
+                load = active & (normal | (~rpmiss & ~look))
                 held = rpmiss | (rstep & ~ne)
                 rpmiss = torch.where(hit, False, held)
                 rp = torch.where(hit, k, torch.where(rstep, rp - 1, rp))
+                cols = (L - 1 - i).clamp(min=k).long()[:, None] - k + torch.arange(k, device=dev)
+                wkc = R.kmer_codes(tx, torch.gather(q, 1, cols))
+                lookup = hit & (wkc >= 0) & (i + k < torch.minimum(m, i0 + L)) & (i + k < L)
+                look = torch.where(hit, lookup, look)
+                ftab_codes.append(wkc[lookup])
+                absent = lookup & (tx.arrays["ftab"][wkc.clamp(min=0).long(), 0] < 0)
+                restarts["lookup"] += int(lookup.sum())
+                restarts["lookup_absent"] += int(absent.sum())
+                restarts["replay"] += int((hit & ~lookup).sum())
+                restarts["to_full"] += int((normal & ~ne & ~hit).sum())
             if mode == "lmem":
                 done = done | (active & ~ne)
         rk = load & (c >= 0) & (c < A)
@@ -2843,9 +2889,12 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
         else:
             ranks.append((c.long()[rk], lo.long()[rk], (hi + 1).long()[rk],
                           hi.long()[rk] if toe else None))
+    ftab_entries = int(torch.unique(torch.cat(ftab_codes)).numel()) if ftab_codes else 0
     out = dict(codes=int(m.clamp(max=L).sum()), lf_steps=lf_steps, ranked_steps=ranked,
                ftab_entries=ftab_entries, longest_lane_ranked_steps=int(lane_ranked.max()),
                out_bytes=sum(t.numel() * t.element_size() for t in rec.values()))
+    if mode == "greedy" and k:
+        out["restarts"] = restarts
     if key:
         out.update(row_loads=int(sum(r.numel() for r in rows)), two_row_steps=two,
                    distinct_rows=int(torch.unique(torch.cat(rows)).numel()) if rows else 0)
@@ -3003,6 +3052,8 @@ def seeds_times(tx, runs: dict, lat) -> dict:
         r["device_us"] = kernel_event_us([around(kern)], 10)
         r["profiled_us"] = profiled_kernel_us([kern], 3, (kname,))[kname]
         r["work"] = seed_work(tx, mode, q, ln, cfg)
+        if "restarts" in r["work"]:
+            r["restarts"] = r["work"]["restarts"]
         b = seed_bound(r["work"], B, tx, lat)
         r.update(bound=b, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                  share=b["bound_us"] / r["device_us"] if "bound_us" in b else None)
@@ -5643,8 +5694,9 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     return res
 
 
-SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small", "nodense_chr", "greedy",
-              "heuristic", "lmem", "locs", "parallel_dp", "parallel_sharded", "parallel_stream")
+SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small", "nodense_chr", "raw_chr",
+              "big_chr", "greedy", "heuristic", "lmem", "locs", "parallel_dp", "parallel_sharded",
+              "parallel_stream")
 
 
 def main(argv: list[str]) -> int:
@@ -5679,11 +5731,23 @@ def main(argv: list[str]) -> int:
             made: dict = {}
 
             def chr_main():
-                """The chr index and phase main's lines, built once."""
+                """The chr index and phase main's lines, built once (and
+                raw_chr's host build started beside what follows)."""
+                nonlocal raw_child
                 if not made:
                     made["chr"] = build_cli()
+                    if "raw_chr" in only:
+                        raw_child = start_raw_chr_build(made["chr"])
                     made["count"] = phase_main(device, card, made["chr"])
                 return made["chr"], made["count"]
+
+            def located():
+                """Phases locate and markers on chr, run once."""
+                if "loc" not in made:
+                    chr_, count = chr_main()
+                    made["loc"] = (phase_locate(device, card, chr_, count),
+                                   phase_markers(device, card, chr_, count))
+                return made["loc"]
 
             def big_chr_path():
                 if "big" not in made:
@@ -5719,14 +5783,20 @@ def main(argv: list[str]) -> int:
                 elif name == "build_small":
                     lat = made["k1"]["us_per_dependent_step"] if "k1" in made else None
                     phase_build_small(device, card, small_child, lat)
-                elif name == "nodense_chr":
+                elif name in ("nodense_chr", "raw_chr"):
                     chr_, count = chr_main()
                     k1 = k1_phase()
                     dense = {tag: seeding(tag) for tag in ("-f", "--heuristic", "--lmem",
                                                            "locs")}
-                    phase_nodense_chr(device, card, chr_, count,
-                                      phase_locate(device, card, chr_, count),
-                                      phase_markers(device, card, chr_, count), k1, dense)
+                    if name == "raw_chr":
+                        phase_raw_chr(device, card, chr_, count, *located(), k1, dense,
+                                      raw_child)
+                    else:
+                        phase_nodense_chr(device, card, chr_, count, *located(), k1, dense)
+                elif name == "big_chr":
+                    chr_, count = chr_main()
+                    phase_big_chr(device, card, chr_, count, k1_phase(), *located(),
+                                  {"out_text": seeding("locs")})
                 elif name in ("greedy", "heuristic", "lmem", "locs"):
                     seeding({"greedy": "-f", "heuristic": "--heuristic", "lmem": "--lmem",
                              "locs": "locs"}[name])

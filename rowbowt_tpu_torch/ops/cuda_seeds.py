@@ -16,9 +16,12 @@ without fused rows (C entry rbt_seed_machine_tables, int32 lanes; the
 run-space step through the bucket directory rs_off, on two threads a
 lane, over the run records where the index has them).  On an index
 without kval the sampled machine also carries the per-step toehold
-(RowBowt::LF_w_loc) and writes each seed's toehold.  The kernel writes the
-machines' records; the bulk marker probe, the expansion and the kval or
-trajectory toeholds stay torch code (engine/seeds.py).
+(RowBowt::LF_w_loc) and writes each seed's toehold.  Greedy's ftab restart
+is one lookup where the next k codes are A, C, G or T (the torch loop
+replays them), and the launch is persistent: the lane groups take their
+lanes as they finish from a counter (csrc/seeds.cu says why).  The kernel
+writes the machines' records; the bulk marker probe, the expansion and the
+kval or trajectory toeholds stay torch code (engine/seeds.py).
 
 `launch_machine` launches it on CUDA tensors and adds one to
 LAUNCHES_SEED[route], or raises: nothing gives way to a torch loop when the
@@ -68,11 +71,11 @@ def build():
     toe = [vp, ci, vp, ci, vp, ci, vp, ci, ci, vp]  # tk1, ltk, run_start, samples_last, R, ssamp
     lib.rbt_seed_machine.argtypes = ([ci, vp, ci, vp, vp, ci, ci, ll, ci, vp, vp, ci, ci, vp, ci,
                                       ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp,
-                                      vp, vp] + toe + [ci, ci, vp])
+                                      vp, vp] + toe + [vp, ci, ci, vp])
     lib.rbt_seed_machine_tables.argtypes = [
         ci, ci, vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, vp, ll, ci, vp, ci, ll, vp, vp,
         ci, ci, vp, ci, ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp,
-        ci, vp, ci, vp, ci, ci, vp]
+        ci, vp, ci, vp, vp, ci, ci, vp]
     lib.rbt_seed_machine.restype = lib.rbt_seed_machine_tables.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p
@@ -92,9 +95,15 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
                    max_range: int = 0, min_length: int = 0, W: int = 0, S: int = 0,
                    record: bool = False) -> dict:
     """Launch the `mode` machine ("greedy", "lmem" or "sample") on CUDA
-    tensors, shaped by cuda_lf.launch_plan: over fused rows (two threads a
-    lane), else over the tables of cuda_lf.table_policy (cuda_lf.lane_threads
-    threads a lane: two over the run-space tables).
+    tensors, its block shaped by cuda_lf.launch_plan (the kernel cuts it to
+    its instance family's size): over fused rows (two threads a lane), else
+    over the tables of cuda_lf.table_policy (cuda_lf.lane_threads threads a
+    lane: two over the run-space tables).  The grid is persistent (the
+    blocks the card holds at once, no more than the lanes need): each lane
+    group starts on a lane of the first wave, then, with its warp's other
+    ended groups, takes the next from a counter, a device int32 this
+    wrapper zeroes on the launch's stream; every lane writes its own
+    column, so the order lanes are taken in changes nothing.
     k is the ftab start's k-mer length (0 for none; the caller decides as
     the torch loop does), W and S the record and seed capacities.  Returns
     the machine's tables in the index's lane type (int32 over single-level
@@ -178,6 +187,9 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
         t = ftab if name == "ftab" else ops[name][1] if name in ops else None
         return (t.data_ptr(), t.element_size()) if t is not None else (None, 0)
 
+    # the counter from which the kernel's lane groups take their lanes past
+    # the first wave, zeroed on the launch's stream
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads, staged = cuda_lf.launch_plan(B, L, _sm_count(d),
                                           group=2 if key else cuda_lf.lane_threads(policy))
@@ -193,13 +205,13 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
                 base.data_ptr() if two_level else None,
                 fb.shape[0] // base.shape[0] if two_level else 0, tx.A, tx.n,
                 8 if two_level else 4, *lanes, ptr("hi_rec"), *tab("tk1"), *tab("ltk"),
-                *tab("run_start"), *tab("samples_last"), tx.R, ptr("ssamp"), threads,
-                int(staged))
+                *tab("run_start"), *tab("samples_last"), tx.R, ptr("ssamp"),
+                counter.data_ptr(), threads, int(staged))
     else:
         entry = lib.rbt_seed_machine_tables
         args = (MODES[mode], *cuda_lf.table_args(tx, policy, ops), F.data_ptr(), tx.A,
                 tx.n, *lanes, *tab("tk1"), *tab("ltk"), *tab("samples_last"), ptr("ssamp"),
-                threads, int(staged))
+                counter.data_ptr(), threads, int(staged))
     if d == torch.cuda.current_device():
         rc = entry(*args, _raw_stream(d))
     else:

@@ -1,14 +1,16 @@
 """The seeding state machines of rbt_markers and rbt_locs in one kernel
 launch a batch (ops/cuda_seeds.launch_machine, csrc/seeds.cu).
 
-A numpy model of the kernel's per-lane machine (one lane at a time, with
-real control flow: K1's LF step from the ranks of the fused rows; GREEDY's
-ftab start, window and seed-final probes, seeds, and the ftab restart as a
-k-step replay that holds the full range after an empty step; LMEM's one
-search to its failure; SAMPLE's seeds of at least min_length codes and its
-step record; the clamped record slots and the fill of the slots a lane
-leaves unwritten) sits behind a fake C entry that reads the addresses and
-widths the wrapper passes.  Through the public engines
+A numpy model of the kernel's per-lane machine (real control flow: K1's LF
+step from the ranks of the fused rows; GREEDY's ftab start, window and
+seed-final probes, seeds, and the ftab restart as one lookup where the next
+k codes are A, C, G or T, else a k-step replay that holds the full range
+after an empty step; LMEM's one search to its failure; SAMPLE's seeds of at
+least min_length codes and its step record; the clamped record slots and
+the fill of the slots a lane leaves unwritten), its lanes run by run_lanes
+as the persistent launch takes them (fewer lane groups than lanes, each
+taking the next lane from the counter as its lane ends), sits behind a fake
+C entry that reads the addresses and widths the wrapper passes.  Through the public engines
 (markers_greedy_seeding, markers_lmem_lanes, seeds_greedy_w_sample) it
 equals the JAX package's functions buffer for buffer, and so do the port's
 plain twins (the `*_records_plain` torch loops and the torch tail), on the
@@ -46,6 +48,9 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 WIDTHS = (1, 31, 100)
 WSIZE = 10
 MODES = ("greedy", "lmem", "sample")
+# the lane groups of the model behind the fake C entries: fewer than the
+# lanes, so that most lanes are taken from the counter as others end
+GROUPS = 7
 ZERO = dict.fromkeys(cuda_seeds.LAUNCHES_SEED, 0)
 
 
@@ -137,41 +142,47 @@ def kmer_of(q, b, end, k, acgt):
     return kc
 
 
-def run_lanes(lane, B, groups, order=None, events=None):
+def run_lanes(lane, B, groups, order=None, events=None, per_warp=1):
     """The persistent launch's schedule (csrc/seeds.cu run_lanes): `groups`
-    thread groups, group g starting on lane order[g] (the kernel's order is
-    0 .. B - 1); each round runs one iteration of every group's lane (a
-    generator, lane(b), yielding once an iteration), and a group whose lane
-    has ended (its tail written) takes the next lane of `order` from the
-    counter, until none is left.  Returns the lanes in the order taken."""
+    thread groups, `per_warp` of them a warp, group g starting on lane
+    order[g] (the kernel's first wave takes them in its own order, and the
+    rest as 0 .. B - 1); each round runs one iteration of every group's lane
+    (a generator, lane(b), yielding once an iteration; its tail is written
+    when it ends).  A group whose lane has ended waits until half of its
+    warp's groups still here are waiting: then it takes the next lane of
+    `order` from the counter, or leaves where none is left.  Returns the
+    lanes in the order taken."""
     order = list(range(B)) if order is None else [int(b) for b in order]
     assert sorted(order) == list(range(B))
     ev = events if events is not None else {}
     queue = iter(order[groups:])
-    held = [lane(b) for b in order[:groups]]
+    held = {g: lane(b) for g, b in enumerate(order[:groups])}  # None: waiting
     taken = order[:groups]
     while held:
-        going = []
-        for gen in held:
-            if next(gen, 0):
-                going.append(gen)
-                continue
-            b = next(queue, None)
-            if b is not None:
-                ev["taken_late"] = ev.get("taken_late", 0) + 1
-                taken.append(b)
-                going.append(lane(b))
-        held = going
+        for w in sorted({g // per_warp for g in held}):
+            here = [g for g in held if g // per_warp == w]
+            waiting = sum(held[g] is None for g in here)
+            for g in here:
+                if held[g] is None and 2 * waiting >= len(here):
+                    b = next(queue, None)
+                    if b is None:
+                        del held[g]
+                        continue
+                    ev["taken_late"] = ev.get("taken_late", 0) + 1
+                    taken.append(b)
+                    held[g] = lane(b)
+                if held[g] is not None and not next(held[g], 0):
+                    held[g] = None
     return taken
 
 
 def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=0,
                   max_range=0, min_length=0, W=0, S=0, record=False, lane_bytes=4,
-                  events=None, groups=None, order=None):
+                  events=None, groups=None, order=None, per_warp=16):
     """The tables seed_machine_kernel<MODE> writes, as numpy [rows, B] and
     [B] arrays of lane_bytes integers (keys as launch_machine's), its lanes
-    run by run_lanes over `groups` thread groups (all B by default) taken in
-    `order`; rk is rank_table's.  `events`, a dict, counts the edges the
+    run by run_lanes over `groups` thread groups (all B by default),
+    `per_warp` a warp, taken in `order`; rk is rank_table's.  `events`, a dict, counts the edges the
     lanes reached."""
     ev = events if events is not None else {}
     F = [int(x) for x in F]
@@ -302,6 +313,7 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                     kc = kmer_of(q, b, L - 1 - i, k, acgt) if hit and i + k < min(iend, L) \
                         else None
                     if kc is not None:
+                        yield 1  # the lookup's iteration of its own
                         got = ftab_range(kc)
                         bump("restart_lookup" if got else "restart_lookup_miss")
                         lo, hi = got or (0, n1)
@@ -383,7 +395,7 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         if "ns" in out:
             out["ns"][b] = ns
 
-    run_lanes(lane, B, groups or B, order, ev)
+    run_lanes(lane, B, groups or B, order, ev, per_warp)
     dt = np.int64 if lane_bytes == 8 else np.int32
     return {key: v.astype(np.int64).astype(dt) for key, v in out.items()}
 
@@ -398,7 +410,7 @@ def _model_lib(tx, calls, rc, events=None):
     def rbt_seed_machine(mode, fb, syms, F, base, per_blk, A, n, lane_b, q, lengths, B, L,
                          ftab, ftab_b, k, acgt, wsize, max_range, min_length, W, rlo, rhi,
                          rseed, nrec, S, slo, shi, sqs, sqe, ns, hi_rec, tk1, tk1_b, ltk, ltk_b,
-                         run_start, rs_b, samples_last, sl_b, R_, ssamp, threads, stage,
+                         run_start, rs_b, samples_last, sl_b, R_, ssamp, nxt, threads, stage,
                          stream):
         name = {0: "greedy", 1: "lmem", 2: "sample"}[mode]
         c = dict(mode=name, syms=syms, per_blk=per_blk, A=A, n=n, lane=lane_b, q=q, B=B, L=L,
@@ -406,11 +418,13 @@ def _model_lib(tx, calls, rc, events=None):
                  min_length=min_length, W=W, S=S, base=base, hi_rec=hi_rec,
                  outs=(rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns),
                  toe=(tk1, ltk, run_start, samples_last, ssamp),
-                 threads=threads, stage=stage, stream=stream)
+                 threads=threads, stage=stage, stream=stream, next=nxt)
         calls.append(c)
         assert ssamp is None, "the per-step toehold's model is test_torch_seed_tables.py's"
         if rc or B == 0:
             return rc
+        counter = _ints(nxt, 1, 4)
+        assert counter[0] == 0, "the wrapper zeroes the lane counter before the launch"
         fbn = _ints(fb, rows[0] * rows[1], 4).reshape(rows)
         Fn = _ints(F, A + 1, lane_b)
         bn = _ints(base, n_sup * 8, 8).reshape(-1, 8) if base else None
@@ -421,7 +435,8 @@ def _model_lib(tx, calls, rc, events=None):
             name, rk, Fn, A, n, _ints(q, B * L, 4).reshape(B, L), _ints(lengths, B, 4), k=k,
             ftab=_ints(ftab, 2 * 4 ** k, ftab_b).reshape(-1, 2) if k else None, acgt=codes,
             wsize=wsize, max_range=max_range, min_length=min_length, W=W, S=S,
-            record=bool(hi_rec), lane_bytes=lane_b, events=events)
+            record=bool(hi_rec), lane_bytes=lane_b, events=events, groups=GROUPS)
+        counter[0] = B  # every group's takes past the first wave, its last finding none
         names = {"wlo": rlo, "whi": rhi, "wseed": rseed, "nrec": nrec, "slo": slo, "shi": shi,
                  "sqs": sqs, "sqe": sqe, "ns": ns, "elo": slo, "ehi": shi, "eqs": sqs,
                  "hi_rec": hi_rec}

@@ -2781,16 +2781,14 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
     toehold's lf_step_w_loc and lf_step_w_loc_occ1, wrapped for the call):
     the codes of the reads; the LF steps the kernel takes (a lane's active
     steps: to its length, for lmem to its failure, less greedy's replay
-    steps that hold the full range and the k steps of each restart the
-    kernel takes as one ftab lookup, which load nothing); ranked steps (a
+    steps that hold the full range, which load nothing); ranked steps (a
     code in [0, A)); the longest lane's ranked steps; distinct ftab entries
-    read (the starts' and the lookups'); the bytes of the record tables it
-    writes; for greedy from the ftab its restarts: looked up (and of those,
-    k-mers absent from the ftab), replayed (a window holding another code
-    than A, C, G, T) and to the full range (fewer than k codes left).  Over
-    fused rows: row loads (one or two a ranked step, none for a position n)
-    and distinct rows; over the tables (tables_entries): the distinct table entries the
-    ranks need (and BWT[hi]'s for the per-step toehold) and their bytes.
+    read; the bytes of the record tables it writes; for greedy from the ftab
+    its restarts: replayed (k codes or more left) and to the full range
+    (fewer).  Over fused rows: row loads (one or two a ranked step, none for
+    a position n) and distinct rows; over the tables (tables_entries): the
+    distinct table entries the ranks need (and BWT[hi]'s for the per-step
+    toehold) and their bytes.
     For the per-step toehold also the seeds that resolve a toehold and the
     distinct toeholds they resolve (as many table entries, at most)."""
     import torch
@@ -2832,16 +2830,16 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
     k = cfg.get("k", 0)
     toe = cuda_seeds.carries_toehold(tx, mode)
     i0 = torch.zeros(B, dtype=dt, device=dev)
-    ftab_codes = []
+    ftab_entries = 0
     if k:
         kc = R.kmer_codes(tx, q[:, L - k:])
         hit = R.ftab_lookup(tx, kc)[2] & (m >= k)
-        ftab_codes.append(kc[(kc >= 0) & (m >= k)])
+        read = (kc >= 0) & (m >= k)
+        ftab_entries = int(torch.unique(kc[read]).numel())
         i0 = torch.where(hit if mode == "greedy" else m >= k, k, 0).to(dt)
     rp = torch.zeros(B, dtype=dt, device=dev)
     rpmiss = torch.zeros(B, dtype=torch.bool, device=dev)
-    look = torch.zeros(B, dtype=torch.bool, device=dev)  # in a looked-up restart's window
-    restarts = dict.fromkeys(("lookup", "lookup_absent", "replay", "to_full"), 0)
+    restarts = dict.fromkeys(("replay", "to_full"), 0)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     lane_ranked = torch.zeros(B, dtype=torch.int64, device=dev)
     lf_steps = ranked = two = 0
@@ -2854,25 +2852,14 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
             active = (t < m - i0) & ~done
             load = active
             if mode == "greedy" and k:
-                i = i0 + t
                 normal = active & (rp == 0)
-                hit = normal & ~ne & (m - i - 1 >= k)
+                hit = normal & ~ne & (m - i0 - t - 1 >= k)
                 rstep = active & (rp > 0)
-                # the twin replays a restart's k codes; the kernel reads one
-                # ftab entry for them where all are A, C, G or T, and no row
-                load = active & (normal | (~rpmiss & ~look))
+                load = active & (normal | ~rpmiss)
                 held = rpmiss | (rstep & ~ne)
                 rpmiss = torch.where(hit, False, held)
                 rp = torch.where(hit, k, torch.where(rstep, rp - 1, rp))
-                cols = (L - 1 - i).clamp(min=k).long()[:, None] - k + torch.arange(k, device=dev)
-                wkc = R.kmer_codes(tx, torch.gather(q, 1, cols))
-                lookup = hit & (wkc >= 0) & (i + k < torch.minimum(m, i0 + L)) & (i + k < L)
-                look = torch.where(hit, lookup, look)
-                ftab_codes.append(wkc[lookup])
-                absent = lookup & (tx.arrays["ftab"][wkc.clamp(min=0).long(), 0] < 0)
-                restarts["lookup"] += int(lookup.sum())
-                restarts["lookup_absent"] += int(absent.sum())
-                restarts["replay"] += int((hit & ~lookup).sum())
+                restarts["replay"] += int(hit.sum())
                 restarts["to_full"] += int((normal & ~ne & ~hit).sum())
             if mode == "lmem":
                 done = done | (active & ~ne)
@@ -2889,7 +2876,6 @@ def seed_work(tx, mode: str, q, ln, cfg: dict) -> dict:
         else:
             ranks.append((c.long()[rk], lo.long()[rk], (hi + 1).long()[rk],
                           hi.long()[rk] if toe else None))
-    ftab_entries = int(torch.unique(torch.cat(ftab_codes)).numel()) if ftab_codes else 0
     out = dict(codes=int(m.clamp(max=L).sum()), lf_steps=lf_steps, ranked_steps=ranked,
                ftab_entries=ftab_entries, longest_lane_ranked_steps=int(lane_ranked.max()),
                out_bytes=sum(t.numel() * t.element_size() for t in rec.values()))

@@ -80,16 +80,20 @@ def build_host_library() -> tuple[str, str]:
                             [s for s in srcs if not s.endswith("fastq_reader.cpp")])
 
 
-def build_cuda_library(stem: str, csrc: str = CSRC_DIR) -> tuple[str, str]:
-    """One hand-written Hopper kernel source, <csrc>/<stem>.cu (csrc/ of the
-    package, or another copy of it), for sm_90a, into its own library: each
-    source builds with its own nvcc, so the builds can run side by side.  The
-    headers beside it (lf_rank.cuh, which lf.cu and seeds.cu include) are
-    part of every library's hash."""
+# nvcc's flags for every kernel library: sm_90a, ptxas's register and spill
+# report (-Xptxas -v) in the build's output
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def build_cuda_library(stem: str) -> tuple[str, str]:
+    """One hand-written Hopper kernel source, csrc/<stem>.cu, for sm_90a, into
+    its own library: each source builds with its own nvcc, so the builds can
+    run side by side.  The headers of csrc/ (lf_rank.cuh, which lf.cu and
+    seeds.cu include) are part of every library's hash."""
     nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-    headers = tuple(os.path.join(csrc, f) for f in sorted(os.listdir(csrc))
+    cmd = [nvcc, *NVCC_FLAGS]
+    headers = tuple(os.path.join(CSRC_DIR, f) for f in sorted(os.listdir(CSRC_DIR))
                     if f.endswith(".cuh"))
-    return build_shared(f"librbt_{stem}", cmd, [os.path.join(csrc, f"{stem}.cu")],
+    return build_shared(f"librbt_{stem}", cmd, [os.path.join(CSRC_DIR, f"{stem}.cu")],
                         headers=headers)

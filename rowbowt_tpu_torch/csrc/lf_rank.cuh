@@ -98,14 +98,13 @@ __device__ __forceinline__ void stage_codes(uint8_t* s_code, const int32_t* __re
   }
 }
 
-// The ftab k-mer code of a lane's k codes before column `end`, columns end -
-// k .. end - 1 in text order (two bits a base, the first code highest; the
-// last match in acgt wins, as in ops/rank.py kmer_codes), or -1 where one of
-// them is not A, C, G or T.  end = L takes the lane's last k codes.
+// The ftab k-mer code of a lane's last k codes (two bits a base, the first
+// code highest; the last match in acgt wins, as in ops/rank.py kmer_codes),
+// or -1 where one of them is not A, C, G or T.
 template <typename CodeAt>
-__device__ __forceinline__ int kmer_code(const CodeAt& code_at, int end, int k, uint32_t acgt) {
+__device__ __forceinline__ int kmer_code(const CodeAt& code_at, int L, int k, uint32_t acgt) {
   int kc = 0;
-  for (int col = end - k; col < end; ++col) {
+  for (int col = L - k; col < L; ++col) {
     const int c = code_at(col);
     int two_bits = -1;
 #pragma unroll

@@ -7,7 +7,7 @@
 // steps of tens of kernel launches each.  The JAX package runs the same
 // loops as XLA fori_loops: rowbowt_tpu/engine/seeds.py:348
 // (markers_greedy_seeding), :500 (markers_lmem_lanes) and :112-117
-// (seeds_greedy_w_sample).  The machine body is written once (run_lanes),
+// (seeds_greedy_w_sample).  The machine body is written once (machine()),
 // templated on its LF step, the step policy:
 //   - Rows: K1's LF step (lf_rank.cuh: two ranks over a fused-block row by
 //     the lane's two threads), over the single-level rows with int32 lanes
@@ -22,21 +22,13 @@
 //   - GREEDY, RowBowt::get_markers_greedy_seeding (rowbowt.hpp:406-482):
 //     the ftab start, then per step the window probe on success and the
 //     seed-final probe and the seed on failure, and after a failure that
-//     leaves at least k codes the ftab restart (rowbowt.hpp:454-464): the
-//     range of the next k codes, or the full range where search_ftab misses
-//     (rowbowt.hpp:757); then the final probe and seed.  The torch loop
-//     replays those k codes one LF step at a time from the full range, an
-//     empty step holding the full range for the rest of the replay: the
-//     JAX package chose the replay because re-gathering a [B, k] window was
-//     slower on its TPU.  Here a lane's codes are in shared memory, so
-//     where the k codes are all A, C, G or T the restart is one k-mer code
-//     and one ftab load (the replay's range exactly: the ftab holds each
-//     k-mer's range, or a miss where the k-mer is absent, which the replay
-//     meets as an empty step), and the lane moves past the k codes in one
-//     iteration; a window holding another code replays, since an index
-//     whose text holds that code can give it a non-empty range.  Out: the
-//     range of every probe and its owning seed slot (rlo, rhi, rseed [W,
-//     B], nrec [B]) and the seeds (slo, shi, sqs, sqe [S, B], ns [B]);
+//     leaves at least k codes the ftab restart (rowbowt.hpp:454-464) as a
+//     k-step replay from the full range, with search_ftab's miss ->
+//     full-range quirk (rowbowt.hpp:757) as an empty range mid-replay that
+//     holds the full range for the rest of it; then the final probe and
+//     seed.  Out: the range of every probe and its owning seed slot (rlo,
+//     rhi, rseed [W, B], nrec [B]) and the seeds (slo, shi, sqs, sqe [S,
+//     B], ns [B]);
 //   - LMEM, the inner loop of RowBowt::get_markers_lmems (rowbowt.hpp:
 //     341-404): one search a lane from the ftab start until it fails, the
 //     ranges it would probe (rlo, rhi [W, B], nrec) and its one seed (elo,
@@ -63,39 +55,31 @@
 // ns even past S (the expansion drops those).  The slots a lane leaves
 // unwritten get the tables' fill values (the empty range (1, 0), zeros).
 // Every [W, B], [S, B] and [L, B] table is written column b by lane b, so
-// the results do not depend on the order in which lanes run.
+// the results do not depend on which thread group runs which lane.
 //
-// Lanes are taken as they finish.  The grid is persistent (the blocks an
-// SM holds at once, by cudaOccupancyMaxActiveBlocksPerMultiprocessor, times
-// the SMs, no more than the lanes need); each group of the lane's threads
-// starts on a lane of the first wave (run_lanes says in which order), and
-// a group whose lane has ended takes the next lane from a per-launch
-// counter, copying its codes into the group's own slot of shared memory.
-// The loop is flat: each iteration runs one step of whatever lane the
-// group holds, so the groups of a warp step together whichever lanes they
-// hold (with a loop over a lane's steps inside a loop over lanes, a warp
-// reconverges at the inner loop's end: Aila and Laine, Understanding the
-// Efficiency of Ray Traversal on GPUs, HPG 2009).  The ended groups of a
-// warp write their tails and take their next lanes together, once half of
-// the warp's groups wait: one atomic on the counter for them all (every
-// atomic on the one counter waits behind the others at the L2), their
-// loads in flight at once; where the first wave holds every lane, or once
-// a take finds none left, they read the block's flag instead of the
-// counter and leave.  The group's threads always hold the same lane, so the
-// step's shuffles over the group stay valid.  Greedy's restart lookup runs
-// in an iteration of its own, beside the other groups' steps.
+// Lanes and warps: a block runs its lanes b0 .. b0 + nl - 1, but in GREEDY
+// and SAMPLE, within each chunk of two warps' lanes, the first warp takes
+// the chunk's even lanes and the second its odd ones (lane_of).
+// rbt_markers -f lays a read's two strands side by side (lane 2r "+", 2r +
+// 1 "-"), and a reverse strand's lane, its k-mers mostly absent from the
+// index, fails every few codes, so a warp holds the lanes of one strand
+// and does not wait on the other's.  Two other designs were timed against
+// this one in turns on the same batches and dropped (PERF.md section 6):
+// greedy's restart as one ftab lookup of the next k codes where they are
+// A, C, G or T, and a persistent grid, one flat loop whose lane groups take
+// their next lanes from a counter as their lanes end.  Together they were
+// 0.95x and 0.98x this design's time on L-MEM and greedy over the
+// run-space tables, and 1.01-1.11x on every other batch.
 //
 // What bounds it: the step's loads, one step after another (K1's row loads;
 // over the run-space tables a bucket directory's entry, a search of the few
 // run starts in one bucket and the run's count, on two threads a lane with
 // the machine body run by both, as over rows), each lane's chain waiting on
-// the loads' latency, so that the most lanes resident at once is the
-// fastest; a restart is one ftab load (4^k entries of two words: 8 or 16 MB
-// at k = 10), the record writes a few words a lane.  Each instance family
-// is built for its block size and blocks an SM (Bounds) so that no
-// instance spills.
+// their latency, so the most lanes resident at once is the fastest; for
+// GREEDY a replay of k steps after each failure; the record writes are a
+// few words a lane.  Each instance family is built for its block size and
+// blocks an SM (Bounds), so that no instance spills.
 
-#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -145,7 +129,6 @@ struct Params {
   int min_length;
   Toe toe;  // the per-step toehold's tables (TOE), its k unused
   Out<Lane> out;
-  int* next;  // the lanes taken past the first wave (0 at the launch)
 };
 
 // K1's step over fused rows, by the lane's kG threads (their ranks are
@@ -193,110 +176,45 @@ struct Tables {
 // (__launch_bounds__), so that the register cap they set, 65,536 / (threads
 // * blocks), leaves every instance without a spill: 64 registers for the
 // int32 lanes (SYMS 0: the tables), 85 for the int64 lanes of the two-level
-// rows, 128 over their 256-symbol rows (greedy there needs more than 80).
-// The launch takes at most kThreads threads a block.
+// rows, 128 over their 256-symbol rows.  A launch of more than kThreads
+// threads a block is refused (ops/cuda_seeds.py plans within it).
 template <typename Lane, int SYMS>
 struct Bounds {
   static constexpr int kThreads = sizeof(Lane) == 8 ? 256 : 512;
   static constexpr int kBlocks = sizeof(Lane) == 4 ? 2 : SYMS == 256 ? 2 : 3;
 };
 
-// The first thread of each group of G threads in a warp.
-__host__ __device__ constexpr unsigned leads(int G) { return G == 2 ? 0x55555555u : 0xFFFFFFFFu; }
-
-// The lane a group of G threads (`group_mask` in the warp) takes once its
-// lane has ended: the counter's next value past the first wave (each
-// group's first lane is its own index, first_wave of them), by one
-// atomicAdd for the groups of the warp that take at once; B when none is
-// left.  `none`, the block's flag, is set by the first take that finds none
-// (or from the start where the first wave holds every lane), and later
-// takes read it instead of the counter: every atomic on the one counter
-// waits behind the others at the L2.  Every thread of the group returns it.
-template <int G>
-__device__ __forceinline__ int next_lane(int* counter, int first_wave, int B, volatile int* none,
-                                         unsigned group_mask) {
-  const int lane = threadIdx.x & 31;
-  int b = B;
-  if (lane % G == 0 && !*none) {
-    const unsigned takers = __activemask() & leads(G);
-    const int leader = __ffs(takers) - 1;
-    int base = 0;
-    if (lane == leader) base = atomicAdd(counter, __popc(takers));
-    base = __shfl_sync(takers, base, leader);
-    b = min(first_wave + base + __popc(takers & ((1u << lane) - 1u)), B);
-    if (b == B) *none = 1;
-  }
-  if constexpr (G > 1) b = __shfl_sync(group_mask, b, lane & ~(G - 1));
-  return b;
+// The lane (of the block's `lanes`) of lane group g, G threads a group, in
+// machine MODE: g, but for GREEDY and SAMPLE the order within each chunk of
+// two warps' groups, where the block holds whole chunks: the first warp
+// takes the chunk's even lanes, the second its odd ones (the header's
+// strands).  LMEM's lanes are one read's prefixes in turn (rbt_markers
+// --lmem), whose searches end near each other: a warp takes neighbours.
+template <int G, int MODE>
+__device__ __forceinline__ int lane_of(int g, int lanes) {
+  constexpr int chunk = 64 / G;
+  if (MODE == kLmem || lanes % chunk != 0) return g;
+  const int r = g % chunk;
+  return g + (r < chunk / 2 ? r : r - chunk + 1);
 }
 
-// Copies a lane's L codes (its row `row` of the [B, L] batch) into the
-// group's slot `mine` of shared memory, one byte a code (code_byte), by the
-// group's G threads (sub 0 .. G - 1), with 16-byte loads where the row
-// allows them.
-template <int G>
-__device__ __forceinline__ void stage_lane(uint8_t* mine, const int32_t* __restrict__ row, int L,
-                                           int A, int sub, unsigned group_mask) {
-  __syncwarp(group_mask);  // the group's reads of the lane before are done
-  if ((L & 3) == 0 && ((uintptr_t)row & 15) == 0) {
-    const int4* row4 = reinterpret_cast<const int4*>(row);
-#pragma unroll 4
-    for (int w = sub; w < L / 4; w += G) {
-      const int4 c = __ldg(row4 + w);
-      *reinterpret_cast<uint32_t*>(mine + 4 * w) =
-          (uint32_t)code_byte(c.x, A) | (uint32_t)code_byte(c.y, A) << 8 |
-          (uint32_t)code_byte(c.z, A) << 16 | (uint32_t)code_byte(c.w, A) << 24;
-    }
-  } else {
-    for (int i = sub; i < L; i += G) mine[i] = (uint8_t)code_byte(__ldg(row + i), A);
-  }
-  __syncwarp(group_mask);
-}
-
-// The machine MODE over the batch's lanes, on the step policy `st`, by one
-// group of the step's kGroup threads (`group` of the block's `groups`):
-// the persistent loop of the header.  `mine` is the group's slot of staged
-// codes (p.stage), `none` the block's flag of next_lane.  Only the group's
-// first thread writes.
-template <int MODE, bool TOE, typename Step>
-__device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, const Step& st,
-                                          uint8_t* mine, int group, int groups,
-                                          volatile int* none) {
+// The machine MODE of lane b on the step policy `st`; code_at(col) is the
+// lane's code at column col.  Only the `writer` thread of a lane writes.
+template <int MODE, bool TOE, typename Step, typename CodeAt>
+__device__ __forceinline__ void machine(const Params<typename Step::Lane>& p, const Step& st,
+                                        const CodeAt& code_at, int b, bool writer) {
   using Lane = typename Step::Lane;
-  constexpr int G = Step::kGroup;
   static_assert(!TOE || MODE == kSample, "the per-step toehold is the sampled machine's");
   const int L = p.L;
   const int B = p.B;
-  const bool writer = st.sub == 0;
-  // the first lane: the group's own index, but for the order within each
-  // chunk of two warps' lanes (which the block holds whole): the first warp
-  // takes the chunk's even lanes, the second its odd ones.  rbt_markers -f
-  // lays a read's two strands side by side (lane 2r "+", 2r + 1 "-"), and a
-  // reverse strand's lane, its k-mers mostly absent from the index, fails
-  // every few codes and ends long before the forward one: so a warp holds
-  // lanes of one strand, which end together, and a forward warp's
-  // iterations are not held by its reverse lanes' restarts.  Any other
-  // order of the lanes is as good as this one.
-  const int chunk = 64 / G;
-  int b = blockIdx.x * groups + group;
-  if (groups % chunk == 0) {
-    const int r = b % chunk;
-    b += r < chunk / 2 ? r : r - chunk + 1;
-  }
-  if (b >= B) return;
-  const int first_wave = gridDim.x * groups;
-  const int32_t* row_q = p.q + (size_t)b * L;
-  auto code_at = [&](int col) -> int {
-    return p.stage ? (int)mine[col] : code_byte(__ldg(row_q + col), p.A);
-  };
   bool trivial = false;
   auto step = [&](int c, Lane& lo, Lane& hi) -> bool {
     return st.template step<TOE>(c, lo, hi, trivial);
   };
-  // the ftab range of k-mer code kc into (lo, hi): false, and (lo, hi)
-  // left as they are, on a miss (kc < 0: a k-mer with a code other than A,
-  // C, G, T; or none in the text)
-  auto ftab_range = [&](int kc, Lane& lo, Lane& hi) -> bool {
+  // the ftab range of the lane's last k codes: false on a miss (a k-mer
+  // with a code other than A, C, G, T, or none in the text)
+  auto ftab_range = [&](Lane& lo, Lane& hi) -> bool {
+    const int kc = kmer_code(code_at, L, p.k, p.acgt);
     if (kc < 0) return false;
     const int64_t flo = load_at(p.ftab, p.ftab_bytes, 2 * (int64_t)kc);
     if (flo < 0) return false;
@@ -329,104 +247,18 @@ __device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, 
   auto in_range = [&](Lane lo, Lane hi) { return (long long)hi - lo + 1 <= p.max_range; };
 
   const Lane n1 = p.n - 1;
+  const Lane m = (Lane)p.lengths[b];
   const int wsize = p.wsize;
-  const int k = p.k;  // the ftab's k-mer length, 0 without the ftab start
-  // the lane's state, (re)set by begin() each time the group takes a lane
-  Lane m = 0, lo = 0, hi = 0, i = 0, iend = 0;
-  Lane plo = 0, phi = 0, seed_ei = 0, window_ei = 0;  // GREEDY (window_ei: LMEM too)
-  int rp = 0;           // GREEDY: chars of a restart left to replay (0: a normal step)
-  bool rpmiss = false;  // GREEDY: the replay met an empty range: it holds the full range
-  bool rs = false;      // GREEDY: the iteration looks up the restart of the one before
-  Lane elo = 1, ehi = 0, eqs = 0;  // LMEM: the seed
-  bool done = false;               // LMEM: the search failed
-  Lane ei = 0;                     // SAMPLE: the current seed's end
-  int j = 0, jend = 0;             // SAMPLE: the step and the lane's steps
-  // TOE: the current run's last non-trivial step (code tc, pre-step hi thi;
-  // tc < 0: none since the restart) and its trivial steps since, and their
-  // copy after the last successful step (pc == kNone: none)
-  constexpr int kNone = -2;
-  int tc = -1, triv = 0, pc = kNone, ptriv = 0;
-  Lane thi = 0, pthi = 0;
   int nrec = 0, ns = 0;
-  bool live = false;  // the lane has steps left
 
-  // a seed of SAMPLE and, for TOE, its toehold from the copy
-  auto seed = [&](int slot, Lane qs, Lane qe) {
-    if (!put(slot, plo, phi, qs, qe)) return;
-    if constexpr (TOE)
-      o.ssamp[(size_t)slot * B + b] =
-          pc == kNone ? (Lane)-1 : (Lane)resolve_toehold(p.toe, p.n, pc, pthi, ptriv);
-  };
-
-  // the lane's start: its ftab start (GREEDY, LMEM) and its state
-  auto begin = [&]() {
-    m = (Lane)p.lengths[b];
-    nrec = ns = 0;
-    lo = 0;
-    hi = n1;
-    i = 0;
-    if constexpr (MODE == kGreedy) {
-      if (k > 0 && m >= k && ftab_range(kmer_code(code_at, L, k, p.acgt), lo, hi)) i = k;
-      plo = lo;
-      phi = hi;
-      seed_ei = window_ei = m;
-      rp = 0;
-      rpmiss = false;
-      rs = false;
-    } else if constexpr (MODE == kLmem) {
-      // every lane of at least k codes jumps k, its range the full one on
-      // a miss (rowbowt.hpp:369-377); k is 0 where L < k (no lane jumps)
-      if (k > 0 && m >= k) {
-        ftab_range(kmer_code(code_at, L, k, p.acgt), lo, hi);
-        i = k;
-      }
-      window_ei = m;
-      elo = 1;
-      ehi = 0;
-      eqs = 0;
-      done = false;
-    } else {
-      plo = 0;
-      phi = n1;
-      ei = m;
-      j = 0;
-      jend = m < L ? (int)m : L;
-      tc = -1;
-      triv = 0;
-      pc = kNone;
-      ptriv = 0;
-      thi = pthi = 0;
-    }
-    // the torch loops' L steps from the start, each one position
-    iend = m < i + (Lane)L ? m : i + (Lane)L;
-    live = MODE == kSample ? j < jend : i < iend;
-  };
-
-  // one iteration of the lane's loop
-  auto iterate = [&]() {
-    if constexpr (MODE == kGreedy) {
-      if (rs) {
-        // the restart of the iteration before (a failure with at least k
-        // codes left, the range full): where the k codes from position i
-        // on (columns L - i - k .. L - 1 - i in text order) are all A, C,
-        // G or T, the replay's range is their ftab entry, or the full
-        // range where the k-mer is absent (the replay's empty step): one
-        // load in an iteration of its own, so the warp's other groups step
-        // beside it; another code replays them (an index whose text holds
-        // that code can give it a non-empty range)
-        rs = false;
-        const int kc = kmer_code(code_at, L - (int)i, k, p.acgt);
-        if (kc >= 0) {
-          ftab_range(kc, lo, hi);
-          plo = lo;
-          phi = hi;
-          i += k;
-        } else {
-          rp = k;
-        }
-        live = i < iend;
-        return;
-      }
+  if constexpr (MODE == kGreedy) {
+    Lane lo = 0, hi = n1, i = 0;
+    const int k = p.k;  // the ftab's k-mer length, 0 without the ftab start
+    if (k > 0 && m >= k && ftab_range(lo, hi)) i = k;
+    Lane plo = lo, phi = hi, seed_ei = m, window_ei = m;
+    int rp = 0;           // chars of an ftab restart left to replay (0: a normal step)
+    bool rpmiss = false;  // the replay met an empty range: it holds the full range
+    for (int t = 0; t < L && i < m; ++t) {
       const int c = code_at(col_of(i));
       const bool normal = rp == 0;
       Lane nlo = lo, nhi = hi;
@@ -439,8 +271,8 @@ __device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, 
       const bool w_trigger = ok && window_ei - (mi - 1) >= wsize;
       const bool f_probe = fail && seed_ei - mi >= wsize;
       if (w_trigger || f_probe) {
-        const Lane tlo = fail ? plo : nlo, thi_ = fail ? phi : nhi;
-        if (in_range(tlo, thi_)) record(nrec++, tlo, thi_, (Lane)ns);
+        const Lane tlo = fail ? plo : nlo, thi = fail ? phi : nhi;
+        if (in_range(tlo, thi)) record(nrec++, tlo, thi, (Lane)ns);
       }
       if (w_trigger) window_ei = mi - 1;
       if (fail) {
@@ -453,9 +285,8 @@ __device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, 
         window_ei = mi - 1;
       }
       if (k > 0) {
-        // the restart (rowbowt.hpp:454-464) of a failure with k codes
-        // left: a replay of those k codes from the full range (rp/rpmiss,
-        // the torch loop's), or the lookup of the next iteration (rs)
+        // the restart (rowbowt.hpp:454-464) as a k-step replay from the
+        // full range (the torch loop's rp/rpmiss)
         const bool hit = fail && mi - 1 >= k;
         const bool rstep = rp > 0;
         const bool held = rpmiss || (rstep && !ne);
@@ -471,10 +302,6 @@ __device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, 
         }
         rpmiss = hit ? false : held;
         rp = hit ? k : rstep ? rp - 1 : rp;
-        // the k codes (positions i + 1 .. i + k) inside the loop's range:
-        // the next iteration looks them up
-        rs = hit && i + k < iend && i + k < L;
-        if (rs) rp = 0;
       } else if (ok) {
         lo = plo = nlo;
         hi = phi = nhi;
@@ -483,8 +310,24 @@ __device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, 
         hi = n1;
       }
       ++i;
-      live = i < iend;
-    } else if constexpr (MODE == kLmem) {
+    }
+    // the final emission (rowbowt.hpp:477-481)
+    if (hi >= lo && seed_ei - (m - i) >= wsize && in_range(lo, hi))
+      record(nrec++, lo, hi, (Lane)ns);
+    if (m > 0) put(ns++, lo, hi, m - i, seed_ei - 1);
+  } else if constexpr (MODE == kLmem) {
+    Lane lo = 0, hi = n1, i = 0;
+    const int k = p.k;
+    // every lane of at least k codes jumps k, its range the full one on
+    // a miss (rowbowt.hpp:369-377); k is 0 where L < k (no lane jumps)
+    if (k > 0 && m >= k) {
+      ftab_range(lo, hi);
+      i = k;
+    }
+    Lane window_ei = m;
+    bool done = false;
+    Lane elo = 1, ehi = 0, eqs = 0;
+    for (int t = 0; t < L && i < m; ++t) {
       const int c = code_at(col_of(i));
       Lane nlo = lo, nhi = hi;
       const bool ok = step(c, nlo, nhi);
@@ -493,8 +336,8 @@ __device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, 
       const bool w_trigger = ok && window_ei - (mi - 1) >= wsize;
       if (f_probe || w_trigger) {
         // prev_range of a failure is the pre-step range
-        const Lane tlo = ok ? nlo : lo, thi_ = ok ? nhi : hi;
-        if (in_range(tlo, thi_)) record(nrec++, tlo, thi_, 0);
+        const Lane tlo = ok ? nlo : lo, thi = ok ? nhi : hi;
+        if (in_range(tlo, thi)) record(nrec++, tlo, thi, 0);
       }
       if (w_trigger) window_ei = mi - 1;
       if (!ok) {
@@ -502,13 +345,43 @@ __device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, 
         ehi = hi;
         eqs = mi;
         done = true;
-      } else {
-        lo = nlo;
-        hi = nhi;
-        ++i;
+        break;
       }
-      live = !done && i < iend;
-    } else {
+      lo = nlo;
+      hi = nhi;
+      ++i;
+    }
+    if (!done) {
+      // completed without a failure: the final probe and the seed
+      // (rowbowt.hpp:399-403)
+      if (hi >= lo && i >= wsize && m > 0 && in_range(lo, hi)) record(nrec++, lo, hi, 0);
+      elo = lo;
+      ehi = hi;
+      eqs = m - i;
+    }
+    if (writer) {
+      o.slo[b] = elo;
+      o.shi[b] = ehi;
+      o.sqs[b] = eqs;
+    }
+  } else {
+    Lane lo = 0, hi = n1, plo = 0, phi = n1, ei = m;
+    // TOE: the current run's last non-trivial step (code tc, pre-step hi
+    // thi; tc < 0: none since the restart) and its trivial steps since,
+    // and their copy after the last successful step (pc == kNone: none)
+    constexpr int kNone = -2;
+    int tc = -1, triv = 0, pc = kNone, ptriv = 0;
+    Lane thi = 0, pthi = 0;
+    // a seed and, for TOE, its toehold from the copy
+    auto seed = [&](int slot, Lane qs, Lane qe) {
+      if (!put(slot, plo, phi, qs, qe)) return;
+      if constexpr (TOE)
+        o.ssamp[(size_t)slot * B + b] =
+            pc == kNone ? (Lane)-1 : (Lane)resolve_toehold(p.toe, p.n, pc, pthi, ptriv);
+    };
+    const int jend = m < L ? (int)m : L;
+    int j = 0;
+    for (; j < jend; ++j) {
       const int c = code_at(L - 1 - j);
       if (o.hi_rec != nullptr && writer) o.hi_rec[(size_t)j * B + b] = hi;  // pre-step hi
       Lane nlo = lo, nhi = hi;
@@ -537,148 +410,106 @@ __device__ __forceinline__ void run_lanes(const Params<typename Step::Lane>& p, 
         tc = -1;
         triv = 0;
       }
-      ++j;
-      live = j < jend;
     }
-  };
+    if (o.hi_rec != nullptr && writer)
+      for (; j < L; ++j) o.hi_rec[(size_t)j * B + b] = hi;
+    // the tail seed (rowbowt.hpp:252-254)
+    if (ei >= p.min_length) seed(ns++, 0, ei);
+  }
 
-  // the lane's tail: the final emission, the fill of the slots it left
-  // unwritten, nrec and ns
-  auto finish = [&]() {
-    if constexpr (MODE == kGreedy) {
-      // the final emission (rowbowt.hpp:477-481)
-      if (hi >= lo && seed_ei - (m - i) >= wsize && in_range(lo, hi))
-        record(nrec++, lo, hi, (Lane)ns);
-      if (m > 0) put(ns++, lo, hi, m - i, seed_ei - 1);
-    } else if constexpr (MODE == kLmem) {
-      if (!done) {
-        // completed without a failure: the final probe and the seed
-        // (rowbowt.hpp:399-403)
-        if (hi >= lo && i >= wsize && m > 0 && in_range(lo, hi)) record(nrec++, lo, hi, 0);
-        elo = lo;
-        ehi = hi;
-        eqs = m - i;
-      }
-      if (writer) {
-        o.slo[b] = elo;
-        o.shi[b] = ehi;
-        o.sqs[b] = eqs;
-      }
-    } else {
-      if (o.hi_rec != nullptr && writer)
-        for (int t = j; t < L; ++t) o.hi_rec[(size_t)t * B + b] = hi;
-      // the tail seed (rowbowt.hpp:252-254)
-      if (ei >= p.min_length) seed(ns++, 0, ei);
+  if (!writer) return;
+  if (o.nrec != nullptr) {
+    o.nrec[b] = nrec;
+    for (int w = min(nrec, o.W); w < o.W; ++w) {
+      o.rlo[(size_t)w * B + b] = 1;
+      o.rhi[(size_t)w * B + b] = 0;
+      if (MODE == kGreedy) o.rseed[(size_t)w * B + b] = 0;
     }
-    if (!writer) return;
-    if (o.nrec != nullptr) {
-      o.nrec[b] = nrec;
-      for (int w = min(nrec, o.W); w < o.W; ++w) {
-        o.rlo[(size_t)w * B + b] = 1;
-        o.rhi[(size_t)w * B + b] = 0;
-        if (MODE == kGreedy) o.rseed[(size_t)w * B + b] = 0;
-      }
+  }
+  if (o.ns != nullptr) {
+    o.ns[b] = ns;
+    for (int s = min(ns, o.S); s < o.S; ++s) {
+      const size_t at = (size_t)s * B + b;
+      o.slo[at] = 1;
+      o.shi[at] = 0;
+      o.sqs[at] = 0;
+      o.sqe[at] = 0;
+      if constexpr (TOE) o.ssamp[at] = 0;
     }
-    if (o.ns != nullptr) {
-      o.ns[b] = ns;
-      for (int s = min(ns, o.S); s < o.S; ++s) {
-        const size_t at = (size_t)s * B + b;
-        o.slo[at] = 1;
-        o.shi[at] = 0;
-        o.sqs[at] = 0;
-        o.sqe[at] = 0;
-        if constexpr (TOE) o.ssamp[at] = 0;
-      }
-    }
-  };
-
-  // the lane b: its codes into the group's slot, then its start
-  auto take = [&]() {
-    row_q = p.q + (size_t)b * L;
-    if (p.stage) stage_lane<G>(mine, row_q, L, p.A, st.sub, st.pair);
-    begin();
-  };
-
-  // A group whose lane has ended waits, its lane's tail unwritten, until
-  // half of the warp's groups still here are waiting: then they write their
-  // tails and take their lanes together (or leave, where none is left), one
-  // atomic, their codes' loads and their ftab starts in flight at once,
-  // where a take or a tail alone would hold the warp's other groups for its
-  // whole latency.
-  take();
-  for (;;) {
-    const unsigned here = __activemask();
-    const unsigned idle = __ballot_sync(here, !live) & leads(G);
-    if (!live && 2 * __popc(idle) >= __popc(here & leads(G))) {
-      finish();
-      b = next_lane<G>(p.next, first_wave, B, none, st.pair);
-      if (b >= B) break;
-      take();
-    }
-    if (live) iterate();
   }
 }
 
-// Over fused rows: blockDim.x / kG lane groups a block, kG neighbouring
-// threads a group, both running the lane's machine; the first of them
-// writes.
+// Over fused rows: blockDim.x / kG lanes a block, kG neighbouring threads a
+// lane (lane_of's order), both running the lane's machine; the first of
+// them writes.
 template <typename Lane, int SYMS, int MODE, bool TOE>
 __global__ void __launch_bounds__(Bounds<Lane, SYMS>::kThreads, Bounds<Lane, SYMS>::kBlocks)
     seed_machine_kernel(const Params<Lane> p) {
-  extern __shared__ __align__(16) uint8_t s_code[];  // [groups of the block][stride] when staged
+  extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when staged
   __shared__ Lane sF[kCkpt + 1];
-  __shared__ int s_none;  // no lane is left to take
-  const int groups = blockDim.x / kG;
+
+  const int lanes = blockDim.x / kG;
+  const int b0 = blockIdx.x * lanes;
+  const int nl = min(lanes, p.B - b0);
+  const int L = p.L;
+  const int stride = staged_stride(L);
   if (threadIdx.x <= (unsigned)p.A) sF[threadIdx.x] = p.F[threadIdx.x];
-  if (threadIdx.x == 0) s_none = (long long)gridDim.x * groups >= p.B;
+  if (p.stage) stage_codes(s_code, p.q + (size_t)b0 * L, nl, L, p.A, stride);
   __syncthreads();
-  const int group = threadIdx.x / kG;
+
+  const int ll = lane_of<kG, MODE>(threadIdx.x / kG, lanes);
+  if (ll >= nl) return;
   const int sub = threadIdx.x % kG;
+  const uint8_t* mine = s_code + ll * stride;
+  const int32_t* row_q = p.q + (size_t)(b0 + ll) * L;
+  auto code_at = [&](int col) -> int {
+    return p.stage ? (int)mine[col] : code_byte(row_q[col], p.A);
+  };
   const unsigned pair = ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(kG - 1));
   const Rows<Lane, SYMS> st{p.fb, sF, p.base, p.per_blk, p.A, p.n, sub, pair};
-  run_lanes<MODE, TOE>(p, st, s_code + group * staged_stride(p.L), group, groups, &s_none);
+  machine<MODE, TOE>(p, st, code_at, b0 + ll, sub == 0);
 }
 
 // Over the POLICY tables of an index without fused rows (REC: through the
-// run records): blockDim.x / G lane groups a block, G neighbouring threads
-// a group (G = Tables::kGroup), as the tables kernel runs; the first
-// writes.
+// run records): blockDim.x / G lanes a block, G neighbouring threads a lane
+// (G = Tables::kGroup, lane_of's order), as the tables kernel runs; the
+// first writes.
 template <typename Lane, int POLICY, int MODE, bool TOE, bool REC>
 __global__ void __launch_bounds__(Bounds<Lane, 0>::kThreads, Bounds<Lane, 0>::kBlocks)
     seed_tables_kernel(const Params<Lane> p) {
   using Step = Tables<Lane, POLICY, REC>;
   constexpr int G = Step::kGroup;
-  extern __shared__ __align__(16) uint8_t s_code[];  // [groups of the block][stride] when staged
-  __shared__ int s_none;  // no lane is left to take
-  const int groups = blockDim.x / G;
-  if (threadIdx.x == 0) s_none = (long long)gridDim.x * groups >= p.B;
+  extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when staged
+  const int lanes = blockDim.x / G;
+  const int b0 = blockIdx.x * lanes;
+  const int nl = min(lanes, p.B - b0);
+  const int L = p.L;
+  const int stride = staged_stride(L);
+  if (p.stage) stage_codes(s_code, p.q + (size_t)b0 * L, nl, L, p.A, stride);
   __syncthreads();
-  const int group = threadIdx.x / G;
+  const int ll = lane_of<G, MODE>(threadIdx.x / G, lanes);
+  if (ll >= nl) return;
   const int sub = threadIdx.x % G;
+  const uint8_t* mine = s_code + ll * stride;
+  const int32_t* row_q = p.q + (size_t)(b0 + ll) * L;
+  auto code_at = [&](int col) -> int {
+    return p.stage ? (int)mine[col] : code_byte(row_q[col], p.A);
+  };
   const unsigned pair = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(G - 1));
   const Step st{p.t, p.F, p.A, p.n, sub, pair};
-  run_lanes<MODE, TOE>(p, st, s_code + group * staged_stride(p.L), group, groups, &s_none);
+  machine<MODE, TOE>(p, st, code_at, b0 + ll, sub == 0);
 }
 
 // Launches `kernel`, built for blocks of at most `most` threads, over B
-// lanes, `group` threads a lane: the persistent grid, as many blocks as the
-// SMs hold at once and no more than the lanes need.
+// lanes, `group` threads a lane.
 template <typename Lane, typename Kernel>
 int launch(Kernel kernel, int most, const Params<Lane>& p, int threads, int group,
            cudaStream_t s) {
-  threads = std::min(threads, most);
-  const int groups = threads / group;
-  const size_t smem = p.stage ? (size_t)groups * staged_stride(p.L) : 0;
+  if (threads > most) return (int)cudaErrorInvalidValue;
+  const int lanes = threads / group;
+  const size_t smem = p.stage ? (size_t)lanes * staged_stride(p.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long need = ((long long)p.B + groups - 1) / groups;
-  const dim3 grid((unsigned)std::min((long long)per_sm * sms, need));
+  const dim3 grid((unsigned)((p.B + lanes - 1) / lanes));
   kernel<<<grid, threads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
@@ -769,11 +600,9 @@ extern "C" {
 // with run_start, and samples_last, each int32 or int64 (*_bytes), R runs.
 // wsize, max_range (the probes' range cap) and min_length (SAMPLE's) are
 // the machines' parameters.  `threads` is the block size (two threads a
-// lane), `stage` reads the codes from shared memory (threads / 2 * staged
-// stride bytes, at most 47 KB); both from ops/cuda_lf.py launch_plan, the
-// block cut to Bounds' size.  `next` is a device int32 the caller sets to 0
-// on `stream` before the launch: the counter from which the lane groups take
-// their lanes once the first wave is done.
+// lane; at most 512, 256 over two-level rows), `stage` reads the codes from
+// shared memory (threads / 2 * staged stride bytes, at most 47 KB); both
+// from ops/cuda_lf.py launch_plan.
 // Returns cudaGetLastError() after the launch (0 on success, nothing
 // launched for B == 0), cudaErrorInvalidValue for arguments the mode does
 // not take.
@@ -784,8 +613,8 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
                      void* rhi, void* rseed, void* nrec, int S, void* slo, void* shi, void* sqs,
                      void* sqe, void* ns, void* hi_rec, const void* tk1, int tk1_bytes,
                      const void* ltk, int ltk_bytes, const void* run_start, int rs_bytes,
-                     const void* samples_last, int sl_bytes, int R, void* ssamp, void* next,
-                     int threads, int stage, void* stream) {
+                     const void* samples_last, int sl_bytes, int R, void* ssamp, int threads,
+                     int stage, void* stream) {
   const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
                 nullptr};
   const int shift = syms_per_row == 64 ? 6 : syms_per_row == 128 ? 7 : 8;
@@ -798,7 +627,7 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
                                     : false;
   if (!valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, hi_rec, ssamp,
                      toe) ||
-      !rows || fb == nullptr || F == nullptr || next == nullptr ||
+      !rows || fb == nullptr || F == nullptr ||
       bad_common(A, kCkpt, B, L, n, threads, k, ftab, ftab_bytes))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
@@ -812,8 +641,7 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
     const Params<Lane> p{static_cast<const int4*>(fb), static_cast<const Lane*>(F), nullptr, 0,
                          {}, A, (Lane)n, static_cast<const int32_t*>(q),
                          static_cast<const int32_t*>(lengths), B, L, stage != 0, ftab,
-                         ftab_bytes, k, (uint32_t)acgt, wsize, max_range, min_length, toe, o,
-                         static_cast<int*>(next)};
+                         ftab_bytes, k, (uint32_t)acgt, wsize, max_range, min_length, toe, o};
     return syms_per_row == 64 ? launch_rows<Lane, 64>(mode, te, p, threads, s)
                               : launch_rows<Lane, 128>(mode, te, p, threads, s);
   }
@@ -824,7 +652,7 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
                        static_cast<const int64_t*>(base), per_blk, {}, A, (Lane)n,
                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B,
                        L, stage != 0, ftab, ftab_bytes, k, (uint32_t)acgt, wsize, max_range,
-                       min_length, toe, o, static_cast<int*>(next)};
+                       min_length, toe, o};
   if (syms_per_row == 64) return launch_rows<Lane, 64>(mode, false, p, threads, s);
   if (syms_per_row == 128) return launch_rows<Lane, 128>(mode, false, p, threads, s);
   return launch_rows<Lane, 256>(mode, false, p, threads, s);
@@ -838,10 +666,10 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
 // A at most 16; 2 occ1: occ = occ1_flat), each int32 or int64 (*_bytes);
 // int32 F [A + 1].  The ftab, the outputs and the per-step toehold (ssamp,
 // over tk1, or ltk with run_start, and samples_last) are rbt_seed_machine's;
-// `threads` (two threads a lane over the run-space tables, else one) and
-// `stage` from ops/cuda_lf.py launch_plan (lanes a block * staged stride
-// bytes, at most 47 KB) and the lane counter `next` as rbt_seed_machine
-// takes them.  Returns as rbt_seed_machine does.
+// `threads` (two threads a lane over the run-space tables, else one; at
+// most 512) and `stage` from ops/cuda_lf.py launch_plan (lanes a block *
+// staged stride bytes, at most 47 KB).
+// Returns as rbt_seed_machine does.
 int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes,
                             const void* run_start, int rs_bytes, const void* run_head,
                             int rh_bytes, const void* rs_off, int off_bytes, long long n_off,
@@ -852,8 +680,8 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
                             int min_length, int W, void* rlo, void* rhi, void* rseed, void* nrec,
                             int S, void* slo, void* shi, void* sqs, void* sqe, void* ns,
                             const void* tk1, int tk1_bytes, const void* ltk, int ltk_bytes,
-                            const void* samples_last, int sl_bytes, void* ssamp, void* next,
-                            int threads, int stage, void* stream) {
+                            const void* samples_last, int sl_bytes, void* ssamp, int threads,
+                            int stage, void* stream) {
   const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
                 nullptr};
   const bool runs = policy == kRuns && run_start != nullptr && run_head != nullptr &&
@@ -864,7 +692,7 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
                      ((uintptr_t)bwt4 & 15) == 0 && nb >= (n + 127) / 128;
   const bool tables = occ != nullptr && width(occ_bytes) &&
                       (runs || dense || (policy == kOcc1 && rec == nullptr));
-  if (!tables || F == nullptr || next == nullptr || n >= INT32_MAX ||
+  if (!tables || F == nullptr || n >= INT32_MAX ||
       !valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, nullptr,
                      ssamp, toe) ||
       bad_common(A, 254, B, L, n, threads, k, ftab, ftab_bytes))
@@ -879,7 +707,7 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
   const Params<Lane> p{nullptr, static_cast<const Lane*>(F), nullptr, 0, t, A, (Lane)n,
                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B, L,
                        stage != 0, ftab, ftab_bytes, k, (uint32_t)acgt, wsize, max_range,
-                       min_length, toe, o, static_cast<int*>(next)};
+                       min_length, toe, o};
   cudaStream_t s = (cudaStream_t)stream;
   const bool te = ssamp != nullptr;
   if (policy == kRuns)

@@ -144,16 +144,18 @@ def staged_stride(L: int) -> int:
     return ((L + 3) & ~3) | 4
 
 
-def launch_plan(B: int, L: int, sms: int, group: int = GROUP) -> tuple[int, bool]:
+def launch_plan(B: int, L: int, sms: int, group: int = GROUP,
+                most: int = LANES_PER_BLOCK) -> tuple[int, bool]:
     """(threads a block, staged) of a K1 launch over B lanes of width L on a
     card of `sms` SMs, `group` threads a lane (1 for the tables kernel).  A
-    block takes LANES_PER_BLOCK lanes, fewer when the batch is too small to
-    give every SM a block, and fewer again when their codes would not fit
-    the staging limit; a block holds whole warps.  `staged` is False only
-    when not even one warp's lanes fit (L over 1,500 at one thread a lane,
-    3,000 at two): the kernel then reads each code from global memory."""
+    block takes `most` lanes (the seeding kernel's int64 instances are
+    built for fewer), fewer when the batch is too small to give every SM a
+    block, and fewer again when their codes would not fit the staging
+    limit; a block holds whole warps.  `staged` is False only when not
+    even one warp's lanes fit (L over 1,500 at one thread a lane, 3,000 at
+    two): the kernel then reads each code from global memory."""
     unit = 32 // group  # lanes of one warp
-    lanes = min(LANES_PER_BLOCK, -(-max(B, 1) // sms))
+    lanes = min(most, -(-max(B, 1) // sms))
     fit = MAX_STAGED_BYTES // staged_stride(L)
     lanes = max(unit, min(lanes, fit) // unit * unit)
     return lanes * group, lanes * staged_stride(L) <= MAX_STAGED_BYTES

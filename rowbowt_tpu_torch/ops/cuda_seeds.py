@@ -17,9 +17,9 @@ run-space step through the bucket directory rs_off, on two threads a
 lane, over the run records where the index has them).  On an index
 without kval the sampled machine also carries the per-step toehold
 (RowBowt::LF_w_loc) and writes each seed's toehold.  Greedy's ftab restart
-is one lookup where the next k codes are A, C, G or T (the torch loop
-replays them), and the launch is persistent: the lane groups take their
-lanes as they finish from a counter (csrc/seeds.cu says why).  The kernel
+replays the next k codes as the torch loop does; in the greedy and sampled
+machines each warp takes the lanes of one strand of rbt_markers -f, and
+L-MEM's lanes run in their order (csrc/seeds.cu says why).  The kernel
 writes the machines' records; the bulk marker probe, the expansion and the
 kval or trajectory toeholds stay torch code (engine/seeds.py).
 
@@ -53,6 +53,9 @@ LAUNCHES_SEED = dict.fromkeys(
     + tuple(f"{m}_{p}" for p in ("runs", "dense", "occ1")
             for m in ("greedy", "lmem", "sample", "sample_toe")), 0)
 MODES = {"greedy": 0, "lmem": 1, "sample": 2}  # csrc/seeds.cu enum Mode
+# lanes a block at most, by lane type: csrc/seeds.cu Bounds builds the int32
+# instances for 512 threads a block and the int64 ones for 256
+BLOCK_LANES = {torch.int32: cuda_lf.LANES_PER_BLOCK, torch.int64: cuda_lf.LANES_PER_BLOCK // 2}
 
 _LIB = None
 BUILD_LOG = ""  # nvcc's output (-Xptxas -v register/spill report) of the build
@@ -71,11 +74,11 @@ def build():
     toe = [vp, ci, vp, ci, vp, ci, vp, ci, ci, vp]  # tk1, ltk, run_start, samples_last, R, ssamp
     lib.rbt_seed_machine.argtypes = ([ci, vp, ci, vp, vp, ci, ci, ll, ci, vp, vp, ci, ci, vp, ci,
                                       ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp,
-                                      vp, vp] + toe + [vp, ci, ci, vp])
+                                      vp, vp] + toe + [ci, ci, vp])
     lib.rbt_seed_machine_tables.argtypes = [
         ci, ci, vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, vp, ll, ci, vp, ci, ll, vp, vp,
         ci, ci, vp, ci, ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp,
-        ci, vp, ci, vp, vp, ci, ci, vp]
+        ci, vp, ci, vp, ci, ci, vp]
     lib.rbt_seed_machine.restype = lib.rbt_seed_machine_tables.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p
@@ -93,17 +96,14 @@ def carries_toehold(tx: TorchIndex, mode: str) -> bool:
 
 def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, wsize: int = 0,
                    max_range: int = 0, min_length: int = 0, W: int = 0, S: int = 0,
-                   record: bool = False) -> dict:
+                   record: bool = False, lib=None) -> dict:
     """Launch the `mode` machine ("greedy", "lmem" or "sample") on CUDA
-    tensors, its block shaped by cuda_lf.launch_plan (the kernel cuts it to
-    its instance family's size): over fused rows (two threads a lane), else
-    over the tables of cuda_lf.table_policy (cuda_lf.lane_threads threads a
-    lane: two over the run-space tables).  The grid is persistent (the
-    blocks the card holds at once, no more than the lanes need): each lane
-    group starts on a lane of the first wave, then, with its warp's other
-    ended groups, takes the next from a counter, a device int32 this
-    wrapper zeroes on the launch's stream; every lane writes its own
-    column, so the order lanes are taken in changes nothing.
+    tensors, shaped by cuda_lf.launch_plan within the block its instance
+    family is built for (BLOCK_LANES): over fused rows (two threads a
+    lane), else over the tables of cuda_lf.table_policy (cuda_lf.lane_threads
+    threads a lane: two over the run-space tables).  `lib` is the library
+    to launch on, build()'s by default (tools/seed_turns.py passes earlier
+    designs' libraries).
     k is the ftab start's k-mer length (0 for none; the caller decides as
     the torch loop does), W and S the record and seed capacities.  Returns
     the machine's tables in the index's lane type (int32 over single-level
@@ -187,13 +187,11 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
         t = ftab if name == "ftab" else ops[name][1] if name in ops else None
         return (t.data_ptr(), t.element_size()) if t is not None else (None, 0)
 
-    # the counter from which the kernel's lane groups take their lanes past
-    # the first wave, zeroed on the launch's stream
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads, staged = cuda_lf.launch_plan(B, L, _sm_count(d),
-                                          group=2 if key else cuda_lf.lane_threads(policy))
-    lib = _LIB or build()
+                                          group=2 if key else cuda_lf.lane_threads(policy),
+                                          most=BLOCK_LANES[lane])
+    lib = lib or _LIB or build()
     lmem = mode == "lmem"
     lanes = (qcodes.data_ptr(), lengths.data_ptr(), B, L, *tab("ftab"), k, acgt, wsize,
              max_range, min_length, W, ptr("wlo"), ptr("whi"), ptr("wseed"), ptr("nrec"), S,
@@ -205,13 +203,13 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
                 base.data_ptr() if two_level else None,
                 fb.shape[0] // base.shape[0] if two_level else 0, tx.A, tx.n,
                 8 if two_level else 4, *lanes, ptr("hi_rec"), *tab("tk1"), *tab("ltk"),
-                *tab("run_start"), *tab("samples_last"), tx.R, ptr("ssamp"),
-                counter.data_ptr(), threads, int(staged))
+                *tab("run_start"), *tab("samples_last"), tx.R, ptr("ssamp"), threads,
+                int(staged))
     else:
         entry = lib.rbt_seed_machine_tables
         args = (MODES[mode], *cuda_lf.table_args(tx, policy, ops), F.data_ptr(), tx.A,
                 tx.n, *lanes, *tab("tk1"), *tab("ltk"), *tab("samples_last"), ptr("ssamp"),
-                counter.data_ptr(), threads, int(staged))
+                threads, int(staged))
     if d == torch.cuda.current_device():
         rc = entry(*args, _raw_stream(d))
     else:

@@ -4,28 +4,27 @@ them, in turns on the same batches, on one NVIDIA GPU.
     python -m rowbowt_tpu_torch.tools.seed_turns \\
         --design parent=DIR [--design NAME=DIR ...] [PHASE ...]
 
-Each DIR holds an earlier commit's kernel sources, as
+Each DIR holds another commit's kernel sources, as
 `git archive <commit> rowbowt_tpu_torch/csrc | tar -x -C DIR` writes them;
-where its C entries rbt_seed_machine and rbt_seed_machine_tables take no
-lane counter (the designs before the persistent launch), the counter the
-wrapper passes is left out of the call.  The tool builds each
-design's seeds.cu with nvcc for sm_90a beside the checkout's, then runs
-chip_smoke.py's PHASEs (by default greedy, lmem, locs, nodense_chr,
-raw_chr, big_chr and build_small: every path whose machine chip_smoke.py
-times) with its seeds_times wrapped: each batch it times is also launched
-through launch_machine on every design's library and on the checkout's, in
-turns (the designs in order, the checkout's twice, the designs in reverse),
-each turn the device time of one launch by CUDA events just around it
-(chip_smoke.kernel_event_us), every design's tables equal to the
-checkout's.  Prints a `seed_turns` line a batch and, first, each design's
-nvcc register and spill report (`seed_designs`).  Run it from the root of a
-checkout, where chip_smoke.py is.
+where its C entries rbt_seed_machine and rbt_seed_machine_tables take a
+lane counter before `threads` (a persistent-grid design), each launch gets
+one, zeroed on the stream.  The tool builds each design's seeds.cu with
+nvcc for sm_90a (_native.NVCC_FLAGS) into a library of its own beside the
+checkout's, then runs chip_smoke.py's PHASEs (by default greedy, lmem,
+locs, nodense_chr, raw_chr, big_chr and build_small: every path whose
+machine chip_smoke.py times) with its seeds_times wrapped: each batch it
+times is also launched through launch_machine on every design's library
+and on the checkout's, in turns (the designs in order, the checkout's
+twice, the designs in reverse), each turn the device time of one launch by
+CUDA events just around it (chip_smoke.kernel_event_us), every design's
+tables equal to the checkout's.  Prints a `seed_turns` line a batch and,
+first, each design's nvcc register and spill report (`seed_designs`).  Run
+it from the root of a checkout, where chip_smoke.py is.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import os
@@ -34,27 +33,35 @@ from concurrent.futures import ThreadPoolExecutor
 
 DEFAULT_PHASES = ("greedy", "lmem", "locs", "nodense_chr", "raw_chr", "big_chr", "build_small")
 PASSES = 10  # launches a turn, after a warm-up launch
+ENTRIES = ("rbt_seed_machine", "rbt_seed_machine_tables")
 
 
-class EarlierDesign:
-    """An earlier design's library behind launch_machine: its C entries take
-    every argument of the checkout's, or (counter False) all but the lane
-    counter, the fourth from the end."""
+class Design:
+    """A design's library as launch_machine's `lib`: its C entries take the
+    checkout's arguments and, where `counter`, a lane counter before
+    `threads` (the third from the end), a device int32 zeroed for each
+    launch on the current stream, inside the timed call as the wrapper of
+    that design zeroed it."""
 
     def __init__(self, path: str, current, counter: bool):
         self.lib = ctypes.CDLL(path)
-        self.cut = 0 if counter else 1
-        for entry in ("rbt_seed_machine", "rbt_seed_machine_tables"):
+        self.counter = counter
+        for entry in ENTRIES:
             types = list(getattr(current, entry).argtypes)
-            if not counter:
-                del types[-4]
+            if counter:
+                types.insert(len(types) - 3, ctypes.c_void_p)
             getattr(self.lib, entry).argtypes = types
             getattr(self.lib, entry).restype = ctypes.c_int
         self.lib.rbt_cuda_error_string.argtypes = [ctypes.c_int]
         self.lib.rbt_cuda_error_string.restype = ctypes.c_char_p
 
     def _args(self, args):
-        return args if not self.cut else (*args[:-4], *args[-3:])
+        if not self.counter:
+            return args
+        import torch
+
+        self._next = torch.zeros(1, dtype=torch.int32, device="cuda")
+        return (*args[:-3], self._next.data_ptr(), *args[-3:])
 
     def rbt_seed_machine(self, *args):
         return self.lib.rbt_seed_machine(*self._args(args))
@@ -66,30 +73,24 @@ class EarlierDesign:
         return self.lib.rbt_cuda_error_string(code)
 
 
-@contextlib.contextmanager
-def behind(lib):
-    """launch_machine on `lib` within the block (None: the checkout's)."""
-    from rowbowt_tpu_torch.ops import cuda_seeds
-
-    real = cuda_seeds._LIB
-    cuda_seeds._LIB = lib if lib is not None else real
-    try:
-        yield
-    finally:
-        cuda_seeds._LIB = real
-
-
 def build_designs(smoke, designs: dict) -> dict:
-    """{name: EarlierDesign} built side by side with the checkout's seeds.cu;
-    prints each design's registers and spills an instance (nvcc -Xptxas -v,
-    chip_smoke.ptxas_instances)."""
+    """{name: Design} built side by side with the checkout's seeds.cu, each
+    into its own library (librbt_seeds_<name>); prints each design's
+    registers and spills an instance (chip_smoke.ptxas_instances)."""
     from rowbowt_tpu_torch import _native
     from rowbowt_tpu_torch.ops import cuda_seeds
 
+    cmd = [_native.find_tool("nvcc", "/usr/local/cuda/bin/nvcc"), *_native.NVCC_FLAGS]
     csrc = {name: os.path.join(src, "rowbowt_tpu_torch", "csrc") for name, src in designs.items()}
+
+    def build(name):
+        d = csrc[name]
+        headers = tuple(os.path.join(d, f) for f in sorted(os.listdir(d)) if f.endswith(".cuh"))
+        return _native.build_shared(f"librbt_seeds_{name}", cmd, [os.path.join(d, "seeds.cu")],
+                                    headers=headers)
+
     with ThreadPoolExecutor(len(designs) + 1) as ex:
-        futures = {name: ex.submit(_native.build_cuda_library, "seeds", d)
-                   for name, d in csrc.items()}
+        futures = {name: ex.submit(build, name) for name in designs}
         current = ex.submit(cuda_seeds.build).result()
         built = {name: f.result() for name, f in futures.items()}
     print(json.dumps({"seed_designs": {
@@ -99,7 +100,7 @@ def build_designs(smoke, designs: dict) -> dict:
     for name, (path, _) in built.items():
         with open(os.path.join(csrc[name], "seeds.cu")) as f:
             counter = "void* next" in f.read()
-        out[name] = EarlierDesign(path, current, counter)
+        out[name] = Design(path, current, counter)
     return out
 
 
@@ -108,7 +109,7 @@ def turns(smoke, libs: dict, tx, runs: dict) -> None:
     checkout's kernel, in turns; prints one seed_turns line a batch."""
     import torch
 
-    from rowbowt_tpu_torch.ops import cuda_lf
+    from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 
     order = list(libs) + ["checkout", "checkout"] + list(libs)[::-1]
     for name, (q, ln, cfg) in runs.items():
@@ -116,8 +117,7 @@ def turns(smoke, libs: dict, tx, runs: dict) -> None:
 
         def call(lib):
             def run():
-                with behind(lib):
-                    return smoke.seed_records(tx, mode, q, ln, cfg, plain=False)
+                return cuda_seeds.launch_machine(tx, mode, q, ln, lib=lib, **cfg)
             return run
 
         want = call(None)()

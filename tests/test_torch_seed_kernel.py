@@ -1,16 +1,14 @@
 """The seeding state machines of rbt_markers and rbt_locs in one kernel
 launch a batch (ops/cuda_seeds.launch_machine, csrc/seeds.cu).
 
-A numpy model of the kernel's per-lane machine (real control flow: K1's LF
-step from the ranks of the fused rows; GREEDY's ftab start, window and
-seed-final probes, seeds, and the ftab restart as one lookup where the next
-k codes are A, C, G or T, else a k-step replay that holds the full range
-after an empty step; LMEM's one search to its failure; SAMPLE's seeds of at
-least min_length codes and its step record; the clamped record slots and
-the fill of the slots a lane leaves unwritten), its lanes run by run_lanes
-as the persistent launch takes them (fewer lane groups than lanes, each
-taking the next lane from the counter as its lane ends), sits behind a fake
-C entry that reads the addresses and widths the wrapper passes.  Through the public engines
+A numpy model of the kernel's per-lane machine (one lane at a time, in any
+order, with real control flow: K1's LF step from the ranks of the fused rows; GREEDY's
+ftab start, window and seed-final probes, seeds, and the ftab restart as a
+k-step replay that holds the full range after an empty step; LMEM's one
+search to its failure; SAMPLE's seeds of at least min_length codes and its
+step record; the clamped record slots and the fill of the slots a lane
+leaves unwritten) sits behind a fake C entry that reads the addresses and
+widths the wrapper passes.  Through the public engines
 (markers_greedy_seeding, markers_lmem_lanes, seeds_greedy_w_sample) it
 equals the JAX package's functions buffer for buffer, and so do the port's
 plain twins (the `*_records_plain` torch loops and the torch tail), on the
@@ -48,9 +46,6 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 WIDTHS = (1, 31, 100)
 WSIZE = 10
 MODES = ("greedy", "lmem", "sample")
-# the lane groups of the model behind the fake C entries: fewer than the
-# lanes, so that most lanes are taken from the counter as others end
-GROUPS = 7
 ZERO = dict.fromkeys(cuda_seeds.LAUNCHES_SEED, 0)
 
 
@@ -77,12 +72,11 @@ def panel(tmp_path_factory):
 
 def _edge_reads(reads, rng):
     """Reads the panel's do not reach often: random ones (a failure every
-    few codes: restarts, their k-mers looked up in the ftab or absent from
-    it, seeds past S), random ones with an N in every few codes (restart
-    windows holding a code other than A, C, G, T: replays that meet an
-    empty step), an N as the last code (a failure at the first step, an
-    ftab miss), an N inside, a repeat of one read (long seeds, few
-    failures), and the empty read."""
+    few codes: restarts, replays that meet an empty step, seeds past S),
+    random ones with an N in every few codes (restart windows holding a
+    code other than A, C, G, T), an N as the last code (a failure at the
+    first step, an ftab miss), an N inside (a replay over it), a repeat of
+    one read (long seeds, few failures), and the empty read."""
     out = [rng.choice(ACGT, size=int(m)).tobytes() for m in (100, 64, 40, 17, 8)]
     acgtn = np.frombuffer(b"ACGTACGTACGTN", np.uint8)
     out += [rng.choice(acgtn, size=int(m)).tobytes() for m in (100, 77)]
@@ -130,60 +124,13 @@ def rank_table(fb, syms, F, A, n, base=None, per_blk=1):
     return np.vstack([tab, (F[1:A + 1] - F[:A])[None]])
 
 
-def kmer_of(q, b, end, k, acgt):
-    """The ftab k-mer code of lane b's k codes before column `end` (csrc/
-    lf_rank.cuh kmer_code), or None where one of them is not A, C, G or T."""
-    kc = 0
-    for col in range(end - k, end):
-        two = [x for x in range(4) if acgt[x] == q[b, col]]
-        if not two:
-            return None
-        kc = (kc << 2) | two[-1]
-    return kc
-
-
-def run_lanes(lane, B, groups, order=None, events=None, per_warp=1):
-    """The persistent launch's schedule (csrc/seeds.cu run_lanes): `groups`
-    thread groups, `per_warp` of them a warp, group g starting on lane
-    order[g] (the kernel's first wave takes them in its own order, and the
-    rest as 0 .. B - 1); each round runs one iteration of every group's lane
-    (a generator, lane(b), yielding once an iteration; its tail is written
-    when it ends).  A group whose lane has ended waits until half of its
-    warp's groups still here are waiting: then it takes the next lane of
-    `order` from the counter, or leaves where none is left.  Returns the
-    lanes in the order taken."""
-    order = list(range(B)) if order is None else [int(b) for b in order]
-    assert sorted(order) == list(range(B))
-    ev = events if events is not None else {}
-    queue = iter(order[groups:])
-    held = {g: lane(b) for g, b in enumerate(order[:groups])}  # None: waiting
-    taken = order[:groups]
-    while held:
-        for w in sorted({g // per_warp for g in held}):
-            here = [g for g in held if g // per_warp == w]
-            waiting = sum(held[g] is None for g in here)
-            for g in here:
-                if held[g] is None and 2 * waiting >= len(here):
-                    b = next(queue, None)
-                    if b is None:
-                        del held[g]
-                        continue
-                    ev["taken_late"] = ev.get("taken_late", 0) + 1
-                    taken.append(b)
-                    held[g] = lane(b)
-                if held[g] is not None and not next(held[g], 0):
-                    held[g] = None
-    return taken
-
-
 def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=0,
                   max_range=0, min_length=0, W=0, S=0, record=False, lane_bytes=4,
-                  events=None, groups=None, order=None, per_warp=16):
+                  events=None, order=None):
     """The tables seed_machine_kernel<MODE> writes, as numpy [rows, B] and
-    [B] arrays of lane_bytes integers (keys as launch_machine's), its lanes
-    run by run_lanes over `groups` thread groups (all B by default),
-    `per_warp` a warp, taken in `order`; rk is rank_table's.  `events`, a dict, counts the edges the
-    lanes reached."""
+    [B] arrays of lane_bytes integers (keys as launch_machine's), lane by
+    lane in `order` (0 .. B - 1 by default); rk is rank_table's.  `events`,
+    a dict, counts the edges the lanes reached."""
     ev = events if events is not None else {}
     F = [int(x) for x in F]
     B, L = q.shape
@@ -202,9 +149,14 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
             return 1, 0
         return F[c] + cb, F[c] + ce - 1
 
-    def ftab_range(kc):
-        """The ftab entry of k-mer code kc, None on a miss."""
-        if kc is None or ftab[kc, 0] < 0:
+    def ftab_range(b):
+        kc = 0
+        for col in range(L - k, L):
+            two = [x for x in range(4) if acgt[x] == q[b, col]]
+            if not two:
+                return None
+            kc = (kc << 2) | two[-1]
+        if ftab[kc, 0] < 0:
             return None
         return int(ftab[kc, 0]), int(ftab[kc, 1])
 
@@ -222,9 +174,7 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         out["hi_rec"] = np.zeros((L, B))
     out = {key: v.astype(object) for key, v in out.items()}
 
-    def lane(b):
-        """Lane b's machine, one yield an iteration of the kernel's loop;
-        its tail (the final emission, nrec and ns) when it ends."""
+    for b in range(B) if order is None else (int(x) for x in order):
         m = int(lens[b])
         nrec = ns = 0
         if m == 0:
@@ -257,16 +207,14 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         if mode == "greedy":
             lo, hi, i = 0, n1, 0
             if k and m >= k:
-                got = ftab_range(kmer_of(q, b, L, k, acgt))
+                got = ftab_range(b)
                 bump("ftab_start" if got else "ftab_miss")
                 if got:
                     (lo, hi), i = got, k
-            iend = min(m, i + L)  # the torch loop's L steps from the start
             plo, phi, seed_ei, window_ei = lo, hi, m, m
             rp, rpmiss = 0, False
-            first = True
-            while i < iend:
-                yield 1
+            t = 0
+            while t < L and i < m:
                 c = int(q[b, min(max(L - 1 - i, 0), L - 1)])
                 normal = rp == 0
                 if normal or not rpmiss:
@@ -275,9 +223,8 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                 else:
                     nlo, nhi, ne = lo, hi, False
                 ok, fail = normal and ne, normal and not ne
-                if fail and first:
+                if fail and t == 0:
                     bump("fail_first_step")
-                first = False
                 mi = m - i
                 w_trigger = ok and window_ei - (mi - 1) >= wsize
                 f_probe = fail and seed_ei - mi >= wsize
@@ -298,8 +245,10 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                     if ok:
                         lo, hi, plo, phi = nlo, nhi, nlo, nhi
                     elif fail:
-                        if not hit:
-                            bump("restart_to_full")
+                        bump("restart_replay" if hit else "restart_to_full")
+                        window = q[b, max(L - 1 - i - k, 0):L - 1 - i]
+                        if hit and any(int(x) not in acgt for x in window):
+                            bump("replay_window_not_acgt")
                         lo, hi = 0, n1
                     elif rstep:
                         lo, hi = (0, n1) if held else (nlo, nhi)
@@ -308,24 +257,12 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                             bump("replay_nonempty")
                     rpmiss = False if hit else held
                     rp = k if hit else rp - 1 if rstep else rp
-                    # the next k codes as one ftab lookup where all are
-                    # A, C, G or T; else the replay above
-                    kc = kmer_of(q, b, L - 1 - i, k, acgt) if hit and i + k < min(iend, L) \
-                        else None
-                    if kc is not None:
-                        yield 1  # the lookup's iteration of its own
-                        got = ftab_range(kc)
-                        bump("restart_lookup" if got else "restart_lookup_miss")
-                        lo, hi = got or (0, n1)
-                        plo, phi, rp = lo, hi, 0
-                        i += k
-                    elif hit:
-                        bump("restart_replay")
                 elif ok:
                     lo, hi, plo, phi = nlo, nhi, nlo, nhi
                 elif fail:
                     lo, hi = 0, n1
                 i += 1
+                t += 1
             if hi >= lo and seed_ei - (m - i) >= wsize:
                 bump("final_probe")
                 rec(lo, hi, ns)
@@ -334,17 +271,15 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         elif mode == "lmem":
             lo, hi, i = 0, n1, 0
             if k and m >= k:
-                got = ftab_range(kmer_of(q, b, L, k, acgt))
+                got = ftab_range(b)
                 bump("ftab_start" if got else "ftab_miss")
                 if got:
                     lo, hi = got
                 i = k
-            iend = min(m, i + L)
             window_ei, done = m, False
             elo, ehi, eqs = 1, 0, 0
-            first = True
-            while i < iend:
-                yield 1
+            t = 0
+            while t < L and i < m:
                 c = int(q[b, min(max(L - 1 - i, 0), L - 1)])
                 nlo, nhi = step(lo, hi, c)
                 ok = nlo <= nhi
@@ -356,12 +291,12 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                 if w_trigger:
                     window_ei = mi - 1
                 if not ok:
-                    bump("fail_first_step" if first else "lmem_fail")
+                    bump("fail_first_step" if t == 0 else "lmem_fail")
                     elo, ehi, eqs, done = lo, hi, mi, True
                     break
-                first = False
                 lo, hi = nlo, nhi
                 i += 1
+                t += 1
             if not done:
                 bump("lmem_complete")
                 if hi >= lo and i >= wsize and m > 0:
@@ -371,10 +306,11 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
         else:
             lo, hi, plo, phi, ei = 0, n1, 0, n1, m
             jend = min(m, L)
-            for j in range(jend):
-                yield 1
+            for j in range(L):
                 if record:
                     out["hi_rec"][j, b] = hi
+                if j >= jend:
+                    continue
                 nlo, nhi = step(lo, hi, int(q[b, L - 1 - j]))
                 if nlo <= nhi:
                     lo, hi, plo, phi = nlo, nhi, nlo, nhi
@@ -386,16 +322,12 @@ def machine_model(mode, rk, F, A, n, q, lens, *, k=0, ftab=None, acgt=(), wsize=
                             bump("sample_degenerate")
                         put(plo, phi, m - j, ei)
                     lo, hi, plo, phi, ei = 0, n1, 0, n1, m - j - 1
-            if record:
-                out["hi_rec"][jend:, b] = hi
             if ei >= min_length:
                 put(plo, phi, 0, ei)
         if "nrec" in out:
             out["nrec"][b] = nrec
         if "ns" in out:
             out["ns"][b] = ns
-
-    run_lanes(lane, B, groups or B, order, ev, per_warp)
     dt = np.int64 if lane_bytes == 8 else np.int32
     return {key: v.astype(np.int64).astype(dt) for key, v in out.items()}
 
@@ -410,7 +342,7 @@ def _model_lib(tx, calls, rc, events=None):
     def rbt_seed_machine(mode, fb, syms, F, base, per_blk, A, n, lane_b, q, lengths, B, L,
                          ftab, ftab_b, k, acgt, wsize, max_range, min_length, W, rlo, rhi,
                          rseed, nrec, S, slo, shi, sqs, sqe, ns, hi_rec, tk1, tk1_b, ltk, ltk_b,
-                         run_start, rs_b, samples_last, sl_b, R_, ssamp, nxt, threads, stage,
+                         run_start, rs_b, samples_last, sl_b, R_, ssamp, threads, stage,
                          stream):
         name = {0: "greedy", 1: "lmem", 2: "sample"}[mode]
         c = dict(mode=name, syms=syms, per_blk=per_blk, A=A, n=n, lane=lane_b, q=q, B=B, L=L,
@@ -418,13 +350,11 @@ def _model_lib(tx, calls, rc, events=None):
                  min_length=min_length, W=W, S=S, base=base, hi_rec=hi_rec,
                  outs=(rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns),
                  toe=(tk1, ltk, run_start, samples_last, ssamp),
-                 threads=threads, stage=stage, stream=stream, next=nxt)
+                 threads=threads, stage=stage, stream=stream)
         calls.append(c)
         assert ssamp is None, "the per-step toehold's model is test_torch_seed_tables.py's"
         if rc or B == 0:
             return rc
-        counter = _ints(nxt, 1, 4)
-        assert counter[0] == 0, "the wrapper zeroes the lane counter before the launch"
         fbn = _ints(fb, rows[0] * rows[1], 4).reshape(rows)
         Fn = _ints(F, A + 1, lane_b)
         bn = _ints(base, n_sup * 8, 8).reshape(-1, 8) if base else None
@@ -435,8 +365,7 @@ def _model_lib(tx, calls, rc, events=None):
             name, rk, Fn, A, n, _ints(q, B * L, 4).reshape(B, L), _ints(lengths, B, 4), k=k,
             ftab=_ints(ftab, 2 * 4 ** k, ftab_b).reshape(-1, 2) if k else None, acgt=codes,
             wsize=wsize, max_range=max_range, min_length=min_length, W=W, S=S,
-            record=bool(hi_rec), lane_bytes=lane_b, events=events, groups=GROUPS)
-        counter[0] = B  # every group's takes past the first wave, its last finding none
+            record=bool(hi_rec), lane_bytes=lane_b, events=events)
         names = {"wlo": rlo, "whi": rhi, "wseed": rseed, "nrec": nrec, "slo": slo, "shi": shi,
                  "sqs": sqs, "sqe": sqe, "ns": ns, "elo": slo, "ehi": shi, "eqs": sqs,
                  "hi_rec": hi_rec}
@@ -654,9 +583,9 @@ def test_model_reaches_every_edge(panel, fake):
         _same_records(*_records(tx, "lmem", lq, ll, dict(k=6, W=L // WSIZE + 2)))
     want = ("hi1_is_n", "length_0", "ftab_start", "ftab_miss", "fail_first_step",
             "window_probe", "seed_final_probe", "final_probe", "max_range_cut",
-            "restart_lookup", "restart_lookup_miss", "restart_replay", "restart_to_full",
-            "replay_held", "w_overflow", "s_overflow", "owner_past_s", "lmem_fail",
-            "lmem_complete", "sample_degenerate")
+            "restart_replay", "replay_nonempty", "restart_to_full", "replay_held",
+            "w_overflow", "s_overflow",
+            "owner_past_s", "lmem_fail", "lmem_complete", "sample_degenerate")
     assert all(events.get(e, 0) > 0 for e in want), [e for e in want if e not in events]
 
 
@@ -694,7 +623,8 @@ def test_launch_passes_the_rows_lanes_and_capacities(panel, fake, mode, index):
     assert c["k"] == k and (c["ftab"][0] is not None) == bool(k)
     assert c["ftab"][1] == (tx.arrays["ftab"].element_size() if k else 0)
     assert c["max_range"] == kw.get("max_range", 0)
-    assert (c["threads"], bool(c["stage"])) == cuda_lf.launch_plan(*qc.shape, 132)
+    most = cuda_seeds.BLOCK_LANES[torch.int64 if two else torch.int32]
+    assert (c["threads"], bool(c["stage"])) == cuda_lf.launch_plan(*qc.shape, 132, most=most)
     assert c["stream"] == 1000
     rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns = c["outs"]
     assert (rseed is None) == (mode != "greedy") and (sqe is None) == (mode == "lmem")
@@ -702,6 +632,22 @@ def test_launch_passes_the_rows_lanes_and_capacities(panel, fake, mode, index):
     assert all(t.dtype == (torch.int64 if two else torch.int32) for t in out.values())
     assert cuda_seeds.LAUNCHES_SEED == dict(ZERO, **{"sample_rec" if two and mode == "sample"
                                                      else mode: 1})
+
+
+@pytest.mark.parametrize("index,threads", [("fblock64", 512), ("fb2_64", 256)])
+def test_full_batch_block_is_its_instance_familys(panel, fake, index, threads):
+    """A batch that gives every SM full blocks launches blocks of the size
+    csrc/seeds.cu Bounds builds the instance family for (512 threads over
+    int32 lanes, 256 over int64), the kernel refusing larger ones."""
+    tx = panel["big"][1] if index == "fb2_64" else panel["dense"][1]
+    B, L = 132 * 256, 31
+    fake["rc"] = 1  # the call is recorded, the model not run
+    fake["install"](tx)
+    q, ln = torch.full((B, L), 2, dtype=torch.int32), torch.full((B,), L, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="seeding kernel launch failed"):
+        cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=19, S=8)
+    (c,) = fake["calls"]
+    assert c["threads"] == threads and c["stage"]
 
 
 def test_launch_on_a_view_and_no_lanes(panel, fake):

@@ -1,20 +1,20 @@
-"""The seeding machines' restart lookup and their lanes taken as they finish
-(csrc/seeds.cu run_lanes), on an index whose text holds N.
+"""The seeding machines' ftab restart and the order their lanes run in
+(csrc/seeds.cu), on an index whose text holds N.
 
 The index: a reference of ACGT with an N in about every 13 codes and a
 haplotype of it, built with fused rows (7 codes: the terminator, the
 separator, A, C, G, N, T) and an ftab of k = 6.  Its reads are the text's
 substrings with substitutions (a failure every few codes), on both strands,
-so that greedy's restarts take the ftab lookup where the next k codes are
-A, C, G or T (the k-mer in the text, or absent from it: the full range),
-and replay where those codes hold an N, which the text holds: the replay's
-range is not empty.  Beside them restarts fewer than k codes from a read's
-end, reads shorter than k and length-0 lanes.  The numpy model of the
-kernel (test_torch_seed_kernel.machine_model behind the fake C entry, its
-lanes run by run_lanes over fewer groups than lanes) equals the plain twins
-and the JAX package's markers_greedy_seeding and markers_lmem_lanes buffer
-for buffer; the model's tables do not depend on the order in which the
-lanes are taken.  Every output is an integer, so every check is exact."""
+so that greedy's restarts replay the next k codes where they are A, C, G
+or T (the k-mer in the text, or absent from it: an empty step that holds
+the full range) and where they hold an N, which the text holds: the
+replay's range is not empty.  Beside them restarts fewer than k codes from
+a read's end, reads shorter than k and length-0 lanes.  The numpy model of
+the kernel (test_torch_seed_kernel.machine_model behind the fake C entry)
+equals the plain twins and the JAX package's markers_greedy_seeding and
+markers_lmem_lanes buffer for buffer; the model's tables do not depend on
+the order in which its lanes run.  Every output is an integer, so every
+check is exact."""
 
 import numpy as np
 import pytest
@@ -29,8 +29,8 @@ from rowbowt_tpu_torch.engine import seeds as TS
 from rowbowt_tpu_torch.engine.device import TorchIndex
 from rowbowt_tpu_torch.index import RbtIndex
 from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
-from test_torch_seed_kernel import (GROUPS, WSIZE, ZERO, _eq, _lanes, _run, fake,  # noqa: F401
-                                    machine_model, rank_table, run_lanes)
+from test_torch_seed_kernel import (WSIZE, ZERO, _eq, _lanes, _run, fake,  # noqa: F401
+                                    machine_model, rank_table)
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 REF_LEN, SEP_LEN, FTAB_K = 4000, 10, 6
@@ -80,10 +80,10 @@ RUNS = {"greedy_100": ("greedy", dict(), 100),
 @pytest.mark.parametrize("run", list(RUNS))
 def test_restarts_over_a_text_with_n_match_jax(ntext, fake, run):
     """The engine with its plain twin == JAX, and with the model behind the
-    C entry == JAX; greedy's restarts reach the lookup of a k-mer in the
-    text and of one absent from it, the replay of a window holding N with a
-    non-empty range and with an empty one, and the restart too near the
-    read's end; the lanes hold reads shorter than k and empty ones."""
+    C entry == JAX; greedy's restarts reach the replay of a window holding
+    N, replays with a non-empty range and with an empty one, and
+    the restart too near the read's end; the lanes hold reads shorter than
+    k and empty ones."""
     mode, opt, L = RUNS[run]
     dx, tx, idx, reads = ntext
     if mode == "lmem":
@@ -97,14 +97,13 @@ def test_restarts_over_a_text_with_n_match_jax(ntext, fake, run):
     fake["kernel"]()
     _eq(_run(mode, False, tx, qc, lens, opt), want, "model")
     assert cuda_seeds.LAUNCHES_SEED == dict(ZERO, **{mode: 1})
-    assert events.get("taken_late")
     if mode == "greedy":
-        edges = ("restart_lookup", "restart_lookup_miss", "restart_replay", "replay_nonempty",
-                 "replay_held", "restart_to_full", "ftab_start", "ftab_miss")
+        edges = ("restart_replay", "replay_window_not_acgt", "replay_nonempty", "replay_held",
+                 "restart_to_full", "ftab_start", "ftab_miss")
         assert all(events.get(e) for e in edges), [e for e in edges if not events.get(e)]
 
 
-def _model_of(tx, mode, qc, lens, groups=None, order=None):
+def _model_of(tx, mode, qc, lens, order=None):
     """machine_model's tables of `mode` over tx's fused rows, greedy and
     L-MEM from the ftab, at capacities that overflow."""
     key = cuda_lf.row_layout(tx)
@@ -116,15 +115,14 @@ def _model_of(tx, mode, qc, lens, groups=None, order=None):
               sample=dict(min_length=0, S=2))[mode]
     if mode != "sample":
         kw.update(ftab=tx.arrays["ftab"].numpy(), acgt=list(tx.acgt_codes))
-    return machine_model(mode, rk, F, tx.A, tx.n, qc, lens, groups=groups, order=order, **kw)
+    return machine_model(mode, rk, F, tx.A, tx.n, qc, lens, order=order, **kw)
 
 
 @pytest.mark.parametrize("order", ["reversed", "interleaved", "shuffled"])
 def test_lanes_taken_in_any_order_write_the_same_tables(ntext, order):
-    """The model with GROUPS lane groups taking the lanes in a permuted
-    order (each group's first lane, then the counter's) writes the tables
-    of the model run a lane a group in lane order, every machine; run_lanes
-    takes every lane once, the first wave first."""
+    """The model running the lanes in a permuted order (as the kernel's
+    warps hold them in an order of their own) writes the tables of the
+    model run in lane order, every machine."""
     _, tx, idx, reads = ntext
     qc, lens = _lanes(idx, reads, 100)
     B = qc.shape[0]
@@ -132,12 +130,10 @@ def test_lanes_taken_in_any_order_write_the_same_tables(ntext, order):
             "shuffled": np.random.default_rng(5).permutation(B)}[order]
     for mode in ("greedy", "lmem", "sample"):
         want = _model_of(tx, mode, qc, lens)
-        got = _model_of(tx, mode, qc, lens, groups=GROUPS, order=perm)
+        got = _model_of(tx, mode, qc, lens, order=perm)
         assert sorted(got) == sorted(want)
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=f"{mode} {key}")
-    taken = run_lanes(lambda b: iter([1] * int(lens[b])), B, GROUPS, perm)
-    assert sorted(taken) == list(range(B)) and taken[:GROUPS] == list(perm[:GROUPS])
 
 
 def test_model_equals_the_twins_records(ntext, fake):
@@ -156,4 +152,4 @@ def test_model_equals_the_twins_records(ntext, fake):
     got = cuda_seeds.launch_machine(tx, "sample", q, ln, min_length=0, S=2)
     for key in want:
         np.testing.assert_array_equal(got[key].numpy(), want[key].numpy(), err_msg=key)
-    assert [c["next"] is not None for c in fake["calls"]] == [True, True]
+    assert [c["mode"] for c in fake["calls"]] == ["greedy", "sample"]

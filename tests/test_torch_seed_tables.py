@@ -5,10 +5,9 @@ rbt_seed_machine_tables), and the sampled machine's per-step toehold on an
 index without kval, over those tables and over fused rows (the TOE
 instances).
 
-A numpy model of the kernel (its lanes run by run_lanes, taken as they
-finish: the ranks and BWT[hi] from the tables the kernel reads; the greedy,
-L-MEM and sampled machines of test_torch_seed_kernel.machine_model over
-them; for the per-step toehold
+A numpy model of the kernel (one lane at a time: the ranks and BWT[hi]
+from the tables the kernel reads; the greedy, L-MEM and sampled machines of
+test_torch_seed_kernel.machine_model over them; for the per-step toehold
 the current run's last non-trivial step with its trivial steps, copied
 after every successful step and resolved once a seed from tk1 or ltk, with
 the reference's per-step recurrence riding beside it and agreeing) sits
@@ -43,7 +42,7 @@ from rowbowt_tpu_torch.io.fastq import read_seqs
 from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 from test_torch_build import write_inputs
 from test_torch_lf_tables import _nibbles
-from test_torch_seed_kernel import GROUPS, _eq, _model_lib, machine_model, rank_table, run_lanes
+from test_torch_seed_kernel import _eq, _model_lib, machine_model, rank_table
 from test_torch_toehold import ACGT, _ints, _lanes, _symbols, _text_reads
 
 WIDTHS = (1, 31, 100)
@@ -216,15 +215,12 @@ def toehold_table(t, n, R):
     return table
 
 
-def sample_toe_model(rk, sym, F, A, n, q, lens, min_length, S, table, k0, events=None,
-                     groups=None, order=None, per_warp=16):
-    """The sampled machine's TOE instance, its lanes run by run_lanes over
-    `groups` thread groups (all B by default), `per_warp` a warp, taken in
-    `order`: {slo, shi,
-    sqs, sqe, ssamp [S, B], ns [B]} int32.  The current run's (tc, thi,
-    triv) and its copy after every successful step; a seed resolves the
-    copy (-1 before any successful step).  The reference's per-step
-    recurrence (lf_step_w_loc's nk) rides beside it and must agree."""
+def sample_toe_model(rk, sym, F, A, n, q, lens, min_length, S, table, k0, events=None):
+    """The sampled machine's TOE instance, lane by lane: {slo, shi, sqs,
+    sqe, ssamp [S, B], ns [B]} int32.  The current run's (tc, thi, triv)
+    and its copy after every successful step; a seed resolves the copy (-1
+    before any successful step).  The reference's per-step recurrence
+    (lf_step_w_loc's nk) rides beside it and must agree."""
     ev = events if events is not None else {}
     F = [int(x) for x in F]
     B, L = q.shape
@@ -238,9 +234,7 @@ def sample_toe_model(rk, sym, F, A, n, q, lens, min_length, S, table, k0, events
     out = {key: np.zeros((S, B), np.int64) for key in ("slo", "shi", "sqs", "sqe", "ssamp")}
     out["slo"][:] = 1
     out["ns"] = np.zeros(B, np.int64)
-
-    def lane(b):
-        """Lane b's machine, one yield a step; its tail when it ends."""
+    for b in range(B):
         m = int(lens[b])
         lo, hi, plo, phi, ei, ns = 0, n - 1, 0, n - 1, m, 0
         tc, thi, triv, copy, run_ok = -1, 0, 0, None, False
@@ -263,7 +257,6 @@ def sample_toe_model(rk, sym, F, A, n, q, lens, min_length, S, table, k0, events
             ns += 1
 
         for j in range(min(m, L)):
-            yield 1
             c = int(q[b, L - 1 - j])
             ok = 0 <= c < A and rk[hi + 1, c] > rk[lo, c]
             if ok:
@@ -289,8 +282,6 @@ def sample_toe_model(rk, sym, F, A, n, q, lens, min_length, S, table, k0, events
         if ei >= min_length:
             seed(0, ei)
         out["ns"][b] = ns
-
-    run_lanes(lane, B, groups or B, order, ev, per_warp)
     return {key: v.astype(np.int32) for key, v in out.items()}
 
 
@@ -309,19 +300,14 @@ def _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b):
 
 
 def _run_model(name, rk, sym, Fn, A, n, R, q, lens, k, ftab, acgt, wsize, max_range,
-               min_length, W, S, toe, events, nxt, per_warp):
-    """The model's tables over GROUPS lane groups, per_warp a warp, the
-    counter at nxt left as the kernel leaves it."""
-    counter = _ints(nxt, 1, 4)
-    assert counter[0] == 0, "the wrapper zeroes the lane counter before the launch"
-    counter[0] = q.shape[0]  # every group's takes past the first wave, its last finding none
+               min_length, W, S, toe, events):
     if toe is None:
         return machine_model(name, rk, Fn, A, n, q, lens, k=k, ftab=ftab, acgt=_acgt(acgt),
                              wsize=wsize, max_range=max_range, min_length=min_length, W=W, S=S,
-                             lane_bytes=4, events=events, groups=GROUPS, per_warp=per_warp)
+                             lane_bytes=4, events=events)
     k0 = (int(toe["samples_last"][R - 1]) + 1) % n
     return sample_toe_model(rk, sym, Fn, A, n, q, lens, min_length, S, toehold_table(toe, n, R),
-                            k0, events, groups=GROUPS, per_warp=per_warp)
+                            k0, events)
 
 
 def _write(got, lane_b, outs):
@@ -339,7 +325,7 @@ def _model_libs(tx, calls, rc, events=None):
     def tables(mode, policy, occ, occ_b, rs, rs_b, rh, rh_b, off, off_b, n_off, shift,
                iters, rec, bwt4, nb, R, F, A, n, q, lengths, B, L, ftab, ftab_b, k, acgt, wsize,
                max_range, min_length, W, rlo, rhi, rseed, nrec, S, slo, shi, sqs, sqe, ns, tk1,
-               tk1_b, ltk, ltk_b, sl, sl_b, ssamp, nxt, threads, stage, stream):
+               tk1_b, ltk, ltk_b, sl, sl_b, ssamp, threads, stage, stream):
         name = {0: "greedy", 1: "lmem", 2: "sample"}[mode]
         pol = {0: "runs", 1: "dense", 2: "occ1"}[policy]
         calls.append(dict(entry="tables", mode=name, policy=pol, A=A,
@@ -349,7 +335,7 @@ def _model_libs(tx, calls, rc, events=None):
                                                                       iters), rec=rec,
                           toe=(tk1, ltk, sl, ssamp), wsize=wsize, max_range=max_range,
                           min_length=min_length, W=W, S=S, threads=threads, stage=stage,
-                          stream=stream, next=nxt))
+                          stream=stream))
         if rc or B == 0:
             return rc
         size = {"runs": A * R, "dense": A * nb, "occ1": A * (n + 1)}[pol]
@@ -369,8 +355,7 @@ def _model_libs(tx, calls, rc, events=None):
         got = _run_model(name, rk, sym, Fn, A, n, R, _ints(q, B * L, 4).reshape(B, L),
                          _ints(lengths, B, 4), k,
                          _ints(ftab, 2 * 4 ** k, ftab_b).reshape(-1, 2) if k else None, acgt,
-                         wsize, max_range, min_length, W, S, toe, events, nxt,
-                         32 // cuda_lf.lane_threads(pol))
+                         wsize, max_range, min_length, W, S, toe, events)
         _write(got, 4, {"wlo": rlo, "whi": rhi, "wseed": rseed, "nrec": nrec, "slo": slo,
                         "shi": shi, "sqs": sqs, "sqe": sqe, "ns": ns, "elo": slo, "ehi": shi,
                         "eqs": sqs, "ssamp": ssamp})
@@ -378,8 +363,8 @@ def _model_libs(tx, calls, rc, events=None):
 
     def rows(mode, fb, syms, F, base, per_blk, A, n, lane_b, q, lengths, B, L, ftab, ftab_b, k,
              acgt, wsize, max_range, min_length, W, rlo, rhi, rseed, nrec, S, slo, shi, sqs, sqe,
-             ns, hi_rec, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b, R, ssamp, nxt, threads,
-             stage, stream):
+             ns, hi_rec, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b, R, ssamp, threads, stage,
+             stream):
         if ssamp is None:
             args = locals().copy()
             return rows_lib.rbt_seed_machine(*(args[a] for a in (
@@ -387,10 +372,10 @@ def _model_libs(tx, calls, rc, events=None):
                 "B", "L", "ftab", "ftab_b", "k", "acgt", "wsize", "max_range", "min_length", "W",
                 "rlo", "rhi", "rseed", "nrec", "S", "slo", "shi", "sqs", "sqe", "ns", "hi_rec",
                 "tk1", "tk1_b", "ltk", "ltk_b", "rs", "rs_b", "sl", "sl_b", "R", "ssamp",
-                "nxt", "threads", "stage", "stream")))
+                "threads", "stage", "stream")))
         calls.append(dict(entry="rows", mode=mode, syms=syms, lane=lane_b, B=B, L=L, k=k,
                           widths=(tk1_b, ltk_b, rs_b, sl_b), toe=(tk1, ltk, rs, sl, ssamp),
-                          hi_rec=hi_rec, threads=threads, stage=stage, next=nxt))
+                          hi_rec=hi_rec, threads=threads, stage=stage))
         if rc or B == 0:
             return rc
         key = cuda_lf.row_layout(tx)
@@ -401,7 +386,7 @@ def _model_libs(tx, calls, rc, events=None):
         toe = _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b)
         got = _run_model("sample", rk, sym, Fn, A, n, R, _ints(q, B * L, 4).reshape(B, L),
                          _ints(lengths, B, 4), k, None, acgt, wsize, max_range, min_length, W, S,
-                         toe, events, nxt, 16)
+                         toe, events)
         _write(got, 4, {"slo": slo, "shi": shi, "sqs": sqs, "sqe": sqe, "ns": ns,
                         "ssamp": ssamp})
         return rc

@@ -517,7 +517,7 @@ def in_turns(plain, kernel, plain_cycles: int, kernel_cycles: int):
     return k, (p + cuda_ms(plain, plain_cycles)) / 2
 
 
-SPIN_CYCLES = 200_000  # about 0.1 ms of the card's clock, more than a call's host time
+SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock, more than any wrapper's host time
 
 
 def start_event(start) -> None:
@@ -644,7 +644,8 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    """The four nvcc builds and the g++ build, started together."""
+    """The four nvcc builds and the g++ build, started together; the tables
+    steps' threads a lane of the built lf.cu equal to cuda_lf.lane_threads."""
     from rowbowt_tpu_torch.construct import sa
     from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi, cuda_seeds
 
@@ -659,6 +660,9 @@ def phase_build() -> None:
         futures = {name: ex.submit(seconds, fn) for name, fn in builds.items()}
         done = {name: f.result() for name, f in futures.items()}
     check(done["host"][0] is not None, f"host library did not build: {sa._NATIVE_ERROR}")
+    built = {p: cuda_lf.build().rbt_lane_threads(code) for p, code in cuda_lf._POLICY_CODE.items()}
+    check(built == {p: cuda_lf.lane_threads(p) for p in built},
+          f"csrc/lf_tables.cuh lane_threads {built} != cuda_lf.lane_threads")
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             for name, log in (("lf", cuda_lf.BUILD_LOG), ("gather_probe", cuda_gather.BUILD_LOG),
@@ -2987,6 +2991,8 @@ def seed_bound(work: dict, B: int, tx, lat) -> dict:
     b = dict(bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
              bound_ms=max(byte_us, ops_us) / 1e3,
              bound_by="bytes" if byte_us >= ops_us else "operations")
+    if not key:
+        b.update(step_tables=step_tables(tx, work["policy"]), l2_bytes=l2_bytes())
     if lat is not None:
         cycle = lat if isinstance(lat, float) else lat["random_cycle"]
         resolve = 0.0
@@ -4181,6 +4187,28 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
     return res
 
 
+L2_BYTES = 50 * 2 ** 20  # H100 SXM L2 (NVIDIA data sheet), where torch does not report it
+
+
+def l2_bytes() -> int:
+    """The card's L2 in bytes as torch reports it, else L2_BYTES."""
+    import torch
+
+    return int(getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0) or L2_BYTES)
+
+
+def step_tables(tx, policy: str) -> dict:
+    """{table: bytes} that the `policy` step of the tables kernels reads
+    from: bwt4 and occ_blk_flat (dense), occ1_flat (occ1), and the bucket
+    directory with the run records or run_start, run_head and occ_flat
+    (runs)."""
+    arr = tx.arrays
+    names = {"dense": ("bwt4", "occ_blk_flat"), "occ1": ("occ1_flat",),
+             "runs": ("rs_off", "run_rec") if "run_rec" in arr else
+             ("rs_off", "run_start", "run_head", "occ_flat")}[policy]
+    return {k: arr[k].numel() * arr[k].element_size() for k in names if k in arr}
+
+
 def tables_step_us(tx, policy: str, lat: dict, old: bool = False) -> float:
     """A lower bound on the latency of one step of the tables kernel: for
     the run-space policy the shortest chain a step needs: the bucket
@@ -4191,11 +4219,15 @@ def tables_step_us(tx, policy: str, lat: dict, old: bool = False) -> float:
     2^(L1_LEVELS + 1)) the old bound; with `old`, the bound of the binary
     search over every run_start that the directory replaced: its levels
     below the first L1_LEVELS at the L2's latency, then the occ_flat load.
-    For the dense and occ1 policies one load at the L2's latency."""
+    For the dense and occ1 policies one load: at the L2's latency where
+    the policy's tables (step_tables) fit the card's L2, at a random
+    cycle's latency where they exceed it (occ1 is A * (n + 1) entries)."""
     if policy == "runs":
         search = (max(search_levels(tx.R) - L1_LEVELS, 0) * lat["tool_table"]
                   + lat["random_cycle"])
         return search if old else min(search, 2 * lat["tool_table"] + lat["random_cycle"])
+    if sum(step_tables(tx, policy).values()) > l2_bytes():
+        return lat["random_cycle"]
     return lat["tool_table"]
 
 
@@ -4294,7 +4326,8 @@ def tables_bound(work: dict, B: int, tx, toehold: bool, lat: dict | None) -> dic
     tables_entries' search_ops, and a search of search_levels(R) levels, 4
     operations each, for each resolve; the dense policy's 16-word nibble
     count, RANK_OPS; 8 for a step's own arithmetic) over its int32 rate;
-    with `lat` (phase k1's latencies) the longest lane's steps times
+    the bytes of the tables the step reads (step_tables) beside the card's
+    L2; with `lat` (phase k1's latencies) the longest lane's steps times
     tables_step_us, plus the resolve's search and load for the toehold, and
     for the run-space policy the same with the bound of the search the
     directory replaced (the *_old keys).  bound_ms is the larger of the byte
@@ -4314,7 +4347,8 @@ def tables_bound(work: dict, B: int, tx, toehold: bool, lat: dict | None) -> dic
     ops_us = ops / INT_OPS_PER_S * 1e6
     b = dict(bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
              bound_ms=max(byte_us, ops_us) / 1e3,
-             bound_by="bytes" if byte_us >= ops_us else "operations")
+             bound_by="bytes" if byte_us >= ops_us else "operations",
+             step_tables=step_tables(tx, work["policy"]), l2_bytes=l2_bytes())
     if lat is not None:
         resolve = (lat["random_cycle"] + max(levels - L1_LEVELS, 0) * lat["tool_table"]
                    if toehold else 0.0)

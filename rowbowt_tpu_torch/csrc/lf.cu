@@ -105,21 +105,40 @@
 //     from its 32-byte record (the REC instance), else from run_start,
 //     run_head and occ_flat;
 //   - dense: the checkpoint of c at block i >> 7 and the nibbles equal to c
-//     among the block's first i & 127 symbols (64 B, four 16-byte loads);
-//     the trivial test one word of bwt4;
-//   - occ1: one load a rank; the trivial test one more (occ1 at hi).
+//     among the block's first i & 127 symbols.  kDenseG = 2 threads a lane
+//     (lf_tables.cuh lane_threads), each loading two 16-byte parts of the
+//     64 B block and counting c among its eight words below the offset; the
+//     shares of both ranks (and for the trivial test the symbol at hi) are
+//     packed into one word and summed by one shuffle.  Where lo and hi + 1
+//     lie in one block, one fetch and one checkpoint serve both ranks.  The
+//     trivial test reads hi's nibble from a fetched block where hi lies in
+//     it, else one word of bwt4;
+//   - occ1: one load a rank, lo's on one thread of a pair and hi + 1's on
+//     the other, joined by a shuffle; for the trivial test both load occ1
+//     at hi.
+// The dense and occ1 instances read F from shared memory, staged once a
+// block (an alphabet of at most 16 codes).
 // What bounds it: each step's loads depend on the step before, so no byte
 // count comes near it; its bound is the shortest dependent chain any design
-// of a step needs (the directory's entry and one run_start probe at the
-// L2's latency, then one load beyond the L2) times the longest lane's
-// steps.  The step it replaced, a binary search over all R starts (24 levels
-// at R = 15.6 M) with hi + 1's confined to a window after lo's run, took
-// 2.39 ms a chr batch on an H100: some 30 dependent loads a step, their
-// number and not their latency alone setting the pace.  The directory
-// leaves a step an entry of a 5 MB table, a search of one bucket's few
-// starts and the run's record: 0.61 ms a chr batch.  One thread a lane, and
-// the step without the records, were timed beside it and lost on every
-// path (PERF.md §6).
+// of a step needs times the longest lane's steps.  Over the run-space
+// tables that chain is the directory's entry and one run_start probe at the
+// L2's latency, then one load beyond the L2.  The step it replaced, a binary
+// search over all R starts (24 levels at R = 15.6 M) with hi + 1's confined
+// to a window after lo's run, took 2.39 ms a chr batch on an H100: some 30
+// dependent loads a step, their number and not their latency alone setting
+// the pace.  The directory leaves a step an entry of a 5 MB table, a search
+// of one bucket's few starts and the run's record: 0.61 ms a chr batch.
+// One thread a lane, and the step without the records, were timed beside
+// it and lost on every path (PERF.md §6).  Over the dense and occ1 tables
+// the chain is one load: at the L2's latency where the policy's tables fit
+// the 50 MB L2, at a random cycle's latency beyond it (occ1 is A * (n + 1)
+// entries, 192 MB at n = 8 M).  The dense step on one thread a lane, the
+// whole block loaded for each rank and its 16 words counted, took 268 us
+// a batch of 16,384 reads and 670 us over chr's dense tables on an H100;
+// on two threads it takes 137 and 282, and on four it lost to two in the
+// seeding machines, whose body every thread of a lane runs.  occ1's ranks
+// on a pair of threads took 0.72-0.76x their one thread's time (PERF.md
+// §6).
 //
 // The first kernel of this file (lf_count_transposed_kernel, C entry
 // rbt_lf_count_transposed) is the earlier design, one thread per lane over a
@@ -407,6 +426,7 @@ lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
   const int b0 = blockIdx.x * lanes;
   const int nl = min(lanes, B - b0);
   const int stride = staged_stride(L);
+  stage_F<POLICY>(F, A);  // the dense and occ1 steps' F, in shared memory
   if (stage) stage_codes(s_code, q + (size_t)b0 * L, nl, L, A, stride);
   __syncthreads();
   const int ll = threadIdx.x / G;
@@ -443,7 +463,8 @@ lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
     const int c = code_at(L - 1 - j);
     const Lane h0 = hi;
     bool trivial = false;  // BWT[hi] == c
-    if (!lf_step_tables<Lane, POLICY, TOE, REC>(t, F, A, n, sub, pair, c, lo, hi, trivial))
+    if (!lf_step_tables<Lane, POLICY, TOE, REC>(t, step_F<POLICY>(F), A, n, sub, pair, c, lo,
+                                                hi, trivial))
       break;
     if constexpr (TOE) {
       if (trivial) {
@@ -608,7 +629,8 @@ int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n
 // 0 (runs: occ = occ_flat, run_start, run_head, R, and the bucket directory
 // rs_off [n_off] over run_start, n_off == (n >> shift) + 2, searched in at
 // most `iters` halvings a bucket), 1 (dense: occ = occ_blk_flat, bwt4 int32
-// [nb * 16] 16-byte aligned, A at most 16) or 2 (occ1: occ = occ1_flat);
+// [nb * 16] 16-byte aligned, A at most 16) or 2 (occ1: occ = occ1_flat, A at
+// most 16);
 // each table int32 or int64 (*_bytes), run_head and rs_off too.  `rec`
 // (runs only, else null) is null or the run records (int32 [R * 8], 32-byte
 // aligned; A at most 6, int32 lanes), which the step then reads instead of
@@ -618,9 +640,8 @@ int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n
 // or int64 [4^kf, 2], acgt as rbt_lf_count's); with k_out, the toehold
 // search (kf 0) over tk1 [A * n] where given, else ltk [A * R] with
 // run_start, and samples_last [R], each int32 or int64, k_out in the lane
-// type.  `threads` is the block size (two threads a lane over the
-// run-space tables, else one); `stage`
-// reads the codes from shared memory (lanes a block * staged stride bytes,
+// type.  `threads` is the block size (lane_threads(policy), two threads a
+// lane); `stage` reads the codes from shared memory (lanes a block * staged stride bytes,
 // at most 47 KB); both from ops/cuda_lf.py launch_plan.  Returns
 // cudaGetLastError() after the launch (0 on success, nothing launched for B
 // == 0).
@@ -638,10 +659,10 @@ int rbt_lf_tables(int policy, const void* occ, int occ_bytes, const void* run_st
                     width(rs_bytes) && width(rh_bytes) && R >= 1 &&
                     valid_directory(rs_off, off_bytes, n_off, shift, iters, n) &&
                     (rec == nullptr || valid_records(rec, A, lane_bytes));
-  const bool dense = policy == kDense && rec == nullptr && bwt4 != nullptr && A <= 16 &&
+  const bool dense = policy == kDense && rec == nullptr && bwt4 != nullptr && A < kMaxF &&
                      ((uintptr_t)bwt4 & 15) == 0 && nb >= (n + 127) / 128;
   const bool tables = occ != nullptr && width(occ_bytes) &&
-                      (runs || dense || (policy == kOcc1 && rec == nullptr));
+                      (runs || dense || (policy == kOcc1 && rec == nullptr && A < kMaxF));
   const bool toe = k_out != nullptr;
   const bool toe_tables =
       !toe || (kf == 0 && samples_last != nullptr && width(sl_bytes) && R >= 1 &&
@@ -702,6 +723,12 @@ int rbt_lf_count_transposed(const void* fb, int syms_per_row, const void* F,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// Threads a lane of the tables kernels' `policy` step (lf_tables.cuh
+// lane_threads), or 0 for a policy outside 0..2.
+int rbt_lane_threads(int policy) {
+  return policy == kRuns || policy == kDense || policy == kOcc1 ? lane_threads(policy) : 0;
 }
 
 const char* rbt_cuda_error_string(int code) {

@@ -21,13 +21,47 @@ namespace {
 // among an index's tables: the run-space tables, the dense blocks, or occ1.
 enum Policy : int { kRuns = 0, kDense = 1, kOcc1 = 2 };
 constexpr int kDenseVec = 4;  // int4 parts of a dense block: 16 words, 128 symbols
+constexpr int kDenseG = 2;    // threads a lane of the dense step, two parts of a block each
+constexpr int kDensePer = kDenseVec / kDenseG;  // parts of a block a thread holds
+static_assert(kDenseVec % kDenseG == 0, "each thread of a lane holds as many parts");
+// F entries the dense and occ1 steps read from shared memory: their tables
+// hold at most 16 codes (bwt4's nibbles; a raw build writes occ1 beside them)
+constexpr int kMaxF = 17;
 
-// Threads a lane of the POLICY step: the run-space step ranks lo on the
-// first of two neighbouring threads and hi + 1 on the second, joined by a
-// shuffle (65,536 lanes fill under a quarter of an H100's thread slots, so
-// both searches' loads are in flight at once); the others take both ranks
-// on one thread.
-__host__ __device__ constexpr int lane_threads(int policy) { return policy == kRuns ? 2 : 1; }
+// Threads a lane of the POLICY step: the run-space and occ1 steps rank lo
+// on the first of two neighbouring threads and hi + 1 on the second,
+// joined by a shuffle (65,536 lanes fill under a quarter of an H100's
+// thread slots, so both ranks' loads are in flight at once, and each
+// thread's step is half as long); the dense step splits each 64 B block
+// over kDenseG threads, which count their words and sum them by shuffle.
+__host__ __device__ constexpr int lane_threads(int policy) {
+  return policy == kDense ? kDenseG : 2;
+}
+
+// F [A + 1] of the dense and occ1 steps: each block's copy in shared
+// memory, which stage_F fills before the block's __syncthreads(); the
+// run-space step reads F from global memory (step_F).
+template <typename Lane>
+__device__ __forceinline__ Lane* shared_F() {
+  __shared__ Lane sF[kMaxF];
+  return sF;
+}
+
+template <int POLICY, typename Lane>
+__device__ __forceinline__ void stage_F(const Lane* F, int A) {
+  if constexpr (POLICY != kRuns) {
+    if (threadIdx.x <= (unsigned)A) shared_F<Lane>()[threadIdx.x] = F[threadIdx.x];
+  }
+}
+
+template <int POLICY, typename Lane>
+__device__ __forceinline__ const Lane* step_F(const Lane* F) {
+  if constexpr (POLICY == kRuns) {
+    return F;
+  } else {
+    return shared_F<Lane>();
+  }
+}
 
 // The rank tables, each int32 or int64 as the index holds it (*_bytes): occ
 // is occ_flat [A * R] (runs), occ_blk_flat [A * nb] (dense) or occ1_flat
@@ -175,23 +209,50 @@ __device__ __forceinline__ int64_t rank_runs(const Tabs& t, int64_t i, int c, in
   return occ + (head == c ? i - start : 0);
 }
 
-// rank(i, c) over the dense blocks (ops/rank.py rank_dense, i < n): the
-// checkpoint of c at block i >> 7, plus the nibbles equal to c among the
-// block's first i & 127 symbols (one 64 B block, four 16-byte loads).
-__device__ __forceinline__ int64_t rank_dense(const Tabs& t, int64_t i, int c) {
-  const int64_t blk = i >> 7;
-  const int off = (int)(i & 127);
-  const int64_t occ = load_at(t.occ, t.occ_bytes, (int64_t)c * t.nb + blk);
-  const uint32_t pat = (uint32_t)c * 0x11111111u;
-  int in_blk = 0;
+// The nibbles of the word x equal to c (pat = c in every nibble): the top
+// bit of each matching nibble.  A nibble t of x ^ pat is 0 exactly where
+// neither (t & 7) + 7 nor t sets its top bit, and no sum carries out of its
+// nibble.
+__device__ __forceinline__ uint32_t nibble_matches(uint32_t x, uint32_t pat) {
+  const uint32_t t = x ^ pat;
+  return ~(((t & 0x77777777u) + 0x77777777u) | t) & 0x88888888u;
+}
+
+// The matches of a word below bit `shift` (4 * the symbols of the word
+// counted, any int): the word's low min(max(shift, 0), 32) bits.
+__device__ __forceinline__ int count_below(uint32_t matches, int shift) {
+  return __popc(matches & __funnelshift_lc(0xFFFFFFFFu, 0u, (unsigned)max(shift, 0)));
+}
+
+// This thread's shares of a dense step, packed: bits 0-7 the nibbles equal
+// to c among the first off0 symbols of block v0, bits 8-15 among the first
+// off1 of block v1 (v0's own registers and matches where `one`), and with
+// TOE bits 16-19 the symbol at offset soff of v1 (in1) or v0 (in0) where
+// this thread holds its word.  The thread holds part sub + m * kDenseG of
+// each block in v0[m] and v1[m], symbols 32 * part on, so the kDenseG
+// shares of a lane sum to the two in-block counts (at most 127 each) and
+// the symbol.
+template <bool TOE>
+__device__ __forceinline__ uint32_t dense_shares(const int4 (&v0)[kDensePer],
+                                                 const int4 (&v1)[kDensePer], bool one, int sub,
+                                                 uint32_t pat, int off0, int off1, bool in0,
+                                                 bool in1, int soff) {
+  uint32_t s0 = 0, s1 = 0, sym = 0;
 #pragma unroll
-  for (int m = 0; m < kDenseVec; ++m) {
-    const int4 v = __ldg(t.bwt4 + blk * kDenseVec + m);
+  for (int m = 0; m < kDensePer; ++m) {
+    const int part = sub + m * kDenseG;
+    const int a0 = 4 * (off0 - 32 * part), a1 = 4 * (off1 - 32 * part);
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      in_blk += nibbles_below((uint32_t)lane_of(v, e), pat, off - 8 * (4 * m + e));
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t m0 = nibble_matches((uint32_t)lane_of(v0[m], e), pat);
+      const uint32_t m1 = one ? m0 : nibble_matches((uint32_t)lane_of(v1[m], e), pat);
+      s0 += count_below(m0, a0 - 32 * e);
+      s1 += count_below(m1, a1 - 32 * e);
+      if (TOE && (in0 || in1) && soff >> 3 == 4 * part + e)
+        sym = ((uint32_t)lane_of(in1 ? v1[m] : v0[m], e) >> (4 * (soff & 7))) & 15u;
+    }
   }
-  return occ + in_blk;
+  return s0 | s1 << 8 | sym << 16;
 }
 
 // rank(x, c) of one thread over the run-space tables, the code's total
@@ -214,13 +275,20 @@ __device__ __forceinline__ Lane rank_or_total(const Tabs& t, Lane n, Lane total,
 
 // One LF step of a lane over the POLICY tables: (lo, hi) becomes LF((lo,
 // hi), c), or the empty range (1, 0) where that is empty or c lies outside
-// [0, A); returns whether it is non-empty.  F [A + 1] is read from global
-// memory.  The dense and occ1 steps run on one thread a lane; the run-space
-// step on the lane's two neighbouring threads (sub 0 and 1 of the warp's
-// `pair` mask, lane_threads), which take the same branches: each ranks one
-// end of the range and a shuffle gives both the pair.  TOE also sets
-// `trivial` to BWT[hi] == c for the pre-step hi, from the policy's own
-// tables.  REC (run-space, int32 lanes) reads the run records.
+// [0, A); returns whether it is non-empty.  F [A + 1] is global memory for
+// the run-space step, shared memory (at most kMaxF entries) for the dense
+// and occ1 steps.  A lane runs on its lane_threads(POLICY) neighbouring
+// threads (sub 0 .. G - 1 of the warp's `pair` mask), which take the same
+// branches.  The run-space and occ1 steps rank lo on sub 0 and hi + 1 on
+// sub 1, and a shuffle gives both the pair.  The dense step fetches lo's
+// 64 B block and hi + 1's, kDensePer 16-byte parts a thread, once where
+// both lie in one block; each thread counts c among its words below each
+// offset, and the lane's shares are summed by shuffle, with the
+// checkpoints of c (one entry for one block) added after.
+// TOE also sets `trivial` to BWT[hi] == c for the pre-step hi, from the
+// policy's own tables: hi + 1's run (runs), the fetched block that holds hi
+// or else one word of bwt4 (dense), occ1 at hi (occ1).  REC (run-space,
+// int32 lanes) reads the run records.
 template <typename Lane, int POLICY, bool TOE, bool REC = false>
 __device__ __forceinline__ bool lf_step_tables(const Tabs& t, const Lane* __restrict__ F, int A,
                                                Lane n, int sub, unsigned pair, int c, Lane& lo,
@@ -231,23 +299,57 @@ __device__ __forceinline__ bool lf_step_tables(const Tabs& t, const Lane* __rest
     hi = 0;
     return false;
   }
-  const Lane fc = (Lane)load_at(F, sizeof(Lane), c);
+  Lane fc;
+  if constexpr (POLICY == kRuns) {
+    fc = (Lane)load_at(F, sizeof(Lane), c);
+  } else {
+    fc = F[c];
+  }
   const Lane i1 = hi + 1;
   Lane cb, ce;
   if constexpr (POLICY == kOcc1) {
-    // one load a rank: row c of occ1 has n + 1 entries
+    // one load a rank (row c of occ1 has n + 1 entries): lo's on sub 0,
+    // hi + 1's on sub 1, joined by a shuffle; for TOE both load occ1 at hi
+    // (one sector) for BWT[hi] == c
     const int64_t row = (int64_t)c * ((int64_t)n + 1);
-    cb = (Lane)load_at(t.occ, t.occ_bytes, row + lo);
-    ce = (Lane)load_at(t.occ, t.occ_bytes, row + i1);
-    if constexpr (TOE) trivial = ce - (Lane)load_at(t.occ, t.occ_bytes, row + hi) == 1;
+    const Lane mine = (Lane)load_at(t.occ, t.occ_bytes, row + (sub ? i1 : lo));
+    const Lane at_hi = TOE ? (Lane)load_at(t.occ, t.occ_bytes, row + hi) : 0;
+    const Lane other = __shfl_xor_sync(pair, mine, 1);
+    cb = sub ? other : mine;
+    ce = sub ? mine : other;
+    if constexpr (TOE) trivial = ce - at_hi == 1;
   } else if constexpr (POLICY == kDense) {
     // rank(n, c) is the code's total count
-    const Lane total = (Lane)load_at(F, sizeof(Lane), c + 1) - fc;
-    cb = lo < n ? (Lane)rank_dense(t, lo, c) : total;
-    ce = i1 < n ? (Lane)rank_dense(t, i1, c) : total;
+    const Lane total = F[c + 1] - fc;
+    const bool has0 = lo < n, has1 = i1 < n;
+    const int64_t b0 = (int64_t)lo >> 7, b1 = (int64_t)i1 >> 7;
+    const bool one = has0 && has1 && b0 == b1;  // one fetch serves both ranks
+    int4 v0[kDensePer], v1[kDensePer];
+#pragma unroll
+    for (int m = 0; m < kDensePer; ++m) {
+      const int part = sub + m * kDenseG;
+      v0[m] = has0 ? __ldg(t.bwt4 + b0 * kDenseVec + part) : make_int4(0, 0, 0, 0);
+      v1[m] = has1 && !one ? __ldg(t.bwt4 + b1 * kDenseVec + part) : v0[m];
+    }
+    const int64_t k0 = has0 ? load_at(t.occ, t.occ_bytes, (int64_t)c * t.nb + b0) : 0;
+    const int64_t k1 = one ? k0 : has1 ? load_at(t.occ, t.occ_bytes, (int64_t)c * t.nb + b1) : 0;
+    // BWT[hi]: in hi + 1's block unless hi + 1 starts it or is n, else in
+    // lo's where hi lies there, else one word of bwt4
+    const bool in1 = TOE && has1 && (i1 & 127) != 0;
+    const bool in0 = TOE && !in1 && has0 && ((int64_t)hi >> 7) == b0;
+    uint32_t word = 0;
+    if (TOE && !in0 && !in1)
+      word = (uint32_t)__ldg(reinterpret_cast<const int32_t*>(t.bwt4) + (hi >> 3));
+    uint32_t s = dense_shares<TOE>(v0, v1, one, sub, (uint32_t)c * 0x11111111u, (int)(lo & 127),
+                                   (int)(i1 & 127), in0, in1,
+                                   in1 ? (int)(i1 & 127) - 1 : (int)(hi & 127));
+#pragma unroll
+    for (int d = 1; d < kDenseG; d <<= 1) s += __shfl_xor_sync(pair, s, d);
+    cb = has0 ? (Lane)(k0 + (s & 0xFFu)) : total;
+    ce = has1 ? (Lane)(k1 + ((s >> 8) & 0xFFu)) : total;
     if constexpr (TOE) {
-      const uint32_t w = (uint32_t)__ldg(reinterpret_cast<const int32_t*>(t.bwt4) + (hi >> 3));
-      trivial = (int)((w >> (4 * (int)(hi & 7))) & 15u) == c;
+      const uint32_t sym = in0 || in1 ? s >> 16 : (word >> (4 * (int)(hi & 7))) & 15u;
+      trivial = (int)sym == c;
     }
   } else {
     // lo's rank on sub 0, hi + 1's (and BWT[hi]) on sub 1

@@ -14,9 +14,9 @@
 //     (fblock64, fblock) and the two-level rows of a big index with int64
 //     lanes (fb2_64, fb2, fb2_256);
 //   - Tables: the tables kernel's step (lf_tables.cuh: the run-space, dense
-//     or occ1 ranks; two threads a lane over the run-space tables, else
-//     one), over an index without fused rows (a --no-dense build, 9-16
-//     codes, a raw build's occ1), int32 lanes.
+//     or occ1 ranks, on two threads a lane, lane_threads), over an index
+//     without fused rows (a --no-dense build, 9-16 codes, a raw build's
+//     occ1), int32 lanes.
 // MODE selects the machine, each transcribed from the port's torch loop
 // (its *_records_plain twin, which the kernel is held against):
 //   - GREEDY, RowBowt::get_markers_greedy_seeding (rowbowt.hpp:406-482):
@@ -74,11 +74,15 @@
 // What bounds it: the step's loads, one step after another (K1's row loads;
 // over the run-space tables a bucket directory's entry, a search of the few
 // run starts in one bucket and the run's count, on two threads a lane with
-// the machine body run by both, as over rows), each lane's chain waiting on
-// their latency, so the most lanes resident at once is the fastest; for
-// GREEDY a replay of k steps after each failure; the record writes are a
-// few words a lane.  Each instance family is built for its block size and
-// blocks an SM (Bounds), so that no instance spills.
+// the machine body run by both, as over rows; over the dense tables a 64 B
+// block or two split over the lane's two threads, each counting its words;
+// over occ1 one load a rank on each), each lane's chain waiting on their
+// latency, so the most lanes resident at once is the fastest; for GREEDY a
+// replay of k steps after each failure; the record writes are a few words
+// a lane.  The machine body runs on every thread of a lane, so a warp's
+// instructions serve 32 / G lanes: more threads a lane shorten the step's
+// chain and lengthen the rest.  Each instance family is built for its
+// block size and blocks an SM (Bounds), so that no instance spills.
 
 #include <cstdint>
 
@@ -153,9 +157,10 @@ struct Rows {
 };
 
 // The tables kernel's step over the POLICY tables (REC: the run-space
-// tables through the run records): one thread a lane, or the lane's two
-// threads over the run-space tables (both take the same branches; sub and
-// pair as Rows's).
+// tables through the run records) by the lane's lane_threads(POLICY) = 2
+// threads (they take the same branches; sub and pair as Rows's).  F is
+// global memory over the run-space tables, the block's staged copy in
+// shared memory over the dense and occ1 tables (step_F).
 template <typename LaneT, int POLICY, bool REC>
 struct Tables {
   using Lane = LaneT;
@@ -485,6 +490,7 @@ __global__ void __launch_bounds__(Bounds<Lane, 0>::kThreads, Bounds<Lane, 0>::kB
   const int nl = min(lanes, p.B - b0);
   const int L = p.L;
   const int stride = staged_stride(L);
+  stage_F<POLICY>(p.F, p.A);  // the dense and occ1 steps' F, in shared memory
   if (p.stage) stage_codes(s_code, p.q + (size_t)b0 * L, nl, L, p.A, stride);
   __syncthreads();
   const int ll = lane_of<G, MODE>(threadIdx.x / G, lanes);
@@ -496,7 +502,7 @@ __global__ void __launch_bounds__(Bounds<Lane, 0>::kThreads, Bounds<Lane, 0>::kB
     return p.stage ? (int)mine[col] : code_byte(row_q[col], p.A);
   };
   const unsigned pair = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(G - 1));
-  const Step st{p.t, p.F, p.A, p.n, sub, pair};
+  const Step st{p.t, step_F<POLICY>(p.F), p.A, p.n, sub, pair};
   machine<MODE, TOE>(p, st, code_at, b0 + ll, sub == 0);
 }
 
@@ -663,12 +669,13 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
 // takes them (0 runs: occ = occ_flat, run_start, run_head, R and the bucket
 // directory rs_off [n_off] with (shift, iters), and the run records rec or
 // null; 1 dense: occ = occ_blk_flat, bwt4 int32 [nb * 16] 16-byte aligned,
-// A at most 16; 2 occ1: occ = occ1_flat), each int32 or int64 (*_bytes);
+// A at most 16; 2 occ1: occ = occ1_flat, A at most 16), each int32 or int64
+// (*_bytes);
 // int32 F [A + 1].  The ftab, the outputs and the per-step toehold (ssamp,
 // over tk1, or ltk with run_start, and samples_last) are rbt_seed_machine's;
-// `threads` (two threads a lane over the run-space tables, else one; at
-// most 512) and `stage` from ops/cuda_lf.py launch_plan (lanes a block *
-// staged stride bytes, at most 47 KB).
+// `threads` (lane_threads(policy), two threads a lane; at most 512) and
+// `stage` from ops/cuda_lf.py launch_plan (lanes a block * staged stride
+// bytes, at most 47 KB).
 // Returns as rbt_seed_machine does.
 int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes,
                             const void* run_start, int rs_bytes, const void* run_head,
@@ -688,10 +695,10 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
                     width(rs_bytes) && width(rh_bytes) && R >= 1 &&
                     valid_directory(rs_off, off_bytes, n_off, shift, iters, n) &&
                     (rec == nullptr || valid_records(rec, A, 4));
-  const bool dense = policy == kDense && rec == nullptr && bwt4 != nullptr && A <= 16 &&
+  const bool dense = policy == kDense && rec == nullptr && bwt4 != nullptr && A < kMaxF &&
                      ((uintptr_t)bwt4 & 15) == 0 && nb >= (n + 127) / 128;
   const bool tables = occ != nullptr && width(occ_bytes) &&
-                      (runs || dense || (policy == kOcc1 && rec == nullptr));
+                      (runs || dense || (policy == kOcc1 && rec == nullptr && A < kMaxF));
   if (!tables || F == nullptr || n >= INT32_MAX ||
       !valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, nullptr,
                      ssamp, toe) ||

@@ -31,7 +31,10 @@ The run-space step finds a run through the bucket directory rs_off over
 run_start, on two threads a lane, and reads the run records run_rec where
 the index has them (engine/device.TorchIndex.with_run_tables, built where
 the index is put on a CUDA device); a launch over an index without the
-directory raises.  The JAX package runs those searches as XLA
+directory raises.  The dense step splits each 64 B block over two threads
+a lane and fetches it once where lo and hi + 1 share it; the occ1 step
+ranks lo and hi + 1 on two threads a lane, one load each; both read F from
+shared memory (an alphabet of at most 16 codes).  The JAX package runs those searches as XLA
 loops of rowbowt_tpu/ops/rank.py lf_step_occ1, lf_step_dense and lf_step.
 
 `find_ranges_record` is the record mode's wrapper: for CUDA tensors the
@@ -90,9 +93,12 @@ _POLICY_CODE = {"runs": 0, "dense": 1, "occ1": 2}
 
 def lane_threads(policy: str) -> int:
     """Threads a lane of the tables kernels over the `policy` tables
-    (csrc/lf_tables.cuh lane_threads): two for the run-space step, whose
-    ranks of lo and hi + 1 take one thread each, else one."""
-    return 2 if policy == "runs" else 1
+    (csrc/lf_tables.cuh lane_threads; the C entry rbt_lane_threads): two for
+    the run-space and occ1 steps, whose ranks of lo and hi + 1 take one
+    thread each, and kDenseG = 2 for the dense step, each thread holding
+    two 16-byte parts of a 64 B block."""
+    return {"runs": 2, "dense": 2, "occ1": 2}[policy]
+
 
 GROUP = 2  # threads per lane (csrc/lf.cu kG): two 16-byte parts of a 64 B row each
 LANES_PER_BLOCK = 256  # lanes per block at full batches (PERF.md §6)
@@ -111,7 +117,8 @@ def build():
     the per-step toehold), rbt_lf_tables (the search over the rank tables of
     an index without fused rows, count or toehold) and
     rbt_lf_count_transposed (the earlier design, which only chip_smoke.py
-    launches, to time it beside K1)."""
+    launches, to time it beside K1) and rbt_lane_threads (the tables steps'
+    threads a lane, which chip_smoke.py holds to lane_threads)."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
@@ -134,6 +141,8 @@ def build():
     lib.rbt_lf_count_fb2.restype = lib.rbt_lf_toehold.restype = lib.rbt_lf_tables.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p
+    lib.rbt_lane_threads.argtypes = [ci]
+    lib.rbt_lane_threads.restype = ci
     _LIB = lib
     return lib
 
@@ -147,13 +156,14 @@ def staged_stride(L: int) -> int:
 def launch_plan(B: int, L: int, sms: int, group: int = GROUP,
                 most: int = LANES_PER_BLOCK) -> tuple[int, bool]:
     """(threads a block, staged) of a K1 launch over B lanes of width L on a
-    card of `sms` SMs, `group` threads a lane (1 for the tables kernel).  A
-    block takes `most` lanes (the seeding kernel's int64 instances are
-    built for fewer), fewer when the batch is too small to give every SM a
-    block, and fewer again when their codes would not fit the staging
-    limit; a block holds whole warps.  `staged` is False only when not
-    even one warp's lanes fit (L over 1,500 at one thread a lane, 3,000 at
-    two): the kernel then reads each code from global memory."""
+    card of `sms` SMs, `group` threads a lane (lane_threads(policy) for the
+    tables kernels).  A block takes `most` lanes (the seeding kernel's
+    int64 instances are built for fewer), fewer when the batch is too small
+    to give every SM a block, and fewer again when their codes would not
+    fit the staging limit; a block holds whole warps.  `staged` is False
+    only when not even one warp's lanes fit (L over 1,500 at one thread a
+    lane, 3,000 at two): the kernel then reads each code from global
+    memory."""
     unit = 32 // group  # lanes of one warp
     lanes = min(most, -(-max(B, 1) // sms))
     fit = MAX_STAGED_BYTES // staged_stride(L)
@@ -520,7 +530,8 @@ def _check_tables(tx: TorchIndex, policy: str, toehold: bool, qcodes, lengths, n
                   lanes: tuple, what: str) -> dict:
     """Refuse what a launch of `what` over tx's `policy` tables (and, with
     `toehold`, the toehold's) does not take: an alphabet outside 1..16
-    (dense) or 1..254; a table missing or misshapen (_table_operands); F
+    (dense and occ1, whose steps read F from shared memory) or 1..254; a
+    table missing or misshapen (_table_operands); F
     not of a dtype of `lanes`, the codes, lengths or run records not int32,
     or they, a table or an operand of `named` ((name, tensor, dtypes)) on
     another device than the codes; int32 lanes for n >= 2^31 - 1; lengths
@@ -529,7 +540,7 @@ def _check_tables(tx: TorchIndex, policy: str, toehold: bool, qcodes, lengths, n
     (engine/device.takes_run_records) or not 32-byte aligned.  Returns the
     operands, {argument: (table name, tensor)}."""
     F = tx.arrays["F"]
-    amax = 16 if policy == "dense" else 254
+    amax = 254 if policy == "runs" else 16
     if not 1 <= tx.A <= amax or F.numel() < tx.A + 1:
         raise ValueError(f"alphabet of {tx.A} codes; the {policy} tables take 1..{amax}")
     if F.dtype == torch.int32 and tx.n >= (1 << 31) - 1:
@@ -572,17 +583,20 @@ def table_args(tx: TorchIndex, policy: str, ops: dict) -> tuple:
 
 
 def launch_tables(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True,
-                  toehold: bool = False):
+                  toehold: bool = False, lib=None):
     """Launch the tables kernel (csrc/lf.cu lf_tables_kernel) on CUDA tensors
-    over an index without fused rows, shaped by launch_plan at one thread a
-    lane (two over the run-space tables, through the bucket directory
-    rs_off and the run records where the index has them): (lo, hi), the
+    over an index without fused rows, shaped by launch_plan at
+    lane_threads(policy) threads a lane (two: over the run-space tables,
+    through the bucket directory rs_off and the run records where the index
+    has them; over the dense blocks; over occ1): (lo, hi), the
     count search from the ftab start where the index has an ftab and
     `use_ftab`; or with `toehold` (lo, hi, k), the per-step toehold search
     from the full range.  Lanes, F and the outputs are in the index's lane
     type (F's dtype, int32 or int64); the codes and lengths int32; each
     table int32 or int64 as the index holds it (`bwt4` int32 bit patterns,
-    16-byte aligned; the run records int32, 32-byte aligned)."""
+    16-byte aligned; the run records int32, 32-byte aligned).  `lib` is
+    the library to launch on, build()'s by default (tools/seed_turns.py
+    passes earlier designs' libraries)."""
     policy = table_policy(tx)
     if policy is None:
         raise ValueError("the tables kernel is for an index without fused rows; this one has "
@@ -606,7 +620,7 @@ def launch_tables(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True,
 
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads, staged = launch_plan(B, L, _sm_count(d), group=lane_threads(policy))
-    lib = _LIB or build()
+    lib = lib or _LIB or build()
     args = (*table_args(tx, policy, ops), F.data_ptr(), F.element_size(), tx.A, tx.n,
             qcodes.data_ptr(), lengths.data_ptr(), B, L, *ptr("ftab"), k, acgt, *ptr("tk1"),
             *ptr("ltk"), *ptr("samples_last"), outs[0].data_ptr(), outs[1].data_ptr(),

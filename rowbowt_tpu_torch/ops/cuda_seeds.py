@@ -14,8 +14,9 @@ with int32 lanes, a big index's two-level rows with int64 lanes), or on the
 tables kernel's step over the occ1, dense or run-space tables of an index
 without fused rows (C entry rbt_seed_machine_tables, int32 lanes; the
 run-space step through the bucket directory rs_off, on two threads a
-lane, over the run records where the index has them).  On an index
-without kval the sampled machine also carries the per-step toehold
+lane, over the run records where the index has them; the dense and occ1
+steps on two threads a lane too).  On an index without kval the sampled
+machine also carries the per-step toehold
 (RowBowt::LF_w_loc) and writes each seed's toehold.  Greedy's ftab restart
 replays the next k codes as the torch loop does; in the greedy and sampled
 machines each warp takes the lanes of one strand of rbt_markers -f, and
@@ -101,7 +102,7 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
     tensors, shaped by cuda_lf.launch_plan within the block its instance
     family is built for (BLOCK_LANES): over fused rows (two threads a
     lane), else over the tables of cuda_lf.table_policy (cuda_lf.lane_threads
-    threads a lane: two over the run-space tables).  `lib` is the library
+    threads a lane, two).  `lib` is the library
     to launch on, build()'s by default (tools/seed_turns.py passes earlier
     designs' libraries).
     k is the ftab start's k-mer length (0 for none; the caller decides as

@@ -1,5 +1,6 @@
-"""The seeding machines of csrc/seeds.cu timed beside earlier designs of
-them, in turns on the same batches, on one NVIDIA GPU.
+"""The tables kernel and the seeding machines of csrc/lf.cu and csrc/seeds.cu
+timed beside earlier designs of them, in turns on the same batches, on one
+NVIDIA GPU.
 
     python -m rowbowt_tpu_torch.tools.seed_turns \\
         --design parent=DIR [--design NAME=DIR ...] [PHASE ...]
@@ -8,134 +9,328 @@ Each DIR holds another commit's kernel sources, as
 `git archive <commit> rowbowt_tpu_torch/csrc | tar -x -C DIR` writes them;
 where its C entries rbt_seed_machine and rbt_seed_machine_tables take a
 lane counter before `threads` (a persistent-grid design), each launch gets
-one, zeroed on the stream.  The tool builds each design's seeds.cu with
-nvcc for sm_90a (_native.NVCC_FLAGS) into a library of its own beside the
-checkout's, then runs chip_smoke.py's PHASEs (by default greedy, lmem,
+one, zeroed on the stream.  A design's threads a lane over each tables
+policy come from its lf.cu's rbt_lane_threads (two over the run-space
+tables and one over the others where it has none), and each of its tables
+launches gets its own launch plan at those (cuda_lf.launch_plan), so that
+it runs as its own wrapper ran it.  The
+tool builds each design's lf.cu and seeds.cu with nvcc for sm_90a
+(_native.NVCC_FLAGS) into libraries of their own beside the checkout's,
+prints each design's nvcc register and spill report (`designs`) and which
+of its kernels compile to the checkout's machine code (`sass`, by
+cuobjdump), then runs chip_smoke.py's PHASEs (by default k1, greedy, lmem,
 locs, nodense_chr, raw_chr, big_chr and build_small: every path whose
-machine chip_smoke.py times) with its seeds_times wrapped: each batch it
-times is also launched through launch_machine on every design's library
-and on the checkout's, in turns (the designs in order, the checkout's
-twice, the designs in reverse), each turn the device time of one launch by
-CUDA events just around it (chip_smoke.kernel_event_us), every design's
-tables equal to the checkout's.  Prints a `seed_turns` line a batch and,
-first, each design's nvcc register and spill report (`seed_designs`).  Run
-it from the root of a checkout, where chip_smoke.py is.
+tables kernel or machine chip_smoke.py times) with its tables_times and
+seeds_times wrapped: each batch they time is also launched through
+cuda_lf.launch_tables or cuda_seeds.launch_machine on every design's
+library and on the checkout's, in turns (the designs in order, the
+checkout's twice, the designs in reverse), each turn the device time of
+one launch by CUDA events just around it (chip_smoke.kernel_event_us),
+every design's outputs equal to the checkout's; where a timed count
+search is the dense step's, also the toehold search of that index
+without kval (dense_toehold).  After phase nodense_chr
+it also times two views of chr's BWT at full width (chr_views): its dense
+tables (build_dense_tables over chr's codes, 80 MB of bwt4) and its occ1
+(build_occ1, A * (n + 1) int32, 3.84 GB at n = 160 M), each without fused
+rows, on the count batch (65,536 reads, no ftab start) and rbt_markers
+-f's and rbt_locs' batches, each with its bound (chip_smoke.tables_times,
+seeds_times).  Prints a `table_turns` or `seed_turns` line a batch, a
+`dense_toehold` line and a `chr_view` line a view.  Run it from the root of a checkout, where
+chip_smoke.py is, with its output sent to a file: the lines are long.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-DEFAULT_PHASES = ("greedy", "lmem", "locs", "nodense_chr", "raw_chr", "big_chr", "build_small")
+DEFAULT_PHASES = ("k1", "greedy", "lmem", "locs", "nodense_chr", "raw_chr", "big_chr",
+                  "build_small")
 PASSES = 10  # launches a turn, after a warm-up launch
-ENTRIES = ("rbt_seed_machine", "rbt_seed_machine_tables")
+ENTRIES = {"seeds": ("rbt_seed_machine", "rbt_seed_machine_tables"), "lf": ("rbt_lf_tables",)}
+# the argument positions of a tables entry: (its policy, B, L); threads and
+# stage are the third and second from the end
+TABLE_ARGS = {"rbt_lf_tables": (0, 22, 23), "rbt_seed_machine_tables": (1, 22, 23)}
+POLICIES = {0: "runs", 1: "dense", 2: "occ1"}  # csrc/lf_tables.cuh enum Policy
+
+
+def design_groups(lf) -> dict:
+    """{policy: threads a lane} of a design's tables steps: its lf.cu
+    library's rbt_lane_threads, or where it has none (the designs before
+    it) two over the run-space tables and one over the dense and occ1
+    tables."""
+    try:
+        entry = lf.rbt_lane_threads
+    except AttributeError:
+        return {"runs": 2, "dense": 1, "occ1": 1}
+    entry.argtypes, entry.restype = [ctypes.c_int], ctypes.c_int
+    return {name: entry(code) for code, name in POLICIES.items()}
 
 
 class Design:
-    """A design's library as launch_machine's `lib`: its C entries take the
-    checkout's arguments and, where `counter`, a lane counter before
-    `threads` (the third from the end), a device int32 zeroed for each
-    launch on the current stream, inside the timed call as the wrapper of
-    that design zeroed it."""
+    """A design's libraries as launch_machine's and launch_tables' `lib`:
+    its C entries take the checkout's arguments; a tables launch gets the
+    design's own threads a lane (design_groups) and its launch plan at them;
+    where `counter`, a seeding launch also gets a lane counter before
+    `threads`, a device int32 zeroed on the current stream inside the
+    timed call, as the wrapper of that design zeroed it."""
 
-    def __init__(self, path: str, current, counter: bool):
-        self.lib = ctypes.CDLL(path)
-        self.counter = counter
-        for entry in ENTRIES:
-            types = list(getattr(current, entry).argtypes)
-            if counter:
-                types.insert(len(types) - 3, ctypes.c_void_p)
-            getattr(self.lib, entry).argtypes = types
-            getattr(self.lib, entry).restype = ctypes.c_int
-        self.lib.rbt_cuda_error_string.argtypes = [ctypes.c_int]
-        self.lib.rbt_cuda_error_string.restype = ctypes.c_char_p
+    def __init__(self, paths: dict, current: dict, counter: bool, sms: int):
+        self.libs = {stem: ctypes.CDLL(path) for stem, path in paths.items()}
+        self.counter, self.sms = counter, sms
+        self.groups = design_groups(self.libs["lf"])
+        for stem, entries in ENTRIES.items():
+            lib = self.libs[stem]
+            for entry in entries:
+                types = list(getattr(current[stem], entry).argtypes)
+                if counter and stem == "seeds":
+                    types.insert(len(types) - 3, ctypes.c_void_p)
+                getattr(lib, entry).argtypes = types
+                getattr(lib, entry).restype = ctypes.c_int
+            lib.rbt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.rbt_cuda_error_string.restype = ctypes.c_char_p
 
-    def _args(self, args):
-        if not self.counter:
+    def _plan(self, entry, args):
+        """args with the design's own (threads, stage) for a tables entry."""
+        from rowbowt_tpu_torch.ops import cuda_lf
+
+        if entry not in TABLE_ARGS:
             return args
-        import torch
+        pos, b, l = TABLE_ARGS[entry]
+        threads, staged = cuda_lf.launch_plan(args[b], args[l], self.sms,
+                                              group=self.groups[POLICIES[args[pos]]])
+        return (*args[:-3], threads, int(staged), args[-1])
 
-        self._next = torch.zeros(1, dtype=torch.int32, device="cuda")
-        return (*args[:-3], self._next.data_ptr(), *args[-3:])
+    def _call(self, stem, entry, args):
+        args = self._plan(entry, args)
+        if self.counter and stem == "seeds":
+            import torch
+
+            self._next = torch.zeros(1, dtype=torch.int32, device="cuda")
+            args = (*args[:-3], self._next.data_ptr(), *args[-3:])
+        return getattr(self.libs[stem], entry)(*args)
 
     def rbt_seed_machine(self, *args):
-        return self.lib.rbt_seed_machine(*self._args(args))
+        return self._call("seeds", "rbt_seed_machine", args)
 
     def rbt_seed_machine_tables(self, *args):
-        return self.lib.rbt_seed_machine_tables(*self._args(args))
+        return self._call("seeds", "rbt_seed_machine_tables", args)
+
+    def rbt_lf_tables(self, *args):
+        return self._call("lf", "rbt_lf_tables", args)
 
     def rbt_cuda_error_string(self, code):
-        return self.lib.rbt_cuda_error_string(code)
+        return self.libs["seeds"].rbt_cuda_error_string(code)
+
+
+def sass_functions(path: str) -> dict:
+    """{kernel: its machine code} of a library by cuobjdump -sass, the
+    kernel's name without its file's anonymous-namespace id (nvcc names
+    each build's apart) and the code without addresses or spacing, or {}
+    where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True).stdout
+    funcs = {}
+    for part in out.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        body = re.sub(r"/\*[0-9a-f]{4,}\*/", "", body.split(".....")[0])
+        funcs[re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", name.strip())] = [
+            " ".join(ln.split()) for ln in body.splitlines() if ln.strip()]
+    return funcs
+
+
+def same_sass(design: str, checkout: str) -> dict:
+    """{"same": [...], "differ": [...], "only_one": [...]}: the kernels of
+    two libraries by whether their machine code is equal."""
+    a, b = sass_functions(design), sass_functions(checkout)
+    out = {"same": [], "differ": [], "only_one": []}
+    for n in sorted(set(a) | set(b)):
+        out["only_one" if n not in a or n not in b else
+            "same" if a[n] == b[n] else "differ"].append(n)
+    return out
 
 
 def build_designs(smoke, designs: dict) -> dict:
-    """{name: Design} built side by side with the checkout's seeds.cu, each
-    into its own library (librbt_seeds_<name>); prints each design's
-    registers and spills an instance (chip_smoke.ptxas_instances)."""
+    """{name: Design} built side by side with the checkout's lf.cu and
+    seeds.cu, each into its own libraries (librbt_<stem>_<name>); prints
+    each design's registers and spills an instance
+    (chip_smoke.ptxas_instances) and its kernels' machine code against the
+    checkout's (same_sass)."""
+    import torch
+
     from rowbowt_tpu_torch import _native
-    from rowbowt_tpu_torch.ops import cuda_seeds
+    from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_seeds
 
     cmd = [_native.find_tool("nvcc", "/usr/local/cuda/bin/nvcc"), *_native.NVCC_FLAGS]
     csrc = {name: os.path.join(src, "rowbowt_tpu_torch", "csrc") for name, src in designs.items()}
 
-    def build(name):
+    def build(name, stem):
         d = csrc[name]
         headers = tuple(os.path.join(d, f) for f in sorted(os.listdir(d)) if f.endswith(".cuh"))
-        return _native.build_shared(f"librbt_seeds_{name}", cmd, [os.path.join(d, "seeds.cu")],
+        return _native.build_shared(f"librbt_{stem}_{name}", cmd, [os.path.join(d, f"{stem}.cu")],
                                     headers=headers)
 
-    with ThreadPoolExecutor(len(designs) + 1) as ex:
-        futures = {name: ex.submit(build, name) for name in designs}
-        current = ex.submit(cuda_seeds.build).result()
-        built = {name: f.result() for name, f in futures.items()}
-    print(json.dumps({"seed_designs": {
-        **{name: smoke.ptxas_instances(log) for name, (_, log) in built.items()},
-        "checkout": smoke.ptxas_instances(cuda_seeds.BUILD_LOG)}}), flush=True)
+    with ThreadPoolExecutor(2 * len(designs) + 2) as ex:
+        futures = {(name, stem): ex.submit(build, name, stem) for name in designs
+                   for stem in ENTRIES}
+        current = {"seeds": ex.submit(cuda_seeds.build), "lf": ex.submit(cuda_lf.build)}
+        current = {stem: f.result() for stem, f in current.items()}
+        built = {key: f.result() for key, f in futures.items()}
+    logs = {"seeds": cuda_seeds.BUILD_LOG, "lf": cuda_lf.BUILD_LOG}
+    paths = {"seeds": current["seeds"]._name, "lf": current["lf"]._name}
+    print(json.dumps({"designs": {
+        **{name: {stem: smoke.ptxas_instances(built[name, stem][1]) for stem in ENTRIES}
+           for name in designs},
+        "checkout": {stem: smoke.ptxas_instances(logs[stem]) for stem in ENTRIES}}}), flush=True)
+    print(json.dumps({"sass": {name: {stem: same_sass(built[name, stem][0], paths[stem])
+                                      for stem in ENTRIES} for name in designs}}), flush=True)
+    sms = cuda_gather._sm_count(torch.cuda.current_device())
     out = {}
-    for name, (path, _) in built.items():
+    for name in designs:
         with open(os.path.join(csrc[name], "seeds.cu")) as f:
             counter = "void* next" in f.read()
-        out[name] = Design(path, current, counter)
+        out[name] = Design({stem: built[name, stem][0] for stem in ENTRIES}, current, counter,
+                           sms)
     return out
 
 
-def turns(smoke, libs: dict, tx, runs: dict) -> None:
+def in_turns(smoke, libs: dict, launch) -> dict:
+    """{design: [device µs of a launch, a turn each]} of launch(lib) on
+    every design's library and the checkout's (lib None), in turns."""
+    order = list(libs) + ["checkout", "checkout"] + list(libs)[::-1]
+    us = {d: [] for d in ["checkout", *libs]}
+    for d in order:
+        us[d].append(smoke.kernel_event_us([smoke.around(lambda lib=libs.get(d): launch(lib))],
+                                           PASSES))
+    return dict(order=order, device_us_turns=us,
+                device_us={d: sum(v) / len(v) for d, v in us.items()})
+
+
+def seed_turns(smoke, libs: dict, tx, runs: dict) -> None:
     """Each batch of `runs` ({name: (q, ln, cfg)}) on every design and the
     checkout's kernel, in turns; prints one seed_turns line a batch."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 
-    order = list(libs) + ["checkout", "checkout"] + list(libs)[::-1]
     for name, (q, ln, cfg) in runs.items():
         mode = name.split("_")[0]
 
-        def call(lib):
-            def run():
-                return cuda_seeds.launch_machine(tx, mode, q, ln, lib=lib, **cfg)
-            return run
+        def launch(lib, mode=mode, q=q, ln=ln, cfg=cfg):
+            return cuda_seeds.launch_machine(tx, mode, q, ln, lib=lib, **cfg)
 
-        want = call(None)()
+        want = launch(None)
         errs = {}
         for d, lib in libs.items():
-            got = call(lib)()
+            got = launch(lib)
             torch.cuda.synchronize()
             errs[d] = smoke.records_err(got, want)
             smoke.check(errs[d] == 0, f"design {d} != the checkout's kernel on {name}")
-        us = {d: [] for d in ["checkout", *libs]}
-        for d in order:
-            us[d].append(smoke.kernel_event_us([smoke.around(call(libs.get(d)))], PASSES))
         key = cuda_lf.row_layout(tx) or cuda_lf.table_policy(tx)
         print(json.dumps({"seed_turns": {
             "batch": name, "route": smoke.seed_route(tx, mode, cfg), "tables": key,
-            "lanes": q.shape[0], "L": q.shape[1], "order": order, "device_us_turns": us,
-            "device_us": {d: sum(v) / len(v) for d, v in us.items()},
+            "lanes": q.shape[0], "L": q.shape[1], **in_turns(smoke, libs, launch),
             "max_abs_err": errs}}), flush=True)
+
+
+def table_turns(smoke, libs: dict, tx, batches: list, toehold: bool) -> None:
+    """The tables kernel on the first of `batches` ([(q, ln)]: the count
+    search without the ftab start, or the toehold search) on every design
+    and the checkout's, in turns; prints one table_turns line."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    q, ln = batches[0]
+    ln = ln.to(torch.int32)
+
+    def launch(lib):
+        return cuda_lf.launch_tables(tx, q, ln, use_ftab=False, toehold=toehold, lib=lib)
+
+    want = launch(None)
+    errs = {}
+    for d, lib in libs.items():
+        got = launch(lib)
+        torch.cuda.synchronize()
+        errs[d] = smoke.max_abs_err(got, want)
+        smoke.check(errs[d] == 0, f"design {d} != the checkout's tables kernel")
+    print(json.dumps({"table_turns": {
+        "policy": cuda_lf.table_policy(tx), "toehold": toehold, "lanes": q.shape[0],
+        "L": q.shape[1], "step_tables": smoke.step_tables(tx, cuda_lf.table_policy(tx)),
+        **in_turns(smoke, libs, launch), "max_abs_err": errs}}), flush=True)
+
+
+def dense_toehold(smoke, device, tx, batches: list, lat, path: str | None) -> None:
+    """Where tx's count search is the dense step's, the toehold search of
+    the same index without kval (the ltk route; loaded from `path` with its
+    toehold tables where tx holds none) on the same batches, timed and
+    bounded (chip_smoke.tables_times, so in turns with the designs too);
+    prints a dense_toehold line."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    if cuda_lf.table_policy(tx) != "dense":
+        return
+    if "ltk" not in tx.arrays:
+        if path is None:
+            return
+        tx = smoke.load_dense(device, path, "-s")[1]
+    view = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k != "kval"})
+    out = smoke.tables_times(device, view, [(q, ln.to(torch.int32)) for q, ln in batches], True,
+                             lat, stage=False)
+    print(json.dumps({"dense_toehold": out}, default=str), flush=True)
+
+
+def chr_views(smoke, device, chr_: dict, lat: dict) -> None:
+    """chr's BWT at full width as an index without fused rows: its dense
+    tables (build_dense_tables over its codes) and its occ1 (build_occ1),
+    each with chr's other tables (kval, the ftab); chip_smoke.tables_times
+    on the count batch (the first 65,536 reads, no ftab start) and
+    seeds_times on rbt_markers -f's and rbt_locs' batches, each in turns
+    with the designs through the wrapped timers; prints a chr_view line a
+    view with the checkout's times, bounds and shares."""
+    import numpy as np
+    import torch
+
+    from rowbowt_tpu_torch.cli.common import iter_query_batches
+    from rowbowt_tpu_torch.construct.build import build_dense_tables, build_occ1
+    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, paths = chr_["idx"], chr_["paths"]
+    codes = np.repeat(idx.run_head, np.diff(np.append(idx.run_start, idx.n))).astype(np.int64)
+    bare = dict(fblock=None, phi1=None, occ1=None, tk1=None, bwt4=None, occ_blk=None)
+    for name in ("dense", "occ1"):
+        if name == "dense":
+            bwt4, occ_blk = build_dense_tables(codes, idx.A)
+            view = dataclasses.replace(idx, **dict(bare, bwt4=bwt4, occ_blk=occ_blk))
+        else:
+            view = dataclasses.replace(idx, **dict(bare, occ1=build_occ1(codes, idx.A)))
+        tx = TorchIndex.from_index(view, device)
+        smoke.check(cuda_lf.table_policy(tx) == name, f"the chr {name} view's policy")
+        _, qc, lens = next(iter(iter_query_batches(view, paths["reads.fq"], smoke.BATCH)))
+        count = smoke.tables_times(device, tx, [(torch.from_numpy(qc).to(device),
+                                                 torch.from_numpy(lens).to(device))],
+                                   False, lat, stage=False)
+        seeds = smoke.seeds_times(tx, smoke.seed_batches(device, view, tx, paths,
+                                                         ("greedy", "sample")), lat)
+        print(json.dumps({"chr_view": {"policy": name, "n": idx.n, "A": idx.A,
+                                       "step_tables": smoke.step_tables(tx, name),
+                                       "l2_bytes": smoke.l2_bytes(), "count": count,
+                                       "seeds": seeds}}, default=str), flush=True)
+        del tx, view
+        torch.cuda.empty_cache()
 
 
 def main(argv: list[str]) -> int:
@@ -156,14 +351,33 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 1
     libs = build_designs(smoke, designs)
-    real = smoke.seeds_times
+    real_seeds, real_tables, real_nodense = (smoke.seeds_times, smoke.tables_times,
+                                             smoke.phase_nodense_chr)
+    real_load, loaded = smoke.load_dense, {}
+
+    def load_dense(device, path, mode):
+        loaded["path"] = path
+        return real_load(device, path, mode)
 
     def seeds_times(tx, runs, lat):
-        out = real(tx, runs, lat)
-        turns(smoke, libs, tx, runs)
+        out = real_seeds(tx, runs, lat)
+        seed_turns(smoke, libs, tx, runs)
         return out
 
-    smoke.seeds_times = seeds_times
+    def tables_times(device, tx, batches, toehold, lat, stage=True):
+        out = real_tables(device, tx, batches, toehold, lat, stage)
+        table_turns(smoke, libs, tx, batches, toehold)
+        if not toehold:
+            dense_toehold(smoke, device, tx, batches, lat, loaded.pop("path", None))
+        return out
+
+    def phase_nodense_chr(device, card, chr_, count, loc, markers, k1, seeding):
+        out = real_nodense(device, card, chr_, count, loc, markers, k1, seeding)
+        chr_views(smoke, device, chr_, k1["us_per_dependent_step"])
+        return out
+
+    smoke.seeds_times, smoke.tables_times = seeds_times, tables_times
+    smoke.phase_nodense_chr, smoke.load_dense = phase_nodense_chr, load_dense
     return smoke.main(list(args.phases))
 
 

@@ -5,10 +5,12 @@ launch a batch, in three rank policies chosen in lf_step_auto's order
 (occ1, dense, run-space).
 
 A numpy model of the kernel's arithmetic (one lane at a time: the ftab
-start, each policy's two ranks a step with the run-space search of hi + 1
-confined to its window after lo's run, the trivial test from the policy's
-own tables, the last non-trivial step carried with a count of the trivial
-steps after it and resolved once from tk1 or ltk) equals the JAX package's
+start, each policy's two ranks a step (the run-space runs through the
+bucket directory; the dense blocks split over the lane's threads, each
+counting its words below the offset, and fetched once where lo and hi + 1
+share one: DenseStep), the trivial test from the policy's own tables, the
+last non-trivial step carried with a count of the trivial steps after it
+and resolved once from tk1 or ltk) equals the JAX package's
 find_ranges and find_ranges_w_toehold buffer for buffer, and so does the
 port's path on the CPU, on the small panel built --no-dense, on the panel of
 13 codes (bwt4/occ_blk) and on that panel's raw build (occ1 + tk1; and
@@ -16,8 +18,10 @@ without them, the dense tables with ltk), at L = 1, 31 and 100, on batches
 that reach every edge the model counts.  The launch path, with its C entry
 replaced by that model reading the addresses and widths the wrapper passes,
 equals the plain twins; refused launches raise and count nothing; the
-routes follow the tables.  Every output is an integer, so every check is
-exact."""
+routes follow the tables.  One step of the dense and occ1 models at every
+block and part edge, on indexes of 13 and 16 codes, equals the JAX
+package's and the port's steps.  Every output is an integer, so every
+check is exact."""
 
 import dataclasses
 from types import SimpleNamespace
@@ -29,6 +33,7 @@ import torch
 
 from rowbowt_tpu.engine import count as JC
 from rowbowt_tpu.engine.device import DeviceIndex
+from rowbowt_tpu.ops import rank as JR
 from rowbowt_tpu_torch.construct import build as TB
 from rowbowt_tpu_torch.construct import panel as TP
 from rowbowt_tpu_torch.construct import rawio as TRAW
@@ -39,6 +44,7 @@ from rowbowt_tpu_torch.engine.device import (RUN_SEG, TorchIndex, run_directory,
                                              takes_run_records)
 from rowbowt_tpu_torch.io.fastq import read_seqs
 from rowbowt_tpu_torch.ops import cuda_lf
+from rowbowt_tpu_torch.ops import rank as TR
 from rowbowt_tpu_torch.ops.rank import bucketed_lower_bound
 from test_torch_build import write_inputs
 from test_torch_toehold import ACGT, _eq, _ints, _jax, _lanes, _text_reads
@@ -123,6 +129,81 @@ def _nibbles(bwt4):
     return ((words[:, None] >> (4 * np.arange(8))) & 15).reshape(-1, 128)
 
 
+DENSE_G = cuda_lf.lane_threads("dense")  # threads a lane of the dense step (kDenseG)
+
+
+class DenseStep:
+    """The dense step of csrc/lf_tables.cuh lf_step_tables, one lane at a
+    time: the lane's DENSE_G threads each hold 16 // DENSE_G of a 64 B
+    block's words (16-byte part sub + m * DENSE_G in v[m]) and count c
+    among their symbols below an offset; the lane sums the shares; one
+    fetch serves lo's rank and hi + 1's where both lie in one block, whose
+    checkpoint of c is then one entry; BWT[hi] comes from a fetched block
+    where hi lies in it (hi + 1's unless hi + 1 starts it or is n, else
+    lo's), else from one word.  `bump` counts the edges."""
+
+    def __init__(self, bwt4, occ, F, n, bump=lambda key: None, G=DENSE_G):
+        self.sym = _nibbles(np.asarray(bwt4))  # [blocks, 128]
+        self.nb = self.sym.shape[0]
+        self.occ, self.F, self.n, self.G = np.asarray(occ), F, n, G
+        self.bump = bump
+        # the in-block offsets of the symbols each thread holds
+        self.pos = [np.concatenate([np.arange(8 * w, 8 * w + 8) for w in self.parts(sub)])
+                    for sub in range(G)]
+
+    def fetch(self, blk):
+        """The 128 symbols of block blk, 16 // G words a thread."""
+        return self.sym[blk]
+
+    def parts(self, sub):
+        """The block's words thread `sub` holds."""
+        per = 4 // self.G
+        return [4 * (sub + m * self.G) + e for m in range(per) for e in range(4)]
+
+    def shares(self, block, c, off):
+        """[G] each thread's count of c among its symbols below `off`."""
+        return [int(np.count_nonzero((block[p] == c) & (p < off))) for p in self.pos]
+
+    def symbol(self, block, off):
+        """BWT at in-block offset off, from the one thread that holds it."""
+        assert sum(off in p for p in self.pos) == 1
+        return int(block[off])
+
+    def step(self, lo, hi, c, toehold=False):
+        """(rank(lo, c), rank(hi + 1, c), BWT[hi] or None) of one step, c in
+        [0, A): the code's total where a position is n."""
+        n, total = self.n, int(self.F[c + 1] - self.F[c])
+        i1 = hi + 1
+        has0, has1 = lo < n, i1 < n
+        b0, b1 = lo >> 7, i1 >> 7
+        one = has0 and has1 and b0 == b1
+        v0 = self.fetch(b0) if has0 else np.zeros(128, np.int64)
+        v1 = v0 if one or not has1 else self.fetch(b1)
+        if one:
+            self.bump("one_fetch")
+        elif has0 and has1:
+            self.bump("two_fetches")
+        s0, s1 = sum(self.shares(v0, c, lo & 127)), sum(self.shares(v1, c, i1 & 127))
+        for off in (lo & 127, i1 & 127):
+            if off % (128 // self.G) == 0:
+                self.bump("part_boundary")
+        k0 = int(self.occ[c * self.nb + b0]) if has0 else 0
+        k1 = k0 if one else int(self.occ[c * self.nb + b1]) if has1 else 0
+        cb, ce = (k0 + s0 if has0 else total), (k1 + s1 if has1 else total)
+        sym = None
+        if toehold:
+            if has1 and i1 & 127:
+                self.bump("hi_in_block1")
+                sym = self.symbol(v1, (i1 & 127) - 1)
+            elif has0 and hi >> 7 == b0:
+                self.bump("hi_in_block0")
+                sym = self.symbol(v0, hi & 127)
+            else:
+                self.bump("hi_word_load")
+                sym = int(self.sym[hi >> 7, hi & 127])
+        return cb, ce, sym
+
+
 def run_of(t, x, bump=lambda key: None):
     """(run of position x, its start) as lf_tables.cuh run_of finds them: x
     + 1's bucket of the directory t["rs_off"] (shift t["shift"]), then at
@@ -165,10 +246,11 @@ def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehol
     step's recurrence) rides beside the carried one and must agree."""
     ev = events if events is not None else {}
     F = np.asarray(F).astype(np.int64)
-    sym = _nibbles(t["bwt4"]) if policy == "dense" else None
 
     def bump(key):
         ev[key] = ev.get(key, 0) + 1
+
+    dense = DenseStep(t["bwt4"], t["occ"], F, n, bump) if policy == "dense" else None
 
     def run_rank(x, c):
         """(rank(x, c), x's run, its start) as the run-space step reads
@@ -186,14 +268,8 @@ def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehol
     def head_of(r):
         return int(t["rec"].reshape(-1, 8)[r, 1] if "rec" in t else t["run_head"][r])
 
-    def rank(i, c):
-        if policy == "occ1":
-            return int(t["occ"][c * (n + 1) + i])
-        if i >= n:
-            return int(F[c + 1] - F[c])
-        blk = i >> 7
-        nb = t["bwt4"].shape[0] // 16
-        return int(t["occ"][c * nb + blk]) + int(np.count_nonzero(sym[blk, :i & 127] == c))
+    def rank(i, c):  # occ1: one load a rank
+        return int(t["occ"][c * (n + 1) + i])
 
     def table(c, hi):
         if toehold and "tk1" in t:
@@ -246,12 +322,11 @@ def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehol
                 else:
                     ce = int(F[c + 1] - F[c])
                     s = head_of(R - 1)
+            elif policy == "dense":
+                cb, ce, s = dense.step(lo, hi, c, toehold)
             else:
                 cb, ce = rank(lo, c), rank(i1, c)
-                if policy == "occ1":
-                    s = c if ce - rank(hi, c) == 1 else -1
-                else:
-                    s = int(sym[hi >> 7, hi & 127])
+                s = c if ce - rank(hi, c) == 1 else -1
             if ce - cb <= 0:
                 bump("fail_first_step" if j == 0 else "fail_later")
                 lo, hi = 1, 0
@@ -349,8 +424,10 @@ def test_model_reaches_every_edge(cases):
     the first step and later, length-0 lanes, lanes started from the ftab,
     trivial and non-trivial steps, k == 0 wrapping to n - 1, lanes without a
     non-trivial step; in the run-space directory an empty bucket, the last
-    bucket, a search taking every halving and a start loaded after it) and
-    still equal JAX."""
+    bucket, a search taking every halving and a start loaded after it; in
+    the dense step one fetch for both ranks and two, an offset on a part
+    boundary, and BWT[hi] from hi + 1's block, from lo's and from one word)
+    and still equal JAX."""
     events = {}
     for src, drop, _ in COUNT_CASES.values():
         dx, tx, idx, text, reads = _pair(cases, src, drop)
@@ -369,8 +446,151 @@ def test_model_reaches_every_edge(cases):
         _eq(_model_on(tx, qc, lens, toehold=True, events=events), _jax(dx, qc, lens))
     want = ("hi1_is_n", "hi1_starts_run", "absent_code", "fail_first_step", "fail_later",
             "length_0", "ftab_start", "trivial", "nontrivial", "k_wraps", "no_nontrivial_step",
-            "empty_bucket", "last_bucket", "iters_reached", "start_loaded")
+            "empty_bucket", "last_bucket", "iters_reached", "start_loaded", "one_fetch",
+            "two_fetches", "part_boundary", "hi_in_block1", "hi_in_block0", "hi_word_load")
     assert all(events.get(e, 0) > 0 for e in want), [e for e in want if e not in events]
+
+
+# ---------------------------------------------------------------------------
+# one step of the dense and occ1 policies at every edge of a block
+
+STEP_N = 1_337  # not a whole number of 128-symbol blocks
+STEP_OFFSETS = (0, 1, 7, 8, 31, 32, 33, 63, 64, 65, 95, 96, 97, 126, 127)
+
+
+@pytest.fixture(scope="module", params=[13, 16], ids=["13_codes", "16_codes"])
+def step_index(request):
+    """(RbtIndex with bwt4/occ_blk and occ1/tk1, BWT codes) of a random text
+    of `param` codes (the terminator and `param` - 1 symbols), so that the
+    nibbles hold codes 8 to `param` - 1."""
+    A = request.param
+    rng = np.random.default_rng(A)
+    text = np.concatenate([rng.integers(3, 3 + A - 1, STEP_N - 1), [1]]).astype(np.uint8)
+    idx = TB.build_index(text)
+    assert idx.A == A and idx.bwt4 is not None and idx.fblock is None
+    codes = np.repeat(idx.run_head, np.diff(np.append(idx.run_start, idx.n))).astype(np.int64)
+    occ1 = TB.build_occ1(codes, A)
+    tk1 = TB.build_tk1_from_runs(codes, idx.run_start, idx.samples_last, A, occ1.dtype)
+    return dataclasses.replace(idx, occ1=occ1, tk1=tk1), codes
+
+
+def _step_lanes(n, A):
+    """(lo, hi, c) int32 of one step: lo and hi + 1 at every offset of
+    STEP_OFFSETS in the first, a middle and the last blocks, in one block
+    and in neighbouring ones, hi + 1 = n, lo <= hi; every code of [0, A)
+    and -1, a code outside it."""
+    blocks = sorted({0, 1, (n >> 7) // 2, n >> 7})
+    pos = sorted({b * 128 + o for b in blocks for o in STEP_OFFSETS if b * 128 + o < n})
+    pairs = [(lo, i1) for lo in pos for i1 in pos + [n]
+             if lo < i1 and (i1 >> 7) - (lo >> 7) <= 1 or lo < i1 == n]
+    lo, i1 = np.array(pairs).T
+    codes = np.arange(-1, A)
+    lo, i1, c = (np.repeat(lo, codes.size), np.repeat(i1, codes.size),
+                 np.tile(codes, lo.size))
+    return lo.astype(np.int32), (i1 - 1).astype(np.int32), c.astype(np.int32)
+
+
+def _occ1_step(t, F, A, n, lo, hi, c, k):
+    """lf_tables.cuh's occ1 step of one lane with the per-step toehold's k
+    riding beside it: one load a rank (lo's on one thread of the pair, hi +
+    1's on the other), BWT[hi] == c from occ1 at hi."""
+    if not 0 <= c < A:
+        return 1, 0, 0
+    row = c * (n + 1)
+    cb, ce = int(t["occ"][row + lo]), int(t["occ"][row + hi + 1])
+    if ce - cb <= 0:
+        return 1, 0, 0
+    trivial = ce - int(t["occ"][row + hi]) == 1
+    nk = (k - 1) % n if trivial else int(t["tk1"][c * n + hi])
+    return int(F[c]) + cb, int(F[c]) + ce - 1, nk
+
+
+@pytest.mark.parametrize("policy", ["dense", "occ1"])
+def test_step_at_block_edges_matches_jax(step_index, policy):
+    """One step of the kernel's dense model (DenseStep: DENSE_G parts a
+    block, one fetch where lo and hi + 1 share it, BWT[hi] from a fetched
+    block or one word) and of its occ1 step, at every block and part edge,
+    == the JAX package's lf_step_dense, or lf_step_occ1 and
+    lf_step_w_loc_occ1 (with k), and the port's plain steps; a code outside
+    [0, A) (-1, and A for the model) empties the range."""
+    idx, codes = step_index
+    n, A = idx.n, idx.A
+    dx = DeviceIndex.from_index(idx)
+    tx = TorchIndex.from_index(idx, "cpu")
+    if policy == "dense":
+        tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items()
+                                             if k not in ("occ1_flat", "tk1_flat")})
+        dx = DeviceIndex({k: v for k, v in dx.arrays.items() if k not in ("occ1_flat", "tk1_flat")},
+                         dx.n, dx.R, dx.A, dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
+    assert cuda_lf.table_policy(tx) == policy
+    lo, hi, c = _step_lanes(n, A)
+    k = np.random.default_rng(3).integers(0, n, lo.size).astype(np.int32)
+    k[::7] = 0  # the trivial step's k wraps to n - 1
+    F = tx.arrays["F"].numpy().astype(np.int64)
+    policy_t, t = _tables_of(tx, toehold=policy == "occ1")
+    events = {}
+    if policy == "dense":
+        step = DenseStep(t["bwt4"], t["occ"], F, n,
+                         lambda key: events.__setitem__(key, events.get(key, 0) + 1))
+        model = []
+        for a, h, x in zip(lo.tolist(), hi.tolist(), c.tolist()):
+            if not 0 <= x < A:
+                model.append((1, 0))
+                continue
+            cb, ce, sym = step.step(a, h, x, toehold=True)
+            assert sym == codes[h]  # BWT[hi]: the trivial test's symbol
+            model.append((int(F[x]) + cb, int(F[x]) + ce - 1) if ce > cb else (1, 0))
+        got = [np.array(v, np.int32) for v in zip(*model)]
+        want = JR.lf_step_dense(dx, jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(c))
+        port = TR.lf_step_dense(tx, *(torch.from_numpy(a) for a in (lo, hi, c)))
+        for key in ("one_fetch", "two_fetches", "part_boundary", "hi_in_block1",
+                    "hi_in_block0", "hi_word_load"):
+            assert events.get(key, 0) > 0, key
+        # hi + 1 = n, and lo and hi + 1 at offsets 0, 31, 32 and 127
+        assert (hi + 1 == n).any() and {0, 31, 32, 127} <= set((lo & 127).tolist())
+    else:
+        model = [_occ1_step(t, F, A, n, a, h, x, kk)
+                 for a, h, x, kk in zip(lo.tolist(), hi.tolist(), c.tolist(), k.tolist())]
+        got = [np.array(v, np.int32) for v in zip(*model)]
+        jl = [jnp.asarray(a) for a in (lo, hi, c)]
+        want = JR.lf_step_w_loc_occ1(dx, *jl, jnp.asarray(k))
+        _eq(got[:2], JR.lf_step_occ1(dx, *jl))
+        port = TR.lf_step_w_loc_occ1(tx, *(torch.from_numpy(a) for a in (lo, hi, c, k)))
+        _eq(got[:2], TR.lf_step_occ1(tx, *(torch.from_numpy(a) for a in (lo, hi, c))))
+    _eq(got, want)
+    _eq(got, port)
+    out = c == -1
+    assert out.any() and (got[0][out] == 1).all() and (got[1][out] == 0).all()
+
+
+def test_dense_threads_are_the_kernels():
+    """cuda_lf.lane_threads is csrc/lf_tables.cuh's: kDenseG threads a lane
+    of the dense step, two of the run-space and occ1 steps (a pair, one
+    rank each); the model holds each of a block's words on one thread."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(cuda_lf.__file__), "..", "csrc",
+                            "lf_tables.cuh")).read()
+    g = int(re.search(r"constexpr int kDenseG = (\d+);", src).group(1))
+    assert {p: cuda_lf.lane_threads(p) for p in ("runs", "dense", "occ1")} == \
+        {"runs": 2, "dense": g, "occ1": 2}
+    step = DenseStep(np.zeros(16, np.int32), np.zeros(1, np.int32), [0, 1], 128)
+    assert sorted(w for sub in range(DENSE_G) for w in step.parts(sub)) == list(range(16))
+
+
+@pytest.mark.parametrize("policy,B,threads", [
+    ("dense", 65_536, 512), ("dense", 16_384, 224), ("dense", 1_000, 32),
+    ("occ1", 65_536, 512), ("occ1", 16_384, 224), ("runs", 65_536, 512)])
+def test_launch_plan_of_each_policy(policy, B, threads):
+    """The tables kernels' launch plan at lane_threads(policy) threads a
+    lane on 132 SMs: the dense step's DENSE_G threads and the occ1 pair,
+    up to 256 lanes (512 threads, the seeding kernel's Bounds) a block,
+    fewer to give every SM a block; whole warps."""
+    g = cuda_lf.lane_threads(policy)
+    assert g == (DENSE_G if policy == "dense" else 2)
+    got, staged = cuda_lf.launch_plan(B, 100, 132, group=g)
+    assert (got, staged) == (threads, True)
+    assert got % 32 == 0 and got <= 512
 
 
 def _directory_cases():

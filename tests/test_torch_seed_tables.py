@@ -6,7 +6,9 @@ index without kval, over those tables and over fused rows (the TOE
 instances).
 
 A numpy model of the kernel (one lane at a time: the ranks and BWT[hi]
-from the tables the kernel reads; the greedy, L-MEM and sampled machines of
+from the tables the kernel reads, the dense ranks as the dense step counts
+them, a block split over the lane's threads and fetched once for both
+ends where they share it; the greedy, L-MEM and sampled machines of
 test_torch_seed_kernel.machine_model over them; for the per-step toehold
 the current run's last non-trivial step with its trivial steps, copied
 after every successful step and resolved once a seed from tk1 or ltk, with
@@ -41,7 +43,7 @@ from rowbowt_tpu_torch.engine.device import TorchIndex
 from rowbowt_tpu_torch.io.fastq import read_seqs
 from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 from test_torch_build import write_inputs
-from test_torch_lf_tables import _nibbles
+from test_torch_lf_tables import DenseStep, _nibbles
 from test_torch_seed_kernel import _eq, _model_lib, machine_model, rank_table
 from test_torch_toehold import ACGT, _ints, _lanes, _symbols, _text_reads
 
@@ -167,12 +169,40 @@ def directory_runs(t, x):
     return lo - 1
 
 
-def table_ranks(policy, t, F, A, n, R):
+class DenseRanks:
+    """rank(i, c) = ranks[i, c] as the seeding kernel's dense step reads it
+    (test_torch_lf_tables.DenseStep: i's block split over the lane's
+    threads, each counting its symbols below the offset, the shares summed,
+    plus the checkpoint); a step asks for one end's rank and then the
+    other's, so the block fetched for the first serves the second where
+    both lie in it (one fetch), and is then let go.  At i = n the code's
+    total count."""
+
+    def __init__(self, step):
+        self.step, self.held = step, None
+
+    def __getitem__(self, key):
+        i, c = (int(x) for x in key)
+        st = self.step
+        if i >= st.n:
+            return int(st.F[c + 1] - st.F[c])
+        blk = i >> 7
+        if self.held is not None and self.held[0] == blk:
+            st.bump("one_fetch")
+            block, self.held = self.held[1], None
+        else:
+            block = st.fetch(blk)
+            self.held = (blk, block)
+        return int(st.occ[c * st.nb + blk]) + sum(st.shares(block, c, i & 127))
+
+
+def table_ranks(policy, t, F, A, n, R, bump=lambda key: None):
     """([n + 1, A] rank(i, c), [n] BWT symbols) as the tables kernel's step
     reads them from the `policy` tables t (numpy: occ; run_start and
     run_head with the directory rs_off and its shift and iters, or the run
-    records rec where the index has them (runs); bwt4 (dense)); at i = n
-    the code's total count."""
+    records rec where the index has them (runs); bwt4 (dense), whose ranks
+    DenseRanks computes as the dense step does, `bump` counting its
+    edges); at i = n the code's total count."""
     F = np.asarray(F, np.int64)
     i = np.arange(n)
     total = (F[1:A + 1] - F[:A])[None]
@@ -180,14 +210,8 @@ def table_ranks(policy, t, F, A, n, R):
         rk = np.asarray(t["occ"], np.int64).reshape(A, n + 1).T
         return rk, np.argmax(rk[1:] - rk[:-1], axis=1)
     if policy == "dense":
-        sym = _nibbles(t["bwt4"]).reshape(-1)[:n]
-        nb = t["bwt4"].shape[0] // 16
-        onehot = (sym[:, None] == np.arange(A)).astype(np.int64)
-        pre = np.vstack([np.zeros((1, A), np.int64), np.cumsum(onehot, axis=0)])  # [0, i)
-        blk = i >> 7
-        rk = (np.asarray(t["occ"], np.int64).reshape(A, nb)[:, blk].T + pre[i]
-              - pre[blk << 7])
-        return np.vstack([rk, total]), sym
+        return DenseRanks(DenseStep(t["bwt4"], t["occ"], F, n, bump)), \
+            _nibbles(t["bwt4"]).reshape(-1)[:n]
     r = directory_runs(t, i)
     if "rec" in t:
         rec = np.asarray(t["rec"], np.int64).reshape(R, 8)[r]
@@ -322,6 +346,10 @@ def _model_libs(tx, calls, rc, events=None):
     model; each returns rc, writing nothing when rc != 0."""
     rows_lib = _model_lib(tx, calls, rc, events) if cuda_lf.row_layout(tx) else None
 
+    def bump(key):
+        if events is not None:
+            events[key] = events.get(key, 0) + 1
+
     def tables(mode, policy, occ, occ_b, rs, rs_b, rh, rh_b, off, off_b, n_off, shift,
                iters, rec, bwt4, nb, R, F, A, n, q, lengths, B, L, ftab, ftab_b, k, acgt, wsize,
                max_range, min_length, W, rlo, rhi, rseed, nrec, S, slo, shi, sqs, sqe, ns, tk1,
@@ -350,7 +378,7 @@ def _model_libs(tx, calls, rc, events=None):
         if pol == "dense":
             t["bwt4"] = _ints(bwt4, 16 * nb, 4)
         Fn = _ints(F, A + 1, 4)
-        rk, sym = table_ranks(pol, t, Fn, A, n, R)
+        rk, sym = table_ranks(pol, t, Fn, A, n, R, bump)
         toe = _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b) if ssamp else None
         got = _run_model(name, rk, sym, Fn, A, n, R, _ints(q, B * L, 4).reshape(B, L),
                          _ints(lengths, B, 4), k,
@@ -556,8 +584,9 @@ def test_model_reaches_every_edge(built, fake):
     full range, a failure at the first step, record and seed overflow, a
     probe cut by max_range, an empty lane; for the per-step toehold trivial
     and non-trivial steps, k wrapping at 0, a restart, the stale toehold
-    of a degenerate seed and the -1 of a seed before any good step), and
-    the model still writes the twins' records."""
+    of a degenerate seed and the -1 of a seed before any good step; over
+    the dense tables one fetch serving both ranks of a step), and the model
+    still writes the twins' records."""
     events = {}
     for case in EDGE_CASES:
         _, tx, idx, text, reads = _pair(built, case)
@@ -569,7 +598,7 @@ def test_model_reaches_every_edge(built, fake):
                 _same_records(*_records(tx, mode, qc, lens, opt))
     want = ("restart_replay", "replay_held", "restart_to_full", "fail_first_step",
             "w_overflow", "s_overflow", "max_range_cut", "length_0", "trivial", "nontrivial",
-            "k_wraps", "restart", "sample_stale", "sample_minus_one", "hi1_is_n")
+            "k_wraps", "restart", "sample_stale", "sample_minus_one", "hi1_is_n", "one_fetch")
     assert all(events.get(e, 0) > 0 for e in want), [e for e in want if e not in events]
 
 

@@ -645,7 +645,8 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     """The four nvcc builds and the g++ build, started together; the tables
-    steps' threads a lane of the built lf.cu equal to cuda_lf.lane_threads."""
+    steps' threads a lane of the built lf.cu equal to cuda_lf.lane_threads;
+    no instance of lf.cu, phi_walk.cu or seeds.cu spills (ptxas)."""
     from rowbowt_tpu_torch.construct import sa
     from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi, cuda_seeds
 
@@ -667,10 +668,19 @@ def phase_build() -> None:
                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             for name, log in (("lf", cuda_lf.BUILD_LOG), ("gather_probe", cuda_gather.BUILD_LOG),
                               ("phi_walk", cuda_phi.BUILD_LOG), ("seeds", cuda_seeds.BUILD_LOG))}
-    seeds = ptxas_instances(cuda_seeds.BUILD_LOG)
+    # registers and spills of every instance of the three kernel files; none
+    # may spill (csrc/lf_rank.cuh Bounds)
+    inst = {name: ptxas_instances(log) for name, log in (
+        ("lf", cuda_lf.BUILD_LOG), ("phi_walk", cuda_phi.BUILD_LOG),
+        ("seeds", cuda_seeds.BUILD_LOG))}
+    spilling = {name: [k for k, v in found.items()
+                       if v.get("spill_stores") or v.get("spill_loads")]
+                for name, found in inst.items()}
     emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs,
-         seeds_instances=seeds,
-         seeds_spilling=[name for name, v in seeds.items() if v["spill_stores"] or v["spill_loads"]])
+         seeds_instances=inst["seeds"], lf_instances=inst["lf"],
+         phi_walk_instances=inst["phi_walk"], seeds_spilling=spilling["seeds"],
+         spilling=spilling)
+    check(not any(spilling.values()), f"instances that spill: {spilling}")
 
 
 def ptxas_instances(log: str) -> dict:
@@ -1217,8 +1227,9 @@ def toehold_parity(device, raw: dict, cases: list, kval: list) -> dict:
     on the small panel's raw tables ({route: raw_tables}), over tk1 and over
     ltk, on the edge batch and at every k1_edges edge (`cases`, 64-symbol
     rows), and on the batch over the 96 B rows: lo, hi and k equal, and
-    equal to the full-SA index's toeholds (`kval`, per case).  One launch a
-    call."""
+    equal to the full-SA index's toeholds (`kval`, per case); over ltk and
+    the 64-symbol rows the resolve through each directory of
+    resolve_variants.  One launch a call."""
     import torch
 
     from rowbowt_tpu_torch.engine.device import TorchIndex
@@ -1234,17 +1245,21 @@ def toehold_parity(device, raw: dict, cases: list, kval: list) -> dict:
                   f"the raw tables' toehold route: {cuda_lf.toehold_route(tx)}")
             name = f"{route},{'fblock64' if fb64 else 'fblock'}"
             errs[name] = 0
+            views = resolve_variants(tx) if route == "ltk" and fb64 else [("", tx)]
             for (label, qe, le), want_k in zip(cases if fb64 else cases[:1], kval):
-                got = cuda_lf.find_ranges_toehold(tx, qe, le)
                 want = cuda_lf.find_ranges_toehold_plain(tx, qe, le)
-                torch.cuda.synchronize()
-                e = max(max_abs_err(got, want), max_abs_err(got, want_k))
-                check(e == 0, f"the toehold launch ({name}) != its plain twin or the kval "
-                      f"toeholds at {label}: max |err| {e}")
-                errs[name] = max(errs[name], e)
+                for tag, view in views:
+                    got = cuda_lf.find_ranges_toehold(view, qe, le)
+                    torch.cuda.synchronize()
+                    e = max(max_abs_err(got, want), max_abs_err(got, want_k))
+                    check(e == 0, f"the toehold launch ({name} {tag}) != its plain twin or the "
+                          f"kval toeholds at {label}: max |err| {e}")
+                    errs[name] = max(errs[name], e)
+                    calls += 1
                 nonempty[f"{name},{label}"] = int((got[1] >= got[0]).sum().item())
-                calls += 1
-            del tx
+            if len(views) > 1:
+                nonempty["ltk_variants"] = [tag for tag, _ in views]
+            del tx, views
     counts = route_counts()
     check(counts == launch_counts(toe=calls),
           f"toehold parity routes: {counts} for {calls} calls")
@@ -1298,8 +1313,9 @@ def tables_parity(device, idx, codes, raw_tk1, cases, single, kval) -> dict:
         ran = [(c, one, k) for c, one, k in zip(cases, single, kval)
                if policy == "runs" or c[0] != "L=3072 unstaged"]
         # over the run-space tables without the records too, and a directory
-        # of one bucket
-        views = run_variants(tx) if policy == "runs" else [(policy, tx)]
+        # of one bucket; a toehold over ltk through each of resolve_variants
+        views = (run_variants(tx) if policy == "runs" else resolve_variants(tx)
+                 if cuda_lf.toehold_route(tx) == "ltk" else [(policy, tx)])
         for (label, qe, le), one, want_k in ran:
             for use_ftab in (True, False):
                 want = cuda_lf.find_ranges_plain(tx, qe, le, use_ftab=use_ftab)
@@ -1321,8 +1337,8 @@ def tables_parity(device, idx, codes, raw_tk1, cases, single, kval) -> dict:
             nonempty[f"{policy},{label}"] = int((got[1] >= got[0]).sum().item())
         calls[f"tab_{policy}"] = 2 * len(ran) * len(views)
         calls[f"tab_toe_{policy}"] = len(ran) * len(views)
-        if policy == "runs":
-            nonempty["runs_variants"] = [tag for tag, _ in views]
+        if len(views) > 1:
+            nonempty[f"{policy}_variants"] = [tag for tag, _ in views]
         del tx, views
     check(route_counts() == launch_counts(**calls),
           f"tables parity routes: {route_counts()} for {calls}")
@@ -1363,8 +1379,8 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
 
     big = BigIndex.from_codes(codes, idx.alpha, n_sup=4)
     big.attach_locate(codes, np.asarray(idx.kval).astype(np.uint32))
-    pred = TorchIndex.from_index(idx, device)
-    del pred.arrays["phi1"]
+    pred = TorchIndex.from_index(dataclasses.replace(idx, phi1=None), device)
+    check("pred_off" in pred.arrays, "the load of an index without phi1 built no pred_off")
     txs = {"phi1": TorchIndex.from_index(idx, device),
            "phi_rows": TorchIndex.from_big(big, device, with_locate=True, with_markers=False),
            "pred": pred}
@@ -1394,6 +1410,28 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
               f"route on the small panel: max |err| {errs[route]}")
     launches = walk_counts()
     check(launches == dict(walk=6), f"walk launches {launches}, expected 6")
+    # the predecessor walk over directories of 2-position buckets (most
+    # empty) and of one bucket (a binary search over all of pred_pos)
+    pred_bs = {"loaded": list(pred.pred_bs)}
+    for shift in (1, 62):
+        view = pred.with_pred_directory(shift)
+        tag = f"shift={shift},iters={view.pred_bs[1]}"
+        pred_bs[tag] = list(view.pred_bs)
+        for cap in (8, None):
+            k, size, off, total = operands(*ranges["pred"], cap)
+            got = cuda_phi.launch_walk(view, k, size, off, torch.empty(
+                total, dtype=torch.int64, device=device))
+            want = cuda_phi.phi_walk_plain(view, k, size, off, torch.full(
+                (total,), -1, dtype=torch.int64, device=device))
+            torch.cuda.synchronize()
+            e = max(max_abs_err([got], [want]), max_abs_err([got], [kernel_out[cap]]))
+            check(e == 0, f"the walk kernel over pred at {tag} != its plain twin or the phi1 "
+                  f"route: max |err| {e}")
+        del view
+    shift_launches = walk_counts()["walk"] - launches["walk"]
+    check(shift_launches == 4, f"the pred walk over forced spans: {shift_launches} launches, "
+          f"expected 4")
+    launches = walk_counts()
     big._phi_pack = lambda: (None, None)
     tx_at = TorchIndex.from_big(big, device, with_locate=True, with_markers=False)
     check(cuda_phi.walk_route(tx_at) == "phi_at" and "pp_off" in tx_at.arrays,
@@ -1415,7 +1453,7 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
     pp_bs = list(tx_at.pp_bs)
     del txs, tx_at, pred
     return dict(max_abs_err=errs, hits=hits, launches=launches["walk"],
-                phi_at_launches=at_launches, pp_bs=pp_bs)
+                phi_at_launches=at_launches, pp_bs=pp_bs, pred_bs=pred_bs)
 
 
 def held_record(tx, q, ln, ranges=None) -> int:
@@ -1965,16 +2003,27 @@ PHI_STEP_OPS = {"phi1": 4, "phi_rows": 4 + 15 * 3 + 4}
 PHI_LOADS = {"phi1": 1, "phi_rows": 2}  # dependent loads a step (phi_loads)
 
 
-def phi_step_ops(tx, route: str) -> int:
+def phi_step_ops(tx, route: str, old: bool = False) -> int:
+    """int32 operations of a walk step over `route`: the bucketed searches
+    (phi_at; pred through pred_off) 10 and 5 a halving; with `old` the pred
+    step's binary search over all R entries that the directory replaced."""
     if route == "phi_at":
         return 10 + 5 * tx.pp_bs[1]
-    return PHI_STEP_OPS[route] if route != "pred" else 4 * search_levels(tx.R) + 10
+    if route == "pred":
+        return 4 * search_levels(tx.R) + 10 if old else 10 + 5 * tx.pred_bs[1]
+    return PHI_STEP_OPS[route]
 
 
-def phi_loads(tx, route: str) -> int:
+def phi_loads(tx, route: str, old: bool = False) -> int:
+    """Dependent loads of a walk step over `route`: for phi_at and pred the
+    directory's entry, `iters` probes and two loads (pred_pos and phi_at,
+    or pred_to_run and samples_last); with `old` the pred step's search
+    over all R entries."""
     if route == "phi_at":
         return tx.pp_bs[1] + 2
-    return PHI_LOADS[route] if route != "pred" else search_levels(tx.R) + 2
+    if route == "pred":
+        return search_levels(tx.R) + 2 if old else 1 + tx.pred_bs[1] + 2
+    return PHI_LOADS[route]
 
 
 def big_walk(device, path: str, fastq: str) -> dict:
@@ -2005,7 +2054,8 @@ def big_walk(device, path: str, fastq: str) -> dict:
     return out
 
 
-def walk_times(device, tx, ranges, route: str, step_us: float) -> dict:
+def walk_times(device, tx, ranges, route: str, step_us: float,
+               step_us_old: float | None = None) -> dict:
     """The walk kernel (cuda_phi.launch_walk) over tx's `route` table on the
     -s batches' real lanes ranges [(lo, hi, k)], with the operands of
     engine/locate.locate_ragged: equal to its plain twin (cuda_phi.
@@ -2017,7 +2067,10 @@ def walk_times(device, tx, ranges, route: str, step_us: float) -> dict:
     the chains read, the positions written) and the longest lane's steps x
     `step_us`, the latency of a step's dependent loads (PHI_LOADS: each
     load's latency measured over a table of its table's size, summed); its
-    share.  Times and bounds are means over the batches."""
+    share.  With `step_us_old` (the pred route) also the bound and share
+    with the step of the search the directory replaced (the *_old keys:
+    its operations and latency; its bytes without the directory's).  Times
+    and bounds are means over the batches."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_phi
@@ -2068,32 +2121,49 @@ def walk_times(device, tx, ranges, route: str, step_us: float) -> dict:
                            + torch.unique(rk).numel() * (pp.element_size() + at.element_size()))
         else:
             # the predecessor entry of each position (pred_pos and
-            # pred_to_run) and the sample it reads
-            pp, ptr, sl = (tx.arrays[name] for name in cuda_phi.PRED_TABLES)
+            # pred_to_run), the sample it reads and the bucket bounds of
+            # the position's bucket of pred_off
+            pp, ptr, sl, poff = (tx.arrays[name] for name in cuda_phi.PRED_TABLES)
             rk = torch.searchsorted(pp, pos.to(pp.dtype)).long()
             jr = torch.where(rk == 0, tx.R - 1, rk - 1)
+            b = torch.clamp(pos >> tx.pred_bs[0], 0, poff.numel() - 2)
             table_bytes = (torch.unique(jr).numel() * (pp.element_size() + ptr.element_size())
                            + torch.unique(ptr[jr].long() - 1).numel() * sl.element_size())
-        nbytes = k.numel() * (k.element_size() + 16) + out.numel() * 8 + table_bytes
-        byte_us = nbytes / HBM_BYTES_PER_S * 1e6
-        ops_us = pos.numel() * phi_step_ops(tx, route) / INT_OPS_PER_S * 1e6
-        latency_us = steps * step_us
-        batches.append(dict(lanes=k.numel(), hits=out.numel(), longest_steps=steps,
-                            table_bytes=table_bytes, bytes=nbytes, byte_us=byte_us,
-                            ops_us=ops_us, latency_us=latency_us,
-                            bound_us=max(byte_us, ops_us, latency_us)))
+            dir_bytes = torch.unique(b).numel() * 2 * poff.element_size()
+        one = dict(lanes=k.numel(), hits=out.numel(), longest_steps=steps)
+        for tag, old in (("", False), ("_old", True)):
+            if old and step_us_old is None:
+                break
+            tb = table_bytes + (dir_bytes if route == "pred" and not old else 0)
+            nbytes = k.numel() * (k.element_size() + 16) + out.numel() * 8 + tb
+            byte_us = nbytes / HBM_BYTES_PER_S * 1e6
+            ops_us = pos.numel() * phi_step_ops(tx, route, old) / INT_OPS_PER_S * 1e6
+            latency_us = steps * (step_us_old if old else step_us)
+            one.update({f"table_bytes{tag}": tb, f"bytes{tag}": nbytes, f"byte_us{tag}": byte_us,
+                        f"ops_us{tag}": ops_us, f"latency_us{tag}": latency_us,
+                        f"bound_us{tag}": max(byte_us, ops_us, latency_us)})
+        batches.append(one)
     mean = {key: sum(b[key] for b in batches) / len(batches)
             for key in ("byte_us", "ops_us", "latency_us", "bound_us")}
     bound_by = max(("bytes", "byte_us"), ("operations", "ops_us"), ("latency", "latency_us"),
                    key=lambda kv: mean[kv[1]])[0]
-    return dict(route=route, batches=batches, launches=launches, max_abs_err=err,
-                call_ms=call_ms, plain_ms=plain_ms, device_us=device_us,
-                profiled_us=profiled_us, step_us=step_us, loads_per_step=phi_loads(tx, route),
-                longest_steps=max(b["longest_steps"] for b in batches),
-                bound_ms=max(mean["byte_us"], mean["ops_us"]) / 1e3,
-                bound_by="bytes" if mean["byte_us"] >= mean["ops_us"] else "operations",
-                bound_us=mean["bound_us"], bound_us_by=bound_by,
-                share=mean["bound_us"] / device_us)
+    out = dict(route=route, batches=batches, launches=launches, max_abs_err=err,
+               call_ms=call_ms, plain_ms=plain_ms, device_us=device_us,
+               profiled_us=profiled_us, step_us=step_us, loads_per_step=phi_loads(tx, route),
+               longest_steps=max(b["longest_steps"] for b in batches),
+               bound_ms=max(mean["byte_us"], mean["ops_us"]) / 1e3,
+               bound_by="bytes" if mean["byte_us"] >= mean["ops_us"] else "operations",
+               bound_us=mean["bound_us"], bound_us_by=bound_by,
+               share=mean["bound_us"] / device_us)
+    if route == "pred":
+        out["pred_bs"] = list(tx.pred_bs)
+    if step_us_old is not None:
+        old = {key: sum(b[f"{key}_old"] for b in batches) / len(batches)
+               for key in ("byte_us", "ops_us", "bound_us")}
+        out.update(step_us_old=step_us_old, loads_per_step_old=phi_loads(tx, route, True),
+                   bound_ms_old=max(old["byte_us"], old["ops_us"]) / 1e3,
+                   bound_us_old=old["bound_us"], share_old=old["bound_us"] / device_us)
+    return out
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -2747,7 +2817,8 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
         tx = TorchIndex.from_index(raw[route], device)
         check(cuda_lf.row_layout(tx) == "fblock64" and cuda_lf.toehold_route(tx) == route,
               f"the raw tables over {cuda_lf.row_layout(tx)}, {cuda_lf.toehold_route(tx)}")
-        held(tx, f"fblock64,{route}", "sample", plan("sample", every if route == "tk1" else ()))
+        held(tx, f"fblock64,{route}", "sample", plan("sample", every if route == "tk1" else ()),
+             resolve_variants(tx) if route == "ltk" else None)
         del tx
     # each rank policy's tables, with and without kval
     for policy, tab in table_indexes(idx, codes, raw["tk1"]).items():
@@ -2757,7 +2828,10 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
         runs = policy == "runs"
         views = run_variants(tx) if runs else None
         for mode in ("greedy", "lmem", "sample"):
-            held(tx, policy, mode, plan(mode, every if runs else (), ftab_only=not runs), views)
+            # the per-step toehold over ltk through each of resolve_variants
+            v = (resolve_variants(tx) if mode == "sample" and not runs
+                 and cuda_lf.toehold_route(tx) == "ltk" else views)
+            held(tx, policy, mode, plan(mode, every if runs else (), ftab_only=not runs), v)
         kv = TorchIndex.from_index(dataclasses.replace(tab, kval=idx.kval), device)
         held(kv, f"{policy},kval", "sample", plan("sample", (), kval_only=True))
         del tx, kv
@@ -2952,13 +3026,16 @@ def seed_bound(work: dict, B: int, tx, lat) -> dict:
     once: the record tables) over the card's memory rate; operations (two
     ranks a ranked step: a SWAR rank over a row, RANK_OPS, or the tables
     policy's as tables_bound counts them, three with BWT[hi]'s for the
-    per-step toehold; SEED_STEP_OPS a step; a resolve's search) over its
-    int32 rate; with `lat` (phase k1's latencies, or the float µs of a
-    dependent load over a random cycle of the chr table's size) the longest
-    lane's ranked steps times a step's latency (a random cycle over rows,
-    tables_step_us over the tables), plus one resolve for the toehold.
-    bound_ms is the larger of the byte and operation times; bound_us the
-    larger of the byte and latency times."""
+    per-step toehold; SEED_STEP_OPS a step; a resolve, resolve_ops over
+    ltk) over its int32 rate; with `lat` (phase k1's latencies, or the
+    float µs of a dependent load over a random cycle of the chr table's
+    size) the longest lane's ranked steps times a step's latency (a random
+    cycle over rows, tables_step_us over the tables), plus one resolve for
+    the toehold (resolve_us over ltk).  Over the run-space tables and for
+    the resolve over ltk also the same with the searches over all R run
+    starts that the directories replaced (the *_old keys).  bound_ms is the
+    larger of the byte and operation times; bound_us the larger of the byte
+    and latency times."""
     from rowbowt_tpu_torch.ops import cuda_lf
     from rowbowt_tpu_torch.ops import rank as R
 
@@ -2967,12 +3044,14 @@ def seed_bound(work: dict, B: int, tx, lat) -> dict:
     base = tx.arrays["fb2_base"].numel() * 8 if key in R.FB2_KEYS else 0
     toe = "resolves" in work
     ltk = toe and cuda_lf.toehold_route(tx) == "ltk"
-    levels = search_levels(tx.R) if tx.R else 0
     resolve_bytes = 0
     if toe:
+        # a distinct toehold: its table entry and, over ltk, its run's start
+        # and its bucket's bounds in rs_off
         tab = tx.arrays["ltk" if ltk else "tk1_flat"]
         resolve_bytes = work["resolve_entries"] * (tab.element_size() + (
-            2 * tx.arrays["run_start"].element_size() if ltk else 0))
+            tx.arrays["run_start"].element_size() + 2 * tx.arrays["rs_off"].element_size()
+            if ltk else 0))
     if key:
         table_bytes = work["distinct_rows"] * tx.arrays[key].shape[1] * 4
         per_rank = RANK_OPS
@@ -2985,7 +3064,7 @@ def seed_bound(work: dict, B: int, tx, lat) -> dict:
            + work.get("search_ops", 0) + SEED_STEP_OPS * work["lf_steps"])
     if toe:
         ops += (TOE_STEP_OPS * work["ranked_steps"] if key else 0) + work["resolves"] * (
-            4 * levels + 4 if ltk else 1)
+            resolve_ops(tx) if ltk else 1)
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
     ops_us = ops / INT_OPS_PER_S * 1e6
     b = dict(bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
@@ -2993,15 +3072,16 @@ def seed_bound(work: dict, B: int, tx, lat) -> dict:
              bound_by="bytes" if byte_us >= ops_us else "operations")
     if not key:
         b.update(step_tables=step_tables(tx, work["policy"]), l2_bytes=l2_bytes())
+    if ltk:
+        b.update(resolve_loads=2 + tx.rs_bs[1], resolve_loads_old=search_levels(tx.R) + 1,
+                 rs_bs=list(tx.rs_bs))
     if lat is not None:
         cycle = lat if isinstance(lat, float) else lat["random_cycle"]
-        resolve = 0.0
-        if toe:
-            resolve = cycle + (max(levels - L1_LEVELS, 0) * lat["tool_table"]
-                               if ltk and not isinstance(lat, float) else 0)
+        ltk_lat = ltk and not isinstance(lat, float)
         for tag, old in (("", False), ("_old", True)):
-            if old and (key or work["policy"] != "runs"):
+            if old and (key or work["policy"] != "runs") and not ltk_lat:
                 break
+            resolve = resolve_us(tx.R, lat, old) if ltk_lat else cycle if toe else 0.0
             step_us = cycle if key else tables_step_us(tx, work["policy"], lat, old)
             latency = work["longest_lane_ranked_steps"] * step_us + resolve
             b.update({f"step_us{tag}": step_us, f"latency_bound_us{tag}": latency,
@@ -3048,7 +3128,8 @@ def seeds_times(tx, runs: dict, lat) -> dict:
             r["restarts"] = r["work"]["restarts"]
         b = seed_bound(r["work"], B, tx, lat)
         r.update(bound=b, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                 share=b["bound_us"] / r["device_us"] if "bound_us" in b else None)
+                 share=b["bound_us"] / r["device_us"] if "bound_us" in b else None,
+                 share_old=b["bound_us_old"] / r["device_us"] if "bound_us_old" in b else None)
         out[name] = r
     return out
 
@@ -3900,22 +3981,44 @@ def search_levels(R: int) -> int:
     return math.ceil(math.log2(R + 1))
 
 
-def pred_step_us(R: int, lat: dict) -> float:
-    """A lower bound on the latency of one step of the predecessor walk:
-    its search's levels below the first L1_LEVELS at the L2's dependent-load
-    latency (P3 over the probe tool's 4 MB table), then the pred_to_run and
-    samples_last loads at a random cycle's latency over a table of phi1's
-    size."""
-    return (max(search_levels(R) - L1_LEVELS, 0) * lat["tool_table"]
-            + 2 * lat["random_cycle"])
+def pred_step_us(R: int, lat: dict, old: bool = False) -> float:
+    """A lower bound on the latency of one step of the predecessor walk: the
+    entry of the bucket directory pred_off and one pred_pos probe at the
+    L2's dependent-load latency (P3 over the probe tool's 4 MB table; the
+    bucket's other probes hit the line the first brought into L1), then the
+    pred_to_run and samples_last loads at a random cycle's latency over a
+    table of phi1's size; or where shorter (R below 2^(L1_LEVELS + 1)) the
+    old bound.  With `old`, the bound of the binary search over all R
+    entries that the directory replaced: its levels below the first
+    L1_LEVELS at the L2's latency, then the same two loads."""
+    search = max(search_levels(R) - L1_LEVELS, 0) * lat["tool_table"]
+    return 2 * lat["random_cycle"] + (search if old else min(search, 2 * lat["tool_table"]))
+
+
+def resolve_us(R: int, lat: dict, old: bool = False) -> float:
+    """A lower bound on the latency of one toehold resolve over ltk: the
+    directory's entry and one run_start probe at the L2's dependent-load
+    latency, then the ltk load at a random cycle's latency; or where shorter
+    the old bound.  With `old`, the bound of the binary search over all R
+    run starts that the directory replaced: its levels below the first
+    L1_LEVELS at the L2's latency, then the ltk load."""
+    search = max(search_levels(R) - L1_LEVELS, 0) * lat["tool_table"]
+    return lat["random_cycle"] + (search if old else min(search, 2 * lat["tool_table"]))
+
+
+def resolve_ops(tx, old: bool = False) -> int:
+    """int32 operations of one toehold resolve over ltk: the bucket and its
+    bounds (4), 4 a halving of rs_off's `iters` and 4 for the run and the
+    load; with `old` 4 a level of the search over all R run starts and 4."""
+    return 4 * search_levels(tx.R) + 4 if old else 4 * tx.rs_bs[1] + 8
 
 
 def toehold_work(tx, q, ln) -> dict:
     """What one batch asks of the toehold launch beyond K1's search
     (k1_work without the ftab), by a replay of the plain loop: the lanes
     whose search ends with a non-trivial step (BWT[hi] != c), the distinct
-    entries their resolve reads (tk1, or ltk and the run starts that bracket
-    the run of each pre-step hi), and their bytes."""
+    entries their resolve reads (tk1, or ltk, the start of the run of each
+    pre-step hi and the bounds of its bucket of rs_off), and their bytes."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_lf
@@ -3947,29 +4050,54 @@ def toehold_work(tx, q, ln) -> dict:
         entries = torch.unique(tc * tx.n + thi).numel()
         nbytes = entries * tab.element_size()
     else:
-        rs, tab = tx.arrays["run_start"], tx.arrays["ltk"]
-        r = torch.searchsorted(rs, thi.to(rs.dtype), right=True).long() - 1
-        entries = torch.unique(tc * tx.R + r).numel()
-        nbytes = entries * tab.element_size() + torch.unique(r).numel() * 2 * rs.element_size()
+        entries, nbytes = ltk_resolve_bytes(tx, tc, thi)
     return dict(resolved_lanes=int(res.sum()), resolve_entries=entries, resolve_bytes=nbytes)
+
+
+def ltk_resolve_bytes(tx, tc, thi) -> tuple[int, int]:
+    """(entries, bytes) the resolves over ltk of the last non-trivial steps
+    (codes tc, pre-step his thi) read: the distinct ltk entries, the start
+    of each distinct run and the two bounds of each distinct bucket of
+    rs_off that x + 1 = min(thi + 1, n - 1) + 1 falls in."""
+    import torch
+
+    rs, tab, off = tx.arrays["run_start"], tx.arrays["ltk"], tx.arrays["rs_off"]
+    r = torch.searchsorted(rs, thi.to(rs.dtype), right=True).long() - 1
+    b = torch.clamp((torch.clamp(thi + 1, max=tx.n - 1) + 1) >> tx.rs_bs[0], max=off.numel() - 2)
+    entries = torch.unique(tc * tx.R + r).numel()
+    return entries, (entries * tab.element_size() + torch.unique(r).numel() * rs.element_size()
+                     + torch.unique(b).numel() * 2 * off.element_size())
 
 
 def toehold_bound(work: dict, tw: dict, B: int, L: int, tx, lat: dict) -> dict:
     """The toehold launch's bound on one batch: K1's (k1_bound, 64 B rows,
     no ftab) with the resolve's entries as table bytes and k as one more
     int32 output; its operations add the trivial test a ranked step and a
-    binary search of search_levels(R) steps (4 operations each) and the
-    remainder a resolved lane; its latency the search (its levels below
-    L1_LEVELS at the L2's latency) and the table load (a random cycle's)."""
+    resolve a resolved lane (resolve_ops); its latency one resolve
+    (resolve_us).  Over ltk also the bound with the search over all R run
+    starts that the directory replaced (the *_old keys), and the resolve's
+    dependent loads both ways (resolve_loads: the directory's entry, its
+    `iters` probes and the ltk load)."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
     b = k1_bound([work], B, L, tx.A, 64, lat["random_cycle"],
                  table_bytes=tw["resolve_bytes"], out_bytes=B * 4)
-    ops = (b["ops"] + TOE_STEP_OPS * work["ranked_steps"]
-           + tw["resolved_lanes"] * (4 * search_levels(tx.R) + 4))
-    latency = (b["latency_bound_us"] + lat["random_cycle"]
-               + max(search_levels(tx.R) - L1_LEVELS, 0) * lat["tool_table"])
-    b.update(ops=ops, ops_bound_us=ops / INT_OPS_PER_S * 1e6, latency_bound_us=latency,
-             bound_us=max(b["byte_bound_us"], latency),
-             bound_by="bytes" if b["byte_bound_us"] >= latency else "latency", **tw)
+    base_ops, base_latency = b["ops"], b["latency_bound_us"]
+    ltk = cuda_lf.toehold_route(tx) == "ltk"
+    for tag, old in (("", False), ("_old", True)):
+        if old and not ltk:
+            break
+        ops = base_ops + TOE_STEP_OPS * work["ranked_steps"] + tw["resolved_lanes"] * (
+            resolve_ops(tx, old) if ltk else 1)
+        latency = base_latency + (resolve_us(tx.R, lat, old) if ltk else lat["random_cycle"])
+        b.update({f"ops{tag}": ops, f"ops_bound_us{tag}": ops / INT_OPS_PER_S * 1e6,
+                  f"latency_bound_us{tag}": latency,
+                  f"bound_us{tag}": max(b["byte_bound_us"], latency),
+                  f"bound_by{tag}": "bytes" if b["byte_bound_us"] >= latency else "latency"})
+    if ltk:
+        b.update(resolve_loads=2 + tx.rs_bs[1], resolve_loads_old=search_levels(tx.R) + 1,
+                 rs_bs=list(tx.rs_bs))
+    b.update(tw)
     return b
 
 
@@ -4037,7 +4165,8 @@ def toehold_times(device, path: str, fastq: str, loc: dict, k1: dict) -> dict:
                profiled_us=profiled_us, bound=b,
                bound_ms=max(b["byte_bound_us"], b["ops_bound_us"]) / 1e3,
                bound_by="bytes" if b["byte_bound_us"] >= b["ops_bound_us"] else "operations",
-               share=b["bound_us"] / device_us, wall_s=time.perf_counter() - t0)
+               share=b["bound_us"] / device_us, share_old=b["bound_us_old"] / device_us,
+               wall_s=time.perf_counter() - t0)
     del tx, dev
     torch.cuda.empty_cache()
     return out
@@ -4241,7 +4370,8 @@ def tables_work(tx, q, ln, use_ftab: bool, toehold: bool) -> dict:
     run-space policy; occ_blk_flat at (c, block) and the 64 B blocks of
     bwt4 for the dense one; occ1 at (c, lo), (c, hi + 1) (and (c, hi)) for
     occ1.  For the toehold also the lanes that resolve from a table and
-    the entries they read (toehold_work's count, over run_head)."""
+    the entries they read (toehold_work's count, over run_head;
+    ltk_resolve_bytes)."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_lf
@@ -4307,11 +4437,7 @@ def tables_work(tx, q, ln, use_ftab: bool, toehold: bool) -> dict:
             entries = torch.unique(tcr * n + thr).numel()
             nbytes = entries * arr["tk1_flat"].element_size()
         else:
-            rs = arr["run_start"]
-            r = torch.searchsorted(rs, thr.to(rs.dtype), right=True).long() - 1
-            entries = torch.unique(tcr * tx.R + r).numel()
-            nbytes = (entries * arr["ltk"].element_size()
-                      + torch.unique(r).numel() * rs.element_size())
+            entries, nbytes = ltk_resolve_bytes(tx, tcr, thr)
         out.update(resolved_lanes=int(res.sum()), resolve_entries=int(entries),
                    resolve_bytes=int(nbytes))
     return out
@@ -4323,38 +4449,44 @@ def tables_bound(work: dict, B: int, tx, toehold: bool, lat: dict | None) -> dic
     distinct ftab entries and table entries, the resolve's entries; each
     output written once: lo, hi and for the toehold k) over the card's
     memory rate; operations (the run-space ranks' directory searches,
-    tables_entries' search_ops, and a search of search_levels(R) levels, 4
-    operations each, for each resolve; the dense policy's 16-word nibble
+    tables_entries' search_ops, and a resolve over ltk, resolve_ops, or one
+    load of tk1 for each resolving lane; the dense policy's 16-word nibble
     count, RANK_OPS; 8 for a step's own arithmetic) over its int32 rate;
     the bytes of the tables the step reads (step_tables) beside the card's
     L2; with `lat` (phase k1's latencies) the longest lane's steps times
-    tables_step_us, plus the resolve's search and load for the toehold, and
-    for the run-space policy the same with the bound of the search the
-    directory replaced (the *_old keys).  bound_ms is the larger of the byte
-    and operation times; bound_us the larger of the byte and latency
-    times."""
+    tables_step_us, plus one resolve (resolve_us over ltk, a random
+    cycle's latency over tk1) for the toehold; for the run-space policy and
+    the resolve over ltk also the same with the searches over all R run
+    starts that the directories replaced (the *_old keys).  bound_ms is
+    the larger of the byte and operation times; bound_us the larger of the
+    byte and latency times."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
     lane = tx.arrays["F"].element_size()
     outs = 3 if toehold else 2
     nbytes = (work["codes"] * 4 + B * 4 + (tx.A + 1) * lane + work["ftab_entries"] * 2 * lane
               + work["table_bytes"] + work.get("resolve_bytes", 0) + outs * B * lane)
-    levels = search_levels(tx.R)
+    ltk = toehold and cuda_lf.toehold_route(tx) == "ltk"
     per_rank = {"runs": 0, "dense": RANK_OPS, "occ1": 1}[work["policy"]]
     ops = ((2 + toehold) * per_rank * work["ranked_steps"] + work["search_ops"]
            + 8 * work["lane_steps"])
     if toehold:
-        ops += work["resolved_lanes"] * (4 * levels + 4)
+        ops += work["resolved_lanes"] * (resolve_ops(tx) if ltk else 1)
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
     ops_us = ops / INT_OPS_PER_S * 1e6
     b = dict(bytes=nbytes, byte_bound_us=byte_us, ops=ops, ops_bound_us=ops_us,
              bound_ms=max(byte_us, ops_us) / 1e3,
              bound_by="bytes" if byte_us >= ops_us else "operations",
              step_tables=step_tables(tx, work["policy"]), l2_bytes=l2_bytes())
+    if ltk:
+        b.update(resolve_loads=2 + tx.rs_bs[1], resolve_loads_old=search_levels(tx.R) + 1,
+                 rs_bs=list(tx.rs_bs))
     if lat is not None:
-        resolve = (lat["random_cycle"] + max(levels - L1_LEVELS, 0) * lat["tool_table"]
-                   if toehold else 0.0)
         for tag, old in (("", False), ("_old", True)):
-            if old and work["policy"] != "runs":
+            if old and work["policy"] != "runs" and not ltk:
                 break
+            resolve = (resolve_us(tx.R, lat, old) if ltk else
+                       lat["random_cycle"] if toehold else 0.0)
             step_us = tables_step_us(tx, work["policy"], lat, old)
             latency = work["longest_lane_steps"] * step_us + resolve
             b.update({f"step_us{tag}": step_us, f"latency_bound_us{tag}": latency,
@@ -4412,7 +4544,8 @@ def tables_times(device, tx, batches: list, toehold: bool, lat: dict | None,
     out["work"] = tables_work(tx, q, ln, use_ftab=False, toehold=toehold)
     b = tables_bound(out["work"], B, tx, toehold, lat)
     out.update(lanes=B, L=L, bound=b, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-               share=b["bound_us"] / out["device_us"] if "bound_us" in b else None)
+               share=b["bound_us"] / out["device_us"] if "bound_us" in b else None,
+               share_old=b["bound_us_old"] / out["device_us"] if "bound_us_old" in b else None)
     return out
 
 
@@ -4434,6 +4567,18 @@ def run_variants(tx) -> list:
             tx, arrays={k: v for k, v in tx.arrays.items() if k != "run_rec"})))
     one = tx.with_run_tables(62)
     out.append((f"shift=62,iters={one.rs_bs[1]}", one))
+    return out
+
+
+def resolve_variants(tx) -> list:
+    """[(tag, view)] that parity holds to one plain twin where the toehold
+    resolves over ltk outside the run-space step: tx as loaded, and tx over
+    directories of 2-position buckets (most of them empty) and of one
+    bucket (shift 62: a binary search over every run start)."""
+    out = [(f"loaded,shift={tx.rs_bs[0]},iters={tx.rs_bs[1]}", tx)]
+    for shift in (1, 62):
+        view = tx.with_run_tables(shift)
+        out.append((f"shift={shift},iters={view.rs_bs[1]}", view))
     return out
 
 
@@ -4567,7 +4712,8 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
                    for _, qc, lens in iter_query_batches(host, fastq, BATCH)]
         tables[name] = tables_times(device, tx, batches, name == "toehold", lat)
     resident = {k: v.numel() * v.element_size() / 1e6 for k, v in tx.arrays.items()}
-    walk = walk_times(device, tx, loc["ranges"], "pred", pred_step_us(tx.R, lat))
+    walk = walk_times(device, tx, loc["ranges"], "pred", pred_step_us(tx.R, lat),
+                      pred_step_us(tx.R, lat, old=True))
     del host, tx, batches
     torch.cuda.empty_cache()
     shutil.copy(paths["idx"] + ".midx.npz", out_dir + ".midx.npz")

@@ -100,8 +100,10 @@ def device_index(idx, device, sa=False, ma=False):
     """The index's tensors on `device` (the 64B-row layout).  An RbtIndex was
     gated at load; a BigIndex puts its locate and marker tables on the
     device only for the flags that ask for them.  Where the load built the
-    tables kernels' run-space tables (TorchIndex.with_run_tables), their
-    bytes and seconds go to stderr as a `run tables: {...}` line (JSON)."""
+    kernels' bucket directories and run records (TorchIndex.with_run_tables,
+    with_pred_directory), their bytes and seconds, and each directory's
+    (shift, iters) and bytes, go to stderr as a `run tables: {...}` line
+    (JSON)."""
     from rowbowt_tpu_torch.bigindex import BigIndex
     from rowbowt_tpu_torch.engine.device import TorchIndex
 
@@ -110,10 +112,11 @@ def device_index(idx, device, sa=False, ma=False):
                                  with_markers=ma and idx.has_markers)
     else:
         tx = TorchIndex.from_index(idx, device)
-    if tx.rs_bs:
+    if tx.rs_bs or tx.pred_bs:
         eprint("run tables: " + json.dumps(dict(bytes=tx.run_tables_bytes,
                                                 seconds=tx.run_tables_s,
-                                                records="run_rec" in tx.arrays)))
+                                                records="run_rec" in tx.arrays,
+                                                directories=tx.directories)))
     return tx
 
 

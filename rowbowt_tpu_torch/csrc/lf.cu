@@ -73,12 +73,15 @@
 // steps after it, mod n (from k0 = (samples_last[R - 1] + 1) mod n where
 // there is none), and the loop carries only that step's c and hi and a
 // count; one resolve a lane after the loop reads the table (and, for ltk,
-// searches run_start).  The trivial test needs BWT[hi]: the symbol before
-// hi + 1 in the row already loaded for hi + 1, or one 4-byte word load
-// where hi + 1 starts a row or equals n.  Its bound is K1's plus the
-// resolve: a binary search over R run starts and one table load a lane
-// (under 1 MB a chr batch).  A raw chr batch took 1.14x K1's count search
-// on an H100 (PERF.md §6), against 0.16 s for the torch loop.
+// finds the run of hi through the bucket directory rs_off over run_start,
+// engine/device.run_directory, which the load builds beside ltk).  The
+// trivial test needs BWT[hi]: the symbol before hi + 1 in the row already
+// loaded for hi + 1, or one 4-byte word load where hi + 1 starts a row or
+// equals n.  Its bound is K1's plus the resolve: the directory's entry, at
+// most `iters` probes of one bucket's starts and one table load a lane
+// (under 1 MB a chr batch).  With a binary search over all R run starts in
+// their place a raw chr batch took 1.14x K1's count search on an H100
+// (PERF.md §6), against 0.16 s for the torch loop.
 //
 // A second kernel, lf_tables_kernel (C entry rbt_lf_tables), runs the same
 // search, count or toehold, over the rank tables of an index without fused
@@ -153,6 +156,21 @@
 #include "lf_tables.cuh"  // the tables' step and the per-step toehold's resolve
 
 namespace {
+
+// The block size and blocks an SM this file's two kernels are built for, by
+// lane type.  int32 lanes: __launch_bounds__(1024), the bound they were
+// tuned and timed under, with no blocks an SM asked (0), which keeps their
+// machine code.  int64 lanes: 512 threads, the block ops/cuda_lf.py
+// launch_plan gives every lane type, and 2 blocks an SM (64 registers), 1
+// over the 256-symbol rows (128): under the 1024-thread bound ptxas held
+// two of them to 32 registers and they spilled; 256 threads and 3 blocks
+// (85 registers) spilled none either but ran 1.04-1.10x the parent over
+// `fb2_64` at chr and `fb2` above 2^31 (PERF.md §6).
+template <typename Lane, int SYMS>
+struct LfBounds {
+  static constexpr int kThreads = sizeof(Lane) == 8 ? 512 : 1024;
+  static constexpr int kBlocks = sizeof(Lane) == 4 ? 0 : SYMS == 256 ? 1 : 2;
+};
 
 // ---------------------------------------------------------------------------
 // The earlier design (kept for timing only)
@@ -250,7 +268,7 @@ lf_count_transposed_kernel(const int4* __restrict__ fb,
 // for every j in [0, L).  TOE (single-level rows, no ftab start) also writes
 // each lane's toehold into toe.k[b], 0 for a failed search.
 template <typename Lane, int SYMS, bool STAGE, bool REC, bool TOE>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(LfBounds<Lane, SYMS>::kThreads, LfBounds<Lane, SYMS>::kBlocks)
 lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
                 const int64_t* __restrict__ base, int per_blk,
                 int A, Lane n, const int32_t* __restrict__ q,
@@ -375,6 +393,7 @@ struct Args {
 
 template <typename Lane, int SYMS, bool STAGE, bool REC, bool TOE>
 int launch(const Args<Lane>& a, int threads, cudaStream_t s) {
+  if (threads > LfBounds<Lane, SYMS>::kThreads) return (int)cudaErrorInvalidValue;
   const int lanes = threads / kG;
   const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
@@ -415,7 +434,7 @@ bool bad_launch(int A, int B, int L, int threads) {
 // into toe.k.  The codes come from shared memory when `stage` (staged once
 // per block), else from global memory at every step.
 template <typename Lane, int POLICY, bool TOE, bool REC>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(LfBounds<Lane, 0>::kThreads, LfBounds<Lane, 0>::kBlocks)
 lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
                  const int32_t* __restrict__ q, const int32_t* __restrict__ lengths, int B,
                  int L, bool stage, const void* ftab, int ftab_bytes, int k, uint32_t acgt,
@@ -502,6 +521,7 @@ struct TabArgs {
 
 template <typename Lane, int POLICY, bool TOE, bool REC = false>
 int launch_tables(const TabArgs<Lane>& a, int threads, bool stage, cudaStream_t s) {
+  if (threads > LfBounds<Lane, 0>::kThreads) return (int)cudaErrorInvalidValue;
   const int lanes = threads / lane_threads(POLICY);
   const size_t smem = stage ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
@@ -540,9 +560,10 @@ extern "C" {
 // (fblock64) or 128 (fblock).  ftab is int32 [4^k, 2] and k its k-mer length,
 // or k = 0 for no ftab start; acgt holds the codes of A, C, G, T, one byte
 // each (0xFF for a base absent from the alphabet).  `threads` is the block
-// size (two threads a lane); `stage` reads the codes from shared memory
-// (threads / 2 * staged stride bytes, at most 47 KB).  Both come from
-// ops/cuda_lf.py launch_plan.
+// size (two threads a lane; at most 1024, 512 over the two-level rows:
+// LfBounds); `stage` reads the codes from shared memory (threads
+// / 2 * staged stride bytes, at most 47 KB).  Both come from ops/cuda_lf.py
+// launch_plan.
 int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
                  const void* q, const void* lengths, int B, int L,
                  const void* ftab, int k, int acgt, void* lo, void* hi,
@@ -596,24 +617,22 @@ int rbt_lf_count_fb2(const void* fb, int syms_per_row, const void* F, const void
 // full range (no ftab start), lo, hi and k (int32 [B]) out, k the toehold
 // of rbt_align -s on an index without kval and 0 for a failed search.  The
 // toehold's tables are each int32 or int64 (*_bytes 4 or 8): tk1 [A * n]
-// where resident (ltk and run_start are then not read and may be null),
-// else ltk [A * R] and run_start [R]; samples_last [R] always.  The other
+// where resident (ltk, run_start and rs_off are then not read and may be
+// null), else ltk [A * R], run_start [R] and its bucket directory rs_off
+// [n_off] (off_bytes; n_off == (n >> shift) + 2, at most `iters` halvings a
+// bucket: engine/device.run_directory); samples_last [R] always.  The other
 // arguments and the return value are rbt_lf_count's.
 int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n,
                    const void* q, const void* lengths, int B, int L, const void* tk1,
                    int tk1_bytes, const void* ltk, int ltk_bytes, const void* run_start,
-                   int rs_bytes, const void* samples_last, int sl_bytes, int R, void* lo,
-                   void* hi, void* k, int threads, int stage, void* stream) {
-  auto width = [](int bytes) { return bytes == 4 || bytes == 8; };
-  const bool tables = tk1 != nullptr ? width(tk1_bytes)
-                                     : ltk != nullptr && run_start != nullptr &&
-                                           width(ltk_bytes) && width(rs_bytes);
-  if (bad_launch(A, B, L, threads) || n < 1 || R < 1 || samples_last == nullptr ||
-      !width(sl_bytes) || !tables || k == nullptr)
+                   int rs_bytes, const void* rs_off, int off_bytes, long long n_off, int shift,
+                   int iters, const void* samples_last, int sl_bytes, int R, void* lo, void* hi,
+                   void* k, int threads, int stage, void* stream) {
+  const Toe toe{tk1, ltk, run_start, samples_last, rs_off, tk1_bytes, ltk_bytes, rs_bytes,
+                sl_bytes, off_bytes, R, n_off, shift, iters, k};
+  if (bad_launch(A, B, L, threads) || n < 1 || !valid_toe(toe, n) || k == nullptr)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes,
-                R, k};
   const Args<int32_t> a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F),
                         nullptr, 0, A, n,
                         static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
@@ -630,7 +649,8 @@ int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n
 // rs_off [n_off] over run_start, n_off == (n >> shift) + 2, searched in at
 // most `iters` halvings a bucket), 1 (dense: occ = occ_blk_flat, bwt4 int32
 // [nb * 16] 16-byte aligned, A at most 16) or 2 (occ1: occ = occ1_flat, A at
-// most 16);
+// most 16); the toehold over ltk reads run_start and rs_off too, under
+// every policy;
 // each table int32 or int64 (*_bytes), run_head and rs_off too.  `rec`
 // (runs only, else null) is null or the run records (int32 [R * 8], 32-byte
 // aligned; A at most 6, int32 lanes), which the step then reads instead of
@@ -639,10 +659,12 @@ int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n
 // null it is the count search, from the ftab start where kf > 0 (ftab int32
 // or int64 [4^kf, 2], acgt as rbt_lf_count's); with k_out, the toehold
 // search (kf 0) over tk1 [A * n] where given, else ltk [A * R] with
-// run_start, and samples_last [R], each int32 or int64, k_out in the lane
-// type.  `threads` is the block size (lane_threads(policy), two threads a
-// lane); `stage` reads the codes from shared memory (lanes a block * staged stride bytes,
-// at most 47 KB); both from ops/cuda_lf.py launch_plan.  Returns
+// run_start and rs_off, and samples_last [R], each int32 or int64, k_out in
+// the lane type.  `threads` is the block size (lane_threads(policy), two
+// threads a lane; at most 1024 with int32 lanes, 512 with int64:
+// LfBounds); `stage` reads the codes from shared memory (lanes a block *
+// staged stride bytes, at most 47 KB); both from ops/cuda_lf.py
+// launch_plan.  Returns
 // cudaGetLastError() after the launch (0 on success, nothing launched for B
 // == 0).
 int rbt_lf_tables(int policy, const void* occ, int occ_bytes, const void* run_start,
@@ -663,12 +685,9 @@ int rbt_lf_tables(int policy, const void* occ, int occ_bytes, const void* run_st
                      ((uintptr_t)bwt4 & 15) == 0 && nb >= (n + 127) / 128;
   const bool tables = occ != nullptr && width(occ_bytes) &&
                       (runs || dense || (policy == kOcc1 && rec == nullptr && A < kMaxF));
-  const bool toe = k_out != nullptr;
-  const bool toe_tables =
-      !toe || (kf == 0 && samples_last != nullptr && width(sl_bytes) && R >= 1 &&
-               (tk1 != nullptr ? width(tk1_bytes)
-                               : ltk != nullptr && run_start != nullptr && width(ltk_bytes) &&
-                                     width(rs_bytes)));
+  const Toe te{tk1, ltk, run_start, samples_last, rs_off, tk1_bytes, ltk_bytes, rs_bytes,
+               sl_bytes, off_bytes, R, n_off, shift, iters, k_out};
+  const bool toe_tables = k_out == nullptr || (kf == 0 && valid_toe(te, n));
   if (!tables || !toe_tables || A < 1 || A > 254 || B < 0 || L < 0 || threads < 32 ||
       threads > 1024 || threads % 32 != 0 || n < 1 || kf < 0 || kf > 15 ||
       (kf > 0 && (ftab == nullptr || !width(ftab_bytes) || L < kf)) ||
@@ -678,8 +697,6 @@ int rbt_lf_tables(int policy, const void* occ, int occ_bytes, const void* run_st
   const Tabs t{occ, run_start, run_head, static_cast<const int4*>(bwt4), rs_off,
                static_cast<const int4*>(rec), occ_bytes, rs_bytes, rh_bytes, off_bytes, R, nb,
                n_off, shift, iters};
-  const Toe te{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
-               k_out};
   cudaStream_t s = (cudaStream_t)stream;
   const auto* q32 = static_cast<const int32_t*>(q);
   const auto* len = static_cast<const int32_t*>(lengths);

@@ -103,68 +103,56 @@ inline bool valid_records(const void* rec, int A, int lane_bytes) {
 
 // The per-step toehold's tables (TOE instances), each int32 or int64 as the
 // index holds it on the card (*_bytes): tk1 [A * n] where it is resident,
-// else ltk [A * R] with run_start [R]; samples_last [R] for k0; and k, the
-// toehold out, in the lane type (K1's and the tables kernel's).
+// else ltk [A * R] with run_start [R] and its bucket directory rs_off
+// [n_off] with (shift, iters) (engine/device.run_directory); samples_last
+// [R] for k0; and k, the toehold out, in the lane type (K1's and the tables
+// kernel's).
 struct Toe {
   const void* tk1;
   const void* ltk;
   const void* run_start;
   const void* samples_last;
-  int tk1_bytes, ltk_bytes, rs_bytes, sl_bytes;
+  const void* rs_off;
+  int tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, off_bytes;
   int R;
+  long long n_off;
+  int shift, iters;
   void* k;
 };
 
-// k of a lane whose search did not fail: the table value of its last
-// non-trivial step (code tc >= 0, pre-step hi thi), or k0 where it had none
-// (tc < 0), less its `triv` trivial steps since, mod n.  The ltk route finds
-// the run of thi as ops/rank.py lf_step_w_loc does: the run of min(thi + 1,
-// n - 1) by an upper bound over run_start, one less where thi + 1 < n
-// starts that run.
-__device__ int64_t resolve_toehold(const Toe& t, int64_t n, int tc, int64_t thi, int triv) {
-  int64_t base;
-  if (tc < 0) {
-    base = (load_at(t.samples_last, t.sl_bytes, t.R - 1) + 1) % n;
-  } else if (t.tk1 != nullptr) {
-    base = load_at(t.tk1, t.tk1_bytes, (int64_t)tc * n + thi);
-  } else {
-    const int64_t x = thi + 1 < n ? thi + 1 : n - 1;
-    int first = 0, count = t.R;  // upper bound of x
-    while (count > 0) {
-      const int half = count >> 1;
-      if (load_at(t.run_start, t.rs_bytes, first + half) <= x) {
-        first += half + 1;
-        count -= half + 1;
-      } else {
-        count = half;
-      }
-    }
-    int r = first - 1;
-    if (thi + 1 < n && load_at(t.run_start, t.rs_bytes, r) == thi + 1) --r;
-    base = load_at(t.ltk, t.ltk_bytes, (int64_t)tc * t.R + r);
-  }
-  const int64_t k = (base - triv) % n;
-  return k < 0 ? k + n : k;
+// Whether t holds the tables a resolve over an index of n positions reads:
+// samples_last, and tk1, or ltk with run_start and a valid directory.
+inline bool valid_toe(const Toe& t, long long n) {
+  auto width = [](int bytes) { return bytes == 4 || bytes == 8; };
+  return t.samples_last != nullptr && width(t.sl_bytes) && t.R >= 1 &&
+         (t.tk1 != nullptr ? width(t.tk1_bytes)
+                           : t.ltk != nullptr && t.run_start != nullptr && width(t.ltk_bytes) &&
+                                 width(t.rs_bytes) &&
+                                 valid_directory(t.rs_off, t.off_bytes, t.n_off, t.shift,
+                                                 t.iters, n));
 }
 
-// The run of position x (0 <= x < n): ops/rank.py bucketed_lower_bound(
-// run_start, rs_off, shift, iters, x + 1) - 1.  rs_off[b] is the first run
-// starting at or after b << shift, so the runs starting in x + 1's bucket
-// are the only ones left to search: at most `iters` halvings of a segment
-// of a few starts, one or two 128 B lines that the first probe brings into
-// L1.  With START, `start` receives the run's start: the last probe below x
-// + 1 where there was one, else one more load.
+// The run of position x (0 <= x < n) over run_start [*] (rs_bytes) and its
+// bucket directory rs_off [n_off] (off_bytes, 2^shift positions a bucket):
+// ops/rank.py bucketed_lower_bound(run_start, rs_off, shift, iters, x + 1) -
+// 1.  rs_off[b] is the first run starting at or after b << shift, so the
+// runs starting in x + 1's bucket are the only ones left to search: at most
+// `iters` halvings of a segment of a few starts, one or two 128 B lines that
+// the first probe brings into L1.  With START, `start` receives the run's
+// start: the last probe below x + 1 where there was one, else one more load.
 template <bool START>
-__device__ __forceinline__ int run_of(const Tabs& t, int64_t x, int64_t& start) {
+__device__ __forceinline__ int run_search(const void* run_start, int rs_bytes, const void* rs_off,
+                                          int off_bytes, long long n_off, int shift, int iters,
+                                          int64_t x, int64_t& start) {
   const int64_t q = x + 1;
-  const int64_t last = t.n_off - 2;  // the last bucket takes q == n
-  const int64_t b = (q >> t.shift) < last ? (q >> t.shift) : last;
-  int lo = (int)load_at(t.rs_off, t.off_bytes, b);
-  int hi = (int)load_at(t.rs_off, t.off_bytes, b + 1);
+  const int64_t last = n_off - 2;  // the last bucket takes q == n
+  const int64_t b = (q >> shift) < last ? (q >> shift) : last;
+  int lo = (int)load_at(rs_off, off_bytes, b);
+  int hi = (int)load_at(rs_off, off_bytes, b + 1);
   bool known = false;
-  for (int it = 0; it < t.iters && lo < hi; ++it) {
+  for (int it = 0; it < iters && lo < hi; ++it) {
     const int mid = (lo + hi) >> 1;
-    const int64_t v = load_at(t.run_start, t.rs_bytes, mid);
+    const int64_t v = load_at(run_start, rs_bytes, mid);
     if (v < q) {
       lo = mid + 1;
       start = v;
@@ -173,8 +161,41 @@ __device__ __forceinline__ int run_of(const Tabs& t, int64_t x, int64_t& start) 
       hi = mid;
     }
   }
-  if (START && !known) start = load_at(t.run_start, t.rs_bytes, lo - 1);
+  if (START && !known) start = load_at(run_start, rs_bytes, lo - 1);
   return lo - 1;
+}
+
+// k of a lane whose search did not fail: the table value of its last
+// non-trivial step (code tc >= 0, pre-step hi thi), or k0 where it had none
+// (tc < 0), less its `triv` trivial steps since, mod n.  The ltk route finds
+// the run of thi as ops/rank.py lf_step_w_loc does: the run of min(thi + 1,
+// n - 1) through the directory (run_search), one less where thi + 1 < n
+// starts that run: the directory's entry, at most `iters` probes of one
+// bucket and the ltk load, in place of a search over all R starts.
+__device__ int64_t resolve_toehold(const Toe& t, int64_t n, int tc, int64_t thi, int triv) {
+  int64_t base;
+  if (tc < 0) {
+    base = (load_at(t.samples_last, t.sl_bytes, t.R - 1) + 1) % n;
+  } else if (t.tk1 != nullptr) {
+    base = load_at(t.tk1, t.tk1_bytes, (int64_t)tc * n + thi);
+  } else {
+    const int64_t x = thi + 1 < n ? thi + 1 : n - 1;
+    int64_t start;
+    int r = run_search<true>(t.run_start, t.rs_bytes, t.rs_off, t.off_bytes, t.n_off, t.shift,
+                             t.iters, x, start);
+    if (thi + 1 < n && start == thi + 1) --r;
+    base = load_at(t.ltk, t.ltk_bytes, (int64_t)tc * t.R + r);
+  }
+  const int64_t k = (base - triv) % n;
+  return k < 0 ? k + n : k;
+}
+
+// The run of position x (0 <= x < n) through the tables' directory
+// (run_search).
+template <bool START>
+__device__ __forceinline__ int run_of(const Tabs& t, int64_t x, int64_t& start) {
+  return run_search<START>(t.run_start, t.rs_bytes, t.rs_off, t.off_bytes, t.n_off, t.shift,
+                           t.iters, x, start);
 }
 
 // The code of run r: from its record (REC) or run_head.

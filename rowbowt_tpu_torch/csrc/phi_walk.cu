@@ -29,11 +29,13 @@
 //     the lower bound of i in pred_pos, jr = rk - 1 (R - 1 for rk == 0), j =
 //     pred_pos[jr], and i <- (samples_last[pred_to_run[jr] - 1] + (j < i ? i
 //     - j : i + 1)) mod n, index -1 reading the last sample as the JAX
-//     package's gather does: a binary search over R entries and two more
-//     dependent loads a step, about log2(R) + 2 (26 at chr).  The search's
-//     first levels are shared by every lane, so its loads go through L1
-//     (a chr batch of at most 7 steps a lane: 57.5 us on an H100, PERF.md
-//     §6).
+//     package's gather does.  rk is bucketed_lower_bound(pred_pos, pred_off,
+//     shift, iters, i) through the bucket directory pred_off over pred_pos
+//     (engine/device.run_directory, built where the index goes to the card),
+//     the same search as phi_at's: 1 + iters + 2 dependent loads a step, the
+//     bucket's few entries one or two 128 B lines, in place of a binary
+//     search over all R entries (log2(R) + 2 loads, 26 at chr: a chr batch
+//     of at most 7 steps a lane took 57.5 us on an H100, PERF.md §6).
 //
 // What bounds it on the H100.  A lane's chain is serial: each step's address
 // is the previous step's result, so the longest lane takes its steps times
@@ -134,6 +136,27 @@ __device__ __forceinline__ int64_t entry(const void* t, int bytes, int64_t i) {
                     : (int64_t)__ldg(static_cast<const int32_t*>(t) + i);
 }
 
+// ops/rank.py bucketed_lower_bound(vals, off, shift, iters, q): the first
+// index of the sorted table vals [M] (vbytes a value) whose value is >= q,
+// searched in q's bucket of the directory off [n_off] (off_bytes a value,
+// 2^shift values a bucket) by `iters` fixed halvings.
+__device__ __forceinline__ int64_t bucketed_lower_bound(const void* vals, int vbytes, int64_t M,
+                                                        const void* off, int off_bytes,
+                                                        int64_t n_off, int shift, int iters,
+                                                        int64_t q) {
+  int64_t b = q >> shift;
+  b = b < 0 ? 0 : (b > n_off - 2 ? n_off - 2 : b);
+  int64_t lo = entry(off, off_bytes, b), hi = entry(off, off_bytes, b + 1);
+  for (int it = 0; it < iters; ++it) {
+    const int64_t mid = (lo + hi) >> 1;
+    const int64_t at = mid < 0 ? 0 : (mid > M - 1 ? M - 1 : mid);
+    const bool take = entry(vals, vbytes, at) < q && lo < hi;
+    hi = take || lo >= hi ? hi : mid;
+    lo = take ? mid + 1 : lo;
+  }
+  return lo;
+}
+
 // phi over the breakpoint table: ops/rank.py phi_step's "phi_at" branch with
 // its bucket table pp_off [n_off] (each table int32 or int64, *_bytes).
 struct PhiAt {
@@ -146,18 +169,8 @@ struct PhiAt {
   int shift, iters;
   int64_t n;
   __device__ __forceinline__ int64_t operator()(int64_t i) const {
-    // bucketed_lower_bound(pred_pos, pp_off, shift, iters, q = i + 1)
-    const int64_t q = i + 1;
-    int64_t b = q >> shift;
-    b = b < 0 ? 0 : (b > n_off - 2 ? n_off - 2 : b);
-    int64_t lo = entry(pp_off, off_bytes, b), hi = entry(pp_off, off_bytes, b + 1);
-    for (int it = 0; it < iters; ++it) {
-      const int64_t mid = (lo + hi) >> 1;
-      const int64_t at = mid < 0 ? 0 : (mid > M - 1 ? M - 1 : mid);
-      const bool take = entry(pred_pos, pp_bytes, at) < q && lo < hi;
-      hi = take || lo >= hi ? hi : mid;
-      lo = take ? mid + 1 : lo;
-    }
+    const int64_t lo =
+        bucketed_lower_bound(pred_pos, pp_bytes, M, pp_off, off_bytes, n_off, shift, iters, i + 1);
     // pred_pos[0] == 0, so rk >= 0; a torch gather reads index -1 as M - 1
     int64_t rk = lo - 1;
     rk = rk < 0 ? rk + M : rk;
@@ -168,24 +181,21 @@ struct PhiAt {
 
 // phi by the predecessor search: ops/rank.py phi_step's last branch, over
 // pred_pos, pred_to_run and samples_last of one type T (int32 or int64),
-// summed in int64.
+// summed in int64, the lower bound of i in pred_pos through its bucket
+// directory pred_off [n_off] (off_bytes a value).
 template <typename T>
 struct Pred {
   const T* pred_pos;
   const T* pred_to_run;
   const T* samples_last;
+  const void* pred_off;
+  int off_bytes;
+  int64_t n_off;
+  int shift, iters;
   int64_t R, n;
   __device__ __forceinline__ int64_t operator()(int64_t i) const {
-    int64_t first = 0, count = R;  // lower bound of i
-    while (count > 0) {
-      const int64_t half = count >> 1;
-      if ((int64_t)__ldg(pred_pos + first + half) < i) {
-        first += half + 1;
-        count -= half + 1;
-      } else {
-        count = half;
-      }
-    }
+    const int64_t first = bucketed_lower_bound(pred_pos, (int)sizeof(T), R, pred_off, off_bytes,
+                                               n_off, shift, iters, i);
     const int64_t jr = first == 0 ? R - 1 : first - 1;
     const int64_t j = (int64_t)__ldg(pred_pos + jr);
     const int64_t delta = j < i ? i - j : i + 1;
@@ -262,21 +272,29 @@ int rbt_phi_walk_rows(const void* rows, const void* delta, long long n, const vo
 }
 
 // The predecessor search over pred_pos, pred_to_run and samples_last, R
-// entries each, all `bytes` (4: int32, 8: int64) a value.
+// entries each, all `bytes` (4: int32, 8: int64) a value, through pred_off
+// [n_off] (off_bytes 4 or 8), the bucket directory over pred_pos of
+// engine/device.run_directory: n_off == (n >> shift) + 2, at most `iters`
+// halvings a bucket.
 int rbt_phi_walk_pred(const void* pred_pos, const void* pred_to_run, const void* samples_last,
-                      int bytes, long long R, long long n, const void* k, const void* size,
-                      const void* off, const void* order, void* out, int B, int threads,
-                      void* stream) {
-  if (n < 1 || R < 1) return (int)cudaErrorInvalidValue;
+                      int bytes, long long R, const void* pred_off, int off_bytes,
+                      long long n_off, int shift, int iters, long long n, const void* k,
+                      const void* size, const void* off, const void* order, void* out, int B,
+                      int threads, void* stream) {
+  if (n < 1 || R < 1 || pred_off == nullptr || (off_bytes != 4 && off_bytes != 8) ||
+      shift < 0 || shift > 62 || iters < 1 || iters > 32 || n_off != (n >> shift) + 2)
+    return (int)cudaErrorInvalidValue;
   if (bytes == 4)
     return launch(Pred<int32_t>{static_cast<const int32_t*>(pred_pos),
                                 static_cast<const int32_t*>(pred_to_run),
-                                static_cast<const int32_t*>(samples_last), R, n},
+                                static_cast<const int32_t*>(samples_last), pred_off, off_bytes,
+                                n_off, shift, iters, R, n},
                   k, size, off, order, out, B, threads, stream);
   if (bytes == 8)
     return launch(Pred<long long>{static_cast<const long long*>(pred_pos),
                                   static_cast<const long long*>(pred_to_run),
-                                  static_cast<const long long*>(samples_last), R, n},
+                                  static_cast<const long long*>(samples_last), pred_off,
+                                  off_bytes, n_off, shift, iters, R, n},
                   k, size, off, order, out, B, threads, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -552,12 +552,12 @@ int launch_tables(int mode, bool toe, const Params<int32_t>& p, int threads, cud
 bool width(int bytes) { return bytes == 4 || bytes == 8; }
 
 // Whether the outputs fit the mode (see rbt_seed_machine), and the ftab and
-// the per-step toehold's tables (ssamp given: SAMPLE only, tk1 where given,
-// else ltk with run_start; samples_last always).
+// the per-step toehold's tables over an index of n positions (ssamp given:
+// SAMPLE only, valid_toe).
 bool valid_outputs(int mode, int k, int W, int S, const void* rlo, const void* rhi,
                    const void* rseed, const void* nrec, const void* slo, const void* shi,
                    const void* sqs, const void* sqe, const void* ns, const void* hi_rec,
-                   const void* ssamp, const Toe& toe) {
+                   const void* ssamp, const Toe& toe, long long n) {
   const bool seeds = slo != nullptr && shi != nullptr && sqs != nullptr;
   const bool outs =
       mode == kGreedy
@@ -568,12 +568,7 @@ bool valid_outputs(int mode, int k, int W, int S, const void* rlo, const void* r
           ? k == 0 && W == 0 && S >= 1 && !rlo && !rhi && !rseed && !nrec && seeds && sqe && ns
           : false;
   const bool toe_ok =
-      ssamp == nullptr ||
-      (mode == kSample && hi_rec == nullptr && toe.samples_last != nullptr &&
-       width(toe.sl_bytes) && toe.R >= 1 &&
-       (toe.tk1 != nullptr ? width(toe.tk1_bytes)
-                           : toe.ltk != nullptr && toe.run_start != nullptr &&
-                                 width(toe.ltk_bytes) && width(toe.rs_bytes)));
+      ssamp == nullptr || (mode == kSample && hi_rec == nullptr && valid_toe(toe, n));
   return outs && toe_ok;
 }
 
@@ -603,7 +598,9 @@ extern "C" {
 // slo, shi, sqs, sqe [S, B] and ns (W = 0, no records), and with hi_rec
 // ([L, B]) the step record, or with ssamp ([S, B], single-level rows only)
 // each seed's per-step toehold over tk1 (tk1_bytes) where given, else ltk
-// with run_start, and samples_last, each int32 or int64 (*_bytes), R runs.
+// with run_start and its bucket directory rs_off [n_off] (n_off == (n >>
+// shift) + 2, at most `iters` halvings a bucket), and samples_last, each
+// int32 or int64 (*_bytes), R runs.
 // wsize, max_range (the probes' range cap) and min_length (SAMPLE's) are
 // the machines' parameters.  `threads` is the block size (two threads a
 // lane; at most 512, 256 over two-level rows), `stage` reads the codes from
@@ -619,20 +616,21 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
                      void* rhi, void* rseed, void* nrec, int S, void* slo, void* shi, void* sqs,
                      void* sqe, void* ns, void* hi_rec, const void* tk1, int tk1_bytes,
                      const void* ltk, int ltk_bytes, const void* run_start, int rs_bytes,
+                     const void* rs_off, int off_bytes, long long n_off, int shift, int iters,
                      const void* samples_last, int sl_bytes, int R, void* ssamp, int threads,
                      int stage, void* stream) {
-  const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
-                nullptr};
-  const int shift = syms_per_row == 64 ? 6 : syms_per_row == 128 ? 7 : 8;
+  const Toe toe{tk1, ltk, run_start, samples_last, rs_off, tk1_bytes, ltk_bytes, rs_bytes,
+                sl_bytes, off_bytes, R, n_off, shift, iters, nullptr};
+  const int row_shift = syms_per_row == 64 ? 6 : syms_per_row == 128 ? 7 : 8;
   const bool rows = lane_bytes == 4 ? (syms_per_row == 64 || syms_per_row == 128) &&
                                           n < INT32_MAX && base == nullptr
                   : lane_bytes == 8 ? (syms_per_row == 64 || syms_per_row == 128 ||
                                        syms_per_row == 256) &&
-                                          ((n - 1) >> shift) < INT32_MAX && base != nullptr &&
+                                          ((n - 1) >> row_shift) < INT32_MAX && base != nullptr &&
                                           per_blk >= 1 && ssamp == nullptr
                                     : false;
   if (!valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, hi_rec, ssamp,
-                     toe) ||
+                     toe, n) ||
       !rows || fb == nullptr || F == nullptr ||
       bad_common(A, kCkpt, B, L, n, threads, k, ftab, ftab_bytes))
     return (int)cudaErrorInvalidValue;
@@ -672,7 +670,9 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
 // A at most 16; 2 occ1: occ = occ1_flat, A at most 16), each int32 or int64
 // (*_bytes);
 // int32 F [A + 1].  The ftab, the outputs and the per-step toehold (ssamp,
-// over tk1, or ltk with run_start, and samples_last) are rbt_seed_machine's;
+// over tk1, or ltk with run_start and its directory, here the step's rs_off
+// with (shift, iters), given under every policy, and samples_last) are
+// rbt_seed_machine's;
 // `threads` (lane_threads(policy), two threads a lane; at most 512) and
 // `stage` from ops/cuda_lf.py launch_plan (lanes a block * staged stride
 // bytes, at most 47 KB).
@@ -689,8 +689,8 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
                             const void* tk1, int tk1_bytes, const void* ltk, int ltk_bytes,
                             const void* samples_last, int sl_bytes, void* ssamp, int threads,
                             int stage, void* stream) {
-  const Toe toe{tk1, ltk, run_start, samples_last, tk1_bytes, ltk_bytes, rs_bytes, sl_bytes, R,
-                nullptr};
+  const Toe toe{tk1, ltk, run_start, samples_last, rs_off, tk1_bytes, ltk_bytes, rs_bytes,
+                sl_bytes, off_bytes, R, n_off, shift, iters, nullptr};
   const bool runs = policy == kRuns && run_start != nullptr && run_head != nullptr &&
                     width(rs_bytes) && width(rh_bytes) && R >= 1 &&
                     valid_directory(rs_off, off_bytes, n_off, shift, iters, n) &&
@@ -701,7 +701,7 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
                       (runs || dense || (policy == kOcc1 && rec == nullptr && A < kMaxF));
   if (!tables || F == nullptr || n >= INT32_MAX ||
       !valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, nullptr,
-                     ssamp, toe) ||
+                     ssamp, toe, n) ||
       bad_common(A, 254, B, L, n, threads, k, ftab, ftab_bytes))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;

@@ -102,11 +102,16 @@ class TorchIndex:
     # (bigindex.marker_run_pack, ops/rank._ms_runs); 0 = no run-pack tables
     ma_rp: tuple | int = 0
     # (shift, iters) of rs_off, the bucket directory over run_start that the
-    # run-space step of the tables kernels searches (run_directory); () where
-    # no directory was built (with_run_tables)
+    # run-space step of the tables kernels and the toehold's resolve over ltk
+    # search (run_directory); () where no directory was built
+    # (with_run_tables)
     rs_bs: tuple = ()
-    # host seconds with_run_tables took to build rs_off and run_rec and put
-    # them on the device
+    # (shift, iters) of pred_off, the bucket directory over pred_pos that the
+    # walk kernel's predecessor route searches; () where none was built
+    # (with_pred_directory)
+    pred_bs: tuple = ()
+    # host seconds with_run_tables and with_pred_directory took to build
+    # rs_off, run_rec and pred_off and put them on the device
     run_tables_s: float = 0.0
 
     @property
@@ -146,13 +151,17 @@ class TorchIndex:
 
     def with_run_tables(self, shift: int | None = None, host: dict | None = None
                         ) -> "TorchIndex":
-        """This view with the tables of the tables kernels' run-space step:
-        the bucket directory rs_off and rs_bs over run_start (run_directory;
-        `shift` forces the bucket span) and, where takes_run_records, the
-        run records `run_rec` (kept where the view has them).  `host` holds
-        numpy run_start, run_head and occ_flat where the caller has them;
-        else they are read back from the device.  run_tables_s is the
-        seconds it took."""
+        """This view with the run-space searches' tables: the bucket
+        directory rs_off and rs_bs over run_start (run_directory; `shift`
+        forces the bucket span), which the tables kernels' run-space step
+        and the toehold's resolve over ltk read, and, where the view's LF
+        step is the run-space one (ops/rank.lf_step_auto) and
+        takes_run_records, the run records `run_rec` (kept where the view
+        has them).  `host` holds numpy run_start, run_head and occ_flat
+        where the caller has them; else they are read back from the device.
+        run_tables_s adds the seconds it took."""
+        from rowbowt_tpu_torch.ops import rank as R_
+
         t = time.perf_counter()
 
         def table(k):
@@ -160,20 +169,67 @@ class TorchIndex:
 
         off, bs = run_directory(table("run_start"), self.n, shift)
         arrs = dict(self.arrays, rs_off=torch.from_numpy(off).to(self.device))
-        if "run_rec" not in arrs and takes_run_records(self.A, self.idx_dtype):
+        if ("run_rec" not in arrs and takes_run_records(self.A, self.idx_dtype)
+                and R_.lf_step_auto(self) is R_.lf_step):
             rec = run_records(table("run_start"), table("run_head"), table("occ_flat"), self.A)
             # torch's own allocation: the kernels read a record as two
             # 16-byte vectors of one 32-byte sector
             arrs["run_rec"] = torch.empty(rec.shape, dtype=torch.int32, device=self.device)
             arrs["run_rec"].copy_(torch.from_numpy(rec))
         return dataclasses.replace(self, arrays=arrs, rs_bs=bs,
-                                   run_tables_s=time.perf_counter() - t)
+                                   run_tables_s=self.run_tables_s + time.perf_counter() - t)
+
+    def with_pred_directory(self, shift: int | None = None, host: dict | None = None
+                            ) -> "TorchIndex":
+        """This view with pred_off and pred_bs, the bucket directory over
+        pred_pos (run_directory; `shift` forces the bucket span) that the
+        walk kernel's predecessor route searches.  `host` holds a numpy
+        pred_pos where the caller has one; else it is read back from the
+        device.  run_tables_s adds the seconds it took."""
+        t = time.perf_counter()
+        pp = np.asarray(host["pred_pos"]) if host is not None else \
+            self.arrays["pred_pos"].cpu().numpy()
+        off, bs = run_directory(pp, self.n, shift)
+        arrs = dict(self.arrays, pred_off=torch.from_numpy(off).to(self.device))
+        return dataclasses.replace(self, arrays=arrs, pred_bs=bs,
+                                   run_tables_s=self.run_tables_s + time.perf_counter() - t)
+
+    def with_card_tables(self, host: dict | None = None) -> "TorchIndex":
+        """This view with the bucket directories a load on a CUDA device
+        builds for the kernels: rs_off (with_run_tables) where the LF step
+        is the run-space one (ops/rank.lf_step_auto), with the run records,
+        or where the toehold resolves over ltk (an index without kval or
+        tk1: ops/cuda_lf.toehold_route), alone; pred_off
+        (with_pred_directory) where the walk takes the predecessor route
+        (ops/cuda_phi.walk_route).  `host` as with_run_tables takes it."""
+        from rowbowt_tpu_torch.ops import cuda_lf, cuda_phi
+        from rowbowt_tpu_torch.ops import rank as R_
+
+        tx, arr = self, self.arrays
+        ltk = "ltk" in arr and "kval" not in arr and cuda_lf.toehold_route(self) == "ltk"
+        if "run_start" in arr and (ltk or R_.lf_step_auto(self) is R_.lf_step):
+            tx = tx.with_run_tables(host=host)
+        if "pred_pos" in arr and cuda_phi.walk_route(self) == "pred":
+            tx = tx.with_pred_directory(host=host)
+        return tx
+
+    # the tables with_run_tables and with_pred_directory build
+    _CARD_TABLES = ("rs_off", "run_rec", "pred_off")
 
     @property
     def run_tables_bytes(self) -> int:
-        """Bytes of rs_off and run_rec on the device (0 where not built)."""
+        """Bytes of rs_off, run_rec and pred_off on the device (0 where not
+        built)."""
         return sum(self.arrays[k].numel() * self.arrays[k].element_size()
-                   for k in ("rs_off", "run_rec") if k in self.arrays)
+                   for k in self._CARD_TABLES if k in self.arrays)
+
+    @property
+    def directories(self) -> dict:
+        """{name: {"shift", "iters", "bytes"}} of the bucket directories
+        built (rs_off, pred_off)."""
+        return {k: dict(shift=bs[0], iters=bs[1],
+                        bytes=self.arrays[k].numel() * self.arrays[k].element_size())
+                for k, bs in (("rs_off", self.rs_bs), ("pred_off", self.pred_bs)) if bs}
 
     @staticmethod
     def from_arrays(arrays: dict[str, np.ndarray], *, n: int, R: int, A: int,
@@ -185,16 +241,13 @@ class TorchIndex:
         pp_bs and ma_rp.  The packed words of `bwt4` are the exception: they
         stay 4 bytes, as int32 bit patterns like the fused rows' words, and
         ops/rank.rank_dense masks each nibble after its shift.  On a CUDA
-        device, where the LF step is the run-space one
-        (ops/rank.lf_step_auto), the tables kernels' run-space tables are
-        built here, beside the other tables (with_run_tables); any rs_off or
-        run_rec among the leaves is dropped."""
-        from rowbowt_tpu_torch.ops import rank as R_
-
+        device the kernels' bucket directories are built here, beside the
+        other tables (with_card_tables); any of those tables among the
+        leaves is dropped."""
         device = torch.device(device)
         tensors = {}
         for k, v in arrays.items():
-            if k in ("rs_off", "run_rec"):
+            if k in TorchIndex._CARD_TABLES:
                 continue
             v = np.asarray(v)
             if v.dtype == np.uint32:
@@ -213,10 +266,7 @@ class TorchIndex:
             pp_bs=tuple(int(x) for x in pp_bs),
             ma_rp=tuple(int(x) for x in ma_rp) if ma_rp else 0,
         )
-        if (device.type == "cuda" and "run_start" in tensors
-                and R_.lf_step_auto(tx) is R_.lf_step):
-            tx = tx.with_run_tables(host=arrays)
-        return tx
+        return tx.with_card_tables(host=arrays) if device.type == "cuda" else tx
 
     @staticmethod
     def from_index(idx: RbtIndex, device, fb64: bool | None = None) -> "TorchIndex":

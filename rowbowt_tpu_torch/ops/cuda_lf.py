@@ -50,7 +50,10 @@ package runs as an XLA fori_loop of ops/rank.py lf_step_w_loc or
 lf_step_w_loc_occ1 (rowbowt_tpu/engine/locate.py:50-67).  One launch of K1
 from the full range carries each lane's last non-trivial step and the
 trivial steps after it, and resolves the toehold from tk1 (where resident)
-or ltk after the loop.  For CUDA tensors over fused rows it launches (adding
+or ltk after the loop, the run of hi through the bucket directory rs_off
+over run_start (engine/device.TorchIndex.with_run_tables, built where an
+index that resolves over ltk goes to the card; a launch over ltk without it
+raises).  For CUDA tensors over fused rows it launches (adding
 one to LAUNCHES_TOE) or raises; over an index without fused rows
 (`--no-dense`, an alphabet of more than 8 codes) it launches the tables
 kernel's toehold instance (adding one to LAUNCHES_TAB_TOE[policy]) or
@@ -131,9 +134,9 @@ def build():
                                             vp]
     lib.rbt_lf_count_fb2.argtypes = [vp, ci, vp, vp, ci, ci, ctypes.c_longlong, vp, vp, ci, ci,
                                       vp, vp, vp, ci, ci, vp]
-    lib.rbt_lf_toehold.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, ci, vp, ci,
-                                   vp, ci, ci, vp, vp, vp, ci, ci, vp]
     ll = ctypes.c_longlong
+    lib.rbt_lf_toehold.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, ci, vp, ci,
+                                   vp, ci, ll, ci, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp]
     lib.rbt_lf_tables.argtypes = [ci, vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, vp, ll,
                                   ci, vp, ci, ci, ll, vp, vp, ci, ci, vp, ci, ci, ci, vp, ci, vp,
                                   ci, vp, ci, vp, vp, vp, ci, ci, vp]
@@ -318,12 +321,14 @@ def _check_operands(tx: TorchIndex, key: str, qcodes, lengths, named, lane) -> N
         raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
 
 
-def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bool = False):
+def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bool = False,
+              lib=None):
     """Launch K1 on CUDA tensors, shaped by launch_plan: (lo, hi), or with
     `record` (two-level rows only) (lo, hi, hi_rec) with the int64 [L, B]
     step record.  The rows, codes and lengths are int32 on every layout; F
     (and the ftab) int32 on the single-level rows, F and fb2_base int64 on
-    the two-level ones, whose lanes come out int64."""
+    the two-level ones, whose lanes come out int64.  `lib` as launch_tables
+    takes it."""
     global LAUNCHES, LAUNCHES_FB2, LAUNCHES_REC
     key = row_layout(tx)
     if key is None:
@@ -356,7 +361,7 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bo
     hi_rec = torch.empty((L, B), dtype=lane, device=dev) if record else None
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads, staged = launch_plan(B, L, _sm_count(d))
-    lib = _LIB or build()
+    lib = lib or _LIB or build()
     if two_level:
         # per_blk is the resident layout's own rows a superblock
         entry = lib.rbt_lf_count_fb2
@@ -434,12 +439,13 @@ def toehold_route(tx: TorchIndex) -> str:
     return "tk1" if "tk1_flat" in tx.arrays else "ltk"
 
 
-def launch_toehold(tx: TorchIndex, qcodes, lengths):
+def launch_toehold(tx: TorchIndex, qcodes, lengths, lib=None):
     """Launch K1's toehold instance on CUDA tensors, shaped by launch_plan:
     (lo, hi, k), int32 [B] each, over the single-level fused rows from the
     full range (no ftab start).  The rows, F, codes and lengths are int32;
-    the toehold's tables (tk1, or ltk and run_start, and samples_last) int32
-    or int64 as the index holds them."""
+    the toehold's tables (tk1, or ltk, run_start and its directory rs_off,
+    and samples_last) int32 or int64 as the index holds them.  `lib` as
+    launch_tables takes it."""
     global LAUNCHES_TOE
     key = row_layout(tx)
     if key is None:
@@ -464,11 +470,11 @@ def launch_toehold(tx: TorchIndex, qcodes, lengths):
 
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads, staged = launch_plan(B, L, _sm_count(d))
-    lib = _LIB or build()
+    lib = lib or _LIB or build()
     args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), tx.A, tx.n, qcodes.data_ptr(),
             lengths.data_ptr(), B, L, *ptr("tk1"), *ptr("ltk"), *ptr("run_start"),
-            *ptr("samples_last"), tx.R, lo.data_ptr(), hi.data_ptr(), k.data_ptr(), threads,
-            int(staged))
+            *toe_directory(tx, ops), *ptr("samples_last"), tx.R, lo.data_ptr(), hi.data_ptr(),
+            k.data_ptr(), threads, int(staged))
     if d == torch.cuda.current_device():
         rc = lib.rbt_lf_toehold(*args, _raw_stream(d))
     else:
@@ -491,18 +497,21 @@ def _table_operands(tx: TorchIndex, policy: str | None, toehold: bool) -> dict:
     """{argument: (table name, tensor)} of a tables launch: the rank tables
     of `policy` (none for None: a launch over fused rows; for "runs" the
     bucket directory rs_off, and the run records `run_rec` where the index
-    has them) and, for the toehold, tk1 (where resident) or ltk and
-    run_start, and samples_last."""
+    has them) and, for the toehold, tk1 (where resident) or ltk, run_start
+    and rs_off, and samples_last."""
     n, A, R_ = tx.n, tx.A, tx.R
     arr = tx.arrays
+    ltk = toehold and toehold_route(tx) == "ltk"
+    if (policy == "runs" or ltk) and len(tx.rs_bs) != 2:
+        what = f"the {policy} tables kernel" if policy == "runs" else "the toehold over ltk"
+        raise ValueError(f"{what} needs rs_off's (shift, iters); the index has none "
+                         "(TorchIndex.with_run_tables builds them)")
+    directory = {"run_start": ("run_start", R_), "rs_off": ("rs_off", (n >> tx.rs_bs[0]) + 2)
+                 } if policy == "runs" or ltk else {}
     if policy is None:
         ops = {}
     elif policy == "runs":
-        if len(tx.rs_bs) != 2:
-            raise ValueError("the runs tables kernel needs rs_off's (shift, iters); the index "
-                             "has none (TorchIndex.with_run_tables builds them)")
-        ops = {"occ": ("occ_flat", A * R_), "run_start": ("run_start", R_),
-               "run_head": ("run_head", R_), "rs_off": ("rs_off", (n >> tx.rs_bs[0]) + 2)}
+        ops = {"occ": ("occ_flat", A * R_), **directory, "run_head": ("run_head", R_)}
         if "run_rec" in arr:
             ops["rec"] = ("run_rec", 8 * R_)
     elif policy == "dense":
@@ -511,10 +520,10 @@ def _table_operands(tx: TorchIndex, policy: str | None, toehold: bool) -> dict:
     else:
         ops = {"occ": ("occ1_flat", A * (n + 1))}
     if toehold:
-        if toehold_route(tx) == "tk1":
-            ops["tk1"] = ("tk1_flat", A * n)
+        if ltk:
+            ops.update(ltk=("ltk", A * R_), **directory)
         else:
-            ops.update(ltk=("ltk", A * R_), run_start=("run_start", R_))
+            ops["tk1"] = ("tk1_flat", A * n)
         ops["samples_last"] = ("samples_last", R_)
     for name, size in ops.values():
         if name not in arr:
@@ -560,6 +569,16 @@ def _check_tables(tx: TorchIndex, policy: str, toehold: bool, qcodes, lengths, n
     if bwt4 is not None and (bwt4.data_ptr() % 16 or bwt4.numel() < 16 * -(-tx.n // 128)):
         raise ValueError("bwt4 is not 16-byte aligned or holds fewer blocks than n needs")
     return ops
+
+
+def toe_directory(tx: TorchIndex, ops: dict) -> tuple:
+    """The directory arguments of rbt_lf_toehold and rbt_seed_machine: rs_off
+    (a pointer and its width), its entries and (shift, iters), or nulls and
+    zeros where the toehold reads tk1 (no rs_off among `ops`)."""
+    if "rs_off" not in ops:
+        return None, 0, 0, 0, 0
+    off = ops["rs_off"][1]
+    return off.data_ptr(), off.element_size(), off.numel(), *tx.rs_bs
 
 
 def table_args(tx: TorchIndex, policy: str, ops: dict) -> tuple:

@@ -10,7 +10,10 @@ takes the four phi routes of ops/rank.phi_step, in its order: the dense
 breakpoint table of a BigIndex with 2^31 or more breakpoints (`pred_pos`,
 `phi_at`, searched through its bucket table `pp_off`), and the predecessor
 search over the run-start samples (`pred_pos`, `pred_to_run`,
-`samples_last`) of an index with none of those (`--no-dense`).
+`samples_last`) of an index with none of those (`--no-dense`), searched the
+same way through `pred_off`, the bucket directory over pred_pos that
+engine/device.TorchIndex.with_pred_directory builds where such an index
+goes to the card (a launch without it raises).
 
 `phi_walk` is the wrapper: for CUDA tensors it launches the kernel (and adds
 one to LAUNCHES) or raises, never a torch walk; for CPU tensors it runs
@@ -49,7 +52,8 @@ def build():
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rbt_phi_walk_phi1.argtypes = [vp, ci, ll, vp, vp, vp, vp, vp, ci, ci, vp]
     lib.rbt_phi_walk_rows.argtypes = [vp, vp, ll, vp, vp, vp, vp, vp, ci, ci, vp]
-    lib.rbt_phi_walk_pred.argtypes = [vp, vp, vp, ci, ll, ll, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.rbt_phi_walk_pred.argtypes = [vp, vp, vp, ci, ll, vp, ci, ll, ci, ci, ll, vp, vp, vp,
+                                      vp, vp, ci, ci, vp]
     lib.rbt_phi_walk_phi_at.argtypes = [vp, ci, vp, ci, ll, vp, ci, ll, ci, ci, ll, vp, vp, vp,
                                         vp, vp, ci, ci, vp]
     lib.rbt_phi_walk_phi1.restype = lib.rbt_phi_walk_rows.restype = ci
@@ -60,7 +64,7 @@ def build():
     return lib
 
 
-PRED_TABLES = ("pred_pos", "pred_to_run", "samples_last")
+PRED_TABLES = ("pred_pos", "pred_to_run", "samples_last", "pred_off")
 PHI_AT_TABLES = ("pred_pos", "phi_at", "pp_off")
 
 
@@ -118,11 +122,13 @@ def phi_walk(tx: TorchIndex, k, size, off, out):
     return launch_walk(tx, k, size, off, out)
 
 
-def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
+def launch_walk(tx: TorchIndex, k, size, off, out, order=None, lib=None):
     """Launch the walk kernel on CUDA tensors: k int32 or int64 [B] (widened
     to int64), size and off int64 [B], out int64; the lanes in descending
     size order, `order` (int64 [B]) where the caller has it (chip_smoke.py,
-    to time the kernel alone), else from one device sort.  Every k[b] with
+    to time the kernel alone), else from one device sort.  `lib` is the
+    library to launch on, build()'s by default (tools/seed_turns.py passes
+    earlier designs' libraries).  Every k[b] with
     size[b] > 0 must lie in [0, n) and out must hold every off[b] +
     size[b]."""
     global LAUNCHES
@@ -162,11 +168,16 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if route == "pred":
-        if len({t.dtype for _, t, _ in tabs}) != 1:
+        samples, pred_off = tabs[:3], tabs[3][1]
+        if len({t.dtype for _, t, _ in samples}) != 1:
             raise TypeError("pred_pos, pred_to_run and samples_last must share a dtype, got "
-                            + ", ".join(str(t.dtype)[6:] for _, t, _ in tabs))
-        if any(t.shape != (tx.R,) for _, t, _ in tabs):
+                            + ", ".join(str(t.dtype)[6:] for _, t, _ in samples))
+        if any(t.shape != (tx.R,) for _, t, _ in samples):
             raise ValueError(f"pred_pos, pred_to_run and samples_last must be [R = {tx.R}]")
+        if len(tx.pred_bs) != 2 or pred_off.shape != ((tx.n >> tx.pred_bs[0]) + 2,):
+            raise ValueError(f"pred_off {tuple(pred_off.shape)} and pred_bs {tx.pred_bs}: need "
+                             "[(n >> shift) + 2] and (shift, iters) "
+                             "(TorchIndex.with_pred_directory builds them)")
     if route == "phi_at":
         pp, at, pp_off = (t for _, t, _ in tabs)
         if (pp.dim() != 1 or at.shape != pp.shape or pp_off.dim() != 1 or pp_off.shape[0] < 2
@@ -187,7 +198,7 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
         raise ValueError(f"order must be int64 [B] on {dev}")
     d = dev.index if dev.index is not None else torch.cuda.current_device()
     threads = launch_plan(B, _sm_count(d))
-    lib = _LIB or build()
+    lib = lib or _LIB or build()
     lanes = (k.data_ptr(), size.data_ptr(), off.data_ptr(), order.data_ptr(), out.data_ptr(),
              B, threads)
     if route == "phi1":
@@ -203,7 +214,9 @@ def launch_walk(tx: TorchIndex, k, size, off, out, order=None):
                 *tx.pp_bs, tx.n)
     else:
         entry = lib.rbt_phi_walk_pred
-        args = (*(t.data_ptr() for _, t, _ in tabs), tabs[0][1].element_size(), tx.R, tx.n)
+        args = (*(t.data_ptr() for _, t, _ in samples), samples[0][1].element_size(), tx.R,
+                pred_off.data_ptr(), pred_off.element_size(), pred_off.shape[0], *tx.pred_bs,
+                tx.n)
     if d == torch.cuda.current_device():
         rc = entry(*args, *lanes, _raw_stream(d))
     else:

@@ -72,7 +72,8 @@ def build():
     path, BUILD_LOG = _native.build_cuda_library("seeds")
     lib = ctypes.CDLL(path)
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    toe = [vp, ci, vp, ci, vp, ci, vp, ci, ci, vp]  # tk1, ltk, run_start, samples_last, R, ssamp
+    # tk1, ltk, run_start, rs_off with n_off, shift and iters, samples_last, R, ssamp
+    toe = [vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, ci, ci, vp]
     lib.rbt_seed_machine.argtypes = ([ci, vp, ci, vp, vp, ci, ci, ll, ci, vp, vp, ci, ci, vp, ci,
                                       ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp,
                                       vp, vp] + toe + [ci, ci, vp])
@@ -204,8 +205,8 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
                 base.data_ptr() if two_level else None,
                 fb.shape[0] // base.shape[0] if two_level else 0, tx.A, tx.n,
                 8 if two_level else 4, *lanes, ptr("hi_rec"), *tab("tk1"), *tab("ltk"),
-                *tab("run_start"), *tab("samples_last"), tx.R, ptr("ssamp"), threads,
-                int(staged))
+                *tab("run_start"), *cuda_lf.toe_directory(tx, ops), *tab("samples_last"), tx.R,
+                ptr("ssamp"), threads, int(staged))
     else:
         entry = lib.rbt_seed_machine_tables
         args = (MODES[mode], *cuda_lf.table_args(tx, policy, ops), F.data_ptr(), tx.A,

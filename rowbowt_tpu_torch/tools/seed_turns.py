@@ -1,42 +1,51 @@
-"""The tables kernel and the seeding machines of csrc/lf.cu and csrc/seeds.cu
+"""The tables kernel, K1's toehold launch and the seeding machines of
+csrc/lf.cu and csrc/seeds.cu, and the predecessor walk of csrc/phi_walk.cu,
 timed beside earlier designs of them, in turns on the same batches, on one
 NVIDIA GPU.
 
     python -m rowbowt_tpu_torch.tools.seed_turns \\
         --design parent=DIR [--design NAME=DIR ...] [PHASE ...]
 
-Each DIR holds another commit's kernel sources, as
-`git archive <commit> rowbowt_tpu_torch/csrc | tar -x -C DIR` writes them;
-where its C entries rbt_seed_machine and rbt_seed_machine_tables take a
-lane counter before `threads` (a persistent-grid design), each launch gets
-one, zeroed on the stream.  A design's threads a lane over each tables
-policy come from its lf.cu's rbt_lane_threads (two over the run-space
+Each DIR holds another commit's kernel sources, as `git archive <commit>
+rowbowt_tpu_torch/csrc | tar -x -C DIR` writes them; where its C entries
+rbt_seed_machine and rbt_seed_machine_tables take a lane counter before
+`threads` (a persistent-grid design), each launch gets one, zeroed on the
+stream; where its rbt_lf_toehold, rbt_seed_machine or rbt_phi_walk_pred
+takes no bucket directory (the designs before the toehold's resolve and the
+predecessor walk searched one), the checkout's directory arguments are left
+out of its calls (DIRECTORY_ARGS).  A design's threads a lane over each
+tables policy come from its lf.cu's rbt_lane_threads (two over the run-space
 tables and one over the others where it has none), and each of its tables
-launches gets its own launch plan at those (cuda_lf.launch_plan), so that
-it runs as its own wrapper ran it.  The
-tool builds each design's lf.cu and seeds.cu with nvcc for sm_90a
-(_native.NVCC_FLAGS) into libraries of their own beside the checkout's,
-prints each design's nvcc register and spill report (`designs`) and which
-of its kernels compile to the checkout's machine code (`sass`, by
-cuobjdump), then runs chip_smoke.py's PHASEs (by default k1, greedy, lmem,
-locs, nodense_chr, raw_chr, big_chr and build_small: every path whose
-tables kernel or machine chip_smoke.py times) with its tables_times and
-seeds_times wrapped: each batch they time is also launched through
-cuda_lf.launch_tables or cuda_seeds.launch_machine on every design's
-library and on the checkout's, in turns (the designs in order, the
-checkout's twice, the designs in reverse), each turn the device time of
-one launch by CUDA events just around it (chip_smoke.kernel_event_us),
-every design's outputs equal to the checkout's; where a timed count
-search is the dense step's, also the toehold search of that index
-without kval (dense_toehold).  After phase nodense_chr
-it also times two views of chr's BWT at full width (chr_views): its dense
-tables (build_dense_tables over chr's codes, 80 MB of bwt4) and its occ1
-(build_occ1, A * (n + 1) int32, 3.84 GB at n = 160 M), each without fused
-rows, on the count batch (65,536 reads, no ftab start) and rbt_markers
--f's and rbt_locs' batches, each with its bound (chip_smoke.tables_times,
-seeds_times).  Prints a `table_turns` or `seed_turns` line a batch, a
-`dense_toehold` line and a `chr_view` line a view.  Run it from the root of a checkout, where
-chip_smoke.py is, with its output sent to a file: the lines are long.
+launches gets its own launch plan at those (cuda_lf.launch_plan), so that it
+runs as its own wrapper ran it.  The tool builds each design's lf.cu,
+seeds.cu and phi_walk.cu with nvcc for sm_90a (_native.NVCC_FLAGS) into
+libraries of their own beside the checkout's, prints each design's nvcc
+register and spill report (`designs`) and which of its kernels compile to
+the checkout's machine code (`sass`, by cuobjdump; `params_only`: the same
+but for the offsets of their parameters), then runs chip_smoke.py's PHASEs
+(by default k1, greedy, lmem, locs, nodense_chr, raw_chr, big_chr and
+build_small: every path whose tables kernel or machine chip_smoke.py times)
+with its tables_times, seeds_times, walk_times (the pred route),
+toehold_work (K1's toehold launch, on the batch toehold_times times),
+record_times and held_record (K1 and its record launch over big_chr's and
+pfp_big's two-level rows) wrapped: each batch they time is also launched
+through cuda_lf.launch_tables, cuda_seeds.launch_machine,
+cuda_phi.launch_walk, cuda_lf.launch_toehold or cuda_lf.launch_k1 on every
+design's library and on the checkout's, in turns (the designs in order, the
+checkout's twice, the designs in reverse), each turn the device time of one
+launch by CUDA events just around it (chip_smoke.kernel_event_us), every
+design's outputs equal to the checkout's; where a timed count search is the
+dense step's, also the toehold search of that index without kval
+(dense_toehold). After phase nodense_chr it also times two views of chr's
+BWT at full width (chr_views): its dense tables (build_dense_tables over
+chr's codes, 80 MB of bwt4) and its occ1 (build_occ1, A * (n + 1) int32,
+3.84 GB at n = 160 M), each without fused rows, on the count batch (65,536
+reads, no ftab start) and rbt_markers -f's and rbt_locs' batches, each with
+its bound (chip_smoke.tables_times, seeds_times). Prints a `table_turns`,
+`seed_turns`, `walk_turns`, `toehold_turns` or `k1_turns` line a batch, a
+`dense_toehold` line and a `chr_view` line a view.  Run it from the root of
+a checkout, where chip_smoke.py is, with its output sent to a file: the
+lines are long.
 """
 
 from __future__ import annotations
@@ -55,7 +64,19 @@ from concurrent.futures import ThreadPoolExecutor
 DEFAULT_PHASES = ("k1", "greedy", "lmem", "locs", "nodense_chr", "raw_chr", "big_chr",
                   "build_small")
 PASSES = 10  # launches a turn, after a warm-up launch
-ENTRIES = {"seeds": ("rbt_seed_machine", "rbt_seed_machine_tables"), "lf": ("rbt_lf_tables",)}
+ENTRIES = {"seeds": ("rbt_seed_machine", "rbt_seed_machine_tables"),
+           "lf": ("rbt_lf_tables", "rbt_lf_toehold", "rbt_lf_count_fb2"),
+           "phi_walk": ("rbt_phi_walk_pred",)}
+# the argument positions of rbt_lf_count_fb2's B and L: a design without
+# lf.cu's LfBounds planned its int64 lanes as the int32 ones (512 threads)
+FB2_ARGS = (9, 10)
+# the checkout's arguments of a C entry that designs before the bucket
+# directories of the toehold's resolve and the predecessor walk do not take:
+# (their positions, a name that the entry's signature holds where it takes
+# them)
+DIRECTORY_ARGS = {"rbt_lf_toehold": (range(15, 20), "rs_off"),
+                  "rbt_seed_machine": (range(38, 43), "rs_off"),
+                  "rbt_phi_walk_pred": (range(5, 10), "pred_off")}
 # the argument positions of a tables entry: (its policy, B, L); threads and
 # stage are the third and second from the end
 TABLE_ARGS = {"rbt_lf_tables": (0, 22, 23), "rbt_seed_machine_tables": (1, 22, 23)}
@@ -75,42 +96,58 @@ def design_groups(lf) -> dict:
     return {name: entry(code) for code, name in POLICIES.items()}
 
 
-class Design:
-    """A design's libraries as launch_machine's and launch_tables' `lib`:
-    its C entries take the checkout's arguments; a tables launch gets the
-    design's own threads a lane (design_groups) and its launch plan at them;
-    where `counter`, a seeding launch also gets a lane counter before
-    `threads`, a device int32 zeroed on the current stream inside the
-    timed call, as the wrapper of that design zeroed it."""
+def takes_directory(src: str, entry: str) -> bool:
+    """Whether the C entry `entry` of a design's source text takes the
+    bucket directory of DIRECTORY_ARGS (its signature holds the name)."""
+    sig = src[src.index(f"int {entry}("):]
+    return DIRECTORY_ARGS[entry][1] in sig[:sig.index("{")]
 
-    def __init__(self, paths: dict, current: dict, counter: bool, sms: int):
+
+class Design:
+    """A design's libraries as the `lib` of launch_machine, launch_tables,
+    launch_toehold and launch_walk: its C entries take the checkout's
+    arguments, less those of `drop` ({entry: positions}); a tables launch
+    gets the design's own threads a lane (design_groups) and its launch
+    plan at them; where `counter`, a seeding launch also gets a lane
+    counter before `threads`, a device int32 zeroed on the current stream
+    inside the timed call, as the wrapper of that design zeroed it."""
+
+    def __init__(self, paths: dict, current: dict, counter: bool, sms: int, drop: dict,
+                 lf_bounds: bool):
         self.libs = {stem: ctypes.CDLL(path) for stem, path in paths.items()}
-        self.counter, self.sms = counter, sms
+        self.counter, self.sms, self.drop, self.lf_bounds = counter, sms, drop, lf_bounds
         self.groups = design_groups(self.libs["lf"])
         for stem, entries in ENTRIES.items():
             lib = self.libs[stem]
             for entry in entries:
-                types = list(getattr(current[stem], entry).argtypes)
+                types = [t for i, t in enumerate(getattr(current[stem], entry).argtypes)
+                         if i not in drop.get(entry, ())]
                 if counter and stem == "seeds":
                     types.insert(len(types) - 3, ctypes.c_void_p)
                 getattr(lib, entry).argtypes = types
                 getattr(lib, entry).restype = ctypes.c_int
-            lib.rbt_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.rbt_cuda_error_string.restype = ctypes.c_char_p
+            error = "rbt_phi_walk_error_string" if stem == "phi_walk" else "rbt_cuda_error_string"
+            getattr(lib, error).argtypes = [ctypes.c_int]
+            getattr(lib, error).restype = ctypes.c_char_p
 
     def _plan(self, entry, args):
-        """args with the design's own (threads, stage) for a tables entry."""
+        """args with the design's own (threads, stage) for a tables entry,
+        and for K1 over two-level rows where the design has no LfBounds."""
         from rowbowt_tpu_torch.ops import cuda_lf
 
-        if entry not in TABLE_ARGS:
+        if entry == "rbt_lf_count_fb2" and not self.lf_bounds:
+            threads, staged = cuda_lf.launch_plan(*(args[i] for i in FB2_ARGS), self.sms)
+        elif entry in TABLE_ARGS:
+            pos, b, l = TABLE_ARGS[entry]
+            threads, staged = cuda_lf.launch_plan(args[b], args[l], self.sms,
+                                                  group=self.groups[POLICIES[args[pos]]])
+        else:
             return args
-        pos, b, l = TABLE_ARGS[entry]
-        threads, staged = cuda_lf.launch_plan(args[b], args[l], self.sms,
-                                              group=self.groups[POLICIES[args[pos]]])
         return (*args[:-3], threads, int(staged), args[-1])
 
     def _call(self, stem, entry, args):
         args = self._plan(entry, args)
+        args = tuple(a for i, a in enumerate(args) if i not in self.drop.get(entry, ()))
         if self.counter and stem == "seeds":
             import torch
 
@@ -127,8 +164,20 @@ class Design:
     def rbt_lf_tables(self, *args):
         return self._call("lf", "rbt_lf_tables", args)
 
+    def rbt_lf_toehold(self, *args):
+        return self._call("lf", "rbt_lf_toehold", args)
+
+    def rbt_lf_count_fb2(self, *args):
+        return self._call("lf", "rbt_lf_count_fb2", args)
+
+    def rbt_phi_walk_pred(self, *args):
+        return self._call("phi_walk", "rbt_phi_walk_pred", args)
+
     def rbt_cuda_error_string(self, code):
         return self.libs["seeds"].rbt_cuda_error_string(code)
+
+    def rbt_phi_walk_error_string(self, code):
+        return self.libs["phi_walk"].rbt_phi_walk_error_string(code)
 
 
 def sass_functions(path: str) -> dict:
@@ -149,27 +198,51 @@ def sass_functions(path: str) -> dict:
     return funcs
 
 
+def instructions(code: list) -> list:
+    """Machine code without its encodings: one instruction a line."""
+    out = (re.sub(r"/\* 0x[0-9a-f]+ \*/", "", ln).strip() for ln in code)
+    return [ln for ln in out if ln]
+
+
 def same_sass(design: str, checkout: str) -> dict:
-    """{"same": [...], "differ": [...], "only_one": [...]}: the kernels of
-    two libraries by whether their machine code is equal."""
+    """{"same": [...], "params_only": [...], "differ": [...], "only_one":
+    [...], "first_difference": {kernel: [index, design's, checkout's]}}: the
+    kernels of two libraries by whether their machine code is equal, equal
+    but for the offsets into constant bank 0, where a kernel's parameters
+    sit, or neither (with the first instruction where they part)."""
+    def masked(code):
+        return [re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", ln) for ln in code]
+
     a, b = sass_functions(design), sass_functions(checkout)
-    out = {"same": [], "differ": [], "only_one": []}
+    out = {"same": [], "params_only": [], "differ": [], "only_one": [], "first_difference": {}}
     for n in sorted(set(a) | set(b)):
-        out["only_one" if n not in a or n not in b else
-            "same" if a[n] == b[n] else "differ"].append(n)
+        if n not in a or n not in b:
+            out["only_one"].append(n)
+            continue
+        x, y = instructions(a[n]), instructions(b[n])
+        if a[n] == b[n]:
+            out["same"].append(n)
+        elif masked(x) == masked(y):
+            out["params_only"].append(n)
+        else:
+            out["differ"].append(n)
+            i = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
+            out["first_difference"][n] = [i, x[i] if i < len(x) else None,
+                                          y[i] if i < len(y) else None]
     return out
 
 
 def build_designs(smoke, designs: dict) -> dict:
-    """{name: Design} built side by side with the checkout's lf.cu and
-    seeds.cu, each into its own libraries (librbt_<stem>_<name>); prints
+    """{name: Design} built side by side with the checkout's lf.cu, seeds.cu
+    and phi_walk.cu, each into its own libraries (librbt_<stem>_<name>);
+    prints
     each design's registers and spills an instance
     (chip_smoke.ptxas_instances) and its kernels' machine code against the
     checkout's (same_sass)."""
     import torch
 
     from rowbowt_tpu_torch import _native
-    from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_seeds
+    from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi, cuda_seeds
 
     cmd = [_native.find_tool("nvcc", "/usr/local/cuda/bin/nvcc"), *_native.NVCC_FLAGS]
     csrc = {name: os.path.join(src, "rowbowt_tpu_torch", "csrc") for name, src in designs.items()}
@@ -183,11 +256,12 @@ def build_designs(smoke, designs: dict) -> dict:
     with ThreadPoolExecutor(2 * len(designs) + 2) as ex:
         futures = {(name, stem): ex.submit(build, name, stem) for name in designs
                    for stem in ENTRIES}
-        current = {"seeds": ex.submit(cuda_seeds.build), "lf": ex.submit(cuda_lf.build)}
+        current = {"seeds": ex.submit(cuda_seeds.build), "lf": ex.submit(cuda_lf.build),
+                   "phi_walk": ex.submit(cuda_phi.build)}
         current = {stem: f.result() for stem, f in current.items()}
         built = {key: f.result() for key, f in futures.items()}
-    logs = {"seeds": cuda_seeds.BUILD_LOG, "lf": cuda_lf.BUILD_LOG}
-    paths = {"seeds": current["seeds"]._name, "lf": current["lf"]._name}
+    logs = {"seeds": cuda_seeds.BUILD_LOG, "lf": cuda_lf.BUILD_LOG, "phi_walk": cuda_phi.BUILD_LOG}
+    paths = {stem: lib._name for stem, lib in current.items()}
     print(json.dumps({"designs": {
         **{name: {stem: smoke.ptxas_instances(built[name, stem][1]) for stem in ENTRIES}
            for name in designs},
@@ -197,10 +271,18 @@ def build_designs(smoke, designs: dict) -> dict:
     sms = cuda_gather._sm_count(torch.cuda.current_device())
     out = {}
     for name in designs:
-        with open(os.path.join(csrc[name], "seeds.cu")) as f:
-            counter = "void* next" in f.read()
+        src = {}
+        for stem in ENTRIES:
+            with open(os.path.join(csrc[name], f"{stem}.cu")) as f:
+                src[stem] = f.read()
+        counter = "void* next" in src["seeds"]
+        drop = {entry: DIRECTORY_ARGS[entry][0] for stem, entries in ENTRIES.items()
+                for entry in entries
+                if entry in DIRECTORY_ARGS and not takes_directory(src[stem], entry)}
         out[name] = Design({stem: built[name, stem][0] for stem in ENTRIES}, current, counter,
-                           sms)
+                           sms, drop, "LfBounds" in src["lf"])
+    print(json.dumps({"design_directories": {name: sorted(d.drop) for name, d in out.items()}}),
+          flush=True)
     return out
 
 
@@ -270,6 +352,86 @@ def table_turns(smoke, libs: dict, tx, batches: list, toehold: bool) -> None:
         **in_turns(smoke, libs, launch), "max_abs_err": errs}}), flush=True)
 
 
+def walk_turns(smoke, libs: dict, tx, ranges: list) -> None:
+    """The walk kernel over tx's predecessor route on the first batch of
+    `ranges` ([(lo, hi, k)], as chip_smoke.walk_times takes them, the lanes
+    in its order) on every design and the checkout's, in turns; prints one
+    walk_turns line."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_phi
+
+    lo, hi, k = ranges[0]
+    size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
+    k, off = k.to(torch.int64), torch.cumsum(size, 0) - size
+    order = torch.argsort(size, descending=True)
+    out = torch.empty(int(size.sum()), dtype=torch.int64, device=k.device)
+
+    def launch(lib):
+        return cuda_phi.launch_walk(tx, k, size, off, out, order, lib=lib)
+
+    want = launch(None).clone()
+    errs = {}
+    for d, lib in libs.items():
+        got = launch(lib)
+        torch.cuda.synchronize()
+        errs[d] = smoke.max_abs_err([got], [want])
+        smoke.check(errs[d] == 0, f"design {d} != the checkout's walk kernel")
+    print(json.dumps({"walk_turns": {
+        "route": cuda_phi.walk_route(tx), "pred_bs": list(tx.pred_bs), "lanes": k.numel(),
+        "hits": out.numel(), **in_turns(smoke, libs, launch), "max_abs_err": errs}}),
+        flush=True)
+
+
+def toehold_turns(smoke, libs: dict, tx, q, ln) -> None:
+    """K1's toehold launch over tx on the batch (q, ln) on every design and
+    the checkout's, in turns; prints one toehold_turns line."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    ln = ln.to(torch.int32)
+
+    def launch(lib):
+        return cuda_lf.launch_toehold(tx, q, ln, lib=lib)
+
+    want = launch(None)
+    errs = {}
+    for d, lib in libs.items():
+        got = launch(lib)
+        torch.cuda.synchronize()
+        errs[d] = smoke.max_abs_err(got, want)
+        smoke.check(errs[d] == 0, f"design {d} != the checkout's toehold launch")
+    print(json.dumps({"toehold_turns": {
+        "route": cuda_lf.toehold_route(tx), "rs_bs": list(tx.rs_bs), "lanes": q.shape[0],
+        "L": q.shape[1], **in_turns(smoke, libs, launch), "max_abs_err": errs}}), flush=True)
+
+
+def k1_turns(smoke, libs: dict, tx, q, ln) -> None:
+    """K1 over tx's two-level rows on the batch (q, ln), the count search
+    and the record launch, on every design and the checkout's, in turns;
+    prints one k1_turns line."""
+    import torch
+
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    ln = ln.to(torch.int32)
+    out = {"layout": cuda_lf.row_layout(tx), "n": tx.n, "lanes": q.shape[0], "L": q.shape[1]}
+    for name, record in (("count", False), ("record", True)):
+        def launch(lib, record=record):
+            return cuda_lf.launch_k1(tx, q, ln, use_ftab=False, record=record, lib=lib)
+
+        want = launch(None)
+        errs = {}
+        for d, lib in libs.items():
+            got = launch(lib)
+            torch.cuda.synchronize()
+            errs[d] = smoke.max_abs_err(got, want)
+            smoke.check(errs[d] == 0, f"design {d} != the checkout's K1 ({name})")
+        out[name] = dict(in_turns(smoke, libs, launch), max_abs_err=errs)
+    print(json.dumps({"k1_turns": out}), flush=True)
+
+
 def dense_toehold(smoke, device, tx, batches: list, lat, path: str | None) -> None:
     """Where tx's count search is the dense step's, the toehold search of
     the same index without kval (the ltk route; loaded from `path` with its
@@ -286,7 +448,10 @@ def dense_toehold(smoke, device, tx, batches: list, lat, path: str | None) -> No
         if path is None:
             return
         tx = smoke.load_dense(device, path, "-s")[1]
-    view = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k != "kval"})
+    # without kval the resolve reads ltk through rs_off, which a load of
+    # such an index builds
+    view = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items()
+                                           if k != "kval"}).with_card_tables()
     out = smoke.tables_times(device, view, [(q, ln.to(torch.int32)) for q, ln in batches], True,
                              lat, stage=False)
     print(json.dumps({"dense_toehold": out}, default=str), flush=True)
@@ -353,6 +518,9 @@ def main(argv: list[str]) -> int:
     libs = build_designs(smoke, designs)
     real_seeds, real_tables, real_nodense = (smoke.seeds_times, smoke.tables_times,
                                              smoke.phase_nodense_chr)
+    real_walk, real_toehold_work = smoke.walk_times, smoke.toehold_work
+    real_record, real_held = smoke.record_times, smoke.held_record
+    timed_big = set()  # the pfp_big views K1's turns have run on
     real_load, loaded = smoke.load_dense, {}
 
     def load_dense(device, path, mode):
@@ -371,12 +539,41 @@ def main(argv: list[str]) -> int:
             dense_toehold(smoke, device, tx, batches, lat, loaded.pop("path", None))
         return out
 
+    def walk_times(device, tx, ranges, route, step_us, step_us_old=None):
+        out = real_walk(device, tx, ranges, route, step_us, step_us_old)
+        if route == "pred":
+            walk_turns(smoke, libs, tx, ranges)
+        return out
+
+    def toehold_work(tx, q, ln):
+        # toehold_times asks for the work of the batch it times, with the
+        # index it loaded
+        out = real_toehold_work(tx, q, ln)
+        toehold_turns(smoke, libs, tx, q, ln)
+        return out
+
+    def record_times(device, big, tx, dev, *rest):
+        # big_chr's timed view and batches
+        out = real_record(device, big, tx, dev, *rest)
+        k1_turns(smoke, libs, tx, *dev[0])
+        return out
+
+    def held_record(tx, q, ln, ranges=None):
+        # pfp_big checks each two-level view above 2^31 on its full batches
+        out = real_held(tx, q, ln, ranges)
+        if tx.n >= 1 << 31 and q.shape[0] >= smoke.BATCH and id(tx) not in timed_big:
+            timed_big.add(id(tx))
+            k1_turns(smoke, libs, tx, q, ln)
+        return out
+
     def phase_nodense_chr(device, card, chr_, count, loc, markers, k1, seeding):
         out = real_nodense(device, card, chr_, count, loc, markers, k1, seeding)
         chr_views(smoke, device, chr_, k1["us_per_dependent_step"])
         return out
 
     smoke.seeds_times, smoke.tables_times = seeds_times, tables_times
+    smoke.walk_times, smoke.toehold_work = walk_times, toehold_work
+    smoke.record_times, smoke.held_record = record_times, held_record
     smoke.phase_nodense_chr, smoke.load_dense = phase_nodense_chr, load_dense
     return smoke.main(list(args.phases))
 

@@ -566,6 +566,23 @@ def fake_fb2_entry(monkeypatch):
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_full_batch_block_over_two_level_rows(count_case, fake_fb2_entry, layout):
+    """A batch that gives every SM full blocks launches K1 over the
+    two-level rows (int64 lanes) in blocks of 512 threads, the size
+    csrc/lf.cu LfBounds builds those instances for and the most they
+    take."""
+    idx, codes, n_sup, _ = count_case
+    block, fb64 = LAYOUTS[layout]
+    tx = TorchIndex.from_big(TB.BigIndex.from_codes(codes, _alpha(idx), n_sup=n_sup,
+                                                    block=block), "cpu", fb64=fb64)
+    B, L = 132 * 256, 31
+    q, ln = torch.full((B, L), 2, dtype=torch.int32), torch.full((B,), L, dtype=torch.int32)
+    cuda_lf.launch_k1(tx, q, ln, use_ftab=False)
+    (a,) = fake_fb2_entry["calls"]
+    assert (a["threads"], a["stage"]) == (512, 1)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_launch_fb2_passes_int64_n_base_and_the_layouts_per_blk(count_case, fake_fb2_entry,
                                                                 layout):
     idx, codes, n_sup, reads = count_case

@@ -47,7 +47,8 @@ from rowbowt_tpu_torch.ops import cuda_lf
 from rowbowt_tpu_torch.ops import rank as TR
 from rowbowt_tpu_torch.ops.rank import bucketed_lower_bound
 from test_torch_build import write_inputs
-from test_torch_toehold import ACGT, _eq, _ints, _jax, _lanes, _text_reads
+from test_torch_toehold import (ACGT, _eq, _ints, _jax, _lanes, _text_reads, resolve_run,
+                                run_of)
 
 WIDTHS = (1, 31, 100)
 # (index, tables dropped from it, rank policy): the count cases
@@ -92,18 +93,16 @@ def cases(tmp_path_factory):
 
 def _pair(cases, name, drop=()):
     """(JAX DeviceIndex, port TorchIndex on the CPU, RbtIndex, text, reads)
-    of case `name` with the tables `drop` taken from both; over the
-    run-space tables the TorchIndex also holds the tables a load on the
-    card builds for the kernels (with_run_tables)."""
+    of case `name` with the tables `drop` taken from both; the TorchIndex
+    also holds the tables a load on the card builds for the kernels
+    (with_card_tables)."""
     idx, text, reads = cases[name]
     dx = DeviceIndex.from_index(idx)
     dx = DeviceIndex({k: v for k, v in dx.arrays.items() if k not in drop}, dx.n, dx.R, dx.A,
                      dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
     tx = TorchIndex.from_index(idx, "cpu")
     tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k not in drop})
-    if cuda_lf.table_policy(tx) == "runs":
-        tx = tx.with_run_tables()
-    return dx, tx, idx, text, reads
+    return dx, tx.with_card_tables(), idx, text, reads
 
 
 def test_fixtures_have_the_tables_each_case_names(cases):
@@ -204,37 +203,6 @@ class DenseStep:
         return cb, ce, sym
 
 
-def run_of(t, x, bump=lambda key: None):
-    """(run of position x, its start) as lf_tables.cuh run_of finds them: x
-    + 1's bucket of the directory t["rs_off"] (shift t["shift"]), then at
-    most t["iters"] halvings of the run starts in it, the start from the
-    last probe below x + 1 or, where none was, one more load.  `bump` counts
-    the edges: an empty bucket, the last bucket, a search that takes every
-    halving, a start loaded after the search."""
-    rs, off = t["run_start"], t["rs_off"]
-    q = x + 1
-    b = min(q >> t["shift"], off.shape[0] - 2)
-    lo, hi = int(off[b]), int(off[b + 1])
-    if lo == hi:
-        bump("empty_bucket")
-    if b == off.shape[0] - 2:
-        bump("last_bucket")
-    start, it = None, 0
-    while it < t["iters"] and lo < hi:
-        mid = (lo + hi) >> 1
-        if rs[mid] < q:
-            lo, start = mid + 1, int(rs[mid])
-        else:
-            hi = mid
-        it += 1
-    if it == t["iters"]:
-        bump("iters_reached")
-    if start is None:
-        bump("start_loaded")
-        start = int(rs[lo - 1])
-    return lo - 1, start
-
-
 def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehold=False,
                  events=None):
     """(lo, hi) or with `toehold` (lo, hi, k) [B] as lf_tables_kernel
@@ -274,11 +242,7 @@ def tables_model(policy, t, F, A, n, R, q, lens, ftab=None, k=0, acgt=(), toehol
     def table(c, hi):
         if toehold and "tk1" in t:
             return int(t["tk1"][c * n + hi])
-        x = min(hi + 1, n - 1)
-        r = int(np.searchsorted(t["run_start"], x, side="right")) - 1
-        if hi + 1 < n and t["run_start"][r] == hi + 1:
-            r -= 1
-        return int(t["ltk"][c * R + r])
+        return int(t["ltk"][c * R + resolve_run(t, n, hi)])
 
     B, L = q.shape
     out = np.zeros((3 if toehold else 2, B), np.int64)
@@ -366,7 +330,7 @@ def _tables_of(tx, toehold):
                            ("samples_last", "samples_last"), ("ltk", "ltk"),
                            ("rs_off", "rs_off"), ("rec", "run_rec"))
          if name in tx.arrays}
-    if policy == "runs":
+    if "rs_off" in t:
         t["shift"], t["iters"] = tx.rs_bs
     t["occ"] = tx.arrays[{"runs": "occ_flat", "dense": "occ_blk_flat",
                           "occ1": "occ1_flat"}[policy]].numpy()
@@ -662,13 +626,15 @@ def test_run_records_hold_the_run_tables(cases):
     np.testing.assert_array_equal(rec[:, 1], idx.run_head)
     np.testing.assert_array_equal(rec[:, 2:2 + tx.A].T.reshape(-1), tx.arrays["occ_flat"].numpy())
     assert not rec[:, 2 + tx.A:].any()
-    assert tx.run_tables_bytes == 4 * (tx.arrays["rs_off"].numel() + 8 * tx.R)
+    # with pred_off, the walk's directory over pred_pos (no phi1 here)
+    assert tx.run_tables_bytes == 4 * (tx.arrays["rs_off"].numel() + 8 * tx.R
+                                       + tx.arrays["pred_off"].numel())
     assert tx.run_tables_s > 0
     assert "run_rec" not in _widened(cpu, True).with_run_tables().arrays  # int64 lanes
     stale = {k: v.numpy() for k, v in tx.arrays.items()}
     again = TorchIndex.from_arrays(stale, n=tx.n, R=tx.R, A=tx.A, ma_wsize=0, ftab_k=tx.ftab_k,
                                    acgt_codes=tx.acgt_codes, device="cpu")
-    assert "rs_off" not in again.arrays and "run_rec" not in again.arrays
+    assert not {"rs_off", "run_rec", "pred_off"} & set(again.arrays)
     with pytest.raises(ValueError, match="run records hold at most 6 codes"):
         run_records(idx.run_start, idx.run_head, np.zeros(13 * tx.R), 13)
 
@@ -703,15 +669,19 @@ def _tables_lib(calls, rc):
         pol = c["policy"]
         size = {"runs": A * R, "dense": A * nb, "occ1": A * (n + 1)}[pol]
         t = {"occ": _ints(occ, size, occ_b)}
+        resolve = k_out is not None and not tk1  # the toehold over ltk: its directory too
         if pol == "runs" or ltk:
             t["run_start"] = _ints(rs, R, rs_b)
+        if pol == "runs" or resolve:
+            t["rs_off"], t["shift"], t["iters"] = _ints(off, n_off, off_b), shift, iters
+        else:
+            assert off is None
         if pol == "runs":
             t["run_head"] = _ints(rh, R, rh_b)
-            t["rs_off"], t["shift"], t["iters"] = _ints(off, n_off, off_b), shift, iters
             if rec:
                 t["rec"] = _ints(rec, 8 * R, 4)
         else:
-            assert off is None and rec is None
+            assert rec is None
         if pol == "dense":
             t["bwt4"] = _ints(bwt4, 16 * nb, 4)
         if k_out:
@@ -830,8 +800,31 @@ def test_launch_path_equals_the_twin(cases, fake_tables, case, toehold, width, r
         assert c["kf"] == 0 and c["ftab"] == (None, 0) and c["sl"][1] == wide
         assert (c["tk1"][0] is None) == (cuda_lf.toehold_route(tx) == "ltk")
         assert len(set(c["out"])) == 3
+        if cuda_lf.toehold_route(tx) == "ltk":  # the resolve's directory, under every policy
+            off = tx.arrays["rs_off"]
+            assert c["off"] == (off.data_ptr(), off.element_size(), off.numel(), *tx.rs_bs)
     else:
         assert c["kf"] == tx.ftab_k and c["ftab"][1] == wide and c["out"][2] is None
+
+
+@pytest.mark.parametrize("width", ["int32", "int64_lanes"])
+@pytest.mark.parametrize("toehold", [False, True], ids=["count", "toehold"])
+def test_full_batch_block_is_its_lane_types(cases, fake_tables, width, toehold):
+    """A batch that gives every SM full blocks launches blocks of 512
+    threads at either lane type, within the bound csrc/lf.cu LfBounds builds
+    the tables kernel's instances for (1024 threads with int32 lanes, 512
+    with int64, which the kernel refuses to exceed)."""
+    _, tx, idx, _, _ = _pair(cases, "nodense", ("kval",) if toehold else ())
+    if width != "int32":
+        tx = _widened(tx, True)
+    fake_tables["rc"] = 1  # the call is recorded, the model not run
+    fake_tables["install"]()
+    B, L = 132 * 256, 31
+    q, ln = torch.full((B, L), 2, dtype=torch.int32), torch.full((B,), L, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="LF kernel launch failed"):
+        cuda_lf.launch_tables(tx, q, ln, use_ftab=False, toehold=toehold)
+    (c,) = fake_tables["calls"]
+    assert c["threads"] == 512 and c["stage"]
 
 
 def test_launch_path_on_a_view_and_no_lanes(cases, fake_tables):

@@ -342,14 +342,15 @@ def _model_lib(tx, calls, rc, events=None):
     def rbt_seed_machine(mode, fb, syms, F, base, per_blk, A, n, lane_b, q, lengths, B, L,
                          ftab, ftab_b, k, acgt, wsize, max_range, min_length, W, rlo, rhi,
                          rseed, nrec, S, slo, shi, sqs, sqe, ns, hi_rec, tk1, tk1_b, ltk, ltk_b,
-                         run_start, rs_b, samples_last, sl_b, R_, ssamp, threads, stage,
-                         stream):
+                         run_start, rs_b, rs_off, off_b, n_off, shift, iters, samples_last, sl_b,
+                         R_, ssamp, threads, stage, stream):
         name = {0: "greedy", 1: "lmem", 2: "sample"}[mode]
         c = dict(mode=name, syms=syms, per_blk=per_blk, A=A, n=n, lane=lane_b, q=q, B=B, L=L,
                  ftab=(ftab, ftab_b), k=k, acgt=acgt, wsize=wsize, max_range=max_range,
                  min_length=min_length, W=W, S=S, base=base, hi_rec=hi_rec,
                  outs=(rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns),
                  toe=(tk1, ltk, run_start, samples_last, ssamp),
+                 directory=(rs_off, off_b, n_off, shift, iters),
                  threads=threads, stage=stage, stream=stream)
         calls.append(c)
         assert ssamp is None, "the per-step toehold's model is test_torch_seed_tables.py's"

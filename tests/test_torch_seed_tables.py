@@ -45,7 +45,7 @@ from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 from test_torch_build import write_inputs
 from test_torch_lf_tables import DenseStep, _nibbles
 from test_torch_seed_kernel import _eq, _model_lib, machine_model, rank_table
-from test_torch_toehold import ACGT, _ints, _lanes, _symbols, _text_reads
+from test_torch_toehold import ACGT, _ints, _lanes, _symbols, _text_reads, resolve_run
 
 WIDTHS = (1, 31, 100)
 WSIZE = 10
@@ -114,9 +114,9 @@ def built(tmp_path_factory):
 
 def _pair(built, case):
     """(JAX DeviceIndex, port TorchIndex on the CPU, RbtIndex, text, reads)
-    of `case` with its tables dropped from both; over the run-space tables
-    the TorchIndex also holds the tables a load on the card builds for the
-    kernels (with_run_tables)."""
+    of `case` with its tables dropped from both; the TorchIndex also holds
+    the tables a load on the card builds for the kernels
+    (with_card_tables)."""
     src, drop, _, _ = EDGE_CASES[case]
     idx, text, reads = built[src]
     dx = DeviceIndex.from_index(idx)
@@ -124,9 +124,7 @@ def _pair(built, case):
                      dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
     tx = TorchIndex.from_index(idx, "cpu")
     tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k not in drop})
-    if cuda_lf.row_layout(tx) is None and cuda_lf.table_policy(tx) == "runs":
-        tx = tx.with_run_tables()
-    return dx, tx, idx, text, reads
+    return dx, tx.with_card_tables(), idx, text, reads
 
 
 def test_fixtures_have_the_tables_each_case_names(built):
@@ -227,15 +225,12 @@ def table_ranks(policy, t, F, A, n, R, bump=lambda key: None):
 def toehold_table(t, n, R):
     """The resolve's table lookup of the last non-trivial step (code c,
     pre-step hi): tk1[c, hi], or ltk at hi's run (ops/rank.py
-    lf_step_w_loc's r_hi)."""
+    lf_step_w_loc's r_hi) found through the directory over run_start
+    (test_torch_toehold.resolve_run)."""
     def table(c, hi):
         if "tk1" in t:
             return int(t["tk1"][c * n + hi])
-        x = min(hi + 1, n - 1)
-        r = int(np.searchsorted(t["run_start"], x, side="right")) - 1
-        if hi + 1 < n and t["run_start"][r] == hi + 1:
-            r -= 1
-        return int(t["ltk"][c * R + r])
+        return int(t["ltk"][c * R + resolve_run(t, n, hi)])
     return table
 
 
@@ -314,12 +309,18 @@ def _acgt(acgt):
     return [x - 256 if x == 0xFF else x for x in codes]
 
 
-def _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b):
+def _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b, directory):
+    """The resolve's tables at the addresses and widths given: tk1, or ltk,
+    run_start and the directory (rs_off, its width, n_off, shift, iters),
+    and samples_last."""
     t = {"samples_last": _ints(sl, R, sl_b)}
     if tk1:
         t["tk1"] = _ints(tk1, A * n, tk1_b)
     else:
-        t["ltk"], t["run_start"] = _ints(ltk, A * R, ltk_b), _ints(rs, R, rs_b)
+        off, off_b, n_off, shift, iters = directory
+        assert n_off == (n >> shift) + 2
+        t.update(ltk=_ints(ltk, A * R, ltk_b), run_start=_ints(rs, R, rs_b),
+                 rs_off=_ints(off, n_off, off_b), shift=shift, iters=iters)
     return t
 
 
@@ -374,12 +375,14 @@ def _model_libs(tx, calls, rc, events=None):
             if rec:
                 t["rec"] = _ints(rec, 8 * R, 4)
         else:
-            assert off is None and rec is None
+            # the directory only for the per-step toehold over ltk
+            assert rec is None and (off is not None) == (ssamp is not None and not tk1)
         if pol == "dense":
             t["bwt4"] = _ints(bwt4, 16 * nb, 4)
         Fn = _ints(F, A + 1, 4)
         rk, sym = table_ranks(pol, t, Fn, A, n, R, bump)
-        toe = _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b) if ssamp else None
+        toe = _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b,
+                          (off, off_b, n_off, shift, iters)) if ssamp else None
         got = _run_model(name, rk, sym, Fn, A, n, R, _ints(q, B * L, 4).reshape(B, L),
                          _ints(lengths, B, 4), k,
                          _ints(ftab, 2 * 4 ** k, ftab_b).reshape(-1, 2) if k else None, acgt,
@@ -391,18 +394,20 @@ def _model_libs(tx, calls, rc, events=None):
 
     def rows(mode, fb, syms, F, base, per_blk, A, n, lane_b, q, lengths, B, L, ftab, ftab_b, k,
              acgt, wsize, max_range, min_length, W, rlo, rhi, rseed, nrec, S, slo, shi, sqs, sqe,
-             ns, hi_rec, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b, R, ssamp, threads, stage,
-             stream):
+             ns, hi_rec, tk1, tk1_b, ltk, ltk_b, rs, rs_b, off, off_b, n_off, shift, iters, sl,
+             sl_b, R, ssamp, threads, stage, stream):
         if ssamp is None:
             args = locals().copy()
             return rows_lib.rbt_seed_machine(*(args[a] for a in (
                 "mode", "fb", "syms", "F", "base", "per_blk", "A", "n", "lane_b", "q", "lengths",
                 "B", "L", "ftab", "ftab_b", "k", "acgt", "wsize", "max_range", "min_length", "W",
                 "rlo", "rhi", "rseed", "nrec", "S", "slo", "shi", "sqs", "sqe", "ns", "hi_rec",
-                "tk1", "tk1_b", "ltk", "ltk_b", "rs", "rs_b", "sl", "sl_b", "R", "ssamp",
+                "tk1", "tk1_b", "ltk", "ltk_b", "rs", "rs_b", "off", "off_b", "n_off", "shift",
+                "iters", "sl", "sl_b", "R", "ssamp",
                 "threads", "stage", "stream")))
         calls.append(dict(entry="rows", mode=mode, syms=syms, lane=lane_b, B=B, L=L, k=k,
                           widths=(tk1_b, ltk_b, rs_b, sl_b), toe=(tk1, ltk, rs, sl, ssamp),
+                          directory=(off, off_b, n_off, shift, iters),
                           hi_rec=hi_rec, threads=threads, stage=stage))
         if rc or B == 0:
             return rc
@@ -411,7 +416,8 @@ def _model_libs(tx, calls, rc, events=None):
         Fn = _ints(F, A + 1, 4)
         rk = rank_table(fbn, syms, Fn, A, n)
         sym = _symbols(fbn, syms)[0].reshape(-1)[:n]
-        toe = _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b)
+        toe = _toe_tables(n, A, R, tk1, tk1_b, ltk, ltk_b, rs, rs_b, sl, sl_b,
+                          (off, off_b, n_off, shift, iters))
         got = _run_model("sample", rk, sym, Fn, A, n, R, _ints(q, B * L, 4).reshape(B, L),
                          _ints(lengths, B, 4), k, None, acgt, wsize, max_range, min_length, W, S,
                          toe, events)
@@ -651,6 +657,9 @@ def test_launch_passes_the_tables_and_the_toehold(built, fake, case):
         route = cuda_lf.toehold_route(tx)
         tk1, ltk = c["toe"][0], c["toe"][1]
         assert (tk1 is not None) == (route == "tk1") and (ltk is not None) == (route == "ltk")
+        off = tx.arrays["rs_off"] if route == "ltk" else None  # the resolve's directory
+        assert c["directory"] == ((off.data_ptr(), off.element_size(), off.numel(), *tx.rs_bs)
+                                  if off is not None else (None, 0, 0, 0, 0))
         if rows:
             assert (c["threads"], bool(c["stage"])) == cuda_lf.launch_plan(*qc.shape, 132)
     want = TS.seeds_sample_records_plain(tx, q, ln, 19, 8, "per_step" if toe else "kval")

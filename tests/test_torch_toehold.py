@@ -5,9 +5,9 @@ walk kernel's predecessor route (ops/cuda_phi, route "pred").
 A numpy model of the kernel's search (csrc/lf.cu, the TOE instance: the LF
 steps over the fused rows, the trivial test from the row of hi + 1 or one
 word of hi's row, the last non-trivial step carried with a count of the
-trivial steps after it, one resolve a lane from tk1 or from ltk after an
-upper bound over run_start) equals the JAX package's find_ranges_w_toehold
-buffer for buffer on a raw-built index (construct/rawio.write_raw, then
+trivial steps after it, one resolve a lane from tk1 or from ltk at the run
+found through the bucket directory rs_off over run_start) equals the JAX
+package's find_ranges_w_toehold buffer for buffer on a raw-built index (construct/rawio.write_raw, then
 build_index_from_raw) with occ1 + tk1 and on the same index with them
 dropped (the ltk route), at L = 1, 31 and 100, on read batches that reach
 every edge the model counts.  The launch path, with its C entry replaced by
@@ -15,7 +15,10 @@ that model reading the addresses the wrapper passes, equals the plain twin;
 refused launches raise and count nothing; the routes follow the tables.  On
 a `--no-dense` index the toeholds and the walk over the predecessor search
 equal the JAX package's, and the walk's launch path with a numpy model of
-its kernel equals the torch walk.  Every output is an integer, so every
+its kernel (the lower bound through the bucket directory pred_off over
+pred_pos) equals the torch walk.  Both directory searches equal the JAX
+package's at every position, over a directory of many empty buckets, the
+loader's and one of a single bucket.  Every output is an integer, so every
 check is exact."""
 
 import ctypes
@@ -29,12 +32,13 @@ import torch
 
 from rowbowt_tpu.engine import locate as JL
 from rowbowt_tpu.engine.device import DeviceIndex
+from rowbowt_tpu.ops import rank as JR
 from rowbowt_tpu_torch.construct import build as TB
 from rowbowt_tpu_torch.construct import panel as TP
 from rowbowt_tpu_torch.construct import rawio as TRAW
 from rowbowt_tpu_torch.engine import locate as TL
 from rowbowt_tpu_torch.engine.batch import encode_batch
-from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.engine.device import TorchIndex, run_directory
 from rowbowt_tpu_torch.io.fastq import read_seqs
 from rowbowt_tpu_torch.ops import cuda_lf, cuda_phi
 from test_torch_build import write_inputs
@@ -43,6 +47,10 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 WIDTHS = (1, 31, 100)
 ROUTES = ("tk1", "ltk")
 TOE_TABLES = ("tk1_flat", "ltk", "run_start", "samples_last")
+# the directory spans of the search tests: 2 positions a bucket (most
+# buckets empty), the loader's (run_directory's default) and one bucket
+# (a binary search over every entry)
+SHIFTS = {"small": 1, "loader": None, "one_bucket": 62}
 
 
 def _raw_index(tmp, idx):
@@ -129,14 +137,16 @@ def raw_cases(tmp_path_factory):
 
 def _pair(idx, route, fb64=True):
     """(JAX DeviceIndex, port TorchIndex) of idx on the toehold `route`: as
-    built (tk1), or with occ1 and tk1 dropped from both (ltk)."""
+    built (tk1), or with occ1 and tk1 dropped from both (ltk); the
+    TorchIndex also holds the tables a load on the card builds for the
+    kernels (with_card_tables: over ltk the directory rs_off)."""
     drop = {"occ1_flat", "tk1_flat"} if route == "ltk" else set()
     dx = DeviceIndex.from_index(idx, fb64=fb64)
     dx = DeviceIndex({k: v for k, v in dx.arrays.items() if k not in drop}, dx.n, dx.R, dx.A,
                      dx.ma_wsize, dx.ftab_k, dx.acgt_codes)
     tx = TorchIndex.from_index(idx, "cpu", fb64=fb64)
     tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items() if k not in drop})
-    return dx, tx
+    return dx, tx.with_card_tables()
 
 
 # ---------------------------------------------------------------------------
@@ -149,16 +159,57 @@ def _symbols(fb, syms):
     return sym.reshape(fb.shape[0], syms), fb[:, :8].astype(np.int64)
 
 
+def run_of(t, x, bump=lambda key: None):
+    """(run of position x, its start) as lf_tables.cuh run_of finds them: x
+    + 1's bucket of the directory t["rs_off"] (shift t["shift"]), then at
+    most t["iters"] halvings of the run starts in it, the start from the
+    last probe below x + 1 or, where none was, one more load.  `bump` counts
+    the edges: an empty bucket, the last bucket, a search that takes every
+    halving, a start loaded after the search."""
+    rs, off = t["run_start"], t["rs_off"]
+    q = x + 1
+    b = min(q >> t["shift"], off.shape[0] - 2)
+    lo, hi = int(off[b]), int(off[b + 1])
+    if lo == hi:
+        bump("empty_bucket")
+    if b == off.shape[0] - 2:
+        bump("last_bucket")
+    start, it = None, 0
+    while it < t["iters"] and lo < hi:
+        mid = (lo + hi) >> 1
+        if rs[mid] < q:
+            lo, start = mid + 1, int(rs[mid])
+        else:
+            hi = mid
+        it += 1
+    if it == t["iters"]:
+        bump("iters_reached")
+    if start is None:
+        bump("start_loaded")
+        start = int(rs[lo - 1])
+    return lo - 1, start
+
+
+def resolve_run(t, n, thi):
+    """The run of thi as lf_tables.cuh resolve_toehold finds it over ltk:
+    the run of min(thi + 1, n - 1) through the directory t (run_of), one
+    less where thi + 1 < n starts that run (its start known from the
+    search)."""
+    r, start = run_of(t, min(thi + 1, n - 1))
+    return r - 1 if thi + 1 < n and start == thi + 1 else r
+
+
 def kernel_model(fb, syms, F, A, n, q, lens, tk1, ltk, run_start, samples_last, R,
-                 events=None):
+                 directory=None, events=None):
     """(lo, hi, k) int32 [B] as csrc/lf.cu's toehold instance computes them:
     K1's steps from the full range over the fused rows; the trivial test
     (BWT[hi] == c) from the symbol before hi + 1 in hi + 1's row, or from
     hi's own row where hi + 1 starts a row or equals n; the last
     non-trivial step's code and pre-step hi and the trivial steps after it;
     then k = the table value of that step (tk1 where given, else ltk at the
-    run of hi, an upper bound over run_start less one where hi + 1 starts
-    that run) or k0, less the trivial steps, mod n.  A per-step toehold
+    run of hi, found through the bucket directory over run_start,
+    `directory` {"rs_off", "shift", "iters"}: resolve_run) or k0, less the
+    trivial steps, mod n.  A per-step toehold
     (lf_step_w_loc's recurrence) rides beside it and must agree.  `events`,
     a dict, counts the edges the lanes reached."""
     ev = events if events is not None else {}
@@ -175,11 +226,7 @@ def kernel_model(fb, syms, F, A, n, q, lens, tk1, ltk, run_start, samples_last, 
     def table(c, hi):
         if tk1 is not None:
             return int(tk1[c * n + hi])
-        x = min(hi + 1, n - 1)
-        r = int(np.searchsorted(run_start, x, side="right")) - 1
-        if hi + 1 < n and run_start[r] == hi + 1:
-            r -= 1
-        return int(ltk[c * R + r])
+        return int(ltk[c * R + resolve_run(dict(directory, run_start=run_start), n, hi)])
 
     def bump(key):
         ev[key] = ev.get(key, 0) + 1
@@ -235,13 +282,22 @@ def kernel_model(fb, syms, F, A, n, q, lens, tk1, ltk, run_start, samples_last, 
     return out[0], out[1], out[2]
 
 
+def _directory(tx):
+    """The model's directory over run_start: tx's rs_off and its (shift,
+    iters), or None where tx has none."""
+    if "rs_off" not in tx.arrays:
+        return None
+    return {"rs_off": tx.arrays["rs_off"].numpy(), "shift": tx.rs_bs[0], "iters": tx.rs_bs[1]}
+
+
 def _model_on(tx, qc, lens, events=None):
     """kernel_model over tx's tables (numpy views of the tensors)."""
     key = cuda_lf.row_layout(tx)
     a = {k: tx.arrays[k].numpy() if k in tx.arrays else None for k in TOE_TABLES}
     return kernel_model(tx.arrays[key].numpy(), cuda_lf._SYMS_PER_ROW[key],
                         tx.arrays["F"].numpy(), tx.A, tx.n, qc, lens, a["tk1_flat"],
-                        a["ltk"], a["run_start"], a["samples_last"], tx.R, events)
+                        a["ltk"], a["run_start"], a["samples_last"], tx.R, _directory(tx),
+                        events)
 
 
 def _jax(dx, qc, lens):
@@ -340,17 +396,22 @@ def _toehold_lib(tx, calls, rc):
     rows = tx.arrays[key].shape
 
     def rbt_lf_toehold(fb, syms, F, A, n, q, lengths, B, L, tk1, tk1_b, ltk, ltk_b, rs, rs_b,
-                       sl, sl_b, R, lo, hi, k, threads, stage, stream):
+                       off, off_b, n_off, shift, iters, sl, sl_b, R, lo, hi, k, threads, stage,
+                       stream):
         calls.append(dict(syms=syms, A=A, n=n, B=B, L=L, R=R, q=q, lengths=lengths,
                           tk1=(tk1, tk1_b), ltk=(ltk, ltk_b), rs=(rs, rs_b), sl=(sl, sl_b),
-                          threads=threads, stage=stage, stream=stream, out=(lo, hi, k)))
+                          off=(off, off_b, n_off, shift, iters), threads=threads, stage=stage,
+                          stream=stream, out=(lo, hi, k)))
         if rc or B == 0:
             return rc
+        assert (off is None) == (tk1 is not None)
+        directory = {"rs_off": _ints(off, n_off, off_b), "shift": shift,
+                     "iters": iters} if off else None
         got = kernel_model(
             _ints(fb, rows[0] * rows[1], 4).reshape(rows), syms, _ints(F, A + 1, 4), A, n,
             _ints(q, B * L, 4).reshape(B, L), _ints(lengths, B, 4),
             _ints(tk1, A * n, tk1_b) if tk1 else None, _ints(ltk, A * R, ltk_b) if ltk else None,
-            _ints(rs, R, rs_b) if rs else None, _ints(sl, R, sl_b), R)
+            _ints(rs, R, rs_b) if rs else None, _ints(sl, R, sl_b), R, directory)
         for ptr, v in zip((lo, hi, k), got):
             _ints(ptr, B, 4)[:] = v
         return rc
@@ -406,8 +467,12 @@ def test_launch_path_equals_the_twin(raw_cases, fake_toe, route, fb64, L):
         assert c["stream"] == 1000 and c["sl"][1] == nbytes
         if route == "tk1":
             assert c["tk1"][1] == nbytes and c["ltk"] == c["rs"] == (None, 0)
+            assert c["off"] == (None, 0, 0, 0, 0)
         else:
             assert c["tk1"] == (None, 0) and c["ltk"][1] == c["rs"][1] == nbytes
+            off = tx.arrays["rs_off"]
+            assert c["off"] == (off.data_ptr(), off.element_size(), off.numel(), *tx.rs_bs)
+            assert off.numel() == (tx.n >> tx.rs_bs[0]) + 2
         assert len(set(c["out"])) == 3
 
 
@@ -444,13 +509,15 @@ def test_refused_launch_raises_and_counts_nothing(raw_cases, fake_toe):
     ("int64 qcodes", TypeError, "qcodes must be int32"),
     ("no samples_last", ValueError, "the toehold needs samples_last"),
     ("short ltk", ValueError, "ltk of shape"),
+    ("no rs_off", ValueError, "needs rs_off"),
+    ("short rs_off", ValueError, "rs_off of shape"),
     ("no fused rows", ValueError, "K1 reads fused-block rows"),
     ("two-level rows", ValueError, "the per-step toehold is the single-level search's"),
     ("lengths shape", ValueError, "lengths must be"),
 ])
 def test_launch_refuses(raw_cases, fake_toe, fault, error, match):
     idx, text, reads = raw_cases["random"]
-    tx = _pair(idx, "ltk" if fault == "short ltk" else "tk1")[1]
+    tx = _pair(idx, "ltk" if "ltk" in fault or "rs_off" in fault else "tk1")[1]
     fake_toe["install"](tx)
     qc, lens = _lanes(idx, text, reads, 31)
     q, ln = torch.from_numpy(qc), torch.from_numpy(lens)
@@ -465,6 +532,10 @@ def test_launch_refuses(raw_cases, fake_toe, fault, error, match):
         del arrays["samples_last"]
     elif fault == "short ltk":
         arrays["ltk"] = arrays["ltk"][:-1]
+    elif fault == "no rs_off":
+        del arrays["rs_off"]
+    elif fault == "short rs_off":
+        arrays["rs_off"] = arrays["rs_off"][:-1]
     elif fault == "no fused rows":
         del arrays["fblock64"]
     elif fault == "two-level rows":
@@ -519,7 +590,8 @@ def nodense(tmp_path_factory):
     panel = TP.build_panel(inp["fa"], inp["vcf"])
     idx = TB.build_index_from_panel(panel, dense=False)
     assert idx.fblock is None and idx.phi1 is None and idx.kval is None
-    dx, tx = DeviceIndex.from_index(idx), TorchIndex.from_index(idx, "cpu")
+    dx, tx = DeviceIndex.from_index(idx), TorchIndex.from_index(idx, "cpu").with_card_tables()
+    assert "pred_off" in tx.arrays and "rs_off" in tx.arrays
     reads = [s for _, s, _ in read_seqs(inp["fq"]) if len(s) <= 64]
     short = [r[:int(m)] for r, m in zip(reads, np.random.default_rng(3).integers(4, 14,
                                                                                 len(reads)))]
@@ -542,32 +614,56 @@ def test_pred_walk_matches_jax(nodense, max_hits):
             JL.locate(dx, *(jnp.asarray(w) for w in want), max_hits=max_hits))
 
 
-def pred_model(pp, ptr, sl, R, n, i):
-    """One phi step of csrc/phi_walk.cu's Pred: the lower bound of i in
-    pred_pos, the entry before it (the last for none), its run's previous
+def bucketed_lower_bound(vals, off, shift, iters, q):
+    """csrc/phi_walk.cu bucketed_lower_bound at every q (numpy, int64): q's
+    bucket of the directory off (clamped into it), then `iters` fixed
+    halvings, each probe clamped into vals, none taken once the bucket's
+    segment is empty."""
+    vals, off = np.asarray(vals, np.int64), np.asarray(off, np.int64)
+    q = np.asarray(q, np.int64)
+    b = np.clip(q >> shift, 0, off.shape[0] - 2)
+    lo, hi = off[b], off[b + 1]
+    for _ in range(iters):
+        mid = (lo + hi) >> 1
+        take = (vals[np.clip(mid, 0, vals.shape[0] - 1)] < q) & (lo < hi)
+        hi = np.where(take | (lo >= hi), hi, mid)
+        lo = np.where(take, mid + 1, lo)
+    return lo
+
+
+def pred_model(pp, ptr, sl, R, n, i, directory):
+    """The phi step of csrc/phi_walk.cu's Pred at every i: the lower bound of
+    i in pred_pos through the bucket directory {"pred_off", "shift",
+    "iters"}, the entry before it (the last for none), its run's previous
     sample (index -1 the last) plus the distance, mod n."""
-    rk = int(np.searchsorted(pp, i, side="left"))
-    jr = R - 1 if rk == 0 else rk - 1
-    j = int(pp[jr])
-    return (int(sl[int(ptr[jr]) - 1]) + (i - j if j < i else i + 1)) % n
+    pp, ptr, sl = (np.asarray(t, np.int64) for t in (pp, ptr, sl))
+    i = np.asarray(i, np.int64)
+    rk = bucketed_lower_bound(pp, directory["pred_off"], directory["shift"],
+                              directory["iters"], i)
+    jr = np.where(rk == 0, R - 1, rk - 1)
+    j = pp[jr]
+    return (sl[ptr[jr] - 1] + np.where(j < i, i - j, i + 1)) % n
 
 
 def _pred_lib(calls, rc):
-    def rbt_phi_walk_pred(pp, ptr, sl, nbytes, R, n, k, size, off, order, out, B, threads,
-                          stream):
-        calls.append(dict(bytes=nbytes, R=R, n=n, B=B, threads=threads, stream=stream))
+    def rbt_phi_walk_pred(pp, ptr, sl, nbytes, R, poff, off_b, n_off, shift, iters, n, k, size,
+                          off, order, out, B, threads, stream):
+        calls.append(dict(bytes=nbytes, R=R, n=n, B=B, threads=threads, stream=stream,
+                          directory=(poff, off_b, n_off, shift, iters)))
         if rc:
             return rc
+        assert n_off == (n >> shift) + 2
+        directory = {"pred_off": _ints(poff, n_off, off_b), "shift": shift, "iters": iters}
         pp, ptr, sl = (_ints(p, R, nbytes) for p in (pp, ptr, sl))
         k, size, off, order = (_ints(p, B, 8) for p in (k, size, off, order))
         assert np.array_equal(np.sort(order), np.arange(B)) and (np.diff(size[order]) <= 0).all()
         flat = _ints(out, int((off + size).max(initial=0)), 8)
-        for b in order.tolist():
-            i = int(k[b])
-            for j in range(int(size[b])):
-                if j:
-                    i = pred_model(pp, ptr, sl, R, n, i)
-                flat[off[b] + j] = i
+        i = k.astype(np.int64)  # every lane's chain, one step of all at a time
+        for j in range(int(size.max(initial=0))):
+            if j:
+                i = pred_model(pp, ptr, sl, R, n, i, directory)
+            live = size > j
+            flat[(off + j)[live]] = i[live]
         return rc
 
     return SimpleNamespace(rbt_phi_walk_pred=rbt_phi_walk_pred,
@@ -613,6 +709,9 @@ def test_pred_launch_path_walks_like_the_twin(nodense, fake_walk, wide):
     calls = fake_walk["calls"]
     assert [(c["bytes"], c["R"], c["n"], c["B"]) for c in calls] == \
         [(8 if wide else 4, tx.R, tx.n, B)] * 2
+    off = tx.arrays["pred_off"]
+    assert all(c["directory"] == (off.data_ptr(), off.element_size(), off.numel(), *tx.pred_bs)
+               for c in calls)
     assert all(c["threads"] == cuda_phi.launch_plan(B, 2) and c["stream"] == 1000
                for c in calls)
     assert cuda_phi.LAUNCHES == 2
@@ -628,11 +727,84 @@ def test_pred_launch_refuses_and_counts_nothing(nodense, fake_walk):
                                            if k != "pred_to_run"})
     with pytest.raises(ValueError, match="the predecessor walk needs pred_to_run"):
         cuda_phi.launch_walk(gone, *args)
+    # a view on the card without its directory raises: no search over all R
+    bare = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items()
+                                           if k != "pred_off"})
+    with pytest.raises(ValueError, match="the predecessor walk needs pred_off"):
+        cuda_phi.launch_walk(bare, *args)
+    short = dataclasses.replace(tx, arrays=dict(tx.arrays, pred_off=tx.arrays["pred_off"][:-1]))
+    with pytest.raises(ValueError, match="pred_off"):
+        cuda_phi.launch_walk(short, *args)
     fake_walk["rc"] = 1
     fake_walk["install"]()
     with pytest.raises(RuntimeError, match="phi walk kernel launch failed: invalid argument"):
         cuda_phi.launch_walk(tx, *args)
     assert cuda_phi.LAUNCHES == 0 and len(fake_walk["calls"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# the two directory searches, at every position, against JAX
+
+@pytest.mark.parametrize("span", list(SHIFTS))
+def test_pred_directory_step_matches_jax_everywhere(nodense, span):
+    """Pred's step through a directory over pred_pos (pred_model) == the
+    JAX package's phi_step (its predecessor branch, a searchsorted over all
+    of pred_pos) at every i in [0, n): i on every pred_pos entry and
+    beside it, i = 0 (the lower bound 0, wrapping to R - 1), i = n - 1,
+    and both sides of every bucket edge; over 2-position buckets (most
+    empty), the loader's and one bucket."""
+    dx, tx = nodense[0], nodense[1]
+    pp = tx.arrays["pred_pos"].numpy()
+    off, (shift, iters) = run_directory(pp, tx.n, SHIFTS[span])
+    assert off.shape == ((tx.n >> shift) + 2,)
+    if span == "small":
+        assert (np.diff(off) == 0).sum() > off.shape[0] // 2  # most buckets empty
+    if span == "one_bucket":
+        assert off.shape == (2,) and iters == int(np.ceil(np.log2(tx.R + 1)))
+    i = np.arange(tx.n, dtype=np.int32)
+    want = np.asarray(JR.phi_step(dx, jnp.asarray(i)))
+    got = pred_model(pp, tx.arrays["pred_to_run"].numpy(), tx.arrays["samples_last"].numpy(),
+                     tx.R, tx.n, i, {"pred_off": off, "shift": shift, "iters": iters})
+    np.testing.assert_array_equal(got, want)
+    rk = np.searchsorted(pp, i, side="left")
+    assert rk[0] == 0 and np.isin(pp, i).all() and i[-1] == tx.n - 1
+    edges = np.arange(1, off.shape[0] - 1) << shift
+    assert np.isin(edges[edges < tx.n], i).all() and np.isin(edges[edges < tx.n] - 1, i).all()
+
+
+@pytest.mark.parametrize("span", list(SHIFTS))
+def test_ltk_resolve_matches_jax_everywhere(raw_cases, span):
+    """The resolve's run of hi through the directory over run_start
+    (resolve_run: the run of min(hi + 1, n - 1), one less where hi + 1
+    starts it) reads the ltk entry that the JAX package's lf_step_w_loc
+    returns for every non-trivial step from [0, hi], at every hi and every
+    code that occurs in BWT[0, hi] other than BWT[hi]: every hi past the
+    first run, so hi = n - 1 (hi + 1 == n), hi + 1 at every run start and
+    both sides of every bucket edge; over 2-position buckets (most empty),
+    the loader's and one bucket."""
+    idx = raw_cases["panel"][0]
+    dx, tx = _pair(idx, "ltk")
+    n, R, A = tx.n, tx.R, tx.A
+    rs = tx.arrays["run_start"].numpy()
+    off, (shift, iters) = run_directory(rs, n, SHIFTS[span])
+    t = {"run_start": rs, "rs_off": off, "shift": shift, "iters": iters}
+    if span == "small":
+        assert (np.diff(off) == 0).sum() > off.shape[0] // 2
+    hi = np.tile(np.arange(n, dtype=np.int32), A)
+    c = np.repeat(np.arange(A, dtype=np.int32), n)
+    lo, k = np.zeros_like(hi), np.zeros_like(hi)
+    nlo, nhi, nk = (np.asarray(x) for x in JR.lf_step_w_loc(
+        dx, jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(c), jnp.asarray(k)))
+    bwt = np.repeat(idx.run_head, idx.run_lengths())
+    table = (nlo <= nhi) & (bwt[hi] != c)  # a non-trivial step: nk is the ltk entry
+    ltk = tx.arrays["ltk"].numpy()
+    got = np.array([ltk[cc * R + resolve_run(t, n, int(h))]
+                    for cc, h in zip(c[table], hi[table])])
+    np.testing.assert_array_equal(got, nk[table])
+    # every hi past the first run (where BWT[0, hi] holds a code other than
+    # BWT[hi]), so every bucket edge, hi + 1 == n and every run start
+    h = np.unique(hi[table])
+    np.testing.assert_array_equal(h, np.arange(rs[1], n))
 
 
 # ---------------------------------------------------------------------------

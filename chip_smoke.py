@@ -21,7 +21,9 @@ beside the phases before it (phase build_small's builds the same, and
 phase raw_chr's after build_cli), and runs:
 
   1. device: the card's name and `nvidia-smi` name and power limit;
-  2. build: seconds taken by each build, and nvcc's register reports;
+  2. build: seconds taken by each build, and nvcc's register reports (for
+     the two-level instances also the lanes resident at once, and the
+     machine instructions of lf.cu's two-level step loop by cuobjdump);
   3. probes: the port's gather probe tool (`python -m
      rowbowt_tpu_torch.tools.gather_probe`) in this process, with its launch
      counts read, and once as a subprocess; P1-P3 against their plain twins
@@ -37,7 +39,7 @@ phase raw_chr's after build_cli), and runs:
      the 16-byte path (ragged, tiny, empty and 4-byte-aligned inputs, P2
      widths 1, 3, 100, 128) and every P3 design at ragged lane counts;
   4. parity: on the small synthetic panel (1 Mbp reference + 7 haplotypes,
-     n ~ 8.0 M, ftab k = 10), 65,536 reads (with absent codes, reads shorter
+     n ~ 8.0 M, ftab k = 10), 16,384 reads (with absent codes, reads shorter
      than k and length-0 lanes) through K1 and through `find_ranges_plain` on
      the card, for the 64B and 96B row layouts with the ftab on and off:
      every (lo, hi) equal; 1,000 of them also equal to a host run-space
@@ -45,7 +47,9 @@ phase raw_chr's after build_cli), and runs:
      layout at the edges of its staging and ftab start (widths 1, k - 1, k,
      99, 100, two views off a 16-byte boundary, one lane, and L = 3,072,
      which is not staged); then K1 over the two-level rows of the same BWT
-     (BigIndex.from_codes, n_sup = 4: fb2_64, fb2 and fb2_256) against the
+     (BigIndex.from_codes, n_sup = 4: the bit planes made from fb2_64, fb2
+     and fb2_256, each equal to its nibble rows through
+     engine/device.nibbles_of_planes) against the
      plain loop and the single-level rows' ranges, on the batch and at the
      same edges, and its record launch (lo, hi and the [L, B] step record) against the torch
      loop that records (cuda_lf.find_ranges_record_plain) there too; then
@@ -68,7 +72,8 @@ phase raw_chr's after build_cli), and runs:
      the seeding kernel (seeds_parity) against its plain twins, every
      record table, in each machine (greedy, lmem, sample) over the dense
      index's fblock64 rows and its BigIndex view's fb2_64 rows (the
-     sampled machine with its step record there), with the ftab start and
+     sampled machine with its step record there; greedy and the sampled
+     machine also over the fb2 and fb2_256 planes), with the ftab start and
      without, at the engines' capacities and at capacities that overflow
      (2 seeds, 2-3 records, max_range 20, min_length 0), on the batch,
      4,096 random-code lanes and the edges of k1_edges; the sampled
@@ -80,10 +85,11 @@ phase raw_chr's after build_cli), and runs:
   5. build_cli: the chr panel (20 Mbp reference + 7 haplotypes, 60,000
      variants, n ~ 160 M) written as a FASTA and a gzipped VCF of 7 haploid
      samples, parsed back to bench.py's text, documents and markers, and
-     built once by `rbt_build_torch --fasta --vcf -s -m -l -f -k 10` in this
-     process (SA samples, markers at every site of every document with
-     window 10, the document list, the ftab, `idx.midx.npz`): build
-     seconds, peak RSS, index GB;
+     built once by `rbt_build_torch --fasta --vcf -s -m -l -f -k 10` in a
+     child process started with the run, beside probes and parity (SA
+     samples, markers at every site of every document with window 10, the
+     document list, the ftab, `idx.midx.npz`): build seconds, peak RSS,
+     index GB;
   6. main: the port's `rbt_align` count mode answers 262,144 reads of 100 bp
      in 65,536-read batches; its lines are counted and every range checked
      against `find_ranges_plain`; the CLI's own load and query seconds and its
@@ -172,9 +178,11 @@ phase raw_chr's after build_cli), and runs:
      8,192 reads and the oracle's on 1,000 reads; rbt_locs the lines of
      phase 14 (one launch of the sampled machine with its step record,
      timed on that batch against its twin); then K1 over
-     fb2_64 on the main path's four batches against the plain loop and
-     against K1 over fblock64 (no ftab), call and device times, the bound
-     and its share, and K1 over the 96 B fb2 rows against the plain loop;
+     fb2_64's bit planes on the first two of the main path's batches
+     against the plain loop and against K1 over fblock64 (no ftab), call
+     and device times, the bound (the planes' bytes, and the operations of
+     lf.cu's step loop by cuobjdump where the build phase counted it) and
+     its share, and K1 over the 96 B fb2 planes against the plain loop;
      the record launch (rbt_align -s's route: one a batch, no torch record
      loop) against its plain twin on those batches and at k1_edges over
      fb2_64, its call and device times beside K1's, the toehold's
@@ -193,7 +201,9 @@ phase raw_chr's after build_cli), and runs:
      reads and on 65,536 random-code lanes over fb2_256, fb2_64 and fb2
      against the plain loop, the layouts' ranges equal, one launch a batch,
      the host rank over the 96 B rows on 256 lanes, final bounds above 2^31
-     counted; the CPU engine and the analytic counts on the first reads;
+     counted; each layout's bit-plane bytes and repack seconds, and its
+     bound when phase k1 ran before; the CPU engine and the analytic counts
+     on the first reads;
      rbt_align count, -s and -m and rbt_markers -f (one greedy launch over
      fb2_256) on the directory against
      the analytic oracle (counts, occurrence sets, marker multisets) and the
@@ -311,6 +321,7 @@ READ_LEN = 100
 N_READS = 262_144
 N_LOCATE = 200_000  # reads of the -s and -m runs: the last batch is 3,392 reads + 62,144 pads
 BATCH = 65_536
+PARITY_LANES = 16_384  # reads of phase parity's edge-case batch
 N_HOST = 1_000  # lanes also checked against the host run-space search
 PHI_STEPS = 100
 N_GREEDY = 32_768  # reads of the rbt_markers and rbt_locs runs: one batch
@@ -647,6 +658,8 @@ def phase_build() -> None:
     """The four nvcc builds and the g++ build, started together; the tables
     steps' threads a lane of the built lf.cu equal to cuda_lf.lane_threads;
     no instance of lf.cu, phi_walk.cu or seeds.cu spills (ptxas)."""
+    import torch
+
     from rowbowt_tpu_torch.construct import sa
     from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi, cuda_seeds
 
@@ -676,11 +689,87 @@ def phase_build() -> None:
     spilling = {name: [k for k, v in found.items()
                        if v.get("spill_stores") or v.get("spill_loads")]
                 for name, found in inst.items()}
+    # the two-level instances: registers, the lanes resident at once on the
+    # card, and the machine instructions of the search's step loop
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    two_level = {}
+    for name, threads in (("lf", 512), ("seeds", 256)):
+        for k, v in inst[name].items():
+            if "lf_count2_kernel" in k or any(
+                    m in k for m in ("seed_machine_kernel<long", "seed_machine_kernelIl")):
+                two_level[k] = dict(registers=v.get("registers"),
+                                    resident_lanes=resident_lanes(v.get("registers", 255),
+                                                                  threads, sms))
+    STEP_LOOPS.update(loop_instructions(cuda_lf.build()._name, "lf_count2_kernel"))
     emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs,
          seeds_instances=inst["seeds"], lf_instances=inst["lf"],
          phi_walk_instances=inst["phi_walk"], seeds_spilling=spilling["seeds"],
-         spilling=spilling)
+         spilling=spilling, two_level=two_level, step_loops=STEP_LOOPS)
     check(not any(spilling.values()), f"instances that spill: {spilling}")
+
+
+def resident_lanes(registers: int, threads: int, sms: int) -> int:
+    """Lanes (two threads each) resident at once on `sms` SMs for a kernel
+    of `registers` registers a thread in blocks of `threads`: the blocks an
+    SM's 65,536 registers hold (a warp's registers allotted in units of 256)
+    and its 2,048 threads allow."""
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks = min(65_536 // (per_warp * (threads // 32)), 2_048 // threads)
+    return sms * blocks * threads // 2
+
+
+# {kernel instance: its step loop's machine instructions} of lf.cu's
+# two-level search (phase build, loop_instructions)
+STEP_LOOPS = {}
+
+
+def loop_instructions(lib_path: str, kernel: str) -> dict:
+    """{instance of `kernel`: instructions of its longest loop} in a
+    library's machine code (cuobjdump -sass): the span from a backward
+    branch's target to the branch, the search's step loop, with its POPC
+    and LDG counts; names demangled where c++filt is on PATH; {} where
+    cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        if kernel not in name:
+            continue
+        ins = []
+        for ln in body.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2)))
+        best = (0, 0, 0)
+        for at, op in ins:
+            b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if b and int(b.group(1), 16) < at:
+                loop = [o for a, o in ins if int(b.group(1), 16) <= a <= at]
+                if len(loop) > best[0]:
+                    best = (len(loop), sum("POPC" in o for o in loop),
+                            sum("LDG" in o for o in loop))
+        out[name.strip()] = dict(instructions=best[0], popc=best[1], ldg=best[2])
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(out), capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        out = {pretty.replace("(anonymous namespace)::", ""): v
+               for pretty, v in zip(names, out.values())}
+    return out
+
+
+def step_loop(syms: int, rec: bool) -> int | None:
+    """Instructions of the step loop of lf_count2_kernel<syms, staged,
+    rec> (STEP_LOOPS), or None where the build phase found none."""
+    names = (f"lf_count2_kernel<{syms}, true, {'true' if rec else 'false'}>",
+             f"lf_count2_kernelILi{syms}ELb1ELb{int(rec)}E")  # demangled or not
+    for k, v in STEP_LOOPS.items():
+        if any(name in k for name in names):
+            return v["instructions"]
+    return None
 
 
 def ptxas_instances(log: str) -> dict:
@@ -1040,7 +1129,7 @@ def codes_of(idx) -> np.ndarray:
     return np.repeat(np.asarray(idx.run_head).astype(np.uint8), idx.run_lengths())
 
 
-def parity_inputs(device, cfg=SMALL, n_lanes=BATCH) -> dict:
+def parity_inputs(device, cfg=SMALL, n_lanes=PARITY_LANES) -> dict:
     """What phase parity checks its kernels on: the small panel's index
     (with SA samples: kval and phi1 for the walk), its BWT codes, the
     edge-case batch of n_lanes reads (host qc, lens and on the card q, ln;
@@ -1080,12 +1169,13 @@ def seeds_parity_child(out_path: str) -> None:
         pickle.dump(res, f)
 
 
-def phase_parity(device, cfg=SMALL, n_lanes=BATCH) -> dict:
+def phase_parity(device, cfg=SMALL, n_lanes=PARITY_LANES) -> dict:
     """K1 == find_ranges_plain on the card, both layouts, ftab on and off, on
     the edge-case batch and at the edges of k1_edges; then K1 over the
     two-level rows of the same BWT (n_sup = 4: fb2_64, fb2 and fb2_256, no
     ftab) on the batch and at the same edges, its ranges also equal to the
-    single-level rows', and the record launch over each against its twin;
+    single-level rows', and the record launch over each against its twin,
+    each layout's bit planes on the card equal to its nibble rows;
     the walk, toehold and tables kernels against their twins; and, in a
     child process started first (seeds_parity_child), the seeding kernel
     against its twins on the same inputs.  Returns {kernel: max |err|}."""
@@ -1112,7 +1202,7 @@ def parity_checks(device, inp: dict, n_lanes: int) -> dict:
 
     from rowbowt_tpu_torch.bigindex import BigIndex
     from rowbowt_tpu_torch.engine.count import find_ranges
-    from rowbowt_tpu_torch.engine.device import TorchIndex
+    from rowbowt_tpu_torch.engine.device import PLANE_SYMS, TorchIndex, nibbles_of_planes
     from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
     from rowbowt_tpu_torch.ops import cuda_lf
 
@@ -1122,6 +1212,7 @@ def parity_checks(device, inp: dict, n_lanes: int) -> dict:
     launches0 = cuda_lf.LAUNCHES
     results = {}
     edge_nonempty = {}
+    t0 = time.perf_counter()
     for fb64 in (True, False):
         tx = TorchIndex.from_index(idx, device, fb64=fb64)
         for use_ftab in (True, False):
@@ -1155,11 +1246,21 @@ def parity_checks(device, inp: dict, n_lanes: int) -> dict:
     single = [find_ranges(tx, qe, le, use_ftab=False) for _, qe, le in [("", q, ln)] + edges]
     err2, err3, layouts = 0, 0, []
     launches0, rec0 = cuda_lf.LAUNCHES_FB2, cuda_lf.LAUNCHES_REC
+    planes = {}
+    k1_s, t0 = time.perf_counter() - t0, time.perf_counter()
     for block, fb64 in ((128, True), (128, False), (256, False)):
-        tx = TorchIndex.from_big(BigIndex.from_codes(codes, idx.alpha, n_sup=4, block=block),
-                                 device, fb64=fb64)
+        big = BigIndex.from_codes(codes, idx.alpha, n_sup=4, block=block)
+        tx = TorchIndex.from_big(big, device, fb64=fb64)
         layout = cuda_lf.row_layout(tx)
         layouts.append(layout)
+        # the bit planes the card holds give back the nibble rows they were
+        # made from
+        rows = cuda_lf.rows_of(tx, layout)
+        nib = big._fb2_64() if layout == "fb2_64" else big.fb2
+        back = nibbles_of_planes(rows, PLANE_SYMS[layout], tx.n).cpu().numpy()
+        check(np.array_equal(back, nib), f"the bit planes of {layout} != its nibble rows")
+        planes[layout] = dict(row_bytes=rows.shape[1] * 4, nibble_row_bytes=nib.shape[1] * 4,
+                              bytes=tx.planes_bytes, s=tx.planes_s)
         for (label, qe, le), one in zip([("batch", q, ln)] + edges, single):
             got = find_ranges(tx, qe, le)
             want = cuda_lf.find_ranges_plain(tx, qe, le)
@@ -1180,7 +1281,9 @@ def parity_checks(device, inp: dict, n_lanes: int) -> dict:
           f"{launches2}")
     launches3 = cuda_lf.LAUNCHES_REC - rec0
     check(launches3 == want_fb2, f"expected {want_fb2} record launches, counted {launches3}")
+    fb2_s, t0 = time.perf_counter() - t0, time.perf_counter()
     walk = walk_parity(device, idx, codes, q, ln)
+    walk_s = time.perf_counter() - t0
     # the full-SA index's toeholds and the raw tables, shared by the toehold
     # launch's and the tables kernel's checks
     cases = [("batch", q, ln)] + edges
@@ -1194,7 +1297,8 @@ def parity_checks(device, inp: dict, n_lanes: int) -> dict:
                   edge_cases=inp["counts"], nonempty=results,
                   edges=[label for label, _, _ in edges], edge_nonempty=edge_nonempty,
                   host_checked=N_HOST, launches=launches, max_abs_err=err, fb2_layouts=layouts,
-                  fb2_launches=launches2, fb2_max_abs_err=err2, rec_launches=launches3,
+                  fb2_launches=launches2, fb2_max_abs_err=err2, planes=planes,
+                  k1_s=k1_s, fb2_s=fb2_s, walk_s=walk_s, rec_launches=launches3,
                   rec_max_abs_err=err3, walk=walk, toehold=toe, tables=tab)
     errs = {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3,
             "lf_toehold": toe["max_abs_err"],
@@ -1510,16 +1614,16 @@ def dir_gb(path: str) -> float:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
 
 
-def build_cli(cfg=CHR) -> dict:
-    """Phase build_cli: the chr panel written as a FASTA and a gzipped VCF,
-    checked to parse back (construct.build_panel) to panel(cfg)'s text,
-    documents and markers, then built by `rbt_build_torch --fasta --vcf -s
-    -m -l -f -k 10` in this process (build seconds, peak RSS, index GB).  The
-    later phases use this index (with its `idx.midx.npz`) and the reads'
-    FASTQ files written here."""
+def chr_build(out_path: str, cfg=CHR) -> None:
+    """Phase build_cli's host work, in a spawned child process beside the
+    card's phases (start_chr_build): the chr panel written as a FASTA and a
+    gzipped VCF, checked to parse back (construct.build_panel) to
+    panel(cfg)'s text, documents and markers, then built by `rbt_build_torch
+    --fasta --vcf -s -m -l -f -k 10` (build seconds, peak RSS); its times
+    and stderr pickled into out_path."""
+    import pickle
+
     from rowbowt_tpu_torch.construct import build_panel
-    from rowbowt_tpu_torch.index import RbtIndex
-    from rowbowt_tpu_torch.midx import PosMarkers
 
     t0 = time.perf_counter()
     fa, vcf = write_panel_files(cfg, os.path.join(WORK, "panel"))
@@ -1533,15 +1637,47 @@ def build_cli(cfg=CHR) -> dict:
           == [(m.text_pos, m.seq, m.pos, m.allele) for m in markers],
           "build_panel's markers != panel(CHR)'s")
     panel_check_s = time.perf_counter() - t
-    pm = markers_by_text_pos(markers)
-    del parsed, markers
-    paths = {x: os.path.join(WORK, x) for x in ("idx", "reads.fq", "locate.fq", "greedy.fq",
-                                                "greedy_cpu.fq", "lmem.fq", "out.txt")}
+    del parsed, markers, text
     mem: dict = {}
     with peak_rss(mem):
         build_s, _, err = run_main("rbt_build", ["--fasta", fa, "--vcf", vcf, "-s", "-m", "-l",
-                                                 "-f", "-k", str(FTAB_K), "-o", paths["idx"]],
-                                   paths["out.txt"])
+                                                 "-f", "-k", str(FTAB_K), "-o",
+                                                 os.path.join(WORK, "idx")],
+                                   os.path.join(WORK, "build_out.txt"))
+    with open(out_path, "wb") as f:
+        pickle.dump(dict(write_s=write_s, panel_check_s=panel_check_s, build_s=build_s, err=err,
+                         peak_rss_gb=mem["peak_rss_gb"], wall_s=time.perf_counter() - t0), f)
+
+
+def start_chr_build() -> dict:
+    """chr_build in a spawned child process (no CUDA, no torch state of this
+    process); phase build_cli joins it."""
+    path = os.path.join(WORK, "chr_build.pkl")
+    return dict(proc=spawn_child(chr_build, path), path=path)
+
+
+def build_cli(cfg=CHR, child: dict | None = None) -> dict:
+    """Phase build_cli: chr_build's child (started here where `child` is
+    None) joined, its index loaded and checked (with its `idx.midx.npz`
+    against the panel's markers), and the reads' FASTQ files written.  The
+    later phases use this index and those files."""
+    import pickle
+
+    from rowbowt_tpu_torch.index import RbtIndex
+    from rowbowt_tpu_torch.midx import PosMarkers
+
+    t0 = time.perf_counter()
+    child = child or start_chr_build()
+    text, _, markers = panel(cfg)
+    pm = markers_by_text_pos(markers)
+    del markers
+    child["proc"].join()
+    check(child["proc"].exitcode == 0, f"chr_build's child exited {child['proc'].exitcode}")
+    with open(child["path"], "rb") as f:
+        built = pickle.load(f)
+    err = built["err"]
+    paths = {x: os.path.join(WORK, x) for x in ("idx", "reads.fq", "locate.fq", "greedy.fq",
+                                                "greedy_cpu.fq", "lmem.fq", "out.txt")}
     check(err.splitlines()[-1].startswith("built index (n="), f"rbt_build said {err[-200:]!r}")
     t = time.perf_counter()
     idx = RbtIndex.load(paths["idx"])
@@ -1558,11 +1694,12 @@ def build_cli(cfg=CHR) -> dict:
     write_fastq(paths["greedy_cpu.fq"], reads[:N_GREEDY_CPU])
     write_fastq(paths["lmem.fq"], reads[:N_LMEM])
     emit("build_cli", n=idx.n, R=idx.R, M=int(idx.ma_val.shape[0]), docs=len(idx.doc_names),
-         ref_len=cfg["ref_len"], files_write_s=write_s, panel_check_s=panel_check_s,
-         build_s=build_s, peak_rss_gb=mem["peak_rss_gb"], load_s=load_s,
+         ref_len=cfg["ref_len"], files_write_s=built["write_s"],
+         panel_check_s=built["panel_check_s"], build_s=built["build_s"],
+         peak_rss_gb=built["peak_rss_gb"], load_s=load_s, child_wall_s=built["wall_s"],
          index_gb=dir_gb(paths["idx"]), ftab_text_mb=os.path.getsize(paths["idx"] + ".ftab") / 1e6,
          cli_stderr=err.splitlines(), setup_s=time.perf_counter() - t0)
-    return dict(idx=idx, text=text, reads=reads, paths=paths, build_s=build_s, pm=pm)
+    return dict(idx=idx, text=text, reads=reads, paths=paths, build_s=built["build_s"], pm=pm)
 
 
 def markers_by_text_pos(markers):
@@ -2259,27 +2396,31 @@ def k1_work(tx, q, ln, use_ftab: bool) -> dict:
 
 
 def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_step: float,
-             lane_bytes: int = 4, table_bytes: int = 0, out_bytes: int = 0) -> dict:
+             lane_bytes: int = 4, table_bytes: int = 0, out_bytes: int = 0,
+             step_ops: int | None = None) -> dict:
     """K1's bound per batch from the batches' work: bytes (each input byte
     read once: the reads' int32 codes, the lengths, F, the distinct rows, the
     distinct ftab entries, `table_bytes` more (the two-level rows' base
     table); each output written once: lo, hi, of lane_bytes each, and
     `out_bytes` more (the record launch's [L, B] int64 step record)) over the
-    card's memory rate; the rank operations over its int32 rate; the longest
-    lane's dependent steps times the dependent load latency.  The kernel
-    stages whole padded rows, padded_code_bytes, more than the reads' codes."""
+    card's memory rate; the operations of the ranked steps over its int32
+    rate (one instruction of one thread an operation), `step_ops` a step
+    (the two-level search: its two threads' step loop, step_loop), else two
+    SWAR ranks of RANK_OPS; the longest lane's dependent steps times the
+    dependent load latency.  The kernel stages whole padded rows,
+    padded_code_bytes, more than the reads' codes."""
     nb = len(work)
     mean = {key: sum(w[key] for w in work) / nb for key in work[0]}
     nbytes = (mean["codes"] * 4 + B * 4 + (A + 1) * lane_bytes
               + mean["distinct_rows"] * row_bytes + mean["ftab_entries"] * 8 + table_bytes
               + B * 2 * lane_bytes + out_bytes)
-    ops = 2 * RANK_OPS * mean["ranked_steps"]
+    ops = (step_ops or 2 * RANK_OPS) * mean["ranked_steps"]
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
     ops_us = ops / INT_OPS_PER_S * 1e6
     latency_us = mean["longest_lane_steps"] * us_per_step
     bound_us = max(byte_us, latency_us)
     return dict(mean, bytes=nbytes, padded_code_bytes=B * L * 4, byte_bound_us=byte_us,
-                ops=ops, ops_bound_us=ops_us,
+                ops=ops, ops_bound_us=ops_us, step_ops=step_ops or 2 * RANK_OPS,
                 latency_bound_us=latency_us, bound_us=bound_us,
                 bound_by="bytes" if byte_us >= latency_us else "latency",
                 row_load_bytes=mean["row_loads"] * row_bytes,
@@ -2730,13 +2871,15 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
     (the engines' *_records_plain torch loops, run on the card), every record
     table equal, one launch a call on its route:
       - over the small panel's fblock64 rows (int32 lanes) and its BigIndex
-        view's fb2_64 rows (int64 lanes; the sampled machine with its step
-        record there), the dense index's ftab attached to both: greedy and
+        view's fb2_64 bit planes (int64 lanes; the sampled machine with its
+        step record there), the dense index's ftab attached to both: greedy and
         lmem with the ftab start and without, each at its engine's
         capacities and at capacities that overflow (seed_cfg small), on the
         parity batch and SEED_RANDOM_LANES random-code lanes; each machine
         at its engine's capacities at the edges of k1_edges over both (the
-        unstaged L = 3,072 for the sampled machine only);
+        unstaged L = 3,072 for the sampled machine only); greedy and the
+        sampled machine over the fb2 and fb2_256 bit planes at the engines'
+        capacities on the batch and the random lanes;
       - the sampled machine's per-step toehold over the raw tables' fused
         rows ({route: raw_tables}: tk1 and ltk), at both capacities on the
         batch and the random lanes, and at the k1_edges edges over tk1;
@@ -2812,6 +2955,17 @@ def seeds_parity(device, idx, codes, q, ln, edges, raw: dict) -> dict:
         check(cuda_lf.row_layout(tx) == layout, f"seeds parity over {cuda_lf.row_layout(tx)}")
         for mode in ("greedy", "lmem", "sample"):
             held(tx, layout, mode, plan(mode, every if mode == "sample" else staged))
+    # the two-level machines over the 96 B and 128 B plane rows, at the
+    # engines' capacities on the batch and the random lanes
+    for block, layout in ((128, "fb2"), (256, "fb2_256")):
+        tx = TorchIndex.from_big(BigIndex.from_codes(codes, idx.alpha, n_sup=4, block=block),
+                                 device, fb64=False)
+        tx = dataclasses.replace(tx, arrays=dict(tx.arrays, ftab=dense.arrays["ftab"]),
+                                 ftab_k=dense.ftab_k)
+        check(cuda_lf.row_layout(tx) == layout, f"seeds parity over {cuda_lf.row_layout(tx)}")
+        for mode in ("greedy", "sample"):
+            held(tx, layout, mode, [(label, qe, le, False, True) for label, qe, le in cases])
+        del tx
     # the per-step toehold over fused rows (no kval): tk1 and ltk
     for route in ("tk1", "ltk"):
         tx = TorchIndex.from_index(raw[route], device)
@@ -3053,7 +3207,7 @@ def seed_bound(work: dict, B: int, tx, lat) -> dict:
             tx.arrays["run_start"].element_size() + 2 * tx.arrays["rs_off"].element_size()
             if ltk else 0))
     if key:
-        table_bytes = work["distinct_rows"] * tx.arrays[key].shape[1] * 4
+        table_bytes = work["distinct_rows"] * cuda_lf.rows_of(tx, key).shape[1] * 4
         per_rank = RANK_OPS
     else:
         table_bytes = work["table_bytes"]
@@ -3348,7 +3502,8 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
                                       with_markers=False)}
     torch.cuda.synchronize()
     res = dict(load_s=time.perf_counter() - t, wait_s=wait_s, build=stats, layout=layout,
-               table_gb={k: tx.arrays[k].numel() * 4 / 1e9 for k, tx in txs.items()},
+               table_gb={k: cuda_lf.rows_of(tx, k).numel() * 4 / 1e9 for k, tx in txs.items()},
+               planes={k: dict(bytes=tx.planes_bytes, s=tx.planes_s) for k, tx in txs.items()},
                n=n, R=big.R, M=int(big.ma_row.shape[0]), n_sup=big.n_sup)
     check(all(cuda_lf.row_layout(tx) == k for k, tx in txs.items()), "pfp_big's row layouts")
     err, rec_err, ranges, launches = 0, 0, {}, {}
@@ -3401,13 +3556,17 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
           and np.array_equal(hi[:n_par] - lo[:n_par] + 1, e["cnt"]),
           "K1 over fb2_256 != the CPU engine or the analytic counts")
     if k1 is not None:
-        tx = txs["fb2_256"]
-        work = [k1_work(tx, q, ln, False)]
-        res["work"] = work
-        res["bound"] = k1_bound(work, BATCH, READ_LEN, tx.A, 160,
-                                k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
-                                table_bytes=tx.arrays["fb2_base"].numel() * 8)
-        res["fb2_256_share"] = res["bound"]["bound_us"] / res["fb2_256_device_us"]
+        # each layout's bound: the same steps over rows of its own width
+        for key, tx in txs.items():
+            row_bytes, step_ops = two_level_costs(tx, False)
+            res[f"{key}_work"] = [k1_work(tx, q, ln, False)]
+            bk = k1_bound(res[f"{key}_work"], BATCH, READ_LEN, tx.A, row_bytes,
+                          k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
+                          table_bytes=tx.arrays["fb2_base"].numel() * 8, step_ops=step_ops)
+            res[f"{key}_bound"] = bk
+            res[f"{key}_share"] = bk["bound_us"] / res[f"{key}_device_us"]
+        tx, work = txs["fb2_256"], res["fb2_256_work"]
+        res["work"], res["bound"] = work, res["fb2_256_bound"]
         # the record launch over the saved directory's rows: rbt_align -s's route
         res["rec"] = record_times(device, big, tx, [(q, ln)], work, k1, "fb2_256",
                                   res["fb2_256_call_ms"])
@@ -3631,8 +3790,9 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     reads;
     rbt_locs prints the dense run's lines (held to the oracle in phase
     locs).  Load and query seconds, reads/s, stages and K1 launches of each.
-    Then K1 over fb2_64 on the main path's four batches against the plain
-    loop and K1 over fblock64 (no ftab: the same work), call times in turns
+    Then K1 over fb2_64's bit planes on the first two of the main path's
+    batches against the plain loop and K1 over fblock64 (no ftab: the same
+    work), call times in turns
     and device times alone (CUDA events; one profiler trace as a check),
     the bound as phase k1 computes it (int64 F, lo and hi, and the base
     table), and K1 over the 96 B fb2 rows against the plain loop."""
@@ -3720,7 +3880,7 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     big = BigIndex.load(path)
     tx = TorchIndex.from_big(big, device, with_locate=False, with_markers=False)  # fb2_64
     txd = TorchIndex.from_index(idx, device)  # fblock64
-    host = [(qc, lens) for _, qc, lens in iter_query_batches(big, paths["reads.fq"], BATCH)]
+    host = [(qc, lens) for _, qc, lens in iter_query_batches(big, paths["reads.fq"], BATCH)][:2]
     dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device))
            for qc, lens in host]
     B, L = dev[0][0].shape
@@ -3748,7 +3908,7 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
         return [lambda a, b, q=q, ln=ln: k1_current(t, q, ln, False, a, b) for q, ln in dev]
 
     res = dict(view, launches=runs["count"]["launches"], max_abs_err=err, batches=len(dev),
-               lanes=B, L=L, runs=runs)
+               lanes=B, L=L, runs=runs, planes=dict(bytes=tx.planes_bytes, s=tx.planes_s))
     res["fb2_call_ms"], res["plain_ms"] = in_turns(
         [lambda q=q, ln=ln: cuda_lf.find_ranges_plain(tx, q, ln) for q, ln in dev],
         calls(tx), 1, 5)
@@ -3760,11 +3920,14 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     old.append(kernel_event_us(bracketed(txd), 5))
     res["fb2_device_us"], res["fblock64_device_us"] = sum(new) / 2, sum(old) / 2
     res["fb2_device_us_each"], res["fblock64_device_us_each"] = new, old
-    res["profiled_us"] = profiled_kernel_us(calls(tx), 3, ("lf_count_kernel",))["lf_count_kernel"]
+    res["profiled_us"] = profiled_kernel_us(calls(tx), 3,
+                                            ("lf_count2_kernel",))["lf_count2_kernel"]
     work = [k1_work(tx, q, ln, False) for q, ln in dev]
     res["work"] = work
-    res["bound"] = k1_bound(work, B, L, tx.A, 64, k1["us_per_dependent_step"]["random_cycle"],
-                            lane_bytes=8, table_bytes=tx.arrays["fb2_base"].numel() * 8)
+    row_bytes, step_ops = two_level_costs(tx, False)
+    res["bound"] = k1_bound(work, B, L, tx.A, row_bytes,
+                            k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
+                            table_bytes=tx.arrays["fb2_base"].numel() * 8, step_ops=step_ops)
     res["fb2_share"] = res["bound"]["bound_us"] / res["fb2_device_us"]
     res["rec"] = record_times(device, big, tx, dev, work, k1, "fb2_64", res["fb2_call_ms"])
     res["rec"].update(max_abs_err=rec_err, edges=[label for label, _, _ in edges],
@@ -3782,6 +3945,18 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     del tx, txd, tx96, dev, plain
     torch.cuda.empty_cache()
     return res
+
+
+def two_level_costs(tx, rec: bool) -> tuple:
+    """(row bytes, operations a ranked step) of the two-level search over
+    tx's bit planes, the record launch's where `rec`: the plane row's bytes,
+    and the two threads' step loop (step_loop) where the build phase counted
+    it, else None (two SWAR ranks)."""
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    key = cuda_lf.row_layout(tx)
+    loop = step_loop(cuda_lf._SYMS_PER_ROW[key], rec)
+    return cuda_lf.rows_of(tx, key).shape[1] * 4, 2 * loop if loop else None
 
 
 def record_times(device, big, tx, dev, work: list, k1: dict, key: str, k1_ms: float) -> dict:
@@ -3814,7 +3989,7 @@ def record_times(device, big, tx, dev, work: list, k1: dict, key: str, k1_ms: fl
     old.append(kernel_event_us(bare, 5))
     out["device_us"], out["k1_device_us"] = sum(new) / 2, sum(old) / 2
     out["device_us_each"], out["k1_device_us_each"] = new, old
-    out["profiled_us"] = profiled_kernel_us(calls, 3, ("lf_count_kernel",))["lf_count_kernel"]
+    out["profiled_us"] = profiled_kernel_us(calls, 3, ("lf_count2_kernel",))["lf_count2_kernel"]
     txl = TorchIndex.from_big(big, device, fb64=key == "fb2_64", with_locate=True,
                               with_markers=False)
     recs = [cuda_lf.find_ranges_record(txl, q, ln) for q, ln in dev]
@@ -3825,9 +4000,10 @@ def record_times(device, big, tx, dev, work: list, k1: dict, key: str, k1_ms: fl
     out["toehold_ms"] = cuda_ms([lambda q=q, ln=ln: find_ranges_w_toehold(txl, q, ln)
                                  for q, ln in dev], 3)
     del txl, recs
-    b = k1_bound(work, B, L, tx.A, cuda_lf._SYMS_PER_ROW[key] // 8 * 4 + 32,
-                 k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
-                 table_bytes=tx.arrays["fb2_base"].numel() * 8, out_bytes=L * B * 8)
+    row_bytes, step_ops = two_level_costs(tx, True)
+    b = k1_bound(work, B, L, tx.A, row_bytes, k1["us_per_dependent_step"]["random_cycle"],
+                 lane_bytes=8, table_bytes=tx.arrays["fb2_base"].numel() * 8,
+                 out_bytes=L * B * 8, step_ops=step_ops)
     out["bound"] = b
     out["bound_ms"] = max(b["byte_bound_us"], b["ops_bound_us"]) / 1e3
     out["bound_by"] = "bytes" if b["byte_bound_us"] >= b["ops_bound_us"] else "operations"
@@ -5271,9 +5447,9 @@ def phase_build_small(device, card: dict, child: dict, lat: dict | None = None) 
 # ---------------- the multi-rank phases: the mesh engines on the card ----------------
 
 PAR_RANKS = 4  # ranks of the multi-rank phases: processes on cuda:0 over gloo
-N_PAR_COUNT = 8_192  # reads of the sharded count runs: the first of main's first batch
-N_PAR_LOCATE = 2_048  # reads of the sharded toehold + locate and window-marker runs
-N_PAR_GREEDY = 1_024  # reads of the sharded greedy runs: 2,048 lanes with both strands
+N_PAR_COUNT = 2_048  # reads of the sharded count runs: the first of main's first batch
+N_PAR_LOCATE = 1_024  # reads of the sharded toehold + locate and window-marker runs
+N_PAR_GREEDY = 512  # reads of the sharded greedy runs: 1,024 lanes with both strands
 PAR_MAX_HITS = 8
 PAR_MAX_K = 32  # window-marker buffer: sharded_stream's
 PAR_MAX_RANGE = 1000
@@ -5887,7 +6063,7 @@ def main(argv: list[str]) -> int:
     phase_build()
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    child = raw_child = small_child = None
+    child = raw_child = small_child = chr_child = None
     try:
         if only:
             if only & {"pfp_big", "parallel_sharded"}:
@@ -5945,7 +6121,8 @@ def main(argv: list[str]) -> int:
                 elif name == "parity":
                     phase_parity(device)
                 elif name == "pfp_big":
-                    phase_pfp_big(device, card, child, None)
+                    # its bounds where phase k1 ran before it
+                    phase_pfp_big(device, card, child, made.get("k1"))
                 elif name == "build_small":
                     lat = made["k1"]["us_per_dependent_step"] if "k1" in made else None
                     phase_build_small(device, card, small_child, lat)
@@ -5983,9 +6160,11 @@ def main(argv: list[str]) -> int:
         # and the small panel's builds beside those before build_small
         child = start_pfp_big_build()
         small_child = start_small_builds()
+        # and chr's build beside probes and parity
+        chr_child = start_chr_build()
         probes = phase_probes(device)
         par_err = phase_parity(device)
-        chr_ = build_cli()
+        chr_ = build_cli(child=chr_child)
         # the raw index's host build runs beside the phases before raw_chr
         raw_child = start_raw_chr_build(chr_)
         count = phase_main(device, card, chr_)
@@ -6020,7 +6199,7 @@ def main(argv: list[str]) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     finally:
-        for c in (child, raw_child, small_child):
+        for c in (child, raw_child, small_child, chr_child):
             stop_child(c)
         shutil.rmtree(WORK, ignore_errors=True)
 

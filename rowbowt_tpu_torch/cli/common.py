@@ -99,7 +99,9 @@ def load_index(prefix: str, sa=False, ma=False, dl=False, ft=False):
 def device_index(idx, device, sa=False, ma=False):
     """The index's tensors on `device` (the 64B-row layout).  An RbtIndex was
     gated at load; a BigIndex puts its locate and marker tables on the
-    device only for the flags that ask for them.  Where the load built the
+    device only for the flags that ask for them; the seconds and device
+    bytes of its two-level rows' repack into bit planes go to stderr as a
+    `bit planes: {...}` line (JSON).  Where the load built the
     kernels' bucket directories and run records (TorchIndex.with_run_tables,
     with_pred_directory), their bytes and seconds, and each directory's
     (shift, iters) and bytes, go to stderr as a `run tables: {...}` line
@@ -112,6 +114,8 @@ def device_index(idx, device, sa=False, ma=False):
                                  with_markers=ma and idx.has_markers)
     else:
         tx = TorchIndex.from_index(idx, device)
+    if tx.planes_bytes:
+        eprint("bit planes: " + json.dumps(dict(bytes=tx.planes_bytes, seconds=tx.planes_s)))
     if tx.rs_bs or tx.pred_bs:
         eprint("run tables: " + json.dumps(dict(bytes=tx.run_tables_bytes,
                                                 seconds=tx.run_tables_s,

@@ -4,24 +4,34 @@
 // Replaces rowbowt_tpu/ops/pallas_lf.py:_lf_kernel (with its _swar_count)
 // and computes what rowbowt_tpu/engine/count.py:find_ranges computes, the
 // ftab start included: both row layouts, any alphabet of at most 8 codes.
-// A second instance of the same kernel (C entry rbt_lf_count_fb2) runs the
+// A second kernel, lf_count2_kernel (C entry rbt_lf_count_fb2), runs the
 // search over the two-level rows of a big (n >= 2^31) index, which the JAX
 // package computes with XLA gathers over rowbowt_tpu/ops/rank.py
 // lf_step_fblock2: int64 lanes, superblock-local checkpoints completed by an
 // int64 base per superblock and code, rows of 64, 128 or 256 symbols, and
-// no ftab (big artifacts carry none).
+// no ftab (big artifacts carry none).  Its rows are bit planes (lf_rank.cuh
+// Planes; engine/device.py bit_planes repacks the artifact's nibbles at
+// load), so a rank costs a thread two ands of xors, a popcount and a mask
+// for each 32 of its symbols, where the nibbles' SWAR count took some 60
+// instructions for them; its 256-symbol rows are 128 B, one line, for 160.
+// With fewer registers the search is built for two 512-thread blocks an SM
+// at every row width, so that a batch of 65,536 lanes runs in one wave
+// (LfBounds); a row's superblock is a multiply and a shift (Sup), not a
+// division, and row ids and in-row offsets stay ints.
 // Given a record buffer, that entry's search (its REC instance) also writes
 // each lane's pre-step hi of every step into an int64 [L, B] record:
 // the step record of the trajectory toehold of a big index
 // (rowbowt_tpu_torch/engine/locate.py _toehold_trajectory), which the JAX
 // package runs as an XLA fori_loop (rowbowt_tpu/engine/locate.py:120).  The
-// record is L * B * 8 bytes of coalesced writes (the lanes of a warp are
-// neighbouring columns of one row of it) beside the search's row loads, and
-// it runs to L: after a failure its entries are 0 (the empty range's hi),
-// past the read's length the final hi.  Those writes are the only bytes it
-// adds to the bound; a chr batch took 1.21x the search without the record
-// on an H100 (PERF.md §6).
-//
+// record runs to L: after a failure its entries are 0 (the empty range's
+// hi), past the read's length the final hi.  Every lane of a warp steps to
+// L with the others, its range held once its search has ended, so each
+// step's stores of a warp fill neighbouring columns of one row of the
+// record, and the stores are evict-first (st.global.cs), so that the 67 MB
+// record of a chr batch does not push the rows out of the 50 MB L2.  Over
+// the nibble rows, each lane filling its own tail after its loop, the
+// record took 1.21x the search without it (PERF.md §6).
+
 // What bounds it on the H100.  A lane's step is two ranks, each over one
 // random row of a table that the 50 MB L2 does not hold (160 MB of fblock64
 // rows at chr), and the next step's rows need this step's result.  A chr
@@ -56,10 +66,11 @@
 // superblock (per_blk rows); base[s][c] (int64) is the count of c before
 // superblock s.  A row id stays an int (n < 2^37 for 64-symbol rows), and
 // only the lanes, F and base are 64-bit: one more 8-byte load a rank, from
-// a table of n_sup x 64 bytes that stays in L1 and L2.  The rows' layout,
-// the staging, the ftab k-mer code and a step's two ranks (rank_pair) live
-// in lf_rank.cuh, which csrc/seeds.cu (the seeding machines of rbt_markers
-// and rbt_locs) includes too.
+// a table of n_sup x 64 bytes that stays in L1 and L2.  The rows' layouts,
+// the staging, the ftab k-mer code and a step's two ranks (rank_pair, and
+// rank_pair_planes over the two-level rows) live in lf_rank.cuh, which
+// csrc/seeds.cu (the seeding machines of rbt_markers and rbt_locs) includes
+// too.
 //
 // A third instance (TOE, C entry rbt_lf_toehold) is the search of
 // `rbt_align -s` on an index built from run samples alone (raw, serialized,
@@ -157,19 +168,20 @@
 
 namespace {
 
-// The block size and blocks an SM this file's two kernels are built for, by
+// The block size and blocks an SM this file's kernels are built for, by
 // lane type.  int32 lanes: __launch_bounds__(1024), the bound they were
 // tuned and timed under, with no blocks an SM asked (0), which keeps their
 // machine code.  int64 lanes: 512 threads, the block ops/cuda_lf.py
-// launch_plan gives every lane type, and 2 blocks an SM (64 registers), 1
-// over the 256-symbol rows (128): under the 1024-thread bound ptxas held
-// two of them to 32 registers and they spilled; 256 threads and 3 blocks
-// (85 registers) spilled none either but ran 1.04-1.10x the parent over
-// `fb2_64` at chr and `fb2` above 2^31 (PERF.md §6).
+// launch_plan gives every lane type, and 2 blocks an SM (64 registers),
+// over the plane rows of every width: 256 lanes a block, so a batch of
+// 65,536 lanes runs in one wave on 132 SMs.  Under the 1024-thread bound
+// ptxas held two blocks to 32 registers and they spilled; over the nibble
+// rows the 256-symbol instances needed 95-108 registers and so one block
+// an SM, two waves for such a batch (PERF.md §6).
 template <typename Lane, int SYMS>
 struct LfBounds {
   static constexpr int kThreads = sizeof(Lane) == 8 ? 512 : 1024;
-  static constexpr int kBlocks = sizeof(Lane) == 4 ? 0 : SYMS == 256 ? 1 : 2;
+  static constexpr int kBlocks = sizeof(Lane) == 4 ? 0 : 2;
 };
 
 // ---------------------------------------------------------------------------
@@ -262,11 +274,10 @@ lf_count_transposed_kernel(const int4* __restrict__ fb,
 // One block: blockDim.x / kG lanes, kG neighbouring threads a lane.  STAGE
 // reads the codes from shared memory (staged once per block), else from
 // global memory at every step (for batches too wide to stage).  Lane is
-// int32_t for the single-level rows, with the ftab start; int64_t for the
-// two-level rows, with `base` and `per_blk` and without the ftab (k is 0).
-// REC (two-level rows only) writes hi_rec[j][b], lane b's hi before step j,
-// for every j in [0, L).  TOE (single-level rows, no ftab start) also writes
-// each lane's toehold into toe.k[b], 0 for a failed search.
+// int32_t: the single-level rows, with the ftab start (`base`, `per_blk`
+// and REC unused: the two-level search is lf_count2_kernel).  TOE (no ftab
+// start) also writes each lane's toehold into toe.k[b], 0 for a failed
+// search.
 template <typename Lane, int SYMS, bool STAGE, bool REC, bool TOE>
 __global__ void __launch_bounds__(LfBounds<Lane, SYMS>::kThreads, LfBounds<Lane, SYMS>::kBlocks)
 lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
@@ -277,9 +288,7 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
                 Lane* __restrict__ lo_out, Lane* __restrict__ hi_out,
                 Lane* __restrict__ hi_rec, Toe toe) {
   using Lo = Layout<SYMS>;
-  constexpr bool kTwoLevel = sizeof(Lane) == 8;
-  static_assert(kTwoLevel || !REC, "the step record is the two-level search's");
-  static_assert(!kTwoLevel || !TOE, "the per-step toehold is the single-level search's");
+  static_assert(sizeof(Lane) == 4 && !REC, "the single-level search");
   extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when STAGE
   __shared__ Lane sF[kCkpt + 1];
 
@@ -305,7 +314,7 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   const int len = lengths[b];
   Lane lo = 0, hi = n - 1;
   int j = 0;
-  if (!kTwoLevel && k > 0 && len >= k) {
+  if (k > 0 && len >= k) {
     const int kc = kmer_code(code_at, L, k, acgt);
     if (kc >= 0) {
       const int flo = ftab[2 * (size_t)kc];
@@ -326,26 +335,22 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   Lane thi = 0;
   for (; j < jend; ++j) {
     const int c = code_at(L - 1 - j);
-    if (REC && sub == 0) hi_rec[(size_t)j * B + b] = hi;
     if (c >= A) {  // absent code: empty range, lane done
       lo = 1;
       hi = 0;
-      if (REC) ++j;  // step j is recorded
       break;
     }
     // rank(n, c) is the code's total count; hi + 1 does reach n
     const Lane i1 = hi + 1;
     int4 w[Lo::kPer];
     Lane cb, ce;
-    rank_pair<Lane, SYMS>(fb, base, per_blk, n, sF[c + 1] - sF[c], lo, i1, c, sub, pair, w, cb,
-                          ce);
+    rank_pair<SYMS>(fb, n, sF[c + 1] - sF[c], lo, i1, c, sub, pair, w, cb, ce);
     bool trivial = false;  // BWT[hi] == c
     if constexpr (TOE) trivial = bwt_at_hi<Lane, SYMS>(fb, w, sub, pair, n, hi) == c;
     const Lane ci = ce - cb;
     if (ci <= 0) {
       lo = 1;
       hi = 0;
-      if (REC) ++j;  // step j is recorded
       break;
     }
     if constexpr (TOE) {
@@ -365,56 +370,145 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
     hi_out[b] = hi;
     if constexpr (TOE)
       static_cast<Lane*>(toe.k)[b] = hi < lo ? 0 : (Lane)resolve_toehold(toe, n, tc, thi, triv);
-    // the steps not taken: 0 after a failure, the final hi past the read
-    if (REC)
-      for (; j < L; ++j) hi_rec[(size_t)j * B + b] = hi;
   }
 }
 
-template <typename Lane>
+// The record's stores: st.global.cs (__stcs, evict first), so that the L2
+// lets their lines go before the rows'.  Timed on an H100 in turns and
+// dropped (PERF.md §6): plain stores (1.001-1.004x the record's time), the
+// stores split over a lane's two threads (0.99-1.003x), and the count's
+// lanes of a warp stepping together as the record's do (0.99-1.04x).
+__device__ __forceinline__ void store_rec(int64_t* p, int64_t v) {
+  __stcs(reinterpret_cast<long long*>(p), (long long)v);
+}
+
+// The search over the two-level plane rows of a big index (lf_rank.cuh
+// Planes): blockDim.x / kG lanes a block, kG neighbouring threads a lane,
+// int64 lanes, F and base, no ftab start.  REC writes hi_rec[j][b], lane
+// b's hi before step j, for every j in [0, L): every lane of a warp runs to
+// L in step with the others, its range held once its search has ended (the
+// empty range's hi 0 after a failure, the final hi past its read), so that
+// each step's stores of a warp's lanes fill neighbouring columns of one row
+// of the record.
+template <int SYMS, bool STAGE, bool REC>
+__global__ void __launch_bounds__(LfBounds<int64_t, SYMS>::kThreads,
+                                  LfBounds<int64_t, SYMS>::kBlocks)
+lf_count2_kernel(const int4* __restrict__ fb, const int64_t* __restrict__ F, Sup sup, int A,
+                 int64_t n, const int32_t* __restrict__ q, const int32_t* __restrict__ lengths,
+                 int B, int L, int64_t* __restrict__ lo_out, int64_t* __restrict__ hi_out,
+                 int64_t* __restrict__ hi_rec) {
+  extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when STAGE
+  __shared__ int64_t sF[kCkpt + 1];
+
+  const int lanes = blockDim.x / kG;
+  const int b0 = blockIdx.x * lanes;
+  const int nl = min(lanes, B - b0);
+  const int stride = staged_stride(L);
+  if (threadIdx.x <= (unsigned)A) sF[threadIdx.x] = F[threadIdx.x];
+  if (STAGE) stage_codes(s_code, q + (size_t)b0 * L, nl, L, A, stride);
+  __syncthreads();
+
+  const int ll = threadIdx.x / kG;
+  if (ll >= nl) return;
+  const int sub = threadIdx.x % kG;
+  const int b = b0 + ll;
+  const uint8_t* mine = s_code + ll * stride;
+  const int32_t* row_q = q + (size_t)b * L;
+  auto code_at = [&](int col) -> int {
+    return STAGE ? (int)mine[col] : code_byte(row_q[col], A);
+  };
+  const unsigned pair = ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(kG - 1));
+  const int jend = min(lengths[b], L);
+  int64_t lo = 0, hi = n - 1;
+  bool trivial = false;  // unused: no per-step toehold over the two-level rows
+  if constexpr (REC) {
+    bool live = true;  // the search has not failed
+    for (int j = 0; j < L; ++j) {
+      if (sub == 0) store_rec(hi_rec + (size_t)j * B + b, hi);
+      if (live && j < jend)
+        live = lf_step_rows<int64_t, SYMS>(fb, sF, sup, A, n, sub, pair, code_at(L - 1 - j), lo,
+                                           hi, trivial);
+    }
+  } else {
+    for (int j = 0; j < jend; ++j)
+      if (!lf_step_rows<int64_t, SYMS>(fb, sF, sup, A, n, sub, pair, code_at(L - 1 - j), lo, hi,
+                                       trivial))
+        break;
+  }
+  if (sub == 0) {
+    lo_out[b] = lo;
+    hi_out[b] = hi;
+  }
+}
+
+// The single-level search's arguments (lf_count_kernel's own `base`,
+// `per_blk` and `hi_rec` are null: its int32 instances take them unused).
 struct Args {
   const int4* fb;
-  const Lane* F;
-  const int64_t* base;
-  int per_blk;
+  const int32_t* F;
   int A;
-  Lane n;
+  int32_t n;
   const int32_t* q;
   const int32_t* lengths;
   int B, L;
   const int32_t* ftab;
   int k;
   uint32_t acgt;
-  Lane* lo;
-  Lane* hi;
-  Lane* hi_rec;  // [L, B], or null for no step record
-  Toe toe;       // the toehold's tables (TOE instances), else zeros
+  int32_t* lo;
+  int32_t* hi;
+  Toe toe;  // the toehold's tables (TOE instances), else zeros
 };
 
-template <typename Lane, int SYMS, bool STAGE, bool REC, bool TOE>
-int launch(const Args<Lane>& a, int threads, cudaStream_t s) {
-  if (threads > LfBounds<Lane, SYMS>::kThreads) return (int)cudaErrorInvalidValue;
+template <int SYMS, bool STAGE, bool TOE>
+int launch(const Args& a, int threads, cudaStream_t s) {
+  if (threads > LfBounds<int32_t, SYMS>::kThreads) return (int)cudaErrorInvalidValue;
   const int lanes = threads / kG;
   const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
-  lf_count_kernel<Lane, SYMS, STAGE, REC, TOE><<<grid, threads, smem, s>>>(
-      a.fb, a.F, a.base, a.per_blk, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt,
-      a.lo, a.hi, a.hi_rec, a.toe);
+  lf_count_kernel<int32_t, SYMS, STAGE, false, TOE><<<grid, threads, smem, s>>>(
+      a.fb, a.F, nullptr, 0, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt, a.lo,
+      a.hi, nullptr, a.toe);
   return (int)cudaGetLastError();
 }
 
-template <typename Lane, int SYMS, bool REC = false, bool TOE = false>
-int launch_staged(const Args<Lane>& a, int threads, bool stage, cudaStream_t s) {
-  return stage ? launch<Lane, SYMS, true, REC, TOE>(a, threads, s)
-               : launch<Lane, SYMS, false, REC, TOE>(a, threads, s);
+template <int SYMS, bool TOE = false>
+int launch_staged(const Args& a, int threads, bool stage, cudaStream_t s) {
+  return stage ? launch<SYMS, true, TOE>(a, threads, s) : launch<SYMS, false, TOE>(a, threads, s);
 }
 
-// The two-level search, with the step record when a.hi_rec is not null.
+// The two-level search, with the step record where hi_rec is not null.
+struct Args2 {
+  const int4* fb;
+  const int64_t* F;
+  Sup sup;
+  int A;
+  int64_t n;
+  const int32_t* q;
+  const int32_t* lengths;
+  int B, L;
+  int64_t* lo;
+  int64_t* hi;
+  int64_t* hi_rec;  // [L, B], or null for no step record
+};
+
+template <int SYMS, bool STAGE, bool REC>
+int launch2(const Args2& a, int threads, cudaStream_t s) {
+  if (threads > LfBounds<int64_t, SYMS>::kThreads) return (int)cudaErrorInvalidValue;
+  const int lanes = threads / kG;
+  const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
+  if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
+  lf_count2_kernel<SYMS, STAGE, REC><<<grid, threads, smem, s>>>(
+      a.fb, a.F, a.sup, a.A, a.n, a.q, a.lengths, a.B, a.L, a.lo, a.hi, a.hi_rec);
+  return (int)cudaGetLastError();
+}
+
 template <int SYMS>
-int launch_fb2(const Args<int64_t>& a, int threads, bool stage, cudaStream_t s) {
-  return a.hi_rec ? launch_staged<int64_t, SYMS, true>(a, threads, stage, s)
-                  : launch_staged<int64_t, SYMS>(a, threads, stage, s);
+int launch_fb2(const Args2& a, int threads, bool stage, cudaStream_t s) {
+  if (a.hi_rec)
+    return stage ? launch2<SYMS, true, true>(a, threads, s) : launch2<SYMS, false, true>(a, threads, s);
+  return stage ? launch2<SYMS, true, false>(a, threads, s) : launch2<SYMS, false, false>(a, threads, s);
 }
 
 bool bad_launch(int A, int B, int L, int threads) {
@@ -572,40 +666,41 @@ int rbt_lf_count(const void* fb, int syms_per_row, const void* F, int A, int n,
       (k > 0 && (ftab == nullptr || L < k)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const Args<int32_t> a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F),
-                        nullptr, 0, A, n,
-                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
-                        B, L, static_cast<const int32_t*>(ftab), k, (uint32_t)acgt,
-                        static_cast<int32_t*>(lo), static_cast<int32_t*>(hi), nullptr, {}};
+  const Args a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F), A, n,
+               static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B, L,
+               static_cast<const int32_t*>(ftab), k, (uint32_t)acgt, static_cast<int32_t*>(lo),
+               static_cast<int32_t*>(hi), {}};
   cudaStream_t s = (cudaStream_t)stream;
-  if (syms_per_row == 64) return launch_staged<int32_t, 64>(a, threads, stage, s);
-  if (syms_per_row == 128) return launch_staged<int32_t, 128>(a, threads, stage, s);
+  if (syms_per_row == 64) return launch_staged<64>(a, threads, stage, s);
+  if (syms_per_row == 128) return launch_staged<128>(a, threads, stage, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K1 over the two-level rows of a big index: int64 F [A + 1], base int64
-// [n_sup, 8] and per_blk rows a superblock (the resident layout's own:
-// twice the artifact's for the 64-symbol repack), n as 64 bits, int64 lo and
-// hi out; syms_per_row is 64 (fb2_64), 128 (fb2) or 256 (fb2_256).  No ftab.
-// With hi_rec (int64 [L, B]) it also writes the step record: hi_rec[j][b]
-// is lane b's hi before step j, 0 after the step at which the lane's range
-// became empty, and the final hi for j >= its length; a null hi_rec writes
-// none.  The other arguments and the return value are rbt_lf_count's.
+// K1 over the two-level plane rows of a big index (lf_rank.cuh Planes,
+// 128-byte aligned): int64 F [A + 1], base int64 [n_sup, 8], and a row's
+// superblock (row * blk_mul) >> blk_shift (ops/rank.py superblock_magic of
+// the layout's own rows a superblock: twice the artifact's per_blk for the
+// 64-symbol repack), n as 64 bits, int64 lo and hi out; syms_per_row is 64
+// (from fb2_64), 128 (fb2) or 256 (fb2_256).  No ftab.  With hi_rec (int64
+// [L, B]) it also writes the step record: hi_rec[j][b] is lane b's hi
+// before step j, 0 after the step at which the lane's range became empty,
+// and the final hi for j >= its length; a null hi_rec writes none.  The
+// other arguments and the return value are rbt_lf_count's.
 int rbt_lf_count_fb2(const void* fb, int syms_per_row, const void* F, const void* base,
-                     int per_blk, int A, long long n, const void* q, const void* lengths,
-                     int B, int L, void* lo, void* hi, void* hi_rec, int threads, int stage,
-                     void* stream) {
+                     unsigned blk_mul, int blk_shift, int A, long long n, const void* q,
+                     const void* lengths, int B, int L, void* lo, void* hi, void* hi_rec,
+                     int threads, int stage, void* stream) {
   const int shift = syms_per_row == 64 ? 6 : syms_per_row == 128 ? 7 : 8;
   if (bad_launch(A, B, L, threads) || n < 1 || ((n - 1) >> shift) >= INT32_MAX ||
-      per_blk < 1 || base == nullptr)
+      blk_shift < 31 || blk_shift > 62 || blk_mul < (1u << 31) || base == nullptr ||
+      ((uintptr_t)fb & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const Args<int64_t> a{static_cast<const int4*>(fb), static_cast<const int64_t*>(F),
-                        static_cast<const int64_t*>(base), per_blk, A, (int64_t)n,
-                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
-                        B, L, nullptr, 0, 0u,
-                        static_cast<int64_t*>(lo), static_cast<int64_t*>(hi),
-                        static_cast<int64_t*>(hi_rec), {}};
+  const Args2 a{static_cast<const int4*>(fb), static_cast<const int64_t*>(F),
+                Sup{static_cast<const int64_t*>(base), blk_mul, blk_shift}, A, (int64_t)n,
+                static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B, L,
+                static_cast<int64_t*>(lo), static_cast<int64_t*>(hi),
+                static_cast<int64_t*>(hi_rec)};
   cudaStream_t s = (cudaStream_t)stream;
   if (syms_per_row == 64) return launch_fb2<64>(a, threads, stage, s);
   if (syms_per_row == 128) return launch_fb2<128>(a, threads, stage, s);
@@ -633,14 +728,12 @@ int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n
   if (bad_launch(A, B, L, threads) || n < 1 || !valid_toe(toe, n) || k == nullptr)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const Args<int32_t> a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F),
-                        nullptr, 0, A, n,
-                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths),
-                        B, L, nullptr, 0, 0u,
-                        static_cast<int32_t*>(lo), static_cast<int32_t*>(hi), nullptr, toe};
+  const Args a{static_cast<const int4*>(fb), static_cast<const int32_t*>(F), A, n,
+               static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B, L,
+               nullptr, 0, 0u, static_cast<int32_t*>(lo), static_cast<int32_t*>(hi), toe};
   cudaStream_t s = (cudaStream_t)stream;
-  if (syms_per_row == 64) return launch_staged<int32_t, 64, false, true>(a, threads, stage, s);
-  if (syms_per_row == 128) return launch_staged<int32_t, 128, false, true>(a, threads, stage, s);
+  if (syms_per_row == 64) return launch_staged<64, true>(a, threads, stage, s);
+  if (syms_per_row == 128) return launch_staged<128, true>(a, threads, stage, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,17 +1,28 @@
 // The LF step of K1 over fused-block rows, shared by the kernels that step
-// on it: lf.cu (K1, lf_count_kernel, and the tables kernel's staging) and
-// seeds.cu (the seeding state machines of rbt_markers and rbt_locs), with
-// the per-step toehold's trivial test (BWT[hi] == c) from the rows already
-// loaded.
+// on it: lf.cu (K1, lf_count_kernel and lf_count2_kernel, and the tables
+// kernel's staging) and seeds.cu (the seeding state machines of rbt_markers
+// and rbt_locs), with the per-step toehold's trivial test (BWT[hi] == c)
+// from the rows already loaded.
 //
-// Row contract (rowbowt_tpu_torch/construct/build.py build_fblock and
+// Single-level rows (rowbowt_tpu_torch/construct/build.py build_fblock and
 // fblock_to_fb64): int32[8 + SYMS/8] per row = 8 exclusive per-code
 // checkpoints, then SYMS 4-bit symbols packed 8 per word, symbol j of a word
-// at bits [4j, 4j+4).  On the two-level rows of a big index the checkpoints
-// count from the start of the row's superblock (per_blk rows), and base[s][c]
-// (int64) is the count of c before superblock s.  A lane's kG neighbouring
-// threads of one warp share a rank: each loads every other 16-byte part of
-// a row, and one shuffle sums their shares (lf.cu says why).
+// at bits [4j, 4j+4).  A lane's kG neighbouring threads of one warp share a
+// rank: each loads every other 16-byte part of a row, and one shuffle sums
+// their shares (lf.cu says why).
+//
+// Two-level rows of a big index (Planes; engine/device.py bit_planes makes
+// them from the nibble rows): the 8 checkpoints count from the start of the
+// row's superblock, base[s][c] (int64) is the count of c before superblock
+// s, and the symbols are three bit planes, each thread of a lane holding in
+// whole 16-byte parts its half of the checkpoints and all three planes of
+// its half of the symbols, so that neither needs the other's words.  A code
+// is below 8 (kCkpt), so three bits carry it; the artifact's pad nibble 15
+// past n is 7 here, which no rank reaches: a rank at i < n counts only the
+// positions below i, and rank(n, c) is F's.  Per 32 symbols a rank is
+// (P0 ^ m0) & (P1 ^ m1) & (P2 ^ m2), m_k all ones where bit k of c is 0, and
+// one __popc under the offset's mask: some 8 instructions, where the
+// nibbles' SWAR count took some 60 for the same symbols.
 //
 // Everything here sits in an anonymous namespace: each .cu file that
 // includes it builds into a library of its own.
@@ -42,6 +53,30 @@ struct Layout {
   static_assert(kRow % 4 == 0, "rows are whole 16-byte vectors");
   static constexpr int kPer = kVec / kG;          // parts of a row per thread
   static_assert(kVec % kG == 0, "each thread of a lane holds as many parts");
+};
+
+// The bit-plane rows of the two-level layouts: int32 [kRow] a row = parts 0
+// and 1 the checkpoints 0-3 and 4-7 (checkpoint c at int32 c), then for
+// thread t of the lane's two, plane p of its 32-symbol word w (bit i = bit p
+// of symbol t * SYMS / 2 + 32 w + i) as its flat word j = p * kW + w, in
+// 16-byte part 2 * (1 + j / 4) + t, lane j % 4, the rest of its last part
+// zero: 64 B (64 symbols), 96 B (128) or 128 B (256, one line) a row.
+template <int SYMS>
+struct Planes {
+  static_assert(SYMS == 64 || SYMS == 128 || SYMS == 256, "64-, 128- or 256-symbol rows");
+  static constexpr int kW = SYMS / 64;             // words of each plane a thread holds
+  static constexpr int kPer = (3 * kW + 3) / 4;    // 16-byte parts of planes a thread holds
+  static constexpr int kVec = kG * (1 + kPer);     // 16-byte parts a row
+  static constexpr int kShift = SYMS == 64 ? 6 : SYMS == 128 ? 7 : 8;
+};
+
+// The superblocks of the two-level rows: base int64 [n_sup, kCkpt], and a
+// row's superblock (row * mul) >> shift, which equals row / per_blk for every
+// row id below 2^31 (ops/rank.py superblock_magic).
+struct Sup {
+  const int64_t* base;
+  uint32_t mul;
+  int shift;
 };
 
 __device__ __forceinline__ int lane_of(const int4& v, int k) {
@@ -142,35 +177,26 @@ __device__ __forceinline__ int rank_share(const int4 (&v)[Layout<SYMS>::kPer], i
   return share;
 }
 
-// base[row's superblock][c] of the two-level rows, through the read-only path.
-__device__ __forceinline__ int64_t base_of(const int64_t* __restrict__ base, int row,
-                                           int per_blk, int c) {
-  return (int64_t)__ldg(reinterpret_cast<const long long*>(base) +
-                        (size_t)(row / per_blk) * kCkpt + c);
-}
-
 __device__ __forceinline__ int64_t load_at(const void* p, int bytes, int64_t i) {
   return bytes == 8 ? (int64_t)__ldg(static_cast<const long long*>(p) + i)
                     : (int64_t)__ldg(static_cast<const int32_t*>(p) + i);
 }
 
-// rank(lo, c) and rank(hi + 1, c) of one LF step (i1 = hi + 1), summed over
-// the lane's kG threads: cb and ce, each the code's total count `total`
-// where its position is n.  The threads load their parts of lo's row into a
-// register array and of i1's row into w, which the caller may read further
-// (K1's toehold instance takes BWT[hi] from it).  On the two-level rows
-// (Lane int64) the superblock's base completes each local rank.
-template <typename Lane, int SYMS>
-__device__ __forceinline__ void rank_pair(const int4* __restrict__ fb,
-                                          const int64_t* __restrict__ base, int per_blk,
-                                          Lane n, Lane total, Lane lo, Lane i1, int c, int sub,
-                                          unsigned pair, int4 (&w)[Layout<SYMS>::kPer],
-                                          Lane& cb, Lane& ce) {
+// rank(lo, c) and rank(hi + 1, c) of one LF step over the single-level rows
+// (i1 = hi + 1), summed over the lane's kG threads: cb and ce, each the
+// code's total count `total` where its position is n.  The threads load
+// their parts of lo's row into a register array and of i1's row into w,
+// which the caller may read further (K1's toehold instance takes BWT[hi]
+// from it).
+template <int SYMS>
+__device__ __forceinline__ void rank_pair(const int4* __restrict__ fb, int n, int total, int lo,
+                                          int i1, int c, int sub, unsigned pair,
+                                          int4 (&w)[Layout<SYMS>::kPer], int& cb, int& ce) {
   using Lo = Layout<SYMS>;
   const bool has0 = lo < n, has1 = i1 < n;
   // both rows are loaded even when they are one: the second load then
   // finds the row in L1, and loading it once was measured no faster
-  const int r0 = (int)(lo >> Lo::kShift), r1 = (int)(i1 >> Lo::kShift);
+  const int r0 = lo >> Lo::kShift, r1 = i1 >> Lo::kShift;
   int4 v[Lo::kPer];
 #pragma unroll
   for (int m = 0; m < Lo::kPer; ++m) {
@@ -178,17 +204,79 @@ __device__ __forceinline__ void rank_pair(const int4* __restrict__ fb,
     v[m] = has0 ? __ldg(fb + (size_t)r0 * Lo::kVec + part) : make_int4(0, 0, 0, 0);
     w[m] = has1 ? __ldg(fb + (size_t)r1 * Lo::kVec + part) : v[m];
   }
-  int p0 = rank_share<SYMS>(v, sub, c, (int)(lo & (SYMS - 1)));
-  int p1 = rank_share<SYMS>(w, sub, c, (int)(i1 & (SYMS - 1)));
+  int p0 = rank_share<SYMS>(v, sub, c, lo & (SYMS - 1));
+  int p1 = rank_share<SYMS>(w, sub, c, i1 & (SYMS - 1));
   p0 += __shfl_xor_sync(pair, p0, 1);
   p1 += __shfl_xor_sync(pair, p1, 1);
-  if constexpr (sizeof(Lane) == 8) {
-    cb = has0 ? base_of(base, r0, per_blk, c) + p0 : total;
-    ce = has1 ? base_of(base, r1, per_blk, c) + p1 : total;
-  } else {
-    cb = has0 ? p0 : total;
-    ce = has1 ? p1 : total;
+  cb = has0 ? p0 : total;
+  ce = has1 ? p1 : total;
+}
+
+// This thread's count of c among its symbols of a plane row below in-row
+// offset `off`, from its plane parts v (Planes: its flat word j in v[j / 4]);
+// m0..m2 all ones where bit 0..2 of c is 0.
+template <int SYMS>
+__device__ __forceinline__ int plane_count(const int4 (&v)[Planes<SYMS>::kPer], int sub,
+                                           uint32_t m0, uint32_t m1, uint32_t m2, int off) {
+  using P = Planes<SYMS>;
+  auto word = [&](int j) { return (uint32_t)lane_of(v[j / 4], j % 4); };
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < P::kW; ++w) {
+    const uint32_t match = (word(w) ^ m0) & (word(P::kW + w) ^ m1) & (word(2 * P::kW + w) ^ m2);
+    // the low min(max(kn, 0), 32) bits: the symbols of the word below off
+    const int kn = off - 32 * (sub * P::kW + w);
+    count += __popc(match & __funnelshift_lc(0xFFFFFFFFu, 0u, (unsigned)max(kn, 0)));
   }
+  return count;
+}
+
+// base[row's superblock][c] of the two-level rows, through the read-only path.
+__device__ __forceinline__ int64_t base_of(const Sup& sup, int row, int c) {
+  const int s = (int)(((uint64_t)(uint32_t)row * sup.mul) >> sup.shift);
+  return (int64_t)__ldg(reinterpret_cast<const long long*>(sup.base) + (size_t)s * kCkpt + c);
+}
+
+// rank(lo, c) and rank(i1, c) over the two-level plane rows (i1 = hi + 1),
+// summed over the lane's kG threads, each completed by its superblock's
+// base: cb and ce, the code's total count `total` where a position is n.
+// Each thread loads its 16-byte part of the checkpoints and its kPer plane
+// parts of a row, once where lo and hi + 1 share it; row ids and in-row
+// offsets are ints.  Timed on an H100 in turns and dropped (PERF.md §6):
+// the thread that holds checkpoint c loading its 4-byte word alone, which
+// took 1.03-1.37x this design's time over the rows of an index above 2^31
+// (0.94-0.98x over chr's 160 MB of rows), and, beside that design, both
+// rows loaded always (1.00-1.02x).
+template <int SYMS>
+__device__ __forceinline__ void rank_pair_planes(const int4* __restrict__ fb, const Sup& sup,
+                                                 int64_t n, int64_t total, int64_t lo,
+                                                 int64_t i1, int c, int sub, unsigned pair,
+                                                 int64_t& cb, int64_t& ce) {
+  using P = Planes<SYMS>;
+  const bool has0 = lo < n, has1 = i1 < n;
+  const int r0 = (int)(lo >> P::kShift), r1 = (int)(i1 >> P::kShift);
+  const bool one = r1 == r0;
+  const int4* row0 = fb + (size_t)r0 * P::kVec;
+  const int4* row1 = fb + (size_t)r1 * P::kVec;
+  const bool mine = (c >> 2) == sub;  // this thread holds checkpoint c
+  int4 v[P::kPer], w[P::kPer];
+#pragma unroll
+  for (int m = 0; m < P::kPer; ++m) {
+    const int part = kG * (1 + m) + sub;
+    v[m] = has0 ? __ldg(row0 + part) : make_int4(0, 0, 0, 0);
+    w[m] = has1 && !one ? __ldg(row1 + part) : v[m];
+  }
+  const int4 ck0 = has0 ? __ldg(row0 + sub) : make_int4(0, 0, 0, 0);
+  const int4 ck1 = has1 && !one ? __ldg(row1 + sub) : ck0;
+  const int k0 = mine ? lane_of(ck0, c & 3) : 0;
+  const int k1 = mine ? lane_of(ck1, c & 3) : 0;
+  const uint32_t m0 = c & 1 ? 0u : ~0u, m1 = c & 2 ? 0u : ~0u, m2 = c & 4 ? 0u : ~0u;
+  int p0 = k0 + plane_count<SYMS>(v, sub, m0, m1, m2, (int)(lo & (SYMS - 1)));
+  int p1 = k1 + plane_count<SYMS>(w, sub, m0, m1, m2, (int)(i1 & (SYMS - 1)));
+  p0 += __shfl_xor_sync(pair, p0, 1);
+  p1 += __shfl_xor_sync(pair, p1, 1);
+  cb = has0 ? base_of(sup, r0, c) + p0 : total;
+  ce = has1 ? base_of(sup, r1, c) + p1 : total;
 }
 
 // The symbol at in-row offset `off` from this thread's parts of the row
@@ -234,24 +322,28 @@ __device__ __forceinline__ int bwt_at_hi(const int4* __restrict__ fb,
 // One LF step of a lane by its kG threads: (lo, hi) becomes LF((lo, hi), c),
 // or the empty range (1, 0) where that is empty or c lies outside [0, A)
 // (a staged absent or other code); returns whether it is non-empty.  sF is
-// F [A + 1] in shared memory.  TOE (single-level rows) also sets `trivial`
-// to BWT[hi] == c for the pre-step hi.
+// F [A + 1] in shared memory.  Lane int32: the single-level rows; int64: the
+// two-level plane rows with their superblocks `sup`.  TOE (single-level
+// rows) also sets `trivial` to BWT[hi] == c for the pre-step hi.
 template <typename Lane, int SYMS, bool TOE = false>
 __device__ __forceinline__ bool lf_step_rows(const int4* __restrict__ fb, const Lane* sF,
-                                             const int64_t* __restrict__ base, int per_blk,
-                                             int A, Lane n, int sub, unsigned pair, int c,
-                                             Lane& lo, Lane& hi, bool& trivial) {
+                                             const Sup& sup, int A, Lane n, int sub,
+                                             unsigned pair, int c, Lane& lo, Lane& hi,
+                                             bool& trivial) {
   static_assert(!TOE || sizeof(Lane) == 4, "the per-step toehold is the single-level rows'");
   if (c >= A) {
     lo = 1;
     hi = 0;
     return false;
   }
-  int4 w[Layout<SYMS>::kPer];
   Lane cb, ce;
-  rank_pair<Lane, SYMS>(fb, base, per_blk, n, sF[c + 1] - sF[c], lo, hi + 1, c, sub, pair, w,
-                        cb, ce);
-  if constexpr (TOE) trivial = bwt_at_hi<Lane, SYMS>(fb, w, sub, pair, n, hi) == c;
+  if constexpr (sizeof(Lane) == 8) {
+    rank_pair_planes<SYMS>(fb, sup, n, sF[c + 1] - sF[c], lo, hi + 1, c, sub, pair, cb, ce);
+  } else {
+    int4 w[Layout<SYMS>::kPer];
+    rank_pair<SYMS>(fb, n, sF[c + 1] - sF[c], lo, hi + 1, c, sub, pair, w, cb, ce);
+    if constexpr (TOE) trivial = bwt_at_hi<Lane, SYMS>(fb, w, sub, pair, n, hi) == c;
+  }
   const Lane ci = ce - cb;
   if (ci <= 0) {
     lo = 1;

@@ -11,8 +11,8 @@
 // templated on its LF step, the step policy:
 //   - Rows: K1's LF step (lf_rank.cuh: two ranks over a fused-block row by
 //     the lane's two threads), over the single-level rows with int32 lanes
-//     (fblock64, fblock) and the two-level rows of a big index with int64
-//     lanes (fb2_64, fb2, fb2_256);
+//     (fblock64, fblock) and the two-level bit-plane rows of a big index
+//     with int64 lanes (made from fb2_64, fb2, fb2_256; rank_pair_planes);
 //   - Tables: the tables kernel's step (lf_tables.cuh: the run-space, dense
 //     or occ1 ranks, on two threads a lane, lane_threads), over an index
 //     without fused rows (a --no-dense build, 9-16 codes, a raw build's
@@ -116,9 +116,8 @@ template <typename Lane>
 struct Params {
   const int4* fb;  // the fused rows (Rows)
   const Lane* F;
-  const int64_t* base;
-  int per_blk;
-  Tabs t;  // the rank tables (Tables)
+  Sup sup;  // the two-level rows' superblocks (Rows, int64 lanes)
+  Tabs t;   // the rank tables (Tables)
   int A;
   Lane n;
   const int32_t* q;
@@ -135,24 +134,23 @@ struct Params {
   Out<Lane> out;
 };
 
-// K1's step over fused rows, by the lane's kG threads (their ranks are
-// summed by shuffle, so both take the same branches); sF is F in shared
-// memory.
+// K1's step over fused rows (int64 lanes: the two-level plane rows), by the
+// lane's kG threads (their ranks are summed by shuffle, so both take the
+// same branches); sF is F in shared memory.
 template <typename LaneT, int SYMS>
 struct Rows {
   using Lane = LaneT;
   static constexpr int kGroup = kG;
   const int4* fb;
   const Lane* sF;
-  const int64_t* base;
-  int per_blk, A;
+  Sup sup;
+  int A;
   Lane n;
   int sub;
   unsigned pair;
   template <bool TOE>
   __device__ __forceinline__ bool step(int c, Lane& lo, Lane& hi, bool& trivial) const {
-    return lf_step_rows<Lane, SYMS, TOE>(fb, sF, base, per_blk, A, n, sub, pair, c, lo, hi,
-                                         trivial);
+    return lf_step_rows<Lane, SYMS, TOE>(fb, sF, sup, A, n, sub, pair, c, lo, hi, trivial);
   }
 };
 
@@ -181,12 +179,13 @@ struct Tables {
 // (__launch_bounds__), so that the register cap they set, 65,536 / (threads
 // * blocks), leaves every instance without a spill: 64 registers for the
 // int32 lanes (SYMS 0: the tables), 85 for the int64 lanes of the two-level
-// rows, 128 over their 256-symbol rows.  A launch of more than kThreads
-// threads a block is refused (ops/cuda_seeds.py plans within it).
+// plane rows of every width (over the nibble rows the 256-symbol instances
+// needed 128, two blocks an SM).  A launch of more than kThreads threads a
+// block is refused (ops/cuda_seeds.py plans within it).
 template <typename Lane, int SYMS>
 struct Bounds {
   static constexpr int kThreads = sizeof(Lane) == 8 ? 256 : 512;
-  static constexpr int kBlocks = sizeof(Lane) == 4 ? 2 : SYMS == 256 ? 2 : 3;
+  static constexpr int kBlocks = sizeof(Lane) == 4 ? 2 : 3;
 };
 
 // The lane (of the block's `lanes`) of lane group g, G threads a group, in
@@ -471,7 +470,7 @@ __global__ void __launch_bounds__(Bounds<Lane, SYMS>::kThreads, Bounds<Lane, SYM
     return p.stage ? (int)mine[col] : code_byte(row_q[col], p.A);
   };
   const unsigned pair = ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(kG - 1));
-  const Rows<Lane, SYMS> st{p.fb, sF, p.base, p.per_blk, p.A, p.n, sub, pair};
+  const Rows<Lane, SYMS> st{p.fb, sF, p.sup, p.A, p.n, sub, pair};
   machine<MODE, TOE>(p, st, code_at, b0 + ll, sub == 0);
 }
 
@@ -587,8 +586,10 @@ extern "C" {
 // over the B lanes of the row-major [B, L] int32 codes q (right-aligned, -1
 // pad) with int32 lengths.  Rows `fb` of syms_per_row symbols: with
 // lane_bytes 4 the single-level rows (64 or 128 symbols) with int32 F [A +
-// 1], n below 2^31 - 1 and no base; with lane_bytes 8 the two-level rows (64,
-// 128 or 256) with int64 F and base [n_sup, 8], per_blk rows a superblock.
+// 1], n below 2^31 - 1 and no base; with lane_bytes 8 the two-level plane
+// rows (64, 128 or 256 symbols; lf_rank.cuh Planes) with int64 F and base
+// [n_sup, 8], a row's superblock (row * blk_mul) >> blk_shift (ops/rank.py
+// superblock_magic).
 // The ftab start (int32 or int64 ftab [4^k, 2], acgt as rbt_lf_count's)
 // runs where k > 0: GREEDY's and LMEM's (whose caller passes k = 0 where L
 // is below the ftab's k), never SAMPLE's.
@@ -610,7 +611,8 @@ extern "C" {
 // launched for B == 0), cudaErrorInvalidValue for arguments the mode does
 // not take.
 int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, const void* base,
-                     int per_blk, int A, long long n, int lane_bytes, const void* q,
+                     unsigned blk_mul, int blk_shift, int A, long long n, int lane_bytes,
+                     const void* q,
                      const void* lengths, int B, int L, const void* ftab, int ftab_bytes, int k,
                      int acgt, int wsize, long long max_range, int min_length, int W, void* rlo,
                      void* rhi, void* rseed, void* nrec, int S, void* slo, void* shi, void* sqs,
@@ -627,7 +629,8 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
                   : lane_bytes == 8 ? (syms_per_row == 64 || syms_per_row == 128 ||
                                        syms_per_row == 256) &&
                                           ((n - 1) >> row_shift) < INT32_MAX && base != nullptr &&
-                                          per_blk >= 1 && ssamp == nullptr
+                                          blk_shift >= 31 && blk_shift <= 62 &&
+                                          blk_mul >= (1u << 31) && ssamp == nullptr
                                     : false;
   if (!valid_outputs(mode, k, W, S, rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns, hi_rec, ssamp,
                      toe, n) ||
@@ -642,7 +645,7 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
     const Out<Lane> o{(Lane*)rlo, (Lane*)rhi, (Lane*)rseed, (Lane*)nrec, (Lane*)slo,
                       (Lane*)shi, (Lane*)sqs, (Lane*)sqe, (Lane*)ns, (Lane*)hi_rec,
                       (Lane*)ssamp, W, S};
-    const Params<Lane> p{static_cast<const int4*>(fb), static_cast<const Lane*>(F), nullptr, 0,
+    const Params<Lane> p{static_cast<const int4*>(fb), static_cast<const Lane*>(F), {},
                          {}, A, (Lane)n, static_cast<const int32_t*>(q),
                          static_cast<const int32_t*>(lengths), B, L, stage != 0, ftab,
                          ftab_bytes, k, (uint32_t)acgt, wsize, max_range, min_length, toe, o};
@@ -653,7 +656,7 @@ int rbt_seed_machine(int mode, const void* fb, int syms_per_row, const void* F, 
   const Out<Lane> o{(Lane*)rlo, (Lane*)rhi, (Lane*)rseed, (Lane*)nrec, (Lane*)slo,
                     (Lane*)shi, (Lane*)sqs, (Lane*)sqe, (Lane*)ns, (Lane*)hi_rec, nullptr, W, S};
   const Params<Lane> p{static_cast<const int4*>(fb), static_cast<const Lane*>(F),
-                       static_cast<const int64_t*>(base), per_blk, {}, A, (Lane)n,
+                       Sup{static_cast<const int64_t*>(base), blk_mul, blk_shift}, {}, A, (Lane)n,
                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B,
                        L, stage != 0, ftab, ftab_bytes, k, (uint32_t)acgt, wsize, max_range,
                        min_length, toe, o};
@@ -711,7 +714,7 @@ int rbt_seed_machine_tables(int mode, int policy, const void* occ, int occ_bytes
                n_off, shift, iters};
   const Out<Lane> o{(Lane*)rlo, (Lane*)rhi, (Lane*)rseed, (Lane*)nrec, (Lane*)slo, (Lane*)shi,
                     (Lane*)sqs, (Lane*)sqe, (Lane*)ns, nullptr, (Lane*)ssamp, W, S};
-  const Params<Lane> p{nullptr, static_cast<const Lane*>(F), nullptr, 0, t, A, (Lane)n,
+  const Params<Lane> p{nullptr, static_cast<const Lane*>(F), {}, t, A, (Lane)n,
                        static_cast<const int32_t*>(q), static_cast<const int32_t*>(lengths), B, L,
                        stage != 0, ftab, ftab_bytes, k, (uint32_t)acgt, wsize, max_range,
                        min_length, toe, o};

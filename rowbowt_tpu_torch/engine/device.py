@@ -83,6 +83,89 @@ def run_records(run_start: np.ndarray, run_head: np.ndarray, occ_flat: np.ndarra
     return rec.reshape(-1)
 
 
+# The two-level rows of a big index as the view holds them: each nibble
+# layout (the artifact's fb2, its 64-symbol repack fb2_64, the 256-symbol
+# fb2_256) becomes bit-plane rows under a key of its own (bit_planes).
+PLANE_KEYS = {"fb2_64": "pl2_64", "fb2": "pl2", "fb2_256": "pl2_256"}
+PLANE_SYMS = {"fb2_64": 64, "fb2": 128, "fb2_256": 256}
+# int32 words of a plane row: 8 checkpoints and three planes of SYMS / 32
+# words, each thread's share padded to whole 16-byte parts
+PLANE_ROW = {64: 16, 128: 24, 256: 32}
+PLANE_CHUNK = 1 << 18  # rows repacked at a time
+
+
+def plane_columns(syms: int) -> np.ndarray:
+    """int64 [3, syms / 32]: the int32 column of plane p's 32-symbol word g
+    in a plane row (csrc/lf_rank.cuh Planes).  Thread t of a lane's two
+    holds checkpoints 4t..4t+3 (columns 4t..4t+3: checkpoint c at column c)
+    and all three planes of symbols [t * syms / 2, (t + 1) * syms / 2):
+    its flat word j = p * W + w (W = syms / 64 words a plane) in 16-byte
+    part 2 * (1 + j // 4) + t, lane j % 4, the rest of its last part zero."""
+    W, G = syms // 64, syms // 32
+    col = np.zeros((3, G), np.int64)
+    for p in range(3):
+        for g in range(G):
+            t, w = divmod(g, W)
+            j = p * W + w
+            col[p, g] = 4 * (2 * (1 + j // 4) + t) + j % 4
+    return col
+
+
+def bit_planes(rows: np.ndarray, syms: int, device) -> torch.Tensor:
+    """The bit-plane rows (int32 [nrows, PLANE_ROW[syms]], on `device`) of
+    the nibble rows int32 [nrows, 8 + syms / 8] of a two-level table: the 8
+    checkpoints as they are, then bit p of symbol 32g + i at bit i of plane
+    p's word g (plane_columns).  A code is below 8, so three planes carry
+    it; the pad nibble 15 past n becomes 7, which no rank reaches (a rank
+    at i < n counts only positions below i, and rank(n, c) is F's).  Torch
+    ops, PLANE_CHUNK rows at a time on the device."""
+    rows = np.asarray(rows)
+    nrows = rows.shape[0]
+    if rows.ndim != 2 or rows.shape[1] != 8 + syms // 8 or rows.dtype != np.int32:
+        raise ValueError(f"nibble rows of shape {rows.shape} ({rows.dtype}) for {syms} symbols")
+    device = torch.device(device)
+    out = torch.zeros((nrows, PLANE_ROW[syms]), dtype=torch.int32, device=device)
+    col = torch.from_numpy(plane_columns(syms)).to(device)
+    for r0 in range(0, nrows, PLANE_CHUNK):
+        part = rows[r0:r0 + PLANE_CHUNK]
+        part = torch.from_numpy(np.require(part, requirements=["C", "W"])).to(device)
+        out[r0:r0 + part.shape[0], :8] = part[:, :8]
+        # four nibble words make a 32-symbol word
+        w = (part[:, 8:].to(torch.int64) & 0xFFFFFFFF).view(part.shape[0], syms // 32, 4)
+        for p in range(3):
+            # bit p of each nibble, gathered into one byte a nibble word
+            x = (w >> p) & 0x11111111
+            x = (x | (x >> 3)) & 0x03030303
+            x = (x | (x >> 6)) & 0x000F000F
+            x = (x | (x >> 12)) & 0xFF
+            word = x[..., 0] | x[..., 1] << 8 | x[..., 2] << 16 | x[..., 3] << 24
+            word = word - ((word >> 31) << 32)  # the uint32 bits as an int32
+            out[r0:r0 + part.shape[0], col[p]] = word.to(torch.int32)
+    return out
+
+
+def nibbles_of_planes(planes: torch.Tensor, syms: int, n: int) -> torch.Tensor:
+    """The nibble rows (int32 [nrows, 8 + syms / 8], on planes' device) whose
+    bit_planes are `planes`, nibble 15 at every position from n on: the
+    inverse of bit_planes over a table of n positions."""
+    nrows = planes.shape[0]
+    out = torch.empty((nrows, 8 + syms // 8), dtype=torch.int32, device=planes.device)
+    col = torch.from_numpy(plane_columns(syms)).to(planes.device)
+    bit = torch.arange(32, device=planes.device)
+    for r0 in range(0, nrows, PLANE_CHUNK):
+        part = planes[r0:r0 + PLANE_CHUNK]
+        m = part.shape[0]
+        P = part[:, col].to(torch.int64) & 0xFFFFFFFF  # [m, 3, G]
+        sym = sum(((P[:, p, :, None] >> bit) & 1) << p for p in range(3))  # [m, G, 32]
+        pos = ((r0 + torch.arange(m, device=planes.device)) * syms)[:, None] + \
+            torch.arange(syms, device=planes.device)[None, :]
+        sym = torch.where(pos >= n, 15, sym.reshape(m, syms)).view(m, syms // 8, 8)
+        word = (sym << (4 * torch.arange(8, device=planes.device))).sum(dim=2)
+        out[r0:r0 + m, :8] = part[:, :8]
+        out[r0:r0 + m, 8:] = (word - ((word >> 31) << 32)).to(torch.int32)
+    return out
+
+
 @dataclasses.dataclass
 class TorchIndex:
     arrays: dict[str, torch.Tensor]
@@ -113,6 +196,10 @@ class TorchIndex:
     # host seconds with_run_tables and with_pred_directory took to build
     # rs_off, run_rec and pred_off and put them on the device
     run_tables_s: float = 0.0
+    # seconds (host clock, synchronized) and device bytes of the two-level
+    # rows' repack into bit planes (bit_planes); 0 where the view has none
+    planes_s: float = 0.0
+    planes_bytes: int = 0
 
     @property
     def idx_dtype(self) -> torch.dtype:
@@ -240,14 +327,26 @@ class TorchIndex:
         `{k: np.asarray(v) for k, v in dx.arrays.items()}` with its ma_bs,
         pp_bs and ma_rp.  The packed words of `bwt4` are the exception: they
         stay 4 bytes, as int32 bit patterns like the fused rows' words, and
-        ops/rank.rank_dense masks each nibble after its shift.  On a CUDA
-        device the kernels' bucket directories are built here, beside the
-        other tables (with_card_tables); any of those tables among the
-        leaves is dropped."""
+        ops/rank.rank_dense masks each nibble after its shift.  The nibble
+        rows of a two-level table (fb2_64, fb2, fb2_256) become their bit
+        planes under PLANE_KEYS on every device (bit_planes), the only
+        layout the two-level readers take.  On a CUDA device the kernels'
+        bucket directories are built here, beside the other tables
+        (with_card_tables); any of those tables among the leaves is
+        dropped."""
         device = torch.device(device)
         tensors = {}
+        planes_s, planes_bytes = 0.0, 0
         for k, v in arrays.items():
             if k in TorchIndex._CARD_TABLES:
+                continue
+            if k in PLANE_KEYS:
+                t = time.perf_counter()
+                tensors[PLANE_KEYS[k]] = bit_planes(v, PLANE_SYMS[k], device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                planes_s += time.perf_counter() - t
+                planes_bytes += tensors[PLANE_KEYS[k]].numel() * 4
                 continue
             v = np.asarray(v)
             if v.dtype == np.uint32:
@@ -265,6 +364,8 @@ class TorchIndex:
             ma_bs=tuple(int(x) for x in ma_bs),
             pp_bs=tuple(int(x) for x in pp_bs),
             ma_rp=tuple(int(x) for x in ma_rp) if ma_rp else 0,
+            planes_s=planes_s,
+            planes_bytes=planes_bytes,
         )
         return tx.with_card_tables(host=arrays) if device.type == "cuda" else tx
 
@@ -301,7 +402,9 @@ class TorchIndex:
         fb64=True (default) repacks 128-symbol fb2 rows to the 64-symbol/64B
         rows (`fb2_64`, disk-cached next to a loaded artifact); fb64=False
         keeps them (`fb2`); 40-lane rows are the 256-symbol layout
-        (`fb2_256`) and are never repacked.  with_locate / with_markers
+        (`fb2_256`) and are never repacked.  The view holds the chosen
+        rows as bit planes (from_arrays: PLANE_KEYS, 64, 96 or 128 B a
+        row), not as nibbles.  with_locate / with_markers
         (default: whatever the artifact carries) add the O(R) toehold and phi
         tables and the O(M) marker tables: the flag-gated partial load of
         the reference (rowbowt_io.hpp:146-189).  The marker bounds come from

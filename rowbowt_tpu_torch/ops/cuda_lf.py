@@ -7,9 +7,12 @@ row-major [B, L] codes as they are, stages each block's codes in shared
 memory, starts each lane from the ftab itself and writes (lo, hi); two
 threads share a lane, each loading its share of a rank row's 16-byte parts.
 Either row layout works (`fblock64`, the default, or the 96 B `fblock`).
-On a big (n >= 2^31) index the same kernel runs over the two-level rows
-(`fb2_64`, the default, `fb2` or `fb2_256`) with int64 lanes, F and base and
-no ftab (C entry rbt_lf_count_fb2): the counterpart of
+On a big (n >= 2^31) index a kernel of its own (lf_count2_kernel) runs over
+the two-level rows (made from `fb2_64`, the default, `fb2` or `fb2_256`),
+held as three bit planes a row (engine/device.bit_planes), with int64
+lanes, F and base, the row's superblock by a multiplier and a shift
+(ops/rank.superblock_magic) and no ftab (C entry rbt_lf_count_fb2): the
+counterpart of
 rowbowt_tpu/engine/count.py:find_ranges over rowbowt_tpu/ops/rank.py
 lf_step_fblock2, which the JAX package runs as XLA gathers.  Given a record
 buffer (the entry's `hi_rec`, null otherwise) it also writes each lane's
@@ -69,7 +72,7 @@ import ctypes
 import torch
 
 from rowbowt_tpu_torch import _native
-from rowbowt_tpu_torch.engine.device import TorchIndex, takes_run_records
+from rowbowt_tpu_torch.engine.device import PLANE_KEYS, PLANE_ROW, TorchIndex, takes_run_records
 from rowbowt_tpu_torch.ops import rank as R
 from rowbowt_tpu_torch.ops.cuda_gather import _raw_stream, _sm_count
 
@@ -132,8 +135,8 @@ def build():
                                  ci, ci, vp]
     lib.rbt_lf_count_transposed.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, vp,
                                             vp]
-    lib.rbt_lf_count_fb2.argtypes = [vp, ci, vp, vp, ci, ci, ctypes.c_longlong, vp, vp, ci, ci,
-                                      vp, vp, vp, ci, ci, vp]
+    lib.rbt_lf_count_fb2.argtypes = [vp, ci, vp, vp, ctypes.c_uint, ci, ci, ctypes.c_longlong,
+                                      vp, vp, ci, ci, vp, vp, vp, ci, ci, vp]
     ll = ctypes.c_longlong
     lib.rbt_lf_toehold.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, ci, vp, ci,
                                    vp, ci, ll, ci, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp]
@@ -301,24 +304,46 @@ def _packed_acgt(tx: TorchIndex, k: int, ftab) -> int:
     return acgt
 
 
+def rows_of(tx: TorchIndex, key: str) -> torch.Tensor:
+    """The rows K1 reads for row_layout `key`: the single-level rows, or the
+    bit planes made from the two-level layout `key` (engine/device.
+    PLANE_KEYS)."""
+    return tx.arrays[PLANE_KEYS.get(key, key)]
+
+
 def _check_operands(tx: TorchIndex, key: str, qcodes, lengths, named, lane) -> None:
     """Refuse what a K1 launch over tx's `key` rows does not take: an
     operand of `named` ((name, tensor, dtypes)), the rows, F (of dtype
     `lane`), the codes or the lengths on another device than the codes or
     of another dtype; rows that are not whole, contiguous and 16-byte
-    aligned; an alphabet outside 1..8; lengths that are not [B]."""
-    fb, F = tx.arrays[key], tx.arrays["F"]
+    aligned (the bit planes of the two-level layouts 128-byte aligned); an
+    alphabet outside 1..8; lengths that are not [B]."""
+    fb, F = rows_of(tx, key), tx.arrays["F"]
     _check_types((("table", fb, (torch.int32,)), ("F", F, (lane,)),
                   ("qcodes", qcodes, (torch.int32,)), ("lengths", lengths, (torch.int32,)))
                  + named, qcodes.device, f"{key} rows")
-    if fb.dim() != 2 or fb.shape[1] != 8 + _SYMS_PER_ROW[key] // 8:
+    syms = _SYMS_PER_ROW[key]
+    width = PLANE_ROW[syms] if key in PLANE_KEYS else 8 + syms // 8
+    align = 128 if key in PLANE_KEYS and fb.device.type == "cuda" else 16
+    if fb.dim() != 2 or fb.shape[1] != width:
         raise ValueError(f"{key} rows have shape {tuple(fb.shape)}")
-    if not fb.is_contiguous() or fb.data_ptr() % 16:
-        raise ValueError("row table is not contiguous and 16-byte aligned")
+    if not fb.is_contiguous() or fb.data_ptr() % align:
+        raise ValueError(f"row table is not contiguous and {align}-byte aligned")
     if not 1 <= tx.A <= 8 or F.numel() < tx.A + 1:
         raise ValueError(f"alphabet of {tx.A} codes; the kernel takes 1..8")
     if lengths.shape != (qcodes.shape[0],):
         raise ValueError(f"lengths must be [B] for qcodes [B, L], got {tuple(lengths.shape)}")
+
+
+def superblock_args(fb, base) -> tuple[int, int]:
+    """(mul, shift) of the two-level rows fb's superblocks (ops/rank.
+    superblock_magic of per_blk, the layout's own rows a superblock: twice
+    the BigIndex's per_blk for the 64-symbol repack); refuses a base that
+    is not [n_sup, 8], contiguous, for 1..rows superblocks."""
+    if (base.shape != (base.shape[0], 8) or not base.is_contiguous()
+            or not 1 <= base.shape[0] <= fb.shape[0]):
+        raise ValueError(f"fb2_base of shape {tuple(base.shape)} for {fb.shape[0]} rows")
+    return R.superblock_magic(fb.shape[0] // base.shape[0])
 
 
 def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bool = False,
@@ -339,7 +364,7 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bo
         raise ValueError(f"the step record is the two-level search's; {key} rows are "
                          "single-level")
     lane = torch.int64 if two_level else torch.int32
-    fb, F = tx.arrays[key], tx.arrays["F"]
+    fb, F = rows_of(tx, key), tx.arrays["F"]
     B, L = qcodes.shape
     dev = qcodes.device
     k = tx.ftab_k if use_ftab and tx.has_ftab and L >= tx.ftab_k > 0 else 0
@@ -351,9 +376,7 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bo
     if two_level:
         named += (("fb2_base", base, (torch.int64,)),)
     _check_operands(tx, key, qcodes, lengths, named, lane)
-    if two_level and (base.shape != (base.shape[0], 8) or not base.is_contiguous()
-                      or not 1 <= base.shape[0] <= fb.shape[0]):
-        raise ValueError(f"fb2_base of shape {tuple(base.shape)} for {fb.shape[0]} rows")
+    blk = superblock_args(fb, base) if two_level else None
     acgt = _packed_acgt(tx, k, ftab) if k else 0
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
     lo = torch.empty(B, dtype=lane, device=dev)
@@ -363,10 +386,9 @@ def launch_k1(tx: TorchIndex, qcodes, lengths, use_ftab: bool = True, record: bo
     threads, staged = launch_plan(B, L, _sm_count(d))
     lib = lib or _LIB or build()
     if two_level:
-        # per_blk is the resident layout's own rows a superblock
         entry = lib.rbt_lf_count_fb2
-        args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), base.data_ptr(),
-                fb.shape[0] // base.shape[0], tx.A, tx.n, qcodes.data_ptr(), lengths.data_ptr(),
+        args = (fb.data_ptr(), _SYMS_PER_ROW[key], F.data_ptr(), base.data_ptr(), *blk,
+                tx.A, tx.n, qcodes.data_ptr(), lengths.data_ptr(),
                 B, L, lo.data_ptr(), hi.data_ptr(), hi_rec.data_ptr() if record else None,
                 threads, int(staged))
     else:

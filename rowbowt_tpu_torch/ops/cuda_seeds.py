@@ -74,9 +74,9 @@ def build():
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # tk1, ltk, run_start, rs_off with n_off, shift and iters, samples_last, R, ssamp
     toe = [vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, ci, ci, vp]
-    lib.rbt_seed_machine.argtypes = ([ci, vp, ci, vp, vp, ci, ci, ll, ci, vp, vp, ci, ci, vp, ci,
-                                      ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp,
-                                      vp, vp] + toe + [ci, ci, vp])
+    lib.rbt_seed_machine.argtypes = ([ci, vp, ci, vp, vp, ctypes.c_uint, ci, ci, ll, ci, vp, vp,
+                                      ci, ci, vp, ci, ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci,
+                                      vp, vp, vp, vp, vp, vp] + toe + [ci, ci, vp])
     lib.rbt_seed_machine_tables.argtypes = [
         ci, ci, vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, vp, ll, ci, vp, ci, ll, vp, vp,
         ci, ci, vp, ci, ci, ci, ci, ll, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp,
@@ -151,15 +151,13 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
                          f"run-space tables, and the toehold's tables where it carries one; "
                          f"over {where}: {e}") from None
     if key is not None:
-        fb = tx.arrays[key]
+        fb = cuda_lf.rows_of(tx, key)
         base = tx.arrays["fb2_base"] if two_level else None
         named += tuple((name, t, (torch.int32, torch.int64)) for name, t in ops.values())
         if two_level:
             named += (("fb2_base", base, (torch.int64,)),)
         cuda_lf._check_operands(tx, key, qcodes, lengths, named, lane)
-        if two_level and (base.shape != (base.shape[0], 8) or not base.is_contiguous()
-                          or not 1 <= base.shape[0] <= fb.shape[0]):
-            raise ValueError(f"fb2_base of shape {tuple(base.shape)} for {fb.shape[0]} rows")
+        blk = cuda_lf.superblock_args(fb, base) if two_level else (0, 0)
     acgt = cuda_lf._packed_acgt(tx, k, ftab) if k else 0
     F, qcodes, lengths = F.contiguous(), qcodes.contiguous(), lengths.contiguous()
 
@@ -202,8 +200,7 @@ def launch_machine(tx: TorchIndex, mode: str, qcodes, lengths, *, k: int = 0, ws
     if key is not None:
         entry = lib.rbt_seed_machine
         args = (MODES[mode], fb.data_ptr(), cuda_lf._SYMS_PER_ROW[key], F.data_ptr(),
-                base.data_ptr() if two_level else None,
-                fb.shape[0] // base.shape[0] if two_level else 0, tx.A, tx.n,
+                base.data_ptr() if two_level else None, *blk, tx.A, tx.n,
                 8 if two_level else 4, *lanes, ptr("hi_rec"), *tab("tk1"), *tab("ltk"),
                 *tab("run_start"), *cuda_lf.toe_directory(tx, ops), *tab("samples_last"), tx.R,
                 ptr("ssamp"), threads, int(staged))

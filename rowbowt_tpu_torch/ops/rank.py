@@ -4,10 +4,11 @@ The counterpart of rowbowt_tpu/ops/rank.py.  The fused-block backends read one
 row `[8 per-char exclusive checkpoints | packed 4-bit BWT symbols]` a rank,
 take the checkpoint of `c` and add a SWAR nibble-match popcount of the symbols
 below the in-block offset; an LF step is two ranks.  On the two-level rows of
-a big (n >= 2^31) index the checkpoints are superblock-local and an int64
-base per superblock completes the rank.  These are the plain versions the
-CUDA LF kernel (ops/cuda_lf.py) is held against, and the path a CPU tensor
-takes.  Indexes without fused rows take the other backends of the JAX file:
+a big (n >= 2^31) index the checkpoints are superblock-local, an int64 base
+per superblock completes the rank, and the symbols are three bit planes
+(engine/device.bit_planes) whose match with c is two ands of xors a word.
+These are the plain versions the CUDA LF kernel (ops/cuda_lf.py) is held
+against, and the path a CPU tensor takes.  Indexes without fused rows take the other backends of the JAX file:
 occ1 (one element a rank, raw builds below OCC1_MAX_N), dense (`bwt4` +
 `occ_blk`, alphabets of 9-16 codes) and run-space (a searchsorted over the
 run starts and two gathers, `--no-dense` builds), with the per-step toehold
@@ -31,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.engine.device import (PLANE_KEYS, PLANE_SYMS, TorchIndex,
+                                             plane_columns)
 
 _FB_CKPT = 8
 _NIB_LOW = 0x11111111
@@ -137,10 +139,9 @@ def _fb_rank_from_rows(row, off, c):
     return occ + inblk.to(row.dtype)
 
 
-def _rank_rows(tx: TorchIndex, i, c, key: str, shift: int, base=None):
-    """rank(i, c) for i in [0, n] over the rows `key` of 2^shift symbols;
-    with `base` (int64 [n_sup, 8]) the rows' checkpoints are superblock-local
-    and the base of i's superblock is added."""
+def _rank_rows(tx: TorchIndex, i, c, key: str, shift: int):
+    """rank(i, c) for i in [0, n] over the single-level rows `key` of
+    2^shift symbols."""
     arr = tx.arrays
     isafe = torch.clamp(i, max=tx.n - 1)
     blk = (isafe >> shift).long()
@@ -148,12 +149,6 @@ def _rank_rows(tx: TorchIndex, i, c, key: str, shift: int, base=None):
     row = arr[key][blk]  # [B, 8 + 2^shift/8]
     csafe = torch.clamp(c, min=0)
     v = _fb_rank_from_rows(row, off, csafe).to(i.dtype)
-    if base is not None:
-        # the layout's own rows per superblock: twice the BigIndex's per_blk
-        # for the 64-symbol repack
-        per_blk = arr[key].shape[0] // base.shape[0]
-        sel = torch.arange(_FB_CKPT, dtype=torch.int32, device=c.device)[None, :] == csafe[:, None]
-        v = v + torch.where(sel, base[blk // per_blk], 0).sum(dim=1).to(i.dtype)
     v = torch.where(i >= tx.n, _total(tx, csafe).to(i.dtype), v)
     return torch.where(c < 0, torch.zeros_like(v), v)
 
@@ -196,24 +191,62 @@ def lf_step_fblock(tx: TorchIndex, lo, hi, c):
     return _lf_step(rank_fblock, tx, lo, hi, c)
 
 
+def _rank_planes(tx: TorchIndex, i, c, key: str):
+    """rank(i, c) for i in [0, n] over the bit-plane rows of the two-level
+    layout `key` (engine/device.bit_planes), as csrc/lf_rank.cuh ranks them:
+    the superblock-local checkpoint of c, the popcount of each 32-symbol
+    word's match (P0 ^ m0) & (P1 ^ m1) & (P2 ^ m2) (m_k all ones where bit
+    k of c is 0) below the in-row offset, and fb2_base of the row's
+    superblock (per_blk = the layout's rows over n_sup)."""
+    syms = PLANE_SYMS[key]
+    shift = syms.bit_length() - 1
+    tab, base = tx.arrays[PLANE_KEYS[key]], tx.arrays["fb2_base"]
+    dev = i.device
+    isafe = torch.clamp(i, max=tx.n - 1)
+    blk = (isafe >> shift).long()
+    off = (isafe & (syms - 1)).to(torch.int64)
+    row = tab[blk]  # [B, PLANE_ROW[syms]]
+    csafe = torch.clamp(c, min=0)
+    sel = torch.arange(_FB_CKPT, dtype=torch.int32, device=dev)[None, :] == csafe[:, None]
+    ck = torch.where(sel, row[:, :_FB_CKPT], 0).sum(dim=1, dtype=torch.int64)
+    P = row[:, torch.from_numpy(plane_columns(syms)).to(dev)].to(torch.int64) & _U32
+    cl = csafe.to(torch.int64)[:, None]
+    match = _U32
+    for p in range(3):
+        match = match & (P[:, p] ^ torch.where((cl >> p) & 1 == 1, 0, _U32))
+    G = syms // 32
+    kn = (off[:, None] - 32 * torch.arange(G, dtype=torch.int64, device=dev)[None, :]
+          ).clamp(0, 32)
+    mask = torch.where(kn >= 32, _U32, (torch.ones_like(kn) << kn) - 1)
+    v = ck + _popcount32(match & mask).sum(dim=1)
+    per_blk = tab.shape[0] // base.shape[0]
+    v = v + torch.where(sel, base[blk // per_blk], 0).sum(dim=1)
+    v = v.to(i.dtype)
+    v = torch.where(i >= tx.n, _total(tx, csafe).to(i.dtype), v)
+    return torch.where(c < 0, torch.zeros_like(v), v)
+
+
 def rank_fblock2(tx: TorchIndex, i, c, key: str = "fb2", shift: int = 7):
-    """Two-level fused-block rank, the n >= 2^31 path: rows `key` whose 8
-    checkpoint lanes are superblock-local (int32 cannot overflow), plus
-    fb2_base int64 [n_sup, 8], the global count before each superblock.
-    Lanes i are int64; rank = base[superblock of i, c] + local checkpoint +
-    in-block popcount.  (key, shift) is ("fb2_64", 6), ("fb2", 7) or
-    ("fb2_256", 8)."""
-    return _rank_rows(tx, i, c, key, shift, base=tx.arrays["fb2_base"])
+    """Two-level fused-block rank, the n >= 2^31 path: the bit-plane rows of
+    layout `key`, whose 8 checkpoint lanes are superblock-local (int32
+    cannot overflow), plus fb2_base int64 [n_sup, 8], the global count
+    before each superblock.  Lanes i are int64; rank = base[superblock of
+    i, c] + local checkpoint + in-row popcount (_rank_planes).  (key,
+    shift) is ("fb2_64", 6), ("fb2", 7) or ("fb2_256", 8): the nibble
+    layout the planes were made from."""
+    assert PLANE_SYMS[key] == 1 << shift, (key, shift)
+    return _rank_planes(tx, i, c, key)
 
 
 def _fb2_key(tx: TorchIndex):
-    """(key, shift) of the resident two-level layout: the 64-symbol/64B
-    repack, the 256-symbol/160B rows, else the 128-symbol/96B build rows."""
-    if "fb2_64" in tx.arrays:
-        return "fb2_64", 6
-    if "fb2_256" in tx.arrays:
-        return "fb2_256", 8
-    return "fb2", 7
+    """(layout, shift) of the resident two-level rows, by the nibble layout
+    their bit planes were made from (engine/device.PLANE_KEYS): the
+    64-symbol/64B repack, the 256-symbol/128B rows, else the 128-symbol/96B
+    build rows."""
+    for key in ("fb2_64", "fb2_256", "fb2"):
+        if PLANE_KEYS[key] in tx.arrays:
+            return key, PLANE_SYMS[key].bit_length() - 1
+    raise ValueError("no two-level rows in this view")
 
 
 def lf_step_fblock2(tx: TorchIndex, lo, hi, c):
@@ -223,6 +256,19 @@ def lf_step_fblock2(tx: TorchIndex, lo, hi, c):
 
 
 FB2_KEYS = ("fb2_64", "fb2", "fb2_256")
+
+
+def superblock_magic(per_blk: int) -> tuple[int, int]:
+    """(mul, shift) with row // per_blk == (row * mul) >> shift for every
+    row id in [0, 2^31): the rounded-up reciprocal of Granlund and
+    Montgomery for 31-bit dividends, shift = 31 + ceil(log2 per_blk) and
+    mul = ceil(2^shift / per_blk) < 2^32, whose error (mul * per_blk -
+    2^shift < per_blk) times a row id stays below 2^shift.  The two-level
+    kernels take a row's superblock so, without a division."""
+    if not 1 <= per_blk < 1 << 31:
+        raise ValueError(f"per_blk {per_blk} outside [1, 2^31)")
+    shift = 31 + (per_blk - 1).bit_length()
+    return -(-(1 << shift) // per_blk), shift
 
 
 def rank_occ1(tx: TorchIndex, i, c):
@@ -256,7 +302,7 @@ def lf_step_auto(tx: TorchIndex):
         return lf_step_fblock64
     if "fblock" in tx.arrays:
         return lf_step_fblock
-    if any(k in tx.arrays for k in FB2_KEYS):
+    if any(PLANE_KEYS[k] in tx.arrays for k in FB2_KEYS):
         return lf_step_fblock2
     if "occ1_flat" in tx.arrays:
         return lf_step_occ1
@@ -314,20 +360,31 @@ def lf_step_w_loc(tx: TorchIndex, lo, hi, c, k):
 
 
 def bwt_sym(tx: TorchIndex, i):
-    """BWT code at position i (batched) from the packed fused-block words:
-    one gathered int32 element per lane, no checkpoint read.  Works on every
-    fblock-family layout: the superblock regions of the two-level rows are
-    contiguous multiples of the block size, so the global row id is i >>
-    shift.  Out-of-range i is clamped; callers mask.  Returns int32."""
+    """BWT code at position i (batched) from the fused rows, no checkpoint
+    read: one gathered int32 element per lane from the single-level rows'
+    packed nibbles, or on the two-level rows one bit of each of three
+    plane words (engine/device.plane_columns).  The superblock regions of
+    the two-level rows are contiguous multiples of the row size, so the
+    global row id is i >> shift.  Out-of-range i is clamped; callers mask.
+    Returns int32."""
     arr = tx.arrays
-    for key, shift in (("fb2_64", 6), ("fblock64", 6),
-                       ("fb2_256", 8), ("fb2", 7), ("fblock", 7)):
+    isafe = torch.clamp(i, 0, tx.n - 1)
+    for key in ("fb2_64", "fb2_256", "fb2"):
+        if PLANE_KEYS[key] in arr:
+            syms = PLANE_SYMS[key]
+            blk = (isafe >> (syms.bit_length() - 1)).long()
+            off = isafe & (syms - 1)
+            col = torch.from_numpy(plane_columns(syms)).to(i.device)[:, (off >> 5).long()].T
+            P = arr[PLANE_KEYS[key]][blk[:, None], col].to(torch.int64) & _U32  # [B, 3]
+            bit = (off & 31).to(torch.int64)[:, None]
+            sym = ((P >> bit) & 1) << torch.arange(3, device=i.device)[None, :]
+            return sym.sum(dim=1).to(torch.int32)
+    for key, shift in (("fblock64", 6), ("fblock", 7)):
         if key in arr:
             tab = arr[key]
             break
     else:
         raise ValueError("bwt_sym needs an fblock-family table")
-    isafe = torch.clamp(i, 0, tx.n - 1)
     blk = (isafe >> shift).long()
     off = isafe & ((1 << shift) - 1)
     w = tab[blk, (_FB_CKPT + (off >> 3)).long()].to(torch.int64) & _U32

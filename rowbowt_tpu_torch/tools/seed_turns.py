@@ -4,7 +4,7 @@ timed beside earlier designs of them, in turns on the same batches, on one
 NVIDIA GPU.
 
     python -m rowbowt_tpu_torch.tools.seed_turns \\
-        --design parent=DIR [--design NAME=DIR ...] [PHASE ...]
+        --design parent=DIR [--design NAME=DIR ...] [--variant NAME=FLAGS ...] [PHASE ...]
 
 Each DIR holds another commit's kernel sources, as `git archive <commit>
 rowbowt_tpu_torch/csrc | tar -x -C DIR` writes them; where its C entries
@@ -13,11 +13,18 @@ rbt_seed_machine and rbt_seed_machine_tables take a lane counter before
 stream; where its rbt_lf_toehold, rbt_seed_machine or rbt_phi_walk_pred
 takes no bucket directory (the designs before the toehold's resolve and the
 predecessor walk searched one), the checkout's directory arguments are left
-out of its calls (DIRECTORY_ARGS).  A design's threads a lane over each
-tables policy come from its lf.cu's rbt_lane_threads (two over the run-space
-tables and one over the others where it has none), and each of its tables
-launches gets its own launch plan at those (cuda_lf.launch_plan), so that it
-runs as its own wrapper ran it.  The tool builds each design's lf.cu,
+out of its calls (DIRECTORY_ARGS); where its rbt_lf_count_fb2 takes no
+superblock multiplier (the designs over nibble rows), its two-level calls
+get the nibble rows of the same table (engine/device.nibbles_of_planes of
+the checkout's bit planes, made once a table) and per_blk in place of the
+multiplier and shift (NIBBLE_ARGS), so that each design reads its own rows.
+A --variant is the checkout's own sources built with FLAGS (comma-separated
+nvcc options, such as a -D macro that selects a design under test).  A
+design's threads a lane over each tables policy come from its lf.cu's
+rbt_lane_threads (two over the run-space tables and one over the others
+where it has none), and each of its tables launches gets its own launch
+plan at those (cuda_lf.launch_plan), so that it runs as its own wrapper
+ran it.  The tool builds each design's lf.cu,
 seeds.cu and phi_walk.cu with nvcc for sm_90a (_native.NVCC_FLAGS) into
 libraries of their own beside the checkout's, prints each design's nvcc
 register and spill report (`designs`) and which of its kernels compile to
@@ -69,13 +76,17 @@ ENTRIES = {"seeds": ("rbt_seed_machine", "rbt_seed_machine_tables"),
            "phi_walk": ("rbt_phi_walk_pred",)}
 # the argument positions of rbt_lf_count_fb2's B and L: a design without
 # lf.cu's LfBounds planned its int64 lanes as the int32 ones (512 threads)
-FB2_ARGS = (9, 10)
+FB2_ARGS = (10, 11)
+# the positions, in the checkout's arguments of a two-level entry, of the
+# rows, the superblock multiplier and its shift, and of the lane width
+# (None: always two-level), for a design that takes nibble rows and per_blk
+NIBBLE_ARGS = {"rbt_lf_count_fb2": (0, 4, None), "rbt_seed_machine": (1, 5, 9)}
 # the checkout's arguments of a C entry that designs before the bucket
 # directories of the toehold's resolve and the predecessor walk do not take:
 # (their positions, a name that the entry's signature holds where it takes
 # them)
 DIRECTORY_ARGS = {"rbt_lf_toehold": (range(15, 20), "rs_off"),
-                  "rbt_seed_machine": (range(38, 43), "rs_off"),
+                  "rbt_seed_machine": (range(39, 44), "rs_off"),
                   "rbt_phi_walk_pred": (range(5, 10), "pred_off")}
 # the argument positions of a tables entry: (its policy, B, L); threads and
 # stage are the third and second from the end
@@ -103,6 +114,29 @@ def takes_directory(src: str, entry: str) -> bool:
     return DIRECTORY_ARGS[entry][1] in sig[:sig.index("{")]
 
 
+# {data_ptr of a table's bit planes: its nibble rows on the device}, for the
+# designs over nibble rows (register_nibbles)
+NIBBLES = {}
+
+
+def register_nibbles(tx) -> None:
+    """Make the nibble rows of tx's two-level bit planes (once a table) for
+    the designs that read nibble rows."""
+    from rowbowt_tpu_torch.engine.device import PLANE_KEYS, PLANE_SYMS, nibbles_of_planes
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    key = cuda_lf.row_layout(tx)
+    if key in PLANE_KEYS:
+        planes = tx.arrays[PLANE_KEYS[key]]
+        if planes.data_ptr() not in NIBBLES:
+            NIBBLES[planes.data_ptr()] = nibbles_of_planes(planes, PLANE_SYMS[key], tx.n)
+
+
+def per_blk_of(mul: int, shift: int) -> int:
+    """The per_blk whose ops/rank.superblock_magic is (mul, shift)."""
+    return -(-(1 << shift) // mul)
+
+
 class Design:
     """A design's libraries as the `lib` of launch_machine, launch_tables,
     launch_toehold and launch_walk: its C entries take the checkout's
@@ -113,15 +147,20 @@ class Design:
     inside the timed call, as the wrapper of that design zeroed it."""
 
     def __init__(self, paths: dict, current: dict, counter: bool, sms: int, drop: dict,
-                 lf_bounds: bool):
+                 lf_bounds: bool, nibbles: bool):
         self.libs = {stem: ctypes.CDLL(path) for stem, path in paths.items()}
         self.counter, self.sms, self.drop, self.lf_bounds = counter, sms, drop, lf_bounds
+        self.nibbles = nibbles
         self.groups = design_groups(self.libs["lf"])
         for stem, entries in ENTRIES.items():
             lib = self.libs[stem]
             for entry in entries:
                 types = [t for i, t in enumerate(getattr(current[stem], entry).argtypes)
                          if i not in drop.get(entry, ())]
+                if nibbles and entry in NIBBLE_ARGS:
+                    # per_blk, an int, in place of the multiplier and shift
+                    at = NIBBLE_ARGS[entry][1]
+                    types[at:at + 2] = [ctypes.c_int]
                 if counter and stem == "seeds":
                     types.insert(len(types) - 3, ctypes.c_void_p)
                 getattr(lib, entry).argtypes = types
@@ -148,6 +187,14 @@ class Design:
     def _call(self, stem, entry, args):
         args = self._plan(entry, args)
         args = tuple(a for i, a in enumerate(args) if i not in self.drop.get(entry, ()))
+        if self.nibbles and entry in NIBBLE_ARGS:
+            fb, at, width = NIBBLE_ARGS[entry]
+            two_level = width is None or args[width] == 8
+            args = list(args)
+            if two_level:
+                args[fb] = NIBBLES[args[fb]].data_ptr()
+            args[at:at + 2] = [per_blk_of(*args[at:at + 2]) if two_level else 0]
+            args = tuple(args)
         if self.counter and stem == "seeds":
             import torch
 
@@ -232,7 +279,7 @@ def same_sass(design: str, checkout: str) -> dict:
     return out
 
 
-def build_designs(smoke, designs: dict) -> dict:
+def build_designs(smoke, designs: dict, flags: dict | None = None) -> dict:
     """{name: Design} built side by side with the checkout's lf.cu, seeds.cu
     and phi_walk.cu, each into its own libraries (librbt_<stem>_<name>);
     prints
@@ -244,14 +291,15 @@ def build_designs(smoke, designs: dict) -> dict:
     from rowbowt_tpu_torch import _native
     from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi, cuda_seeds
 
+    flags = flags or {}
     cmd = [_native.find_tool("nvcc", "/usr/local/cuda/bin/nvcc"), *_native.NVCC_FLAGS]
     csrc = {name: os.path.join(src, "rowbowt_tpu_torch", "csrc") for name, src in designs.items()}
 
     def build(name, stem):
         d = csrc[name]
         headers = tuple(os.path.join(d, f) for f in sorted(os.listdir(d)) if f.endswith(".cuh"))
-        return _native.build_shared(f"librbt_{stem}_{name}", cmd, [os.path.join(d, f"{stem}.cu")],
-                                    headers=headers)
+        return _native.build_shared(f"librbt_{stem}_{name}", cmd + flags.get(name, []),
+                                    [os.path.join(d, f"{stem}.cu")], headers=headers)
 
     with ThreadPoolExecutor(2 * len(designs) + 2) as ex:
         futures = {(name, stem): ex.submit(build, name, stem) for name in designs
@@ -268,6 +316,13 @@ def build_designs(smoke, designs: dict) -> dict:
         "checkout": {stem: smoke.ptxas_instances(logs[stem]) for stem in ENTRIES}}}), flush=True)
     print(json.dumps({"sass": {name: {stem: same_sass(built[name, stem][0], paths[stem])
                                       for stem in ENTRIES} for name in designs}}), flush=True)
+    # the step loop of each design's two-level search (the int64 instances
+    # of lf_count_kernel before the bit planes, lf_count2_kernel after)
+    libs_lf = {**{name: built[name, "lf"][0] for name in designs}, "checkout": paths["lf"]}
+    STEP_LOOPS.update({name: {**smoke.loop_instructions(path, "lf_count_kernelIl"),
+                              **smoke.loop_instructions(path, "lf_count2_kernel")}
+                       for name, path in libs_lf.items()})
+    print(json.dumps({"step_loops": STEP_LOOPS}), flush=True)
     sms = cuda_gather._sm_count(torch.cuda.current_device())
     out = {}
     for name in designs:
@@ -280,10 +335,29 @@ def build_designs(smoke, designs: dict) -> dict:
                 for entry in entries
                 if entry in DIRECTORY_ARGS and not takes_directory(src[stem], entry)}
         out[name] = Design({stem: built[name, stem][0] for stem in ENTRIES}, current, counter,
-                           sms, drop, "LfBounds" in src["lf"])
+                           sms, drop, "LfBounds" in src["lf"], "blk_mul" not in src["lf"])
     print(json.dumps({"design_directories": {name: sorted(d.drop) for name, d in out.items()}}),
           flush=True)
     return out
+
+
+# {design: {instance: its step loop's instructions}} (build_designs)
+STEP_LOOPS = {}
+
+
+def step_loop(design: str, syms: int, rec: bool) -> int | None:
+    """Instructions of the step loop of a design's staged two-level
+    search over `syms`-symbol rows, with the record where `rec`."""
+    r = "true" if rec else "false"
+    names = (f"lf_count_kernel<long, {syms}, true, {r}, false>",
+             f"lf_count2_kernel<{syms}, true, {r}>",
+             # not demangled
+             f"lf_count_kernelIlLi{syms}ELb1ELb{int(rec)}ELb0E",
+             f"lf_count2_kernelILi{syms}ELb1ELb{int(rec)}E")
+    for k, v in STEP_LOOPS.get(design, {}).items():
+        if any(name in k for name in names):
+            return v["instructions"]
+    return None
 
 
 def in_turns(smoke, libs: dict, launch) -> dict:
@@ -305,6 +379,7 @@ def seed_turns(smoke, libs: dict, tx, runs: dict) -> None:
 
     from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 
+    register_nibbles(tx)
     for name, (q, ln, cfg) in runs.items():
         mode = name.split("_")[0]
 
@@ -416,7 +491,18 @@ def k1_turns(smoke, libs: dict, tx, q, ln) -> None:
     from rowbowt_tpu_torch.ops import cuda_lf
 
     ln = ln.to(torch.int32)
-    out = {"layout": cuda_lf.row_layout(tx), "n": tx.n, "lanes": q.shape[0], "L": q.shape[1]}
+    register_nibbles(tx)
+    key = cuda_lf.row_layout(tx)
+    out = {"layout": key, "n": tx.n, "lanes": q.shape[0], "L": q.shape[1]}
+    # the issue bound of each design: its two threads' step loop a ranked
+    # step over the card's int32 rate (chip_smoke.k1_bound's operations)
+    ranked = smoke.k1_work(tx, q, ln, False)["ranked_steps"]
+    for name, record in (("count", False), ("record", True)):
+        loops = {d: step_loop(d, cuda_lf._SYMS_PER_ROW[key], record)
+                 for d in ["checkout", *libs]}
+        out[f"{name}_issue_us"] = {d: 2 * v * ranked / smoke.INT_OPS_PER_S * 1e6
+                                   for d, v in loops.items() if v}
+        out[f"{name}_step_loop"] = loops
     for name, record in (("count", False), ("record", True)):
         def launch(lib, record=record):
             return cuda_lf.launch_k1(tx, q, ln, use_ftab=False, record=record, lib=lib)
@@ -502,11 +588,16 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--design", action="append", default=[], metavar="NAME=DIR",
                     help="an earlier design's kernel sources (repeatable, timed in this order)")
+    ap.add_argument("--variant", action="append", default=[], metavar="NAME=FLAGS",
+                    help="the checkout's sources built with FLAGS (comma-separated nvcc "
+                         "options; repeatable, timed after the designs)")
     ap.add_argument("phases", nargs="*", default=list(DEFAULT_PHASES))
     args = ap.parse_args(argv)
     designs = dict(d.split("=", 1) for d in args.design)
-    if not designs or "checkout" in designs:
-        ap.error("at least one --design NAME=DIR, none named checkout")
+    variants = dict(v.split("=", 1) for v in args.variant)
+    if not designs or "checkout" in designs or set(designs) & set(variants):
+        ap.error("at least one --design NAME=DIR, none named checkout or as a variant")
+    designs.update({name: os.getcwd() for name in variants})
     sys.path.insert(0, os.getcwd())
     import chip_smoke as smoke
     import torch
@@ -515,7 +606,7 @@ def main(argv: list[str]) -> int:
         print("seed_turns needs a CUDA device; torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    libs = build_designs(smoke, designs)
+    libs = build_designs(smoke, designs, {name: f.split(",") for name, f in variants.items()})
     real_seeds, real_tables, real_nodense = (smoke.seeds_times, smoke.tables_times,
                                              smoke.phase_nodense_chr)
     real_walk, real_toehold_work = smoke.walk_times, smoke.toehold_work

@@ -33,7 +33,7 @@ from rowbowt_tpu_torch.engine import markers as TM
 from rowbowt_tpu_torch.engine import seeds as TS
 from rowbowt_tpu_torch.engine.batch import encode_batch
 from rowbowt_tpu_torch.engine.count import find_ranges
-from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.engine.device import PLANE_KEYS, PLANE_SYMS, TorchIndex, bit_planes
 from rowbowt_tpu_torch.ops import cuda_lf
 from rowbowt_tpu_torch.ops import rank as TR
 from test_bigindex import _codes_of, _marker_fixture, _reads_of
@@ -177,13 +177,21 @@ def test_directory_loads_in_the_other_package(v2, tmp_path, writer):
         stamps = {f: os.stat(os.path.join(p, f)).st_mtime_ns for f in caches}
         dx = JB.BigIndex.load(p).device_index()
     assert {f: os.stat(os.path.join(p, f)).st_mtime_ns for f in caches} == stamps
-    assert sorted(tx.arrays) == sorted(dx.arrays)
-    _eq([tx.arrays[k] for k in sorted(dx.arrays)], [_widened(dx.arrays[k]) for k in sorted(dx.arrays)])
+    want = _viewed(dx.arrays)
+    assert sorted(tx.arrays) == sorted(want)
+    _eq([tx.arrays[k] for k in sorted(want)], [want[k] for k in sorted(want)])
 
 
 def _widened(a):
     a = np.asarray(a)
     return a.astype(np.int64) if a.dtype == np.uint32 else a
+
+
+def _viewed(arrays) -> dict:
+    """The tables the port's view holds for a JAX DeviceIndex's leaves:
+    each widened, the two-level nibble rows as their bit planes."""
+    return {PLANE_KEYS.get(k, k): bit_planes(np.asarray(v), PLANE_SYMS[k], "cpu").numpy()
+            if k in PLANE_KEYS else _widened(v) for k, v in arrays.items()}
 
 
 @pytest.mark.parametrize("cache", ["fb2_64", "phi", "run_pack"])
@@ -263,7 +271,7 @@ def test_a_second_index_saved_over_the_first_answers_as_itself(marker_panel, oth
     _eq(_big_answers(loaded, reads, idx), want, "the second index")
     assert any(not np.array_equal(g.numpy(), w.numpy())
                for g, w in zip(_big_answers(first, reads, idx), want))
-    for name in ("fb2_64", "phi_rows", "phi_delta"):
+    for name in ("pl2_64", "phi_rows", "phi_delta"):
         np.testing.assert_array_equal(loaded.arrays[name].numpy(), fresh.arrays[name].numpy())
 
 
@@ -526,18 +534,18 @@ def test_from_big_gates_the_tables(v2):
             dx = jb.device_index(with_locate=with_locate, with_markers=with_markers)
             tx = TorchIndex.from_big(tb, "cpu", with_locate=with_locate,
                                      with_markers=with_markers)
-            assert sorted(tx.arrays) == sorted(dx.arrays)
+            want = _viewed(dx.arrays)
+            assert sorted(tx.arrays) == sorted(want)
             assert (tx.R, tx.pp_bs, tx.ma_bs, tx.ma_rp, tx.ftab_k, tx.acgt_codes) == (
                 dx.R, dx.pp_bs, dx.ma_bs, dx.ma_rp, 0, dx.acgt_codes)
-            _eq([tx.arrays[k] for k in sorted(dx.arrays)],
-                [_widened(dx.arrays[k]) for k in sorted(dx.arrays)])
+            _eq([tx.arrays[k] for k in sorted(want)], [want[k] for k in sorted(want)])
 
 
 # ---------------------------------------------------------------------------
 # K1 over the two-level rows: the launch path with its C entry recorded
 
-FB2_ARGS = ("fb", "syms", "F", "base", "per_blk", "A", "n", "q", "lengths", "B", "L", "lo", "hi",
-            "hi_rec", "threads", "stage", "stream")
+FB2_ARGS = ("fb", "syms", "F", "base", "blk_mul", "blk_shift", "A", "n", "q", "lengths", "B",
+            "L", "lo", "hi", "hi_rec", "threads", "stage", "stream")
 
 
 @pytest.fixture
@@ -593,11 +601,12 @@ def test_launch_fb2_passes_int64_n_base_and_the_layouts_per_blk(count_case, fake
     _, _, q, ln = _batch(idx, reads, pad_to=32)
     lo, hi = cuda_lf.launch_k1(tx, q, ln, use_ftab=True)  # no ftab on a big index
     (a,) = fake_fb2_entry["calls"]
-    fb = tx.arrays[layout]
+    fb = tx.arrays[PLANE_KEYS[layout]]  # the layout's bit planes
     assert a["fb"] == fb.data_ptr() and a["syms"] == {"fb2_64": 64, "fb2": 128, "fb2_256": 256}[layout]
     assert a["F"] == tx.arrays["F"].data_ptr() and a["base"] == tx.arrays["fb2_base"].data_ptr()
-    assert a["per_blk"] == (2 * tb.per_blk if layout == "fb2_64" else tb.per_blk)
-    assert a["per_blk"] == fb.shape[0] // n_sup
+    per_blk = 2 * tb.per_blk if layout == "fb2_64" else tb.per_blk
+    assert per_blk == fb.shape[0] // n_sup
+    assert (a["blk_mul"], a["blk_shift"]) == TR.superblock_magic(per_blk)
     assert a["n"] == (1 << 31) + 12_345 and a["A"] == tx.A
     assert (a["q"], a["lengths"], a["B"], a["L"]) == (q.data_ptr(), ln.data_ptr(), *q.shape)
     for t, name in ((lo, "lo"), (hi, "hi")):
@@ -651,7 +660,7 @@ def test_launch_fb2_refuses_mixed_dtypes(count_case, fake_fb2_entry, fault, erro
     elif fault == "int32 base":
         arrays["fb2_base"] = arrays["fb2_base"].int()
     elif fault == "int64 rows":
-        arrays["fb2_64"] = arrays["fb2_64"].long()
+        arrays["pl2_64"] = arrays["pl2_64"].long()
     elif fault == "int64 qcodes":
         q = q.long()
     elif fault == "int64 lengths":

@@ -250,7 +250,7 @@ def test_big_artifact_not_ported(big_dir, capsys):
         "note: big artifacts carry no ftab; running without it"]
     for sa, ma in ((False, False), (True, False), (False, True)):
         tx = common.device_index(big, "cpu", sa=sa, ma=ma)
-        assert tx.idx_dtype == torch.int64 and "fb2_64" in tx.arrays
+        assert tx.idx_dtype == torch.int64 and "pl2_64" in tx.arrays
         assert ("cruns_keys" in tx.arrays) == sa and ("ma_val" in tx.arrays) == ma
 
 

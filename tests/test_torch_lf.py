@@ -271,8 +271,9 @@ def test_launch_refuses(panel, fake_entry, fault, error, match):
     elif fault == "int64 F":
         arrays["F"] = arrays["F"].long()
     elif fault == "int32 F on two-level rows":
-        # the same rows as a one-superblock two-level table: F must widen
-        arrays["fb2_64"] = arrays.pop("fblock64")
+        # the same 64 B rows standing as a one-superblock two-level table's
+        # bit planes: F must widen
+        arrays["pl2_64"] = arrays.pop("fblock64")
         arrays["fb2_base"] = torch.zeros((1, 8), dtype=torch.int64)
         del arrays["ftab"]
     elif fault == "int64 qcodes":

@@ -25,7 +25,7 @@ import torch
 from rowbowt_tpu.engine import locate as JL
 from rowbowt_tpu_torch import _native
 from rowbowt_tpu_torch.engine import locate as TL
-from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.engine.device import PLANE_KEYS, TorchIndex
 from rowbowt_tpu_torch.ops import cuda_lf
 from test_bigindex import _reads_of
 from test_torch_bigindex import (LAYOUTS, FB2_ARGS, _batch, _eq, _twins, from_jax,  # noqa: F401
@@ -209,7 +209,7 @@ def test_record_launch_refuses(layout_case, fake_rec_entry, fault, error, match)
         assert cuda_lf.row_layout(tx) == "fblock64"
     elif fault == "no fused rows":
         tx = dataclasses.replace(tx, arrays={k: v for k, v in tx.arrays.items()
-                                             if k not in LAYOUTS})
+                                             if k not in PLANE_KEYS.values()})
     elif fault == "int64 qcodes":
         q = q.long()
     elif fault == "int64 lengths":

@@ -35,7 +35,7 @@ from rowbowt_tpu.index import RbtIndex as JaxRbtIndex
 from rowbowt_tpu_torch.alphabet import revcomp
 from rowbowt_tpu_torch.bigindex import BigIndex
 from rowbowt_tpu_torch.engine import seeds as TS
-from rowbowt_tpu_torch.engine.device import TorchIndex
+from rowbowt_tpu_torch.engine.device import TorchIndex, nibbles_of_planes
 from rowbowt_tpu_torch.index import RbtIndex
 from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 from rowbowt_tpu_torch.ops import rank as R
@@ -105,12 +105,15 @@ def _lanes(idx, reads, L):
 # ---------------------------------------------------------------------------
 # the numpy model of the kernel
 
-def rank_table(fb, syms, F, A, n, base=None, per_blk=1):
+def rank_table(fb, syms, F, A, n, base=None, sup=(0, 0)):
     """[n + 1, A] rank(i, c) as the kernel computes it from the fused rows:
-    the row's checkpoint of c (plus its superblock's base on the two-level
-    rows) and the count of c among the row's first i mod syms symbols; at
-    i = n the code's total count."""
+    the row's checkpoint of c (on the two-level rows, given `base`, their
+    bit planes, plus the base of the row's superblock (row * mul) >> shift,
+    sup = (mul, shift)) and the count of c among the row's first i mod syms
+    symbols; at i = n the code's total count."""
     shift = {64: 6, 128: 7, 256: 8}[syms]
+    if base is not None:
+        fb = nibbles_of_planes(torch.from_numpy(fb), syms, n).numpy()
     sym, ck = _symbols(fb, syms)
     onehot = (sym[:, :, None] == np.arange(A)).astype(np.int64)
     pre = np.concatenate([np.zeros((fb.shape[0], 1, A), np.int64),
@@ -119,7 +122,7 @@ def rank_table(fb, syms, F, A, n, base=None, per_blk=1):
     r, off = i >> shift, i & (syms - 1)
     tab = ck[r, :A] + pre[r, off]
     if base is not None:
-        tab = tab + np.asarray(base, np.int64)[r // per_blk, :A]
+        tab = tab + np.asarray(base, np.int64)[(r.astype(np.int64) * sup[0]) >> sup[1], :A]
     F = np.asarray(F, np.int64)
     return np.vstack([tab, (F[1:A + 1] - F[:A])[None]])
 
@@ -336,16 +339,18 @@ def _model_lib(tx, calls, rc, events=None):
     """rbt_seed_machine as machine_model over the operands at the addresses
     and widths the wrapper passes; returns rc, writing nothing when rc != 0."""
     key = cuda_lf.row_layout(tx)
-    rows = tx.arrays[key].shape
+    rows = cuda_lf.rows_of(tx, key).shape
     n_sup = tx.arrays["fb2_base"].shape[0] if key in R.FB2_KEYS else 0
 
-    def rbt_seed_machine(mode, fb, syms, F, base, per_blk, A, n, lane_b, q, lengths, B, L,
+    def rbt_seed_machine(mode, fb, syms, F, base, blk_mul, blk_shift, A, n, lane_b, q, lengths,
+                         B, L,
                          ftab, ftab_b, k, acgt, wsize, max_range, min_length, W, rlo, rhi,
                          rseed, nrec, S, slo, shi, sqs, sqe, ns, hi_rec, tk1, tk1_b, ltk, ltk_b,
                          run_start, rs_b, rs_off, off_b, n_off, shift, iters, samples_last, sl_b,
                          R_, ssamp, threads, stage, stream):
         name = {0: "greedy", 1: "lmem", 2: "sample"}[mode]
-        c = dict(mode=name, syms=syms, per_blk=per_blk, A=A, n=n, lane=lane_b, q=q, B=B, L=L,
+        c = dict(mode=name, syms=syms, blk=(blk_mul, blk_shift), A=A, n=n, lane=lane_b, q=q, B=B,
+                 L=L,
                  ftab=(ftab, ftab_b), k=k, acgt=acgt, wsize=wsize, max_range=max_range,
                  min_length=min_length, W=W, S=S, base=base, hi_rec=hi_rec,
                  outs=(rlo, rhi, rseed, nrec, slo, shi, sqs, sqe, ns),
@@ -359,7 +364,7 @@ def _model_lib(tx, calls, rc, events=None):
         fbn = _ints(fb, rows[0] * rows[1], 4).reshape(rows)
         Fn = _ints(F, A + 1, lane_b)
         bn = _ints(base, n_sup * 8, 8).reshape(-1, 8) if base else None
-        rk = rank_table(fbn, syms, Fn, A, n, bn, per_blk)
+        rk = rank_table(fbn, syms, Fn, A, n, bn, (blk_mul, blk_shift))
         codes = [(acgt >> (8 * i)) & 0xFF for i in range(4)]
         codes = [x - 256 if x == 0xFF else x for x in codes]
         got = machine_model(
@@ -619,8 +624,8 @@ def test_launch_passes_the_rows_lanes_and_capacities(panel, fake, mode, index):
     (c,) = fake["calls"]
     assert c["mode"] == mode and c["syms"] == 64 and c["lane"] == (8 if two else 4)
     assert (c["base"] is not None) == two and c["n"] == tx.n and (c["B"], c["L"]) == qc.shape
-    assert c["per_blk"] == (tx.arrays["fb2_64"].shape[0] // tx.arrays["fb2_base"].shape[0]
-                            if two else 0)
+    assert c["blk"] == (R.superblock_magic(tx.arrays["pl2_64"].shape[0]
+                                           // tx.arrays["fb2_base"].shape[0]) if two else (0, 0))
     assert c["k"] == k and (c["ftab"][0] is not None) == bool(k)
     assert c["ftab"][1] == (tx.arrays["ftab"].element_size() if k else 0)
     assert c["max_range"] == kw.get("max_range", 0)

@@ -392,14 +392,16 @@ def _model_libs(tx, calls, rc, events=None):
                         "eqs": sqs, "ssamp": ssamp})
         return rc
 
-    def rows(mode, fb, syms, F, base, per_blk, A, n, lane_b, q, lengths, B, L, ftab, ftab_b, k,
+    def rows(mode, fb, syms, F, base, blk_mul, blk_shift, A, n, lane_b, q, lengths, B, L, ftab,
+             ftab_b, k,
              acgt, wsize, max_range, min_length, W, rlo, rhi, rseed, nrec, S, slo, shi, sqs, sqe,
              ns, hi_rec, tk1, tk1_b, ltk, ltk_b, rs, rs_b, off, off_b, n_off, shift, iters, sl,
              sl_b, R, ssamp, threads, stage, stream):
         if ssamp is None:
             args = locals().copy()
             return rows_lib.rbt_seed_machine(*(args[a] for a in (
-                "mode", "fb", "syms", "F", "base", "per_blk", "A", "n", "lane_b", "q", "lengths",
+                "mode", "fb", "syms", "F", "base", "blk_mul", "blk_shift", "A", "n", "lane_b",
+                "q", "lengths",
                 "B", "L", "ftab", "ftab_b", "k", "acgt", "wsize", "max_range", "min_length", "W",
                 "rlo", "rhi", "rseed", "nrec", "S", "slo", "shi", "sqs", "sqe", "ns", "hi_rec",
                 "tk1", "tk1_b", "ltk", "ltk_b", "rs", "rs_b", "off", "off_b", "n_off", "shift",
@@ -412,7 +414,8 @@ def _model_libs(tx, calls, rc, events=None):
         if rc or B == 0:
             return rc
         key = cuda_lf.row_layout(tx)
-        fbn = _ints(fb, tx.arrays[key].numel(), 4).reshape(tx.arrays[key].shape)
+        rows = cuda_lf.rows_of(tx, key)
+        fbn = _ints(fb, rows.numel(), 4).reshape(rows.shape)
         Fn = _ints(F, A + 1, 4)
         rk = rank_table(fbn, syms, Fn, A, n)
         sym = _symbols(fbn, syms)[0].reshape(-1)[:n]

@@ -539,7 +539,7 @@ def test_launch_refuses(raw_cases, fake_toe, fault, error, match):
     elif fault == "no fused rows":
         del arrays["fblock64"]
     elif fault == "two-level rows":
-        arrays["fb2_64"] = arrays.pop("fblock64")
+        arrays["pl2_64"] = arrays.pop("fblock64")  # 64 B rows as two-level bit planes
         arrays["fb2_base"] = torch.zeros((1, 8), dtype=torch.int64)
     elif fault == "lengths shape":
         ln = ln[:-1]

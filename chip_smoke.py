@@ -761,12 +761,19 @@ def loop_instructions(lib_path: str, kernel: str) -> dict:
     return out
 
 
-def step_loop(syms: int, rec: bool) -> int | None:
-    """Instructions of the step loop of lf_count2_kernel<syms, staged,
-    rec> (STEP_LOOPS), or None where the build phase found none."""
-    names = (f"lf_count2_kernel<{syms}, true, {'true' if rec else 'false'}>",
-             f"lf_count2_kernelILi{syms}ELb1ELb{int(rec)}E")  # demangled or not
-    for k, v in STEP_LOOPS.items():
+def step_loop(syms: int, rec: bool, loops: dict | None = None) -> int | None:
+    """Instructions of the step loop of the staged two-level search over
+    `syms`-symbol rows, with the record where `rec`, in `loops` ({instance:
+    loop_instructions' entry}; STEP_LOOPS, the build phase's, by default):
+    lf_count2_kernel's over bit planes, or the int64 lf_count_kernel's of a
+    design over nibble rows; None where `loops` has neither."""
+    r = "true" if rec else "false"
+    names = (f"lf_count2_kernel<{syms}, true, {r}>",
+             f"lf_count_kernel<long, {syms}, true, {r}, false>",
+             # not demangled
+             f"lf_count2_kernelILi{syms}ELb1ELb{int(rec)}E",
+             f"lf_count_kernelIlLi{syms}ELb1ELb{int(rec)}ELb0E")
+    for k, v in (STEP_LOOPS if loops is None else loops).items():
         if any(name in k for name in names):
             return v["instructions"]
     return None
@@ -1171,38 +1178,118 @@ def seeds_parity_child(out_path: str) -> None:
 
 def phase_parity(device, cfg=SMALL, n_lanes=PARITY_LANES) -> dict:
     """K1 == find_ranges_plain on the card, both layouts, ftab on and off, on
-    the edge-case batch and at the edges of k1_edges; then K1 over the
-    two-level rows of the same BWT (n_sup = 4: fb2_64, fb2 and fb2_256, no
-    ftab) on the batch and at the same edges, its ranges also equal to the
-    single-level rows', and the record launch over each against its twin,
-    each layout's bit planes on the card equal to its nibble rows;
-    the walk, toehold and tables kernels against their twins; and, in a
-    child process started first (seeds_parity_child), the seeding kernel
-    against its twins on the same inputs.  Returns {kernel: max |err|}."""
+    the edge-case batch and at the edges of k1_edges; the walk, toehold and
+    tables kernels against their twins; and, in two child processes
+    started first, on the same inputs: K1 over the two-level rows and its
+    record launch (fb2_parity_child) and the seeding kernel
+    (seeds_parity_child) against their twins.  Returns {kernel: max |err|}."""
     import pickle
 
-    seeds_path = os.path.join(WORK, "seeds_parity.pkl")
-    child = spawn_child(seeds_parity_child, seeds_path)
+    paths = {target: os.path.join(WORK, f"{target.__name__}.pkl")
+             for target in (seeds_parity_child, fb2_parity_child)}
+    children = [spawn_child(target, path) for target, path in paths.items()]
     try:
         out = parity_checks(device, parity_inputs(device, cfg, n_lanes), n_lanes)
-        child.join()
+        for child in children:
+            child.join()
     finally:
-        stop_child(dict(proc=child))
-    check(child.exitcode == 0, f"seeds_parity's child exited {child.exitcode}")
-    with open(seeds_path, "rb") as f:
-        seeds = pickle.load(f)
-    emit("parity", **out["emit"], seeds_parity=seeds)
-    return {**out["errs"], **seeds["errs"]}
+        for child in children:
+            stop_child(dict(proc=child))
+    for child in children:
+        check(child.exitcode == 0, f"{child.name} exited {child.exitcode}")
+    res = {}
+    for target, path in paths.items():
+        with open(path, "rb") as f:
+            res[target] = pickle.load(f)
+    seeds, fb2 = res[seeds_parity_child], res[fb2_parity_child]
+    emit("parity", **out["emit"], **fb2["emit"], seeds_parity=seeds)
+    return {**out["errs"], **fb2["errs"], **seeds["errs"]}
 
 
-def parity_checks(device, inp: dict, n_lanes: int) -> dict:
-    """Phase parity's checks but the seeding kernel's, on parity_inputs'
-    `inp`: {"errs": {kernel: max |err|}, "emit": the phase line's fields}."""
+def fb2_parity_child(out_path: str) -> None:
+    """fb2_parity in a child process of its own on cuda:0 (started by phase
+    parity, beside its other checks: the plain twins are host-bound torch
+    loops, one core each), over parity_inputs' inputs; its result pickled
+    into out_path."""
+    import pickle
+
+    import torch
+
+    device = torch.device("cuda", 0)
+    res = fb2_parity(device, parity_inputs(device))
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def fb2_parity(device, inp: dict) -> dict:
+    """K1 over the two-level rows of parity_inputs' BWT (n_sup = 4: fb2_64,
+    fb2 and fb2_256, no ftab) on the edge-case batch and at k1_edges' edges
+    against its plain twin, its ranges also equal to the single-level
+    rows', and the record launch over each against its twin, each layout's
+    bit planes on the card equal to its nibble rows: {"errs": {kernel: max
+    |err|}, "emit": phase parity's fields}."""
     import torch
 
     from rowbowt_tpu_torch.bigindex import BigIndex
     from rowbowt_tpu_torch.engine.count import find_ranges
     from rowbowt_tpu_torch.engine.device import PLANE_SYMS, TorchIndex, nibbles_of_planes
+    from rowbowt_tpu_torch.ops import cuda_lf
+
+    idx, codes, q, ln, edges = (inp[k] for k in ("idx", "codes", "q", "ln", "edges"))
+    t0 = time.perf_counter()
+    edge_nonempty = {}
+    tx = TorchIndex.from_index(idx, device)
+    single = [find_ranges(tx, qe, le, use_ftab=False) for _, qe, le in [("", q, ln)] + edges]
+    err2, err3, layouts = 0, 0, []
+    launches0, rec0 = cuda_lf.LAUNCHES_FB2, cuda_lf.LAUNCHES_REC
+    planes = {}
+    for block, fb64 in ((128, True), (128, False), (256, False)):
+        big = BigIndex.from_codes(codes, idx.alpha, n_sup=4, block=block)
+        tx = TorchIndex.from_big(big, device, fb64=fb64)
+        layout = cuda_lf.row_layout(tx)
+        layouts.append(layout)
+        # the bit planes the card holds give back the nibble rows they were
+        # made from
+        rows = cuda_lf.rows_of(tx, layout)
+        nib = big._fb2_64() if layout == "fb2_64" else big.fb2
+        back = nibbles_of_planes(rows, PLANE_SYMS[layout], tx.n).cpu().numpy()
+        check(np.array_equal(back, nib), f"the bit planes of {layout} != its nibble rows")
+        planes[layout] = dict(row_bytes=rows.shape[1] * 4, nibble_row_bytes=nib.shape[1] * 4,
+                              bytes=tx.planes_bytes, s=tx.planes_s)
+        for (label, qe, le), one in zip([("batch", q, ln)] + edges, single):
+            got = find_ranges(tx, qe, le)
+            want = cuda_lf.find_ranges_plain(tx, qe, le)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(got, want), max_abs_err(got, one))
+            check(e == 0, f"K1 over {layout} != plain or the single-level rows at {label}: "
+                  f"max |err| {e}")
+            err2 = max(err2, e)
+            edge_nonempty[f"{layout},{label}"] = int((got[1] >= got[0]).sum().item())
+            e = held_record(tx, qe, le, got)
+            check(e == 0, f"the record launch over {layout} != its plain twin at {label}: "
+                  f"max |err| {e}")
+            err3 = max(err3, e)
+        del tx
+    want_fb2 = 3 * (1 + len(edges))
+    launches2 = cuda_lf.LAUNCHES_FB2 - launches0
+    check(launches2 == want_fb2, f"expected {want_fb2} two-level K1 launches, counted "
+          f"{launches2}")
+    launches3 = cuda_lf.LAUNCHES_REC - rec0
+    check(launches3 == want_fb2, f"expected {want_fb2} record launches, counted {launches3}")
+    fields = dict(fb2_layouts=layouts, fb2_launches=launches2, fb2_max_abs_err=err2,
+                  planes=planes, fb2_edge_nonempty=edge_nonempty,
+                  fb2_s=time.perf_counter() - t0, rec_launches=launches3, rec_max_abs_err=err3)
+    return dict(errs={"lf_count_fb2": err2, "lf_count_fb2_rec": err3}, emit=fields)
+
+
+def parity_checks(device, inp: dict, n_lanes: int) -> dict:
+    """Phase parity's checks but the seeding kernel's and the two-level
+    search's, on parity_inputs' `inp`: {"errs": {kernel: max |err|},
+    "emit": the phase line's fields}."""
+    import torch
+
+    from rowbowt_tpu_torch.engine.count import find_ranges
+    from rowbowt_tpu_torch.engine.device import TorchIndex
     from rowbowt_tpu_torch.engine.locate import find_ranges_w_toehold
     from rowbowt_tpu_torch.ops import cuda_lf
 
@@ -1242,52 +1329,14 @@ def parity_checks(device, inp: dict, n_lanes: int) -> dict:
     launches = cuda_lf.LAUNCHES - launches0
     want_k1 = 4 * (2 + len(edges))
     check(launches == want_k1, f"expected {want_k1} K1 launches, counted {launches}")
-    tx = TorchIndex.from_index(idx, device)
-    single = [find_ranges(tx, qe, le, use_ftab=False) for _, qe, le in [("", q, ln)] + edges]
-    err2, err3, layouts = 0, 0, []
-    launches0, rec0 = cuda_lf.LAUNCHES_FB2, cuda_lf.LAUNCHES_REC
-    planes = {}
     k1_s, t0 = time.perf_counter() - t0, time.perf_counter()
-    for block, fb64 in ((128, True), (128, False), (256, False)):
-        big = BigIndex.from_codes(codes, idx.alpha, n_sup=4, block=block)
-        tx = TorchIndex.from_big(big, device, fb64=fb64)
-        layout = cuda_lf.row_layout(tx)
-        layouts.append(layout)
-        # the bit planes the card holds give back the nibble rows they were
-        # made from
-        rows = cuda_lf.rows_of(tx, layout)
-        nib = big._fb2_64() if layout == "fb2_64" else big.fb2
-        back = nibbles_of_planes(rows, PLANE_SYMS[layout], tx.n).cpu().numpy()
-        check(np.array_equal(back, nib), f"the bit planes of {layout} != its nibble rows")
-        planes[layout] = dict(row_bytes=rows.shape[1] * 4, nibble_row_bytes=nib.shape[1] * 4,
-                              bytes=tx.planes_bytes, s=tx.planes_s)
-        for (label, qe, le), one in zip([("batch", q, ln)] + edges, single):
-            got = find_ranges(tx, qe, le)
-            want = cuda_lf.find_ranges_plain(tx, qe, le)
-            torch.cuda.synchronize()
-            e = max(max_abs_err(got, want), max_abs_err(got, one))
-            check(e == 0, f"K1 over {layout} != plain or the single-level rows at {label}: "
-                  f"max |err| {e}")
-            err2 = max(err2, e)
-            edge_nonempty[f"{layout},{label}"] = int((got[1] >= got[0]).sum().item())
-            e = held_record(tx, qe, le, got)
-            check(e == 0, f"the record launch over {layout} != its plain twin at {label}: "
-                  f"max |err| {e}")
-            err3 = max(err3, e)
-        del tx
-    want_fb2 = 3 * (1 + len(edges))
-    launches2 = cuda_lf.LAUNCHES_FB2 - launches0
-    check(launches2 == want_fb2, f"expected {want_fb2} two-level K1 launches, counted "
-          f"{launches2}")
-    launches3 = cuda_lf.LAUNCHES_REC - rec0
-    check(launches3 == want_fb2, f"expected {want_fb2} record launches, counted {launches3}")
-    fb2_s, t0 = time.perf_counter() - t0, time.perf_counter()
     walk = walk_parity(device, idx, codes, q, ln)
     walk_s = time.perf_counter() - t0
     # the full-SA index's toeholds and the raw tables, shared by the toehold
     # launch's and the tables kernel's checks
     cases = [("batch", q, ln)] + edges
     tx = TorchIndex.from_index(idx, device)
+    single = [find_ranges(tx, qe, le, use_ftab=False) for _, qe, le in cases]
     kval = [find_ranges_w_toehold(tx, qe, le) for _, qe, le in cases]
     del tx
     raw = {route: raw_tables(idx, codes, route) for route in ("tk1", "ltk")}
@@ -1296,12 +1345,9 @@ def parity_checks(device, inp: dict, n_lanes: int) -> dict:
     fields = dict(n=idx.n, R=idx.R, build_s=inp["build_s"], lanes=n_lanes,
                   edge_cases=inp["counts"], nonempty=results,
                   edges=[label for label, _, _ in edges], edge_nonempty=edge_nonempty,
-                  host_checked=N_HOST, launches=launches, max_abs_err=err, fb2_layouts=layouts,
-                  fb2_launches=launches2, fb2_max_abs_err=err2, planes=planes,
-                  k1_s=k1_s, fb2_s=fb2_s, walk_s=walk_s, rec_launches=launches3,
-                  rec_max_abs_err=err3, walk=walk, toehold=toe, tables=tab)
-    errs = {"lf_count": err, "lf_count_fb2": err2, "lf_count_fb2_rec": err3,
-            "lf_toehold": toe["max_abs_err"],
+                  host_checked=N_HOST, launches=launches, max_abs_err=err,
+                  k1_s=k1_s, walk_s=walk_s, walk=walk, toehold=toe, tables=tab)
+    errs = {"lf_count": err, "lf_toehold": toe["max_abs_err"],
             **{f"lf_tables_{name}": e for name, e in tab["errs"].items()},
             "phi_walk_phi1": walk["max_abs_err"]["phi1"],
             "phi_walk_rows": walk["max_abs_err"]["phi_rows"],
@@ -2310,6 +2356,14 @@ INT_OPS_PER_S = 33.5e12
 RANK_OPS = 8 * 12 + 8  # int32 operations of one SWAR rank over a 64 B row: 8 words, checkpoint
 
 
+def plane_rank_ops(syms: int) -> int:
+    """int32 operations of one rank over a two-level bit-plane row of `syms`
+    symbols: 8 a 32-symbol word (three xors with the code's masks, two ands,
+    the offset's mask, a popcount, an add) and 8 for the checkpoint, the
+    superblock's base and the sum, as RANK_OPS counts a SWAR rank."""
+    return syms // 32 * 8 + 8
+
+
 def k1_transposed(tx, q, ln, use_ftab: bool = False, start=None, end=None):
     """The earlier design of K1 as its wrapper ran it: the ftab start in torch
     ops (cuda_lf.lf_start), the [L, B] transpose, copies of the starts, then
@@ -2397,30 +2451,35 @@ def k1_work(tx, q, ln, use_ftab: bool) -> dict:
 
 def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_step: float,
              lane_bytes: int = 4, table_bytes: int = 0, out_bytes: int = 0,
-             step_ops: int | None = None) -> dict:
+             step_ops: int = 2 * RANK_OPS, sass_step_ops: int | None = None) -> dict:
     """K1's bound per batch from the batches' work: bytes (each input byte
     read once: the reads' int32 codes, the lengths, F, the distinct rows, the
     distinct ftab entries, `table_bytes` more (the two-level rows' base
     table); each output written once: lo, hi, of lane_bytes each, and
     `out_bytes` more (the record launch's [L, B] int64 step record)) over the
     card's memory rate; the operations of the ranked steps over its int32
-    rate (one instruction of one thread an operation), `step_ops` a step
-    (the two-level search: its two threads' step loop, step_loop), else two
-    SWAR ranks of RANK_OPS; the longest lane's dependent steps times the
-    dependent load latency.  The kernel stages whole padded rows,
+    rate, `step_ops` a step (two SWAR ranks of RANK_OPS; the two-level
+    search: two plane ranks, plane_rank_ops); the longest lane's dependent
+    steps times the dependent load latency.  `sass_step_ops`, where given
+    (the two-level search's two threads' step loop in machine code,
+    step_loop), gives the issue time of the kernel's own instructions
+    (`issue_bound_us`, one instruction of one thread an operation) beside
+    the bound, not in it.  The kernel stages whole padded rows,
     padded_code_bytes, more than the reads' codes."""
     nb = len(work)
     mean = {key: sum(w[key] for w in work) / nb for key in work[0]}
     nbytes = (mean["codes"] * 4 + B * 4 + (A + 1) * lane_bytes
               + mean["distinct_rows"] * row_bytes + mean["ftab_entries"] * 8 + table_bytes
               + B * 2 * lane_bytes + out_bytes)
-    ops = (step_ops or 2 * RANK_OPS) * mean["ranked_steps"]
+    ops = step_ops * mean["ranked_steps"]
     byte_us = nbytes / HBM_BYTES_PER_S * 1e6
     ops_us = ops / INT_OPS_PER_S * 1e6
     latency_us = mean["longest_lane_steps"] * us_per_step
     bound_us = max(byte_us, latency_us)
     return dict(mean, bytes=nbytes, padded_code_bytes=B * L * 4, byte_bound_us=byte_us,
-                ops=ops, ops_bound_us=ops_us, step_ops=step_ops or 2 * RANK_OPS,
+                ops=ops, ops_bound_us=ops_us, step_ops=step_ops, sass_step_ops=sass_step_ops,
+                issue_bound_us=(sass_step_ops * mean["ranked_steps"] / INT_OPS_PER_S * 1e6
+                                if sass_step_ops else None),
                 latency_bound_us=latency_us, bound_us=bound_us,
                 bound_by="bytes" if byte_us >= latency_us else "latency",
                 row_load_bytes=mean["row_loads"] * row_bytes,
@@ -3558,11 +3617,12 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
     if k1 is not None:
         # each layout's bound: the same steps over rows of its own width
         for key, tx in txs.items():
-            row_bytes, step_ops = two_level_costs(tx, False)
+            row_bytes, step_ops, sass_ops = two_level_costs(tx, False)
             res[f"{key}_work"] = [k1_work(tx, q, ln, False)]
             bk = k1_bound(res[f"{key}_work"], BATCH, READ_LEN, tx.A, row_bytes,
                           k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
-                          table_bytes=tx.arrays["fb2_base"].numel() * 8, step_ops=step_ops)
+                          table_bytes=tx.arrays["fb2_base"].numel() * 8, step_ops=step_ops,
+                          sass_step_ops=sass_ops)
             res[f"{key}_bound"] = bk
             res[f"{key}_share"] = bk["bound_us"] / res[f"{key}_device_us"]
         tx, work = txs["fb2_256"], res["fb2_256_work"]
@@ -3924,10 +3984,11 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
                                             ("lf_count2_kernel",))["lf_count2_kernel"]
     work = [k1_work(tx, q, ln, False) for q, ln in dev]
     res["work"] = work
-    row_bytes, step_ops = two_level_costs(tx, False)
+    row_bytes, step_ops, sass_ops = two_level_costs(tx, False)
     res["bound"] = k1_bound(work, B, L, tx.A, row_bytes,
                             k1["us_per_dependent_step"]["random_cycle"], lane_bytes=8,
-                            table_bytes=tx.arrays["fb2_base"].numel() * 8, step_ops=step_ops)
+                            table_bytes=tx.arrays["fb2_base"].numel() * 8, step_ops=step_ops,
+                            sass_step_ops=sass_ops)
     res["fb2_share"] = res["bound"]["bound_us"] / res["fb2_device_us"]
     res["rec"] = record_times(device, big, tx, dev, work, k1, "fb2_64", res["fb2_call_ms"])
     res["rec"].update(max_abs_err=rec_err, edges=[label for label, _, _ in edges],
@@ -3948,15 +4009,18 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
 
 
 def two_level_costs(tx, rec: bool) -> tuple:
-    """(row bytes, operations a ranked step) of the two-level search over
-    tx's bit planes, the record launch's where `rec`: the plane row's bytes,
+    """(row bytes, operations a ranked step, machine instructions a ranked
+    step) of the two-level search over tx's bit planes, the record launch's
+    where `rec`: the plane row's bytes, two plane ranks (plane_rank_ops),
     and the two threads' step loop (step_loop) where the build phase counted
-    it, else None (two SWAR ranks)."""
+    it, else None."""
     from rowbowt_tpu_torch.ops import cuda_lf
 
     key = cuda_lf.row_layout(tx)
-    loop = step_loop(cuda_lf._SYMS_PER_ROW[key], rec)
-    return cuda_lf.rows_of(tx, key).shape[1] * 4, 2 * loop if loop else None
+    syms = cuda_lf._SYMS_PER_ROW[key]
+    loop = step_loop(syms, rec)
+    return (cuda_lf.rows_of(tx, key).shape[1] * 4, 2 * plane_rank_ops(syms),
+            2 * loop if loop else None)
 
 
 def record_times(device, big, tx, dev, work: list, k1: dict, key: str, k1_ms: float) -> dict:
@@ -4000,10 +4064,10 @@ def record_times(device, big, tx, dev, work: list, k1: dict, key: str, k1_ms: fl
     out["toehold_ms"] = cuda_ms([lambda q=q, ln=ln: find_ranges_w_toehold(txl, q, ln)
                                  for q, ln in dev], 3)
     del txl, recs
-    row_bytes, step_ops = two_level_costs(tx, True)
+    row_bytes, step_ops, sass_ops = two_level_costs(tx, True)
     b = k1_bound(work, B, L, tx.A, row_bytes, k1["us_per_dependent_step"]["random_cycle"],
                  lane_bytes=8, table_bytes=tx.arrays["fb2_base"].numel() * 8,
-                 out_bytes=L * B * 8, step_ops=step_ops)
+                 out_bytes=L * B * 8, step_ops=step_ops, sass_step_ops=sass_ops)
     out["bound"] = b
     out["bound_ms"] = max(b["byte_bound_us"], b["ops_bound_us"]) / 1e3
     out["bound_by"] = "bytes" if b["byte_bound_us"] >= b["ops_bound_us"] else "operations"
@@ -6213,7 +6277,10 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     events just around the launch; `profiled_us`, one profiler trace, null
     where its records were wrong), and the
     bound: `bound_ms` from bytes or operations, whichever is larger, and
-    `bound_us`, the larger of the byte bound and the latency bound.  K1 over
+    `bound_us`, the larger of the byte bound and the latency bound; K1's
+    entries also `issue_us`, the issue time of the two-level search's step
+    loop in machine code (k1_bound's issue_bound_us, null over fused rows),
+    beside the bound and not in it.  K1 over
     the two-level rows (lf_count_fb2) has its own entry, from phase big_chr
     (its main path: rbt_align count on the big directory), its max |err|
     also over phases parity and pfp_big; so has its record launch
@@ -6269,7 +6336,8 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
                         "bound_ms": max(byte_ms, ops_ms),
                         "bound_by": "bytes" if byte_ms >= ops_ms else "operations",
                         "library_ms": None, "device_us": dev_us, "profiled_us": prof_us,
-                        "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]})
+                        "bound_us": b["bound_us"], "bound_us_by": b["bound_by"],
+                        "issue_us": b.get("issue_bound_us")})
     kernels[0]["parallel_dp_launches"] = par_dp["launches"]
     # the record launch: its main path is rbt_align -s on the big_chr directory
     r, b = big_chr["rec"], big_chr["rec"]["bound"]
@@ -6282,7 +6350,8 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
                            pfp_big["rec_max_abs_err"]),
         "ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "device_us": r["device_us"],
-        "profiled_us": r["profiled_us"], "bound_us": b["bound_us"], "bound_us_by": b["bound_by"]})
+        "profiled_us": r["profiled_us"], "bound_us": b["bound_us"], "bound_us_by": b["bound_by"],
+        "issue_us": b["issue_bound_us"]})
     # the toehold launch: its main path is rbt_align -s on raw_chr
     t = raw["toehold"]
     kernels.append({

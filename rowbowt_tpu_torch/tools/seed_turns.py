@@ -4,7 +4,7 @@ timed beside earlier designs of them, in turns on the same batches, on one
 NVIDIA GPU.
 
     python -m rowbowt_tpu_torch.tools.seed_turns \\
-        --design parent=DIR [--design NAME=DIR ...] [--variant NAME=FLAGS ...] [PHASE ...]
+        --design parent=DIR [--design NAME=DIR ...] [PHASE ...]
 
 Each DIR holds another commit's kernel sources, as `git archive <commit>
 rowbowt_tpu_torch/csrc | tar -x -C DIR` writes them; where its C entries
@@ -18,13 +18,13 @@ superblock multiplier (the designs over nibble rows), its two-level calls
 get the nibble rows of the same table (engine/device.nibbles_of_planes of
 the checkout's bit planes, made once a table) and per_blk in place of the
 multiplier and shift (NIBBLE_ARGS), so that each design reads its own rows.
-A --variant is the checkout's own sources built with FLAGS (comma-separated
-nvcc options, such as a -D macro that selects a design under test).  A
-design's threads a lane over each tables policy come from its lf.cu's
-rbt_lane_threads (two over the run-space tables and one over the others
-where it has none), and each of its tables launches gets its own launch
-plan at those (cuda_lf.launch_plan), so that it runs as its own wrapper
-ran it.  The tool builds each design's lf.cu,
+A candidate design is timed as a DIR of its own: a copy of the checkout's
+csrc with the candidate in place.  A design's threads a lane over each
+tables policy come from its lf.cu's rbt_lane_threads (two over the
+run-space tables and one over the others where it has none), and each of
+its tables launches gets its own launch plan at those
+(cuda_lf.launch_plan), so that it runs as its own wrapper ran it.  The
+tool builds each design's lf.cu,
 seeds.cu and phi_walk.cu with nvcc for sm_90a (_native.NVCC_FLAGS) into
 libraries of their own beside the checkout's, prints each design's nvcc
 register and spill report (`designs`) and which of its kernels compile to
@@ -279,7 +279,7 @@ def same_sass(design: str, checkout: str) -> dict:
     return out
 
 
-def build_designs(smoke, designs: dict, flags: dict | None = None) -> dict:
+def build_designs(smoke, designs: dict) -> dict:
     """{name: Design} built side by side with the checkout's lf.cu, seeds.cu
     and phi_walk.cu, each into its own libraries (librbt_<stem>_<name>);
     prints
@@ -291,15 +291,14 @@ def build_designs(smoke, designs: dict, flags: dict | None = None) -> dict:
     from rowbowt_tpu_torch import _native
     from rowbowt_tpu_torch.ops import cuda_gather, cuda_lf, cuda_phi, cuda_seeds
 
-    flags = flags or {}
     cmd = [_native.find_tool("nvcc", "/usr/local/cuda/bin/nvcc"), *_native.NVCC_FLAGS]
     csrc = {name: os.path.join(src, "rowbowt_tpu_torch", "csrc") for name, src in designs.items()}
 
     def build(name, stem):
         d = csrc[name]
         headers = tuple(os.path.join(d, f) for f in sorted(os.listdir(d)) if f.endswith(".cuh"))
-        return _native.build_shared(f"librbt_{stem}_{name}", cmd + flags.get(name, []),
-                                    [os.path.join(d, f"{stem}.cu")], headers=headers)
+        return _native.build_shared(f"librbt_{stem}_{name}", cmd, [os.path.join(d, f"{stem}.cu")],
+                                    headers=headers)
 
     with ThreadPoolExecutor(2 * len(designs) + 2) as ex:
         futures = {(name, stem): ex.submit(build, name, stem) for name in designs
@@ -343,21 +342,6 @@ def build_designs(smoke, designs: dict, flags: dict | None = None) -> dict:
 
 # {design: {instance: its step loop's instructions}} (build_designs)
 STEP_LOOPS = {}
-
-
-def step_loop(design: str, syms: int, rec: bool) -> int | None:
-    """Instructions of the step loop of a design's staged two-level
-    search over `syms`-symbol rows, with the record where `rec`."""
-    r = "true" if rec else "false"
-    names = (f"lf_count_kernel<long, {syms}, true, {r}, false>",
-             f"lf_count2_kernel<{syms}, true, {r}>",
-             # not demangled
-             f"lf_count_kernelIlLi{syms}ELb1ELb{int(rec)}ELb0E",
-             f"lf_count2_kernelILi{syms}ELb1ELb{int(rec)}E")
-    for k, v in STEP_LOOPS.get(design, {}).items():
-        if any(name in k for name in names):
-            return v["instructions"]
-    return None
 
 
 def in_turns(smoke, libs: dict, launch) -> dict:
@@ -498,7 +482,7 @@ def k1_turns(smoke, libs: dict, tx, q, ln) -> None:
     # step over the card's int32 rate (chip_smoke.k1_bound's operations)
     ranked = smoke.k1_work(tx, q, ln, False)["ranked_steps"]
     for name, record in (("count", False), ("record", True)):
-        loops = {d: step_loop(d, cuda_lf._SYMS_PER_ROW[key], record)
+        loops = {d: smoke.step_loop(cuda_lf._SYMS_PER_ROW[key], record, STEP_LOOPS.get(d, {}))
                  for d in ["checkout", *libs]}
         out[f"{name}_issue_us"] = {d: 2 * v * ranked / smoke.INT_OPS_PER_S * 1e6
                                    for d, v in loops.items() if v}
@@ -588,16 +572,11 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--design", action="append", default=[], metavar="NAME=DIR",
                     help="an earlier design's kernel sources (repeatable, timed in this order)")
-    ap.add_argument("--variant", action="append", default=[], metavar="NAME=FLAGS",
-                    help="the checkout's sources built with FLAGS (comma-separated nvcc "
-                         "options; repeatable, timed after the designs)")
     ap.add_argument("phases", nargs="*", default=list(DEFAULT_PHASES))
     args = ap.parse_args(argv)
     designs = dict(d.split("=", 1) for d in args.design)
-    variants = dict(v.split("=", 1) for v in args.variant)
-    if not designs or "checkout" in designs or set(designs) & set(variants):
-        ap.error("at least one --design NAME=DIR, none named checkout or as a variant")
-    designs.update({name: os.getcwd() for name in variants})
+    if not designs or "checkout" in designs:
+        ap.error("at least one --design NAME=DIR, none named checkout")
     sys.path.insert(0, os.getcwd())
     import chip_smoke as smoke
     import torch
@@ -606,7 +585,7 @@ def main(argv: list[str]) -> int:
         print("seed_turns needs a CUDA device; torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    libs = build_designs(smoke, designs, {name: f.split(",") for name, f in variants.items()})
+    libs = build_designs(smoke, designs)
     real_seeds, real_tables, real_nodense = (smoke.seeds_times, smoke.tables_times,
                                              smoke.phase_nodense_chr)
     real_walk, real_toehold_work = smoke.walk_times, smoke.toehold_work

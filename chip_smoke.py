@@ -4,10 +4,10 @@ rbt_locs paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, then the kernel record
     python3 chip_smoke.py k1 parity       # only the named phases, in that order
-                                          # (probes, parity, k1, pfp_big,
-                                          # build_small, nodense_chr, raw_chr,
-                                          # big_chr, greedy, heuristic, lmem,
-                                          # locs, parallel_dp,
+                                          # (probes, parity, k1, phi_chain,
+                                          # pfp_big, build_small, nodense_chr,
+                                          # raw_chr, big_chr, greedy,
+                                          # heuristic, lmem, locs, parallel_dp,
                                           # parallel_sharded, parallel_stream)
 
 Builds the LF kernels (csrc/lf.cu: K1 and the tables kernel of an index
@@ -23,7 +23,8 @@ phase raw_chr's after build_cli), and runs:
   1. device: the card's name and `nvidia-smi` name and power limit;
   2. build: seconds taken by each build, and nvcc's register reports (for
      the two-level instances also the lanes resident at once, and the
-     machine instructions of lf.cu's two-level step loop by cuobjdump);
+     machine instructions of lf.cu's step loops by cuobjdump: the two-level
+     search's and the single-level K1's, its toehold instance's included);
   3. probes: the port's gather probe tool (`python -m
      rowbowt_tpu_torch.tools.gather_probe`) in this process, with its launch
      counts read, and once as a subprocess; P1-P3 against their plain twins
@@ -58,7 +59,9 @@ phase raw_chr's after build_cli), and runs:
      view's phi rows and over the predecessor search of the index without
      phi1, capped at 8 hits and uncapped on lanes of at most 4,096, and over
      the breakpoint table of the BigIndex with its phi rows withheld
-     (phi_at) to the same positions; then K1's toehold launch against
+     (phi_at) to the same positions, and the kval kernel (the dense
+     index's lanes with their hi) against kval_walk_plain and the same
+     positions; then K1's toehold launch against
      its plain twin (the torch loop of the per-step toehold) and the full-SA
      index's toeholds on the raw tables of the same BWT (no kval), over
      tk1 and over ltk, on the batch and at the edges of k1_edges; then the
@@ -96,25 +99,26 @@ phase raw_chr's after build_cli), and runs:
      meter are recorded, its stages timed one by one, and the count call
      (K1 and its wrapper) and the plain loop over the four batches with CUDA
      events;
-  7. k1_step1 and k1: K1 at chr on the same four batches: the earlier
-     (transposed) design and the current one, each equal to the plain loop,
-     call times in turns and device times alone, with and without the ftab;
-     the work the
-     batches need (a counting replay of the plain loop), P3's dependent-load
-     latency on 32 lanes, the bound and the share of it each design reaches;
+  7. k1_step1 and k1: K1 at chr on the same four batches, equal to the
+     plain loop, its call time and device time alone, with and without the
+     ftab; the work the batches need (a counting replay of the plain loop),
+     P3's dependent-load latency on 32 lanes, the bound and the share of it
+     K1 reaches;
   8. locate: `rbt_align -s` on the first 200,000 of those reads (the last
      batch is mostly padding); every read's ranges, hit count, distinct
      positions, text at each position, toehold and document offsets checked
-     on the host; one walk kernel launch a batch and no torch walk; stages
+     on the host; one kval walk launch a batch, no chain and no torch walk; stages
      timed one by one, the phi walk (walk_s), the document resolve (docs_s)
      and the locs text (text_s) apart;
   9. markers: `rbt_align -m` on the same reads; every read's markers checked
      against the host CSR without ma_start1; stages timed one by one;
  10. phi_chain: P3 over the chr phi1 table from one batch's toeholds, 100
-     steps, against its plain twin, and the walk kernel (`locate`) on the
-     same lanes against the torch walk; then the walk kernel on the -s
-     batches' real lanes against its plain twin, timed per call and alone,
-     the longest lane's steps, its bound and share;
+     steps, against its plain twin, and the walk kernel (`locate`: the chain
+     over phi1) on the same lanes against the torch walk; then the walk of
+     rbt_align -s on the -s batches' real lanes (the kval kernel, each
+     lane's hi handed) against its plain twins, timed per call and alone
+     beside the empty kernel's floor, its bound (bytes alone: no chain) and
+     share;
  11. greedy: `rbt_markers -f -b 32768` on the first 32,768 reads (both
      strands: 65,536 lanes in one batch, one launch of the greedy machine);
      every line of the first 8,192
@@ -145,7 +149,9 @@ phase raw_chr's after build_cli), and runs:
      seconds, peak RSS; the toehold launch against its plain twin and dense
      chr's toehold on every -s batch, the search + toehold stage with the
      torch loop and with the kernel in turns, and on one batch its call ms
-     beside the twin's, its time alone, work and bound; then rbt_locs
+     beside the twin's, its time alone beside K1's count instance alone on
+     the same batch, work and bound, and the walk kernel over its phi1 (the
+     chain) on the -s batches' real lanes (walk_times); then rbt_locs
      prints phase 14's lines with the sampled machine's per-step toehold
      over the fused rows (one launch a batch), timed on one batch
      (seeds_times);
@@ -277,10 +283,11 @@ instance (cuda_lf.LAUNCHES_TAB and LAUNCHES_TAB_TOE: count, -m and the -s
 search of nodense_chr and of the small --no-dense, 13-code and
 raw-without-rows indexes; no wrapper runs a torch search on the card), set
 to 0 before each run, and require each.  The phi walk's launches are
-counted the same way (cuda_phi.LAUNCHES, the walk kernel on every route):
-rbt_align -s launches it once a batch on every index the whole run
-queries, nodense_chr's predecessor search and build_small's breakpoint
-table included.
+counted the same way (cuda_phi.LAUNCHES, the chain on every phi route, and
+cuda_phi.LAUNCHES_KVAL, the kval kernel): rbt_align -s launches one of
+them once a batch on every index the whole run queries, the kval kernel
+on dense chr and the small dense index, the chain elsewhere, nodense_chr's
+predecessor search and build_small's breakpoint table included.
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and the last line is never printed.  The last three lines of a
@@ -700,7 +707,8 @@ def phase_build() -> None:
                 two_level[k] = dict(registers=v.get("registers"),
                                     resident_lanes=resident_lanes(v.get("registers", 255),
                                                                   threads, sms))
-    STEP_LOOPS.update(loop_instructions(cuda_lf.build()._name, "lf_count2_kernel"))
+    for kernel in ("lf_count2_kernel", "lf_count_kernel"):
+        STEP_LOOPS.update(loop_instructions(cuda_lf.build()._name, kernel))
     emit("build", seconds={name: s for name, (_, s) in done.items()}, ptxas=regs,
          seeds_instances=inst["seeds"], lf_instances=inst["lf"],
          phi_walk_instances=inst["phi_walk"], seeds_spilling=spilling["seeds"],
@@ -765,14 +773,28 @@ def step_loop(syms: int, rec: bool, loops: dict | None = None) -> int | None:
     """Instructions of the step loop of the staged two-level search over
     `syms`-symbol rows, with the record where `rec`, in `loops` ({instance:
     loop_instructions' entry}; STEP_LOOPS, the build phase's, by default):
-    lf_count2_kernel's over bit planes, or the int64 lf_count_kernel's of a
-    design over nibble rows; None where `loops` has neither."""
+    lf_count2_kernel's over bit planes; None where `loops` has none."""
     r = "true" if rec else "false"
     names = (f"lf_count2_kernel<{syms}, true, {r}>",
-             f"lf_count_kernel<long, {syms}, true, {r}, false>",
+             f"lf_count2_kernelILi{syms}ELb1ELb{int(rec)}E")  # not demangled
+    for k, v in (STEP_LOOPS if loops is None else loops).items():
+        if any(name in k for name in names):
+            return v["instructions"]
+    return None
+
+
+def k1_loop(syms: int, toe: bool, loops: dict | None = None) -> int | None:
+    """Instructions of the step loop of the staged single-level K1 over
+    `syms`-symbol rows, its toehold instance where `toe`, in `loops` (as
+    step_loop takes them): lf_count_kernel<SYMS, STAGE, TOE>, or an earlier
+    design's lf_count_kernel<int, SYMS, STAGE, REC, TOE>; None where
+    `loops` has neither."""
+    t = "true" if toe else "false"
+    names = (f"lf_count_kernel<{syms}, true, {t}>",
+             f"lf_count_kernel<int, {syms}, true, false, {t}>",
              # not demangled
-             f"lf_count2_kernelILi{syms}ELb1ELb{int(rec)}E",
-             f"lf_count_kernelIlLi{syms}ELb1ELb{int(rec)}ELb0E")
+             f"lf_count_kernelILi{syms}ELb1ELb{int(toe)}E",
+             f"lf_count_kernelIiLi{syms}ELb1ELb0ELb{int(toe)}E")
     for k, v in (STEP_LOOPS if loops is None else loops).items():
         if any(name in k for name in names):
             return v["instructions"]
@@ -1350,6 +1372,7 @@ def parity_checks(device, inp: dict, n_lanes: int) -> dict:
     errs = {"lf_count": err, "lf_toehold": toe["max_abs_err"],
             **{f"lf_tables_{name}": e for name, e in tab["errs"].items()},
             "phi_walk_phi1": walk["max_abs_err"]["phi1"],
+            "phi_walk_kval": walk["max_abs_err"]["kval"],
             "phi_walk_rows": walk["max_abs_err"]["phi_rows"],
             "phi_walk_pred": walk["max_abs_err"]["pred"],
             "walk_phi_at": walk["max_abs_err"]["phi_at"]}
@@ -1506,7 +1529,9 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
     kval) and over the predecessor search of the dense index without phi1
     (what --no-dense keeps), with max_hits 8 on every lane and uncapped on
     the lanes of at most WALK_PARITY_MAX hits; the indexes' toeholds equal,
-    and every route's positions the phi1 route's.  The BigIndex with its
+    and every route's positions the phi1 route's; the kval kernel (the
+    dense index's lanes with their hi, kval[hi - j]) against
+    kval_walk_plain and the phi1 route's positions.  The BigIndex with its
     phi rows withheld (the breakpoint table phi_at of 2^31 or more
     breakpoints, searched through its bucket table pp_off) walks in the
     kernel's phi_at route, one launch a call through phi_walk, against its
@@ -1522,10 +1547,10 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
         size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
         if cap is None:
             keep = size <= WALK_PARITY_MAX
-            k, size = k[keep], size[keep]
+            k, size, hi = k[keep], size[keep], hi[keep]
         else:
             size = size.clamp(max=cap)
-        return k, size, torch.cumsum(size, 0) - size, int(size.sum())
+        return k, size, torch.cumsum(size, 0) - size, int(size.sum()), hi
 
     big = BigIndex.from_codes(codes, idx.alpha, n_sup=4)
     big.attach_locate(codes, np.asarray(idx.kval).astype(np.uint32))
@@ -1545,7 +1570,7 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
     for route, tx in txs.items():
         errs[route] = 0
         for cap in (8, None):
-            k, size, off, total = operands(*ranges[route], cap)
+            k, size, off, total, _ = operands(*ranges[route], cap)
             got = cuda_phi.launch_walk(tx, k, size, off, torch.empty(
                 total, dtype=torch.int64, device=device))
             want = cuda_phi.phi_walk_plain(tx, k, size, off, torch.full(
@@ -1559,7 +1584,24 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
         check(errs[route] == 0, f"the walk kernel over {route} != its plain twin or the phi1 "
               f"route on the small panel: max |err| {errs[route]}")
     launches = walk_counts()
-    check(launches == dict(walk=6), f"walk launches {launches}, expected 6")
+    check(launches == dict(walk=6, kval=0), f"walk launches {launches}, expected 6 chains")
+    # the kval route: the dense index's toeholds are kval[hi], so the kval
+    # kernel, handed each lane's hi, walks kval[hi - j] with no chain:
+    # equal to its plain twin and to the phi1 chain's positions
+    errs["kval"] = 0
+    for cap in (8, None):
+        k, size, off, total, hi = operands(*ranges["phi1"], cap)
+        got = cuda_phi.launch_walk(txs["phi1"], k, size, off, torch.empty(
+            total, dtype=torch.int64, device=device), hi)
+        want = cuda_phi.kval_walk_plain(txs["phi1"], hi, size, off, torch.full(
+            (total,), -1, dtype=torch.int64, device=device))
+        torch.cuda.synchronize()
+        errs["kval"] = max(errs["kval"], max_abs_err([got], [want]),
+                           max_abs_err([got], [kernel_out[cap]]))
+    check(errs["kval"] == 0, f"the kval walk kernel != its plain twin or the phi1 route on the "
+          f"small panel: max |err| {errs['kval']}")
+    kval_launches = walk_counts()["kval"]
+    check(kval_launches == 2, f"kval walk launches {kval_launches}, expected 2")
     # the predecessor walk over directories of 2-position buckets (most
     # empty) and of one bucket (a binary search over all of pred_pos)
     pred_bs = {"loaded": list(pred.pred_bs)}
@@ -1568,7 +1610,7 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
         tag = f"shift={shift},iters={view.pred_bs[1]}"
         pred_bs[tag] = list(view.pred_bs)
         for cap in (8, None):
-            k, size, off, total = operands(*ranges["pred"], cap)
+            k, size, off, total, _ = operands(*ranges["pred"], cap)
             got = cuda_phi.launch_walk(view, k, size, off, torch.empty(
                 total, dtype=torch.int64, device=device))
             want = cuda_phi.phi_walk_plain(view, k, size, off, torch.full(
@@ -1588,7 +1630,7 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
           "the BigIndex without phi rows has no breakpoint table")
     errs["phi_at"] = 0
     for cap in (8, None):
-        k, size, off, total = operands(*ranges["phi_rows"], cap)
+        k, size, off, total, _ = operands(*ranges["phi_rows"], cap)
         got = cuda_phi.phi_walk(tx_at, k, size, off, torch.empty(total, dtype=torch.int64,
                                                                    device=device))
         want = cuda_phi.phi_walk_plain(tx_at, k, size, off, torch.full(
@@ -1603,7 +1645,8 @@ def walk_parity(device, idx, codes, q, ln) -> dict:
     pp_bs = list(tx_at.pp_bs)
     del txs, tx_at, pred
     return dict(max_abs_err=errs, hits=hits, launches=launches["walk"],
-                phi_at_launches=at_launches, pp_bs=pp_bs, pred_bs=pred_bs)
+                kval_launches=kval_launches, phi_at_launches=at_launches, pp_bs=pp_bs,
+                pred_bs=pred_bs)
 
 
 def held_record(tx, q, ln, ranges=None) -> int:
@@ -1966,8 +2009,8 @@ def phase_locate(device, card: dict, chr_: dict, count: dict) -> dict:
     launches, walks = cuda_lf.LAUNCHES, walk_counts()
     n_batches = -(-N_LOCATE // BATCH)
     check(launches == n_batches, f"K1 launched {launches} times in the -s run")
-    check(walks == dict(walk=n_batches),
-          f"-s walks: {walks} (one walk kernel launch a batch, no torch walk)")
+    check(walks == dict(walk=0, kval=n_batches),
+          f"-s walks: {walks} (one kval walk launch a batch, no chain, no torch walk)")
     lines = out_text.splitlines(keepends=True)
     check(len(lines) == 2 * N_LOCATE, f"rbt_align -s printed {len(lines)} lines")
     check(lines[0::2] == count["lines"][:N_LOCATE], "the -s run's ranges != the count run's")
@@ -2130,9 +2173,10 @@ def phase_phi_chain(device, card: dict, loc: dict, k1: dict) -> dict:
     """P3 over the chr phi1 table from the first -s batch's toeholds, 100
     steps, against its plain twin, and the walk kernel over the same lanes
     (engine/locate.locate with each range the whole BWT, so the walk masks
-    nothing) against the torch walk (cuda_phi.phi_walk_plain), its column
-    100 equal to P3's; then the walk kernel on every -s batch's real lanes
-    (walk_times, phi1: one dependent load a step over a 640 MB table)."""
+    nothing: toeholds that are not kval[n - 1], so the chain over phi1)
+    against the torch walk (cuda_phi.phi_walk_plain), its column 100 equal
+    to P3's; then the walk of rbt_align -s on every -s batch's real lanes
+    (walk_times, kval: the kval kernel, kval[hi - j] with no chain)."""
     import torch
 
     from rowbowt_tpu_torch.engine.locate import locate
@@ -2167,7 +2211,7 @@ def phase_phi_chain(device, card: dict, loc: dict, k1: dict) -> dict:
                kernel_us_per_step=k_ms * 1e3 / PHI_STEPS, plain_us_per_step=p_ms * 1e3 / PHI_STEPS,
                walk_kernel_us_per_step=w_ms * 1e3 / PHI_STEPS,
                phi_walk_us_per_step=walk_ms * 1e3 / PHI_STEPS)
-    res["walk"] = walk_times(device, tx, loc["ranges"], "phi1",
+    res["walk"] = walk_times(device, tx, loc["ranges"], "kval",
                              k1["us_per_dependent_step"]["random_cycle"])
     emit("phi_chain", **res, card=card["nvidia_smi"])
     return res
@@ -2182,8 +2226,10 @@ def phase_phi_chain(device, card: dict, loc: dict, k1: dict) -> dict:
 # halving of its fixed search (a mean, a clamp, a compare, two selects), and
 # the remainder (6); loads: the bucket's bounds, each halving's entry, then
 # phi_at and pred_pos at the rank together (phi_step_ops, phi_loads)
-PHI_STEP_OPS = {"phi1": 4, "phi_rows": 4 + 15 * 3 + 4}
-PHI_LOADS = {"phi1": 1, "phi_rows": 2}  # dependent loads a step (phi_loads)
+# the kval walk's position: an index and an address (2), its one load
+# dependent only on hi
+PHI_STEP_OPS = {"phi1": 4, "phi_rows": 4 + 15 * 3 + 4, "kval": 2}
+PHI_LOADS = {"phi1": 1, "phi_rows": 2, "kval": 0}  # dependent loads a step (phi_loads)
 
 
 def phi_step_ops(tx, route: str, old: bool = False) -> int:
@@ -2241,54 +2287,93 @@ def walk_times(device, tx, ranges, route: str, step_us: float,
                step_us_old: float | None = None) -> dict:
     """The walk kernel (cuda_phi.launch_walk) over tx's `route` table on the
     -s batches' real lanes ranges [(lo, hi, k)], with the operands of
-    engine/locate.locate_ragged: equal to its plain twin (cuda_phi.
-    phi_walk_plain, the torch walk, on the card) with max |err| 0, one launch
-    a batch; call ms in turns with the twin; the kernel alone (CUDA events
-    just around the launch, the lanes' order given); the longest lane's
-    steps; the bound of each batch, the larger of the bytes the inputs need
-    once over the memory rate (k, size and off, the distinct table entries
-    the chains read, the positions written) and the longest lane's steps x
-    `step_us`, the latency of a step's dependent loads (PHI_LOADS: each
-    load's latency measured over a table of its table's size, summed); its
-    share.  With `step_us_old` (the pred route) also the bound and share
-    with the step of the search the directory replaced (the *_old keys:
-    its operations and latency; its bytes without the directory's).  Times
-    and bounds are means over the batches."""
+    engine/locate.locate_ragged (route "kval": each lane's hi handed, the
+    kval kernel): equal to its plain twin on the card (cuda_phi.
+    phi_walk_plain, the torch walk; for kval also kval_walk_plain) with max
+    |err| 0, one launch a batch; call ms in turns with the twin; the kernel
+    alone as its wrapper launches it (CUDA events just around the launch,
+    a spin queued ahead of the first, so the host's launch is out of the
+    time), beside `floor_us`, the empty kernel launched the same way in the
+    same grid (what a launch and the events cost); the longest lane's
+    steps; the bound of each batch,
+    the larger of the bytes the inputs need once over the memory rate (k
+    or hi, size and off; the distinct table entries the chains read, or
+    for kval the distinct kval entries of the lanes' segments; the
+    positions written) and, for the chain routes, the longest lane's steps
+    x `step_us`, the latency of a step's dependent loads (PHI_LOADS: each
+    load's latency measured over a table of its table's size, summed): a
+    walk of kval needs no chain, so its bound is bytes alone, whatever
+    kernel walks it; its share.  With `step_us_old` (the pred route) also
+    the bound and share with the step of the search the directory replaced
+    (the *_old keys: its operations and latency; its bytes without the
+    directory's).  Times and bounds are means over the batches."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_phi
+    from rowbowt_tpu_torch.ops import cuda_gather
     from rowbowt_tpu_torch.ops import rank as R
 
-    check(cuda_phi.walk_route(tx) == route, f"walk route {cuda_phi.walk_route(tx)} != {route}")
+    by_hi = route == "kval"
+    got_route = cuda_phi.walk_route(tx, by_hi)
+    check(got_route == route, f"walk route {got_route} != {route}")
     args, outs = [], []
     for lo, hi, k in ranges:
         size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
         total = int(size.sum())
         args.append((k.to(torch.int64), size, torch.cumsum(size, 0) - size,
-                     torch.argsort(size, descending=True)))
+                     hi.to(torch.int64) if by_hi else None))
         outs.append(torch.empty(total, dtype=torch.int64, device=device))
-    launches0, err = cuda_phi.LAUNCHES, 0
-    for (k, size, off, _), out in zip(args, outs):
-        cuda_phi.launch_walk(tx, k, size, off, out)
-        want = cuda_phi.phi_walk_plain(tx, k, size, off, torch.full_like(out, -1))
+
+    def launches():
+        return cuda_phi.LAUNCHES_KVAL if by_hi else cuda_phi.LAUNCHES
+
+    def plain_walk(a, o):
+        if by_hi:
+            return cuda_phi.kval_walk_plain(tx, a[3], *a[1:3], o)
+        return cuda_phi.phi_walk_plain(tx, *a[:3], o)
+
+    launches0, err = launches(), 0
+    for a, out in zip(args, outs):
+        cuda_phi.launch_walk(tx, *a[:3], out, a[3])
+        want = [cuda_phi.phi_walk_plain(tx, *a[:3], torch.full_like(out, -1))]
+        if by_hi:
+            want.append(plain_walk(a, torch.full_like(out, -1)))
         torch.cuda.synchronize()
-        err = max(err, max_abs_err([out], [want]))
-    launches = cuda_phi.LAUNCHES - launches0
+        err = max(err, *(max_abs_err([out], [w]) for w in want))
+    n_launches = launches() - launches0
     check(err == 0, f"the walk kernel over {route} != its plain twin: max |err| {err}")
-    check(launches == len(args), f"{launches} walk kernel launches for {len(args)} batches")
-    kernel = [lambda a=a, o=o: cuda_phi.launch_walk(tx, *a[:3], o) for a, o in zip(args, outs)]
-    plain = [lambda a=a, o=o: cuda_phi.phi_walk_plain(tx, *a[:3], o) for a, o in zip(args, outs)]
+    check(n_launches == len(args), f"{n_launches} walk kernel launches for {len(args)} batches")
+    kernel = [lambda a=a, o=o: cuda_phi.launch_walk(tx, *a[:3], o, a[3])
+              for a, o in zip(args, outs)]
+    plain = [lambda a=a, o=o: plain_walk(a, o) for a, o in zip(args, outs)]
     call_ms, plain_ms = in_turns(plain, kernel, 1, 5)
-    alone = [lambda a=a, o=o: cuda_phi.launch_walk(tx, *a[:3], o, a[3]) for a, o in zip(args, outs)]
-    device_us = kernel_event_us([around(fn) for fn in alone], 5)
-    profiled_us = profiled_kernel_us(alone, 3, ("phi_walk_kernel",))["phi_walk_kernel"]
+    device_us = kernel_event_us([around(fn) for fn in kernel], 5)
+    lib, sms = cuda_phi.build(), cuda_gather._sm_count(device.index)
+
+    def empty(a):
+        B = a[0].numel()
+        check(lib.rbt_phi_walk_empty(B, cuda_phi.launch_plan(B, sms),
+                                     cuda_gather._raw_stream(device.index)) == 0,
+              "the empty kernel's launch failed")
+
+    floor_us = kernel_event_us([around(lambda a=a: empty(a)) for a in args], 5)
+    name = "kval_walk_kernel" if by_hi else "phi_walk_kernel"
+    profiled_us = profiled_kernel_us(kernel, 3, (name,))[name]
     batches = []
-    for (k, size, off, _), out in zip(args, outs):
+    for (k, size, off, hi), out in zip(args, outs):
         steps = max(int(size.max()) - 1, 0) if size.numel() else 0
         stepped = torch.ones(out.numel(), dtype=torch.bool, device=device)
         stepped[(off + size - 1)[size > 0]] = False  # a lane's last position is not stepped from
         pos = out[stepped]
-        if route == "phi1":
+        if route == "kval":
+            # every lane's segment kval[hi - size + 1 .. hi], read once
+            live = size > 0
+            s = size[live]
+            lane = torch.repeat_interleave(torch.arange(s.numel(), device=device), s)
+            j = torch.arange(out.numel(), device=device) - (torch.cumsum(s, 0) - s)[lane]
+            table_bytes = (torch.unique(hi[live][lane] - j).numel()
+                           * tx.arrays["kval"].element_size())
+        elif route == "phi1":
             table_bytes = torch.unique(pos).numel() * tx.arrays["phi1"].element_size()
         elif route == "phi_rows":
             table_bytes = (torch.unique(pos // 480).numel() * 64
@@ -2296,11 +2381,11 @@ def walk_times(device, tx, ranges, route: str, step_us: float,
         elif route == "phi_at":
             # the bucket bounds of each position's bucket, and pred_pos and
             # phi_at at its rank (the search's other probes not counted)
-            pp, at, off = (tx.arrays[name] for name in cuda_phi.PHI_AT_TABLES)
+            pp, at, poff = (tx.arrays[name] for name in cuda_phi.PHI_AT_TABLES)
             shift = tx.pp_bs[0]
-            b = torch.clamp((pos + 1) >> shift, 0, off.numel() - 2)
+            b = torch.clamp((pos + 1) >> shift, 0, poff.numel() - 2)
             rk = torch.searchsorted(pp, pos.to(pp.dtype), right=True) - 1
-            table_bytes = (torch.unique(b).numel() * 2 * off.element_size()
+            table_bytes = (torch.unique(b).numel() * 2 * poff.element_size()
                            + torch.unique(rk).numel() * (pp.element_size() + at.element_size()))
         else:
             # the predecessor entry of each position (pred_pos and
@@ -2318,10 +2403,11 @@ def walk_times(device, tx, ranges, route: str, step_us: float,
             if old and step_us_old is None:
                 break
             tb = table_bytes + (dir_bytes if route == "pred" and not old else 0)
-            nbytes = k.numel() * (k.element_size() + 16) + out.numel() * 8 + tb
+            nbytes = k.numel() * 24 + out.numel() * 8 + tb
             byte_us = nbytes / HBM_BYTES_PER_S * 1e6
-            ops_us = pos.numel() * phi_step_ops(tx, route, old) / INT_OPS_PER_S * 1e6
-            latency_us = steps * (step_us_old if old else step_us)
+            ops = out.numel() if by_hi else pos.numel()
+            ops_us = ops * phi_step_ops(tx, route, old) / INT_OPS_PER_S * 1e6
+            latency_us = 0.0 if by_hi else steps * (step_us_old if old else step_us)
             one.update({f"table_bytes{tag}": tb, f"bytes{tag}": nbytes, f"byte_us{tag}": byte_us,
                         f"ops_us{tag}": ops_us, f"latency_us{tag}": latency_us,
                         f"bound_us{tag}": max(byte_us, ops_us, latency_us)})
@@ -2330,9 +2416,10 @@ def walk_times(device, tx, ranges, route: str, step_us: float,
             for key in ("byte_us", "ops_us", "latency_us", "bound_us")}
     bound_by = max(("bytes", "byte_us"), ("operations", "ops_us"), ("latency", "latency_us"),
                    key=lambda kv: mean[kv[1]])[0]
-    out = dict(route=route, batches=batches, launches=launches, max_abs_err=err,
-               call_ms=call_ms, plain_ms=plain_ms, device_us=device_us,
-               profiled_us=profiled_us, step_us=step_us, loads_per_step=phi_loads(tx, route),
+    out = dict(route=route, batches=batches, launches=n_launches, max_abs_err=err,
+               call_ms=call_ms, plain_ms=plain_ms, device_us=device_us, floor_us=floor_us,
+               profiled_us=profiled_us, step_us=None if by_hi else step_us,
+               loads_per_step=phi_loads(tx, route),
                longest_steps=max(b["longest_steps"] for b in batches),
                bound_ms=max(mean["byte_us"], mean["ops_us"]) / 1e3,
                bound_by="bytes" if mean["byte_us"] >= mean["ops_us"] else "operations",
@@ -2362,32 +2449,6 @@ def plane_rank_ops(syms: int) -> int:
     the offset's mask, a popcount, an add) and 8 for the checkpoint, the
     superblock's base and the sum, as RANK_OPS counts a SWAR rank."""
     return syms // 32 * 8 + 8
-
-
-def k1_transposed(tx, q, ln, use_ftab: bool = False, start=None, end=None):
-    """The earlier design of K1 as its wrapper ran it: the ftab start in torch
-    ops (cuda_lf.lf_start), the [L, B] transpose, copies of the starts, then
-    rbt_lf_count_transposed (one thread a lane, 256-thread blocks).  CUDA
-    events `start` and `end`, when given, are recorded around the kernel."""
-    import torch
-
-    from rowbowt_tpu_torch.ops import cuda_lf
-
-    lo, hi, startj = cuda_lf.lf_start(tx, q, ln, use_ftab)
-    key, syms = ("fblock64", 64) if "fblock64" in tx.arrays else ("fblock", 128)
-    qT = q.t().contiguous()
-    lo, hi = lo.clone(), hi.clone()
-    B, L = q.shape
-    if start is not None:
-        start_event(start)
-    rc = cuda_lf.build().rbt_lf_count_transposed(
-        tx.arrays[key].data_ptr(), syms, tx.arrays["F"].data_ptr(), tx.A, tx.n, qT.data_ptr(),
-        ln.data_ptr(), startj.data_ptr(), B, L, lo.data_ptr(), hi.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    if end is not None:
-        end.record()
-    check(rc == 0, f"rbt_lf_count_transposed returned {rc}")
-    return lo, hi
 
 
 def k1_current(tx, q, ln, use_ftab: bool = True, start=None, end=None):
@@ -2488,16 +2549,13 @@ def k1_bound(work: list[dict], B: int, L: int, A: int, row_bytes: int, us_per_st
 
 def phase_k1(device, card: dict, chr_: dict) -> dict:
     """K1 at chr over the four 65,536-read batches of the main path, in two
-    lines.  k1_step1: the earlier design (one thread a lane over the [L, B]
-    transpose, the start computed in torch), equal to the plain loop, its
-    call time and its kernel's time alone (CUDA events), with and without
-    the ftab; the work the batches need; P3's dependent-load latency on 32
-    lanes over the chr phi1 (640 MB), over a random cycle of the same size
-    and over the probe tool's 4 MB table; the bound and what binds it.  k1:
-    the current design, equal to the plain loop, timed in turns with the
-    earlier design, per call and alone (CUDA events; torch.profiler as a
-    check), with and without the ftab; the share of the bound each design
-    reaches."""
+    lines.  k1_step1: the work the batches need; P3's dependent-load latency
+    on 32 lanes over the chr phi1 (640 MB), over a random cycle of the same
+    size and over the probe tool's 4 MB table; the bound and what binds it.
+    k1: K1 equal to the plain loop, its call time (CUDA events) and its
+    kernel's time alone in two passes (CUDA events just around the launch;
+    torch.profiler as a check), with and without the ftab; the share of the
+    bound it reaches."""
     import torch
 
     from rowbowt_tpu_torch.cli.common import iter_query_batches
@@ -2513,26 +2571,20 @@ def phase_k1(device, card: dict, chr_: dict) -> dict:
     plain = {use_ftab: [cuda_lf.find_ranges_plain(tx, q, ln, use_ftab) for q, ln in dev]
              for _, use_ftab in modes}
 
-    def held(name, fn, use_ftab, **kw) -> int:
-        """max |err| of fn over the batches against the plain loop (0 or raise)."""
-        e = max(max_abs_err(fn(tx, q, ln, use_ftab, **kw), want)
+    def held(use_ftab) -> int:
+        """max |err| of K1 over the batches against the plain loop (0 or raise)."""
+        e = max(max_abs_err(cuda_lf.find_ranges(tx, q, ln, use_ftab), want)
                 for (q, ln), want in zip(dev, plain[use_ftab]))
-        check(e == 0, f"{name} != plain at chr (ftab={use_ftab}): max |err| {e}")
+        check(e == 0, f"K1 != plain at chr (ftab={use_ftab}): max |err| {e}")
         return e
 
-    def calls(fn, use_ftab):
-        return [lambda q=q, ln=ln: fn(tx, q, ln, use_ftab) for q, ln in dev]
+    def calls(use_ftab):
+        return [lambda q=q, ln=ln: k1_current(tx, q, ln, use_ftab) for q, ln in dev]
 
-    def bracketed(fn, use_ftab):  # calls that record CUDA events around the kernel
-        return [lambda a, b, q=q, ln=ln: fn(tx, q, ln, use_ftab, a, b) for q, ln in dev]
+    def bracketed(use_ftab):  # calls that record CUDA events around the kernel
+        return [lambda a, b, q=q, ln=ln: k1_current(tx, q, ln, use_ftab, a, b) for q, ln in dev]
 
-    step1 = dict(batches=len(dev), lanes=B, L=L,
-                 max_abs_err=max(held("transposed K1", k1_transposed, f)
-                                 for _, f in modes))
-    for tag, use_ftab in modes:
-        step1[f"transposed_{tag}call_ms"] = cuda_ms(calls(k1_transposed, use_ftab), 5)
-        step1[f"transposed_{tag}device_us"] = kernel_event_us(
-            bracketed(k1_transposed, use_ftab), 5)
+    step1 = dict(batches=len(dev), lanes=B, L=L)
     # dependent-load latency: P3 on one warp, 10,000 steps a call (CUDA
     # events), over phi1, over one random cycle through a table of phi1's
     # size (every step a random 640 MB address) and over the probe tool's
@@ -2547,29 +2599,17 @@ def phase_k1(device, card: dict, chr_: dict) -> dict:
         work = [k1_work(tx, q, ln, use_ftab) for q, ln in dev]
         step1[f"{tag}work"] = work
         step1[f"{tag}bound"] = k1_bound(work, B, L, tx.A, 64, lat["random_cycle"])
-        step1[f"{tag}bound"]["transposed_share"] = (step1[f"{tag}bound"]["bound_us"]
-                                                    / step1[f"transposed_{tag}device_us"])
     emit("k1_step1", **step1, card=card["nvidia_smi"])
 
-    res = dict(step1, max_abs_err=max(held("K1", cuda_lf.find_ranges, f) for _, f in modes),
+    res = dict(step1, max_abs_err=max(held(f) for _, f in modes),
                plan=dict(zip(("threads", "staged"), cuda_lf.launch_plan(
                    B, L, cuda_lf._sm_count(device.index)))))
     k1 = {}
     for tag, use_ftab in modes:
-        # call times in turns (transposed, current, current, transposed), CUDA events
-        k1[f"k1_{tag}call_ms"], k1[f"transposed_{tag}call_ms"] = in_turns(
-            calls(k1_transposed, use_ftab), calls(k1_current, use_ftab), 5, 5)
-        # the kernels alone in turns too: transposed, current, current, transposed
-        old = [kernel_event_us(bracketed(k1_transposed, use_ftab), 5)]
-        new = [kernel_event_us(bracketed(k1_current, use_ftab), 5) for _ in range(2)]
-        old.append(kernel_event_us(bracketed(k1_transposed, use_ftab), 5))
-        k1[f"k1_{tag}device_us"] = sum(new) / 2
-        k1[f"transposed_{tag}device_us"] = sum(old) / 2
-        k1[f"k1_{tag}device_us_each"], k1[f"transposed_{tag}device_us_each"] = new, old
-        # the same kernels in one profiler trace, both designs in turn
-        k1[f"{tag}profiled_us"] = profiled_kernel_us(
-            calls(k1_transposed, use_ftab) + calls(k1_current, use_ftab), 3,
-            ("lf_count_transposed_kernel", "lf_count_kernel"))
+        k1[f"k1_{tag}call_ms"] = cuda_ms(calls(use_ftab), 5)
+        each = [kernel_event_us(bracketed(use_ftab), 5) for _ in range(2)]
+        k1[f"k1_{tag}device_us"], k1[f"k1_{tag}device_us_each"] = sum(each) / 2, each
+        k1[f"{tag}profiled_us"] = profiled_kernel_us(calls(use_ftab), 3, ("lf_count_kernel",))
         k1[f"{tag}k1_share"] = res[f"{tag}bound"]["bound_us"] / k1[f"k1_{tag}device_us"]
     emit("k1", max_abs_err=res["max_abs_err"], plan=res["plan"], **k1, card=card["nvidia_smi"])
     res.update(k1)
@@ -3705,7 +3745,7 @@ def phase_pfp_big(device, card: dict, child: dict, k1: dict | None) -> dict:
           and runs["-s"]["records_plain"] == 0,
           f"rbt_align -s on the PFP panel: one record launch and no torch record loop: {runs}")
     check([runs[t]["walks"] for t in ("count", "-s", "-m")]
-          == [dict(walk=0), dict(walk=1), dict(walk=0)],
+          == [dict(walk=0, kval=0), dict(walk=1, kval=0), dict(walk=0, kval=0)],
           f"rbt_align -s on the PFP panel: one walk kernel launch and no torch walk: {runs}")
     res["walk"] = big_walk(device, path, fq["locate"])
     reset_counts()
@@ -3893,7 +3933,7 @@ def phase_big_chr(device, card: dict, chr_: dict, count: dict, k1: dict, loc: di
     check(all(runs[t]["rec_launches"] == 0 for t in ("count", "-m")),
           "a record launch outside -s")
     # -s: one walk kernel launch a batch over the phi rows, no torch walk
-    check(runs["-s"]["walks"] == dict(walk=-(-N_LOCATE // BATCH)),
+    check(runs["-s"]["walks"] == dict(walk=-(-N_LOCATE // BATCH), kval=0),
           f"rbt_align -s walks on the big rows: {runs['-s']['walks']}")
     runs["-m_routes"] = marker_routes(device, path, paths["locate.fq"], markers["out_text"])
 
@@ -4173,11 +4213,12 @@ def route_counts() -> dict:
 
 
 def walk_counts() -> dict:
-    """The phi walk's launches since the last reset (every route: phi1, the
-    phi rows, phi_at, the predecessor search)."""
+    """The phi walk's launches since the last reset: the chain's (walk:
+    every phi route, phi1, the phi rows, phi_at, the predecessor search) and
+    the kval kernel's (kval)."""
     from rowbowt_tpu_torch.ops import cuda_phi
 
-    return dict(walk=cuda_phi.LAUNCHES)
+    return dict(walk=cuda_phi.LAUNCHES, kval=cuda_phi.LAUNCHES_KVAL)
 
 
 def reset_counts() -> None:
@@ -4189,7 +4230,7 @@ def reset_counts() -> None:
     cuda_lf.LAUNCHES_REC = cuda_lf.RECORDS_PLAIN = cuda_lf.LAUNCHES_TOE = 0
     for counts in (cuda_lf.LAUNCHES_TAB, cuda_lf.LAUNCHES_TAB_TOE, cuda_seeds.LAUNCHES_SEED):
         counts.update(dict.fromkeys(counts, 0))
-    cuda_phi.LAUNCHES = 0
+    cuda_phi.LAUNCHES = cuda_phi.LAUNCHES_KVAL = 0
 
 
 def align_runs(device, path: str, runs: list, out_path: str) -> dict:
@@ -4365,8 +4406,11 @@ def toehold_times(device, path: str, fastq: str, loc: dict, k1: dict) -> dict:
     (phase locate), one launch a batch; the search + toehold stage over all
     batches with the torch loop (the parent's stage) and with the kernel, in
     turns; then on the first batch the call ms in turns with the twin, the
-    launch alone (CUDA events just around it), one profiler trace, the work,
-    the bound and its share."""
+    launch alone (CUDA events just around it) beside K1's count instance
+    alone on the same batch from the full range (`count_device_us`, the same
+    build), one profiler trace, the work, the bound and its share.  Then
+    the walk of rbt_align -s on this index (no kval: the chain over its
+    phi1) on every batch's real lanes (walk_times, `walk`)."""
     import torch
 
     from rowbowt_tpu_torch.cli.common import iter_query_batches
@@ -4378,12 +4422,13 @@ def toehold_times(device, path: str, fastq: str, loc: dict, k1: dict) -> dict:
     dev = [(torch.from_numpy(qc).to(device), torch.from_numpy(lens).to(device), len(names))
            for names, qc, lens in iter_query_batches(host, fastq, BATCH)]
     reset_counts()
-    err = 0
+    err, ranges = 0, []
     for (q, ln, nr), want in zip(dev, loc["ranges"]):
         got = cuda_lf.find_ranges_toehold(tx, q, ln)
         plain = cuda_lf.find_ranges_toehold_plain(tx, q, ln)
         torch.cuda.synchronize()
         err = max(err, max_abs_err(got, plain), max_abs_err([t[:nr] for t in got], want))
+        ranges.append(tuple(t[:nr] for t in got))
     check(err == 0, f"the toehold launch at raw chr != its twin or dense chr: max |err| {err}")
     check(route_counts() == launch_counts(toe=len(dev)), f"routes {route_counts()}")
     before_s, after_s = stage_turns(
@@ -4395,6 +4440,8 @@ def toehold_times(device, path: str, fastq: str, loc: dict, k1: dict) -> dict:
     call_ms, plain_ms = in_turns([lambda: cuda_lf.find_ranges_toehold_plain(tx, q, ln)],
                                  [lambda: cuda_lf.find_ranges_toehold(tx, q, ln)], 2, 20)
     device_us = kernel_event_us([around(lambda: cuda_lf.launch_toehold(tx, q, ln))], 20)
+    count_us = kernel_event_us([around(lambda: cuda_lf.launch_k1(tx, q, ln, use_ftab=False))],
+                               20)
     profiled_us = profiled_kernel_us([lambda: cuda_lf.launch_toehold(tx, q, ln)], 5,
                                      ("lf_count_kernel",))["lf_count_kernel"]
     work = k1_work(tx, q, ln, use_ftab=False)
@@ -4402,10 +4449,15 @@ def toehold_times(device, path: str, fastq: str, loc: dict, k1: dict) -> dict:
     out = dict(batches=len(dev), lanes=B, L=L, route="ltk", max_abs_err=err,
                launches=len(dev), stage_before_s=before_s, stage_after_s=after_s,
                call_ms=call_ms, plain_ms=plain_ms, device_us=device_us,
+               count_device_us=count_us, over_count=device_us / count_us,
+               step_loops={name: k1_loop(cuda_lf._SYMS_PER_ROW[cuda_lf.row_layout(tx)], toe)
+                           for name, toe in (("count", False), ("toehold", True))},
                profiled_us=profiled_us, bound=b,
                bound_ms=max(b["byte_bound_us"], b["ops_bound_us"]) / 1e3,
                bound_by="bytes" if b["byte_bound_us"] >= b["ops_bound_us"] else "operations",
                share=b["bound_us"] / device_us, share_old=b["bound_us_old"] / device_us,
+               walk=walk_times(device, tx, ranges, "phi1",
+                               k1["us_per_dependent_step"]["random_cycle"]),
                wall_s=time.perf_counter() - t0)
     del tx, dev
     torch.cuda.empty_cache()
@@ -4533,7 +4585,7 @@ def phase_raw_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
           and runs["-s"]["launches"] == launch_counts(toe=n_loc),
           f"raw chr routes: {({k: v['launches'] for k, v in runs.items()})}")
     # raw chr keeps phi1 (built from the run samples): the walk kernel
-    check(runs["-s"]["walks"] == dict(walk=n_loc),
+    check(runs["-s"]["walks"] == dict(walk=n_loc, kval=0),
           f"raw chr -s walks: {runs['-s']['walks']}")
     toehold = toehold_times(device, out_dir, paths["locate.fq"], loc, k1)
     shutil.copy(paths["idx"] + ".midx.npz", out_dir + ".midx.npz")
@@ -4942,7 +4994,7 @@ def phase_nodense_chr(device, card: dict, chr_: dict, count: dict, loc: dict,
           and runs["-s"]["launches"] == launch_counts(tab_toe_runs=n_loc),
           f"no-dense chr routes: {({k: v['launches'] for k, v in runs.items()})}")
     # no phi1: the walk kernel over the predecessor search
-    check(runs["-s"]["walks"] == dict(walk=n_loc),
+    check(runs["-s"]["walks"] == dict(walk=n_loc, kval=0),
           f"no-dense chr -s walks: {runs['-s']['walks']}")
     lat = k1["us_per_dependent_step"]
     tables = {}
@@ -5111,7 +5163,7 @@ def phi_at_route(device, path: str, fastq: str, want: str, out_path: str,
     finally:
         BigIndex._phi_pack, cuda_phi.launch_walk = real_pack, real_launch
     check(got == want, "rbt_align -s over the breakpoint table != the dense index's lines")
-    check(walks == dict(walk=1) and routes == ["phi_at"],
+    check(walks == dict(walk=1, kval=0) and routes == ["phi_at"],
           f"rbt_align -s over the breakpoint table: {walks}, routes {routes}")
     ranges = []
     for names, qc, lens in iter_query_batches(big, fastq, BATCH):
@@ -5368,7 +5420,7 @@ def phase_build_small(device, card: dict, child: dict, lat: dict | None = None) 
                                      "--device", str(device)], out_txt)
         dense_runs[tag] = dict(cli, reads=N_SMALL_READS,
                                cli_reads_per_s=N_SMALL_READS / cli["cli_query_s"],
-                               launches=route_counts())
+                               launches=route_counts(), walks=walk_counts())
     runs = {"dense": dense_runs}
     for x in ("x", "nodense", "raw_idx", "ser", "ftab_only"):
         runs[x] = align_runs(device, p[x], [(tag, fq["reads"], f, want[tag], N_SMALL_READS)
@@ -5414,10 +5466,12 @@ def phase_build_small(device, card: dict, child: dict, lat: dict | None = None) 
           and all(runs[x]["-s"]["launches"] == toe for x in ("raw_idx", "ser"))
           and runs["dense"]["-s"]["launches"] == k1,
           f"small routes: {({x: {t: v['launches'] for t, v in r.items()} for x, r in runs.items()})}")
-    # every -s walks in the kernel: phi1, and the predecessor search without it
-    check(all(runs[x]["-s"]["walks"] == dict(walk=1)
-              for x in ("nodense", "raw_idx", "ser")),
-          f"small -s walks: {({x: runs[x]['-s']['walks'] for x in ('nodense', 'raw_idx', 'ser')})}")
+    # every -s walks in a kernel: the dense index's kval (no chain), the
+    # raw and serialized indexes' phi1, the predecessor search without it
+    check(all(runs[x]["-s"]["walks"] == dict(walk=1, kval=0)
+              for x in ("nodense", "raw_idx", "ser"))
+          and runs["dense"]["-s"]["walks"] == dict(walk=0, kval=1),
+          f"small -s walks: {({x: runs[x]['-s']['walks'] for x in ('dense', 'nodense', 'raw_idx', 'ser')})}")
 
     # the index of 13 codes: its lines on the card, on the CPU, and the oracle's
     iu_runs, iu_lines = {}, {}
@@ -6100,9 +6154,9 @@ def phase_parallel_stream(device, card: dict, chr_: dict, count: dict, big_path:
     return res
 
 
-SELECTABLE = ("probes", "parity", "k1", "pfp_big", "build_small", "nodense_chr", "raw_chr",
-              "big_chr", "greedy", "heuristic", "lmem", "locs", "parallel_dp", "parallel_sharded",
-              "parallel_stream")
+SELECTABLE = ("probes", "parity", "k1", "phi_chain", "pfp_big", "build_small", "nodense_chr",
+              "raw_chr", "big_chr", "greedy", "heuristic", "lmem", "locs", "parallel_dp",
+              "parallel_sharded", "parallel_stream")
 
 
 def main(argv: list[str]) -> int:
@@ -6204,6 +6258,8 @@ def main(argv: list[str]) -> int:
                     chr_, count = chr_main()
                     phase_big_chr(device, card, chr_, count, k1_phase(), *located(),
                                   {"out_text": seeding("locs")})
+                elif name == "phi_chain":
+                    phase_phi_chain(device, card, located()[0], k1_phase())
                 elif name in ("greedy", "heuristic", "lmem", "locs"):
                     seeding({"greedy": "-f", "heuristic": "--heuristic", "lmem": "--lmem",
                              "locs": "locs"}[name])
@@ -6289,11 +6345,14 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     every rank (`parallel_dp_launches`).  P3's (gather_chain) names its
     design and every design's device µs; its bound_us is the larger of the
     chain's latency and its loads over the L2's random-load rate (phase
-    probes).  The phi walk has an entry a route: phi_walk_phi1 (main path
-    rbt_align -s on dense chr, timed in phase phi_chain) and phi_walk_rows
-    (rbt_align -s on the big_chr directory), their max |err| also over
-    phases parity (and pfp_big for the rows), and phi_walk_pred (main path
-    rbt_align -s on nodense_chr).  K1's toehold launch (lf_toehold: main
+    probes).  The phi walk has an entry a route: phi_walk_kval (the kval
+    kernel; main path rbt_align -s on dense chr, timed in phase phi_chain),
+    phi_walk_phi1 (the chain over phi1; main path rbt_align -s on raw_chr,
+    timed in its toehold_times) and phi_walk_rows (rbt_align -s on the
+    big_chr directory), their max |err| also over phases parity (and
+    pfp_big for the rows), and phi_walk_pred (main path rbt_align -s on
+    nodense_chr).  Each walk entry also carries `floor_us`, the empty
+    kernel's time by the same method.  K1's toehold launch (lf_toehold: main
     path rbt_align -s on raw_chr, timed on one of its batches) has its own
     entry, its max |err| also over phase parity.  The tables kernel has an
     entry a rank policy and instance: lf_tables_runs and
@@ -6466,29 +6525,35 @@ def kernel_record(count: dict, k1: dict, probes: dict, par_err: dict, chain: dic
     kernels[-1]["design"] = probes["gather_chain"]["design"]
     kernels[-1]["designs_device_us"] = {d: v["device_us"] for d, v in
                                         probes["gather_chain"]["designs"].items()}
-    # the phi walk: its main paths are rbt_align -s on dense chr (phi1), on
-    # the big_chr directory (phi rows) and on nodense_chr (the predecessor
-    # search)
-    for name, w, launches, err in (
-            ("phi_walk_phi1", chain["walk"], loc["walks"]["walk"],
-             max(par_err["phi_walk_phi1"], chain["max_abs_err"], chain["walk"]["max_abs_err"])),
+    # the phi walk: its main paths are rbt_align -s on dense chr (the kval
+    # kernel), on raw_chr (the chain over phi1), on the big_chr directory
+    # (phi rows) and on nodense_chr (the predecessor search)
+    chained = ("tools/vmem_gather_probe.py:92 (P3's chain, carrying the phi walk of "
+               "rowbowt_tpu/engine/locate.py:177, an XLA fori_loop in the JAX package)")
+    for name, w, launches, err, replaces in (
+            ("phi_walk_kval", chain["walk"], loc["walks"]["kval"],
+             max(par_err["phi_walk_kval"], chain["walk"]["max_abs_err"]),
+             "tools/vmem_gather_probe.py:92 (P3's chain, which carried this walk before; "
+             "the phi walk of rowbowt_tpu/engine/locate.py:206 locate_ragged, an XLA "
+             "fori_loop in the JAX package)"),
+            ("phi_walk_phi1", raw["toehold"]["walk"], raw["runs"]["-s"]["walks"]["walk"],
+             max(par_err["phi_walk_phi1"], chain["max_abs_err"],
+                 raw["toehold"]["walk"]["max_abs_err"]), chained),
             ("phi_walk_rows", big_chr["walk"], big_chr["runs"]["-s"]["walks"]["walk"],
              max(par_err["phi_walk_rows"], big_chr["walk"]["max_abs_err"],
-                 pfp_big["walk"]["max_abs_err"])),
+                 pfp_big["walk"]["max_abs_err"]), chained),
             ("phi_walk_pred", nodense["walk"], nodense["runs"]["-s"]["walks"]["walk"],
-             max(par_err["phi_walk_pred"], nodense["walk"]["max_abs_err"])),
+             max(par_err["phi_walk_pred"], nodense["walk"]["max_abs_err"]), chained),
             ("walk_phi_at", small["phi_at"], small["phi_at"]["launches"],
-             max(par_err["walk_phi_at"], small["phi_at"]["max_abs_err"]))):
+             max(par_err["walk_phi_at"], small["phi_at"]["max_abs_err"]), chained)):
         kernels.append({"name": name, "route": "cuda",
-                        "source": "rowbowt_tpu_torch/csrc/phi_walk.cu",
-                        "replaces": "tools/vmem_gather_probe.py:92 (P3's chain, carrying the phi "
-                                    "walk of rowbowt_tpu/engine/locate.py:177, an XLA fori_loop "
-                                    "in the JAX package)",
+                        "source": "rowbowt_tpu_torch/csrc/phi_walk.cu", "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": w["call_ms"],
                         "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
                         "bound_by": w["bound_by"], "library_ms": None,
                         "device_us": w["device_us"], "profiled_us": w["profiled_us"],
-                        "bound_us": w["bound_us"], "bound_us_by": w["bound_us_by"]})
+                        "floor_us": w["floor_us"], "bound_us": w["bound_us"],
+                        "bound_us_by": w["bound_us_by"]})
     return kernels
 
 

@@ -86,13 +86,19 @@
 // count; one resolve a lane after the loop reads the table (and, for ltk,
 // finds the run of hi through the bucket directory rs_off over run_start,
 // engine/device.run_directory, which the load builds beside ltk).  The
-// trivial test needs BWT[hi]: the symbol before hi + 1 in the row already
-// loaded for hi + 1, or one 4-byte word load where hi + 1 starts a row or
-// equals n.  Its bound is K1's plus the resolve: the directory's entry, at
+// trivial test needs BWT[hi] == c, which holds exactly when rank(hi + 1, c)
+// - rank(hi, c) == 1: hi + 1's rank is taken in hi's own row (at an in-row
+// offset of up to the whole row), so hi's symbol is in the row fetched and
+// its bit rides beside the rank in the rank's own shuffle (lf_rank.cuh
+// rank_pair_toe), with no load of its own and no case for a row start or
+// n.  Its bound is K1's plus the resolve: the directory's entry, at
 // most `iters` probes of one bucket's starts and one table load a lane
-// (under 1 MB a chr batch).  With a binary search over all R run starts in
-// their place a raw chr batch took 1.14x K1's count search on an H100
-// (PERF.md §6), against 0.16 s for the torch loop.
+// (under 1 MB a chr batch).  Timed on an H100 in turns on a raw chr batch
+// (PERF.md §6), it takes 0.93x K1's count search of the same build.  The
+// earlier design, hi + 1's rank in hi + 1's row and hi's symbol read apart
+// (one more shuffle, and one more load where hi + 1 started a row or was
+// n), took 1.12x; the test folded into that rank with the load hoisted
+// beside the row fetches 1.09x; the resolve costs 0.025x.
 //
 // A second kernel, lf_tables_kernel (C entry rbt_lf_tables), runs the same
 // search, count or toehold, over the rank tables of an index without fused
@@ -153,11 +159,6 @@
 // seeding machines, whose body every thread of a lane runs.  occ1's ranks
 // on a pair of threads took 0.72-0.76x their one thread's time (PERF.md
 // §6).
-//
-// The first kernel of this file (lf_count_transposed_kernel, C entry
-// rbt_lf_count_transposed) is the earlier design, one thread per lane over a
-// transposed [L, B] batch with the start computed outside; it is kept only
-// to be timed beside the current one (chip_smoke.py, phase k1).
 
 #include <cstdint>
 
@@ -177,120 +178,33 @@ namespace {
 // 65,536 lanes runs in one wave on 132 SMs.  Under the 1024-thread bound
 // ptxas held two blocks to 32 registers and they spilled; over the nibble
 // rows the 256-symbol instances needed 95-108 registers and so one block
-// an SM, two waves for such a batch (PERF.md §6).
-template <typename Lane, int SYMS>
+// an SM, two waves for such a batch (PERF.md §6).  K1's toehold instances
+// (TOE) are built for 512 threads and 2 blocks an SM too: with no blocks
+// asked ptxas held them to the registers of more blocks an SM, 32 under
+// the 1024-thread bound and 40 under 512, and they spilled.
+template <typename Lane, bool TOE = false>
 struct LfBounds {
-  static constexpr int kThreads = sizeof(Lane) == 8 ? 512 : 1024;
-  static constexpr int kBlocks = sizeof(Lane) == 4 ? 0 : 2;
+  static constexpr int kThreads = sizeof(Lane) == 8 || TOE ? 512 : 1024;
+  static constexpr int kBlocks = sizeof(Lane) == 4 && !TOE ? 0 : 2;
 };
 
 // ---------------------------------------------------------------------------
-// The earlier design (kept for timing only)
+// The search over the single-level rows
 
-// Count of the nibbles equal to c (pat = c in every nibble) among the kn
-// lowest nibbles of one word, kn in [0, 8].
-__device__ __forceinline__ int match_below(uint32_t w, uint32_t pat, int kn) {
-  uint32_t x = w ^ pat;
-  uint32_t t = x | (x >> 1) | (x >> 2) | (x >> 3);
-  uint32_t match = ~t & 0x11111111u;  // bit 4j set where nibble j == c
-  // kn == 8 takes the whole word: 1u << 32 is undefined in C++
-  uint32_t mask = kn >= 8 ? 0xFFFFFFFFu : ((1u << (4 * kn)) - 1u);
-  return __popc(match & mask);
-}
-
-// rank(i, c) = number of code c in BWT[0, i), for i in [0, n - 1] and c in
-// [0, A).  The caller handles i == n (the code's total count).
-template <int SYMS>
-__device__ __forceinline__ int rank_row(const int4* __restrict__ fb, int i,
-                                        int c) {
-  using Lo = Layout<SYMS>;
-  const int4* row = fb + (size_t)(i >> Lo::kShift) * Lo::kVec;
-  const int off = i & (SYMS - 1);
-  int4 v[Lo::kVec];
-#pragma unroll
-  for (int k = 0; k < Lo::kVec; ++k) v[k] = __ldg(row + k);
-
-  int occ = 0;
-#pragma unroll
-  for (int k = 0; k < kCkpt; ++k) {
-    if (k == c) occ = lane_of(v[k / 4], k % 4);
-  }
-  const uint32_t pat = (uint32_t)c * 0x11111111u;
-#pragma unroll
-  for (int w = 0; w < Lo::kWords; ++w) {
-    const int kn = min(max(off - 8 * w, 0), 8);
-    const int k = kCkpt + w;
-    occ += match_below((uint32_t)lane_of(v[k / 4], k % 4), pat, kn);
-  }
-  return occ;
-}
-
-// qT is the [L, B] transpose of the right-aligned [B, L] codes; lo/hi hold
-// each lane's start on entry and its range on exit.
-template <int SYMS>
-__global__ void __launch_bounds__(256)
-lf_count_transposed_kernel(const int4* __restrict__ fb,
-                           const int32_t* __restrict__ F, int A, int n,
-                           const int32_t* __restrict__ qT,
-                           const int32_t* __restrict__ lengths,
-                           const int32_t* __restrict__ startj, int B, int L,
-                           int32_t* __restrict__ lo_io,
-                           int32_t* __restrict__ hi_io) {
-  __shared__ int32_t sF[kCkpt + 1];
-  if (threadIdx.x <= (unsigned)A) sF[threadIdx.x] = F[threadIdx.x];
-  __syncthreads();
-
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int lo = lo_io[b];
-  int hi = hi_io[b];
-  const int jend = min(lengths[b], L);
-  for (int j = startj[b]; j < jend; ++j) {
-    const int c = qT[(size_t)(L - 1 - j) * B + b];
-    if (c < 0 || c >= A) {
-      lo = 1;
-      hi = 0;
-      break;
-    }
-    const int total = sF[c + 1] - sF[c];
-    const int cb = lo >= n ? total : rank_row<SYMS>(fb, lo, c);
-    const int ce = hi + 1 >= n ? total : rank_row<SYMS>(fb, hi + 1, c);
-    const int ci = ce - cb;
-    if (ci <= 0) {
-      lo = 1;
-      hi = 0;
-      break;
-    }
-    lo = sF[c] + cb;
-    hi = lo + ci - 1;
-  }
-  lo_io[b] = lo;
-  hi_io[b] = hi;
-}
-
-// ---------------------------------------------------------------------------
-// The current design
-
-// One block: blockDim.x / kG lanes, kG neighbouring threads a lane.  STAGE
-// reads the codes from shared memory (staged once per block), else from
-// global memory at every step (for batches too wide to stage).  Lane is
-// int32_t: the single-level rows, with the ftab start (`base`, `per_blk`
-// and REC unused: the two-level search is lf_count2_kernel).  TOE (no ftab
-// start) also writes each lane's toehold into toe.k[b], 0 for a failed
-// search.
-template <typename Lane, int SYMS, bool STAGE, bool REC, bool TOE>
-__global__ void __launch_bounds__(LfBounds<Lane, SYMS>::kThreads, LfBounds<Lane, SYMS>::kBlocks)
-lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
-                const int64_t* __restrict__ base, int per_blk,
-                int A, Lane n, const int32_t* __restrict__ q,
-                const int32_t* __restrict__ lengths, int B, int L,
+// One block: blockDim.x / kG lanes, kG neighbouring threads a lane, int32
+// lanes, with the ftab start.  STAGE reads the codes from shared memory
+// (staged once per block), else from global memory at every step (for
+// batches too wide to stage).  TOE (no ftab start) also writes each lane's
+// toehold into toe.k[b], 0 for a failed search.
+template <int SYMS, bool STAGE, bool TOE>
+__global__ void __launch_bounds__(LfBounds<int32_t, TOE>::kThreads,
+                                  LfBounds<int32_t, TOE>::kBlocks)
+lf_count_kernel(const int4* __restrict__ fb, const int32_t* __restrict__ F, int A, int n,
+                const int32_t* __restrict__ q, const int32_t* __restrict__ lengths, int B, int L,
                 const int32_t* __restrict__ ftab, int k, uint32_t acgt,
-                Lane* __restrict__ lo_out, Lane* __restrict__ hi_out,
-                Lane* __restrict__ hi_rec, Toe toe) {
-  using Lo = Layout<SYMS>;
-  static_assert(sizeof(Lane) == 4 && !REC, "the single-level search");
+                int32_t* __restrict__ lo_out, int32_t* __restrict__ hi_out, Toe toe) {
   extern __shared__ __align__(16) uint8_t s_code[];  // [lanes of the block][stride] when STAGE
-  __shared__ Lane sF[kCkpt + 1];
+  __shared__ int32_t sF[kCkpt + 1];
 
   const int lanes = blockDim.x / kG;
   const int b0 = blockIdx.x * lanes;
@@ -312,7 +226,7 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
 
   // ftab start (count.py:33-40): k > 0 only with the ftab on and L >= k
   const int len = lengths[b];
-  Lane lo = 0, hi = n - 1;
+  int lo = 0, hi = n - 1;
   int j = 0;
   if (k > 0 && len >= k) {
     const int kc = kmer_code(code_at, L, k, acgt);
@@ -329,10 +243,9 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   // the kG threads of a lane: neighbouring lanes of one warp
   const unsigned pair = ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(kG - 1));
   const int jend = min(len, L);
-  // TOE: the code and pre-step hi of the last non-trivial step (tc < 0:
-  // none yet), and the trivial steps since it (since the start while none)
-  int tc = -1, triv = 0;
-  Lane thi = 0;
+  // TOE: the code, pre-step hi and step of the last non-trivial step (tc <
+  // 0, tj = -1: none yet); the trivial steps after it are the rest
+  int tc = -1, tj = -1, thi = 0;
   for (; j < jend; ++j) {
     const int c = code_at(L - 1 - j);
     if (c >= A) {  // absent code: empty range, lane done
@@ -340,27 +253,25 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
       hi = 0;
       break;
     }
-    // rank(n, c) is the code's total count; hi + 1 does reach n
-    const Lane i1 = hi + 1;
-    int4 w[Lo::kPer];
-    Lane cb, ce;
-    rank_pair<SYMS>(fb, n, sF[c + 1] - sF[c], lo, i1, c, sub, pair, w, cb, ce);
+    int cb, ce;
     bool trivial = false;  // BWT[hi] == c
-    if constexpr (TOE) trivial = bwt_at_hi<Lane, SYMS>(fb, w, sub, pair, n, hi) == c;
-    const Lane ci = ce - cb;
+    if constexpr (TOE) {
+      rank_pair_toe<SYMS>(fb, lo, hi, c, sub, pair, cb, ce, trivial);
+    } else {
+      // rank(n, c) is the code's total count; hi + 1 does reach n
+      int4 w[Layout<SYMS>::kPer];
+      rank_pair<SYMS>(fb, n, sF[c + 1] - sF[c], lo, hi + 1, c, sub, pair, w, cb, ce);
+    }
+    const int ci = ce - cb;
     if (ci <= 0) {
       lo = 1;
       hi = 0;
       break;
     }
     if constexpr (TOE) {
-      if (trivial) {
-        ++triv;
-      } else {
-        tc = c;
-        thi = hi;
-        triv = 0;
-      }
+      tc = trivial ? tc : c;
+      thi = trivial ? thi : hi;
+      tj = trivial ? tj : j;
     }
     lo = sF[c] + cb;
     hi = lo + ci - 1;
@@ -368,8 +279,10 @@ lf_count_kernel(const int4* __restrict__ fb, const Lane* __restrict__ F,
   if (sub == 0) {
     lo_out[b] = lo;
     hi_out[b] = hi;
+    // a lane whose search did not fail took every step to jend
     if constexpr (TOE)
-      static_cast<Lane*>(toe.k)[b] = hi < lo ? 0 : (Lane)resolve_toehold(toe, n, tc, thi, triv);
+      static_cast<int32_t*>(toe.k)[b] =
+          hi < lo ? 0 : (int32_t)resolve_toehold(toe, n, tc, thi, jend - 1 - tj);
   }
 }
 
@@ -391,8 +304,7 @@ __device__ __forceinline__ void store_rec(int64_t* p, int64_t v) {
 // each step's stores of a warp's lanes fill neighbouring columns of one row
 // of the record.
 template <int SYMS, bool STAGE, bool REC>
-__global__ void __launch_bounds__(LfBounds<int64_t, SYMS>::kThreads,
-                                  LfBounds<int64_t, SYMS>::kBlocks)
+__global__ void __launch_bounds__(LfBounds<int64_t>::kThreads, LfBounds<int64_t>::kBlocks)
 lf_count2_kernel(const int4* __restrict__ fb, const int64_t* __restrict__ F, Sup sup, int A,
                  int64_t n, const int32_t* __restrict__ q, const int32_t* __restrict__ lengths,
                  int B, int L, int64_t* __restrict__ lo_out, int64_t* __restrict__ hi_out,
@@ -441,8 +353,7 @@ lf_count2_kernel(const int4* __restrict__ fb, const int64_t* __restrict__ F, Sup
   }
 }
 
-// The single-level search's arguments (lf_count_kernel's own `base`,
-// `per_blk` and `hi_rec` are null: its int32 instances take them unused).
+// The single-level search's arguments.
 struct Args {
   const int4* fb;
   const int32_t* F;
@@ -461,14 +372,13 @@ struct Args {
 
 template <int SYMS, bool STAGE, bool TOE>
 int launch(const Args& a, int threads, cudaStream_t s) {
-  if (threads > LfBounds<int32_t, SYMS>::kThreads) return (int)cudaErrorInvalidValue;
+  if (threads > LfBounds<int32_t, TOE>::kThreads) return (int)cudaErrorInvalidValue;
   const int lanes = threads / kG;
   const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((a.B + lanes - 1) / lanes));
-  lf_count_kernel<int32_t, SYMS, STAGE, false, TOE><<<grid, threads, smem, s>>>(
-      a.fb, a.F, nullptr, 0, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt, a.lo,
-      a.hi, nullptr, a.toe);
+  lf_count_kernel<SYMS, STAGE, TOE><<<grid, threads, smem, s>>>(
+      a.fb, a.F, a.A, a.n, a.q, a.lengths, a.B, a.L, a.ftab, a.k, a.acgt, a.lo, a.hi, a.toe);
   return (int)cudaGetLastError();
 }
 
@@ -494,7 +404,7 @@ struct Args2 {
 
 template <int SYMS, bool STAGE, bool REC>
 int launch2(const Args2& a, int threads, cudaStream_t s) {
-  if (threads > LfBounds<int64_t, SYMS>::kThreads) return (int)cudaErrorInvalidValue;
+  if (threads > LfBounds<int64_t>::kThreads) return (int)cudaErrorInvalidValue;
   const int lanes = threads / kG;
   const size_t smem = STAGE ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
@@ -528,7 +438,7 @@ bool bad_launch(int A, int B, int L, int threads) {
 // into toe.k.  The codes come from shared memory when `stage` (staged once
 // per block), else from global memory at every step.
 template <typename Lane, int POLICY, bool TOE, bool REC>
-__global__ void __launch_bounds__(LfBounds<Lane, 0>::kThreads, LfBounds<Lane, 0>::kBlocks)
+__global__ void __launch_bounds__(LfBounds<Lane>::kThreads, LfBounds<Lane>::kBlocks)
 lf_tables_kernel(Tabs t, const Lane* __restrict__ F, int A, Lane n,
                  const int32_t* __restrict__ q, const int32_t* __restrict__ lengths, int B,
                  int L, bool stage, const void* ftab, int ftab_bytes, int k, uint32_t acgt,
@@ -615,7 +525,7 @@ struct TabArgs {
 
 template <typename Lane, int POLICY, bool TOE, bool REC = false>
 int launch_tables(const TabArgs<Lane>& a, int threads, bool stage, cudaStream_t s) {
-  if (threads > LfBounds<Lane, 0>::kThreads) return (int)cudaErrorInvalidValue;
+  if (threads > LfBounds<Lane>::kThreads) return (int)cudaErrorInvalidValue;
   const int lanes = threads / lane_threads(POLICY);
   const size_t smem = stage ? (size_t)lanes * staged_stride(a.L) : 0;
   if (smem > (size_t)kMaxStagedBytes) return (int)cudaErrorInvalidValue;
@@ -715,8 +625,9 @@ int rbt_lf_count_fb2(const void* fb, int syms_per_row, const void* F, const void
 // where resident (ltk, run_start and rs_off are then not read and may be
 // null), else ltk [A * R], run_start [R] and its bucket directory rs_off
 // [n_off] (off_bytes; n_off == (n >> shift) + 2, at most `iters` halvings a
-// bucket: engine/device.run_directory); samples_last [R] always.  The other
-// arguments and the return value are rbt_lf_count's.
+// bucket: engine/device.run_directory); samples_last [R] always.  `threads`
+// is at most 512 (LfBounds).  The other arguments and the return value are
+// rbt_lf_count's.
 int rbt_lf_toehold(const void* fb, int syms_per_row, const void* F, int A, int n,
                    const void* q, const void* lengths, int B, int L, const void* tk1,
                    int tk1_bytes, const void* ltk, int ltk_bytes, const void* run_start,
@@ -803,36 +714,6 @@ int rbt_lf_tables(int policy, const void* occ, int occ_bytes, const void* run_st
                            ftab, ftab_bytes, kf, (uint32_t)acgt, static_cast<int64_t*>(lo),
                            static_cast<int64_t*>(hi), te};
   return launch_lanes(policy, a, threads, stage != 0, s);
-}
-
-// The earlier design over the [L, B] transpose qT, from the starts in lo,
-// hi and startj (updated in place): 256-thread blocks, one thread a lane.
-int rbt_lf_count_transposed(const void* fb, int syms_per_row, const void* F,
-                            int A, int n, const void* qT, const void* lengths,
-                            const void* startj, int B, int L, void* lo, void* hi,
-                            void* stream) {
-  if (A < 1 || A > kCkpt || B < 0 || L < 0 || n < 1)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const int threads = 256;
-  const dim3 grid((unsigned)((B + threads - 1) / threads));
-  cudaStream_t s = (cudaStream_t)stream;
-  auto* fb4 = static_cast<const int4*>(fb);
-  auto* F32 = static_cast<const int32_t*>(F);
-  auto* q = static_cast<const int32_t*>(qT);
-  auto* len = static_cast<const int32_t*>(lengths);
-  auto* sj = static_cast<const int32_t*>(startj);
-  auto* lo32 = static_cast<int32_t*>(lo);
-  auto* hi32 = static_cast<int32_t*>(hi);
-  if (syms_per_row == 64)
-    lf_count_transposed_kernel<64><<<grid, threads, 0, s>>>(
-        fb4, F32, A, n, q, len, sj, B, L, lo32, hi32);
-  else if (syms_per_row == 128)
-    lf_count_transposed_kernel<128><<<grid, threads, 0, s>>>(
-        fb4, F32, A, n, q, len, sj, B, L, lo32, hi32);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
 }
 
 // Threads a lane of the tables kernels' `policy` step (lf_tables.cuh

@@ -2,7 +2,9 @@
 // on it: lf.cu (K1, lf_count_kernel and lf_count2_kernel, and the tables
 // kernel's staging) and seeds.cu (the seeding state machines of rbt_markers
 // and rbt_locs), with the per-step toehold's trivial test (BWT[hi] == c)
-// from the rows already loaded.
+// from the rows already loaded: K1's toehold instance folds it into hi +
+// 1's rank (rank_pair_toe), the sampled machine reads hi's symbol from the
+// row (bwt_at_hi).
 //
 // Single-level rows (rowbowt_tpu_torch/construct/build.py build_fblock and
 // fblock_to_fb64): int32[8 + SYMS/8] per row = 8 exclusive per-code
@@ -182,12 +184,80 @@ __device__ __forceinline__ int64_t load_at(const void* p, int bytes, int64_t i) 
                     : (int64_t)__ldg(static_cast<const int32_t*>(p) + i);
 }
 
+// This thread's share of rank(c) at in-row offset `off` (0 <= off <=
+// SYMS) for K1's toehold instance: rank_share's count, with each word's
+// mask of its symbols below off made by one funnel shift (the low min(4 *
+// kn, 32) bits, kn that word's symbols below off; three instructions a
+// word where below() takes six).  With LAST (off >= 1) the share doubled,
+// plus 1 where this thread holds the word of the symbol at off - 1 and
+// that symbol is c: the kG threads' values then sum to 2 * rank + [symbol
+// at off - 1 == c], which one shuffle adds up (2 * rank + 1 < 2^32 for
+// every rank below 2^31); the symbol's bit is its nibble's match in the
+// word the rank counts, picked by one select a word and one shift.
+template <int SYMS, bool LAST>
+__device__ __forceinline__ uint32_t toe_share(const int4 (&v)[Layout<SYMS>::kPer], int sub,
+                                              int c, int off) {
+  const uint32_t pat = (uint32_t)c * 0x11111111u;
+  const int at = off - 1;  // LAST: the symbol of the bit, word at >> 3, nibble at & 7
+  uint32_t share = 0, held = 0;
+#pragma unroll
+  for (int m = 0; m < Layout<SYMS>::kPer; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int lane = 4 * (sub + m * kG) + e;  // int32 lane of the row
+      const uint32_t x = (uint32_t)lane_of(v[m], e);
+      if (lane < kCkpt) {
+        share += lane == c ? x : 0u;
+      } else {
+        const int word = lane - kCkpt;
+        const uint32_t y = x ^ pat;
+        const uint32_t match = ~(y | (y >> 1) | (y >> 2) | (y >> 3)) & 0x11111111u;
+        share += (uint32_t)__popc(
+            match & __funnelshift_lc(0xFFFFFFFFu, 0u, (unsigned)max(4 * off - 32 * word, 0)));
+        if constexpr (LAST) held = word == (at >> 3) ? match : held;
+      }
+    }
+  }
+  return LAST ? 2 * share + ((held >> (4 * (at & 7))) & 1u) : share;
+}
+
+// One step's ranks and trivial test of K1's toehold instance over the
+// single-level rows: cb = rank(lo, c), ce = rank(hi + 1, c) and `trivial` =
+// BWT[hi] == c, for a range with lo <= hi < n.  BWT[hi] == c exactly when
+// rank(hi + 1, c) - rank(hi, c) == 1, so the test rides in hi + 1's rank:
+// that rank is taken in hi's own row, at in-row offset (hi & (SYMS - 1)) +
+// 1, which is at most SYMS (the row's checkpoint and all its symbols where
+// hi + 1 starts the next row; the code's total where hi + 1 == n), so hi's
+// symbol is always in the row fetched, its bit packed into the rank's own
+// shuffle (toe_share), and no position needs another load.
+template <int SYMS>
+__device__ __forceinline__ void rank_pair_toe(const int4* __restrict__ fb, int lo, int hi, int c,
+                                              int sub, unsigned pair, int& cb, int& ce,
+                                              bool& trivial) {
+  using Lo = Layout<SYMS>;
+  const int r0 = lo >> Lo::kShift, r1 = hi >> Lo::kShift;
+  int4 v[Lo::kPer], w[Lo::kPer];
+#pragma unroll
+  for (int m = 0; m < Lo::kPer; ++m) {
+    const int part = sub + m * kG;
+    v[m] = __ldg(fb + (size_t)r0 * Lo::kVec + part);
+    w[m] = __ldg(fb + (size_t)r1 * Lo::kVec + part);
+  }
+  uint32_t p0 = toe_share<SYMS, false>(v, sub, c, lo & (SYMS - 1));
+  uint32_t p1 = toe_share<SYMS, true>(w, sub, c, (hi & (SYMS - 1)) + 1);
+  p0 += __shfl_xor_sync(pair, p0, 1);
+  p1 += __shfl_xor_sync(pair, p1, 1);
+  cb = (int)p0;
+  ce = (int)(p1 >> 1);
+  trivial = (p1 & 1u) != 0;
+}
+
 // rank(lo, c) and rank(hi + 1, c) of one LF step over the single-level rows
 // (i1 = hi + 1), summed over the lane's kG threads: cb and ce, each the
 // code's total count `total` where its position is n.  The threads load
 // their parts of lo's row into a register array and of i1's row into w,
-// which the caller may read further (K1's toehold instance takes BWT[hi]
-// from it).
+// which the caller may read further (the sampled seeding machine's
+// per-step toehold takes BWT[hi] from it).
 template <int SYMS>
 __device__ __forceinline__ void rank_pair(const int4* __restrict__ fb, int n, int total, int lo,
                                           int i1, int c, int sub, unsigned pair,
@@ -195,7 +265,11 @@ __device__ __forceinline__ void rank_pair(const int4* __restrict__ fb, int n, in
   using Lo = Layout<SYMS>;
   const bool has0 = lo < n, has1 = i1 < n;
   // both rows are loaded even when they are one: the second load then
-  // finds the row in L1, and loading it once was measured no faster
+  // finds the row in L1, and loading it once was measured no faster.
+  // Where i1 == n, w takes v's parts, so ptxas copies v's registers into
+  // w's before w's predicated load, which then waits for v's to land (the
+  // count instance's machine code); rank_pair_toe, which has no such case,
+  // ran 0.93x this step's time (PERF.md §6)
   const int r0 = lo >> Lo::kShift, r1 = i1 >> Lo::kShift;
   int4 v[Lo::kPer];
 #pragma unroll

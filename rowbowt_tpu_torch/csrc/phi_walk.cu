@@ -36,6 +36,15 @@
 //     bucket's few entries one or two 128 B lines, in place of a binary
 //     search over all R entries (log2(R) + 2 loads, 26 at chr: a chr batch
 //     of at most 7 steps a lane took 57.5 us on an H100, PERF.md §6).
+// A fifth kernel, kval_walk_kernel (C entry rbt_phi_walk_kval), walks
+// without a chain where the index's kval is the full SA and the caller
+// hands each lane's hi, its toehold being kval[hi] (every dense build's
+// rbt_align -s): phi(SA[i]) = SA[i - 1] (construct/build.py builds phi1 so),
+// so lane b's positions are kval[hi[b] - j], one contiguous read and one
+// contiguous write a lane with no dependent load.  What bounds it is bytes:
+// kval[hi - size + 1 .. hi] of each lane read once, the positions written
+// once, and hi, size and off.  On a dense chr batch it took 0.43x the
+// chain over phi1 on an H100, in turns (PERF.md §6).
 //
 // What bounds it on the H100.  A lane's chain is serial: each step's address
 // is the previous step's result, so the longest lane takes its steps times
@@ -45,9 +54,12 @@
 // the memory system serves them.  What the design does about it:
 //   - one thread a lane, the step loop inside the thread (as P3), so no
 //     launch or host round trip sits between two steps;
-//   - the wrapper (ops/cuda_phi.py) hands the lanes over in descending size
-//     order (one device sort), so a warp's threads walk chains of about one
-//     length and finish together, and the longest chains start first;
+//   - thread t takes lane t: a batch's lanes are one wave (65,536 lanes
+//     in 256 blocks of 256 threads), so every chain starts at once and
+//     the longest one ends the launch whatever lanes share its warp.  The
+//     lanes in descending size order (one device sort a launch, and a
+//     dependent load of that order before a lane's first) took 1.02-1.07x
+//     as long on an H100 (PERF.md §6);
 //   - a grid sized from the SM count (ops/cuda_phi.launch_plan, as P1-P3's):
 //     the least multiple of 32 threads, up to 256, with which one block per
 //     SM covers the lanes;
@@ -209,15 +221,13 @@ struct Pred {
 template <typename Step>
 __global__ void __launch_bounds__(kMaxThreads)
 phi_walk_kernel(Step phi, const int64_t* __restrict__ k, const int64_t* __restrict__ size,
-                const int64_t* __restrict__ off, const int64_t* __restrict__ order,
-                int64_t* __restrict__ out, int B) {
+                const int64_t* __restrict__ off, int64_t* __restrict__ out, int B) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B) return;
-  const int64_t b = order[t];
-  const int64_t s = size[b];
+  const int64_t s = size[t];
   if (s <= 0) return;
-  int64_t* o = out + off[b];
-  int64_t i = k[b];
+  int64_t* o = out + off[t];
+  int64_t i = k[t];
   o[0] = i;
   for (int64_t j = 1; j < s; ++j) {
     i = phi(i);
@@ -226,49 +236,128 @@ phi_walk_kernel(Step phi, const int64_t* __restrict__ k, const int64_t* __restri
 }
 
 template <typename Step>
-int launch(const Step& phi, const void* k, const void* size, const void* off,
-           const void* order, void* out, int B, int threads, void* stream) {
+int launch(const Step& phi, const void* k, const void* size, const void* off, void* out,
+           int B, int threads, void* stream) {
   if (B < 0 || threads < 32 || threads > kMaxThreads || threads % 32)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   phi_walk_kernel<Step><<<(unsigned)((B + threads - 1) / threads), threads, 0,
                           (cudaStream_t)stream>>>(
       phi, static_cast<const int64_t*>(k), static_cast<const int64_t*>(size),
-      static_cast<const int64_t*>(off), static_cast<const int64_t*>(order),
-      static_cast<int64_t*>(out), B);
+      static_cast<const int64_t*>(off), static_cast<int64_t*>(out), B);
   return (int)cudaGetLastError();
 }
+
+// Positions a thread of the kval walk takes at once: their loads are in
+// flight together.
+constexpr int kUnroll = 4;
+
+// The walk of an index whose kval is the full SA, from toeholds that are
+// kval[hi[b]] (the CLI's, engine/locate.find_ranges_w_toehold): phi(SA[i])
+// = SA[i - 1], so lane b's chain is kval[hi[b] - j] for j < size[b], and
+// no step waits for another.  Each warp takes 32 neighbouring lanes and
+// treats their segments as one run of positions (a running sum of their
+// sizes by shuffles), so that its threads take neighbouring positions:
+// position v is thread v % 32's, its lane found by a binary search of the
+// 32 running sums by shuffles, and its read of kval and its write of out
+// fall next to its neighbours' within a lane (coalesced), kUnroll of them
+// in flight a thread.  Lanes with size 0 hold no position.
+template <typename Tab>
+__global__ void __launch_bounds__(kMaxThreads)
+kval_walk_kernel(const Tab* __restrict__ kval, const int64_t* __restrict__ hi,
+                 const int64_t* __restrict__ size, const int64_t* __restrict__ off,
+                 int64_t* __restrict__ out, int B) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int me = threadIdx.x & 31;
+  if (t - me >= B) return;  // the whole warp is past the lanes
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  int64_t s = 0, h = 0, o = 0;
+  if (t < B) {
+    s = size[t];
+    s = s > 0 ? s : 0;
+    h = hi[t];
+    o = off[t];
+  }
+  // end: the warp's positions up to this lane's last, start = end - s
+  int64_t end = s;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int64_t x = __shfl_up_sync(kAll, (long long)end, d);
+    end += me >= d ? x : 0;
+  }
+  const int64_t total = __shfl_sync(kAll, (long long)end, 31);
+  // position v of this lane: out[dst + v], kval[src - v]
+  const int64_t dst = o - (end - s), src = h + (end - s);
+  for (int64_t first = 0; first < total; first += 32 * kUnroll) {
+    int64_t to[kUnroll];
+    Tab val[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = first + 32 * u + me;
+      // its lane: the number of lanes whose segment ends at or below v
+      int lane = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        lane += __shfl_sync(kAll, (long long)end, lane + step - 1) <= v ? step : 0;
+      const int64_t d = __shfl_sync(kAll, (long long)dst, lane);
+      const int64_t r = __shfl_sync(kAll, (long long)src, lane);
+      to[u] = v < total ? d + v : -1;
+      val[u] = v < total ? load_nc(kval + (r - v)) : Tab(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (to[u] >= 0) out[to[u]] = (int64_t)val[u];
+  }
+}
+
+template <typename Tab>
+int launch_kval(const Tab* kval, const void* hi, const void* size, const void* off, void* out,
+                int B, int threads, void* stream) {
+  if (B < 0 || threads < 32 || threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  kval_walk_kernel<Tab><<<(unsigned)((B + threads - 1) / threads), threads, 0,
+                          (cudaStream_t)stream>>>(
+      kval, static_cast<const int64_t*>(hi), static_cast<const int64_t*>(size),
+      static_cast<const int64_t*>(off), static_cast<int64_t*>(out), B);
+  return (int)cudaGetLastError();
+}
+
+// A kernel that does nothing: launched as a walk of B lanes is, its device
+// time is what a launch and the timing around it cost (chip_smoke.py
+// walk_times' floor).
+__global__ void empty_kernel() {}
 
 }  // namespace
 
 extern "C" {
 
-// Each entry walks the B int64 lanes (toehold k, size, off, and `order`, a
-// permutation of [0, B) giving the order threads take the lanes in) on
-// `stream` and returns cudaGetLastError() after the launch (0 on success;
-// nothing is launched for B == 0).  `threads` is ops/cuda_phi.launch_plan's.
+// Each entry walks the B int64 lanes (toehold k, size and off; lane t on
+// thread t) on `stream` and returns cudaGetLastError() after the launch (0
+// on success; nothing is launched for B == 0).  `threads` is
+// ops/cuda_phi.launch_plan's.
 
 // phi1 of `phi1_bytes` (4: int32, 8: int64) a value, n entries.
 int rbt_phi_walk_phi1(const void* phi1, int phi1_bytes, long long n, const void* k,
-                      const void* size, const void* off, const void* order, void* out,
+                      const void* size, const void* off, void* out,
                       int B, int threads, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   if (phi1_bytes == 4)
-    return launch(Phi1<int32_t>{static_cast<const int32_t*>(phi1), n}, k, size, off, order,
+    return launch(Phi1<int32_t>{static_cast<const int32_t*>(phi1), n}, k, size, off,
                   out, B, threads, stream);
   if (phi1_bytes == 8)
-    return launch(Phi1<int64_t>{static_cast<const int64_t*>(phi1), n}, k, size, off, order,
+    return launch(Phi1<int64_t>{static_cast<const int64_t*>(phi1), n}, k, size, off,
                   out, B, threads, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // phi_rows int32 [n / 480 + 2, 16] (16-byte aligned), phi_delta int64.
 int rbt_phi_walk_rows(const void* rows, const void* delta, long long n, const void* k,
-                      const void* size, const void* off, const void* order, void* out,
+                      const void* size, const void* off, void* out,
                       int B, int threads, void* stream) {
   if (n < 1 || (uintptr_t)rows % 16) return (int)cudaErrorInvalidValue;
   return launch(PhiRows{static_cast<const int4*>(rows), static_cast<const int64_t*>(delta), n},
-                k, size, off, order, out, B, threads, stream);
+                k, size, off, out, B, threads, stream);
 }
 
 // The predecessor search over pred_pos, pred_to_run and samples_last, R
@@ -279,7 +368,7 @@ int rbt_phi_walk_rows(const void* rows, const void* delta, long long n, const vo
 int rbt_phi_walk_pred(const void* pred_pos, const void* pred_to_run, const void* samples_last,
                       int bytes, long long R, const void* pred_off, int off_bytes,
                       long long n_off, int shift, int iters, long long n, const void* k,
-                      const void* size, const void* off, const void* order, void* out, int B,
+                      const void* size, const void* off, void* out, int B,
                       int threads, void* stream) {
   if (n < 1 || R < 1 || pred_off == nullptr || (off_bytes != 4 && off_bytes != 8) ||
       shift < 0 || shift > 62 || iters < 1 || iters > 32 || n_off != (n >> shift) + 2)
@@ -289,13 +378,13 @@ int rbt_phi_walk_pred(const void* pred_pos, const void* pred_to_run, const void*
                                 static_cast<const int32_t*>(pred_to_run),
                                 static_cast<const int32_t*>(samples_last), pred_off, off_bytes,
                                 n_off, shift, iters, R, n},
-                  k, size, off, order, out, B, threads, stream);
+                  k, size, off, out, B, threads, stream);
   if (bytes == 8)
     return launch(Pred<long long>{static_cast<const long long*>(pred_pos),
                                   static_cast<const long long*>(pred_to_run),
                                   static_cast<const long long*>(samples_last), pred_off,
                                   off_bytes, n_off, shift, iters, R, n},
-                  k, size, off, order, out, B, threads, stream);
+                  k, size, off, out, B, threads, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -305,7 +394,7 @@ int rbt_phi_walk_pred(const void* pred_pos, const void* pred_to_run, const void*
 int rbt_phi_walk_phi_at(const void* pred_pos, int pp_bytes, const void* phi_at, int at_bytes,
                         long long M, const void* pp_off, int off_bytes, long long n_off,
                         int shift, int iters, long long n, const void* k, const void* size,
-                        const void* off, const void* order, void* out, int B, int threads,
+                        const void* off, void* out, int B, int threads,
                         void* stream) {
   auto width = [](int bytes) { return bytes == 4 || bytes == 8; };
   if (n < 1 || M < 1 || n_off < 2 || shift < 0 || shift > 62 || iters < 0 || iters > 64 ||
@@ -314,7 +403,30 @@ int rbt_phi_walk_phi_at(const void* pred_pos, int pp_bytes, const void* phi_at, 
     return (int)cudaErrorInvalidValue;
   return launch(PhiAt{pred_pos, phi_at, pp_off, pp_bytes, at_bytes, off_bytes, M, n_off, shift,
                       iters, n},
-                k, size, off, order, out, B, threads, stream);
+                k, size, off, out, B, threads, stream);
+}
+
+// The walk where kval (kval_bytes 4 or 8 a value, n entries) is the full SA
+// and each lane's toehold is kval[hi[b]]: out[off[b] + j] = kval[hi[b] - j]
+// for j < size[b], hi, size and off int64 [B]; every hi[b] - size[b] + 1
+// must be at least 0.
+int rbt_phi_walk_kval(const void* kval, int kval_bytes, long long n, const void* hi,
+                      const void* size, const void* off, void* out, int B, int threads,
+                      void* stream) {
+  if (n < 1 || kval == nullptr) return (int)cudaErrorInvalidValue;
+  if (kval_bytes == 4)
+    return launch_kval(static_cast<const int32_t*>(kval), hi, size, off, out, B, threads, stream);
+  if (kval_bytes == 8)
+    return launch_kval(static_cast<const int64_t*>(kval), hi, size, off, out, B, threads, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The empty kernel in the grid of a walk of B lanes at `threads` a block.
+int rbt_phi_walk_empty(int B, int threads, void* stream) {
+  if (B < 1 || threads < 32 || threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  empty_kernel<<<(unsigned)((B + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 const char* rbt_phi_walk_error_string(int code) {

@@ -8,8 +8,9 @@ is one kval gather of the final range.  locate() is the phi walk
 max_hits, toehold first then the phi chain; locate_ragged walks each lane
 to its own range size, so one huge range does not widen every lane.  Both
 are one ops/cuda_phi.phi_walk: the walk kernel on a CUDA device over phi1,
-a BigIndex's phi rows or the predecessor search over the run-start samples,
-the torch walk over a BigIndex's breakpoint table phi_at.
+a BigIndex's phi rows or breakpoint table phi_at, or the predecessor search
+over the run-start samples; locate_ragged on an index whose kval is the
+full SA reads kval[hi - j] with no chain (the kval kernel).
 find_ranges_w_toehold_chkpnts records the search state every wsize chars,
 and find_locs is the whole-read search plus the phi walk.
 
@@ -154,9 +155,13 @@ def locate_ragged(tx: TorchIndex, lo, hi, k, max_hits: int | None = None):
 
     Lane b's size is its range size, capped at max_hits; the offsets are the
     sizes' running sum, and one ops/cuda_phi.phi_walk fills every lane's
-    segment on tx.device.  Returns (flat [total] int64 positions, offsets
-    [B+1]) as numpy arrays: lane b's occurrences, toehold first then the phi
-    chain, are flat[offsets[b]:offsets[b+1]]."""
+    segment on tx.device.  k is each range's toehold (find_ranges_w_toehold's):
+    on an index with kval that is kval[hi] (the invariant k == SA[hi]), so
+    the walk is handed hi and, where kval is the full SA, reads kval[hi - j]
+    with no chain (cuda_phi's kval route); elsewhere it walks the chain from
+    k.  Returns (flat [total] int64
+    positions, offsets [B+1]) as numpy arrays: lane b's occurrences, toehold
+    first then the phi chain, are flat[offsets[b]:offsets[b+1]]."""
     B = lo.shape[0]
     size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
     if max_hits is not None:
@@ -165,7 +170,7 @@ def locate_ragged(tx: TorchIndex, lo, hi, k, max_hits: int | None = None):
     offsets[1:] = torch.cumsum(size, 0)
     flat = torch.empty(int(offsets[-1]), dtype=torch.int64, device=lo.device)
     if flat.numel():
-        cuda_phi.phi_walk(tx, k, size, offsets[:-1], flat)
+        cuda_phi.phi_walk(tx, k, size, offsets[:-1], flat, hi)
     return flat.cpu().numpy(), offsets.cpu().numpy()
 
 

@@ -121,10 +121,9 @@ def build():
     rbt_lf_count (K1), rbt_lf_count_fb2 (K1 over the two-level rows, with
     the step record when its hi_rec is not null), rbt_lf_toehold (K1 with
     the per-step toehold), rbt_lf_tables (the search over the rank tables of
-    an index without fused rows, count or toehold) and
-    rbt_lf_count_transposed (the earlier design, which only chip_smoke.py
-    launches, to time it beside K1) and rbt_lane_threads (the tables steps'
-    threads a lane, which chip_smoke.py holds to lane_threads)."""
+    an index without fused rows, count or toehold) and rbt_lane_threads
+    (the tables steps' threads a lane, which chip_smoke.py holds to
+    lane_threads)."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
@@ -133,8 +132,6 @@ def build():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rbt_lf_count.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, ci, ci, vp, vp,
                                  ci, ci, vp]
-    lib.rbt_lf_count_transposed.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, vp,
-                                            vp]
     lib.rbt_lf_count_fb2.argtypes = [vp, ci, vp, vp, ctypes.c_uint, ci, ci, ctypes.c_longlong,
                                       vp, vp, ci, ci, vp, vp, vp, ci, ci, vp]
     ll = ctypes.c_longlong
@@ -143,7 +140,7 @@ def build():
     lib.rbt_lf_tables.argtypes = [ci, vp, ci, vp, ci, vp, ci, vp, ci, ll, ci, ci, vp, vp, ll,
                                   ci, vp, ci, ci, ll, vp, vp, ci, ci, vp, ci, ci, ci, vp, ci, vp,
                                   ci, vp, ci, vp, vp, vp, ci, ci, vp]
-    lib.rbt_lf_count.restype = lib.rbt_lf_count_transposed.restype = ci
+    lib.rbt_lf_count.restype = ci
     lib.rbt_lf_count_fb2.restype = lib.rbt_lf_toehold.restype = lib.rbt_lf_tables.restype = ci
     lib.rbt_cuda_error_string.argtypes = [ci]
     lib.rbt_cuda_error_string.restype = ctypes.c_char_p

@@ -1,29 +1,27 @@
 """The tables kernel, K1's toehold launch and the seeding machines of
-csrc/lf.cu and csrc/seeds.cu, and the predecessor walk of csrc/phi_walk.cu,
-timed beside earlier designs of them, in turns on the same batches, on one
-NVIDIA GPU.
+csrc/lf.cu and csrc/seeds.cu, and the walks of csrc/phi_walk.cu, timed
+beside earlier designs of them, in turns on the same batches, on one NVIDIA
+GPU.
 
     python -m rowbowt_tpu_torch.tools.seed_turns \\
-        --design parent=DIR [--design NAME=DIR ...] [PHASE ...]
+        --design parent=DIR [--design NAME=DIR ...] [--time-only NAME=DIR ...] \\
+        [PHASE ...]
 
 Each DIR holds another commit's kernel sources, as `git archive <commit>
-rowbowt_tpu_torch/csrc | tar -x -C DIR` writes them; where its C entries
-rbt_seed_machine and rbt_seed_machine_tables take a lane counter before
-`threads` (a persistent-grid design), each launch gets one, zeroed on the
-stream; where its rbt_lf_toehold, rbt_seed_machine or rbt_phi_walk_pred
-takes no bucket directory (the designs before the toehold's resolve and the
-predecessor walk searched one), the checkout's directory arguments are left
-out of its calls (DIRECTORY_ARGS); where its rbt_lf_count_fb2 takes no
-superblock multiplier (the designs over nibble rows), its two-level calls
-get the nibble rows of the same table (engine/device.nibbles_of_planes of
-the checkout's bit planes, made once a table) and per_blk in place of the
-multiplier and shift (NIBBLE_ARGS), so that each design reads its own rows.
-A candidate design is timed as a DIR of its own: a copy of the checkout's
-csrc with the candidate in place.  A design's threads a lane over each
-tables policy come from its lf.cu's rbt_lane_threads (two over the
-run-space tables and one over the others where it has none), and each of
-its tables launches gets its own launch plan at those
-(cuda_lf.launch_plan), so that it runs as its own wrapper ran it.  The
+rowbowt_tpu_torch/csrc | tar -x -C DIR` writes them, of a commit whose C
+entries take the checkout's arguments (the bit-plane rows and bucket
+directories, and rbt_lane_threads, are every compared design's); where its
+chain walk's entries take the lanes' order (the designs before the chain
+took lane t on thread t), each such launch gets the lanes in descending
+size order, as its wrapper sorted them.  A design without the kval walk
+walks its chain over phi1 on that route.  A candidate design is timed as a
+DIR of its own: a copy of the checkout's csrc with the candidate in place;
+a fork that leaves a part of a kernel out, to measure what that part
+costs, is a --time-only design: timed like the others, its outputs not
+held to the checkout's.  A design's threads a lane over each tables policy
+come from its lf.cu's rbt_lane_threads, and each of its tables launches
+gets its own launch plan at those (cuda_lf.launch_plan), so that it runs
+as its own wrapper ran it.  The
 tool builds each design's lf.cu,
 seeds.cu and phi_walk.cu with nvcc for sm_90a (_native.NVCC_FLAGS) into
 libraries of their own beside the checkout's, prints each design's nvcc
@@ -32,8 +30,11 @@ the checkout's machine code (`sass`, by cuobjdump; `params_only`: the same
 but for the offsets of their parameters), then runs chip_smoke.py's PHASEs
 (by default k1, greedy, lmem, locs, nodense_chr, raw_chr, big_chr and
 build_small: every path whose tables kernel or machine chip_smoke.py times)
-with its tables_times, seeds_times, walk_times (the pred route),
-toehold_work (K1's toehold launch, on the batch toehold_times times),
+with its tables_times, seeds_times, walk_times (every route: each design
+as its wrapper launches it, the kval kernel where a design has it and the
+route is kval, and beside them the checkout's chain over phi1 on the kval
+route and the empty kernel in the walk's grid), toehold_work (K1's toehold launch, on the batch
+toehold_times times, beside K1's count instance on the same batch),
 record_times and held_record (K1 and its record launch over big_chr's and
 pfp_big's two-level rows) wrapped: each batch they time is also launched
 through cuda_lf.launch_tables, cuda_seeds.launch_machine,
@@ -72,97 +73,44 @@ DEFAULT_PHASES = ("k1", "greedy", "lmem", "locs", "nodense_chr", "raw_chr", "big
                   "build_small")
 PASSES = 10  # launches a turn, after a warm-up launch
 ENTRIES = {"seeds": ("rbt_seed_machine", "rbt_seed_machine_tables"),
-           "lf": ("rbt_lf_tables", "rbt_lf_toehold", "rbt_lf_count_fb2"),
-           "phi_walk": ("rbt_phi_walk_pred",)}
-# the argument positions of rbt_lf_count_fb2's B and L: a design without
-# lf.cu's LfBounds planned its int64 lanes as the int32 ones (512 threads)
-FB2_ARGS = (10, 11)
-# the positions, in the checkout's arguments of a two-level entry, of the
-# rows, the superblock multiplier and its shift, and of the lane width
-# (None: always two-level), for a design that takes nibble rows and per_blk
-NIBBLE_ARGS = {"rbt_lf_count_fb2": (0, 4, None), "rbt_seed_machine": (1, 5, 9)}
-# the checkout's arguments of a C entry that designs before the bucket
-# directories of the toehold's resolve and the predecessor walk do not take:
-# (their positions, a name that the entry's signature holds where it takes
-# them)
-DIRECTORY_ARGS = {"rbt_lf_toehold": (range(15, 20), "rs_off"),
-                  "rbt_seed_machine": (range(39, 44), "rs_off"),
-                  "rbt_phi_walk_pred": (range(5, 10), "pred_off")}
+           "lf": ("rbt_lf_tables", "rbt_lf_toehold", "rbt_lf_count_fb2", "rbt_lf_count"),
+           "phi_walk": ("rbt_phi_walk_pred", "rbt_phi_walk_phi1", "rbt_phi_walk_rows",
+                        "rbt_phi_walk_kval")}
+# the chain walk's C entries: a design before the chain took lane t on
+# thread t also takes the lanes' order, before `out` (Design)
+WALK_CHAINS = ("rbt_phi_walk_pred", "rbt_phi_walk_phi1", "rbt_phi_walk_rows")
 # the argument positions of a tables entry: (its policy, B, L); threads and
 # stage are the third and second from the end
 TABLE_ARGS = {"rbt_lf_tables": (0, 22, 23), "rbt_seed_machine_tables": (1, 22, 23)}
 POLICIES = {0: "runs", 1: "dense", 2: "occ1"}  # csrc/lf_tables.cuh enum Policy
 
 
-def design_groups(lf) -> dict:
-    """{policy: threads a lane} of a design's tables steps: its lf.cu
-    library's rbt_lane_threads, or where it has none (the designs before
-    it) two over the run-space tables and one over the dense and occ1
-    tables."""
-    try:
-        entry = lf.rbt_lane_threads
-    except AttributeError:
-        return {"runs": 2, "dense": 1, "occ1": 1}
-    entry.argtypes, entry.restype = [ctypes.c_int], ctypes.c_int
-    return {name: entry(code) for code, name in POLICIES.items()}
-
-
-def takes_directory(src: str, entry: str) -> bool:
-    """Whether the C entry `entry` of a design's source text takes the
-    bucket directory of DIRECTORY_ARGS (its signature holds the name)."""
-    sig = src[src.index(f"int {entry}("):]
-    return DIRECTORY_ARGS[entry][1] in sig[:sig.index("{")]
-
-
-# {data_ptr of a table's bit planes: its nibble rows on the device}, for the
-# designs over nibble rows (register_nibbles)
-NIBBLES = {}
-
-
-def register_nibbles(tx) -> None:
-    """Make the nibble rows of tx's two-level bit planes (once a table) for
-    the designs that read nibble rows."""
-    from rowbowt_tpu_torch.engine.device import PLANE_KEYS, PLANE_SYMS, nibbles_of_planes
-    from rowbowt_tpu_torch.ops import cuda_lf
-
-    key = cuda_lf.row_layout(tx)
-    if key in PLANE_KEYS:
-        planes = tx.arrays[PLANE_KEYS[key]]
-        if planes.data_ptr() not in NIBBLES:
-            NIBBLES[planes.data_ptr()] = nibbles_of_planes(planes, PLANE_SYMS[key], tx.n)
-
-
-def per_blk_of(mul: int, shift: int) -> int:
-    """The per_blk whose ops/rank.superblock_magic is (mul, shift)."""
-    return -(-(1 << shift) // mul)
-
-
 class Design:
     """A design's libraries as the `lib` of launch_machine, launch_tables,
-    launch_toehold and launch_walk: its C entries take the checkout's
-    arguments, less those of `drop` ({entry: positions}); a tables launch
-    gets the design's own threads a lane (design_groups) and its launch
-    plan at them; where `counter`, a seeding launch also gets a lane
-    counter before `threads`, a device int32 zeroed on the current stream
-    inside the timed call, as the wrapper of that design zeroed it."""
+    launch_toehold, launch_k1 and launch_walk: its C entries take the
+    checkout's arguments; a tables launch gets the design's own threads a
+    lane (its rbt_lane_threads) and its launch plan at them; where
+    `ordered` (a walk whose entries take the lanes' order: before the chain
+    took lane t on thread t), a chain walk's launch also gets `order`, the
+    lanes in descending size order (int64 [B], set by walk_turns), before
+    `out`, as that design's wrapper sorted them."""
 
-    def __init__(self, paths: dict, current: dict, counter: bool, sms: int, drop: dict,
-                 lf_bounds: bool, nibbles: bool):
+    def __init__(self, paths: dict, current: dict, sms: int, ordered: bool):
         self.libs = {stem: ctypes.CDLL(path) for stem, path in paths.items()}
-        self.counter, self.sms, self.drop, self.lf_bounds = counter, sms, drop, lf_bounds
-        self.nibbles = nibbles
-        self.groups = design_groups(self.libs["lf"])
+        self.sms, self.ordered, self.order = sms, ordered, None
+        threads = self.libs["lf"].rbt_lane_threads
+        threads.argtypes, threads.restype = [ctypes.c_int], ctypes.c_int
+        self.groups = {name: threads(code) for code, name in POLICIES.items()}
+        self.lacks = set()  # entries of ENTRIES that the design has not (the kval walk before it)
         for stem, entries in ENTRIES.items():
             lib = self.libs[stem]
             for entry in entries:
-                types = [t for i, t in enumerate(getattr(current[stem], entry).argtypes)
-                         if i not in drop.get(entry, ())]
-                if nibbles and entry in NIBBLE_ARGS:
-                    # per_blk, an int, in place of the multiplier and shift
-                    at = NIBBLE_ARGS[entry][1]
-                    types[at:at + 2] = [ctypes.c_int]
-                if counter and stem == "seeds":
-                    types.insert(len(types) - 3, ctypes.c_void_p)
+                if not hasattr(lib, entry):
+                    self.lacks.add(entry)
+                    continue
+                types = list(getattr(current[stem], entry).argtypes)
+                if ordered and entry in WALK_CHAINS:
+                    types.insert(len(types) - 4, ctypes.c_void_p)
                 getattr(lib, entry).argtypes = types
                 getattr(lib, entry).restype = ctypes.c_int
             error = "rbt_phi_walk_error_string" if stem == "phi_walk" else "rbt_cuda_error_string"
@@ -170,36 +118,20 @@ class Design:
             getattr(lib, error).restype = ctypes.c_char_p
 
     def _plan(self, entry, args):
-        """args with the design's own (threads, stage) for a tables entry,
-        and for K1 over two-level rows where the design has no LfBounds."""
+        """args with the design's own (threads, stage) for a tables entry."""
         from rowbowt_tpu_torch.ops import cuda_lf
 
-        if entry == "rbt_lf_count_fb2" and not self.lf_bounds:
-            threads, staged = cuda_lf.launch_plan(*(args[i] for i in FB2_ARGS), self.sms)
-        elif entry in TABLE_ARGS:
-            pos, b, l = TABLE_ARGS[entry]
-            threads, staged = cuda_lf.launch_plan(args[b], args[l], self.sms,
-                                                  group=self.groups[POLICIES[args[pos]]])
-        else:
+        if entry not in TABLE_ARGS:
             return args
+        pos, b, l = TABLE_ARGS[entry]
+        threads, staged = cuda_lf.launch_plan(args[b], args[l], self.sms,
+                                              group=self.groups[POLICIES[args[pos]]])
         return (*args[:-3], threads, int(staged), args[-1])
 
     def _call(self, stem, entry, args):
         args = self._plan(entry, args)
-        args = tuple(a for i, a in enumerate(args) if i not in self.drop.get(entry, ()))
-        if self.nibbles and entry in NIBBLE_ARGS:
-            fb, at, width = NIBBLE_ARGS[entry]
-            two_level = width is None or args[width] == 8
-            args = list(args)
-            if two_level:
-                args[fb] = NIBBLES[args[fb]].data_ptr()
-            args[at:at + 2] = [per_blk_of(*args[at:at + 2]) if two_level else 0]
-            args = tuple(args)
-        if self.counter and stem == "seeds":
-            import torch
-
-            self._next = torch.zeros(1, dtype=torch.int32, device="cuda")
-            args = (*args[:-3], self._next.data_ptr(), *args[-3:])
+        if self.ordered and entry in WALK_CHAINS:
+            args = (*args[:-4], self.order.data_ptr(), *args[-4:])
         return getattr(self.libs[stem], entry)(*args)
 
     def rbt_seed_machine(self, *args):
@@ -217,8 +149,20 @@ class Design:
     def rbt_lf_count_fb2(self, *args):
         return self._call("lf", "rbt_lf_count_fb2", args)
 
+    def rbt_lf_count(self, *args):
+        return self._call("lf", "rbt_lf_count", args)
+
     def rbt_phi_walk_pred(self, *args):
         return self._call("phi_walk", "rbt_phi_walk_pred", args)
+
+    def rbt_phi_walk_phi1(self, *args):
+        return self._call("phi_walk", "rbt_phi_walk_phi1", args)
+
+    def rbt_phi_walk_rows(self, *args):
+        return self._call("phi_walk", "rbt_phi_walk_rows", args)
+
+    def rbt_phi_walk_kval(self, *args):
+        return self._call("phi_walk", "rbt_phi_walk_kval", args)
 
     def rbt_cuda_error_string(self, code):
         return self.libs["seeds"].rbt_cuda_error_string(code)
@@ -315,33 +259,37 @@ def build_designs(smoke, designs: dict) -> dict:
         "checkout": {stem: smoke.ptxas_instances(logs[stem]) for stem in ENTRIES}}}), flush=True)
     print(json.dumps({"sass": {name: {stem: same_sass(built[name, stem][0], paths[stem])
                                       for stem in ENTRIES} for name in designs}}), flush=True)
-    # the step loop of each design's two-level search (the int64 instances
-    # of lf_count_kernel before the bit planes, lf_count2_kernel after)
+    # the step loops of each design's K1: the single-level lf_count_kernel
+    # (count and toehold) and the two-level lf_count2_kernel
     libs_lf = {**{name: built[name, "lf"][0] for name in designs}, "checkout": paths["lf"]}
-    STEP_LOOPS.update({name: {**smoke.loop_instructions(path, "lf_count_kernelIl"),
+    STEP_LOOPS.update({name: {**smoke.loop_instructions(path, "lf_count_kernel"),
                               **smoke.loop_instructions(path, "lf_count2_kernel")}
                        for name, path in libs_lf.items()})
     print(json.dumps({"step_loops": STEP_LOOPS}), flush=True)
     sms = cuda_gather._sm_count(torch.cuda.current_device())
     out = {}
     for name in designs:
-        src = {}
-        for stem in ENTRIES:
-            with open(os.path.join(csrc[name], f"{stem}.cu")) as f:
-                src[stem] = f.read()
-        counter = "void* next" in src["seeds"]
-        drop = {entry: DIRECTORY_ARGS[entry][0] for stem, entries in ENTRIES.items()
-                for entry in entries
-                if entry in DIRECTORY_ARGS and not takes_directory(src[stem], entry)}
-        out[name] = Design({stem: built[name, stem][0] for stem in ENTRIES}, current, counter,
-                           sms, drop, "LfBounds" in src["lf"], "blk_mul" not in src["lf"])
-    print(json.dumps({"design_directories": {name: sorted(d.drop) for name, d in out.items()}}),
-          flush=True)
+        with open(os.path.join(csrc[name], "phi_walk.cu")) as f:
+            ordered = "const void* order" in f.read()
+        out[name] = Design({stem: built[name, stem][0] for stem in ENTRIES}, current, sms,
+                           ordered)
     return out
 
 
 # {design: {instance: its step loop's instructions}} (build_designs)
 STEP_LOOPS = {}
+
+
+# designs timed but not held to the checkout's outputs (--time-only: forks
+# that measure a part of a kernel by leaving it out)
+TIME_ONLY = set()
+
+
+def held(smoke, design: str, err: int, what: str) -> None:
+    """A design's outputs equal the checkout's (err 0), unless it is timed
+    only."""
+    if design not in TIME_ONLY:
+        smoke.check(err == 0, what)
 
 
 def in_turns(smoke, libs: dict, launch) -> dict:
@@ -363,7 +311,6 @@ def seed_turns(smoke, libs: dict, tx, runs: dict) -> None:
 
     from rowbowt_tpu_torch.ops import cuda_lf, cuda_seeds
 
-    register_nibbles(tx)
     for name, (q, ln, cfg) in runs.items():
         mode = name.split("_")[0]
 
@@ -376,7 +323,7 @@ def seed_turns(smoke, libs: dict, tx, runs: dict) -> None:
             got = launch(lib)
             torch.cuda.synchronize()
             errs[d] = smoke.records_err(got, want)
-            smoke.check(errs[d] == 0, f"design {d} != the checkout's kernel on {name}")
+            held(smoke, d, errs[d], f"design {d} != the checkout's kernel on {name}")
         key = cuda_lf.row_layout(tx) or cuda_lf.table_policy(tx)
         print(json.dumps({"seed_turns": {
             "batch": name, "route": smoke.seed_route(tx, mode, cfg), "tables": key,
@@ -404,66 +351,101 @@ def table_turns(smoke, libs: dict, tx, batches: list, toehold: bool) -> None:
         got = launch(lib)
         torch.cuda.synchronize()
         errs[d] = smoke.max_abs_err(got, want)
-        smoke.check(errs[d] == 0, f"design {d} != the checkout's tables kernel")
+        held(smoke, d, errs[d], f"design {d} != the checkout's tables kernel")
     print(json.dumps({"table_turns": {
         "policy": cuda_lf.table_policy(tx), "toehold": toehold, "lanes": q.shape[0],
         "L": q.shape[1], "step_tables": smoke.step_tables(tx, cuda_lf.table_policy(tx)),
         **in_turns(smoke, libs, launch), "max_abs_err": errs}}), flush=True)
 
 
-def walk_turns(smoke, libs: dict, tx, ranges: list) -> None:
-    """The walk kernel over tx's predecessor route on the first batch of
-    `ranges` ([(lo, hi, k)], as chip_smoke.walk_times takes them, the lanes
-    in its order) on every design and the checkout's, in turns; prints one
-    walk_turns line."""
+# pseudo-designs of walk_turns: the checkout's chain where the checkout
+# walks kval, and the empty kernel in the walk's grid (the method's floor)
+CHAIN, EMPTY = "checkout_chain", "empty_kernel"
+
+
+def walk_turns(smoke, libs: dict, tx, ranges: list, route: str) -> None:
+    """The walk of rbt_align -s over tx (`route`, as chip_smoke.walk_times
+    takes it) on the first batch of `ranges` ([(lo, hi, k)]) on every
+    design and the checkout's, in turns, each as its wrapper launches it: a
+    design with the kval kernel gets each lane's hi where the route is
+    kval, one whose chain takes the lanes' order gets them in descending
+    size order (Design); beside them, on the kval route, the checkout's
+    chain over phi1 (CHAIN), and the empty kernel in the walk's grid
+    (EMPTY); prints one walk_turns line."""
     import torch
 
-    from rowbowt_tpu_torch.ops import cuda_phi
+    from rowbowt_tpu_torch.ops import cuda_gather, cuda_phi
 
     lo, hi, k = ranges[0]
     size = torch.clamp(hi - lo + 1, min=0).to(torch.int64)
     k, off = k.to(torch.int64), torch.cumsum(size, 0) - size
-    order = torch.argsort(size, descending=True)
+    hi = hi.to(torch.int64) if route == "kval" else None
     out = torch.empty(int(size.sum()), dtype=torch.int64, device=k.device)
+    dev = k.device.index if k.device.index is not None else torch.cuda.current_device()
+    threads = cuda_phi.launch_plan(k.numel(), cuda_gather._sm_count(dev))
+    order = torch.argsort(size, descending=True)
+    for lib in libs.values():
+        lib.order = order
 
     def launch(lib):
-        return cuda_phi.launch_walk(tx, k, size, off, out, order, lib=lib)
+        if lib is None:
+            return cuda_phi.launch_walk(tx, k, size, off, out, hi)
+        if lib == CHAIN:
+            return cuda_phi.launch_walk(tx, k, size, off, out)
+        if lib == EMPTY:
+            return cuda_phi.build().rbt_phi_walk_empty(k.numel(), threads,
+                                                       cuda_gather._raw_stream(dev))
+        h = hi if "rbt_phi_walk_kval" not in lib.lacks else None
+        return cuda_phi.launch_walk(tx, k, size, off, out, h, lib=lib)
 
     want = launch(None).clone()
+    extra = {**({CHAIN: CHAIN} if route == "kval" else {}), EMPTY: EMPTY}
     errs = {}
-    for d, lib in libs.items():
+    for d, lib in {**libs, **extra}.items():
+        if lib == EMPTY:
+            continue
         got = launch(lib)
         torch.cuda.synchronize()
         errs[d] = smoke.max_abs_err([got], [want])
-        smoke.check(errs[d] == 0, f"design {d} != the checkout's walk kernel")
+        held(smoke, d, errs[d], f"design {d} != the checkout's walk kernel")
     print(json.dumps({"walk_turns": {
-        "route": cuda_phi.walk_route(tx), "pred_bs": list(tx.pred_bs), "lanes": k.numel(),
-        "hits": out.numel(), **in_turns(smoke, libs, launch), "max_abs_err": errs}}),
-        flush=True)
+        "route": route, "lanes": k.numel(), "hits": out.numel(),
+        "longest": int(size.max()) if size.numel() else 0,
+        **({"pred_bs": list(tx.pred_bs)} if route == "pred" else {}),
+        **in_turns(smoke, {**libs, **extra}, launch), "max_abs_err": errs}}), flush=True)
 
 
 def toehold_turns(smoke, libs: dict, tx, q, ln) -> None:
     """K1's toehold launch over tx on the batch (q, ln) on every design and
-    the checkout's, in turns; prints one toehold_turns line."""
+    the checkout's, in turns, and K1's count instance on the same batch
+    from the full range (no ftab start) the same way; each design's toehold
+    time over its count time (`over_count`) and the step loops of both
+    instances (chip_smoke.k1_loop); prints one toehold_turns line."""
     import torch
 
     from rowbowt_tpu_torch.ops import cuda_lf
 
     ln = ln.to(torch.int32)
-
-    def launch(lib):
-        return cuda_lf.launch_toehold(tx, q, ln, lib=lib)
-
-    want = launch(None)
-    errs = {}
-    for d, lib in libs.items():
-        got = launch(lib)
-        torch.cuda.synchronize()
-        errs[d] = smoke.max_abs_err(got, want)
-        smoke.check(errs[d] == 0, f"design {d} != the checkout's toehold launch")
-    print(json.dumps({"toehold_turns": {
-        "route": cuda_lf.toehold_route(tx), "rs_bs": list(tx.rs_bs), "lanes": q.shape[0],
-        "L": q.shape[1], **in_turns(smoke, libs, launch), "max_abs_err": errs}}), flush=True)
+    out = {"route": cuda_lf.toehold_route(tx), "rs_bs": list(tx.rs_bs), "lanes": q.shape[0],
+           "L": q.shape[1]}
+    for name, launch in (
+            ("toehold", lambda lib: cuda_lf.launch_toehold(tx, q, ln, lib=lib)),
+            ("count", lambda lib: cuda_lf.launch_k1(tx, q, ln, use_ftab=False, lib=lib))):
+        want = launch(None)
+        errs = {}
+        for d, lib in libs.items():
+            got = launch(lib)
+            torch.cuda.synchronize()
+            errs[d] = smoke.max_abs_err(got, want)
+            held(smoke, d, errs[d], f"design {d} != the checkout's {name} launch")
+        out[name] = dict(in_turns(smoke, libs, launch), max_abs_err=errs)
+    out["over_count"] = {d: us / out["count"]["device_us"][d]
+                         for d, us in out["toehold"]["device_us"].items()}
+    syms = cuda_lf._SYMS_PER_ROW[cuda_lf.row_layout(tx)]
+    out["step_loops"] = {d: {name: smoke.k1_loop(syms, toe, STEP_LOOPS.get(d, {}))
+                             for name, toe in (("count", False), ("toehold", True))}
+                         for d in ["checkout", *libs]}
+    print(json.dumps({"toehold_turns": out}), flush=True)
 
 
 def k1_turns(smoke, libs: dict, tx, q, ln) -> None:
@@ -475,7 +457,6 @@ def k1_turns(smoke, libs: dict, tx, q, ln) -> None:
     from rowbowt_tpu_torch.ops import cuda_lf
 
     ln = ln.to(torch.int32)
-    register_nibbles(tx)
     key = cuda_lf.row_layout(tx)
     out = {"layout": key, "n": tx.n, "lanes": q.shape[0], "L": q.shape[1]}
     # the issue bound of each design: its two threads' step loop a ranked
@@ -497,7 +478,7 @@ def k1_turns(smoke, libs: dict, tx, q, ln) -> None:
             got = launch(lib)
             torch.cuda.synchronize()
             errs[d] = smoke.max_abs_err(got, want)
-            smoke.check(errs[d] == 0, f"design {d} != the checkout's K1 ({name})")
+            held(smoke, d, errs[d], f"design {d} != the checkout's K1 ({name})")
         out[name] = dict(in_turns(smoke, libs, launch), max_abs_err=errs)
     print(json.dumps({"k1_turns": out}), flush=True)
 
@@ -572,11 +553,16 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--design", action="append", default=[], metavar="NAME=DIR",
                     help="an earlier design's kernel sources (repeatable, timed in this order)")
+    ap.add_argument("--time-only", action="append", default=[], metavar="NAME=DIR",
+                    help="a design timed beside the others whose outputs are not held to the "
+                         "checkout's (a fork that leaves a part of a kernel out; repeatable)")
     ap.add_argument("phases", nargs="*", default=list(DEFAULT_PHASES))
     args = ap.parse_args(argv)
-    designs = dict(d.split("=", 1) for d in args.design)
-    if not designs or "checkout" in designs:
-        ap.error("at least one --design NAME=DIR, none named checkout")
+    named = args.design + args.time_only
+    designs = dict(d.split("=", 1) for d in named)
+    TIME_ONLY.update(d.split("=", 1)[0] for d in args.time_only)
+    if not args.design or "checkout" in designs or len(designs) < len(named):
+        ap.error("at least one --design NAME=DIR, names distinct, none named checkout")
     sys.path.insert(0, os.getcwd())
     import chip_smoke as smoke
     import torch
@@ -611,8 +597,7 @@ def main(argv: list[str]) -> int:
 
     def walk_times(device, tx, ranges, route, step_us, step_us_old=None):
         out = real_walk(device, tx, ranges, route, step_us, step_us_old)
-        if route == "pred":
-            walk_turns(smoke, libs, tx, ranges)
+        walk_turns(smoke, libs, tx, ranges, route)
         return out
 
     def toehold_work(tx, q, ln):

@@ -9,7 +9,12 @@ wrapper: its route choice and launch counts, its refusals, and its launch
 path with the C entries replaced by a numpy model of the kernel (a refused
 launch raises and counts nothing); over the breakpoint table (phi_at, a
 BigIndex with its phi rows withheld) the model's walk equals the JAX
-package's locate.  Every output is an integer, so every check is exact."""
+package's locate.  The kval route (an index whose kval is the full SA, the
+caller's hi handed): its plain twin and a numpy model of its kernel through
+locate_ragged == the JAX package's locate_ragged on the dense pairs, capped
+and uncapped; the route is taken only where hi is handed and kval is the
+full SA, and the chain is kept for arbitrary toeholds (locate).  Every
+output is an integer, so every check is exact."""
 
 import ctypes
 from types import SimpleNamespace
@@ -100,21 +105,21 @@ def test_twin_matches_jax_big(phi_case):
 # the wrapper
 
 def _walk_model(tx, lib_calls, rc):
-    """A numpy model of the kernel behind fake C entries: each entry reads
-    its operands from the addresses the wrapper passes, checks that `order`
-    is a permutation of the lanes in descending size order, walks every lane
-    as csrc/phi_walk.cu does and writes out; returns rc."""
+    """A numpy model of the kernels behind fake C entries: each entry reads
+    its operands from the addresses the wrapper passes, walks every lane as
+    csrc/phi_walk.cu does (lane t on thread t) and writes out; the kval
+    entry runs each warp's 32 lanes as one run of positions, each
+    position's lane found by the binary search of the running sums that
+    kval_walk_kernel makes; returns rc."""
     def ints(ptr, count, dtype):
         ct = ctypes.c_int64 if dtype == np.int64 else ctypes.c_int32
         return np.ctypeslib.as_array((ct * count).from_address(ptr)) if count else \
             np.zeros(0, dtype)
 
-    def walk(step, n, k, size, off, order, out, B, threads):
-        k, size, off, order = (ints(p, B, np.int64) for p in (k, size, off, order))
-        assert np.array_equal(np.sort(order), np.arange(B))
-        assert (np.diff(size[order]) <= 0).all()
+    def walk(step, n, k, size, off, out, B, threads):
+        k, size, off = (ints(p, B, np.int64) for p in (k, size, off))
         flat = ints(out, int((off + size).max(initial=0)), np.int64)
-        for b in order.tolist():
+        for b in range(B):
             i = int(k[b])
             for j in range(int(size[b])):
                 if j:
@@ -163,8 +168,28 @@ def _walk_model(tx, lib_calls, rc):
 
         return walk(step, n, *lanes[:-1])
 
+    def kval(tab, nbytes, n, hi, size, off, out, B, threads, stream):
+        lib_calls.append(("kval", nbytes, n, (B, threads)))
+        t = ints(tab, n, np.int32 if nbytes == 4 else np.int64)
+        hi, size, off = (ints(p, B, np.int64) for p in (hi, size, off))
+        flat = ints(out, int((off + size).max(initial=0)), np.int64)
+        for w0 in range(0, B, 32):  # a warp: its 32 lanes, those past B of size 0
+            s = np.zeros(32, np.int64)
+            s[:min(32, B - w0)] = np.maximum(size[w0:w0 + 32], 0)
+            end = np.cumsum(s)
+            lanes = np.zeros(32, np.int64)
+            lanes[:min(32, B - w0)] = np.arange(w0, min(w0 + 32, B))
+            for v in range(int(end[-1])):
+                lane = 0
+                for step in (16, 8, 4, 2, 1):
+                    lane += step if end[lane + step - 1] <= v else 0
+                b, j = lanes[lane], v - int(end[lane] - s[lane])
+                assert 0 <= j < s[lane]
+                flat[off[b] + j] = t[hi[b] - j]
+        return rc
+
     return SimpleNamespace(rbt_phi_walk_phi1=phi1, rbt_phi_walk_rows=rows,
-                           rbt_phi_walk_phi_at=phi_at,
+                           rbt_phi_walk_phi_at=phi_at, rbt_phi_walk_kval=kval,
                            rbt_phi_walk_error_string=lambda code: b"invalid argument")
 
 
@@ -182,6 +207,7 @@ def fake_lib(monkeypatch):
     monkeypatch.setattr(cuda_phi, "_sm_count", lambda dev: 2)
     monkeypatch.setattr(cuda_phi.torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(cuda_phi, "LAUNCHES", 0)
+    monkeypatch.setattr(cuda_phi, "LAUNCHES_KVAL", 0)
     rec["install"] = install
     return rec
 
@@ -242,8 +268,8 @@ def test_phi_at_model_matches_jax(phi_case, fake_lib):
     got = TL.find_ranges_w_toehold(tx, q, ln)
     fake_lib["install"](tx)
     real = cuda_phi.phi_walk
-    cuda_phi.phi_walk = lambda tx_, k, size, off, out: cuda_phi.launch_walk(tx_, k, size, off,
-                                                                            out)
+    cuda_phi.phi_walk = lambda tx_, k, size, off, out, hi=None: cuda_phi.launch_walk(
+        tx_, k, size, off, out, hi)
     try:
         eq(TL.locate_ragged(tx, *got), JL.locate_ragged(dx, *want), "ragged")
         eq(TL.locate(tx, *got, max_hits=6), JL.locate(dx, *want, max_hits=6), "dense")
@@ -315,3 +341,106 @@ def test_route_is_chosen_by_the_tables(monkeypatch, route):
 def test_launch_plan(B, sms, threads):
     assert cuda_phi.launch_plan(B, sms) == threads
     assert threads == 256 or -(-B // threads) <= sms
+
+
+# ---------------------------------------------------------------------------
+# the kval route
+
+def _kval_walk(monkeypatch):
+    """phi_walk on CPU tensors through the modelled launch (hi passed on)."""
+    monkeypatch.setattr(cuda_phi, "phi_walk", lambda tx_, k, size, off, out, hi=None:
+                        cuda_phi.launch_walk(tx_, k, size, off, out, hi))
+
+
+@pytest.mark.parametrize("lanes", [torch.int32, torch.int64])
+def test_kval_model_matches_jax_dense(pair, fake_lib, monkeypatch, lanes):
+    """The modelled kval kernel through locate_ragged (each lane's hi handed)
+    == the JAX package's locate_ragged on the dense pair's toeholds, at
+    max_hits None, 1, 3 and the widest range, every lane's walk a kval
+    launch (no chain), on every lane and on a permutation of them; warps
+    hold lanes of size 0 and a last warp past B."""
+    dx, tx = pair[:2]
+    want, got = _toeholds(pair)
+    got = _lanes(got, lanes)
+    size = (got[1] - got[0] + 1).clamp(min=0)
+    widest = int(size.max())
+    assert (size == 0).any() and got[0].shape[0] % 32
+    fake_lib["install"](tx)
+    _kval_walk(monkeypatch)
+    perm = np.random.default_rng(3).permutation(got[0].shape[0])
+    for sel in (np.arange(got[0].shape[0]), perm):
+        w = tuple(jnp.asarray(np.asarray(t)[sel]) for t in want)
+        g = tuple(t[torch.from_numpy(sel)] for t in got)
+        for max_hits in (None, 1, 3, widest):
+            _eq(TL.locate_ragged(tx, *g, max_hits=max_hits),
+                JL.locate_ragged(dx, *w, max_hits=max_hits))
+    assert {c[0] for c in fake_lib["calls"]} == {"kval"}
+    assert cuda_phi.LAUNCHES_KVAL == len(fake_lib["calls"]) == 8 and cuda_phi.LAUNCHES == 0
+    B = got[0].shape[0]
+    assert all(c[1:] == (tx.arrays["kval"].element_size(), tx.n, (B, cuda_phi.launch_plan(B, 2)))
+               for c in fake_lib["calls"])
+
+
+@pytest.mark.parametrize("max_hits", [None, 1, 5])
+def test_kval_twin_matches_the_chain(pair, max_hits):
+    """kval_walk_plain on the toeholds' hi == phi_walk_plain, the chain over
+    phi1 from the toeholds, on every lane."""
+    tx = pair[1]
+    lo, hi, k = _toeholds(pair)[1]
+    k, size, off, out = _walk_args(tx, lo, hi, k, max_hits)
+    want = cuda_phi.phi_walk_plain(tx, k, size, off, out.clone())
+    got = cuda_phi.kval_walk_plain(tx, hi, size, off, out.clone())
+    assert torch.equal(got, want) and (got >= 0).all()
+
+
+def test_kval_route_needs_hi_and_the_full_sa(monkeypatch):
+    """The kval route is walk_route's only where hi is handed and kval holds
+    n entries; phi_walk takes the kval twin on the CPU and hands hi on to
+    the launch on a CUDA tensor only then, else the chain."""
+    n = 10
+    full = SimpleNamespace(arrays={"kval": torch.arange(n), "phi1": torch.arange(n)}, n=n)
+    part = SimpleNamespace(arrays={"kval": torch.arange(n - 1), "phi1": torch.arange(n)}, n=n)
+    bare = SimpleNamespace(arrays={"phi1": torch.arange(n)}, n=n)
+    assert cuda_phi.walk_route(full, by_hi=True) == "kval"
+    assert cuda_phi.walk_route(full) == "phi1"
+    assert cuda_phi.walk_route(part, by_hi=True) == "phi1"
+    assert cuda_phi.walk_route(bare, by_hi=True) == "phi1"
+    calls = []
+    monkeypatch.setattr(cuda_phi, "kval_walk_plain", lambda *a: calls.append("kval"))
+    monkeypatch.setattr(cuda_phi, "phi_walk_plain", lambda *a: calls.append("chain"))
+    monkeypatch.setattr(cuda_phi, "launch_walk", lambda *a: calls.append(("kernel", len(a))))
+    k = torch.zeros(2, dtype=torch.int64)
+    for tx, hi, want in ((full, k, "kval"), (full, None, "chain"), (part, k, "chain"),
+                         (bare, k, "chain")):
+        cuda_phi.phi_walk(tx, k, None, None, None, hi)
+        assert calls.pop() == want
+    cuda_k = SimpleNamespace(device=SimpleNamespace(type="cuda"), shape=(2,))
+    cuda_phi.phi_walk(full, cuda_k, None, None, None, k)
+    cuda_phi.phi_walk(full, cuda_k, None, None, None)
+    assert calls == [("kernel", 6), ("kernel", 6)]
+
+
+def test_chain_kept_for_arbitrary_toeholds(pair, fake_lib, monkeypatch):
+    """locate with toeholds that are not kval[hi] (whole-BWT ranges from
+    random positions, and the real toeholds) walks the chain over phi1 (the
+    modelled launch, no kval launch) and equals the JAX package's locate;
+    locate_ragged on an index without kval walks the chain though it hands
+    hi."""
+    dx, tx = pair[:2]
+    B = 37
+    rng = np.random.default_rng(4)
+    k = rng.integers(0, tx.n, B).astype(np.int32)
+    lo, hi = np.zeros(B, np.int32), np.full(B, tx.n - 1, np.int32)
+    fake_lib["install"](tx)
+    _kval_walk(monkeypatch)
+    _eq(TL.locate(tx, *(torch.from_numpy(a) for a in (lo, hi, k)), max_hits=9),
+        JL.locate(dx, *(jnp.asarray(a) for a in (lo, hi, k)), max_hits=9))
+    want, got = _toeholds(pair)
+    _eq(TL.locate(tx, *got, max_hits=4), JL.locate(dx, *want, max_hits=4))
+    assert {c[0] for c in fake_lib["calls"]} == {"phi1"}
+    assert cuda_phi.LAUNCHES == 2 and cuda_phi.LAUNCHES_KVAL == 0
+    bare = SimpleNamespace(arrays={k_: v for k_, v in tx.arrays.items() if k_ != "kval"},
+                           n=tx.n, R=tx.R)
+    fake_lib["calls"].clear()
+    _eq(TL.locate_ragged(bare, *got, max_hits=4), JL.locate_ragged(dx, *want, max_hits=4))
+    assert [c[0] for c in fake_lib["calls"]] == ["phi1"] and cuda_phi.LAUNCHES_KVAL == 0

@@ -3,9 +3,9 @@ samples alone (ops/cuda_lf.find_ranges_toehold, K1's toehold launch) and the
 walk kernel's predecessor route (ops/cuda_phi, route "pred").
 
 A numpy model of the kernel's search (csrc/lf.cu, the TOE instance: the LF
-steps over the fused rows, the trivial test from the row of hi + 1 or one
-word of hi's row, the last non-trivial step carried with a count of the
-trivial steps after it, one resolve a lane from tk1 or from ltk at the run
+steps over the fused rows, hi + 1's rank in hi's own row with the trivial
+test packed beside it, the last non-trivial step carried with a count of
+the trivial steps after it, one resolve a lane from tk1 or from ltk at the run
 found through the bucket directory rs_off over run_start) equals the JAX
 package's find_ranges_w_toehold buffer for buffer on a raw-built index (construct/rawio.write_raw, then
 build_index_from_raw) with occ1 + tk1 and on the same index with them
@@ -159,6 +159,28 @@ def _symbols(fb, syms):
     return sym.reshape(fb.shape[0], syms), fb[:, :8].astype(np.int64)
 
 
+def packed_rank(sym, ck, r, off, c, syms):
+    """rank(i, c) and [BWT[i - 1] == c] at in-row offset `off` (1 <= off <=
+    syms) of row r (i = r * syms + off; numpy arrays or ints) as
+    csrc/lf_rank.cuh rank_pair_toe gets them: each of a lane's two threads
+    holds the checkpoints 4 * sub to 4 * sub + 3 and the 32-symbol blocks b
+    with b % 2 == sub, and adds 2 * (its checkpoint of c and its count of c
+    below off) + [it holds the symbol at off - 1 and that symbol is c]
+    (toe_share) in uint32; one shuffle sums the two, whose half is the
+    rank and whose low bit the test."""
+    r, off, c = np.broadcast_arrays(np.asarray(r), np.asarray(off), np.asarray(c))
+    pos = np.arange(syms)
+    packed = np.zeros(r.shape, np.int64)
+    for sub in (0, 1):
+        held = (pos // 32) % 2 == sub
+        below = (sym[r] == c[..., None]) & held & (pos < off[..., None])
+        last = ((off >= 1) & held[np.maximum(off - 1, 0)]
+                & (sym[r, np.maximum(off - 1, 0)] == c))
+        share = np.where(c >> 2 == sub, ck[r, c], 0) + below.sum(-1)
+        packed = (packed + 2 * share + last) % (1 << 32)
+    return packed >> 1, (packed & 1) == 1
+
+
 def run_of(t, x, bump=lambda key: None):
     """(run of position x, its start) as lf_tables.cuh run_of finds them: x
     + 1's bucket of the directory t["rs_off"] (shift t["shift"]), then at
@@ -202,9 +224,10 @@ def resolve_run(t, n, thi):
 def kernel_model(fb, syms, F, A, n, q, lens, tk1, ltk, run_start, samples_last, R,
                  directory=None, events=None):
     """(lo, hi, k) int32 [B] as csrc/lf.cu's toehold instance computes them:
-    K1's steps from the full range over the fused rows; the trivial test
-    (BWT[hi] == c) from the symbol before hi + 1 in hi + 1's row, or from
-    hi's own row where hi + 1 starts a row or equals n; the last
+    K1's steps from the full range over the fused rows, hi + 1's rank taken
+    in hi's own row at in-row offset (hi mod syms) + 1 (the whole row where
+    hi + 1 starts the next one or equals n), the trivial test (BWT[hi] ==
+    c) its packed low bit (packed_rank); the last
     non-trivial step's code and pre-step hi and the trivial steps after it;
     then k = the table value of that step (tk1 where given, else ltk at the
     run of hi, found through the bucket directory over run_start,
@@ -248,18 +271,17 @@ def kernel_model(fb, syms, F, A, n, q, lens, tk1, ltk, run_start, samples_last, 
                 lo, hi = 1, 0
                 break
             i1 = hi + 1
-            o1 = i1 & (syms - 1)
-            if i1 < n and o1:
-                s = sym[i1 >> shift, o1 - 1]
-            else:
+            if i1 == n or i1 & (syms - 1) == 0:
                 bump("hi1_is_n" if i1 == n else "hi1_row_start")
-                s = sym[hi >> shift, hi & (syms - 1)]
             cb, ce = rank(lo, c), rank(i1, c)
+            ce_packed, trivial = packed_rank(sym, ck, hi >> shift, (hi & (syms - 1)) + 1, c,
+                                             syms)
+            assert ce_packed == ce
             if ce - cb <= 0:
                 bump("fail_first_step" if j == 0 else "fail_later")
                 lo, hi = 1, 0
                 break
-            if s == c:
+            if trivial:
                 bump("trivial")
                 if kstep == 0:
                     bump("k_wraps")
@@ -347,6 +369,24 @@ def test_model_reaches_every_edge(raw_cases, route):
     assert all(events.get(e, 0) > 0 for e in want), events
 
 
+@pytest.mark.parametrize("route", ROUTES)
+def test_model_reaches_every_edge_at_128_symbol_rows(raw_cases, route):
+    """The model over 128-symbol rows (fblock) on both indexes at L = 100
+    equals the JAX package's find_ranges_w_toehold, its lanes reaching hi +
+    1 == n, hi + 1 at a row start, trivial steps inside a row and lanes
+    without a non-trivial step."""
+    events = {}
+    for name in ("panel", "random"):
+        idx, text, reads = raw_cases[name]
+        dx, tx = _pair(idx, route, fb64=False)
+        assert cuda_lf.row_layout(tx) == "fblock"
+        qc, lens = _lanes(idx, text, reads, 100)
+        _eq(_model_on(tx, qc, lens, events), _jax(dx, qc, lens))
+    want = ("hi1_is_n", "hi1_row_start", "trivial", "nontrivial", "k_wraps",
+            "no_nontrivial_step", "fail_later")
+    assert all(events.get(e, 0) > 0 for e in want), events
+
+
 def test_raw_toeholds_equal_the_full_sa_index(raw_cases):
     """The same lanes on the index built with the full SA (kval: the
     toehold is SA[hi]) give the raw index's lo, hi and k."""
@@ -361,22 +401,29 @@ def test_raw_toeholds_equal_the_full_sa_index(raw_cases):
 
 @pytest.mark.parametrize("syms", [64, 128])
 def test_model_symbol_at_every_hi(raw_cases, syms):
-    """The model's trivial test reads the right symbol at every hi: the one
-    before hi + 1 in hi + 1's row, or hi's own where hi + 1 starts a row or
-    equals n (the last row's padding is never read)."""
+    """The model's trivial test is right at every hi and for every code: the
+    packed rank of hi + 1 in hi's own row (packed_rank, the two threads'
+    shares in uint32) is rank(hi + 1, c) and its low bit BWT[hi] == c,
+    where hi + 1 starts a row or equals n too (the whole row counted; the
+    last row's padding is never read)."""
     idx = raw_cases["panel"][0]
     tx = TorchIndex.from_index(idx, "cpu", fb64=syms == 64)
     fb = tx.arrays["fblock64" if syms == 64 else "fblock"].numpy()
-    sym, _ = _symbols(fb, syms)
+    sym, ck = _symbols(fb, syms)
     n, shift = idx.n, syms.bit_length() - 1
+    bwt = np.repeat(idx.run_head, idx.run_lengths()).astype(np.int64)
     hi = np.arange(n)
     i1 = hi + 1
-    o1 = i1 & (syms - 1)
-    from_next = (i1 < n) & (o1 > 0)
-    r1 = np.minimum(i1, n - 1) >> shift
-    got = np.where(from_next, sym[r1, np.maximum(o1 - 1, 0)], sym[hi >> shift, hi & (syms - 1)])
-    np.testing.assert_array_equal(got, np.repeat(idx.run_head, idx.run_lengths()))
-    assert (~from_next).sum() == -(-n // syms)
+    assert ((i1 == n) | (i1 & (syms - 1) == 0)).sum() == -(-n // syms)  # whole rows counted
+    occ = np.zeros(idx.A, np.int64)
+    rank_i1 = np.zeros((n, idx.A), np.int64)  # rank(hi + 1, c)
+    for i, c in enumerate(bwt.tolist()):
+        occ[c] += 1
+        rank_i1[i] = occ
+    for c in range(idx.A):
+        rank, trivial = packed_rank(sym, ck, hi >> shift, (hi & (syms - 1)) + 1, c, syms)
+        np.testing.assert_array_equal(rank, rank_i1[:, c])
+        np.testing.assert_array_equal(trivial, bwt == c)
 
 
 # ---------------------------------------------------------------------------
@@ -647,7 +694,7 @@ def pred_model(pp, ptr, sl, R, n, i, directory):
 
 def _pred_lib(calls, rc):
     def rbt_phi_walk_pred(pp, ptr, sl, nbytes, R, poff, off_b, n_off, shift, iters, n, k, size,
-                          off, order, out, B, threads, stream):
+                          off, out, B, threads, stream):
         calls.append(dict(bytes=nbytes, R=R, n=n, B=B, threads=threads, stream=stream,
                           directory=(poff, off_b, n_off, shift, iters)))
         if rc:
@@ -655,8 +702,7 @@ def _pred_lib(calls, rc):
         assert n_off == (n >> shift) + 2
         directory = {"pred_off": _ints(poff, n_off, off_b), "shift": shift, "iters": iters}
         pp, ptr, sl = (_ints(p, R, nbytes) for p in (pp, ptr, sl))
-        k, size, off, order = (_ints(p, B, 8) for p in (k, size, off, order))
-        assert np.array_equal(np.sort(order), np.arange(B)) and (np.diff(size[order]) <= 0).all()
+        k, size, off = (_ints(p, B, 8) for p in (k, size, off))
         flat = _ints(out, int((off + size).max(initial=0)), 8)
         i = k.astype(np.int64)  # every lane's chain, one step of all at a time
         for j in range(int(size.max(initial=0))):
